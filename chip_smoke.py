@@ -1,0 +1,374 @@
+#!/usr/bin/env python3
+"""Chip smoke test of the PyTorch + CUDA port on one NVIDIA GPU.
+
+    python3 chip_smoke.py [--rows N]
+
+Drives ``learnedmetricindex_tpu_torch`` through its public entry points
+at the reference's flagship configuration — a 1-level, 120-bucket MLP-4
+index over a 10M×768 int8 packed store, 10k queries visiting 4 buckets,
+k=10 — in phases:
+
+1. device: CUDA must be present; prints the card's name and power limit;
+2. build: compiles ``csrc/scan_pairs.cu`` with nvcc for sm_90a;
+3. kernel vs plain: the scan kernel against its plain PyTorch version on
+   the card, all three modes, several ``k`` and ``qtile``;
+4. main path: seeded corpus on the device, an index whose MLP-4 encodes
+   a nearest-centroid partition exactly, .npz round trip, packed store,
+   timed searches, and checks against exact kNN restricted to each
+   query's visited buckets; then the kernel and its plain version timed
+   at the flagship shape.
+
+Any failure raises (exit code 1).  Without CUDA it exits non-zero and
+prints no result.  The last two lines are the kernels JSON and the
+result JSON.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+import learnedmetricindex_tpu_torch as lmi
+from learnedmetricindex_tpu_torch.data import BlobGenerator
+from learnedmetricindex_tpu_torch.index.bucket_store import BucketStore, scan_inputs
+from learnedmetricindex_tpu_torch.index.serialization import index_from_arrays
+from learnedmetricindex_tpu_torch.ops import quantize, scan_kernel
+from learnedmetricindex_tpu_torch.ops.knn import recall, restricted_knn
+
+ROOT = Path(__file__).resolve().parent
+WORK_DIR = ROOT / "build" / "chip_smoke"
+
+# the scan kernel against its plain version: sorted candidate distances,
+# and slot ids that may differ only where the distances are tied
+RTOL, ATOL = 1e-4, 1e-5
+TIE_RTOL, TIE_ATOL = 1e-6, 1e-7
+# ... where "tied" for f32 sums of 768 products means within their
+# rounding: the kernel's FMA chain and cuBLAS add in other orders and
+# differ by up to 1.3e-6 on unit vectors (H100 runs); int8 sums are
+# exact in both, so int8 keeps the tight bar
+FLOAT_TIE_ATOL = 5e-6
+REPLACES = "learnedmetricindex_tpu/ops/scan_kernel.py:325"
+KERNEL_SOURCE = "learnedmetricindex_tpu_torch/csrc/scan_pairs.cu"
+
+
+def check(cond: bool, msg: str) -> None:
+    if not cond:
+        raise RuntimeError(f"chip_smoke check failed: {msg}")
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def cuda_ms(fn, reps: int) -> float:
+    """Mean milliseconds of ``fn()`` over ``reps`` runs after one warmup,
+    from CUDA events around the whole run."""
+    fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def compare_candidates(kd, ks, rd, rs, mode: str, what: str) -> float:
+    """Kernel (kd, ks) against plain (rd, rs), both ascending per query;
+    returns the largest finite |distance difference|."""
+    kd, ks, rd, rs = (t.cpu().numpy() for t in (kd, ks, rd, rs))
+    check(np.array_equal(np.isinf(kd), np.isinf(rd)), f"{what}: filled entries differ")
+    np.testing.assert_allclose(kd, rd, rtol=RTOL, atol=ATOL, err_msg=what)
+    mism = ks != rs
+    if mism.any():
+        tie_atol = TIE_ATOL if mode == "int8" else FLOAT_TIE_ATOL
+        np.testing.assert_allclose(kd[mism], rd[mism], rtol=TIE_RTOL, atol=tie_atol,
+                                   err_msg=f"{what}: slots differ off ties")
+    fin = np.isfinite(rd)
+    return float(np.abs(kd[fin] - rd[fin]).max()) if fin.any() else 0.0
+
+
+def same_neighbors(da, ia, db, ib, what: str) -> int:
+    """Two (Q, k) search results agree: distances to the bar, ids except
+    where the f32 distances tie.  Returns how many ids differ at ties."""
+    np.testing.assert_allclose(da, db, rtol=RTOL, atol=ATOL, err_msg=what)
+    mism = ia != ib
+    if mism.any():
+        np.testing.assert_allclose(da[mism], db[mism], rtol=TIE_RTOL, atol=FLOAT_TIE_ATOL,
+                                   err_msg=f"{what}: ids differ off ties")
+    return int(mism.sum())
+
+
+# ----------------------------------------------------------------------
+# phases
+# ----------------------------------------------------------------------
+def phase_device() -> str:
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: CUDA is not available; nothing was run")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        check=True, capture_output=True, text=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+    log(f"[device] {torch.cuda.get_device_name(0)}; torch {torch.__version__}, "
+        f"CUDA {torch.version.cuda}, {torch.cuda.device_count()} device(s)")
+    log(smi)
+    return smi
+
+
+def phase_build() -> None:
+    path, seconds = scan_kernel.build()
+    log(f"[build] {KERNEL_SOURCE} -> {path.relative_to(ROOT)} "
+        f"(nvcc {' '.join(scan_kernel.NVCC_FLAGS)}) in {seconds:.1f} s")
+    report = path.with_suffix(".log").read_text() if path.with_suffix(".log").exists() else ""
+    for line in report.splitlines():
+        if "registers" in line or "spill" in line:
+            log(f"[build]   {line.strip()}")
+
+
+def phase_kernel_vs_plain(dev) -> float:
+    """Small multi-chunk store at d=768 with an empty bucket, padding
+    slots and a chunk that is not a whole number of row tiles."""
+    g = BlobGenerator(16, 768, seed=7, noise=0.45, device=dev)
+    n, nb, chunk = 6000, 7, 320
+    data = g.rows(n)
+    rng = np.random.default_rng(7)
+    bucket_ids = rng.integers(0, nb, size=n)
+    bucket_ids[bucket_ids == 3] = 4  # bucket 3 empty
+    q_int, q_sc = quantize.quantize_rows(data)
+    stores = {
+        "f32": BucketStore.build_packed_device(data, bucket_ids, nb, chunk=chunk),
+        "bf16": BucketStore.build_packed_device(data.bfloat16(), bucket_ids, nb, chunk=chunk),
+        "int8": BucketStore.build_packed_device(q_int, bucket_ids, nb, chunk=chunk, row_scales=q_sc),
+    }
+    queries = g.rows(300)
+    order = torch.as_tensor(
+        np.stack([rng.choice(nb, size=3, replace=False) for _ in range(300)]), device=dev
+    )
+    order[:20, 2] = -1
+    worst = 0.0
+    # (mode, k, qtile, store): every mode with k 12/16/24 and qtile
+    # 8/16/128, over every store type the mode takes
+    cases = [("f32", 12, 128, "f32"), ("f32", 24, 8, "int8"), ("f32", 16, 16, "bf16"),
+             ("bf16", 16, 128, "int8"), ("bf16", 24, 16, "f32"), ("bf16", 12, 8, "bf16"),
+             ("int8", 16, 128, "int8"), ("int8", 12, 8, "int8"), ("int8", 24, 16, "int8")]
+    for mode, k, qtile, store_name in cases:
+        store = stores[store_name]
+        plan, args = scan_inputs(store, queries, order, qtile, mode)
+        kw = dict(k=k, qtile=qtile, chunk=chunk, mode=mode)
+        kd, ks = scan_kernel.scan_pairs(*args, **kw)
+        torch.cuda.synchronize()
+        rd, rs = scan_kernel.scan_pairs_reference(*args, **kw)
+        err = compare_candidates(kd, ks, rd, rs, mode, f"{mode} k={k} qtile={qtile}")
+        n_swapped = int((ks != rs).sum().item())
+        worst = max(worst, err)
+        log(f"[kernel-vs-plain] {mode:4s} store={store.chunk_data.dtype} k={k:2d} "
+            f"qtile={qtile:3d} pairs={plan.n_pairs}: agree, max|Δd|={err:.3g}, "
+            f"{n_swapped} slots swapped at ties")
+    return worst
+
+
+def phase_main(dev, args, smi: str):
+    n, d, nb, chunk, nq, seed = args.rows, 768, 120, 2048, 10_000, 2023
+    t_all = time.perf_counter()
+    gen = BlobGenerator(256, d, seed=seed, noise=0.45, device=dev)
+    queries = gen.rows(nq)
+    cent_rows = torch.randperm(n, generator=torch.Generator().manual_seed(seed))[:nb]
+    centroids = torch.empty(nb, d, device=dev)
+
+    # corpus, generated and quantized in blocks (the f32 corpus is never
+    # resident), with the exact f32 top-10 of every query merged per block
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    corpus = torch.empty(n, d, dtype=torch.int8, device=dev)
+    row_scales = torch.empty(n, device=dev)
+    gt_d = torch.full((nq, 10), -torch.inf, device=dev)
+    gt_i = torch.zeros((nq, 10), dtype=torch.int64, device=dev)
+    block = 500_000
+    for s0 in range(0, n, block):
+        x = gen.rows(min(block, n - s0))
+        corpus[s0 : s0 + len(x)], row_scales[s0 : s0 + len(x)] = quantize.quantize_rows(x)
+        hit = (cent_rows >= s0) & (cent_rows < s0 + len(x))
+        if hit.any():
+            centroids[hit.nonzero()[:, 0].to(dev)] = x[(cent_rows[hit] - s0).to(dev)]
+        for q0 in range(0, nq, 2500):
+            sims = queries[q0 : q0 + 2500] @ x.T
+            v, i = torch.topk(sims, 10, dim=1)
+            cat_v = torch.cat([gt_d[q0 : q0 + 2500], v], 1)
+            cat_i = torch.cat([gt_i[q0 : q0 + 2500], i + s0], 1)
+            v, j = torch.topk(cat_v, 10, dim=1)
+            gt_d[q0 : q0 + 2500], gt_i[q0 : q0 + 2500] = v, torch.gather(cat_i, 1, j)
+        del x
+    torch.cuda.synchronize()
+    gt_ids = (gt_i + 1).cpu().numpy()
+    log(f"[corpus] {n}x{d} int8 + f32 row scales on device, 256 latent clusters, "
+        f"noise 0.45/sqrt(d), seed {seed}: {time.perf_counter() - t0:.1f} s "
+        f"(with the exact f32 top-10 of {nq} queries)")
+
+    # MLP-4 (768 → 512 → 120) that encodes nearest-centroid exactly:
+    # hidden j and 120+j are relu(±c_j·x), W2 takes their difference to
+    # logit j, b2 = −|c_j|²/2, so argmax = the nearest c_j in L2
+    w1 = np.zeros((1, d, 512), np.float32)
+    w2 = np.zeros((1, 512, nb), np.float32)
+    c = centroids.cpu().numpy()
+    w1[0, :, :nb], w1[0, :, nb : 2 * nb] = c.T, -c.T
+    w2[0, np.arange(nb), np.arange(nb)] = 1.0
+    w2[0, nb + np.arange(nb), np.arange(nb)] = -1.0
+    b2 = (-0.5 * (c * c).sum(1))[None, :].astype(np.float32)
+    params = [{"w": w1, "b": np.zeros((1, 512), np.float32)}, {"w": w2, "b": b2}]
+    cfg = lmi.BuildConfiguration("kmeans", 4, "MLP-4", 0.01, [nb], chunk_size=chunk)
+    built = index_from_arrays(cfg, [params], [np.ones((1, nb), bool)], ["MLP-4"],
+                              np.ones(nb, bool), dev)
+    WORK_DIR.mkdir(parents=True, exist_ok=True)
+    path = WORK_DIR / "index.npz"
+    lmi.save_index(built, str(path))
+    index, saved_pred = lmi.LearnedIndex.load(str(path), dev)
+    check(saved_pred is None, "no data_prediction was saved")
+    for a, b in zip(built.levels[0].mlp.parameters(), index.levels[0].mlp.parameters()):
+        check(torch.equal(a, b), "weights survive the .npz round trip")
+    log(f"[index] 1-level, {nb} buckets, MLP-4 768->512->{nb}; saved and reloaded "
+        f"{path.relative_to(ROOT)} ({path.stat().st_size} bytes)")
+
+    # buckets: argmax of the loaded index's navigation forward
+    t0 = time.perf_counter()
+    pred = torch.empty(n, dtype=torch.int64, device=dev)
+    with torch.no_grad():
+        for s0 in range(0, n, block):
+            x = quantize.dequantize_rows(corpus[s0 : s0 + block], row_scales[s0 : s0 + block])
+            pred[s0 : s0 + block] = index.levels[0].mlp(x)[0].argmax(1)
+    data_prediction = pred.cpu().numpy()[:, None]
+    sizes = np.bincount(data_prediction[:, 0], minlength=nb)
+    log(f"[buckets] navigation argmax over the corpus: {time.perf_counter() - t0:.1f} s; "
+        f"bucket sizes min {sizes.min()} median {int(np.median(sizes))} max {sizes.max()}")
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    store = index.prepare_packed_store((corpus, row_scales), data_prediction)
+    torch.cuda.synchronize()
+    log(f"[store] packed int8 store on device: {store.n_chunks} chunks of {chunk}, "
+        f"{store.nbytes() / 1e9:.2f} GB, {time.perf_counter() - t0:.1f} s")
+    del corpus, row_scales, pred  # the store stands alone
+    torch.cuda.empty_cache()
+
+    def search(q, n_buckets=4, precision="default"):
+        return index.search(None, q, None, q, data_prediction, n_buckets=n_buckets,
+                            k=10, store=store, precision=precision)
+
+    # ---- the main path: every launch from here to the read counts ----
+    torch.cuda.reset_peak_memory_stats()
+    scan_kernel.LAUNCHES = 0
+    search(queries)  # warmup
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        dists, ids, measured = search(queries)
+        times.append(time.perf_counter() - t0)
+    res = {"default": (dists, ids)}
+    for prec in ("highest", "int8"):
+        t0 = time.perf_counter()
+        res[prec] = search(queries, precision=prec)[:2]
+        log(f"[search] precision={prec}: {time.perf_counter() - t0:.4f} s per {nq} queries")
+    one = search(queries[:1])
+    hundred = search(queries[:100])
+    launches = scan_kernel.LAUNCHES
+    peak = torch.cuda.max_memory_allocated()
+    # ------------------------------------------------------------------
+    check(launches > 0, "the main path launched the scan kernel")
+    check(set(measured) == {"inference", "search", "search_within_buckets", "seq_search", "sort"},
+          "measured keys")
+    check(one[0].shape == (1, 10) and hundred[0].shape == (100, 10), "small requests' shapes")
+    same_neighbors(one[0], one[1], dists[:1], ids[:1], "1-query request vs the batch")
+    same_neighbors(hundred[0], hundred[1], dists[:100], ids[:100], "100-query request vs the batch")
+    for prec, (dd, ii) in res.items():
+        check(dd.shape == (nq, 10) and dd.dtype == np.float32 and ii.dtype == np.uint32,
+              f"{prec}: result shapes and types")
+        check(bool(np.isfinite(dd).all()) and bool((ii > 0).all()), f"{prec}: finite, filled")
+    mean_s = float(np.mean(times))
+    log(f"[search] precision=default, n_buckets=4, k=10: reps {[round(t, 4) for t in times]} s; "
+        f"mean {mean_s:.4f} s per {nq} queries = {nq / mean_s:.0f} QPS; "
+        f"inference {measured['inference']:.4f} s, scan {measured['seq_search']:.4f} s; "
+        f"peak device memory {peak / 1e9:.2f} GB; kernel launches {launches}  [{smi}]")
+
+    # ---- checks against exact kNN over each query's visited buckets ----
+    nc = 256
+    qc = queries[:nc]
+    order, _ = index.compute_bucket_order(qc, 4, keep_on_device=True)
+    ref_d, ref_i = restricted_knn(store, qc, order, 10)
+    ref_d, ref_i = ref_d.cpu().numpy(), ref_i.cpu().numpy()
+    n_tied = same_neighbors(res["highest"][0][:nc], res["highest"][1][:nc], ref_d, ref_i,
+                            "highest vs visited-bucket exact kNN")
+    for prec in ("default", "int8"):
+        r = recall(res[prec][1][:nc], ref_i, 10)
+        check(r >= 0.999, f"{prec}: recall {r} vs visited-bucket exact")
+        log(f"[check] precision={prec}: recall@10 vs visited-bucket exact kNN = {r:.4f} ({nc} queries)")
+    log(f"[check] precision=highest: equals visited-bucket exact kNN ({nc} queries, "
+        f"{n_tied} ids differ at ties)")
+    full_order = torch.arange(nb, device=dev).repeat(nc, 1)
+    fd, fi = restricted_knn(store, qc, full_order, 10)
+    fd, fi = fd.cpu().numpy(), fi.cpu().numpy()
+    ad, ai, _ = search(qc, n_buckets=nb, precision="highest")
+    same_neighbors(ad, ai, fd, fi, f"n_buckets={nb} vs whole-store exact kNN")
+    r_all = recall(ai, fi, 10)
+    log(f"[check] n_buckets={nb}: recall@10 vs whole-store exact kNN = {r_all:.4f} ({nc} queries)")
+    log(f"[recall] whole-corpus recall@10 of the {nq} queries at n_buckets=4 (default precision) "
+        f"vs exact f32 kNN over the generated corpus: {recall(res['default'][1], gt_ids, 10):.4f}")
+
+    # ---- the kernel and its plain version at the flagship shape ----
+    order, _ = index.compute_bucket_order(queries, 4, keep_on_device=True)
+    timing = {}
+    for mode in ("bf16", "f32", "int8"):
+        plan, sargs = scan_inputs(store, queries, order, 128, mode)
+        kw = dict(k=16, qtile=128, chunk=chunk, mode=mode)
+        rows = plan.pair_bucket.long()
+        n_rows = (torch.as_tensor(np.diff(store.bucket_chunk_start), device=dev)[rows] * chunk).sum()
+        macs = float(n_rows) * 128 * d
+        k_ms = cuda_ms(lambda: scan_kernel.scan_pairs(*sargs, **kw), 3)
+        p_ms = cuda_ms(lambda: scan_kernel.scan_pairs_reference(*sargs, **kw), 1)
+        kd, ks = scan_kernel.scan_pairs(*sargs, **kw)
+        rd, rs = scan_kernel.scan_pairs_reference(*sargs, **kw)
+        err = compare_candidates(kd, ks, rd, rs, mode, f"flagship {mode}")
+        timing[mode] = (k_ms, p_ms, err)
+        log(f"[flagship] scan_pairs {mode}: kernel {k_ms:.2f} ms, plain {p_ms:.2f} ms, "
+            f"{plan.n_pairs} pairs, {macs:.3g} MAC -> {macs / k_ms / 1e9:.1f} TMAC/s; "
+            f"agree, max|Δd|={err:.3g}  [{smi}]")
+    log(f"[main] total {time.perf_counter() - t_all:.1f} s")
+    return launches, timing
+
+
+def main() -> None:
+    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("--rows", type=int, default=10_000_000, help="corpus rows")
+    args = p.parse_args()
+
+    smi = phase_device()
+    dev = torch.device("cuda", 0)
+    phase_build()
+    small_err = phase_kernel_vs_plain(dev)
+    launches, timing = phase_main(dev, args, smi)
+    k_ms, p_ms, flag_err = timing["bf16"]
+    print(json.dumps({"kernels": [{
+        "name": "scan_pairs",
+        "route": "cuda",
+        "source": KERNEL_SOURCE,
+        "replaces": REPLACES,
+        "launches": launches,
+        "max_abs_err": max(small_err, *(t[2] for t in timing.values())),
+        "ms": k_ms,
+        "plain_ms": p_ms,
+    }]}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu",
+        "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count(),
+    }}))
+
+
+if __name__ == "__main__":
+    sys.exit(main())

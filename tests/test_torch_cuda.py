@@ -1,0 +1,112 @@
+"""The CUDA scan kernel against its plain PyTorch version, and the port's
+search on the GPU against the same search on the CPU.
+
+These need an NVIDIA GPU (sm_90a) and nvcc and skip elsewhere.  The file
+imports no jax, so on a machine with a GPU and no jax it runs alone:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from learnedmetricindex_tpu_torch.index.bucket_store import BucketStore, build_plan, scan_inputs
+from learnedmetricindex_tpu_torch.index.serialization import index_from_arrays
+import learnedmetricindex_tpu_torch as lmi
+from learnedmetricindex_tpu_torch.ops import quantize, scan_kernel
+
+torch.set_num_threads(2)
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device: the scan kernel runs only on the GPU")
+    return torch.device("cuda")
+
+
+def _corpus(n, d, seed):
+    rng = np.random.default_rng(seed)
+    centers = rng.normal(size=(12, d)).astype(np.float32)
+    x = centers[rng.integers(0, 12, n)] + 0.3 * rng.normal(size=(n, d)).astype(np.float32)
+    return (x / np.linalg.norm(x, axis=1, keepdims=True)).astype(np.float32), rng
+
+
+@pytest.mark.parametrize(
+    "mode,store_dtype,k,qtile",
+    [("f32", "float32", 12, 128), ("f32", "int8", 24, 8), ("bf16", "bfloat16", 16, 16),
+     ("bf16", "int8", 10, 128), ("int8", "int8", 24, 16), ("int8", "int8", 16, 128)],
+)
+def test_kernel_matches_plain_version(cuda, mode, store_dtype, k, qtile):
+    """Multi-chunk buckets, an empty bucket, padding slots, a chunk that
+    is not a whole number of the kernel's 128-row tiles, unused visits."""
+    data, rng = _corpus(3000, 64, seed=5)
+    nb, chunk = 6, 96
+    bucket_ids = rng.integers(0, nb, 3000)
+    bucket_ids[bucket_ids == 2] = 3
+    if store_dtype == "int8":
+        store = BucketStore.build_packed_int8(data, bucket_ids, nb, chunk=chunk, device=cuda)
+    else:
+        store = BucketStore.build(data, bucket_ids, nb, chunk=chunk, dtype=store_dtype, device=cuda)
+    queries = torch.as_tensor(data[:150] + 0.05, device=cuda)
+    order = torch.as_tensor(np.stack([rng.choice(nb, 3, replace=False) for _ in range(150)]),
+                            device=cuda)
+    order[:10, 2] = -1
+    _, args = scan_inputs(store, queries, order, qtile, mode)
+    kw = dict(k=k, qtile=qtile, chunk=chunk, mode=mode)
+    before = scan_kernel.LAUNCHES
+    kd, ks = scan_kernel.scan_pairs(*args, **kw)
+    torch.cuda.synchronize()
+    assert scan_kernel.LAUNCHES == before + 1
+    rd, rs = scan_kernel.scan_pairs_reference(*args, **kw)
+    assert scan_kernel.LAUNCHES == before + 1
+    kd, ks, rd, rs = (t.cpu().numpy() for t in (kd, ks, rd, rs))
+    np.testing.assert_array_equal(np.isinf(kd), np.isinf(rd))
+    np.testing.assert_allclose(kd, rd, rtol=1e-4, atol=1e-5)
+    mism = ks != rs
+    if mism.any():
+        # f32 sums of 64 products in two orders: ties within their rounding
+        np.testing.assert_allclose(kd[mism], rd[mism], rtol=1e-6, atol=4e-7)
+
+
+def test_kernel_rejects_what_it_does_not_take(cuda):
+    store = BucketStore.build(np.ones((64, 6), np.float32), np.zeros(64, int), 1, chunk=32,
+                              device=cuda)
+    plan = build_plan(torch.zeros((4, 1), dtype=torch.int64, device=cuda), 1, 8)
+    q8, qs = quantize.quantize_rows(torch.ones((4, 6), device=cuda))
+    args = (q8, plan.qidx, plan.pair_bucket,
+            torch.as_tensor(store.bucket_chunk_start, dtype=torch.int32, device=cuda),
+            torch.arange(store.n_chunks, dtype=torch.int32, device=cuda),
+            store.chunk_data.to(torch.int8), store.scales_flat(), qs)
+    with pytest.raises(ValueError, match="d % 4"):
+        scan_kernel.scan_pairs(*args, k=4, qtile=8, chunk=32, mode="int8")
+    with pytest.raises(ValueError, match="device"):
+        scan_kernel.scan_pairs(*(a.cpu() if i == 0 else a for i, a in enumerate(args)),
+                               k=4, qtile=8, chunk=32, mode="int8")
+
+
+@pytest.mark.parametrize("precision", ["highest", "default", "int8"])
+def test_search_on_gpu_matches_cpu(cuda, precision):
+    data, rng = _corpus(4000, 64, seed=9)
+    nb = 8
+    params = [{"w": rng.normal(size=(1, 64, 32)).astype(np.float32),
+               "b": np.zeros((1, 32), np.float32)},
+              {"w": rng.normal(size=(1, 32, nb)).astype(np.float32),
+               "b": np.zeros((1, nb), np.float32)}]
+    cfg = lmi.BuildConfiguration("kmeans", 1, "MLP-6", 0.01, [nb], chunk_size=128)
+    pred = rng.integers(0, nb, (4000, 1))
+    results = []
+    for dev in ("cpu", cuda):
+        index = index_from_arrays(cfg, [params], [np.ones((1, nb), bool)], ["MLP-6"],
+                                  np.ones(nb, bool), dev)
+        store = BucketStore.build_packed_int8(
+            data, index.bucket_ids_from_prediction(pred), nb, chunk=128, device=dev)
+        results.append(index.search(None, data[:300], None, data[:300], pred, n_buckets=3,
+                                    k=10, store=store, precision=precision))
+    (cd, ci, _), (gd, gi, _) = results
+    np.testing.assert_allclose(gd, cd, rtol=1e-4, atol=1e-5)
+    mism = gi != ci
+    if mism.any():
+        np.testing.assert_allclose(gd[mism], cd[mism], rtol=1e-6, atol=4e-7)

@@ -1,0 +1,118 @@
+"""The port imports and runs without jax, names its devices explicitly,
+and carries the configuration surface of the JAX package."""
+
+import pathlib
+import subprocess
+import sys
+
+import pytest
+import torch
+
+import learnedmetricindex_tpu_torch as lmi
+
+torch.set_num_threads(2)
+
+PACKAGE = pathlib.Path(lmi.__file__).resolve().parent
+ROOT = PACKAGE.parent
+
+MODULES = [
+    "learnedmetricindex_tpu_torch",
+    "learnedmetricindex_tpu_torch.config",
+    "learnedmetricindex_tpu_torch.data",
+    "learnedmetricindex_tpu_torch.models.mlp",
+    "learnedmetricindex_tpu_torch.ops.knn",
+    "learnedmetricindex_tpu_torch.ops.quantize",
+    "learnedmetricindex_tpu_torch.ops.scan_kernel",
+    "learnedmetricindex_tpu_torch.ops.select",
+    "learnedmetricindex_tpu_torch.index.bucket_store",
+    "learnedmetricindex_tpu_torch.index.index",
+    "learnedmetricindex_tpu_torch.index.navigation",
+    "learnedmetricindex_tpu_torch.index.serialization",
+]
+
+
+def _run_without_jax(body: str) -> subprocess.CompletedProcess:
+    code = "import sys\nsys.modules['jax'] = None\n" + body
+    return subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=300
+    )
+
+
+def test_imports_and_searches_without_jax(tmp_path):
+    """Every module imports with jax unimportable, and a tiny index saves,
+    loads and searches on the CPU."""
+    body = f"""
+import importlib
+import numpy as np, torch
+torch.set_num_threads(1)
+for m in {MODULES!r}:
+    importlib.import_module(m)
+import learnedmetricindex_tpu_torch as lmi
+from learnedmetricindex_tpu_torch.index.serialization import index_from_arrays
+rng = np.random.default_rng(0)
+data = rng.normal(size=(300, 8)).astype(np.float32)
+data /= np.linalg.norm(data, axis=1, keepdims=True)
+cfg = lmi.BuildConfiguration("kmeans", 1, "MLP-8", 0.01, [4], chunk_size=32)
+params = [{{"w": rng.normal(size=(1, 8, 8)).astype(np.float32), "b": np.zeros((1, 8), np.float32)}},
+          {{"w": rng.normal(size=(1, 8, 4)).astype(np.float32), "b": np.zeros((1, 4), np.float32)}}]
+index = index_from_arrays(cfg, [params], [np.ones((1, 4), bool)], ["MLP-8"], np.ones(4, bool), "cpu")
+pred = rng.integers(0, 4, (300, 1))
+index.save({str(tmp_path / 'i.npz')!r}, pred)
+index, pred = lmi.LearnedIndex.load({str(tmp_path / 'i.npz')!r}, "cpu")
+d, i, t = index.search(None, data[:5], data, data[:5], pred, n_buckets=4, k=3, precision="highest")
+assert (i[:, 0] == np.arange(1, 6)).all(), i
+loaded = [m for m, v in sys.modules.items() if v is not None and (m == "jax" or m.startswith("jax."))]
+assert not loaded, loaded
+print("ok")
+"""
+    proc = _run_without_jax(body)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().endswith("ok")
+
+
+def test_no_jax_import_in_the_package():
+    offenders = [
+        str(p.relative_to(ROOT))
+        for p in PACKAGE.rglob("*.py")
+        if "import jax" in p.read_text() or "from jax" in p.read_text()
+    ]
+    assert offenders == []
+
+
+def test_exports():
+    assert set(lmi.__all__) >= {"BuildConfiguration", "LearnedIndex", "load_index", "save_index"}
+    assert not torch.backends.cuda.matmul.allow_tf32
+    assert not torch.backends.cudnn.allow_tf32
+
+
+def test_config_validates_without_the_jax_registry():
+    cfg = lmi.BuildConfiguration(["kmeans"], [3], ["MLP-4"], [0.01], [120], chunk_size=2048)
+    again = lmi.BuildConfiguration.from_dict(cfg.to_dict())
+    assert again.to_dict() == cfg.to_dict()
+    assert isinstance(again, lmi.BuildConfiguration)
+    with pytest.raises(ValueError, match="model type"):
+        lmi.BuildConfiguration("kmeans", 1, "MLP-99", 0.01, [4])
+    with pytest.raises(ValueError, match="clustering"):
+        lmi.BuildConfiguration("dbscan", 1, "MLP", 0.01, [4])
+    with pytest.raises(ValueError, match="positive"):
+        lmi.BuildConfiguration("kmeans", 1, "MLP", 0.01, [0])
+
+
+def test_cuda_asked_for_without_cuda_raises():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    from learnedmetricindex_tpu_torch.index.index import resolve_device
+
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        resolve_device("cuda")
+    assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_kernel_build_is_keyed_by_source():
+    from learnedmetricindex_tpu_torch.ops import scan_kernel
+
+    path = scan_kernel.library_path()
+    assert path.parent == ROOT / "build" / "torch_kernels"
+    assert path.name.startswith("libscan_pairs_") and path.suffix == ".so"
+    assert path == scan_kernel.library_path()
+    assert "arch=compute_90a,code=sm_90a" in scan_kernel.NVCC_FLAGS
