@@ -4,29 +4,40 @@
     python3 chip_smoke.py [--rows N]
 
 Drives ``learnedmetricindex_tpu_torch`` through its public entry points
-at the reference's flagship configuration — a 1-level, 120-bucket MLP-4
-index over a 10M×768 int8 packed store, 10k queries visiting 4 buckets,
-k=10 — in phases:
+at the reference's flagship configuration — 120 buckets, MLP-4, a
+10M×768 int8 packed store, 10k queries visiting 4 buckets, k=10 — in
+phases:
 
 1. device: CUDA must be present; prints the card's name and power limit;
-2. build: compiles ``csrc/scan_pairs.cu`` with nvcc for sm_90a;
+2. build: compiles ``csrc/scan_pairs.cu`` and ``csrc/gather_rows.cu``
+   with nvcc for sm_90a, both at once;
 3. kernel vs plain: the scan kernel against its plain PyTorch version on
-   the card, all three modes, several ``k`` and ``qtile``;
-4. main path: seeded corpus on the device, an index whose MLP-4 encodes
-   a nearest-centroid partition exactly, .npz round trip, packed store,
-   timed searches, and checks against exact kNN restricted to each
-   query's visited buckets; then the kernel and its plain version timed
-   at the flagship shape.
+   the card, all three modes, k from 12 to 256, several ``qtile``;
+4. corpus: a seeded 10M×768 int8 corpus (+ f32 row scales) on the
+   device and the exact f32 top-10 of the queries;
+5. search path: an index whose MLP-4 encodes a nearest-centroid
+   partition exactly, .npz round trip, packed store, timed searches and
+   checks against exact kNN restricted to each query's visited buckets;
+   then the scan kernel and its plain version timed at the flagship
+   shape;
+6. build path: ``LearnedIndexBuilder`` at the bench's flagship
+   configuration (1 level, 120 buckets, 4 epochs, batch 1024, lr 0.01,
+   balanced class weights, seed 2023), save, load, packed store, search
+   with ``LMI_GATHER_MODE=auto`` and ``=kernel`` (bit-identical), the
+   gather kernel against its plain version at the path's shapes; then
+   the 2-level [10, 10] index searched best-first at visits 1-8.
 
-Any failure raises (exit code 1).  Without CUDA it exits non-zero and
-prints no result.  The last two lines are the kernels JSON and the
-result JSON.
+Each path runs with the launch counts set to 0 just before it and read
+just after.  Any failure raises (exit code 1).  Without CUDA it exits
+non-zero and prints no result.  The last two lines are the kernels JSON
+and the result JSON.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import subprocess
 import sys
 import time
@@ -39,7 +50,7 @@ import learnedmetricindex_tpu_torch as lmi
 from learnedmetricindex_tpu_torch.data import BlobGenerator
 from learnedmetricindex_tpu_torch.index.bucket_store import BucketStore, scan_inputs
 from learnedmetricindex_tpu_torch.index.serialization import index_from_arrays
-from learnedmetricindex_tpu_torch.ops import quantize, scan_kernel
+from learnedmetricindex_tpu_torch.ops import cuda_build, gather_kernel, quantize, scan_kernel
 from learnedmetricindex_tpu_torch.ops.knn import recall, restricted_knn
 
 ROOT = Path(__file__).resolve().parent
@@ -56,6 +67,9 @@ TIE_RTOL, TIE_ATOL = 1e-6, 1e-7
 FLOAT_TIE_ATOL = 5e-6
 REPLACES = "learnedmetricindex_tpu/ops/scan_kernel.py:325"
 KERNEL_SOURCE = "learnedmetricindex_tpu_torch/csrc/scan_pairs.cu"
+GATHER_REPLACES = "learnedmetricindex_tpu/ops/gather_kernel.py:151"
+GATHER_SOURCE = "learnedmetricindex_tpu_torch/csrc/gather_rows.cu"
+HBM_BYTES_PER_S = 3.35e12  # the H100 SXM's published device-memory rate
 
 
 def check(cond: bool, msg: str) -> None:
@@ -124,13 +138,25 @@ def phase_device() -> str:
 
 
 def phase_build() -> None:
-    path, seconds = scan_kernel.build()
-    log(f"[build] {KERNEL_SOURCE} -> {path.relative_to(ROOT)} "
-        f"(nvcc {' '.join(scan_kernel.NVCC_FLAGS)}) in {seconds:.1f} s")
-    report = path.with_suffix(".log").read_text() if path.with_suffix(".log").exists() else ""
-    for line in report.splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"[build]   {line.strip()}")
+    t0 = time.perf_counter()
+    built = cuda_build.build_many([scan_kernel.SOURCE, gather_kernel.SOURCE])
+    for (path, seconds), src in zip(built, (KERNEL_SOURCE, GATHER_SOURCE)):
+        log(f"[build] {src} -> {path.relative_to(ROOT)} "
+            f"(nvcc {' '.join(cuda_build.NVCC_FLAGS)}) in {seconds:.1f} s")
+        report = path.with_suffix(".log").read_text() if path.with_suffix(".log").exists() else ""
+        for line in report.splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"[build]   {line.strip()}")
+    log(f"[build] both kernels, compiled in parallel: {time.perf_counter() - t0:.1f} s")
+
+
+def reset_counts() -> None:
+    scan_kernel.LAUNCHES = 0
+    gather_kernel.LAUNCHES = 0
+
+
+def read_counts() -> dict:
+    return {"scan_pairs": scan_kernel.LAUNCHES, "gather_rows": gather_kernel.LAUNCHES}
 
 
 def phase_kernel_vs_plain(dev) -> float:
@@ -155,10 +181,15 @@ def phase_kernel_vs_plain(dev) -> float:
     order[:20, 2] = -1
     worst = 0.0
     # (mode, k, qtile, store): every mode with k 12/16/24 and qtile
-    # 8/16/128, over every store type the mode takes
+    # 8/16/128, over every store type the mode takes; then every mode at
+    # each list width past 32 (k 36 = SISAP's k 30 + margin 6, 64, 256,
+    # where a pair's queries split over two blocks: qtile 100 and 128)
     cases = [("f32", 12, 128, "f32"), ("f32", 24, 8, "int8"), ("f32", 16, 16, "bf16"),
              ("bf16", 16, 128, "int8"), ("bf16", 24, 16, "f32"), ("bf16", 12, 8, "bf16"),
-             ("int8", 16, 128, "int8"), ("int8", 12, 8, "int8"), ("int8", 24, 16, "int8")]
+             ("int8", 16, 128, "int8"), ("int8", 12, 8, "int8"), ("int8", 24, 16, "int8"),
+             ("f32", 36, 128, "f32"), ("bf16", 36, 16, "int8"), ("int8", 36, 128, "int8"),
+             ("f32", 64, 8, "bf16"), ("bf16", 64, 128, "bf16"), ("int8", 64, 16, "int8"),
+             ("f32", 256, 100, "f32"), ("bf16", 256, 128, "int8"), ("int8", 256, 8, "int8")]
     for mode, k, qtile, store_name in cases:
         store = stores[store_name]
         plan, args = scan_inputs(store, queries, order, qtile, mode)
@@ -169,15 +200,17 @@ def phase_kernel_vs_plain(dev) -> float:
         err = compare_candidates(kd, ks, rd, rs, mode, f"{mode} k={k} qtile={qtile}")
         n_swapped = int((ks != rs).sum().item())
         worst = max(worst, err)
-        log(f"[kernel-vs-plain] {mode:4s} store={store.chunk_data.dtype} k={k:2d} "
+        log(f"[kernel-vs-plain] {mode:4s} store={store.chunk_data.dtype} k={k:3d} "
             f"qtile={qtile:3d} pairs={plan.n_pairs}: agree, max|Δd|={err:.3g}, "
             f"{n_swapped} slots swapped at ties")
     return worst
 
 
-def phase_main(dev, args, smi: str):
-    n, d, nb, chunk, nq, seed = args.rows, 768, 120, 2048, 10_000, 2023
-    t_all = time.perf_counter()
+def make_corpus(dev, n: int, nq: int, nb: int, d: int = 768, seed: int = 2023) -> dict:
+    """The seeded corpus of both paths: ``n`` × ``d`` int8 rows + f32 row
+    scales on the device (256 latent clusters, noise 0.45/√d), ``nq``
+    queries from the same mixture, their exact f32 top-10 ids (1-based)
+    and ``nb`` corpus rows as f32 centroids."""
     gen = BlobGenerator(256, d, seed=seed, noise=0.45, device=dev)
     queries = gen.rows(nq)
     cent_rows = torch.randperm(n, generator=torch.Generator().manual_seed(seed))[:nb]
@@ -207,10 +240,19 @@ def phase_main(dev, args, smi: str):
             gt_d[q0 : q0 + 2500], gt_i[q0 : q0 + 2500] = v, torch.gather(cat_i, 1, j)
         del x
     torch.cuda.synchronize()
-    gt_ids = (gt_i + 1).cpu().numpy()
     log(f"[corpus] {n}x{d} int8 + f32 row scales on device, 256 latent clusters, "
         f"noise 0.45/sqrt(d), seed {seed}: {time.perf_counter() - t0:.1f} s "
         f"(with the exact f32 top-10 of {nq} queries)")
+    return {"corpus": corpus, "row_scales": row_scales, "queries": queries,
+            "gt_ids": (gt_i + 1).cpu().numpy(), "centroids": centroids}
+
+
+def phase_main(dev, data: dict, smi: str):
+    corpus, row_scales, queries = data["corpus"], data["row_scales"], data["queries"]
+    gt_ids, centroids = data["gt_ids"], data["centroids"]
+    (n, d), nb, chunk, nq = corpus.shape, centroids.shape[0], 2048, queries.shape[0]
+    block = 500_000
+    t_all = time.perf_counter()
 
     # MLP-4 (768 → 512 → 120) that encodes nearest-centroid exactly:
     # hidden j and 120+j are relu(±c_j·x), W2 takes their difference to
@@ -254,7 +296,7 @@ def phase_main(dev, args, smi: str):
     torch.cuda.synchronize()
     log(f"[store] packed int8 store on device: {store.n_chunks} chunks of {chunk}, "
         f"{store.nbytes() / 1e9:.2f} GB, {time.perf_counter() - t0:.1f} s")
-    del corpus, row_scales, pred  # the store stands alone
+    del pred
     torch.cuda.empty_cache()
 
     def search(q, n_buckets=4, precision="default"):
@@ -263,7 +305,7 @@ def phase_main(dev, args, smi: str):
 
     # ---- the main path: every launch from here to the read counts ----
     torch.cuda.reset_peak_memory_stats()
-    scan_kernel.LAUNCHES = 0
+    reset_counts()
     search(queries)  # warmup
     times = []
     for _ in range(3):
@@ -277,10 +319,10 @@ def phase_main(dev, args, smi: str):
         log(f"[search] precision={prec}: {time.perf_counter() - t0:.4f} s per {nq} queries")
     one = search(queries[:1])
     hundred = search(queries[:100])
-    launches = scan_kernel.LAUNCHES
+    launches = read_counts()
     peak = torch.cuda.max_memory_allocated()
     # ------------------------------------------------------------------
-    check(launches > 0, "the main path launched the scan kernel")
+    check(launches["scan_pairs"] > 0, "the main path launched the scan kernel")
     check(set(measured) == {"inference", "search", "search_within_buckets", "seq_search", "sort"},
           "measured keys")
     check(one[0].shape == (1, 10) and hundred[0].shape == (100, 10), "small requests' shapes")
@@ -294,7 +336,8 @@ def phase_main(dev, args, smi: str):
     log(f"[search] precision=default, n_buckets=4, k=10: reps {[round(t, 4) for t in times]} s; "
         f"mean {mean_s:.4f} s per {nq} queries = {nq / mean_s:.0f} QPS; "
         f"inference {measured['inference']:.4f} s, scan {measured['seq_search']:.4f} s; "
-        f"peak device memory {peak / 1e9:.2f} GB; kernel launches {launches}  [{smi}]")
+        f"peak device memory {peak / 1e9:.2f} GB (corpus resident); kernel launches "
+        f"{launches}  [{smi}]")
 
     # ---- checks against exact kNN over each query's visited buckets ----
     nc = 256
@@ -339,6 +382,158 @@ def phase_main(dev, args, smi: str):
             f"{plan.n_pairs} pairs, {macs:.3g} MAC -> {macs / k_ms / 1e9:.1f} TMAC/s; "
             f"agree, max|Δd|={err:.3g}  [{smi}]")
     log(f"[main] total {time.perf_counter() - t_all:.1f} s")
+    del store
+    torch.cuda.empty_cache()
+    return launches, timing
+
+def gather_vs_plain(table, idx, what: str, smi: str) -> tuple:
+    """The gather kernel against its plain version on one (table, idx):
+    bit-equal, then both timed with CUDA events.  Returns (kernel ms,
+    plain ms, max |difference|)."""
+    got = gather_kernel.gather_rows(table, idx)
+    torch.cuda.synchronize()
+    ref = gather_kernel.gather_rows_reference(table, idx)
+    check(got.dtype == ref.dtype and got.shape == ref.shape, f"gather {what}: shape and type")
+    check(torch.equal(got.view(torch.uint8), ref.view(torch.uint8)), f"gather {what}: bit-equal")
+    wide = torch.float64 if got.dtype.is_floating_point else torch.int64
+    err = float((got.to(wide) - ref.to(wide)).abs().max()) if got.numel() else 0.0
+    k_ms = cuda_ms(lambda: gather_kernel.gather_rows(table, idx), 10)
+    p_ms = cuda_ms(lambda: gather_kernel.gather_rows_reference(table, idx), 10)
+    row_bytes = table.shape[1] * table.element_size()
+    moved = 2 * idx.shape[0] * row_bytes + 4 * idx.shape[0]
+    log(f"[gather-vs-plain] {what}: table {tuple(table.shape)} {table.dtype}, {idx.shape[0]} "
+        f"indices: bit-equal; kernel {k_ms:.4f} ms ({moved / k_ms / 1e6:.1f} GB/s, "
+        f"{moved / k_ms / 1e-3 / HBM_BYTES_PER_S:.1%} of 3.35 TB/s), plain {p_ms:.4f} ms "
+        f"({moved / p_ms / 1e6:.1f} GB/s)  [{smi}]")
+    return k_ms, p_ms, err
+
+
+def visited_recall(index, store, queries, n_buckets, ids, policy, nc=256) -> float:
+    """Recall@10 of ``ids`` against exact kNN over the buckets each of the
+    first ``nc`` queries visits."""
+    order, _ = index.compute_bucket_order(queries[:nc], n_buckets, policy=policy,
+                                          keep_on_device=True)
+    _, ref_i = restricted_knn(store, queries[:nc], order, 10)
+    return recall(ids[:nc], ref_i.cpu().numpy(), 10)
+
+
+def phase_build_path(dev, data: dict, smi: str):
+    """The build path at full width: LearnedIndexBuilder → save → load →
+    packed store → search in both gather modes; then the 2-level index."""
+    corpus, row_scales, queries, gt_ids = (data[k] for k in ("corpus", "row_scales", "queries",
+                                                               "gt_ids"))
+    nq, chunk = queries.shape[0], 2048
+    t_all = time.perf_counter()
+
+    def build(cats):
+        cfg = lmi.BuildConfiguration(
+            ["kmeans"], [4], ["MLP-4"], [0.01], cats, seed=2023, batch_size=1024,
+            chunk_size=chunk, dtype="bfloat16", class_weights="balanced", update_rule="minibatch",
+        )
+        torch.cuda.synchronize()
+        builder = lmi.LearnedIndexBuilder((corpus, row_scales), cfg, device=dev)
+        index, pred, n_buckets, build_t, cluster_t = builder.build()
+        torch.cuda.synchronize()
+        sizes = np.bincount(index.bucket_ids_from_prediction(pred), minlength=index.layout.n_leaves)
+        check(n_buckets == index.layout.n_leaves and (sizes > 0).all(), f"{cats}: no empty bucket")
+        check(pred.shape == (corpus.shape[0], len(cats)) and (pred >= 0).all(), "data_prediction")
+        log(f"[build] {cats}: {n_buckets} buckets in {build_t:.1f} s (cluster {cluster_t:.1f} s, "
+            f"train {build_t - cluster_t:.1f} s), coverage rounds per level {builder.rounds}; "
+            f"bucket sizes min {sizes.min()} median {int(np.median(sizes))} max {sizes.max()}  "
+            f"[{smi}]")
+        return index, pred
+
+    def search(index, store, pred, n_buckets, policy="best_first"):
+        return index.search(None, queries, None, queries, pred, n_buckets=n_buckets, k=10,
+                            store=store, policy=policy)
+
+    # ---- 1 level, 120 buckets, through save and load ----
+    index, pred = build([120])
+    path = WORK_DIR / "built_index.npz"
+    lmi.save_index(index, str(path), pred)
+    index, saved_pred = lmi.LearnedIndex.load(str(path), dev)
+    check(np.array_equal(saved_pred, pred), "data_prediction survives the .npz round trip")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    store = index.prepare_packed_store((corpus, row_scales), saved_pred)
+    torch.cuda.synchronize()
+    log(f"[build] saved, reloaded, packed store {store.nbytes() / 1e9:.2f} GB in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    results, counts = {}, {}
+    for mode in ("auto", "kernel"):
+        os.environ["LMI_GATHER_MODE"] = mode
+        reset_counts()
+        t0 = time.perf_counter()
+        dists, ids, _ = search(index, store, saved_pred, 4)
+        seconds = time.perf_counter() - t0
+        counts[mode] = read_counts()
+        results[mode] = (dists, ids)
+        log(f"[search] built index, LMI_GATHER_MODE={mode}: {seconds:.4f} s per {nq} queries; "
+            f"launches {counts[mode]}")
+    os.environ["LMI_GATHER_MODE"] = "auto"
+    check(counts["auto"]["gather_rows"] == 0, "auto mode launches no gather kernel")
+    check(counts["kernel"]["gather_rows"] > 0, "kernel mode launches the gather kernel")
+    check(counts["kernel"]["scan_pairs"] > 0, "the build path's search launches the scan kernel")
+    (da, ia), (dk, ik) = results["auto"], results["kernel"]
+    check(np.array_equal(da.view(np.uint32), dk.view(np.uint32)) and np.array_equal(ia, ik),
+          "gather modes auto and kernel give bit-identical results")
+    check(bool(np.isfinite(dk).all()) and bool((ik > 0).all()), "built index: finite, filled")
+    r_vis = visited_recall(index, store, queries, 4, ik, "best_first")
+    check(r_vis >= 0.999, f"built index: recall {r_vis} vs visited-bucket exact")
+    log(f"[check] built index: auto and kernel bit-identical; recall@10 vs visited-bucket exact "
+        f"kNN = {r_vis:.4f} (256 queries)")
+    log(f"[recall] built index: whole-corpus recall@10 of the {nq} queries at n_buckets=4 vs "
+        f"exact f32 kNN: {recall(ik, gt_ids, 10):.4f}")
+
+    # ---- the gather kernel against its plain version at the path's shapes ----
+    order, _ = index.compute_bucket_order(queries, 4, keep_on_device=True)
+    plan, sargs = scan_inputs(store, queries, order, 128, "bf16")
+    timing = {"work queries": gather_vs_plain(queries, plan.qidx, "work queries", smi)}
+    cand_d, cand_s = scan_kernel.scan_pairs(*sargs, k=16, qtile=128, chunk=chunk, mode="bf16")
+    rows = plan.pair_rows
+    timing["merge dists"] = gather_vs_plain(cand_d.reshape(-1, 16), rows, "merge dists", smi)
+    timing["merge slots"] = gather_vs_plain(cand_s.reshape(-1, 16), rows, "merge slots", smi)
+    g = torch.Generator(device=dev).manual_seed(5)
+    slots = torch.randint(0, store.chunk_data.shape[0], (nq * 16,), generator=g, device=dev)
+    timing["store rows"] = gather_vs_plain(store.chunk_data, slots, "store rows", smi)
+    n_slots = store.chunk_data.shape[0]
+    wild = torch.tensor([-7, -1, 0, 5, n_slots - 1, n_slots, n_slots + 9, 2**31 - 1],
+                        dtype=torch.int32, device=dev)
+    timing["out of range"] = gather_vs_plain(store.chunk_data, wild, "out-of-range indices", smi)
+    del store, cand_d, cand_s, plan, sargs
+    torch.cuda.empty_cache()
+
+    # ---- 2 levels [10, 10], best-first in gather-kernel mode ----
+    index2, pred2 = build([10, 10])
+    store2 = index2.prepare_packed_store((corpus, row_scales), pred2)
+    os.environ["LMI_GATHER_MODE"] = "kernel"
+    reset_counts()
+    two = {}
+    for visit in (1, 2, 4, 8):
+        t0 = time.perf_counter()
+        d2, i2, _ = search(index2, store2, pred2, visit)
+        two[visit] = (time.perf_counter() - t0, d2, i2)
+    dj, ij, _ = search(index2, store2, pred2, 4, policy="joint")
+    counts2 = read_counts()
+    os.environ["LMI_GATHER_MODE"] = "auto"
+    check(counts2["gather_rows"] > 0 and counts2["scan_pairs"] > 0,
+          "2-level searches launch both kernels")
+    for visit, (seconds, d2, i2) in two.items():
+        check(d2.shape == (nq, 10) and bool(np.isfinite(d2).all()) and bool((i2 > 0).all()),
+              f"2-level best_first visit {visit}: finite, filled")
+        log(f"[search] 2-level best_first, visit {visit}: {seconds:.4f} s per {nq} queries; "
+            f"whole-corpus recall@10 {recall(i2, gt_ids, 10):.4f}")
+    check(dj.shape == (nq, 10) and bool(np.isfinite(dj).all()), "2-level joint: finite")
+    log(f"[search] 2-level joint, visit 4: whole-corpus recall@10 {recall(ij, gt_ids, 10):.4f}")
+    r2 = visited_recall(index2, store2, queries, 4, two[4][2], "best_first")
+    check(r2 >= 0.999, f"2-level best_first: recall {r2} vs visited-bucket exact")
+    log(f"[check] 2-level best_first visit 4: recall@10 vs visited-bucket exact kNN = {r2:.4f} "
+        f"(256 queries); launches {counts2}")
+    del store2
+    torch.cuda.empty_cache()
+    launches = {k: counts["kernel"][k] + counts2[k] for k in counts2}
+    log(f"[build-path] total {time.perf_counter() - t_all:.1f} s")
     return launches, timing
 
 
@@ -351,17 +546,29 @@ def main() -> None:
     dev = torch.device("cuda", 0)
     phase_build()
     small_err = phase_kernel_vs_plain(dev)
-    launches, timing = phase_main(dev, args, smi)
+    data = make_corpus(dev, args.rows, 10_000, 120)
+    main_launches, timing = phase_main(dev, data, smi)
+    build_launches, gather_timing = phase_build_path(dev, data, smi)
     k_ms, p_ms, flag_err = timing["bf16"]
+    g_ms, g_plain_ms, _ = gather_timing["work queries"]
     print(json.dumps({"kernels": [{
         "name": "scan_pairs",
         "route": "cuda",
         "source": KERNEL_SOURCE,
         "replaces": REPLACES,
-        "launches": launches,
+        "launches": main_launches["scan_pairs"] + build_launches["scan_pairs"],
         "max_abs_err": max(small_err, *(t[2] for t in timing.values())),
         "ms": k_ms,
         "plain_ms": p_ms,
+    }, {
+        "name": "gather_rows",
+        "route": "cuda",
+        "source": GATHER_SOURCE,
+        "replaces": GATHER_REPLACES,
+        "launches": main_launches["gather_rows"] + build_launches["gather_rows"],
+        "max_abs_err": max(t[2] for t in gather_timing.values()),
+        "ms": g_ms,
+        "plain_ms": g_plain_ms,
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -50,6 +50,16 @@
 //    optimisation of its selection sweeps and has no counterpart here:
 //    selection is a compare per element against the running k-th;
 //  * the 128-wide query tile is padded for smaller qtile.
+//
+// List width: the running top-k lives in shared memory as KMAX x QB
+// (dist, slot) pairs, KMAX the smallest of 32/64/128/256 that holds k.
+// Up to KMAX 128 a block owns all QT = 128 queries of its pair (128 KB of
+// lists at KMAX 128); at KMAX 256 the lists of 128 queries would take
+// 256 KB, more than a block's 227 KB, so the pair's queries are split
+// over QT/QB = 2 blocks of QB = 64 queries each.  Each block still
+// computes the full 128-wide distance tile (the queries it does not own
+// read as zeros and are never selected), so k > 128 costs twice the
+// multiply-adds; each block owns whole queries, so nothing is merged.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -63,7 +73,6 @@ constexpr int RT = 128;       // store rows per tile
 constexpr int MQ = 8;         // queries per thread
 constexpr int MR = 8;         // rows per thread
 constexpr int THREADS = (QT / MQ) * (RT / MR);  // 256
-constexpr int KMAX = 32;      // largest k
 constexpr int KT = 32;        // depth step, f32/bf16 modes (floats)
 constexpr int KW = 16;        // depth step, int8 mode (int8x4 words)
 constexpr int QS = QT + 4;    // padded smem strides, 16-byte aligned rows
@@ -90,14 +99,19 @@ struct Params {
 
 // shared memory: [top-k dists][top-k slots][query rows][query scales]
 //                [row slots][row scales][work: operand tiles | dist tile]
-constexpr size_t kTopBytes = size_t(KMAX) * QT * 4;
 constexpr size_t kMetaBytes = size_t(2 * QT + 2 * RT) * 4;
 constexpr size_t kOperandBytesF = size_t(KT) * (QS + XS) * 4;
 constexpr size_t kOperandBytesI = size_t(KW) * (QS + XS) * 4;
 constexpr size_t kDistBytes = size_t(QT) * DS * 4;
-constexpr size_t cmax(size_t a, size_t b) { return a > b ? a : b; }
-constexpr size_t kSmemBytes =
-    2 * kTopBytes + kMetaBytes + cmax(cmax(kOperandBytesF, kOperandBytesI), kDistBytes);
+__host__ __device__ constexpr size_t cmax(size_t a, size_t b) { return a > b ? a : b; }
+// queries whose lists a block keeps, for a list width
+__host__ __device__ constexpr int queries_per_block(int kmax) { return kmax <= 128 ? QT : QT / 2; }
+__host__ __device__ constexpr size_t smem_bytes(int kmax) {
+  return 2 * size_t(kmax) * queries_per_block(kmax) * 4 + kMetaBytes +
+         cmax(cmax(kOperandBytesF, kOperandBytesI), kDistBytes);
+}
+static_assert(smem_bytes(256) <= 232448, "lists must fit one block's shared memory");
+static_assert(smem_bytes(128) <= 232448, "lists must fit one block's shared memory");
 
 template <typename T>
 __device__ __forceinline__ float load_as_float(const T* p, size_t i);
@@ -119,12 +133,14 @@ __device__ __forceinline__ float operand(float v) {
   return ROUND ? __bfloat162float(__float2bfloat16_rn(v)) : v;
 }
 
-template <int MODE, typename TS>
-__global__ void __launch_bounds__(THREADS, 2) scan_pairs_kernel(Params p) {
+template <int MODE, typename TS, int KMAX>
+__global__ void __launch_bounds__(THREADS, KMAX == 32 ? 2 : 1) scan_pairs_kernel(Params p) {
+  constexpr int QB = queries_per_block(KMAX);  // queries whose lists this block keeps
+  constexpr int SPLITS = QT / QB;
   extern __shared__ __align__(16) unsigned char smem[];
-  float* top_d = reinterpret_cast<float*>(smem);            // [KMAX][QT]
-  int* top_s = reinterpret_cast<int*>(top_d + KMAX * QT);   // [KMAX][QT]
-  int* q_row = top_s + KMAX * QT;                           // [QT]
+  float* top_d = reinterpret_cast<float*>(smem);            // [KMAX][QB]
+  int* top_s = reinterpret_cast<int*>(top_d + KMAX * QB);   // [KMAX][QB]
+  int* q_row = top_s + KMAX * QB;                           // [QT]
   float* q_sc = reinterpret_cast<float*>(q_row + QT);       // [QT]
   int* r_slot = reinterpret_cast<int*>(q_sc + QT);          // [RT]
   float* r_sc = reinterpret_cast<float*>(r_slot + RT);      // [RT]
@@ -134,17 +150,21 @@ __global__ void __launch_bounds__(THREADS, 2) scan_pairs_kernel(Params p) {
   const int tid = threadIdx.x;
   const int tq = tid / (RT / MR);  // query group: queries tq*MQ ..
   const int tr = tid % (RT / MR);  // row group: rows tr*MR ..
-  const int pair = p.pair_order[blockIdx.x];
   const int qtile = p.qtile, k = p.k, d = p.d, chunk = p.chunk;
+  const int splits = SPLITS == 1 ? 1 : (qtile + QB - 1) / QB;
+  const int pair = p.pair_order[blockIdx.x / splits];
+  const int q0 = (blockIdx.x % splits) * QB;  // first query this block owns
   const int bucket = p.pair_bucket[pair];
   const int c_lo = p.ptr[bucket], c_hi = p.ptr[bucket + 1];
 
+  // compute slot q holds query q0 + q; slots past QB (split blocks) and
+  // past qtile hold none
   for (int q = tid; q < QT; q += THREADS) {
-    const int qi = q < qtile ? p.qidx[(size_t)pair * qtile + q] : -1;
+    const int qi = (q < QB && q0 + q < qtile) ? p.qidx[(size_t)pair * qtile + q0 + q] : -1;
     q_row[q] = qi;
     q_sc[q] = (MODE == MODE_INT8 && qi >= 0) ? p.qscales[qi] : 1.0f;
   }
-  for (int e = tid; e < KMAX * QT; e += THREADS) {
+  for (int e = tid; e < k * QB; e += THREADS) {
     top_d[e] = CUDART_INF_F;
     top_s[e] = -1;
   }
@@ -279,23 +299,23 @@ __global__ void __launch_bounds__(THREADS, 2) scan_pairs_kernel(Params p) {
       __syncthreads();
 
       // selection: one thread per query, rows in scan order
-      if (tid < QT && q_row[tid] >= 0) {
+      if (tid < QB && q_row[tid] >= 0) {
         const int q = tid;
-        float worst = top_d[(k - 1) * QT + q];
+        float worst = top_d[(k - 1) * QB + q];
         for (int r = 0; r < nrows; ++r) {
           const float v = dist[q * DS + r];
           if (v < worst) {
             int j = k - 1;
             while (j > 0) {
-              const float u = top_d[(j - 1) * QT + q];
+              const float u = top_d[(j - 1) * QB + q];
               if (u <= v) break;
-              top_d[j * QT + q] = u;
-              top_s[j * QT + q] = top_s[(j - 1) * QT + q];
+              top_d[j * QB + q] = u;
+              top_s[j * QB + q] = top_s[(j - 1) * QB + q];
               --j;
             }
-            top_d[j * QT + q] = v;
-            top_s[j * QT + q] = r_slot[r];
-            worst = top_d[(k - 1) * QT + q];
+            top_d[j * QB + q] = v;
+            top_s[j * QB + q] = r_slot[r];
+            worst = top_d[(k - 1) * QB + q];
           }
         }
       }
@@ -303,26 +323,39 @@ __global__ void __launch_bounds__(THREADS, 2) scan_pairs_kernel(Params p) {
   }
 
   __syncthreads();
-  const size_t out0 = (size_t)pair * qtile * k;
-  for (int e = tid; e < qtile * k; e += THREADS) {
+  const int n_own = min(QB, qtile - q0);
+  const size_t out0 = ((size_t)pair * qtile + q0) * k;
+  for (int e = tid; e < n_own * k; e += THREADS) {
     const int q = e / k, j = e % k;
-    p.out_d[out0 + e] = top_d[j * QT + q];
-    p.out_s[out0 + e] = top_s[j * QT + q];
+    p.out_d[out0 + e] = top_d[j * QB + q];
+    p.out_s[out0 + e] = top_s[j * QB + q];
   }
 }
 
-template <int MODE, typename TS>
-cudaError_t launch(const Params& p, int n_pairs, cudaStream_t stream) {
-  auto kernel = scan_pairs_kernel<MODE, TS>;
+template <int MODE, typename TS, int KMAX>
+cudaError_t launch_width(const Params& p, int n_pairs, cudaStream_t stream) {
+  auto kernel = scan_pairs_kernel<MODE, TS, KMAX>;
+  constexpr int QB = queries_per_block(KMAX);
+  const int splits = QB == QT ? 1 : (p.qtile + QB - 1) / QB;
+  constexpr size_t smem = smem_bytes(KMAX);
   cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmemBytes);
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   // all of the unified L1/shared memory as shared, so two blocks fit on an SM
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
                              cudaSharedmemCarveoutMaxShared);
   if (err != cudaSuccess) return err;
-  kernel<<<n_pairs, THREADS, kSmemBytes, stream>>>(p);
+  kernel<<<n_pairs * splits, THREADS, smem, stream>>>(p);
   return cudaGetLastError();
+}
+
+// the narrowest list that holds k
+template <int MODE, typename TS>
+cudaError_t launch(const Params& p, int n_pairs, cudaStream_t stream) {
+  if (p.k <= 32) return launch_width<MODE, TS, 32>(p, n_pairs, stream);
+  if (p.k <= 64) return launch_width<MODE, TS, 64>(p, n_pairs, stream);
+  if (p.k <= 128) return launch_width<MODE, TS, 128>(p, n_pairs, stream);
+  return launch_width<MODE, TS, 256>(p, n_pairs, stream);
 }
 
 }  // namespace
@@ -339,7 +372,7 @@ int lmi_scan_pairs(const void* queries, const void* qscales, const void* qidx,
                    int n_pairs, int qtile, int k, int d, int chunk, int mode, int store_type,
                    void* stream) {
   if (n_pairs <= 0) return cudaSuccess;
-  if (qtile < 1 || qtile > QT || k < 1 || k > KMAX || d < 1 || chunk < 1)
+  if (qtile < 1 || qtile > QT || k < 1 || k > 256 || d < 1 || chunk < 1)
     return cudaErrorInvalidValue;
   if (mode == MODE_INT8 && (store_type != STORE_INT8 || d % 4 != 0)) return cudaErrorInvalidValue;
   Params p{queries,

@@ -22,10 +22,16 @@ their (Q, V) bucket visit order:
 
 Distances are ``1 - <q, x>``; a query with no candidate gets
 ``dist = inf, id = 0``.
+
+**Gather mode.**  ``LMI_GATHER_MODE=kernel`` (read per search, as the
+JAX package reads it) routes the work-query gather and the merge's row
+gathers through ``ops.gather_kernel.gather_rows``; any other value keeps
+torch indexing.  The two modes give bit-identical results.
 """
 
 from __future__ import annotations
 
+import os
 from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -33,6 +39,7 @@ import torch
 
 from learnedmetricindex_tpu import native
 from learnedmetricindex_tpu_torch.ops import quantize
+from learnedmetricindex_tpu_torch.ops.gather_kernel import gather_rows
 from learnedmetricindex_tpu_torch.ops.scan_kernel import scan_pairs
 from learnedmetricindex_tpu_torch.ops.select import smallest_k
 
@@ -258,20 +265,47 @@ def build_plan(bucket_order: torch.Tensor, n_buckets: int, qtile: int) -> ScanPl
     return ScanPlan(qidx, pair_bucket, pair_rows)
 
 
+def gather_mode_is_kernel() -> bool:
+    """``LMI_GATHER_MODE=kernel`` turns the gather kernel on."""
+    return os.environ.get("LMI_GATHER_MODE", "auto") == "kernel"
+
+
 def scan_inputs(
-    store: BucketStore, queries: torch.Tensor, bucket_order: torch.Tensor, qtile: int, mode: str
+    store: BucketStore,
+    queries: torch.Tensor,
+    bucket_order: torch.Tensor,
+    qtile: int,
+    mode: str,
+    *,
+    gather_kernel: bool = False,
 ) -> Tuple[ScanPlan, tuple]:
     """The plan of ``queries`` (Q, d) f32 visiting ``bucket_order`` and the
-    positional arguments of ``ops.scan_kernel.scan_pairs`` for it."""
+    positional arguments of ``ops.scan_kernel.scan_pairs`` for it.
+
+    With ``gather_kernel`` the scan reads materialized work queries: the
+    gather kernel builds the (n_pairs·qtile, d) rows of ``qidx``, padding
+    rows zeroed, and the scan reads them through the identity index
+    (-1 on padding).  ``int8`` quantizes the gathered f32 rows, as the
+    JAX package's kernel mode does; quantization is per row, so the bits
+    are those of quantize-then-gather."""
     device = store.device
     plan = build_plan(bucket_order.to(device), store.n_buckets, qtile)
-    qscales = None
-    if mode == "int8":
+    qidx, qscales = plan.qidx, None
+    if gather_kernel:
+        valid = qidx >= 0
+        queries = torch.where(valid[:, None], gather_rows(queries, qidx), 0.0)
+        qidx = torch.where(
+            valid, torch.arange(qidx.shape[0], dtype=torch.int32, device=device), -1
+        ).to(torch.int32)
+        if mode == "int8":
+            queries, qscales = quantize.quantize_rows(queries)
+            qscales = torch.where(valid, qscales, 0.0)
+    elif mode == "int8":
         # per-row quantization commutes with the per-slot gather, so the
         # queries quantize once, not once per visit
         queries, qscales = quantize.quantize_rows(queries)
     args = (
-        queries, plan.qidx, plan.pair_bucket,
+        queries, qidx, plan.pair_bucket,
         torch.as_tensor(store.bucket_chunk_start, dtype=torch.int32, device=device),
         torch.arange(store.n_chunks, dtype=torch.int32, device=device),
         store.chunk_data, store.scales_flat(), qscales,
@@ -286,15 +320,22 @@ def merge_pairs(
     *,
     k: int,
     V: int,
+    gather_kernel: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Each query has at most ``V`` candidate rows (one per visited
     bucket), so its top-``k`` is one dense (Q, V·k) selection.  Ties go
-    to the earlier visit, then the earlier candidate."""
+    to the earlier visit, then the earlier candidate.  ``gather_kernel``
+    gathers the candidate rows with ``gather_rows``, each table in its
+    own dtype."""
     Q = pair_rows.shape[0] // V
     ok = (pair_rows >= 0)[:, None]
-    rows = torch.clamp_min(pair_rows, 0)
-    d = torch.where(ok, cand_d[rows], torch.inf).reshape(Q, V * k)
-    s = torch.where(ok, cand_s[rows], -1).reshape(Q, V * k)
+    if gather_kernel:
+        gd, gs = gather_rows(cand_d, pair_rows), gather_rows(cand_s, pair_rows)
+    else:
+        rows = torch.clamp_min(pair_rows, 0)
+        gd, gs = cand_d[rows], cand_s[rows]
+    d = torch.where(ok, gd, torch.inf).reshape(Q, V * k)
+    s = torch.where(ok, gs, -1).reshape(Q, V * k)
     vals, pos = smallest_k(d, k)
     out_s = torch.gather(s, 1, pos)
     return vals, torch.where(torch.isinf(vals), -1, out_s)
@@ -346,12 +387,13 @@ def scan_buckets_device(
             f"with row_scales); this store is {store.chunk_data.dtype}"
         )
     k_scan = k + rerank_margin if rerank else k
-    plan, args = scan_inputs(store, queries, bucket_order, qtile, mode)
+    use_kernel = gather_mode_is_kernel()
+    plan, args = scan_inputs(store, queries, bucket_order, qtile, mode, gather_kernel=use_kernel)
     cand_d, cand_s = scan_pairs(*args, k=k_scan, qtile=qtile, chunk=store.chunk, mode=mode)
     V = bucket_order.shape[1]
     dists, slots = merge_pairs(
         cand_d.reshape(-1, k_scan), cand_s.reshape(-1, k_scan), plan.pair_rows,
-        k=k_scan, V=V,
+        k=k_scan, V=V, gather_kernel=use_kernel,
     )
     if rerank:
         dists, slots = rerank_exact_slots(

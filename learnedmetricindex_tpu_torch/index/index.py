@@ -27,7 +27,11 @@ from learnedmetricindex_tpu_torch.index.bucket_store import (
 from learnedmetricindex_tpu_torch.index.navigation import (
     TreeLayout,
     _quantize_visits,
+    best_first_device,
+    flatten_entry_probs_device,
     joint_order_device,
+    max_best_first_queries,
+    nav_frontier,
     single_level_order_device,
 )
 from learnedmetricindex_tpu_torch.models.mlp import StackedMLP
@@ -39,8 +43,11 @@ def resolve_device(device) -> torch.device:
     """``torch.device(device)``, raising if it names CUDA and no usable
     GPU is present (nothing falls back to the CPU)."""
     device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"device {device} was asked for but CUDA is not available")
+    if device.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(f"device {device} was asked for but CUDA is not available")
+        if device.index is None:  # "cuda" names the current card: compare as "cuda:N"
+            device = torch.device("cuda", torch.cuda.current_device())
     return device
 
 
@@ -68,20 +75,21 @@ def _masked_level_probs(mlp: StackedMLP, mask: torch.Tensor, queries, inv_temp=1
     return torch.where(m, probs, 0.0).permute(1, 0, 2)
 
 
-def _navigate_device(queries, levels: Sequence[LevelModels], inv_temps, *, cap: int, policy: str):
+def _navigate_device(
+    queries, levels: Sequence[LevelModels], layout: TreeLayout, inv_temps, *, cap: int, policy: str
+):
     """Per-level forwards + masking + ordering → (Q, cap) int32 buckets."""
     level_probs = [
         _masked_level_probs(lv.mlp, lv.class_mask, queries, float(inv_temps[i]))
         for i, lv in enumerate(levels)
     ]
+    masks = [lv.class_mask for lv in levels]
     if len(level_probs) == 1:
-        return single_level_order_device(level_probs[0][:, 0, :], levels[0].class_mask[0], cap)
+        return single_level_order_device(level_probs[0][:, 0, :], masks[0][0], cap)
     if policy == "joint":
-        return joint_order_device(level_probs, [lv.class_mask for lv in levels], cap)
-    raise NotImplementedError(
-        "best_first navigation of a multi-level index is not ported yet; "
-        "use policy='joint'"
-    )
+        return joint_order_device(level_probs, masks, cap)
+    entry_probs = flatten_entry_probs_device(level_probs, masks)
+    return best_first_device(entry_probs, layout, n_buckets=cap, frontier=nav_frontier())
 
 
 def _as_tensor(x, device: torch.device) -> torch.Tensor:
@@ -220,9 +228,17 @@ class LearnedIndex:
         n_leaves = self.layout.n_leaves
         n_buckets = min(n_buckets, n_leaves)
         cap = _quantize_visits(n_buckets, n_leaves)
+        # best-first state is (Q, E): wide trees navigate in query slices
+        # that fit the state budget (exact: queries are independent)
+        step = max(q.shape[0], 1)
+        if policy == "best_first" and self.n_levels > 1:
+            step = max_best_first_queries(self.layout.n_entries)
         with torch.no_grad():
-            order = _navigate_device(q, self.levels, inv_temps, cap=cap, policy=policy)
-        order = order[:, :n_buckets]
+            order = torch.cat([
+                _navigate_device(q[s0 : s0 + step], self.levels, self.layout, inv_temps,
+                                 cap=cap, policy=policy)[:, :n_buckets]
+                for s0 in range(0, max(q.shape[0], 1), step)
+            ])
         if not keep_on_device:
             order = order.cpu().numpy()
         synchronize(self.device)

@@ -22,84 +22,35 @@ products summed in f32) and ``"int8"`` (int8 queries with per-query
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import subprocess
-import time
 from pathlib import Path
 from typing import Optional, Tuple
 
 import torch
 
+from learnedmetricindex_tpu_torch.ops import cuda_build
 from learnedmetricindex_tpu_torch.ops.select import smallest_k
 
 MODES = {"f32": 0, "bf16": 1, "int8": 2}
-MAX_K = 32  # KMAX in csrc/scan_pairs.cu
+MAX_K = 256  # the widest top-k list of csrc/scan_pairs.cu
 MAX_QTILE = 128  # QT in csrc/scan_pairs.cu
 _STORE_TYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
 #: kernel launches made by :func:`scan_pairs` (never by the plain version)
 LAUNCHES = 0
 
-_SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "scan_pairs.cu"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
-NVCC_FLAGS = [
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-]
-
-_lib: Optional[ctypes.CDLL] = None
-
-
-def _nvcc() -> str:
-    cuda_home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
-    path = Path(cuda_home) / "bin" / "nvcc"
-    return str(path) if path.exists() else "nvcc"
-
-
-def library_path() -> Path:
-    """Where the built library lives: keyed by a hash of the source and
-    the flags, so an edited kernel never loads a stale build."""
-    h = hashlib.sha256(_SOURCE.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"libscan_pairs_{h.hexdigest()[:16]}.so"
+SOURCE = cuda_build.CSRC / "scan_pairs.cu"
 
 
 def build() -> Tuple[Path, float]:
-    """Compile the kernel if this source has no build yet.  Returns the
-    library path and the seconds spent compiling (0.0 when it was
-    already built).  The compiler's resource report (registers, shared
-    memory, spills) is kept beside the library as ``.log``."""
-    lib = library_path()
-    if lib.exists():
-        return lib, 0.0
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    t0 = time.perf_counter()
-    proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(_SOURCE)],
-        capture_output=True, text=True,
-    )
-    seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}) building {_SOURCE}:\n{proc.stderr}"
-        )
-    lib.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    os.replace(tmp, lib)
-    return lib, seconds
+    """Compile the kernel if this source has no build yet: ``(library
+    path, seconds compiling)``."""
+    return cuda_build.build_many([SOURCE])[0]
 
 
-def _load() -> ctypes.CDLL:
-    global _lib
-    if _lib is None:
-        path, _ = build()
-        lib = ctypes.CDLL(str(path))
-        vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.lmi_scan_pairs.argtypes = [vp] * 11 + [ci] * 7 + [vp]
-        lib.lmi_scan_pairs.restype = ci
-        _lib = lib
-    return _lib
+def _bind(lib: ctypes.CDLL) -> None:
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.lmi_scan_pairs.argtypes = [vp] * 11 + [ci] * 7 + [vp]
+    lib.lmi_scan_pairs.restype = ci
 
 
 def _check(queries, qidx, pair_bucket, ptr, chunk_of, store, scales, qscales,
@@ -233,7 +184,7 @@ def scan_pairs(
         raise ValueError(f"scan_pairs runs on cpu or cuda, not {store.device}")
     _check(queries, qidx, pair_bucket, ptr, chunk_of, store, scales, qscales,
            k=k, qtile=qtile, chunk=chunk, mode=mode)
-    lib = _load()
+    lib = cuda_build.load(SOURCE, _bind)
     n_pairs = pair_bucket.shape[0]
     out_d = torch.empty((n_pairs, qtile, k), dtype=torch.float32, device=store.device)
     out_s = torch.empty((n_pairs, qtile, k), dtype=torch.int32, device=store.device)

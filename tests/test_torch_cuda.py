@@ -1,5 +1,5 @@
-"""The CUDA scan kernel against its plain PyTorch version, and the port's
-search on the GPU against the same search on the CPU.
+"""The CUDA kernels (bucket scan, row gather) against their plain
+PyTorch versions, and the port's search and build on the GPU.
 
 These need an NVIDIA GPU (sm_90a) and nvcc and skip elsewhere.  The file
 imports no jax, so on a machine with a GPU and no jax it runs alone:
@@ -14,7 +14,7 @@ import torch
 from learnedmetricindex_tpu_torch.index.bucket_store import BucketStore, build_plan, scan_inputs
 from learnedmetricindex_tpu_torch.index.serialization import index_from_arrays
 import learnedmetricindex_tpu_torch as lmi
-from learnedmetricindex_tpu_torch.ops import quantize, scan_kernel
+from learnedmetricindex_tpu_torch.ops import gather_kernel, quantize, scan_kernel
 
 torch.set_num_threads(2)
 pytestmark = pytest.mark.cuda
@@ -37,7 +37,11 @@ def _corpus(n, d, seed):
 @pytest.mark.parametrize(
     "mode,store_dtype,k,qtile",
     [("f32", "float32", 12, 128), ("f32", "int8", 24, 8), ("bf16", "bfloat16", 16, 16),
-     ("bf16", "int8", 10, 128), ("int8", "int8", 24, 16), ("int8", "int8", 16, 128)],
+     ("bf16", "int8", 10, 128), ("int8", "int8", 24, 16), ("int8", "int8", 16, 128),
+     # list widths past 32; k 256 splits a pair's queries over two blocks
+     ("f32", "float32", 36, 128), ("bf16", "int8", 36, 16), ("int8", "int8", 36, 8),
+     ("f32", "bfloat16", 64, 16), ("bf16", "bfloat16", 64, 128), ("int8", "int8", 64, 128),
+     ("f32", "float32", 256, 100), ("bf16", "int8", 256, 128), ("int8", "int8", 256, 16)],
 )
 def test_kernel_matches_plain_version(cuda, mode, store_dtype, k, qtile):
     """Multi-chunk buckets, an empty bucket, padding slots, a chunk that
@@ -110,3 +114,84 @@ def test_search_on_gpu_matches_cpu(cuda, precision):
     mism = gi != ci
     if mism.any():
         np.testing.assert_allclose(gd[mism], cd[mism], rtol=1e-6, atol=4e-7)
+
+
+@pytest.mark.parametrize(
+    "dtype,d",
+    [(torch.float32, 768), (torch.float32, 16), (torch.float32, 7), (torch.int32, 16),
+     (torch.int8, 768), (torch.int8, 8), (torch.bfloat16, 768), (torch.bfloat16, 6)],
+)
+@pytest.mark.parametrize("index_dtype", [torch.int32, torch.int64])
+def test_gather_kernel_matches_plain_version(cuda, dtype, d, index_dtype):
+    """Bit-equal rows for 16-byte and 4-byte row words, out-of-range
+    indices clamped, one launch counted."""
+    g = torch.Generator(device=cuda).manual_seed(d)
+    table = torch.randint(-100, 100, (5000, d), generator=g, device=cuda).to(dtype)
+    idx = torch.randint(-50, 5050, (3333,), generator=g, device=cuda).to(index_dtype)
+    idx[:3] = torch.tensor([-(2**31), 2**31 - 1, 4999])
+    before = gather_kernel.LAUNCHES
+    got = gather_kernel.gather_rows(table, idx)
+    torch.cuda.synchronize()
+    assert gather_kernel.LAUNCHES == before + 1
+    ref = gather_kernel.gather_rows_reference(table, idx)
+    assert gather_kernel.LAUNCHES == before + 1
+    assert got.dtype == dtype and torch.equal(got.view(torch.uint8), ref.view(torch.uint8))
+    assert gather_kernel.gather_rows(table, idx[:0]).shape == (0, d)
+
+
+def test_gather_kernel_rejects_what_it_does_not_take(cuda):
+    with pytest.raises(ValueError, match="multiple of 4 bytes"):
+        gather_kernel.gather_rows(torch.zeros((4, 3), dtype=torch.int8, device=cuda),
+                                  torch.zeros(2, dtype=torch.int32, device=cuda))
+    with pytest.raises(ValueError, match="contiguous"):
+        gather_kernel.gather_rows(torch.zeros((4, 8), device=cuda)[:, ::2],
+                                  torch.zeros(2, dtype=torch.int32, device=cuda))
+    with pytest.raises(ValueError, match="device"):
+        gather_kernel.gather_rows(torch.zeros((4, 8), device=cuda),
+                                  torch.zeros(2, dtype=torch.int32))
+
+
+@pytest.mark.parametrize("precision", ["highest", "default", "int8"])
+def test_gather_modes_bit_identical_on_gpu(cuda, monkeypatch, precision):
+    data, rng = _corpus(4000, 64, seed=4)
+    nb = 8
+    params = [{"w": rng.normal(size=(1, 64, 32)).astype(np.float32),
+               "b": np.zeros((1, 32), np.float32)},
+              {"w": rng.normal(size=(1, 32, nb)).astype(np.float32),
+               "b": np.zeros((1, nb), np.float32)}]
+    cfg = lmi.BuildConfiguration("kmeans", 1, "MLP-6", 0.01, [nb], chunk_size=128)
+    pred = rng.integers(0, nb, (4000, 1))
+    index = index_from_arrays(cfg, [params], [np.ones((1, nb), bool)], ["MLP-6"],
+                              np.ones(nb, bool), cuda)
+    store = BucketStore.build_packed_int8(
+        data, index.bucket_ids_from_prediction(pred), nb, chunk=128, device=cuda)
+    out = {}
+    for mode in ("auto", "kernel"):
+        monkeypatch.setenv("LMI_GATHER_MODE", mode)
+        before = gather_kernel.LAUNCHES
+        out[mode] = index.search(None, data[:300], None, data[:300], pred, n_buckets=3, k=30,
+                                 store=store, precision=precision)[:2]
+        launched = gather_kernel.LAUNCHES - before
+        assert launched == (3 if mode == "kernel" else 0)
+    np.testing.assert_array_equal(out["auto"][0].view(np.uint32), out["kernel"][0].view(np.uint32))
+    np.testing.assert_array_equal(out["auto"][1], out["kernel"][1])
+
+
+def test_builds_and_searches_on_gpu(cuda):
+    """A small 2-level build on the GPU: every bucket filled, best-first
+    search equal to exact kNN over the visited buckets."""
+    from learnedmetricindex_tpu_torch.ops.knn import recall, restricted_knn
+
+    data, _ = _corpus(3000, 32, seed=6)
+    cfg = lmi.BuildConfiguration("kmeans", 3, "MLP", 0.01, [4, 3], seed=6, chunk_size=64,
+                                 batch_size=128, class_weights="balanced")
+    index, pred, nb, _, _ = lmi.LearnedIndexBuilder(torch.as_tensor(data, device=cuda), cfg,
+                                                    device=cuda).build()
+    assert nb == 12 and (np.bincount(index.bucket_ids_from_prediction(pred), minlength=12) > 0).all()
+    store = index.get_bucket_store(data, pred)
+    q = torch.as_tensor(data[:200], device=cuda)
+    _, ids, _ = index.search(None, q, None, q, pred, n_buckets=3, k=10, store=store,
+                             precision="highest")
+    order, _ = index.compute_bucket_order(q, 3, keep_on_device=True)
+    _, ref = restricted_knn(store, q, order, 10)
+    assert recall(ids, ref.cpu().numpy(), 10) >= 0.999

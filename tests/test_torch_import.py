@@ -20,11 +20,17 @@ MODULES = [
     "learnedmetricindex_tpu_torch.config",
     "learnedmetricindex_tpu_torch.data",
     "learnedmetricindex_tpu_torch.models.mlp",
+    "learnedmetricindex_tpu_torch.models.train",
+    "learnedmetricindex_tpu_torch.ops.clustering",
+    "learnedmetricindex_tpu_torch.ops.cuda_build",
+    "learnedmetricindex_tpu_torch.ops.gather_kernel",
+    "learnedmetricindex_tpu_torch.ops.kmeans",
     "learnedmetricindex_tpu_torch.ops.knn",
     "learnedmetricindex_tpu_torch.ops.quantize",
     "learnedmetricindex_tpu_torch.ops.scan_kernel",
     "learnedmetricindex_tpu_torch.ops.select",
     "learnedmetricindex_tpu_torch.index.bucket_store",
+    "learnedmetricindex_tpu_torch.index.builder",
     "learnedmetricindex_tpu_torch.index.index",
     "learnedmetricindex_tpu_torch.index.navigation",
     "learnedmetricindex_tpu_torch.index.serialization",
@@ -70,6 +76,31 @@ print("ok")
     assert proc.stdout.strip().endswith("ok")
 
 
+def test_builds_and_searches_without_jax():
+    """The build path runs with jax unimportable: a 2-level index is built,
+    every bucket is filled and best-first search finds each query itself."""
+    body = """
+import numpy as np, torch
+torch.set_num_threads(1)
+import learnedmetricindex_tpu_torch as lmi
+rng = np.random.default_rng(1)
+centers = rng.normal(size=(6, 8)).astype(np.float32)
+data = centers[rng.integers(0, 6, 600)] + 0.2 * rng.normal(size=(600, 8)).astype(np.float32)
+data /= np.linalg.norm(data, axis=1, keepdims=True)
+cfg = lmi.BuildConfiguration("kmeans", 3, "MLP-8", 0.05, [3, 2], chunk_size=32, batch_size=64)
+index, pred, n_buckets, build_t, cluster_t = lmi.LearnedIndexBuilder(data, cfg, device="cpu").build()
+assert n_buckets == 6 and (np.bincount(index.bucket_ids_from_prediction(pred), minlength=6) > 0).all()
+d, i, t = index.search(None, data[:5], data, data[:5], pred, n_buckets=2, k=3, precision="highest")
+assert (i[:, 0] == np.arange(1, 6)).all(), i
+loaded = [m for m, v in sys.modules.items() if v is not None and (m == "jax" or m.startswith("jax."))]
+assert not loaded, loaded
+print("ok")
+"""
+    proc = _run_without_jax(body)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().endswith("ok")
+
+
 def test_no_jax_import_in_the_package():
     offenders = [
         str(p.relative_to(ROOT))
@@ -80,7 +111,8 @@ def test_no_jax_import_in_the_package():
 
 
 def test_exports():
-    assert set(lmi.__all__) >= {"BuildConfiguration", "LearnedIndex", "load_index", "save_index"}
+    assert set(lmi.__all__) >= {"BuildConfiguration", "LearnedIndex", "LearnedIndexBuilder",
+                                "load_index", "save_index"}
     assert not torch.backends.cuda.matmul.allow_tf32
     assert not torch.backends.cudnn.allow_tf32
 
@@ -109,10 +141,30 @@ def test_cuda_asked_for_without_cuda_raises():
 
 
 def test_kernel_build_is_keyed_by_source():
-    from learnedmetricindex_tpu_torch.ops import scan_kernel
+    from learnedmetricindex_tpu_torch.ops import cuda_build, scan_kernel
 
-    path = scan_kernel.library_path()
+    path = cuda_build.library_path(scan_kernel.SOURCE)
     assert path.parent == ROOT / "build" / "torch_kernels"
     assert path.name.startswith("libscan_pairs_") and path.suffix == ".so"
-    assert path == scan_kernel.library_path()
-    assert "arch=compute_90a,code=sm_90a" in scan_kernel.NVCC_FLAGS
+    assert path == cuda_build.library_path(scan_kernel.SOURCE)
+    assert "arch=compute_90a,code=sm_90a" in cuda_build.NVCC_FLAGS
+
+
+def test_gather_kernel_build_is_keyed_by_source():
+    from learnedmetricindex_tpu_torch.ops import cuda_build, gather_kernel, scan_kernel
+
+    path = cuda_build.library_path(gather_kernel.SOURCE)
+    assert path.parent == ROOT / "build" / "torch_kernels"
+    assert path.name.startswith("libgather_rows_") and path.suffix == ".so"
+    assert gather_kernel.SOURCE.parent == scan_kernel.SOURCE.parent == PACKAGE / "csrc"
+    assert path != cuda_build.library_path(scan_kernel.SOURCE)
+
+
+def test_builder_on_cuda_without_cuda_raises():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    import numpy as np
+
+    cfg = lmi.BuildConfiguration("kmeans", 1, "MLP-8", 0.01, [2])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        lmi.LearnedIndexBuilder(np.zeros((4, 8), np.float32), cfg, device="cuda")

@@ -1,5 +1,6 @@
 """The port's MLP forward and navigation against the JAX package: the
-same parameters and queries give the same logits and bucket orders."""
+same parameters and queries give the same logits and bucket orders,
+best-first traversal and its budget guards included."""
 
 import jax
 import jax.numpy as jnp
@@ -9,8 +10,10 @@ import torch
 
 import learnedmetricindex_tpu as jlmi
 from learnedmetricindex_tpu.data import synthetic_blobs
+from learnedmetricindex_tpu.index import navigation as jnav
 from learnedmetricindex_tpu.index.navigation import _quantize_visits as jax_quantize_visits
 from learnedmetricindex_tpu.models.mlp import init_stacked_mlp, stacked_mlp_apply
+from learnedmetricindex_tpu_torch.index import navigation as pnav
 from learnedmetricindex_tpu_torch.index.navigation import _quantize_visits
 from learnedmetricindex_tpu_torch.index.serialization import index_from_arrays
 from learnedmetricindex_tpu_torch.models.mlp import StackedMLP
@@ -114,8 +117,9 @@ def test_masked_classes_match_jax(built):
 def test_navigation_guards(built):
     _, pidx = built["two"]
     q = built["queries"]
-    with pytest.raises(NotImplementedError, match="best_first"):
-        pidx.compute_bucket_order(q, 3, policy="best_first")
+    # best-first runs on a multi-level index (it is the default policy)
+    order, _ = pidx.compute_bucket_order(q, 3, policy="best_first")
+    assert order.shape == (len(q), 3) and (order >= 0).all()
     with pytest.raises(ValueError, match="nav_temp"):
         pidx.compute_bucket_order(q, 3, policy="joint", nav_temp=(1.0, 2.0, 3.0))
     with pytest.raises(ValueError, match="policy"):
@@ -128,3 +132,101 @@ def test_quantize_visits_matches_jax():
     for n_leaves in (1, 6, 10, 120):
         for n in range(1, n_leaves + 3):
             assert _quantize_visits(n, n_leaves) == jax_quantize_visits(n, n_leaves)
+
+
+def _random_probs(rng, Q, n_categories, masked=False):
+    """Random conditional probabilities for a full tree, optionally with
+    some classes masked out, as numpy (probs, valid) per level."""
+    probs, valid = [], []
+    n_nodes = 1
+    for C in n_categories:
+        p = np.exp(rng.normal(size=(Q, n_nodes, C)).astype(np.float32) * 3)
+        p /= p.sum(axis=-1, keepdims=True)
+        v = np.ones((n_nodes, C), bool)
+        if masked:
+            v[rng.random((n_nodes, C)) < 0.2] = False
+            v[:, 0] = True
+        probs.append(p)
+        valid.append(v)
+        n_nodes *= C
+    return probs, valid
+
+
+@pytest.mark.parametrize("cats", [(6,), (4, 3), (3, 2, 4)])
+@pytest.mark.parametrize("frontier", [1, 16])
+@pytest.mark.parametrize("masked", [False, True])
+def test_best_first_order_matches_jax(monkeypatch, cats, frontier, masked):
+    monkeypatch.setenv("LMI_NAV_FRONTIER", str(frontier))
+    rng = np.random.default_rng(len(cats) * 10 + frontier)
+    probs, valid = _random_probs(rng, 40, cats, masked)
+    jlayout, playout = jnav.TreeLayout.create(cats), pnav.TreeLayout.create(cats)
+    for f in ("child_base", "child_count", "is_leaf"):
+        np.testing.assert_array_equal(getattr(playout, f), getattr(jlayout, f))
+    assert playout.n_entries == jlayout.n_entries
+    jentry = jnav.flatten_entry_probs(jlayout, [jnp.asarray(p) for p in probs], valid)
+    pentry = pnav.flatten_entry_probs_device([torch.as_tensor(p) for p in probs],
+                                             [torch.as_tensor(v) for v in valid])
+    np.testing.assert_array_equal(pentry.numpy(), np.asarray(jentry))
+    n_leaves = playout.n_leaves
+    for n_buckets in (3, n_leaves):  # a prefix and the full sweep
+        ref = jnav.best_first_order(jlayout, jentry, n_buckets)
+        got = pnav.best_first_order(playout, pentry, n_buckets)
+        assert got.dtype == torch.int32
+        np.testing.assert_array_equal(got.numpy(), ref)
+
+
+def test_ties_go_to_the_lower_entry():
+    """Equal probabilities pop in entry order, as lax.top_k orders them."""
+    cats = (3, 2)
+    probs = [np.full((2, 1, 3), 1 / 3, np.float32), np.full((2, 3, 2), 0.5, np.float32)]
+    valid = [np.ones((1, 3), bool), np.ones((3, 2), bool)]
+    jlayout, playout = jnav.TreeLayout.create(cats), pnav.TreeLayout.create(cats)
+    jentry = jnav.flatten_entry_probs(jlayout, [jnp.asarray(p) for p in probs], valid)
+    pentry = pnav.flatten_entry_probs_device([torch.as_tensor(p) for p in probs],
+                                             [torch.as_tensor(v) for v in valid])
+    got = pnav.best_first_order(playout, pentry, 6).numpy()
+    np.testing.assert_array_equal(got, jnav.best_first_order(jlayout, jentry, 6))
+
+
+def test_budget_guards_match_jax(monkeypatch):
+    for budget in ("100000", "1000"):
+        monkeypatch.setenv("LMI_MAX_NAV_STATE_BYTES", budget)
+        for n_q, n_e in ((8, 64 + 64 * 64), (1, 300), (3, 50)):
+            outcomes = []
+            for mod in (jnav, pnav):
+                try:
+                    mod.check_best_first_budget(n_q, n_e)
+                    outcomes.append("ok")
+                except ValueError as e:
+                    assert "joint" in str(e)
+                    outcomes.append(str(e))
+            assert outcomes[0] == outcomes[1]
+        for n_e in (50, 60, 199, 200):
+            assert pnav.max_best_first_queries(n_e) == jnav.max_best_first_queries(n_e)
+    with pytest.raises(ValueError, match="joint"):
+        pnav.max_best_first_queries(n_entries=300)  # 1500 B per query > 1000 B
+    cats = (64, 64)
+    probs, valid = _random_probs(np.random.default_rng(1), 8, cats)
+    entry = pnav.flatten_entry_probs_device([torch.as_tensor(p) for p in probs],
+                                            [torch.as_tensor(v) for v in valid])
+    monkeypatch.setenv("LMI_MAX_NAV_STATE_BYTES", "100000")
+    with pytest.raises(ValueError, match="joint"):
+        pnav.best_first_order(pnav.TreeLayout.create(cats), entry, 5)
+
+
+def test_two_level_best_first_matches_jax_and_slices(built, monkeypatch):
+    """The public path: best-first orders of a JAX-built 2-level index equal
+    the JAX package's, and navigating in budget-sized query slices gives
+    the same order as one pass."""
+    jidx, pidx = built["two"]
+    q = built["queries"]
+    for n_buckets in (1, 2, 4, 6):
+        ref, _ = jidx.compute_bucket_order(q, n_buckets, policy="best_first")
+        got, _ = pidx.compute_bucket_order(q, n_buckets, policy="best_first")
+        np.testing.assert_array_equal(got, np.asarray(ref))
+    whole, _ = pidx.compute_bucket_order(q, 4, keep_on_device=True)
+    E = pidx.layout.n_entries
+    monkeypatch.setenv("LMI_MAX_NAV_STATE_BYTES", str(E * 5 * 8))  # 8 queries per slice
+    assert pnav.max_best_first_queries(E) == 8
+    sliced, _ = pidx.compute_bucket_order(q, 4, keep_on_device=True)
+    assert torch.equal(sliced, whole)

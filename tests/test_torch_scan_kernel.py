@@ -231,7 +231,9 @@ def test_wrapper_runs_plain_version_on_cpu_and_validates():
         assert torch.equal(a, b)
     with pytest.raises(ValueError, match="int8"):
         scan_kernel.scan_pairs(*args, k=k, qtile=qtile, chunk=chunk, mode="int8")
-    with pytest.raises(ValueError, match="k <= 32"):
-        scan_kernel.scan_pairs(*args, k=33, qtile=qtile, chunk=chunk, mode="f32")
+    # the widest list is 256: k = 250 + a rerank margin of 6 fits, 257 does not
+    scan_kernel.scan_pairs(*args, k=256, qtile=qtile, chunk=chunk, mode="f32")
+    with pytest.raises(ValueError, match="k <= 256"):
+        scan_kernel.scan_pairs(*args, k=257, qtile=qtile, chunk=chunk, mode="f32")
     with pytest.raises(ValueError, match="mode"):
         scan_kernel.scan_pairs(*args, k=k, qtile=qtile, chunk=chunk, mode="fp8")

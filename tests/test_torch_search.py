@@ -168,3 +168,19 @@ def test_restricted_knn_is_the_visited_bucket_ceiling(built):
     fd, fi = restricted_knn(store, torch.as_tensor(queries), full, 10)
     gd, gi = exact_knn(data, queries, k=10)
     _assert_parity(fd.numpy(), fi.numpy(), gd, gi)
+
+
+@pytest.mark.parametrize("k", [30, 100])
+def test_wide_k_matches_jax(built, k):
+    """k=30 (SISAP 2024) and k=100 scan k + 6 candidates per pair, past
+    the old 32-wide kernel list; the port equals the JAX package."""
+    jidx, pidx, pred = built["one"]
+    data, queries = built["data"], built["queries"]
+    jd, ji, _ = _search(jidx, data, queries, pred, n_buckets=3, k=k, precision="highest")
+    pd, pi, _ = _search(pidx, data, queries, pred, n_buckets=3, k=k, precision="highest")
+    assert pd.shape == (len(queries), k)
+    _assert_parity(pd, pi, np.asarray(jd), np.asarray(ji))
+    _, gt = jax_exact_knn(data, queries, k=k)
+    assert recall(pi, gt, k) == jax_recall(np.asarray(ji), gt, k)
+    dd, di, _ = _search(pidx, data, queries, pred, n_buckets=3, k=k)  # default precision
+    assert (np.sort(di, axis=1) == np.sort(pi, axis=1)).mean() > 0.99
