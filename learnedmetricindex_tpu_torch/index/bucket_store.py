@@ -37,7 +37,7 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from learnedmetricindex_tpu import native
+from learnedmetricindex_tpu_torch import native
 from learnedmetricindex_tpu_torch.ops import quantize
 from learnedmetricindex_tpu_torch.ops.gather_kernel import gather_rows
 from learnedmetricindex_tpu_torch.ops.scan_kernel import scan_pairs

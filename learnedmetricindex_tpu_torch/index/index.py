@@ -18,7 +18,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from learnedmetricindex_tpu import native
+from learnedmetricindex_tpu_torch import native
 from learnedmetricindex_tpu_torch.config import BuildConfiguration
 from learnedmetricindex_tpu_torch.index.bucket_store import (
     BucketStore,

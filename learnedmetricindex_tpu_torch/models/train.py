@@ -35,7 +35,7 @@ from typing import List, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from learnedmetricindex_tpu import native
+from learnedmetricindex_tpu_torch import native
 from learnedmetricindex_tpu_torch.models.mlp import StackedMLP
 from learnedmetricindex_tpu_torch.ops.select import largest_k
 

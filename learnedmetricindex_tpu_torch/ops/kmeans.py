@@ -31,7 +31,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from learnedmetricindex_tpu import native
+from learnedmetricindex_tpu_torch import native
 
 
 def _as_tensor(data) -> torch.Tensor:

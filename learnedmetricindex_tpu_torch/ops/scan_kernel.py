@@ -12,11 +12,14 @@ of a pair whose bucket has no chunks.
 * :func:`scan_pairs` — the wrapper.  CPU tensors run the plain version;
   CUDA tensors launch ``csrc/scan_pairs.cu`` (built with ``nvcc`` for
   ``sm_90a`` at first use into ``build/torch_kernels/``) or raise.
+* :func:`operand_queries` — the query rows the kernel reads in the
+  tensor-core modes.
 * ``LAUNCHES`` — how many times the wrapper launched the kernel.
 
-Modes: ``"f32"`` (full f32), ``"bf16"`` (both operands rounded to bf16,
-products summed in f32) and ``"int8"`` (int8 queries with per-query
-``qscales`` against an int8 store, exact integer sums).
+Modes: ``"f32"`` (full f32, IEEE FMA on the CUDA cores), ``"bf16"`` (both
+operands rounded to bf16, products summed in f32 on the tensor cores)
+and ``"int8"`` (int8 queries with per-query ``qscales`` against an int8
+store, exact integer sums on the tensor cores).
 """
 
 from __future__ import annotations
@@ -38,6 +41,13 @@ _STORE_TYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 #: kernel launches made by :func:`scan_pairs` (never by the plain version)
 LAUNCHES = 0
 
+#: Depth order, within each group of 16, of the bf16 queries that meet an
+#: int8 store: the kernel widens the 4 int8 values k = 4t..4t+3 that
+#: ldmatrix gives lane t of a quad into the bf16 B registers of depths
+#: (2t, 2t+1) and (2t+8, 2t+9) of an m16n8k16 step, so the query values
+#: must sit at those depths too.
+WIDEN_ORDER = (0, 1, 4, 5, 8, 9, 12, 13, 2, 3, 6, 7, 10, 11, 14, 15)
+
 SOURCE = cuda_build.CSRC / "scan_pairs.cu"
 
 
@@ -49,7 +59,7 @@ def build() -> Tuple[Path, float]:
 
 def _bind(lib: ctypes.CDLL) -> None:
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.lmi_scan_pairs.argtypes = [vp] * 11 + [ci] * 7 + [vp]
+    lib.lmi_scan_pairs.argtypes = [vp] * 11 + [ci] * 8 + [vp]
     lib.lmi_scan_pairs.restype = ci
 
 
@@ -91,7 +101,7 @@ def _check(queries, qidx, pair_bucket, ptr, chunk_of, store, scales, qscales,
             raise ValueError("scan mode 'int8' needs (n_queries,) f32 qscales")
         if d % 4 or store.data_ptr() % 4 or queries.data_ptr() % 4:
             raise ValueError(
-                f"scan mode 'int8' reads int8x4 words: needs d % 4 == 0 (d={d}) "
+                f"scan mode 'int8' copies rows in 4-byte granules: needs d % 4 == 0 (d={d}) "
                 "and 4-byte aligned store and queries"
             )
     elif queries.dtype != torch.float32:
@@ -157,6 +167,24 @@ def scan_pairs_reference(
     return out_d, out_s
 
 
+def operand_queries(queries: torch.Tensor, mode: str, store_dtype: torch.dtype) -> torch.Tensor:
+    """The query rows the kernel reads in mode ``"bf16"`` or ``"int8"``:
+    bf16 (``queries`` rounded to nearest even, once per call) or the int8
+    rows, zero-padded to a multiple of 16 values and 16-byte aligned; for
+    bf16 over an int8 store, each group of 16 in :data:`WIDEN_ORDER`."""
+    q = queries.to(torch.bfloat16) if mode == "bf16" else queries
+    n, d = q.shape
+    pad = -d % 16
+    if pad:
+        q = torch.cat([q, q.new_zeros((n, pad))], dim=1)
+    if mode == "bf16" and store_dtype == torch.int8:
+        order = torch.tensor(WIDEN_ORDER, device=q.device)
+        q = q.reshape(n, (d + pad) // 16, 16)[:, :, order].reshape(n, d + pad)
+    if not q.is_contiguous() or q.data_ptr() % 16:
+        q = q.clone(memory_format=torch.contiguous_format)
+    return q
+
+
 def scan_pairs(
     queries: torch.Tensor,
     qidx: torch.Tensor,
@@ -194,6 +222,8 @@ def scan_pairs(
     # alone (measured 1.25x at the flagship shape on an H100)
     n_chunks = (ptr[1:] - ptr[:-1])[pair_bucket.long()]
     pair_order = torch.argsort(n_chunks, descending=True, stable=True).to(torch.int32)
+    if mode != "f32":
+        queries = operand_queries(queries, mode, store.dtype)
     with torch.cuda.device(store.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.lmi_scan_pairs(
@@ -202,7 +232,7 @@ def scan_pairs(
             qidx.data_ptr(), pair_bucket.data_ptr(), pair_order.data_ptr(), ptr.data_ptr(),
             chunk_of.data_ptr(),
             store.data_ptr(), scales.data_ptr(), out_d.data_ptr(), out_s.data_ptr(),
-            n_pairs, qtile, k, store.shape[1], chunk, MODES[mode],
+            n_pairs, qtile, k, store.shape[1], queries.shape[1], chunk, MODES[mode],
             _STORE_TYPES[store.dtype], stream,
         )
     if err != 0:

@@ -34,30 +34,52 @@ def _corpus(n, d, seed):
     return (x / np.linalg.norm(x, axis=1, keepdims=True)).astype(np.float32), rng
 
 
+def _tensor_core_cases():
+    """bf16 over every store type and int8, at k 16/36/64/256 (every list
+    width) with qtile 1/8/100/128 in turn, at d 768, 96 and 100 (rows not
+    16-byte aligned and a depth tail)."""
+    combos = [("bf16", "float32"), ("bf16", "bfloat16"), ("bf16", "int8"), ("int8", "int8")]
+    qtiles = (1, 8, 100, 128)
+    return [(mode, store, k, qtiles[(ki + ci) % 4], d)
+            for d in (768, 96, 100)
+            for ki, k in enumerate((16, 36, 64, 256))
+            for ci, (mode, store) in enumerate(combos)]
+
+
 @pytest.mark.parametrize(
-    "mode,store_dtype,k,qtile",
-    [("f32", "float32", 12, 128), ("f32", "int8", 24, 8), ("bf16", "bfloat16", 16, 16),
-     ("bf16", "int8", 10, 128), ("int8", "int8", 24, 16), ("int8", "int8", 16, 128),
-     # list widths past 32; k 256 splits a pair's queries over two blocks
-     ("f32", "float32", 36, 128), ("bf16", "int8", 36, 16), ("int8", "int8", 36, 8),
-     ("f32", "bfloat16", 64, 16), ("bf16", "bfloat16", 64, 128), ("int8", "int8", 64, 128),
-     ("f32", "float32", 256, 100), ("bf16", "int8", 256, 128), ("int8", "int8", 256, 16)],
+    "mode,store_dtype,k,qtile,d",
+    [(m, s, k, q, 64) for m, s, k, q in [
+        ("f32", "float32", 12, 128), ("f32", "int8", 24, 8), ("bf16", "bfloat16", 16, 16),
+        ("bf16", "int8", 10, 128), ("int8", "int8", 24, 16), ("int8", "int8", 16, 128),
+        # list widths past 32; k 256 splits a pair's queries over two blocks
+        ("f32", "float32", 36, 128), ("bf16", "int8", 36, 16), ("int8", "int8", 36, 8),
+        ("f32", "bfloat16", 64, 16), ("bf16", "bfloat16", 64, 128), ("int8", "int8", 64, 128),
+        ("f32", "float32", 256, 100), ("bf16", "int8", 256, 128), ("int8", "int8", 256, 16)]]
+    + _tensor_core_cases(),
 )
-def test_kernel_matches_plain_version(cuda, mode, store_dtype, k, qtile):
+def test_kernel_matches_plain_version(cuda, mode, store_dtype, k, qtile, d):
     """Multi-chunk buckets, an empty bucket, padding slots, a chunk that
-    is not a whole number of the kernel's 128-row tiles, unused visits."""
-    data, rng = _corpus(3000, 64, seed=5)
+    is not a whole number of the kernel's 128-row tiles, unused visits,
+    and 40 rows duplicated later in their own bucket.  int8 is bit-equal
+    (distances and slots); f32/bf16 within the bars, with slots differing
+    only at ties; exact ties between duplicated rows go to the earlier
+    slot."""
+    data, rng = _corpus(3000, d, seed=d + k)
     nb, chunk = 6, 96
     bucket_ids = rng.integers(0, nb, 3000)
     bucket_ids[bucket_ids == 2] = 3
+    src, dst = np.arange(0, 40), np.arange(1500, 1540)  # dst duplicates src, same bucket
+    data[dst], bucket_ids[dst] = data[src], bucket_ids[src]
     if store_dtype == "int8":
         store = BucketStore.build_packed_int8(data, bucket_ids, nb, chunk=chunk, device=cuda)
     else:
         store = BucketStore.build(data, bucket_ids, nb, chunk=chunk, dtype=store_dtype, device=cuda)
-    queries = torch.as_tensor(data[:150] + 0.05, device=cuda)
-    order = torch.as_tensor(np.stack([rng.choice(nb, 3, replace=False) for _ in range(150)]),
-                            device=cuda)
-    order[:10, 2] = -1
+    queries = torch.as_tensor(np.concatenate([data[src], data[40:150] + 0.05]), device=cuda)
+    order = np.stack([rng.choice(nb, 3, replace=False) for _ in range(150)])
+    order[:40, 0] = bucket_ids[src]  # the duplicated rows' queries visit their bucket
+    order[:40, 1:] = [[b for b in rng.permutation(nb) if b != bucket_ids[i]][:2] for i in src]
+    order = torch.as_tensor(order, device=cuda)
+    order[-10:, 2] = -1
     _, args = scan_inputs(store, queries, order, qtile, mode)
     kw = dict(k=k, qtile=qtile, chunk=chunk, mode=mode)
     before = scan_kernel.LAUNCHES
@@ -68,11 +90,25 @@ def test_kernel_matches_plain_version(cuda, mode, store_dtype, k, qtile):
     assert scan_kernel.LAUNCHES == before + 1
     kd, ks, rd, rs = (t.cpu().numpy() for t in (kd, ks, rd, rs))
     np.testing.assert_array_equal(np.isinf(kd), np.isinf(rd))
-    np.testing.assert_allclose(kd, rd, rtol=1e-4, atol=1e-5)
-    mism = ks != rs
-    if mism.any():
-        # f32 sums of 64 products in two orders: ties within their rounding
-        np.testing.assert_allclose(kd[mism], rd[mism], rtol=1e-6, atol=4e-7)
+    if mode == "int8":
+        np.testing.assert_array_equal(kd.view(np.uint32), rd.view(np.uint32))
+        np.testing.assert_array_equal(ks, rs)
+    else:
+        np.testing.assert_allclose(kd, rd, rtol=1e-4, atol=1e-5)
+        mism = ks != rs
+        # ties within the rounding of f32 sums in two orders: 64 products,
+        # or up to 768 (the tensor cores and cuBLAS sum in other orders)
+        tie_atol = 4e-7 if d == 64 else 5e-6
+        np.testing.assert_allclose(kd[mism], rd[mism], rtol=1e-6, atol=tie_atol)
+    partner = np.full(store.chunk_data.shape[0], -1)
+    row_slot = store.row_slot.cpu().numpy()
+    partner[row_slot[dst]] = row_slot[src]
+    lists = ks.reshape(-1, k)
+    earlier = np.where(lists >= 0, partner[np.maximum(lists, 0)], -1)
+    rows, cols = np.nonzero(earlier >= 0)
+    assert len(rows) > 0
+    for r, j in zip(rows, cols):
+        assert (lists[r, :j] == earlier[r, j]).any(), (r, j)
 
 
 def test_kernel_rejects_what_it_does_not_take(cuda):

@@ -1,6 +1,7 @@
 """The port imports and runs without jax, names its devices explicitly,
 and carries the configuration surface of the JAX package."""
 
+import ast
 import pathlib
 import subprocess
 import sys
@@ -21,6 +22,7 @@ MODULES = [
     "learnedmetricindex_tpu_torch.data",
     "learnedmetricindex_tpu_torch.models.mlp",
     "learnedmetricindex_tpu_torch.models.train",
+    "learnedmetricindex_tpu_torch.native",
     "learnedmetricindex_tpu_torch.ops.clustering",
     "learnedmetricindex_tpu_torch.ops.cuda_build",
     "learnedmetricindex_tpu_torch.ops.gather_kernel",
@@ -37,17 +39,27 @@ MODULES = [
 ]
 
 
-def _run_without_jax(body: str) -> subprocess.CompletedProcess:
-    code = "import sys\nsys.modules['jax'] = None\n" + body
+def _run_without(body: str, blocked=("jax",)) -> subprocess.CompletedProcess:
+    code = "import sys\n" + "".join(f"sys.modules[{m!r}] = None\n" for m in blocked) + body
     return subprocess.run(
         [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=300
     )
 
 
-def test_imports_and_searches_without_jax(tmp_path):
-    """Every module imports with jax unimportable, and a tiny index saves,
-    loads and searches on the CPU."""
-    body = f"""
+# after the body: neither jax nor the JAX package was loaded
+_NOTHING_LOADED = """
+loaded = [m for m, v in sys.modules.items() if v is not None and (
+    m == "jax" or m.startswith("jax.") or m == "learnedmetricindex_tpu"
+    or m.startswith("learnedmetricindex_tpu."))]
+assert not loaded, loaded
+print("ok")
+"""
+
+
+def _search_body(tmp_path) -> str:
+    """Every module imports, and a tiny index saves, loads and searches on
+    the CPU."""
+    return f"""
 import importlib
 import numpy as np, torch
 torch.set_num_threads(1)
@@ -67,19 +79,12 @@ index.save({str(tmp_path / 'i.npz')!r}, pred)
 index, pred = lmi.LearnedIndex.load({str(tmp_path / 'i.npz')!r}, "cpu")
 d, i, t = index.search(None, data[:5], data, data[:5], pred, n_buckets=4, k=3, precision="highest")
 assert (i[:, 0] == np.arange(1, 6)).all(), i
-loaded = [m for m, v in sys.modules.items() if v is not None and (m == "jax" or m.startswith("jax."))]
-assert not loaded, loaded
-print("ok")
-"""
-    proc = _run_without_jax(body)
-    assert proc.returncode == 0, proc.stderr
-    assert proc.stdout.strip().endswith("ok")
+""" + _NOTHING_LOADED
 
 
-def test_builds_and_searches_without_jax():
-    """The build path runs with jax unimportable: a 2-level index is built,
-    every bucket is filled and best-first search finds each query itself."""
-    body = """
+# the build path: a 2-level index is built, every bucket is filled and
+# best-first search finds each query itself
+_BUILD_BODY = """
 import numpy as np, torch
 torch.set_num_threads(1)
 import learnedmetricindex_tpu_torch as lmi
@@ -92,13 +97,73 @@ index, pred, n_buckets, build_t, cluster_t = lmi.LearnedIndexBuilder(data, cfg, 
 assert n_buckets == 6 and (np.bincount(index.bucket_ids_from_prediction(pred), minlength=6) > 0).all()
 d, i, t = index.search(None, data[:5], data, data[:5], pred, n_buckets=2, k=3, precision="highest")
 assert (i[:, 0] == np.arange(1, 6)).all(), i
-loaded = [m for m, v in sys.modules.items() if v is not None and (m == "jax" or m.startswith("jax."))]
-assert not loaded, loaded
-print("ok")
-"""
-    proc = _run_without_jax(body)
+""" + _NOTHING_LOADED
+
+WITHOUT_THE_JAX_PACKAGE = ("jax", "learnedmetricindex_tpu")
+
+
+def test_imports_and_searches_without_jax(tmp_path):
+    """Every module imports with jax unimportable, and a tiny index saves,
+    loads and searches on the CPU."""
+    proc = _run_without(_search_body(tmp_path))
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip().endswith("ok")
+
+
+def test_builds_and_searches_without_jax():
+    """The build path runs with jax unimportable: a 2-level index is built,
+    every bucket is filled and best-first search finds each query itself."""
+    proc = _run_without(_BUILD_BODY)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().endswith("ok")
+
+
+def test_imports_and_searches_without_the_jax_package(tmp_path):
+    """The same with the JAX package unimportable as well: the port keeps
+    its own configuration and native helpers."""
+    proc = _run_without(_search_body(tmp_path), WITHOUT_THE_JAX_PACKAGE)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().endswith("ok")
+
+
+def test_builds_and_searches_without_the_jax_package():
+    proc = _run_without(_BUILD_BODY, WITHOUT_THE_JAX_PACKAGE)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().endswith("ok")
+
+
+def _imported_modules(path: pathlib.Path):
+    """Every module name an ``import`` or ``from ... import`` of ``path``
+    names (relative imports resolve inside the port)."""
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Import):
+            yield from (alias.name for alias in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module
+
+
+@pytest.mark.parametrize("where", ["package", "chip_smoke.py"])
+def test_no_import_of_the_jax_package(where):
+    """No module of the port and no line of chip_smoke.py imports the JAX
+    package (``learnedmetricindex_tpu`` or any of its modules)."""
+    files = sorted(PACKAGE.rglob("*.py")) if where == "package" else [ROOT / "chip_smoke.py"]
+    offenders = [
+        f"{path.relative_to(ROOT)}: {name}"
+        for path in files
+        for name in _imported_modules(path)
+        if name == "learnedmetricindex_tpu" or name.startswith("learnedmetricindex_tpu.")
+    ]
+    assert files and offenders == []
+
+
+def test_native_helpers_build_outside_the_packages():
+    """The port's native library is built under the checkout's build/, not
+    into either package."""
+    from learnedmetricindex_tpu_torch import native
+
+    path = native.library_path()
+    assert path.parent == ROOT / "build" / "torch_native"
+    assert native.SOURCE.parent == PACKAGE / "native"
 
 
 def test_no_jax_import_in_the_package():

@@ -237,3 +237,49 @@ def test_wrapper_runs_plain_version_on_cpu_and_validates():
         scan_kernel.scan_pairs(*args, k=257, qtile=qtile, chunk=chunk, mode="f32")
     with pytest.raises(ValueError, match="mode"):
         scan_kernel.scan_pairs(*args, k=k, qtile=qtile, chunk=chunk, mode="fp8")
+
+
+@pytest.mark.parametrize(
+    "mode,store_dtype,d",
+    [("bf16", torch.int8, 768), ("bf16", torch.int8, 100), ("bf16", torch.bfloat16, 100),
+     ("bf16", torch.float32, 7), ("int8", torch.int8, 96), ("int8", torch.int8, 100)],
+)
+def test_operand_queries_layout(mode, store_dtype, d):
+    """The query rows of the tensor-core modes: bf16 rounded to nearest
+    even (or the int8 rows), zero-padded to whole 16-value groups, 16-byte
+    aligned, and over an int8 store in WIDEN_ORDER within each group."""
+    q = torch.as_tensor(np.random.default_rng(d).normal(size=(5, d)).astype(np.float32))
+    if mode == "int8":
+        q, _ = quantize_rows(q)
+    out = scan_kernel.operand_queries(q, mode, store_dtype)
+    dq = -(-d // 16) * 16
+    assert out.dtype == (torch.bfloat16 if mode == "bf16" else torch.int8)
+    assert out.shape == (5, dq) and out.is_contiguous() and out.data_ptr() % 16 == 0
+    expect = torch.zeros((5, dq), dtype=out.dtype)
+    expect[:, :d] = q.to(out.dtype)
+    if mode == "bf16" and store_dtype == torch.int8:
+        expect = expect.reshape(5, -1, 16)[:, :, list(scan_kernel.WIDEN_ORDER)].reshape(5, dq)
+    assert torch.equal(out, expect)
+
+
+def test_widen_order_pairs_each_query_value_with_its_store_value():
+    """One 16-deep m16n8k16 step of the bf16-over-int8 body, from the PTX
+    fragment layouts: ldmatrix hands lane t of a quad the int8 values
+    4t..4t+3 of the row slice, widened into the B registers of depths
+    (2t, 2t+1) and (2t+8, 2t+9).  Depth k' of the A fragment holds query
+    value WIDEN_ORDER[k'], so it must meet store value WIDEN_ORDER[k']."""
+    placed = np.full(16, -1)
+    for t in range(4):
+        placed[[2 * t, 2 * t + 1, 2 * t + 8, 2 * t + 9]] = [4 * t, 4 * t + 1, 4 * t + 2, 4 * t + 3]
+    np.testing.assert_array_equal(placed, scan_kernel.WIDEN_ORDER)
+
+
+def test_int8_to_bf16_widening_is_exact():
+    """The kernel widens int8 v through the f32 with bits 0x4B0000uu
+    (2^23 + uu, uu = byte ^ 0x80) minus 2^23 + 128: exactly v for all 256
+    values, and exact again in bf16."""
+    v = np.arange(-128, 128)
+    bits = np.uint32(0x4B000000) | ((v.astype(np.int8).view(np.uint8) ^ 0x80).astype(np.uint32))
+    f = bits.view(np.float32) - np.float32(8388736.0)
+    np.testing.assert_array_equal(f, v.astype(np.float32))
+    assert torch.equal(torch.as_tensor(f).bfloat16().float(), torch.as_tensor(f))
