@@ -14,8 +14,10 @@ phases:
    registers and spills;
 3. kernel vs plain: the scan kernel against its plain PyTorch version on
    the card at d 768, 96 and 100, all three modes over every store type
-   they take, k 12 to 256, qtile 1/8/100/128, with duplicated rows whose
-   exact ties must go to the earlier slot;
+   they take, k 16 to 600 (every list width, 32 to 1024), qtile
+   1/8/100/128, with duplicated rows whose exact ties must go to the
+   earlier slot; f32 over int8 and bf16 stores also on rows of one power
+   of two, where each distance needs all three bf16 terms of a query;
 4. corpus: a seeded 10M×768 int8 corpus (+ f32 row scales) on the
    device and the exact f32 top-10 of the queries;
 5. search path: an index whose MLP-4 encodes a nearest-centroid
@@ -24,7 +26,9 @@ phases:
    then, at the flagship shape, the scan kernel, its plain version and
    the library yardstick (per bucket one matmul + ``torch.topk``) timed
    with CUDA events beside the least time the card could take (bound),
-   and the search's split between navigation, the scan and the rest;
+   the f32 kernel's and plain version's distances against float64 (the
+   kernel's error may not exceed the plain version's), and
+   the search's split between navigation, the scan and the rest;
 6. build path: ``LearnedIndexBuilder`` at the bench's flagship
    configuration (1 level, 120 buckets, 4 epochs, batch 1024, lr 0.01,
    balanced class weights, seed 2023), save, load, packed store, search
@@ -68,17 +72,29 @@ WORK_DIR = ROOT / "build" / "chip_smoke"
 RTOL, ATOL = 1e-4, 1e-5
 TIE_RTOL, TIE_ATOL = 1e-6, 1e-7
 # ... where "tied" for f32 sums of 768 products means within their
-# rounding: the kernel's FMA chain and cuBLAS add in other orders and
-# differ by up to 1.3e-6 on unit vectors (H100 runs); int8 sums are
-# exact in both, so int8 keeps the tight bar
+# rounding: the kernel (tensor-core sums of exact products, or an FMA
+# chain over an f32 store) and cuBLAS add in other orders; the bf16 body
+# and the FMA chain differed from it by up to 1.4e-6 and 1.7e-6 on unit
+# vectors (H100 runs); int8 sums are exact in both, so int8 keeps the
+# tight bar
 FLOAT_TIE_ATOL = 5e-6
+# f32 queries against rows that each hold one power of two (split_terms_check):
+# every product is exact, so the plain version's f32 matmul is exact, and a
+# distance needs all three bf16 terms of its query value.  The kernel stays
+# within this share of 1 + |dot| of it; the same queries without their lo
+# terms must miss the bar, or the check could not tell the bodies apart
+SPLIT_REL_ERR = 2.0**-20
 REPLACES = "learnedmetricindex_tpu/ops/scan_kernel.py:325"
 KERNEL_SOURCE = "learnedmetricindex_tpu_torch/csrc/scan_pairs.cu"
 GATHER_REPLACES = "learnedmetricindex_tpu/ops/gather_kernel.py:151"
 GATHER_SOURCE = "learnedmetricindex_tpu_torch/csrc/gather_rows.cu"
 HBM_BYTES_PER_S = 3.35e12  # the H100 SXM's published device-memory rate
-# published dense peaks of the H100 SXM at 700 W, per scan mode: bf16 and
-# int8 on the tensor cores, f32 on the CUDA cores (operations/s)
+# published dense peaks of the H100 SXM at 700 W (operations/s): bf16 and
+# int8 on the tensor cores, f32 on the CUDA cores.  The scan's bound takes
+# the fastest exact form of its products on this card (scan_work): f32
+# queries over an int8 or bf16 store are three bf16 terms whose products
+# with the store's values are exact, so three bf16 passes; only f32 over
+# an f32 store is bound by the CUDA cores' f32 rate
 PEAK_OPS = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}
 
 
@@ -232,21 +248,20 @@ def kv_stores(dev, d: int, seed: int = 7):
 def phase_kernel_vs_plain(dev) -> dict:
     """The scan kernel against its plain version at widths 768, 96 and
     100 (rows not 16-byte aligned: a depth tail and narrower copies):
-    bf16 over every store type and int8 at k 16/36/64/256 with qtile
-    1/8/100/128 in turn, and f32 over each store type at every list
-    width (32/64/128/256).  Returns, per
-    mode, (largest |Δd|, largest |Δd| where slots differ)."""
+    every mode over every store type it takes (bf16 over f32/bf16/int8,
+    int8, f32 over f32/bf16/int8) at k 16/36/64/100/256/300/600, every
+    list width from 32 to 1024, with qtile 1/8/100/128 in turn; then f32
+    over bf16 and int8 stores of one-hot rows (split_terms_check).
+    Returns, per mode, (largest |Δd|, largest |Δd| where slots differ)."""
     qtiles = (1, 8, 100, 128)
-    tensor_core = [("bf16", "f32"), ("bf16", "bf16"), ("bf16", "int8"), ("int8", "int8")]
+    combos = [("bf16", "f32"), ("bf16", "bf16"), ("bf16", "int8"), ("int8", "int8"),
+              ("f32", "bf16"), ("f32", "int8"), ("f32", "f32")]
     worst = {m: (0.0, 0.0) for m in ("f32", "bf16", "int8")}
     for d in (768, 96, 100):
         stores, queries, order, chunk, partner = kv_stores(dev, d)
         cases = [(mode, k, qtiles[(ki + si) % 4], store)
-                 for ki, k in enumerate((16, 36, 64, 256))
-                 for si, (mode, store) in enumerate(tensor_core)]
-        cases += [("f32", 12, 128, "f32"), ("f32", 24, 8, "int8"), ("f32", 16, 100, "bf16"),
-                  ("f32", 36, 128, "f32"), ("f32", 64, 8, "bf16"), ("f32", 100, 1, "int8"),
-                  ("f32", 256, 100, "bf16")]
+                 for ki, k in enumerate((16, 36, 64, 100, 256, 300, 600))
+                 for si, (mode, store) in enumerate(combos)]
         for mode, k, qtile, store_name in cases:
             store = stores[store_name]
             plan, args = scan_inputs(store, queries, order, qtile, mode)
@@ -264,9 +279,52 @@ def phase_kernel_vs_plain(dev) -> dict:
                 f"max|Δd|={err:.3g}, {n_swapped} slots swapped at ties (max|Δd| there "
                 f"{gap:.3g}), {n_dup} later duplicates after their earlier copy")
         del stores
+        for si, store_name in enumerate(("bf16", "int8")):
+            for ki, k in enumerate((16, 100)):
+                split_terms_check(dev, d, store_name, k, qtiles[(2 * si + ki + d) % 4])
     for mode, (err, gap) in worst.items():
         log(f"[kernel-vs-plain] {mode}: max|Δd| {err:.3g}; at swapped slots {gap:.3g}")
     return worst
+
+
+def split_terms_check(dev, d: int, store_name: str, k: int, qtile: int) -> None:
+    """f32 mode over a bf16 or int8 store whose rows each hold one
+    power of two (±1 to ±64; int8 rows with f32 scales) in 5 buckets,
+    150 f32 queries visiting 3: the kernel's distances within
+    SPLIT_REL_ERR·(1 + |dot|) of the plain version's at every rank, and
+    the queries' hi + mid alone (the plain version) outside it somewhere."""
+    rng = np.random.default_rng(d * 31 + k)
+    n, nb, chunk = 3000, 5, 320
+    rows = torch.arange(n, device=dev)
+    cols = torch.as_tensor(rng.integers(0, d, n), device=dev)
+    vals = np.ldexp(rng.choice([-1.0, 1.0], n), rng.integers(0, 7, n)).astype(np.float32)
+    bucket_ids = rng.integers(0, nb, n)
+    dtype = torch.int8 if store_name == "int8" else torch.bfloat16
+    x = torch.zeros((n, d), dtype=dtype, device=dev)
+    x[rows, cols] = torch.as_tensor(vals, device=dev).to(dtype)
+    scales = (torch.as_tensor(rng.uniform(0.01, 0.03, n).astype(np.float32), device=dev)
+              if store_name == "int8" else None)
+    store = BucketStore.build_packed_device(x, bucket_ids, nb, chunk=chunk, row_scales=scales)
+    queries = torch.as_tensor(rng.normal(size=(150, d)).astype(np.float32), device=dev)
+    order = torch.as_tensor(np.stack([rng.choice(nb, 3, replace=False) for _ in range(150)]),
+                            device=dev)
+    plan, args = scan_inputs(store, queries, order, qtile, "f32")
+    kw = dict(k=k, qtile=qtile, chunk=chunk, mode="f32")
+    kd, _ = scan_kernel.scan_pairs(*args, **kw)
+    rd, _ = scan_kernel.scan_pairs_reference(*args, **kw)
+    hi, mid, _ = scan_kernel.split_f32(args[0])
+    td, _ = scan_kernel.scan_pairs_reference(hi.float() + mid.float(), *args[1:], **kw)
+    what = f"f32 store={store_name} one-hot rows d={d} k={k} qtile={qtile}"
+    fin = torch.isfinite(rd)
+    check(torch.equal(fin, torch.isfinite(kd)) and bool(fin.any()), f"{what}: filled entries differ")
+    bar = SPLIT_REL_ERR * (1.0 + (1.0 - rd[fin]).abs())
+    share = float(((kd[fin] - rd[fin]).abs() / bar).max())
+    share_two = float(((td[fin] - rd[fin]).abs() / bar).max())
+    check(share_two > 1.0, f"{what}: hi + mid alone stays within the bar ({share_two:.3g} of it)")
+    check(share <= 1.0, f"{what}: the kernel misses the bar ({share:.3g} of it)")
+    err = float((kd[fin] - rd[fin]).abs().max())
+    log(f"[kernel-vs-plain] {what:44s} pairs={plan.n_pairs:4d}: max|Δd|={err:.3g} = "
+        f"{share:.3g} of the bar; hi + mid alone {share_two:.3g} of it")
 
 
 def make_corpus(dev, n: int, nq: int, nb: int, d: int = 768, seed: int = 2023) -> dict:
@@ -432,8 +490,8 @@ def phase_main(dev, data: dict, smi: str):
     for mode in ("bf16", "f32", "int8"):
         plan, sargs = scan_inputs(store, queries, order, 128, mode)
         kw = dict(k=16, qtile=128, chunk=chunk, mode=mode)
-        flops, nbytes = scan_work(store, plan, order, d, 16, mode)
-        bound = {"operations": flops / PEAK_OPS[mode] * 1e3, "bytes": nbytes / HBM_BYTES_PER_S * 1e3}
+        mac, ops, peak, nbytes = scan_work(store, plan, order, d, 16, mode)
+        bound = {"operations": ops / peak * 1e3, "bytes": nbytes / HBM_BYTES_PER_S * 1e3}
         bound_by = max(bound, key=bound.get)
         k_ms = cuda_ms(lambda: scan_kernel.scan_pairs(*sargs, **kw), 3)
         p_ms = cuda_ms(lambda: scan_kernel.scan_pairs_reference(*sargs, **kw), 1)
@@ -442,12 +500,20 @@ def phase_main(dev, data: dict, smi: str):
         kd, ks = scan_kernel.scan_pairs(*sargs, **kw)
         rd, rs = scan_kernel.scan_pairs_reference(*sargs, **kw)
         err, gap = compare_candidates(kd, ks, rd, rs, mode, f"flagship {mode}")
+        if mode == "f32":  # no less exact than cuBLAS's f32: both against float64
+            k_err = float64_error(store, sargs[0], plan, kd, ks)
+            p_err = float64_error(store, sargs[0], plan, rd, rs)
+            log(f"[flagship] scan_pairs f32 against float64 distances, the candidates of the first "
+                f"16 pairs: kernel max|err| {k_err:.3g}, plain {p_err:.3g}")
+            check(k_err <= p_err, f"flagship f32: the kernel's error against float64 {k_err:.3g} "
+                  f"exceeds the plain version's {p_err:.3g}")
         timing[mode] = {"ms": k_ms, "plain_ms": p_ms, "library_ms": lib_ms, "err": err,
                         "bound_ms": bound[bound_by], "bound_by": bound_by}
         log(f"[flagship] scan_pairs {mode}: kernel {k_ms:.3f} ms, plain {p_ms:.2f} ms, library "
-            f"{lib_ms:.2f} ms; bound {bound[bound_by]:.3f} ms by {bound_by} ({flops / 2:.4g} MAC, "
-            f"{nbytes / 1e9:.3f} GB) = {bound[bound_by] / k_ms:.1%} of it; {plan.n_pairs} pairs, "
-            f"{flops / 2 / k_ms / 1e9:.1f} TMAC/s; agree, max|Δd|={err:.3g} (at swapped slots "
+            f"{lib_ms:.2f} ms; bound {bound[bound_by]:.3f} ms by {bound_by} ({mac:.4g} MAC, "
+            f"{ops:.4g} operations at {peak / 1e12:g} T/s, {nbytes / 1e9:.3f} GB) = "
+            f"{bound[bound_by] / k_ms:.1%} of it; {plan.n_pairs} pairs, "
+            f"{mac / k_ms / 1e9:.1f} TMAC/s; agree, max|Δd|={err:.3g} (at swapped slots "
             f"{gap:.3g})  [{smi}]")
     scan_s = timing["bf16"]["ms"] / 1e3
     log(f"[split] search at default precision {mean_s:.4f} s per {nq}: navigation "
@@ -461,12 +527,14 @@ def phase_main(dev, data: dict, smi: str):
 
 
 def scan_work(store, plan, order, d: int, k: int, mode: str) -> tuple:
-    """What the scan of this visit set needs: (operations, bytes).
-    Operations: 2 per multiply-add of each visiting query with each true
-    row of the bucket it visits (no tile or chunk padding).  Bytes: each
-    visited bucket's rows and row scales read once, the queries read once
-    in the mode's type, the (n_pairs, qtile, k) distances and slots
-    written once."""
+    """What the scan of this visit set needs: (multiply-adds, operations,
+    the peak rate they run at, bytes).  Multiply-adds: each visiting
+    query with each true row of the bucket it visits (no tile or chunk
+    padding).  Operations: 2 per multiply-add in the mode's type, 6 (three
+    bf16 passes at the bf16 rate) for f32 queries over an int8 or bf16
+    store, whose exact product is that.  Bytes: each visited bucket's rows
+    and row scales read once, the queries read once in the mode's type,
+    the (n_pairs, qtile, k) distances and slots written once."""
     sizes = torch.as_tensor(store.bucket_sizes, device=order.device).long()
     visits = order[order >= 0].long()
     rows = float(sizes[visits].sum())
@@ -475,7 +543,21 @@ def scan_work(store, plan, order, d: int, k: int, mode: str) -> tuple:
     q_bytes = {"f32": 4, "bf16": 2, "int8": 1}[mode] * d
     out_bytes = plan.n_pairs * 128 * k * 8
     nbytes = float(sizes[visited].sum()) * row_bytes + order.shape[0] * q_bytes + out_bytes
-    return 2.0 * rows * d, nbytes
+    split = mode == "f32" and store.chunk_data.dtype != torch.float32
+    peak = PEAK_OPS["bf16" if split else mode]
+    return rows * d, (6.0 if split else 2.0) * rows * d, peak, nbytes
+
+
+def float64_error(store, queries, plan, dists, slots, n_pairs: int = 16) -> float:
+    """Largest |distance − the same distance in float64| over the listed
+    candidates of the plan's first ``n_pairs`` pairs (qtile 128)."""
+    qidx = plan.qidx[: n_pairs * 128].reshape(n_pairs, 128).long()
+    s = slots[:n_pairs].long()
+    ok = (s >= 0) & (qidx >= 0)[:, :, None]
+    q = queries[qidx.clamp_min(0)].double()
+    x = store.chunk_data[s.clamp_min(0)].double()
+    exact = 1.0 - torch.einsum("pqd,pqkd->pqk", q, x) * store.scales_flat()[s.clamp_min(0)].double()
+    return float((dists[:n_pairs].double() - exact).abs()[ok].max())
 
 
 def library_scan(store, plan, sargs, k: int, mode: str):

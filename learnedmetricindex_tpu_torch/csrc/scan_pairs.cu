@@ -23,34 +23,34 @@
 //    padding query (qidx −1), gets only the fill.
 //
 // What bounds it on an H100.  At the flagship shape (10M×768 int8 store,
-// 120 buckets, 10k queries visiting 4, k_scan 16) the scan is ~2.6e12
+// 120 buckets, 10k queries visiting 4, k_scan 16) the scan is ~2.7e12
 // multiply-adds (3.2e12 with the query-tile padding) over at most the
-// 7.7 GB store: in bf16 on the tensor cores 5.2e12 FLOP / 989 TFLOP/s
-// ≈ 5.3 ms against ≤ 7.7 GB / 3.35 TB/s ≈ 2.3 ms of memory, so
-// compute-bound; int8 ≈ 2.6 ms; f32 must stay IEEE on the CUDA cores,
-// 5.2e12 / 67 TFLOP/s ≈ 78 ms.  The first kernel ran all three modes on
-// the CUDA cores (FP32 FMA, DP4A for int8): 257–354 ms bf16 and 84–119 ms
-// int8, 1.5–3% of their bound.
+// 7.7 GB store: in bf16 on the tensor cores 5.4e12 FLOP / 989 TFLOP/s
+// ≈ 5.5 ms against ≤ 7.7 GB / 3.35 TB/s ≈ 2.3 ms of memory, so
+// compute-bound; int8 ≈ 2.7 ms; f32 over that store, three bf16 passes
+// (below), ≈ 16.4 ms.  The first kernel ran all three modes on the CUDA
+// cores (FP32 FMA, DP4A for int8): 257–354 ms bf16 and 84–119 ms int8,
+// 1.5–3% of their bound, and f32 241–255 ms.
 //
 // The design.
-//  * bf16 and int8 run on the tensor cores: warp-level
-//    mma.sync.m16n8k16 bf16→f32 and m16n8k32 s8→s32 (exact, so int8 stays
-//    bit-equal to the plain version).  A block computes a 128-query ×
-//    128-row distance tile with 8 warps of 64 × 32 (4 m-tiles × 4
-//    n-tiles, 64 accumulators a thread).  64 × 32 rather than 32 × 64:
+//  * Every mode over an int8 or bf16 store runs on the tensor cores:
+//    warp-level mma.sync.m16n8k16 bf16→f32 and m16n8k32 s8→s32 (exact, so
+//    int8 stays bit-equal to the plain version).  A block computes a
+//    128-query × 128-row distance tile with 8 warps of 64 × 32 (4 m-tiles ×
+//    4 n-tiles, 64 accumulators a thread).  64 × 32 rather than 32 × 64:
 //    every B fragment (a store row slice, widened from int8 to bf16 in
 //    registers on the main path) then feeds four mma, so the widening
 //    costs a quarter of what it would with 2 m-tiles.
 //  * Operands sit in shared memory in their storage type (bf16 or int8),
-//    fed by a 3-stage cp.async ring of 64-byte depth slices of the query
-//    tile and of the row tile (`commit_group`/`wait_group`: the copies
-//    for step s+1 and s+2 are in flight while step s computes) and read
-//    with ldmatrix.  Rows are padded to 80 (48) bytes so that the eight
-//    16-byte rows of an ldmatrix land on distinct banks.  A copy past d,
-//    past the chunk's last row or of a padding query is zero-filled
-//    (src-size 0), never skipped.  Store rows that are not 16-byte
-//    aligned (d·size % 16 != 0, e.g. d = 100 int8) are copied 8 or 4
-//    bytes at a time through the same ring; rows of fewer than 4-byte
+//    fed by a cp.async ring of 64-byte depth slices of the query tile
+//    and of the row tile (`commit_group`/`wait_group`: the copies for the
+//    next steps are in flight while a step computes) and read with
+//    ldmatrix.  Rows are padded by 16 bytes (80, 48 or 208 in all) so
+//    that the eight 16-byte rows of an ldmatrix land on distinct banks.  A
+//    copy past d, past the chunk's last row or of a padding query is
+//    zero-filled (src-size 0), never skipped.  Store rows that are not
+//    16-byte aligned (d·size % 16 != 0, e.g. d = 100 int8) are copied 8 or
+//    4 bytes at a time through the same ring; rows of fewer than 4-byte
 //    granules, and f32 rows in bf16 mode (rounded to bf16 with
 //    __float2bfloat16_rn), are staged through registers into the ring.
 //  * Queries: the wrapper rounds them to bf16 once per call (bits equal
@@ -63,15 +63,32 @@
 //    permutes each 16-element group of the bf16 queries the same way
 //    (WIDEN_ORDER in ops/scan_kernel.py) and the products pair up.  The
 //    queries are never quantized.
+//  * f32 over an int8 or bf16 store (precision="highest" on the main
+//    path): the wrapper splits each f32 query value exactly into three
+//    bf16 terms, hi = bf16(q), mid = bf16(q − hi), lo = bf16(q − hi − mid)
+//    (hi + mid + lo == q for 2^-110 <= |q| < bf16's overflow edge; below
+//    2^-110 less than 2^-133 is lost), and lays the three terms of each
+//    32-value depth slice side by side (zero-padded to a multiple of 32,
+//    each 16-group in WIDEN_ORDER over an int8 store).  Store values are
+//    exact in bf16, so every product is exact and only the sums round, as
+//    in the Pallas kernel's multi-pass f32 (Precision.HIGHEST).  Each B
+//    fragment is widened once and feeds the three terms' mma.  The tensor
+//    cores truncate the sum they add into, so the running sum is never
+//    their accumulator: each 16-deep step sums lo, mid and hi (smallest
+//    first) into a fresh fragment, which one round-to-nearest f32 add puts
+//    into the running sum.  Three query terms make a stage 2.25× larger,
+//    so this body's ring has two stages, not three (two blocks an SM at
+//    list width 32 need both to fit).  This is not TF32: no operand is
+//    rounded.
+//  * f32 over an f32 store keeps a CUDA-core body (IEEE FMA, 8 × 8
+//    outputs a thread, operands staged as f32): f32 rows are not exact in
+//    bf16.
 //  * The ring shares the distance tile's shared memory and drains at the
 //    end of every row tile; at list width 32 (the flagship) a block takes
-//    ~100 KB, so two blocks share an SM and one block's epilogue and
+//    ~100–110 KB, so two blocks share an SM and one block's epilogue and
 //    selection overlap the other's mma.  (One block an SM with a deeper
 //    ring that never drains was slower: the selection then stalls the
 //    tensor cores.)
-//  * f32 keeps the CUDA-core body (IEEE FMA, 8 × 8 outputs a thread,
-//    operands staged as f32): the tensor cores have no IEEE f32, and TF32
-//    is not allowed on this path.
 //  * Selection, the same rule for every mode.  The epilogue writes the
 //    f32 distance tile [row][query] and marks, per query and 32-row
 //    group, whether any distance lies below the query's current k-th:
@@ -93,25 +110,30 @@
 //  * splitting buckets over blocks: one block per pair, started largest
 //    bucket first (pair_order), but the largest bucket (~157k–162k rows
 //    at the flagship) still sets the tail; a split needs a merge pass;
-//  * k > 128 computes the distance tile twice (see below);
+//  * k > 128 computes the distance tile 2, 4 or 8 times (see below);
+//  * f32 over an f32 store on the tensor cores (six bf16 terms a product);
 //  * the count gate of the Pallas kernel is an optimisation of its
 //    selection sweeps; the group marks above play its part here.
 //
-// Shared memory per list width (KMAX, the smallest of 32/64/128/256 that
-// holds k): lists 2·KMAX·QB·4 B + 2,560 B of row and query metadata and
-// group marks + the 67,584 B distance tile, which the ring (3 × 20,480 B
-// at most) and the f32 body's operand tiles (33,792 B) reuse:
-//   KMAX  32:  32,768 + 2,560 + 67,584 = 102,912 B (two blocks an SM)
-//   KMAX  64:  65,536 + 2,560 + 67,584 = 135,680 B
-//   KMAX 128: 131,072 + 2,560 + 67,584 = 201,216 B
-//   KMAX 256: 131,072 + 2,560 + 67,584 = 201,216 B (QB = 64)
-// Up to KMAX 128 a block owns all QT = 128 queries of its pair; at 256
-// the lists of 128 queries would take 256 KB, more than a block's 227 KB,
-// so the pair's queries are split over QT/QB = 2 blocks of QB = 64.  Each
-// block still computes the full 128-wide distance tile (the queries it
-// does not own read as zeros and are never selected), so k > 128 costs
-// twice the multiply-adds; each block owns whole queries, so nothing is
-// merged.
+// Shared memory per list width (KMAX, the smallest of 32/64/128/256/512/
+// 1024 that holds k): lists 2·KMAX·QB·4 B + 2,560 B of row and query
+// metadata and group marks + the work area: the 67,584 B distance tile,
+// which the ring and the f32 body's operand tiles (33,792 B) reuse; the
+// ring of the three-term body over a bf16 store (2 × 36,864 B) is larger
+// and sets the work area at 73,728 B.  With the distance tile:
+//   KMAX   32:  32,768 + 2,560 + 67,584 = 102,912 B (two blocks an SM)
+//   KMAX   64:  65,536 + 2,560 + 67,584 = 135,680 B
+//   KMAX  128: 131,072 + 2,560 + 67,584 = 201,216 B
+//   KMAX  256: 131,072 + 2,560 + 67,584 = 201,216 B (QB = 64)
+//   KMAX  512: 131,072 + 2,560 + 67,584 = 201,216 B (QB = 32)
+//   KMAX 1024: 131,072 + 2,560 + 67,584 = 201,216 B (QB = 16)
+// Up to KMAX 128 a block owns all QT = 128 queries of its pair; above,
+// the lists of 128 queries would take more than a block's 227 KB, so the
+// pair's queries are split over QT/QB = 2, 4 or 8 blocks of QB = 64, 32
+// or 16.  Each block still computes the full 128-wide distance tile (the
+// queries it does not own read as zeros and are never selected), so k >
+// 128 costs 2, 4 or 8 times the multiply-adds; no benchmark configuration
+// scans that wide.  Each block owns whole queries, so nothing is merged.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -138,19 +160,19 @@ constexpr int KT = 32;
 constexpr int QS = QT + 4;    // padded smem strides, 16-byte aligned rows
 constexpr int XS = RT + 4;
 
-// tensor-core bodies: a STAGES-deep ring of KB-byte slices of each query
-// row (bf16: 32 values, int8: 64) and of each store row
+// tensor-core bodies: a ring of KB-byte slices of each query term row
+// (bf16: 32 values, int8: 64) and of each store row
 constexpr int KB = 64;
-constexpr int STAGES = 3;
-constexpr int SA = KB + 16;   // query row stride in a stage (bytes)
 constexpr unsigned FULL = 0xffffffffu;
+constexpr int MAX_K = 1024;  // the widest list
 static_assert(THREADS == 8 * 32 && QT == 2 * 64 && RT == 4 * 32, "8 warps of 64 x 32");
 
 enum Mode { MODE_F32 = 0, MODE_BF16 = 1, MODE_INT8 = 2 };
 enum StoreType { STORE_F32 = 0, STORE_BF16 = 1, STORE_INT8 = 2 };
 
 struct Params {
-  const void* queries;        // (n_queries, qd): f32 (f32 mode), bf16 or int8
+  const void* queries;        // (n_queries, nt·qd): f32 (nt 1, qd == d) for f32 over an
+                              // f32 store; otherwise bf16 or int8, see lmi_scan_pairs
   const float* qscales;       // (n_queries,) f32, int8 mode only
   const int* qidx;            // (n_pairs*qtile,) query row per slot, -1 = pad
   const int* pair_bucket;     // (n_pairs,)
@@ -169,26 +191,45 @@ struct Params {
 // queries (WIDEN: 32 int8 values, widened in registers)
 __host__ __device__ constexpr int b_stage_bytes(bool widen) { return widen ? KB / 2 : KB; }
 __host__ __device__ constexpr int b_stride(bool widen) { return b_stage_bytes(widen) + 16; }
-__host__ __device__ constexpr size_t stage_bytes(bool widen) {
-  return size_t(QT) * SA + size_t(RT) * b_stride(widen);
+// query-row bytes of a stage: the nt terms' slices side by side
+__host__ __device__ constexpr int a_stride(int nt) { return nt * KB + 16; }
+__host__ __device__ constexpr size_t stage_bytes(int nt, bool widen) {
+  return size_t(QT) * a_stride(nt) + size_t(RT) * b_stride(widen);
+}
+// three stages of one query term; two of three terms, or the ring would
+// not leave room for two blocks an SM at list width 32
+__host__ __device__ constexpr int ring_stages(int nt) { return nt == 1 ? 3 : 2; }
+__host__ __device__ constexpr size_t ring_bytes(int nt, bool widen) {
+  return ring_stages(nt) * stage_bytes(nt, widen);
 }
 
 constexpr size_t kMetaBytes = size_t(3 * QT + 2 * RT) * 4;
 constexpr size_t kDistBytes = size_t(RT) * DQ * 4;
 constexpr size_t kF32OperandBytes = size_t(KT) * (QS + XS) * 4;
-static_assert(STAGES * stage_bytes(false) <= kDistBytes && kF32OperandBytes <= kDistBytes,
+// the work area: the distance tile, whose memory the ring reuses, or the
+// ring where it is larger
+__host__ __device__ constexpr size_t work_bytes(size_t ring) {
+  return ring > kDistBytes ? ring : kDistBytes;
+}
+constexpr size_t kMaxWorkBytes = work_bytes(ring_bytes(3, false));
+static_assert(ring_bytes(1, false) <= kDistBytes && ring_bytes(1, true) <= kDistBytes &&
+                  ring_bytes(3, true) <= kDistBytes && kF32OperandBytes <= kDistBytes,
               "the ring and the f32 operand tiles reuse the distance tile's memory");
 
 // queries whose lists a block keeps, for a list width
-__host__ __device__ constexpr int queries_per_block(int kmax) { return kmax <= 128 ? QT : QT / 2; }
-__host__ __device__ constexpr size_t smem_bytes(int kmax) {
-  return 2 * size_t(kmax) * queries_per_block(kmax) * 4 + kMetaBytes + kDistBytes;
+__host__ __device__ constexpr int queries_per_block(int kmax) {
+  return kmax <= 128 ? QT : QT * 128 / kmax;
 }
-static_assert(smem_bytes(256) <= 232448 && smem_bytes(128) <= 232448,
+__host__ __device__ constexpr size_t smem_bytes(int kmax, size_t work) {
+  return 2 * size_t(kmax) * queries_per_block(kmax) * 4 + kMetaBytes + work;
+}
+static_assert(smem_bytes(128, kMaxWorkBytes) <= 232448 && smem_bytes(256, kMaxWorkBytes) <= 232448 &&
+                  smem_bytes(512, kMaxWorkBytes) <= 232448 &&
+                  smem_bytes(MAX_K, kMaxWorkBytes) <= 232448,
               "lists must fit one block's shared memory");
 // blocks an SM at a list width (228 KB an SM, 1 KB of it reserved per block)
 __host__ __device__ constexpr int blocks_per_sm(int kmax) { return kmax == 32 ? 2 : 1; }
-static_assert(2 * (smem_bytes(32) + 1024) <= 233472, "two blocks an SM at list width 32");
+static_assert(2 * (smem_bytes(32, kMaxWorkBytes) + 1024) <= 233472, "two blocks an SM at list width 32");
 
 template <int KMAX>
 struct Smem {
@@ -399,24 +440,9 @@ __device__ void write_out(const Params& p, const Smem<KMAX>& s, const Pair& b) {
 }
 
 // ---------------------------------------------------------------------
-// f32 mode: the CUDA-core IEEE FMA body
+// f32 over an f32 store: the CUDA-core IEEE FMA body
 // ---------------------------------------------------------------------
-template <typename T>
-__device__ __forceinline__ float load_as_float(const T* p, size_t i);
-template <>
-__device__ __forceinline__ float load_as_float<float>(const float* p, size_t i) {
-  return p[i];
-}
-template <>
-__device__ __forceinline__ float load_as_float<__nv_bfloat16>(const __nv_bfloat16* p, size_t i) {
-  return __bfloat162float(p[i]);
-}
-template <>
-__device__ __forceinline__ float load_as_float<int8_t>(const int8_t* p, size_t i) {
-  return static_cast<float>(p[i]);
-}
-
-template <typename TS, int KMAX>
+template <int KMAX>
 __global__ void __launch_bounds__(THREADS, blocks_per_sm(KMAX)) scan_f32_kernel(Params p) {
   extern __shared__ __align__(16) unsigned char smem[];
   const Smem<KMAX> s(smem);
@@ -429,7 +455,7 @@ __global__ void __launch_bounds__(THREADS, blocks_per_sm(KMAX)) scan_f32_kernel(
   float* xs = qs + KT * QS;                      // [KT][XS]
   float* dist = s.dist();
   const float* qf = static_cast<const float*>(p.queries);
-  const TS* xf = static_cast<const TS*>(p.store);
+  const float* xf = static_cast<const float*>(p.store);
 
   for (int c = b.c_lo; c < b.c_hi; ++c) {
     const int phys = p.chunk_of[c];
@@ -460,7 +486,7 @@ __global__ void __launch_bounds__(THREADS, blocks_per_sm(KMAX)) scan_f32_kernel(
 #pragma unroll
         for (int i = 0; i < LX; ++i) {
           const int slot = s.r_slot[row0 + i * (THREADS / KT)];
-          vx[i] = (slot >= 0 && in_d) ? load_as_float<TS>(xf, (size_t)slot * d + k0 + kk) : 0.0f;
+          vx[i] = (slot >= 0 && in_d) ? __ldg(&xf[(size_t)slot * d + k0 + kk]) : 0.0f;
         }
         __syncthreads();  // the previous step's compute is done with qs/xs
 #pragma unroll
@@ -506,7 +532,8 @@ __global__ void __launch_bounds__(THREADS, blocks_per_sm(KMAX)) scan_f32_kernel(
 }
 
 // ---------------------------------------------------------------------
-// bf16 and int8 modes: mma.sync on the tensor cores, cp.async ring
+// every mode over an int8 or bf16 store, and bf16 over an f32 store:
+// mma.sync on the tensor cores, cp.async ring
 // ---------------------------------------------------------------------
 __device__ __forceinline__ uint32_t smem_u32(const void* ptr) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
@@ -605,21 +632,74 @@ __device__ __forceinline__ void stage_via_registers(unsigned char* dst, const TS
   *reinterpret_cast<uint4*>(dst) = u.v;
 }
 
+// The tensor-core body of a mode over a store type.
+template <int MODE, typename TS>
+struct MmaBody {
+  static constexpr bool INT8 = MODE == MODE_INT8;
+  // f32 queries as three exact bf16 terms hi, mid, lo (int8 or bf16 store)
+  static constexpr bool SPLIT = MODE == MODE_F32;
+  static constexpr int NT = SPLIT ? 3 : 1;                                      // query terms
+  static constexpr bool WIDEN = !INT8 && std::is_same<TS, int8_t>::value;      // int8 rows, bf16 queries
+  static constexpr bool CONVERT = std::is_same<TS, float>::value;              // f32 rows → bf16 stage
+  static constexpr int STAGES = ring_stages(NT);
+  static constexpr size_t WORK = work_bytes(ring_bytes(NT, WIDEN));
+  static_assert(!(SPLIT && CONVERT), "f32 rows are not exact in bf16: scan_f32_kernel takes them");
+  static_assert(!INT8 || std::is_same<TS, int8_t>::value, "int8 mode reads an int8 store");
+};
+
+// The mma of one 16-deep (bf16) or 32-deep (int8) sub-step of a warp's
+// 64 × 32 tile: A at `a_addr` (+ term·KB for the terms of a split query),
+// B already in registers.
+template <int NT, int SA, typename Acc>
+__device__ __forceinline__ void mma_substep(Acc (&acc)[4][4][4], const uint32_t (&bf)[4][2],
+                                            uint32_t a_addr) {
+#pragma unroll
+  for (int mi = 0; mi < 4; ++mi) {
+    if constexpr (NT == 1) {
+      uint32_t af[4];
+      ldmatrix_x4(af, a_addr + mi * 16 * SA);
+#pragma unroll
+      for (int ni = 0; ni < 4; ++ni) mma(acc[mi][ni], af, bf[ni]);
+    } else {
+      // lo, mid, hi (smallest first) into a fresh sum, then one rounded
+      // add into the running sum: the tensor cores truncate the sum they
+      // add into, and the running sum would take that once per term
+      float t[4][4];
+#pragma unroll
+      for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) t[ni][e] = 0.0f;
+#pragma unroll
+      for (int term = NT - 1; term >= 0; --term) {
+        uint32_t af[4];
+        ldmatrix_x4(af, a_addr + mi * 16 * SA + term * KB);
+#pragma unroll
+        for (int ni = 0; ni < 4; ++ni) mma(t[ni], af, bf[ni]);
+      }
+#pragma unroll
+      for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[mi][ni][e] = __fadd_rn(acc[mi][ni][e], t[ni][e]);
+    }
+  }
+}
+
 template <int MODE, typename TS, int KMAX>
 __global__ void __launch_bounds__(THREADS, blocks_per_sm(KMAX)) scan_mma_kernel(Params p) {
-  constexpr bool INT8 = MODE == MODE_INT8;
-  constexpr bool WIDEN = !INT8 && std::is_same<TS, int8_t>::value;   // int8 rows, bf16 queries
-  constexpr bool CONVERT = std::is_same<TS, float>::value;           // f32 rows → bf16 stage
+  using B = MmaBody<MODE, TS>;
+  constexpr bool INT8 = B::INT8, WIDEN = B::WIDEN, CONVERT = B::CONVERT;
+  constexpr int NT = B::NT, STAGES = B::STAGES;
   // the stage's store type: int8 (int8 mode, WIDEN), bf16 bits otherwise
   using TD = std::conditional_t<INT8 || WIDEN, int8_t, uint16_t>;
   using Acc = std::conditional_t<INT8, int, float>;
   constexpr int A_ELEM = INT8 ? 1 : 2;  // bytes per query value
   constexpr int KE = KB / A_ELEM;       // depth values per stage
   constexpr int KBB = b_stage_bytes(WIDEN);
+  constexpr int SA = a_stride(NT);
   constexpr int SB = b_stride(WIDEN);
-  constexpr int STAGE = int(stage_bytes(WIDEN));
+  constexpr int STAGE = int(stage_bytes(NT, WIDEN));
+  constexpr int A_PIECES = NT * KB / 16;  // 16-byte pieces of a query row's stage
   static_assert(KBB == KE * int(sizeof(TD)), "a stage holds the same depths of both operands");
-  static_assert(!INT8 || std::is_same<TS, int8_t>::value, "int8 mode reads an int8 store");
 
   extern __shared__ __align__(16) unsigned char smem[];
   const Smem<KMAX> s(smem);
@@ -629,25 +709,26 @@ __global__ void __launch_bounds__(THREADS, blocks_per_sm(KMAX)) scan_mma_kernel(
   const int wr = warp & 3;   // rows wr*32 ..
   const int d = p.d, chunk = p.chunk;
   const int nsteps = (d + KE - 1) / KE;
-  const size_t q_row_bytes = size_t(p.qd) * A_ELEM;
+  const size_t q_row_bytes = size_t(p.qd) * A_ELEM * NT;
   const size_t x_row_bytes = size_t(d) * sizeof(TS);
   const unsigned char* qbytes = static_cast<const unsigned char*>(p.queries);
   const unsigned char* xbytes = static_cast<const unsigned char*>(p.store);
   float* dist = s.dist();
 
-  // One stage: KB bytes of each query row and KBB bytes of each store row
-  // of depth step `step`, all copies issued by all threads.
+  // One stage: the NT·KB bytes of each query row and the KBB bytes of
+  // each store row of depth step `step`, all copies issued by all threads.
   auto load_stage = [&](int step, int buf, int phys, int r0, int nrows) {
     unsigned char* a = s.work + buf * STAGE;
     unsigned char* x = a + QT * SA;
     const int e0 = step * KE;
-    static_assert((QT * KB / 16) % THREADS == 0 && (RT * KBB / 16) % THREADS == 0, "whole rounds");
+    static_assert((QT * A_PIECES) % THREADS == 0 && (RT * KBB / 16) % THREADS == 0, "whole rounds");
 #pragma unroll
-    for (int j = 0; j < QT * KB / 16 / THREADS; ++j) {
+    for (int j = 0; j < QT * A_PIECES / THREADS; ++j) {
       const int i = tid + j * THREADS;
-      const int row = i / (KB / 16), c16 = i % (KB / 16);
+      const int row = i / A_PIECES, c16 = i % A_PIECES;
       const int qi = s.q_row[row];
-      const size_t off = size_t(e0) * A_ELEM + c16 * 16;
+      // = step·NT·KB, in the form that compiles shortest at NT 1
+      const size_t off = size_t(e0) * A_ELEM * NT + c16 * 16;
       const bool ok = qi >= 0 && off < q_row_bytes;
       cp_async16(a + row * SA + c16 * 16, qbytes + (ok ? size_t(qi) * q_row_bytes + off : 0), ok);
     }
@@ -743,13 +824,7 @@ __global__ void __launch_bounds__(THREADS, blocks_per_sm(KMAX)) scan_mma_kernel(
               uint32_t bf[4][2];
 #pragma unroll
               for (int ni = 0; ni < 4; ++ni) widen_s8x4(raw[ni][sub], bf[ni]);
-#pragma unroll
-              for (int mi = 0; mi < 4; ++mi) {
-                uint32_t af[4];
-                ldmatrix_x4(af, a_base + mi * 16 * SA + (2 * h + sub) * 32);
-#pragma unroll
-                for (int ni = 0; ni < 4; ++ni) mma(acc[mi][ni], af, bf[ni]);
-              }
+              mma_substep<NT, SA>(acc, bf, a_base + (2 * h + sub) * 32);
             }
           }
         } else {
@@ -766,13 +841,7 @@ __global__ void __launch_bounds__(THREADS, blocks_per_sm(KMAX)) scan_mma_kernel(
               bf[2 * nj + 1][0] = r[2];
               bf[2 * nj + 1][1] = r[3];
             }
-#pragma unroll
-            for (int mi = 0; mi < 4; ++mi) {
-              uint32_t af[4];
-              ldmatrix_x4(af, a_base + mi * 16 * SA + sub * 32);
-#pragma unroll
-              for (int ni = 0; ni < 4; ++ni) mma(acc[mi][ni], af, bf[ni]);
-            }
+            mma_substep<NT, SA>(acc, bf, a_base + sub * 32);
           }
         }
       }
@@ -823,14 +892,17 @@ __global__ void __launch_bounds__(THREADS, blocks_per_sm(KMAX)) scan_mma_kernel(
 template <int MODE, typename TS, int KMAX>
 cudaError_t launch_width(const Params& p, int n_pairs, cudaStream_t stream) {
   void (*kernel)(Params);
-  if constexpr (MODE == MODE_F32) {
-    kernel = scan_f32_kernel<TS, KMAX>;
+  size_t work;
+  if constexpr (MODE == MODE_F32 && std::is_same<TS, float>::value) {
+    kernel = scan_f32_kernel<KMAX>;
+    work = kDistBytes;
   } else {
     kernel = scan_mma_kernel<MODE, TS, KMAX>;
+    work = MmaBody<MODE, TS>::WORK;
   }
   constexpr int QB = queries_per_block(KMAX);
   const int splits = QB == QT ? 1 : (p.qtile + QB - 1) / QB;
-  constexpr size_t smem = smem_bytes(KMAX);
+  const size_t smem = smem_bytes(KMAX, work);
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -848,7 +920,9 @@ cudaError_t launch(const Params& p, int n_pairs, cudaStream_t stream) {
   if (p.k <= 32) return launch_width<MODE, TS, 32>(p, n_pairs, stream);
   if (p.k <= 64) return launch_width<MODE, TS, 64>(p, n_pairs, stream);
   if (p.k <= 128) return launch_width<MODE, TS, 128>(p, n_pairs, stream);
-  return launch_width<MODE, TS, 256>(p, n_pairs, stream);
+  if (p.k <= 256) return launch_width<MODE, TS, 256>(p, n_pairs, stream);
+  if (p.k <= 512) return launch_width<MODE, TS, 512>(p, n_pairs, stream);
+  return launch_width<MODE, TS, MAX_K>(p, n_pairs, stream);
 }
 
 }  // namespace
@@ -856,10 +930,14 @@ cudaError_t launch(const Params& p, int n_pairs, cudaStream_t stream) {
 extern "C" {
 
 // Returns a cudaError_t (0 = launched).  mode: 0 f32, 1 bf16, 2 int8;
-// store_type: 0 f32, 1 bf16, 2 int8.  Queries: (n, qd) f32 with qd == d
-// in f32 mode; bf16 (bf16 mode) or int8 (int8 mode) rows zero-padded to
-// qd, a multiple of 16, 16-byte aligned.  All pointers are device
-// pointers; nothing is allocated and nothing synchronizes.
+// store_type: 0 f32, 1 bf16, 2 int8.  Queries, (n, nt·qd):
+//  * f32 over an f32 store: f32 rows, nt 1, qd == d;
+//  * f32 over a bf16 or int8 store: bf16, nt 3, qd a multiple of 32 >= d:
+//    per 32-value depth slice the terms hi, mid, lo side by side
+//    (ops/scan_kernel.py::operand_queries);
+//  * bf16 mode: bf16, int8 mode: int8, nt 1, qd a multiple of 16 >= d;
+// zero-padded past d, 16-byte aligned except for f32 rows.  All pointers
+// are device pointers; nothing is allocated and nothing synchronizes.
 int lmi_scan_pairs(const void* queries, const void* qscales, const void* qidx,
                    const void* pair_bucket, const void* pair_order, const void* ptr,
                    const void* chunk_of,
@@ -867,11 +945,13 @@ int lmi_scan_pairs(const void* queries, const void* qscales, const void* qidx,
                    int n_pairs, int qtile, int k, int d, int qd, int chunk, int mode,
                    int store_type, void* stream) {
   if (n_pairs <= 0) return cudaSuccess;
-  if (qtile < 1 || qtile > QT || k < 1 || k > 256 || d < 1 || chunk < 1)
+  if (qtile < 1 || qtile > QT || k < 1 || k > MAX_K || d < 1 || chunk < 1)
     return cudaErrorInvalidValue;
   if (mode == MODE_INT8 && (store_type != STORE_INT8 || d % 4 != 0)) return cudaErrorInvalidValue;
-  if (mode == MODE_F32 ? qd != d
-                       : (qd < d || qd % 16 != 0 || reinterpret_cast<uintptr_t>(queries) % 16 != 0))
+  const bool fma = mode == MODE_F32 && store_type == STORE_F32;
+  const int q_group = mode == MODE_F32 ? 32 : 16;
+  if (fma ? qd != d
+          : (qd < d || qd % q_group != 0 || reinterpret_cast<uintptr_t>(queries) % 16 != 0))
     return cudaErrorInvalidValue;
   const size_t elem = store_type == STORE_F32 ? 4 : store_type == STORE_BF16 ? 2 : 1;
   const size_t row_bytes = size_t(d) * elem;

@@ -42,12 +42,14 @@ def exact_knn(
     ``data`` (numpy or a tensor; int8 with ``row_scales`` allowed), so
     the corpus never needs an f32 copy on the device.  Runs on
     ``device``, which defaults to the device of ``data`` when it is a
-    tensor and to the CPU otherwise.  Returns ``(dists (n_q, k) f32,
-    ids (n_q, k) uint32 1-based)``, ascending."""
+    tensor; host data needs an explicit ``device``.  Returns ``(dists
+    (n_q, k) f32, ids (n_q, k) uint32 1-based)``, ascending."""
     if metric not in METRICS:
         raise ValueError(f"Unknown metric: {metric}")
     if device is None:
-        device = data.device if isinstance(data, torch.Tensor) else "cpu"
+        if not isinstance(data, torch.Tensor):
+            raise ValueError("exact_knn needs a device for host data")
+        device = data.device
     if not isinstance(queries, torch.Tensor):
         queries = torch.from_numpy(np.asarray(queries, np.float32))
     q = queries.to(device=device, dtype=torch.float32)

@@ -12,14 +12,17 @@ of a pair whose bucket has no chunks.
 * :func:`scan_pairs` — the wrapper.  CPU tensors run the plain version;
   CUDA tensors launch ``csrc/scan_pairs.cu`` (built with ``nvcc`` for
   ``sm_90a`` at first use into ``build/torch_kernels/``) or raise.
-* :func:`operand_queries` — the query rows the kernel reads in the
-  tensor-core modes.
+* :func:`operand_queries` — the query rows the kernel's tensor-core
+  bodies read; :func:`split_f32` — the exact three-term bf16 split of
+  f32 queries behind them in mode ``"f32"``.
 * ``LAUNCHES`` — how many times the wrapper launched the kernel.
 
-Modes: ``"f32"`` (full f32, IEEE FMA on the CUDA cores), ``"bf16"`` (both
-operands rounded to bf16, products summed in f32 on the tensor cores)
-and ``"int8"`` (int8 queries with per-query ``qscales`` against an int8
-store, exact integer sums on the tensor cores).
+Modes: ``"f32"`` (full f32 queries: over an int8 or bf16 store, whose
+values are exact in bf16, three bf16 tensor-core passes of exact
+products; over an f32 store, IEEE FMA on the CUDA cores), ``"bf16"``
+(both operands rounded to bf16, products summed in f32 on the tensor
+cores) and ``"int8"`` (int8 queries with per-query ``qscales`` against an
+int8 store, exact integer sums on the tensor cores).
 """
 
 from __future__ import annotations
@@ -34,7 +37,7 @@ from learnedmetricindex_tpu_torch.ops import cuda_build
 from learnedmetricindex_tpu_torch.ops.select import smallest_k
 
 MODES = {"f32": 0, "bf16": 1, "int8": 2}
-MAX_K = 256  # the widest top-k list of csrc/scan_pairs.cu
+MAX_K = 1024  # the widest top-k list of csrc/scan_pairs.cu
 MAX_QTILE = 128  # QT in csrc/scan_pairs.cu
 _STORE_TYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
@@ -167,19 +170,47 @@ def scan_pairs_reference(
     return out_d, out_s
 
 
+def split_f32(queries: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``(hi, mid, lo)`` bf16 with ``hi + mid + lo == queries`` exactly:
+    each rounded to nearest even from what the terms before it left, and
+    both subtractions exact in f32.  Exact for ``2**-110 <= |q|`` below
+    bf16's overflow edge (~3.39e38) and for 0; below ``2**-110`` the part
+    under bf16's smallest subnormal, less than ``2**-133``, is lost."""
+    hi = queries.to(torch.bfloat16)
+    rest = queries - hi.float()
+    mid = rest.to(torch.bfloat16)
+    lo = (rest - mid.float()).to(torch.bfloat16)
+    return hi, mid, lo
+
+
 def operand_queries(queries: torch.Tensor, mode: str, store_dtype: torch.dtype) -> torch.Tensor:
-    """The query rows the kernel reads in mode ``"bf16"`` or ``"int8"``:
-    bf16 (``queries`` rounded to nearest even, once per call) or the int8
-    rows, zero-padded to a multiple of 16 values and 16-byte aligned; for
-    bf16 over an int8 store, each group of 16 in :data:`WIDEN_ORDER`."""
-    q = queries.to(torch.bfloat16) if mode == "bf16" else queries
-    n, d = q.shape
-    pad = -d % 16
-    if pad:
-        q = torch.cat([q, q.new_zeros((n, pad))], dim=1)
-    if mode == "bf16" and store_dtype == torch.int8:
-        order = torch.tensor(WIDEN_ORDER, device=q.device)
-        q = q.reshape(n, (d + pad) // 16, 16)[:, :, order].reshape(n, d + pad)
+    """The query rows the kernel's tensor-core bodies read, 16-byte
+    aligned: in mode ``"bf16"`` the queries rounded to bf16 (nearest
+    even, once per call) and in mode ``"int8"`` the int8 rows, each
+    zero-padded to a multiple of 16 values; in mode ``"f32"`` (over an
+    int8 or bf16 store) the three terms of :func:`split_f32`, each
+    zero-padded to a multiple of 32 values and laid out per 32-value
+    depth slice as ``hi, mid, lo`` side by side, ``(n, 3·qd)``.  Where
+    bf16 terms meet an int8 store, each group of 16 values is in
+    :data:`WIDEN_ORDER`."""
+    if mode == "f32":
+        terms, group = split_f32(queries), 32
+    else:
+        terms, group = (queries.to(torch.bfloat16) if mode == "bf16" else queries,), 16
+    n, d = queries.shape
+    qd = d + -d % group
+    out = []
+    for q in terms:
+        if qd > d:
+            q = torch.cat([q, q.new_zeros((n, qd - d))], dim=1)
+        if mode != "int8" and store_dtype == torch.int8:
+            order = torch.tensor(WIDEN_ORDER, device=q.device)
+            q = q.reshape(n, qd // 16, 16)[:, :, order].reshape(n, qd)
+        out.append(q)
+    if len(out) == 1:
+        q = out[0]
+    else:
+        q = torch.stack([t.reshape(n, qd // group, group) for t in out], dim=2).reshape(n, -1)
     if not q.is_contiguous() or q.data_ptr() % 16:
         q = q.clone(memory_format=torch.contiguous_format)
     return q
@@ -222,8 +253,10 @@ def scan_pairs(
     # alone (measured 1.25x at the flagship shape on an H100)
     n_chunks = (ptr[1:] - ptr[:-1])[pair_bucket.long()]
     pair_order = torch.argsort(n_chunks, descending=True, stable=True).to(torch.int32)
-    if mode != "f32":
+    terms = 1
+    if mode != "f32" or store.dtype != torch.float32:  # every body but the FMA one
         queries = operand_queries(queries, mode, store.dtype)
+        terms = 3 if mode == "f32" else 1
     with torch.cuda.device(store.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.lmi_scan_pairs(
@@ -232,7 +265,7 @@ def scan_pairs(
             qidx.data_ptr(), pair_bucket.data_ptr(), pair_order.data_ptr(), ptr.data_ptr(),
             chunk_of.data_ptr(),
             store.data_ptr(), scales.data_ptr(), out_d.data_ptr(), out_s.data_ptr(),
-            n_pairs, qtile, k, store.shape[1], queries.shape[1], chunk, MODES[mode],
+            n_pairs, qtile, k, store.shape[1], queries.shape[1] // terms, chunk, MODES[mode],
             _STORE_TYPES[store.dtype], stream,
         )
     if err != 0:

@@ -35,14 +35,17 @@ def _corpus(n, d, seed):
 
 
 def _tensor_core_cases():
-    """bf16 over every store type and int8, at k 16/36/64/256 (every list
-    width) with qtile 1/8/100/128 in turn, at d 768, 96 and 100 (rows not
-    16-byte aligned and a depth tail)."""
-    combos = [("bf16", "float32"), ("bf16", "bfloat16"), ("bf16", "int8"), ("int8", "int8")]
+    """Every tensor-core body: bf16 over every store type, int8, and f32
+    over bf16 and int8 stores (three bf16 terms a query value), at k
+    16/36/64/100/256/300/600 (list widths 32 to 1024) with qtile
+    1/8/100/128 in turn, at d 768, 96 and 100 (rows not 16-byte aligned and a depth
+    tail)."""
+    combos = [("bf16", "float32"), ("bf16", "bfloat16"), ("bf16", "int8"), ("int8", "int8"),
+              ("f32", "bfloat16"), ("f32", "int8")]
     qtiles = (1, 8, 100, 128)
     return [(mode, store, k, qtiles[(ki + ci) % 4], d)
             for d in (768, 96, 100)
-            for ki, k in enumerate((16, 36, 64, 256))
+            for ki, k in enumerate((16, 36, 64, 100, 256, 300, 600))
             for ci, (mode, store) in enumerate(combos)]
 
 
@@ -54,7 +57,10 @@ def _tensor_core_cases():
         # list widths past 32; k 256 splits a pair's queries over two blocks
         ("f32", "float32", 36, 128), ("bf16", "int8", 36, 16), ("int8", "int8", 36, 8),
         ("f32", "bfloat16", 64, 16), ("bf16", "bfloat16", 64, 128), ("int8", "int8", 64, 128),
-        ("f32", "float32", 256, 100), ("bf16", "int8", 256, 128), ("int8", "int8", 256, 16)]]
+        ("f32", "float32", 100, 1),
+        ("f32", "float32", 256, 100), ("bf16", "int8", 256, 128), ("int8", "int8", 256, 16),
+        # 512 and 1024: four and eight blocks a pair
+        ("f32", "float32", 300, 8), ("f32", "float32", 600, 128)]]
     + _tensor_core_cases(),
 )
 def test_kernel_matches_plain_version(cuda, mode, store_dtype, k, qtile, d):
@@ -109,6 +115,42 @@ def test_kernel_matches_plain_version(cuda, mode, store_dtype, k, qtile, d):
     assert len(rows) > 0
     for r, j in zip(rows, cols):
         assert (lists[r, :j] == earlier[r, j]).any(), (r, j)
+
+
+@pytest.mark.parametrize("store_dtype", ["bfloat16", "int8"])
+@pytest.mark.parametrize("d,k,qtile", [(768, 16, 128), (100, 100, 8), (96, 300, 1)])
+def test_f32_body_reads_all_three_query_terms(cuda, store_dtype, d, k, qtile):
+    """f32 queries against rows that each hold one power of two (int8
+    rows with f32 scales): every product is exact, so the plain
+    version's f32 matmul is exact, and each distance needs all three
+    bf16 terms of its query value.  The kernel stays within 2^-20 of
+    1 + |dot| of the plain version at every rank; the queries' hi + mid
+    alone miss that bar."""
+    rng = np.random.default_rng(d + k)
+    n, nb, chunk = 3000, 5, 96
+    dtype = getattr(torch, store_dtype)
+    x = torch.zeros((n, d), dtype=dtype, device=cuda)
+    vals = np.ldexp(rng.choice([-1.0, 1.0], n), rng.integers(0, 7, n)).astype(np.float32)
+    x[torch.arange(n), torch.as_tensor(rng.integers(0, d, n))] = torch.as_tensor(vals).to(
+        cuda, dtype)
+    scales = (torch.as_tensor(rng.uniform(0.01, 0.03, n).astype(np.float32), device=cuda)
+              if store_dtype == "int8" else None)
+    store = BucketStore.build_packed_device(x, rng.integers(0, nb, n), nb, chunk=chunk,
+                                            row_scales=scales)
+    queries = torch.as_tensor(rng.normal(size=(150, d)).astype(np.float32), device=cuda)
+    order = torch.as_tensor(np.stack([rng.choice(nb, 3, replace=False) for _ in range(150)]),
+                            device=cuda)
+    _, args = scan_inputs(store, queries, order, qtile, "f32")
+    kw = dict(k=k, qtile=qtile, chunk=chunk, mode="f32")
+    kd, _ = scan_kernel.scan_pairs(*args, **kw)
+    rd, _ = scan_kernel.scan_pairs_reference(*args, **kw)
+    hi, mid, _ = scan_kernel.split_f32(args[0])
+    td, _ = scan_kernel.scan_pairs_reference(hi.float() + mid.float(), *args[1:], **kw)
+    fin = torch.isfinite(rd)
+    assert torch.equal(fin, torch.isfinite(kd)) and fin.any()
+    bar = 2.0**-20 * (1.0 + (1.0 - rd[fin]).abs())
+    assert ((kd[fin] - rd[fin]).abs() <= bar).all()
+    assert ((td[fin] - rd[fin]).abs() > bar).any()
 
 
 def test_kernel_rejects_what_it_does_not_take(cuda):

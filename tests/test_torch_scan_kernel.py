@@ -231,10 +231,10 @@ def test_wrapper_runs_plain_version_on_cpu_and_validates():
         assert torch.equal(a, b)
     with pytest.raises(ValueError, match="int8"):
         scan_kernel.scan_pairs(*args, k=k, qtile=qtile, chunk=chunk, mode="int8")
-    # the widest list is 256: k = 250 + a rerank margin of 6 fits, 257 does not
-    scan_kernel.scan_pairs(*args, k=256, qtile=qtile, chunk=chunk, mode="f32")
-    with pytest.raises(ValueError, match="k <= 256"):
-        scan_kernel.scan_pairs(*args, k=257, qtile=qtile, chunk=chunk, mode="f32")
+    # the widest list is 1024: k = 1018 + a rerank margin of 6 fits, 1025 does not
+    scan_kernel.scan_pairs(*args, k=1024, qtile=qtile, chunk=chunk, mode="f32")
+    with pytest.raises(ValueError, match="k <= 1024"):
+        scan_kernel.scan_pairs(*args, k=1025, qtile=qtile, chunk=chunk, mode="f32")
     with pytest.raises(ValueError, match="mode"):
         scan_kernel.scan_pairs(*args, k=k, qtile=qtile, chunk=chunk, mode="fp8")
 
@@ -242,24 +242,123 @@ def test_wrapper_runs_plain_version_on_cpu_and_validates():
 @pytest.mark.parametrize(
     "mode,store_dtype,d",
     [("bf16", torch.int8, 768), ("bf16", torch.int8, 100), ("bf16", torch.bfloat16, 100),
-     ("bf16", torch.float32, 7), ("int8", torch.int8, 96), ("int8", torch.int8, 100)],
+     ("bf16", torch.float32, 7), ("int8", torch.int8, 96), ("int8", torch.int8, 100),
+     ("f32", torch.int8, 768), ("f32", torch.int8, 100), ("f32", torch.bfloat16, 96),
+     ("f32", torch.bfloat16, 100)],
 )
 def test_operand_queries_layout(mode, store_dtype, d):
-    """The query rows of the tensor-core modes: bf16 rounded to nearest
-    even (or the int8 rows), zero-padded to whole 16-value groups, 16-byte
-    aligned, and over an int8 store in WIDEN_ORDER within each group."""
+    """The query rows of the tensor-core bodies, 16-byte aligned: bf16
+    rounded to nearest even (or the int8 rows) zero-padded to whole
+    16-value groups; in mode f32 the three terms of split_f32, each
+    zero-padded to whole 32-value slices, hi, mid and lo of each slice
+    side by side.  Over an int8 store every bf16 group of 16 is in
+    WIDEN_ORDER, over a bf16 store it is not."""
     q = torch.as_tensor(np.random.default_rng(d).normal(size=(5, d)).astype(np.float32))
     if mode == "int8":
         q, _ = quantize_rows(q)
     out = scan_kernel.operand_queries(q, mode, store_dtype)
-    dq = -(-d // 16) * 16
-    assert out.dtype == (torch.bfloat16 if mode == "bf16" else torch.int8)
-    assert out.shape == (5, dq) and out.is_contiguous() and out.data_ptr() % 16 == 0
-    expect = torch.zeros((5, dq), dtype=out.dtype)
-    expect[:, :d] = q.to(out.dtype)
-    if mode == "bf16" and store_dtype == torch.int8:
-        expect = expect.reshape(5, -1, 16)[:, :, list(scan_kernel.WIDEN_ORDER)].reshape(5, dq)
+    group = 32 if mode == "f32" else 16
+    dq = -(-d // group) * group
+    terms = scan_kernel.split_f32(q) if mode == "f32" else (q,)
+    assert out.dtype == (torch.int8 if mode == "int8" else torch.bfloat16)
+    assert out.shape == (5, len(terms) * dq) and out.is_contiguous() and out.data_ptr() % 16 == 0
+    padded = []
+    for t in terms:
+        e = torch.zeros((5, dq), dtype=out.dtype)
+        e[:, :d] = t.to(out.dtype)
+        if mode != "int8" and store_dtype == torch.int8:
+            e = e.reshape(5, -1, 16)[:, :, list(scan_kernel.WIDEN_ORDER)].reshape(5, dq)
+        padded.append(e)
+    expect = torch.empty_like(out)
+    for s0 in range(0, dq, group):
+        for j, e in enumerate(padded):
+            col = len(terms) * s0 + j * group
+            expect[:, col : col + group] = e[:, s0 : s0 + group]
     assert torch.equal(out, expect)
+
+
+def _split_values(kind):
+    rng = np.random.default_rng(11)
+    if kind.startswith("unit"):
+        x = rng.normal(size=(64, int(kind[4:])))
+        return (x / np.linalg.norm(x, axis=1, keepdims=True)).astype(np.float32).ravel()
+    if kind == "binade_edges":  # 2^e, its neighbours, and the top of the binade
+        p = np.float32(2.0) ** np.arange(-109, 127, 3).astype(np.float32)
+        v = np.concatenate([p, np.nextafter(p, np.float32(0)), np.nextafter(p, np.float32(np.inf)),
+                            p * np.float32(1.5), p * (np.float32(2) - np.float32(2.0**-23))])
+    elif kind == "tiny":  # from 2^-122 (normal, split not exact below 2^-110) up
+        m = rng.integers(2**23, 2**24, 500).astype(np.float64)
+        v = np.concatenate([m * 2.0 ** rng.integers(-145, -90, 500),
+                            [2.0**-110 * (1 + 2.0**-23), 1e-30, 1e-33, 2.0**-126]]).astype(np.float32)
+    else:  # large, below bf16's overflow edge (0x7F7F8000 rounds up to inf)
+        edge = np.array([0x7F7F7FFF, 0x7F7F0000, 0x7F000001], np.uint32).view(np.float32)
+        m = rng.integers(2**23, 2**24, 500).astype(np.float64)
+        v = np.concatenate([m * 2.0 ** rng.integers(80, 104, 500), edge, [3.3e38, 1e38]]).astype(np.float32)
+    return np.concatenate([v, -v, [0.0]]).astype(np.float32)
+
+
+@pytest.mark.parametrize("kind", ["unit768", "unit96", "unit100", "binade_edges", "tiny", "large"])
+def test_split_f32_is_exact(kind):
+    """hi + mid + lo reproduces every tested f32 exactly (float64 sums of
+    the three bf16 terms), with each term what rounding to nearest even
+    leaves; below 2^-110 the part under bf16's smallest subnormal is lost,
+    less than 2^-133."""
+    v = _split_values(kind)
+    q = torch.as_tensor(v)
+    hi, mid, lo = scan_kernel.split_f32(q)
+    assert hi.dtype == mid.dtype == lo.dtype == torch.bfloat16
+    total = hi.double() + mid.double() + lo.double()
+    exact = q.abs() >= 2.0**-110
+    assert torch.equal(total[exact | (q == 0)], q.double()[exact | (q == 0)])
+    assert ((total - q.double()).abs()[~exact] < 2.0**-133).all()
+    assert torch.equal(hi, q.to(torch.bfloat16))
+    assert torch.equal(mid, (q - hi.float()).to(torch.bfloat16))
+    assert torch.isfinite(hi).all()
+
+
+@pytest.mark.parametrize("store_kind", ["int8", "bf16"])
+def test_three_term_product_matches_plain_f32(store_kind):
+    """The three-term product read from the operand rows the kernel's f32
+    body takes over an int8 or bf16 store: the three terms of each
+    32-value slice, each bf16 depth k' paired with store value
+    WIDEN_ORDER[k'] of its 16-group over int8, every product exact and
+    summed in float64, the distance folded in f32.  It equals the plain
+    f32 version's distances within 1e-6, at every candidate the plain
+    version returns and over every (query, slot).  This checks the
+    operand layout and the split end to end, not the kernel's rounding:
+    its truncating tensor-core sums and rounded per-step adds are not
+    modelled (tests/test_torch_cuda.py holds the kernel itself to the
+    plain version)."""
+    store, queries, order, qtile, k, chunk = _setup("multichunk", "int8" if store_kind == "int8" else "f32")
+    if store_kind == "int8":
+        scales = np.array(store.chunk_scales)
+    else:
+        scales = (np.asarray(store.chunk_ids).reshape(-1) > 0).astype(np.float32)
+    _, args = _torch_inputs(store, scales, queries, order, qtile, "f32")
+    args = list(args)
+    if store_kind == "bf16":
+        args[5] = args[5].to(torch.bfloat16)
+    q, x, sc = args[0], args[5], args[6]
+    op = scan_kernel.operand_queries(q, "f32", x.dtype)
+    n, d = q.shape
+    qd = op.shape[1] // 3
+    terms = op.reshape(n, qd // 32, 3, 32).permute(2, 0, 1, 3).reshape(3, n, qd).double()
+    xp = torch.zeros((x.shape[0], qd), dtype=torch.float64)
+    xp[:, :d] = x.double()
+    if x.dtype == torch.int8:
+        xp = xp.reshape(-1, qd // 16, 16)[:, :, list(scan_kernel.WIDEN_ORDER)].reshape(-1, qd)
+    raw = (terms @ xp.T).sum(0).float()
+    emul = raw * (-sc) + torch.where(sc == 0.0, torch.inf, 1.0)
+    plain = (q @ x.float().T) * (-sc) + torch.where(sc == 0.0, torch.inf, 1.0)
+    fin = torch.isfinite(plain)
+    assert torch.equal(fin, torch.isfinite(emul))
+    assert (emul[fin] - plain[fin]).abs().max() <= 1e-6
+    rd, rs = scan_kernel.scan_pairs_reference(*args, k=k, qtile=qtile, chunk=chunk, mode="f32")
+    rows = args[1].reshape(-1, qtile)
+    hit = rs >= 0
+    got = emul[rows[:, :, None].expand_as(rs).long().clamp_min(0), rs.long().clamp_min(0)]
+    assert hit.sum() > 0
+    assert (got[hit] - rd[hit]).abs().max() <= 1e-6
 
 
 def test_widen_order_pairs_each_query_value_with_its_store_value():

@@ -90,7 +90,7 @@ def test_int8_precision_matches_dequantized_oracle(built):
     ids = store.chunk_ids.reshape(-1).numpy()
     corpus = np.zeros_like(data)
     corpus[ids[ids > 0] - 1] = deq.numpy()[ids > 0]
-    ref_d, gt = exact_knn(corpus, queries, k=10)
+    ref_d, gt = exact_knn(corpus, queries, k=10, device="cpu")
 
     pd, pi, _ = _search(pidx, None, queries, pred, n_buckets=10, k=10, store=store, precision="int8")
     assert recall(pi, gt, 10) == 1.0
@@ -149,11 +149,22 @@ def test_npz_round_trip_port_to_jax(built, tmp_path):
 def test_exact_knn_matches_jax(built, metric):
     data, queries = built["data"], built["queries"]
     jd, ji = jax_exact_knn(data, queries, k=10, metric=metric, tile_rows=500)
-    pd, pi = exact_knn(data, queries, k=10, metric=metric, tile_rows=700)
+    pd, pi = exact_knn(data, queries, k=10, metric=metric, tile_rows=700, device="cpu")
     assert pi.dtype == np.uint32
     _assert_parity(pd, pi, jd, ji)
     assert recall(pi, ji, 10) == jax_recall(pi, ji, 10) == 1.0
     assert recall(pi[:, ::-1], ji, 5) == jax_recall(pi[:, ::-1], ji, 5)
+
+
+def test_exact_knn_needs_a_device_for_host_data(built):
+    """Host data does not pick a device; a tensor stays on its own."""
+    data, queries = built["data"], built["queries"]
+    with pytest.raises(ValueError, match="device"):
+        exact_knn(data, queries, k=10)
+    td, ti = exact_knn(torch.as_tensor(data), queries, k=10)
+    hd, hi = exact_knn(data, queries, k=10, device="cpu")
+    np.testing.assert_array_equal(td, hd)
+    np.testing.assert_array_equal(ti, hi)
 
 
 def test_restricted_knn_is_the_visited_bucket_ceiling(built):
@@ -166,14 +177,15 @@ def test_restricted_knn_is_the_visited_bucket_ceiling(built):
     _assert_parity(pd, pi, rd.numpy(), ri.numpy())
     full = torch.arange(10).repeat(len(queries), 1)
     fd, fi = restricted_knn(store, torch.as_tensor(queries), full, 10)
-    gd, gi = exact_knn(data, queries, k=10)
+    gd, gi = exact_knn(data, queries, k=10, device="cpu")
     _assert_parity(fd.numpy(), fi.numpy(), gd, gi)
 
 
-@pytest.mark.parametrize("k", [30, 100])
+@pytest.mark.parametrize("k", [30, 100, 300])
 def test_wide_k_matches_jax(built, k):
-    """k=30 (SISAP 2024) and k=100 scan k + 6 candidates per pair, past
-    the old 32-wide kernel list; the port equals the JAX package."""
+    """k=30 (SISAP 2024), k=100 and k=300 scan k + 6 candidates per pair,
+    past the old 32- and 256-wide kernel lists (k_scan 306 takes list
+    width 512); the port equals the JAX package."""
     jidx, pidx, pred = built["one"]
     data, queries = built["data"], built["queries"]
     jd, ji, _ = _search(jidx, data, queries, pred, n_buckets=3, k=k, precision="highest")
