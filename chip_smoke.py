@@ -28,14 +28,19 @@ phases:
    with CUDA events beside the least time the card could take (bound),
    the f32 kernel's and plain version's distances against float64 (the
    kernel's error may not exceed the plain version's), and
-   the search's split between navigation, the scan and the rest;
+   the search's split between navigation, the scan and the rest; then
+   the scan in f32 over an f32 store (the CUDA-core body) on the same
+   rows, dequantized, against cuBLAS SGEMM + ``torch.topk``;
 6. build path: ``LearnedIndexBuilder`` at the bench's flagship
    configuration (1 level, 120 buckets, 4 epochs, batch 1024, lr 0.01,
    balanced class weights, seed 2023), save, load, packed store, search
-   with ``LMI_GATHER_MODE=auto`` and ``=kernel`` (bit-identical), the
-   gather kernel against its plain version and ``index_select`` at the
-   path's shapes; then the 2-level [10, 10] index searched best-first at
-   visits 1-8.
+   with ``LMI_GATHER_MODE=auto`` and ``=kernel`` (bit-identical) in warm,
+   alternating rounds; the gather split (the first kernel-mode call, and
+   by CUDA events what gathering the work queries as rows would cost the
+   scan, ``operand_queries`` and the merge, and each gather's host time
+   a call); the merge gather kernel and the row gather kernel against
+   their plain versions and ``index_select`` at the path's shapes; then
+   the 2-level [10, 10] index searched best-first at visits 1-8.
 
 Each path runs with the launch counts set to 0 just before it and read
 just after.  Any failure raises (exit code 1).  Without CUDA it exits
@@ -63,6 +68,7 @@ from learnedmetricindex_tpu_torch.index.bucket_store import BucketStore, scan_in
 from learnedmetricindex_tpu_torch.index.serialization import index_from_arrays
 from learnedmetricindex_tpu_torch.ops import cuda_build, gather_kernel, quantize, scan_kernel
 from learnedmetricindex_tpu_torch.ops.knn import recall, restricted_knn
+from learnedmetricindex_tpu_torch.ops.precision import full_f32
 
 ROOT = Path(__file__).resolve().parent
 WORK_DIR = ROOT / "build" / "chip_smoke"
@@ -96,6 +102,15 @@ HBM_BYTES_PER_S = 3.35e12  # the H100 SXM's published device-memory rate
 # with the store's values are exact, so three bf16 passes; only f32 over
 # an f32 store is bound by the CUDA cores' f32 rate
 PEAK_OPS = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}
+# warm searches per gather mode on the built index, the modes in turns
+MODE_ROUNDS = 6
+# calls enqueued back to back, without a sync, to read a wrapper's host time a call,
+# in rounds that take the functions compared in turns
+HOST_CALLS = 200
+HOST_ROUNDS = 6
+# GPU clock cycles the stream spins (torch.cuda._sleep) before a queued timing:
+# ~10 ms at the H100's 1.98 GHz, longer than the host takes to enqueue the calls
+SPIN_CYCLES = 20_000_000
 
 
 def check(cond: bool, msg: str) -> None:
@@ -117,6 +132,25 @@ def cuda_ms(fn, reps: int) -> float:
     for _ in range(reps):
         fn()
     end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def queued_ms(fn, reps: int) -> float:
+    """Device milliseconds of ``fn()`` with its launches waiting in the
+    queue: the stream spins first, the host enqueues all ``reps`` calls
+    meanwhile, and the events then time the kernels back to back rather
+    than the host's rate of launching them (checked: the spin must still
+    hold the stream when the last call is enqueued)."""
+    fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(SPIN_CYCLES)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    check(not start.query(), "queued_ms: the spin ended before the calls were enqueued")
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
 
@@ -201,10 +235,12 @@ def phase_build() -> None:
 def reset_counts() -> None:
     scan_kernel.LAUNCHES = 0
     gather_kernel.LAUNCHES = 0
+    gather_kernel.PAIR_LAUNCHES = 0
 
 
 def read_counts() -> dict:
-    return {"scan_pairs": scan_kernel.LAUNCHES, "gather_rows": gather_kernel.LAUNCHES}
+    return {"scan_pairs": scan_kernel.LAUNCHES, "gather_pairs": gather_kernel.PAIR_LAUNCHES,
+            "gather_rows": gather_kernel.LAUNCHES}
 
 
 def kv_stores(dev, d: int, seed: int = 7):
@@ -251,17 +287,22 @@ def phase_kernel_vs_plain(dev) -> dict:
     every mode over every store type it takes (bf16 over f32/bf16/int8,
     int8, f32 over f32/bf16/int8) at k 16/36/64/100/256/300/600, every
     list width from 32 to 1024, with qtile 1/8/100/128 in turn; then f32
-    over bf16 and int8 stores of one-hot rows (split_terms_check).
+    over bf16 and int8 stores of one-hot rows (split_terms_check); then
+    every mode over int8 rows of 30 and 102 bytes (no 4-byte granule).
     Returns, per mode, (largest |Δd|, largest |Δd| where slots differ)."""
     qtiles = (1, 8, 100, 128)
     combos = [("bf16", "f32"), ("bf16", "bf16"), ("bf16", "int8"), ("int8", "int8"),
               ("f32", "bf16"), ("f32", "int8"), ("f32", "f32")]
     worst = {m: (0.0, 0.0) for m in ("f32", "bf16", "int8")}
-    for d in (768, 96, 100):
+    for d in (768, 96, 100, 30, 102):
         stores, queries, order, chunk, partner = kv_stores(dev, d)
-        cases = [(mode, k, qtiles[(ki + si) % 4], store)
-                 for ki, k in enumerate((16, 36, 64, 100, 256, 300, 600))
-                 for si, (mode, store) in enumerate(combos)]
+        if d in (30, 102):  # unaligned int8 rows: the modes that read an int8 store
+            cases = [(mode, k, qtile, "int8") for mode, k, qtile in
+                     (("int8", 16, 128), ("int8", 100, 8), ("bf16", 36, 100), ("f32", 16, 1))]
+        else:
+            cases = [(mode, k, qtiles[(ki + si) % 4], store)
+                     for ki, k in enumerate((16, 36, 64, 100, 256, 300, 600))
+                     for si, (mode, store) in enumerate(combos)]
         for mode, k, qtile, store_name in cases:
             store = stores[store_name]
             plan, args = scan_inputs(store, queries, order, qtile, mode)
@@ -279,6 +320,8 @@ def phase_kernel_vs_plain(dev) -> dict:
                 f"max|Δd|={err:.3g}, {n_swapped} slots swapped at ties (max|Δd| there "
                 f"{gap:.3g}), {n_dup} later duplicates after their earlier copy")
         del stores
+        if d in (30, 102):
+            continue
         for si, store_name in enumerate(("bf16", "int8")):
             for ki, k in enumerate((16, 100)):
                 split_terms_check(dev, d, store_name, k, qtiles[(2 * si + ki + d) % 4])
@@ -327,6 +370,7 @@ def split_terms_check(dev, d: int, store_name: str, k: int, qtile: int) -> None:
         f"{share:.3g} of the bar; hi + mid alone {share_two:.3g} of it")
 
 
+@full_f32()
 def make_corpus(dev, n: int, nq: int, nb: int, d: int = 768, seed: int = 2023) -> dict:
     """The seeded corpus of both paths: ``n`` × ``d`` int8 rows + f32 row
     scales on the device (256 latent clusters, noise 0.45/√d), ``nq``
@@ -520,10 +564,51 @@ def phase_main(dev, data: dict, smi: str):
         f"{measured['inference']:.4f} s, scan kernel {scan_s:.4f} s (CUDA events, same plan), "
         f"plan + merge + rerank + copy {measured['seq_search'] - scan_s:.4f} s (seq_search "
         f"{measured['seq_search']:.4f} s of the last rep)")
+    timing["f32 store"] = f32_store_scan(store, queries, order, smi)
     log(f"[main] total {time.perf_counter() - t_all:.1f} s")
     del store
     torch.cuda.empty_cache()
     return launches, timing
+
+
+def f32_store_scan(store, queries, order, smi: str) -> dict:
+    """The scan in f32 over an f32 store (``precision="highest"`` over the
+    store ``BuildConfiguration(dtype="float32")`` builds; the CUDA-core
+    FMA body) at the flagship: the int8 store's rows dequantized slab by
+    slab into f32 on its chunk layout, scales 1.0 on live slots and 0 on
+    padding.  The kernel, its plain version (whose candidates it must
+    agree with) and cuBLAS SGEMM + ``torch.topk`` with TF32 off, timed
+    with CUDA events beside the bound."""
+    chunk, d = store.chunk, store.chunk_data.shape[1]
+    n_slots = store.chunk_data.shape[0]
+    rows = torch.empty((n_slots, d), dtype=torch.float32, device=store.device)
+    step = 128 * chunk
+    for s0 in range(0, n_slots, step):
+        rows[s0 : s0 + step] = quantize.dequantize_rows(
+            store.chunk_data[s0 : s0 + step], store.chunk_scales[s0 : s0 + step])
+    f32 = store._replace(chunk_data=rows, chunk_scales=None)  # scales_flat: 1.0 live, 0 padding
+    plan, sargs = scan_inputs(f32, queries, order, 128, "f32")
+    kw = dict(k=16, qtile=128, chunk=chunk, mode="f32")
+    mac, ops, peak, nbytes = scan_work(f32, plan, order, d, 16, "f32")
+    bound = {"operations": ops / peak * 1e3, "bytes": nbytes / HBM_BYTES_PER_S * 1e3}
+    bound_by = max(bound, key=bound.get)
+    k_ms = cuda_ms(lambda: scan_kernel.scan_pairs(*sargs, **kw), 3)
+    p_ms = cuda_ms(lambda: scan_kernel.scan_pairs_reference(*sargs, **kw), 1)
+    lib_ms = cuda_ms(library_scan(f32, plan, sargs, 16, "f32"), 1)
+    kd, ks = scan_kernel.scan_pairs(*sargs, **kw)
+    rd, rs = scan_kernel.scan_pairs_reference(*sargs, **kw)
+    err, gap = compare_candidates(kd, ks, rd, rs, "f32", "flagship f32 over an f32 store")
+    log(f"[flagship] scan_pairs f32 over an f32 store ({rows.numel() * 4 / 1e9:.2f} GB, the FMA "
+        f"body): kernel {k_ms:.3f} ms, plain {p_ms:.2f} ms, library (cuBLAS SGEMM + topk, TF32 "
+        f"off) {lib_ms:.2f} ms = {lib_ms / k_ms:.3f}x the kernel; bound {bound[bound_by]:.3f} ms "
+        f"by {bound_by} ({ops:.4g} operations at {peak / 1e12:g} T/s = "
+        f"{bound['operations']:.3f} ms, {nbytes / 1e9:.3f} GB = {bound['bytes']:.3f} ms) = "
+        f"{bound[bound_by] / k_ms:.1%} of it; {plan.n_pairs} pairs; agree, max|Δd|={err:.3g} "
+        f"(at swapped slots {gap:.3g})  [{smi}]")
+    del rows, f32, sargs, kd, ks, rd, rs
+    torch.cuda.empty_cache()
+    return {"ms": k_ms, "plain_ms": p_ms, "library_ms": lib_ms, "err": err,
+            "bound_ms": bound[bound_by], "bound_by": bound_by}
 
 
 def scan_work(store, plan, order, d: int, k: int, mode: str) -> tuple:
@@ -583,6 +668,7 @@ def library_scan(store, plan, sargs, k: int, mode: str):
         x = store.chunk_data[int(ptr[b]) * chunk : int(ptr[b + 1]) * chunk]
         work.append((q, x if mode == "int8" else x.to(q.dtype)))
 
+    @full_f32()
     def run():
         for q, x in work:
             if mode == "int8":
@@ -595,11 +681,13 @@ def library_scan(store, plan, sargs, k: int, mode: str):
 
 
 def gather_vs_plain(table, idx, what: str, smi: str) -> dict:
-    """The gather kernel against its plain version on one (table, idx):
-    bit-equal, then the kernel, the plain version and the library call
-    (one ``index_select`` on indices clamped beforehand) timed with CUDA
-    events.  The bound is the bytes moved (rows read and written once,
-    the indices read once) over 3.35 TB/s."""
+    """The row gather kernel against its plain version on one (table,
+    idx): bit-equal, then the kernel, the plain version and the library
+    call (one ``index_select`` on indices clamped beforehand) timed with
+    CUDA events, back to back (``cuda_ms``) and queued behind a spin
+    (``queued_ms``, the device's time alone).  The bound is the bytes
+    moved (rows read and written once, the indices read once) over
+    3.35 TB/s."""
     got = gather_kernel.gather_rows(table, idx)
     torch.cuda.synchronize()
     ref = gather_kernel.gather_rows_reference(table, idx)
@@ -607,19 +695,186 @@ def gather_vs_plain(table, idx, what: str, smi: str) -> dict:
     check(torch.equal(got.view(torch.uint8), ref.view(torch.uint8)), f"gather {what}: bit-equal")
     wide = torch.float64 if got.dtype.is_floating_point else torch.int64
     err = float((got.to(wide) - ref.to(wide)).abs().max()) if got.numel() else 0.0
-    k_ms = cuda_ms(lambda: gather_kernel.gather_rows(table, idx), 10)
-    p_ms = cuda_ms(lambda: gather_kernel.gather_rows_reference(table, idx), 10)
     clamped = idx.long().clamp(0, table.shape[0] - 1)
-    lib_ms = cuda_ms(lambda: torch.index_select(table, 0, clamped), 10)
+    fns = {"kernel": lambda: gather_kernel.gather_rows(table, idx),
+           "plain": lambda: gather_kernel.gather_rows_reference(table, idx),
+           "index_select": lambda: torch.index_select(table, 0, clamped)}
+    ms = {name: cuda_ms(fn, 10) for name, fn in fns.items()}
+    queued = {name: queued_ms(fn, 10) for name, fn in fns.items()}
+    k_ms, p_ms, lib_ms = ms["kernel"], ms["plain"], ms["index_select"]
     row_bytes = table.shape[1] * table.element_size()
     moved = 2 * idx.shape[0] * row_bytes + idx.shape[0] * idx.element_size()
     bound_ms = moved / HBM_BYTES_PER_S * 1e3
     log(f"[gather-vs-plain] {what}: table {tuple(table.shape)} {table.dtype}, {idx.shape[0]} "
         f"indices: bit-equal; kernel {k_ms:.4f} ms ({moved / k_ms / 1e6:.1f} GB/s, "
         f"{moved / k_ms / 1e-3 / HBM_BYTES_PER_S:.1%} of 3.35 TB/s), plain {p_ms:.4f} ms, "
-        f"index_select {lib_ms:.4f} ms, bound {bound_ms:.4f} ms  [{smi}]")
+        f"index_select {lib_ms:.4f} ms; queued (device time alone): "
+        + ", ".join(f"{n} {v:.4f} ms" for n, v in queued.items())
+        + f"; bound {bound_ms:.4f} ms  [{smi}]")
     return {"ms": k_ms, "plain_ms": p_ms, "library_ms": lib_ms, "err": err,
             "bound_ms": bound_ms, "bound_by": "bytes"}
+
+
+def pairs_vs_plain(cand_d, cand_s, rows, V: int, smi: str) -> dict:
+    """The merge gather kernel against its plain version (torch indexing
+    and two ``torch.where``, what auto mode runs) on the merge's inputs:
+    bit-equal, then both timed with CUDA events, back to back
+    (``cuda_ms``: at this size the host's rate of launching) and queued
+    behind a spin (``queued_ms``: the device's time alone, which the
+    kernels line reports), beside the bound (both tables' rows read and
+    written once, the row indices read once, over 3.35 TB/s) and the
+    library's part of the work: one ``index_select`` per table on rows
+    clamped beforehand, without the mask.  No single PyTorch call
+    computes the masked gather of both tables, so the kernels line gives
+    ``library_ms`` null for it."""
+    gd, gs = gather_kernel.gather_pairs(cand_d, cand_s, rows, V)
+    torch.cuda.synchronize()
+    rd, rs = gather_kernel.gather_pairs_reference(cand_d, cand_s, rows, V)
+    check(gd.shape == rd.shape and gs.dtype == rs.dtype, "gather_pairs: shapes and types")
+    check(torch.equal(gd.view(torch.int32), rd.view(torch.int32)) and torch.equal(gs, rs),
+          "gather_pairs: bit-equal to its plain version")
+    clamped = rows.clamp(0, cand_d.shape[0] - 1)
+
+    def two_index_selects():
+        torch.index_select(cand_d, 0, clamped)
+        torch.index_select(cand_s, 0, clamped)
+
+    fns = {"kernel": lambda: gather_kernel.gather_pairs(cand_d, cand_s, rows, V),
+           "plain": lambda: gather_kernel.gather_pairs_reference(cand_d, cand_s, rows, V),
+           "library": two_index_selects}
+    ms = {name: cuda_ms(fn, 50) for name, fn in fns.items()}
+    queued = {name: queued_ms(fn, 50) for name, fn in fns.items()}
+    k_ms, p_ms, lib_ms = ms["kernel"], ms["plain"], ms["library"]
+    moved = 2 * rows.shape[0] * cand_d.shape[1] * 8 + rows.shape[0] * rows.element_size()
+    bound_ms = moved / HBM_BYTES_PER_S * 1e3
+    log(f"[gather-vs-plain] merge gather_pairs: tables {tuple(cand_d.shape)} f32 + int32, "
+        f"{rows.shape[0]} rows: bit-equal; kernel {k_ms:.4f} ms ({moved / k_ms / 1e6:.1f} GB/s), "
+        f"plain (indexing + 2 where) {p_ms:.4f} ms, 2 x index_select (no mask) {lib_ms:.4f} ms; "
+        f"with the calls queued behind a spin (device time alone): kernel {queued['kernel']:.4f} "
+        f"ms ({moved / queued['kernel'] / 1e6:.1f} GB/s), plain {queued['plain']:.4f} ms, "
+        f"2 x index_select {queued['library']:.4f} ms; bound {bound_ms:.4f} ms by bytes "
+        f"({moved / 1e6:.2f} MB)  [{smi}]")
+    return {"ms": queued["kernel"], "plain_ms": queued["plain"], "library_ms": None, "err": 0.0,
+            "bound_ms": bound_ms, "bound_by": "bytes"}
+
+
+def host_us(fn, calls: int = HOST_CALLS) -> float:
+    """Host microseconds a call of ``fn``: ``calls`` calls enqueued back
+    to back without a sync (after one warm call and a sync)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    seconds = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return seconds / calls * 1e6
+
+
+def host_us_rounds(fns: dict) -> dict:
+    """``host_us`` of each of ``fns`` in HOST_ROUNDS rounds, the order
+    reversed every other round: ``(median, min, max)`` microseconds."""
+    seen = {name: [] for name in fns}
+    for r in range(HOST_ROUNDS):
+        for name in list(fns) if r % 2 == 0 else list(fns)[::-1]:
+            seen[name].append(host_us(fns[name]))
+    return {name: (float(np.median(v)), min(v), max(v)) for name, v in seen.items()}
+
+
+def gather_rows_as_before(table, idx):
+    """The host path of ``gather_rows`` before the merge gather kernel:
+    the same checks and the same launch, but the device context entered
+    on every call, the stream fetched inside it and the indices passed
+    through ``.contiguous()`` (for the host-time comparison only; it does
+    not count launches)."""
+    gather_kernel._check(table, idx)
+    if not table.is_contiguous():
+        raise ValueError("gather_rows: the table must be contiguous")
+    idx = idx.contiguous()
+    out = torch.empty((idx.shape[0], table.shape[1]), dtype=table.dtype, device=table.device)
+    lib = cuda_build.load(gather_kernel.SOURCE, gather_kernel._bind)
+    with torch.cuda.device(table.device):
+        err = lib.lmi_gather_rows(
+            table.data_ptr(), idx.data_ptr(), int(idx.dtype == torch.int64), out.data_ptr(),
+            idx.shape[0], table.shape[0], table.shape[1] * table.element_size(),
+            torch.cuda.current_stream().cuda_stream,
+        )
+    check(err == 0, f"gather_rows launch failed: cudaError {err}")
+    return out
+
+
+def gather_split(store, queries, plan, sargs, cand_d, cand_s, smi: str) -> None:
+    """Where the gather-kernel mode's time went before the scan read the
+    work queries through ``qidx`` (the prediction is in PERF.md): on the
+    built index's plan, by CUDA events, the scan on the work-query rows
+    gathered as the JAX package does (padding rows zeroed, read through
+    the identity index) against the scan reading the Q query rows through
+    ``qidx`` (same bits), ``operand_queries`` on each, that gather
+    itself, and the merge's gathers (two ``gather_rows`` and two
+    ``torch.where`` before, one ``gather_pairs`` now, torch indexing in
+    auto mode); then the host time of one call of each gather."""
+    dev = queries.device
+    qidx, rows = plan.qidx, plan.pair_rows
+    valid = qidx >= 0
+    ident = torch.where(valid, torch.arange(qidx.shape[0], dtype=torch.int32, device=dev), -1)
+
+    def work_rows():  # the work-query gather of the JAX package's kernel mode
+        return (torch.where(valid[:, None], gather_kernel.gather_rows(queries, qidx), 0.0),
+                ident.to(torch.int32))
+
+    mq, mqidx = work_rows()
+    margs = (mq, mqidx, *sargs[2:])
+    kw = dict(k=16, qtile=128, chunk=store.chunk, mode="bf16")
+    md, ms = scan_kernel.scan_pairs(*margs, **kw)
+    check(torch.equal(md.reshape(cand_d.shape).view(torch.int32), cand_d.view(torch.int32))
+          and torch.equal(ms.reshape(cand_s.shape), cand_s),
+          "gather split: the scan gives the same bits on gathered rows and through qidx")
+    scan_q = cuda_ms(lambda: scan_kernel.scan_pairs(*sargs, **kw), 5)
+    scan_rows = cuda_ms(lambda: scan_kernel.scan_pairs(*margs, **kw), 5)
+    dtype = store.chunk_data.dtype
+    op_q = cuda_ms(lambda: scan_kernel.operand_queries(queries, "bf16", dtype), 20)
+    op_rows = cuda_ms(lambda: scan_kernel.operand_queries(mq, "bf16", dtype), 20)
+    gather_ms = cuda_ms(work_rows, 20)
+    ok = (rows >= 0)[:, None]
+
+    def merge_before():  # kernel mode's merge gather before: two launches, two masks
+        torch.where(ok, gather_kernel.gather_rows(cand_d, rows), torch.inf)
+        torch.where(ok, gather_kernel.gather_rows(cand_s, rows), -1)
+
+    NOW, AUTO, BEFORE = ("gather_pairs (kernel mode now)", "indexing + 2 where (auto mode)",
+                         "2 gather_rows + 2 where (kernel mode before)")
+    merge = {NOW: lambda: gather_kernel.gather_pairs(cand_d, cand_s, rows, 4),
+             AUTO: lambda: gather_kernel.gather_pairs_reference(cand_d, cand_s, rows, 4),
+             BEFORE: merge_before}
+    merge_ms = {name: cuda_ms(fn, 50) for name, fn in merge.items()}
+    merge_queued = {name: queued_ms(fn, 50) for name, fn in merge.items()}
+    merge_us = host_us_rounds(merge)
+    clamped = rows.clamp(0, cand_d.shape[0] - 1)
+    one_call = {"gather_rows": lambda: gather_kernel.gather_rows(cand_d, rows),
+                "gather_rows, host path before": lambda: gather_rows_as_before(cand_d, rows),
+                "index_select": lambda: torch.index_select(cand_d, 0, clamped),
+                "gather_pairs": lambda: gather_kernel.gather_pairs(cand_d, cand_s, rows, 4)}
+    call_us = host_us_rounds(one_call)
+    auto = merge_ms[AUTO]
+    log(f"[gather-split] scan (bf16, k_scan 16) through qidx on {queries.shape[0]} query rows "
+        f"{scan_q:.3f} ms; on {mq.shape[0]} gathered work-query rows {scan_rows:.3f} ms "
+        f"({scan_rows - scan_q:+.3f} ms); operand_queries inside it: {op_q:.4f} ms on "
+        f"{queries.shape[0]} rows, {op_rows:.4f} ms on {mq.shape[0]} ({op_rows - op_q:+.4f} ms); "
+        f"the work-query gather (gather_rows + where) {gather_ms:.4f} ms  [{smi}]")
+    log(f"[gather-split] merge gather, CUDA events: "
+        + ", ".join(f"{n} {v:.4f} ms" for n, v in merge_ms.items())
+        + "; queued behind a spin (device time alone): "
+        + ", ".join(f"{n} {v:.4f} ms" for n, v in merge_queued.items())
+        + f"; host time a call, median (min-max) of {HOST_ROUNDS} rounds in turns: "
+        + ", ".join(f"{n} {v[0]:.1f} ({v[1]:.1f}-{v[2]:.1f}) us" for n, v in merge_us.items()))
+    log(f"[gather-split] host time of one call ({HOST_CALLS} calls without a sync, table "
+        f"{tuple(cand_d.shape)}), median (min-max) of {HOST_ROUNDS} rounds in turns: "
+        + ", ".join(f"{n} {v[0]:.1f} ({v[1]:.1f}-{v[2]:.1f}) us" for n, v in call_us.items()))
+    before = scan_rows - scan_q + gather_ms + merge_ms[BEFORE] - auto
+    log(f"[gather-split] device time kernel mode spends beyond auto mode a search, by CUDA "
+        f"events: before {before:.3f} ms (scan on rows {scan_rows - scan_q:+.3f}, work-query "
+        f"gather {gather_ms:.3f}, merge {merge_ms[BEFORE] - auto:+.4f}); now "
+        f"{merge_ms[NOW] - auto:+.4f} ms (the merge only)")
 
 
 def visited_recall(index, store, queries, n_buckets, ids, policy, nc=256) -> float:
@@ -674,21 +929,49 @@ def phase_build_path(dev, data: dict, smi: str):
     log(f"[build] saved, reloaded, packed store {store.nbytes() / 1e9:.2f} GB in "
         f"{time.perf_counter() - t0:.1f} s")
 
-    results, counts = {}, {}
-    for mode in ("auto", "kernel"):
-        os.environ["LMI_GATHER_MODE"] = mode
-        reset_counts()
-        t0 = time.perf_counter()
-        dists, ids, _ = search(index, store, saved_pred, 4)
-        seconds = time.perf_counter() - t0
-        counts[mode] = read_counts()
-        results[mode] = (dists, ids)
-        log(f"[search] built index, LMI_GATHER_MODE={mode}: {seconds:.4f} s per {nq} queries; "
-            f"launches {counts[mode]}")
+    # ---- both gather modes: each one's first call, then warm rounds in turns ----
+    cold = gather_kernel.SOURCE not in cuda_build._loaded  # the gather library not yet loaded
+    reset_counts()
+    results, first, rounds = {}, {}, {"auto": [], "kernel": []}
+    per_mode = {m: dict.fromkeys(read_counts(), 0) for m in rounds}
+    for r in range(1 + MODE_ROUNDS):
+        for mode in ("auto", "kernel") if r % 2 == 0 else ("kernel", "auto"):
+            os.environ["LMI_GATHER_MODE"] = mode
+            before = read_counts()
+            t0 = time.perf_counter()
+            dists, ids, _ = search(index, store, saved_pred, 4)  # ends in a copy to the host
+            seconds = time.perf_counter() - t0
+            for key, n in read_counts().items():
+                per_mode[mode][key] += n - before[key]
+            if r == 0:
+                first[mode], results[mode] = seconds, (dists, ids)
+            else:
+                rounds[mode].append(seconds)
+                same = np.array_equal(dists.view(np.uint32), results[mode][0].view(np.uint32))
+                check(same and np.array_equal(ids, results[mode][1]),
+                      f"{mode}: the same bits each round")
+    counts = read_counts()
     os.environ["LMI_GATHER_MODE"] = "auto"
-    check(counts["auto"]["gather_rows"] == 0, "auto mode launches no gather kernel")
-    check(counts["kernel"]["gather_rows"] > 0, "kernel mode launches the gather kernel")
-    check(counts["kernel"]["scan_pairs"] > 0, "the build path's search launches the scan kernel")
+    n_search = 1 + MODE_ROUNDS
+    check(per_mode["auto"] == {"scan_pairs": n_search, "gather_pairs": 0, "gather_rows": 0},
+          f"auto mode launches one scan and no gather a search: {per_mode['auto']}")
+    check(per_mode["kernel"] == {"scan_pairs": n_search, "gather_pairs": n_search,
+                                 "gather_rows": 0},
+          f"kernel mode launches one scan and one merge gather a search: {per_mode['kernel']}")
+    for mode in ("auto", "kernel"):
+        t = np.asarray(rounds[mode])
+        log(f"[search] built index, LMI_GATHER_MODE={mode}: first call {first[mode]:.4f} s"
+            f"{' (loads the gather library)' if mode == 'kernel' and cold else ''}; "
+            f"{MODE_ROUNDS} warm rounds in turns {[round(float(x), 5) for x in t]} s per {nq} "
+            f"queries, "
+            f"mean {t.mean():.5f}, median {np.median(t):.5f}, min {t.min():.5f}, max {t.max():.5f} "
+            f"s; launches a search {({k: v // n_search for k, v in per_mode[mode].items()})}  "
+            f"[{smi}]")
+    auto_t, kern_t = np.asarray(rounds["auto"]), np.asarray(rounds["kernel"])
+    log(f"[search] built index, kernel - auto: mean {kern_t.mean() - auto_t.mean():+.5f} s, "
+        f"median {np.median(kern_t) - np.median(auto_t):+.5f} s; auto's spread (max - min) "
+        f"{auto_t.max() - auto_t.min():.5f} s, kernel's {kern_t.max() - kern_t.min():.5f} s; "
+        f"first calls: kernel - auto {first['kernel'] - first['auto']:+.4f} s")
     (da, ia), (dk, ik) = results["auto"], results["kernel"]
     check(np.array_equal(da.view(np.uint32), dk.view(np.uint32)) and np.array_equal(ia, ik),
           "gather modes auto and kernel give bit-identical results")
@@ -700,14 +983,16 @@ def phase_build_path(dev, data: dict, smi: str):
     log(f"[recall] built index: whole-corpus recall@10 of the {nq} queries at n_buckets=4 vs "
         f"exact f32 kNN: {recall(ik, gt_ids, 10):.4f}")
 
-    # ---- the gather kernel against its plain version at the path's shapes ----
+    # ---- the gather split, then both gather kernels against their plain versions ----
     order, _ = index.compute_bucket_order(queries, 4, keep_on_device=True)
     plan, sargs = scan_inputs(store, queries, order, 128, "bf16")
-    timing = {"work queries": gather_vs_plain(queries, plan.qidx, "work queries", smi)}
     cand_d, cand_s = scan_kernel.scan_pairs(*sargs, k=16, qtile=128, chunk=chunk, mode="bf16")
-    rows = plan.pair_rows
-    timing["merge dists"] = gather_vs_plain(cand_d.reshape(-1, 16), rows, "merge dists", smi)
-    timing["merge slots"] = gather_vs_plain(cand_s.reshape(-1, 16), rows, "merge slots", smi)
+    cand_d, cand_s, rows = cand_d.reshape(-1, 16), cand_s.reshape(-1, 16), plan.pair_rows
+    gather_split(store, queries, plan, sargs, cand_d, cand_s, smi)
+    timing = {"merge": pairs_vs_plain(cand_d, cand_s, rows, 4, smi),
+              "work queries": gather_vs_plain(queries, plan.qidx, "work queries", smi)}
+    timing["merge dists"] = gather_vs_plain(cand_d, rows, "merge dists", smi)
+    timing["merge slots"] = gather_vs_plain(cand_s, rows, "merge slots", smi)
     g = torch.Generator(device=dev).manual_seed(5)
     slots = torch.randint(0, store.chunk_data.shape[0], (nq * 16,), generator=g, device=dev)
     timing["store rows"] = gather_vs_plain(store.chunk_data, slots, "store rows", smi)
@@ -731,8 +1016,9 @@ def phase_build_path(dev, data: dict, smi: str):
     dj, ij, _ = search(index2, store2, pred2, 4, policy="joint")
     counts2 = read_counts()
     os.environ["LMI_GATHER_MODE"] = "auto"
-    check(counts2["gather_rows"] > 0 and counts2["scan_pairs"] > 0,
-          "2-level searches launch both kernels")
+    check(counts2["gather_pairs"] > 0 and counts2["scan_pairs"] > 0
+          and counts2["gather_rows"] == 0,
+          f"2-level searches launch the scan and the merge gather, no row gather: {counts2}")
     for visit, (seconds, d2, i2) in two.items():
         check(d2.shape == (nq, 10) and bool(np.isfinite(d2).all()) and bool((i2 > 0).all()),
               f"2-level best_first visit {visit}: finite, filled")
@@ -746,7 +1032,7 @@ def phase_build_path(dev, data: dict, smi: str):
         f"(256 queries); launches {counts2}")
     del store2
     torch.cuda.empty_cache()
-    launches = {k: counts["kernel"][k] + counts2[k] for k in counts2}
+    launches = {k: counts[k] + counts2[k] for k in counts2}
     log(f"[build-path] total {time.perf_counter() - t_all:.1f} s")
     return launches, timing
 
@@ -767,7 +1053,8 @@ def main() -> None:
     for name, source, replaces, t, errs in (
         ("scan_pairs", KERNEL_SOURCE, REPLACES, timing["bf16"],
          [e for pair in small.values() for e in pair[:1]] + [t["err"] for t in timing.values()]),
-        ("gather_rows", GATHER_SOURCE, GATHER_REPLACES, gather_timing["work queries"],
+        # the row gather's kernels: the merge gather is the one the search launches
+        ("gather_pairs", GATHER_SOURCE, GATHER_REPLACES, gather_timing["merge"],
          [t["err"] for t in gather_timing.values()]),
     ):
         rows.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,

@@ -947,7 +947,7 @@ int lmi_scan_pairs(const void* queries, const void* qscales, const void* qidx,
   if (n_pairs <= 0) return cudaSuccess;
   if (qtile < 1 || qtile > QT || k < 1 || k > MAX_K || d < 1 || chunk < 1)
     return cudaErrorInvalidValue;
-  if (mode == MODE_INT8 && (store_type != STORE_INT8 || d % 4 != 0)) return cudaErrorInvalidValue;
+  if (mode == MODE_INT8 && store_type != STORE_INT8) return cudaErrorInvalidValue;
   const bool fma = mode == MODE_F32 && store_type == STORE_F32;
   const int q_group = mode == MODE_F32 ? 32 : 16;
   if (fma ? qd != d

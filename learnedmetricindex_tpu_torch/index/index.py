@@ -123,6 +123,14 @@ class LearnedIndex:
         return len(self.levels)
 
     @property
+    def bucket_paths(self) -> List[Tuple[int, ...]]:
+        """The path (one category per level) of every valid leaf bucket,
+        in leaf order, as the JAX package's ``bucket_paths`` lists them."""
+        dims = tuple(self.config.n_categories)
+        return [tuple(int(v) for v in np.unravel_index(leaf, dims))
+                for leaf in np.nonzero(self.leaf_valid)[0]]
+
+    @property
     def n_buckets(self) -> int:
         return int(self.leaf_valid.sum())
 

@@ -4,8 +4,8 @@ Same algorithm and settings as the JAX package, which mimics faiss:
 
 * init: ``k`` data points at seeded random indices, nudged apart by
   ``+ arange(k)`` (``_kmeans_device`` :88-92);
-* assignment: argmin over ``||c||² - 2 x·c`` in full f32 (ties to the
-  first centroid), tiled over rows;
+* assignment: argmin over ``||c||² - 2 x·c`` in full f32 whatever the
+  caller's TF32 settings (ties to the first centroid), tiled over rows;
 * update: one-hot matmul sums per tile, divided by the counts;
 * an empty cluster is re-seeded deterministically from the largest one:
   ``c_j = c_biggest · (1 + 1e-4 (1 + j))``;
@@ -32,6 +32,7 @@ import numpy as np
 import torch
 
 from learnedmetricindex_tpu_torch import native
+from learnedmetricindex_tpu_torch.ops.precision import full_f32
 
 
 def _as_tensor(data) -> torch.Tensor:
@@ -64,6 +65,7 @@ def init_indices(n: int, n_clusters: int, generator: torch.Generator) -> torch.T
     return (draw + torch.arange(n_clusters)) % n
 
 
+@full_f32()
 def _lloyd(x: torch.Tensor, init_idx: torch.Tensor, n_iters: int, tile_rows: int):
     """Batched Lloyd's: ``x`` (P, T, d) f32 problems, ``init_idx`` (P, R,
     C) init rows for R restarts each.  Returns centroids (P, R, C, d)
@@ -126,6 +128,7 @@ def device_free_bytes(device) -> Optional[int]:
     return None
 
 
+@full_f32()
 def _assign(centroids: torch.Tensor, data: torch.Tensor, rows, scales, tile_rows: int) -> np.ndarray:
     """Nearest-centroid label of ``data[rows]`` (all rows when ``rows``
     is None), ``tile_rows`` rows at a time."""
@@ -233,6 +236,7 @@ def _kmeans_rows(
     return centroids.cpu().numpy(), _assign(centroids, data, rows, scales, tile)
 
 
+@full_f32()
 def kmeans_nodes(
     data,
     parent_gid: np.ndarray,

@@ -2,9 +2,9 @@
 ``learnedmetricindex_tpu/ops/knn.py``): the correctness oracle.
 
 ``dist = 1 - <q, x>`` for ``inner_product``/``cosine`` (normalized
-vectors), squared L2 for ``l2``; full f32 (TF32 is off, see the package
-``__init__``).  Neighbor ids are 1-based ``uint32``; ties go to the
-smaller row index.
+vectors), squared L2 for ``l2``; full f32 whatever the caller's TF32
+settings (``ops/precision.py``).  Neighbor ids are 1-based ``uint32``;
+ties go to the smaller row index.
 """
 
 from __future__ import annotations
@@ -14,6 +14,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from learnedmetricindex_tpu_torch.ops.precision import full_f32
 from learnedmetricindex_tpu_torch.ops.select import smallest_k
 
 METRICS = ("inner_product", "cosine", "l2")
@@ -28,6 +29,7 @@ def _dist_tile(queries: torch.Tensor, tile: torch.Tensor, metric: str) -> torch.
     return q2 - 2.0 * sims + x2
 
 
+@full_f32()
 def exact_knn(
     data,
     queries,
@@ -89,6 +91,7 @@ def recall(nns, gt_nns, k: int = 10) -> float:
     return hits / (nns.shape[0] * k)
 
 
+@full_f32()
 def restricted_knn(
     store, queries: torch.Tensor, bucket_order: torch.Tensor, k: int,
     *, slab_rows: int = 1 << 20,

@@ -34,6 +34,7 @@ from typing import Optional, Tuple
 import torch
 
 from learnedmetricindex_tpu_torch.ops import cuda_build
+from learnedmetricindex_tpu_torch.ops.precision import full_f32
 from learnedmetricindex_tpu_torch.ops.select import smallest_k
 
 MODES = {"f32": 0, "bf16": 1, "int8": 2}
@@ -102,15 +103,11 @@ def _check(queries, qidx, pair_bucket, ptr, chunk_of, store, scales, qscales,
             raise ValueError("scan mode 'int8' needs an int8 store and int8 queries")
         if qscales is None or qscales.dtype != torch.float32 or qscales.shape != (queries.shape[0],):
             raise ValueError("scan mode 'int8' needs (n_queries,) f32 qscales")
-        if d % 4 or store.data_ptr() % 4 or queries.data_ptr() % 4:
-            raise ValueError(
-                f"scan mode 'int8' copies rows in 4-byte granules: needs d % 4 == 0 (d={d}) "
-                "and 4-byte aligned store and queries"
-            )
     elif queries.dtype != torch.float32:
         raise ValueError(f"scan mode {mode!r} needs f32 queries")
 
 
+@full_f32()
 def scan_pairs_reference(
     queries: torch.Tensor,  # (n_queries, d) f32, or int8 for mode "int8"
     qidx: torch.Tensor,  # (n_pairs·qtile,) int32 query row per slot, -1 = pad

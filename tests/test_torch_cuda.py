@@ -61,6 +61,9 @@ def _tensor_core_cases():
         ("f32", "float32", 256, 100), ("bf16", "int8", 256, 128), ("int8", "int8", 256, 16),
         # 512 and 1024: four and eight blocks a pair
         ("f32", "float32", 300, 8), ("f32", "float32", 600, 128)]]
+    # int8 rows of 30 and 102 bytes: no 4-byte granule, staged through registers
+    + [("int8", "int8", 16, 128, 30), ("int8", "int8", 36, 8, 30), ("int8", "int8", 16, 100, 102),
+       ("int8", "int8", 100, 128, 102), ("bf16", "int8", 16, 128, 30), ("f32", "int8", 16, 8, 102)]
     + _tensor_core_cases(),
 )
 def test_kernel_matches_plain_version(cuda, mode, store_dtype, k, qtile, d):
@@ -154,6 +157,9 @@ def test_f32_body_reads_all_three_query_terms(cuda, store_dtype, d, k, qtile):
 
 
 def test_kernel_rejects_what_it_does_not_take(cuda):
+    """Tensors on two devices, int8 queries in another mode and k past the
+    widest list raise; int8 rows of 6 bytes (no 4-byte granule) run and
+    equal the plain version."""
     store = BucketStore.build(np.ones((64, 6), np.float32), np.zeros(64, int), 1, chunk=32,
                               device=cuda)
     plan = build_plan(torch.zeros((4, 1), dtype=torch.int64, device=cuda), 1, 8)
@@ -162,11 +168,16 @@ def test_kernel_rejects_what_it_does_not_take(cuda):
             torch.as_tensor(store.bucket_chunk_start, dtype=torch.int32, device=cuda),
             torch.arange(store.n_chunks, dtype=torch.int32, device=cuda),
             store.chunk_data.to(torch.int8), store.scales_flat(), qs)
-    with pytest.raises(ValueError, match="d % 4"):
-        scan_kernel.scan_pairs(*args, k=4, qtile=8, chunk=32, mode="int8")
+    kd, ks = scan_kernel.scan_pairs(*args, k=4, qtile=8, chunk=32, mode="int8")
+    rd, rs = scan_kernel.scan_pairs_reference(*args, k=4, qtile=8, chunk=32, mode="int8")
+    assert torch.equal(kd.view(torch.int32), rd.view(torch.int32)) and torch.equal(ks, rs)
     with pytest.raises(ValueError, match="device"):
         scan_kernel.scan_pairs(*(a.cpu() if i == 0 else a for i, a in enumerate(args)),
                                k=4, qtile=8, chunk=32, mode="int8")
+    with pytest.raises(ValueError, match="f32 queries"):
+        scan_kernel.scan_pairs(*args, k=4, qtile=8, chunk=32, mode="bf16")
+    with pytest.raises(ValueError, match="k <= 1024"):
+        scan_kernel.scan_pairs(*args, k=1025, qtile=8, chunk=32, mode="int8")
 
 
 @pytest.mark.parametrize("precision", ["highest", "default", "int8"])
@@ -229,6 +240,30 @@ def test_gather_kernel_rejects_what_it_does_not_take(cuda):
                                   torch.zeros(2, dtype=torch.int32))
 
 
+@pytest.mark.parametrize("k", [1, 3, 10, 16])
+@pytest.mark.parametrize("index_dtype", [torch.int32, torch.int64])
+def test_gather_pairs_matches_plain_version(cuda, k, index_dtype):
+    """The merge's gather in one launch, bit-equal to its plain version:
+    16-byte vectors (k 16) and 4-byte words (k 1, 3, 10), rows -1, 0, the
+    last and beyond the end."""
+    g = torch.Generator(device=cuda).manual_seed(k)
+    R, V, Q = 6000, 4, 5000
+    cand_d = torch.randn((R, k), generator=g, device=cuda)
+    cand_d[::7] = torch.inf
+    cand_d[1, 0] = -0.0
+    cand_s = torch.randint(-1, 10**6, (R, k), generator=g, device=cuda, dtype=torch.int32)
+    rows = torch.randint(-1, R + 3, (Q * V,), generator=g, device=cuda).to(index_dtype)
+    rows[:4] = torch.tensor([-1, 0, R - 1, R + 100])
+    before = (gather_kernel.LAUNCHES, gather_kernel.PAIR_LAUNCHES)
+    gd, gs = gather_kernel.gather_pairs(cand_d, cand_s, rows, V)
+    torch.cuda.synchronize()
+    assert (gather_kernel.LAUNCHES, gather_kernel.PAIR_LAUNCHES) == (before[0], before[1] + 1)
+    rd, rs = gather_kernel.gather_pairs_reference(cand_d, cand_s, rows, V)
+    assert gd.shape == rd.shape == (Q, V * k) and gs.dtype == torch.int32
+    assert torch.equal(gd.view(torch.int32), rd.view(torch.int32)) and torch.equal(gs, rs)
+    assert gather_kernel.PAIR_LAUNCHES == before[1] + 1
+
+
 @pytest.mark.parametrize("precision", ["highest", "default", "int8"])
 def test_gather_modes_bit_identical_on_gpu(cuda, monkeypatch, precision):
     data, rng = _corpus(4000, 64, seed=4)
@@ -246,13 +281,48 @@ def test_gather_modes_bit_identical_on_gpu(cuda, monkeypatch, precision):
     out = {}
     for mode in ("auto", "kernel"):
         monkeypatch.setenv("LMI_GATHER_MODE", mode)
-        before = gather_kernel.LAUNCHES
+        before = (gather_kernel.LAUNCHES, gather_kernel.PAIR_LAUNCHES)
         out[mode] = index.search(None, data[:300], None, data[:300], pred, n_buckets=3, k=30,
                                  store=store, precision=precision)[:2]
-        launched = gather_kernel.LAUNCHES - before
-        assert launched == (3 if mode == "kernel" else 0)
+        launched = (gather_kernel.LAUNCHES - before[0], gather_kernel.PAIR_LAUNCHES - before[1])
+        # kernel mode: one merge gather, and no work-query rows gathered
+        assert launched == ((0, 1) if mode == "kernel" else (0, 0))
     np.testing.assert_array_equal(out["auto"][0].view(np.uint32), out["kernel"][0].view(np.uint32))
     np.testing.assert_array_equal(out["auto"][1], out["kernel"][1])
+
+
+def test_exact_stages_stay_f32_under_a_tf32_setting(cuda):
+    """After ``torch.set_float32_matmul_precision("high")`` (TF32 for the
+    caller's matmuls), the search's reranked distances and ``exact_knn``
+    stay within the 5e-6 band of float64, and the setting survives."""
+    from learnedmetricindex_tpu_torch.ops.knn import exact_knn
+
+    data, rng = _corpus(4000, 768, seed=12)
+    nb = 8
+    params = [{"w": rng.normal(size=(1, 768, 32)).astype(np.float32),
+               "b": np.zeros((1, 32), np.float32)},
+              {"w": rng.normal(size=(1, 32, nb)).astype(np.float32),
+               "b": np.zeros((1, nb), np.float32)}]
+    cfg = lmi.BuildConfiguration("kmeans", 1, "MLP-6", 0.01, [nb], chunk_size=128)
+    pred = rng.integers(0, nb, (4000, 1))
+    index = index_from_arrays(cfg, [params], [np.ones((1, nb), bool)], ["MLP-6"],
+                              np.ones(nb, bool), cuda)
+    store = BucketStore.build(data, index.bucket_ids_from_prediction(pred), nb, chunk=128,
+                              device=cuda)
+    queries = data[:200] + 0.01 * rng.normal(size=(200, 768)).astype(np.float32)
+    before = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("high")
+    try:
+        sd, si, _ = index.search(None, queries, None, queries, pred, n_buckets=3, k=10,
+                                 store=store)
+        kd, ki = exact_knn(torch.as_tensor(data, device=cuda), queries, k=10)
+        assert torch.get_float32_matmul_precision() == "high"
+    finally:
+        torch.set_float32_matmul_precision(before)
+    x, q = data.astype(np.float64), queries.astype(np.float64)
+    for dists, ids in ((sd, si), (kd, ki)):
+        exact = 1.0 - np.einsum("qd,qkd->qk", q, x[ids.astype(np.int64) - 1])
+        assert np.abs(dists - exact).max() <= 5e-6
 
 
 def test_builds_and_searches_on_gpu(cuda):

@@ -1,6 +1,6 @@
-"""The row gather against the JAX package's Pallas gather kernel, and the
-search's gather-kernel mode: bit-identical to the default mode and equal
-to the JAX package's search."""
+"""The row gathers against the JAX package's Pallas gather kernel and its
+merge, and the search's gather-kernel mode: bit-identical to the default
+mode and equal to the JAX package's search."""
 
 import jax.numpy as jnp
 import ml_dtypes
@@ -10,11 +10,14 @@ import torch
 
 import learnedmetricindex_tpu as jlmi
 from learnedmetricindex_tpu.data import synthetic_blobs
+from learnedmetricindex_tpu.index.bucket_store import _merge_pairs_dense as jax_merge_pairs
 from learnedmetricindex_tpu.ops.gather_kernel import gather_rows as jax_gather_rows
 import learnedmetricindex_tpu_torch as lmi
-from learnedmetricindex_tpu_torch.index.bucket_store import BucketStore
+from learnedmetricindex_tpu_torch.index.bucket_store import BucketStore, merge_pairs
 from learnedmetricindex_tpu_torch.ops import gather_kernel
 from learnedmetricindex_tpu_torch.ops.gather_kernel import (
+    gather_pairs,
+    gather_pairs_reference,
     gather_rows,
     gather_rows_ok,
     gather_rows_reference,
@@ -71,6 +74,85 @@ def test_gather_gate_and_validation():
         gather_rows(torch.zeros((4, 4)), torch.zeros(2))
     with pytest.raises(ValueError, match="table rows"):
         gather_rows(torch.zeros((0, 4)), torch.zeros(2, dtype=torch.int32))
+    d, s, rows = torch.zeros((6, 4)), torch.zeros((6, 4), dtype=torch.int32), torch.zeros(6)
+    with pytest.raises(ValueError, match="int32 or int64"):
+        gather_pairs(d, s, rows, 2)
+    with pytest.raises(ValueError, match="f32 distances"):
+        gather_pairs(d.double(), s, rows.long(), 2)
+    with pytest.raises(ValueError, match="match in shape"):
+        gather_pairs(d, s[:, :3], rows.long(), 2)
+    with pytest.raises(ValueError, match="Q·V"):
+        gather_pairs(d, s, rows.long(), 4)
+
+
+def _candidates(rng, R, k):
+    """A scan's (R, k) candidate tables: ascending distances with ties and
+    an unfilled tail (+inf, slot -1) in some rows."""
+    d = np.sort(rng.integers(0, 40, (R, k)) / 64.0, axis=1).astype(np.float32)
+    s = rng.integers(0, 10_000, (R, k)).astype(np.int32)
+    tail = rng.integers(0, k + 1, R)
+    for r in range(R):
+        d[r, tail[r]:], s[r, tail[r]:] = np.inf, -1
+    return torch.as_tensor(d), torch.as_tensor(s)
+
+
+@pytest.mark.parametrize("k", [1, 3, 10, 16])
+def test_gather_pairs_reference_is_the_old_merge_gather(k):
+    """Bit-equal to the merge's gather and mask as the search ran it:
+    torch indexing (rows clamped below) or two ``gather_rows`` (clamped
+    both sides), then ``+inf`` / ``-1`` where the row is -1; with rows -1,
+    0, the last and beyond the end.  On a CPU tensor the wrapper is the
+    plain version and launches nothing."""
+    rng = np.random.default_rng(k)
+    R, V = 50, 3
+    cand_d, cand_s = _candidates(rng, R, k)
+    rows = rng.integers(0, R, 3 * 40)
+    rows[:4] = [-1, 0, R - 1, R + 7]
+    rows[rng.choice(np.arange(4, len(rows)), 10, replace=False)] = -1
+    for dtype in (torch.int64, torch.int32):
+        pair_rows = torch.as_tensor(rows).to(dtype)
+        ok = (pair_rows >= 0)[:, None]
+        # LMI_GATHER_MODE=kernel: two gather_rows, both clamps
+        old_d = torch.where(ok, gather_rows_reference(cand_d, pair_rows), torch.inf)
+        old_s = torch.where(ok, gather_rows_reference(cand_s, pair_rows), -1)
+        gd, gs = gather_pairs_reference(cand_d, cand_s, pair_rows, V)
+        assert gd.shape == gs.shape == (40, V * k) and gs.dtype == torch.int32
+        assert torch.equal(gd.view(torch.int32), old_d.reshape(40, V * k).view(torch.int32))
+        assert torch.equal(gs, old_s.reshape(40, V * k))
+        # the default mode: torch indexing on rows clamped below (in range here)
+        inside = pair_rows < R
+        at = torch.clamp_min(pair_rows[inside], 0).long()
+        auto_d = torch.where(ok[inside], cand_d[at], torch.inf)
+        assert torch.equal(gd.reshape(-1, k)[inside].view(torch.int32), auto_d.view(torch.int32))
+        assert torch.equal(gs.reshape(-1, k)[inside], torch.where(ok[inside], cand_s[at], -1))
+        before = (gather_kernel.LAUNCHES, gather_kernel.PAIR_LAUNCHES)
+        wd, ws = gather_pairs(cand_d, cand_s, pair_rows, V)
+        assert torch.equal(wd.view(torch.int32), gd.view(torch.int32)) and torch.equal(ws, gs)
+        assert (gather_kernel.LAUNCHES, gather_kernel.PAIR_LAUNCHES) == before
+
+
+@pytest.mark.parametrize("k,V", [(16, 4), (3, 2), (1, 5)])
+def test_merge_pairs_matches_jax_merge(k, V):
+    """The port's merge in both gather modes against the JAX package's
+    ``_merge_pairs_dense`` on the same candidates: the same distances,
+    bit for bit, and the same slots (ties to the earlier visit, then
+    the earlier candidate; -1 past the last candidate)."""
+    rng = np.random.default_rng(10 * k + V)
+    R, Q = 64, 30
+    cand_d, cand_s = _candidates(rng, R, k)
+    rows = rng.integers(0, R, Q * V)
+    rows[rng.choice(Q * V, Q, replace=False)] = -1
+    rows[:V] = -1  # a query with no candidate at all
+    jd, js = jax_merge_pairs(
+        jnp.asarray(cand_d.numpy()), jnp.asarray(cand_s.numpy()),
+        jnp.asarray(np.maximum(rows, 0).astype(np.int32)), jnp.asarray(rows >= 0), k=k, V=V)
+    jd, js = np.asarray(jd), np.asarray(js)
+    for kernel in (False, True):
+        pd, ps = merge_pairs(cand_d, cand_s, torch.as_tensor(rows), k=k, V=V,
+                             gather_kernel=kernel)
+        np.testing.assert_array_equal(pd.numpy().view(np.uint32), jd.view(np.uint32))
+        np.testing.assert_array_equal(ps.numpy(), js)
+    assert np.isinf(jd[0]).all() and (js[0] == -1).all()
 
 
 @pytest.fixture(scope="module")

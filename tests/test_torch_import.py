@@ -28,6 +28,7 @@ MODULES = [
     "learnedmetricindex_tpu_torch.ops.gather_kernel",
     "learnedmetricindex_tpu_torch.ops.kmeans",
     "learnedmetricindex_tpu_torch.ops.knn",
+    "learnedmetricindex_tpu_torch.ops.precision",
     "learnedmetricindex_tpu_torch.ops.quantize",
     "learnedmetricindex_tpu_torch.ops.scan_kernel",
     "learnedmetricindex_tpu_torch.ops.select",
@@ -176,10 +177,78 @@ def test_no_jax_import_in_the_package():
 
 
 def test_exports():
+    """The public names, and importing the port leaves the caller's TF32
+    flags as it found them (the exact stages scope full f32 to their own
+    calls: ops/precision.py)."""
     assert set(lmi.__all__) >= {"BuildConfiguration", "LearnedIndex", "LearnedIndexBuilder",
                                 "load_index", "save_index"}
-    assert not torch.backends.cuda.matmul.allow_tf32
-    assert not torch.backends.cudnn.allow_tf32
+    for matmul, cudnn in ((True, False), (False, True)):
+        proc = _run_without(f"""
+import torch
+torch.backends.cuda.matmul.allow_tf32 = {matmul}
+torch.backends.cudnn.allow_tf32 = {cudnn}
+import learnedmetricindex_tpu_torch
+assert torch.backends.cuda.matmul.allow_tf32 is {matmul}
+assert torch.backends.cudnn.allow_tf32 is {cudnn}
+print("ok")
+""", blocked=())
+        assert proc.returncode == 0, proc.stderr
+        assert proc.stdout.strip().endswith("ok")
+
+
+# the caller's setting, then full_f32 entered (and left by an exception)
+# twice: full f32 inside, every record restored after
+_FULL_F32_BODY = """
+import torch
+from learnedmetricindex_tpu_torch.ops.precision import full_f32
+B = torch.backends
+RECORDS = {{"cuda": lambda: B.cuda.matmul.fp32_precision,
+           "mkldnn": lambda: B.mkldnn.matmul.fp32_precision,
+           "process": torch.get_float32_matmul_precision,
+           "allow_tf32": lambda: B.cuda.matmul.allow_tf32}}
+def state():
+    out = {{}}
+    for name, read in RECORDS.items():
+        try:
+            out[name] = read()
+        except RuntimeError:  # unreadable while the records disagree
+            out[name] = "unreadable"
+    return out
+{setting}
+before = state()
+with full_f32():
+    assert B.cuda.matmul.fp32_precision == "ieee"
+    inside = state()
+    assert inside["process"] in ("highest", "unreadable") and inside["allow_tf32"] in (False, "unreadable"), inside
+assert state() == before, (before, state())
+try:
+    with full_f32():
+        raise KeyError("inside")
+except KeyError:
+    pass
+assert state() == before, (before, state())
+@full_f32()
+def decorated():
+    return B.cuda.matmul.fp32_precision
+assert decorated() == "ieee" and state() == before
+print("ok", before)
+"""
+
+
+@pytest.mark.parametrize("setting", [
+    "",
+    'torch.set_float32_matmul_precision("high")',
+    'torch.set_float32_matmul_precision("medium")',
+    "B.cuda.matmul.allow_tf32 = True",
+    'B.cuda.matmul.fp32_precision = "tf32"',
+])
+def test_full_f32_restores_the_callers_settings(setting):
+    """``full_f32`` runs its body with IEEE f32 matmuls and puts every
+    record of the caller's TF32 setting back, also after an exception
+    and when used as a decorator."""
+    proc = _run_without(_FULL_F32_BODY.format(setting=setting), blocked=())
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().startswith("ok")
 
 
 def test_config_validates_without_the_jax_registry():

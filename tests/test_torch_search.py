@@ -196,3 +196,97 @@ def test_wide_k_matches_jax(built, k):
     assert recall(pi, gt, k) == jax_recall(np.asarray(ji), gt, k)
     dd, di, _ = _search(pidx, data, queries, pred, n_buckets=3, k=k)  # default precision
     assert (np.sort(di, axis=1) == np.sort(pi, axis=1)).mean() > 0.99
+
+
+@pytest.mark.parametrize("qtile", [200, 256])
+def test_qtile_above_the_kernel_tile_matches_jax(built, qtile):
+    """A query tile past the kernel's 128 plans as tiles of 128: the port
+    equals the JAX package at the same ``qtile`` (to the parity bar) and
+    itself at 128 (bit for bit: a query's results do not depend on its
+    tile)."""
+    jidx, pidx, pred = built["one"]
+    data, queries = built["data"], built["queries"]
+    kw = dict(n_buckets=3, k=10, precision="highest")
+    jd, ji, _ = _search(jidx, data, queries, pred, qtile=qtile, **kw)
+    pd, pi, _ = _search(pidx, data, queries, pred, qtile=qtile, **kw)
+    _assert_parity(pd, pi, np.asarray(jd), np.asarray(ji))
+    bd, bi, _ = _search(pidx, data, queries, pred, qtile=128, **kw)
+    np.testing.assert_array_equal(pd.view(np.uint32), bd.view(np.uint32))
+    np.testing.assert_array_equal(pi, bi)
+
+
+@pytest.fixture(scope="module", params=[30, 102])
+def unaligned(request, tmp_path_factory):
+    """A 1-level [8] index over rows whose int8 width is no multiple of 4
+    bytes, built by the JAX package and loaded by the port, with the
+    int8 packed store of each package."""
+    d = request.param
+    data, queries = synthetic_blobs(1600, d, 60, n_clusters=12, seed=d)
+    cfg = jlmi.BuildConfiguration("kmeans", 6, "MLP-2", 0.01, [8], seed=d, chunk_size=64)
+    jidx, pred, _, _, _ = jlmi.LearnedIndexBuilder(data, cfg).build()
+    path = str(tmp_path_factory.mktemp(f"d{d}") / "index.npz")
+    jax_save_index(jidx, path, pred)
+    pidx, ppred = lmi.load_index(path, "cpu")
+    bucket_ids = pidx.bucket_ids_from_prediction(ppred)
+    store = BucketStore.build_packed_int8(data, bucket_ids, 8, chunk=64, device="cpu")
+    jstore = JaxStore.build_packed_int8(data, bucket_ids, 8, chunk=64)
+    return data, queries, jidx, pidx, ppred, store, jstore
+
+
+def test_int8_search_at_unaligned_widths_matches_jax(unaligned):
+    """``precision="int8"`` at d = 30 and 102 (rows of 30 and 102 bytes):
+    the port equals the JAX package's int8 search to the parity bar, and
+    the scan's candidates are bit-equal to the int8 scan computed in
+    numpy (int64 sums, then the kernel's f32 steps)."""
+    from learnedmetricindex_tpu_torch.index.bucket_store import scan_inputs
+    from learnedmetricindex_tpu_torch.ops.scan_kernel import scan_pairs
+
+    data, queries, jidx, pidx, pred, store, jstore = unaligned
+    jd, ji, _ = _search(jidx, None, queries, pred, n_buckets=3, k=10, store=jstore,
+                        precision="int8")
+    pd, pi, _ = _search(pidx, None, queries, pred, n_buckets=3, k=10, store=store,
+                        precision="int8")
+    _assert_parity(pd, pi, np.asarray(jd), np.asarray(ji))
+
+    order, _ = pidx.compute_bucket_order(queries, 3, keep_on_device=True)
+    plan, args = scan_inputs(store, torch.as_tensor(queries), order, 32, "int8")
+    cd, cs = scan_pairs(*args, k=16, qtile=32, chunk=64, mode="int8")
+    q8, qidx, pair_bucket, ptr = (t.numpy() for t in args[:4])
+    x8, scales, qscales = args[5].numpy(), args[6].numpy(), args[7].numpy()
+    for p in range(plan.n_pairs):
+        b = pair_bucket[p]
+        slots = np.arange(ptr[b] * 64, ptr[b + 1] * 64)
+        for j, qi in enumerate(qidx[p * 32 : (p + 1) * 32]):
+            if qi < 0:
+                assert torch.isinf(cd[p, j]).all()
+                continue
+            raw = (x8[slots].astype(np.int64) @ q8[qi].astype(np.int64)).astype(np.float32)
+            with np.errstate(over="ignore"):
+                dist = raw * -scales[slots] * qscales[qi]
+            dist = dist + np.where(scales[slots] == 0, np.float32(np.inf), np.float32(1.0))
+            top = np.lexsort((np.arange(len(slots)), dist))[:16]
+            np.testing.assert_array_equal(cd[p, j].numpy().view(np.uint32),
+                                          dist[top].view(np.uint32))
+            np.testing.assert_array_equal(cs[p, j].numpy(),
+                                          np.where(np.isinf(dist[top]), -1, slots[top]))
+
+
+@pytest.mark.parametrize("cats", [[10], [4, 3]])
+def test_bucket_paths_match_jax(built, tmp_path, cats):
+    """``LearnedIndex.bucket_paths`` (one category per level, every valid
+    leaf) equals the JAX index's after an .npz round trip."""
+    if cats == [10]:
+        jidx, pidx, pred = built["one"]
+    else:
+        rng = np.random.default_rng(4)
+        data = rng.normal(size=(900, 8)).astype(np.float32)
+        data /= np.linalg.norm(data, axis=1, keepdims=True)
+        cfg = jlmi.BuildConfiguration("kmeans", 2, "MLP-2", 0.01, cats, seed=4, chunk_size=32)
+        jidx, pred, _, _, _ = jlmi.LearnedIndexBuilder(data, cfg).build()
+    path = str(tmp_path / "index.npz")
+    jax_save_index(jidx, path, pred)
+    pidx, _ = lmi.load_index(path, "cpu")
+    jidx2, _ = jax_load_index(path)
+    assert pidx.bucket_paths == jidx.bucket_paths == jidx2.bucket_paths
+    assert len(pidx.bucket_paths) == pidx.n_buckets
+    assert all(len(path) == len(cats) for path in pidx.bucket_paths)
