@@ -16,8 +16,11 @@ phases:
    the card at d 768, 96 and 100, all three modes over every store type
    they take, k 16 to 600 (every list width, 32 to 1024), qtile
    1/8/100/128, with duplicated rows whose exact ties must go to the
-   earlier slot; f32 over int8 and bf16 stores also on rows of one power
-   of two, where each distance needs all three bf16 terms of a query;
+   earlier row in the bucket's scan order; at d 768 also over the same
+   stores after inserts (pool chunks, growth) and deletes, their chunk
+   lists out of physical order (list widths 32 and 64); f32 over int8
+   and bf16 stores also on rows of one power of two, where each distance
+   needs all three bf16 terms of a query;
 4. corpus: a seeded 10M×768 int8 corpus (+ f32 row scales) on the
    device and the exact f32 top-10 of the queries;
 5. search path: an index whose MLP-4 encodes a nearest-centroid
@@ -40,7 +43,18 @@ phases:
    scan, ``operand_queries`` and the merge, and each gather's host time
    a call); the merge gather kernel and the row gather kernel against
    their plain versions and ``index_select`` at the path's shapes; then
-   the 2-level [10, 10] index searched best-first at visits 1-8.
+   the 2-level [10, 10] index searched best-first at visits 1-8;
+7. dynamic path: the 1-level built index and its store as a
+   ``DynamicIndex`` (no copy): 500,000 inserted rows in one batch (pool
+   chunks, a growth), 64 inserts of 64 rows, 250,000 deletes, each timed,
+   with the peak device memory; searches of the mutated store at the
+   default precision and ``highest`` (gather modes in turns) held to
+   exact kNN over the visited buckets, no deleted id returned, inserted
+   rows finding themselves; the scan kernel against its plain version
+   on the mutated plan; compaction with bit-identical search output and
+   no kernel built anew; ``SearchServer`` with 16 clients of 64 queries
+   for ~10 s while a thread inserts and deletes (latency p50/p95, QPS,
+   batches against requests); one call to each HTTP endpoint.
 
 Each path runs with the launch counts set to 0 just before it and read
 just after.  Any failure raises (exit code 1).  Without CUDA it exits
@@ -56,7 +70,9 @@ import os
 import shutil
 import subprocess
 import sys
+import threading
 import time
+import urllib.request
 from pathlib import Path
 
 import numpy as np
@@ -64,6 +80,7 @@ import torch
 
 import learnedmetricindex_tpu_torch as lmi
 from learnedmetricindex_tpu_torch.data import BlobGenerator
+from learnedmetricindex_tpu_torch.index import mutation
 from learnedmetricindex_tpu_torch.index.bucket_store import BucketStore, scan_inputs
 from learnedmetricindex_tpu_torch.index.serialization import index_from_arrays
 from learnedmetricindex_tpu_torch.ops import cuda_build, gather_kernel, quantize, scan_kernel
@@ -176,10 +193,28 @@ def compare_candidates(kd, ks, rd, rs, mode: str, what: str) -> tuple:
     return (float(np.abs(kd[fin] - rd[fin]).max()) if fin.any() else 0.0), tie_gap
 
 
+def scan_partner(store, copies) -> np.ndarray:
+    """``partner[slot]``: for each group of object ids that hold one row
+    (a row of ``copies``), every copy's slot mapped to the slot of the
+    copy just before it in the bucket's scan order (-1 elsewhere).  In a
+    fresh store scan order is slot order; in a mutated one a chunk taken
+    from the pool may sit below the bucket's older chunks."""
+    _, position = store.chunk_owner()
+    row_slot = store.row_slot.cpu().numpy()
+    slots = row_slot[np.asarray(copies) - 1].astype(np.int64)  # (groups, n_copies)
+    pos = position[slots // store.chunk] * store.chunk + slots % store.chunk
+    order = np.argsort(pos, axis=1)
+    ranked = np.take_along_axis(slots, order, axis=1)
+    partner = np.full(store.chunk_data.shape[0], -1, np.int64)
+    partner[ranked[:, 1:].reshape(-1)] = ranked[:, :-1].reshape(-1)
+    return partner
+
+
 def earlier_duplicate_first(slots, partner, what: str) -> int:
     """Every list that holds the later copy of a duplicated row holds the
-    earlier copy (``partner[later] = earlier``) before it: exact ties go
-    to the earlier slot.  Returns how many later copies were checked."""
+    earlier copy (``partner[later] = earlier``, from ``scan_partner``)
+    before it: exact ties go to the earlier row in the bucket's scan
+    order.  Returns how many later copies were checked."""
     flat = slots.reshape(-1, slots.shape[-1]).cpu().numpy()
     earlier = np.where(flat >= 0, partner[np.maximum(flat, 0)], -1)
     rows, cols = np.nonzero(earlier >= 0)
@@ -248,7 +283,9 @@ def kv_stores(dev, d: int, seed: int = 7):
     bucket, padding slots, chunk 320: not a whole number of 128-row
     tiles), 60 rows duplicated later in their own bucket, and 300
     queries visiting 3 buckets (the first 60 are the duplicated rows and
-    visit their bucket; 20 leave their last visit unused)."""
+    visit their bucket; 20 leave their last visit unused).  Returns the
+    stores, the queries, their visits, the chunk, the (60, 2) object ids
+    of the duplicated rows and what ``mutate_kv_stores`` needs."""
     g = BlobGenerator(16, d, seed=seed, noise=0.45, device=dev)
     n, nb, chunk = 6000, 7, 320
     data = g.rows(n)
@@ -275,10 +312,57 @@ def kv_stores(dev, d: int, seed: int = 7):
         order[i] = perm[:3]
     order = torch.as_tensor(order, device=dev)
     order[-20:, 2] = -1
-    row_slot = stores["f32"].row_slot.cpu().numpy()  # the same layout in all three
-    partner = np.full(stores["f32"].chunk_data.shape[0], -1, np.int64)
-    partner[row_slot[dst]] = row_slot[src]
-    return stores, queries, order, chunk, partner
+    copies = np.stack([src + 1, dst + 1], axis=1)  # object ids of each duplicated row
+    return stores, queries, order, chunk, copies, (g, data, bucket_ids, src)
+
+
+def mutate_kv_stores(stores, copies, made, seed: int = 7):
+    """The ``kv_stores`` stores after what serving does to a store: a third
+    copy of each duplicated row inserted into its bucket, 2,000 new rows
+    (the pool is empty, so the stores grow), 300 deletes of other rows;
+    then the chunks moved to other physical places, each bucket's list
+    keeping its scan order, so lists run out of physical order and some
+    later copies sit at lower slots.  Returns the stores and the copies'
+    ids, three a row."""
+    g, data, bucket_ids, src = made
+    n, nb = data.shape[0], max(s.n_buckets for s in stores.values())
+    rng = np.random.default_rng(seed)
+    third = np.arange(n + 1, n + 1 + len(src))
+    extra = g.rows(2000)
+    extra_buckets = rng.integers(0, nb, 2000)
+    extra_buckets[extra_buckets == 3] = 4  # bucket 3 stays empty
+    victims = rng.choice(np.setdiff1d(np.arange(1, n + 1), copies), 300, replace=False)
+    out = {}
+    for name, store in stores.items():
+        n0 = store.n_chunks
+        store = mutation.insert_rows(store, data[torch.as_tensor(src, device=data.device)],
+                                     bucket_ids[src], third)
+        store = mutation.insert_rows(store, extra, extra_buckets,
+                                     np.arange(third[-1] + 1, third[-1] + 2001))
+        store, n_del = mutation.delete_ids(store, victims)
+        check(store.n_chunks > n0 and n_del == 300, f"mutated {name} store: grew, 300 deleted")
+        out[name] = shuffled_chunks(store, seed)
+        ptr, clist = out[name].chunk_list()
+        check(any((np.diff(clist[a:b]) < 0).any() for a, b in zip(ptr[:-1], ptr[1:])),
+              f"mutated {name} store: a chunk list runs out of physical order")
+    return out, np.concatenate([copies, third[:, None]], axis=1)
+
+
+def shuffled_chunks(store, seed: int):
+    """The same store with its chunks at other physical places: each
+    bucket's list names them in the old scan order."""
+    dev = store.device
+    perm = torch.as_tensor(np.random.default_rng(seed).permutation(store.n_chunks), device=dev)
+    inv = torch.argsort(perm)  # new physical chunk → old
+    slots = (inv[:, None] * store.chunk + torch.arange(store.chunk, device=dev)).reshape(-1)
+    ptr, clist = store.chunk_list()
+    return store._replace(
+        chunk_data=store.chunk_data[slots], chunk_ids=store.chunk_ids[inv],
+        chunk_scales=None if store.chunk_scales is None else store.chunk_scales[slots],
+        row_slot=(perm[store.row_slot.long() // store.chunk] * store.chunk
+                  + store.row_slot % store.chunk).int(),
+        bucket_chunk_ptr=ptr, bucket_chunk_list=perm.cpu().numpy()[clist].astype(np.int32),
+    )
 
 
 def phase_kernel_vs_plain(dev) -> dict:
@@ -295,7 +379,7 @@ def phase_kernel_vs_plain(dev) -> dict:
               ("f32", "bf16"), ("f32", "int8"), ("f32", "f32")]
     worst = {m: (0.0, 0.0) for m in ("f32", "bf16", "int8")}
     for d in (768, 96, 100, 30, 102):
-        stores, queries, order, chunk, partner = kv_stores(dev, d)
+        stores, queries, order, chunk, copies, made = kv_stores(dev, d)
         if d in (30, 102):  # unaligned int8 rows: the modes that read an int8 store
             cases = [(mode, k, qtile, "int8") for mode, k, qtile in
                      (("int8", 16, 128), ("int8", 100, 8), ("bf16", 36, 100), ("f32", 16, 1))]
@@ -303,23 +387,32 @@ def phase_kernel_vs_plain(dev) -> dict:
             cases = [(mode, k, qtiles[(ki + si) % 4], store)
                      for ki, k in enumerate((16, 36, 64, 100, 256, 300, 600))
                      for si, (mode, store) in enumerate(combos)]
-        for mode, k, qtile, store_name in cases:
-            store = stores[store_name]
-            plan, args = scan_inputs(store, queries, order, qtile, mode)
-            kw = dict(k=k, qtile=qtile, chunk=chunk, mode=mode)
-            kd, ks = scan_kernel.scan_pairs(*args, **kw)
-            torch.cuda.synchronize()
-            rd, rs = scan_kernel.scan_pairs_reference(*args, **kw)
-            what = f"{mode} store={store_name} d={d} k={k} qtile={qtile}"
-            err, gap = compare_candidates(kd, ks, rd, rs, mode, what)
-            n_dup = earlier_duplicate_first(ks, partner, what)
-            earlier_duplicate_first(rs, partner, f"{what} (plain)")
-            n_swapped = int((ks != rs).sum().item())
-            worst[mode] = (max(worst[mode][0], err), max(worst[mode][1], gap))
-            log(f"[kernel-vs-plain] {what:36s} pairs={plan.n_pairs:4d}: agree, "
-                f"max|Δd|={err:.3g}, {n_swapped} slots swapped at ties (max|Δd| there "
-                f"{gap:.3g}), {n_dup} later duplicates after their earlier copy")
-        del stores
+        # then, at d 768, the stores mutated (which writes them in place) and
+        # their chunk lists out of physical order, at list widths 32 and 64
+        for tag in ("", " mutated") if d == 768 else ("",):
+            kv, groups, set_cases = stores, copies, cases
+            if tag:
+                kv, groups = mutate_kv_stores(stores, copies, made)
+                set_cases = [(mode, k, qtiles[(ki + si) % 4], store)
+                             for ki, k in enumerate((16, 36)) for si, (mode, store) in enumerate(combos)]
+            partner = {name: scan_partner(store, groups) for name, store in kv.items()}
+            for mode, k, qtile, store_name in set_cases:
+                store = kv[store_name]
+                plan, args = scan_inputs(store, queries, order, qtile, mode)
+                kw = dict(k=k, qtile=qtile, chunk=chunk, mode=mode)
+                kd, ks = scan_kernel.scan_pairs(*args, **kw)
+                torch.cuda.synchronize()
+                rd, rs = scan_kernel.scan_pairs_reference(*args, **kw)
+                what = f"{mode} store={store_name}{tag} d={d} k={k} qtile={qtile}"
+                err, gap = compare_candidates(kd, ks, rd, rs, mode, what)
+                n_dup = earlier_duplicate_first(ks, partner[store_name], what)
+                earlier_duplicate_first(rs, partner[store_name], f"{what} (plain)")
+                n_swapped = int((ks != rs).sum().item())
+                worst[mode] = (max(worst[mode][0], err), max(worst[mode][1], gap))
+                log(f"[kernel-vs-plain] {what:44s} pairs={plan.n_pairs:4d}: agree, "
+                    f"max|Δd|={err:.3g}, {n_swapped} slots swapped at ties (max|Δd| there "
+                    f"{gap:.3g}), {n_dup} later duplicates after their earlier copy")
+        del stores, kv
         if d in (30, 102):
             continue
         for si, store_name in enumerate(("bf16", "int8")):
@@ -888,7 +981,9 @@ def visited_recall(index, store, queries, n_buckets, ids, policy, nc=256) -> flo
 
 def phase_build_path(dev, data: dict, smi: str):
     """The build path at full width: LearnedIndexBuilder → save → load →
-    packed store → search in both gather modes; then the 2-level index."""
+    packed store → search in both gather modes; then the 2-level index.
+    Returns the launches, the gather timings and the 1-level index with
+    its store, which the dynamic path takes over."""
     corpus, row_scales, queries, gt_ids = (data[k] for k in ("corpus", "row_scales", "queries",
                                                                "gt_ids"))
     nq, chunk = queries.shape[0], 2048
@@ -1000,7 +1095,7 @@ def phase_build_path(dev, data: dict, smi: str):
     wild = torch.tensor([-7, -1, 0, 5, n_slots - 1, n_slots, n_slots + 9, 2**31 - 1],
                         dtype=torch.int32, device=dev)
     timing["out of range"] = gather_vs_plain(store.chunk_data, wild, "out-of-range indices", smi)
-    del store, cand_d, cand_s, plan, sargs
+    del cand_d, cand_s, plan, sargs
     torch.cuda.empty_cache()
 
     # ---- 2 levels [10, 10], best-first in gather-kernel mode ----
@@ -1034,7 +1129,265 @@ def phase_build_path(dev, data: dict, smi: str):
     torch.cuda.empty_cache()
     launches = {k: counts[k] + counts2[k] for k in counts2}
     log(f"[build-path] total {time.perf_counter() - t_all:.1f} s")
-    return launches, timing
+    return launches, timing, (index, store)
+
+
+def synced(fn):
+    """``(fn(), seconds)`` with the device synchronized around it."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def phase_dynamic(dev, index, store, data: dict, smi: str, n_insert: int = 500_000,
+                  n_delete: int = 250_000, serve_s: float = 10.0):
+    """Mutation and serving on the flagship index the build path built (1
+    level, 120 buckets, MLP-4, the 10M×768 int8 store, taken over by
+    ``DynamicIndex(index, store)`` without a copy): insert 500,000 rows of
+    the corpus's mixture in one batch (pool chunks, growth), then 64
+    batches of 64 rows, delete 250,000 ids (half inserted, half original);
+    search 10k queries at visit 4, k=10, at the default precision and at
+    ``highest`` (gather modes in turns) against exact kNN over the visited
+    buckets of the mutated store, no deleted id returned, inserted rows
+    finding themselves; the scan kernel against its plain version on the
+    mutated plan (a chunk list out of the identity); compaction with
+    bit-identical search output; then ``SearchServer`` with 16 client
+    threads for ~10 s while a thread inserts and deletes, and one call to
+    each HTTP endpoint.  No kernel may be built anew in the phase.
+    Returns the phase's launches (the kernel-vs-plain comparison's not
+    counted) and its numbers."""
+    from learnedmetricindex_tpu_torch.serve import SearchServer, make_http_server
+
+    queries, nq, d = data["queries"], data["queries"].shape[0], store.chunk_data.shape[1]
+    t_all = time.perf_counter()
+    builds = cuda_build.BUILDS
+    dyn = lmi.DynamicIndex(index, store)
+    check(dyn.store.chunk_data is store.chunk_data, "DynamicIndex(index, store) makes no copy")
+    del store
+    n_orig, chunks0 = dyn.n_rows, dyn.store.n_chunks
+    gen = BlobGenerator(256, d, seed=2023, noise=0.45, device=dev)  # the corpus's mixture
+    gen.generator.manual_seed(2024)  # drawn anew
+    new_rows = gen.rows(n_insert)
+    small = [gen.rows(64) for _ in range(64)]
+    growth = []
+    grow = mutation._grow
+
+    def timed_grow(st, extra):
+        out, seconds = synced(lambda: grow(st, extra))
+        growth.append((extra, seconds))
+        return out
+
+    out = {}
+    reset_counts()
+    excluded = read_counts()  # launches made only to compare with the plain version
+    torch.cuda.reset_peak_memory_stats()
+    mutation._grow = timed_grow
+    try:
+        ids_big, t_big = synced(lambda: dyn.insert(new_rows))
+        t_small = [synced(lambda: dyn.insert(rows))[1] for rows in small]
+    finally:
+        mutation._grow = grow
+    ptr, clist = dyn.store.chunk_list()
+    check(dyn.store.n_chunks > chunks0 and len(growth) >= 1, "the large insert grew the store")
+    check(not np.array_equal(clist, np.arange(len(clist))), "buckets took chunks from the pool")
+    rng = np.random.default_rng(11)
+    victims = np.concatenate([rng.choice(ids_big, n_delete // 2, replace=False),
+                              rng.choice(np.arange(1, n_orig + 1), n_delete // 2, replace=False)])
+    n_del, t_del = synced(lambda: dyn.delete(victims))
+    check(n_del == n_delete and dyn.n_rows == n_orig + n_insert + 64 * 64 - n_delete,
+          f"{n_delete} deleted ({n_del}), live rows counted")
+    peak_mut = torch.cuda.max_memory_allocated()
+    out["insert_us_big"] = t_big / n_insert * 1e6
+    out["insert_us_64"] = float(np.median(t_small)) / 64 * 1e6
+    log(f"[dynamic] insert {n_insert} rows in one batch: {t_big:.3f} s = {out['insert_us_big']:.3f} "
+        f"us a row; 64 batches of 64: median {np.median(t_small) * 1e3:.3f} ms (min "
+        f"{min(t_small) * 1e3:.3f}, max {max(t_small) * 1e3:.3f}) = {out['insert_us_64']:.2f} us a "
+        f"row; growth {[(n, round(t, 4)) for n, t in growth]} (chunks, s); delete {n_delete} ids "
+        f"(half inserted, half original) {t_del:.3f} s = {t_del / n_delete * 1e6:.3f} us an id; "
+        f"chunks {chunks0} -> "
+        f"{dyn.store.n_chunks} ({len(clist)} listed), live rows {dyn.n_rows}; peak device memory "
+        f"{peak_mut / 1e9:.2f} GB  [{smi}]")
+
+    # ---- search the mutated store, gather modes in turns ----
+    results = {}
+    for prec, mode in (("default", "auto"), ("default", "kernel"), ("highest", "kernel"),
+                       ("highest", "auto")):
+        os.environ["LMI_GATHER_MODE"] = mode
+        t0 = time.perf_counter()
+        dd, ii, _ = dyn.search(queries, n_buckets=4, k=10, precision=prec)
+        seconds = time.perf_counter() - t0
+        check(dd.shape == (nq, 10) and bool(np.isfinite(dd).all()) and bool((ii > 0).all()),
+              f"mutated {prec}: finite, filled")
+        check(not np.isin(ii, victims).any(), f"mutated {prec}: no deleted id returned")
+        if prec in results:
+            check(np.array_equal(dd.view(np.uint32), results[prec][0].view(np.uint32))
+                  and np.array_equal(ii, results[prec][1]), f"mutated {prec}: modes bit-identical")
+        else:
+            results[prec] = (dd, ii)
+        log(f"[dynamic] search the mutated store, precision={prec}, LMI_GATHER_MODE={mode}: "
+            f"{seconds:.4f} s per {nq} queries")
+    os.environ["LMI_GATHER_MODE"] = "auto"
+    nc = 256
+    order, _ = index.compute_bucket_order(queries[:nc], 4, keep_on_device=True)
+    ref_d, ref_i = (t.cpu().numpy() for t in restricted_knn(dyn.store, queries[:nc], order, 10))
+    n_tied = same_neighbors(results["highest"][0][:nc], results["highest"][1][:nc], ref_d, ref_i,
+                            "mutated highest vs visited-bucket exact kNN")
+    r_def = recall(results["default"][1][:nc], ref_i, 10)
+    check(r_def >= 0.999, f"mutated default: recall {r_def} vs visited-bucket exact")
+    live_pos = np.nonzero(~np.isin(ids_big, victims))[0][:256]
+    _, self_ids, _ = dyn.search(new_rows[torch.as_tensor(live_pos, device=dev)], n_buckets=4, k=1)
+    check(np.array_equal(self_ids[:, 0], ids_big[live_pos]), "inserted rows find themselves first")
+    log(f"[check] mutated store: highest equals visited-bucket exact kNN ({nc} queries, {n_tied} "
+        f"ids differ at ties); default recall@10 {r_def:.4f}; no deleted id among "
+        f"{2 * nq} answers; 256 inserted rows find their own id first")
+    del new_rows
+
+    # ---- the scan kernel against its plain version on the mutated plan ----
+    before = read_counts()
+    order, _ = index.compute_bucket_order(queries, 4, keep_on_device=True)
+    plan, sargs = scan_inputs(dyn.store, queries, order, 128, "bf16")
+    kw = dict(k=16, qtile=128, chunk=dyn.store.chunk, mode="bf16")
+    kd, ks = scan_kernel.scan_pairs(*sargs, **kw)
+    torch.cuda.synchronize()
+    rd, rs = scan_kernel.scan_pairs_reference(*sargs, **kw)
+    err, gap = compare_candidates(kd, ks, rd, rs, "bf16", "mutated flagship bf16")
+    excluded = {k: excluded[k] + v - before[k] for k, v in read_counts().items()}
+    log(f"[kernel-vs-plain] mutated flagship plan, bf16, k_scan 16, {plan.n_pairs} pairs over "
+        f"{len(clist)} listed chunks (not the identity): agree, max|Δd|={err:.3g} (at swapped "
+        f"slots {gap:.3g})")
+    del plan, sargs, kd, ks, rd, rs
+
+    # ---- compaction: the same bits before and after ----
+    chunks_before = dyn.store.n_chunks
+    torch.cuda.reset_peak_memory_stats()
+    _, t_compact = synced(dyn.compact)
+    peak_compact = torch.cuda.max_memory_allocated()
+    for prec, (dd, ii) in results.items():
+        ad, ai, _ = dyn.search(queries, n_buckets=4, k=10, precision=prec)
+        check(np.array_equal(ad.view(np.uint32), dd.view(np.uint32)) and np.array_equal(ai, ii),
+              f"compaction: {prec} search output bit-identical")
+    check(cuda_build.BUILDS == builds, "no kernel built anew across growth and compaction")
+    out["compact_s"] = t_compact
+    log(f"[dynamic] compact: chunks {chunks_before} -> {dyn.store.n_chunks} in {t_compact:.3f} s, "
+        f"peak device memory {peak_compact / 1e9:.2f} GB; search output bit-identical at both "
+        f"precisions; nvcc builds in the phase: {cuda_build.BUILDS - builds}  [{smi}]")
+
+    # ---- what one serving dispatch costs alone: a 1,024-query search ----
+    before = read_counts()
+    q1k = queries[:1024]
+    t1k = sorted(synced(lambda: dyn.search(q1k, n_buckets=4, k=10))[1] for _ in range(3))[1]
+    order, _ = index.compute_bucket_order(q1k, 4, keep_on_device=True)
+    plan, sargs = scan_inputs(dyn.store, q1k, order, 128, "bf16")
+    scan1k = cuda_ms(lambda: scan_kernel.scan_pairs(*sargs, k=16, qtile=128,
+                                                    chunk=dyn.store.chunk, mode="bf16"), 3)
+    excluded = {k: excluded[k] + v - before[k] for k, v in read_counts().items()}
+    largest = int(np.diff(dyn.store.chunk_list()[0]).max()) * dyn.store.chunk
+    log(f"[serve] one dispatch's worth alone: a {q1k.shape[0]}-query search {t1k * 1e3:.2f} ms (median of "
+        f"3, synced), its scan kernel {scan1k:.3f} ms (CUDA events) over {plan.n_pairs} pairs, "
+        f"one block a pair; the largest bucket holds {largest} slots  [{smi}]")
+    del plan, sargs
+
+    # ---- serving: 16 clients for ~10 s while one thread mutates ----
+    server = SearchServer(dyn, k=10, n_buckets=4, max_batch=4096, max_wait_ms=2.0)
+    host_q = queries.cpu().numpy()
+    pool = gen.rows(64 * 400).cpu().numpy()
+    stop = threading.Event()
+    lat, errors, mutated = [], [], {"inserts": 0, "deletes": 0, "seen": 0}
+
+    def client(seed):
+        r = np.random.default_rng(seed)
+        try:
+            while not stop.is_set():
+                s0 = int(r.integers(0, nq - 64))
+                t0 = time.perf_counter()
+                dd, _ = server.search(host_q[s0 : s0 + 64])
+                lat.append(time.perf_counter() - t0)
+                check(dd.shape == (64, 10), "served answer shape")
+        except Exception as e:  # noqa: BLE001 — reported below
+            errors.append(e)
+
+    def mutator():
+        try:
+            for b in range(400):
+                if stop.is_set():
+                    break
+                rows = pool[b * 64 : (b + 1) * 64]
+                ids = server.insert(rows)
+                mutated["inserts"] += 64
+                _, got = server.search(rows[:4], k=1)  # submitted after the insert returned
+                check(np.array_equal(got[:, 0], ids[:4]), "a search after an insert sees it")
+                mutated["seen"] += 4
+                mutated["deletes"] += server.delete(ids[::2])
+        except Exception as e:  # noqa: BLE001 — reported below
+            errors.append(e)
+
+    threads = [threading.Thread(target=client, args=(i,)) for i in range(16)]
+    threads.append(threading.Thread(target=mutator))
+    st0 = server.stats()
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    time.sleep(serve_s)
+    stop.set()
+    for t in threads:
+        t.join(120)
+    elapsed = time.perf_counter() - t0
+    st = server.stats()
+    check(not errors, f"serving: {errors[:3]}")
+    check(st["errors"] == 0 and st["engine"] == "cuda", f"serving stats {st['errors']}, {st['engine']}")
+    n_req, n_batch = st["requests"] - st0["requests"], st["batches"] - st0["batches"]
+    lat_ms = np.sort(np.asarray(lat)) * 1e3
+    out.update(p50_ms=float(np.percentile(lat_ms, 50)), p95_ms=float(np.percentile(lat_ms, 95)),
+               qps=len(lat) * 64 / elapsed)
+    log(f"[serve] SearchServer(DynamicIndex), max_batch 4096, max_wait_ms 2: 16 clients x 64 "
+        f"queries for {elapsed:.1f} s while a thread inserted {mutated['inserts']} rows in 64s and "
+        f"deleted {mutated['deletes']}: {len(lat)} requests, request latency p50 "
+        f"{out['p50_ms']:.2f} ms, p95 {out['p95_ms']:.2f} ms, max {lat_ms[-1]:.2f} ms; "
+        f"{out['qps']:.0f} QPS; {n_batch} batches for {n_req} requests (median batch "
+        f"{st['batch_queries']['p50']:.0f} queries); each insert seen by the search after it; "
+        f"engine {st['engine']}, {st['scan_launches']} scan launches  [{smi}]")
+
+    # ---- the HTTP front end: one call to each endpoint ----
+    httpd = make_http_server(server, "127.0.0.1", 0)
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    base = f"http://127.0.0.1:{httpd.server_address[1]}"
+
+    def call(path, body=None):
+        req = urllib.request.Request(base + path, data=None if body is None else
+                                     json.dumps(body).encode(),
+                                     headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=300) as r:
+            check(r.status == 200, f"{path}: HTTP {r.status}")
+            return json.loads(r.read())
+
+    try:
+        os.environ["LMI_GATHER_MODE"] = "kernel"
+        check(call("/healthz") == {"status": "ok"}, "/healthz")
+        rows = pool[-2:]
+        new = call("/insert", {"vectors": rows.tolist()})["ids"]
+        found = call("/search", {"queries": rows.tolist(), "k": 10})
+        check([r[0] for r in found["ids"]] == new, "/search finds the rows /insert added")
+        check(call("/delete", {"ids": new}) == {"deleted": 2}, "/delete")
+        rep = call("/compact", {})
+        check(rep["chunks_after"] <= rep["chunks_before"], "/compact")
+        stats = call("/stats")
+        check(stats["mutable"] and stats["engine"] == "cuda", "/stats")
+    finally:
+        os.environ["LMI_GATHER_MODE"] = "auto"
+        httpd.shutdown()
+        httpd.server_close()
+        server.close()
+    log(f"[serve] HTTP on an ephemeral port: /healthz, /insert, /search, /delete, /compact "
+        f"(chunks {rep['chunks_before']} -> {rep['chunks_after']}), /stats all answered")
+    launches = {k: v - excluded[k] for k, v in read_counts().items()}
+    check(launches["scan_pairs"] > 0 and launches["gather_pairs"] > 0,
+          f"the dynamic path launched the scan and the merge gather: {launches}")
+    log(f"[dynamic] total {time.perf_counter() - t_all:.1f} s; launches {launches}")
+    del dyn, server
+    torch.cuda.empty_cache()
+    return launches, out
 
 
 def main() -> None:
@@ -1048,7 +1401,9 @@ def main() -> None:
     small = phase_kernel_vs_plain(dev)
     data = make_corpus(dev, args.rows, 10_000, 120)
     main_launches, timing = phase_main(dev, data, smi)
-    build_launches, gather_timing = phase_build_path(dev, data, smi)
+    build_launches, gather_timing, (index, store) = phase_build_path(dev, data, smi)
+    dyn_launches, _ = phase_dynamic(dev, index, store, data, smi)
+    del index, store
     rows = []
     for name, source, replaces, t, errs in (
         ("scan_pairs", KERNEL_SOURCE, REPLACES, timing["bf16"],
@@ -1058,7 +1413,7 @@ def main() -> None:
          [t["err"] for t in gather_timing.values()]),
     ):
         rows.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                     "launches": main_launches[name] + build_launches[name],
+                     "launches": main_launches[name] + build_launches[name] + dyn_launches[name],
                      "max_abs_err": max(errs), "ms": t["ms"], "plain_ms": t["plain_ms"],
                      "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
                      "library_ms": t["library_ms"]})

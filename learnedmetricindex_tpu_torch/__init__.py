@@ -1,4 +1,4 @@
-"""Learned Metric Index, PyTorch + CUDA port (build and search).
+"""Learned Metric Index, PyTorch + CUDA port (build, search, mutation, serving).
 
 The same index as :mod:`learnedmetricindex_tpu`, built and served from
 PyTorch on an NVIDIA GPU.  ``LearnedIndexBuilder`` clusters each tree
@@ -9,7 +9,11 @@ the visited buckets with a hand-written CUDA kernel
 resolves the 1-based ids.  ``LMI_GATHER_MODE=kernel`` moves the merge's
 candidate gather onto a second hand kernel (``csrc/gather_rows.cu``).
 An index saved by either package (``save_index``, ``.npz``) loads in
-the other.
+the other.  ``DynamicIndex`` takes inserts, deletes and compactions on a
+built index (``save``/``load`` checkpoints cross between the packages
+too), and ``serve.SearchServer`` micro-batches concurrent requests over
+it, with a JSON-over-HTTP front end (``python -m
+learnedmetricindex_tpu_torch.serve``).
 
 Devices are explicit: every entry point that creates tensors takes a
 ``device`` and nothing picks one.  Asking for ``cuda`` on a machine
@@ -28,6 +32,7 @@ from __future__ import annotations
 from learnedmetricindex_tpu_torch.config import BuildConfiguration
 from learnedmetricindex_tpu_torch.index.builder import LearnedIndexBuilder
 from learnedmetricindex_tpu_torch.index.index import LearnedIndex
+from learnedmetricindex_tpu_torch.index.mutation import DynamicIndex
 from learnedmetricindex_tpu_torch.index.serialization import (
     load_index,
     save_index,
@@ -37,6 +42,7 @@ __version__ = "0.1.0"
 
 __all__ = [
     "BuildConfiguration",
+    "DynamicIndex",
     "LearnedIndex",
     "LearnedIndexBuilder",
     "load_index",

@@ -1,2 +1,3 @@
 """Index layer of the port: navigation, the bucket store and scan path,
-the ``LearnedIndex`` and its ``.npz`` serialization."""
+the ``LearnedIndex``, its mutation (``DynamicIndex``) and its ``.npz``
+serialization."""

@@ -6,6 +6,11 @@ flat ``chunk_data (n_chunks·chunk, d)`` with 1-based object ids
 ``chunk_ids (n_chunks, chunk)`` (0 = padding slot).  Bucket ``b`` owns
 chunks ``bucket_chunk_start[b]:bucket_chunk_start[b+1]``; only a
 bucket's last chunk is padded.  Padding slots hold zeros and scale 0.
+A mutated store (``index/mutation.py``) carries a per-bucket *chunk
+list* instead: bucket ``b`` owns the physical chunks
+``bucket_chunk_list[bucket_chunk_ptr[b]:bucket_chunk_ptr[b+1]]``, in
+scan order, which need not be contiguous or ascending; chunks no list
+names are the free pool (:meth:`BucketStore.chunk_list`).
 
 **Scan** (:func:`scan_buckets_device`), for one batch of queries and
 their (Q, V) bucket visit order:
@@ -60,6 +65,12 @@ class BucketStore(NamedTuple):
     chunk_data: torch.Tensor  # (n_chunks·chunk, d) f32 / bf16 / int8
     chunk_scales: Optional[torch.Tensor] = None  # (n_chunks·chunk,) f32, int8 stores
     row_slot: Optional[torch.Tensor] = None  # (n,) int32: object id-1 → slot
+    # mutation bookkeeping (index/mutation.py), None on fresh builds: the
+    # per-bucket chunk list in scan order and each bucket's high-water
+    # row count within it (inserts append there; deletes leave holes)
+    bucket_chunk_ptr: Optional[np.ndarray] = None  # (n_buckets + 1,) int64 list CSR
+    bucket_chunk_list: Optional[np.ndarray] = None  # (n_assigned,) int32 physical chunks
+    bucket_fill: Optional[np.ndarray] = None  # (n_buckets,) int32
 
     @property
     def n_chunks(self) -> int:
@@ -74,6 +85,28 @@ class BucketStore(NamedTuple):
             self.chunk_data.numel() * self.chunk_data.element_size()
             + self.chunk_ids.numel() * 4
         )
+
+    def chunk_list(self) -> Tuple[np.ndarray, np.ndarray]:
+        """``(ptr (n_buckets + 1,) int64, list int32)``: bucket ``b`` scans
+        the physical chunks ``list[ptr[b]:ptr[b+1]]`` in that order.  A
+        fresh store's list is the identity over its contiguous CSR."""
+        if self.bucket_chunk_list is not None:
+            return self.bucket_chunk_ptr.astype(np.int64), self.bucket_chunk_list
+        ptr = self.bucket_chunk_start.astype(np.int64)
+        return ptr, np.arange(int(ptr[-1]), dtype=np.int32)
+
+    def chunk_owner(self) -> Tuple[np.ndarray, np.ndarray]:
+        """``(bucket, position)`` of every physical chunk, int64: the bucket
+        whose list holds it and its place in that list (scan order); -1
+        and 0 for a chunk of the free pool.  The scan position of slot
+        ``s`` is ``position[s // chunk] * chunk + s % chunk``."""
+        ptr, clist = self.chunk_list()
+        entry_bucket = np.repeat(np.arange(self.n_buckets, dtype=np.int64), np.diff(ptr))
+        bucket = np.full(self.n_chunks, -1, np.int64)
+        bucket[clist] = entry_bucket
+        position = np.zeros(self.n_chunks, np.int64)
+        position[clist] = np.arange(len(clist), dtype=np.int64) - ptr[entry_bucket]
+        return bucket, position
 
     def scales_flat(self) -> torch.Tensor:
         """(n_slots,) f32 dequant scale per slot; 0.0 marks padding."""
@@ -284,7 +317,10 @@ def scan_inputs(
 
     The scan reads each padded slot's query row through ``qidx``; no
     work-query rows are materialized (the JAX package gathers them only
-    because a Pallas ``BlockSpec`` needs a dense tile).  ``int8``
+    because a Pallas ``BlockSpec`` needs a dense tile).  Each bucket's
+    chunks come from :meth:`BucketStore.chunk_list` (``ptr`` and
+    ``chunk_of``), as the JAX package's ``scan_buckets_device`` reads
+    them.  ``int8``
     quantizes the Q query rows once: per-row quantization commutes with
     the per-slot gather, so the bits are those of gather-then-quantize."""
     device = store.device
@@ -292,10 +328,13 @@ def scan_inputs(
     qscales = None
     if mode == "int8":
         queries, qscales = quantize.quantize_rows(queries)
+    ptr, chunk_of = store.chunk_list()
+    if store.bucket_chunk_list is None:  # the identity, made where it is read
+        chunk_of = torch.arange(len(chunk_of), dtype=torch.int32, device=device)
     args = (
         queries, plan.qidx, plan.pair_bucket,
-        torch.as_tensor(store.bucket_chunk_start, dtype=torch.int32, device=device),
-        torch.arange(store.n_chunks, dtype=torch.int32, device=device),
+        torch.as_tensor(ptr.astype(np.int32), device=device),
+        torch.as_tensor(chunk_of, dtype=torch.int32, device=device),
         store.chunk_data, store.scales_flat(), qscales,
     )
     return plan, args

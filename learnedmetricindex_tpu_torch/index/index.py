@@ -37,6 +37,7 @@ from learnedmetricindex_tpu_torch.index.navigation import (
 from learnedmetricindex_tpu_torch.models.mlp import StackedMLP
 
 NEG_INF = -1e9
+CLASSIFY_ROWS = 1 << 16  # rows a slice of LearnedIndex.classify
 
 
 def resolve_device(device) -> torch.device:
@@ -151,6 +152,34 @@ class LearnedIndex:
     # ------------------------------------------------------------------
     # bucket stores
     # ------------------------------------------------------------------
+    def classify(self, vectors) -> np.ndarray:
+        """Each row's full tree path, ``(n, n_levels)`` int64: per level the
+        argmax of its node's masked probabilities, the node being the one
+        the previous levels chose (model index = raveled path prefix, the
+        builder's convention).  These are the rows' ``data_prediction``
+        entries had they been present at build time; ``DynamicIndex``
+        routes inserts with them.  Rows go through in slices of
+        ``CLASSIFY_ROWS`` (rows are independent), which bounds the (rows,
+        models, classes) probabilities a level holds."""
+        q = _as_tensor(vectors, self.device)
+        cats = tuple(self.config.n_categories)
+        out = []
+        with torch.no_grad():
+            for s0 in range(0, q.shape[0], CLASSIFY_ROWS):
+                x = q[s0 : s0 + CLASSIFY_ROWS]
+                rows = torch.arange(x.shape[0], device=self.device)
+                model = torch.zeros(x.shape[0], dtype=torch.int64, device=self.device)
+                preds = []
+                for lv, c in zip(self.levels, cats):
+                    own = _masked_level_probs(lv.mlp, lv.class_mask, x)[rows, model]  # (n, C)
+                    pred = torch.argmax(own, dim=-1)
+                    preds.append(pred)
+                    model = model * c + pred
+                out.append(torch.stack(preds, dim=1))
+        if not out:
+            return np.zeros((0, self.n_levels), np.int64)
+        return torch.cat(out).cpu().numpy().astype(np.int64)
+
     def bucket_ids_from_prediction(self, data_prediction: np.ndarray) -> np.ndarray:
         """Dense global bucket id per data row (row-major over the path)."""
         return native.ravel_rows(np.asarray(data_prediction), tuple(self.config.n_categories))

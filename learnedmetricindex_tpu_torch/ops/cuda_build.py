@@ -26,6 +26,11 @@ NVCC_FLAGS = [
 
 _loaded: Dict[Path, ctypes.CDLL] = {}  # source → loaded library
 
+#: nvcc processes started by :func:`build_many` in this process: a kernel
+#: takes every size (rows, chunks, queries) at run time, so growing or
+#: compacting a store must leave this unchanged
+BUILDS = 0
+
 
 def _nvcc() -> str:
     cuda_home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
@@ -54,6 +59,8 @@ def build_many(sources: Sequence[Path]) -> List[Tuple[Path, float]]:
             jobs.append((src, lib, None, None, 0.0))
             continue
         tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+        global BUILDS
+        BUILDS += 1
         proc = subprocess.Popen(
             [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,

@@ -98,8 +98,9 @@ def restricted_knn(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Exact kNN of each query over only the buckets it visits (rows of
     ``bucket_order``, -1 = none), in f32 over the dequantized packed
-    ``store`` (an ``index.bucket_store.BucketStore``): the ceiling a
-    bucket scan must reach.  Returns ``(dists (Q, k) f32, ids (Q, k)
+    ``store`` (an ``index.bucket_store.BucketStore``, its chunks mapped to
+    buckets through its chunk list): the ceiling a bucket scan must
+    reach.  Ties go to the lower slot.  Returns ``(dists (Q, k) f32, ids (Q, k)
     int32 1-based, 0 = none)`` on the store's device."""
     device = store.device
     q = queries.to(device=device, dtype=torch.float32)
@@ -108,7 +109,9 @@ def restricted_knn(
     visited = torch.zeros((n_q, nb + 1), dtype=torch.bool, device=device)
     visited.scatter_(1, torch.where(order >= 0, order, nb), True)
     visited = visited[:, :nb]
-    ptr = torch.as_tensor(store.bucket_chunk_start, dtype=torch.int64, device=device)
+    # each physical chunk's bucket through the store's chunk list (-1:
+    # free pool), so chunks a mutated store took from its pool count
+    chunk_bucket = torch.as_tensor(store.chunk_owner()[0], device=device)
     scales = store.scales_flat()
     best_d = torch.full((n_q, k), torch.inf, device=device)
     best_s = torch.full((n_q, k), -1, dtype=torch.int64, device=device)
@@ -116,8 +119,8 @@ def restricted_knn(
         sc = scales[s0 : s0 + slab_rows]
         x = store.chunk_data[s0 : s0 + slab_rows].float() * sc[:, None]
         slot = torch.arange(s0, s0 + x.shape[0], device=device)
-        bucket = torch.searchsorted(ptr, slot // store.chunk, right=True) - 1
-        ok = visited[:, bucket] & (sc != 0.0)[None, :]
+        bucket = chunk_bucket[slot // store.chunk]
+        ok = visited[:, bucket.clamp_min(0)] & ((sc != 0.0) & (bucket >= 0))[None, :]
         dist = torch.where(ok, 1.0 - q @ x.T, torch.inf)
         vals, pos = smallest_k(dist, min(k, dist.shape[1]))
         cat_d = torch.cat([best_d, vals], 1)

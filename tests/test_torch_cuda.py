@@ -1,5 +1,7 @@
 """The CUDA kernels (bucket scan, row gather) against their plain
-PyTorch versions, and the port's search and build on the GPU.
+PyTorch versions, also over mutated stores whose chunk lists are out of
+physical order, and the port's search, build and dynamic checkpoints on
+the GPU.
 
 These need an NVIDIA GPU (sm_90a) and nvcc and skip elsewhere.  The file
 imports no jax, so on a machine with a GPU and no jax it runs alone:
@@ -12,9 +14,10 @@ import pytest
 import torch
 
 from learnedmetricindex_tpu_torch.index.bucket_store import BucketStore, build_plan, scan_inputs
+from learnedmetricindex_tpu_torch.index import mutation
 from learnedmetricindex_tpu_torch.index.serialization import index_from_arrays
 import learnedmetricindex_tpu_torch as lmi
-from learnedmetricindex_tpu_torch.ops import gather_kernel, quantize, scan_kernel
+from learnedmetricindex_tpu_torch.ops import cuda_build, gather_kernel, quantize, scan_kernel
 
 torch.set_num_threads(2)
 pytestmark = pytest.mark.cuda
@@ -343,3 +346,148 @@ def test_builds_and_searches_on_gpu(cuda):
     order, _ = index.compute_bucket_order(q, 3, keep_on_device=True)
     _, ref = restricted_knn(store, q, order, 10)
     assert recall(ids, ref.cpu().numpy(), 10) >= 0.999
+
+
+def _shuffled(store, seed):
+    """The same store with its chunks at other physical places (each
+    bucket's list names them in the old scan order), so lists are out of
+    physical order and some later rows of a bucket sit at lower slots."""
+    dev = store.device
+    perm = torch.as_tensor(np.random.default_rng(seed).permutation(store.n_chunks), device=dev)
+    inv = torch.argsort(perm)  # new physical chunk → old
+    slots = (inv[:, None] * store.chunk + torch.arange(store.chunk, device=dev)).reshape(-1)
+    ptr, clist = store.chunk_list()
+    return store._replace(
+        chunk_data=store.chunk_data[slots], chunk_ids=store.chunk_ids[inv],
+        chunk_scales=None if store.chunk_scales is None else store.chunk_scales[slots],
+        row_slot=(perm[store.row_slot.long() // store.chunk] * store.chunk
+                  + store.row_slot % store.chunk).int(),
+        bucket_chunk_ptr=ptr, bucket_chunk_list=perm.cpu().numpy()[clist].astype(np.int32),
+        bucket_fill=store.bucket_fill,
+    )
+
+
+def _mutated_store(dev, d, store_dtype, seed):
+    """A 6-bucket store (chunk 96, one bucket empty) after inserts that
+    take pool chunks and grow it (40 exact copies of rows 0..39 in their
+    own buckets, 700 new rows), 150 deletes of other rows, then its chunks
+    shuffled.  Returns (store, 160 queries: the copied rows first, each
+    visiting its bucket first, their (160, 3) visits, the copies' ids,
+    the copied rows' ids)."""
+    data, rng = _corpus(3000, d, seed=seed)
+    nb, chunk = 6, 96
+    bucket_ids = rng.integers(0, nb, 3000)
+    bucket_ids[bucket_ids == 2] = 3
+    if store_dtype == "int8":
+        store = BucketStore.build_packed_int8(data, bucket_ids, nb, chunk=chunk, device=dev)
+    else:
+        store = BucketStore.build(data, bucket_ids, nb, chunk=chunk, dtype=store_dtype, device=dev)
+    n0 = store.n_chunks
+    src = np.arange(40)
+    store = mutation.insert_rows(store, data[src], bucket_ids[src], np.arange(3001, 3041))
+    more, _ = _corpus(700, d, seed=seed + 1)
+    store = mutation.insert_rows(store, more, rng.integers(0, nb, 700), np.arange(3041, 3741))
+    store, n_del = mutation.delete_ids(store, rng.choice(np.r_[100:3000, 3041:3741], 150,
+                                                         replace=False))
+    assert store.n_chunks > n0 and n_del == 150
+    store = _shuffled(store, seed)
+    queries = torch.as_tensor(np.concatenate([data[src], data[200:320] + 0.05]), device=dev)
+    order = np.stack([rng.choice(nb, 3, replace=False) for _ in range(160)])
+    for i in src:
+        order[i] = [bucket_ids[i]] + [b for b in rng.permutation(nb) if b != bucket_ids[i]][:2]
+    order = torch.as_tensor(order, device=dev)
+    order[-10:, 2] = -1
+    return store, queries, order, np.arange(3001, 3041), src + 1
+
+
+@pytest.mark.parametrize("mode,store_dtype", [
+    ("bf16", "float32"), ("bf16", "bfloat16"), ("bf16", "int8"), ("int8", "int8"),
+    ("f32", "float32"), ("f32", "bfloat16"), ("f32", "int8")])
+@pytest.mark.parametrize("k,qtile", [(16, 128), (36, 8)])  # list widths 32 and 64
+def test_kernel_matches_plain_version_on_mutated_stores(cuda, mode, store_dtype, k, qtile):
+    """A store after inserts (pool chunks, growth) and deletes, its chunk
+    lists out of physical order: the kernel's candidates equal the plain
+    version's (int8 bit-equal), and each exact copy of a row is listed
+    after the row itself, the earlier in the bucket's scan order, even
+    where the copy sits at the lower slot."""
+    store, queries, order, copy_ids, orig_ids = _mutated_store(cuda, 768, store_dtype, seed=k)
+    ptr, clist = store.chunk_list()
+    assert any((np.diff(clist[a:b]) < 0).any() for a, b in zip(ptr[:-1], ptr[1:]))
+    _, args = scan_inputs(store, queries, order, qtile, mode)
+    kw = dict(k=k, qtile=qtile, chunk=store.chunk, mode=mode)
+    before = scan_kernel.LAUNCHES
+    kd, ks = scan_kernel.scan_pairs(*args, **kw)
+    torch.cuda.synchronize()
+    assert scan_kernel.LAUNCHES == before + 1
+    rd, rs = scan_kernel.scan_pairs_reference(*args, **kw)
+    kd, ks, rd, rs = (t.cpu().numpy() for t in (kd, ks, rd, rs))
+    np.testing.assert_array_equal(np.isinf(kd), np.isinf(rd))
+    if mode == "int8":
+        np.testing.assert_array_equal(kd.view(np.uint32), rd.view(np.uint32))
+        np.testing.assert_array_equal(ks, rs)
+    else:
+        np.testing.assert_allclose(kd, rd, rtol=1e-4, atol=1e-5)
+        mism = ks != rs
+        np.testing.assert_allclose(kd[mism], rd[mism], rtol=1e-6, atol=5e-6)
+    # partner[later copy] = earlier copy, "earlier" by scan position
+    _, position = store.chunk_owner()
+    row_slot = store.row_slot.cpu().numpy()
+    a, b = row_slot[orig_ids - 1].astype(np.int64), row_slot[copy_ids - 1].astype(np.int64)
+    pos = lambda s: position[s // store.chunk] * store.chunk + s % store.chunk  # noqa: E731
+    assert (pos(a) < pos(b)).all() and (a > b).any()
+    partner = np.full(store.chunk_data.shape[0], -1)
+    partner[b] = a
+    for slots in (ks, rs):
+        lists = slots.reshape(-1, k)
+        earlier = np.where(lists >= 0, partner[np.maximum(lists, 0)], -1)
+        rows, cols = np.nonzero(earlier >= 0)
+        assert len(rows) > 0
+        for r, j in zip(rows, cols):
+            assert (lists[r, :j] == earlier[r, j]).any(), (r, j)
+
+
+def test_dynamic_index_on_gpu(cuda, tmp_path):
+    """A DynamicIndex on the card: inserts that grow the store, deletes,
+    a checkpoint that loads on the card and on the CPU, and a compaction,
+    with search output equal throughout and no kernel built anew."""
+    data, rng = _corpus(4000, 64, seed=21)
+    nb = 8
+    params = [{"w": rng.normal(size=(1, 64, 32)).astype(np.float32),
+               "b": np.zeros((1, 32), np.float32)},
+              {"w": rng.normal(size=(1, 32, nb)).astype(np.float32),
+               "b": np.zeros((1, nb), np.float32)}]
+    cfg = lmi.BuildConfiguration("kmeans", 1, "MLP-6", 0.01, [nb], chunk_size=128)
+    index = index_from_arrays(cfg, [params], [np.ones((1, nb), bool)], ["MLP-6"],
+                              np.ones(nb, bool), cuda)
+    pred = index.classify(data)
+    dyn = lmi.DynamicIndex.from_built(index, torch.as_tensor(data, device=cuda), pred,
+                                      dtype="int8")
+    queries = data[:300] + 0.02
+    builds = cuda_build.BUILDS
+    dyn.search(queries[:2], n_buckets=3)  # the kernel's library, built or loaded
+    builds = cuda_build.BUILDS
+    n0 = dyn.store.n_chunks
+    more, _ = _corpus(3000, 64, seed=22)
+    ids = dyn.insert(torch.as_tensor(more, device=cuda))
+    assert dyn.store.n_chunks > n0
+    assert dyn.delete(np.concatenate([ids[::2], np.arange(1, 400)])) == 1500 + 399
+    out = {}
+    for precision in ("default", "highest"):
+        out[precision] = dyn.search(queries, n_buckets=3, k=10, precision=precision)[:2]
+        assert not np.isin(out[precision][1], np.arange(1, 400)).any()
+    _, self_ids, _ = dyn.search(more[1:200:2], n_buckets=3, k=1, precision="highest")
+    np.testing.assert_array_equal(self_ids[:, 0], ids[1:200:2])
+    dyn.save(str(tmp_path / "dyn.ckpt"))
+    back = lmi.DynamicIndex.load(str(tmp_path / "dyn.ckpt"), cuda)
+    cpu = lmi.DynamicIndex.load(str(tmp_path / "dyn.ckpt"), "cpu")
+    dyn.compact()
+    for precision, (d0, i0) in out.items():
+        for other in (back, dyn):
+            d1, i1, _ = other.search(queries, n_buckets=3, k=10, precision=precision)
+            np.testing.assert_array_equal(i1, i0)
+            np.testing.assert_array_equal(d1.view(np.uint32), d0.view(np.uint32))
+        dc, ic, _ = cpu.search(queries, n_buckets=3, k=10, precision=precision)
+        np.testing.assert_allclose(dc, d0, rtol=1e-4, atol=1e-5)
+        mism = ic != i0
+        np.testing.assert_allclose(dc[mism], d0[mism], rtol=1e-6, atol=4e-7)
+    assert cuda_build.BUILDS == builds  # growth and compaction build nothing

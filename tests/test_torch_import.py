@@ -35,8 +35,10 @@ MODULES = [
     "learnedmetricindex_tpu_torch.index.bucket_store",
     "learnedmetricindex_tpu_torch.index.builder",
     "learnedmetricindex_tpu_torch.index.index",
+    "learnedmetricindex_tpu_torch.index.mutation",
     "learnedmetricindex_tpu_torch.index.navigation",
     "learnedmetricindex_tpu_torch.index.serialization",
+    "learnedmetricindex_tpu_torch.serve",
 ]
 
 
@@ -80,6 +82,14 @@ index.save({str(tmp_path / 'i.npz')!r}, pred)
 index, pred = lmi.LearnedIndex.load({str(tmp_path / 'i.npz')!r}, "cpu")
 d, i, t = index.search(None, data[:5], data, data[:5], pred, n_buckets=4, k=3, precision="highest")
 assert (i[:, 0] == np.arange(1, 6)).all(), i
+dyn = lmi.DynamicIndex.from_built(index, data, pred, dtype="int8")
+ids = dyn.insert(-data[:40])
+assert dyn.delete(ids[:20]) == 20
+dyn.compact()
+dyn.save({str(tmp_path / 'd.ckpt')!r})
+dyn = lmi.DynamicIndex.load({str(tmp_path / 'd.ckpt')!r}, "cpu")
+d, i, t = dyn.search(-data[20:25], n_buckets=4, k=1)
+assert (i[:, 0] == ids[20:25]).all(), i
 """ + _NOTHING_LOADED
 
 
@@ -105,7 +115,8 @@ WITHOUT_THE_JAX_PACKAGE = ("jax", "learnedmetricindex_tpu")
 
 def test_imports_and_searches_without_jax(tmp_path):
     """Every module imports with jax unimportable, and a tiny index saves,
-    loads and searches on the CPU."""
+    loads and searches on the CPU, then takes inserts, deletes and a
+    compaction as a DynamicIndex through a checkpoint."""
     proc = _run_without(_search_body(tmp_path))
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip().endswith("ok")
@@ -180,8 +191,8 @@ def test_exports():
     """The public names, and importing the port leaves the caller's TF32
     flags as it found them (the exact stages scope full f32 to their own
     calls: ops/precision.py)."""
-    assert set(lmi.__all__) >= {"BuildConfiguration", "LearnedIndex", "LearnedIndexBuilder",
-                                "load_index", "save_index"}
+    assert set(lmi.__all__) >= {"BuildConfiguration", "DynamicIndex", "LearnedIndex",
+                                "LearnedIndexBuilder", "load_index", "save_index"}
     for matmul, cudnn in ((True, False), (False, True)):
         proc = _run_without(f"""
 import torch
