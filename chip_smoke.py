@@ -54,7 +54,17 @@ phases:
    on the mutated plan; compaction with bit-identical search output and
    no kernel built anew; ``SearchServer`` with 16 clients of 64 queries
    for ~10 s while a thread inserts and deletes (latency p50/p95, QPS,
-   batches against requests); one call to each HTTP endpoint.
+   batches against requests); one call to each HTTP endpoint;
+8. experiment driver: the flagship index and corpus freed, the CLI
+   (``cli.sweep``, and the result files where h5py imports) at
+   ``--synthetic 1000000 --synthetic-dim 768``, 120 buckets, MLP-4, 4
+   epochs, batch 1024, chunk 2048, ``-b 1 2 4 8 120``, at its default f32
+   store (the scan's bf16 body over f32 rows), then ``--index-type
+   baseline`` at the same flags as the ground truth: each visit count
+   exact over its visited buckets, recall not falling as visits rise and
+   ≥ 0.999 at every bucket; one search under ``utils/profiling.
+   device_trace``, its eight longest device operations and the device's
+   busy share of the search.
 
 Each path runs with the launch counts set to 0 just before it and read
 just after.  Any failure raises (exit code 1).  Without CUDA it exits
@@ -66,6 +76,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import logging
 import os
 import shutil
 import subprocess
@@ -1390,6 +1401,209 @@ def phase_dynamic(dev, index, store, data: dict, smi: str, n_insert: int = 500_0
     return launches, out
 
 
+# the experiment driver's run (phase_cli): the reference's flagship query
+# configuration on a 1M×768 corpus the CLI draws itself (10,000 queries),
+# at the CLI's default f32 store, float32 dtype and best-first policy
+CLI_ARGV = ["--synthetic", "1000000", "--synthetic-dim", "768", "--n-categories", "120",
+            "--epochs", "4", "--model-type", "MLP-4", "--batch-size", "1024", "--lr", "0.01",
+            "--chunk-size", "2048", "-b", "1", "2", "4", "8", "120", "--device", "cuda"]
+CLI_TRACE_VISIT = 4
+
+
+class RecordedArgs(logging.Handler):
+    """Keeps the arguments of the log records whose message is ``msg``."""
+
+    def __init__(self, msg: str):
+        super().__init__()
+        self.msg, self.args = msg, []
+
+    def emit(self, record):
+        if record.msg == self.msg:
+            self.args.append(record.args)
+
+
+def trace_split(path: str, window: str, top: int = 8):
+    """From a Chrome trace of ``device_trace``: the CPU span of the
+    annotation ``window``, the device's busy share of it (the union of
+    kernel, copy and set intervals inside it), and the ``top`` device
+    operations by total time inside it, as ``(name, ms, count)``."""
+    from learnedmetricindex_tpu_torch.utils.profiling import device_events
+
+    with open(path) as f:
+        spans = [e for e in json.load(f)["traceEvents"]
+                 if e.get("cat") == "user_annotation" and e.get("name") == window]
+    check(len(spans) == 1, f"trace: one {window!r} span, found {len(spans)}")
+    w0, w1 = spans[0]["ts"], spans[0]["ts"] + spans[0]["dur"]
+    per_name, intervals = {}, []
+    for e in device_events(path):
+        a, b = max(e["ts"], w0), min(e["ts"] + e["dur"], w1)
+        if b <= a:
+            continue
+        intervals.append((a, b))
+        ms, n = per_name.get(e["name"], (0.0, 0))
+        per_name[e["name"]] = (ms + (b - a) / 1e3, n + 1)
+    busy, end = 0.0, w0
+    for a, b in sorted(intervals):
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    ranked = sorted(per_name.items(), key=lambda kv: -kv[1][0])[:top]
+    return (w1 - w0) / 1e3, busy / (w1 - w0), [(n, ms, c) for n, (ms, c) in ranked]
+
+
+def phase_cli(dev, smi: str, argv=CLI_ARGV):
+    """The experiment driver, ``learnedmetricindex_tpu_torch.cli``, at
+    ``argv`` in ``build/chip_smoke/cli``: ``cli.sweep`` (data, build, one
+    search a visit count; the result files too where h5py imports), then
+    ``--index-type baseline`` at the same flags, the ground truth.  Each
+    visit count's ids equal exact kNN over its visited buckets (256
+    queries), recall against the baseline does not fall as visits rise
+    and is ≥ 0.999 visiting every bucket; one search at visit 4 under
+    ``utils/profiling.device_trace``; then that scan alone, the kernel
+    against its plain version, the library call and the bound.  Returns
+    the path's launches and the scan's numbers."""
+    import importlib.util
+
+    from learnedmetricindex_tpu_torch import cli
+    from learnedmetricindex_tpu_torch import eval as lmi_eval
+    from learnedmetricindex_tpu_torch.utils.profiling import annotate, device_trace
+
+    work = WORK_DIR / "cli"
+    work.mkdir(parents=True, exist_ok=True)
+    home = os.getcwd()
+    os.chdir(work)  # the CLI writes models/ and its --out-dir relative to here
+    try:
+        t_all = time.perf_counter()
+        args = cli.parse_args(argv)
+        kw = cli.sweep_arguments(args)
+        log(f"[cli] python -m learnedmetricindex_tpu_torch.cli {' '.join(argv)}  (default "
+            f"--dtype {args.dtype}, --policy {args.policy}, --k {args.k}, --chunk-size "
+            f"{args.chunk_size})")
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        result = cli.sweep(**kw)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        index, store = result.index, result.store
+        n_rows = int(result.data_prediction.shape[0])
+        nq = result.queries.shape[0]
+        check(counts["scan_pairs"] >= len(result.searches) and counts["gather_pairs"] == 0
+              and counts["gather_rows"] == 0,
+              f"the sweep launched the scan once a visit count and no gather: {counts}")
+        check(store.chunk_data.dtype == torch.float32 and store.chunk_data.device == dev,
+              f"the CLI's default store is f32 on the card: {store.chunk_data.dtype}")
+        log(f"[cli] host data: {n_rows}x{store.chunk_data.shape[1]} + {nq} queries drawn "
+            f"(synthetic_blobs, float64 draws) in {result.data_t:.1f} s; build "
+            f"{result.build_t:.1f} s (cluster {result.cluster_t:.1f} s, train "
+            f"{result.build_t - result.cluster_t:.1f} s), {index.n_buckets} buckets; f32 store "
+            f"{store.nbytes() / 1e9:.2f} GB  [{smi}]")
+        if importlib.util.find_spec("h5py") is None:
+            paths = None
+            log("[cli] h5py is absent here: cli.sweep ran without the result files "
+                "(cli.write_results needs h5py); no result file was written")
+        else:
+            paths = cli.write_results(result, args.size, args.out_dir)
+            log(f"[cli] wrote {len(paths)} SISAP result files under {work / args.out_dir}")
+
+        # ---- the ground truth: --index-type baseline at the same flags ----
+        recorded = RecordedArgs("Search time: %s")
+        cli.LOG.addHandler(recorded)
+        cli.LOG.setLevel(logging.INFO)
+        try:
+            t0 = time.perf_counter()
+            gt_d, gt_i = cli.run(index_type="baseline", out_dir=args.out_dir, **kw)
+            base_s = time.perf_counter() - t0
+        finally:
+            cli.LOG.removeHandler(recorded)
+        check(len(recorded.args) == 1, "the baseline logged its search time once")
+        check(gt_i.shape == (nq, args.k) and bool(np.isfinite(gt_d).all()), "baseline shape")
+        log(f"[cli] baseline (exact cosine kNN of {nq} queries over {n_rows} rows, full f32 on "
+            f"the card): search {recorded.args[0][0]:.3f} s (host normalize, upload, tiled "
+            f"matmul + top-k), whole --index-type baseline run {base_s:.1f} s  [{smi}]")
+
+        # ---- each visit count: exact over its buckets; recall against the baseline ----
+        q_dev = torch.as_tensor(result.queries, device=dev)
+        recalls = []
+        for i, (n_buckets, dists, nns, measured, _) in enumerate(result.searches):
+            check(nns.shape == (nq, args.k) and bool(np.isfinite(dists).all())
+                  and bool((nns > 0).all()), f"visit {n_buckets}: finite, filled")
+            r_vis = visited_recall(index, store, q_dev, n_buckets, nns, args.policy)
+            check(r_vis >= 0.999, f"visit {n_buckets}: recall {r_vis} vs visited-bucket exact")
+            recalls.append(recall(nns, gt_i, args.k))
+            first = (" (includes packing the f32 store on the host and its upload: the first "
+                     "search of the sweep)") if i == 0 else ""
+            log(f"[cli] visit {n_buckets:3d}: search {measured['search']:.4f} s, inference "
+                f"{measured['inference']:.4f} s{first}; recall@{args.k} vs the baseline "
+                f"{recalls[-1]:.4f}, vs visited-bucket exact {r_vis:.4f} (256 queries)  [{smi}]")
+        check(all(b >= a for a, b in zip(recalls, recalls[1:])),
+              f"recall does not fall as visits rise: {recalls}")
+        check(recalls[-1] >= 0.999 and result.searches[-1][0] >= index.n_buckets,
+              f"every bucket visited: recall {recalls[-1]} vs the baseline")
+        if paths is not None:
+            rows = lmi_eval.evaluate_to_csv(paths, gt_i, "res.csv", k=args.k)
+            check([r["recall"] for r in rows] == recalls, "the result files evaluate the same")
+
+        # ---- warm searches: the store is packed; visit 1 again, then the traced search ----
+        def search(n_buckets):
+            return index.search(None, result.queries, None, result.queries,
+                                result.data_prediction, n_buckets=n_buckets, k=args.k,
+                                policy=args.policy, store=store)
+
+        warm = {b: synced(lambda: search(b))[1] for b in (1, CLI_TRACE_VISIT)}
+        log(f"[cli] warm searches of the packed store, synced: visit 1 {warm[1]:.4f} s, visit "
+            f"{CLI_TRACE_VISIT} {warm[CLI_TRACE_VISIT]:.4f} s per {nq} queries  [{smi}]")
+        before = read_counts()
+        with device_trace(str(work / "trace"), device=dev) as prof:
+            with annotate("lmi.search"):
+                search(CLI_TRACE_VISIT)
+        traced = {k: v - before[k] for k, v in read_counts().items()}
+        window_ms, busy, top = trace_split(prof.trace_path, "lmi.search")
+        check(any("scan_mma_kernel" in name for name, _, _ in top),
+              f"the trace names the scan kernel: {[n for n, _, _ in top]}")
+        log(f"[cli-trace] one search at visit {CLI_TRACE_VISIT} under device_trace "
+            f"({os.path.relpath(prof.trace_path, ROOT)}): window {window_ms:.2f} ms, device "
+            f"busy {100 * busy:.1f}% of it; launches {traced}  [{smi}]")
+        for name, ms, n in top:
+            log(f"[cli-trace]   {ms:8.3f} ms  x{n:<3d} {name[:110]}")
+        scan_ms = sum(ms for name, ms, _ in top if "scan_mma_kernel" in name)
+        log(f"[cli-trace] the scan (bf16 body over the f32 store) {scan_ms:.3f} ms of the "
+            f"{window_ms:.2f} ms window; peak device memory in the phase "
+            f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; phase total "
+            f"{time.perf_counter() - t_all:.1f} s")
+        launches = {k: counts[k] + traced[k] for k in counts}
+
+        # ---- that scan alone: kernel, plain version, library call, bound ----
+        sizes = np.asarray(store.bucket_sizes)
+        order, _ = index.compute_bucket_order(q_dev, CLI_TRACE_VISIT, keep_on_device=True)
+        plan, sargs = scan_inputs(store, q_dev, order, 128, "bf16")
+        kw_scan = dict(k=16, qtile=128, chunk=store.chunk, mode="bf16")
+        mac, ops, peak, nbytes = scan_work(store, plan, order, store.chunk_data.shape[1], 16,
+                                           "bf16")
+        bound = {"operations": ops / peak * 1e3, "bytes": nbytes / HBM_BYTES_PER_S * 1e3}
+        bound_by = max(bound, key=bound.get)
+        k_ms = cuda_ms(lambda: scan_kernel.scan_pairs(*sargs, **kw_scan), 3)
+        p_ms = cuda_ms(lambda: scan_kernel.scan_pairs_reference(*sargs, **kw_scan), 1)
+        lib_ms = cuda_ms(library_scan(store, plan, sargs, 16, "bf16"), 1)
+        kd, ks = scan_kernel.scan_pairs(*sargs, **kw_scan)
+        rd, rs = scan_kernel.scan_pairs_reference(*sargs, **kw_scan)
+        err, gap = compare_candidates(kd, ks, rd, rs, "bf16", "CLI bf16 over the f32 store")
+        log(f"[cli] scan_pairs bf16 over the f32 store at visit {CLI_TRACE_VISIT}: kernel "
+            f"{k_ms:.3f} ms, plain {p_ms:.2f} ms, library {lib_ms:.2f} ms; bound "
+            f"{bound[bound_by]:.3f} ms by {bound_by} ({mac:.4g} MAC, {nbytes / 1e9:.3f} GB) = "
+            f"{bound[bound_by] / k_ms:.1%} of it; {plan.n_pairs} pairs, "
+            f"{mac / k_ms / 1e9:.1f} TMAC/s; bucket sizes min {sizes.min()} median "
+            f"{int(np.median(sizes))} max {sizes.max()} rows; agree, max|Δd|={err:.3g} (at "
+            f"swapped slots {gap:.3g})  [{smi}]")
+        timing = {"ms": k_ms, "plain_ms": p_ms, "library_ms": lib_ms, "err": err,
+                  "bound_ms": bound[bound_by], "bound_by": bound_by}
+        del plan, sargs, kd, ks, rd, rs
+    finally:
+        os.chdir(home)
+    del result, index, store
+    torch.cuda.empty_cache()
+    return launches, timing
+
+
 def main() -> None:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--rows", type=int, default=10_000_000, help="corpus rows")
@@ -1403,17 +1617,21 @@ def main() -> None:
     main_launches, timing = phase_main(dev, data, smi)
     build_launches, gather_timing, (index, store) = phase_build_path(dev, data, smi)
     dyn_launches, _ = phase_dynamic(dev, index, store, data, smi)
-    del index, store
+    del index, store, data
+    torch.cuda.empty_cache()
+    cli_launches, cli_timing = phase_cli(dev, smi)
     rows = []
     for name, source, replaces, t, errs in (
         ("scan_pairs", KERNEL_SOURCE, REPLACES, timing["bf16"],
-         [e for pair in small.values() for e in pair[:1]] + [t["err"] for t in timing.values()]),
+         [e for pair in small.values() for e in pair[:1]] + [t["err"] for t in timing.values()]
+         + [cli_timing["err"]]),
         # the row gather's kernels: the merge gather is the one the search launches
         ("gather_pairs", GATHER_SOURCE, GATHER_REPLACES, gather_timing["merge"],
          [t["err"] for t in gather_timing.values()]),
     ):
         rows.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                     "launches": main_launches[name] + build_launches[name] + dyn_launches[name],
+                     "launches": (main_launches[name] + build_launches[name]
+                                  + dyn_launches[name] + cli_launches[name]),
                      "max_abs_err": max(errs), "ms": t["ms"], "plain_ms": t["plain_ms"],
                      "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
                      "library_ms": t["library_ms"]})

@@ -1,4 +1,5 @@
-"""Learned Metric Index, PyTorch + CUDA port (build, search, mutation, serving).
+"""Learned Metric Index, PyTorch + CUDA port (build, search, mutation,
+serving, the experiment driver).
 
 The same index as :mod:`learnedmetricindex_tpu`, built and served from
 PyTorch on an NVIDIA GPU.  ``LearnedIndexBuilder`` clusters each tree
@@ -13,7 +14,12 @@ the other.  ``DynamicIndex`` takes inserts, deletes and compactions on a
 built index (``save``/``load`` checkpoints cross between the packages
 too), and ``serve.SearchServer`` micro-batches concurrent requests over
 it, with a JSON-over-HTTP front end (``python -m
-learnedmetricindex_tpu_torch.serve``).
+learnedmetricindex_tpu_torch.serve``).  The experiment driver, ``python
+-m learnedmetricindex_tpu_torch.cli``, builds an index over SISAP'23 data
+(``data.py``) or seeded blobs, sweeps visit counts and writes SISAP
+result files (``eval.py``, which also scores them); ``Baseline`` is
+exact kNN for the ground truth, ``NeuralNetwork`` the reference's
+one-model API and ``utils/`` the timing, logging and trace helpers.
 
 Devices are explicit: every entry point that creates tensors takes a
 ``device`` and nothing picks one.  Asking for ``cuda`` on a machine
@@ -29,7 +35,8 @@ This package imports ``torch`` and never ``jax``.
 
 from __future__ import annotations
 
-from learnedmetricindex_tpu_torch.config import BuildConfiguration
+from learnedmetricindex_tpu_torch.baseline import Baseline
+from learnedmetricindex_tpu_torch.config import BuildConfiguration, ModelParameters
 from learnedmetricindex_tpu_torch.index.builder import LearnedIndexBuilder
 from learnedmetricindex_tpu_torch.index.index import LearnedIndex
 from learnedmetricindex_tpu_torch.index.mutation import DynamicIndex
@@ -37,14 +44,18 @@ from learnedmetricindex_tpu_torch.index.serialization import (
     load_index,
     save_index,
 )
+from learnedmetricindex_tpu_torch.models.train import NeuralNetwork
 
 __version__ = "0.1.0"
 
 __all__ = [
+    "Baseline",
     "BuildConfiguration",
     "DynamicIndex",
     "LearnedIndex",
     "LearnedIndexBuilder",
+    "ModelParameters",
+    "NeuralNetwork",
     "load_index",
     "save_index",
     "__version__",

@@ -452,14 +452,15 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     """``python -m learnedmetricindex_tpu_torch.serve`` — serve a synthetic
     demo index (``--synthetic N``), a dynamic checkpoint (``--index
     ckpt``) or a saved index over its corpus (``--index index.npz
-    --data corpus.npy``) on ``--device`` (default ``cuda``: without a
-    GPU this raises; ``--device cpu`` runs the plain versions)."""
+    --data corpus.npy``, or an ``.h5`` file with dataset ``emb``) on
+    ``--device`` (default ``cuda``: without a GPU this raises; ``--device
+    cpu`` runs the plain versions)."""
     import argparse
 
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--device", default="cuda", help="torch device to serve on (cuda, cpu, ...)")
     p.add_argument("--index", help="saved index .npz (save_index), or a dynamic checkpoint")
-    p.add_argument("--data", help="corpus rows (.npy) for a saved index")
+    p.add_argument("--data", help="corpus rows for a saved index (.npy, or .h5 with dataset emb)")
     p.add_argument("--synthetic", type=int, default=0,
                    help="serve a synthetic demo index of N rows instead")
     p.add_argument("--d", type=int, default=128, help="synthetic dim")
@@ -486,6 +487,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
             "(ROADMAP.md §1, multi-GPU)"
         )
 
+    from learnedmetricindex_tpu_torch.cli import parse_nav_temp
     from learnedmetricindex_tpu_torch.index.index import resolve_device
     from learnedmetricindex_tpu_torch.index.serialization import load_dynamic_index, load_index
 
@@ -504,20 +506,20 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     else:
         if not args.index or not args.data:
             p.error("--index and --data are required (or use --synthetic N)")
-        if not args.data.endswith(".npy"):
-            p.error(f"{args.data}: the port reads .npy corpora; .h5 waits for the port's "
-                    "CLI data helpers")
         index, data_prediction = load_index(args.index, device)
         if data_prediction is None:
             p.error(f"{args.index} was saved without data_prediction — "
                     "re-save with save_index(index, path, data_prediction)")
-        data = np.load(args.data).astype(np.float32)
+        if args.data.endswith((".h5", ".hdf5")):
+            from learnedmetricindex_tpu_torch.data import load_h5
+
+            data = load_h5(args.data, "emb")
+        else:
+            data = np.load(args.data).astype(np.float32)
 
     knobs = dict(
         k=args.k, n_buckets=args.n_buckets, policy=args.policy,
-        nav_temp=(None if args.nav_temp is None else
-                  (lambda ts: ts[0] if len(ts) == 1 else ts)(
-                      [float(t) for t in str(args.nav_temp).split(",")])),
+        nav_temp=parse_nav_temp(args.nav_temp),
         precision=args.precision, rerank=not args.no_rerank,
         max_batch=args.max_batch, max_wait_ms=args.max_wait_ms,
     )

@@ -491,3 +491,56 @@ def test_dynamic_index_on_gpu(cuda, tmp_path):
         mism = ic != i0
         np.testing.assert_allclose(dc[mism], d0[mism], rtol=1e-6, atol=4e-7)
     assert cuda_build.BUILDS == builds  # growth and compaction build nothing
+
+
+def test_cli_sweep_on_gpu(cuda):
+    """The experiment driver on the card: a 20,000×768 synthetic sweep at
+    the default f32 store (the bf16 body over f32 rows), each visit count
+    equal to exact kNN over the visited buckets, one scan launch a search
+    and no merge-gather launch (auto mode)."""
+    from learnedmetricindex_tpu_torch import cli
+    from learnedmetricindex_tpu_torch.ops.knn import recall, restricted_knn
+
+    args = cli.parse_args(["--synthetic", "20000", "--synthetic-dim", "768", "--n-categories",
+                           "16", "--epochs", "2", "--model-type", "MLP-4", "-b", "1", "4", "16",
+                           "--chunk-size", "256", "--no-save", "--device", "cuda"])
+    scans, pairs = scan_kernel.LAUNCHES, gather_kernel.PAIR_LAUNCHES
+    result = cli.sweep(**cli.sweep_arguments(args))
+    assert scan_kernel.LAUNCHES - scans == 3 and gather_kernel.PAIR_LAUNCHES == pairs
+    assert result.store.chunk_data.dtype == torch.float32 and result.store.device.type == "cuda"
+    q = torch.as_tensor(result.queries[:256], device=cuda)
+    for n_buckets, dists, nns, measured, _ in result.searches:
+        assert nns.shape == (200, 10) and np.isfinite(dists).all()
+        order, _ = result.index.compute_bucket_order(q, n_buckets, keep_on_device=True)
+        _, ref = restricted_knn(result.store, q, order, 10)
+        assert recall(nns, ref.cpu().numpy(), 10) >= 0.999, n_buckets
+        assert measured["search"] > 0.0
+
+
+def test_baseline_on_gpu_matches_cpu(cuda):
+    from learnedmetricindex_tpu_torch.data import synthetic_blobs
+
+    data, queries = synthetic_blobs(20000, 96, 300, seed=4)
+    gpu = lmi.Baseline(device=cuda)
+    dg, ig, _ = gpu.search(queries, data, k=10)
+    dc, ic, _ = lmi.Baseline(device="cpu").search(queries, data, k=10)
+    assert gpu._norm_cache[1].device.type == "cuda"
+    np.testing.assert_allclose(dg, dc, rtol=1e-4, atol=1e-5)
+    mism = ig != ic  # only where two f32 sums in other orders nearly tie
+    np.testing.assert_allclose(dg[mism], dc[mism], rtol=1e-6, atol=1e-6)
+
+
+def test_device_trace_names_the_scan_kernel(cuda, tmp_path):
+    from learnedmetricindex_tpu_torch.utils.profiling import annotate, device_events, device_trace
+
+    data, _ = _corpus(4000, 64, seed=8)
+    cfg = lmi.BuildConfiguration("kmeans", 2, "MLP", 0.01, [8], seed=8, chunk_size=128)
+    index, pred, *_ = lmi.LearnedIndexBuilder(data, cfg, device=cuda).build()
+    store = index.get_bucket_store(data, pred)
+    q = torch.as_tensor(data[:500], device=cuda)
+    index.search(None, q, None, q, pred, n_buckets=3, k=10, store=store)  # warm
+    with device_trace(str(tmp_path), device=cuda) as prof:
+        with annotate("lmi.search"):
+            index.search(None, q, None, q, pred, n_buckets=3, k=10, store=store)
+    names = {e["name"] for e in device_events(prof.trace_path)}
+    assert any("scan_mma_kernel" in n for n in names), sorted(names)[:20]

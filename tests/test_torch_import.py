@@ -18,8 +18,11 @@ ROOT = PACKAGE.parent
 
 MODULES = [
     "learnedmetricindex_tpu_torch",
+    "learnedmetricindex_tpu_torch.baseline",
+    "learnedmetricindex_tpu_torch.cli",
     "learnedmetricindex_tpu_torch.config",
     "learnedmetricindex_tpu_torch.data",
+    "learnedmetricindex_tpu_torch.eval",
     "learnedmetricindex_tpu_torch.models.mlp",
     "learnedmetricindex_tpu_torch.models.train",
     "learnedmetricindex_tpu_torch.native",
@@ -39,6 +42,11 @@ MODULES = [
     "learnedmetricindex_tpu_torch.index.navigation",
     "learnedmetricindex_tpu_torch.index.serialization",
     "learnedmetricindex_tpu_torch.serve",
+    "learnedmetricindex_tpu_torch.utils",
+    "learnedmetricindex_tpu_torch.utils.compat",
+    "learnedmetricindex_tpu_torch.utils.logging",
+    "learnedmetricindex_tpu_torch.utils.profiling",
+    "learnedmetricindex_tpu_torch.utils.timing",
 ]
 
 
@@ -144,6 +152,40 @@ def test_builds_and_searches_without_the_jax_package():
     assert proc.stdout.strip().endswith("ok")
 
 
+# the experiment driver: every module imports, cli.sweep builds and
+# searches, and Baseline answers, with neither h5py nor matplotlib
+_DRIVER_BODY = """
+import importlib, os
+import numpy as np, torch
+torch.set_num_threads(1)
+for m in {modules!r}:
+    importlib.import_module(m)
+from learnedmetricindex_tpu_torch import cli
+from learnedmetricindex_tpu_torch.data import synthetic_blobs
+from learnedmetricindex_tpu_torch.ops.knn import recall
+os.environ["JOB_ID"] = "import"
+args = cli.parse_args(["--synthetic", "800", "--synthetic-dim", "8", "--n-categories", "3",
+                       "--epochs", "3", "--model-type", "MLP-8", "-b", "3", "--chunk-size", "64",
+                       "--no-save", "--device", "cpu"])
+result = cli.sweep(**cli.sweep_arguments(args))
+(n_buckets, dists, nns, measured, identifier), = result.searches
+assert n_buckets == 3 and identifier.endswith("-buck=3-clustering_algorithm=kmeans-import")
+data, queries = synthetic_blobs(800, 8, 100, seed=2023)
+_, gt, _ = cli.Baseline(device="cpu").search(queries, data, k=10)
+assert recall(nns, gt, 10) == 1.0, recall(nns, gt, 10)
+""" + _NOTHING_LOADED
+
+
+def test_driver_runs_without_jax_h5py_or_matplotlib():
+    """``cli``, ``eval``, ``baseline``, ``data`` and ``utils`` import, and
+    ``cli.sweep`` and ``Baseline`` run, with jax, the JAX package, h5py and
+    matplotlib all unimportable."""
+    proc = _run_without(_DRIVER_BODY.format(modules=MODULES),
+                        WITHOUT_THE_JAX_PACKAGE + ("h5py", "matplotlib"))
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().endswith("ok")
+
+
 def _imported_modules(path: pathlib.Path):
     """Every module name an ``import`` or ``from ... import`` of ``path``
     names (relative imports resolve inside the port)."""
@@ -191,8 +233,10 @@ def test_exports():
     """The public names, and importing the port leaves the caller's TF32
     flags as it found them (the exact stages scope full f32 to their own
     calls: ops/precision.py)."""
-    assert set(lmi.__all__) >= {"BuildConfiguration", "DynamicIndex", "LearnedIndex",
-                                "LearnedIndexBuilder", "load_index", "save_index"}
+    assert set(lmi.__all__) >= {"Baseline", "BuildConfiguration", "DynamicIndex", "LearnedIndex",
+                                "LearnedIndexBuilder", "ModelParameters", "NeuralNetwork",
+                                "load_index", "save_index"}
+    assert all(hasattr(lmi, name) for name in lmi.__all__)
     for matmul, cudnn in ((True, False), (False, True)):
         proc = _run_without(f"""
 import torch

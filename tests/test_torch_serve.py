@@ -3,6 +3,7 @@
 JAX package built and the port loaded, plus searches racing mutations:
 every result is the answer of one state of the store, never a mix."""
 
+import contextlib
 import json
 import socket
 import subprocess
@@ -288,14 +289,14 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def test_main_serves_a_synthetic_dynamic_index():
-    """``python -m learnedmetricindex_tpu_torch.serve --device cpu
-    --synthetic N --dynamic`` builds, listens and answers."""
+@contextlib.contextmanager
+def _serve_main(args):
+    """``python -m learnedmetricindex_tpu_torch.serve --device cpu <args>`` in
+    a subprocess on a free port; yields its base URL once /healthz answers."""
     port = _free_port()
     proc = subprocess.Popen(
         [sys.executable, "-m", "learnedmetricindex_tpu_torch.serve", "--device", "cpu",
-         "--synthetic", "2000", "--d", "16", "--buckets", "4", "--dynamic", "--max-batch", "64",
-         "--port", str(port)],
+         *args, "--port", str(port)],
         cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
     base = f"http://127.0.0.1:{port}"
     try:
@@ -307,18 +308,44 @@ def test_main_serves_a_synthetic_dynamic_index():
             except (urllib.error.URLError, ConnectionError):
                 assert proc.poll() is None, proc.communicate()[1]
                 time.sleep(0.1)
-        v = np.eye(16, dtype=np.float32)[:2]
-        ids = _post(f"{base}/insert", {"vectors": v.tolist()})["ids"]
-        out = _post(f"{base}/search", {"queries": v.tolist(), "k": 1})
-        assert [row[0] for row in out["ids"]] == ids
+        yield base
     finally:
         proc.terminate()
         proc.communicate(timeout=30)
 
 
+def test_main_serves_a_synthetic_dynamic_index():
+    """``python -m learnedmetricindex_tpu_torch.serve --device cpu
+    --synthetic N --dynamic`` builds, listens and answers."""
+    with _serve_main(["--synthetic", "2000", "--d", "16", "--buckets", "4", "--dynamic",
+                      "--max-batch", "64"]) as base:
+        v = np.eye(16, dtype=np.float32)[:2]
+        ids = _post(f"{base}/insert", {"vectors": v.tolist()})["ids"]
+        out = _post(f"{base}/search", {"queries": v.tolist(), "k": 1})
+        assert [row[0] for row in out["ids"]] == ids
+
+
+def test_main_serves_a_saved_index_over_an_h5_corpus(built, tmp_path):
+    """``--index index.npz --data corpus.h5`` reads the corpus from the
+    file's ``emb`` dataset (the SISAP layout), as the JAX package's
+    ``serve.main`` does, and answers as a search over that corpus."""
+    import h5py
+
+    index, pred, data, queries, _ = built
+    lmi.save_index(index, str(tmp_path / "index.npz"), pred)
+    with h5py.File(tmp_path / "corpus.h5", "w") as f:
+        f.create_dataset("emb", data=data.astype(np.float64))  # read back as f32
+    q = queries[:8]
+    with _serve_main(["--index", str(tmp_path / "index.npz"), "--data",
+                      str(tmp_path / "corpus.h5"), "--n-buckets", "8"]) as base:
+        out = _post(f"{base}/search", {"queries": q.tolist(), "k": 10})
+    _, di, _ = index.search(None, q, data, q, pred, n_buckets=8, k=10)
+    np.testing.assert_array_equal(np.asarray(out["ids"], np.uint32), di)
+
+
 @pytest.mark.parametrize("argv,error", [
     (["--shard-devices", "2", "--synthetic", "10"], NotImplementedError),
-    (["--index", "missing.npz", "--data", "corpus.h5", "--device", "cpu"], SystemExit),
+    (["--data", "corpus.h5", "--device", "cpu"], SystemExit),
     (["--device", "cpu"], SystemExit),
 ])
 def test_main_refuses_what_the_port_does_not_serve(argv, error):
