@@ -21,6 +21,12 @@ phases:
    lists out of physical order (list widths 32 and 64); f32 over int8
    and bf16 stores also on rows of one power of two, where each distance
    needs all three bf16 terms of a query;
+   then the row-map mode (virtual stores over f32, bf16 and int8 +
+   row-scale corpora, rows read through the id grid) in modes bf16, f32
+   and int8 at k 16/128/1024, also with the chunk lists out of physical
+   order, and k past the widest list (1030, 2100: rounds of at most
+   1024, one launch a round, no slot listed twice) over mutated int8 and
+   f32 stores and a virtual bf16 store;
 4. corpus: a seeded 10M×768 int8 corpus (+ f32 row scales) on the
    device and the exact f32 top-10 of the queries;
 5. search path: an index whose MLP-4 encodes a nearest-centroid
@@ -34,6 +40,16 @@ phases:
    the search's split between navigation, the scan and the rest; then
    the scan in f32 over an f32 store (the CUDA-core body) on the same
    rows, dequantized, against cuBLAS SGEMM + ``torch.topk``;
+   then the same index over a virtual store of the device corpus
+   (``get_bucket_store``: the id grid, no copy): default and ``highest``
+   searches equal to the packed store's, a ``k=1100`` search equal to
+   exact kNN over the visited buckets, the store's bytes and the peak
+   device memory while each store is made, and the row-map scan beside
+   the packed scan, its plain version, the library call and the bound;
+   then the store sharded by bucket over ``[cuda:0] * 4`` (from the
+   device corpus, and from the packed store): a visit-4 default search
+   equal to the single store's, one scan launch a shard, each shard's
+   rows and scan time;
 6. build path: ``LearnedIndexBuilder`` at the bench's flagship
    configuration (1 level, 120 buckets, 4 epochs, batch 1024, lr 0.01,
    balanced class weights, seed 2023), save, load, packed store, search
@@ -209,16 +225,32 @@ def scan_partner(store, copies) -> np.ndarray:
     (a row of ``copies``), every copy's slot mapped to the slot of the
     copy just before it in the bucket's scan order (-1 elsewhere).  In a
     fresh store scan order is slot order; in a mutated one a chunk taken
-    from the pool may sit below the bucket's older chunks."""
+    from the pool may sit below the bucket's older chunks.  A virtual
+    store's slots are found through its id grid."""
     _, position = store.chunk_owner()
-    row_slot = store.row_slot.cpu().numpy()
+    n_slots = store.n_chunks * store.chunk
+    if store.row_slot is not None:
+        row_slot = store.row_slot.cpu().numpy()
+    else:
+        ids = store.chunk_ids.reshape(-1).cpu().numpy()
+        row_slot = np.zeros(int(ids.max()), np.int64)
+        row_slot[ids[ids > 0] - 1] = np.nonzero(ids > 0)[0]
     slots = row_slot[np.asarray(copies) - 1].astype(np.int64)  # (groups, n_copies)
     pos = position[slots // store.chunk] * store.chunk + slots % store.chunk
     order = np.argsort(pos, axis=1)
     ranked = np.take_along_axis(slots, order, axis=1)
-    partner = np.full(store.chunk_data.shape[0], -1, np.int64)
+    partner = np.full(n_slots, -1, np.int64)
     partner[ranked[:, 1:].reshape(-1)] = ranked[:, :-1].reshape(-1)
     return partner
+
+
+def distinct_slots(slots, what: str) -> None:
+    """No slot is listed twice for one query (rounds of a wide k must
+    neither repeat nor skip a row at their boundaries)."""
+    flat = slots.reshape(-1, slots.shape[-1])
+    s, _ = torch.sort(flat, dim=1)
+    dup = (s[:, 1:] == s[:, :-1]) & (s[:, 1:] >= 0)
+    check(not bool(dup.any()), f"{what}: a slot is listed twice for one query")
 
 
 def earlier_duplicate_first(slots, partner, what: str) -> int:
@@ -361,12 +393,16 @@ def mutate_kv_stores(stores, copies, made, seed: int = 7):
 
 def shuffled_chunks(store, seed: int):
     """The same store with its chunks at other physical places: each
-    bucket's list names them in the old scan order."""
+    bucket's list names them in the old scan order.  A virtual store
+    moves only its id grid's chunks."""
     dev = store.device
     perm = torch.as_tensor(np.random.default_rng(seed).permutation(store.n_chunks), device=dev)
     inv = torch.argsort(perm)  # new physical chunk → old
     slots = (inv[:, None] * store.chunk + torch.arange(store.chunk, device=dev)).reshape(-1)
     ptr, clist = store.chunk_list()
+    if store.virtual:
+        return store._replace(chunk_ids=store.chunk_ids[inv], bucket_chunk_ptr=ptr,
+                              bucket_chunk_list=perm.cpu().numpy()[clist].astype(np.int32))
     return store._replace(
         chunk_data=store.chunk_data[slots], chunk_ids=store.chunk_ids[inv],
         chunk_scales=None if store.chunk_scales is None else store.chunk_scales[slots],
@@ -383,14 +419,17 @@ def phase_kernel_vs_plain(dev) -> dict:
     int8, f32 over f32/bf16/int8) at k 16/36/64/100/256/300/600, every
     list width from 32 to 1024, with qtile 1/8/100/128 in turn; then f32
     over bf16 and int8 stores of one-hot rows (split_terms_check); then
-    every mode over int8 rows of 30 and 102 bytes (no 4-byte granule).
-    Returns, per mode, (largest |Δd|, largest |Δd| where slots differ)."""
+    every mode over int8 rows of 30 and 102 bytes (no 4-byte granule);
+    the row-map mode at d 768 and 100 (row_map_cases) and k past the
+    widest list (wide_k_cases).  Every case also checks the launch count
+    and that no list names a slot twice.  Returns, per mode, (largest
+    |Δd|, largest |Δd| where slots differ)."""
     qtiles = (1, 8, 100, 128)
     combos = [("bf16", "f32"), ("bf16", "bf16"), ("bf16", "int8"), ("int8", "int8"),
               ("f32", "bf16"), ("f32", "int8"), ("f32", "f32")]
     worst = {m: (0.0, 0.0) for m in ("f32", "bf16", "int8")}
     for d in (768, 96, 100, 30, 102):
-        stores, queries, order, chunk, copies, made = kv_stores(dev, d)
+        stores, queries, order, _, copies, made = kv_stores(dev, d)
         if d in (30, 102):  # unaligned int8 rows: the modes that read an int8 store
             cases = [(mode, k, qtile, "int8") for mode, k, qtile in
                      (("int8", 16, 128), ("int8", 100, 8), ("bf16", 36, 100), ("f32", 16, 1))]
@@ -408,30 +447,131 @@ def phase_kernel_vs_plain(dev) -> dict:
                              for ki, k in enumerate((16, 36)) for si, (mode, store) in enumerate(combos)]
             partner = {name: scan_partner(store, groups) for name, store in kv.items()}
             for mode, k, qtile, store_name in set_cases:
-                store = kv[store_name]
-                plan, args = scan_inputs(store, queries, order, qtile, mode)
-                kw = dict(k=k, qtile=qtile, chunk=chunk, mode=mode)
-                kd, ks = scan_kernel.scan_pairs(*args, **kw)
-                torch.cuda.synchronize()
-                rd, rs = scan_kernel.scan_pairs_reference(*args, **kw)
-                what = f"{mode} store={store_name}{tag} d={d} k={k} qtile={qtile}"
-                err, gap = compare_candidates(kd, ks, rd, rs, mode, what)
-                n_dup = earlier_duplicate_first(ks, partner[store_name], what)
-                earlier_duplicate_first(rs, partner[store_name], f"{what} (plain)")
-                n_swapped = int((ks != rs).sum().item())
-                worst[mode] = (max(worst[mode][0], err), max(worst[mode][1], gap))
-                log(f"[kernel-vs-plain] {what:44s} pairs={plan.n_pairs:4d}: agree, "
-                    f"max|Δd|={err:.3g}, {n_swapped} slots swapped at ties (max|Δd| there "
-                    f"{gap:.3g}), {n_dup} later duplicates after their earlier copy")
+                held_to_plain(kv[store_name], queries, order, k, qtile, mode, partner[store_name],
+                              f"{mode} store={store_name}{tag} d={d} k={k} qtile={qtile}", worst)
+        if d in (768, 100):
+            row_map_cases(dev, d, made, stores["f32"], queries, order, copies, worst)
         del stores, kv
         if d in (30, 102):
             continue
         for si, store_name in enumerate(("bf16", "int8")):
             for ki, k in enumerate((16, 100)):
                 split_terms_check(dev, d, store_name, k, qtiles[(2 * si + ki + d) % 4])
+    wide_k_cases(dev, worst)
     for mode, (err, gap) in worst.items():
         log(f"[kernel-vs-plain] {mode}: max|Δd| {err:.3g}; at swapped slots {gap:.3g}")
     return worst
+
+
+def held_to_plain(store, queries, order, k: int, qtile: int, mode: str, partner, what: str,
+                  worst: dict, launches: int = 1) -> None:
+    """One scan case: the kernel (``launches`` launches) against its plain
+    version (``compare_candidates``), no slot listed twice, exact ties to
+    the earlier copy; folds the error into ``worst``."""
+    plan, args = scan_inputs(store, queries, order, qtile, mode)
+    kw = dict(k=k, qtile=qtile, chunk=store.chunk, mode=mode)
+    before = scan_kernel.LAUNCHES
+    kd, ks = scan_kernel.scan_pairs(*args, **kw)
+    torch.cuda.synchronize()
+    check(scan_kernel.LAUNCHES - before == launches,
+          f"{what}: {scan_kernel.LAUNCHES - before} launches, not {launches}")
+    rd, rs = scan_kernel.scan_pairs_reference(*args, **kw)
+    err, gap = compare_candidates(kd, ks, rd, rs, mode, what)
+    distinct_slots(ks, what)
+    n_dup = earlier_duplicate_first(ks, partner, what)
+    earlier_duplicate_first(rs, partner, f"{what} (plain)")
+    worst[mode] = (max(worst[mode][0], err), max(worst[mode][1], gap))
+    log(f"[kernel-vs-plain] {what:52s} pairs={plan.n_pairs:4d}: agree, max|Δd|={err:.3g}, "
+        f"{int((ks != rs).sum().item())} slots swapped at ties (max|Δd| there {gap:.3g}), "
+        f"{n_dup} later duplicates after their earlier copy")
+
+
+def virtual_stores(made, like) -> dict:
+    """Virtual stores over the ``kv_stores`` corpus in each type (f32, bf16,
+    int8 with its row scales), the layout of ``like``: the row map."""
+    _, data, bucket_ids, _ = made
+    q_int, q_sc = quantize.quantize_rows(data)
+    nb, chunk = like.n_buckets, like.chunk
+    return {
+        "f32": BucketStore.build_virtual(data, bucket_ids, nb, chunk=chunk),
+        "bf16": BucketStore.build_virtual(data.bfloat16(), bucket_ids, nb, chunk=chunk),
+        "int8": BucketStore.build_virtual(q_int, bucket_ids, nb, chunk=chunk, row_scales=q_sc),
+    }
+
+
+def row_map_cases(dev, d: int, made, like, queries, order, copies, worst: dict) -> None:
+    """The kernel's row-map mode (a virtual store: rows read through the
+    id grid) against the plain version: f32, bf16 and int8 + row-scale
+    corpora in modes bf16 and f32 (and int8 over the int8 corpus) at k
+    16/128/1024 (list widths 32, 128, 1024); at d 768 also with the chunk
+    lists out of physical order (k 16 and 128)."""
+    qtiles = (1, 8, 100, 128)
+    virt = virtual_stores(made, like)
+    for name, st in virt.items():
+        check(st.virtual and st.nbytes() == st.chunk_ids.numel() * 4, f"virtual {name}: grid only")
+    ks = (16, 128, 1024) if d == 768 else (16, 128)
+    cases = [(corpus, mode, k) for k in ks for corpus in ("f32", "bf16", "int8")
+             for mode in ("bf16", "f32")] + [("int8", "int8", k) for k in ks]
+    sets = [("", virt)]
+    if d == 768:
+        sets.append((" shuffled", {n: shuffled_chunks(st, 3) for n, st in virt.items()}))
+    for tag, stores in sets:
+        partner = {name: scan_partner(st, copies) for name, st in stores.items()}
+        for i, (corpus, mode, k) in enumerate(cases):
+            if tag and k == 1024:
+                continue
+            qtile = qtiles[(i + d) % 4]
+            held_to_plain(stores[corpus], queries, order, k, qtile, mode, partner[corpus],
+                          f"row map {mode} corpus={corpus}{tag} d={d} k={k} qtile={qtile}", worst)
+
+
+def wide_k_cases(dev, worst: dict) -> None:
+    """k past the widest list (1024), in rounds of at most 1024, one launch
+    a round: 1030 and 2100 over an int8 and an f32 store mutated like the
+    serving path's (inserts, deletes, chunk lists out of physical order)
+    and over a virtual bf16 store with its chunk lists shuffled; 12,000×768
+    rows in 3 buckets of ~4,000 (+ 1,000 inserted), so every round runs.
+    The kernel equals the plain version's one list, no slot twice."""
+    g = BlobGenerator(16, 768, seed=11, noise=0.45, device=dev)
+    n, nb, chunk = 12_000, 3, 320
+    data = g.rows(n)
+    rng = np.random.default_rng(11)
+    bucket_ids = rng.integers(0, nb, size=n)
+    src = rng.choice(n // 2, size=60, replace=False)
+    dst = n // 2 + rng.choice(n // 2, size=60, replace=False)
+    data[torch.as_tensor(dst, device=dev)] = data[torch.as_tensor(src, device=dev)]
+    bucket_ids[dst] = bucket_ids[src]
+    q_int, q_sc = quantize.quantize_rows(data)
+    stores = {
+        "int8": BucketStore.build_packed_device(q_int, bucket_ids, nb, chunk=chunk, row_scales=q_sc),
+        "f32": BucketStore.build_packed_device(data, bucket_ids, nb, chunk=chunk),
+    }
+    extra, extra_b = g.rows(1000), rng.integers(0, nb, 1000)
+    victims = rng.choice(np.setdiff1d(np.arange(1, n + 1), np.r_[src, dst] + 1), 500, replace=False)
+    for name in list(stores):
+        st = mutation.insert_rows(stores[name], extra, extra_b, np.arange(n + 1, n + 1001))
+        st, n_del = mutation.delete_ids(st, victims)
+        check(n_del == 500, f"wide {name} store: 500 deleted")
+        stores[name] = shuffled_chunks(st, 5)
+    stores["virtual"] = shuffled_chunks(
+        BucketStore.build_virtual(data.bfloat16(), bucket_ids, nb, chunk=chunk), 6)
+    queries = g.rows(200)
+    queries[:60] = data[torch.as_tensor(src, device=dev)]
+    order = np.stack([rng.permutation(nb)[:2] for _ in range(200)])
+    order[:60, 0] = bucket_ids[src]
+    order[:60, 1] = (bucket_ids[src] + 1) % nb
+    order = torch.as_tensor(order, device=dev)
+    order[-20:, 1] = -1
+    copies = np.stack([src + 1, dst + 1], axis=1)
+    for store_name, mode, k in (("int8", "int8", 1030), ("int8", "bf16", 2100),
+                                ("int8", "f32", 1030), ("f32", "f32", 2100),
+                                ("f32", "bf16", 1030), ("virtual", "bf16", 2100),
+                                ("virtual", "f32", 1030)):
+        st = stores[store_name]
+        held_to_plain(st, queries, order, k, 8 if k > 2000 else 128, mode,
+                      scan_partner(st, copies), f"rounds {mode} store={store_name} k={k}", worst,
+                      launches=-(-k // scan_kernel.MAX_K))
+    del stores, data
 
 
 def split_terms_check(dev, d: int, store_name: str, k: int, qtile: int) -> None:
@@ -560,11 +700,17 @@ def phase_main(dev, data: dict, smi: str):
         f"bucket sizes min {sizes.min()} median {int(np.median(sizes))} max {sizes.max()}")
 
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
     store = index.prepare_packed_store((corpus, row_scales), data_prediction)
     torch.cuda.synchronize()
+    made = {"s": time.perf_counter() - t0, "bytes": store.nbytes(),
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "peak_added_gb": (torch.cuda.max_memory_allocated() - before) / 1e9}
     log(f"[store] packed int8 store on device: {store.n_chunks} chunks of {chunk}, "
-        f"{store.nbytes() / 1e9:.2f} GB, {time.perf_counter() - t0:.1f} s")
+        f"{store.nbytes() / 1e9:.2f} GB, {made['s']:.1f} s; device memory while it was made: "
+        f"peak {made['peak_gb']:.2f} GB, {made['peak_added_gb']:.2f} GB above the corpus  [{smi}]")
     del pred
     torch.cuda.empty_cache()
 
@@ -670,9 +816,9 @@ def phase_main(dev, data: dict, smi: str):
         f"{measured['seq_search']:.4f} s of the last rep)")
     timing["f32 store"] = f32_store_scan(store, queries, order, smi)
     log(f"[main] total {time.perf_counter() - t_all:.1f} s")
-    del store
     torch.cuda.empty_cache()
-    return launches, timing
+    return launches, timing, {"index": index, "data_prediction": data_prediction,
+                              "store": store, "made": made}
 
 
 def f32_store_scan(store, queries, order, smi: str) -> dict:
@@ -728,11 +874,12 @@ def scan_work(store, plan, order, d: int, k: int, mode: str) -> tuple:
     visits = order[order >= 0].long()
     rows = float(sizes[visits].sum())
     visited = torch.unique(visits)
-    row_bytes = d * store.chunk_data.element_size() + 4
+    # a row's values and its scale; a virtual store's row also its id
+    row_bytes = d * store.rows_ref.element_size() + 4 + (4 if store.virtual else 0)
     q_bytes = {"f32": 4, "bf16": 2, "int8": 1}[mode] * d
     out_bytes = plan.n_pairs * 128 * k * 8
     nbytes = float(sizes[visited].sum()) * row_bytes + order.shape[0] * q_bytes + out_bytes
-    split = mode == "f32" and store.chunk_data.dtype != torch.float32
+    split = mode == "f32" and store.rows_ref.dtype != torch.float32
     peak = PEAK_OPS["bf16" if split else mode]
     return rows * d, (6.0 if split else 2.0) * rows * d, peak, nbytes
 
@@ -753,12 +900,16 @@ def library_scan(store, plan, sargs, k: int, mode: str):
     """The yardstick: per visited bucket one matmul of its padded query
     tiles against its slab in the mode's type (``torch._int_mm`` for
     int8; f32 with TF32 off), then ``torch.topk``.  The int8 slabs are
-    cast to bf16 or f32 once, here, outside what is timed.  The port
-    never calls it."""
+    cast to bf16 or f32 once, here, outside what is timed.  Over a
+    virtual store (modes bf16 and f32) the slab is gathered from the
+    corpus through the id grid inside what is timed (``index_select``,
+    then the cast): that gather is part of the function.  The port never
+    calls it."""
     queries, qidx = sargs[0], plan.qidx
     ptr = store.bucket_chunk_start
     chunk = store.chunk
     buckets, runs = torch.unique_consecutive(plan.pair_bucket.cpu(), return_counts=True)
+    flat_ids = store.chunk_ids.reshape(-1)
     work = []
     q0 = 0
     for b, npairs in zip(buckets.tolist(), runs.tolist()):
@@ -769,12 +920,18 @@ def library_scan(store, plan, sargs, k: int, mode: str):
         q = queries[rows]
         if mode == "bf16":
             q = q.bfloat16()
-        x = store.chunk_data[int(ptr[b]) * chunk : int(ptr[b + 1]) * chunk]
+        lo, hi = int(ptr[b]) * chunk, int(ptr[b + 1]) * chunk
+        if store.virtual:
+            work.append((q, (flat_ids[lo:hi].long() - 1).clamp_min(0)))
+            continue
+        x = store.chunk_data[lo:hi]
         work.append((q, x if mode == "int8" else x.to(q.dtype)))
 
     @full_f32()
     def run():
         for q, x in work:
+            if store.virtual:
+                x = store.data_ref.index_select(0, x).to(q.dtype)
             if mode == "int8":
                 sims = torch._int_mm(q, x.T)
             else:
@@ -782,6 +939,217 @@ def library_scan(store, plan, sargs, k: int, mode: str):
             torch.topk(sims, k, dim=1)
 
     return run
+
+
+def phase_virtual(dev, data: dict, ctx: dict, smi: str):
+    """The main path over a virtual store: ``get_bucket_store`` of the
+    device corpus (int8 + row scales) under the main path's index must be
+    the id grid over the corpus itself.  Searches at visit 4, k 10, 10k
+    queries, default and ``highest``, equal the packed store's; a
+    ``k=1100`` search of 256 queries (``highest``; k_scan 1106: two
+    rounds) equals exact kNN over the visited buckets.  Then the row-map
+    scan alone beside the packed scan (CUDA events, in turns), its plain
+    version, the library call and the bound; the row-map kernel's
+    candidates are bit-equal to the packed kernel's (same rows, slots
+    and scales)."""
+    corpus, row_scales, queries = data["corpus"], data["row_scales"], data["queries"]
+    index, pred, packed = ctx["index"], ctx["data_prediction"], ctx["store"]
+    nq, d = queries.shape[0], corpus.shape[1]
+    t_all = time.perf_counter()
+
+    def search(st, q, **kw):
+        return index.search(None, q, None, q, pred, n_buckets=4, store=st, **kw)
+
+    # ---- the path: every launch from here to the read counts ----
+    reset_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    store = index.get_bucket_store((corpus, row_scales), pred)
+    torch.cuda.synchronize()
+    made_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    check(store.virtual and store.data_ref is corpus and store.row_scales is row_scales,
+          "get_bucket_store of the device corpus is virtual over the corpus itself")
+    check(store.nbytes() == store.chunk_ids.numel() * 4, "a virtual store's bytes are its id grid")
+    pm = ctx["made"]
+    log(f"[virtual] store over the device corpus: id grid {store.nbytes() / 1e6:.1f} MB against "
+        f"the packed store's {pm['bytes'] / 1e9:.2f} GB ({pm['bytes'] / store.nbytes():.0f}x), "
+        f"made in {made_s:.2f} s (packed {pm['s']:.2f} s); device memory while it was made: peak "
+        f"{peak / 1e9:.2f} GB, {(peak - before) / 1e9:.3f} GB above what was resident (packed: "
+        f"peak {pm['peak_gb']:.2f} GB, {pm['peak_added_gb']:.2f} GB above the corpus)  [{smi}]")
+    for prec in ("default", "highest"):
+        search(store, queries, k=10, precision=prec)  # warm
+        t0 = time.perf_counter()
+        vd, vi, _ = search(store, queries, k=10, precision=prec)
+        tv = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        pd, pi, _ = search(packed, queries, k=10, precision=prec)
+        tp = time.perf_counter() - t0
+        check(vd.shape == (nq, 10) and bool(np.isfinite(vd).all()) and bool((vi > 0).all()),
+              f"virtual {prec}: finite, filled")
+        n_tied = same_neighbors(vd, vi, pd, pi, f"virtual vs packed, precision={prec}")
+        log(f"[virtual] search precision={prec}, n_buckets=4, k=10: {tv:.4f} s per {nq} queries "
+            f"(packed {tp:.4f} s); equals the packed store's search ({n_tied} ids differ at ties)")
+    nc = 256
+    qc = queries[:nc]
+    b0 = scan_kernel.LAUNCHES
+    t0 = time.perf_counter()
+    wd, wi, _ = search(store, qc, k=1100, precision="highest")
+    tw = time.perf_counter() - t0
+    rounds = scan_kernel.LAUNCHES - b0
+    launches = read_counts()
+    # ------------------------------------------------------------------
+    order_c, _ = index.compute_bucket_order(qc, 4, keep_on_device=True)
+    # a second round runs where a visited bucket fills a 1024-wide list
+    visited = np.unique(order_c[order_c >= 0].cpu().numpy())
+    want = 1 + int((store.bucket_sizes[visited] >= scan_kernel.MAX_K).any())
+    check(rounds == want, f"k=1100 (k_scan 1106) scanned in {rounds} launches, not {want} rounds")
+    ref_d, ref_i = restricted_knn(store, qc, order_c, 1100)
+    check(wd.shape == (nc, 1100), "k=1100: result shape")
+    n_tied = same_neighbors(wd, wi, ref_d.cpu().numpy(), ref_i.cpu().numpy(),
+                            "k=1100 over the virtual store vs visited-bucket exact kNN")
+    log(f"[virtual] k=1100, precision=highest, {nc} queries at n_buckets=4: {tw:.4f} s, {rounds} scan "
+        f"launch(es) (rounds); equals exact kNN over the visited buckets ({n_tied} ids differ at ties)")
+    del ref_d, ref_i, wd, wi
+
+    # ---- the row-map scan alone, beside the packed scan ----
+    order, _ = index.compute_bucket_order(queries, 4, keep_on_device=True)
+    plan, vargs = scan_inputs(store, queries, order, 128, "bf16")
+    _, pargs = scan_inputs(packed, queries, order, 128, "bf16")
+    kw = dict(k=16, qtile=128, chunk=store.chunk, mode="bf16")
+    runs = {"packed": [], "virtual": []}
+    for _ in range(2):  # in turns
+        for name, a in (("packed", pargs), ("virtual", vargs)):
+            runs[name].append(cuda_ms(lambda: scan_kernel.scan_pairs(*a, **kw), 3))
+    v_ms, p_ms = float(np.mean(runs["virtual"])), float(np.mean(runs["packed"]))
+    plain_ms = cuda_ms(lambda: scan_kernel.scan_pairs_reference(*vargs, **kw), 1)
+    lib_ms = cuda_ms(library_scan(store, plan, vargs, 16, "bf16"), 1)
+    torch.cuda.empty_cache()
+    mac, ops, peak_ops, nbytes = scan_work(store, plan, order, d, 16, "bf16")
+    bound = {"operations": ops / peak_ops * 1e3, "bytes": nbytes / HBM_BYTES_PER_S * 1e3}
+    bound_by = max(bound, key=bound.get)
+    kd, ks = scan_kernel.scan_pairs(*vargs, **kw)
+    pd_, ps_ = scan_kernel.scan_pairs(*pargs, **kw)
+    rd, rs = scan_kernel.scan_pairs_reference(*vargs, **kw)
+    err, gap = compare_candidates(kd, ks, rd, rs, "bf16", "flagship row map bf16")
+    check(torch.equal(kd, pd_) and torch.equal(ks, ps_),
+          "the row-map kernel's candidates are bit-equal to the packed kernel's")
+    log(f"[virtual] scan_pairs bf16, row map (virtual store): kernel {v_ms:.3f} ms "
+        f"({', '.join(f'{t:.3f}' for t in runs['virtual'])}) against the packed store's "
+        f"{p_ms:.3f} ms ({', '.join(f'{t:.3f}' for t in runs['packed'])}) = {v_ms / p_ms:.3f}x; "
+        f"plain {plain_ms:.2f} ms; library (gather through the grid + matmul + topk) "
+        f"{lib_ms:.2f} ms; bound {bound[bound_by]:.3f} ms by {bound_by} ({nbytes / 1e9:.3f} GB) = "
+        f"{bound[bound_by] / v_ms:.1%} of it; {plan.n_pairs} pairs; agree, max|Δd|={err:.3g}; "
+        f"bit-equal to the packed kernel's candidates  [{smi}]")
+    # the k=1100 search's scan alone (k_scan 1106 in f32 over its 256
+    # queries): the first round (1024 wide) and both rounds, beside k 16
+    _, wargs = scan_inputs(store, qc, order_c, 128, "f32")
+    wide = {kk: cuda_ms(lambda: scan_kernel.scan_pairs(*wargs, k=kk, qtile=128,
+                                                       chunk=store.chunk, mode="f32"), 1)
+            for kk in (16, 1024, 1106)}
+    wide_plain = cuda_ms(lambda: scan_kernel.scan_pairs_reference(
+        *wargs, k=1106, qtile=128, chunk=store.chunk, mode="f32"), 1)
+    log(f"[virtual] scan_pairs f32, row map, the k=1100 search's {nc} queries: k_scan 16 "
+        f"{wide[16]:.2f} ms, the 1024-wide first round {wide[1024]:.2f} ms, k_scan 1106 in two "
+        f"rounds {wide[1106]:.2f} ms; plain at 1106 {wide_plain:.2f} ms  [{smi}]")
+    log(f"[virtual] total {time.perf_counter() - t_all:.1f} s")
+    del store, vargs, pargs, wargs, kd, ks, rd, rs, pd_, ps_
+    torch.cuda.empty_cache()
+    return launches, {"ms": v_ms, "packed_ms": p_ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                      "bound_ms": bound[bound_by], "bound_by": bound_by, "err": err,
+                      "wide_ms": wide, "wide_plain_ms": wide_plain}
+
+
+def phase_sharded(dev, data: dict, ctx: dict, packed_scan_ms: float, smi: str):
+    """The main path over a store sharded by bucket over ``[dev] * 4`` (the
+    card has one GPU, so the four shards take turns on it): from the
+    device corpus (``get_sharded_store``, chunk 256, the JAX package's
+    default off the TPU) and from the packed store
+    (``shard_packed_store``).  A visit-4 default search with rerank of
+    the 10k queries equals the single store's and launches the scan once
+    a shard; then each shard's rows, pairs and scan time (CUDA events)
+    beside the single store's scan."""
+    corpus, row_scales, queries = data["corpus"], data["row_scales"], data["queries"]
+    index, pred, packed = ctx["index"], ctx["data_prediction"], ctx["store"]
+    nq, n = queries.shape[0], corpus.shape[0]
+    devices = [dev] * 4
+    t_all = time.perf_counter()
+
+    def search(st):
+        return index.search(None, queries, None, queries, pred, n_buckets=4, k=10, store=st)
+
+    ref_d, ref_i, _ = search(packed)
+    single = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        search(packed)
+        single.append(time.perf_counter() - t0)
+
+    # ---- the path: every launch from here to the read counts ----
+    reset_counts()
+    stores = {}
+    for kind in ("corpus", "packed"):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        if kind == "corpus":
+            sharded = index.get_sharded_store((corpus, row_scales), pred, devices)
+        else:
+            sharded = lmi.shard_packed_store(packed, devices)
+        torch.cuda.synchronize()
+        made_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        rows = [int(sh.bucket_sizes.sum()) for sh in sharded.shards]
+        check(isinstance(sharded, lmi.ShardedStore) and len(sharded.shards) == 4
+              and all(sh.device == dev for sh in sharded.shards), f"sharded ({kind}): 4 shards")
+        check(sum(rows) == n, f"sharded ({kind}): every row in one shard")
+        search(sharded)  # warm
+        b0 = scan_kernel.LAUNCHES
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            sd, si, _ = search(sharded)
+            times.append(time.perf_counter() - t0)
+        per_search = (scan_kernel.LAUNCHES - b0) / 3
+        check(per_search == 4, f"sharded ({kind}): {per_search} scan launches a search, not 4")
+        n_tied = same_neighbors(sd, si, ref_d, ref_i, f"sharded ({kind}) vs the single store")
+        stores[kind] = sharded
+        log(f"[sharded] from the {kind}: 4 shards on {dev}, chunk {sharded.chunk}, rows "
+            f"{rows}, {sharded.nbytes() / 1e9:.2f} GB in {made_s:.2f} s (device memory peak "
+            f"{peak / 1e9:.2f} GB, {(peak - before) / 1e9:.2f} GB above what was resident); "
+            f"search default, n_buckets=4, k=10: reps {[round(t, 4) for t in times]} s, mean "
+            f"{np.mean(times):.4f} s per {nq} queries against the single store's "
+            f"{np.mean(single):.4f} s = {np.mean(times) / np.mean(single):.3f}x; 4 scan launches "
+            f"a search; equals the single store's search ({n_tied} ids differ at ties)  [{smi}]")
+    launches = read_counts()
+    # ------------------------------------------------------------------
+
+    order, _ = index.compute_bucket_order(queries, 4, keep_on_device=True)
+    valid = order >= 0
+    at = order.clamp_min(0).long()
+    timing = {}
+    for kind, sharded in stores.items():
+        owner = torch.as_tensor(sharded.bucket_device, device=dev)[at]
+        local = torch.as_tensor(sharded.bucket_local, device=dev)[at]
+        per = []
+        for i, shard in enumerate(sharded.shards):
+            plan, sargs = scan_inputs(shard, queries, torch.where(valid & (owner == i), local, -1),
+                                      128, "bf16")
+            ms = cuda_ms(lambda: scan_kernel.scan_pairs(*sargs, k=16, qtile=128,
+                                                        chunk=shard.chunk, mode="bf16"), 3)
+            per.append((int(shard.bucket_sizes.sum()), plan.n_pairs, ms))
+        total = sum(t for _, _, t in per)
+        timing[kind] = total
+        log(f"[sharded] from the {kind}: scan bf16 a shard (rows, pairs, ms): "
+            f"{[(r, p, round(t, 3)) for r, p, t in per]}; sum {total:.3f} ms against the single "
+            f"store's scan {packed_scan_ms:.3f} ms = {total / packed_scan_ms:.3f}x  [{smi}]")
+    log(f"[sharded] total {time.perf_counter() - t_all:.1f} s")
+    del stores, sharded
+    torch.cuda.empty_cache()
+    return launches, timing
 
 
 def gather_vs_plain(table, idx, what: str, smi: str) -> dict:
@@ -1614,7 +1982,11 @@ def main() -> None:
     phase_build()
     small = phase_kernel_vs_plain(dev)
     data = make_corpus(dev, args.rows, 10_000, 120)
-    main_launches, timing = phase_main(dev, data, smi)
+    main_launches, timing, ctx = phase_main(dev, data, smi)
+    virt_launches, virt_timing = phase_virtual(dev, data, ctx, smi)
+    shard_launches, _ = phase_sharded(dev, data, ctx, timing["bf16"]["ms"], smi)
+    del ctx
+    torch.cuda.empty_cache()
     build_launches, gather_timing, (index, store) = phase_build_path(dev, data, smi)
     dyn_launches, _ = phase_dynamic(dev, index, store, data, smi)
     del index, store, data
@@ -1624,13 +1996,14 @@ def main() -> None:
     for name, source, replaces, t, errs in (
         ("scan_pairs", KERNEL_SOURCE, REPLACES, timing["bf16"],
          [e for pair in small.values() for e in pair[:1]] + [t["err"] for t in timing.values()]
-         + [cli_timing["err"]]),
+         + [virt_timing["err"], cli_timing["err"]]),
         # the row gather's kernels: the merge gather is the one the search launches
         ("gather_pairs", GATHER_SOURCE, GATHER_REPLACES, gather_timing["merge"],
          [t["err"] for t in gather_timing.values()]),
     ):
         rows.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                     "launches": (main_launches[name] + build_launches[name]
+                     "launches": (main_launches[name] + virt_launches[name]
+                                  + shard_launches[name] + build_launches[name]
                                   + dyn_launches[name] + cli_launches[name]),
                      "max_abs_err": max(errs), "ms": t["ms"], "plain_ms": t["plain_ms"],
                      "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],

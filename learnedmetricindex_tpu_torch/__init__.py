@@ -21,6 +21,12 @@ result files (``eval.py``, which also scores them); ``Baseline`` is
 exact kNN for the ground truth, ``NeuralNetwork`` the reference's
 one-model API and ``utils/`` the timing, logging and trace helpers.
 
+A tensor corpus is searched through a *virtual* store, the id grid over
+the unmoved tensor (``LearnedIndex.get_bucket_store``), and
+``prepare_packed_store`` packs a copy; ``parallel`` shards a store by
+bucket over a list of devices (``shard_store``, ``shard_packed_store``,
+``sharded_search``; ``LearnedIndex.get_sharded_store``).
+
 Devices are explicit: every entry point that creates tensors takes a
 ``device`` and nothing picks one.  Asking for ``cuda`` on a machine
 without a usable GPU raises.  CPU tensors run the plain PyTorch version
@@ -45,6 +51,13 @@ from learnedmetricindex_tpu_torch.index.serialization import (
     save_index,
 )
 from learnedmetricindex_tpu_torch.models.train import NeuralNetwork
+from learnedmetricindex_tpu_torch.parallel import (
+    ShardedStore,
+    create_mesh,
+    shard_packed_store,
+    shard_store,
+    sharded_search,
+)
 
 __version__ = "0.1.0"
 
@@ -56,7 +69,12 @@ __all__ = [
     "LearnedIndexBuilder",
     "ModelParameters",
     "NeuralNetwork",
+    "ShardedStore",
+    "create_mesh",
     "load_index",
     "save_index",
+    "shard_packed_store",
+    "shard_store",
+    "sharded_search",
     "__version__",
 ]

@@ -9,8 +9,9 @@ explicit visit counts in place of the ``--buckets-perc`` sweep;
 navigation ``--dataset`` other than ``clip768v2`` scans in ``clip768v2``
 (dual embeddings).  One flag is the port's own: ``--device`` (default
 ``cuda``; without a GPU that raises, ``--device cpu`` runs the kernels'
-plain versions).  ``--shard-devices`` other than 0 raises: multi-GPU is
-a later slice of the port.
+plain versions).  ``--shard-devices`` other than 0 raises: the multi-GPU
+build is not in the port yet (a built index searches a sharded store
+through ``LearnedIndex.get_sharded_store``).
 
 Run as ``python -m learnedmetricindex_tpu_torch.cli [flags]``.  Result
 files need h5py; :func:`sweep` (build and search, no files) does not.
@@ -69,8 +70,9 @@ def format_identifier(
 def _check_single_device(shard_devices: int) -> None:
     if shard_devices:
         raise NotImplementedError(
-            "--shard-devices: sharded build and search come with the port's multi-GPU "
-            "slice (ROADMAP.md §1 item 6)"
+            "--shard-devices: the multi-GPU build (sharded k-means, the trainer's mesh) and "
+            "this flag are not in the port yet (ROADMAP.md §1 item 6); a built index "
+            "searches a sharded store through LearnedIndex.get_sharded_store"
         )
 
 

@@ -22,6 +22,23 @@
 //    what no row reached, and a pair whose bucket has no chunks, or a
 //    padding query (qidx −1), gets only the fill.
 //
+// Two optional inputs (both null on the search path over a packed store):
+//  * row map: a *virtual* store keeps no copy of the rows.  The store is
+//    then the unmoved (n, d) corpus, and slot s of the id grid `row_ids`
+//    (1-based, 0 = padding) holds corpus row row_ids[s] − 1, whose scale
+//    is row_scales[row] (an int8 corpus) or 1 (`scales` null); a padding
+//    slot's scale is 0.  load_row_meta puts each slot's row and scale in
+//    shared memory beside the slot (the FMA body loads rows through it);
+//    in the tensor-core bodies each thread reads the rows of the pieces
+//    it copies once a tile into registers.  Outputs stay slots;
+//  * floor: per (pair, query slot) a (distance, scan position) pair; a row
+//    enters a query's list only if its (dist, position in the bucket's
+//    scan order) is lexicographically above it (applied where selection
+//    reads the distance tile, off the epilogue).  The wrapper answers k
+//    wider than the widest list (1024) in rounds of at most 1024, each
+//    round's floor the last entry of the round before: exact under the
+//    tie rule above, and no list wider than 1024.
+//
 // What bounds it on an H100.  At the flagship shape (10M×768 int8 store,
 // 120 buckets, 10k queries visiting 4, k_scan 16) the scan is ~2.7e12
 // multiply-adds (3.2e12 with the query-tile padding) over at most the
@@ -85,7 +102,7 @@
 //    bf16.
 //  * The ring shares the distance tile's shared memory and drains at the
 //    end of every row tile; at list width 32 (the flagship) a block takes
-//    ~100–110 KB, so two blocks share an SM and one block's epilogue and
+//    ~104–111 KB, so two blocks share an SM and one block's epilogue and
 //    selection overlap the other's mma.  (One block an SM with a deeper
 //    ring that never drains was slower: the selection then stalls the
 //    tensor cores.)
@@ -110,23 +127,24 @@
 //  * splitting buckets over blocks: one block per pair, started largest
 //    bucket first (pair_order), but the largest bucket (~157k–162k rows
 //    at the flagship) still sets the tail; a split needs a merge pass;
-//  * k > 128 computes the distance tile 2, 4 or 8 times (see below);
+//  * k > 128 computes the distance tile 2, 4 or 8 times (see below), and k
+//    > 1024 once more a round;
 //  * f32 over an f32 store on the tensor cores (six bf16 terms a product);
 //  * the count gate of the Pallas kernel is an optimisation of its
 //    selection sweeps; the group marks above play its part here.
 //
 // Shared memory per list width (KMAX, the smallest of 32/64/128/256/512/
-// 1024 that holds k): lists 2·KMAX·QB·4 B + 2,560 B of row and query
-// metadata and group marks + the work area: the 67,584 B distance tile,
+// 1024 that holds k): lists 2·KMAX·QB·4 B + 4,096 B of row and query
+// metadata, floors and group marks + the work area: the 67,584 B distance tile,
 // which the ring and the f32 body's operand tiles (33,792 B) reuse; the
 // ring of the three-term body over a bf16 store (2 × 36,864 B) is larger
 // and sets the work area at 73,728 B.  With the distance tile:
-//   KMAX   32:  32,768 + 2,560 + 67,584 = 102,912 B (two blocks an SM)
-//   KMAX   64:  65,536 + 2,560 + 67,584 = 135,680 B
-//   KMAX  128: 131,072 + 2,560 + 67,584 = 201,216 B
-//   KMAX  256: 131,072 + 2,560 + 67,584 = 201,216 B (QB = 64)
-//   KMAX  512: 131,072 + 2,560 + 67,584 = 201,216 B (QB = 32)
-//   KMAX 1024: 131,072 + 2,560 + 67,584 = 201,216 B (QB = 16)
+//   KMAX   32:  32,768 + 4,096 + 67,584 = 104,448 B (two blocks an SM)
+//   KMAX   64:  65,536 + 4,096 + 67,584 = 137,216 B
+//   KMAX  128: 131,072 + 4,096 + 67,584 = 202,752 B
+//   KMAX  256: 131,072 + 4,096 + 67,584 = 202,752 B (QB = 64)
+//   KMAX  512: 131,072 + 4,096 + 67,584 = 202,752 B (QB = 32)
+//   KMAX 1024: 131,072 + 4,096 + 67,584 = 202,752 B (QB = 16)
 // Up to KMAX 128 a block owns all QT = 128 queries of its pair; above,
 // the lists of 128 queries would take more than a block's 227 KB, so the
 // pair's queries are split over QT/QB = 2, 4 or 8 blocks of QB = 64, 32
@@ -179,8 +197,13 @@ struct Params {
   const int* pair_order;      // (n_pairs,) pair of each block, largest bucket first
   const int* ptr;             // (n_buckets+1,) chunk CSR
   const int* chunk_of;        // CSR position -> physical chunk
-  const void* store;          // (n_slots, d)
-  const float* scales;        // (n_slots,) f32, 0 = padding slot
+  const void* store;          // (n_slots, d); with row_ids the (n, d) corpus
+  const float* scales;        // (n_slots,) f32, 0 = padding slot; with row_ids (n,) row
+                              // scales, or null for 1
+  const int* row_ids;         // (n_slots,) 1-based corpus row of each slot, 0 = pad; null
+                              // for a packed store
+  const float* floor_d;       // (n_pairs*qtile,) floor distance, or null for none
+  const int* floor_p;         // (n_pairs*qtile,) floor scan position
   float* out_d;               // (n_pairs, qtile, k)
   int* out_s;                 // (n_pairs, qtile, k)
   int qtile, k, d, qd, chunk;
@@ -203,7 +226,7 @@ __host__ __device__ constexpr size_t ring_bytes(int nt, bool widen) {
   return ring_stages(nt) * stage_bytes(nt, widen);
 }
 
-constexpr size_t kMetaBytes = size_t(3 * QT + 2 * RT) * 4;
+constexpr size_t kMetaBytes = size_t(5 * QT + 3 * RT) * 4;
 constexpr size_t kDistBytes = size_t(RT) * DQ * 4;
 constexpr size_t kF32OperandBytes = size_t(KT) * (QS + XS) * 4;
 // the work area: the distance tile, whose memory the ring reuses, or the
@@ -241,6 +264,9 @@ struct Smem {
   int* r_slot;          // [RT] slot of the tile's row r, -1 = past the chunk
   float* r_sc;          // [RT]
   unsigned* q_grp;      // [QT] byte g set: row group g of this tile may enter q's list
+  float* q_fd;          // [QT] floor distance of compute slot q, -inf = none
+  int* q_fp;            // [QT] floor scan position
+  int* r_src;           // [RT] row of the store the tile's row r is read from, -1 = none
   unsigned char* work;  // distance tile [RT][DQ] | ring | f32 operand tiles
   __device__ explicit Smem(unsigned char* base) {
     top_d = reinterpret_cast<float*>(base);
@@ -250,7 +276,10 @@ struct Smem {
     r_slot = reinterpret_cast<int*>(q_sc + QT);
     r_sc = reinterpret_cast<float*>(r_slot + RT);
     q_grp = reinterpret_cast<unsigned*>(r_sc + RT);
-    work = reinterpret_cast<unsigned char*>(q_grp + QT);
+    q_fd = reinterpret_cast<float*>(q_grp + QT);
+    q_fp = reinterpret_cast<int*>(q_fd + QT);
+    r_src = q_fp + QT;
+    work = reinterpret_cast<unsigned char*>(r_src + RT);
   }
   __device__ float* dist() const { return reinterpret_cast<float*>(work); }
   // lists of width 32 are kept query-major, one list per warp's lanes
@@ -263,6 +292,12 @@ struct Smem {
   // row group `group` of this tile holds a candidate of compute slot q
   __device__ void mark(int q, int group) const {
     reinterpret_cast<unsigned char*>(q_grp)[q * 4 + group] = 1;
+  }
+  // v at scan position pos for compute slot q, or +inf where (v, pos) is
+  // not above q's floor
+  __device__ float above_floor(float v, int q, int pos) const {
+    const float f = q_fd[q];
+    return (v > f || (v == f && pos > q_fp[q])) ? v : CUDART_INF_F;
   }
 };
 
@@ -284,11 +319,14 @@ __device__ Pair begin_pair(const Params& p, const Smem<KMAX>& s) {
   b.c_lo = p.ptr[bucket];
   b.c_hi = p.ptr[bucket + 1];
   for (int q = threadIdx.x; q < QT; q += THREADS) {
-    const int qi =
-        (q < QB && b.q0 + q < p.qtile) ? p.qidx[(size_t)b.pair * p.qtile + b.q0 + q] : -1;
+    const bool own = q < QB && b.q0 + q < p.qtile;
+    const size_t e = (size_t)b.pair * p.qtile + b.q0 + q;
+    const int qi = own ? p.qidx[e] : -1;
     s.q_row[q] = qi;
     s.q_sc[q] = (INT8 && qi >= 0) ? p.qscales[qi] : 1.0f;
     s.q_grp[q] = 0;
+    s.q_fd[q] = (own && p.floor_d != nullptr) ? p.floor_d[e] : -CUDART_INF_F;
+    s.q_fp[q] = (own && p.floor_d != nullptr) ? p.floor_p[e] : -1;
   }
   for (int e = threadIdx.x; e < KMAX * QB; e += THREADS) {
     s.top_d[e] = CUDART_INF_F;
@@ -297,15 +335,25 @@ __device__ Pair begin_pair(const Params& p, const Smem<KMAX>& s) {
   return b;
 }
 
+// Each tile row's slot, the store row it reads (through the id grid of a
+// virtual store) and its scale.
 template <int KMAX>
 __device__ void load_row_meta(const Params& p, const Smem<KMAX>& s, int phys, int r0, int nrows) {
   for (int r = threadIdx.x; r < RT; r += THREADS) {
     if (r < nrows) {
       const int slot = phys * p.chunk + r0 + r;
       s.r_slot[r] = slot;
-      s.r_sc[r] = p.scales[slot];
+      if (p.row_ids != nullptr) {
+        const int id = p.row_ids[slot];
+        s.r_src[r] = id - 1;
+        s.r_sc[r] = id == 0 ? 0.0f : p.scales != nullptr ? p.scales[id - 1] : 1.0f;
+      } else {
+        s.r_src[r] = slot;
+        s.r_sc[r] = p.scales[slot];
+      }
     } else {
       s.r_slot[r] = -1;
+      s.r_src[r] = -1;
       s.r_sc[r] = 0.0f;  // → +inf distance
     }
   }
@@ -325,9 +373,10 @@ __device__ __forceinline__ float distance(float raw, float scale, float qscale) 
 // has no row that could enter.  Distances are read 16 at a time into
 // registers first: the list updates are shared-memory stores, and reads
 // issued one row at a time behind them would each wait their full
-// latency.
+// latency.  Under a floor, a row at or below it reads as +inf here (the
+// epilogue's marks ignore floors: a marked group may then add nothing).
 template <int KMAX>
-__device__ void select_tile_thread(const Params& p, const Smem<KMAX>& s, int nrows) {
+__device__ void select_tile_thread(const Params& p, const Smem<KMAX>& s, int nrows, int pos0) {
   constexpr int QB = Smem<KMAX>::QB;
   constexpr int BATCH = 16;
   const int q = threadIdx.x;
@@ -345,6 +394,10 @@ __device__ void select_tile_thread(const Params& p, const Smem<KMAX>& s, int nro
       float v[BATCH];
 #pragma unroll
       for (int j = 0; j < BATCH; ++j) v[j] = r0 + j < nrows ? dist[(r0 + j) * DQ + q] : CUDART_INF_F;
+      if (p.floor_d != nullptr) {
+#pragma unroll
+        for (int j = 0; j < BATCH; ++j) v[j] = s.above_floor(v[j], q, pos0 + r0 + j);
+      }
 #pragma unroll
       for (int j = 0; j < BATCH; ++j) {
         if (v[j] < worst) {
@@ -372,7 +425,7 @@ __device__ void select_tile_thread(const Params& p, const Smem<KMAX>& s, int nro
 // <= it (popc of a ballot) and the entries behind it move up one lane
 // (shfl_up), so ties keep the earlier row first, as in the thread path.
 template <int KMAX>
-__device__ void select_tile_warp(const Params& p, const Smem<KMAX>& s, int nrows) {
+__device__ void select_tile_warp(const Params& p, const Smem<KMAX>& s, int nrows, int pos0) {
   constexpr int QB = Smem<KMAX>::QB;
   const int lane = threadIdx.x & 31, k = p.k;
   const float* dist = s.dist();
@@ -389,7 +442,8 @@ __device__ void select_tile_warp(const Params& p, const Smem<KMAX>& s, int nrows
     for (int group = 0; group < GROUPS; ++group) {
       if (((groups >> (8 * group)) & 0xffu) == 0) continue;
       const int r = group * 32 + lane;
-      const float v = r < nrows ? dist[r * DQ + q] : CUDART_INF_F;
+      float v = r < nrows ? dist[r * DQ + q] : CUDART_INF_F;
+      if (p.floor_d != nullptr) v = s.above_floor(v, q, pos0 + r);
       unsigned cand = __ballot_sync(FULL, v < worst);
       while (cand != 0) {
         const int j = __ffs(cand) - 1;
@@ -417,12 +471,13 @@ __device__ void select_tile_warp(const Params& p, const Smem<KMAX>& s, int nrows
   }
 }
 
+// pos0: the scan position in its bucket of the tile's first row
 template <int KMAX>
-__device__ void select_tile(const Params& p, const Smem<KMAX>& s, int nrows) {
+__device__ void select_tile(const Params& p, const Smem<KMAX>& s, int nrows, int pos0) {
   if constexpr (Smem<KMAX>::WARP_LISTS) {
-    select_tile_warp(p, s, nrows);
+    select_tile_warp(p, s, nrows, pos0);
   } else {
-    select_tile_thread(p, s, nrows);
+    select_tile_thread(p, s, nrows, pos0);
   }
 }
 
@@ -485,8 +540,8 @@ __global__ void __launch_bounds__(THREADS, blocks_per_sm(KMAX)) scan_f32_kernel(
         }
 #pragma unroll
         for (int i = 0; i < LX; ++i) {
-          const int slot = s.r_slot[row0 + i * (THREADS / KT)];
-          vx[i] = (slot >= 0 && in_d) ? __ldg(&xf[(size_t)slot * d + k0 + kk]) : 0.0f;
+          const int src = s.r_src[row0 + i * (THREADS / KT)];
+          vx[i] = (src >= 0 && in_d) ? __ldg(&xf[(size_t)src * d + k0 + kk]) : 0.0f;
         }
         __syncthreads();  // the previous step's compute is done with qs/xs
 #pragma unroll
@@ -525,7 +580,7 @@ __global__ void __launch_bounds__(THREADS, blocks_per_sm(KMAX)) scan_f32_kernel(
         if (hit) s.mark(q, tr * MR / 32);
       }
       __syncthreads();
-      select_tile(p, s, nrows);
+      select_tile(p, s, nrows, (c - b.c_lo) * chunk + r0);
     }
   }
   write_out(p, s, b);
@@ -699,6 +754,7 @@ __global__ void __launch_bounds__(THREADS, blocks_per_sm(KMAX)) scan_mma_kernel(
   constexpr int SB = b_stride(WIDEN);
   constexpr int STAGE = int(stage_bytes(NT, WIDEN));
   constexpr int A_PIECES = NT * KB / 16;  // 16-byte pieces of a query row's stage
+  constexpr int B_PIECES = RT * KBB / 16 / THREADS;  // store-row pieces a thread copies a stage
   static_assert(KBB == KE * int(sizeof(TD)), "a stage holds the same depths of both operands");
 
   extern __shared__ __align__(16) unsigned char smem[];
@@ -715,9 +771,15 @@ __global__ void __launch_bounds__(THREADS, blocks_per_sm(KMAX)) scan_mma_kernel(
   const unsigned char* xbytes = static_cast<const unsigned char*>(p.store);
   float* dist = s.dist();
 
+  // The store row of each piece this thread copies, the same in every
+  // stage of a tile (-1: past the chunk, or a virtual store's padding
+  // slot): set once a tile, in registers, so the copies need no barrier
+  // after load_row_meta and a packed store's wait on no load.
+  int src[B_PIECES];
+
   // One stage: the NT·KB bytes of each query row and the KBB bytes of
   // each store row of depth step `step`, all copies issued by all threads.
-  auto load_stage = [&](int step, int buf, int phys, int r0, int nrows) {
+  auto load_stage = [&](int step, int buf) {
     unsigned char* a = s.work + buf * STAGE;
     unsigned char* x = a + QT * SA;
     const int e0 = step * KE;
@@ -733,11 +795,11 @@ __global__ void __launch_bounds__(THREADS, blocks_per_sm(KMAX)) scan_mma_kernel(
       cp_async16(a + row * SA + c16 * 16, qbytes + (ok ? size_t(qi) * q_row_bytes + off : 0), ok);
     }
 #pragma unroll
-    for (int j = 0; j < RT * KBB / 16 / THREADS; ++j) {
+    for (int j = 0; j < B_PIECES; ++j) {
       const int i = tid + j * THREADS;
       const int r = i / (KBB / 16), c16 = i % (KBB / 16);
-      const bool live = r < nrows;
-      const size_t slot = size_t(phys) * chunk + r0 + r;
+      const bool live = src[j] >= 0;
+      const size_t slot = live ? size_t(src[j]) : 0;  // the store row read
       unsigned char* dst = x + r * SB + c16 * 16;
       const int e = e0 + c16 * (16 / int(sizeof(TD)));  // first value of this 16-byte piece
       if (CONVERT || p.copy_bytes == 0) {
@@ -781,8 +843,14 @@ __global__ void __launch_bounds__(THREADS, blocks_per_sm(KMAX)) scan_mma_kernel(
                         // the distance tile, whose memory the ring reuses
       load_row_meta(p, s, phys, r0, nrows);
 #pragma unroll
+      for (int j = 0; j < B_PIECES; ++j) {
+        const int r = (tid + j * THREADS) / (KBB / 16);
+        const int slot = phys * chunk + r0 + r;
+        src[j] = r >= nrows ? -1 : p.row_ids != nullptr ? p.row_ids[slot] - 1 : slot;
+      }
+#pragma unroll
       for (int st = 0; st < STAGES - 1; ++st) {
-        if (st < nsteps) load_stage(st, st, phys, r0, nrows);
+        if (st < nsteps) load_stage(st, st);
         cp_async_commit();  // one group per step, empty or not
       }
 
@@ -798,7 +866,7 @@ __global__ void __launch_bounds__(THREADS, blocks_per_sm(KMAX)) scan_mma_kernel(
         cp_async_wait<STAGES - 2>();  // this thread's copies of `step` landed
         __syncthreads();              // everyone's did, and step-1's reads are done
         const int next = step + STAGES - 1;
-        if (next < nsteps) load_stage(next, next % STAGES, phys, r0, nrows);
+        if (next < nsteps) load_stage(next, next % STAGES);
         cp_async_commit();
 
         const unsigned char* a = s.work + (step % STAGES) * STAGE;
@@ -883,7 +951,7 @@ __global__ void __launch_bounds__(THREADS, blocks_per_sm(KMAX)) scan_mma_kernel(
           if (hit) s.mark(q, wr);
         }
       __syncthreads();
-      select_tile(p, s, nrows);
+      select_tile(p, s, nrows, (c - b.c_lo) * chunk + r0);
     }
   }
   write_out(p, s, b);
@@ -930,7 +998,10 @@ cudaError_t launch(const Params& p, int n_pairs, cudaStream_t stream) {
 extern "C" {
 
 // Returns a cudaError_t (0 = launched).  mode: 0 f32, 1 bf16, 2 int8;
-// store_type: 0 f32, 1 bf16, 2 int8.  Queries, (n, nt·qd):
+// store_type: 0 f32, 1 bf16, 2 int8.  row_ids (a virtual store: `store`
+// is then the corpus and `scales` its row scales or null) and floor_d /
+// floor_p (per (pair, query slot) floors) may each be null.  Queries,
+// (n, nt·qd):
 //  * f32 over an f32 store: f32 rows, nt 1, qd == d;
 //  * f32 over a bf16 or int8 store: bf16, nt 3, qd a multiple of 32 >= d:
 //    per 32-value depth slice the terms hi, mid, lo side by side
@@ -941,13 +1012,16 @@ extern "C" {
 int lmi_scan_pairs(const void* queries, const void* qscales, const void* qidx,
                    const void* pair_bucket, const void* pair_order, const void* ptr,
                    const void* chunk_of,
-                   const void* store, const void* scales, void* out_d, void* out_s,
+                   const void* store, const void* scales, const void* row_ids,
+                   const void* floor_d, const void* floor_p, void* out_d, void* out_s,
                    int n_pairs, int qtile, int k, int d, int qd, int chunk, int mode,
                    int store_type, void* stream) {
   if (n_pairs <= 0) return cudaSuccess;
   if (qtile < 1 || qtile > QT || k < 1 || k > MAX_K || d < 1 || chunk < 1)
     return cudaErrorInvalidValue;
   if (mode == MODE_INT8 && store_type != STORE_INT8) return cudaErrorInvalidValue;
+  if ((floor_d == nullptr) != (floor_p == nullptr) || (row_ids == nullptr && scales == nullptr))
+    return cudaErrorInvalidValue;
   const bool fma = mode == MODE_F32 && store_type == STORE_F32;
   const int q_group = mode == MODE_F32 ? 32 : 16;
   if (fma ? qd != d
@@ -968,6 +1042,9 @@ int lmi_scan_pairs(const void* queries, const void* qscales, const void* qidx,
            static_cast<const int*>(chunk_of),
            store,
            static_cast<const float*>(scales),
+           static_cast<const int*>(row_ids),
+           static_cast<const float*>(floor_d),
+           static_cast<const int*>(floor_p),
            static_cast<float*>(out_d),
            static_cast<int*>(out_s),
            qtile,

@@ -12,6 +12,14 @@ list* instead: bucket ``b`` owns the physical chunks
 scan order, which need not be contiguous or ascending; chunks no list
 names are the free pool (:meth:`BucketStore.chunk_list`).
 
+A *virtual* store (:meth:`BucketStore.build_virtual`) keeps no copy of
+the rows: ``data_ref`` is the unmoved ``(n, d)`` corpus (f32, bf16, or
+int8 with ``row_scales``) and the id grid doubles as the map from slot
+to corpus row (``chunk_ids - 1``).  It costs the id grid and nothing
+else; the scan kernel reads each slot's row through the grid.  It is
+what ``LearnedIndex.get_bucket_store`` makes of a tensor corpus, as the
+JAX package makes one of a device array.
+
 **Scan** (:func:`scan_buckets_device`), for one batch of queries and
 their (Q, V) bucket visit order:
 
@@ -54,15 +62,15 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "int8": torch.i
 
 
 class BucketStore(NamedTuple):
-    """A packed store (see module docstring).  Host CSR arrays are
-    numpy; the rest are tensors on the store's device."""
+    """A packed or a virtual store (see module docstring).  Host CSR
+    arrays are numpy; the rest are tensors on the store's device."""
 
     chunk_ids: torch.Tensor  # (n_chunks, chunk) int32, 1-based, 0 = pad
     bucket_chunk_start: np.ndarray  # (n_buckets + 1,) int32 chunk CSR
     bucket_sizes: np.ndarray  # (n_buckets,) int32 true row counts
     chunk: int
     n_buckets: int
-    chunk_data: torch.Tensor  # (n_chunks·chunk, d) f32 / bf16 / int8
+    chunk_data: Optional[torch.Tensor] = None  # (n_chunks·chunk, d) f32 / bf16 / int8, packed
     chunk_scales: Optional[torch.Tensor] = None  # (n_chunks·chunk,) f32, int8 stores
     row_slot: Optional[torch.Tensor] = None  # (n,) int32: object id-1 → slot
     # mutation bookkeeping (index/mutation.py), None on fresh builds: the
@@ -71,20 +79,37 @@ class BucketStore(NamedTuple):
     bucket_chunk_ptr: Optional[np.ndarray] = None  # (n_buckets + 1,) int64 list CSR
     bucket_chunk_list: Optional[np.ndarray] = None  # (n_assigned,) int32 physical chunks
     bucket_fill: Optional[np.ndarray] = None  # (n_buckets,) int32
+    # a virtual store: the unmoved corpus and, for an int8 one, its scales
+    data_ref: Optional[torch.Tensor] = None  # (n, d) f32 / bf16 / int8
+    row_scales: Optional[torch.Tensor] = None  # (n,) f32
 
     @property
     def n_chunks(self) -> int:
         return self.chunk_ids.shape[0]
 
     @property
+    def virtual(self) -> bool:
+        return self.chunk_data is None
+
+    @property
+    def rows_ref(self) -> torch.Tensor:
+        """The tensor whose rows the scan reads: the packed slabs, or the
+        corpus of a virtual store."""
+        return self.data_ref if self.chunk_data is None else self.chunk_data
+
+    @property
     def device(self) -> torch.device:
-        return self.chunk_data.device
+        return self.rows_ref.device
+
+    @property
+    def dim(self) -> int:
+        return int(self.rows_ref.shape[-1])
 
     def nbytes(self) -> int:
-        return (
-            self.chunk_data.numel() * self.chunk_data.element_size()
-            + self.chunk_ids.numel() * 4
-        )
+        """Device bytes of the slabs and the id grid; a virtual store's
+        are the id grid's alone."""
+        data = 0 if self.virtual else self.chunk_data.numel() * self.chunk_data.element_size()
+        return data + self.chunk_ids.numel() * 4
 
     def chunk_list(self) -> Tuple[np.ndarray, np.ndarray]:
         """``(ptr (n_buckets + 1,) int64, list int32)``: bucket ``b`` scans
@@ -112,7 +137,18 @@ class BucketStore(NamedTuple):
         """(n_slots,) f32 dequant scale per slot; 0.0 marks padding."""
         if self.chunk_scales is not None:
             return self.chunk_scales
-        return (self.chunk_ids.reshape(-1) > 0).float()
+        ids = self.chunk_ids.reshape(-1)
+        if self.row_scales is not None:
+            return torch.where(ids > 0, self.row_scales[(ids.long() - 1).clamp_min(0)], 0.0)
+        return (ids > 0).float()
+
+    def slab(self, s0: int, s1: int) -> torch.Tensor:
+        """The stored rows of slots ``s0:s1``, not dequantized (a virtual
+        store's padding slots read corpus row 0; their scale is 0)."""
+        if not self.virtual:
+            return self.chunk_data[s0:s1]
+        ids = self.chunk_ids.reshape(-1)[s0:s1].long()
+        return self.data_ref[(ids - 1).clamp_min(0)]
 
     @classmethod
     def build(
@@ -183,6 +219,44 @@ class BucketStore(NamedTuple):
         )
 
     @classmethod
+    def build_virtual(
+        cls,
+        data_ref: torch.Tensor,
+        bucket_ids: np.ndarray,
+        n_buckets: int,
+        chunk: int = 2048,
+        row_scales: Optional[torch.Tensor] = None,
+    ) -> "BucketStore":
+        """An index-only store over an unmoved corpus tensor (f32, bf16,
+        or int8 with ``row_scales``): only the ``(n_chunks, chunk)`` id
+        grid is made (the host counting sort of :meth:`build`; ids are
+        row + 1), on the corpus's device.  The corpus must stay alive and
+        unchanged while the store is searched."""
+        if data_ref.dim() != 2 or data_ref.dtype not in _DTYPES.values():
+            raise ValueError("a virtual store reads an (n, d) f32, bf16 or int8 corpus, "
+                             f"got {tuple(data_ref.shape)} {data_ref.dtype}")
+        n = len(bucket_ids)
+        if data_ref.shape[0] < n:
+            raise ValueError(f"the corpus has {data_ref.shape[0]} rows, the bucket ids {n}")
+        if data_ref.dtype == torch.int8 and row_scales is None:
+            raise ValueError("an int8 corpus needs its row scales")
+        device = data_ref.device
+        slot_rows, starts, counts = _host_layout(bucket_ids, n_buckets, chunk)
+        ids = np.where(slot_rows >= 0, slot_rows + 1, 0).astype(np.int32)
+        if row_scales is not None:
+            row_scales = torch.as_tensor(row_scales).to(device=device, dtype=torch.float32)
+            row_scales = row_scales.contiguous()
+        return cls(
+            data_ref=data_ref.contiguous(),
+            row_scales=row_scales,
+            chunk_ids=torch.as_tensor(ids.reshape(-1, chunk), device=device),
+            bucket_chunk_start=starts,
+            bucket_sizes=counts.astype(np.int32),
+            chunk=chunk,
+            n_buckets=n_buckets,
+        )
+
+    @classmethod
     def build_packed_device(
         cls,
         data_ref: torch.Tensor,
@@ -191,33 +265,41 @@ class BucketStore(NamedTuple):
         chunk: int = 2048,
         row_scales: Optional[torch.Tensor] = None,
         slab_batch: int = 128,
+        object_ids: Optional[np.ndarray] = None,
+        device=None,
     ) -> "BucketStore":
-        """Pack a device-resident corpus (f32, bf16, or int8 with
-        ``row_scales``) on its own device, ``slab_batch`` chunks per
-        gather, so the transient is one batch of slabs.  Only the slot
-        layout is computed on the host.  The caller may free ``data_ref``
-        afterwards."""
-        device = data_ref.device
+        """Pack a corpus tensor (f32, bf16, or int8 with ``row_scales``)
+        where it lies, ``slab_batch`` chunks per gather, so the transient
+        is one batch of slabs.  Only the slot layout is computed on the
+        host.  The caller may free ``data_ref`` afterwards.
+
+        ``object_ids`` (1-based, one per entry of ``bucket_ids``) names
+        the corpus row each entry is (``object_ids - 1``) and the id it
+        reports; by default entry ``i`` is row ``i``.  ``device``: where
+        the store lives (default the corpus's); each batch of slabs is
+        gathered on the corpus's device and copied there."""
+        src_device = data_ref.device
+        device = src_device if device is None else torch.device(device)
         slot_rows, starts, counts = _host_layout(bucket_ids, n_buckets, chunk)
-        ids_host, row_slot = _host_ids(slot_rows, None, len(bucket_ids))
+        ids_host, row_slot = _host_ids(slot_rows, object_ids, len(bucket_ids))
         n_slots = len(ids_host)
-        ids = torch.as_tensor(ids_host, device=device)
+        ids = torch.as_tensor(ids_host, device=src_device)
         chunk_data = torch.empty((n_slots, data_ref.shape[1]), dtype=data_ref.dtype, device=device)
         chunk_scales = None
         if row_scales is not None:
-            row_scales = row_scales.to(device=device, dtype=torch.float32)
+            row_scales = torch.as_tensor(row_scales).to(device=src_device, dtype=torch.float32)
             chunk_scales = torch.empty(n_slots, dtype=torch.float32, device=device)
         step = slab_batch * chunk
         for s0 in range(0, n_slots, step):
             cids = ids[s0 : s0 + step]
             live = cids > 0
             rows = torch.clamp_min(cids - 1, 0).long()
-            chunk_data[s0 : s0 + step] = torch.where(live[:, None], data_ref[rows], 0)
+            chunk_data[s0 : s0 + step] = torch.where(live[:, None], data_ref[rows], 0).to(device)
             if row_scales is not None:
-                chunk_scales[s0 : s0 + step] = torch.where(live, row_scales[rows], 0.0)
+                chunk_scales[s0 : s0 + step] = torch.where(live, row_scales[rows], 0.0).to(device)
         return cls(
             chunk_data=chunk_data,
-            chunk_ids=ids.reshape(-1, chunk),
+            chunk_ids=ids.reshape(-1, chunk).to(device),
             chunk_scales=chunk_scales,
             bucket_chunk_start=starts,
             bucket_sizes=counts.astype(np.int32),
@@ -313,7 +395,9 @@ def scan_inputs(
     mode: str,
 ) -> Tuple[ScanPlan, tuple]:
     """The plan of ``queries`` (Q, d) f32 visiting ``bucket_order`` and the
-    positional arguments of ``ops.scan_kernel.scan_pairs`` for it.
+    positional arguments of ``ops.scan_kernel.scan_pairs`` for it (over a
+    virtual store: its corpus, row scales and flat id grid as the row
+    map).
 
     The scan reads each padded slot's query row through ``qidx``; no
     work-query rows are materialized (the JAX package gathers them only
@@ -335,8 +419,11 @@ def scan_inputs(
         queries, plan.qidx, plan.pair_bucket,
         torch.as_tensor(ptr.astype(np.int32), device=device),
         torch.as_tensor(chunk_of, dtype=torch.int32, device=device),
-        store.chunk_data, store.scales_flat(), qscales,
     )
+    if store.virtual:
+        args += (store.data_ref, store.row_scales, qscales, store.chunk_ids.reshape(-1))
+    else:
+        args += (store.chunk_data, store.scales_flat(), qscales, None)
     return plan, args
 
 
@@ -365,15 +452,22 @@ def merge_pairs(
 def rerank_exact_slots(
     cand_s: torch.Tensor,  # (Q, kk) slots, -1 = none
     queries: torch.Tensor,  # (Q, d) f32
-    chunk_data: torch.Tensor,  # (n_slots, d)
-    scales_flat: torch.Tensor,  # (n_slots,) f32
+    chunk_data: torch.Tensor,  # (n_slots, d); a virtual store's (n, d) corpus
+    scales_flat: Optional[torch.Tensor],  # (n_slots,) f32; a virtual store's (n,) or None
     *,
     k: int,
+    row_ids: Optional[torch.Tensor] = None,  # (n_slots,) id grid of a virtual store
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Exact f32 distances for the shortlist, straight from the packed
-    slabs, then the top ``k``."""
+    slabs (or the corpus rows of a virtual store, slot ``s`` reading row
+    ``row_ids[s] - 1``, as the JAX package's virtual rerank reads
+    ``data_ref[ids - 1]``), then the top ``k``."""
     rows = torch.clamp_min(cand_s, 0).long()
-    vecs = chunk_data[rows].float() * scales_flat[rows][:, :, None]  # (Q, kk, d)
+    if row_ids is not None:
+        rows = (row_ids[rows].long() - 1).clamp_min(0)
+    vecs = chunk_data[rows].float()  # (Q, kk, d)
+    if scales_flat is not None:
+        vecs = vecs * scales_flat[rows][:, :, None]
     sims = torch.bmm(vecs, queries[:, :, None])[:, :, 0]
     dists = torch.where(cand_s >= 0, 1.0 - sims, torch.inf)
     out_d, pos = smallest_k(dists, k)
@@ -401,17 +495,22 @@ def scan_buckets_device(
     ``k + rerank_margin`` candidates and the final ranking is exact f32
     over that shortlist."""
     mode = {"highest": "f32", "int8": "int8"}.get(precision, "bf16")
-    if mode == "int8" and store.chunk_data.dtype != torch.int8:
+    if mode == "int8" and (store.virtual or store.chunk_data.dtype != torch.int8):
         raise ValueError(
             "precision='int8' runs the int8×int8 bulk scan and needs a "
             "packed int8 store (build_packed_int8 / build_packed_device "
-            f"with row_scales); this store is {store.chunk_data.dtype}"
+            "with row_scales); this store is "
+            + ("virtual" if store.virtual else str(store.chunk_data.dtype))
         )
     k_scan = k + rerank_margin if rerank else k
     # a query's results do not depend on its tile (ties go to the earlier
     # row, then the earlier visit), so larger tiles plan as the kernel's
     qtile = min(qtile, MAX_QTILE)
     plan, args = scan_inputs(store, queries, bucket_order, qtile, mode)
+    if plan.n_pairs == 0:  # no query visits a bucket with rows: nothing to scan
+        Q = queries.shape[0]
+        return (torch.full((Q, k), torch.inf, device=store.device),
+                torch.zeros((Q, k), dtype=torch.int32, device=store.device))
     cand_d, cand_s = scan_pairs(*args, k=k_scan, qtile=qtile, chunk=store.chunk, mode=mode)
     V = bucket_order.shape[1]
     dists, slots = merge_pairs(
@@ -419,9 +518,15 @@ def scan_buckets_device(
         k=k_scan, V=V, gather_kernel=gather_mode_is_kernel(),
     )
     if rerank:
-        dists, slots = rerank_exact_slots(
-            slots, queries, store.chunk_data, store.scales_flat(), k=k
-        )
+        if store.virtual:
+            dists, slots = rerank_exact_slots(
+                slots, queries, store.data_ref, store.row_scales, k=k,
+                row_ids=store.chunk_ids.reshape(-1),
+            )
+        else:
+            dists, slots = rerank_exact_slots(
+                slots, queries, store.chunk_data, store.scales_flat(), k=k
+            )
     ids_flat = store.chunk_ids.reshape(-1)
     ids = torch.where(slots >= 0, ids_flat[torch.clamp_min(slots, 0).long()], 0)
     return dists, ids

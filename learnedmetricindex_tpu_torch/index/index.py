@@ -6,7 +6,8 @@ Same observable API as the JAX package's ``LearnedIndex.search``:
 with the reference's timing keys.  Everything runs on the index's
 ``device``: the stacked MLP forward per level, masked softmax with the
 navigation temperature, bucket ordering, then
-``bucket_store.scan_buckets_device``.
+``bucket_store.scan_buckets_device`` (or, for a store sharded over
+devices, ``parallel.sharded_index.sharded_search``).
 """
 
 from __future__ import annotations
@@ -35,6 +36,11 @@ from learnedmetricindex_tpu_torch.index.navigation import (
     single_level_order_device,
 )
 from learnedmetricindex_tpu_torch.models.mlp import StackedMLP
+from learnedmetricindex_tpu_torch.parallel.sharded_index import (
+    ShardedStore,
+    shard_store,
+    sharded_search,
+)
 
 NEG_INF = -1e9
 CLASSIFY_ROWS = 1 << 16  # rows a slice of LearnedIndex.classify
@@ -115,8 +121,10 @@ class LearnedIndex:
         self.config = config
         self.leaf_valid = np.asarray(leaf_valid, dtype=bool)
         self.device = resolve_device(device)
-        # (values, data_prediction, store): strong references, so the
-        # identity key cannot be recycled while the entry lives
+        # (kind, values, data_prediction, store): strong references, so
+        # the identity key cannot be recycled while the entry lives; kind
+        # ("store", or ("sharded", devices, chunk)) keeps the stores of
+        # get_bucket_store and get_sharded_store apart
         self._store_cache: Optional[tuple] = None
 
     @property
@@ -187,19 +195,35 @@ class LearnedIndex:
     def _n_leaves(self) -> int:
         return int(np.prod(self.config.n_categories, dtype=np.int64))
 
-    def get_bucket_store(self, data_search, data_prediction: np.ndarray) -> BucketStore:
-        """Build (and cache) the packed store on the index's device.
-
-        ``data_search``: rows, or ``(values, row_scales)``.  Host rows
-        are packed on the host (``BucketStore.build``); a tensor is packed
-        where it lies (:meth:`prepare_packed_store`) — the port scans
-        packed stores only."""
-        values, scales = data_search if isinstance(data_search, tuple) else (data_search, None)
+    def _cached(self, kind, values, data_prediction):
         c = self._store_cache
-        if c is not None and c[0] is values and c[1] is data_prediction:
-            return c[2]
+        if c is not None and c[0] == kind and c[1] is values and c[2] is data_prediction:
+            return c[3]
+        return None
+
+    def get_bucket_store(self, data_search, data_prediction: np.ndarray) -> BucketStore:
+        """Build (and cache) the store of ``data_search``, rows or
+        ``(values, row_scales)``.
+
+        A tensor gets a *virtual* store over the tensor itself
+        (``BucketStore.build_virtual``: the id grid and no copy of the
+        rows; a tensor on another device than the index's is moved there
+        first), as the JAX package makes one of a device array; the store
+        holds a reference to the tensor.  Host rows are
+        packed on the host (``BucketStore.build``, as ``config.dtype``).
+        :meth:`prepare_packed_store` packs a tensor."""
+        values, scales = data_search if isinstance(data_search, tuple) else (data_search, None)
+        store = self._cached("store", values, data_prediction)
+        if store is not None:
+            return store
         if isinstance(values, torch.Tensor):
-            store = self.prepare_packed_store(data_search, data_prediction)
+            store = BucketStore.build_virtual(
+                values.to(self.device),
+                self.bucket_ids_from_prediction(data_prediction),
+                n_buckets=self._n_leaves(),
+                chunk=self.config.chunk_size,
+                row_scales=None if scales is None else _as_tensor(scales, self.device),
+            )
         else:
             data = np.asarray(values, np.float32)
             if scales is not None:
@@ -212,7 +236,7 @@ class LearnedIndex:
                 dtype=self.config.dtype,
                 device=self.device,
             )
-        self._store_cache = (values, data_prediction, store)
+        self._store_cache = ("store", values, data_prediction, store)
         return store
 
     def prepare_packed_store(self, data_search, data_prediction: np.ndarray) -> BucketStore:
@@ -230,6 +254,27 @@ class LearnedIndex:
             chunk=self.config.chunk_size,
             row_scales=None if scales is None else _as_tensor(scales, self.device),
         )
+
+    def get_sharded_store(self, data_search, data_prediction: np.ndarray, devices,
+                          chunk: Optional[int] = None) -> ShardedStore:
+        """Build (and cache) a store sharded by bucket over ``devices`` (a
+        list of devices, repeats allowed; ``parallel.mesh.create_mesh``
+        lists a machine's): each device holds the slabs of its buckets.
+        Pass it as ``store=`` to :meth:`search`.  ``chunk`` defaults to
+        ``min(config.chunk_size, 256)``, the JAX package's default off the
+        TPU.  ``data_search``: rows or ``(values, row_scales)``; a tensor
+        is gathered where it lies."""
+        values, scales = data_search if isinstance(data_search, tuple) else (data_search, None)
+        devices = [resolve_device(d) for d in devices]
+        chunk = chunk or min(self.config.chunk_size, 256)
+        kind = ("sharded", tuple(devices), chunk)
+        store = self._cached(kind, values, data_prediction)
+        if store is not None:
+            return store
+        store = shard_store(values, self.bucket_ids_from_prediction(data_prediction),
+                            self._n_leaves(), devices, chunk=chunk, row_scales=scales)
+        self._store_cache = (kind, values, data_prediction, store)
+        return store
 
     # ------------------------------------------------------------------
     # search
@@ -306,7 +351,11 @@ class LearnedIndex:
         ``data_navigation``, ``n_categories`` and ``approx_recall`` are
         accepted for signature parity (the scan is always exact per
         visited bucket).  ``precision`` and ``rerank`` as in
-        ``bucket_store.scan_buckets_device``."""
+        ``bucket_store.scan_buckets_device``.  A :class:`ShardedStore`
+        ``store`` runs ``sharded_search`` ("int8" raises there), with the
+        same ``qtile`` (the JAX package caps it at 32 for its TPU kernel;
+        a query's results do not depend on its tile, and the CUDA kernel
+        computes 128-query tiles whatever their fill)."""
         measured: Dict[str, float] = {
             "inference": 0.0,
             "search": 0.0,
@@ -327,13 +376,19 @@ class LearnedIndex:
             q_nav, n_buckets, policy=policy, keep_on_device=True, nav_temp=nav_temp
         )
         s_scan = time.perf_counter()
-        with torch.no_grad():
-            dists, ids = scan_buckets_device(
+        if isinstance(store, ShardedStore):
+            dists, anns = sharded_search(
                 store, q_search, order, k=k, qtile=qtile, precision=precision,
                 rerank=rerank, rerank_margin=rerank_margin,
             )
-        dists = dists.cpu().numpy()
-        anns = ids.cpu().numpy().astype(np.uint32)
+        else:
+            with torch.no_grad():
+                dists, ids = scan_buckets_device(
+                    store, q_search, order, k=k, qtile=qtile, precision=precision,
+                    rerank=rerank, rerank_margin=rerank_margin,
+                )
+            dists = dists.cpu().numpy()
+            anns = ids.cpu().numpy().astype(np.uint32)
         t_scan = time.perf_counter() - s_scan
         measured["search_within_buckets"] = t_scan
         measured["seq_search"] = t_scan

@@ -97,10 +97,11 @@ def restricted_knn(
     *, slab_rows: int = 1 << 20,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Exact kNN of each query over only the buckets it visits (rows of
-    ``bucket_order``, -1 = none), in f32 over the dequantized packed
+    ``bucket_order``, -1 = none), in f32 over the dequantized
     ``store`` (an ``index.bucket_store.BucketStore``, its chunks mapped to
     buckets through its chunk list): the ceiling a bucket scan must
-    reach.  Ties go to the lower slot.  Returns ``(dists (Q, k) f32, ids (Q, k)
+    reach (a virtual store's slots read their corpus rows).  Ties go to
+    the lower slot.  Returns ``(dists (Q, k) f32, ids (Q, k)
     int32 1-based, 0 = none)`` on the store's device."""
     device = store.device
     q = queries.to(device=device, dtype=torch.float32)
@@ -115,9 +116,9 @@ def restricted_knn(
     scales = store.scales_flat()
     best_d = torch.full((n_q, k), torch.inf, device=device)
     best_s = torch.full((n_q, k), -1, dtype=torch.int64, device=device)
-    for s0 in range(0, store.chunk_data.shape[0], slab_rows):
+    for s0 in range(0, store.n_chunks * store.chunk, slab_rows):
         sc = scales[s0 : s0 + slab_rows]
-        x = store.chunk_data[s0 : s0 + slab_rows].float() * sc[:, None]
+        x = store.slab(s0, s0 + slab_rows).float() * sc[:, None]
         slot = torch.arange(s0, s0 + x.shape[0], device=device)
         bucket = chunk_bucket[slot // store.chunk]
         ok = visited[:, bucket.clamp_min(0)] & ((sc != 0.0) & (bucket >= 0))[None, :]

@@ -11,11 +11,20 @@ of a pair whose bucket has no chunks.
 * :func:`scan_pairs_reference` — the plain PyTorch version.
 * :func:`scan_pairs` — the wrapper.  CPU tensors run the plain version;
   CUDA tensors launch ``csrc/scan_pairs.cu`` (built with ``nvcc`` for
-  ``sm_90a`` at first use into ``build/torch_kernels/``) or raise.
+  ``sm_90a`` at first use into ``build/torch_kernels/``) or raise.  A
+  ``k`` wider than the kernel's widest list (:data:`MAX_K`) runs as
+  rounds of at most ``MAX_K`` (:func:`scan_in_rounds`).
 * :func:`operand_queries` — the query rows the kernel's tensor-core
   bodies read; :func:`split_f32` — the exact three-term bf16 split of
   f32 queries behind them in mode ``"f32"``.
 * ``LAUNCHES`` — how many times the wrapper launched the kernel.
+
+Stores: a packed store is ``(n_slots, d)`` rows with ``(n_slots,)``
+scales (0 = padding slot).  A *virtual* store keeps no copy of the rows:
+``row_ids`` is its ``(n_slots,)`` id grid (1-based corpus rows, 0 =
+padding), the store argument the unmoved ``(n, d)`` corpus, and
+``scales`` the corpus's ``(n,)`` row scales (an int8 corpus) or ``None``
+(scale 1).  Results are slots either way.
 
 Modes: ``"f32"`` (full f32 queries: over an int8 or bf16 store, whose
 values are exact in bf16, three bf16 tensor-core passes of exact
@@ -38,7 +47,7 @@ from learnedmetricindex_tpu_torch.ops.precision import full_f32
 from learnedmetricindex_tpu_torch.ops.select import smallest_k
 
 MODES = {"f32": 0, "bf16": 1, "int8": 2}
-MAX_K = 1024  # the widest top-k list of csrc/scan_pairs.cu
+MAX_K = 1024  # the widest top-k list of csrc/scan_pairs.cu: wider k runs in rounds
 MAX_QTILE = 128  # QT in csrc/scan_pairs.cu
 _STORE_TYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
@@ -63,40 +72,41 @@ def build() -> Tuple[Path, float]:
 
 def _bind(lib: ctypes.CDLL) -> None:
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.lmi_scan_pairs.argtypes = [vp] * 11 + [ci] * 8 + [vp]
+    lib.lmi_scan_pairs.argtypes = [vp] * 14 + [ci] * 8 + [vp]
     lib.lmi_scan_pairs.restype = ci
 
 
-def _check(queries, qidx, pair_bucket, ptr, chunk_of, store, scales, qscales,
+def _check(queries, qidx, pair_bucket, ptr, chunk_of, store, scales, qscales, row_ids,
            *, k, qtile, chunk, mode):
     if mode not in MODES:
         raise ValueError(f"unknown scan mode {mode!r} (one of {sorted(MODES)})")
-    tensors = [queries, qidx, pair_bucket, ptr, chunk_of, store, scales]
-    if qscales is not None:
-        tensors.append(qscales)
+    tensors = [t for t in (queries, qidx, pair_bucket, ptr, chunk_of, store, scales, qscales,
+                           row_ids) if t is not None]
     if any(t.device != store.device for t in tensors):
         raise ValueError("scan_pairs: every tensor must be on the store's device")
     if any(not t.is_contiguous() for t in tensors):
         raise ValueError("scan_pairs: tensors must be contiguous")
     for name, t in (("qidx", qidx), ("pair_bucket", pair_bucket), ("ptr", ptr),
-                    ("chunk_of", chunk_of)):
-        if t.dtype != torch.int32 or t.dim() != 1:
+                    ("chunk_of", chunk_of), ("row_ids", row_ids)):
+        if t is not None and (t.dtype != torch.int32 or t.dim() != 1):
             raise ValueError(f"scan_pairs: {name} must be 1-D int32")
     if store.dim() != 2 or store.dtype not in _STORE_TYPES:
-        raise ValueError("scan_pairs: store must be (n_slots, d) f32, bf16 or int8")
-    n_slots, d = store.shape
+        raise ValueError("scan_pairs: store must be (rows, d) f32, bf16 or int8")
+    n_rows, d = store.shape
+    n_slots = n_rows if row_ids is None else row_ids.shape[0]
     if queries.dim() != 2 or queries.shape[1] != d:
         raise ValueError(f"scan_pairs: queries must be (n, {d})")
-    if scales.dtype != torch.float32 or scales.shape != (n_slots,):
-        raise ValueError(f"scan_pairs: scales must be ({n_slots},) f32")
-    if n_slots % chunk or n_slots >= 2**31:
-        raise ValueError("scan_pairs: n_slots must be whole chunks and < 2**31")
+    if scales is None and row_ids is None:
+        raise ValueError("scan_pairs: a packed store needs its slot scales")
+    if scales is not None and (scales.dtype != torch.float32 or scales.shape != (n_rows,)):
+        raise ValueError(f"scan_pairs: scales must be ({n_rows},) f32")
+    if n_slots % chunk or n_slots >= 2**31 or n_rows >= 2**31:
+        raise ValueError("scan_pairs: n_slots must be whole chunks, slots and rows < 2**31")
     if qidx.shape[0] != pair_bucket.shape[0] * qtile:
         raise ValueError("scan_pairs: qidx must hold n_pairs * qtile slots")
-    if not (1 <= qtile <= MAX_QTILE and 1 <= k <= MAX_K):
+    if not (1 <= qtile <= MAX_QTILE and 1 <= k):
         raise ValueError(
-            f"scan_pairs takes 1 <= qtile <= {MAX_QTILE} and 1 <= k <= {MAX_K}, "
-            f"got qtile={qtile}, k={k}"
+            f"scan_pairs takes 1 <= qtile <= {MAX_QTILE} and k >= 1, got qtile={qtile}, k={k}"
         )
     if mode == "int8":
         if store.dtype != torch.int8 or queries.dtype != torch.int8:
@@ -117,16 +127,22 @@ def scan_pairs_reference(
     store: torch.Tensor,  # (n_slots, d) f32 / bf16 / int8
     scales: torch.Tensor,  # (n_slots,) f32, 0 = padding slot
     qscales: Optional[torch.Tensor] = None,  # (n_queries,) f32, mode "int8"
+    row_ids: Optional[torch.Tensor] = None,  # (n_slots,) int32 id grid of a virtual store
     *,
     k: int,
     qtile: int,
     chunk: int,
     mode: str,
+    floor: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of the kernel: one matmul per visited bucket
     over all of its query tiles.  Returns ``(dists, slots)``, each
-    ``(n_pairs, qtile, k)``, ascending per query."""
-    _check(queries, qidx, pair_bucket, ptr, chunk_of, store, scales, qscales,
+    ``(n_pairs, qtile, k)``, ascending per query.  With a virtual store
+    (``row_ids``) slot ``s`` reads corpus row ``row_ids[s] - 1``.
+    ``floor``: ``(distances (n_pairs·qtile,) f32, scan positions int32)``;
+    a row enters a query's list only if its (distance, position in the
+    bucket's scan order) is lexicographically above the query's floor."""
+    _check(queries, qidx, pair_bucket, ptr, chunk_of, store, scales, qscales, row_ids,
            k=k, qtile=qtile, chunk=chunk, mode=mode)
     device = store.device
     n_pairs = pair_bucket.shape[0]
@@ -148,17 +164,29 @@ def scan_pairs_reference(
         slots = (chunks[:, None] * chunk + torch.arange(chunk, device=device)).reshape(-1)
         rows = qidx2[p0 : p0 + npairs].reshape(-1)
         q = queries[rows.clamp_min(0)].to(work)
-        x = store[slots].to(work)
+        if row_ids is None:
+            x, sc = store[slots], scales[slots]
+        else:  # a virtual store: each slot's corpus row, scale 0 on padding
+            ids = row_ids[slots].long()
+            src = (ids - 1).clamp_min(0)
+            x = store[src]
+            sc = torch.ones_like(src, dtype=torch.float32) if scales is None else scales[src]
+            sc = torch.where(ids > 0, sc, 0.0)
+        x = x.to(work)
         if mode == "bf16":
             q = q.to(torch.bfloat16).float()
             x = x.to(torch.bfloat16).float()
         raw = (q @ x.T).float()
-        sc = scales[slots]
         dist = raw * (-sc)
         if mode == "int8":
             dist = dist * qscales[rows.clamp_min(0)][:, None]
         dist = dist + torch.where(sc == 0.0, torch.inf, 1.0)
         dist = torch.where((rows >= 0)[:, None], dist, torch.inf)
+        if floor is not None:
+            fd = floor[0][p0 * qtile : (p0 + npairs) * qtile, None]
+            fp = floor[1][p0 * qtile : (p0 + npairs) * qtile, None]
+            pos = torch.arange(dist.shape[1], device=device)[None, :]
+            dist = torch.where((dist > fd) | ((dist == fd) & (pos > fp)), dist, torch.inf)
         kk = min(k, dist.shape[1])
         vals, pos = smallest_k(dist, kk)
         sel = torch.where(torch.isinf(vals), -1, slots[pos]).to(torch.int32)
@@ -213,34 +241,71 @@ def operand_queries(queries: torch.Tensor, mode: str, store_dtype: torch.dtype) 
     return q
 
 
-def scan_pairs(
-    queries: torch.Tensor,
+def chunk_positions(ptr: torch.Tensor, chunk_of: torch.Tensor, n_chunks: int) -> torch.Tensor:
+    """``(n_chunks,)`` int64: each physical chunk's place in its bucket's
+    chunk list (0 for a chunk no list names), so that slot ``s`` lies at
+    scan position ``positions[s // chunk] * chunk + s % chunk`` of its
+    bucket."""
+    ptr = ptr.long()
+    counts = ptr[1:] - ptr[:-1]
+    n_assigned = int(ptr[-1])
+    entry = torch.arange(n_assigned, device=ptr.device)
+    bucket = torch.repeat_interleave(torch.arange(counts.shape[0], device=ptr.device), counts)
+    positions = torch.zeros(n_chunks, dtype=torch.int64, device=ptr.device)
+    positions[chunk_of[:n_assigned].long()] = entry - ptr[bucket]
+    return positions
+
+
+def scan_in_rounds(
+    scan_round,
     qidx: torch.Tensor,
     pair_bucket: torch.Tensor,
-    ptr: torch.Tensor,
-    chunk_of: torch.Tensor,
-    store: torch.Tensor,
-    scales: torch.Tensor,
-    qscales: Optional[torch.Tensor] = None,
+    positions: torch.Tensor,
     *,
     k: int,
     qtile: int,
     chunk: int,
-    mode: str,
+    width: int = MAX_K,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The scan (see module docstring): the CUDA kernel for CUDA tensors,
-    the plain version for CPU tensors.  Same arguments and results as
-    :func:`scan_pairs_reference`."""
-    if store.device.type == "cpu":
-        return scan_pairs_reference(
-            queries, qidx, pair_bucket, ptr, chunk_of, store, scales, qscales,
-            k=k, qtile=qtile, chunk=chunk, mode=mode,
-        )
-    if store.device.type != "cuda":
-        raise ValueError(f"scan_pairs runs on cpu or cuda, not {store.device}")
-    _check(queries, qidx, pair_bucket, ptr, chunk_of, store, scales, qscales,
-           k=k, qtile=qtile, chunk=chunk, mode=mode)
-    lib = cuda_build.load(SOURCE, _bind)
+    """Each query's top-``k`` in rounds of at most ``width``: round ``r``
+    is ``scan_round(qidx, pair_bucket, w, floor)`` over the pairs still
+    open, ``floor`` (``None`` in the first round) the last entry of each
+    query's previous round as ``(distance, scan position)``.  A list
+    holds the first ``w`` rows in (distance, scan position) order, so the
+    rounds' lists side by side are the first ``k``: exact under the
+    scan's tie rule.  A pair whose last round left a query's list short
+    (slot -1) has no more rows and takes no further round.
+    ``positions``: :func:`chunk_positions` of the store."""
+    n_pairs = pair_bucket.shape[0]
+    device = qidx.device
+    out_d = torch.full((n_pairs, qtile, k), torch.inf, device=device)
+    out_s = torch.full((n_pairs, qtile, k), -1, dtype=torch.int32, device=device)
+    floor_d = torch.full((n_pairs, qtile), -torch.inf, device=device)
+    floor_p = torch.full((n_pairs, qtile), -1, dtype=torch.int32, device=device)
+    qidx2 = qidx.reshape(n_pairs, qtile)
+    open_pairs = torch.arange(n_pairs, device=device)
+    done = 0
+    while done < k and open_pairs.numel():
+        w = min(width, k - done)
+        floor = None
+        if done:
+            floor = (floor_d[open_pairs].reshape(-1), floor_p[open_pairs].reshape(-1))
+        d, sl = scan_round(qidx2[open_pairs].reshape(-1), pair_bucket[open_pairs], w, floor)
+        out_d[open_pairs, :, done : done + w] = d
+        out_s[open_pairs, :, done : done + w] = sl
+        last = sl[:, :, -1].long()
+        at = last.clamp_min(0)
+        floor_d[open_pairs] = d[:, :, -1]
+        floor_p[open_pairs] = torch.where(
+            last >= 0, positions[at // chunk] * chunk + at % chunk, -1).to(torch.int32)
+        open_pairs = open_pairs[(last >= 0).any(dim=1)]
+        done += w
+    return out_d, out_s
+
+
+def _launch(lib, queries, qscales, qidx, pair_bucket, ptr, chunk_of, store, scales, row_ids,
+            floor, *, k: int, qtile: int, chunk: int, mode: str, terms: int):
+    """One kernel launch over the given pairs, ``k <= MAX_K``."""
     n_pairs = pair_bucket.shape[0]
     out_d = torch.empty((n_pairs, qtile, k), dtype=torch.float32, device=store.device)
     out_s = torch.empty((n_pairs, qtile, k), dtype=torch.int32, device=store.device)
@@ -250,18 +315,18 @@ def scan_pairs(
     # alone (measured 1.25x at the flagship shape on an H100)
     n_chunks = (ptr[1:] - ptr[:-1])[pair_bucket.long()]
     pair_order = torch.argsort(n_chunks, descending=True, stable=True).to(torch.int32)
-    terms = 1
-    if mode != "f32" or store.dtype != torch.float32:  # every body but the FMA one
-        queries = operand_queries(queries, mode, store.dtype)
-        terms = 3 if mode == "f32" else 1
+    floor_d, floor_p = floor if floor is not None else (None, None)
+
+    def ptr_of(t):
+        return t.data_ptr() if t is not None else None
+
     with torch.cuda.device(store.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.lmi_scan_pairs(
-            queries.data_ptr(),
-            qscales.data_ptr() if qscales is not None else None,
+            queries.data_ptr(), ptr_of(qscales),
             qidx.data_ptr(), pair_bucket.data_ptr(), pair_order.data_ptr(), ptr.data_ptr(),
-            chunk_of.data_ptr(),
-            store.data_ptr(), scales.data_ptr(), out_d.data_ptr(), out_s.data_ptr(),
+            chunk_of.data_ptr(), store.data_ptr(), ptr_of(scales), ptr_of(row_ids),
+            ptr_of(floor_d), ptr_of(floor_p), out_d.data_ptr(), out_s.data_ptr(),
             n_pairs, qtile, k, store.shape[1], queries.shape[1] // terms, chunk, MODES[mode],
             _STORE_TYPES[store.dtype], stream,
         )
@@ -270,3 +335,50 @@ def scan_pairs(
     global LAUNCHES
     LAUNCHES += 1
     return out_d, out_s
+
+
+def scan_pairs(
+    queries: torch.Tensor,
+    qidx: torch.Tensor,
+    pair_bucket: torch.Tensor,
+    ptr: torch.Tensor,
+    chunk_of: torch.Tensor,
+    store: torch.Tensor,
+    scales: Optional[torch.Tensor],
+    qscales: Optional[torch.Tensor] = None,
+    row_ids: Optional[torch.Tensor] = None,
+    *,
+    k: int,
+    qtile: int,
+    chunk: int,
+    mode: str,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The scan (see module docstring): the CUDA kernel for CUDA tensors,
+    the plain version for CPU tensors.  Same arguments and results as
+    :func:`scan_pairs_reference`.  On CUDA a ``k`` above :data:`MAX_K`
+    takes one launch a round of at most ``MAX_K`` (:func:`scan_in_rounds`)."""
+    if store.device.type == "cpu":
+        return scan_pairs_reference(
+            queries, qidx, pair_bucket, ptr, chunk_of, store, scales, qscales, row_ids,
+            k=k, qtile=qtile, chunk=chunk, mode=mode,
+        )
+    if store.device.type != "cuda":
+        raise ValueError(f"scan_pairs runs on cpu or cuda, not {store.device}")
+    _check(queries, qidx, pair_bucket, ptr, chunk_of, store, scales, qscales, row_ids,
+           k=k, qtile=qtile, chunk=chunk, mode=mode)
+    lib = cuda_build.load(SOURCE, _bind)
+    terms = 1
+    if mode != "f32" or store.dtype != torch.float32:  # every body but the FMA one
+        queries = operand_queries(queries, mode, store.dtype)
+        terms = 3 if mode == "f32" else 1
+
+    def scan_round(q_idx, p_bucket, w, floor):
+        return _launch(lib, queries, qscales, q_idx, p_bucket, ptr, chunk_of, store, scales,
+                       row_ids, floor, k=w, qtile=qtile, chunk=chunk, mode=mode, terms=terms)
+
+    if k <= MAX_K:
+        return scan_round(qidx, pair_bucket, k, None)
+    n_slots = store.shape[0] if row_ids is None else row_ids.shape[0]
+    return scan_in_rounds(scan_round, qidx, pair_bucket,
+                          chunk_positions(ptr, chunk_of, n_slots // chunk),
+                          k=k, qtile=qtile, chunk=chunk)

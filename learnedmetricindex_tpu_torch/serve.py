@@ -13,7 +13,8 @@ coalesces concurrent requests into one ``LearnedIndex.search`` call.
   also inserts, deletes and compacts.  The port's mutations write the
   store's tensors in place, so one lock is held around every dispatch
   and every mutation: a search never sees half of a mutation, and a
-  request submitted after a mutation returns sees all of it.
+  request submitted after a mutation returns sees all of it.  A plain
+  index serves any store: packed, virtual or sharded over devices.
 * :func:`make_http_server` / :func:`main` — ``POST /search``, ``GET
   /healthz``, ``GET /stats``, and ``POST /insert``, ``/delete`` and
   ``/compact`` over a ``DynamicIndex``, on the standard library's
@@ -118,7 +119,8 @@ class SearchServer:
         self.rerank_margin = int(rerank_margin)
         self.max_batch = int(max_batch)
         self.max_wait_ms = float(max_wait_ms)
-        self.d = int(store.chunk_data.shape[-1])
+        # every store layout: packed, virtual (the corpus's width) and sharded
+        self.d = store.dim
 
         self._lock = threading.Condition()
         self._pending: deque = deque()
@@ -483,8 +485,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     args = p.parse_args(argv)
     if args.shard_devices:
         raise NotImplementedError(
-            "--shard-devices: sharded serving comes with the port's multi-GPU slice "
-            "(ROADMAP.md §1, multi-GPU)"
+            "--shard-devices: this flag is not in the port yet (ROADMAP.md §1 item 6); "
+            "SearchServer serves a sharded store made with LearnedIndex.get_sharded_store"
         )
 
     from learnedmetricindex_tpu_torch.cli import parse_nav_temp

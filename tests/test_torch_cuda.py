@@ -160,9 +160,9 @@ def test_f32_body_reads_all_three_query_terms(cuda, store_dtype, d, k, qtile):
 
 
 def test_kernel_rejects_what_it_does_not_take(cuda):
-    """Tensors on two devices, int8 queries in another mode and k past the
-    widest list raise; int8 rows of 6 bytes (no 4-byte granule) run and
-    equal the plain version."""
+    """Tensors on two devices and int8 queries in another mode raise; int8
+    rows of 6 bytes (no 4-byte granule) run and equal the plain version,
+    also at k past the widest list (1025, in two rounds)."""
     store = BucketStore.build(np.ones((64, 6), np.float32), np.zeros(64, int), 1, chunk=32,
                               device=cuda)
     plan = build_plan(torch.zeros((4, 1), dtype=torch.int64, device=cuda), 1, 8)
@@ -179,8 +179,11 @@ def test_kernel_rejects_what_it_does_not_take(cuda):
                                k=4, qtile=8, chunk=32, mode="int8")
     with pytest.raises(ValueError, match="f32 queries"):
         scan_kernel.scan_pairs(*args, k=4, qtile=8, chunk=32, mode="bf16")
-    with pytest.raises(ValueError, match="k <= 1024"):
-        scan_kernel.scan_pairs(*args, k=1025, qtile=8, chunk=32, mode="int8")
+    before = scan_kernel.LAUNCHES
+    kd, ks = scan_kernel.scan_pairs(*args, k=1025, qtile=8, chunk=32, mode="int8")
+    rd, rs = scan_kernel.scan_pairs_reference(*args, k=1025, qtile=8, chunk=32, mode="int8")
+    assert scan_kernel.LAUNCHES == before + 1  # 64 rows: the first round leaves lists short
+    assert torch.equal(kd.view(torch.int32), rd.view(torch.int32)) and torch.equal(ks, rs)
 
 
 @pytest.mark.parametrize("precision", ["highest", "default", "int8"])
@@ -544,3 +547,180 @@ def test_device_trace_names_the_scan_kernel(cuda, tmp_path):
             index.search(None, q, None, q, pred, n_buckets=3, k=10, store=store)
     names = {e["name"] for e in device_events(prof.trace_path)}
     assert any("scan_mma_kernel" in n for n in names), sorted(names)[:20]
+
+
+def _virtual_case(dev, d, corpus, seed, shuffle):
+    """A virtual store over a 3000×d corpus (f32, bf16, or int8 with row
+    scales; 40 rows duplicated later in their own bucket), 6 buckets with
+    one empty, chunk 96; ``shuffle`` moves its chunks out of physical
+    order (each bucket's list keeps the scan order).  Returns the store,
+    160 queries and their (160, 3) visits."""
+    data, rng = _corpus(3000, d, seed=seed)
+    bucket_ids = rng.integers(0, 6, 3000)
+    bucket_ids[bucket_ids == 2] = 3
+    src, dst = np.arange(0, 40), np.arange(1500, 1540)
+    data[dst], bucket_ids[dst] = data[src], bucket_ids[src]
+    x = torch.as_tensor(data, device=dev)
+    scales = None
+    if corpus == "int8":
+        x, scales = quantize.quantize_rows(x)
+    elif corpus == "bfloat16":
+        x = x.bfloat16()
+    store = BucketStore.build_virtual(x, bucket_ids, 6, chunk=96, row_scales=scales)
+    if shuffle:
+        perm = np.random.default_rng(seed).permutation(store.n_chunks)
+        inv = torch.as_tensor(np.argsort(perm), device=dev)
+        ptr, clist = store.chunk_list()
+        store = store._replace(chunk_ids=store.chunk_ids[inv], bucket_chunk_ptr=ptr,
+                               bucket_chunk_list=perm[clist].astype(np.int32))
+    queries = torch.as_tensor(np.concatenate([data[src], data[40:160] + 0.05]), device=dev)
+    order = np.stack([rng.choice(6, 3, replace=False) for _ in range(160)])
+    order[:40, 0] = bucket_ids[src]
+    order[:40, 1:] = [[b for b in rng.permutation(6) if b != bucket_ids[i]][:2] for i in src]
+    order = torch.as_tensor(order, device=dev)
+    order[-10:, 2] = -1
+    return store, queries, order
+
+
+def _kernel_vs_plain(args, k, qtile, chunk, mode, launches):
+    """The kernel (``launches`` launches) against the plain version: int8
+    bit-equal, f32/bf16 to the bars, slots differing only at ties, and no
+    slot twice in a list."""
+    before = scan_kernel.LAUNCHES
+    kd, ks = scan_kernel.scan_pairs(*args, k=k, qtile=qtile, chunk=chunk, mode=mode)
+    torch.cuda.synchronize()
+    assert scan_kernel.LAUNCHES == before + launches
+    rd, rs = scan_kernel.scan_pairs_reference(*args, k=k, qtile=qtile, chunk=chunk, mode=mode)
+    kd, ks, rd, rs = (t.cpu().numpy() for t in (kd, ks, rd, rs))
+    np.testing.assert_array_equal(np.isinf(kd), np.isinf(rd))
+    if mode == "int8":
+        np.testing.assert_array_equal(kd.view(np.uint32), rd.view(np.uint32))
+        np.testing.assert_array_equal(ks, rs)
+    else:
+        np.testing.assert_allclose(kd, rd, rtol=1e-4, atol=1e-5)
+        mism = ks != rs
+        np.testing.assert_allclose(kd[mism], rd[mism], rtol=1e-6, atol=5e-6)
+    for row in ks.reshape(-1, k):
+        live = row[row >= 0]
+        assert len(np.unique(live)) == len(live)
+    return ks
+
+
+@pytest.mark.parametrize("corpus,mode", [
+    ("float32", "bf16"), ("float32", "f32"), ("bfloat16", "bf16"), ("bfloat16", "f32"),
+    ("int8", "bf16"), ("int8", "f32"), ("int8", "int8")])
+@pytest.mark.parametrize("k,qtile,shuffle", [(16, 128, False), (128, 8, True), (1024, 100, False)])
+def test_row_map_kernel_matches_plain_version(cuda, corpus, mode, k, qtile, shuffle):
+    """A virtual store (rows read through the id grid, scale 0 on padding,
+    the row's scale for an int8 corpus, 1 otherwise): the kernel equals
+    the plain version at list widths 32, 128 and 1024, also with the
+    chunk lists out of physical order; exact ties go to the earlier row."""
+    store, queries, order = _virtual_case(cuda, 768, corpus, seed=k, shuffle=shuffle)
+    _, args = scan_inputs(store, queries, order, qtile, mode)
+    assert args[8] is not None and args[5] is store.data_ref
+    ks = _kernel_vs_plain(args, k, qtile, 96, mode, 1)
+    slot_of_copy = {}
+    flat = store.chunk_ids.reshape(-1).cpu().numpy()
+    for slot in np.nonzero((flat >= 1501) & (flat <= 1540))[0]:
+        slot_of_copy[flat[slot]] = slot
+    orig = {flat[s]: s for s in np.nonzero((flat >= 1) & (flat <= 40))[0]}
+    _, position = store.chunk_owner()
+    pos = lambda s: position[s // 96] * 96 + s % 96  # noqa: E731
+    lists = ks.reshape(-1, k)
+    for i in range(40):
+        a, b = orig[i + 1], slot_of_copy[1501 + i]
+        first, later = (a, b) if pos(a) < pos(b) else (b, a)
+        rows, cols = np.nonzero(lists == later)
+        for r, j in zip(rows, cols):
+            assert (lists[r, :j] == first).any()
+
+
+def _wide_case(dev, store_kind, seed):
+    """9000×768 rows in 3 buckets of ~3,000 (wider than two rounds),
+    chunk 256: an int8 or f32 store after 600 inserts and 300 deletes with
+    its chunks moved out of physical order, or a virtual store over a bf16
+    corpus with its chunk lists shuffled.  Returns (store, 100 queries,
+    their (100, 2) visits)."""
+    data, rng = _corpus(9000, 768, seed=seed)
+    bucket_ids = rng.integers(0, 3, 9000)
+    if store_kind == "virtual":
+        store = BucketStore.build_virtual(torch.as_tensor(data, device=dev).bfloat16(),
+                                          bucket_ids, 3, chunk=256)
+        perm = rng.permutation(store.n_chunks)
+        ptr, clist = store.chunk_list()
+        store = store._replace(chunk_ids=store.chunk_ids[torch.as_tensor(np.argsort(perm),
+                                                                         device=dev)],
+                               bucket_chunk_ptr=ptr, bucket_chunk_list=perm[clist].astype(np.int32))
+    else:
+        if store_kind == "int8":
+            store = BucketStore.build_packed_int8(data, bucket_ids, 3, chunk=256, device=dev)
+        else:
+            store = BucketStore.build(data, bucket_ids, 3, chunk=256, device=dev)
+        more, _ = _corpus(600, 768, seed=seed + 1)
+        store = mutation.insert_rows(store, more, rng.integers(0, 3, 600), np.arange(9001, 9601))
+        store, _ = mutation.delete_ids(store, rng.choice(9600, 300, replace=False) + 1)
+        store = _shuffled(store, seed)
+    queries = torch.as_tensor(data[:100] + 0.05, device=dev)
+    order = torch.as_tensor(np.stack([rng.choice(3, 2, replace=False) for _ in range(100)]),
+                            device=dev)
+    order[-10:, 1] = -1
+    return store, queries, order
+
+
+@pytest.mark.parametrize("store_kind,mode", [("int8", "int8"), ("int8", "bf16"),
+                                             ("float32", "f32"), ("virtual", "bf16")])
+@pytest.mark.parametrize("k", [1030, 2100])
+def test_rounds_match_plain_version(cuda, store_kind, mode, k):
+    """k past the widest list runs in rounds of at most 1024, one launch a
+    round, and equals the plain version's one list, over a mutated store
+    (chunk lists out of physical order) or a virtual one."""
+    store, queries, order = _wide_case(cuda, store_kind, seed=k)
+    _, args = scan_inputs(store, queries, order, 8, mode)
+    _kernel_vs_plain(args, k, 8, 256, mode, -(-k // scan_kernel.MAX_K))
+
+
+def test_virtual_and_sharded_searches_on_gpu(cuda):
+    """On the card a virtual store's search equals the packed store's, its
+    k=1100 search equals exact kNN over the visited buckets, and a store
+    sharded over [cuda] * 3 (from the tensor corpus and from the packed
+    store) launches the scan once a shard and equals the single store."""
+    from learnedmetricindex_tpu_torch.ops.knn import recall, restricted_knn
+    from learnedmetricindex_tpu_torch.parallel import shard_packed_store
+
+    data, rng = _corpus(6000, 64, seed=31)
+    nb = 8
+    params = [{"w": rng.normal(size=(1, 64, 32)).astype(np.float32),
+               "b": np.zeros((1, 32), np.float32)},
+              {"w": rng.normal(size=(1, 32, nb)).astype(np.float32),
+               "b": np.zeros((1, nb), np.float32)}]
+    cfg = lmi.BuildConfiguration("kmeans", 1, "MLP-6", 0.01, [nb], chunk_size=128)
+    index = index_from_arrays(cfg, [params], [np.ones((1, nb), bool)], ["MLP-6"],
+                              np.ones(nb, bool), cuda)
+    pred = rng.integers(0, nb, (6000, 1))
+    x8, sc = quantize.quantize_rows(torch.as_tensor(data, device=cuda))
+    virtual = index.get_bucket_store((x8, sc), pred)
+    packed = index.prepare_packed_store((x8, sc), pred)
+    assert virtual.virtual and virtual.nbytes() * 4 < packed.nbytes()
+    q = torch.as_tensor(data[:300] + 0.01, device=cuda)
+    for precision in ("default", "highest"):
+        vd, vi, _ = index.search(None, q, None, q, pred, n_buckets=3, k=10, store=virtual,
+                                 precision=precision)
+        pd, pi, _ = index.search(None, q, None, q, pred, n_buckets=3, k=10, store=packed,
+                                 precision=precision)
+        np.testing.assert_allclose(vd, pd, rtol=1e-4, atol=1e-5)
+        mism = vi != pi
+        np.testing.assert_allclose(vd[mism], pd[mism], rtol=1e-6, atol=5e-6)
+    order, _ = index.compute_bucket_order(q[:64], 3, keep_on_device=True)
+    wd, wi, _ = index.search(None, q[:64], None, q[:64], pred, n_buckets=3, k=1100,
+                             store=virtual, precision="highest")
+    _, ref = restricted_knn(virtual, q[:64], order, 1100)
+    assert recall(wi, ref.cpu().numpy(), 1100) >= 0.999
+    sd, si, _ = index.search(None, q, None, q, pred, n_buckets=3, k=10, store=packed)
+    for sharded in (index.get_sharded_store((x8, sc), pred, [cuda] * 3, chunk=128),
+                    shard_packed_store(packed, [cuda] * 3)):
+        before = scan_kernel.LAUNCHES
+        hd, hi, _ = index.search(None, q, None, q, pred, n_buckets=3, k=10, store=sharded)
+        assert scan_kernel.LAUNCHES - before == 3
+        np.testing.assert_allclose(hd, sd, rtol=1e-4, atol=1e-5)
+        mism = hi != si
+        np.testing.assert_allclose(hd[mism], sd[mism], rtol=1e-6, atol=5e-6)

@@ -41,6 +41,9 @@ MODULES = [
     "learnedmetricindex_tpu_torch.index.mutation",
     "learnedmetricindex_tpu_torch.index.navigation",
     "learnedmetricindex_tpu_torch.index.serialization",
+    "learnedmetricindex_tpu_torch.parallel",
+    "learnedmetricindex_tpu_torch.parallel.mesh",
+    "learnedmetricindex_tpu_torch.parallel.sharded_index",
     "learnedmetricindex_tpu_torch.serve",
     "learnedmetricindex_tpu_torch.utils",
     "learnedmetricindex_tpu_torch.utils.compat",
@@ -176,6 +179,40 @@ assert recall(nns, gt, 10) == 1.0, recall(nns, gt, 10)
 """ + _NOTHING_LOADED
 
 
+# a tensor corpus searched through a virtual store and through a store
+# sharded over two "devices", and k past the kernel's widest list
+_STORES_BODY = """
+import numpy as np, torch
+torch.set_num_threads(1)
+import learnedmetricindex_tpu_torch as lmi
+from learnedmetricindex_tpu_torch.index.serialization import index_from_arrays
+rng = np.random.default_rng(2)
+data = rng.normal(size=(3000, 8)).astype(np.float32)
+data /= np.linalg.norm(data, axis=1, keepdims=True)
+cfg = lmi.BuildConfiguration("kmeans", 1, "MLP-8", 0.01, [4], chunk_size=64)
+params = [{"w": rng.normal(size=(1, 8, 8)).astype(np.float32), "b": np.zeros((1, 8), np.float32)},
+          {"w": rng.normal(size=(1, 8, 4)).astype(np.float32), "b": np.zeros((1, 4), np.float32)}]
+index = index_from_arrays(cfg, [params], [np.ones((1, 4), bool)], ["MLP-8"], np.ones(4, bool), "cpu")
+pred = rng.integers(0, 4, (3000, 1))
+corpus = torch.as_tensor(data)
+store = index.get_bucket_store(corpus, pred)
+assert store.virtual and store.data_ref is corpus
+sharded = index.get_sharded_store(corpus, pred, lmi.create_mesh(device_type="cpu") * 2)
+for st in (store, sharded):
+    d, i, t = index.search(None, data[:5], None, data[:5], pred, n_buckets=4, k=1100,
+                           precision="highest", store=st)
+    assert i.shape == (5, 1100) and (i[:, 0] == np.arange(1, 6)).all(), i[:, :3]
+""" + _NOTHING_LOADED
+
+
+def test_virtual_and_sharded_stores_without_the_jax_package():
+    """Virtual and sharded stores and a k=1100 search run with jax and the
+    JAX package unimportable."""
+    proc = _run_without(_STORES_BODY, WITHOUT_THE_JAX_PACKAGE)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().endswith("ok")
+
+
 def test_driver_runs_without_jax_h5py_or_matplotlib():
     """``cli``, ``eval``, ``baseline``, ``data`` and ``utils`` import, and
     ``cli.sweep`` and ``Baseline`` run, with jax, the JAX package, h5py and
@@ -235,7 +272,12 @@ def test_exports():
     calls: ops/precision.py)."""
     assert set(lmi.__all__) >= {"Baseline", "BuildConfiguration", "DynamicIndex", "LearnedIndex",
                                 "LearnedIndexBuilder", "ModelParameters", "NeuralNetwork",
-                                "load_index", "save_index"}
+                                "ShardedStore", "create_mesh", "load_index", "save_index",
+                                "shard_packed_store", "shard_store", "sharded_search"}
+    from learnedmetricindex_tpu_torch import parallel
+
+    assert set(parallel.__all__) == {"ShardedStore", "create_mesh", "data_model_axes",
+                                     "shard_packed_store", "shard_store", "sharded_search"}
     assert all(hasattr(lmi, name) for name in lmi.__all__)
     for matmul, cudnn in ((True, False), (False, True)):
         proc = _run_without(f"""

@@ -231,10 +231,26 @@ def test_wrapper_runs_plain_version_on_cpu_and_validates():
         assert torch.equal(a, b)
     with pytest.raises(ValueError, match="int8"):
         scan_kernel.scan_pairs(*args, k=k, qtile=qtile, chunk=chunk, mode="int8")
-    # the widest list is 1024: k = 1018 + a rerank margin of 6 fits, 1025 does not
-    scan_kernel.scan_pairs(*args, k=1024, qtile=qtile, chunk=chunk, mode="f32")
-    with pytest.raises(ValueError, match="k <= 1024"):
-        scan_kernel.scan_pairs(*args, k=1025, qtile=qtile, chunk=chunk, mode="f32")
+    # past the kernel's widest list (1024; on the card k runs in rounds of
+    # at most 1024): k 1025 and 2100 answer, equal to the Pallas kernel's
+    # lists sorted by (distance, slot), slots differing only at ties (pairs
+    # of the empty bucket, which the Pallas kernel never writes, are fill)
+    real = None
+    for wide in (1025, 2100):
+        jplan, _, written, jd, js = _jax_pairs(store, queries, order, qtile, wide, chunk, "f32")
+        o = np.lexsort((js, jd), axis=-1)
+        jd, js = np.take_along_axis(jd, o, -1), np.take_along_axis(js, o, -1)
+        td, ts = (t.numpy() for t in scan_kernel.scan_pairs(*args, k=wide, qtile=qtile,
+                                                             chunk=chunk, mode="f32"))
+        real = (jplan.qidx >= 0).reshape(-1, qtile)
+        assert np.isinf(td[~written[: len(td)]]).all() and (~written[: len(td)]).any()
+        real &= written[: len(td), None]
+        assert td.shape[-1] == wide and np.isinf(td[real][:, 1000:]).all()
+        np.testing.assert_allclose(td[real], jd[real], rtol=1e-4, atol=1e-5)
+        mism = ts[real] != js[real]
+        if mism.any():
+            np.testing.assert_allclose(td[real][mism], jd[real][mism], rtol=1e-6, atol=1e-7)
+    assert real.any()
     with pytest.raises(ValueError, match="mode"):
         scan_kernel.scan_pairs(*args, k=k, qtile=qtile, chunk=chunk, mode="fp8")
 

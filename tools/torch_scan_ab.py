@@ -12,8 +12,9 @@ each diff to ``build/scan_ab/``; then times both libraries in one
 process on the same flagship inputs (``chip_smoke.make_corpus``: 10M×768
 int8, 120 nearest-centroid buckets, 10k queries visiting 4, ``k_scan``
 16, qtile 128), alternating which goes first, and checks that both give
-the same bits.  Both sources must share the C interface of bf16 and int8
-mode.
+the same bits.  Both sources must take bf16 and int8 mode through
+``lmi_scan_pairs``, with or without the row-map and floor pointers (the
+later interface; they are passed as null).
 """
 
 from __future__ import annotations
@@ -91,9 +92,21 @@ def flagship_store(dev):
     return store, queries, order
 
 
-def launcher(lib, store, queries, order, mode: str):
-    """One launch of ``lib``'s kernel with the wrapper's arguments."""
-    _, (q, qidx, pb, ptr, chunk_of, st, sc, qs) = scan_inputs(store, queries, order, 128, mode)
+def bind(lib, source: Path) -> bool:
+    """Set ``lmi_scan_pairs``'s argument types for the interface ``source``
+    declares; True where it takes the row-map and floor pointers."""
+    mapped = "const void* row_ids" in source.read_text()
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.lmi_scan_pairs.argtypes = [vp] * (14 if mapped else 11) + [ci] * 8 + [vp]
+    lib.lmi_scan_pairs.restype = ci
+    return mapped
+
+
+def launcher(lib, mapped: bool, store, queries, order, mode: str):
+    """One launch of ``lib``'s kernel with the wrapper's arguments (null row
+    map and floors where its interface has them)."""
+    _, (q, qidx, pb, ptr, chunk_of, st, sc, qs, _) = scan_inputs(store, queries, order, 128,
+                                                                 mode)
     qo = scan_kernel.operand_queries(q, mode, st.dtype)
     n_pairs = pb.shape[0]
     pair_order = torch.argsort((ptr[1:] - ptr[:-1])[pb.long()], descending=True,
@@ -105,7 +118,8 @@ def launcher(lib, store, queries, order, mode: str):
         err = lib.lmi_scan_pairs(
             qo.data_ptr(), qs.data_ptr() if qs is not None else None, qidx.data_ptr(),
             pb.data_ptr(), pair_order.data_ptr(), ptr.data_ptr(), chunk_of.data_ptr(),
-            st.data_ptr(), sc.data_ptr(), out_d.data_ptr(), out_s.data_ptr(), n_pairs, 128, 16,
+            st.data_ptr(), sc.data_ptr(), *((None, None, None) if mapped else ()),
+            out_d.data_ptr(), out_s.data_ptr(), n_pairs, 128, 16,
             st.shape[1], qo.shape[1], 2048, scan_kernel.MODES[mode], 2,
             torch.cuda.current_stream().cuda_stream)
         cs.check(err == 0, f"launch failed: cudaError {err}")
@@ -135,11 +149,12 @@ def main() -> None:
     dev = torch.device("cuda", 0)
     store, queries, order = flagship_store(dev)
     libs = {}
-    for name in sources:
-        libs[name] = ctypes.CDLL(str(WORK / f"{name}.so"))
-        scan_kernel._bind(libs[name])
+    for name, src in sources.items():
+        lib = ctypes.CDLL(str(WORK / f"{name}.so"))
+        libs[name] = (lib, bind(lib, src))
     for mode in ("bf16", "int8"):
-        runs = {n: launcher(lib, store, queries, order, mode) for n, lib in libs.items()}
+        runs = {n: launcher(lib, mapped, store, queries, order, mode)
+                for n, (lib, mapped) in libs.items()}
         outs = {n: tuple(t.clone() for t in run()) for n, run in runs.items()}
         same = all(torch.equal(x, y) for x, y in zip(outs["other"], outs["this"]))
         cs.check(same, f"{mode}: the two kernels give different bits")
