@@ -71,6 +71,14 @@ phases:
    no kernel built anew; ``SearchServer`` with 16 clients of 64 queries
    for ~10 s while a thread inserts and deletes (latency p50/p95, QPS,
    batches against requests); one call to each HTTP endpoint;
+   then the multi-device phase, part (b): that mutated store promoted to
+   four shards on ``[cuda:0] * 4`` (``shard_packed_store`` and a
+   ``ShardedDynamicIndex`` with its ``next_id``): 500,000 inserts, 64
+   inserts of 64 rows, 250,000 deletes and a compaction, each followed by
+   a visit-4 search of the 10k queries held to exact kNN over the
+   visited buckets (one scan launch a shard, no deleted id, compaction
+   bit-identical, no kernel built anew), then ``SearchServer`` over it
+   with 16 clients and a mutator for ~5 s (``[sharded-dynamic]`` lines);
 8. experiment driver: the flagship index and corpus freed, the CLI
    (``cli.sweep``, and the result files where h5py imports) at
    ``--synthetic 1000000 --synthetic-dim 768``, 120 buckets, MLP-4, 4
@@ -80,7 +88,16 @@ phases:
    exact over its visited buckets, recall not falling as visits rise and
    ≥ 0.999 at every bucket; one search under ``utils/profiling.
    device_trace``, its eight longest device operations and the device's
-   busy share of the search.
+   busy share of the search;
+9. the multi-device phase, part (a): the same sweep over ``[cuda:0] *
+   4`` (``cli.sweep(..., devices=)``, the build over the device list and
+   one store sharded over it) on the host data ``phase_cli`` drew, at
+   ``--n-categories 120`` (sharded k-means, the root trained data
+   parallel) and ``12 10`` (level 1 expert parallel, ``kmeans_nodes``
+   over the devices): recall against the baseline, each visit count
+   exact over its visited buckets, one scan launch a shard a search,
+   the build's times and each shard's scan beside ``phase_cli``'s
+   (``[multi]`` lines).
 
 Each path runs with the launch counts set to 0 just before it and read
 just after.  Any failure raises (exit code 1).  Without CUDA it exits
@@ -1045,21 +1062,25 @@ def phase_virtual(dev, data: dict, ctx: dict, smi: str):
         f"bit-equal to the packed kernel's candidates  [{smi}]")
     # the k=1100 search's scan alone (k_scan 1106 in f32 over its 256
     # queries): the first round (1024 wide) and both rounds, beside k 16
-    _, wargs = scan_inputs(store, qc, order_c, 128, "f32")
+    wplan, wargs = scan_inputs(store, qc, order_c, 128, "f32")
     wide = {kk: cuda_ms(lambda: scan_kernel.scan_pairs(*wargs, k=kk, qtile=128,
                                                        chunk=store.chunk, mode="f32"), 1)
             for kk in (16, 1024, 1106)}
     wide_plain = cuda_ms(lambda: scan_kernel.scan_pairs_reference(
         *wargs, k=1106, qtile=128, chunk=store.chunk, mode="f32"), 1)
+    # the library call on the same inputs: per visited bucket, the rows gathered
+    # through the grid, one f32 matmul (TF32 off) and torch.topk(k=1106)
+    wide_lib = cuda_ms(library_scan(store, wplan, wargs, 1106, "f32"), 1)
     log(f"[virtual] scan_pairs f32, row map, the k=1100 search's {nc} queries: k_scan 16 "
         f"{wide[16]:.2f} ms, the 1024-wide first round {wide[1024]:.2f} ms, k_scan 1106 in two "
-        f"rounds {wide[1106]:.2f} ms; plain at 1106 {wide_plain:.2f} ms  [{smi}]")
+        f"rounds {wide[1106]:.2f} ms; plain at 1106 {wide_plain:.2f} ms; library (gather through "
+        f"the grid + f32 matmul + topk(1106) a bucket) {wide_lib:.2f} ms  [{smi}]")
     log(f"[virtual] total {time.perf_counter() - t_all:.1f} s")
-    del store, vargs, pargs, wargs, kd, ks, rd, rs, pd_, ps_
+    del store, vargs, pargs, wargs, wplan, kd, ks, rd, rs, pd_, ps_
     torch.cuda.empty_cache()
     return launches, {"ms": v_ms, "packed_ms": p_ms, "plain_ms": plain_ms, "library_ms": lib_ms,
                       "bound_ms": bound[bound_by], "bound_by": bound_by, "err": err,
-                      "wide_ms": wide, "wide_plain_ms": wide_plain}
+                      "wide_ms": wide, "wide_plain_ms": wide_plain, "wide_library_ms": wide_lib}
 
 
 def phase_sharded(dev, data: dict, ctx: dict, packed_scan_ms: float, smi: str):
@@ -1520,6 +1541,58 @@ def synced(fn):
     return out, time.perf_counter() - t0
 
 
+def serve_under_load(server, host_q: np.ndarray, pool: np.ndarray, serve_s: float):
+    """16 client threads send 64-query requests of ``host_q`` to
+    ``server`` for ``serve_s`` seconds while a thread inserts 64-row
+    batches of ``pool``, checks that a search submitted after each insert
+    finds it, and deletes half of each batch.  Fails on any error.
+    Returns (sorted request latencies in ms, seconds elapsed, the
+    mutator's counts, the server's stats before and after)."""
+    nq = host_q.shape[0]
+    stop = threading.Event()
+    lat, errors, mutated = [], [], {"inserts": 0, "deletes": 0}
+
+    def client(seed):
+        r = np.random.default_rng(seed)
+        try:
+            while not stop.is_set():
+                s0 = int(r.integers(0, nq - 64))
+                t0 = time.perf_counter()
+                dd, _ = server.search(host_q[s0 : s0 + 64])
+                lat.append(time.perf_counter() - t0)
+                check(dd.shape == (64, 10), "served answer shape")
+        except Exception as e:  # noqa: BLE001 — reported below
+            errors.append(e)
+
+    def mutator():
+        try:
+            for b in range(len(pool) // 64):
+                if stop.is_set():
+                    break
+                rows = pool[b * 64 : (b + 1) * 64]
+                ids = server.insert(rows)
+                mutated["inserts"] += 64
+                _, got = server.search(rows[:4], k=1)  # submitted after the insert returned
+                check(np.array_equal(got[:, 0], ids[:4]), "a search after an insert sees it")
+                mutated["deletes"] += server.delete(ids[::2])
+        except Exception as e:  # noqa: BLE001 — reported below
+            errors.append(e)
+
+    threads = [threading.Thread(target=client, args=(i,)) for i in range(16)]
+    threads.append(threading.Thread(target=mutator))
+    st0 = server.stats()
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    time.sleep(serve_s)
+    stop.set()
+    for t in threads:
+        t.join(120)
+    elapsed = time.perf_counter() - t0
+    check(not errors, f"serving: {errors[:3]}")
+    return np.sort(np.asarray(lat)) * 1e3, elapsed, mutated, st0, server.stats()
+
+
 def phase_dynamic(dev, index, store, data: dict, smi: str, n_insert: int = 500_000,
                   n_delete: int = 250_000, serve_s: float = 10.0):
     """Mutation and serving on the flagship index the build path built (1
@@ -1536,7 +1609,8 @@ def phase_dynamic(dev, index, store, data: dict, smi: str, n_insert: int = 500_0
     threads for ~10 s while a thread inserts and deletes, and one call to
     each HTTP endpoint.  No kernel may be built anew in the phase.
     Returns the phase's launches (the kernel-vs-plain comparison's not
-    counted) and its numbers."""
+    counted), its numbers and the mutated ``DynamicIndex``, which
+    ``phase_multi_mutation`` promotes to a sharded store."""
     from learnedmetricindex_tpu_torch.serve import SearchServer, make_http_server
 
     queries, nq, d = data["queries"], data["queries"].shape[0], store.chunk_data.shape[1]
@@ -1670,59 +1744,16 @@ def phase_dynamic(dev, index, store, data: dict, smi: str, n_insert: int = 500_0
 
     # ---- serving: 16 clients for ~10 s while one thread mutates ----
     server = SearchServer(dyn, k=10, n_buckets=4, max_batch=4096, max_wait_ms=2.0)
-    host_q = queries.cpu().numpy()
     pool = gen.rows(64 * 400).cpu().numpy()
-    stop = threading.Event()
-    lat, errors, mutated = [], [], {"inserts": 0, "deletes": 0, "seen": 0}
-
-    def client(seed):
-        r = np.random.default_rng(seed)
-        try:
-            while not stop.is_set():
-                s0 = int(r.integers(0, nq - 64))
-                t0 = time.perf_counter()
-                dd, _ = server.search(host_q[s0 : s0 + 64])
-                lat.append(time.perf_counter() - t0)
-                check(dd.shape == (64, 10), "served answer shape")
-        except Exception as e:  # noqa: BLE001 — reported below
-            errors.append(e)
-
-    def mutator():
-        try:
-            for b in range(400):
-                if stop.is_set():
-                    break
-                rows = pool[b * 64 : (b + 1) * 64]
-                ids = server.insert(rows)
-                mutated["inserts"] += 64
-                _, got = server.search(rows[:4], k=1)  # submitted after the insert returned
-                check(np.array_equal(got[:, 0], ids[:4]), "a search after an insert sees it")
-                mutated["seen"] += 4
-                mutated["deletes"] += server.delete(ids[::2])
-        except Exception as e:  # noqa: BLE001 — reported below
-            errors.append(e)
-
-    threads = [threading.Thread(target=client, args=(i,)) for i in range(16)]
-    threads.append(threading.Thread(target=mutator))
-    st0 = server.stats()
-    t0 = time.perf_counter()
-    for t in threads:
-        t.start()
-    time.sleep(serve_s)
-    stop.set()
-    for t in threads:
-        t.join(120)
-    elapsed = time.perf_counter() - t0
-    st = server.stats()
-    check(not errors, f"serving: {errors[:3]}")
+    lat_ms, elapsed, mutated, st0, st = serve_under_load(server, queries.cpu().numpy(), pool,
+                                                         serve_s)
     check(st["errors"] == 0 and st["engine"] == "cuda", f"serving stats {st['errors']}, {st['engine']}")
     n_req, n_batch = st["requests"] - st0["requests"], st["batches"] - st0["batches"]
-    lat_ms = np.sort(np.asarray(lat)) * 1e3
     out.update(p50_ms=float(np.percentile(lat_ms, 50)), p95_ms=float(np.percentile(lat_ms, 95)),
-               qps=len(lat) * 64 / elapsed)
+               qps=len(lat_ms) * 64 / elapsed)
     log(f"[serve] SearchServer(DynamicIndex), max_batch 4096, max_wait_ms 2: 16 clients x 64 "
         f"queries for {elapsed:.1f} s while a thread inserted {mutated['inserts']} rows in 64s and "
-        f"deleted {mutated['deletes']}: {len(lat)} requests, request latency p50 "
+        f"deleted {mutated['deletes']}: {len(lat_ms)} requests, request latency p50 "
         f"{out['p50_ms']:.2f} ms, p95 {out['p95_ms']:.2f} ms, max {lat_ms[-1]:.2f} ms; "
         f"{out['qps']:.0f} QPS; {n_batch} batches for {n_req} requests (median batch "
         f"{st['batch_queries']['p50']:.0f} queries); each insert seen by the search after it; "
@@ -1764,7 +1795,184 @@ def phase_dynamic(dev, index, store, data: dict, smi: str, n_insert: int = 500_0
     check(launches["scan_pairs"] > 0 and launches["gather_pairs"] > 0,
           f"the dynamic path launched the scan and the merge gather: {launches}")
     log(f"[dynamic] total {time.perf_counter() - t_all:.1f} s; launches {launches}")
-    del dyn, server
+    del server
+    torch.cuda.empty_cache()
+    return launches, out, dyn
+
+
+@full_f32()
+def visited_exact(sharded, queries, order, k: int = 10, q_step: int = 2048):
+    """Exact f32 kNN of each query over only the buckets it visits, over a
+    ``ShardedStore``'s live slots, bucket by bucket on the bucket's
+    shard: ``(dists (Q, k), ids (Q, k) uint32)`` as numpy.  Ties between
+    buckets go to the earlier visit."""
+    from learnedmetricindex_tpu_torch.ops.select import smallest_k
+
+    home = queries.device
+    order = order.to(home).long()
+    Q, V = order.shape
+    cand_d = torch.full((Q, V, k), torch.inf, device=home)
+    cand_i = torch.zeros((Q, V, k), dtype=torch.int64, device=home)
+    for b in torch.unique(order[order >= 0]).tolist():
+        shard = sharded.shards[int(sharded.bucket_device[b])]
+        lb, dev = int(sharded.bucket_local[b]), shard.device
+        ptr, clist = shard.chunk_list()
+        chunks = torch.as_tensor(clist[ptr[lb]:ptr[lb + 1]].astype(np.int64), device=dev)
+        slots = (chunks[:, None] * shard.chunk + torch.arange(shard.chunk, device=dev)).reshape(-1)
+        ids = shard.chunk_ids.reshape(-1)[slots]
+        slots, ids = slots[ids > 0], ids[ids > 0].long()
+        x = shard.chunk_data[slots].float() * shard.scales_flat()[slots][:, None]
+        qi, vi = torch.nonzero(order == b, as_tuple=True)
+        kk = min(k, x.shape[0])
+        for s0 in range(0, qi.shape[0], q_step):
+            q_b, v_b = qi[s0 : s0 + q_step], vi[s0 : s0 + q_step]
+            vals, pos = smallest_k(1.0 - queries[q_b].to(dev) @ x.T, kk)
+            cand_d[q_b, v_b, :kk] = vals.to(home)
+            cand_i[q_b, v_b, :kk] = ids[pos].to(home)
+        del x
+    vals, pos = smallest_k(cand_d.reshape(Q, V * k), k)
+    out_i = torch.where(torch.isinf(vals), 0, torch.gather(cand_i.reshape(Q, V * k), 1, pos))
+    return vals.cpu().numpy(), out_i.cpu().numpy().astype(np.uint32)
+
+
+def shards_held_to_plain(sharded, queries, order, what: str) -> float:
+    """Every shard's scan at the sharded search's shapes (bf16, k_scan
+    16, query tiles of 128, the shard's share of ``order``) held to its
+    plain version by ``held_to_plain``; returns the largest error."""
+    valid, at = order >= 0, order.clamp_min(0).long()
+    owner = torch.as_tensor(sharded.bucket_device, device=order.device)[at]
+    local = torch.as_tensor(sharded.bucket_local, device=order.device)[at]
+    worst = {"bf16": (0.0, 0.0)}
+    for i, shard in enumerate(sharded.shards):
+        no_copies = np.full(shard.n_chunks * shard.chunk, -1, np.int64)
+        held_to_plain(shard, queries.to(shard.device),
+                      torch.where(valid & (owner == i), local, -1).to(shard.device), 16, 128,
+                      "bf16", no_copies, f"{what}, shard {i}", worst)
+    return worst["bf16"][0]
+
+
+def phase_multi_mutation(dev, index, dyn, data: dict, smi: str, single: dict,
+                         n_insert: int = 500_000, n_delete: int = 250_000, serve_s: float = 5.0):
+    """Part (b) of the multi-device phase: the dynamic path's mutated
+    10M×768 int8 store promoted to four shards on ``[dev] * 4``
+    (``shard_packed_store``, then ``ShardedDynamicIndex`` with the
+    ``DynamicIndex``'s ``next_id``); 500,000 inserted rows in one batch,
+    64 inserts of 64 rows, 250,000 deletes (half inserted, half
+    original), a compaction, each followed by a visit-4 default search of
+    the 10k queries held to exact kNN over the visited buckets (recall
+    ≥ 0.999), no deleted id returned and one scan launch a shard; after
+    the growth every shard's scan is held to its plain version; the
+    compaction leaves the output bit-identical and no kernel is built
+    anew; then ``SearchServer`` over the ``ShardedDynamicIndex`` with 16
+    clients of 64 queries for ``serve_s`` seconds and a mutator
+    alongside.  ``single``: the dynamic path's numbers, printed beside."""
+    from learnedmetricindex_tpu_torch.parallel import ShardedDynamicIndex
+    from learnedmetricindex_tpu_torch.serve import SearchServer
+
+    queries, nq, d = data["queries"], data["queries"].shape[0], dyn.store.chunk_data.shape[1]
+    devices = [dev] * 4
+    t_all = time.perf_counter()
+    builds = cuda_build.BUILDS
+    dead = []
+
+    # ---- the path: every launch from here to the read counts ----
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    sharded, t_promote = synced(lambda: lmi.shard_packed_store(dyn.store, devices))
+    sdyn = ShardedDynamicIndex(index, sharded, next_id=dyn.next_id)
+    check(sdyn.n_rows == dyn.n_rows and sdyn.next_id == dyn.next_id,
+          "the promoted store holds the dynamic store's rows and allocator mark")
+    n_orig, next0 = sdyn.n_rows, sdyn.next_id
+    del sharded
+    gen = BlobGenerator(256, d, seed=2023, noise=0.45, device=dev)  # the corpus's mixture
+    gen.generator.manual_seed(2025)  # drawn anew
+    new_rows = gen.rows(n_insert)
+    small = [gen.rows(64) for _ in range(64)]
+    out = {}
+
+    def checked(step):
+        b0 = scan_kernel.LAUNCHES
+        (dd, ii, _), seconds = synced(lambda: sdyn.search(queries, n_buckets=4, k=10))
+        per = scan_kernel.LAUNCHES - b0
+        check(per == 4, f"sharded dynamic after {step}: {per} scan launches, not one a shard")
+        check(dd.shape == (nq, 10) and bool(np.isfinite(dd).all()) and bool((ii > 0).all()),
+              f"sharded dynamic after {step}: finite, filled")
+        check(not dead or not np.isin(ii, np.concatenate(dead)).any(),
+              f"sharded dynamic after {step}: no deleted id returned")
+        order, _ = index.compute_bucket_order(queries, 4, keep_on_device=True)
+        _, ref_i = visited_exact(sdyn.store, queries, order, 10)
+        r = recall(ii, ref_i, 10)
+        check(r >= 0.999, f"sharded dynamic after {step}: recall {r} vs visited-bucket exact")
+        log(f"[sharded-dynamic] after {step}: live rows {sdyn.n_rows}, chunks a shard "
+            f"{[s.n_chunks for s in sdyn.store.shards]}; search default, visit 4, k 10: "
+            f"{seconds:.4f} s per {nq} queries, 4 scan launches; recall@10 vs exact kNN over the "
+            f"visited buckets {r:.4f} ({nq} queries)")
+        return dd, ii
+
+    chunks0 = [s.n_chunks for s in sdyn.store.shards]
+    ids_big, t_big = synced(lambda: sdyn.insert(new_rows))
+    check(ids_big[0] == next0 and len(ids_big) == n_insert, "ids continue the allocator mark")
+    checked(f"{n_insert} inserts")
+    t_small = [synced(lambda: sdyn.insert(rows))[1] for rows in small]
+    checked("64 inserts of 64 rows")
+    grown = [s.n_chunks for s in sdyn.store.shards]
+    before = read_counts()  # launches made only to compare with the plain version
+    order, _ = index.compute_bucket_order(queries, 4, keep_on_device=True)
+    out["err"] = shards_held_to_plain(sdyn.store, queries, order, "sharded dynamic, grown")
+    excluded = {k: v - before[k] for k, v in read_counts().items()}
+    del order
+    rng = np.random.default_rng(12)
+    live_orig = np.nonzero(sdyn._id_shard[: next0 - 1] >= 0)[0] + 1
+    victims = np.concatenate([rng.choice(ids_big, n_delete // 2, replace=False),
+                              rng.choice(live_orig, n_delete // 2, replace=False)])
+    n_del, t_del = synced(lambda: sdyn.delete(victims))
+    check(n_del == n_delete and sdyn.n_rows == n_orig + n_insert + 64 * 64 - n_delete,
+          f"{n_delete} deleted ({n_del}), live rows counted")
+    dead.append(victims)
+    d3, i3 = checked(f"{n_delete} deletes")
+    stats, t_compact = synced(sdyn.compact)
+    d4, i4 = checked("compaction")
+    check(np.array_equal(d3.view(np.uint32), d4.view(np.uint32)) and np.array_equal(i3, i4),
+          "compaction: search output bit-identical")
+    check(cuda_build.BUILDS == builds, "no kernel built anew across growth and compaction")
+    peak_mut = torch.cuda.max_memory_allocated()
+    out.update(insert_us_big=t_big / n_insert * 1e6,
+               insert_us_64=float(np.median(t_small)) / 64 * 1e6, delete_s=t_del,
+               compact_s=t_compact)
+    log(f"[sharded-dynamic] promoted the dynamic store ({n_orig} live rows, next id {next0}) to 4 "
+        f"shards on {dev} in {t_promote:.3f} s; insert {n_insert} rows in one batch {t_big:.3f} s "
+        f"= {out['insert_us_big']:.3f} us a row (single store {single['insert_us_big']:.3f}); 64 "
+        f"batches of 64: median {np.median(t_small) * 1e3:.3f} ms = {out['insert_us_64']:.2f} us "
+        f"a row (single store {single['insert_us_64']:.2f}); chunks a shard {chunks0} -> "
+        f"{grown}; delete {n_delete} ids {t_del:.3f} s; compact {t_compact:.3f} s (single store "
+        f"{single['compact_s']:.3f} s), widest shard {stats['chunks_before']} -> "
+        f"{stats['chunks_after']} chunks, output bit-identical; peak device memory "
+        f"{peak_mut / 1e9:.2f} GB; nvcc builds in the phase {cuda_build.BUILDS - builds}  [{smi}]")
+    del new_rows
+
+    # ---- serving: 16 clients for serve_s seconds while one thread mutates ----
+    server = SearchServer(sdyn, k=10, n_buckets=4, max_batch=4096, max_wait_ms=2.0)
+    pool = gen.rows(64 * 400).cpu().numpy()
+    lat_ms, elapsed, mutated, st0, st = serve_under_load(server, queries.cpu().numpy(), pool,
+                                                         serve_s)
+    server.close()
+    check(st["errors"] == 0 and st["engine"] == "cuda" and st["mutable"],
+          f"sharded serving stats {st['errors']}, {st['engine']}")
+    n_req, n_batch = st["requests"] - st0["requests"], st["batches"] - st0["batches"]
+    out.update(p50_ms=float(np.percentile(lat_ms, 50)), p95_ms=float(np.percentile(lat_ms, 95)),
+               qps=len(lat_ms) * 64 / elapsed)
+    launches = {k: v - excluded[k] for k, v in read_counts().items()}
+    # ------------------------------------------------------------------
+    check(launches["scan_pairs"] > 0, f"the sharded dynamic path launched the scan: {launches}")
+    log(f"[sharded-dynamic] SearchServer(ShardedDynamicIndex), 4 shards, max_batch 4096, "
+        f"max_wait_ms 2: 16 clients x 64 queries for {elapsed:.1f} s while a thread inserted "
+        f"{mutated['inserts']} rows in 64s and deleted {mutated['deletes']}: {len(lat_ms)} requests, "
+        f"p50 {out['p50_ms']:.2f} ms, p95 {out['p95_ms']:.2f} ms (single store p50 "
+        f"{single['p50_ms']:.2f}, p95 {single['p95_ms']:.2f}); {out['qps']:.0f} QPS (single store "
+        f"{single['qps']:.0f}); {n_batch} batches for {n_req} requests; engine {st['engine']}  "
+        f"[{smi}]")
+    log(f"[sharded-dynamic] total {time.perf_counter() - t_all:.1f} s; launches {launches}")
+    del sdyn, server
     torch.cuda.empty_cache()
     return launches, out
 
@@ -1829,7 +2037,9 @@ def phase_cli(dev, smi: str, argv=CLI_ARGV):
     and is ≥ 0.999 visiting every bucket; one search at visit 4 under
     ``utils/profiling.device_trace``; then that scan alone, the kernel
     against its plain version, the library call and the bound.  Returns
-    the path's launches and the scan's numbers."""
+    the path's launches, the scan's numbers and what the multi-device
+    build compares with (the host data the sweep drew, its build times,
+    recalls and the baseline's ids)."""
     import importlib.util
 
     from learnedmetricindex_tpu_torch import cli
@@ -1848,10 +2058,16 @@ def phase_cli(dev, smi: str, argv=CLI_ARGV):
             f"--dtype {args.dtype}, --policy {args.policy}, --k {args.k}, --chunk-size "
             f"{args.chunk_size})")
         torch.cuda.reset_peak_memory_stats()
-        reset_counts()
-        result = cli.sweep(**kw)
-        torch.cuda.synchronize()
-        counts = read_counts()
+        drawn = []  # the sweep's host data, kept for phase_multi_build
+        load = cli.load_data
+        cli.load_data = lambda *a, **k: drawn.append((a, k, load(*a, **k))) or drawn[-1][2]
+        try:
+            reset_counts()
+            result = cli.sweep(**kw)
+            torch.cuda.synchronize()
+            counts = read_counts()
+        finally:
+            cli.load_data = load
         index, store = result.index, result.store
         n_rows = int(result.data_prediction.shape[0])
         nq = result.queries.shape[0]
@@ -1964,12 +2180,143 @@ def phase_cli(dev, smi: str, argv=CLI_ARGV):
             f"swapped slots {gap:.3g})  [{smi}]")
         timing = {"ms": k_ms, "plain_ms": p_ms, "library_ms": lib_ms, "err": err,
                   "bound_ms": bound[bound_by], "bound_by": bound_by}
+        single = {"drawn": drawn[0], "build_t": result.build_t, "cluster_t": result.cluster_t,
+                  "visits": [b for b, *_ in result.searches], "recalls": recalls, "gt_i": gt_i,
+                  "search_s": {b: m["search"] for b, _, _, m, _ in result.searches},
+                  "warm_s": warm, "scan_ms": k_ms, "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
         del plan, sargs, kd, ks, rd, rs
     finally:
         os.chdir(home)
     del result, index, store
     torch.cuda.empty_cache()
-    return launches, timing
+    return launches, timing, single
+
+
+def phase_multi_build(dev, smi: str, single: dict, argv=CLI_ARGV):
+    """Part (a) of the multi-device phase: the experiment driver's build
+    and sweep over ``[dev] * 4`` (``cli.sweep(..., devices=)``) at
+    ``phase_cli``'s argv, reusing its host data: once at ``--n-categories
+    120`` (the root trains data parallel; it is clustered as on one device)
+    and once at ``12 10`` (120 leaves; level 1's 12 models train expert
+    parallel and cluster by ``kmeans_nodes(devices=)``).  Each sweep
+    searches one store sharded over the four devices: one scan launch a
+    shard a search; recall against the baseline ≥ 0.999 visiting every
+    bucket and never falling as visits rise; at 120 buckets, visits 1, 2,
+    4 and 8 within 0.03 of ``phase_cli``'s single-device sweep; each
+    visit count's ids equal exact kNN over its visited buckets (recall ≥
+    0.999, all queries); every shard's scan at visit 4 held to its plain
+    version.  Prints the build's times beside ``phase_cli``'s, the peak
+    device memory and each shard's scan at visit 4."""
+    from learnedmetricindex_tpu_torch import cli
+
+    work = WORK_DIR / "cli"
+    work.mkdir(parents=True, exist_ok=True)
+    home = os.getcwd()
+    os.chdir(work)
+    devices = [dev] * 4
+    drawn_args, drawn_kw, drawn = single["drawn"]
+    load = cli.load_data
+
+    def reuse(*a, **k):
+        check((a, k) == (drawn_args, drawn_kw), "the multi-device sweep draws what phase_cli drew")
+        return drawn
+
+    launches = {k: 0 for k in read_counts()}
+    out = {}
+    cli.load_data = reuse
+    try:
+        t_all = time.perf_counter()
+        i = argv.index("--n-categories")
+        for cats in (["120"], ["12", "10"]):
+            args = cli.parse_args(argv[: i + 1] + cats + argv[i + 2 :])
+            name = "x".join(cats)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            # ---- the path: every launch from here to the read counts ----
+            reset_counts()
+            result = cli.sweep(**cli.sweep_arguments(args), devices=devices)
+            torch.cuda.synchronize()
+            counts = read_counts()
+            # --------------------------------------------------------------
+            peak = torch.cuda.max_memory_allocated()
+            launches = {k: launches[k] + counts[k] for k in counts}
+            index, store = result.index, result.store
+            nq, kq = result.queries.shape[0], args.k
+            sizes = np.bincount(index.bucket_ids_from_prediction(result.data_prediction),
+                                minlength=index.layout.n_leaves)[index.leaf_valid]
+            log(f"[multi] {name}: build over 4 devices on {dev} {result.build_t:.1f} s (cluster "
+                f"{result.cluster_t:.1f} s, train {result.build_t - result.cluster_t:.1f} s), "
+                f"{index.n_buckets} buckets; one device (phase_cli, 120): build "
+                f"{single['build_t']:.1f} s (cluster {single['cluster_t']:.1f} s, train "
+                f"{single['build_t'] - single['cluster_t']:.1f} s); peak device memory "
+                f"{peak / 1e9:.2f} GB (one device {single['peak_gb']:.2f} GB); bucket sizes min "
+                f"{sizes.min()} median {int(np.median(sizes))} max {sizes.max()}; sharded store "
+                f"chunk {store.chunk}, rows a shard "
+                f"{[int(sh.bucket_sizes.sum()) for sh in store.shards]}; launches {counts}  [{smi}]")
+            check(isinstance(store, lmi.ShardedStore) and len(store.shards) == 4
+                  and all(sh.device == dev for sh in store.shards), f"{name}: 4 shards on {dev}")
+            check(counts["scan_pairs"] == 4 * len(result.searches),
+                  f"{name}: {counts['scan_pairs']} scan launches for {len(result.searches)} "
+                  f"searches of 4 shards")
+            q_dev = torch.as_tensor(result.queries, device=dev)
+            recalls = []
+            for b, dists, nns, measured, _ in result.searches:
+                check(nns.shape == (nq, kq) and bool(np.isfinite(dists).all())
+                      and bool((nns > 0).all()), f"{name} visit {b}: finite, filled")
+                order, _ = index.compute_bucket_order(q_dev, b, policy=args.policy,
+                                                      keep_on_device=True)
+                _, ref_i = visited_exact(store, q_dev, order, kq)
+                r_vis = recall(nns, ref_i, kq)
+                recalls.append(recall(nns, single["gt_i"], kq))
+                r1 = None
+                line = ""
+                if name == "120" and b in single["visits"]:
+                    r1 = single["recalls"][single["visits"].index(b)]
+                    line = (f"; one device {r1:.4f}, search {single['search_s'][b]:.4f} s")
+                log(f"[multi] {name}, 4 shards, visit {b:3d}: search {measured['search']:.4f} s; "
+                    f"recall@{kq} vs the baseline {recalls[-1]:.4f}{line}; vs visited-bucket "
+                    f"exact {r_vis:.4f} ({nq} queries)  [{smi}]")
+                check(r_vis >= 0.999, f"{name} visit {b}: recall {r_vis} vs visited-bucket exact")
+                if r1 is not None and b <= 8:
+                    check(abs(recalls[-1] - r1) <= 0.03,
+                          f"visit {b}: recall {recalls[-1]} vs one device's {r1}")
+            check(all(b2 >= b1 for b1, b2 in zip(recalls, recalls[1:])),
+                  f"{name}: recall does not fall as visits rise: {recalls}")
+            check(recalls[-1] >= 0.999 and result.searches[-1][0] >= index.n_buckets,
+                  f"{name}: every bucket visited: recall {recalls[-1]} vs the baseline")
+
+            # ---- each shard's scan at visit 4, CUDA events ----
+            order, _ = index.compute_bucket_order(q_dev, CLI_TRACE_VISIT, policy=args.policy,
+                                                  keep_on_device=True)
+            valid, at = order >= 0, order.clamp_min(0).long()
+            owner = torch.as_tensor(store.bucket_device, device=dev)[at]
+            local = torch.as_tensor(store.bucket_local, device=dev)[at]
+            per = []
+            for j, shard in enumerate(store.shards):
+                plan, sargs = scan_inputs(shard, q_dev, torch.where(valid & (owner == j), local, -1),
+                                          128, "bf16")
+                ms = cuda_ms(lambda: scan_kernel.scan_pairs(*sargs, k=16, qtile=128,
+                                                            chunk=shard.chunk, mode="bf16"), 3)
+                per.append((int(shard.bucket_sizes.sum()), plan.n_pairs, ms))
+            total = sum(t for _, _, t in per)
+            out["err"] = max(out.get("err", 0.0),
+                             shards_held_to_plain(store, q_dev, order, f"multi-device sweep {name}"))
+            warm = synced(lambda: index.search(None, result.queries, None, result.queries,
+                                               result.data_prediction, n_buckets=CLI_TRACE_VISIT,
+                                               k=kq, policy=args.policy, store=store))[1]
+            log(f"[multi] {name}: scan bf16 a shard at visit {CLI_TRACE_VISIT} (rows, pairs, ms): "
+                f"{[(r, p, round(t, 3)) for r, p, t in per]}; sum {total:.3f} ms (one device's "
+                f"scan {single['scan_ms']:.3f} ms); warm visit-{CLI_TRACE_VISIT} search "
+                f"{warm:.4f} s (one device {single['warm_s'][CLI_TRACE_VISIT]:.4f} s)  [{smi}]")
+            out[name] = {"build_t": result.build_t, "cluster_t": result.cluster_t,
+                         "recalls": recalls, "shard_ms": [t for _, _, t in per], "warm_s": warm}
+            del result, index, store, plan, sargs, q_dev
+            torch.cuda.empty_cache()
+        log(f"[multi] build path total {time.perf_counter() - t_all:.1f} s")
+    finally:
+        cli.load_data = load
+        os.chdir(home)
+    return launches, out
 
 
 def main() -> None:
@@ -1988,15 +2335,19 @@ def main() -> None:
     del ctx
     torch.cuda.empty_cache()
     build_launches, gather_timing, (index, store) = phase_build_path(dev, data, smi)
-    dyn_launches, _ = phase_dynamic(dev, index, store, data, smi)
-    del index, store, data
+    dyn_launches, dyn_out, dyn = phase_dynamic(dev, index, store, data, smi)
+    del store
+    mut_launches, mut_out = phase_multi_mutation(dev, index, dyn, data, smi, dyn_out)
+    del index, dyn, data
     torch.cuda.empty_cache()
-    cli_launches, cli_timing = phase_cli(dev, smi)
+    cli_launches, cli_timing, single = phase_cli(dev, smi)
+    multi_launches, multi_out = phase_multi_build(dev, smi, single)
+    del single
     rows = []
     for name, source, replaces, t, errs in (
         ("scan_pairs", KERNEL_SOURCE, REPLACES, timing["bf16"],
          [e for pair in small.values() for e in pair[:1]] + [t["err"] for t in timing.values()]
-         + [virt_timing["err"], cli_timing["err"]]),
+         + [virt_timing["err"], cli_timing["err"], mut_out["err"], multi_out["err"]]),
         # the row gather's kernels: the merge gather is the one the search launches
         ("gather_pairs", GATHER_SOURCE, GATHER_REPLACES, gather_timing["merge"],
          [t["err"] for t in gather_timing.values()]),
@@ -2004,7 +2355,8 @@ def main() -> None:
         rows.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
                      "launches": (main_launches[name] + virt_launches[name]
                                   + shard_launches[name] + build_launches[name]
-                                  + dyn_launches[name] + cli_launches[name]),
+                                  + dyn_launches[name] + mut_launches[name]
+                                  + cli_launches[name] + multi_launches[name]),
                      "max_abs_err": max(errs), "ms": t["ms"], "plain_ms": t["plain_ms"],
                      "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
                      "library_ms": t["library_ms"]})

@@ -9,9 +9,12 @@ explicit visit counts in place of the ``--buckets-perc`` sweep;
 navigation ``--dataset`` other than ``clip768v2`` scans in ``clip768v2``
 (dual embeddings).  One flag is the port's own: ``--device`` (default
 ``cuda``; without a GPU that raises, ``--device cpu`` runs the kernels'
-plain versions).  ``--shard-devices`` other than 0 raises: the multi-GPU
-build is not in the port yet (a built index searches a sharded store
-through ``LearnedIndex.get_sharded_store``).
+plain versions).  ``--shard-devices N`` builds over N devices and sweeps
+one store sharded by bucket over them: on CUDA the first N cards (all
+of them for N < 0; it raises if there are fewer), with ``--device cpu``
+N repeats of the CPU (``parallel.mesh.device_list``).  From Python,
+:func:`sweep` and :func:`run` also take ``devices=``, any list
+(``[cuda:0] * 4`` runs four shards on one card).
 
 Run as ``python -m learnedmetricindex_tpu_torch.cli [flags]``.  Result
 files need h5py; :func:`sweep` (build and search, no files) does not.
@@ -23,7 +26,7 @@ import argparse
 import logging
 import os
 import time
-from typing import List, NamedTuple, Optional
+from typing import List, NamedTuple, Optional, Union
 
 import numpy as np
 
@@ -34,6 +37,8 @@ from learnedmetricindex_tpu_torch.data import load_dataset, normalize, synthetic
 from learnedmetricindex_tpu_torch.index.bucket_store import BucketStore
 from learnedmetricindex_tpu_torch.index.builder import LearnedIndexBuilder
 from learnedmetricindex_tpu_torch.index.index import LearnedIndex, resolve_device
+from learnedmetricindex_tpu_torch.parallel.mesh import device_list
+from learnedmetricindex_tpu_torch.parallel.sharded_index import ShardedStore
 from learnedmetricindex_tpu_torch.utils.logging import configure_logging
 
 LOG = logging.getLogger("learnedmetricindex_tpu_torch.cli")
@@ -67,13 +72,17 @@ def format_identifier(
     )
 
 
-def _check_single_device(shard_devices: int) -> None:
-    if shard_devices:
-        raise NotImplementedError(
-            "--shard-devices: the multi-GPU build (sharded k-means, the trainer's mesh) and "
-            "this flag are not in the port yet (ROADMAP.md §1 item 6); a built index "
-            "searches a sharded store through LearnedIndex.get_sharded_store"
-        )
+def _devices(shard_devices: int, device, devices):
+    """``(device, devices)``: ``devices`` as given, else ``--shard-devices``'s
+    list (None for 0); with a list, ``device`` must be its first entry."""
+    device = resolve_device(device)
+    if devices is None and shard_devices:
+        devices = device_list(shard_devices, device)
+    if devices is not None:
+        devices = [resolve_device(d) for d in devices]
+        if devices[0] != device:
+            raise ValueError(f"--device {device} is not the first shard device {devices[0]}")
+    return device, devices
 
 
 def load_data(kind, key, size, preprocess, synthetic=0, synthetic_dim=96, seed=2023,
@@ -100,7 +109,8 @@ class Sweep(NamedTuple):
     load or generate on the host, the data kind the file names carry, the
     search queries and the packed store the searches scanned, and one
     ``(n_buckets, dists, nns, measured, identifier)`` a visit count,
-    ascending."""
+    ascending.  Over devices the store is the :class:`ShardedStore` every
+    search shared."""
 
     index: LearnedIndex
     data_prediction: np.ndarray
@@ -109,7 +119,7 @@ class Sweep(NamedTuple):
     data_t: float
     kind: str
     queries: np.ndarray
-    store: BucketStore
+    store: Union[BucketStore, ShardedStore]
     searches: list
 
 
@@ -140,15 +150,17 @@ def sweep(
     data_dir: str = "data",
     *,
     device,
+    devices=None,
     built: Optional[tuple] = None,
 ) -> Sweep:
     """Build the learned index on ``device`` (or take ``built``, what
     ``LearnedIndexBuilder.build()`` returned over the same data) and search
     it at each visit count; writes no result file.  The first search
     packs the search store (host rows at ``dtype``) and uploads it, and
-    its ``measured["search"]`` includes that."""
-    _check_single_device(shard_devices)
-    device = resolve_device(device)
+    its ``measured["search"]`` includes that.  Over ``devices`` (or
+    ``shard_devices``) the build runs over them and every search shares
+    one store sharded by bucket over them, made before the first."""
+    device, devices = _devices(shard_devices, device, devices)
     s = time.perf_counter()
     kind, data, queries = load_data(kind, key, size, preprocess, synthetic, synthetic_dim,
                                     seed, download, data_dir)
@@ -177,7 +189,7 @@ def sweep(
         dtype=dtype,
     )
     if built is None:
-        built = LearnedIndexBuilder(data, config, device=device).build()
+        built = LearnedIndexBuilder(data, config, device=device, devices=devices).build()
     index, data_prediction, _, build_t, cluster_t = built
     LOG.info("Cluster time: %.2f", cluster_t)
     n_buckets_in_index = index.n_buckets
@@ -201,6 +213,10 @@ def sweep(
         n_buckets = sorted(set(b for b in n_buckets if b > 0))
     LOG.info("Number of buckets to search in: %s", n_buckets)
 
+    shared_store = None
+    if devices is not None:
+        LOG.info("Sharding over %d devices: %s", len(devices), devices)
+        shared_store = index.get_sharded_store(data_search, data_prediction, devices)
     searches = []
     for bucket in n_buckets:
         LOG.info("Searching with %d buckets", bucket)
@@ -215,6 +231,7 @@ def sweep(
             k=k,
             policy=policy,
             nav_temp=nav_temp,
+            store=shared_store,
         )
         for key_t in LOGGED_TIMES:
             LOG.info("%s time: %.4f", key_t, measured[key_t])
@@ -222,7 +239,8 @@ def sweep(
             bucket, kind, config, clustering_algorithms, SHORT_IDENTIFIER, size
         )
         searches.append((bucket, dists, nns, measured, identifier))
-    store = index.get_bucket_store(data_search, data_prediction)  # the searches' own
+    store = (shared_store if shared_store is not None  # the searches' own
+             else index.get_bucket_store(data_search, data_prediction))
     return Sweep(index, data_prediction, build_t, cluster_t, data_t, kind, queries_search,
                  store, searches)
 
@@ -278,14 +296,15 @@ def run(
     data_dir: str = "data",
     *,
     device,
+    devices=None,
 ):
     """``baseline``: exact kNN, returns ``(dists, nns)`` and writes nothing.
-    ``learned-index``: :func:`sweep`, then :func:`write_results`; returns
-    the result files' paths."""
+    ``learned-index``: :func:`sweep` (over ``devices`` or
+    ``shard_devices``), then :func:`write_results`; returns the result
+    files' paths."""
     if index_type not in ("baseline", "learned-index"):
         raise ValueError(f"Unknown index type: {index_type}")
-    _check_single_device(shard_devices)
-    device = resolve_device(device)
+    device, devices = _devices(shard_devices, device, devices)
     if index_type == "baseline":
         _, data, queries = load_data(kind, key, size, preprocess, synthetic, synthetic_dim,
                                      seed, download, data_dir)
@@ -300,7 +319,7 @@ def run(
         preprocess, save, clustering_algorithms, n_buckets_explicit=n_buckets_explicit,
         synthetic=synthetic, synthetic_dim=synthetic_dim, policy=policy, nav_temp=nav_temp,
         seed=seed, chunk_size=chunk_size, dtype=dtype, batch_size=batch_size,
-        download=download, data_dir=data_dir, device=device,
+        download=download, data_dir=data_dir, device=device, devices=devices,
     )
     return write_results(result, size, out_dir)
 
@@ -355,8 +374,9 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--out-dir", default="result")
     parser.add_argument(
         "--shard-devices", type=int, default=0, metavar="N",
-        help="shard build and search over N devices (not in the port yet: "
-        "anything but 0 raises)",
+        help="build and search over N devices: the first N cards (-1 = all; "
+        "0 = one device, the default); with --device cpu, N repeats of the CPU, "
+        "the counterpart of the JAX package's N virtual CPU devices",
     )
     parser.add_argument("--data-dir", default="data",
                         help="where SISAP HDF5 files live (or are staged)")

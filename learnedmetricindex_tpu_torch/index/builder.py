@@ -14,6 +14,19 @@ root, sibling nodes with at least ``C`` rows are clustered together by
 other node goes through the serial per-node loop with the reference's
 guards (< 2 rows → one cluster; fewer rows than clusters → ``n // 5``,
 at least 2).  Per-node seeds are ``seed + level·1_000_003 + node``.
+
+``devices`` (the JAX package's ``mesh=``) builds over a list of
+devices: the corpus is split into contiguous row blocks over them
+(``parallel/distributed.py``), deeper levels' sibling nodes are
+clustered by ``kmeans_nodes(devices=)``, each node block reading its
+rows where they lie, and every level's models train on
+``StackedNodeTrainer(devices=)``.  The root is clustered as on one
+device: the builder holds the whole corpus on ``devices[0]`` and the
+fit takes a seeded sample of at most 256 rows a cluster, so spreading
+it would gain nothing.  (The JAX package's mesh path fits the root on
+every row with ``sharded_kmeans``; on the near-uniform CLI corpus that
+gives a flatter partition and lower recall at few visits.)  The routers
+live on ``device``, which must be ``devices[0]``.
 """
 
 from __future__ import annotations
@@ -31,6 +44,7 @@ from learnedmetricindex_tpu_torch.index.navigation import TreeLayout
 from learnedmetricindex_tpu_torch.models.train import StackedNodeTrainer, group_rows
 from learnedmetricindex_tpu_torch.ops.clustering import algorithms as clustering_algorithms
 from learnedmetricindex_tpu_torch.ops.kmeans import kmeans_nodes
+from learnedmetricindex_tpu_torch.parallel.distributed import split_rows
 
 EMPTY_VALUE = -1
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -48,14 +62,22 @@ class LearnedIndexBuilder:
     array, a tensor, or ``(int8 values, f32 row scales)`` for a
     quantized corpus.  Host data is uploaded once, as f32 (as
     ``config.dtype`` for training when that is bf16); a tensor stays
-    where it lies and must lie on ``device``."""
+    where it lies and must lie on ``device``.  ``devices``: build over
+    this list of devices (module docstring), ``devices[0] == device``."""
 
-    def __init__(self, data, config: BuildConfiguration, *, device):
+    def __init__(self, data, config: BuildConfiguration, *, device, devices=None):
         self.device = resolve_device(device)
         values, scales = data if isinstance(data, tuple) else (data, None)
         self.data = self._on_device(values, None)
         self.row_scales = None if scales is None else self._on_device(scales, torch.float32)
         self.config = config
+        self.devices = self.blocks = None
+        if devices is not None:
+            self.devices = [resolve_device(d) for d in devices]
+            if not self.devices or self.devices[0] != self.device:
+                raise ValueError(f"devices[0] must be the builder's device {self.device}, "
+                                 f"got {self.devices[:1]}")
+            self.blocks = split_rows(self.data, self.devices, self.row_scales)
 
     def _on_device(self, x, dtype):
         if isinstance(x, torch.Tensor):
@@ -80,8 +102,12 @@ class LearnedIndexBuilder:
         """Sibling nodes clustered together; dense label compaction and the
         class mask per node, as the serial path's unique-shrink."""
         seeds = (self.config.seed + level * 1_000_003 + eligible).astype(np.int64)
-        lab_b = kmeans_nodes(self.data, parent_gid, eligible, C, seeds=seeds,
-                             row_scales=self.row_scales)
+        if self.devices is not None:
+            lab_b = kmeans_nodes(self.blocks, parent_gid, eligible, C, seeds=seeds,
+                                 devices=self.devices)
+        else:
+            lab_b = kmeans_nodes(self.data, parent_gid, eligible, C, seeds=seeds,
+                                 row_scales=self.row_scales)
         sel = lab_b >= 0
         pos = np.full(class_mask.shape[0], len(eligible), np.int64)
         pos[eligible] = np.arange(len(eligible))
@@ -168,8 +194,9 @@ class LearnedIndexBuilder:
                     rows = np.nonzero(parent_gid == gid)[0]
                     self._cluster_serial(level, gid, rows, C, params.clustering_algorithm,
                                          labels_full, class_mask)
-            if self.device.type == "cuda":
-                torch.cuda.synchronize(self.device)
+            for dev in {self.device, *(self.devices or [])}:
+                if dev.type == "cuda":
+                    torch.cuda.synchronize(dev)
             cluster_t = time.perf_counter() - s_cluster
             cluster_t_total += cluster_t
 
@@ -179,7 +206,7 @@ class LearnedIndexBuilder:
             trainer = StackedNodeTrainer(
                 n_models, d, C, model_type=params.model_type, lr=params.lr,
                 batch_size=cfg.batch_size, seed=cfg.seed + level,
-                update_rule=cfg.update_rule, device=self.device,
+                update_rule=cfg.update_rule, device=self.device, devices=self.devices,
             )
             trainer.set_class_mask(class_mask)
             if params.class_weight == "balanced":

@@ -82,15 +82,15 @@ def ensure_mutable(store: BucketStore) -> BucketStore:
     (``bucket_sizes`` on a fresh store) and the id → slot map if it has
     none.  No tensor is copied."""
     _require_packed(store, "ensure_mutable")
-    if store.bucket_chunk_list is not None:
-        return store
-    starts = store.bucket_chunk_start.astype(np.int64)
-    out = store._replace(
-        bucket_chunk_ptr=starts.copy(),
-        bucket_chunk_list=np.arange(int(starts[-1]), dtype=np.int32),
-        bucket_fill=store.bucket_sizes.astype(np.int32).copy(),
-    )
-    if out.row_slot is None:
+    out = store
+    if out.bucket_chunk_list is None:
+        starts = store.bucket_chunk_start.astype(np.int64)
+        out = store._replace(
+            bucket_chunk_ptr=starts.copy(),
+            bucket_chunk_list=np.arange(int(starts[-1]), dtype=np.int32),
+            bucket_fill=store.bucket_sizes.astype(np.int32).copy(),
+        )
+    if out.row_slot is None:  # a shard of shard_packed_store has its list, not the map
         flat = out.chunk_ids.reshape(-1)
         n_ids = max(int(flat.max()) if flat.numel() else 0, 1)
         live = torch.nonzero(flat > 0)[:, 0]

@@ -182,17 +182,37 @@ def train_step(
     length per model (labels past it are dropped and the unweighted mean
     runs over it).  Returns the new parameters and state and the
     per-model losses."""
-    M, B = yb.shape
+    B = yb.shape[1]
     if runt is not None:
         yb = torch.where(torch.arange(B, device=yb.device)[None, :] < runt[:, None], yb, -1)
         if class_weight is None:
             class_weight = torch.ones(class_mask.shape, device=xb.device)
     leaves = [p.detach().requires_grad_(True) for p in params]
-    logits = _masked_logits(leaves, xb, class_mask)
-    ce = -torch.gather(torch.log_softmax(logits, dim=-1), 2, yb.clamp_min(0)[:, :, None])[:, :, 0]
-    per_model = _weighted_mean_ce(ce, yb, class_weight)
+    per_model = _weighted_mean_ce(_cross_entropy(leaves, xb, yb, class_mask), yb, class_weight)
     grads = torch.autograd.grad((per_model * active).sum(), leaves)
+    new, state = adam_update(params, state, grads, active, lr=lr, all_active=all_active)
+    return new, state, per_model.detach()
 
+
+def _cross_entropy(leaves, xb, yb, class_mask) -> torch.Tensor:
+    """Per-sample cross entropy (M, B) of the masked logits (a pad row,
+    label -1, reads class 0; callers weight it out)."""
+    logits = _masked_logits(leaves, xb, class_mask)
+    return -torch.gather(torch.log_softmax(logits, dim=-1), 2, yb.clamp_min(0)[:, :, None])[:, :, 0]
+
+
+def adam_update(
+    params: List[torch.Tensor],
+    state: AdamState,
+    grads,
+    active: torch.Tensor,
+    *,
+    lr: float,
+    all_active: bool,
+) -> Tuple[List[torch.Tensor], AdamState]:
+    """One ``optax.adam`` step of every active model from ``grads``; a
+    frozen model keeps its parameters and both moments."""
+    M = params[0].shape[0]
     count = state.count + 1
     # optax's bias corrections: decay ** count in f32
     bc1 = 1.0 - float(np.float32(B1) ** np.float32(count))
@@ -211,7 +231,7 @@ def train_step(
                     for a, b in zip(n, o)]
 
         new, mu, nu = sel(new, params), sel(mu, state.mu), sel(nu, state.nu)
-    return new, AdamState(count, mu, nu), per_model.detach()
+    return new, AdamState(count, mu, nu)
 
 
 def batch_indices(
@@ -297,11 +317,69 @@ def _coverage(preds, labels, tile_model, class_mask) -> torch.Tensor:
     return ((counts > 0) | ~class_mask).all(1)
 
 
+def _part_rows(grouped: GroupedData, lo: int, hi: int, device) -> GroupedData:
+    """The grouped layout of models ``lo .. hi`` alone on ``device``, with
+    their segments' rows copied there (pad slots read the segment's
+    first row): the same batches and predictions as the whole layout's
+    for those models."""
+    seg = grouped.seg_starts.cpu().numpy()
+    n_slots = grouped.slot_rows.shape[0]
+    s0 = int(seg[lo])
+    s1 = int(seg[hi]) if hi < len(seg) else n_slots
+    rows = grouped.slot_rows[s0:s1]
+    r = rows.clamp_min(0)
+    local = torch.where(rows >= 0, torch.arange(s1 - s0, device=rows.device), -1)
+    return GroupedData(
+        x=grouped.x[r].to(device),
+        slot_rows=local.to(device),
+        labels=grouped.labels[s0:s1].to(device),
+        tile_model=(grouped.tile_model[s0 // grouped.tile : s1 // grouped.tile] - lo).to(device),
+        seg_starts=(grouped.seg_starts[lo:hi] - s0).to(device),
+        seg_lens=grouped.seg_lens[lo:hi].to(device),
+        slot_rows_np=np.where(grouped.slot_rows_np[s0:s1] >= 0, np.arange(s1 - s0), -1),
+        tile=grouped.tile,
+        x_scales=None if grouped.x_scales is None else grouped.x_scales[r].to(device),
+    )
+
+
+class _Part:
+    """Expert parallel: models ``lo .. hi``, their parameters and Adam
+    state on ``device``."""
+
+    def __init__(self, lo: int, hi: int, device, params: List[torch.Tensor]):
+        self.lo, self.hi, self.device = lo, hi, device
+        self.params = [p[lo:hi].to(device).clone() for p in params]
+        self.state = adam_init(self.params)
+
+
 class StackedNodeTrainer:
     """Trains ``n_models`` same-shape MLPs on ``device``, each on its own
     row segment, until every model's predictions cover its valid
     classes.  Parameters come from a CPU generator seeded with ``seed``
-    (the same on every device); batches from a generator on ``device``."""
+    (the same on every device); batches from a generator on ``device``.
+
+    ``devices`` (a list, ``devices[0]`` being ``device``; the JAX
+    package's ``mesh=``) trains over several devices:
+
+    * **expert parallel**, when ``n_models`` is a multiple of
+      ``len(devices)``: device ``i`` holds a contiguous group of models,
+      their parameters, Adam state, class mask and weights and a copy of
+      their segments' rows, and steps them on its own;
+    * **data parallel** otherwise (the level-0 root): the parameters live
+      on ``devices[0]`` with a copy on every device; the grouped rows are
+      split into contiguous row blocks over the devices
+      (``parallel.distributed.split_rows``), each device takes the loss
+      over the batch entries whose rows it holds (the host reads how
+      many each holds, once a step), the gradients are added on
+      ``devices[0]`` in device order and one Adam step is taken there.
+
+    Either way the batch indices are drawn by one generator on
+    ``devices[0]``, exactly as the single-device trainer draws them, so
+    the two differ only in the order of sums.  The JAX package places
+    models over ``"model"`` and rows over the whole 2-D ``("data",
+    "model")`` mesh and leaves the step to XLA (its docstring: placement
+    does not change the step); the port places them over a 1-D list,
+    which changes no step either."""
 
     def __init__(
         self,
@@ -314,13 +392,22 @@ class StackedNodeTrainer:
         seed: int = 2023,
         update_rule: str = "minibatch",
         *,
-        device,
+        device=None,
+        devices=None,
     ):
         if update_rule not in ("minibatch", "reference"):
             raise ValueError(
                 f"update_rule must be 'minibatch' or 'reference', got {update_rule!r}"
             )
+        if devices is not None:
+            devices = [torch.device(d) for d in devices]
+            if device is not None and torch.device(device) != devices[0]:
+                raise ValueError(f"device {device} is not devices[0] ({devices[0]})")
+            device = devices[0]
+        if device is None:
+            raise TypeError("StackedNodeTrainer needs a device (or devices)")
         self.device = torch.device(device)
+        self.devices = devices if devices is not None and len(devices) > 1 else None
         self.n_models = n_models
         self.n_classes = n_classes
         self.batch_size = batch_size
@@ -330,15 +417,30 @@ class StackedNodeTrainer:
                               generator=torch.Generator().manual_seed(seed), device=self.device)
         self.params = [t for w, b in zip(mlp.weights, mlp.biases) for t in (w.data, b.data)]
         self.opt_state = adam_init(self.params)
+        self.parts: Optional[List[_Part]] = None
+        if self.devices is not None and n_models % len(self.devices) == 0:
+            per = n_models // len(self.devices)
+            self.parts = [_Part(i * per, (i + 1) * per, dev, self.params)
+                          for i, dev in enumerate(self.devices)]
+            self.params = self.opt_state = None  # the parts own them
         self.class_mask = torch.ones((n_models, n_classes), dtype=torch.bool, device=self.device)
         self.class_weight: Optional[torch.Tensor] = None
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
+        self._placed = None  # (grouped, its placement over the devices)
+
+    def full_params(self) -> List[torch.Tensor]:
+        """Every model's parameters on ``device`` (the parts' joined)."""
+        if self.parts is None:
+            return self.params
+        return [torch.cat([p.params[i].to(self.device) for p in self.parts])
+                for i in range(len(self.parts[0].params))]
 
     @property
     def mlp(self) -> StackedMLP:
         """The trained models, as the index holds them."""
-        return StackedMLP([p.detach().clone() for p in self.params[0::2]],
-                          [p.detach().clone() for p in self.params[1::2]])
+        params = self.full_params()
+        return StackedMLP([p.detach().clone() for p in params[0::2]],
+                          [p.detach().clone() for p in params[1::2]])
 
     def set_class_mask(self, mask) -> None:
         """(n_models, n_classes) bool — False marks classes a node does not use."""
@@ -351,15 +453,137 @@ class StackedNodeTrainer:
             else torch.as_tensor(np.asarray(weight, np.float32), device=self.device)
         )
 
+    def _place(self, grouped: GroupedData):
+        """The parts' layouts (expert parallel) or the row blocks (data
+        parallel) of ``grouped``, made once a layout."""
+        from learnedmetricindex_tpu_torch.parallel.distributed import split_rows
+
+        if self._placed is None or self._placed[0] is not grouped:
+            placed = ([_part_rows(grouped, p.lo, p.hi, p.device) for p in self.parts]
+                      if self.parts is not None
+                      else split_rows(grouped.x, self.devices, grouped.x_scales))
+            self._placed = (grouped, placed)
+        return self._placed[1]
+
     def run(self, grouped: GroupedData, steps: int, active: np.ndarray) -> torch.Tensor:
         """``steps`` updates (epochs for the reference rule) of the active
         models; returns the last per-model losses."""
-        self.params, self.opt_state, losses = _run_epochs(
-            self.params, self.opt_state, self.generator, grouped, self.class_mask, active,
-            self.class_weight, batch_size=self.batch_size, steps=steps, lr=self.lr,
-            ref_dynamics=self.update_rule == "reference",
-        )
+        ref = self.update_rule == "reference"
+        if self.devices is None:
+            self.params, self.opt_state, losses = _run_epochs(
+                self.params, self.opt_state, self.generator, grouped, self.class_mask, active,
+                self.class_weight, batch_size=self.batch_size, steps=steps, lr=self.lr,
+                ref_dynamics=ref,
+            )
+            return losses
+        placed = self._place(grouped)
+        runt = (grouped.seg_lens.clamp_min(1) - 1) % self.batch_size + 1 if ref else None
+        losses = None
+        for s0 in range(0, steps, 256):
+            idx_block = batch_indices(
+                self.generator, grouped.seg_starts, grouped.seg_lens,
+                batch_size=self.batch_size, steps=min(256, steps - s0), ref_dynamics=ref,
+            )
+            if self.parts is not None:
+                losses = self._expert_steps(idx_block, grouped, placed, active, runt)
+            else:
+                losses = self._data_steps(idx_block, grouped, placed, active, runt)
         return losses
+
+    def _expert_steps(self, idx_block, grouped, placed, active, runt):
+        """Each part steps its own models on its own device."""
+        cw = self.class_weight
+        if runt is not None and cw is None:
+            cw = torch.ones(self.class_mask.shape, device=self.device)
+        ctx = []
+        for part, local in zip(self.parts, placed):
+            lo, hi, dev = part.lo, part.hi, part.device
+            act = np.asarray(active, bool)[lo:hi]
+            ctx.append((part, local, int(grouped.seg_starts[lo]), self.class_mask[lo:hi].to(dev),
+                        torch.as_tensor(act, device=dev), bool(act.all()),
+                        None if cw is None else cw[lo:hi].to(dev),
+                        None if runt is None else runt[lo:hi].to(dev)))
+        losses = []
+        for idx in idx_block:
+            losses = []
+            for part, local, s0, mask, act, all_act, cw_p, runt_p in ctx:
+                xb, yb = batch_rows(local, (idx[part.lo:part.hi] - s0).to(part.device))
+                part.params, part.state, loss = train_step(
+                    part.params, part.state, xb, yb, mask, act, cw_p, lr=self.lr,
+                    all_active=all_act, runt=runt_p)
+                losses.append(loss.to(self.device))
+        return torch.cat(losses) if losses else None
+
+    def _data_steps(self, idx_block, grouped, blocks, active, runt):
+        """Each device takes the loss over the batch entries whose rows it
+        holds; the gradients meet on ``devices[0]``, which takes the Adam
+        step."""
+        home, B, D = self.device, self.batch_size, len(self.devices)
+        cw = self.class_weight
+        if runt is not None and cw is None:
+            cw = torch.ones(self.class_mask.shape, device=home)
+        act = torch.as_tensor(np.asarray(active, bool), device=home)
+        all_act = bool(np.all(active))
+        on = {dev: (self.class_mask.to(dev), act.to(dev), None if cw is None else cw.to(dev))
+              for dev in self.devices}
+        starts = torch.as_tensor(blocks.starts[1:-1], device=home)
+        col = torch.arange(B, device=home)
+        losses = None
+        for idx in idx_block:
+            rows = grouped.slot_rows[idx]
+            yb = torch.where(rows >= 0, grouped.labels[idx], -1)
+            if runt is not None:
+                yb = torch.where(col[None, :] < runt[:, None], yb, -1)
+            denom = None
+            if cw is not None:
+                w = torch.where(yb >= 0, torch.gather(cw, 1, yb.clamp_min(0)), 0.0)
+                denom = torch.clamp_min(w.sum(1), 1e-12)
+            # each model's batch entries grouped by the device holding their
+            # rows (in batch order within a device); one read of the counts
+            owner = torch.bucketize(rows.clamp_min(0), starts, right=True)
+            order = torch.argsort(owner * B + col, dim=1)
+            cnt = torch.nn.functional.one_hot(owner, D).sum(1)  # (M, D)
+            first = torch.cumsum(cnt, 1) - cnt
+            widths = cnt.max(0).values.tolist()
+            replicas, grads, losses = {}, None, None
+            for i, dev in enumerate(self.devices):
+                if widths[i] == 0:
+                    continue
+                j = torch.arange(widths[i], device=home)
+                sel = torch.gather(order, 1, (first[:, i : i + 1] + j).clamp_max(B - 1))
+                mine = j[None, :] < cnt[:, i : i + 1]
+                local = (torch.gather(rows, 1, sel) - int(blocks.starts[i])).clamp(
+                    0, blocks.blocks[i].shape[0] - 1).to(dev)
+                y_i = torch.where(mine, torch.gather(yb, 1, sel), -1).to(dev)
+                xb = blocks.blocks[i][local].float()
+                if blocks.scales is not None:
+                    xb = xb * blocks.scales[i][local][:, :, None]
+                mask, act_d, cw_d = on[dev]
+                if dev not in replicas:
+                    replicas[dev] = [p.to(dev) for p in self.params]
+                leaves = [p.detach().requires_grad_(True) for p in replicas[dev]]
+                ce = _cross_entropy(leaves, xb, y_i, mask)
+                if cw_d is None:
+                    part = torch.where(y_i >= 0, ce, 0.0).sum(1) / B
+                else:
+                    w_i = torch.where(y_i >= 0, torch.gather(cw_d, 1, y_i.clamp_min(0)), 0.0)
+                    part = (w_i * ce).sum(1) / denom.to(dev)
+                g = [t.to(home) for t in torch.autograd.grad((part * act_d).sum(), leaves)]
+                grads = g if grads is None else [a + b for a, b in zip(grads, g)]
+                part = part.detach().to(home)
+                losses = part if losses is None else losses + part
+            self.params, self.opt_state = adam_update(
+                self.params, self.opt_state, grads, act, lr=self.lr, all_active=all_act)
+        return losses
+
+    def _predict(self, grouped: GroupedData) -> torch.Tensor:
+        """Per-slot predictions over the whole layout, on ``device``."""
+        if self.parts is None:
+            return _predict_own_tiles(self.params, grouped, self.class_mask)
+        placed = self._place(grouped)
+        return torch.cat([
+            _predict_own_tiles(p.params, local, self.class_mask[p.lo:p.hi].to(p.device))
+            .to(self.device) for p, local in zip(self.parts, placed)])
 
     def fit(self, grouped: GroupedData, epochs: int, max_rounds: int = 1000) -> Tuple[np.ndarray, int]:
         """Train until covered → (per-slot predictions over the grouped
@@ -374,7 +598,7 @@ class StackedNodeTrainer:
         rounds = 0
         while True:
             self.run(grouped, steps, active)
-            preds = _predict_own_tiles(self.params, grouped, self.class_mask)
+            preds = self._predict(grouped)
             covered = _coverage(preds, grouped.labels, grouped.tile_model, self.class_mask)
             covered = covered.cpu().numpy()
             rounds += 1
@@ -383,11 +607,14 @@ class StackedNodeTrainer:
             if rounds > max_rounds:
                 raise RuntimeError(f"The model did not converge after {max_rounds} iterations.")
             active = ~covered
+        self._placed = None  # the parts' copies of the rows go with the fit
         return preds.cpu().numpy().astype(np.int32), rounds
 
     def predict_slots(self, grouped: GroupedData) -> np.ndarray:
         """Per-slot argmax under each slot's own model."""
-        return _predict_own_tiles(self.params, grouped, self.class_mask).cpu().numpy().astype(np.int32)
+        out = self._predict(grouped).cpu().numpy().astype(np.int32)
+        self._placed = None
+        return out
 
     @torch.no_grad()
     def predict_proba_all(self, queries) -> torch.Tensor:

@@ -236,6 +236,12 @@ def _kmeans_rows(
     return centroids.cpu().numpy(), _assign(centroids, data, rows, scales, tile)
 
 
+#: sibling nodes are clustered in blocks of at most ``ceil(M / NODE_BLOCKS)``
+#: nodes (and the gather budget), with or without devices, so a node's
+#: arithmetic, and so its labels, do not depend on the device list
+NODE_BLOCKS = 8
+
+
 @full_f32()
 def kmeans_nodes(
     data,
@@ -250,6 +256,7 @@ def kmeans_nodes(
     tile: int = 4096,
     node_batch_bytes: int = 1 << 30,
     restarts: int = 4,
+    devices=None,
 ) -> np.ndarray:
     """Cluster many sibling nodes' row sets at once (the JAX package's
     batched sibling k-means).  Each node in ``node_ids`` (every one owning
@@ -258,17 +265,37 @@ def kmeans_nodes(
     seeded inits, keeping the lowest-inertia run; then every row is
     assigned under its own node's centroids.  Returns labels (n,) int32,
     -1 for rows of other nodes.  Deterministic in ``seeds`` (one per
-    node); the draws come from CPU generators, not ``jax.random``."""
-    data = _as_tensor(data)
-    device = data.device
+    node); the draws come from CPU generators, not ``jax.random``.
+
+    ``devices``: the node blocks go to the devices in turn (block ``j``
+    to ``devices[j % len(devices)]``; the JAX package shards the node
+    axis over its mesh), and each block reads its rows where they lie:
+    ``data`` may then be one tensor, a list of per-device row blocks or
+    ``parallel.distributed.RowBlocks``.  The blocks are the same with
+    and without devices (:data:`NODE_BLOCKS`), so the labels are
+    bit-equal."""
+    from learnedmetricindex_tpu_torch.parallel.distributed import split_rows
+
     parent_gid = np.asarray(parent_gid)
     node_ids = np.asarray(node_ids, dtype=np.int64)
     seeds = np.asarray(seeds, dtype=np.int64)
-    n, d = data.shape
+    if devices is not None:
+        blocks = split_rows(data, devices, row_scales)
+        run_on = [torch.device(d) for d in devices]
+        n, d = blocks.shape
+        read = blocks.gather
+    else:
+        data = _as_tensor(data)
+        run_on = [data.device]
+        n, d = data.shape
+        scales = None
+        if row_scales is not None:
+            scales = _as_tensor(row_scales).to(device=data.device, dtype=torch.float32)
+
+        def read(rows, device):
+            return rows_f32(data, rows.reshape(-1), scales).reshape(*rows.shape, d).to(device)
+
     M, C = len(node_ids), n_clusters
-    scales = None
-    if row_scales is not None:
-        scales = _as_tensor(row_scales).to(device=device, dtype=torch.float32)
 
     # dense node index per row; rows of other nodes go to dummy group M
     pos = np.full(int(parent_gid.max()) + 1, M, dtype=np.int64)
@@ -298,13 +325,15 @@ def kmeans_nodes(
         g = torch.Generator().manual_seed(int(seeds[m]))
         samples.append(torch.randint(0, int(counts[m]), (T,), generator=g) + int(seg_starts[m]))
         inits.append(torch.stack([init_indices(T, C, g) for _ in range(restarts)]))
-    slot_rows_t = torch.as_tensor(slot_rows, device=device).long()
-    M_b = min(M, max(1, int(node_batch_bytes // max(T * d * 4, 1))))
-    cent_blocks = []
-    for m0 in range(0, M, M_b):
+    slot_rows_t = torch.as_tensor(slot_rows, device=run_on[0]).long()
+    M_b = min(M, max(1, int(node_batch_bytes // max(T * d * 4, 1))), -(-M // NODE_BLOCKS))
+    B = max(1, (256 << 20) // (tile * d * 4))  # assignment tiles a step
+    labs = []  # every tile's labels, in slot order
+    for j, m0 in enumerate(range(0, M, M_b)):
         m1 = min(m0 + M_b, M)
-        rows = slot_rows_t[torch.stack(samples[m0:m1]).to(device)]  # (M_b, T)
-        x = rows_f32(data, rows.reshape(-1), scales).reshape(m1 - m0, T, d)
+        dev = run_on[j % len(run_on)]
+        rows = slot_rows_t[torch.stack(samples[m0:m1]).to(run_on[0])]  # (m1 - m0, T)
+        x = read(rows, dev)
         cent, lab = _lloyd(x, torch.stack(inits[m0:m1]), n_iters, tile_rows=T)
         # inertia per (node, restart); the first of the lowest wins
         inertia = torch.stack([
@@ -313,23 +342,21 @@ def kmeans_nodes(
             for r in range(restarts)
         ], dim=1)
         best = torch.argmin(inertia, dim=1)
-        cent_blocks.append(cent[torch.arange(m1 - m0, device=device), best])
-    centroids = torch.cat(cent_blocks)  # (M, C, d)
+        centroids = cent[torch.arange(m1 - m0, device=dev), best]  # (m1 - m0, C, d)
+        del x, cent, lab
 
-    # every slot under its own node's centroids, a block of tiles at a time
-    n_tiles = len(tile_node)
-    srt = slot_rows_t.reshape(n_tiles, tile)
-    tile_node_t = torch.as_tensor(tile_node, device=device)
-    B = max(1, (256 << 20) // (tile * d * 4))
-    labs = []
-    for t0 in range(0, n_tiles, B):
-        r = srt[t0 : t0 + B]
-        x = rows_f32(data, r.clamp_min(0).reshape(-1), scales).reshape(*r.shape, d)
-        c = centroids[tile_node_t[t0 : t0 + B]]  # (B, C, d)
-        c2 = (c * c).sum(-1)[:, None, :]
-        lab = torch.argmin(c2 - 2.0 * torch.bmm(x, c.transpose(1, 2)), dim=-1)
-        labs.append(torch.where(r >= 0, lab, -1))
-    labs = torch.cat(labs).reshape(-1).to(torch.int32).cpu().numpy()
+        # the block's slots under their own node's centroids, B tiles at a time
+        t_lo, t_hi = int(seg_starts[m0]) // tile, int(seg_starts[m1]) // tile
+        srt = slot_rows_t[t_lo * tile : t_hi * tile].reshape(-1, tile)
+        tn = torch.as_tensor(tile_node[t_lo:t_hi] - m0, device=dev)
+        for t0 in range(0, t_hi - t_lo, B):
+            r = srt[t0 : t0 + B]
+            x = read(r.clamp_min(0), dev)
+            c = centroids[tn[t0 : t0 + B]]  # (B, C, d)
+            c2 = (c * c).sum(-1)[:, None, :]
+            lab = torch.argmin(c2 - 2.0 * torch.bmm(x, c.transpose(1, 2)), dim=-1)
+            labs.append(torch.where(r.to(dev) >= 0, lab, -1).reshape(-1).to(run_on[0]))
+    labs = torch.cat(labs).to(torch.int32).cpu().numpy()
     labels = np.full(n, -1, dtype=np.int32)
     valid = slot_rows >= 0
     labels[slot_rows[valid]] = labs[valid]

@@ -54,3 +54,15 @@ def create_mesh(n_devices: Optional[int] = None, device_type: str = "cuda") -> L
     if not devices:
         raise RuntimeError(f"no {device_type} device is available")
     return devices
+
+
+def device_list(n: int, device) -> List[torch.device]:
+    """The devices of ``--shard-devices n`` next to ``--device device``: on
+    CUDA the first ``n`` cards (all of them when ``n < 0``; raises if
+    there are fewer), as the JAX package's ``create_mesh``; on the CPU
+    ``["cpu"] * n`` (one when ``n < 0``), the port's counterpart of the
+    JAX package's ``n`` virtual CPU devices."""
+    kind = torch.device(device).type
+    if kind == "cpu":
+        return [torch.device("cpu")] * (n if n > 0 else 1)
+    return create_mesh(n if n > 0 else None, kind)

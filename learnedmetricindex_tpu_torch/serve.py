@@ -9,8 +9,9 @@ coalesces concurrent requests into one ``LearnedIndex.search`` call.
   dispatcher thread drains the queue into one search a tick, at most
   ``max_batch`` queries, after waiting up to ``max_wait_ms`` for more
   requests to join.  Over a
-  :class:`~learnedmetricindex_tpu_torch.index.mutation.DynamicIndex` it
-  also inserts, deletes and compacts.  The port's mutations write the
+  :class:`~learnedmetricindex_tpu_torch.index.mutation.DynamicIndex`, or
+  a ``ShardedDynamicIndex`` over a store sharded by bucket over devices,
+  it also inserts, deletes and compacts.  The port's mutations write the
   store's tensors in place, so one lock is held around every dispatch
   and every mutation: a search never sees half of a mutation, and a
   request submitted after a mutation returns sees all of it.  A plain
@@ -22,6 +23,8 @@ coalesces concurrent requests into one ``LearnedIndex.search`` call.
   the dispatcher batches across connections.
 
     python -m learnedmetricindex_tpu_torch.serve --device cpu --synthetic 20000 --dynamic
+    python -m learnedmetricindex_tpu_torch.serve --device cpu --synthetic 20000 \
+        --shard-devices 4 --dynamic
 """
 
 from __future__ import annotations
@@ -37,6 +40,7 @@ import numpy as np
 
 from learnedmetricindex_tpu_torch.index.mutation import DynamicIndex
 from learnedmetricindex_tpu_torch.ops import scan_kernel
+from learnedmetricindex_tpu_torch.parallel.sharded_mutation import ShardedDynamicIndex
 
 __all__ = ["SearchServer", "make_http_server", "main"]
 
@@ -69,8 +73,9 @@ class SearchServer:
     """Micro-batching executor: concurrent search requests coalesce into
     one search on the index's device.
 
-    ``index``: a :class:`DynamicIndex` (the server then takes mutations
-    too), or a ``LearnedIndex`` with its packed ``store``.  The search
+    ``index``: a :class:`DynamicIndex` or a :class:`ShardedDynamicIndex`
+    (the server then takes mutations too), or a ``LearnedIndex`` with its
+    ``store`` (packed, virtual or sharded).  The search
     knobs are fixed per server; a request may ask for any ``k`` up to the
     server's, which computes at its own ``k`` and slices.  ``max_batch``
     bounds a dispatch (requests beyond it wait for the next tick);
@@ -95,7 +100,7 @@ class SearchServer:
         max_wait_ms: float = 2.0,
         warmup: bool = True,
     ):
-        if isinstance(index, DynamicIndex):
+        if isinstance(index, (DynamicIndex, ShardedDynamicIndex)):
             if store is not None:
                 raise ValueError("pass either a DynamicIndex or (index, store)")
             self.dynamic = index
@@ -456,7 +461,10 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     ckpt``) or a saved index over its corpus (``--index index.npz
     --data corpus.npy``, or an ``.h5`` file with dataset ``emb``) on
     ``--device`` (default ``cuda``: without a GPU this raises; ``--device
-    cpu`` runs the plain versions)."""
+    cpu`` runs the plain versions).  ``--shard-devices N`` shards the
+    store by bucket over ``parallel.mesh.device_list(N, device)`` (the
+    first N cards; ``["cpu"] * N`` on the CPU) and, with ``--dynamic``,
+    serves a ``ShardedDynamicIndex``."""
     import argparse
 
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -481,19 +489,19 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     p.add_argument("--dynamic", action="store_true",
                    help="enable POST /insert, /delete and /compact (a DynamicIndex)")
     p.add_argument("--shard-devices", type=int, default=0,
-                   help="shard the store over N devices (not in the port yet: raises)")
+                   help="shard the store by bucket over the first N cards (-1: all; "
+                        "with --device cpu, N repeats of the CPU); composes with --dynamic")
     args = p.parse_args(argv)
-    if args.shard_devices:
-        raise NotImplementedError(
-            "--shard-devices: this flag is not in the port yet (ROADMAP.md §1 item 6); "
-            "SearchServer serves a sharded store made with LearnedIndex.get_sharded_store"
-        )
 
     from learnedmetricindex_tpu_torch.cli import parse_nav_temp
     from learnedmetricindex_tpu_torch.index.index import resolve_device
     from learnedmetricindex_tpu_torch.index.serialization import load_dynamic_index, load_index
+    from learnedmetricindex_tpu_torch.parallel.mesh import device_list
 
     device = resolve_device(args.device)
+    devices = device_list(args.shard_devices, device) if args.shard_devices else None
+    if devices is not None:
+        device = devices[0]  # the routers live where the shards merge
     dyn = None
     if args.synthetic:
         index, data_prediction, data = _build_demo_index(args.synthetic, args.d, args.buckets,
@@ -527,6 +535,12 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     )
     if dyn is not None:
         server = SearchServer(dyn, **knobs)
+    elif devices is not None and args.dynamic:
+        server = SearchServer(
+            ShardedDynamicIndex.from_built(index, data, data_prediction, devices), **knobs)
+    elif devices is not None:
+        server = SearchServer(index, index.get_sharded_store(data, data_prediction, devices),
+                              **knobs)
     elif args.dynamic:
         server = SearchServer(DynamicIndex.from_built(index, data, data_prediction), **knobs)
     else:
@@ -535,7 +549,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     host, port = httpd.server_address[:2]
     endpoints = "POST /search, GET /healthz, GET /stats" + (
         ", POST /insert, POST /delete, POST /compact" if args.dynamic else "")
-    print(f"lmi-serve listening on http://{host}:{port} on {device} ({endpoints})", flush=True)
+    where = device if devices is None else f"{len(devices)} shards on {devices}"
+    print(f"lmi-serve listening on http://{host}:{port} on {where} ({endpoints})", flush=True)
     try:
         httpd.serve_forever()
     except KeyboardInterrupt:

@@ -181,8 +181,20 @@ def test_missing_staged_file_raises(tmp_path):
 
 
 def test_shard_devices_raises():
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        cli.main(["--synthetic", "200", "--shard-devices", "2", "--device", "cpu"])
+    """``--shard-devices N`` on CUDA names the first N cards and raises when
+    the machine has fewer (the JAX package's create_mesh); ``--device``
+    must be the first of them."""
+    from learnedmetricindex_tpu_torch.parallel.mesh import device_list
+
+    have = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    with pytest.raises(RuntimeError, match=f"need {have + 1} cuda devices"):
+        device_list(have + 1, "cuda")
+    with pytest.raises(ValueError, match="first shard device"):
+        cli.sweep(**cli.sweep_arguments(cli.parse_args(["--synthetic", "200", "--device", "cpu"])),
+                  devices=["meta", "cpu"])
+    if not have:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            cli.main(["--synthetic", "200", "--shard-devices", "2"])
 
 
 def test_cuda_without_a_gpu_raises():

@@ -724,3 +724,60 @@ def test_virtual_and_sharded_searches_on_gpu(cuda):
         np.testing.assert_allclose(hd, sd, rtol=1e-4, atol=1e-5)
         mism = hi != si
         np.testing.assert_allclose(hd[mism], sd[mism], rtol=1e-6, atol=5e-6)
+
+
+@pytest.mark.parametrize("mode", ["bf16", "f32", "int8"])
+def test_kernel_matches_plain_version_on_sharded_stores(cuda, mode):
+    """Each shard of an int8 store sharded over [cuda] * 4, fresh and after
+    a ShardedDynamicIndex's inserts (chunks from the pool, growth) and
+    deletes (holes), scanned by the kernel equals the plain version, one
+    launch a shard."""
+    from learnedmetricindex_tpu_torch.parallel import ShardedDynamicIndex
+
+    data, rng = _corpus(6000, 64, seed=41)
+    nb = 8
+    params = [{"w": rng.normal(size=(1, 64, 32)).astype(np.float32),
+               "b": np.zeros((1, 32), np.float32)},
+              {"w": rng.normal(size=(1, 32, nb)).astype(np.float32),
+               "b": np.zeros((1, nb), np.float32)}]
+    cfg = lmi.BuildConfiguration("kmeans", 1, "MLP-6", 0.01, [nb], chunk_size=128)
+    index = index_from_arrays(cfg, [params], [np.ones((1, nb), bool)], ["MLP-6"],
+                              np.ones(nb, bool), cuda)
+    pred = rng.integers(0, nb, (6000, 1))
+    x8, sc = quantize.quantize_rows(torch.as_tensor(data, device=cuda))
+    dyn = ShardedDynamicIndex.from_built(index, (x8, sc), pred, [cuda] * 4, chunk=128)
+    q = torch.as_tensor(data[:300] + 0.01, device=cuda)
+    order, _ = index.compute_bucket_order(q, nb, keep_on_device=True)
+    for step in ("fresh", "mutated"):
+        if step == "mutated":
+            extra, _ = _corpus(3000, 64, seed=42)
+            ids = dyn.insert(torch.as_tensor(extra, device=cuda))
+            assert dyn.delete(np.concatenate([ids[::3], np.arange(1, 1500)])) == 1000 + 1499
+        st = dyn.store
+        at = order.clamp_min(0).long()
+        owner = torch.as_tensor(st.bucket_device, device=cuda)[at]
+        local = torch.as_tensor(st.bucket_local, device=cuda)[at]
+        for i, shard in enumerate(st.shards):
+            _, args = scan_inputs(shard, q, torch.where((order >= 0) & (owner == i), local, -1),
+                                  128, mode)
+            _kernel_vs_plain(args, 16, 128, shard.chunk, mode, 1)
+
+
+def test_device_list_build_on_gpu(cuda):
+    """A [4, 2] build over [cuda] * 4 (sharded k-means at the root, the
+    trainer data parallel there and expert parallel below) searches a
+    store sharded over the same list: exact at a full visit."""
+    from learnedmetricindex_tpu_torch.ops.knn import exact_knn, recall
+
+    data, _ = _corpus(6000, 32, seed=43)
+    cfg = lmi.BuildConfiguration("kmeans", 20, "MLP", 0.02, [4, 2], seed=5, chunk_size=256)
+    index, pred, n_buckets, _, _ = lmi.LearnedIndexBuilder(
+        data, cfg, device=cuda, devices=[cuda] * 4).build()
+    assert n_buckets >= 2 and (pred >= 0).all()
+    sharded = index.get_sharded_store(data, pred, [cuda] * 4)
+    q = data[:200] + 0.01
+    before = scan_kernel.LAUNCHES
+    _, nns, _ = index.search(None, q, None, q, pred, n_buckets=n_buckets, k=10, store=sharded)
+    assert scan_kernel.LAUNCHES - before == 4
+    _, gt = exact_knn(data, q, k=10, device=cuda)
+    assert recall(nns, gt, 10) == 1.0

@@ -42,8 +42,10 @@ MODULES = [
     "learnedmetricindex_tpu_torch.index.navigation",
     "learnedmetricindex_tpu_torch.index.serialization",
     "learnedmetricindex_tpu_torch.parallel",
+    "learnedmetricindex_tpu_torch.parallel.distributed",
     "learnedmetricindex_tpu_torch.parallel.mesh",
     "learnedmetricindex_tpu_torch.parallel.sharded_index",
+    "learnedmetricindex_tpu_torch.parallel.sharded_mutation",
     "learnedmetricindex_tpu_torch.serve",
     "learnedmetricindex_tpu_torch.utils",
     "learnedmetricindex_tpu_torch.utils.compat",
@@ -202,12 +204,25 @@ for st in (store, sharded):
     d, i, t = index.search(None, data[:5], None, data[:5], pred, n_buckets=4, k=1100,
                            precision="highest", store=st)
     assert i.shape == (5, 1100) and (i[:, 0] == np.arange(1, 6)).all(), i[:, :3]
+# built over three "devices", then mutated while sharded over two
+from learnedmetricindex_tpu_torch.parallel import ShardedDynamicIndex, sharded_kmeans
+c, lab = sharded_kmeans(data, 4, ["cpu"] * 3)
+assert c.shape == (4, 8) and lab.shape == (3000,)
+cfg2 = lmi.BuildConfiguration("kmeans", 2, "MLP-8", 0.01, [2, 2], chunk_size=64)
+built = lmi.LearnedIndexBuilder(data, cfg2, device="cpu", devices=["cpu"] * 3).build()
+dyn = ShardedDynamicIndex.from_built(built[0], data, built[1], ["cpu"] * 2)
+ids = dyn.insert(data[:4] * 0.5)
+assert dyn.delete(ids[:2]) == 2 and dyn.n_rows == 3002
+dyn.compact()
+d, i, t = dyn.search(data[:3], n_buckets=4, k=1)
+assert (i[:, 0] == np.arange(1, 4)).all(), i
 """ + _NOTHING_LOADED
 
 
 def test_virtual_and_sharded_stores_without_the_jax_package():
-    """Virtual and sharded stores and a k=1100 search run with jax and the
-    JAX package unimportable."""
+    """Virtual and sharded stores, a k=1100 search, a build over a device
+    list and a ShardedDynamicIndex run with jax and the JAX package
+    unimportable."""
     proc = _run_without(_STORES_BODY, WITHOUT_THE_JAX_PACKAGE)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip().endswith("ok")
@@ -276,8 +291,10 @@ def test_exports():
                                 "shard_packed_store", "shard_store", "sharded_search"}
     from learnedmetricindex_tpu_torch import parallel
 
-    assert set(parallel.__all__) == {"ShardedStore", "create_mesh", "data_model_axes",
-                                     "shard_packed_store", "shard_store", "sharded_search"}
+    assert set(parallel.__all__) == {"ShardedDynamicIndex", "ShardedStore", "create_mesh",
+                                     "data_model_axes", "device_list", "shard_packed_store",
+                                     "shard_store", "sharded_kmeans", "sharded_search"}
+    assert all(hasattr(parallel, name) for name in parallel.__all__)
     assert all(hasattr(lmi, name) for name in lmi.__all__)
     for matmul, cudnn in ((True, False), (False, True)):
         proc = _run_without(f"""

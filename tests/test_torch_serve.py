@@ -344,7 +344,6 @@ def test_main_serves_a_saved_index_over_an_h5_corpus(built, tmp_path):
 
 
 @pytest.mark.parametrize("argv,error", [
-    (["--shard-devices", "2", "--synthetic", "10"], NotImplementedError),
     (["--data", "corpus.h5", "--device", "cpu"], SystemExit),
     (["--device", "cpu"], SystemExit),
 ])
