@@ -97,7 +97,21 @@ phases:
    over the devices): recall against the baseline, each visit count
    exact over its visited buckets, one scan launch a shard a search,
    the build's times and each shard's scan beside ``phase_cli``'s
-   (``[multi]`` lines).
+   (``[multi]`` lines);
+10. the multi-process phase: a child process of this script joins a
+   world of one rank over NCCL (``parallel/multiprocess.py``:
+   ``initialize`` from ``MASTER_ADDR``/``MASTER_PORT``/``RANK``/
+   ``WORLD_SIZE``), takes ``phase_cli``'s host data through ``.npy``
+   files as ``from_process_local`` rows, and at ``--n-categories 120``
+   and ``12 10`` builds over the world, fills the store sharded over it
+   through ``all_to_all`` exchanges of bounded bytes and searches it at
+   each visit count: one scan launch and one ``all_gather`` a search,
+   each visit count exact over its visited buckets, recall at 120
+   buckets within 0.03 of ``phase_cli``'s, the rank's scan held to its
+   plain version, the fill's peak within its shard and four exchanges;
+   the build's, a step's and a warm search's seconds beside
+   ``phase_cli``'s, the collectives' time by CUDA events, the fill's
+   peak and the peak device memory (``[multi-process]`` lines).
 
 Each path runs with the launch counts set to 0 just before it and read
 just after.  Any failure raises (exit code 1).  Without CUDA it exits
@@ -1843,7 +1857,8 @@ def shards_held_to_plain(sharded, queries, order, what: str) -> float:
     owner = torch.as_tensor(sharded.bucket_device, device=order.device)[at]
     local = torch.as_tensor(sharded.bucket_local, device=order.device)[at]
     worst = {"bf16": (0.0, 0.0)}
-    for i, shard in enumerate(sharded.shards):
+    owners = range(len(sharded.shards)) if sharded.world is None else [sharded.world.rank]
+    for i, shard in zip(owners, sharded.shards):
         no_copies = np.full(shard.n_chunks * shard.chunk, -1, np.int64)
         held_to_plain(shard, queries.to(shard.device),
                       torch.where(valid & (owner == i), local, -1).to(shard.device), 16, 128,
@@ -1986,6 +2001,28 @@ CLI_ARGV = ["--synthetic", "1000000", "--synthetic-dim", "768", "--n-categories"
 CLI_TRACE_VISIT = 4
 
 
+class StepCount:
+    """Counts the training steps ``StackedNodeTrainer.run`` is asked for
+    while the block runs (``n``)."""
+
+    def __enter__(self):
+        from learnedmetricindex_tpu_torch.models.train import StackedNodeTrainer
+
+        self.n, self.run = 0, StackedNodeTrainer.run
+
+        def run(trainer, grouped, steps, active):
+            self.n += steps
+            return self.run(trainer, grouped, steps, active)
+
+        StackedNodeTrainer.run = run
+        return self
+
+    def __exit__(self, *exc):
+        from learnedmetricindex_tpu_torch.models.train import StackedNodeTrainer
+
+        StackedNodeTrainer.run = self.run
+
+
 class RecordedArgs(logging.Handler):
     """Keeps the arguments of the log records whose message is ``msg``."""
 
@@ -2063,7 +2100,8 @@ def phase_cli(dev, smi: str, argv=CLI_ARGV):
         cli.load_data = lambda *a, **k: drawn.append((a, k, load(*a, **k))) or drawn[-1][2]
         try:
             reset_counts()
-            result = cli.sweep(**kw)
+            with StepCount() as steps:
+                result = cli.sweep(**kw)
             torch.cuda.synchronize()
             counts = read_counts()
         finally:
@@ -2181,6 +2219,7 @@ def phase_cli(dev, smi: str, argv=CLI_ARGV):
         timing = {"ms": k_ms, "plain_ms": p_ms, "library_ms": lib_ms, "err": err,
                   "bound_ms": bound[bound_by], "bound_by": bound_by}
         single = {"drawn": drawn[0], "build_t": result.build_t, "cluster_t": result.cluster_t,
+                  "train_steps": steps.n,
                   "visits": [b for b, *_ in result.searches], "recalls": recalls, "gt_i": gt_i,
                   "search_s": {b: m["search"] for b, _, _, m, _ in result.searches},
                   "warm_s": warm, "scan_ms": k_ms, "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
@@ -2319,10 +2358,272 @@ def phase_multi_build(dev, smi: str, single: dict, argv=CLI_ARGV):
     return launches, out
 
 
+# the multi-process phase: the rank's working directory, its result line's
+# tag, and the seconds the rank may take before the script kills it
+MULTI_PROCESS_DIR = WORK_DIR / "multi_process"
+RANK_RESULT = "[multi-process-result] "
+RANK_TIMEOUT_S = 900
+
+
+class CollectiveTimer:
+    """CUDA events around every collective of the port while installed:
+    ``multiprocess.all_gather`` and ``all_to_all``, which every
+    collective of the port goes through.  :meth:`read` gives
+    ``{name: (calls, device ms)}`` since the last read."""
+
+    NAMES = ("all_gather", "all_to_all")
+
+    def __init__(self, mp):
+        self.mp, self.orig, self.events = mp, {n: getattr(mp, n) for n in self.NAMES}, []
+        for name, fn in self.orig.items():
+            setattr(mp, name, self._timed(name, fn))
+
+    def _timed(self, name, fn):
+        def timed(*a, **k):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*a, **k)
+            end.record()
+            self.events.append((name, start, end))
+            return out
+
+        return timed
+
+    def read(self) -> dict:
+        torch.cuda.synchronize()
+        out = {n: (0, 0.0) for n in self.NAMES}
+        for name, start, end in self.events:
+            calls, ms = out[name]
+            out[name] = (calls + 1, ms + start.elapsed_time(end))
+        self.events = []
+        return out
+
+    def close(self) -> None:
+        for name, fn in self.orig.items():
+            setattr(self.mp, name, fn)
+
+
+def collectives_text(timed: dict) -> str:
+    return ", ".join(f"{n} x{c} {ms:.2f} ms" for n, (c, ms) in timed.items())
+
+
+def phase_multi_process(smi: str, single: dict, argv=CLI_ARGV):
+    """The multi-process runtime (``parallel/multiprocess.py``) as a world
+    of one rank over NCCL, in a child process of this script (``--rank-dir``)
+    so the process group touches no other phase: ``MASTER_ADDR``
+    127.0.0.1, a free port, ``RANK`` 0, ``WORLD_SIZE`` 1.  The rank reads
+    ``phase_cli``'s host data from ``.npy`` files (nothing is drawn
+    twice) and runs :func:`rank_main`.  The child's lines are echoed; its
+    last, tagged line carries its launch counts and its worst
+    kernel-vs-plain error.  A non-zero exit of the child fails the
+    script."""
+    import socket
+
+    work = MULTI_PROCESS_DIR
+    work.mkdir(parents=True, exist_ok=True)
+    _, _, (_, data, queries) = single["drawn"]
+    t0 = time.perf_counter()
+    np.save(work / "data.npy", np.asarray(data, np.float32))
+    np.save(work / "queries.npy", np.asarray(queries, np.float32))
+    np.save(work / "gt_i.npy", single["gt_i"])
+    keep = ("build_t", "cluster_t", "train_steps", "visits", "recalls", "scan_ms", "peak_gb")
+    (work / "meta.json").write_text(json.dumps({
+        "argv": argv, "smi": smi, "single": {k: single[k] for k in keep},
+        "warm_s": single["warm_s"][CLI_TRACE_VISIT]}))
+    log(f"[multi-process] phase_cli's host data written to {work.relative_to(ROOT)} in "
+        f"{time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    env = dict(os.environ, MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port), RANK="0",
+               WORLD_SIZE="1")
+    t0 = time.perf_counter()
+    proc = subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--rank-dir",
+                             str(work)], cwd=ROOT, env=env, stdout=subprocess.PIPE, text=True)
+    watchdog = threading.Timer(RANK_TIMEOUT_S, proc.kill)
+    watchdog.start()
+    result = None
+    try:
+        for line in proc.stdout:
+            if line.startswith(RANK_RESULT):
+                result = json.loads(line[len(RANK_RESULT):])
+            log(line.rstrip("\n"))
+        rc = proc.wait()
+    finally:
+        watchdog.cancel()
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    check(rc == 0, f"the multi-process rank exited with {rc}")
+    check(result is not None, "the multi-process rank printed its result line")
+    log(f"[multi-process] the rank's process ran {time.perf_counter() - t0:.1f} s")
+    for name in ("data.npy", "queries.npy", "gt_i.npy"):
+        (work / name).unlink()
+    return result["launches"], result
+
+
+def rank_main(work: Path) -> None:
+    """The rank of :func:`phase_multi_process`: ``multiprocess.initialize``
+    on cuda:0 from torchrun's variables (the backend must be NCCL), the
+    corpus as ``from_process_local`` rows, then at ``--n-categories 120``
+    and ``12 10`` the rank-local build (``devices=global_mesh()``),
+    ``get_sharded_store`` over the world and a search at each visit
+    count.  Gates, as ``phase_multi_build``'s: one scan launch a search;
+    each visit count exact over its visited buckets (recall ≥ 0.999, all
+    queries); recall against the baseline never falling as visits rise,
+    ≥ 0.999 visiting every bucket, and at 120 buckets visits 1-8 within
+    0.03 of ``phase_cli``'s; the rank's scan at visit 4 held to its plain
+    version; the routed fill's peak no more than its shard and four
+    bounded exchanges above what was resident.  Prints the build's, a
+    training step's and a warm search's seconds beside ``phase_cli``'s,
+    the device time in collectives (CUDA events), the fill's peak and
+    the peak device memory; the last line is the tagged JSON result."""
+    from learnedmetricindex_tpu_torch import cli
+    from learnedmetricindex_tpu_torch.parallel import multiprocess as mp
+    from learnedmetricindex_tpu_torch.parallel import sharded_index
+
+    meta = json.loads((work / "meta.json").read_text())
+    argv, smi, single = meta["argv"], meta["smi"], meta["single"]
+    dev = torch.device("cuda", 0)
+    t0 = time.perf_counter()
+    mp.initialize(device=dev)  # MASTER_ADDR, MASTER_PORT, RANK, WORLD_SIZE
+    world = mp.global_mesh()
+    backend = torch.distributed.get_backend()
+    check(backend == "nccl" and (world.rank, world.size, world.device) == (0, 1, dev),
+          f"a world of one rank on {dev} over NCCL: {world}, {backend}")
+    log(f"[multi-process] rank {world.rank} of {world.size} on {world.device}, backend "
+        f"{backend}, joined in {time.perf_counter() - t0:.2f} s  [{smi}]")
+    timer = CollectiveTimer(mp)
+    queries = np.load(work / "queries.npy")
+    gt_i = np.load(work / "gt_i.npy")
+    t0 = time.perf_counter()
+    gdata = mp.from_process_local(np.load(work / "data.npy"), world)
+    torch.cuda.synchronize()
+    log(f"[multi-process] from_process_local: {gdata.shape[0]}x{gdata.shape[1]} f32 rows on "
+        f"{dev} in {time.perf_counter() - t0:.1f} s (read from .npy and uploaded); "
+        f"{collectives_text(timer.read())}")
+    q_dev = torch.as_tensor(queries, device=dev)
+    launches = {k: 0 for k in read_counts()}
+    out = {"err": 0.0}
+    i = argv.index("--n-categories")
+    for cats in (["120"], ["12", "10"]):
+        args = cli.parse_args(argv[: i + 1] + cats + argv[i + 2 :])
+        name = "x".join(cats)
+        cfg = lmi.BuildConfiguration(args.clustering_algorithm, args.epochs, args.model_type,
+                                     args.lr, args.n_categories, seed=args.seed,
+                                     batch_size=args.batch_size, chunk_size=args.chunk_size,
+                                     dtype=args.dtype)
+        visits = sorted(set(b for b in args.n_buckets if b > 0))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        timer.read()
+        # ---- the path: every launch from here to the read counts ----
+        reset_counts()
+        with StepCount() as steps:
+            index, pred, nb, build_t, cluster_t = lmi.LearnedIndexBuilder(
+                gdata, cfg, device=dev, devices=world).build()
+        build_coll = timer.read()
+        build_peak = torch.cuda.max_memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated()
+        store, store_s = synced(lambda: index.get_sharded_store(gdata, pred, world))
+        fill_added = torch.cuda.max_memory_allocated() - resident
+        store_coll = timer.read()
+        searches = [(b, *index.search(None, queries, None, queries, pred, n_buckets=b, k=args.k,
+                                      policy=args.policy, store=store)) for b in visits]
+        torch.cuda.synchronize()
+        counts = read_counts()
+        # --------------------------------------------------------------
+        search_coll = timer.read()
+        peak = max(build_peak, torch.cuda.max_memory_allocated())
+        corpus_bytes = gdata.block.numel() * gdata.block.element_size()
+        launches = {k: launches[k] + counts[k] for k in counts}
+        train_t = build_t - cluster_t
+        one_train = single["build_t"] - single["cluster_t"]
+        log(f"[multi-process] {name}: rank-local build {build_t:.1f} s (cluster {cluster_t:.1f} "
+            f"s, train {train_t:.1f} s, {steps.n} steps, {1e3 * train_t / steps.n:.2f} ms a "
+            f"step), {nb} buckets; one device (phase_cli, 120): build {single['build_t']:.1f} s "
+            f"(cluster {single['cluster_t']:.1f} s, train {one_train:.1f} s, "
+            f"{single['train_steps']} steps, {1e3 * one_train / single['train_steps']:.2f} ms a "
+            f"step); collectives in the build: {collectives_text(build_coll)}; routed store "
+            f"{store_s:.2f} s ({store.nbytes_device_arrays() / 1e9:.2f} GB, "
+            f"{collectives_text(store_coll)}; the fill's peak {fill_added / 1e9:.2f} GB above "
+            f"what was resident, {fill_added / corpus_bytes:.2f}x the rank's "
+            f"{corpus_bytes / 1e9:.2f} GB of rows); launches {counts}  [{smi}]")
+        bound = store.nbytes() + 4 * sharded_index.ROUTED_BLOCK_BYTES
+        check(fill_added <= bound, f"{name}: the routed fill added {fill_added} bytes at its "
+              f"peak, more than the shard and its bounded exchanges ({bound})")
+        check(isinstance(store, lmi.ShardedStore) and store.world is world
+              and len(store.shards) == 1 and store.shards[0].device == dev,
+              f"{name}: the rank's one shard on {dev}")
+        check(counts["scan_pairs"] == len(visits) and counts["gather_pairs"] == 0
+              and counts["gather_rows"] == 0,
+              f"{name}: {counts} launches for {len(visits)} searches (one scan a search)")
+        check(search_coll["all_gather"][0] == len(visits),
+              f"{name}: one all_gather a search: {search_coll}")
+        recalls = []
+        for b, dists, nns, measured in searches:
+            check(nns.shape == (len(queries), args.k) and bool(np.isfinite(dists).all())
+                  and bool((nns > 0).all()), f"{name} visit {b}: finite, filled")
+            order, _ = index.compute_bucket_order(q_dev, b, policy=args.policy,
+                                                  keep_on_device=True)
+            _, ref_i = visited_exact(store, q_dev, order, args.k)
+            r_vis = recall(nns, ref_i, args.k)
+            recalls.append(recall(nns, gt_i, args.k))
+            line = ""
+            if name == "120" and b in single["visits"]:
+                r1 = single["recalls"][single["visits"].index(b)]
+                line = f"; one device {r1:.4f}"
+                if b <= 8:
+                    check(abs(recalls[-1] - r1) <= 0.03,
+                          f"visit {b}: recall {recalls[-1]} vs one device's {r1}")
+            log(f"[multi-process] {name}, visit {b:3d}: search {measured['search']:.4f} s; "
+                f"recall@{args.k} vs the baseline {recalls[-1]:.4f}{line}; vs visited-bucket "
+                f"exact {r_vis:.4f} ({len(queries)} queries)  [{smi}]")
+            check(r_vis >= 0.999, f"{name} visit {b}: recall {r_vis} vs visited-bucket exact")
+        check(all(b2 >= b1 for b1, b2 in zip(recalls, recalls[1:])),
+              f"{name}: recall does not fall as visits rise: {recalls}")
+        check(recalls[-1] >= 0.999 and visits[-1] >= nb,
+              f"{name}: every bucket visited: recall {recalls[-1]} vs the baseline")
+
+        # ---- warm visit-4 search, its collective; the rank's scan held to plain ----
+        order, _ = index.compute_bucket_order(q_dev, CLI_TRACE_VISIT, policy=args.policy,
+                                              keep_on_device=True)
+        search = lambda: index.search(None, queries, None, queries, pred,  # noqa: E731
+                                      n_buckets=CLI_TRACE_VISIT, k=args.k, policy=args.policy,
+                                      store=store)
+        search()
+        timer.read()
+        warm = min(synced(search)[1] for _ in range(3))
+        one_coll = timer.read()
+        out["err"] = max(out["err"], shards_held_to_plain(store, q_dev, order,
+                                                          f"multi-process {name}"))
+        log(f"[multi-process] {name}: warm visit-{CLI_TRACE_VISIT} search {warm:.4f} s per "
+            f"{len(queries)} queries (best of 3; one device {meta['warm_s']:.4f} s); its "
+            f"collectives over 3 searches: {collectives_text(one_coll)}; peak device memory "
+            f"{peak / 1e9:.2f} GB (one device {single['peak_gb']:.2f} GB)  [{smi}]")
+        out[name] = {"build_t": build_t, "cluster_t": cluster_t, "train_step_ms":
+                     1e3 * train_t / steps.n, "recalls": recalls, "warm_s": warm,
+                     "peak_gb": peak / 1e9, "fill_added_gb": fill_added / 1e9,
+                     "collective_ms": {"build": build_coll, "store": store_coll,
+                                       "search": one_coll}}
+        del index, store, searches, order
+        torch.cuda.empty_cache()
+    timer.close()
+    torch.distributed.destroy_process_group()
+    out["launches"] = launches
+    print(RANK_RESULT + json.dumps(out), flush=True)
+
+
 def main() -> None:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--rows", type=int, default=10_000_000, help="corpus rows")
+    p.add_argument("--rank-dir", type=Path, help=argparse.SUPPRESS)  # phase_multi_process's rank
     args = p.parse_args()
+    if args.rank_dir is not None:
+        rank_main(args.rank_dir)
+        return
 
     smi = phase_device()
     dev = torch.device("cuda", 0)
@@ -2342,12 +2643,14 @@ def main() -> None:
     torch.cuda.empty_cache()
     cli_launches, cli_timing, single = phase_cli(dev, smi)
     multi_launches, multi_out = phase_multi_build(dev, smi, single)
+    proc_launches, proc_out = phase_multi_process(smi, single)
     del single
     rows = []
     for name, source, replaces, t, errs in (
         ("scan_pairs", KERNEL_SOURCE, REPLACES, timing["bf16"],
          [e for pair in small.values() for e in pair[:1]] + [t["err"] for t in timing.values()]
-         + [virt_timing["err"], cli_timing["err"], mut_out["err"], multi_out["err"]]),
+         + [virt_timing["err"], cli_timing["err"], mut_out["err"], multi_out["err"],
+            proc_out["err"]]),
         # the row gather's kernels: the merge gather is the one the search launches
         ("gather_pairs", GATHER_SOURCE, GATHER_REPLACES, gather_timing["merge"],
          [t["err"] for t in gather_timing.values()]),
@@ -2356,7 +2659,8 @@ def main() -> None:
                      "launches": (main_launches[name] + virt_launches[name]
                                   + shard_launches[name] + build_launches[name]
                                   + dyn_launches[name] + mut_launches[name]
-                                  + cli_launches[name] + multi_launches[name]),
+                                  + cli_launches[name] + multi_launches[name]
+                                  + proc_launches[name]),
                      "max_abs_err": max(errs), "ms": t["ms"], "plain_ms": t["plain_ms"],
                      "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
                      "library_ms": t["library_ms"]})

@@ -27,10 +27,21 @@ it would gain nothing.  (The JAX package's mesh path fits the root on
 every row with ``sharded_kmeans``; on the near-uniform CLI corpus that
 gives a flatter partition and lower recall at few visits.)  The routers
 live on ``device``, which must be ``devices[0]``.
+
+``devices`` may be the world of a multi-process run
+(``parallel.multiprocess.global_mesh()``), the corpus then this rank's
+rows (``multiprocess.from_process_local``).  Every rank runs the same
+build: the root and every deeper node are clustered by the one-device
+call over the rank-local corpus (the same seeded sample on every rank,
+read through one collective; each rank assigns its own rows), deeper
+levels take the serial per-node path as the JAX package's multi-process
+build does, and every level trains data parallel across the ranks.
+``data_prediction`` and the routers come out the same on every rank.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import os
 import time
 from typing import List, Tuple
@@ -44,7 +55,8 @@ from learnedmetricindex_tpu_torch.index.navigation import TreeLayout
 from learnedmetricindex_tpu_torch.models.train import StackedNodeTrainer, group_rows
 from learnedmetricindex_tpu_torch.ops.clustering import algorithms as clustering_algorithms
 from learnedmetricindex_tpu_torch.ops.kmeans import kmeans_nodes
-from learnedmetricindex_tpu_torch.parallel.distributed import split_rows
+from learnedmetricindex_tpu_torch.parallel.distributed import RankRows, split_rows
+from learnedmetricindex_tpu_torch.parallel.multiprocess import World
 
 EMPTY_VALUE = -1
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -63,15 +75,28 @@ class LearnedIndexBuilder:
     quantized corpus.  Host data is uploaded once, as f32 (as
     ``config.dtype`` for training when that is bf16); a tensor stays
     where it lies and must lie on ``device``.  ``devices``: build over
-    this list of devices (module docstring), ``devices[0] == device``."""
+    this list of devices (module docstring), ``devices[0] == device``;
+    or over a world's ranks, ``data`` then this rank's ``RankRows`` and
+    ``device`` the rank's device."""
 
     def __init__(self, data, config: BuildConfiguration, *, device, devices=None):
         self.device = resolve_device(device)
+        self.config = config
+        self.devices = self.blocks = None
+        if isinstance(devices, World) or isinstance(data, RankRows):
+            if not (isinstance(devices, World) and isinstance(data, RankRows)):
+                raise TypeError("a build across ranks takes from_process_local's rows and "
+                                "devices=global_mesh()")
+            if devices.device != self.device:
+                raise ValueError(f"the rank's device is {devices.device}, the builder runs on "
+                                 f"{self.device}")
+            self.data = data
+            self.row_scales = None  # carried by the rows
+            self.devices = devices
+            return
         values, scales = data if isinstance(data, tuple) else (data, None)
         self.data = self._on_device(values, None)
         self.row_scales = None if scales is None else self._on_device(scales, torch.float32)
-        self.config = config
-        self.devices = self.blocks = None
         if devices is not None:
             self.devices = [resolve_device(d) for d in devices]
             if not self.devices or self.devices[0] != self.device:
@@ -94,6 +119,10 @@ class LearnedIndexBuilder:
         """The rows the trainer gathers: the corpus as it is, or a bf16
         copy of a float corpus when the configuration asks for bf16."""
         dt = _DTYPES.get(self.config.dtype, torch.float32)
+        if isinstance(self.data, RankRows):
+            if self.data.block.dtype == torch.float32 and dt != torch.float32:
+                return dataclasses.replace(self.data, block=self.data.block.to(dt))
+            return self.data
         if self.data.dtype == torch.float32 and dt != torch.float32:
             return self.data.to(dt)
         return self.data
@@ -182,6 +211,7 @@ class LearnedIndexBuilder:
             serial_nodes = np.nonzero(valid_nodes)[0]
             if (
                 level > 0
+                and not isinstance(self.devices, World)  # across ranks: serial, as JAX's
                 and params.clustering_algorithm in ("kmeans", "faiss_kmeans", "scikit_kmeans")
                 and os.environ.get("LMI_BATCHED_NODE_KMEANS", "1") != "0"
             ):
@@ -194,7 +224,8 @@ class LearnedIndexBuilder:
                     rows = np.nonzero(parent_gid == gid)[0]
                     self._cluster_serial(level, gid, rows, C, params.clustering_algorithm,
                                          labels_full, class_mask)
-            for dev in {self.device, *(self.devices or [])}:
+            synced = [self.device] if isinstance(self.devices, World) else self.devices or []
+            for dev in {self.device, *synced}:
                 if dev.type == "cuda":
                     torch.cuda.synchronize(dev)
             cluster_t = time.perf_counter() - s_cluster

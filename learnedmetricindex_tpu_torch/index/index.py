@@ -36,6 +36,7 @@ from learnedmetricindex_tpu_torch.index.navigation import (
     single_level_order_device,
 )
 from learnedmetricindex_tpu_torch.models.mlp import StackedMLP
+from learnedmetricindex_tpu_torch.parallel.multiprocess import World
 from learnedmetricindex_tpu_torch.parallel.sharded_index import (
     ShardedStore,
     shard_store,
@@ -71,6 +72,14 @@ class LevelModels:
     mlp: StackedMLP
     class_mask: torch.Tensor  # (n_models, n_categories) bool, on the device
     model_type: str
+
+    @property
+    def n_models(self) -> int:
+        return int(self.class_mask.shape[0])
+
+    @property
+    def n_categories(self) -> int:
+        return int(self.class_mask.shape[1])
 
 
 def _masked_level_probs(mlp: StackedMLP, mask: torch.Tensor, queries, inv_temp=1.0):
@@ -263,11 +272,18 @@ class LearnedIndex:
         Pass it as ``store=`` to :meth:`search`.  ``chunk`` defaults to
         ``min(config.chunk_size, 256)``, the JAX package's default off the
         TPU.  ``data_search``: rows or ``(values, row_scales)``; a tensor
-        is gathered where it lies."""
+        is gathered where it lies.
+
+        Over the ranks of a world (``devices`` a
+        ``parallel.multiprocess.World``, ``data_search`` this rank's
+        ``from_process_local`` rows, ``data_prediction`` the same on every
+        rank) each rank holds its own shard, filled through ``all_to_all``
+        exchanges of bounded bytes (``parallel.sharded_index.shard_store``)."""
         values, scales = data_search if isinstance(data_search, tuple) else (data_search, None)
-        devices = [resolve_device(d) for d in devices]
+        if not isinstance(devices, World):
+            devices = [resolve_device(d) for d in devices]
         chunk = chunk or min(self.config.chunk_size, 256)
-        kind = ("sharded", tuple(devices), chunk)
+        kind = ("sharded", devices if isinstance(devices, World) else tuple(devices), chunk)
         store = self._cached(kind, values, data_prediction)
         if store is not None:
             return store
@@ -355,7 +371,10 @@ class LearnedIndex:
         ``store`` runs ``sharded_search`` ("int8" raises there), with the
         same ``qtile`` (the JAX package caps it at 32 for its TPU kernel;
         a query's results do not depend on its tile, and the CUDA kernel
-        computes 128-query tiles whatever their fill)."""
+        computes 128-query tiles whatever their fill).  A store sharded
+        over the ranks of a world is searched by every rank with the same
+        queries, each scanning its own shard, and every rank returns the
+        same answer."""
         measured: Dict[str, float] = {
             "inference": 0.0,
             "search": 0.0,

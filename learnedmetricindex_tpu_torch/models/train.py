@@ -79,7 +79,10 @@ def group_rows(
 ) -> GroupedData:
     """The grouped layout (a counting sort of row *indices* through
     ``native``).  A tensor ``data`` stays where it is and as it is; host
-    data is uploaded once to ``device`` as ``dtype``."""
+    data is uploaded once to ``device`` as ``dtype``.  A corpus split over
+    the ranks of a world (``parallel.distributed.RankRows``, which
+    carries its own scales) stays split: only a trainer over that world
+    reads it."""
     group_ids = np.asarray(group_ids)
     counts = native.bincount(group_ids, n_groups)
     padded_counts = np.maximum(-(-counts // tile) * tile, tile)
@@ -89,7 +92,9 @@ def group_rows(
     if lab is None:
         lab = np.full(total, -1, dtype=np.int32)
     tile_model = np.repeat(np.arange(n_groups), padded_counts // tile)
-    if isinstance(data, torch.Tensor):
+    from learnedmetricindex_tpu_torch.parallel.distributed import RankRows
+
+    if isinstance(data, (torch.Tensor, RankRows)):
         x = data
     else:
         if device is None:
@@ -375,7 +380,18 @@ class StackedNodeTrainer:
 
     Either way the batch indices are drawn by one generator on
     ``devices[0]``, exactly as the single-device trainer draws them, so
-    the two differ only in the order of sums.  The JAX package places
+    the two differ only in the order of sums.
+
+    ``devices`` may be a ``parallel.multiprocess.World`` (the grouped
+    rows then a ``RankRows``): every level trains data parallel across
+    the ranks, each rank drawing the same batches from the same seeded
+    generator on its own device, taking the loss over the entries whose
+    rows it holds; one ``all_gather`` a step brings every rank's
+    gradients, added in rank order, so every rank takes the same Adam
+    step, the step of the device list ``["cpu"] * W``.  Each rank
+    predicts the slots whose rows it holds and the predictions meet
+    through ``to_host_replicated``.  Expert parallelism would move rows
+    to each model's rank, so it stays single-process.  The JAX package places
     models over ``"model"`` and rows over the whole 2-D ``("data",
     "model")`` mesh and leaves the step to XLA (its docstring: placement
     does not change the step); the port places them over a 1-D list,
@@ -399,6 +415,11 @@ class StackedNodeTrainer:
             raise ValueError(
                 f"update_rule must be 'minibatch' or 'reference', got {update_rule!r}"
             )
+        from learnedmetricindex_tpu_torch.parallel.multiprocess import World
+
+        self.world = devices if isinstance(devices, World) else None
+        if self.world is not None:
+            devices = [self.world.device]
         if devices is not None:
             devices = [torch.device(d) for d in devices]
             if device is not None and torch.device(device) != devices[0]:
@@ -408,6 +429,8 @@ class StackedNodeTrainer:
             raise TypeError("StackedNodeTrainer needs a device (or devices)")
         self.device = torch.device(device)
         self.devices = devices if devices is not None and len(devices) > 1 else None
+        # what the rows are spread over: the world, the device list, or nothing
+        self.spread = self.world if self.world is not None else self.devices
         self.n_models = n_models
         self.n_classes = n_classes
         self.batch_size = batch_size
@@ -461,7 +484,7 @@ class StackedNodeTrainer:
         if self._placed is None or self._placed[0] is not grouped:
             placed = ([_part_rows(grouped, p.lo, p.hi, p.device) for p in self.parts]
                       if self.parts is not None
-                      else split_rows(grouped.x, self.devices, grouped.x_scales))
+                      else split_rows(grouped.x, self.spread, grouped.x_scales))
             self._placed = (grouped, placed)
         return self._placed[1]
 
@@ -469,7 +492,7 @@ class StackedNodeTrainer:
         """``steps`` updates (epochs for the reference rule) of the active
         models; returns the last per-model losses."""
         ref = self.update_rule == "reference"
-        if self.devices is None:
+        if self.spread is None:
             self.params, self.opt_state, losses = _run_epochs(
                 self.params, self.opt_state, self.generator, grouped, self.class_mask, active,
                 self.class_weight, batch_size=self.batch_size, steps=steps, lr=self.lr,
@@ -517,17 +540,23 @@ class StackedNodeTrainer:
     def _data_steps(self, idx_block, grouped, blocks, active, runt):
         """Each device takes the loss over the batch entries whose rows it
         holds; the gradients meet on ``devices[0]``, which takes the Adam
-        step."""
-        home, B, D = self.device, self.batch_size, len(self.devices)
+        step.  ``blocks`` is ``RowBlocks`` or, across ranks, ``RankRows``:
+        a rank computes its own block's part and ``add_in_order`` brings
+        the others' (one ``all_gather``), so both add the same parts in
+        the same order."""
+        home, B = self.device, self.batch_size
+        D = len(blocks.starts) - 1
         cw = self.class_weight
         if runt is not None and cw is None:
             cw = torch.ones(self.class_mask.shape, device=home)
         act = torch.as_tensor(np.asarray(active, bool), device=home)
         all_act = bool(np.all(active))
         on = {dev: (self.class_mask.to(dev), act.to(dev), None if cw is None else cw.to(dev))
-              for dev in self.devices}
+              for dev in {blocks.device_of(i) for i in blocks.owned()}}
         starts = torch.as_tensor(blocks.starts[1:-1], device=home)
         col = torch.arange(B, device=home)
+        shapes = [p.shape for p in self.params]
+        sizes = [p.numel() for p in self.params]
         losses = None
         for idx in idx_block:
             rows = grouped.slot_rows[idx]
@@ -545,19 +574,21 @@ class StackedNodeTrainer:
             cnt = torch.nn.functional.one_hot(owner, D).sum(1)  # (M, D)
             first = torch.cumsum(cnt, 1) - cnt
             widths = cnt.max(0).values.tolist()
-            replicas, grads, losses = {}, None, None
-            for i, dev in enumerate(self.devices):
+            replicas, parts = {}, {}
+            for i in blocks.owned():
                 if widths[i] == 0:
                     continue
+                dev = blocks.device_of(i)
+                block, scales = blocks.local(i)
                 j = torch.arange(widths[i], device=home)
                 sel = torch.gather(order, 1, (first[:, i : i + 1] + j).clamp_max(B - 1))
                 mine = j[None, :] < cnt[:, i : i + 1]
                 local = (torch.gather(rows, 1, sel) - int(blocks.starts[i])).clamp(
-                    0, blocks.blocks[i].shape[0] - 1).to(dev)
+                    0, block.shape[0] - 1).to(dev)
                 y_i = torch.where(mine, torch.gather(yb, 1, sel), -1).to(dev)
-                xb = blocks.blocks[i][local].float()
-                if blocks.scales is not None:
-                    xb = xb * blocks.scales[i][local][:, :, None]
+                xb = block[local].float()
+                if scales is not None:
+                    xb = xb * scales[local][:, :, None]
                 mask, act_d, cw_d = on[dev]
                 if dev not in replicas:
                     replicas[dev] = [p.to(dev) for p in self.params]
@@ -568,22 +599,46 @@ class StackedNodeTrainer:
                 else:
                     w_i = torch.where(y_i >= 0, torch.gather(cw_d, 1, y_i.clamp_min(0)), 0.0)
                     part = (w_i * ce).sum(1) / denom.to(dev)
-                g = [t.to(home) for t in torch.autograd.grad((part * act_d).sum(), leaves)]
-                grads = g if grads is None else [a + b for a, b in zip(grads, g)]
-                part = part.detach().to(home)
-                losses = part if losses is None else losses + part
+                grads = torch.autograd.grad((part * act_d).sum(), leaves)
+                # gradients and losses, flat, added in device (rank) order
+                parts[i] = torch.cat([t.reshape(-1).to(home) for t in grads]
+                                     + [part.detach().to(home)])
+            pieces = torch.split(blocks.add_in_order(parts, sum(sizes) + len(act)),
+                                 sizes + [len(act)])
+            grads, losses = [t.reshape(s) for t, s in zip(pieces, shapes)], pieces[-1]
             self.params, self.opt_state = adam_update(
                 self.params, self.opt_state, grads, act, lr=self.lr, all_active=all_act)
         return losses
 
     def _predict(self, grouped: GroupedData) -> torch.Tensor:
         """Per-slot predictions over the whole layout, on ``device``."""
+        if self.world is not None:
+            return self._rank_predict(grouped)
         if self.parts is None:
             return _predict_own_tiles(self.params, grouped, self.class_mask)
         placed = self._place(grouped)
         return torch.cat([
             _predict_own_tiles(p.params, local, self.class_mask[p.lo:p.hi].to(p.device))
             .to(self.device) for p, local in zip(self.parts, placed)])
+
+    def _rank_predict(self, grouped: GroupedData) -> torch.Tensor:
+        """Across ranks: this rank predicts every slot from the rows it
+        holds (the others read its first row and are dropped), and each
+        slot takes its row's owner's prediction from the ranks' joined by
+        ``to_host_replicated``: the tiles' shapes are the one-device
+        call's, so the predictions are its bits."""
+        from learnedmetricindex_tpu_torch.parallel import multiprocess as mp
+
+        rr = grouped.x
+        srt = grouped.slot_rows
+        owner = rr.owner(srt.clamp_min(0))
+        local = grouped._replace(
+            x=rr.block, x_scales=rr.scales,
+            slot_rows=torch.where((srt >= 0) & (owner == self.world.rank), srt - rr.lo, -1))
+        every = mp.to_host_replicated(_predict_own_tiles(self.params, local, self.class_mask)[None],
+                                      self.world)
+        owner = owner.cpu().numpy()
+        return torch.as_tensor(every[owner, np.arange(len(owner))], device=self.device)
 
     def fit(self, grouped: GroupedData, epochs: int, max_rounds: int = 1000) -> Tuple[np.ndarray, int]:
         """Train until covered → (per-slot predictions over the grouped
@@ -653,6 +708,13 @@ class NeuralNetwork:
                 )
             self._trainer.set_class_weight(class_weight[None, :])
         self.output_dim = output_dim
+
+    @property
+    def params(self) -> List[dict]:
+        """The model's layers as the JAX package lists them: ``[{"w": (in,
+        out), "b": (out,)}, ...]``, tensors on the trainer's device."""
+        p = self._trainer.params
+        return [{"w": w[0], "b": b[0]} for w, b in zip(p[0::2], p[1::2])]
 
     def _x(self, X) -> torch.Tensor:
         return torch.as_tensor(np.asarray(X, np.float32), device=self._trainer.device)

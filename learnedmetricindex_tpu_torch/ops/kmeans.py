@@ -21,6 +21,10 @@ feed any draw, the JAX package's included.
 
 Data may be a numpy array (clustered on the CPU, where it lies) or a
 tensor (clustered on its device), f32/bf16, or int8 with ``row_scales``.
+:func:`kmeans` also takes a corpus split over the ranks of a world
+(``parallel.distributed.RankRows``): every rank draws the same sample,
+reads its rows through one collective, fits the same centroids, assigns
+its own rows, and the labels are all-gathered.
 Labels are ``int32`` in ``[0, k)``.
 """
 
@@ -147,6 +151,16 @@ def _assign(centroids: torch.Tensor, data: torch.Tensor, rows, scales, tile_rows
     return torch.cat(out).cpu().numpy() if out else np.zeros(0, np.int32)
 
 
+def _assign_tile(n: int, d: int, device) -> int:
+    """:func:`kmeans_assign`'s default tile: ~1.5 GB of f32 rows, at most
+    a third of the device's free memory."""
+    tile_rows = max(8192, min(n, (384 << 20) // max(d, 1)))
+    free = device_free_bytes(device)
+    if free is not None:
+        tile_rows = min(tile_rows, max(8192, (free // 3) // (4 * max(d, 1))))
+    return tile_rows
+
+
 def kmeans_assign(centroids, data, tile_rows: int = 0, row_scales=None) -> np.ndarray:
     """Nearest centroid of each row of ``data`` (faiss's
     ``index.search(data, 1)``), in blocks; ``tile_rows=0`` targets
@@ -154,12 +168,7 @@ def kmeans_assign(centroids, data, tile_rows: int = 0, row_scales=None) -> np.nd
     memory."""
     data = _as_tensor(data)
     n, d = data.shape
-    if not tile_rows:
-        tile_rows = max(8192, min(n, (384 << 20) // max(d, 1)))
-        free = device_free_bytes(data.device)
-        if free is not None:
-            tile_rows = min(tile_rows, max(8192, (free // 3) // (4 * max(d, 1))))
-    tile_rows = int(min(tile_rows, max(8, n)))
+    tile_rows = int(min(tile_rows or _assign_tile(n, d, data.device), max(8, n)))
     scales = None
     if row_scales is not None:
         scales = _as_tensor(row_scales).to(device=data.device, dtype=torch.float32)
@@ -188,14 +197,14 @@ def kmeans(
     programs, and eager PyTorch compiles none."""
     del round_sizes
     return _kmeans_rows(
-        _as_tensor(data), n_clusters, None if rows is None else np.asarray(rows),
+        data, n_clusters, None if rows is None else np.asarray(rows),
         n_iters=n_iters, seed=seed, max_points_per_centroid=max_points_per_centroid,
         row_scales=row_scales, tile_rows=tile_rows,
     )
 
 
 def _kmeans_rows(
-    data: torch.Tensor,
+    data,
     n_clusters: int,
     rows: Optional[np.ndarray],
     *,
@@ -206,15 +215,34 @@ def _kmeans_rows(
     tile_rows: int = 65536,
 ) -> Tuple[np.ndarray, np.ndarray]:
     """:func:`kmeans` over ``data[rows]`` (every row when ``rows`` is
-    None) without materializing more than the training rows."""
+    None) without materializing more than the training rows.
+
+    ``data`` is a tensor, or a corpus split over the ranks of a world
+    (``RankRows``, which carries its scales; every rank passes the same
+    ``rows``, ascending): every rank then reads the same seeded sample
+    through ``RankRows.gather`` and fits the same centroids, labels the
+    rows it holds, and the labels are joined in rank order, which is
+    ``rows`` order.  Only the assignment's matmul shapes differ from the
+    one-device call's."""
+    from learnedmetricindex_tpu_torch.parallel.distributed import RankRows
+
+    ranks = isinstance(data, RankRows)
+    scales = data.scales if ranks else None
+    if not ranks:
+        data = _as_tensor(data)
+        if row_scales is not None:
+            scales = _as_tensor(row_scales).to(device=data.device, dtype=torch.float32)
     n = data.shape[0] if rows is None else len(rows)
     assert n_clusters >= 1
-    scales = None
-    if row_scales is not None:
-        scales = _as_tensor(row_scales).to(device=data.device, dtype=torch.float32)
+
+    def read(idx):
+        if ranks:
+            return data.gather(np.arange(n) if idx is None else idx, data.device)
+        return rows_f32(data, idx, scales)
+
     if n < 2:
         # the reference's guard: < 2 points → one cluster
-        first = rows_f32(data, np.arange(n) if rows is None else rows, scales)[:1]
+        first = read(np.arange(n) if rows is None else rows)[:1]
         return first.cpu().numpy(), np.zeros(n, dtype=np.int32)
     n_clusters = min(n_clusters, n)
     cap = max_points_per_centroid * n_clusters
@@ -224,16 +252,23 @@ def _kmeans_rows(
         train = sample if rows is None else rows[sample]
     else:
         train = rows
-    x = rows_f32(data, train, scales)
     centroids, labels = kmeans_device(
-        x, n_clusters, n_iters=n_iters, seed=seed, tile_rows=tile_rows
+        read(train), n_clusters, n_iters=n_iters, seed=seed, tile_rows=tile_rows
     )
     if not subsampled:
         return centroids.cpu().numpy(), labels.to(torch.int32).cpu().numpy()
     if rows is None:
-        return centroids.cpu().numpy(), kmeans_assign(centroids, data, row_scales=scales)
-    tile = 1 << min(18, max(13, (n - 1).bit_length()))  # 8k..256k rows
-    return centroids.cpu().numpy(), _assign(centroids, data, rows, scales, tile)
+        tile = int(min(_assign_tile(n, data.shape[1], data.device), max(8, n)))
+    else:
+        tile = 1 << min(18, max(13, (n - 1).bit_length()))  # 8k..256k rows
+    if not ranks:
+        return centroids.cpu().numpy(), _assign(centroids, data, rows, scales, tile)
+    every = np.arange(n) if rows is None else rows
+    cuts = np.searchsorted(every, data.starts)  # each rank's share of ``every``
+    r = data.world.rank
+    mine = None if rows is None else torch.as_tensor(every[cuts[r]:cuts[r + 1]] - data.lo)
+    lab = torch.as_tensor(_assign(centroids, data.block, mine, scales, tile), device=data.device)
+    return centroids.cpu().numpy(), data.join([lab], sizes=np.diff(cuts))
 
 
 #: sibling nodes are clustered in blocks of at most ``ceil(M / NODE_BLOCKS)``
@@ -274,8 +309,18 @@ def kmeans_nodes(
     ``parallel.distributed.RowBlocks``.  The blocks are the same with
     and without devices (:data:`NODE_BLOCKS`), so the labels are
     bit-equal."""
-    from learnedmetricindex_tpu_torch.parallel.distributed import split_rows
+    from learnedmetricindex_tpu_torch.parallel import multiprocess as mp
+    from learnedmetricindex_tpu_torch.parallel.distributed import RankRows, split_rows
 
+    if mp.is_multiprocess(devices) or (isinstance(data, RankRows) and data.world.size > 1):
+        raise ValueError(
+            "kmeans_nodes(devices=...) is single-process only (it reads every node's rows "
+            "from one process); on a multi-process world run the serial per-node path — the "
+            "builder gates this automatically")
+    if isinstance(devices, mp.World):  # a world of one rank holds every row
+        devices = None
+    if isinstance(data, RankRows):
+        data, row_scales = data.block, data.scales
     parent_gid = np.asarray(parent_gid)
     node_ids = np.asarray(node_ids, dtype=np.int64)
     seeds = np.asarray(seeds, dtype=np.int64)

@@ -19,11 +19,23 @@ one; the port runs it from one process over ``devices`` and keeps each
 sub-store at its own size.  ``devices`` may repeat a device: on one GPU
 (or the CPU) the shards run there in turn, which checks the sharded
 path's results but measures nothing about spreading the scan.
+
+**Across ranks** (``devices`` a ``parallel.multiprocess.World``, the
+corpus ``multiprocess.from_process_local``'s rows) each rank holds one
+shard, its own.  The fill is routed (the JAX package's
+``_fill_from_sharded_corpus``): every rank derives the same bucket
+assignment and every shard's slot layout from the replicated
+``bucket_ids``, and the slots are exchanged in blocks of bounded bytes,
+one ``all_to_all`` a block sending each local row (with its scale, for
+int8) to the rank owning its slot, straight into that rank's shard.  A search
+scans this rank's shard, one ``all_gather`` brings every rank's ``(Q,
+k)`` results in rank order, and the same smallest-``k`` runs on every
+rank, so every rank returns the same answer.
 """
 
 from __future__ import annotations
 
-from typing import List, NamedTuple, Sequence, Tuple
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -31,17 +43,21 @@ import torch
 from learnedmetricindex_tpu_torch import native
 from learnedmetricindex_tpu_torch.index.bucket_store import BucketStore, scan_buckets_device
 from learnedmetricindex_tpu_torch.ops.select import smallest_k
+from learnedmetricindex_tpu_torch.parallel import multiprocess as mp
 
 
 class ShardedStore(NamedTuple):
     """One packed :class:`BucketStore` per device, over its own buckets
-    (local bucket ids, global object ids)."""
+    (local bucket ids, global object ids).  Across the ranks of a
+    ``world`` a rank holds only its own shard: ``shards`` and ``devices``
+    then have one entry, shard ``world.rank`` of ``bucket_device``."""
 
     shards: List[BucketStore]
     bucket_device: np.ndarray  # (n_buckets,) int32 shard owning each bucket
     bucket_local: np.ndarray  # (n_buckets,) int32 the bucket's index in its shard
     devices: List[torch.device]
     chunk: int
+    world: Optional["mp.World"] = None
 
     @property
     def n_buckets(self) -> int:
@@ -63,7 +79,12 @@ class ShardedStore(NamedTuple):
         return self.shards[0].dim
 
     def nbytes(self) -> int:
+        """Bytes of the shards' device arrays (this rank's shard across ranks)."""
         return sum(s.nbytes() for s in self.shards)
+
+    def nbytes_device_arrays(self) -> int:
+        """The JAX package's name for :meth:`nbytes`."""
+        return self.nbytes()
 
 
 def _assign(counts: np.ndarray, n_dev: int) -> Tuple[np.ndarray, np.ndarray, List[np.ndarray]]:
@@ -109,10 +130,15 @@ def shard_store(
     ``data`` may be a host array or a tensor.  A tensor is never copied
     through the host: each shard's slabs are gathered on the corpus's
     device and copied to the shard's device, one batch of slabs at a
-    time."""
-    devices = _devices(devices)
+    time.  Over a ``multiprocess.World`` ``data`` is this rank's
+    ``RankRows`` and the fill is routed (:func:`_routed_shard`)."""
     bucket_ids = np.asarray(bucket_ids)
     counts = native.bincount(bucket_ids, n_buckets)
+    if isinstance(devices, mp.World):
+        bucket_device, bucket_local, mine = _assign(counts, devices.size)
+        shard = _routed_shard(data, bucket_ids, bucket_device, bucket_local, mine, devices, chunk)
+        return ShardedStore([shard], bucket_device, bucket_local, [devices.device], chunk, devices)
+    devices = _devices(devices)
     bucket_device, bucket_local, mine = _assign(counts, len(devices))
     if isinstance(data, torch.Tensor):
         source = data
@@ -134,6 +160,74 @@ def shard_store(
             row_scales=scales, object_ids=rows + 1, device=dev)
         shards.append(st._replace(row_slot=None))
     return ShardedStore(shards, bucket_device, bucket_local, devices, chunk)
+
+
+#: the routed fill's transient bytes a rank sends in one exchange (the
+#: JAX package's ``_fill_from_sharded_corpus`` bounds its slot blocks so)
+ROUTED_BLOCK_BYTES = 128 << 20
+
+
+def _routed_shard(rows, bucket_ids, bucket_device, bucket_local, mine, world, chunk):
+    """This rank's shard, filled from a corpus split over the ranks
+    (``RankRows``; ``bucket_ids`` the same on every rank).
+
+    Every rank derives every shard's slot layout (the one
+    :func:`shard_store` packs: the global row of each slot) from the
+    replicated bucket ids.  The slots are then exchanged in blocks of
+    ``B`` slots a shard: for block ``c`` each rank sends each rank ``r``
+    the rows it holds of ``r``'s slots ``c·B .. (c+1)·B`` in slot order
+    (an int8 row with its scale's four bytes beside it), one
+    ``all_to_all`` a block, and writes what it receives into its own
+    slots.  A rank sends at most ``W·B`` rows an exchange,
+    :data:`ROUTED_BLOCK_BYTES`, so the device holds the rank's rows, its
+    shard and one exchange.  The slots, their rows and their ids are
+    :func:`shard_store`'s, so the sub-store is bit-equal to its shard
+    ``world.rank``."""
+    from learnedmetricindex_tpu_torch.index.bucket_store import _host_layout
+
+    me, W, dev = world.rank, world.size, world.device
+    shard_of_row = bucket_device[bucket_ids]
+    slot_row = []  # each shard's global row per slot, -1 = padding
+    for r in range(W):
+        glob = np.nonzero(shard_of_row == r)[0]
+        slots, starts, counts = _host_layout(bucket_local[bucket_ids[glob]], len(mine[r]), chunk)
+        slot_row.append(np.where(slots >= 0, glob[np.maximum(slots, 0)] if len(glob) else -1, -1))
+        if r == me:
+            layout = (starts, counts)
+    lo, (m, d) = rows.lo, rows.block.shape
+    width = d * rows.block.element_size()
+    source = rows.block.contiguous().view(torch.uint8).reshape(m, width)
+    if rows.scales is not None:
+        source = (source, rows.scales.contiguous().view(torch.uint8).reshape(m, 4))
+    n_slots = len(slot_row[me])
+    data = torch.zeros((n_slots, d), dtype=rows.block.dtype, device=dev)
+    scales = (None if rows.scales is None
+              else torch.zeros(n_slots, dtype=torch.float32, device=dev))
+    step = max(chunk, ROUTED_BLOCK_BYTES // (W * (width + (0 if scales is None else 4))))
+    for c0 in range(0, max(len(s) for s in slot_row), step):
+        sends = [g[(g >= lo) & (g < lo + m)] - lo for g in (s[c0:c0 + step] for s in slot_row)]
+        g = slot_row[me][c0:c0 + step]
+        live = np.nonzero(g >= 0)[0]
+        holder = np.searchsorted(rows.starts, g[live], side="right") - 1
+        at = torch.as_tensor(c0 + live[np.argsort(holder, kind="stable")], device=dev)
+        idx = torch.as_tensor(np.concatenate(sends), device=dev)
+        send = source[idx] if scales is None else torch.cat([source[0][idx], source[1][idx]], 1)
+        got = mp.all_to_all(send, [len(x) for x in sends], np.bincount(holder, minlength=W),
+                            world)
+        del send
+        data[at] = got[:, :width].contiguous().view(data.dtype)
+        if scales is not None:
+            scales[at] = got[:, width:].contiguous().view(torch.float32).reshape(-1)
+    ids = np.where(slot_row[me] >= 0, slot_row[me] + 1, 0).astype(np.int32)
+    return BucketStore(
+        chunk_ids=torch.as_tensor(ids.reshape(-1, chunk), device=dev),
+        bucket_chunk_start=layout[0],
+        bucket_sizes=layout[1].astype(np.int32),
+        chunk=chunk,
+        n_buckets=len(mine[me]),
+        chunk_data=data,
+        chunk_scales=scales,
+    )
 
 
 def shard_packed_store(store: BucketStore, devices: Sequence) -> ShardedStore:
@@ -202,7 +296,12 @@ def sharded_search(
     ``precision``: "highest" (f32 scan) or "default" (bf16 operands);
     ``rerank=True`` keeps ``k + rerank_margin`` candidates a shard and
     ranks them in exact f32 before the merge, so the merged ranking is
-    exact over the union of the shards' shortlists."""
+    exact over the union of the shards' shortlists.
+
+    Across ranks every rank passes the same queries and bucket order,
+    scans its own shard, and one ``all_gather`` brings every rank's
+    results (distances and ids side by side, as bits) in rank order to
+    every rank, which merges them as above."""
     if precision not in ("highest", "default"):
         raise ValueError(
             "sharded_search supports precision='highest' or 'default'; "
@@ -220,8 +319,10 @@ def sharded_search(
     local = torch.as_tensor(sharded.bucket_local, device=order.device)[at]
     on_device = {}  # the queries, once per device
     dists, ids = [], []
+    world = sharded.world
     with torch.no_grad():
-        for i, (shard, dev) in enumerate(zip(sharded.shards, sharded.devices)):
+        owners = range(len(sharded.shards)) if world is None else [world.rank]
+        for i, shard, dev in zip(owners, sharded.shards, sharded.devices):
             if dev not in on_device:
                 on_device[dev] = q_host.to(device=dev, dtype=torch.float32).contiguous()
             local_order = torch.where(valid & (owner == i), local, -1).to(dev)
@@ -230,6 +331,11 @@ def sharded_search(
                 rerank=rerank, rerank_margin=rerank_margin)
             dists.append(d_i.to(home))
             ids.append(i_i.to(home))
+        if world is not None:
+            pair = torch.cat([dists[0].contiguous().view(torch.int32), ids[0].to(torch.int32)], 1)
+            every = mp.all_gather(pair, world)
+            dists = [p[:, :k].contiguous().view(torch.float32) for p in every]
+            ids = [p[:, k:] for p in every]
         all_d, all_i = torch.cat(dists, 1), torch.cat(ids, 1)
         vals, pos = smallest_k(all_d, k)
         out_i = torch.where(torch.isinf(vals), 0, torch.gather(all_i, 1, pos))

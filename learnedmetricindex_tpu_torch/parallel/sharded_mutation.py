@@ -41,6 +41,7 @@ from learnedmetricindex_tpu_torch.index.mutation import (
     ensure_mutable,
     insert_rows,
 )
+from learnedmetricindex_tpu_torch.parallel import multiprocess as mp
 from learnedmetricindex_tpu_torch.parallel.sharded_index import ShardedStore, shard_store
 
 
@@ -60,9 +61,17 @@ class ShardedDynamicIndex:
     ``next_id``: the source deployment's allocator mark when promoting a
     mutated store (``shard_packed_store``); the store records only live
     ids, so the default (the largest live id + 1) could issue a deleted
-    id again."""
+    id again.
+
+    A store sharded over the ranks of a multi-process world is refused,
+    as the JAX package refuses a multi-process mesh."""
 
     def __init__(self, index, sharded: ShardedStore, next_id: Optional[int] = None):
+        if mp.is_multiprocess(sharded.world):
+            raise ValueError(
+                "ShardedDynamicIndex is single-controller: a multi-process world would need "
+                "every process to apply the same mutation log — drive mutations from one "
+                "controller or rebuild via shard_store")
         self.index = index
         self.sharded = sharded._replace(shards=[ensure_mutable(s) for s in sharded.shards])
         grids = [s.chunk_ids.reshape(-1).cpu().numpy() for s in self.sharded.shards]

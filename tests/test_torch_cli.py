@@ -260,10 +260,12 @@ def test_sweep_runs_without_h5py(tmp_path):
     assert proc.stdout.strip().endswith("ok")
 
 
-@pytest.mark.parametrize("example", ["introduction", "serving", "dynamic"])
+@pytest.mark.parametrize("example", ["introduction", "serving", "dynamic", "multichip",
+                                     "multihost"])
 def test_port_examples_run(example):
     """Each of the port's examples runs end to end at a small ``--n`` on
-    the CPU."""
+    the CPU (``multichip`` over ``["cpu"] * 8``, ``multihost`` as two gloo
+    ranks, each asserting full-visit recall 1.0)."""
     env = dict(os.environ, OMP_NUM_THREADS="2")
     proc = subprocess.run(
         [sys.executable, str(ROOT / "learnedmetricindex_tpu_torch" / "examples" / f"{example}.py"),
@@ -273,4 +275,6 @@ def test_port_examples_run(example):
     last = proc.stdout.strip().splitlines()[-1]
     assert {"introduction": "reloaded index recall@10",
             "serving": "micro-batching:",
-            "dynamic": "no collisions"}[example] in last
+            "dynamic": "no collisions",
+            "multichip": "OK",
+            "multihost": "multi-host demo OK"}[example] in last

@@ -6,6 +6,8 @@ and the trainer over a device list (expert parallel, and data parallel
 for the root) equals the single-device trainer.  The port's device list
 is ``["cpu"] * 4`` here."""
 
+import importlib
+
 import jax
 import numpy as np
 import pytest
@@ -17,9 +19,11 @@ from learnedmetricindex_tpu.ops.quantize import quantize_rows as jax_quantize_ro
 from learnedmetricindex_tpu.parallel.distributed import sharded_kmeans as jax_sharded_kmeans
 from learnedmetricindex_tpu.parallel.mesh import create_mesh as jax_create_mesh
 from learnedmetricindex_tpu_torch.models.train import StackedNodeTrainer, group_rows
-from learnedmetricindex_tpu_torch.ops import kmeans as pk
 from learnedmetricindex_tpu_torch.parallel import sharded_kmeans
 from learnedmetricindex_tpu_torch.parallel.distributed import lloyd_blocks, split_rows
+
+# ops/__init__ exports the function kmeans over the module's name
+pk = importlib.import_module("learnedmetricindex_tpu_torch.ops.kmeans")
 
 torch.set_num_threads(2)
 pytestmark = pytest.mark.skipif(jax.device_count() < 8, reason="needs 8 virtual devices")

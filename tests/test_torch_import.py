@@ -44,6 +44,7 @@ MODULES = [
     "learnedmetricindex_tpu_torch.parallel",
     "learnedmetricindex_tpu_torch.parallel.distributed",
     "learnedmetricindex_tpu_torch.parallel.mesh",
+    "learnedmetricindex_tpu_torch.parallel.multiprocess",
     "learnedmetricindex_tpu_torch.parallel.sharded_index",
     "learnedmetricindex_tpu_torch.parallel.sharded_mutation",
     "learnedmetricindex_tpu_torch.serve",
@@ -253,6 +254,10 @@ def test_no_import_of_the_jax_package(where):
     """No module of the port and no line of chip_smoke.py imports the JAX
     package (``learnedmetricindex_tpu`` or any of its modules)."""
     files = sorted(PACKAGE.rglob("*.py")) if where == "package" else [ROOT / "chip_smoke.py"]
+    if where == "package":
+        walked = {str(p.relative_to(PACKAGE)) for p in files}
+        assert {"parallel/multiprocess.py", "examples/multihost.py",
+                "examples/multichip.py"} <= walked
     offenders = [
         f"{path.relative_to(ROOT)}: {name}"
         for path in files
@@ -296,6 +301,32 @@ def test_exports():
                                      "shard_store", "sharded_kmeans", "sharded_search"}
     assert all(hasattr(parallel, name) for name in parallel.__all__)
     assert all(hasattr(lmi, name) for name in lmi.__all__)
+    # the JAX package's public names of ops/ and index/, and the attributes
+    # its examples read, with jax and the JAX package unimportable
+    proc = _run_without("""
+import numpy as np, torch
+from learnedmetricindex_tpu_torch.ops import exact_knn, recall, kmeans, kmeans_nodes
+from learnedmetricindex_tpu_torch.index import (BucketStore, LearnedIndexBuilder, LearnedIndex,
+                                                DynamicIndex)
+from learnedmetricindex_tpu_torch import ops, index
+from learnedmetricindex_tpu_torch.parallel import multiprocess as mp
+assert set(ops.__all__) == {"exact_knn", "recall", "kmeans", "kmeans_nodes"}
+assert set(index.__all__) == {"BucketStore", "LearnedIndexBuilder", "LearnedIndex", "DynamicIndex"}
+assert all(callable(getattr(mp, n)) for n in ("initialize", "global_mesh", "from_process_local",
+                                              "is_multiprocess", "to_host_replicated"))
+import learnedmetricindex_tpu_torch as lmi
+data = np.random.default_rng(0).normal(size=(200, 8)).astype(np.float32)
+cfg = lmi.BuildConfiguration("kmeans", 2, "MLP-8", 0.05, [2, 2], chunk_size=32)
+idx, pred, _, _, _ = LearnedIndexBuilder(data, cfg, device="cpu").build()
+assert [(lv.n_models, lv.n_categories) for lv in idx.levels] == [(1, 2), (2, 2)]
+store = idx.get_sharded_store(data, pred, ["cpu"] * 3)
+assert store.nbytes_device_arrays() == store.nbytes() == sum(s.nbytes() for s in store.shards)
+nn = lmi.NeuralNetwork(8, 3, device="cpu")
+assert [tuple(p["w"].shape) for p in nn.params] == [(8, 128), (128, 3)], nn.params
+assert [tuple(p["b"].shape) for p in nn.params] == [(128,), (3,)]
+""" + _NOTHING_LOADED, WITHOUT_THE_JAX_PACKAGE)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().endswith("ok")
     for matmul, cudnn in ((True, False), (False, True)):
         proc = _run_without(f"""
 import torch

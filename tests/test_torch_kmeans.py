@@ -12,9 +12,10 @@ import torch
 
 from learnedmetricindex_tpu.data import synthetic_blobs
 from learnedmetricindex_tpu_torch.ops import clustering
-from learnedmetricindex_tpu_torch.ops import kmeans as pk
 
+# both packages' ops/__init__ export the function kmeans over the module's name
 jk = importlib.import_module("learnedmetricindex_tpu.ops.kmeans")
+pk = importlib.import_module("learnedmetricindex_tpu_torch.ops.kmeans")
 
 torch.set_num_threads(2)
 
