@@ -26,7 +26,11 @@ phases:
    and int8 at k 16/128/1024, also with the chunk lists out of physical
    order, and k past the widest list (1030, 2100: rounds of at most
    1024, one launch a round, no slot listed twice) over mutated int8 and
-   f32 stores and a virtual bf16 store;
+   f32 stores and a virtual bf16 store; then rows that all tie (one row
+   a bucket, padding slots, chunk lists out of physical order) at list
+   widths 64, 256 and 1024 and k 1100 in every mode over every store
+   type, each list the bucket's first rows in scan order, and pairs
+   whose split blocks are all padding but one;
 4. corpus: a seeded 10M×768 int8 corpus (+ f32 row scales) on the
    device and the exact f32 top-10 of the queries;
 5. search path: an index whose MLP-4 encodes a nearest-centroid
@@ -36,7 +40,9 @@ phases:
    the library yardstick (per bucket one matmul + ``torch.topk``) timed
    with CUDA events beside the least time the card could take (bound),
    the f32 kernel's and plain version's distances against float64 (the
-   kernel's error may not exceed the plain version's), and
+   kernel's error may not exceed the plain version's), the same at
+   ``k_scan`` 106 (``search(k=100)``, list width 128; the library call's
+   ``topk(106)``), and
    the search's split between navigation, the scan and the rest; then
    the scan in f32 over an f32 store (the CUDA-core body) on the same
    rows, dequantized, against cuBLAS SGEMM + ``torch.topk``;
@@ -45,7 +51,9 @@ phases:
    searches equal to the packed store's, a ``k=1100`` search equal to
    exact kNN over the visited buckets, the store's bytes and the peak
    device memory while each store is made, and the row-map scan beside
-   the packed scan, its plain version, the library call and the bound;
+   the packed scan, its plain version, the library call and the bound,
+   and that search's scan alone (k_scan 16, the 1024-wide round, k_scan
+   1106) beside its plain version, the library call and the bound;
    then the store sharded by bucket over ``[cuda:0] * 4`` (from the
    device corpus, and from the packed store): a visit-4 default search
    equal to the single store's, one scan launch a shard, each shard's
@@ -489,17 +497,23 @@ def phase_kernel_vs_plain(dev) -> dict:
             for ki, k in enumerate((16, 100)):
                 split_terms_check(dev, d, store_name, k, qtiles[(2 * si + ki + d) % 4])
     wide_k_cases(dev, worst)
+    tied_cases(dev, worst)
     for mode, (err, gap) in worst.items():
         log(f"[kernel-vs-plain] {mode}: max|Δd| {err:.3g}; at swapped slots {gap:.3g}")
     return worst
 
 
 def held_to_plain(store, queries, order, k: int, qtile: int, mode: str, partner, what: str,
-                  worst: dict, launches: int = 1) -> None:
+                  worst: dict, launches: int = 1, edit_qidx=None):
     """One scan case: the kernel (``launches`` launches) against its plain
     version (``compare_candidates``), no slot listed twice, exact ties to
-    the earlier copy; folds the error into ``worst``."""
+    the earlier copy; folds the error into ``worst``.  ``edit_qidx`` may
+    change the plan's query slots first; ``partner`` None skips the
+    duplicate-order check.  Returns the query slots, the pairs' buckets
+    and the kernel's slots."""
     plan, args = scan_inputs(store, queries, order, qtile, mode)
+    if edit_qidx is not None:
+        args = (args[0], edit_qidx(args[1].clone()), *args[2:])
     kw = dict(k=k, qtile=qtile, chunk=store.chunk, mode=mode)
     before = scan_kernel.LAUNCHES
     kd, ks = scan_kernel.scan_pairs(*args, **kw)
@@ -509,12 +523,100 @@ def held_to_plain(store, queries, order, k: int, qtile: int, mode: str, partner,
     rd, rs = scan_kernel.scan_pairs_reference(*args, **kw)
     err, gap = compare_candidates(kd, ks, rd, rs, mode, what)
     distinct_slots(ks, what)
-    n_dup = earlier_duplicate_first(ks, partner, what)
-    earlier_duplicate_first(rs, partner, f"{what} (plain)")
+    n_dup = 0
+    if partner is not None:
+        n_dup = earlier_duplicate_first(ks, partner, what)
+        earlier_duplicate_first(rs, partner, f"{what} (plain)")
     worst[mode] = (max(worst[mode][0], err), max(worst[mode][1], gap))
     log(f"[kernel-vs-plain] {what:52s} pairs={plan.n_pairs:4d}: agree, max|Δd|={err:.3g}, "
         f"{int((ks != rs).sum().item())} slots swapped at ties (max|Δd| there {gap:.3g}), "
         f"{n_dup} later duplicates after their earlier copy")
+    return args[1], args[2], ks
+
+
+def tied_cases(dev, worst: dict) -> None:
+    """List widths 64, 256 and 1024 (and k 1100: a round of 1024, then one
+    of 76 under its floor) over rows that all tie: each of 3 buckets holds
+    one row over and over (~1,300 rows of d 768, chunk 320), 150 deletes
+    leave padding slots inside the lists and the chunks move out of
+    physical order.  Every mode over every store type it takes, the kernel
+    against its plain version, and every live query's list the bucket's
+    first live slots in scan order.  Then, at qtile 128, the query slots
+    of the plan's first pair moved into one later block (the last m-tile
+    where one block holds the pair) and the second pair's slots all
+    padding: blocks with no live slot write the fill and leave."""
+    rng = np.random.default_rng(13)
+    n, nb, chunk, d = 4000, 3, 320, 768
+    bucket_ids = rng.integers(0, nb, n)
+    base = BlobGenerator(8, d, seed=13, noise=0.45, device=dev).rows(nb)
+    data = base[torch.as_tensor(bucket_ids, device=dev)]
+    q_int, q_sc = quantize.quantize_rows(data)
+    victims = rng.choice(n, 150, replace=False) + 1
+    stores = {}
+    for name, (rows, sc) in {"f32": (data, None), "bf16": (data.bfloat16(), None),
+                             "int8": (q_int, q_sc)}.items():
+        st = BucketStore.build_packed_device(rows, bucket_ids, nb, chunk=chunk, row_scales=sc)
+        st, n_del = mutation.delete_ids(st, victims)
+        check(n_del == 150, f"tied {name} store: 150 deleted")
+        stores[name] = shuffled_chunks(st, 13)
+    queries = BlobGenerator(8, d, seed=14, noise=0.45, device=dev).rows(200)
+    order = torch.as_tensor(np.stack([rng.permutation(nb)[:2] for _ in range(200)]), device=dev)
+    order[-20:, 1] = -1
+    combos = [("bf16", "f32"), ("bf16", "bf16"), ("bf16", "int8"), ("int8", "int8"),
+              ("f32", "bf16"), ("f32", "int8"), ("f32", "f32")]
+    for store_name, st in stores.items():
+        ptr, clist = st.chunk_list()
+        ids = st.chunk_ids.reshape(-1).cpu().numpy()
+        in_order = []
+        for b in range(nb):
+            slots = (clist[ptr[b] : ptr[b + 1], None].astype(np.int64) * chunk
+                     + np.arange(chunk)).reshape(-1)
+            in_order.append(slots[ids[slots] > 0])
+        for i, (mode, k) in enumerate((m, k) for k in (60, 250, 1000, 1100)
+                                      for m, sn in combos if sn == store_name):
+            qtile = (1, 100, 128)[i % 3]
+            case = f"tied {mode} store={store_name} k={k}"
+            what = f"{case} qtile={qtile}"
+            qidx, pb, ks = held_to_plain(st, queries, order, k, qtile, mode, None, what, worst,
+                                         launches=-(-k // scan_kernel.MAX_K))
+            in_scan_order(qidx, pb, ks, in_order, what)
+            if k > scan_kernel.MAX_K:
+                continue
+            width = 1 << (k - 1).bit_length()  # the list width; above 128 a block holds
+            at = 112 if width <= 128 else 128 * 128 // width  # 128·128/width query slots
+
+            def one_block(qidx, at=at):
+                q = qidx.view(-1, 128)
+                rows = q[0, :3].clone()
+                check(bool((rows >= 0).all()) and q.shape[0] >= 2,
+                      "padding-block case: a full pair")
+                q[0] = -1
+                q[0, at : at + 3] = rows
+                q[1] = -1
+                return qidx
+
+            what = f"{case} padding blocks, live slots {at}-{at + 2}"
+            qidx, pb, ks = held_to_plain(st, queries, order, k, 128, mode, None, what, worst,
+                                         edit_qidx=one_block)
+            in_scan_order(qidx, pb, ks, in_order, what)
+            q, s = qidx.view(-1, 128).cpu().numpy(), ks.cpu().numpy()
+            check(bool((s[1] == -1).all()) and bool((s[0][q[0] < 0] == -1).all()),
+                  f"{what}: padding slots get only the fill")
+    del stores, data
+
+
+def in_scan_order(qidx, pair_bucket, slots, in_order, what: str) -> None:
+    """Each live query's list is its bucket's first live slots in scan
+    order (``in_order[bucket]``), then -1."""
+    n_pairs, qtile, k = slots.shape
+    q = qidx.cpu().numpy().reshape(n_pairs, qtile)
+    s = slots.cpu().numpy()
+    for p, b in enumerate(pair_bucket.cpu().numpy()):
+        want = in_order[b][:k]
+        for j in np.nonzero(q[p] >= 0)[0]:
+            got = s[p, j]
+            check(np.array_equal(got[: len(want)], want) and bool((got[len(want):] == -1).all()),
+                  f"{what}: pair {p} slot {j} is not its bucket's first rows in scan order")
 
 
 def virtual_stores(made, like) -> dict:
@@ -811,35 +913,12 @@ def phase_main(dev, data: dict, smi: str):
 
     # ---- the kernel, its plain version and the library call at the flagship shape ----
     order, _ = index.compute_bucket_order(queries, 4, keep_on_device=True)
-    timing = {}
+    timing = {mode: flagship_scan(store, queries, order, 16, mode, smi, "[flagship]")
+              for mode in ("bf16", "f32", "int8")}
+    # search(k=100), the ann-benchmarks k: k_scan 106 with the rerank margin, list width 128
     for mode in ("bf16", "f32", "int8"):
-        plan, sargs = scan_inputs(store, queries, order, 128, mode)
-        kw = dict(k=16, qtile=128, chunk=chunk, mode=mode)
-        mac, ops, peak, nbytes = scan_work(store, plan, order, d, 16, mode)
-        bound = {"operations": ops / peak * 1e3, "bytes": nbytes / HBM_BYTES_PER_S * 1e3}
-        bound_by = max(bound, key=bound.get)
-        k_ms = cuda_ms(lambda: scan_kernel.scan_pairs(*sargs, **kw), 3)
-        p_ms = cuda_ms(lambda: scan_kernel.scan_pairs_reference(*sargs, **kw), 1)
-        lib_ms = cuda_ms(library_scan(store, plan, sargs, 16, mode), 1)
-        torch.cuda.empty_cache()  # the library's slab copies
-        kd, ks = scan_kernel.scan_pairs(*sargs, **kw)
-        rd, rs = scan_kernel.scan_pairs_reference(*sargs, **kw)
-        err, gap = compare_candidates(kd, ks, rd, rs, mode, f"flagship {mode}")
-        if mode == "f32":  # no less exact than cuBLAS's f32: both against float64
-            k_err = float64_error(store, sargs[0], plan, kd, ks)
-            p_err = float64_error(store, sargs[0], plan, rd, rs)
-            log(f"[flagship] scan_pairs f32 against float64 distances, the candidates of the first "
-                f"16 pairs: kernel max|err| {k_err:.3g}, plain {p_err:.3g}")
-            check(k_err <= p_err, f"flagship f32: the kernel's error against float64 {k_err:.3g} "
-                  f"exceeds the plain version's {p_err:.3g}")
-        timing[mode] = {"ms": k_ms, "plain_ms": p_ms, "library_ms": lib_ms, "err": err,
-                        "bound_ms": bound[bound_by], "bound_by": bound_by}
-        log(f"[flagship] scan_pairs {mode}: kernel {k_ms:.3f} ms, plain {p_ms:.2f} ms, library "
-            f"{lib_ms:.2f} ms; bound {bound[bound_by]:.3f} ms by {bound_by} ({mac:.4g} MAC, "
-            f"{ops:.4g} operations at {peak / 1e12:g} T/s, {nbytes / 1e9:.3f} GB) = "
-            f"{bound[bound_by] / k_ms:.1%} of it; {plan.n_pairs} pairs, "
-            f"{mac / k_ms / 1e9:.1f} TMAC/s; agree, max|Δd|={err:.3g} (at swapped slots "
-            f"{gap:.3g})  [{smi}]")
+        timing[f"k106 {mode}"] = flagship_scan(store, queries, order, 106, mode, smi,
+                                               "[flagship k=100]")
     scan_s = timing["bf16"]["ms"] / 1e3
     log(f"[split] search at default precision {mean_s:.4f} s per {nq}: navigation "
         f"{measured['inference']:.4f} s, scan kernel {scan_s:.4f} s (CUDA events, same plan), "
@@ -850,6 +929,45 @@ def phase_main(dev, data: dict, smi: str):
     torch.cuda.empty_cache()
     return launches, timing, {"index": index, "data_prediction": data_prediction,
                               "store": store, "made": made}
+
+
+def flagship_scan(store, queries, order, k: int, mode: str, smi: str, tag: str) -> dict:
+    """The scan kernel at the flagship plan (qtile 128) and ``k``: its time,
+    its plain version's and the library call's (``library_scan``: a matmul
+    and ``torch.topk(k)`` a bucket) by CUDA events, the bound
+    (``scan_work``), and its candidates held to the plain version's; in
+    f32 at ``k_scan`` 16 also both against float64 (the kernel may not be
+    less exact)."""
+    chunk, d = store.chunk, queries.shape[1]
+    plan, sargs = scan_inputs(store, queries, order, 128, mode)
+    kw = dict(k=k, qtile=128, chunk=chunk, mode=mode)
+    mac, ops, peak, nbytes = scan_work(store, plan, order, d, k, mode)
+    bound = {"operations": ops / peak * 1e3, "bytes": nbytes / HBM_BYTES_PER_S * 1e3}
+    bound_by = max(bound, key=bound.get)
+    k_ms = cuda_ms(lambda: scan_kernel.scan_pairs(*sargs, **kw), 3)
+    p_ms = cuda_ms(lambda: scan_kernel.scan_pairs_reference(*sargs, **kw), 1)
+    lib_ms = cuda_ms(library_scan(store, plan, sargs, k, mode), 1)
+    torch.cuda.empty_cache()  # the library's slab copies
+    kd, ks = scan_kernel.scan_pairs(*sargs, **kw)
+    rd, rs = scan_kernel.scan_pairs_reference(*sargs, **kw)
+    err, gap = compare_candidates(kd, ks, rd, rs, mode, f"{tag} {mode} k={k}")
+    if mode == "f32" and k == 16:  # no less exact than cuBLAS's f32: both against float64
+        k_err = float64_error(store, sargs[0], plan, kd, ks)
+        p_err = float64_error(store, sargs[0], plan, rd, rs)
+        log(f"{tag} scan_pairs f32 against float64 distances, the candidates of the first "
+            f"16 pairs: kernel max|err| {k_err:.3g}, plain {p_err:.3g}")
+        check(k_err <= p_err, f"flagship f32: the kernel's error against float64 {k_err:.3g} "
+              f"exceeds the plain version's {p_err:.3g}")
+    log(f"{tag} scan_pairs {mode}{'' if k == 16 else f' k_scan {k}'}: kernel {k_ms:.3f} ms, "
+        f"plain {p_ms:.2f} ms, library {lib_ms:.2f} ms; bound {bound[bound_by]:.3f} ms by "
+        f"{bound_by} ({mac:.4g} MAC, {ops:.4g} operations at {peak / 1e12:g} T/s, "
+        f"{nbytes / 1e9:.3f} GB) = {bound[bound_by] / k_ms:.1%} of it; {plan.n_pairs} pairs, "
+        f"{mac / k_ms / 1e9:.1f} TMAC/s; agree, max|Δd|={err:.3g} (at swapped slots "
+        f"{gap:.3g})  [{smi}]")
+    del sargs, kd, ks, rd, rs
+    torch.cuda.empty_cache()
+    return {"ms": k_ms, "plain_ms": p_ms, "library_ms": lib_ms, "err": err,
+            "bound_ms": bound[bound_by], "bound_by": bound_by}
 
 
 def f32_store_scan(store, queries, order, smi: str) -> dict:
@@ -1085,16 +1203,24 @@ def phase_virtual(dev, data: dict, ctx: dict, smi: str):
     # the library call on the same inputs: per visited bucket, the rows gathered
     # through the grid, one f32 matmul (TF32 off) and torch.topk(k=1106)
     wide_lib = cuda_ms(library_scan(store, wplan, wargs, 1106, "f32"), 1)
+    _, w_ops, w_peak, w_bytes = scan_work(store, wplan, order_c, d, 1106, "f32")
+    w_bound = {"operations": w_ops / w_peak * 1e3, "bytes": w_bytes / HBM_BYTES_PER_S * 1e3}
+    w_by = max(w_bound, key=w_bound.get)
     log(f"[virtual] scan_pairs f32, row map, the k=1100 search's {nc} queries: k_scan 16 "
         f"{wide[16]:.2f} ms, the 1024-wide first round {wide[1024]:.2f} ms, k_scan 1106 in two "
         f"rounds {wide[1106]:.2f} ms; plain at 1106 {wide_plain:.2f} ms; library (gather through "
-        f"the grid + f32 matmul + topk(1106) a bucket) {wide_lib:.2f} ms  [{smi}]")
+        f"the grid + f32 matmul + topk(1106) a bucket) {wide_lib:.2f} ms = "
+        f"{wide_lib / wide[1106]:.2f}x the kernel; bound at 1106 {w_bound[w_by]:.3f} ms by {w_by} "
+        f"({w_ops:.4g} operations at {w_peak / 1e12:g} T/s = {w_bound['operations']:.3f} ms, "
+        f"{w_bytes / 1e9:.3f} GB = {w_bound['bytes']:.3f} ms) = {w_bound[w_by] / wide[1106]:.1%} "
+        f"of it; {wplan.n_pairs} pairs  [{smi}]")
     log(f"[virtual] total {time.perf_counter() - t_all:.1f} s")
     del store, vargs, pargs, wargs, wplan, kd, ks, rd, rs, pd_, ps_
     torch.cuda.empty_cache()
     return launches, {"ms": v_ms, "packed_ms": p_ms, "plain_ms": plain_ms, "library_ms": lib_ms,
                       "bound_ms": bound[bound_by], "bound_by": bound_by, "err": err,
-                      "wide_ms": wide, "wide_plain_ms": wide_plain, "wide_library_ms": wide_lib}
+                      "wide_ms": wide, "wide_plain_ms": wide_plain, "wide_library_ms": wide_lib,
+                      "wide_bound_ms": w_bound[w_by], "wide_bound_by": w_by}
 
 
 def phase_sharded(dev, data: dict, ctx: dict, packed_scan_ms: float, smi: str):

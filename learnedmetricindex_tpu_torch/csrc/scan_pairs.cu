@@ -110,14 +110,28 @@
 //    f32 distance tile [row][query] and marks, per query and 32-row
 //    group, whether any distance lies below the query's current k-th:
 //    after the first tiles of a bucket almost nothing does, and unmarked
-//    groups are skipped.  Lists of width 32 (k <= 32, the flagship) live
-//    query-major; a warp takes one query at a time with its list in the
-//    lanes, finds a marked group's candidates with one ballot and inserts
-//    each with a ballot (its rank) and two shuffles, in scan order.  One
-//    thread per query, inserting by shifting its list in shared memory,
-//    serialises a warp on every row where any of its 32 queries inserts,
-//    a large share of the int8 scan's time at the flagship; it is kept
-//    only for the wider lists (k > 32).
+//    groups are skipped.  Lists live query-major (a query's entries side
+//    by side, ascending).  A warp takes one query at a time.  Width 32
+//    (k <= 32, the flagship): the list sits in the lanes, one ballot finds
+//    a marked group's candidates and each enters with a ballot (its rank)
+//    and two shuffles, in scan order.  Wider lists: the warp packs the
+//    tile's candidates of the query into its buffer, ranks them, and
+//    merges them into the list in one pass (select_tile_merge).
+//
+// The wide lists (k_scan 33 to 1024, and every round of a wider k).
+// What bounded them: one thread a query inserted each entering row by
+// shifting its list in shared memory; the first k rows of every (query,
+// bucket) enter and then about k·ln(n/k) more, each moving ~k/2 entries
+// one after another, so millions of dependent shared-memory moves a
+// query at k 1024 (on an H100, 1.10 s for the 1024-wide round of 256
+// queries over the virtual 10M×768 store, against 107 ms for a gather,
+// a matmul and a topk a bucket in PyTorch); and above width 128 each of
+// a pair's 2, 4 or 8 blocks computed the whole 128-query tile, padding
+// blocks included.  The design: a warp merges a tile's candidates (at most 128) with O((k +
+// c)/32 · log k) work at 32 lanes (select_tile_merge), and a block
+// spends copies, ldmatrix, mma and epilogue only on the m-tiles (16
+// query slots) that hold a query it owns; a block that owns none writes
+// the fill and leaves before its first tile.
 //
 // What is left for later work:
 //  * wgmma with TMA loads from a producer warp (mma.sync does not reach
@@ -127,31 +141,41 @@
 //  * splitting buckets over blocks: one block per pair, started largest
 //    bucket first (pair_order), but the largest bucket (~157k–162k rows
 //    at the flagship) still sets the tail; a split needs a merge pass;
-//  * k > 128 computes the distance tile 2, 4 or 8 times (see below), and k
-//    > 1024 once more a round;
+//  * the wide lists' selection: a merge costs a few dozen dependent
+//    shared-memory steps however few its candidates, ~22 ms of the
+//    flagship's k_scan 106 scan (10k queries) on an H100, and a block of
+//    211 KB has its SM alone, so nothing overlaps it (the list in
+//    registers at widths 64 and 128, fewer merges, or warp
+//    specialisation);
+//  * a block that owns a few queries is bound by its walk of the bucket,
+//    24 depth steps a row tile through a two-stage ring; above width 128
+//    the split blocks of a pair each read the bucket's rows, and k > 1024
+//    walks them once more a round;
 //  * f32 over an f32 store on the tensor cores (six bf16 terms a product);
 //  * the count gate of the Pallas kernel is an optimisation of its
 //    selection sweeps; the group marks above play its part here.
 //
 // Shared memory per list width (KMAX, the smallest of 32/64/128/256/512/
 // 1024 that holds k): lists 2·KMAX·QB·4 B + 4,096 B of row and query
-// metadata, floors and group marks + the work area: the 67,584 B distance tile,
-// which the ring and the f32 body's operand tiles (33,792 B) reuse; the
-// ring of the three-term body over a bf16 store (2 × 36,864 B) is larger
-// and sets the work area at 73,728 B.  With the distance tile:
-//   KMAX   32:  32,768 + 4,096 + 67,584 = 104,448 B (two blocks an SM)
-//   KMAX   64:  65,536 + 4,096 + 67,584 = 137,216 B
-//   KMAX  128: 131,072 + 4,096 + 67,584 = 202,752 B
-//   KMAX  256: 131,072 + 4,096 + 67,584 = 202,752 B (QB = 64)
-//   KMAX  512: 131,072 + 4,096 + 67,584 = 202,752 B (QB = 32)
-//   KMAX 1024: 131,072 + 4,096 + 67,584 = 202,752 B (QB = 16)
-// Up to KMAX 128 a block owns all QT = 128 queries of its pair; above,
-// the lists of 128 queries would take more than a block's 227 KB, so the
-// pair's queries are split over QT/QB = 2, 4 or 8 blocks of QB = 64, 32
-// or 16.  Each block still computes the full 128-wide distance tile (the
-// queries it does not own read as zeros and are never selected), so k >
-// 128 costs 2, 4 or 8 times the multiply-adds; no benchmark configuration
-// scans that wide.  Each block owns whole queries, so nothing is merged.
+// metadata, floors and group marks + above width 32 the warps' candidate
+// buffers (8 warps × 128 × (distance, slot) = 8,192 B) + the work area:
+// the 67,584 B distance tile, which the ring and the f32 body's operand
+// tiles (33,792 B) reuse; the ring of the three-term body over a bf16
+// store (2 × 36,864 B) is larger and sets the work area at 73,728 B.
+// With the distance tile:
+//   KMAX   32:  32,768 + 4,096 +     0 + 67,584 = 104,448 B (two blocks an SM)
+//   KMAX   64:  65,536 + 4,096 + 8,192 + 67,584 = 145,408 B
+//   KMAX  128: 131,072 + 4,096 + 8,192 + 67,584 = 210,944 B
+//   KMAX  256: 131,072 + 4,096 + 8,192 + 67,584 = 210,944 B (QB = 64)
+//   KMAX  512: 131,072 + 4,096 + 8,192 + 67,584 = 210,944 B (QB = 32)
+//   KMAX 1024: 131,072 + 4,096 + 8,192 + 67,584 = 210,944 B (QB = 16)
+// (+ 6,144 B where the three-term ring sets the work area; at most
+// 217,088 of a block's 232,448 B.)  Up to KMAX 128 a block owns all QT =
+// 128 queries of its pair; above, the lists of 128 queries would take
+// more than a block's 227 KB, so the pair's queries are split over QT/QB
+// = 2, 4 or 8 blocks of QB = 64, 32 or 16, each computing only the
+// m-tiles of its own queries.  Each block owns whole queries, so nothing
+// is merged across blocks.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -165,6 +189,7 @@ namespace {
 constexpr int QT = 128;       // query slots per block (qtile <= QT)
 constexpr int RT = 128;       // store rows per tile
 constexpr int THREADS = 256;
+constexpr int WARPS = THREADS / 32;
 // distance tile [RT][DQ], row-major by store row: DQ ≡ 4 (mod 32) banks,
 // so both the mma epilogue's stores and the selection's loads (32
 // queries of one row) are conflict-free
@@ -227,6 +252,9 @@ __host__ __device__ constexpr size_t ring_bytes(int nt, bool widen) {
 }
 
 constexpr size_t kMetaBytes = size_t(5 * QT + 3 * RT) * 4;
+// lists wider than 32: each warp's buffer of one tile's candidates of a
+// query, (distance, slot) for at most RT rows
+constexpr size_t kCandBytes = size_t(WARPS) * RT * 8;
 constexpr size_t kDistBytes = size_t(RT) * DQ * 4;
 constexpr size_t kF32OperandBytes = size_t(KT) * (QS + XS) * 4;
 // the work area: the distance tile, whose memory the ring reuses, or the
@@ -244,7 +272,8 @@ __host__ __device__ constexpr int queries_per_block(int kmax) {
   return kmax <= 128 ? QT : QT * 128 / kmax;
 }
 __host__ __device__ constexpr size_t smem_bytes(int kmax, size_t work) {
-  return 2 * size_t(kmax) * queries_per_block(kmax) * 4 + kMetaBytes + work;
+  return 2 * size_t(kmax) * queries_per_block(kmax) * 4 + kMetaBytes +
+         (kmax == 32 ? 0 : kCandBytes) + work;
 }
 static_assert(smem_bytes(128, kMaxWorkBytes) <= 232448 && smem_bytes(256, kMaxWorkBytes) <= 232448 &&
                   smem_bytes(512, kMaxWorkBytes) <= 232448 &&
@@ -257,6 +286,10 @@ static_assert(2 * (smem_bytes(32, kMaxWorkBytes) + 1024) <= 233472, "two blocks 
 template <int KMAX>
 struct Smem {
   static constexpr int QB = queries_per_block(KMAX);
+  // lists of width 32 take a tile's rows one at a time in a warp's lanes
+  // (select_tile_warp); wider ones all of a tile's candidates at once
+  // (select_tile_merge)
+  static constexpr bool WARP_LISTS = KMAX == 32;
   float* top_d;         // KMAX·QB running top-k distances, entry at(q, i)
   int* top_s;           // KMAX·QB their slots
   int* q_row;           // [QT] query row of compute slot q, -1 = none
@@ -267,6 +300,8 @@ struct Smem {
   float* q_fd;          // [QT] floor distance of compute slot q, -inf = none
   int* q_fp;            // [QT] floor scan position
   int* r_src;           // [RT] row of the store the tile's row r is read from, -1 = none
+  float* cand_d;        // [WARPS][RT] candidate distances (lists wider than 32)
+  int* cand_s;          // [WARPS][RT] their slots
   unsigned char* work;  // distance tile [RT][DQ] | ring | f32 operand tiles
   __device__ explicit Smem(unsigned char* base) {
     top_d = reinterpret_cast<float*>(base);
@@ -279,13 +314,13 @@ struct Smem {
     q_fd = reinterpret_cast<float*>(q_grp + QT);
     q_fp = reinterpret_cast<int*>(q_fd + QT);
     r_src = q_fp + QT;
-    work = reinterpret_cast<unsigned char*>(r_src + RT);
+    cand_d = reinterpret_cast<float*>(r_src + RT);
+    cand_s = reinterpret_cast<int*>(cand_d + (WARP_LISTS ? 0 : WARPS * RT));
+    work = reinterpret_cast<unsigned char*>(cand_s + (WARP_LISTS ? 0 : WARPS * RT));
   }
   __device__ float* dist() const { return reinterpret_cast<float*>(work); }
-  // lists of width 32 are kept query-major, one list per warp's lanes
-  // (select_tile_warp); wider ones entry-major, one list per thread
-  static constexpr bool WARP_LISTS = KMAX == 32;
-  __device__ static int at(int q, int i) { return WARP_LISTS ? q * KMAX + i : i * QB + q; }
+  // lists are query-major: a warp reads or moves 32 entries of one list at once
+  __device__ static int at(int q, int i) { return q * KMAX + i; }
   // the current k-th distance of compute slot q; -inf for a slot this
   // block does not own, so nothing of it is ever a candidate
   __device__ float kth(int k, int q) const { return q < QB ? top_d[at(q, k - 1)] : -CUDART_INF_F; }
@@ -303,30 +338,45 @@ struct Smem {
 
 struct Pair {
   int pair, q0, c_lo, c_hi;
+  unsigned live;  // bit m: compute slots 16m .. 16m+15 (an m-tile) hold an owned query
 };
 
 // The block's pair, its query slots and empty lists.  Compute slot q
 // holds query q0 + q; slots past QB (split blocks) and past qtile hold
-// none.
+// none.  Lists wider than 32 also find the m-tiles that hold an owned
+// query (the same in every thread, so the warps can skip the others
+// uniformly); where none does, the lists are left unset and the caller
+// writes the fill and leaves.
 template <int KMAX, bool INT8>
 __device__ Pair begin_pair(const Params& p, const Smem<KMAX>& s) {
   constexpr int QB = Smem<KMAX>::QB;
+  static_assert(THREADS >= QT, "one query slot a thread");
   const int splits = QB == QT ? 1 : (p.qtile + QB - 1) / QB;
   Pair b;
   b.pair = p.pair_order[blockIdx.x / splits];
   b.q0 = (blockIdx.x % splits) * QB;
+  b.live = 0xffu;
   const int bucket = p.pair_bucket[b.pair];
   b.c_lo = p.ptr[bucket];
   b.c_hi = p.ptr[bucket + 1];
+  bool live = false;
   for (int q = threadIdx.x; q < QT; q += THREADS) {
     const bool own = q < QB && b.q0 + q < p.qtile;
     const size_t e = (size_t)b.pair * p.qtile + b.q0 + q;
     const int qi = own ? p.qidx[e] : -1;
+    live = qi >= 0;
     s.q_row[q] = qi;
     s.q_sc[q] = (INT8 && qi >= 0) ? p.qscales[qi] : 1.0f;
     s.q_grp[q] = 0;
     s.q_fd[q] = (own && p.floor_d != nullptr) ? p.floor_d[e] : -CUDART_INF_F;
     s.q_fp[q] = (own && p.floor_d != nullptr) ? p.floor_p[e] : -1;
+  }
+  if constexpr (!Smem<KMAX>::WARP_LISTS) {
+    b.live = 0;
+#pragma unroll
+    for (int m = 0; m < QT / 16; ++m)
+      if (__syncthreads_or(live && (int)threadIdx.x / 16 == m)) b.live |= 1u << m;
+    if (b.live == 0) return b;
   }
   for (int e = threadIdx.x; e < KMAX * QB; e += THREADS) {
     s.top_d[e] = CUDART_INF_F;
@@ -366,55 +416,122 @@ __device__ __forceinline__ float distance(float raw, float scale, float qscale) 
   return __fadd_rn(v, scale == 0.0f ? CUDART_INF_F : 1.0f);
 }
 
-// One thread per query, the tile's rows in scan order, only in the row
-// groups that the epilogue marked: a group holds a candidate of query q
-// iff one of its distances is below q's k-th as it stood before this
-// tile, and the k-th only falls during selection, so an unmarked group
-// has no row that could enter.  Distances are read 16 at a time into
-// registers first: the list updates are shared-memory stores, and reads
-// issued one row at a time behind them would each wait their full
-// latency.  Under a floor, a row at or below it reads as +inf here (the
-// epilogue's marks ignore floors: a marked group may then add nothing).
+// Entries of the ascending a[0, n) that are <= v, or < v.
+__device__ __forceinline__ int count_le(const float* a, int n, float v) {
+  int lo = 0, hi = n;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (a[mid] <= v) lo = mid + 1; else hi = mid;
+  }
+  return lo;
+}
+__device__ __forceinline__ int count_lt(const float* a, int n, float v) {
+  int lo = 0, hi = n;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (a[mid] < v) lo = mid + 1; else hi = mid;
+  }
+  return lo;
+}
+
+// Lists wider than 32: each warp takes the block's queries in turn and
+// merges all of a tile's candidates of one query into its sorted list at
+// once.  The lanes read the marked 32-row groups of the query's column
+// (a group is marked iff one of its distances is below the k-th as it
+// stood before this tile), and a ballot packs the rows below that k-th
+// (and above the floor) into the warp's buffer in scan order: at most
+// RT, most tiles none or a few.  Each lane ranks its (up to) four by
+// (distance, row) against the buffer and writes the distances back
+// sorted.  Then the merge: an entry's new place is its index plus the
+// candidates strictly below it (a binary search of the sorted buffer), a
+// candidate's its rank plus the entries at or below it (a binary search
+// of the list), so entries, which are earlier rows, win ties and the
+// list stays the first k by (distance, scan position); what lands past
+// k - 1 drops out.  Entries move only up, so they move in blocks of 32
+// from the top down to the first candidate's place, each block read
+// before it is written.
 template <int KMAX>
-__device__ void select_tile_thread(const Params& p, const Smem<KMAX>& s, int nrows, int pos0) {
+__device__ void select_tile_merge(const Params& p, const Smem<KMAX>& s, int nrows, int pos0) {
   constexpr int QB = Smem<KMAX>::QB;
-  constexpr int BATCH = 16;
-  const int q = threadIdx.x;
-  if (q >= QB) return;
-  const unsigned groups = s.q_grp[q];
-  if (groups == 0) return;
-  s.q_grp[q] = 0;
-  if (s.q_row[q] < 0) return;
-  const int k = p.k;
+  constexpr int PER_LANE = RT / 32;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, k = p.k;
   const float* dist = s.dist();
-  float worst = s.top_d[s.at(q, k - 1)];
-  for (int group = 0; group < GROUPS; ++group) {
-    if (((groups >> (8 * group)) & 0xffu) == 0) continue;
-    for (int r0 = group * 32; r0 < group * 32 + 32; r0 += BATCH) {
-      float v[BATCH];
-#pragma unroll
-      for (int j = 0; j < BATCH; ++j) v[j] = r0 + j < nrows ? dist[(r0 + j) * DQ + q] : CUDART_INF_F;
-      if (p.floor_d != nullptr) {
-#pragma unroll
-        for (int j = 0; j < BATCH; ++j) v[j] = s.above_floor(v[j], q, pos0 + r0 + j);
+  float* cd = s.cand_d + warp * RT;
+  int* cs = s.cand_s + warp * RT;
+  for (int q = warp; q < QB; q += WARPS) {
+    const unsigned groups = s.q_grp[q];
+    if (groups == 0) continue;
+    __syncwarp();
+    if (lane == 0) s.q_grp[q] = 0;
+    if (s.q_row[q] < 0) continue;
+    float* ld = s.top_d + s.at(q, 0);
+    int* ls = s.top_s + s.at(q, 0);
+    const float worst = ld[k - 1];
+    int n = 0;
+    for (int group = 0; group < GROUPS; ++group) {
+      if (((groups >> (8 * group)) & 0xffu) == 0) continue;
+      const int r = group * 32 + lane;
+      float v = r < nrows ? dist[r * DQ + q] : CUDART_INF_F;
+      if (p.floor_d != nullptr) v = s.above_floor(v, q, pos0 + r);
+      const unsigned below = __ballot_sync(FULL, v < worst);
+      if (v < worst) {
+        const int at = n + __popc(below & ((1u << lane) - 1));
+        cd[at] = v;
+        cs[at] = s.r_slot[r];
       }
+      n += __popc(below);
+    }
+    if (n == 0) continue;
+    __syncwarp();
+    float v[PER_LANE];
+    int sl[PER_LANE], rank[PER_LANE];
 #pragma unroll
-      for (int j = 0; j < BATCH; ++j) {
-        if (v[j] < worst) {
-          int i = k - 1;
-          while (i > 0) {
-            const float u = s.top_d[s.at(q, i - 1)];
-            if (u <= v[j]) break;
-            s.top_d[s.at(q, i)] = u;
-            s.top_s[s.at(q, i)] = s.top_s[s.at(q, i - 1)];
-            --i;
-          }
-          s.top_d[s.at(q, i)] = v[j];
-          s.top_s[s.at(q, i)] = s.r_slot[r0 + j];
-          worst = s.top_d[s.at(q, k - 1)];
-        }
+    for (int i = 0; i < PER_LANE; ++i) {
+      const int j = lane + 32 * i;
+      v[i] = j < n ? cd[j] : CUDART_INF_F;
+      sl[i] = j < n ? cs[j] : -1;
+      rank[i] = 0;
+    }
+    for (int j = 0; j < n; ++j) {
+      const float u = cd[j];
+#pragma unroll
+      for (int i = 0; i < PER_LANE; ++i) rank[i] += u < v[i] || (u == v[i] && j < lane + 32 * i);
+    }
+    __syncwarp();  // every lane has read the buffer: it is rewritten sorted
+    int place[PER_LANE], first = k;
+#pragma unroll
+    for (int i = 0; i < PER_LANE; ++i) {
+      place[i] = k;
+      if (lane + 32 * i < n) {
+        cd[rank[i]] = v[i];
+        place[i] = rank[i] + count_le(ld, k, v[i]);
+        first = min(first, place[i]);
       }
     }
+    first = __reduce_min_sync(FULL, first);
+    __syncwarp();  // the buffer is sorted, and no lane reads the list any more
+    for (int top = k; top > first; top -= 32) {
+      const int t = top - 32 + lane;
+      float u = 0.0f;
+      int us = 0, to = k;
+      if (t >= first) {
+        u = ld[t];
+        us = ls[t];
+        to = t + count_lt(cd, n, u);
+      }
+      __syncwarp();
+      if (to < k) {
+        ld[to] = u;
+        ls[to] = us;
+      }
+      __syncwarp();
+    }
+#pragma unroll
+    for (int i = 0; i < PER_LANE; ++i)
+      if (place[i] < k) {
+        ld[place[i]] = v[i];
+        ls[place[i]] = sl[i];
+      }
   }
 }
 
@@ -477,7 +594,18 @@ __device__ void select_tile(const Params& p, const Smem<KMAX>& s, int nrows, int
   if constexpr (Smem<KMAX>::WARP_LISTS) {
     select_tile_warp(p, s, nrows, pos0);
   } else {
-    select_tile_thread(p, s, nrows, pos0);
+    select_tile_merge(p, s, nrows, pos0);
+  }
+}
+
+// A block none of whose query slots is live: the fill, and nothing else
+template <int KMAX>
+__device__ void write_fill(const Params& p, const Pair& b) {
+  const int n_own = min(Smem<KMAX>::QB, p.qtile - b.q0);
+  const size_t out0 = ((size_t)b.pair * p.qtile + b.q0) * p.k;
+  for (int e = threadIdx.x; e < n_own * p.k; e += THREADS) {
+    p.out_d[out0 + e] = CUDART_INF_F;
+    p.out_s[out0 + e] = -1;
   }
 }
 
@@ -502,9 +630,14 @@ __global__ void __launch_bounds__(THREADS, blocks_per_sm(KMAX)) scan_f32_kernel(
   extern __shared__ __align__(16) unsigned char smem[];
   const Smem<KMAX> s(smem);
   const Pair b = begin_pair<KMAX, false>(p, s);
+  if constexpr (!Smem<KMAX>::WARP_LISTS) {
+    if (b.live == 0) return write_fill<KMAX>(p, b);
+  }
   const int tid = threadIdx.x;
   const int tq = tid / (RT / MR);  // query group: queries tq*MQ ..
   const int tr = tid % (RT / MR);  // row group: rows tr*MR ..
+  // the group's m-tile holds an owned query
+  const bool live = Smem<KMAX>::WARP_LISTS || ((b.live >> (tq * MQ / 16)) & 1u);
   const int d = p.d, chunk = p.chunk;
   float* qs = reinterpret_cast<float*>(s.work);  // [KT][QS]
   float* xs = qs + KT * QS;                      // [KT][XS]
@@ -549,6 +682,7 @@ __global__ void __launch_bounds__(THREADS, blocks_per_sm(KMAX)) scan_f32_kernel(
 #pragma unroll
         for (int i = 0; i < LX; ++i) xs[kk * XS + row0 + i * (THREADS / KT)] = vx[i];
         __syncthreads();
+        if (!live) continue;
 #pragma unroll 4
         for (int kk = 0; kk < KT; ++kk) {
           const float4 a0 = *reinterpret_cast<const float4*>(&qs[kk * QS + tq * MQ]);
@@ -567,6 +701,7 @@ __global__ void __launch_bounds__(THREADS, blocks_per_sm(KMAX)) scan_f32_kernel(
       __syncthreads();  // operand tiles share memory with the distance tile
 #pragma unroll
       for (int i = 0; i < MQ; ++i) {
+        if (!live) break;
         const int q = tq * MQ + i;
         const float worst = s.kth(p.k, q);
         bool hit = false;
@@ -704,12 +839,13 @@ struct MmaBody {
 
 // The mma of one 16-deep (bf16) or 32-deep (int8) sub-step of a warp's
 // 64 × 32 tile: A at `a_addr` (+ term·KB for the terms of a split query),
-// B already in registers.
+// B already in registers; only the m-tiles set in `live`.
 template <int NT, int SA, typename Acc>
 __device__ __forceinline__ void mma_substep(Acc (&acc)[4][4][4], const uint32_t (&bf)[4][2],
-                                            uint32_t a_addr) {
+                                            uint32_t a_addr, unsigned live) {
 #pragma unroll
   for (int mi = 0; mi < 4; ++mi) {
+    if (!((live >> mi) & 1u)) continue;
     if constexpr (NT == 1) {
       uint32_t af[4];
       ldmatrix_x4(af, a_addr + mi * 16 * SA);
@@ -760,9 +896,16 @@ __global__ void __launch_bounds__(THREADS, blocks_per_sm(KMAX)) scan_mma_kernel(
   extern __shared__ __align__(16) unsigned char smem[];
   const Smem<KMAX> s(smem);
   const Pair b = begin_pair<KMAX, INT8>(p, s);
+  if constexpr (!Smem<KMAX>::WARP_LISTS) {
+    if (b.live == 0) return write_fill<KMAX>(p, b);
+  }
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int wq = warp >> 2;  // queries wq*64 ..
   const int wr = warp & 3;   // rows wr*32 ..
+  // the warp's m-tiles (16 queries each) that hold an owned query: the
+  // others take no copy of their query rows, no ldmatrix, no mma and no
+  // epilogue (a split block computes only its own QB queries)
+  const unsigned wlive = Smem<KMAX>::WARP_LISTS ? 0xfu : (b.live >> (4 * wq)) & 0xfu;
   const int d = p.d, chunk = p.chunk;
   const int nsteps = (d + KE - 1) / KE;
   const size_t q_row_bytes = size_t(p.qd) * A_ELEM * NT;
@@ -788,6 +931,7 @@ __global__ void __launch_bounds__(THREADS, blocks_per_sm(KMAX)) scan_mma_kernel(
     for (int j = 0; j < QT * A_PIECES / THREADS; ++j) {
       const int i = tid + j * THREADS;
       const int row = i / A_PIECES, c16 = i % A_PIECES;
+      if (!Smem<KMAX>::WARP_LISTS && !((b.live >> (row / 16)) & 1u)) continue;
       const int qi = s.q_row[row];
       // = step·NT·KB, in the form that compiles shortest at NT 1
       const size_t off = size_t(e0) * A_ELEM * NT + c16 * 16;
@@ -872,6 +1016,7 @@ __global__ void __launch_bounds__(THREADS, blocks_per_sm(KMAX)) scan_mma_kernel(
         const unsigned char* a = s.work + (step % STAGES) * STAGE;
         const uint32_t a_base = smem_u32(a) + (wq * 64 + a_row) * SA + a_col;
         const uint32_t b_base = smem_u32(a + QT * SA) + (wr * 32 + b_row) * SB + b_col;
+        if (wlive == 0) continue;
         if constexpr (WIDEN) {
           // per 32 int8 depths of 4 n-tiles: raw[ni][sub] holds 4 values,
           // which widen to the bf16 B fragment of 16-deep sub-step `sub`
@@ -892,7 +1037,7 @@ __global__ void __launch_bounds__(THREADS, blocks_per_sm(KMAX)) scan_mma_kernel(
               uint32_t bf[4][2];
 #pragma unroll
               for (int ni = 0; ni < 4; ++ni) widen_s8x4(raw[ni][sub], bf[ni]);
-              mma_substep<NT, SA>(acc, bf, a_base + (2 * h + sub) * 32);
+              mma_substep<NT, SA>(acc, bf, a_base + (2 * h + sub) * 32, wlive);
             }
           }
         } else {
@@ -909,7 +1054,7 @@ __global__ void __launch_bounds__(THREADS, blocks_per_sm(KMAX)) scan_mma_kernel(
               bf[2 * nj + 1][0] = r[2];
               bf[2 * nj + 1][1] = r[3];
             }
-            mma_substep<NT, SA>(acc, bf, a_base + sub * 32);
+            mma_substep<NT, SA>(acc, bf, a_base + sub * 32, wlive);
           }
         }
       }
@@ -930,12 +1075,13 @@ __global__ void __launch_bounds__(THREADS, blocks_per_sm(KMAX)) scan_mma_kernel(
         for (int h = 0; h < 2; ++h) {
           const int q = wq * 64 + mi * 16 + g + 8 * h;
           q_scale[mi][h] = s.q_sc[q];
-          worst[mi][h] = s.kth(p.k, q);
+          worst[mi][h] = (wlive >> mi) & 1u ? s.kth(p.k, q) : 0.0f;
         }
 #pragma unroll
       for (int mi = 0; mi < 4; ++mi)
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
+          if (!((wlive >> mi) & 1u)) continue;
           const int q = wq * 64 + mi * 16 + g + 8 * h;
           bool hit = false;
 #pragma unroll

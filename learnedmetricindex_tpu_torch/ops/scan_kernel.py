@@ -337,6 +337,24 @@ def _launch(lib, queries, qscales, qidx, pair_bucket, ptr, chunk_of, store, scal
     return out_d, out_s
 
 
+def _kernel_round(queries, ptr, chunk_of, store, scales, qscales, row_ids, *, qtile: int,
+                  chunk: int, mode: str):
+    """``scan_round(qidx, pair_bucket, k, floor)`` of :func:`scan_in_rounds`:
+    one kernel launch over the given pairs, ``k <= MAX_K``, the queries
+    laid out once for the body that reads them."""
+    lib = cuda_build.load(SOURCE, _bind)
+    terms = 1
+    if mode != "f32" or store.dtype != torch.float32:  # every body but the FMA one
+        queries = operand_queries(queries, mode, store.dtype)
+        terms = 3 if mode == "f32" else 1
+
+    def scan_round(q_idx, p_bucket, w, floor):
+        return _launch(lib, queries, qscales, q_idx, p_bucket, ptr, chunk_of, store, scales,
+                       row_ids, floor, k=w, qtile=qtile, chunk=chunk, mode=mode, terms=terms)
+
+    return scan_round
+
+
 def scan_pairs(
     queries: torch.Tensor,
     qidx: torch.Tensor,
@@ -366,16 +384,8 @@ def scan_pairs(
         raise ValueError(f"scan_pairs runs on cpu or cuda, not {store.device}")
     _check(queries, qidx, pair_bucket, ptr, chunk_of, store, scales, qscales, row_ids,
            k=k, qtile=qtile, chunk=chunk, mode=mode)
-    lib = cuda_build.load(SOURCE, _bind)
-    terms = 1
-    if mode != "f32" or store.dtype != torch.float32:  # every body but the FMA one
-        queries = operand_queries(queries, mode, store.dtype)
-        terms = 3 if mode == "f32" else 1
-
-    def scan_round(q_idx, p_bucket, w, floor):
-        return _launch(lib, queries, qscales, q_idx, p_bucket, ptr, chunk_of, store, scales,
-                       row_ids, floor, k=w, qtile=qtile, chunk=chunk, mode=mode, terms=terms)
-
+    scan_round = _kernel_round(queries, ptr, chunk_of, store, scales, qscales, row_ids,
+                               qtile=qtile, chunk=chunk, mode=mode)
     if k <= MAX_K:
         return scan_round(qidx, pair_bucket, k, None)
     n_slots = store.shape[0] if row_ids is None else row_ids.shape[0]

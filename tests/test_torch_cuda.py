@@ -781,3 +781,101 @@ def test_device_list_build_on_gpu(cuda):
     assert scan_kernel.LAUNCHES - before == 4
     _, gt = exact_knn(data, q, k=10, device=cuda)
     assert recall(nns, gt, 10) == 1.0
+
+
+def _tied_case(dev, store_dtype, seed):
+    """Rows that all tie: each of 4 buckets holds one vector over and over
+    (~2,100 rows, chunk 96), then 300 deletes leave padding slots inside
+    the lists and the chunks move out of physical order.  Every distance
+    a query sees in a bucket is the same, so its list must be the
+    bucket's first live rows in scan order.  Returns (store, 120 queries,
+    their (120, 2) visits, each bucket's live slots in scan order)."""
+    data, rng = _corpus(8400, 64, seed=seed)
+    bucket_ids = rng.integers(0, 4, 8400)
+    data = data[:4][bucket_ids]
+    if store_dtype == "int8":
+        store = BucketStore.build_packed_int8(data, bucket_ids, 4, chunk=96, device=dev)
+    else:
+        store = BucketStore.build(data, bucket_ids, 4, chunk=96, dtype=store_dtype, device=dev)
+    store, _ = mutation.delete_ids(store, rng.choice(8400, 300, replace=False) + 1)
+    store = _shuffled(store, seed)
+    queries = torch.as_tensor(_corpus(120, 64, seed=seed + 1)[0], device=dev)
+    order = torch.as_tensor(np.stack([rng.choice(4, 2, replace=False) for _ in range(120)]),
+                            device=dev)
+    order[-10:, 1] = -1
+    ptr, clist = store.chunk_list()
+    ids = store.chunk_ids.reshape(-1).cpu().numpy()
+    in_order = []
+    for b in range(4):
+        slots = (clist[ptr[b]:ptr[b + 1], None] * 96 + np.arange(96)).reshape(-1)
+        in_order.append(slots[ids[slots] > 0])
+    return store, queries, order, in_order
+
+
+def _in_scan_order(qidx, pair_bucket, slots, in_order):
+    """Every live query's list is its bucket's first live slots in scan
+    order, then -1."""
+    n_pairs, qtile, k = slots.shape
+    qidx = qidx.cpu().numpy().reshape(n_pairs, qtile)
+    for p, b in enumerate(pair_bucket.cpu().numpy()):
+        want = in_order[b][:k]
+        for j in np.nonzero(qidx[p] >= 0)[0]:
+            np.testing.assert_array_equal(slots[p, j, :len(want)], want)
+            assert (slots[p, j, len(want):] == -1).all()
+
+
+@pytest.mark.parametrize("mode,store_dtype", [
+    ("bf16", "float32"), ("bf16", "bfloat16"), ("bf16", "int8"), ("int8", "int8"),
+    ("f32", "float32"), ("f32", "bfloat16"), ("f32", "int8")])
+@pytest.mark.parametrize("width,qtile", [(64, 1), (128, 100), (256, 128), (512, 1), (1024, 100)])
+def test_wide_lists_keep_the_tie_rule(cuda, mode, store_dtype, width, qtile):
+    """List widths 64 to 1024 over rows that all tie, with padding slots
+    and chunk lists out of physical order: (1) one launch at k = width - 5
+    equals the plain version and lists each bucket's first rows in scan
+    order; (2) rounds of `width` up to 2·width + 5 (one launch a round,
+    each past the first with the last round's floor, ties straddling
+    every boundary) do too; (3) at qtile 128, a pair whose query slots
+    are all padding but three in one later block (m-tile 7 where one
+    block holds the pair), and a pair with no live slot at all, equal the
+    plain version."""
+    store, queries, order, in_order = _tied_case(cuda, store_dtype, seed=width)
+    plan, args = scan_inputs(store, queries, order, qtile, mode)
+    ks = _kernel_vs_plain(args, width - 5, qtile, 96, mode, 1)
+    _in_scan_order(plan.qidx, plan.pair_bucket, ks, in_order)
+
+    k = 2 * width + 5
+    launch = scan_kernel._kernel_round(args[0], *args[3:7], args[7], args[8], qtile=qtile,
+                                       chunk=96, mode=mode)
+    floors = []
+
+    def scan_round(q_idx, p_bucket, w, floor):
+        floors.append(floor is not None)
+        return launch(q_idx, p_bucket, w, floor)
+
+    before = scan_kernel.LAUNCHES
+    positions = scan_kernel.chunk_positions(args[3], args[4], store.n_chunks)
+    kd, ks = scan_kernel.scan_in_rounds(scan_round, plan.qidx, plan.pair_bucket, positions,
+                                        k=k, qtile=qtile, chunk=96, width=width)
+    torch.cuda.synchronize()
+    assert scan_kernel.LAUNCHES - before == len(floors) and floors[:2] == [False, True]
+    rd, rs = scan_kernel.scan_pairs_reference(*args, k=k, qtile=qtile, chunk=96, mode=mode)
+    kd, ks, rd, rs = (t.cpu().numpy() for t in (kd, ks, rd, rs))
+    np.testing.assert_array_equal(np.isinf(kd), np.isinf(rd))
+    np.testing.assert_allclose(kd, rd, rtol=1e-4, atol=1e-5)
+    if mode == "int8":
+        np.testing.assert_array_equal(kd.view(np.uint32), rd.view(np.uint32))
+    _in_scan_order(plan.qidx, plan.pair_bucket, ks, in_order)
+
+    plan, args = scan_inputs(store, queries, order, 128, mode)
+    qidx = args[1].clone().reshape(-1, 128)
+    assert qidx.shape[0] >= 2 and bool((qidx[0, :3] >= 0).all())
+    per_block = 128 if width <= 128 else 128 * 128 // width
+    at = 112 if per_block == 128 else per_block
+    rows = qidx[0, :3].clone()
+    qidx[0] = -1
+    qidx[0, at:at + 3] = rows
+    qidx[1] = -1
+    args = (args[0], qidx.reshape(-1), *args[2:])
+    ks = _kernel_vs_plain(args, width - 5, 128, 96, mode, 1)
+    _in_scan_order(qidx, plan.pair_bucket, ks, in_order)
+    assert (ks[1] == -1).all() and (ks[0, :at] == -1).all() and (ks[0, at + 3:] == -1).all()

@@ -1,7 +1,8 @@
 """``k`` past the scan kernel's widest list (1024): the plain version
 against the JAX package's Pallas kernel (interpret mode) at ``k_scan``
 1025 and 2100, over fresh stores and stores mutated the same way in both
-packages; the rounds of at most 1024 that the CUDA wrapper runs, held
+packages, and at ``k_scan`` 106 over exact ties (the tie rule of the
+kernel's wide lists); the rounds of at most 1024 that the CUDA wrapper runs, held
 here against one wide list with the plain version as each round; and
 ``search(k=1100)`` and the CLI's ``--k 1019`` against the JAX package
 and exact kNN."""
@@ -32,12 +33,23 @@ torch.set_num_threads(2)
 N, D, NB, CHUNK, QTILE = 5000, 16, 3, 256, 8
 
 
-def _stores(mode, mutated):
+def _small_integers(n, seed):
+    """(n, D) f32 rows of integers in [-2, 2]: every product and sum of two
+    such rows is exact in f32 and bf16, so both packages compute the same
+    distances bit for bit, and many of them tie exactly."""
+    return np.random.default_rng(seed).integers(-2, 3, (n, D)).astype(np.float32)
+
+
+def _stores(mode, mutated, integers=False):
     """The same store in both packages (f32, or int8 for mode "int8"):
     5000×16 rows in 3 buckets of ~1,700, chunk 256; ``mutated``: then 600
     inserts (pool chunks and growth) and 400 deletes in each package's
-    mutation layer.  Returns (JAX store, port store, queries, visits)."""
+    mutation layer; ``integers``: rows, queries and inserts from
+    :func:`_small_integers`.  Returns (JAX store, port store, queries,
+    visits)."""
     data, queries = synthetic_blobs(N, D, 24, seed=3)
+    if integers:
+        data, queries = _small_integers(N, 3), _small_integers(24, 5)
     rng = np.random.default_rng(3)
     bucket_ids = rng.integers(0, NB, N)
     if mode == "int8":
@@ -47,7 +59,7 @@ def _stores(mode, mutated):
         jstore = JaxStore.build(data, bucket_ids, NB, chunk=CHUNK)
         store = BucketStore.build(data, bucket_ids, NB, chunk=CHUNK, device="cpu")
     if mutated:
-        extra, _ = synthetic_blobs(600, D, 1, seed=4)
+        extra = _small_integers(600, 4) if integers else synthetic_blobs(600, D, 1, seed=4)[0]
         extra_b = rng.integers(0, NB, 600)
         ids = np.arange(N + 1, N + 601)
         gone = rng.choice(np.arange(1, N + 601), 400, replace=False)
@@ -109,6 +121,48 @@ def test_plain_scan_matches_pallas_past_the_widest_list(k, mode, mutated):
     mism = ts[real] != js[real]
     if mism.any():
         np.testing.assert_allclose(td[real][mism], jd[real][mism], rtol=1e-6, atol=1e-7)
+
+
+@pytest.mark.parametrize("mutated", [False, True])
+@pytest.mark.parametrize("mode", ["f32", "bf16"])
+def test_plain_scan_keeps_the_tie_rule_at_k_scan_106(mode, mutated):
+    """k_scan 106 (``search(k=100)``, list width 128 on CUDA) over rows and
+    queries of small integers, where distances are exact in both packages
+    and tie in large groups that the 106th entry splits.  Per pair and
+    real query: the plain version's distances equal the Pallas kernel's
+    bit for bit, and so do its rows below the 106th distance; at that
+    distance both keep the same number of rows of the tie group, the plain
+    version the group's first in the bucket's scan order (also where
+    mutation left chunk lists out of physical order).  The Pallas kernel
+    may keep later ones there: its insert evicts the first of the tied
+    entries in its accumulator's storage order."""
+    jstore, store, queries, order = _stores(mode, mutated, integers=True)
+    jplan, jd, js = _jax_pairs(jstore, queries, order, 106, mode)
+    plan, args = scan_inputs(store, torch.as_tensor(queries), torch.as_tensor(order), QTILE, mode)
+    kw = dict(qtile=QTILE, chunk=CHUNK, mode=mode)
+    td, ts = (t.numpy() for t in scan_kernel.scan_pairs_reference(*args, k=106, **kw))
+    # every row of the visited bucket, in (distance, scan position) order
+    ad, as_ = (t.numpy() for t in scan_kernel.scan_pairs_reference(*args, k=3000, **kw))
+    real = (jplan.qidx >= 0).reshape(-1, QTILE)
+    o = np.lexsort((js, jd), axis=-1)
+    jd, js = np.take_along_axis(jd, o, -1)[real], np.take_along_axis(js, o, -1)[real]
+    td, ts, ad, as_ = td[real], ts[real], ad[real], as_[real]
+    assert np.isfinite(td).all()
+    np.testing.assert_array_equal(td, jd)
+    np.testing.assert_array_equal(td, ad[:, :106])
+    np.testing.assert_array_equal(ts, as_[:, :106])
+    kth = td[:, -1:]
+    split = (ad[:, 106:107] == kth)[:, 0]
+    assert split.sum() >= 10  # the tie group at the 106th distance runs past the list
+    below = td < kth
+    np.testing.assert_array_equal(np.where(below, ts, -1), np.where(below, js, -1))
+    for q in range(len(td)):
+        group = as_[q][ad[q] == kth[q]]
+        assert set(js[q][~below[q]]) <= set(group)
+    _, position = store.chunk_owner()
+    pos = position[ts // CHUNK] * CHUNK + ts % CHUNK
+    tied = td[:, 1:] == td[:, :-1]
+    assert ((td[:, 1:] > td[:, :-1]) | (tied & (pos[:, 1:] > pos[:, :-1]))).all()
 
 
 def _tied_store(virtual):

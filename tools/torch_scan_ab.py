@@ -1,20 +1,29 @@
 #!/usr/bin/env python3
 """The port's scan kernel against another checkout's, on one NVIDIA GPU.
 
-    python3 tools/torch_scan_ab.py OTHER_CHECKOUT [--rounds 6]
+    python3 tools/torch_scan_ab.py OTHER_CHECKOUT [--k 16 106 1024 1106] [--rounds 6]
 
 Builds ``learnedmetricindex_tpu_torch/csrc/scan_pairs.cu`` of this tree
 and of ``OTHER_CHECKOUT`` (for example a ``git archive`` of the parent
 commit) with the port's nvcc flags into ``build/scan_ab/``; compares the
-SASS of the bf16 and int8 instances at list widths 32 and 64 (addresses
-and register names left as they are, branch targets masked) and writes
-each diff to ``build/scan_ab/``; then times both libraries in one
-process on the same flagship inputs (``chip_smoke.make_corpus``: 10M×768
-int8, 120 nearest-centroid buckets, 10k queries visiting 4, ``k_scan``
-16, qtile 128), alternating which goes first, and checks that both give
-the same bits.  Both sources must take bf16 and int8 mode through
-``lmi_scan_pairs``, with or without the row-map and floor pointers (the
-later interface; they are passed as null).
+SASS of the list-width-32 instances (bf16, int8 and f32 over an int8
+store, and the FMA body; addresses and register names left as they are,
+branch targets masked) and writes each diff to ``build/scan_ab/``; then
+times both libraries in one process on the same inputs, alternating
+which goes first, and checks that both give the same bits (distances and
+slots) at every ``k``:
+
+* the flagship (``chip_smoke.make_corpus``: 10M×768 int8, 120
+  nearest-centroid buckets, a packed store, 10k queries visiting 4, qtile
+  128) in modes bf16, int8 and f32, at each ``k`` up to 128;
+* f32 over a virtual store of the same corpus (the id grid), the first
+  256 queries (``search(k=1100)``'s scan in ``chip_smoke.phase_virtual``),
+  at every ``k``; past 1024 in rounds of at most 1024
+  (``scan_kernel.scan_in_rounds``), one launch a round.
+
+Both sources must take ``lmi_scan_pairs``'s arguments with or without the
+row-map and floor pointers; without them (the earlier interface) only the
+packed cases up to 1024 run.
 """
 
 from __future__ import annotations
@@ -40,7 +49,7 @@ from learnedmetricindex_tpu_torch.ops import cuda_build, scan_kernel  # noqa: E4
 SOURCE = Path("learnedmetricindex_tpu_torch/csrc/scan_pairs.cu")
 WORK = ROOT / "build" / "scan_ab"
 INSTANCES = ("scan_mma_kernelILi1EaLi32E", "scan_mma_kernelILi2EaLi32E",
-             "scan_mma_kernelILi1EaLi64E", "scan_mma_kernelILi2EaLi64E")
+             "scan_mma_kernelILi0EaLi32E", "scan_f32_kernelILi32E")
 
 
 def build(sources: dict) -> None:
@@ -77,7 +86,9 @@ def sass(cubin: Path) -> dict:
     return funcs
 
 
-def flagship_store(dev):
+def flagship_stores(dev):
+    """The flagship's packed store, a virtual store over the same corpus,
+    the queries and their nearest-centroid visits."""
     data = cs.make_corpus(dev, 10_000_000, 10_000, 120)
     corpus, scales, queries, cent = (data[k] for k in ("corpus", "row_scales", "queries",
                                                        "centroids"))
@@ -88,8 +99,10 @@ def flagship_store(dev):
         bucket[s0 : s0 + 500_000] = (x @ cent.T - half_sq).argmax(1)
     store = BucketStore.build_packed_device(corpus, bucket.cpu().numpy(), 120, chunk=2048,
                                             row_scales=scales)
+    virtual = BucketStore.build_virtual(corpus, bucket.cpu().numpy(), 120, chunk=2048,
+                                        row_scales=scales)
     order = torch.topk(queries @ cent.T - half_sq, 4, dim=1).indices.int()
-    return store, queries, order
+    return store, virtual, queries, order
 
 
 def bind(lib, source: Path) -> bool:
@@ -102,35 +115,49 @@ def bind(lib, source: Path) -> bool:
     return mapped
 
 
-def launcher(lib, mapped: bool, store, queries, order, mode: str):
-    """One launch of ``lib``'s kernel with the wrapper's arguments (null row
-    map and floors where its interface has them)."""
-    _, (q, qidx, pb, ptr, chunk_of, st, sc, qs, _) = scan_inputs(store, queries, order, 128,
-                                                                 mode)
-    qo = scan_kernel.operand_queries(q, mode, st.dtype)
-    n_pairs = pb.shape[0]
-    pair_order = torch.argsort((ptr[1:] - ptr[:-1])[pb.long()], descending=True,
-                               stable=True).to(torch.int32)
-    out_d = torch.empty((n_pairs, 128, 16), device=st.device)
-    out_s = torch.empty((n_pairs, 128, 16), dtype=torch.int32, device=st.device)
+def launcher(lib, mapped: bool, store, queries, order, mode: str, k: int):
+    """``run()``: ``lib``'s kernel over the scan of ``queries`` visiting
+    ``order`` with the wrapper's arguments (null row map and floors in the
+    first round where the interface has them), in rounds past 1024."""
+    _, (q, qidx, pb, ptr, chunk_of, st, sc, qs, row_ids) = scan_inputs(store, queries, order, 128,
+                                                                       mode)
+    fma = mode == "f32" and st.dtype == torch.float32
+    qo = q if fma else scan_kernel.operand_queries(q, mode, st.dtype)
+    terms = 3 if mode == "f32" and not fma else 1
+    cs.check(mapped or (row_ids is None and k <= scan_kernel.MAX_K),
+             "the other interface takes no row map and no floor")
 
-    def run():
+    def one(q_idx, p_bucket, w, floor):
+        n_pairs = p_bucket.shape[0]
+        pair_order = torch.argsort((ptr[1:] - ptr[:-1])[p_bucket.long()], descending=True,
+                                   stable=True).to(torch.int32)
+        out_d = torch.empty((n_pairs, 128, w), device=st.device)
+        out_s = torch.empty((n_pairs, 128, w), dtype=torch.int32, device=st.device)
+        fd, fp = floor if floor is not None else (None, None)
+        extra = tuple(t.data_ptr() if t is not None else None for t in (row_ids, fd, fp))
         err = lib.lmi_scan_pairs(
-            qo.data_ptr(), qs.data_ptr() if qs is not None else None, qidx.data_ptr(),
-            pb.data_ptr(), pair_order.data_ptr(), ptr.data_ptr(), chunk_of.data_ptr(),
-            st.data_ptr(), sc.data_ptr(), *((None, None, None) if mapped else ()),
-            out_d.data_ptr(), out_s.data_ptr(), n_pairs, 128, 16,
-            st.shape[1], qo.shape[1], 2048, scan_kernel.MODES[mode], 2,
-            torch.cuda.current_stream().cuda_stream)
+            qo.data_ptr(), qs.data_ptr() if qs is not None else None, q_idx.data_ptr(),
+            p_bucket.data_ptr(), pair_order.data_ptr(), ptr.data_ptr(), chunk_of.data_ptr(),
+            st.data_ptr(), sc.data_ptr() if sc is not None else None,
+            *(extra if mapped else ()), out_d.data_ptr(), out_s.data_ptr(), n_pairs, 128, w,
+            st.shape[1], qo.shape[1] // terms, 2048, scan_kernel.MODES[mode],
+            scan_kernel._STORE_TYPES[st.dtype], torch.cuda.current_stream().cuda_stream)
         cs.check(err == 0, f"launch failed: cudaError {err}")
         return out_d, out_s
-    return run
+
+    if k <= scan_kernel.MAX_K:
+        return lambda: one(qidx, pb, k, None)
+    n_slots = st.shape[0] if row_ids is None else row_ids.shape[0]
+    positions = scan_kernel.chunk_positions(ptr, chunk_of, n_slots // 2048)
+    return lambda: scan_kernel.scan_in_rounds(one, qidx, pb, positions, k=k, qtile=128, chunk=2048)
 
 
 def main() -> None:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("other", type=Path, help="root of the other checkout")
-    p.add_argument("--rounds", type=int, default=6, help="timed rounds per library and mode")
+    p.add_argument("--k", type=int, nargs="+", default=[16, 106, 1024, 1106],
+                   help="k_scan values (the packed flagship runs those up to 128)")
+    p.add_argument("--rounds", type=int, default=6, help="timed rounds per library and case")
     args = p.parse_args()
     smi = cs.phase_device()
     WORK.mkdir(parents=True, exist_ok=True)
@@ -147,26 +174,34 @@ def main() -> None:
                f"{'identical' if a == b else f'{changed} lines differ'}")
 
     dev = torch.device("cuda", 0)
-    store, queries, order = flagship_store(dev)
+    store, virtual, queries, order = flagship_stores(dev)
     libs = {}
     for name, src in sources.items():
         lib = ctypes.CDLL(str(WORK / f"{name}.so"))
         libs[name] = (lib, bind(lib, src))
-    for mode in ("bf16", "int8"):
-        runs = {n: launcher(lib, mapped, store, queries, order, mode)
-                for n, (lib, mapped) in libs.items()}
+    mapped = all(m for _, m in libs.values())
+    cases = [("packed", store, queries, order, mode, k) for k in args.k if k <= 128
+             for mode in ("bf16", "int8", "f32")]
+    if mapped:
+        cases += [("virtual", virtual, queries[:256], order[:256], "f32", k) for k in args.k]
+    for layout, st, q, o, mode, k in cases:
+        runs = {n: launcher(lib, m, st, q, o, mode, k) for n, (lib, m) in libs.items()}
         outs = {n: tuple(t.clone() for t in run()) for n, run in runs.items()}
         same = all(torch.equal(x, y) for x, y in zip(outs["other"], outs["this"]))
-        cs.check(same, f"{mode}: the two kernels give different bits")
+        cs.check(same, f"{layout} {mode} k={k}: the two kernels give different bits")
+        del outs
+        reps = 5 if layout == "packed" else 3
         ms = {n: [] for n in runs}
         for r in range(args.rounds):
             for n in (("other", "this") if r % 2 == 0 else ("this", "other")):
-                ms[n].append(cs.cuda_ms(runs[n], 5))
+                ms[n].append(cs.cuda_ms(runs[n], reps))
         med = {n: float(np.median(t)) for n, t in ms.items()}
-        cs.log(f"[ab] {mode} (mean of 5 launches a round, {args.rounds} rounds, same bits): "
+        cs.log(f"[ab] {layout} {mode} k_scan {k} ({q.shape[0]} queries; mean of {reps} launches a "
+               f"round, {args.rounds} rounds, same bits): "
                + "; ".join(f"{n} {' '.join(f'{t:.3f}' for t in ts)} ms, median {med[n]:.3f}"
                            for n, ts in ms.items())
                + f"; this/other {med['this'] / med['other']:.4f}  [{smi}]")
+        torch.cuda.empty_cache()
 
 
 if __name__ == "__main__":
