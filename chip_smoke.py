@@ -44,8 +44,12 @@ phases:
    ``k_scan`` 106 (``search(k=100)``, list width 128; the library call's
    ``topk(106)``), and
    the search's split between navigation, the scan and the rest; then
-   the scan in f32 over an f32 store (the CUDA-core body) on the same
-   rows, dequantized, against cuBLAS SGEMM + ``torch.topk``;
+   the same rows dequantized into an f32 store (31 GB): the scan in f32
+   over it (the six-term body) at ``k_scan`` 16 and 106 against its plain
+   version, cuBLAS SGEMM + ``torch.topk`` (TF32 off) and its bound (six
+   bf16 passes, the CUDA cores' FMA route beside it), at 16 both against
+   float64, and a whole ``search(precision="highest")`` over that store,
+   equal to exact kNN over the visited buckets;
    then the same index over a virtual store of the device corpus
    (``get_bucket_store``: the id grid, no copy): default and ``highest``
    searches equal to the packed store's, a ``k=1100`` search equal to
@@ -161,11 +165,10 @@ WORK_DIR = ROOT / "build" / "chip_smoke"
 RTOL, ATOL = 1e-4, 1e-5
 TIE_RTOL, TIE_ATOL = 1e-6, 1e-7
 # ... where "tied" for f32 sums of 768 products means within their
-# rounding: the kernel (tensor-core sums of exact products, or an FMA
-# chain over an f32 store) and cuBLAS add in other orders; the bf16 body
-# and the FMA chain differed from it by up to 1.4e-6 and 1.7e-6 on unit
-# vectors (H100 runs); int8 sums are exact in both, so int8 keeps the
-# tight bar
+# rounding: the kernel (tensor-core sums of exact products) and cuBLAS
+# add in other orders; the bf16 and f32 bodies differed from it by up to
+# ~2e-6 on unit vectors (H100 runs); int8 sums are exact in both, so int8
+# keeps the tight bar
 FLOAT_TIE_ATOL = 5e-6
 # f32 queries against rows that each hold one power of two (split_terms_check):
 # every product is exact, so the plain version's f32 matmul is exact, and a
@@ -182,8 +185,10 @@ HBM_BYTES_PER_S = 3.35e12  # the H100 SXM's published device-memory rate
 # int8 on the tensor cores, f32 on the CUDA cores.  The scan's bound takes
 # the fastest exact form of its products on this card (scan_work): f32
 # queries over an int8 or bf16 store are three bf16 terms whose products
-# with the store's values are exact, so three bf16 passes; only f32 over
-# an f32 store is bound by the CUDA cores' f32 rate
+# with the store's values are exact, so three bf16 passes; over an f32
+# store both sides are three terms and the six products that reach f32
+# precision are six bf16 passes (the CUDA cores' FMA route, 2 operations
+# a multiply-add at the f32 rate, is printed beside it)
 PEAK_OPS = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}
 # warm searches per gather mode on the built index, the modes in turns
 MODE_ROUNDS = 6
@@ -924,7 +929,9 @@ def phase_main(dev, data: dict, smi: str):
         f"{measured['inference']:.4f} s, scan kernel {scan_s:.4f} s (CUDA events, same plan), "
         f"plan + merge + rerank + copy {measured['seq_search'] - scan_s:.4f} s (seq_search "
         f"{measured['seq_search']:.4f} s of the last rep)")
-    timing["f32 store"] = f32_store_scan(store, queries, order, smi)
+    f32_timing, f32_launches = f32_store_scan(store, queries, order, smi, index, data_prediction)
+    timing.update(f32_timing)
+    launches = {name: n + f32_launches[name] for name, n in launches.items()}
     log(f"[main] total {time.perf_counter() - t_all:.1f} s")
     torch.cuda.empty_cache()
     return launches, timing, {"index": index, "data_prediction": data_prediction,
@@ -958,11 +965,16 @@ def flagship_scan(store, queries, order, k: int, mode: str, smi: str, tag: str) 
             f"16 pairs: kernel max|err| {k_err:.3g}, plain {p_err:.3g}")
         check(k_err <= p_err, f"flagship f32: the kernel's error against float64 {k_err:.3g} "
               f"exceeds the plain version's {p_err:.3g}")
+    fma = ""
+    if mode == "f32" and store.rows_ref.dtype == torch.float32:
+        fma = (f"; the CUDA cores' FMA route {2 * mac / PEAK_OPS['f32'] * 1e3:.3f} ms "
+               f"({2 * mac:.4g} operations at {PEAK_OPS['f32'] / 1e12:g} T/s)")
     log(f"{tag} scan_pairs {mode}{'' if k == 16 else f' k_scan {k}'}: kernel {k_ms:.3f} ms, "
-        f"plain {p_ms:.2f} ms, library {lib_ms:.2f} ms; bound {bound[bound_by]:.3f} ms by "
-        f"{bound_by} ({mac:.4g} MAC, {ops:.4g} operations at {peak / 1e12:g} T/s, "
-        f"{nbytes / 1e9:.3f} GB) = {bound[bound_by] / k_ms:.1%} of it; {plan.n_pairs} pairs, "
-        f"{mac / k_ms / 1e9:.1f} TMAC/s; agree, max|Δd|={err:.3g} (at swapped slots "
+        f"plain {p_ms:.2f} ms, library {lib_ms:.2f} ms = {lib_ms / k_ms:.3f}x the kernel; bound "
+        f"{bound[bound_by]:.3f} ms by {bound_by} ({mac:.4g} MAC, {ops:.4g} operations at "
+        f"{peak / 1e12:g} T/s = {bound['operations']:.3f} ms, {nbytes / 1e9:.3f} GB = "
+        f"{bound['bytes']:.3f} ms) = {bound[bound_by] / k_ms:.1%} of it{fma}; {plan.n_pairs} "
+        f"pairs, {mac / k_ms / 1e9:.1f} TMAC/s; agree, max|Δd|={err:.3g} (at swapped slots "
         f"{gap:.3g})  [{smi}]")
     del sargs, kd, ks, rd, rs
     torch.cuda.empty_cache()
@@ -970,55 +982,80 @@ def flagship_scan(store, queries, order, k: int, mode: str, smi: str, tag: str) 
             "bound_ms": bound[bound_by], "bound_by": bound_by}
 
 
-def f32_store_scan(store, queries, order, smi: str) -> dict:
-    """The scan in f32 over an f32 store (``precision="highest"`` over the
-    store ``BuildConfiguration(dtype="float32")`` builds; the CUDA-core
-    FMA body) at the flagship: the int8 store's rows dequantized slab by
-    slab into f32 on its chunk layout, scales 1.0 on live slots and 0 on
-    padding.  The kernel, its plain version (whose candidates it must
-    agree with) and cuBLAS SGEMM + ``torch.topk`` with TF32 off, timed
-    with CUDA events beside the bound."""
-    chunk, d = store.chunk, store.chunk_data.shape[1]
-    n_slots = store.chunk_data.shape[0]
+def f32_store_scan(store, queries, order, smi: str, index, data_prediction):
+    """f32 over an f32 store at the flagship (``precision="highest"`` over
+    the store ``BuildConfiguration(dtype="float32")`` builds; the
+    six-term body): the int8 store's rows dequantized slab by slab into
+    f32 on its chunk layout, scales 1.0 on live slots and 0 on padding.
+    The scan at ``k_scan`` 16 and 106 (``flagship_scan``: the kernel, its
+    plain version, whose candidates it must agree with, cuBLAS SGEMM +
+    ``torch.topk`` with TF32 off, the bound; at 16 the float64 gate), then
+    a whole ``search(precision="highest")`` of the 10k queries over that
+    store at visit 4, k 10, its launches counted: seconds per 10k, equal
+    to exact kNN over the visited buckets (ids differing only at ties)
+    for 256 queries, recall@10 >= 0.999.  Returns the timings and the
+    search's launch counts."""
+    f32 = dequantized_store(store)
+    tag = f"[flagship f32 store, {f32.chunk_data.numel() * 4 / 1e9:.2f} GB]"
+    timing = {"f32 store": flagship_scan(f32, queries, order, 16, "f32", smi, tag),
+              "f32 store k106": flagship_scan(f32, queries, order, 106, "f32", smi, tag)}
+
+    def search(q):
+        return index.search(None, q, None, q, data_prediction, n_buckets=4, k=10, store=f32,
+                            precision="highest")
+
+    nq = queries.shape[0]
+    reset_counts()
+    search(queries)  # warmup
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        dd, ii, _ = search(queries)
+        times.append(time.perf_counter() - t0)
+    launches = read_counts()
+    check(launches["scan_pairs"] == 4, f"f32-store search: {launches['scan_pairs']} scan launches, not 4")
+    check(dd.shape == (nq, 10) and bool(np.isfinite(dd).all()) and bool((ii > 0).all()),
+          "f32-store search: finite, filled (nq, 10)")
+    nc = 256
+    ref_d, ref_i = restricted_knn(f32, queries[:nc], order[:nc], 10)
+    ref_d, ref_i = ref_d.cpu().numpy(), ref_i.cpu().numpy()
+    n_tied = same_neighbors(dd[:nc], ii[:nc], ref_d, ref_i, "f32-store highest vs visited-bucket exact")
+    r = recall(ii[:nc], ref_i, 10)
+    check(r >= 0.999, f"f32-store highest: recall {r} vs visited-bucket exact")
+    mean_s = float(np.mean(times))
+    log(f"[flagship f32 store] search precision=highest, n_buckets=4, k=10: reps "
+        f"{[round(t, 4) for t in times]} s; mean {mean_s:.4f} s per {nq} queries "
+        f"= {nq / mean_s:.0f} QPS; scan kernel at k_scan 16 {timing['f32 store']['ms']:.3f} ms; "
+        f"recall@10 vs visited-bucket exact kNN {r:.4f} ({nc} queries, {n_tied} ids differ at ties); "
+        f"launches {launches}  [{smi}]")
+    del f32
+    torch.cuda.empty_cache()
+    return timing, launches
+
+
+def dequantized_store(store):
+    """The packed int8 ``store`` as an f32 store on its chunk layout: its
+    rows dequantized slab by slab, scales 1.0 on live slots and 0 on
+    padding (``scales_flat``)."""
+    chunk, (n_slots, d) = store.chunk, store.chunk_data.shape
     rows = torch.empty((n_slots, d), dtype=torch.float32, device=store.device)
     step = 128 * chunk
     for s0 in range(0, n_slots, step):
         rows[s0 : s0 + step] = quantize.dequantize_rows(
             store.chunk_data[s0 : s0 + step], store.chunk_scales[s0 : s0 + step])
-    f32 = store._replace(chunk_data=rows, chunk_scales=None)  # scales_flat: 1.0 live, 0 padding
-    plan, sargs = scan_inputs(f32, queries, order, 128, "f32")
-    kw = dict(k=16, qtile=128, chunk=chunk, mode="f32")
-    mac, ops, peak, nbytes = scan_work(f32, plan, order, d, 16, "f32")
-    bound = {"operations": ops / peak * 1e3, "bytes": nbytes / HBM_BYTES_PER_S * 1e3}
-    bound_by = max(bound, key=bound.get)
-    k_ms = cuda_ms(lambda: scan_kernel.scan_pairs(*sargs, **kw), 3)
-    p_ms = cuda_ms(lambda: scan_kernel.scan_pairs_reference(*sargs, **kw), 1)
-    lib_ms = cuda_ms(library_scan(f32, plan, sargs, 16, "f32"), 1)
-    kd, ks = scan_kernel.scan_pairs(*sargs, **kw)
-    rd, rs = scan_kernel.scan_pairs_reference(*sargs, **kw)
-    err, gap = compare_candidates(kd, ks, rd, rs, "f32", "flagship f32 over an f32 store")
-    log(f"[flagship] scan_pairs f32 over an f32 store ({rows.numel() * 4 / 1e9:.2f} GB, the FMA "
-        f"body): kernel {k_ms:.3f} ms, plain {p_ms:.2f} ms, library (cuBLAS SGEMM + topk, TF32 "
-        f"off) {lib_ms:.2f} ms = {lib_ms / k_ms:.3f}x the kernel; bound {bound[bound_by]:.3f} ms "
-        f"by {bound_by} ({ops:.4g} operations at {peak / 1e12:g} T/s = "
-        f"{bound['operations']:.3f} ms, {nbytes / 1e9:.3f} GB = {bound['bytes']:.3f} ms) = "
-        f"{bound[bound_by] / k_ms:.1%} of it; {plan.n_pairs} pairs; agree, max|Δd|={err:.3g} "
-        f"(at swapped slots {gap:.3g})  [{smi}]")
-    del rows, f32, sargs, kd, ks, rd, rs
-    torch.cuda.empty_cache()
-    return {"ms": k_ms, "plain_ms": p_ms, "library_ms": lib_ms, "err": err,
-            "bound_ms": bound[bound_by], "bound_by": bound_by}
+    return store._replace(chunk_data=rows, chunk_scales=None)
 
 
 def scan_work(store, plan, order, d: int, k: int, mode: str) -> tuple:
     """What the scan of this visit set needs: (multiply-adds, operations,
     the peak rate they run at, bytes).  Multiply-adds: each visiting
     query with each true row of the bucket it visits (no tile or chunk
-    padding).  Operations: 2 per multiply-add in the mode's type, 6 (three
-    bf16 passes at the bf16 rate) for f32 queries over an int8 or bf16
-    store, whose exact product is that.  Bytes: each visited bucket's rows
-    and row scales read once, the queries read once in the mode's type,
-    the (n_pairs, qtile, k) distances and slots written once."""
+    padding).  Operations: 2 per multiply-add in the mode's type; for f32
+    queries, whose exact product is bf16 passes on the tensor cores, 6
+    (three passes) over an int8 or bf16 store and 12 (six passes) over an
+    f32 store.  Bytes: each visited bucket's rows and row scales read
+    once, the queries read once in the mode's type, the (n_pairs, qtile,
+    k) distances and slots written once."""
     sizes = torch.as_tensor(store.bucket_sizes, device=order.device).long()
     visits = order[order >= 0].long()
     rows = float(sizes[visits].sum())
@@ -1028,9 +1065,10 @@ def scan_work(store, plan, order, d: int, k: int, mode: str) -> tuple:
     q_bytes = {"f32": 4, "bf16": 2, "int8": 1}[mode] * d
     out_bytes = plan.n_pairs * 128 * k * 8
     nbytes = float(sizes[visited].sum()) * row_bytes + order.shape[0] * q_bytes + out_bytes
-    split = mode == "f32" and store.rows_ref.dtype != torch.float32
-    peak = PEAK_OPS["bf16" if split else mode]
-    return rows * d, (6.0 if split else 2.0) * rows * d, peak, nbytes
+    if mode != "f32":
+        return rows * d, 2.0 * rows * d, PEAK_OPS[mode], nbytes
+    passes = 6 if store.rows_ref.dtype == torch.float32 else 3
+    return rows * d, 2.0 * passes * rows * d, PEAK_OPS["bf16"], nbytes
 
 
 def float64_error(store, queries, plan, dists, slots, n_pairs: int = 16) -> float:

@@ -27,10 +27,9 @@
 //    then the unmoved (n, d) corpus, and slot s of the id grid `row_ids`
 //    (1-based, 0 = padding) holds corpus row row_ids[s] − 1, whose scale
 //    is row_scales[row] (an int8 corpus) or 1 (`scales` null); a padding
-//    slot's scale is 0.  load_row_meta puts each slot's row and scale in
-//    shared memory beside the slot (the FMA body loads rows through it);
-//    in the tensor-core bodies each thread reads the rows of the pieces
-//    it copies once a tile into registers.  Outputs stay slots;
+//    slot's scale is 0.  load_row_meta puts each slot's scale in shared
+//    memory beside the slot; each thread reads the rows of the pieces it
+//    copies once a tile into registers.  Outputs stay slots;
 //  * floor: per (pair, query slot) a (distance, scan position) pair; a row
 //    enters a query's list only if its (dist, position in the bucket's
 //    scan order) is lexicographically above it (applied where selection
@@ -50,7 +49,7 @@
 // 1.5–3% of their bound, and f32 241–255 ms.
 //
 // The design.
-//  * Every mode over an int8 or bf16 store runs on the tensor cores:
+//  * Every mode over every store type runs on the tensor cores:
 //    warp-level mma.sync.m16n8k16 bf16→f32 and m16n8k32 s8→s32 (exact, so
 //    int8 stays bit-equal to the plain version).  A block computes a
 //    128-query × 128-row distance tile with 8 warps of 64 × 32 (4 m-tiles ×
@@ -58,8 +57,8 @@
 //    every B fragment (a store row slice, widened from int8 to bf16 in
 //    registers on the main path) then feeds four mma, so the widening
 //    costs a quarter of what it would with 2 m-tiles.
-//  * Operands sit in shared memory in their storage type (bf16 or int8),
-//    fed by a cp.async ring of 64-byte depth slices of the query tile
+//  * Operands sit in shared memory in their storage type (bf16, int8; the
+//    f32 rows of an f32 store as f32, split after they are read), fed by a cp.async ring of 64-byte depth slices of the query tile
 //    and of the row tile (`commit_group`/`wait_group`: the copies for the
 //    next steps are in flight while a step computes) and read with
 //    ldmatrix.  Rows are padded by 16 bytes (80, 48 or 208 in all) so
@@ -97,13 +96,40 @@
 //    so this body's ring has two stages, not three (two blocks an SM at
 //    list width 32 need both to fit).  This is not TF32: no operand is
 //    rounded.
-//  * f32 over an f32 store keeps a CUDA-core body (IEEE FMA, 8 × 8
-//    outputs a thread, operands staged as f32): f32 rows are not exact in
-//    bf16.
+//  * f32 over an f32 store (precision="highest" over
+//    BuildConfiguration(dtype="float32"), the CLI's store, a virtual store
+//    over an f32 corpus): f32 rows are not exact in bf16, so the kernel
+//    splits each store value too, by truncation with bit masks: hi = the
+//    top 16 bits of x, mid = the top 16 bits of x − hi, lo = x − hi − mid.
+//    Both subtractions are exact, lo has at most 8 significant bits, and
+//    hi + mid + lo == x for 2^-110 <= |x| and for 0 (below 2^-110 less than
+//    2^-133 is lost); no conversion instruction, and no term rounds up to
+//    bf16's infinity (round-to-nearest does from ~3.39e38).  Of the nine
+//    products of the two splits the body computes the six that reach f32
+//    precision, lo·hi, hi·lo, mid·mid, mid·hi, hi·mid and hi·hi (query term
+//    first), summed smallest first into a fresh fragment and added once,
+//    rounded, into the running sum, as in the three-term body.  The
+//    dropped mid·lo, lo·mid and lo·lo are below ~2^-21.4 of |q_i·x_i|
+//    (|q_mid| <= 2^-8|q|, |q_lo| <= 2^-16|q| rounded; |x_mid| < 2^-7|x|,
+//    |x_lo| < 2^-14|x| truncated).  The queries are the three-term body's
+//    rows (no WIDEN_ORDER).  A stage is 16 depths: the three query terms'
+//    32-byte slices side by side, and 16 f32 values of each store row
+//    copied with cp.async in value pairs, placed so that lane t of a quad
+//    reads the values 2t, 2t+1, 2t+8 and 2t+9 of its B fragment as one
+//    16-byte load (rows of 64 bytes: two rows a quarter-warp, no bank
+//    conflict); each lane splits the values it loads into the three terms'
+//    B fragments, and each fragment feeds four m-tiles.  Three such stages
+//    take the distance tile's 67,584 B, so a width-32 block would fit two
+//    blocks an SM; it runs one (__launch_bounds__ 256, 1: ~250 registers a
+//    thread), because at two the 128-register cap cannot hold the 64
+//    accumulators beside the 24 registers of B fragments, the 12 of A and
+//    the fresh sums, and spills 204 bytes: 224.8 ms against 154.6 ms at the
+//    flagship on an H100.  32-deep stages and deeper rings measured no
+//    faster.
 //  * The ring shares the distance tile's shared memory and drains at the
 //    end of every row tile; at list width 32 (the flagship) a block takes
-//    ~104–111 KB, so two blocks share an SM and one block's epilogue and
-//    selection overlap the other's mma.  (One block an SM with a deeper
+//    ~104–111 KB, so two blocks share an SM (the six-term body excepted,
+//    above) and one block's epilogue and selection overlap the other's mma.  (One block an SM with a deeper
 //    ring that never drains was slower: the selection then stalls the
 //    tensor cores.)
 //  * Selection, the same rule for every mode.  The epilogue writes the
@@ -151,7 +177,6 @@
 //    24 depth steps a row tile through a two-stage ring; above width 128
 //    the split blocks of a pair each read the bucket's rows, and k > 1024
 //    walks them once more a round;
-//  * f32 over an f32 store on the tensor cores (six bf16 terms a product);
 //  * the count gate of the Pallas kernel is an optimisation of its
 //    selection sweeps; the group marks above play its part here.
 //
@@ -159,11 +184,14 @@
 // 1024 that holds k): lists 2·KMAX·QB·4 B + 4,096 B of row and query
 // metadata, floors and group marks + above width 32 the warps' candidate
 // buffers (8 warps × 128 × (distance, slot) = 8,192 B) + the work area:
-// the 67,584 B distance tile, which the ring and the f32 body's operand
-// tiles (33,792 B) reuse; the ring of the three-term body over a bf16
-// store (2 × 36,864 B) is larger and sets the work area at 73,728 B.
-// With the distance tile:
-//   KMAX   32:  32,768 + 4,096 +     0 + 67,584 = 104,448 B (two blocks an SM)
+// the 67,584 B distance tile, which the rings reuse.  Rings: one query
+// term, 3 stages of 128 × (80 + 80) or (80 + 48) B = 61,440 or 49,152 B;
+// the three-term body over an int8 store 2 × 128 × (208 + 48) = 65,536 B;
+// f32 over an f32 store 3 × 128 × (112 + 64) = 67,584 B; the three-term
+// body over a bf16 store 2 × 128 × (208 + 80) = 73,728 B, larger than the
+// distance tile, sets the work area at 73,728 B.  With the distance tile:
+//   KMAX   32:  32,768 + 4,096 +     0 + 67,584 = 104,448 B (two blocks an SM;
+//                                                  the six-term body one)
 //   KMAX   64:  65,536 + 4,096 + 8,192 + 67,584 = 145,408 B
 //   KMAX  128: 131,072 + 4,096 + 8,192 + 67,584 = 210,944 B
 //   KMAX  256: 131,072 + 4,096 + 8,192 + 67,584 = 210,944 B (QB = 64)
@@ -196,13 +224,6 @@ constexpr int WARPS = THREADS / 32;
 constexpr int DQ = QT + 4;
 constexpr int GROUPS = RT / 32;  // 32-row groups of a tile, one per warp column
 
-// f32 body: 8 × 8 outputs a thread, 32-deep steps of f32 operands
-constexpr int MQ = 8;
-constexpr int MR = 8;
-constexpr int KT = 32;
-constexpr int QS = QT + 4;    // padded smem strides, 16-byte aligned rows
-constexpr int XS = RT + 4;
-
 // tensor-core bodies: a ring of KB-byte slices of each query term row
 // (bf16: 32 values, int8: 64) and of each store row
 constexpr int KB = 64;
@@ -214,8 +235,7 @@ enum Mode { MODE_F32 = 0, MODE_BF16 = 1, MODE_INT8 = 2 };
 enum StoreType { STORE_F32 = 0, STORE_BF16 = 1, STORE_INT8 = 2 };
 
 struct Params {
-  const void* queries;        // (n_queries, nt·qd): f32 (nt 1, qd == d) for f32 over an
-                              // f32 store; otherwise bf16 or int8, see lmi_scan_pairs
+  const void* queries;        // (n_queries, nt·qd) bf16 or int8, see lmi_scan_pairs
   const float* qscales;       // (n_queries,) f32, int8 mode only
   const int* qidx;            // (n_pairs*qtile,) query row per slot, -1 = pad
   const int* pair_bucket;     // (n_pairs,)
@@ -256,7 +276,14 @@ constexpr size_t kMetaBytes = size_t(5 * QT + 3 * RT) * 4;
 // query, (distance, slot) for at most RT rows
 constexpr size_t kCandBytes = size_t(WARPS) * RT * 8;
 constexpr size_t kDistBytes = size_t(RT) * DQ * 4;
-constexpr size_t kF32OperandBytes = size_t(KT) * (QS + XS) * 4;
+// f32 over an f32 store: stages of KX depths, the three query terms'
+// slices (2·KX bytes each) and KX f32 values of each store row (rows of
+// 64 bytes, unpadded: a quarter-warp's 16-byte loads read two rows)
+constexpr int KX = 16;
+constexpr int SX_A = 3 * KX * 2 + 16;
+constexpr int SX_B = KX * 4;
+constexpr int SX_STAGES = 3;
+constexpr size_t kSplitXRingBytes = SX_STAGES * (size_t(QT) * SX_A + size_t(RT) * SX_B);
 // the work area: the distance tile, whose memory the ring reuses, or the
 // ring where it is larger
 __host__ __device__ constexpr size_t work_bytes(size_t ring) {
@@ -264,8 +291,8 @@ __host__ __device__ constexpr size_t work_bytes(size_t ring) {
 }
 constexpr size_t kMaxWorkBytes = work_bytes(ring_bytes(3, false));
 static_assert(ring_bytes(1, false) <= kDistBytes && ring_bytes(1, true) <= kDistBytes &&
-                  ring_bytes(3, true) <= kDistBytes && kF32OperandBytes <= kDistBytes,
-              "the ring and the f32 operand tiles reuse the distance tile's memory");
+                  ring_bytes(3, true) <= kDistBytes && kSplitXRingBytes <= kDistBytes,
+              "the rings reuse the distance tile's memory");
 
 // queries whose lists a block keeps, for a list width
 __host__ __device__ constexpr int queries_per_block(int kmax) {
@@ -302,7 +329,7 @@ struct Smem {
   int* r_src;           // [RT] row of the store the tile's row r is read from, -1 = none
   float* cand_d;        // [WARPS][RT] candidate distances (lists wider than 32)
   int* cand_s;          // [WARPS][RT] their slots
-  unsigned char* work;  // distance tile [RT][DQ] | ring | f32 operand tiles
+  unsigned char* work;  // distance tile [RT][DQ] | ring
   __device__ explicit Smem(unsigned char* base) {
     top_d = reinterpret_cast<float*>(base);
     top_s = reinterpret_cast<int*>(top_d + KMAX * QB);
@@ -623,107 +650,7 @@ __device__ void write_out(const Params& p, const Smem<KMAX>& s, const Pair& b) {
 }
 
 // ---------------------------------------------------------------------
-// f32 over an f32 store: the CUDA-core IEEE FMA body
-// ---------------------------------------------------------------------
-template <int KMAX>
-__global__ void __launch_bounds__(THREADS, blocks_per_sm(KMAX)) scan_f32_kernel(Params p) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const Smem<KMAX> s(smem);
-  const Pair b = begin_pair<KMAX, false>(p, s);
-  if constexpr (!Smem<KMAX>::WARP_LISTS) {
-    if (b.live == 0) return write_fill<KMAX>(p, b);
-  }
-  const int tid = threadIdx.x;
-  const int tq = tid / (RT / MR);  // query group: queries tq*MQ ..
-  const int tr = tid % (RT / MR);  // row group: rows tr*MR ..
-  // the group's m-tile holds an owned query
-  const bool live = Smem<KMAX>::WARP_LISTS || ((b.live >> (tq * MQ / 16)) & 1u);
-  const int d = p.d, chunk = p.chunk;
-  float* qs = reinterpret_cast<float*>(s.work);  // [KT][QS]
-  float* xs = qs + KT * QS;                      // [KT][XS]
-  float* dist = s.dist();
-  const float* qf = static_cast<const float*>(p.queries);
-  const float* xf = static_cast<const float*>(p.store);
-
-  for (int c = b.c_lo; c < b.c_hi; ++c) {
-    const int phys = p.chunk_of[c];
-    for (int r0 = 0; r0 < chunk; r0 += RT) {
-      const int nrows = min(RT, chunk - r0);
-      __syncthreads();  // previous tile's selection is done with r_slot/dist
-      load_row_meta(p, s, phys, r0, nrows);
-      __syncthreads();  // the loads below read every row's slot
-
-      float acc[MQ][MR];
-#pragma unroll
-      for (int i = 0; i < MQ; ++i)
-#pragma unroll
-        for (int j = 0; j < MR; ++j) acc[i][j] = 0.0f;
-
-      for (int k0 = 0; k0 < d; k0 += KT) {
-        // every load of the step is issued before the first store, so
-        // their latencies overlap instead of adding up
-        constexpr int LQ = QT * KT / THREADS, LX = RT * KT / THREADS;
-        const int kk = tid % KT, row0 = tid / KT;  // row = row0 + i*(THREADS/KT)
-        const bool in_d = k0 + kk < d;
-        float vq[LQ], vx[LX];
-#pragma unroll
-        for (int i = 0; i < LQ; ++i) {
-          const int qi = s.q_row[row0 + i * (THREADS / KT)];
-          vq[i] = (qi >= 0 && in_d) ? __ldg(&qf[(size_t)qi * d + k0 + kk]) : 0.0f;
-        }
-#pragma unroll
-        for (int i = 0; i < LX; ++i) {
-          const int src = s.r_src[row0 + i * (THREADS / KT)];
-          vx[i] = (src >= 0 && in_d) ? __ldg(&xf[(size_t)src * d + k0 + kk]) : 0.0f;
-        }
-        __syncthreads();  // the previous step's compute is done with qs/xs
-#pragma unroll
-        for (int i = 0; i < LQ; ++i) qs[kk * QS + row0 + i * (THREADS / KT)] = vq[i];
-#pragma unroll
-        for (int i = 0; i < LX; ++i) xs[kk * XS + row0 + i * (THREADS / KT)] = vx[i];
-        __syncthreads();
-        if (!live) continue;
-#pragma unroll 4
-        for (int kk = 0; kk < KT; ++kk) {
-          const float4 a0 = *reinterpret_cast<const float4*>(&qs[kk * QS + tq * MQ]);
-          const float4 a1 = *reinterpret_cast<const float4*>(&qs[kk * QS + tq * MQ + 4]);
-          const float4 b0 = *reinterpret_cast<const float4*>(&xs[kk * XS + tr * MR]);
-          const float4 b1 = *reinterpret_cast<const float4*>(&xs[kk * XS + tr * MR + 4]);
-          const float a[MQ] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-          const float bb[MR] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-          for (int i = 0; i < MQ; ++i)
-#pragma unroll
-            for (int j = 0; j < MR; ++j) acc[i][j] = __fmaf_rn(a[i], bb[j], acc[i][j]);
-        }
-      }
-
-      __syncthreads();  // operand tiles share memory with the distance tile
-#pragma unroll
-      for (int i = 0; i < MQ; ++i) {
-        if (!live) break;
-        const int q = tq * MQ + i;
-        const float worst = s.kth(p.k, q);
-        bool hit = false;
-#pragma unroll
-        for (int j = 0; j < MR; ++j) {
-          const int r = tr * MR + j;
-          const float v = distance<false>(acc[i][j], s.r_sc[r], 1.0f);
-          dist[r * DQ + q] = v;
-          hit |= v < worst;
-        }
-        if (hit) s.mark(q, tr * MR / 32);
-      }
-      __syncthreads();
-      select_tile(p, s, nrows, (c - b.c_lo) * chunk + r0);
-    }
-  }
-  write_out(p, s, b);
-}
-
-// ---------------------------------------------------------------------
-// every mode over an int8 or bf16 store, and bf16 over an f32 store:
-// mma.sync on the tensor cores, cp.async ring
+// the bodies: mma.sync on the tensor cores, cp.async ring
 // ---------------------------------------------------------------------
 __device__ __forceinline__ uint32_t smem_u32(const void* ptr) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
@@ -822,20 +749,91 @@ __device__ __forceinline__ void stage_via_registers(unsigned char* dst, const TS
   *reinterpret_cast<uint4*>(dst) = u.v;
 }
 
-// The tensor-core body of a mode over a store type.
-template <int MODE, typename TS>
+// The tensor-core body of a mode over a store type at a list width.
+template <int MODE, typename TS, int KMAX>
 struct MmaBody {
   static constexpr bool INT8 = MODE == MODE_INT8;
-  // f32 queries as three exact bf16 terms hi, mid, lo (int8 or bf16 store)
+  // f32 queries as three exact bf16 terms hi, mid, lo
   static constexpr bool SPLIT = MODE == MODE_F32;
+  // f32 over an f32 store: the store's values split too, six products
+  static constexpr bool SPLIT_X = SPLIT && std::is_same<TS, float>::value;
   static constexpr int NT = SPLIT ? 3 : 1;                                      // query terms
   static constexpr bool WIDEN = !INT8 && std::is_same<TS, int8_t>::value;      // int8 rows, bf16 queries
-  static constexpr bool CONVERT = std::is_same<TS, float>::value;              // f32 rows → bf16 stage
-  static constexpr int STAGES = ring_stages(NT);
-  static constexpr size_t WORK = work_bytes(ring_bytes(NT, WIDEN));
-  static_assert(!(SPLIT && CONVERT), "f32 rows are not exact in bf16: scan_f32_kernel takes them");
+  static constexpr bool CONVERT = !SPLIT && std::is_same<TS, float>::value;    // f32 rows → bf16 stage
+  static constexpr int STAGES = SPLIT_X ? SX_STAGES : ring_stages(NT);
+  static constexpr size_t WORK = work_bytes(SPLIT_X ? kSplitXRingBytes : ring_bytes(NT, WIDEN));
+  // blocks an SM: the six-term body takes one at every width, its
+  // registers (~250 a thread) unbounded; at two blocks (128) it spills
+  static constexpr int BLOCKS = SPLIT_X ? 1 : blocks_per_sm(KMAX);
   static_assert(!INT8 || std::is_same<TS, int8_t>::value, "int8 mode reads an int8 store");
 };
+
+// x == hi + mid + lo, each term the top 16 bits of an f32 (a bf16):
+// truncation by bit masks, both subtractions exact (exact for 2^-110 <=
+// |x| and 0; see the note at the top)
+__device__ __forceinline__ void split3(float x, uint32_t (&term)[3]) {
+  term[0] = __float_as_uint(x) & 0xffff0000u;
+  const float rest = __fsub_rn(x, __uint_as_float(term[0]));
+  term[1] = __float_as_uint(rest) & 0xffff0000u;
+  term[2] = __float_as_uint(__fsub_rn(rest, __uint_as_float(term[1])));
+}
+
+// The three terms' B fragments of one n-tile (m16n8k16: depths (2t, 2t+1)
+// and (2t+8, 2t+9) of store row g, the lower depth in the low half) from
+// the lane's four f32 values of those depths
+__device__ __forceinline__ void split_fragment(float4 v, uint32_t (&b)[3][4][2], int ni) {
+  uint32_t x[4][3];
+  split3(v.x, x[0]);
+  split3(v.y, x[1]);
+  split3(v.z, x[2]);
+  split3(v.w, x[3]);
+#pragma unroll
+  for (int term = 0; term < 3; ++term) {
+    b[term][ni][0] = __byte_perm(x[0][term], x[1][term], 0x7632);
+    b[term][ni][1] = __byte_perm(x[2][term], x[3][term], 0x7632);
+  }
+}
+
+__device__ __forceinline__ float4 lds128(uint32_t addr) {
+  float4 v;
+  asm volatile("ld.shared.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(addr));
+  return v;
+}
+
+// One 16-deep step of f32 over an f32 store, a warp's 64 × 32 tile: the
+// query terms hi, mid, lo at `a_addr` + term·2·KX against the store terms'
+// B fragments bf[term]; six products, smallest first, into a fresh sum,
+// then one rounded add into the running sum (as in mma_substep); only the
+// m-tiles set in `live`.
+template <int SA>
+__device__ __forceinline__ void mma_six(float (&acc)[4][4][4], const uint32_t (&bf)[3][4][2],
+                                        uint32_t a_addr, unsigned live) {
+  // (query term, store term): lo·hi, hi·lo, mid·mid, mid·hi, hi·mid, hi·hi
+  constexpr int QTERM[6] = {2, 0, 1, 1, 0, 0};
+  constexpr int XTERM[6] = {0, 2, 1, 0, 1, 0};
+#pragma unroll
+  for (int mi = 0; mi < 4; ++mi) {
+    if (!((live >> mi) & 1u)) continue;
+    uint32_t af[3][4];
+#pragma unroll
+    for (int term = 0; term < 3; ++term) ldmatrix_x4(af[term], a_addr + mi * 16 * SA + term * 2 * KX);
+    float t[4][4];
+#pragma unroll
+    for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) t[ni][e] = 0.0f;
+#pragma unroll
+    for (int prod = 0; prod < 6; ++prod)
+#pragma unroll
+      for (int ni = 0; ni < 4; ++ni) mma(t[ni], af[QTERM[prod]], bf[XTERM[prod]][ni]);
+#pragma unroll
+    for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mi][ni][e] = __fadd_rn(acc[mi][ni][e], t[ni][e]);
+  }
+}
 
 // The mma of one 16-deep (bf16) or 32-deep (int8) sub-step of a warp's
 // 64 × 32 tile: A at `a_addr` (+ term·KB for the terms of a split query),
@@ -876,22 +874,26 @@ __device__ __forceinline__ void mma_substep(Acc (&acc)[4][4][4], const uint32_t 
 }
 
 template <int MODE, typename TS, int KMAX>
-__global__ void __launch_bounds__(THREADS, blocks_per_sm(KMAX)) scan_mma_kernel(Params p) {
-  using B = MmaBody<MODE, TS>;
-  constexpr bool INT8 = B::INT8, WIDEN = B::WIDEN, CONVERT = B::CONVERT;
+__global__ void __launch_bounds__(THREADS, (MmaBody<MODE, TS, KMAX>::BLOCKS))
+    scan_mma_kernel(Params p) {
+  using B = MmaBody<MODE, TS, KMAX>;
+  constexpr bool INT8 = B::INT8, WIDEN = B::WIDEN, CONVERT = B::CONVERT, SPLIT_X = B::SPLIT_X;
   constexpr int NT = B::NT, STAGES = B::STAGES;
-  // the stage's store type: int8 (int8 mode, WIDEN), bf16 bits otherwise
-  using TD = std::conditional_t<INT8 || WIDEN, int8_t, uint16_t>;
+  // the stage's store type: f32 (SPLIT_X), int8 (int8 mode, WIDEN), bf16 bits otherwise
+  using TD = std::conditional_t<SPLIT_X, float, std::conditional_t<INT8 || WIDEN, int8_t, uint16_t>>;
   using Acc = std::conditional_t<INT8, int, float>;
-  constexpr int A_ELEM = INT8 ? 1 : 2;  // bytes per query value
-  constexpr int KE = KB / A_ELEM;       // depth values per stage
-  constexpr int KBB = b_stage_bytes(WIDEN);
-  constexpr int SA = a_stride(NT);
-  constexpr int SB = b_stride(WIDEN);
-  constexpr int STAGE = int(stage_bytes(NT, WIDEN));
-  constexpr int A_PIECES = NT * KB / 16;  // 16-byte pieces of a query row's stage
-  constexpr int B_PIECES = RT * KBB / 16 / THREADS;  // store-row pieces a thread copies a stage
+  constexpr int A_ELEM = INT8 ? 1 : 2;             // bytes per query value
+  constexpr int KE = SPLIT_X ? KX : KB / A_ELEM;   // depth values per stage
+  constexpr int KBB = SPLIT_X ? SX_B : b_stage_bytes(WIDEN);
+  constexpr int SA = SPLIT_X ? SX_A : a_stride(NT);
+  constexpr int SB = SPLIT_X ? SX_B : b_stride(WIDEN);
+  constexpr int STAGE = QT * SA + RT * SB;
+  constexpr int A_PIECES = NT * KE * A_ELEM / 16;  // 16-byte pieces of a query row's stage
+  // store-row pieces of a stage: 16 bytes, or value pairs (SPLIT_X)
+  constexpr int B_ROW_PIECES = SPLIT_X ? KX / 2 : KBB / 16;
+  constexpr int B_PIECES = RT * B_ROW_PIECES / THREADS;  // store-row pieces a thread copies a stage
   static_assert(KBB == KE * int(sizeof(TD)), "a stage holds the same depths of both operands");
+  static_assert(SPLIT_X || STAGE == int(stage_bytes(NT, WIDEN)), "the ring's size");
 
   extern __shared__ __align__(16) unsigned char smem[];
   const Smem<KMAX> s(smem);
@@ -920,51 +922,88 @@ __global__ void __launch_bounds__(THREADS, blocks_per_sm(KMAX)) scan_mma_kernel(
   // after load_row_meta and a packed store's wait on no load.
   int src[B_PIECES];
 
-  // One stage: the NT·KB bytes of each query row and the KBB bytes of
-  // each store row of depth step `step`, all copies issued by all threads.
+  // One stage: the NT·KE depths of each query row and the KE of each
+  // store row of depth step `step`, all copies issued by all threads.
   auto load_stage = [&](int step, int buf) {
     unsigned char* a = s.work + buf * STAGE;
     unsigned char* x = a + QT * SA;
     const int e0 = step * KE;
-    static_assert((QT * A_PIECES) % THREADS == 0 && (RT * KBB / 16) % THREADS == 0, "whole rounds");
+    static_assert((QT * A_PIECES) % THREADS == 0 && (RT * B_ROW_PIECES) % THREADS == 0,
+                  "whole rounds");
 #pragma unroll
     for (int j = 0; j < QT * A_PIECES / THREADS; ++j) {
       const int i = tid + j * THREADS;
       const int row = i / A_PIECES, c16 = i % A_PIECES;
       if (!Smem<KMAX>::WARP_LISTS && !((b.live >> (row / 16)) & 1u)) continue;
       const int qi = s.q_row[row];
-      // = step·NT·KB, in the form that compiles shortest at NT 1
-      const size_t off = size_t(e0) * A_ELEM * NT + c16 * 16;
+      size_t off;
+      if constexpr (SPLIT_X) {
+        // half `step & 1` of each term's 32-value slice: piece c16 is half
+        // c16 & 1 of those 16 depths of term c16 >> 1
+        off = size_t(step >> 1) * (NT * KB) + (c16 >> 1) * KB + (step & 1) * 2 * KX + (c16 & 1) * 16;
+      } else {
+        // = step·NT·KB, in the form that compiles shortest at NT 1
+        off = size_t(e0) * A_ELEM * NT + c16 * 16;
+      }
       const bool ok = qi >= 0 && off < q_row_bytes;
       cp_async16(a + row * SA + c16 * 16, qbytes + (ok ? size_t(qi) * q_row_bytes + off : 0), ok);
     }
+    if constexpr (SPLIT_X) {
+      // value pairs (2pr, 2pr+1): pair pr < 4 to bytes 16pr, pr >= 4 to
+      // 16(pr - 4) + 8, so lane t of a quad finds the values 2t, 2t+1,
+      // 2t+8, 2t+9 of its B fragment in bytes 16t .. 16t+15 of the row
 #pragma unroll
-    for (int j = 0; j < B_PIECES; ++j) {
-      const int i = tid + j * THREADS;
-      const int r = i / (KBB / 16), c16 = i % (KBB / 16);
-      const bool live = src[j] >= 0;
-      const size_t slot = live ? size_t(src[j]) : 0;  // the store row read
-      unsigned char* dst = x + r * SB + c16 * 16;
-      const int e = e0 + c16 * (16 / int(sizeof(TD)));  // first value of this 16-byte piece
-      if (CONVERT || p.copy_bytes == 0) {
-        stage_via_registers<TS, TD>(dst, static_cast<const TS*>(p.store) + slot * d, live, e, d);
-      } else if (p.copy_bytes == 16) {
-        const size_t off = size_t(e) * sizeof(TS);
-        const bool ok = live && off < x_row_bytes;
-        cp_async16(dst, xbytes + (ok ? slot * x_row_bytes + off : 0), ok);
-      } else if (p.copy_bytes == 8) {
+      for (int j = 0; j < B_PIECES; ++j) {
+        const int i = tid + j * THREADS;
+        const int r = i / B_ROW_PIECES, pr = i % B_ROW_PIECES;
+        const bool live = src[j] >= 0;
+        const size_t slot = live ? size_t(src[j]) : 0;  // the store row read
+        float* dst = reinterpret_cast<float*>(x + r * SB + (pr < 4 ? 16 * pr : 16 * pr - 56));
+        const int e = e0 + 2 * pr;  // the pair's first value
+        const float* row = static_cast<const float*>(p.store) + slot * d;
+        if (p.copy_bytes >= 8) {  // d even: the pair lies in the row or past it
+          const bool ok = live && e < d;
+          cp_async_small<8>(dst, ok ? row + e : p.store, ok);
+        } else if (p.copy_bytes == 4) {
 #pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const size_t off = size_t(e) * sizeof(TS) + 8 * h;
-          const bool ok = live && off < x_row_bytes;
-          cp_async_small<8>(dst + 8 * h, xbytes + (ok ? slot * x_row_bytes + off : 0), ok);
+          for (int h = 0; h < 2; ++h) {
+            const bool ok = live && e + h < d;
+            cp_async_small<4>(dst + h, ok ? row + e + h : p.store, ok);
+          }
+        } else {
+          *reinterpret_cast<float2*>(dst) = make_float2(live && e < d ? row[e] : 0.0f,
+                                                        live && e + 1 < d ? row[e + 1] : 0.0f);
         }
-      } else {
+      }
+    } else {
 #pragma unroll
-        for (int h = 0; h < 4; ++h) {
-          const size_t off = size_t(e) * sizeof(TS) + 4 * h;
+      for (int j = 0; j < B_PIECES; ++j) {
+        const int i = tid + j * THREADS;
+        const int r = i / (KBB / 16), c16 = i % (KBB / 16);
+        const bool live = src[j] >= 0;
+        const size_t slot = live ? size_t(src[j]) : 0;  // the store row read
+        unsigned char* dst = x + r * SB + c16 * 16;
+        const int e = e0 + c16 * (16 / int(sizeof(TD)));  // first value of this 16-byte piece
+        if (CONVERT || p.copy_bytes == 0) {
+          stage_via_registers<TS, TD>(dst, static_cast<const TS*>(p.store) + slot * d, live, e, d);
+        } else if (p.copy_bytes == 16) {
+          const size_t off = size_t(e) * sizeof(TS);
           const bool ok = live && off < x_row_bytes;
-          cp_async_small<4>(dst + 4 * h, xbytes + (ok ? slot * x_row_bytes + off : 0), ok);
+          cp_async16(dst, xbytes + (ok ? slot * x_row_bytes + off : 0), ok);
+        } else if (p.copy_bytes == 8) {
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const size_t off = size_t(e) * sizeof(TS) + 8 * h;
+            const bool ok = live && off < x_row_bytes;
+            cp_async_small<8>(dst + 8 * h, xbytes + (ok ? slot * x_row_bytes + off : 0), ok);
+          }
+        } else {
+#pragma unroll
+          for (int h = 0; h < 4; ++h) {
+            const size_t off = size_t(e) * sizeof(TS) + 4 * h;
+            const bool ok = live && off < x_row_bytes;
+            cp_async_small<4>(dst + 4 * h, xbytes + (ok ? slot * x_row_bytes + off : 0), ok);
+          }
         }
       }
     }
@@ -988,7 +1027,7 @@ __global__ void __launch_bounds__(THREADS, blocks_per_sm(KMAX)) scan_mma_kernel(
       load_row_meta(p, s, phys, r0, nrows);
 #pragma unroll
       for (int j = 0; j < B_PIECES; ++j) {
-        const int r = (tid + j * THREADS) / (KBB / 16);
+        const int r = (tid + j * THREADS) / B_ROW_PIECES;
         const int slot = phys * chunk + r0 + r;
         src[j] = r >= nrows ? -1 : p.row_ids != nullptr ? p.row_ids[slot] - 1 : slot;
       }
@@ -1017,7 +1056,15 @@ __global__ void __launch_bounds__(THREADS, blocks_per_sm(KMAX)) scan_mma_kernel(
         const uint32_t a_base = smem_u32(a) + (wq * 64 + a_row) * SA + a_col;
         const uint32_t b_base = smem_u32(a + QT * SA) + (wr * 32 + b_row) * SB + b_col;
         if (wlive == 0) continue;
-        if constexpr (WIDEN) {
+        if constexpr (SPLIT_X) {
+          // lane (g, t) of each n-tile: store row g's values 2t, 2t+1,
+          // 2t+8, 2t+9 in one 16-byte load, split into the three terms
+          const uint32_t x_lane = smem_u32(a + QT * SA) + (wr * 32 + g) * SB + t * 16;
+          uint32_t bf[3][4][2];
+#pragma unroll
+          for (int ni = 0; ni < 4; ++ni) split_fragment(lds128(x_lane + ni * 8 * SB), bf, ni);
+          mma_six<SA>(acc, bf, a_base, wlive);
+        } else if constexpr (WIDEN) {
           // per 32 int8 depths of 4 n-tiles: raw[ni][sub] holds 4 values,
           // which widen to the bf16 B fragment of 16-deep sub-step `sub`
 #pragma unroll
@@ -1105,18 +1152,10 @@ __global__ void __launch_bounds__(THREADS, blocks_per_sm(KMAX)) scan_mma_kernel(
 
 template <int MODE, typename TS, int KMAX>
 cudaError_t launch_width(const Params& p, int n_pairs, cudaStream_t stream) {
-  void (*kernel)(Params);
-  size_t work;
-  if constexpr (MODE == MODE_F32 && std::is_same<TS, float>::value) {
-    kernel = scan_f32_kernel<KMAX>;
-    work = kDistBytes;
-  } else {
-    kernel = scan_mma_kernel<MODE, TS, KMAX>;
-    work = MmaBody<MODE, TS>::WORK;
-  }
+  void (*kernel)(Params) = scan_mma_kernel<MODE, TS, KMAX>;
   constexpr int QB = queries_per_block(KMAX);
   const int splits = QB == QT ? 1 : (p.qtile + QB - 1) / QB;
-  const size_t smem = smem_bytes(KMAX, work);
+  const size_t smem = smem_bytes(KMAX, MmaBody<MODE, TS, KMAX>::WORK);
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -1147,14 +1186,13 @@ extern "C" {
 // store_type: 0 f32, 1 bf16, 2 int8.  row_ids (a virtual store: `store`
 // is then the corpus and `scales` its row scales or null) and floor_d /
 // floor_p (per (pair, query slot) floors) may each be null.  Queries,
-// (n, nt·qd):
-//  * f32 over an f32 store: f32 rows, nt 1, qd == d;
-//  * f32 over a bf16 or int8 store: bf16, nt 3, qd a multiple of 32 >= d:
-//    per 32-value depth slice the terms hi, mid, lo side by side
+// (n, nt·qd), zero-padded past d and 16-byte aligned:
+//  * f32 mode over any store: bf16, nt 3, qd a multiple of 32 >= d: per
+//    32-value depth slice the terms hi, mid, lo side by side
 //    (ops/scan_kernel.py::operand_queries);
-//  * bf16 mode: bf16, int8 mode: int8, nt 1, qd a multiple of 16 >= d;
-// zero-padded past d, 16-byte aligned except for f32 rows.  All pointers
-// are device pointers; nothing is allocated and nothing synchronizes.
+//  * bf16 mode: bf16, int8 mode: int8, nt 1, qd a multiple of 16 >= d.
+// All pointers are device pointers; nothing is allocated and nothing
+// synchronizes.
 int lmi_scan_pairs(const void* queries, const void* qscales, const void* qidx,
                    const void* pair_bucket, const void* pair_order, const void* ptr,
                    const void* chunk_of,
@@ -1168,10 +1206,8 @@ int lmi_scan_pairs(const void* queries, const void* qscales, const void* qidx,
   if (mode == MODE_INT8 && store_type != STORE_INT8) return cudaErrorInvalidValue;
   if ((floor_d == nullptr) != (floor_p == nullptr) || (row_ids == nullptr && scales == nullptr))
     return cudaErrorInvalidValue;
-  const bool fma = mode == MODE_F32 && store_type == STORE_F32;
   const int q_group = mode == MODE_F32 ? 32 : 16;
-  if (fma ? qd != d
-          : (qd < d || qd % q_group != 0 || reinterpret_cast<uintptr_t>(queries) % 16 != 0))
+  if (qd < d || qd % q_group != 0 || reinterpret_cast<uintptr_t>(queries) % 16 != 0)
     return cudaErrorInvalidValue;
   const size_t elem = store_type == STORE_F32 ? 4 : store_type == STORE_BF16 ? 2 : 1;
   const size_t row_bytes = size_t(d) * elem;

@@ -14,9 +14,10 @@ of a pair whose bucket has no chunks.
   ``sm_90a`` at first use into ``build/torch_kernels/``) or raise.  A
   ``k`` wider than the kernel's widest list (:data:`MAX_K`) runs as
   rounds of at most ``MAX_K`` (:func:`scan_in_rounds`).
-* :func:`operand_queries` — the query rows the kernel's tensor-core
-  bodies read; :func:`split_f32` — the exact three-term bf16 split of
-  f32 queries behind them in mode ``"f32"``.
+* :func:`operand_queries` — the query rows the kernel reads;
+  :func:`split_f32` — the exact three-term bf16 split of f32 queries
+  behind them in mode ``"f32"``; :func:`split_f32_truncated` — the
+  kernel's split of f32 store values (its plain model, for the tests).
 * ``LAUNCHES`` — how many times the wrapper launched the kernel.
 
 Stores: a packed store is ``(n_slots, d)`` rows with ``(n_slots,)``
@@ -26,9 +27,11 @@ padding), the store argument the unmoved ``(n, d)`` corpus, and
 ``scales`` the corpus's ``(n,)`` row scales (an int8 corpus) or ``None``
 (scale 1).  Results are slots either way.
 
-Modes: ``"f32"`` (full f32 queries: over an int8 or bf16 store, whose
-values are exact in bf16, three bf16 tensor-core passes of exact
-products; over an f32 store, IEEE FMA on the CUDA cores), ``"bf16"``
+Modes: ``"f32"`` (full f32 queries as three bf16 terms on the tensor
+cores: over an int8 or bf16 store, whose values are exact in bf16, three
+passes of exact products; over an f32 store, whose values the kernel
+splits into three bf16 terms too, the six products that reach f32
+precision), ``"bf16"``
 (both operands rounded to bf16, products summed in f32 on the tensor
 cores) and ``"int8"`` (int8 queries with per-query ``qscales`` against an
 int8 store, exact integer sums on the tensor cores).
@@ -208,16 +211,35 @@ def split_f32(queries: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.
     return hi, mid, lo
 
 
+def split_f32_truncated(values: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``(hi, mid, lo)`` bf16 with ``hi + mid + lo == values`` exactly: the
+    kernel's split of f32 store values, by truncation (``hi`` the top 16
+    bits of each value, ``mid`` those of what is left, ``lo`` the rest;
+    both subtractions exact in f32).  Exact for ``2**-110 <= |x|`` and
+    for 0, up to the largest f32 (no term rounds up to infinity); below
+    ``2**-110`` the part under bf16's smallest subnormal, less than
+    ``2**-133``, is lost."""
+
+    def top16(x):
+        return (x.view(torch.int32) & -65536).view(torch.float32)
+
+    x = values.float()
+    hi = top16(x)
+    rest = x - hi
+    mid = top16(rest)
+    lo = top16(rest - mid)
+    return hi.bfloat16(), mid.bfloat16(), lo.bfloat16()
+
+
 def operand_queries(queries: torch.Tensor, mode: str, store_dtype: torch.dtype) -> torch.Tensor:
-    """The query rows the kernel's tensor-core bodies read, 16-byte
-    aligned: in mode ``"bf16"`` the queries rounded to bf16 (nearest
-    even, once per call) and in mode ``"int8"`` the int8 rows, each
-    zero-padded to a multiple of 16 values; in mode ``"f32"`` (over an
-    int8 or bf16 store) the three terms of :func:`split_f32`, each
-    zero-padded to a multiple of 32 values and laid out per 32-value
-    depth slice as ``hi, mid, lo`` side by side, ``(n, 3·qd)``.  Where
-    bf16 terms meet an int8 store, each group of 16 values is in
-    :data:`WIDEN_ORDER`."""
+    """The query rows the kernel reads, 16-byte aligned: in mode
+    ``"bf16"`` the queries rounded to bf16 (nearest even, once per call)
+    and in mode ``"int8"`` the int8 rows, each zero-padded to a multiple
+    of 16 values; in mode ``"f32"`` (over any store) the three terms of
+    :func:`split_f32`, each zero-padded to a multiple of 32 values and
+    laid out per 32-value depth slice as ``hi, mid, lo`` side by side,
+    ``(n, 3·qd)``.  Where bf16 terms meet an int8 store, each group of 16
+    values is in :data:`WIDEN_ORDER`."""
     if mode == "f32":
         terms, group = split_f32(queries), 32
     else:
@@ -343,10 +365,8 @@ def _kernel_round(queries, ptr, chunk_of, store, scales, qscales, row_ids, *, qt
     one kernel launch over the given pairs, ``k <= MAX_K``, the queries
     laid out once for the body that reads them."""
     lib = cuda_build.load(SOURCE, _bind)
-    terms = 1
-    if mode != "f32" or store.dtype != torch.float32:  # every body but the FMA one
-        queries = operand_queries(queries, mode, store.dtype)
-        terms = 3 if mode == "f32" else 1
+    queries = operand_queries(queries, mode, store.dtype)
+    terms = 3 if mode == "f32" else 1
 
     def scan_round(q_idx, p_bucket, w, floor):
         return _launch(lib, queries, qscales, q_idx, p_bucket, ptr, chunk_of, store, scales,

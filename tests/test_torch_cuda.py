@@ -38,13 +38,14 @@ def _corpus(n, d, seed):
 
 
 def _tensor_core_cases():
-    """Every tensor-core body: bf16 over every store type, int8, and f32
-    over bf16 and int8 stores (three bf16 terms a query value), at k
+    """Every body: bf16 over every store type, int8, f32 over bf16 and
+    int8 stores (three bf16 terms a query value) and over an f32 store
+    (six products of three terms on each side), at k
     16/36/64/100/256/300/600 (list widths 32 to 1024) with qtile
     1/8/100/128 in turn, at d 768, 96 and 100 (rows not 16-byte aligned and a depth
     tail)."""
     combos = [("bf16", "float32"), ("bf16", "bfloat16"), ("bf16", "int8"), ("int8", "int8"),
-              ("f32", "bfloat16"), ("f32", "int8")]
+              ("f32", "bfloat16"), ("f32", "int8"), ("f32", "float32")]
     qtiles = (1, 8, 100, 128)
     return [(mode, store, k, qtiles[(ki + ci) % 4], d)
             for d in (768, 96, 100)
@@ -67,6 +68,9 @@ def _tensor_core_cases():
     # int8 rows of 30 and 102 bytes: no 4-byte granule, staged through registers
     + [("int8", "int8", 16, 128, 30), ("int8", "int8", 36, 8, 30), ("int8", "int8", 16, 100, 102),
        ("int8", "int8", 100, 128, 102), ("bf16", "int8", 16, 128, 30), ("f32", "int8", 16, 8, 102)]
+    # f32 rows of 28 and 24 bytes: copied 4 and 8 bytes at a time
+    + [("f32", "float32", 16, 128, 7), ("f32", "float32", 100, 8, 7),
+       ("f32", "float32", 36, 100, 6), ("f32", "float32", 300, 1, 6)]
     + _tensor_core_cases(),
 )
 def test_kernel_matches_plain_version(cuda, mode, store_dtype, k, qtile, d):
@@ -157,6 +161,85 @@ def test_f32_body_reads_all_three_query_terms(cuda, store_dtype, d, k, qtile):
     bar = 2.0**-20 * (1.0 + (1.0 - rd[fin]).abs())
     assert ((kd[fin] - rd[fin]).abs() <= bar).all()
     assert ((td[fin] - rd[fin]).abs() > bar).any()
+
+
+def _split_edge_rows(kind, n, rng):
+    """f32 store values where the kernel's split of the store must be exact:
+    bf16 binade edges (2^e, its neighbours, 1.5·2^e, the top of the binade)
+    with random mantissas between them, or large magnitudes up to the
+    largest f32 (where rounding to bf16 overflows), with the query scale
+    that keeps the products finite."""
+    if kind == "binade_edges":
+        e = rng.integers(-40, 40, n).astype(np.float64)
+        m = rng.choice([1.0, 1.0 + 2.0**-23, 2.0 - 2.0**-23, 1.5, 2.0 - 2.0**-7,
+                        1.0 + 2.0**-8 + 2.0**-16], n)
+        m = np.where(rng.random(n) < 0.5, m, rng.integers(2**23, 2**24, n) / 2.0**23)
+        return (m * 2.0**e).astype(np.float32), 1.0
+    e = rng.integers(90, 127, n).astype(np.float64)
+    v = (rng.integers(2**23, 2**24, n) / 2.0**23 * 2.0**e).astype(np.float32)
+    v[:8] = np.array([0x7F7FFFFF, 0x7F7F8000, 0x7F7F7FFF, 0x7F7F0000] * 2, np.uint32).view(np.float32)
+    return v, 2.0**-90
+
+
+@pytest.mark.parametrize("kind", ["binade_edges", "large"])
+@pytest.mark.parametrize("d,k,qtile", [(768, 16, 128), (100, 100, 8), (7, 300, 1)])
+def test_f32_store_split_is_exact(cuda, kind, d, k, qtile):
+    """f32 queries over an f32 store whose rows each hold one value at a
+    bf16 binade edge or of a large magnitude (up to the largest f32):
+    every distance is one product, which the plain version rounds once.
+    The kernel stays within 2^-20 of 1 + |dot| of it at every rank; the
+    store rows without their lo term (the plain version over hi + mid)
+    miss that bar somewhere, so the kernel reads all three store terms."""
+    rng = np.random.default_rng(d + k + len(kind))
+    n, nb, chunk = 3000, 5, 96
+    vals, q_scale = _split_edge_rows(kind, n, rng)
+    vals *= rng.choice([-1.0, 1.0], n).astype(np.float32)
+    x = torch.zeros((n, d), dtype=torch.float32, device=cuda)
+    x[torch.arange(n), torch.as_tensor(rng.integers(0, d, n))] = torch.as_tensor(vals, device=cuda)
+    store = BucketStore.build_packed_device(x, rng.integers(0, nb, n), nb, chunk=chunk)
+    z = rng.normal(size=(150, d))
+    z = np.sign(z) * np.maximum(np.abs(z), 2.0**-10)  # |q| >= 2^-100: split_f32 exact
+    queries = torch.as_tensor((z * q_scale).astype(np.float32), device=cuda)
+    order = torch.as_tensor(np.stack([rng.choice(nb, 3, replace=False) for _ in range(150)]),
+                            device=cuda)
+    _, args = scan_inputs(store, queries, order, qtile, "f32")
+    kw = dict(k=k, qtile=qtile, chunk=chunk, mode="f32")
+    kd, _ = scan_kernel.scan_pairs(*args, **kw)
+    rd, _ = scan_kernel.scan_pairs_reference(*args, **kw)
+    hi, mid, _ = scan_kernel.split_f32_truncated(args[5])
+    two = (*args[:5], hi.float() + mid.float(), *args[6:])
+    td, _ = scan_kernel.scan_pairs_reference(*two, **kw)
+    fin = torch.isfinite(rd)
+    assert torch.equal(fin, torch.isfinite(kd)) and fin.any()
+    bar = 2.0**-20 * (1.0 + (1.0 - rd[fin]).abs())
+    assert ((kd[fin] - rd[fin]).abs() <= bar).all()
+    assert ((td[fin] - rd[fin]).abs() > bar).any()
+
+
+def test_f32_store_kernel_is_no_less_exact_than_plain(cuda):
+    """Over an f32 store of unit rows at d 768, the kernel's distances of
+    the candidates it returns are no farther from float64 than the plain
+    version's (cuBLAS SGEMM in full f32) of its own candidates."""
+    data, rng = _corpus(6000, 768, seed=5)
+    store = BucketStore.build(data, rng.integers(0, 4, 6000), 4, chunk=256, device=cuda)
+    queries = torch.as_tensor(data[:400] + 0.05 * rng.normal(size=(400, 768)).astype(np.float32),
+                              device=cuda)
+    order = torch.as_tensor(np.stack([rng.choice(4, 2, replace=False) for _ in range(400)]),
+                            device=cuda)
+    _, args = scan_inputs(store, queries, order, 128, "f32")
+    kw = dict(k=32, qtile=128, chunk=256, mode="f32")
+    rows = args[1].reshape(-1, 128).long()
+
+    def error(dists, slots):
+        ok = (slots >= 0) & (rows >= 0)[:, :, None]
+        q = args[0][rows.clamp_min(0)].double()
+        x = args[5][slots.long().clamp_min(0)].double()
+        exact = 1.0 - torch.einsum("pqd,pqkd->pqk", q, x)
+        return float((dists.double() - exact).abs()[ok].max())
+
+    k_err = error(*scan_kernel.scan_pairs(*args, **kw))
+    p_err = error(*scan_kernel.scan_pairs_reference(*args, **kw))
+    assert 0.0 < k_err <= p_err, (k_err, p_err)
 
 
 def test_kernel_rejects_what_it_does_not_take(cuda):
@@ -639,12 +722,14 @@ def _wide_case(dev, store_kind, seed):
     """9000×768 rows in 3 buckets of ~3,000 (wider than two rounds),
     chunk 256: an int8 or f32 store after 600 inserts and 300 deletes with
     its chunks moved out of physical order, or a virtual store over a bf16
-    corpus with its chunk lists shuffled.  Returns (store, 100 queries,
+    (``virtual``) or f32 (``virtual_f32``) corpus with its chunk lists
+    shuffled.  Returns (store, 100 queries,
     their (100, 2) visits)."""
     data, rng = _corpus(9000, 768, seed=seed)
     bucket_ids = rng.integers(0, 3, 9000)
-    if store_kind == "virtual":
-        store = BucketStore.build_virtual(torch.as_tensor(data, device=dev).bfloat16(),
+    if store_kind.startswith("virtual"):
+        corpus = torch.as_tensor(data, device=dev)
+        store = BucketStore.build_virtual(corpus if store_kind == "virtual_f32" else corpus.bfloat16(),
                                           bucket_ids, 3, chunk=256)
         perm = rng.permutation(store.n_chunks)
         ptr, clist = store.chunk_list()
@@ -668,8 +753,9 @@ def _wide_case(dev, store_kind, seed):
 
 
 @pytest.mark.parametrize("store_kind,mode", [("int8", "int8"), ("int8", "bf16"),
-                                             ("float32", "f32"), ("virtual", "bf16")])
-@pytest.mark.parametrize("k", [1030, 2100])
+                                             ("float32", "f32"), ("virtual", "bf16"),
+                                             ("virtual_f32", "f32")])
+@pytest.mark.parametrize("k", [1030, 1100, 2100])
 def test_rounds_match_plain_version(cuda, store_kind, mode, k):
     """k past the widest list runs in rounds of at most 1024, one launch a
     round, and equals the plain version's one list, over a mutated store

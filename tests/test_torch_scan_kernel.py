@@ -260,15 +260,16 @@ def test_wrapper_runs_plain_version_on_cpu_and_validates():
     [("bf16", torch.int8, 768), ("bf16", torch.int8, 100), ("bf16", torch.bfloat16, 100),
      ("bf16", torch.float32, 7), ("int8", torch.int8, 96), ("int8", torch.int8, 100),
      ("f32", torch.int8, 768), ("f32", torch.int8, 100), ("f32", torch.bfloat16, 96),
-     ("f32", torch.bfloat16, 100)],
+     ("f32", torch.bfloat16, 100), ("f32", torch.float32, 768), ("f32", torch.float32, 100),
+     ("f32", torch.float32, 7)],
 )
 def test_operand_queries_layout(mode, store_dtype, d):
     """The query rows of the tensor-core bodies, 16-byte aligned: bf16
     rounded to nearest even (or the int8 rows) zero-padded to whole
-    16-value groups; in mode f32 the three terms of split_f32, each
-    zero-padded to whole 32-value slices, hi, mid and lo of each slice
-    side by side.  Over an int8 store every bf16 group of 16 is in
-    WIDEN_ORDER, over a bf16 store it is not."""
+    16-value groups; in mode f32 (over every store type) the three terms
+    of split_f32, each zero-padded to whole 32-value slices, hi, mid and
+    lo of each slice side by side.  Over an int8 store every bf16 group
+    of 16 is in WIDEN_ORDER, over a bf16 or f32 store it is not."""
     q = torch.as_tensor(np.random.default_rng(d).normal(size=(5, d)).astype(np.float32))
     if mode == "int8":
         q, _ = quantize_rows(q)
@@ -330,6 +331,103 @@ def test_split_f32_is_exact(kind):
     assert torch.equal(hi, q.to(torch.bfloat16))
     assert torch.equal(mid, (q - hi.float()).to(torch.bfloat16))
     assert torch.isfinite(hi).all()
+
+
+@pytest.mark.parametrize("kind", ["unit768", "unit96", "unit100", "binade_edges", "tiny", "large"])
+def test_split_f32_truncated_is_exact(kind):
+    """The kernel's split of f32 store values: hi + mid + lo reproduces
+    every tested f32 exactly (float64 sums), each term the top 16 bits of
+    what the terms before it left (so no term is infinite, also at the
+    largest f32, where rounding to nearest overflows); below 2^-110 the
+    part under bf16's smallest subnormal is lost, less than 2^-133."""
+    v = np.concatenate([_split_values(kind), np.array([0x7F7FFFFF], np.uint32).view(np.float32)])
+    q = torch.as_tensor(v)
+    hi, mid, lo = scan_kernel.split_f32_truncated(q)
+    assert hi.dtype == mid.dtype == lo.dtype == torch.bfloat16
+    total = hi.double() + mid.double() + lo.double()
+    exact = q.abs() >= 2.0**-110
+    assert torch.equal(total[exact | (q == 0)], q.double()[exact | (q == 0)])
+    assert ((total - q.double()).abs()[~exact] < 2.0**-133).all()
+    bits = q.view(torch.int32)
+    assert torch.equal(hi.float().view(torch.int32), bits & -65536)
+    rest = q - hi.float()
+    assert torch.equal(mid.float().view(torch.int32), rest.view(torch.int32) & -65536)
+    assert torch.isfinite(hi).all() and torch.isfinite(mid).all() and torch.isfinite(lo).all()
+    # |mid| < 2^-7 |x| and |lo| < 2^-14 |x|: the dropped products' bound
+    nz = q != 0
+    assert (mid.double().abs() < 2.0**-7 * q.double().abs())[nz].all()
+    assert (lo.double().abs() < 2.0**-14 * q.double().abs())[nz & exact].all()
+
+
+#: the six products of f32 over an f32 store, (query term, store term) with
+#: 0 = hi, 1 = mid, 2 = lo, in the kernel's order (smallest first)
+SIX_PRODUCTS = ((2, 0), (0, 2), (1, 1), (1, 0), (0, 1), (0, 0))
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_six_term_product_matches_plain_f32(case):
+    """The six-term product of f32 over an f32 store, read from the operand
+    rows the kernel takes (split_f32's three terms of each 32-value
+    slice) and the store rows split as the kernel splits them
+    (split_f32_truncated): each product exact, the six summed in float64,
+    the distance folded in f32.  It equals the plain f32 version's
+    distances within 1e-6 over every (query, slot) and at every candidate
+    the plain version returns, and each real query's top-k over its
+    pair's bucket equals the JAX package's f32 (HIGHEST) Pallas scan of
+    the same seeded inputs (interpret mode) at the f32 parity bar, slots
+    differing only at ties.  This checks the split and the choice of
+    products, not the kernel's rounding (tests/test_torch_cuda.py holds
+    the kernel itself to the plain version)."""
+    store, queries, order, qtile, k, chunk = _setup(case, "f32")
+    jplan, sf, written, jd, js = _jax_pairs(store, queries, order, qtile, k, chunk, "f32")
+    plan, args = _torch_inputs(store, sf, queries, order, qtile, "f32")
+    q, x, sc = args[0], args[5], args[6]
+    assert x.dtype == torch.float32
+    op = scan_kernel.operand_queries(q, "f32", x.dtype)
+    n, d = q.shape
+    qd = op.shape[1] // 3
+    assert qd % 32 == 0 and qd >= d
+    qt = op.reshape(n, qd // 32, 3, 32).permute(2, 0, 1, 3).reshape(3, n, qd).double()
+    xt = torch.zeros((3, x.shape[0], qd), dtype=torch.float64)
+    for i, term in enumerate(scan_kernel.split_f32_truncated(x)):
+        xt[i, :, :d] = term.double()
+    raw = sum(qt[a] @ xt[b].T for a, b in SIX_PRODUCTS).float()
+    emul = raw * (-sc) + torch.where(sc == 0.0, torch.inf, 1.0)
+    plain = (q @ x.T) * (-sc) + torch.where(sc == 0.0, torch.inf, 1.0)
+    fin = torch.isfinite(plain)
+    assert torch.equal(fin, torch.isfinite(emul))
+    assert (emul[fin] - plain[fin]).abs().max() <= 1e-6
+    kw = dict(k=k, qtile=qtile, chunk=chunk, mode="f32")
+    rd, rs = scan_kernel.scan_pairs_reference(*args, **kw)
+    rows = args[1].reshape(-1, qtile)
+    hit = rs >= 0
+    got = emul[rows[:, :, None].expand_as(rs).long().clamp_min(0), rs.long().clamp_min(0)]
+    assert hit.sum() > 0
+    assert (got[hit] - rd[hit]).abs().max() <= 1e-6
+    # the six-term lists against the JAX package's f32 scan
+    ptr = store.bucket_chunk_start
+    real = (jplan.qidx >= 0).reshape(-1, qtile)
+    pb = plan.pair_bucket.numpy()
+    checked = 0
+    for p in range(plan.n_pairs):
+        b = int(pb[p])
+        slots = torch.arange(int(ptr[b]) * chunk, int(ptr[b + 1]) * chunk)
+        for j in np.nonzero(real[p])[0]:
+            if not written[p]:
+                assert np.isinf(rd[p, j].numpy()).all()
+                continue
+            vals, pos = smallest_k(emul[int(rows[p, j]), slots][None, :], min(k, len(slots)))
+            ed = np.full(k, np.inf, np.float32)
+            es = np.full(k, -1, np.int32)
+            ed[: vals.shape[1]] = vals[0].numpy()
+            es[: vals.shape[1]] = np.where(np.isinf(ed[: vals.shape[1]]), -1, slots[pos[0]].numpy())
+            o = np.lexsort((js[p, j], jd[p, j]))
+            np.testing.assert_allclose(ed, jd[p, j][o], rtol=1e-4, atol=1e-5)
+            mism = es != js[p, j][o]
+            if mism.any():
+                np.testing.assert_allclose(ed[mism], jd[p, j][o][mism], rtol=1e-6, atol=1e-7)
+            checked += 1
+    assert checked > 0
 
 
 @pytest.mark.parametrize("store_kind", ["int8", "bf16"])

@@ -7,11 +7,11 @@ Builds ``learnedmetricindex_tpu_torch/csrc/scan_pairs.cu`` of this tree
 and of ``OTHER_CHECKOUT`` (for example a ``git archive`` of the parent
 commit) with the port's nvcc flags into ``build/scan_ab/``; compares the
 SASS of the list-width-32 instances (bf16, int8 and f32 over an int8
-store, and the FMA body; addresses and register names left as they are,
-branch targets masked) and writes each diff to ``build/scan_ab/``; then
-times both libraries in one process on the same inputs, alternating
-which goes first, and checks that both give the same bits (distances and
-slots) at every ``k``:
+store; addresses and register names left as they are, branch targets
+masked) and writes each diff to ``build/scan_ab/``; then times both
+libraries in one process on the same inputs, alternating which goes
+first, and checks that both give the same bits (distances and slots) at
+every ``k``:
 
 * the flagship (``chip_smoke.make_corpus``: 10M×768 int8, 120
   nearest-centroid buckets, a packed store, 10k queries visiting 4, qtile
@@ -20,6 +20,15 @@ slots) at every ``k``:
   256 queries (``search(k=1100)``'s scan in ``chip_smoke.phase_virtual``),
   at every ``k``; past 1024 in rounds of at most 1024
   (``scan_kernel.scan_in_rounds``), one launch a round.
+
+Then f32 over the flagship's rows as an f32 store
+(``chip_smoke.dequantized_store``, 31 GB) at each ``k`` up to 128.  A
+checkout whose source still has the CUDA-core FMA body for it
+(``scan_f32_kernel``) takes f32 query rows there, this tree the
+three-term rows of ``operand_queries``; the two round differently, so
+that case is held to the f32 parity bar (``chip_smoke.compare_candidates``)
+and each side's distances to float64 (``chip_smoke.float64_error``), not
+to equal bits.
 
 Both sources must take ``lmi_scan_pairs``'s arguments with or without the
 row-map and floor pointers; without them (the earlier interface) only the
@@ -49,7 +58,7 @@ from learnedmetricindex_tpu_torch.ops import cuda_build, scan_kernel  # noqa: E4
 SOURCE = Path("learnedmetricindex_tpu_torch/csrc/scan_pairs.cu")
 WORK = ROOT / "build" / "scan_ab"
 INSTANCES = ("scan_mma_kernelILi1EaLi32E", "scan_mma_kernelILi2EaLi32E",
-             "scan_mma_kernelILi0EaLi32E", "scan_f32_kernelILi32E")
+             "scan_mma_kernelILi0EaLi32E")
 
 
 def build(sources: dict) -> None:
@@ -105,23 +114,26 @@ def flagship_stores(dev):
     return store, virtual, queries, order
 
 
-def bind(lib, source: Path) -> bool:
+def bind(lib, source: Path) -> tuple:
     """Set ``lmi_scan_pairs``'s argument types for the interface ``source``
-    declares; True where it takes the row-map and floor pointers."""
-    mapped = "const void* row_ids" in source.read_text()
+    declares: (whether it takes the row-map and floor pointers, whether
+    f32 over an f32 store takes f32 query rows: the FMA body)."""
+    text = source.read_text()
+    mapped = "const void* row_ids" in text
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.lmi_scan_pairs.argtypes = [vp] * (14 if mapped else 11) + [ci] * 8 + [vp]
     lib.lmi_scan_pairs.restype = ci
-    return mapped
+    return mapped, "scan_f32_kernel" in text
 
 
-def launcher(lib, mapped: bool, store, queries, order, mode: str, k: int):
+def launcher(lib, mapped: bool, fma_body: bool, store, queries, order, mode: str, k: int):
     """``run()``: ``lib``'s kernel over the scan of ``queries`` visiting
     ``order`` with the wrapper's arguments (null row map and floors in the
-    first round where the interface has them), in rounds past 1024."""
+    first round where the interface has them), in rounds past 1024; f32
+    query rows where ``fma_body`` meets an f32 store."""
     _, (q, qidx, pb, ptr, chunk_of, st, sc, qs, row_ids) = scan_inputs(store, queries, order, 128,
                                                                        mode)
-    fma = mode == "f32" and st.dtype == torch.float32
+    fma = fma_body and mode == "f32" and st.dtype == torch.float32
     qo = q if fma else scan_kernel.operand_queries(q, mode, st.dtype)
     terms = 3 if mode == "f32" and not fma else 1
     cs.check(mapped or (row_ids is None and k <= scan_kernel.MAX_K),
@@ -178,30 +190,50 @@ def main() -> None:
     libs = {}
     for name, src in sources.items():
         lib = ctypes.CDLL(str(WORK / f"{name}.so"))
-        libs[name] = (lib, bind(lib, src))
-    mapped = all(m for _, m in libs.values())
+        libs[name] = (lib, *bind(lib, src))
+    mapped = all(m for _, m, _ in libs.values())
     cases = [("packed", store, queries, order, mode, k) for k in args.k if k <= 128
              for mode in ("bf16", "int8", "f32")]
     if mapped:
         cases += [("virtual", virtual, queries[:256], order[:256], "f32", k) for k in args.k]
     for layout, st, q, o, mode, k in cases:
-        runs = {n: launcher(lib, m, st, q, o, mode, k) for n, (lib, m) in libs.items()}
+        runs = {n: launcher(lib, m, f, st, q, o, mode, k) for n, (lib, m, f) in libs.items()}
         outs = {n: tuple(t.clone() for t in run()) for n, run in runs.items()}
         same = all(torch.equal(x, y) for x, y in zip(outs["other"], outs["this"]))
         cs.check(same, f"{layout} {mode} k={k}: the two kernels give different bits")
         del outs
-        reps = 5 if layout == "packed" else 3
-        ms = {n: [] for n in runs}
-        for r in range(args.rounds):
-            for n in (("other", "this") if r % 2 == 0 else ("this", "other")):
-                ms[n].append(cs.cuda_ms(runs[n], reps))
-        med = {n: float(np.median(t)) for n, t in ms.items()}
-        cs.log(f"[ab] {layout} {mode} k_scan {k} ({q.shape[0]} queries; mean of {reps} launches a "
-               f"round, {args.rounds} rounds, same bits): "
-               + "; ".join(f"{n} {' '.join(f'{t:.3f}' for t in ts)} ms, median {med[n]:.3f}"
-                           for n, ts in ms.items())
-               + f"; this/other {med['this'] / med['other']:.4f}  [{smi}]")
-        torch.cuda.empty_cache()
+        in_turns(runs, f"{layout} {mode} k_scan {k} ({q.shape[0]} queries", "same bits",
+                 3 if layout == "virtual" else 5, args.rounds, smi)
+    del virtual
+    f32 = cs.dequantized_store(store)
+    for k in (k for k in args.k if k <= 128):
+        runs = {n: launcher(lib, m, f, f32, queries, order, "f32", k)
+                for n, (lib, m, f) in libs.items()}
+        outs = {n: tuple(t.clone() for t in run()) for n, run in runs.items()}
+        err, gap = cs.compare_candidates(*outs["this"], *outs["other"], "f32",
+                                         f"f32 store k={k}: this against other")
+        plan, sargs = scan_inputs(f32, queries, order, 128, "f32")
+        f64 = {n: cs.float64_error(f32, sargs[0], plan, *outs[n]) for n in outs}
+        del outs, sargs
+        in_turns(runs, f"f32 store f32 k_scan {k} ({queries.shape[0]} queries",
+                 f"agree at the f32 parity bar, max|Δd| {err:.3g} (at swapped slots {gap:.3g}); "
+                 f"against float64, the first 16 pairs' candidates: this {f64['this']:.3g}, "
+                 f"other {f64['other']:.3g}", 5, args.rounds, smi)
+
+
+def in_turns(runs: dict, what: str, agree: str, reps: int, rounds: int, smi: str) -> None:
+    """Time ``runs["other"]`` and ``runs["this"]`` in alternating rounds
+    (CUDA events, the mean of ``reps`` launches a round) and log both."""
+    ms = {n: [] for n in runs}
+    for r in range(rounds):
+        for n in (("other", "this") if r % 2 == 0 else ("this", "other")):
+            ms[n].append(cs.cuda_ms(runs[n], reps))
+    med = {n: float(np.median(t)) for n, t in ms.items()}
+    cs.log(f"[ab] {what}; mean of {reps} launches a round, {rounds} rounds, {agree}): "
+           + "; ".join(f"{n} {' '.join(f'{t:.3f}' for t in ts)} ms, median {med[n]:.3f}"
+                       for n, ts in ms.items())
+           + f"; this/other {med['this'] / med['other']:.4f}  [{smi}]")
+    torch.cuda.empty_cache()
 
 
 if __name__ == "__main__":
