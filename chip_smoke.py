@@ -9,9 +9,9 @@ at the reference's flagship configuration — 120 buckets, MLP-4, a
 phases:
 
 1. device: CUDA must be present; prints the card's name and power limit;
-2. build: compiles ``csrc/scan_pairs.cu`` and ``csrc/gather_rows.cu``
-   with nvcc for sm_90a, both at once, and prints each kernel instance's
-   registers and spills;
+2. build: compiles ``csrc/scan_pairs.cu``, ``csrc/scan_merge.cu`` and
+   ``csrc/gather_rows.cu`` with nvcc for sm_90a, all at once, and prints
+   each kernel instance's registers and spills;
 3. kernel vs plain: the scan kernel against its plain PyTorch version on
    the card at d 768, 96 and 100, all three modes over every store type
    they take, k 16 to 600 (every list width, 32 to 1024), qtile
@@ -30,7 +30,13 @@ phases:
    a bucket, padding slots, chunk lists out of physical order) at list
    widths 64, 256 and 1024 and k 1100 in every mode over every store
    type, each list the bucket's first rows in scan order, and pairs
-   whose split blocks are all padding but one;
+   whose split blocks are all padding but one; then the scan's split
+   forced to segments of 1 and 2 chunks (every mode over every store
+   type at list widths 32 to 1024, mutated and virtual stores, k 1100
+   in rounds under floors): the scan kernel over the items and the merge
+   kernel bit-equal to the scan kernel over whole buckets, and within the
+   bar of the plain version (every other case runs the wrapper's own
+   split);
 4. corpus: a seeded 10M×768 int8 corpus (+ f32 row scales) on the
    device and the exact f32 top-10 of the queries;
 5. search path: an index whose MLP-4 encodes a nearest-centroid
@@ -39,6 +45,10 @@ phases:
    then, at the flagship shape, the scan kernel, its plain version and
    the library yardstick (per bucket one matmul + ``torch.topk``) timed
    with CUDA events beside the least time the card could take (bound),
+   each with the split the wrapper chose (slots, segment length, items),
+   the merge kernel at the flagship against its plain version and
+   ``smallest_k`` over the lists side by side, its bytes bound, its share
+   of the scan and the split's host work a launch,
    the f32 kernel's and plain version's distances against float64 (the
    kernel's error may not exceed the plain version's), the same at
    ``k_scan`` 106 (``search(k=100)``, list width 128; the library call's
@@ -156,6 +166,7 @@ from learnedmetricindex_tpu_torch.index.serialization import index_from_arrays
 from learnedmetricindex_tpu_torch.ops import cuda_build, gather_kernel, quantize, scan_kernel
 from learnedmetricindex_tpu_torch.ops.knn import recall, restricted_knn
 from learnedmetricindex_tpu_torch.ops.precision import full_f32
+from learnedmetricindex_tpu_torch.ops.select import smallest_k
 
 ROOT = Path(__file__).resolve().parent
 WORK_DIR = ROOT / "build" / "chip_smoke"
@@ -178,6 +189,10 @@ FLOAT_TIE_ATOL = 5e-6
 SPLIT_REL_ERR = 2.0**-20
 REPLACES = "learnedmetricindex_tpu/ops/scan_kernel.py:325"
 KERNEL_SOURCE = "learnedmetricindex_tpu_torch/csrc/scan_pairs.cu"
+# the merge of a split scan takes the place of the Pallas kernel's running
+# top-k across a pair's chunks (its `insert`, carried in VMEM chunk to chunk)
+MERGE_REPLACES = "learnedmetricindex_tpu/ops/scan_kernel.py:231"
+MERGE_SOURCE = "learnedmetricindex_tpu_torch/csrc/scan_merge.cu"
 GATHER_REPLACES = "learnedmetricindex_tpu/ops/gather_kernel.py:151"
 GATHER_SOURCE = "learnedmetricindex_tpu_torch/csrc/gather_rows.cu"
 HBM_BYTES_PER_S = 3.35e12  # the H100 SXM's published device-memory rate
@@ -340,8 +355,9 @@ def phase_device() -> str:
 
 def phase_build() -> None:
     t0 = time.perf_counter()
-    built = cuda_build.build_many([scan_kernel.SOURCE, gather_kernel.SOURCE])
-    for (path, seconds), src in zip(built, (KERNEL_SOURCE, GATHER_SOURCE)):
+    built = cuda_build.build_many([scan_kernel.SOURCE, scan_kernel.MERGE_SOURCE,
+                                   gather_kernel.SOURCE])
+    for (path, seconds), src in zip(built, (KERNEL_SOURCE, MERGE_SOURCE, GATHER_SOURCE)):
         log(f"[build] {src} -> {path.relative_to(ROOT)} "
             f"(nvcc {' '.join(cuda_build.NVCC_FLAGS)}) in {seconds:.1f} s")
         report = path.with_suffix(".log").read_text() if path.with_suffix(".log").exists() else ""
@@ -351,18 +367,19 @@ def phase_build() -> None:
         for line in report.splitlines():
             if "entry function" in line or "registers" in line or "spill" in line:
                 log(f"[build]   {line.strip()}")
-    log(f"[build] both kernels, compiled in parallel: {time.perf_counter() - t0:.1f} s")
+    log(f"[build] the three kernels, compiled in parallel: {time.perf_counter() - t0:.1f} s")
 
 
 def reset_counts() -> None:
     scan_kernel.LAUNCHES = 0
+    scan_kernel.MERGE_LAUNCHES = 0
     gather_kernel.LAUNCHES = 0
     gather_kernel.PAIR_LAUNCHES = 0
 
 
 def read_counts() -> dict:
-    return {"scan_pairs": scan_kernel.LAUNCHES, "gather_pairs": gather_kernel.PAIR_LAUNCHES,
-            "gather_rows": gather_kernel.LAUNCHES}
+    return {"scan_pairs": scan_kernel.LAUNCHES, "scan_merge": scan_kernel.MERGE_LAUNCHES,
+            "gather_pairs": gather_kernel.PAIR_LAUNCHES, "gather_rows": gather_kernel.LAUNCHES}
 
 
 def kv_stores(dev, d: int, seed: int = 7):
@@ -503,6 +520,7 @@ def phase_kernel_vs_plain(dev) -> dict:
                 split_terms_check(dev, d, store_name, k, qtiles[(2 * si + ki + d) % 4])
     wide_k_cases(dev, worst)
     tied_cases(dev, worst)
+    split_cases(dev, worst)
     for mode, (err, gap) in worst.items():
         log(f"[kernel-vs-plain] {mode}: max|Δd| {err:.3g}; at swapped slots {gap:.3g}")
     return worst
@@ -608,6 +626,92 @@ def tied_cases(dev, worst: dict) -> None:
             check(bool((s[1] == -1).all()) and bool((s[0][q[0] < 0] == -1).all()),
                   f"{what}: padding slots get only the fill")
     del stores, data
+
+
+def split_run(store, args, plan, k: int, qtile: int, mode: str, segment):
+    """The scan and merge kernels over ``args``'s plan, ``segment`` chunks a
+    segment (``None``: the wrapper's choice), in rounds past 1024; checks
+    one scan and one merge launch a round.  Returns the lists and the
+    rounds."""
+    launch = scan_kernel._kernel_round(args[0], *args[3:7], args[7], args[8], qtile=qtile,
+                                       chunk=store.chunk, mode=mode, segment=segment)
+    rounds = []
+
+    def scan_round(q_idx, p_bucket, w, floor):
+        rounds.append(w)
+        return launch(q_idx, p_bucket, w, floor)
+
+    before = (scan_kernel.LAUNCHES, scan_kernel.MERGE_LAUNCHES)
+    if k <= scan_kernel.MAX_K:
+        out = scan_round(plan.qidx, plan.pair_bucket, k, None)
+    else:
+        n_slots = store.n_chunks * store.chunk
+        positions = scan_kernel.chunk_positions(args[3], args[4], n_slots // store.chunk)
+        out = scan_kernel.scan_in_rounds(scan_round, plan.qidx, plan.pair_bucket, positions,
+                                         k=k, qtile=qtile, chunk=store.chunk)
+    torch.cuda.synchronize()
+    launched = (scan_kernel.LAUNCHES - before[0], scan_kernel.MERGE_LAUNCHES - before[1])
+    check(launched == (len(rounds), len(rounds)),
+          f"split run: {launched} scan and merge launches for {len(rounds)} rounds")
+    return out, len(rounds)
+
+
+def split_cases(dev, worst: dict) -> None:
+    """Forced segments of 1 and 2 chunks: the scan kernel over the items
+    and the merge kernel give the bits of the kernel over whole buckets
+    (a segment longer than any bucket: one item a pair), and stay within
+    the bar of the plain version (``compare_candidates``), exact ties to
+    the earlier copy across segment boundaries.  Every mode over every
+    store type at k 16/100/300/1024 (list widths 32, 128, 512, 1024) over
+    the ``kv_stores`` stores (3 chunks a bucket), the same stores
+    mutated (chunk lists out of physical order, k 16 and 36), virtual
+    stores (the row map, k 16 and 128) and k 1100 in rounds under floors
+    over the mutated int8 and f32 stores and a virtual bf16 one."""
+    stores, queries, order, _, copies, made = kv_stores(dev, 768, seed=17)
+    combos = [("bf16", "f32"), ("bf16", "bf16"), ("bf16", "int8"), ("int8", "int8"),
+              ("f32", "bf16"), ("f32", "int8"), ("f32", "f32")]
+    qtiles = (1, 8, 100, 128)
+    sets = [("", stores, [(m, sn, k, qtiles[(ki + ci) % 4])
+                          for ki, k in enumerate((16, 100, 300, 1024))
+                          for ci, (m, sn) in enumerate(combos)])]
+    virt = virtual_stores(made, stores["f32"])
+    sets.append((" row map", virt, [(m, sn, k, qtiles[(ki + ci) % 4])
+                                    for ki, k in enumerate((16, 128))
+                                    for ci, (m, sn) in enumerate(combos)]))
+    mutated, groups = mutate_kv_stores(stores, copies, made, seed=17)
+    sets.append((" mutated", mutated, [(m, sn, k, qtiles[(ki + ci) % 4])
+                                       for ki, k in enumerate((16, 36, 1100))
+                                       for ci, (m, sn) in enumerate(combos)
+                                       if k != 1100 or sn != "bf16"]))
+    sets.append((" row map", {"bf16": virt["bf16"]}, [("bf16", "bf16", 1100, 128)]))
+    n_cases = 0
+    for tag, kv, cases in sets:
+        partner = {name: scan_partner(st, groups if tag == " mutated" else copies)
+                   for name, st in kv.items()}
+        for mode, store_name, k, qtile in cases:
+            st = kv[store_name]
+            what = f"split {mode} store={store_name}{tag} k={k} qtile={qtile}"
+            plan, args = scan_inputs(st, queries, order, qtile, mode)
+            (wd, ws), n_rounds = split_run(st, args, plan, k, qtile, mode, 10**6)
+            rd, rs = scan_kernel.scan_pairs_reference(*args, k=k, qtile=qtile, chunk=st.chunk,
+                                                      mode=mode)
+            for segment in (1, 2):
+                (kd, ks), _ = split_run(st, args, plan, k, qtile, mode, segment)
+                check(torch.equal(kd.view(torch.int32), wd.view(torch.int32))
+                      and torch.equal(ks, ws),
+                      f"{what} segment={segment}: the split kernel's bits differ from the "
+                      f"kernel's over whole buckets")
+            err, gap = compare_candidates(kd, ks, rd, rs, mode, what)
+            distinct_slots(ks, what)
+            n_dup = earlier_duplicate_first(ks, partner[store_name], what)
+            worst[mode] = (max(worst[mode][0], err), max(worst[mode][1], gap))
+            n_cases += 1
+            log(f"[kernel-vs-plain] {what:52s} pairs={plan.n_pairs:4d}: segments of 1 and 2 "
+                f"chunks bit-equal to whole buckets ({n_rounds} round(s)); against the plain "
+                f"version max|Δd|={err:.3g}, at swapped slots {gap:.3g}; {n_dup} later "
+                f"duplicates after their earlier copy")
+    log(f"[kernel-vs-plain] split: {n_cases} cases, each at segments of 1, 2 and whole buckets")
+    del stores, virt, mutated
 
 
 def in_scan_order(qidx, pair_bucket, slots, in_order, what: str) -> None:
@@ -875,7 +979,8 @@ def phase_main(dev, data: dict, smi: str):
     launches = read_counts()
     peak = torch.cuda.max_memory_allocated()
     # ------------------------------------------------------------------
-    check(launches["scan_pairs"] > 0, "the main path launched the scan kernel")
+    check(launches["scan_pairs"] > 0 and launches["scan_merge"] == launches["scan_pairs"],
+          "the main path launched the scan kernel and one merge a scan")
     check(set(measured) == {"inference", "search", "search_within_buckets", "seq_search", "sort"},
           "measured keys")
     check(one[0].shape == (1, 10) and hundred[0].shape == (100, 10), "small requests' shapes")
@@ -924,6 +1029,7 @@ def phase_main(dev, data: dict, smi: str):
     for mode in ("bf16", "f32", "int8"):
         timing[f"k106 {mode}"] = flagship_scan(store, queries, order, 106, mode, smi,
                                                "[flagship k=100]")
+    merge = merge_vs_plain(store, queries, order, 16, "bf16", timing["bf16"]["ms"], smi)
     scan_s = timing["bf16"]["ms"] / 1e3
     log(f"[split] search at default precision {mean_s:.4f} s per {nq}: navigation "
         f"{measured['inference']:.4f} s, scan kernel {scan_s:.4f} s (CUDA events, same plan), "
@@ -935,7 +1041,7 @@ def phase_main(dev, data: dict, smi: str):
     log(f"[main] total {time.perf_counter() - t_all:.1f} s")
     torch.cuda.empty_cache()
     return launches, timing, {"index": index, "data_prediction": data_prediction,
-                              "store": store, "made": made}
+                              "store": store, "made": made, "merge": merge}
 
 
 def flagship_scan(store, queries, order, k: int, mode: str, smi: str, tag: str) -> dict:
@@ -975,11 +1081,88 @@ def flagship_scan(store, queries, order, k: int, mode: str, smi: str, tag: str) 
         f"{peak / 1e12:g} T/s = {bound['operations']:.3f} ms, {nbytes / 1e9:.3f} GB = "
         f"{bound['bytes']:.3f} ms) = {bound[bound_by] / k_ms:.1%} of it{fma}; {plan.n_pairs} "
         f"pairs, {mac / k_ms / 1e9:.1f} TMAC/s; agree, max|Δd|={err:.3g} (at swapped slots "
-        f"{gap:.3g})  [{smi}]")
+        f"{gap:.3g}); {split_text(split_plan(sargs, k, mode))}  [{smi}]")
     del sargs, kd, ks, rd, rs
     torch.cuda.empty_cache()
     return {"ms": k_ms, "plain_ms": p_ms, "library_ms": lib_ms, "err": err,
             "bound_ms": bound[bound_by], "bound_by": bound_by}
+
+
+def split_plan(sargs, k: int, mode: str) -> dict:
+    """How the scan wrapper splits the plan of ``sargs`` at ``k``: the
+    slots on the card, the segment length, the pairs and the items."""
+    _, qidx, pb, ptr, _, st = sargs[:6]
+    lib = cuda_build.load(scan_kernel.SOURCE, scan_kernel._bind)
+    ptr_h, pb_h, live = scan_kernel.host_plan(ptr, pb, qidx, 128)
+    slots = scan_kernel.scan_slots(lib, st.device, mode, st.dtype, k)
+    seg = scan_kernel.segment_length(ptr_h, pb_h, live, width=scan_kernel.list_width(k),
+                                     slots=slots)
+    work = scan_kernel.split_pairs(ptr_h, pb_h, seg)
+    chunks = np.diff(ptr_h)[pb_h]
+    return {"slots": slots, "segment": seg, "pairs": len(pb_h), "items": len(work.item_pair),
+            "largest": int(chunks.max(initial=0)), "work": work}
+
+
+def split_text(split: dict) -> str:
+    return (f"split: {split['slots']} slots, segments of {split['segment']} chunks, "
+            f"{split['pairs']} pairs -> {split['items']} items (largest bucket "
+            f"{split['largest']} chunks)")
+
+
+def merge_vs_plain(store, queries, order, k: int, mode: str, scan_ms: float, smi: str) -> dict:
+    """The merge kernel at the flagship plan: the item lists that the
+    split path's scan leaves at ``k`` (the wrapper's own segments),
+    merged by the kernel, by its plain version and by ``smallest_k`` over
+    the lists side by side (the library yardstick; the lists laid side by
+    side outside what is timed), each by CUDA events; the kernel's lists
+    bit-equal to the plain version's.  Bound by bytes: the item lists
+    read once, the pairs' lists written once.  ``scan_ms``: the whole
+    scan's time, for the merge's share."""
+    plan, sargs = scan_inputs(store, queries, order, 128, mode)
+    q, qidx, _, _, chunk_of, st, sc, qs, row_ids = sargs
+    split = split_plan(sargs, k, mode)
+    inputs = scan_kernel.split_inputs(split["work"], qidx, None, qtile=128, chunk=store.chunk)
+    lib = cuda_build.load(scan_kernel.SOURCE, scan_kernel._bind)
+    item_d, item_s = scan_kernel._launch_items(
+        lib, scan_kernel.operand_queries(q, mode, st.dtype), qs, inputs.qidx, inputs.pair_bucket,
+        inputs.ptr, chunk_of, st, sc, row_ids, None, k=k, qtile=128, chunk=store.chunk,
+        mode=mode, terms=3 if mode == "f32" else 1)
+    args = (item_d, item_s, inputs.pair_items)
+    k_ms = cuda_ms(lambda: scan_kernel.merge_split_lists(*args), 20)
+    p_ms = cuda_ms(lambda: scan_kernel.merge_split_lists_reference(*args), 3)
+    flat_d, _ = scan_kernel.lists_side_by_side(*args)
+    lib_ms = cuda_ms(lambda: smallest_k(flat_d, k), 5)
+    kd, ks = scan_kernel.merge_split_lists(*args)
+    rd, rs = scan_kernel.merge_split_lists_reference(*args)
+    check(torch.equal(kd.view(torch.int32), rd.view(torch.int32)) and torch.equal(ks, rs),
+          "the merge kernel's lists differ from its plain version's")
+    nbytes = item_d.numel() * 8 + inputs.pair_items.numel() * 4 + kd.numel() * 8
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+
+    def host_split():  # what each launch adds before its scan: the read, the cut, the upload
+        ptr_h, pb_h, _ = scan_kernel.host_plan(sargs[3], sargs[2], qidx, 128)
+        work = scan_kernel.split_pairs(ptr_h, pb_h, split["segment"])
+        return scan_kernel.split_inputs(work, qidx, None, qtile=128, chunk=store.chunk)
+
+    host_split()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(HOST_CALLS):
+        host_split()
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) / HOST_CALLS * 1e3
+    log(f"[flagship] scan_merge {mode} k_scan {k}: kernel {k_ms:.4f} ms, plain {p_ms:.3f} ms, "
+        f"smallest_k over the lists side by side {lib_ms:.3f} ms; bound {bound_ms:.4f} ms by "
+        f"bytes "
+        f"({nbytes / 1e6:.1f} MB) = {bound_ms / k_ms:.1%} of it; {k_ms / scan_ms:.2%} of the "
+        f"scan's {scan_ms:.3f} ms; bit-equal to the plain version; {split_text(split)}; the "
+        f"split's host work a launch (the plan read back, the cut, the work list uploaded, the "
+        f"items' query slots gathered; host clock, device idle, mean of {HOST_CALLS}) "
+        f"{host_ms:.4f} ms  [{smi}]")
+    del args, item_d, item_s, flat_d
+    torch.cuda.empty_cache()
+    return {"ms": k_ms, "plain_ms": p_ms, "library_ms": lib_ms, "err": 0.0, "bound_ms": bound_ms,
+            "bound_by": "bytes", "host_ms": host_ms}
 
 
 def f32_store_scan(store, queries, order, smi: str, index, data_prediction):
@@ -1626,10 +1809,11 @@ def phase_build_path(dev, data: dict, smi: str):
     counts = read_counts()
     os.environ["LMI_GATHER_MODE"] = "auto"
     n_search = 1 + MODE_ROUNDS
-    check(per_mode["auto"] == {"scan_pairs": n_search, "gather_pairs": 0, "gather_rows": 0},
+    check(per_mode["auto"] == {"scan_pairs": n_search, "scan_merge": n_search, "gather_pairs": 0,
+                               "gather_rows": 0},
           f"auto mode launches one scan and no gather a search: {per_mode['auto']}")
-    check(per_mode["kernel"] == {"scan_pairs": n_search, "gather_pairs": n_search,
-                                 "gather_rows": 0},
+    check(per_mode["kernel"] == {"scan_pairs": n_search, "scan_merge": n_search,
+                                 "gather_pairs": n_search, "gather_rows": 0},
           f"kernel mode launches one scan and one merge gather a search: {per_mode['kernel']}")
     for mode in ("auto", "kernel"):
         t = np.asarray(rounds[mode])
@@ -1913,11 +2097,11 @@ def phase_dynamic(dev, index, store, data: dict, smi: str, n_insert: int = 500_0
     plan, sargs = scan_inputs(dyn.store, q1k, order, 128, "bf16")
     scan1k = cuda_ms(lambda: scan_kernel.scan_pairs(*sargs, k=16, qtile=128,
                                                     chunk=dyn.store.chunk, mode="bf16"), 3)
+    split = split_plan(sargs, 16, "bf16")
     excluded = {k: excluded[k] + v - before[k] for k, v in read_counts().items()}
-    largest = int(np.diff(dyn.store.chunk_list()[0]).max()) * dyn.store.chunk
     log(f"[serve] one dispatch's worth alone: a {q1k.shape[0]}-query search {t1k * 1e3:.2f} ms (median of "
-        f"3, synced), its scan kernel {scan1k:.3f} ms (CUDA events) over {plan.n_pairs} pairs, "
-        f"one block a pair; the largest bucket holds {largest} slots  [{smi}]")
+        f"3, synced), its scan {scan1k:.3f} ms (CUDA events: the split, the scan kernel over the "
+        f"items and the merge); {split_text(split)}  [{smi}]")
     del plan, sargs
 
     # ---- serving: 16 clients for ~10 s while one thread mutates ----
@@ -1984,8 +2168,6 @@ def visited_exact(sharded, queries, order, k: int = 10, q_step: int = 2048):
     ``ShardedStore``'s live slots, bucket by bucket on the bucket's
     shard: ``(dists (Q, k), ids (Q, k) uint32)`` as numpy.  Ties between
     buckets go to the earlier visit."""
-    from learnedmetricindex_tpu_torch.ops.select import smallest_k
-
     home = queries.device
     order = order.to(home).long()
     Q, V = order.shape
@@ -2458,7 +2640,8 @@ def phase_multi_build(dev, smi: str, single: dict, argv=CLI_ARGV):
                 f"{[int(sh.bucket_sizes.sum()) for sh in store.shards]}; launches {counts}  [{smi}]")
             check(isinstance(store, lmi.ShardedStore) and len(store.shards) == 4
                   and all(sh.device == dev for sh in store.shards), f"{name}: 4 shards on {dev}")
-            check(counts["scan_pairs"] == 4 * len(result.searches),
+            check(counts["scan_pairs"] == 4 * len(result.searches)
+                  and counts["scan_merge"] == counts["scan_pairs"],
                   f"{name}: {counts['scan_pairs']} scan launches for {len(result.searches)} "
                   f"searches of 4 shards")
             q_dev = torch.as_tensor(result.queries, device=dev)
@@ -2721,7 +2904,8 @@ def rank_main(work: Path) -> None:
         check(isinstance(store, lmi.ShardedStore) and store.world is world
               and len(store.shards) == 1 and store.shards[0].device == dev,
               f"{name}: the rank's one shard on {dev}")
-        check(counts["scan_pairs"] == len(visits) and counts["gather_pairs"] == 0
+        check(counts["scan_pairs"] == len(visits) and counts["scan_merge"] == len(visits)
+              and counts["gather_pairs"] == 0
               and counts["gather_rows"] == 0,
               f"{name}: {counts} launches for {len(visits)} searches (one scan a search)")
         check(search_coll["all_gather"][0] == len(visits),
@@ -2797,6 +2981,7 @@ def main() -> None:
     main_launches, timing, ctx = phase_main(dev, data, smi)
     virt_launches, virt_timing = phase_virtual(dev, data, ctx, smi)
     shard_launches, _ = phase_sharded(dev, data, ctx, timing["bf16"]["ms"], smi)
+    merge_timing = ctx["merge"]
     del ctx
     torch.cuda.empty_cache()
     build_launches, gather_timing, (index, store) = phase_build_path(dev, data, smi)
@@ -2815,6 +3000,7 @@ def main() -> None:
          [e for pair in small.values() for e in pair[:1]] + [t["err"] for t in timing.values()]
          + [virt_timing["err"], cli_timing["err"], mut_out["err"], multi_out["err"],
             proc_out["err"]]),
+        ("scan_merge", MERGE_SOURCE, MERGE_REPLACES, merge_timing, [merge_timing["err"]]),
         # the row gather's kernels: the merge gather is the one the search launches
         ("gather_pairs", GATHER_SOURCE, GATHER_REPLACES, gather_timing["merge"],
          [t["err"] for t in gather_timing.values()]),

@@ -8,7 +8,17 @@
 // in order and carries each pair's top-k in VMEM scratch from one grid
 // step to the next.  CUDA blocks run in no order, so here one block owns
 // one pair and loops over the bucket's chunks itself, keeping the
-// running top-k in shared memory.
+// running top-k in shared memory.  The wrapper (ops/scan_kernel.py)
+// hands this kernel *items*, not whole pairs: each bucket's chunk list
+// cut into segments (split_pairs), each (pair, segment) fed as a pair of
+// a pseudo-bucket (the refined ptr over the same chunk_of, the pair's
+// query slots repeated, a floor's position shifted to the segment's
+// start), so that no block holds more than half a slot's fair share of
+// the launch and no single bucket ends the grid; csrc/scan_merge.cu then
+// merges each pair's item lists.  A row's sums run in the same order in
+// whichever block computes it, so the merged lists are this kernel's
+// lists over whole buckets, bit for bit; the kernel itself does not know
+// of the split.
 //
 // Semantics (held against scan_pairs_reference in ops/scan_kernel.py):
 //  * dist = raw·(−scale)(·qscale) + obias, obias = +inf where scale == 0
@@ -159,14 +169,25 @@
 // query slots) that hold a query it owns; a block that owns none writes
 // the fill and leaves before its first tile.
 //
+// The split (ops/scan_kernel.py::segment_length): a block's work is its
+// item's chunks × the 16-query m-tiles it computes (all 8 at width 32;
+// the live ones of its own query slots above), the card's slots are the
+// SMs × this instance's blocks an SM (lmi_scan_blocks_per_sm, the
+// occupancy API), and a segment is the longest that keeps every block
+// within half a slot's share of the launch.  Items still start largest
+// first (pair_order).  Each segment's lists start empty, so a smaller
+// segment costs more selection warm-up (its first rows all enter) and
+// more merge input.
+//
 // What is left for later work:
 //  * wgmma with TMA loads from a producer warp (mma.sync does not reach
 //    the card's dense tensor rate), and a persistent or resident query
 //    tile (it is reloaded from L2 for every row tile, half of the bytes a
 //    tile moves in int8 mode);
-//  * splitting buckets over blocks: one block per pair, started largest
-//    bucket first (pair_order), but the largest bucket (~157k–162k rows
-//    at the flagship) still sets the tail; a split needs a merge pass;
+//  * the split's cost: one host read of the plan and one upload of the
+//    work list a launch, and a merge pass; a persistent grid that takes
+//    items from a device-side queue would need neither the read nor the
+//    cut by a fixed share;
 //  * the wide lists' selection: a merge costs a few dozen dependent
 //    shared-memory steps however few its candidates, ~22 ms of the
 //    flagship's k_scan 106 scan (10k queries) on an H100, and a block of
@@ -202,8 +223,8 @@
 // 128 queries of its pair; above, the lists of 128 queries would take
 // more than a block's 227 KB, so the pair's queries are split over QT/QB
 // = 2, 4 or 8 blocks of QB = 64, 32 or 16, each computing only the
-// m-tiles of its own queries.  Each block owns whole queries, so nothing
-// is merged across blocks.
+// m-tiles of its own queries.  Each block owns whole queries of its item;
+// only an item's segments of one pair are merged (csrc/scan_merge.cu).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -1150,8 +1171,10 @@ __global__ void __launch_bounds__(THREADS, (MmaBody<MODE, TS, KMAX>::BLOCKS))
   write_out(p, s, b);
 }
 
+// Launches the instance over n_pairs pairs, or where blocks_per_sm is
+// set, reports how many of its blocks one SM holds at once instead
 template <int MODE, typename TS, int KMAX>
-cudaError_t launch_width(const Params& p, int n_pairs, cudaStream_t stream) {
+cudaError_t launch_width(const Params& p, int n_pairs, cudaStream_t stream, int* blocks_per_sm) {
   void (*kernel)(Params) = scan_mma_kernel<MODE, TS, KMAX>;
   constexpr int QB = queries_per_block(KMAX);
   const int splits = QB == QT ? 1 : (p.qtile + QB - 1) / QB;
@@ -1163,19 +1186,39 @@ cudaError_t launch_width(const Params& p, int n_pairs, cudaStream_t stream) {
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
                              cudaSharedmemCarveoutMaxShared);
   if (err != cudaSuccess) return err;
+  if (blocks_per_sm != nullptr)
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, kernel, THREADS, smem);
   kernel<<<n_pairs * splits, THREADS, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
 // the narrowest list that holds k
 template <int MODE, typename TS>
-cudaError_t launch(const Params& p, int n_pairs, cudaStream_t stream) {
-  if (p.k <= 32) return launch_width<MODE, TS, 32>(p, n_pairs, stream);
-  if (p.k <= 64) return launch_width<MODE, TS, 64>(p, n_pairs, stream);
-  if (p.k <= 128) return launch_width<MODE, TS, 128>(p, n_pairs, stream);
-  if (p.k <= 256) return launch_width<MODE, TS, 256>(p, n_pairs, stream);
-  if (p.k <= 512) return launch_width<MODE, TS, 512>(p, n_pairs, stream);
-  return launch_width<MODE, TS, MAX_K>(p, n_pairs, stream);
+cudaError_t launch(const Params& p, int n_pairs, cudaStream_t stream, int* blocks_per_sm) {
+  if (p.k <= 32) return launch_width<MODE, TS, 32>(p, n_pairs, stream, blocks_per_sm);
+  if (p.k <= 64) return launch_width<MODE, TS, 64>(p, n_pairs, stream, blocks_per_sm);
+  if (p.k <= 128) return launch_width<MODE, TS, 128>(p, n_pairs, stream, blocks_per_sm);
+  if (p.k <= 256) return launch_width<MODE, TS, 256>(p, n_pairs, stream, blocks_per_sm);
+  if (p.k <= 512) return launch_width<MODE, TS, 512>(p, n_pairs, stream, blocks_per_sm);
+  return launch_width<MODE, TS, MAX_K>(p, n_pairs, stream, blocks_per_sm);
+}
+
+// the instance of a mode over a store type
+cudaError_t dispatch(const Params& p, int mode, int store_type, int n_pairs, cudaStream_t s,
+                     int* blocks_per_sm) {
+  if (mode == MODE_INT8 && store_type == STORE_INT8)
+    return launch<MODE_INT8, int8_t>(p, n_pairs, s, blocks_per_sm);
+  if (mode == MODE_F32) {
+    if (store_type == STORE_F32) return launch<MODE_F32, float>(p, n_pairs, s, blocks_per_sm);
+    if (store_type == STORE_BF16) return launch<MODE_F32, __nv_bfloat16>(p, n_pairs, s, blocks_per_sm);
+    if (store_type == STORE_INT8) return launch<MODE_F32, int8_t>(p, n_pairs, s, blocks_per_sm);
+  }
+  if (mode == MODE_BF16) {
+    if (store_type == STORE_F32) return launch<MODE_BF16, float>(p, n_pairs, s, blocks_per_sm);
+    if (store_type == STORE_BF16) return launch<MODE_BF16, __nv_bfloat16>(p, n_pairs, s, blocks_per_sm);
+    if (store_type == STORE_INT8) return launch<MODE_BF16, int8_t>(p, n_pairs, s, blocks_per_sm);
+  }
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -1235,19 +1278,19 @@ int lmi_scan_pairs(const void* queries, const void* qscales, const void* qidx,
            qd,
            chunk,
            granule >= 4 ? granule : 0};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (mode == MODE_INT8) return launch<MODE_INT8, int8_t>(p, n_pairs, s);
-  if (mode == MODE_F32) {
-    if (store_type == STORE_F32) return launch<MODE_F32, float>(p, n_pairs, s);
-    if (store_type == STORE_BF16) return launch<MODE_F32, __nv_bfloat16>(p, n_pairs, s);
-    if (store_type == STORE_INT8) return launch<MODE_F32, int8_t>(p, n_pairs, s);
-  }
-  if (mode == MODE_BF16) {
-    if (store_type == STORE_F32) return launch<MODE_BF16, float>(p, n_pairs, s);
-    if (store_type == STORE_BF16) return launch<MODE_BF16, __nv_bfloat16>(p, n_pairs, s);
-    if (store_type == STORE_INT8) return launch<MODE_BF16, int8_t>(p, n_pairs, s);
-  }
-  return cudaErrorInvalidValue;
+  return dispatch(p, mode, store_type, n_pairs, static_cast<cudaStream_t>(stream), nullptr);
+}
+
+// How many blocks of the instance that k, mode and store_type launch one
+// SM holds at once (cudaOccupancyMaxActiveBlocksPerMultiprocessor, with
+// the instance's shared memory): the wrapper's slots on the card, for
+// the split of the pairs into items.  Returns a cudaError_t.
+int lmi_scan_blocks_per_sm(int k, int mode, int store_type, int* blocks) {
+  if (k < 1 || k > MAX_K || blocks == nullptr) return cudaErrorInvalidValue;
+  Params p{};
+  p.k = k;
+  p.qtile = QT;
+  return dispatch(p, mode, store_type, 0, nullptr, blocks);
 }
 
 }  // extern "C"

@@ -14,11 +14,20 @@ of a pair whose bucket has no chunks.
   ``sm_90a`` at first use into ``build/torch_kernels/``) or raise.  A
   ``k`` wider than the kernel's widest list (:data:`MAX_K`) runs as
   rounds of at most ``MAX_K`` (:func:`scan_in_rounds`).
+* The split: each launch cuts every bucket's chunk list into segments
+  (:func:`split_pairs`) so that no (pair, segment) *item* holds more
+  than a share of one slot's fair share of the launch's work
+  (:func:`segment_length`), scans the items as pseudo-buckets with the
+  unchanged kernel (:func:`split_inputs`) and merges each pair's item
+  lists back into one (:func:`merge_split_lists`: ``csrc/scan_merge.cu``
+  on CUDA, :func:`merge_split_lists_reference` on the CPU).  The lists
+  are those of one scan of the whole bucket, bit for bit.
 * :func:`operand_queries` — the query rows the kernel reads;
   :func:`split_f32` — the exact three-term bf16 split of f32 queries
   behind them in mode ``"f32"``; :func:`split_f32_truncated` — the
   kernel's split of f32 store values (its plain model, for the tests).
-* ``LAUNCHES`` — how many times the wrapper launched the kernel.
+* ``LAUNCHES`` — how many times the wrapper launched the kernel;
+  ``MERGE_LAUNCHES`` — the merge kernel.
 
 Stores: a packed store is ``(n_slots, d)`` rows with ``(n_slots,)``
 scales (0 = padding slot).  A *virtual* store keeps no copy of the rows:
@@ -41,8 +50,9 @@ from __future__ import annotations
 
 import ctypes
 from pathlib import Path
-from typing import Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
 from learnedmetricindex_tpu_torch.ops import cuda_build
@@ -56,6 +66,12 @@ _STORE_TYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
 #: kernel launches made by :func:`scan_pairs` (never by the plain version)
 LAUNCHES = 0
+#: merge kernel launches made by :func:`merge_split_lists` (never by its plain version)
+MERGE_LAUNCHES = 0
+
+#: An item (one segment of a pair's chunk list) holds at most this share
+#: of one slot's fair share of a launch's work (:func:`segment_length`)
+SEGMENT_SHARE = 0.5
 
 #: Depth order, within each group of 16, of the bf16 queries that meet an
 #: int8 store: the kernel widens the 4 int8 values k = 4t..4t+3 that
@@ -65,6 +81,7 @@ LAUNCHES = 0
 WIDEN_ORDER = (0, 1, 4, 5, 8, 9, 12, 13, 2, 3, 6, 7, 10, 11, 14, 15)
 
 SOURCE = cuda_build.CSRC / "scan_pairs.cu"
+MERGE_SOURCE = cuda_build.CSRC / "scan_merge.cu"
 
 
 def build() -> Tuple[Path, float]:
@@ -77,6 +94,14 @@ def _bind(lib: ctypes.CDLL) -> None:
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.lmi_scan_pairs.argtypes = [vp] * 14 + [ci] * 8 + [vp]
     lib.lmi_scan_pairs.restype = ci
+    lib.lmi_scan_blocks_per_sm.argtypes = [ci, ci, ci, ctypes.POINTER(ci)]
+    lib.lmi_scan_blocks_per_sm.restype = ci
+
+
+def _bind_merge(lib: ctypes.CDLL) -> None:
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.lmi_scan_merge.argtypes = [vp] * 5 + [ci] * 3 + [vp]
+    lib.lmi_scan_merge.restype = ci
 
 
 def _check(queries, qidx, pair_bucket, ptr, chunk_of, store, scales, qscales, row_ids,
@@ -325,16 +350,248 @@ def scan_in_rounds(
     return out_d, out_s
 
 
-def _launch(lib, queries, qscales, qidx, pair_bucket, ptr, chunk_of, store, scales, row_ids,
-            floor, *, k: int, qtile: int, chunk: int, mode: str, terms: int):
-    """One kernel launch over the given pairs, ``k <= MAX_K``."""
+def list_width(k: int) -> int:
+    """The kernel's list width for ``k <= MAX_K``: the narrowest of 32,
+    64, ..., 1024 that holds ``k``."""
+    return max(32, 1 << (k - 1).bit_length())
+
+
+def queries_per_block(width: int) -> int:
+    """Query slots whose lists one block keeps at a list width (QB in
+    csrc/scan_pairs.cu): above 128 a pair's queries split over blocks."""
+    return MAX_QTILE if width <= 128 else MAX_QTILE * 128 // width
+
+
+class WorkList(NamedTuple):
+    """A launch's pairs cut into items (:func:`split_pairs`), host arrays.
+    Segment ``g`` scans ``chunk_of[seg_ptr[g]:seg_ptr[g + 1]]``; item
+    ``i`` is segment ``item_segment[i]`` of pair ``item_pair[i]``'s
+    bucket, whose chunk list it enters ``item_offset[i]`` chunks in."""
+
+    seg_ptr: np.ndarray  # (n_segments + 1,) int64, a refinement of the bucket CSR
+    item_segment: np.ndarray  # (n_items,) int64
+    item_pair: np.ndarray  # (n_items,) int64, ascending: a pair's items in scan order
+    item_offset: np.ndarray  # (n_items,) int64 chunks
+    pair_items: np.ndarray  # (n_pairs + 1,) int64: pair p's items pair_items[p]:pair_items[p+1]
+
+
+def split_pairs(ptr: np.ndarray, pair_bucket: np.ndarray, segment: int) -> WorkList:
+    """Cut each bucket's chunk list ``ptr[b]:ptr[b + 1]`` into segments of
+    ``segment`` consecutive entries (the last may be shorter; a bucket
+    without chunks keeps one empty segment, whose items write the fill),
+    and each pair into one item a segment of its bucket, in scan order.
+    A pair whose bucket has at most ``segment`` chunks stays one item."""
+    if segment < 1:
+        raise ValueError(f"split_pairs: segment must be >= 1, got {segment}")
+    ptr = np.asarray(ptr, dtype=np.int64)
+    pair_bucket = np.asarray(pair_bucket, dtype=np.int64)
+    counts = ptr[1:] - ptr[:-1]
+    n_seg = np.maximum(1, -(-counts // segment))
+    seg_first = np.concatenate([[0], np.cumsum(n_seg)])
+    seg_bucket = np.repeat(np.arange(len(counts)), n_seg)
+    seg_rank = np.arange(seg_first[-1]) - seg_first[seg_bucket]
+    starts = np.minimum(ptr[seg_bucket] + seg_rank * segment, ptr[seg_bucket + 1])
+    per_pair = n_seg[pair_bucket]
+    pair_items = np.concatenate([[0], np.cumsum(per_pair)])
+    item_pair = np.repeat(np.arange(len(pair_bucket)), per_pair)
+    item_rank = np.arange(pair_items[-1]) - pair_items[item_pair]
+    return WorkList(
+        seg_ptr=np.append(starts, ptr[-1]),
+        item_segment=seg_first[pair_bucket[item_pair]] + item_rank,
+        item_pair=item_pair,
+        item_offset=item_rank * segment,
+        pair_items=pair_items,
+    )
+
+
+def segment_length(ptr: np.ndarray, pair_bucket: np.ndarray, live: np.ndarray, *,
+                   width: int, slots: int, share: float = SEGMENT_SHARE) -> int:
+    """The segment length (in chunks) of a launch: the longest that keeps
+    every block's work within ``share`` of one slot's fair share, the
+    launch's work over ``slots`` (SMs × blocks an SM).  A block's work is
+    its item's chunks × the 16-query m-tiles it computes: all 8 at list
+    width 32, else those of its own query slots (``live``: bit m set
+    where m-tile m of the pair holds a query).  Where no block has work,
+    no bucket is cut."""
+    ptr = np.asarray(ptr, dtype=np.int64)
+    chunks = (ptr[1:] - ptr[:-1])[np.asarray(pair_bucket, dtype=np.int64)]
+    tiles = MAX_QTILE // 16
+    bits = (np.asarray(live, dtype=np.int64)[:, None] >> np.arange(tiles)) & 1
+    if width == 32:  # a width-32 block computes every m-tile
+        bits = np.ones_like(bits)
+    block_tiles = bits.reshape(len(chunks), -1, queries_per_block(width) // 16).sum(axis=2)
+    total = int((chunks[:, None] * block_tiles).sum())
+    if total == 0:
+        return max(1, int(chunks.max(initial=1)))
+    heaviest = int(block_tiles[chunks > 0].max())
+    return max(1, int(share * total / (slots * heaviest)))
+
+
+class SplitInputs(NamedTuple):
+    """The kernel's inputs over a :class:`WorkList`'s items, on the device."""
+
+    qidx: torch.Tensor  # (n_items·qtile,) int32: each item's pair's query slots
+    pair_bucket: torch.Tensor  # (n_items,) int32: each item's segment
+    ptr: torch.Tensor  # (n_segments + 1,) int32
+    floor: Optional[Tuple[torch.Tensor, torch.Tensor]]  # positions from the segment's start
+    pair_items: torch.Tensor  # (n_pairs + 1,) int32
+
+
+def split_inputs(work: WorkList, qidx: torch.Tensor,
+                 floor: Optional[Tuple[torch.Tensor, torch.Tensor]], *, qtile: int,
+                 chunk: int) -> SplitInputs:
+    """Feed each item to the kernel as a pseudo-bucket: its segment in
+    the refined CSR (``chunk_of`` unchanged), its pair's query slots
+    repeated, and a floor's scan position shifted by the segment's first
+    scan position, so that (distance, position in the segment) above
+    (fd, fp − offset) is the bucket-wide rule.  One host→device copy."""
+    parts = (work.seg_ptr, work.item_segment, work.item_pair, work.item_offset * chunk,
+             work.pair_items)
+    host = np.concatenate(parts).astype(np.int32)
+    dev = torch.as_tensor(host).to(qidx.device)
+    bounds = np.cumsum([0] + [len(a) for a in parts])
+    ptr, segs, pairs, shift, pair_items = (dev[a:b] for a, b in zip(bounds[:-1], bounds[1:]))
+    pairs = pairs.long()
+    item_qidx = qidx.view(-1, qtile)[pairs].reshape(-1)
+    item_floor = None
+    if floor is not None:
+        fd, fp = (t.view(-1, qtile)[pairs] for t in floor)
+        item_floor = (fd.reshape(-1), (fp - shift[:, None]).reshape(-1))
+    return SplitInputs(item_qidx, segs, ptr, item_floor, pair_items)
+
+
+def scan_split(scan_items, merge, qidx: torch.Tensor,
+               floor: Optional[Tuple[torch.Tensor, torch.Tensor]], ptr: np.ndarray,
+               pair_bucket: np.ndarray, segment: int, *, qtile: int, chunk: int):
+    """One scan of the pairs ``pair_bucket`` (host) over the buckets
+    ``ptr`` (host) as items of at most ``segment`` chunks:
+    ``scan_items(qidx, pair_bucket, ptr, floor)`` scans the items as
+    pseudo-buckets and ``merge(dists, slots, pair_items)`` merges each
+    pair's item lists.  Returns ``merge``'s ``(n_pairs, qtile, k)``."""
+    inputs = split_inputs(split_pairs(ptr, pair_bucket, segment), qidx, floor, qtile=qtile,
+                          chunk=chunk)
+    d, s = scan_items(inputs.qidx, inputs.pair_bucket, inputs.ptr, inputs.floor)
+    return merge(d, s, inputs.pair_items)
+
+
+def merge_split_lists_reference(item_d: torch.Tensor, item_s: torch.Tensor,
+                                pair_items: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the merge kernel: for each pair ``p`` and query
+    slot, the first ``k`` of its items' lists ``pair_items[p] :
+    pair_items[p + 1]`` (each ``(qtile, k)``, ascending, fill ``+inf`` /
+    -1) by (distance, item order, place in list): a stable
+    :func:`smallest_k` over the lists side by side in item order."""
+    _, qtile, k = item_d.shape
+    n_pairs = pair_items.shape[0] - 1
+    if n_pairs == 0:
+        return item_d[:0].clone(), item_s[:0].clone()
+    flat_d, flat_s = lists_side_by_side(item_d, item_s, pair_items)
+    vals, pos = smallest_k(flat_d, k)
+    slots = torch.where(torch.isinf(vals), -1, torch.gather(flat_s, 1, pos))
+    return vals.reshape(n_pairs, qtile, k), slots.reshape(n_pairs, qtile, k)
+
+
+def lists_side_by_side(item_d: torch.Tensor, item_s: torch.Tensor,
+                       pair_items: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Each (pair, query slot)'s item lists side by side in item order,
+    ``(n_pairs·qtile, width·k)`` (``width`` the most items of a pair),
+    padded with ``+inf`` / -1: what :func:`merge_split_lists_reference`
+    selects from."""
+    n_items, qtile, k = item_d.shape
+    bounds = pair_items.cpu().long()
+    n_pairs = bounds.shape[0] - 1
+    counts = bounds[1:] - bounds[:-1]
+    width = int(counts.max()) if n_pairs else 0
+    cat_d = torch.full((n_pairs, width, qtile, k), torch.inf, device=item_d.device)
+    cat_s = torch.full((n_pairs, width, qtile, k), -1, dtype=torch.int32, device=item_d.device)
+    item_pair = torch.repeat_interleave(torch.arange(n_pairs), counts)
+    rank = torch.arange(n_items) - bounds[item_pair]
+    cat_d[item_pair, rank] = item_d
+    cat_s[item_pair, rank] = item_s
+    return (cat_d.permute(0, 2, 1, 3).reshape(n_pairs * qtile, width * k),
+            cat_s.permute(0, 2, 1, 3).reshape(n_pairs * qtile, width * k))
+
+
+def merge_split_lists(item_d: torch.Tensor, item_s: torch.Tensor,
+                      pair_items: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The merge (see :func:`merge_split_lists_reference`): the CUDA
+    kernel for CUDA tensors, the plain version for CPU tensors.
+    ``item_d`` (n_items, qtile, k) f32, ``item_s`` int32, ``pair_items``
+    (n_pairs + 1,) int32."""
+    if item_d.device.type == "cpu":
+        return merge_split_lists_reference(item_d, item_s, pair_items)
+    if item_d.device.type != "cuda":
+        raise ValueError(f"merge_split_lists runs on cpu or cuda, not {item_d.device}")
+    if (item_d.dtype != torch.float32 or item_s.dtype != torch.int32 or item_d.dim() != 3
+            or item_s.shape != item_d.shape or pair_items.dtype != torch.int32
+            or pair_items.dim() != 1):
+        raise ValueError("merge_split_lists: (n_items, qtile, k) f32 and int32 lists, "
+                         "1-D int32 pair_items")
+    if any(t.device != item_d.device or not t.is_contiguous()
+           for t in (item_s, pair_items)) or not item_d.is_contiguous():
+        raise ValueError("merge_split_lists: contiguous tensors on one device")
+    _, qtile, k = item_d.shape
+    n_pairs = pair_items.shape[0] - 1
+    lib = cuda_build.load(MERGE_SOURCE, _bind_merge)
+    out_d = torch.empty((n_pairs, qtile, k), dtype=torch.float32, device=item_d.device)
+    out_s = torch.empty((n_pairs, qtile, k), dtype=torch.int32, device=item_d.device)
+    with torch.cuda.device(item_d.device):
+        err = lib.lmi_scan_merge(item_d.data_ptr(), item_s.data_ptr(), pair_items.data_ptr(),
+                                 out_d.data_ptr(), out_s.data_ptr(), n_pairs, qtile, k,
+                                 torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"scan_merge kernel launch failed: cudaError {err}")
+    global MERGE_LAUNCHES
+    MERGE_LAUNCHES += 1
+    return out_d, out_s
+
+
+_slots: Dict[tuple, int] = {}  # (device, mode, store type, list width) → slots on the card
+
+
+def scan_slots(lib, device: torch.device, mode: str, store_dtype: torch.dtype, k: int) -> int:
+    """Blocks of the kernel instance that ``k`` launches that the card
+    holds at once: SMs × ``cudaOccupancyMaxActiveBlocksPerMultiprocessor``,
+    queried once per instance and cached."""
+    key = (device.index, mode, store_dtype, list_width(k))
+    if key not in _slots:
+        blocks = ctypes.c_int(0)
+        with torch.cuda.device(device):
+            err = lib.lmi_scan_blocks_per_sm(k, MODES[mode], _STORE_TYPES[store_dtype],
+                                             ctypes.byref(blocks))
+        if err != 0 or blocks.value < 1:
+            raise RuntimeError(f"scan_pairs occupancy query failed: cudaError {err}, "
+                               f"{blocks.value} blocks an SM")
+        sms = torch.cuda.get_device_properties(device).multi_processor_count
+        _slots[key] = sms * blocks.value
+    return _slots[key]
+
+
+def host_plan(ptr: torch.Tensor, pair_bucket: torch.Tensor, qidx: torch.Tensor,
+              qtile: int) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """``(ptr, pair_bucket, live)`` on the host in one device→host read:
+    ``live[p]`` has bit m set where m-tile m (query slots 16m..16m+15)
+    of pair p holds a query."""
+    n_pairs = pair_bucket.shape[0]
+    tiles = -(-qtile // 16)
+    q = qidx.view(n_pairs, qtile) >= 0
+    q = torch.nn.functional.pad(q, (0, tiles * 16 - qtile)).view(n_pairs, tiles, 16).any(dim=2)
+    bits = 1 << torch.arange(tiles, device=q.device, dtype=torch.int32)
+    live = (q.int() * bits).sum(dim=1, dtype=torch.int32)
+    host = torch.cat([ptr, pair_bucket, live]).cpu().numpy()
+    n_b = ptr.shape[0]
+    return host[:n_b], host[n_b : n_b + n_pairs], host[n_b + n_pairs :]
+
+
+def _launch_items(lib, queries, qscales, qidx, pair_bucket, ptr, chunk_of, store, scales,
+                  row_ids, floor, *, k: int, qtile: int, chunk: int, mode: str, terms: int):
+    """One kernel launch over the given pairs (here: items over the
+    segments ``ptr``), ``k <= MAX_K``."""
     n_pairs = pair_bucket.shape[0]
     out_d = torch.empty((n_pairs, qtile, k), dtype=torch.float32, device=store.device)
     out_s = torch.empty((n_pairs, qtile, k), dtype=torch.int32, device=store.device)
-    if n_pairs == 0:
-        return out_d, out_s
-    # blocks start on the largest buckets, so the long ones do not run last
-    # alone (measured 1.25x at the flagship shape on an H100)
+    # blocks start on the largest items, so the long ones do not run last
+    # alone (measured 1.25x at the flagship shape on an H100, unsplit)
     n_chunks = (ptr[1:] - ptr[:-1])[pair_bucket.long()]
     pair_order = torch.argsort(n_chunks, descending=True, stable=True).to(torch.int32)
     floor_d, floor_p = floor if floor is not None else (None, None)
@@ -360,17 +617,35 @@ def _launch(lib, queries, qscales, qidx, pair_bucket, ptr, chunk_of, store, scal
 
 
 def _kernel_round(queries, ptr, chunk_of, store, scales, qscales, row_ids, *, qtile: int,
-                  chunk: int, mode: str):
+                  chunk: int, mode: str, segment: Optional[int] = None):
     """``scan_round(qidx, pair_bucket, k, floor)`` of :func:`scan_in_rounds`:
-    one kernel launch over the given pairs, ``k <= MAX_K``, the queries
-    laid out once for the body that reads them."""
+    the pairs split into items (one host read of the plan, one upload),
+    one scan kernel launch over the items and one merge kernel launch,
+    ``k <= MAX_K``, the queries laid out once for the body that reads
+    them.  ``segment`` forces the segment length (tests and
+    ``chip_smoke.py``); by default :func:`segment_length` picks it."""
     lib = cuda_build.load(SOURCE, _bind)
     queries = operand_queries(queries, mode, store.dtype)
     terms = 3 if mode == "f32" else 1
 
     def scan_round(q_idx, p_bucket, w, floor):
-        return _launch(lib, queries, qscales, q_idx, p_bucket, ptr, chunk_of, store, scales,
-                       row_ids, floor, k=w, qtile=qtile, chunk=chunk, mode=mode, terms=terms)
+        n_pairs = p_bucket.shape[0]
+        if n_pairs == 0:
+            empty = torch.empty((0, qtile, w), device=store.device)
+            return empty, empty.int()
+        ptr_h, pb_h, live_h = host_plan(ptr, p_bucket, q_idx, qtile)
+        seg = segment
+        if seg is None:
+            seg = segment_length(ptr_h, pb_h, live_h, width=list_width(w),
+                                 slots=scan_slots(lib, store.device, mode, store.dtype, w))
+
+        def scan_items(i_qidx, i_bucket, i_ptr, i_floor):
+            return _launch_items(lib, queries, qscales, i_qidx, i_bucket, i_ptr, chunk_of, store,
+                                 scales, row_ids, i_floor, k=w, qtile=qtile, chunk=chunk,
+                                 mode=mode, terms=terms)
+
+        return scan_split(scan_items, merge_split_lists, q_idx, floor, ptr_h, pb_h, seg,
+                          qtile=qtile, chunk=chunk)
 
     return scan_round
 
@@ -391,10 +666,12 @@ def scan_pairs(
     chunk: int,
     mode: str,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The scan (see module docstring): the CUDA kernel for CUDA tensors,
+    """The scan (see module docstring): the CUDA kernels for CUDA tensors,
     the plain version for CPU tensors.  Same arguments and results as
-    :func:`scan_pairs_reference`.  On CUDA a ``k`` above :data:`MAX_K`
-    takes one launch a round of at most ``MAX_K`` (:func:`scan_in_rounds`)."""
+    :func:`scan_pairs_reference`.  On CUDA each launch splits the pairs
+    into items and merges them back (one scan and one merge launch), and
+    a ``k`` above :data:`MAX_K` takes one such launch a round of at most
+    ``MAX_K`` (:func:`scan_in_rounds`)."""
     if store.device.type == "cpu":
         return scan_pairs_reference(
             queries, qidx, pair_bucket, ptr, chunk_of, store, scales, qscales, row_ids,

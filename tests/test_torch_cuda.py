@@ -965,3 +965,76 @@ def test_wide_lists_keep_the_tie_rule(cuda, mode, store_dtype, width, qtile):
     ks = _kernel_vs_plain(args, width - 5, 128, 96, mode, 1)
     _in_scan_order(qidx, plan.pair_bucket, ks, in_order)
     assert (ks[1] == -1).all() and (ks[0, :at] == -1).all() and (ks[0, at + 3:] == -1).all()
+
+
+def _split_kernel(args, plan, store, k, qtile, mode, segment):
+    """The scan and merge kernels over ``args``'s plan with ``segment``
+    chunks a segment (None: the wrapper's choice), in rounds past 1024;
+    checks one scan and one merge launch a round."""
+    launch = scan_kernel._kernel_round(args[0], *args[3:7], args[7], args[8], qtile=qtile,
+                                       chunk=store.chunk, mode=mode, segment=segment)
+    rounds = []
+
+    def scan_round(q_idx, p_bucket, w, floor):
+        rounds.append(w)
+        return launch(q_idx, p_bucket, w, floor)
+
+    before = (scan_kernel.LAUNCHES, scan_kernel.MERGE_LAUNCHES)
+    if k <= scan_kernel.MAX_K:
+        out = scan_round(plan.qidx, plan.pair_bucket, k, None)
+    else:
+        positions = scan_kernel.chunk_positions(args[3], args[4], store.n_chunks)
+        out = scan_kernel.scan_in_rounds(scan_round, plan.qidx, plan.pair_bucket, positions,
+                                         k=k, qtile=qtile, chunk=store.chunk)
+    torch.cuda.synchronize()
+    assert (scan_kernel.LAUNCHES - before[0], scan_kernel.MERGE_LAUNCHES - before[1]) == (
+        len(rounds), len(rounds))
+    return out
+
+
+@pytest.mark.parametrize("mode,store_dtype", [
+    ("bf16", "float32"), ("bf16", "bfloat16"), ("bf16", "int8"), ("int8", "int8"),
+    ("f32", "float32"), ("f32", "bfloat16"), ("f32", "int8")])
+@pytest.mark.parametrize("k,qtile", [(16, 128), (100, 8), (300, 100), (1024, 1), (1100, 128)])
+def test_split_kernel_equals_unsplit_kernel(cuda, mode, store_dtype, k, qtile):
+    """Segments of 1 and 2 chunks and the wrapper's own choice: the scan
+    kernel over the items and the merge kernel give the bits of the
+    kernel over whole buckets (a segment longer than any bucket), over
+    rows that all tie (ties straddle every segment boundary; each list
+    its bucket's first live rows in scan order) and over a mutated store
+    with exact copies of rows, at every list width and past 1024 in
+    rounds under floors."""
+    store, queries, order, in_order = _tied_case(cuda, store_dtype, seed=k)
+    mutated, mq, morder, _, _ = _mutated_store(cuda, 96, store_dtype, seed=k)
+    for st, q, o in ((store, queries, order), (mutated, mq, morder)):
+        plan, args = scan_inputs(st, q, o, qtile, mode)
+        whole = _split_kernel(args, plan, st, k, qtile, mode, 10**6)
+        for segment in (1, 2, None):
+            got = _split_kernel(args, plan, st, k, qtile, mode, segment)
+            assert torch.equal(got[0].view(torch.int32), whole[0].view(torch.int32))
+            assert torch.equal(got[1], whole[1])
+            if st is store:
+                _in_scan_order(plan.qidx, plan.pair_bucket, got[1].cpu().numpy(), in_order)
+
+
+@pytest.mark.parametrize("k,qtile", [(16, 128), (106, 8), (1024, 3)])
+def test_merge_kernel_matches_plain_version(cuda, k, qtile):
+    """Sorted lists with many exact ties, 1 to 40 items a pair: the merge
+    kernel equals its plain version bit for bit (distance, item order,
+    place in list), one launch."""
+    rng = np.random.default_rng(k)
+    per_pair = rng.integers(1, 41, 30)
+    per_pair[:3] = 1
+    pair_items = np.concatenate([[0], np.cumsum(per_pair)]).astype(np.int32)
+    n_items = int(pair_items[-1])
+    vals = rng.integers(0, 50, (n_items, qtile, k)).astype(np.float32) / 7
+    vals[rng.random((n_items, qtile, k)) < 0.2] = np.inf
+    vals.sort(axis=2)
+    slots = np.where(np.isinf(vals), -1, rng.integers(0, 2**30, vals.shape)).astype(np.int32)
+    args = tuple(torch.as_tensor(a, device=cuda) for a in (vals, slots, pair_items))
+    before = scan_kernel.MERGE_LAUNCHES
+    kd, ks = scan_kernel.merge_split_lists(*args)
+    torch.cuda.synchronize()
+    assert scan_kernel.MERGE_LAUNCHES == before + 1
+    rd, rs = scan_kernel.merge_split_lists_reference(*args)
+    assert torch.equal(kd.view(torch.int32), rd.view(torch.int32)) and torch.equal(ks, rs)

@@ -1,17 +1,23 @@
 #!/usr/bin/env python3
-"""The port's scan kernel against another checkout's, on one NVIDIA GPU.
+"""The port's scan against another checkout's, on one NVIDIA GPU.
 
     python3 tools/torch_scan_ab.py OTHER_CHECKOUT [--k 16 106 1024 1106] [--rounds 6]
+                                   [--shares 1 0.5 0.25 0.125]
 
-Builds ``learnedmetricindex_tpu_torch/csrc/scan_pairs.cu`` of this tree
-and of ``OTHER_CHECKOUT`` (for example a ``git archive`` of the parent
-commit) with the port's nvcc flags into ``build/scan_ab/``; compares the
-SASS of the list-width-32 instances (bf16, int8 and f32 over an int8
-store; addresses and register names left as they are, branch targets
-masked) and writes each diff to ``build/scan_ab/``; then times both
-libraries in one process on the same inputs, alternating which goes
-first, and checks that both give the same bits (distances and slots) at
-every ``k``:
+Builds ``learnedmetricindex_tpu_torch/csrc/scan_pairs.cu`` (and, where
+the checkout has it, ``csrc/scan_merge.cu``) of this tree and of
+``OTHER_CHECKOUT`` (for example a ``git archive`` of the parent commit)
+with the port's nvcc flags into ``build/scan_ab/``; compares the SASS of
+every scan kernel instance the two have in common (addresses and
+register names left as they are, branch targets masked) and writes the
+diff of each that differs to ``build/scan_ab/``; then times both sides
+in one process on the same inputs, alternating which goes first, and
+checks that both give the same bits (distances and slots) at every
+``k``.  Each side runs as its checkout's wrapper does: a checkout with
+the merge kernel splits each launch's pairs into items of the segment
+length ``ops/scan_kernel.py::segment_length`` picks from its library's
+occupancy (``lmi_scan_blocks_per_sm``), scans them and merges them; one
+without it (the interface before the split) launches one block a pair.
 
 * the flagship (``chip_smoke.make_corpus``: 10M×768 int8, 120
   nearest-centroid buckets, a packed store, 10k queries visiting 4, qtile
@@ -22,13 +28,17 @@ every ``k``:
   (``scan_kernel.scan_in_rounds``), one launch a round.
 
 Then f32 over the flagship's rows as an f32 store
-(``chip_smoke.dequantized_store``, 31 GB) at each ``k`` up to 128.  A
-checkout whose source still has the CUDA-core FMA body for it
-(``scan_f32_kernel``) takes f32 query rows there, this tree the
-three-term rows of ``operand_queries``; the two round differently, so
-that case is held to the f32 parity bar (``chip_smoke.compare_candidates``)
-and each side's distances to float64 (``chip_smoke.float64_error``), not
-to equal bits.
+(``chip_smoke.dequantized_store``, 31 GB) at each ``k`` up to 128: the
+same bits on both sides, unless a side still has the CUDA-core FMA body
+(``scan_f32_kernel``), which takes f32 query rows and rounds otherwise;
+then held to the f32 parity bar (``chip_smoke.compare_candidates``) and
+each side's distances to float64 (``chip_smoke.float64_error``).
+
+``--shares``: the segment-length probe.  This tree's scan at the
+segment length each share of a slot's fair share gives, and over whole
+buckets, in turns, at the flagship (10k queries; bf16 and int8 at
+k_scan 16, bf16 at 106) and at one serving dispatch (its first 1,024
+queries; bf16 and int8 at 16); bits equal at every share.
 
 Both sources must take ``lmi_scan_pairs``'s arguments with or without the
 row-map and floor pointers; without them (the earlier interface) only the
@@ -44,6 +54,7 @@ import re
 import subprocess
 import sys
 from pathlib import Path
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -56,19 +67,26 @@ from learnedmetricindex_tpu_torch.index.bucket_store import BucketStore, scan_in
 from learnedmetricindex_tpu_torch.ops import cuda_build, scan_kernel  # noqa: E402
 
 SOURCE = Path("learnedmetricindex_tpu_torch/csrc/scan_pairs.cu")
+MERGE_SOURCE = Path("learnedmetricindex_tpu_torch/csrc/scan_merge.cu")
 WORK = ROOT / "build" / "scan_ab"
-INSTANCES = ("scan_mma_kernelILi1EaLi32E", "scan_mma_kernelILi2EaLi32E",
-             "scan_mma_kernelILi0EaLi32E")
+WHOLE = 10**9  # a segment longer than any bucket: one item a pair
 
 
 def build(sources: dict) -> None:
+    """``{name}.so`` and ``{name}.cubin`` of each scan source, and
+    ``{name}_merge.so`` where the checkout has the merge kernel, all
+    nvcc processes at once."""
     nvcc, flags = cuda_build._nvcc(), cuda_build.NVCC_FLAGS
     cubin_flags = flags[: flags.index("-shared")]
     procs = []
     for name, src in sources.items():
-        for cmd in ([*flags, "-o", str(WORK / f"{name}.so")],
-                    [*cubin_flags, "-cubin", "-o", str(WORK / f"{name}.cubin")]):
-            procs.append(subprocess.Popen([nvcc, *cmd, str(src)], stdout=subprocess.DEVNULL,
+        jobs = [([*flags, "-o", str(WORK / f"{name}.so")], src),
+                ([*cubin_flags, "-cubin", "-o", str(WORK / f"{name}.cubin")], src)]
+        merge = src.parents[2] / MERGE_SOURCE
+        if merge.exists():
+            jobs.append(([*flags, "-o", str(WORK / f"{name}_merge.so")], merge))
+        for cmd, path in jobs:
+            procs.append(subprocess.Popen([nvcc, *cmd, str(path)], stdout=subprocess.DEVNULL,
                                           stderr=subprocess.PIPE))
     for p in procs:
         _, err = p.communicate()
@@ -76,7 +94,8 @@ def build(sources: dict) -> None:
 
 
 def sass(cubin: Path) -> dict:
-    """Instruction lines per kernel, encodings and offsets dropped."""
+    """Instruction lines per kernel, encodings and offsets dropped; a scan
+    kernel instance under its name from ``scan_mma_kernel`` on."""
     cuobjdump = Path(cuda_build._nvcc()).with_name("cuobjdump")
     txt = subprocess.run([str(cuobjdump), "-sass", str(cubin)], capture_output=True, text=True,
                          check=True).stdout
@@ -91,7 +110,10 @@ def sass(cubin: Path) -> dict:
             if re.search(r"\b(BRA|BSSY|CALL|JMP|BRX)\b", ln):
                 ln = re.sub(r"\b0x[0-9a-f]{3,}\b", "ADDR", ln)
             lines.append(re.sub(r"\s+", " ", ln))
-        funcs[name.strip()] = lines
+        # from the kernel's own name on: nvcc names an anonymous namespace
+        # after the source file, so the two builds' prefixes differ
+        name = name.strip()
+        funcs[name[name.find("scan_mma_kernel"):] if "scan_mma_kernel" in name else name] = lines
     return funcs
 
 
@@ -114,48 +136,89 @@ def flagship_stores(dev):
     return store, virtual, queries, order
 
 
-def bind(lib, source: Path) -> tuple:
-    """Set ``lmi_scan_pairs``'s argument types for the interface ``source``
-    declares: (whether it takes the row-map and floor pointers, whether
-    f32 over an f32 store takes f32 query rows: the FMA body)."""
+class Side(NamedTuple):
+    """One checkout's libraries and the interface its source declares."""
+
+    lib: ctypes.CDLL
+    mapped: bool  # takes the row-map and floor pointers
+    fma_body: bool  # f32 over an f32 store takes f32 query rows (the FMA body)
+    merge: Optional[ctypes.CDLL]  # the merge kernel: this side splits its pairs
+
+
+def bind(library: Path, source: Path, merge: Optional[Path] = None) -> Side:
+    """Load the scan ``library`` built from ``source`` (and the merge
+    kernel's, where given) and set their argument types for the interface
+    ``source`` declares."""
     text = source.read_text()
     mapped = "const void* row_ids" in text
     vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib = ctypes.CDLL(str(library))
     lib.lmi_scan_pairs.argtypes = [vp] * (14 if mapped else 11) + [ci] * 8 + [vp]
     lib.lmi_scan_pairs.restype = ci
-    return mapped, "scan_f32_kernel" in text
+    merge_lib = None
+    if merge is not None:
+        scan_kernel._bind(lib)
+        merge_lib = ctypes.CDLL(str(merge))
+        scan_kernel._bind_merge(merge_lib)
+    return Side(lib, mapped, "scan_f32_kernel" in text, merge_lib)
 
 
-def launcher(lib, mapped: bool, fma_body: bool, store, queries, order, mode: str, k: int):
-    """``run()``: ``lib``'s kernel over the scan of ``queries`` visiting
-    ``order`` with the wrapper's arguments (null row map and floors in the
-    first round where the interface has them), in rounds past 1024; f32
-    query rows where ``fma_body`` meets an f32 store."""
+def launcher(side: Side, store, queries, order, mode: str, k: int, segment=None,
+             share=scan_kernel.SEGMENT_SHARE):
+    """``run()``: ``side``'s scan of ``queries`` visiting ``order`` with the
+    wrapper's arguments (null row map and floors in the first round where
+    the interface has them), in rounds past 1024; f32 query rows where
+    the FMA body meets an f32 store.  A side with the merge kernel splits
+    each launch's pairs (``segment`` chunks a segment, or the length
+    ``share`` gives) and merges them."""
     _, (q, qidx, pb, ptr, chunk_of, st, sc, qs, row_ids) = scan_inputs(store, queries, order, 128,
                                                                        mode)
-    fma = fma_body and mode == "f32" and st.dtype == torch.float32
+    fma = side.fma_body and mode == "f32" and st.dtype == torch.float32
     qo = q if fma else scan_kernel.operand_queries(q, mode, st.dtype)
     terms = 3 if mode == "f32" and not fma else 1
-    cs.check(mapped or (row_ids is None and k <= scan_kernel.MAX_K),
+    cs.check(side.mapped or (row_ids is None and k <= scan_kernel.MAX_K),
              "the other interface takes no row map and no floor")
+    stream = torch.cuda.current_stream().cuda_stream
 
-    def one(q_idx, p_bucket, w, floor):
+    def scan(q_idx, p_bucket, p_ptr, w, floor):
         n_pairs = p_bucket.shape[0]
-        pair_order = torch.argsort((ptr[1:] - ptr[:-1])[p_bucket.long()], descending=True,
+        pair_order = torch.argsort((p_ptr[1:] - p_ptr[:-1])[p_bucket.long()], descending=True,
                                    stable=True).to(torch.int32)
         out_d = torch.empty((n_pairs, 128, w), device=st.device)
         out_s = torch.empty((n_pairs, 128, w), dtype=torch.int32, device=st.device)
         fd, fp = floor if floor is not None else (None, None)
         extra = tuple(t.data_ptr() if t is not None else None for t in (row_ids, fd, fp))
-        err = lib.lmi_scan_pairs(
+        err = side.lib.lmi_scan_pairs(
             qo.data_ptr(), qs.data_ptr() if qs is not None else None, q_idx.data_ptr(),
-            p_bucket.data_ptr(), pair_order.data_ptr(), ptr.data_ptr(), chunk_of.data_ptr(),
+            p_bucket.data_ptr(), pair_order.data_ptr(), p_ptr.data_ptr(), chunk_of.data_ptr(),
             st.data_ptr(), sc.data_ptr() if sc is not None else None,
-            *(extra if mapped else ()), out_d.data_ptr(), out_s.data_ptr(), n_pairs, 128, w,
+            *(extra if side.mapped else ()), out_d.data_ptr(), out_s.data_ptr(), n_pairs, 128, w,
             st.shape[1], qo.shape[1] // terms, 2048, scan_kernel.MODES[mode],
-            scan_kernel._STORE_TYPES[st.dtype], torch.cuda.current_stream().cuda_stream)
+            scan_kernel._STORE_TYPES[st.dtype], stream)
         cs.check(err == 0, f"launch failed: cudaError {err}")
         return out_d, out_s
+
+    def merge(item_d, item_s, pair_items):
+        n_pairs = pair_items.shape[0] - 1
+        out_d = torch.empty((n_pairs, 128, item_d.shape[2]), device=st.device)
+        out_s = torch.empty(out_d.shape, dtype=torch.int32, device=st.device)
+        err = side.merge.lmi_scan_merge(item_d.data_ptr(), item_s.data_ptr(),
+                                        pair_items.data_ptr(), out_d.data_ptr(), out_s.data_ptr(),
+                                        n_pairs, 128, item_d.shape[2], stream)
+        cs.check(err == 0, f"merge launch failed: cudaError {err}")
+        return out_d, out_s
+
+    def one(q_idx, p_bucket, w, floor):
+        if side.merge is None:
+            return scan(q_idx, p_bucket, ptr, w, floor)
+        ptr_h, pb_h, live = scan_kernel.host_plan(ptr, p_bucket, q_idx, 128)
+        seg = segment
+        if seg is None:
+            slots = scan_kernel.scan_slots(side.lib, st.device, mode, st.dtype, w)
+            seg = scan_kernel.segment_length(ptr_h, pb_h, live, width=scan_kernel.list_width(w),
+                                             slots=slots, share=share)
+        return scan_kernel.scan_split(lambda qi, b, p, f: scan(qi, b, p, w, f), merge, q_idx,
+                                      floor, ptr_h, pb_h, seg, qtile=128, chunk=2048)
 
     if k <= scan_kernel.MAX_K:
         return lambda: one(qidx, pb, k, None)
@@ -164,61 +227,117 @@ def launcher(lib, mapped: bool, fma_body: bool, store, queries, order, mode: str
     return lambda: scan_kernel.scan_in_rounds(one, qidx, pb, positions, k=k, qtile=128, chunk=2048)
 
 
+def probe_shares(side: Side, store, queries, order, shares, rounds: int, smi: str) -> None:
+    """This tree's scan at the segment length of each share and over whole
+    buckets, in turns: the flagship in bf16 and int8 at k_scan 16 and in
+    bf16 at 106 (list width 128, one block an SM), one 1,024-query
+    dispatch in bf16 and int8 at 16; the same bits at every share."""
+    n_all = queries.shape[0]
+    for nq, mode, k in ((n_all, "bf16", 16), (n_all, "int8", 16), (n_all, "bf16", 106),
+                        (1024, "bf16", 16), (1024, "int8", 16)):
+        q, o = queries[:nq], order[:nq]
+        _, sargs = scan_inputs(store, q, o, 128, mode)
+        runs, segs = {}, {}
+        ptr_h, pb_h, live = scan_kernel.host_plan(sargs[3], sargs[2], sargs[1], 128)
+        slots = scan_kernel.scan_slots(side.lib, store.device, mode, store.rows_ref.dtype, k)
+        for share in (*shares, None):
+            seg = WHOLE if share is None else scan_kernel.segment_length(
+                ptr_h, pb_h, live, width=scan_kernel.list_width(k), slots=slots, share=share)
+            name = "whole buckets" if share is None else f"share {share:g}"
+            segs[name] = (seg, len(scan_kernel.split_pairs(ptr_h, pb_h, seg).item_pair))
+            runs[name] = launcher(side, store, q, o, mode, k, segment=seg)
+        del sargs
+        outs = {n: tuple(t.clone() for t in run()) for n, run in runs.items()}
+        first = next(iter(outs.values()))
+        cs.check(all(torch.equal(a, b) for out in outs.values() for a, b in zip(out, first)),
+                 f"share probe {mode} {nq} queries: the shares give different bits")
+        del outs
+        ms = {n: [] for n in runs}
+        names = list(runs)
+        for r in range(rounds):
+            for n in (names if r % 2 == 0 else names[::-1]):
+                ms[n].append(cs.cuda_ms(runs[n], 3 if nq > 1024 else 10))
+        cs.log(f"[share] {mode} k_scan {k}, {nq} queries, {slots} slots ({rounds} rounds in "
+               f"turns, same bits): "
+               + "; ".join(f"{n} (segments of {segs[n][0] if segs[n][0] < WHOLE else 'all'} "
+                           f"chunks, {segs[n][1]} items) median {float(np.median(t)):.3f} ms "
+                           f"[{' '.join(f'{x:.3f}' for x in t)}]" for n, t in ms.items())
+               + f"  [{smi}]")
+        torch.cuda.empty_cache()
+
+
 def main() -> None:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("other", type=Path, help="root of the other checkout")
     p.add_argument("--k", type=int, nargs="+", default=[16, 106, 1024, 1106],
                    help="k_scan values (the packed flagship runs those up to 128)")
     p.add_argument("--rounds", type=int, default=6, help="timed rounds per library and case")
+    p.add_argument("--shares", type=float, nargs="*", default=[],
+                   help="the segment-length probe's shares of a slot's fair share")
     args = p.parse_args()
     smi = cs.phase_device()
     WORK.mkdir(parents=True, exist_ok=True)
     sources = {"other": args.other.resolve() / SOURCE, "this": ROOT / SOURCE}
     build(sources)
     other, this = sass(WORK / "other.cubin"), sass(WORK / "this.cubin")
-    for tag in INSTANCES:
-        a = next(v for k, v in other.items() if tag in k)
-        b = next(v for k, v in this.items() if tag in k)
-        diff = list(difflib.unified_diff(a, b, "other", "this", lineterm=""))
-        (WORK / f"{tag}.diff").write_text("\n".join(diff) + "\n")
-        changed = sum(1 for ln in diff[2:] if ln[:1] in "+-")
-        cs.log(f"[sass] {tag}: other {len(a)} instructions, this {len(b)}, "
-               f"{'identical' if a == b else f'{changed} lines differ'}")
+    common = sorted(n for n in set(other) & set(this) if n.startswith("scan_mma_kernel"))
+    differ = []
+    for name in common:
+        if other[name] != this[name]:
+            diff = difflib.unified_diff(other[name], this[name], "other", "this", lineterm="")
+            (WORK / f"{name}.diff").write_text("\n".join(diff) + "\n")
+            differ.append(name)
+    cs.log(f"[sass] {len(common)} scan kernel instances in both builds ({len(other)} and "
+           f"{len(this)} kernels in all): {len(common) - len(differ)} identical"
+           + (f"; differ: {', '.join(differ)}" if differ else ""))
 
     dev = torch.device("cuda", 0)
     store, virtual, queries, order = flagship_stores(dev)
-    libs = {}
+    sides = {}
     for name, src in sources.items():
-        lib = ctypes.CDLL(str(WORK / f"{name}.so"))
-        libs[name] = (lib, *bind(lib, src))
-    mapped = all(m for _, m, _ in libs.values())
+        merge = WORK / f"{name}_merge.so"
+        sides[name] = bind(WORK / f"{name}.so", src, merge if merge.exists() else None)
+    cs.log("[ab] " + "; ".join(
+        f"{n}: {'splits its pairs and merges' if sd.merge else 'one block a pair'}"
+        for n, sd in sides.items()))
+    if args.shares:
+        cs.check(sides["this"].merge is not None, "the share probe needs this tree's merge kernel")
+        probe_shares(sides["this"], store, queries, order, args.shares, args.rounds, smi)
+    mapped = all(sd.mapped for sd in sides.values())
     cases = [("packed", store, queries, order, mode, k) for k in args.k if k <= 128
              for mode in ("bf16", "int8", "f32")]
     if mapped:
         cases += [("virtual", virtual, queries[:256], order[:256], "f32", k) for k in args.k]
     for layout, st, q, o, mode, k in cases:
-        runs = {n: launcher(lib, m, f, st, q, o, mode, k) for n, (lib, m, f) in libs.items()}
+        runs = {n: launcher(sd, st, q, o, mode, k) for n, sd in sides.items()}
         outs = {n: tuple(t.clone() for t in run()) for n, run in runs.items()}
         same = all(torch.equal(x, y) for x, y in zip(outs["other"], outs["this"]))
-        cs.check(same, f"{layout} {mode} k={k}: the two kernels give different bits")
+        cs.check(same, f"{layout} {mode} k={k}: the two sides give different bits")
         del outs
         in_turns(runs, f"{layout} {mode} k_scan {k} ({q.shape[0]} queries", "same bits",
                  3 if layout == "virtual" else 5, args.rounds, smi)
     del virtual
     f32 = cs.dequantized_store(store)
+    fma = any(sd.fma_body for sd in sides.values())
     for k in (k for k in args.k if k <= 128):
-        runs = {n: launcher(lib, m, f, f32, queries, order, "f32", k)
-                for n, (lib, m, f) in libs.items()}
+        runs = {n: launcher(sd, f32, queries, order, "f32", k) for n, sd in sides.items()}
         outs = {n: tuple(t.clone() for t in run()) for n, run in runs.items()}
-        err, gap = cs.compare_candidates(*outs["this"], *outs["other"], "f32",
-                                         f"f32 store k={k}: this against other")
-        plan, sargs = scan_inputs(f32, queries, order, 128, "f32")
-        f64 = {n: cs.float64_error(f32, sargs[0], plan, *outs[n]) for n in outs}
-        del outs, sargs
-        in_turns(runs, f"f32 store f32 k_scan {k} ({queries.shape[0]} queries",
-                 f"agree at the f32 parity bar, max|Δd| {err:.3g} (at swapped slots {gap:.3g}); "
-                 f"against float64, the first 16 pairs' candidates: this {f64['this']:.3g}, "
-                 f"other {f64['other']:.3g}", 5, args.rounds, smi)
+        if fma:
+            err, gap = cs.compare_candidates(*outs["this"], *outs["other"], "f32",
+                                             f"f32 store k={k}: this against other")
+            plan, sargs = scan_inputs(f32, queries, order, 128, "f32")
+            f64 = {n: cs.float64_error(f32, sargs[0], plan, *outs[n]) for n in outs}
+            del sargs
+            agree = (f"agree at the f32 parity bar, max|Δd| {err:.3g} (at swapped slots "
+                     f"{gap:.3g}); against float64, the first 16 pairs' candidates: this "
+                     f"{f64['this']:.3g}, other {f64['other']:.3g}")
+        else:
+            cs.check(all(torch.equal(x, y) for x, y in zip(outs["other"], outs["this"])),
+                     f"f32 store k={k}: the two sides give different bits")
+            agree = "same bits"
+        del outs
+        in_turns(runs, f"f32 store f32 k_scan {k} ({queries.shape[0]} queries", agree, 5,
+                 args.rounds, smi)
 
 
 def in_turns(runs: dict, what: str, agree: str, reps: int, rounds: int, smi: str) -> None:

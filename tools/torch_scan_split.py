@@ -6,7 +6,8 @@
 The card's machine has no ``ncu``, so this splits the time by removing
 work: it builds ``learnedmetricindex_tpu_torch/csrc/scan_pairs.cu`` and a
 copy whose wide-list selection (``select_tile_merge``) only clears its
-group marks, into ``build/scan_split/``, and times both in one process,
+group marks, into ``build/scan_split/`` (both split and merged as the
+wrapper does, with ``csrc/scan_merge.cu``), and times both in one process,
 in alternating rounds, on the inputs of ``tools/torch_scan_ab.py``: the
 packed flagship (10k queries) in modes bf16, int8 and f32 at ``k_scan``
 16, 36 and 106, and f32 over the virtual store (256 queries) at 106,
@@ -18,7 +19,6 @@ the difference at one round is what selection costs.
 from __future__ import annotations
 
 import argparse
-import ctypes
 import subprocess
 import sys
 from pathlib import Path
@@ -60,24 +60,23 @@ def main() -> None:
     stub = WORK / "no_selection.cu"
     stub.write_text(without_selection(tree.read_text()))
     sources = {"tree": tree, "no selection": stub}
-    procs = [subprocess.Popen([cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, "-o",
-                               str(WORK / f"{i}.so"), str(src)],
-                              stdout=subprocess.DEVNULL, stderr=subprocess.PIPE)
-             for i, src in enumerate(sources.values())]
+    builds = [(WORK / f"{i}.so", src) for i, src in enumerate(sources.values())]
+    builds.append((WORK / "merge.so", ROOT / ab.MERGE_SOURCE))
+    procs = [subprocess.Popen([cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, "-o", str(out),
+                               str(src)], stdout=subprocess.DEVNULL, stderr=subprocess.PIPE)
+             for out, src in builds]
     for proc in procs:
         _, err = proc.communicate()
         cs.check(proc.returncode == 0, f"nvcc failed: {err.decode()[-2000:]}")
-    libs = {}
-    for i, (name, src) in enumerate(sources.items()):
-        lib = ctypes.CDLL(str(WORK / f"{i}.so"))
-        libs[name] = (lib, ab.bind(lib, src))
+    sides = {name: ab.bind(WORK / f"{i}.so", src, WORK / "merge.so")
+             for i, (name, src) in enumerate(sources.items())}
     store, virtual, queries, order = ab.flagship_stores(torch.device("cuda", 0))
     cases = [("packed", store, queries, order, mode, k) for k in (16, 36, 106)
              for mode in ("bf16", "int8", "f32")]
     cases += [("virtual", virtual, queries[:256], order[:256], "f32", k) for k in (106, 1024, 1106)]
-    names = list(libs)
+    names = list(sides)
     for layout, st, q, o, mode, k in cases:
-        runs = {n: ab.launcher(lib, m, st, q, o, mode, k) for n, (lib, m) in libs.items()}
+        runs = {n: ab.launcher(side, st, q, o, mode, k) for n, side in sides.items()}
         ms = {n: [] for n in runs}
         for r in range(args.rounds):
             for n in (names if r % 2 == 0 else names[::-1]):
