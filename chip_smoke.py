@@ -36,7 +36,12 @@ phases:
    in rounds under floors): the scan kernel over the items and the merge
    kernel bit-equal to the scan kernel over whole buckets, and within the
    bar of the plain version (every other case runs the wrapper's own
-   split);
+   split); then bf16 over the int8 store at list width 32, the default
+   search's scan and its wgmma body, at k 16 and 32 and qtile 1/8/100/128
+   (chunks of 320 and 130 rows, the store mutated, forced segments), and
+   the launches there that keep the mma.sync body (a virtual store, rows
+   of 100 bytes, k 1040 in rounds under floors), each case naming the
+   body its launches took;
 4. corpus: a seeded 10M×768 int8 corpus (+ f32 row scales) on the
    device and the exact f32 top-10 of the queries;
 5. search path: an index whose MLP-4 encodes a nearest-centroid
@@ -45,7 +50,8 @@ phases:
    then, at the flagship shape, the scan kernel, its plain version and
    the library yardstick (per bucket one matmul + ``torch.topk``) timed
    with CUDA events beside the least time the card could take (bound),
-   each with the split the wrapper chose (slots, segment length, items),
+   each with the body and the split the wrapper chose (slots, segment
+   length, items; each default search is one launch of the wgmma body),
    the merge kernel at the flagship against its plain version and
    ``smallest_k`` over the lists side by side, its bytes bound, its share
    of the scan and the split's host work a launch,
@@ -372,6 +378,7 @@ def phase_build() -> None:
 
 def reset_counts() -> None:
     scan_kernel.LAUNCHES = 0
+    scan_kernel.WGMMA_LAUNCHES = 0
     scan_kernel.MERGE_LAUNCHES = 0
     gather_kernel.LAUNCHES = 0
     gather_kernel.PAIR_LAUNCHES = 0
@@ -382,16 +389,16 @@ def read_counts() -> dict:
             "gather_pairs": gather_kernel.PAIR_LAUNCHES, "gather_rows": gather_kernel.LAUNCHES}
 
 
-def kv_stores(dev, d: int, seed: int = 7):
+def kv_stores(dev, d: int, seed: int = 7, chunk: int = 320):
     """A small multi-chunk store of each type at width ``d`` (an empty
-    bucket, padding slots, chunk 320: not a whole number of 128-row
-    tiles), 60 rows duplicated later in their own bucket, and 300
+    bucket, padding slots, chunk 320 by default: not a whole number of
+    128-row tiles), 60 rows duplicated later in their own bucket, and 300
     queries visiting 3 buckets (the first 60 are the duplicated rows and
     visit their bucket; 20 leave their last visit unused).  Returns the
     stores, the queries, their visits, the chunk, the (60, 2) object ids
     of the duplicated rows and what ``mutate_kv_stores`` needs."""
     g = BlobGenerator(16, d, seed=seed, noise=0.45, device=dev)
-    n, nb, chunk = 6000, 7, 320
+    n, nb = 6000, 7
     data = g.rows(n)
     rng = np.random.default_rng(seed)
     bucket_ids = rng.integers(0, nb, size=n)
@@ -521,28 +528,33 @@ def phase_kernel_vs_plain(dev) -> dict:
     wide_k_cases(dev, worst)
     tied_cases(dev, worst)
     split_cases(dev, worst)
+    width32_cases(dev, worst)
     for mode, (err, gap) in worst.items():
         log(f"[kernel-vs-plain] {mode}: max|Δd| {err:.3g}; at swapped slots {gap:.3g}")
     return worst
 
 
 def held_to_plain(store, queries, order, k: int, qtile: int, mode: str, partner, what: str,
-                  worst: dict, launches: int = 1, edit_qidx=None):
+                  worst: dict, launches: int = 1, edit_qidx=None, wgmma=None):
     """One scan case: the kernel (``launches`` launches) against its plain
     version (``compare_candidates``), no slot listed twice, exact ties to
     the earlier copy; folds the error into ``worst``.  ``edit_qidx`` may
     change the plan's query slots first; ``partner`` None skips the
-    duplicate-order check.  Returns the query slots, the pairs' buckets
-    and the kernel's slots."""
+    duplicate-order check; ``wgmma`` (where given) how many of the
+    launches must take the wgmma body.  The line names the body each
+    launch took.  Returns the query slots, the pairs' buckets and the
+    kernel's slots."""
     plan, args = scan_inputs(store, queries, order, qtile, mode)
     if edit_qidx is not None:
         args = (args[0], edit_qidx(args[1].clone()), *args[2:])
     kw = dict(k=k, qtile=qtile, chunk=store.chunk, mode=mode)
-    before = scan_kernel.LAUNCHES
+    before, before_w = scan_kernel.LAUNCHES, scan_kernel.WGMMA_LAUNCHES
     kd, ks = scan_kernel.scan_pairs(*args, **kw)
     torch.cuda.synchronize()
     check(scan_kernel.LAUNCHES - before == launches,
           f"{what}: {scan_kernel.LAUNCHES - before} launches, not {launches}")
+    n_w = scan_kernel.WGMMA_LAUNCHES - before_w
+    check(wgmma is None or n_w == wgmma, f"{what}: {n_w} wgmma-body launches, not {wgmma}")
     rd, rs = scan_kernel.scan_pairs_reference(*args, **kw)
     err, gap = compare_candidates(kd, ks, rd, rs, mode, what)
     distinct_slots(ks, what)
@@ -553,7 +565,9 @@ def held_to_plain(store, queries, order, k: int, qtile: int, mode: str, partner,
     worst[mode] = (max(worst[mode][0], err), max(worst[mode][1], gap))
     log(f"[kernel-vs-plain] {what:52s} pairs={plan.n_pairs:4d}: agree, max|Δd|={err:.3g}, "
         f"{int((ks != rs).sum().item())} slots swapped at ties (max|Δd| there {gap:.3g}), "
-        f"{n_dup} later duplicates after their earlier copy")
+        f"{n_dup} later duplicates after their earlier copy; body: "
+        f"{f'wgmma ×{n_w}' if n_w else ''}{' + ' if n_w and n_w < launches else ''}"
+        f"{f'mma.sync ×{launches - n_w}' if launches > n_w else ''}")
     return args[1], args[2], ks
 
 
@@ -712,6 +726,83 @@ def split_cases(dev, worst: dict) -> None:
                 f"duplicates after their earlier copy")
     log(f"[kernel-vs-plain] split: {n_cases} cases, each at segments of 1, 2 and whole buckets")
     del stores, virt, mutated
+
+
+def width32_cases(dev, worst: dict) -> None:
+    """bf16 over the int8 store at list width 32, where the wgmma body
+    runs: k 16 and 32 at qtile 1/8/100/128 over the ``kv_stores`` int8
+    store at chunk 320 (not whole 128-row tiles) and 130 (not whole
+    64-row tiles) and over the same store mutated (chunk lists out of
+    physical order); forced segments of 1 and 2 chunks bit-equal to whole
+    buckets at k 16 and 32; d 1152 (the widest resident query tile) and
+    1040 (rounded up to it).  Then the launches that keep the mma.sync body
+    at width 32: a virtual int8 store, rows of 100 bytes, and k 1040 over
+    buckets of ~4,000 rows (a 1024-wide round, then a 16-wide one under
+    its floors, which keeps the body of the round before it, so that both
+    sum a row the same way).  Each case checks which body its launches
+    took, as the library reports each launch."""
+    qtiles = (1, 8, 100, 128)
+    n_cases = 0
+    for chunk in (320, 130):
+        stores, queries, order, _, copies, made = kv_stores(dev, 768, seed=19, chunk=chunk)
+        st = stores["int8"]
+        for tag in ("", " mutated") if chunk == 320 else ("",):
+            if tag:  # after the fresh store's cases: mutation writes the store in place
+                virt = virtual_stores(made, stores["f32"])
+                held_to_plain(virt["int8"], queries, order, 16, 128, "bf16",
+                              scan_partner(virt["int8"], copies),
+                              "width 32 bf16 virtual int8 corpus k=16 qtile=128", worst, wgmma=0)
+                del virt
+                mutated, copies = mutate_kv_stores({"int8": st}, copies, made, seed=19)
+                st = mutated["int8"]
+            partner = scan_partner(st, copies)
+            for k in (16, 32):
+                for qtile in qtiles:
+                    held_to_plain(st, queries, order, k, qtile, "bf16", partner,
+                                  f"width 32 bf16 store=int8{tag} chunk={chunk} k={k} qtile={qtile}",
+                                  worst, wgmma=1)
+                    n_cases += 1
+                if tag:
+                    continue
+                plan, args = scan_inputs(st, queries, order, 128, "bf16")
+                whole, _ = split_run(st, args, plan, k, 128, "bf16", 10**6)
+                for segment in (1, 2):
+                    got, _ = split_run(st, args, plan, k, 128, "bf16", segment)
+                    check(torch.equal(got[0].view(torch.int32), whole[0].view(torch.int32))
+                          and torch.equal(got[1], whole[1]),
+                          f"width 32 chunk={chunk} k={k} segment={segment}: the split's bits "
+                          f"differ from whole buckets")
+                log(f"[kernel-vs-plain] width 32 bf16 store=int8 chunk={chunk} k={k} qtile=128: "
+                    f"segments of 1 and 2 chunks bit-equal to whole buckets (wgmma body)")
+        del stores, st
+    stores, queries, order, _, copies, _ = kv_stores(dev, 100, seed=19)
+    held_to_plain(stores["int8"], queries, order, 16, 128, "bf16",
+                  scan_partner(stores["int8"], copies), "width 32 bf16 store=int8 d=100 k=16 "
+                  "qtile=128", worst, wgmma=0)
+    del stores
+    # the widest query tile the wgmma body keeps resident (1152), and a d
+    # that the library rounds up to it
+    for d in (1152, 1040):
+        stores, queries, order, _, copies, _ = kv_stores(dev, d, seed=19)
+        held_to_plain(stores["int8"], queries, order, 16, 128, "bf16",
+                      scan_partner(stores["int8"], copies), f"width 32 bf16 store=int8 d={d} "
+                      "k=16 qtile=128", worst, wgmma=1)
+        del stores
+    # floors at width 32: buckets of ~4,000 rows, so the 16-wide round runs
+    g = BlobGenerator(16, 768, seed=23, noise=0.45, device=dev)
+    data = g.rows(12_000)
+    rng = np.random.default_rng(23)
+    q_int, q_sc = quantize.quantize_rows(data)
+    st = BucketStore.build_packed_device(q_int, rng.integers(0, 3, 12_000), 3, chunk=320,
+                                         row_scales=q_sc)
+    order = torch.as_tensor(np.stack([rng.permutation(3)[:2] for _ in range(200)]), device=dev)
+    for qtile in (8, 128):
+        held_to_plain(st, g.rows(200), order, 1040, qtile, "bf16", None,
+                      f"width 32 rounds bf16 store=int8 k=1040 qtile={qtile}", worst,
+                      launches=2, wgmma=0)
+    log(f"[kernel-vs-plain] width 32: {n_cases + 6} cases held to the plain version, "
+        f"each naming its body")
+    del st, data
 
 
 def in_scan_order(qidx, pair_bucket, slots, in_order, what: str) -> None:
@@ -977,10 +1068,16 @@ def phase_main(dev, data: dict, smi: str):
     one = search(queries[:1])
     hundred = search(queries[:100])
     launches = read_counts()
+    wgmma_launches = scan_kernel.WGMMA_LAUNCHES
     peak = torch.cuda.max_memory_allocated()
     # ------------------------------------------------------------------
     check(launches["scan_pairs"] > 0 and launches["scan_merge"] == launches["scan_pairs"],
           "the main path launched the scan kernel and one merge a scan")
+    # six default searches (bf16 over the int8 store, k_scan 16: the wgmma
+    # body), one highest and one int8 (the mma.sync body)
+    check(launches["scan_pairs"] == 8 and wgmma_launches == 6,
+          f"the main path: {launches['scan_pairs']} scan launches, {wgmma_launches} on the "
+          f"wgmma body, not 8 and 6")
     check(set(measured) == {"inference", "search", "search_within_buckets", "seq_search", "sort"},
           "measured keys")
     check(one[0].shape == (1, 10) and hundred[0].shape == (100, 10), "small requests' shapes")
@@ -995,7 +1092,8 @@ def phase_main(dev, data: dict, smi: str):
         f"mean {mean_s:.4f} s per {nq} queries = {nq / mean_s:.0f} QPS; "
         f"inference {measured['inference']:.4f} s, scan {measured['seq_search']:.4f} s; "
         f"peak device memory {peak / 1e9:.2f} GB (corpus resident); kernel launches "
-        f"{launches}  [{smi}]")
+        f"{launches}, of the scan's {wgmma_launches} on the wgmma body (one a default "
+        f"search, each with one merge)  [{smi}]")
 
     # ---- checks against exact kNN over each query's visited buckets ----
     nc = 256
@@ -1091,22 +1189,24 @@ def flagship_scan(store, queries, order, k: int, mode: str, smi: str, tag: str) 
 def split_plan(sargs, k: int, mode: str) -> dict:
     """How the scan wrapper splits the plan of ``sargs`` at ``k``: the
     slots on the card, the segment length, the pairs and the items."""
-    _, qidx, pb, ptr, _, st = sargs[:6]
+    _, qidx, pb, ptr, _, st, _, _, row_ids = sargs
     lib = cuda_build.load(scan_kernel.SOURCE, scan_kernel._bind)
     ptr_h, pb_h, live = scan_kernel.host_plan(ptr, pb, qidx, 128)
-    slots = scan_kernel.scan_slots(lib, st.device, mode, st.dtype, k)
+    body = scan_kernel.scan_body(lib, st, mode, k, row_ids)  # one round, no floor
     seg = scan_kernel.segment_length(ptr_h, pb_h, live, width=scan_kernel.list_width(k),
-                                     slots=slots)
+                                     slots=body.slots,
+                                     wgmma_block=body.block_queries if body.wgmma else 0)
     work = scan_kernel.split_pairs(ptr_h, pb_h, seg)
     chunks = np.diff(ptr_h)[pb_h]
-    return {"slots": slots, "segment": seg, "pairs": len(pb_h), "items": len(work.item_pair),
-            "largest": int(chunks.max(initial=0)), "work": work}
+    return {"slots": body.slots, "segment": seg, "pairs": len(pb_h),
+            "items": len(work.item_pair), "largest": int(chunks.max(initial=0)), "work": work,
+            "wgmma": body.wgmma, "qd": body.qd if body.wgmma else 0}
 
 
 def split_text(split: dict) -> str:
-    return (f"split: {split['slots']} slots, segments of {split['segment']} chunks, "
-            f"{split['pairs']} pairs -> {split['items']} items (largest bucket "
-            f"{split['largest']} chunks)")
+    return (f"{'wgmma' if split['wgmma'] else 'mma.sync'} body; split: {split['slots']} slots, "
+            f"segments of {split['segment']} chunks, {split['pairs']} pairs -> {split['items']} "
+            f"items (largest bucket {split['largest']} chunks)")
 
 
 def merge_vs_plain(store, queries, order, k: int, mode: str, scan_ms: float, smi: str) -> dict:
@@ -1124,9 +1224,9 @@ def merge_vs_plain(store, queries, order, k: int, mode: str, scan_ms: float, smi
     inputs = scan_kernel.split_inputs(split["work"], qidx, None, qtile=128, chunk=store.chunk)
     lib = cuda_build.load(scan_kernel.SOURCE, scan_kernel._bind)
     item_d, item_s = scan_kernel._launch_items(
-        lib, scan_kernel.operand_queries(q, mode, st.dtype), qs, inputs.qidx, inputs.pair_bucket,
-        inputs.ptr, chunk_of, st, sc, row_ids, None, k=k, qtile=128, chunk=store.chunk,
-        mode=mode, terms=3 if mode == "f32" else 1)
+        lib, scan_kernel.operand_queries(q, mode, st.dtype, split["qd"]), qs, inputs.qidx,
+        inputs.pair_bucket, inputs.ptr, chunk_of, st, sc, row_ids, None, k=k, qtile=128,
+        chunk=store.chunk, mode=mode, terms=3 if mode == "f32" else 1, wgmma=split["wgmma"])
     args = (item_d, item_s, inputs.pair_items)
     k_ms = cuda_ms(lambda: scan_kernel.merge_split_lists(*args), 20)
     p_ms = cuda_ms(lambda: scan_kernel.merge_split_lists_reference(*args), 3)
@@ -1320,8 +1420,10 @@ def phase_virtual(dev, data: dict, ctx: dict, smi: str):
     rounds) equals exact kNN over the visited buckets.  Then the row-map
     scan alone beside the packed scan (CUDA events, in turns), its plain
     version, the library call and the bound; the row-map kernel's
-    candidates are bit-equal to the packed kernel's (same rows, slots
-    and scales)."""
+    candidates within the bf16 bar of the packed kernel's (the packed
+    store's scan takes the wgmma body, the row map the mma.sync body) and,
+    in f32 (one body on both), bit-equal to them (same rows, slots and
+    scales)."""
     corpus, row_scales, queries = data["corpus"], data["row_scales"], data["queries"]
     index, pred, packed = ctx["index"], ctx["data_prediction"], ctx["store"]
     nq, d = queries.shape[0], corpus.shape[1]
@@ -1400,19 +1502,33 @@ def phase_virtual(dev, data: dict, ctx: dict, smi: str):
     mac, ops, peak_ops, nbytes = scan_work(store, plan, order, d, 16, "bf16")
     bound = {"operations": ops / peak_ops * 1e3, "bytes": nbytes / HBM_BYTES_PER_S * 1e3}
     bound_by = max(bound, key=bound.get)
+    before = scan_kernel.WGMMA_LAUNCHES
     kd, ks = scan_kernel.scan_pairs(*vargs, **kw)
+    n_virtual = scan_kernel.WGMMA_LAUNCHES - before
     pd_, ps_ = scan_kernel.scan_pairs(*pargs, **kw)
+    n_packed = scan_kernel.WGMMA_LAUNCHES - before - n_virtual
     rd, rs = scan_kernel.scan_pairs_reference(*vargs, **kw)
     err, gap = compare_candidates(kd, ks, rd, rs, "bf16", "flagship row map bf16")
-    check(torch.equal(kd, pd_) and torch.equal(ks, ps_),
-          "the row-map kernel's candidates are bit-equal to the packed kernel's")
+    check(n_packed == 1 and n_virtual == 0,
+          f"the packed scan takes the wgmma body, the row map the mma.sync body: {n_packed} "
+          f"and {n_virtual} wgmma-body launches")
+    pair_err, _ = compare_candidates(kd, ks, pd_, ps_, "bf16",
+                                     "row map (mma.sync body) against packed (wgmma body)")
+    same_lists = int(((kd.view(torch.int32) == pd_.view(torch.int32)) & (ks == ps_)).all(2).sum())
+    fk = dict(k=16, qtile=128, chunk=store.chunk, mode="f32")
+    fvd, fvs = scan_kernel.scan_pairs(*scan_inputs(store, qc, order_c, 128, "f32")[1], **fk)
+    fpd, fps = scan_kernel.scan_pairs(*scan_inputs(packed, qc, order_c, 128, "f32")[1], **fk)
+    check(torch.equal(fvd, fpd) and torch.equal(fvs, fps),
+          "the row-map kernel's candidates are bit-equal to the packed kernel's (f32, one body)")
     log(f"[virtual] scan_pairs bf16, row map (virtual store): kernel {v_ms:.3f} ms "
         f"({', '.join(f'{t:.3f}' for t in runs['virtual'])}) against the packed store's "
         f"{p_ms:.3f} ms ({', '.join(f'{t:.3f}' for t in runs['packed'])}) = {v_ms / p_ms:.3f}x; "
         f"plain {plain_ms:.2f} ms; library (gather through the grid + matmul + topk) "
         f"{lib_ms:.2f} ms; bound {bound[bound_by]:.3f} ms by {bound_by} ({nbytes / 1e9:.3f} GB) = "
         f"{bound[bound_by] / v_ms:.1%} of it; {plan.n_pairs} pairs; agree, max|Δd|={err:.3g}; "
-        f"bit-equal to the packed kernel's candidates  [{smi}]")
+        f"against the packed store's wgmma body max|Δd|={pair_err:.3g}, {same_lists} of "
+        f"{ks.shape[0] * ks.shape[1]} lists bit-equal; in f32 ({nc} queries, the mma.sync body "
+        f"on both) bit-equal to the packed kernel's candidates  [{smi}]")
     # the k=1100 search's scan alone (k_scan 1106 in f32 over its 256
     # queries): the first round (1024 wide) and both rounds, beside k 16
     wplan, wargs = scan_inputs(store, qc, order_c, 128, "f32")
@@ -1686,8 +1802,11 @@ def gather_split(store, queries, plan, sargs, cand_d, cand_s, smi: str) -> None:
     scan_q = cuda_ms(lambda: scan_kernel.scan_pairs(*sargs, **kw), 5)
     scan_rows = cuda_ms(lambda: scan_kernel.scan_pairs(*margs, **kw), 5)
     dtype = store.chunk_data.dtype
-    op_q = cuda_ms(lambda: scan_kernel.operand_queries(queries, "bf16", dtype), 20)
-    op_rows = cuda_ms(lambda: scan_kernel.operand_queries(mq, "bf16", dtype), 20)
+    body = scan_kernel.scan_body(cuda_build.load(scan_kernel.SOURCE, scan_kernel._bind),
+                                 store.chunk_data, "bf16", 16)
+    qd = body.qd if body.wgmma else 0
+    op_q = cuda_ms(lambda: scan_kernel.operand_queries(queries, "bf16", dtype, qd), 20)
+    op_rows = cuda_ms(lambda: scan_kernel.operand_queries(mq, "bf16", dtype, qd), 20)
     gather_ms = cuda_ms(work_rows, 20)
     ok = (rows >= 0)[:, None]
 

@@ -65,7 +65,7 @@
 //    128-query × 128-row distance tile with 8 warps of 64 × 32 (4 m-tiles ×
 //    4 n-tiles, 64 accumulators a thread).  64 × 32 rather than 32 × 64:
 //    every B fragment (a store row slice, widened from int8 to bf16 in
-//    registers on the main path) then feeds four mma, so the widening
+//    registers in bf16 mode over an int8 store) then feeds four mma, so the widening
 //    costs a quarter of what it would with 2 m-tiles.
 //  * Operands sit in shared memory in their storage type (bf16, int8; the
 //    f32 rows of an f32 store as f32, split after they are read), fed by a cp.async ring of 64-byte depth slices of the query tile
@@ -81,7 +81,8 @@
 //    __float2bfloat16_rn), are staged through registers into the ring.
 //  * Queries: the wrapper rounds them to bf16 once per call (bits equal
 //    to __float2bfloat16_rn) or passes the int8 rows, zero-padded to a
-//    multiple of 16 elements.  bf16 over an int8 store (the main path):
+//    multiple of 16 elements.  bf16 over an int8 store (outside the
+//    Hopper body's scope, below):
 //    the store stays int8 in shared memory; ldmatrix hands each thread 4
 //    consecutive int8 values of a row, which widen exactly to two bf16x2
 //    B registers holding k' = (2t, 2t+1) and (2t+8, 2t+9) of a 16-deep
@@ -137,7 +138,7 @@
 //    flagship on an H100.  32-deep stages and deeper rings measured no
 //    faster.
 //  * The ring shares the distance tile's shared memory and drains at the
-//    end of every row tile; at list width 32 (the flagship) a block takes
+//    end of every row tile; at list width 32 a block takes
 //    ~104–111 KB, so two blocks share an SM (the six-term body excepted,
 //    above) and one block's epilogue and selection overlap the other's mma.  (One block an SM with a deeper
 //    ring that never drains was slower: the selection then stalls the
@@ -148,7 +149,7 @@
 //    after the first tiles of a bucket almost nothing does, and unmarked
 //    groups are skipped.  Lists live query-major (a query's entries side
 //    by side, ascending).  A warp takes one query at a time.  Width 32
-//    (k <= 32, the flagship): the list sits in the lanes, one ballot finds
+//    (k <= 32): the list sits in the lanes, one ballot finds
 //    a marked group's candidates and each enters with a ballot (its rank)
 //    and two shuffles, in scan order.  Wider lists: the warp packs the
 //    tile's candidates of the query into its buffer, ranks them, and
@@ -172,18 +173,56 @@
 // The split (ops/scan_kernel.py::segment_length): a block's work is its
 // item's chunks × the 16-query m-tiles it computes (all 8 at width 32;
 // the live ones of its own query slots above), the card's slots are the
-// SMs × this instance's blocks an SM (lmi_scan_blocks_per_sm, the
+// SMs × this instance's blocks an SM (lmi_scan_body, the
 // occupancy API), and a segment is the longest that keeps every block
 // within half a slot's share of the launch.  Items still start largest
 // first (pair_order).  Each segment's lists start empty, so a smaller
 // segment costs more selection warm-up (its first rows all enter) and
 // more merge input.
 //
+// The Hopper body (scan_wgmma_kernel): bf16 queries over an int8 packed
+// store at list width 32, the default search's scan (wgmma_scope picks it;
+// lmi_scan_body tells the wrapper, which lays out the queries and splits
+// the pairs for the body it names).  What bounded the mma.sync body there (tools/torch_scan_probe.py
+// on an H100, 29.2 ms at the flagship): the query tile reloaded from L2
+// for every row tile (a fifth of the time), selection (a ninth), the
+// widening (an eighth), and what is left with all three gone, 19.7 ms:
+// mma.sync issued warp by warp behind a __syncthreads every 32-deep step
+// of a ring that drains every row tile.  The design:
+//  * a block owns 64 query slots (a pair of more than 64 takes two
+//    blocks), and their bf16 rows stay in shared memory for the whole
+//    item (d rounded up to 128, 98,304 B at d 768), written once in the
+//    layout wgmma's B operand reads (K-major, no swizzle, core matrices
+//    of 8 queries × 8 depths);
+//  * store rows are wgmma's A operand, from registers: 384 threads, two
+//    consumer warpgroups of 64 rows each and a producer warpgroup whose
+//    first two warps each feed one consumer's ring of 2 stages of 64
+//    rows × 128 depths (two TMA boxes of 64 × 64 bytes a stage) (a 2-D tensor map over the store, boxes
+//    that may reach past the chunk, whose rows the epilogue masks, or
+//    past the store, which TMA fills with zeros); full and empty
+//    mbarriers, and the producer runs ahead across row tiles and chunks,
+//    so the ring never drains; setmaxnreg moves the producer's registers
+//    to the consumers;
+//  * a consumer lane reads 16 bytes of each of its two rows a stage and
+//    widens word j into the A registers of k-step j (widen_s8x4, exact),
+//    one stage ahead of the tensor cores: the depth map is WGMMA_ORDER
+//    (ops/scan_kernel.py), which the wrapper applies to the queries;
+//    wgmma.m64nNk16 with N = 16 × the block's m-tiles up to its last live
+//    one, so a block of a few queries does not pay for 64;
+//  * the two consumer warpgroups take alternate 64-row tiles; after its
+//    wgmma a warpgroup writes its own distance tile and marks (against a
+//    k-th that can only be stale from above), waits for the other to
+//    finish selecting the tile before (a named barrier), and selects with
+//    select_tile_warp's rule (wgmma_select) while the other warpgroup's
+//    wgmma runs, so selection overlaps the tensor cores and the lists see
+//    the tiles in scan order.
+// It sums each 16-deep step on the tensor cores in another order than
+// mma.sync, so its lists match the plain version to the bf16 bar, not
+// the mma.sync body's bits.  The other bodies keep the mma.sync design.
+//
 // What is left for later work:
-//  * wgmma with TMA loads from a producer warp (mma.sync does not reach
-//    the card's dense tensor rate), and a persistent or resident query
-//    tile (it is reloaded from L2 for every row tile, half of the bytes a
-//    tile moves in int8 mode);
+//  * the int8 mode on the Hopper body (s8 × s8 wgmma, both operands in
+//    shared memory, no widening), then the f32 bodies;
 //  * the split's cost: one host read of the plan and one upload of the
 //    work list a launch, and a merge pass; a persistent grid that takes
 //    items from a device-side queue would need neither the read nor the
@@ -226,6 +265,7 @@
 // m-tiles of its own queries.  Each block owns whole queries of its item;
 // only an item's segments of one pair are merged (csrc/scan_merge.cu).
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -1171,6 +1211,572 @@ __global__ void __launch_bounds__(THREADS, (MmaBody<MODE, TS, KMAX>::BLOCKS))
   write_out(p, s, b);
 }
 
+// ---------------------------------------------------------------------
+// the Hopper body: bf16 queries over an int8 packed store, list width 32
+// (wgmma, TMA, a producer warp a consumer warpgroup; see the note at the top)
+// ---------------------------------------------------------------------
+constexpr int WQ = 64;          // query slots of a block: the wgmma's N (at most)
+constexpr int WR = 64;          // store rows of a tile: one consumer warpgroup's M
+constexpr int WK = 64;          // int8 depths of a TMA box (four 16-deep k-steps)
+constexpr int W_BOXES = 2;      // boxes of WR × WK bytes a ring stage
+constexpr int W_STAGE = W_BOXES * WR * WK;   // bytes of a stage
+constexpr int W_KSTEPS = W_BOXES * WK / 16;  // 16-deep k-steps a stage
+constexpr int W_QD_STEP = W_BOXES * WK;      // query rows are zero-padded to a multiple
+constexpr int W_STAGES = 2;     // ring stages a consumer warpgroup
+constexpr int W_CONSUMERS = 2;    // consumer warpgroups, each with its own ring
+constexpr int W_THREADS = (W_CONSUMERS + 1) * 128;  // + the producer warpgroup
+constexpr int WDQ = WR + 4;       // distance tile [query][row]: ≡ 4 (mod 32) banks
+constexpr int W_KSTEP = WQ * 16 * 2;  // bytes of the resident queries a 16-deep k-step
+constexpr int W_LIST = 32;        // list width
+// named barriers (0 is __syncthreads): a warpgroup's own, the hand-over of
+// the lists to a warpgroup, all consumers
+constexpr int BAR_WG = 1, BAR_HANDOVER = BAR_WG + W_CONSUMERS,
+              BAR_CONSUMERS = BAR_HANDOVER + W_CONSUMERS;
+// registers a thread after setmaxnreg: the producer warpgroup gives up
+// what the consumers take (multiples of 8, 64K an SM, at most 232)
+constexpr int W_PRODUCER_REGS = 40;
+constexpr int W_CONSUMER_REGS_FIT = (65536 / 128 - W_PRODUCER_REGS) / W_CONSUMERS / 8 * 8;
+constexpr int W_CONSUMER_REGS = W_CONSUMER_REGS_FIT < 232 ? W_CONSUMER_REGS_FIT : 232;
+// barriers, query metadata and marks, lists, the two distance tiles
+constexpr size_t kWHeadBytes =
+    size_t(2 * W_CONSUMERS * W_STAGES) * 8 + size_t(WQ + W_CONSUMERS * WQ) * 4 +
+    size_t(2 * W_LIST * WQ) * 4 + size_t(W_CONSUMERS * WQ * WDQ) * 4;
+constexpr size_t kWRingOffset = (kWHeadBytes + 1023) / 1024 * 1024;
+constexpr size_t kWRingBytes = size_t(W_CONSUMERS) * W_STAGES * W_STAGE;
+// the widest resident query tile (d rounded up to W_QD_STEP) that fits
+constexpr int W_MAX_QD =
+    int((232448 - kWRingOffset - kWRingBytes) / (size_t(WQ) * 2 * W_QD_STEP)) * W_QD_STEP;
+static_assert(W_MAX_QD >= 1024, "a 1024-wide query tile is resident");
+
+// dynamic shared memory at query width qd
+__host__ __device__ inline size_t wgmma_smem_bytes(int qd) {
+  return kWRingOffset + kWRingBytes + size_t(WQ) * 2 * qd;
+}
+
+struct WSmem {
+  uint64_t* full;    // [W_CONSUMERS][W_STAGES] the producer's TMA landed
+  uint64_t* empty;   // [W_CONSUMERS][W_STAGES] the warpgroup's four warps read it
+  int* q_row;        // [WQ] query row of slot q, -1 = none
+  unsigned* q_grp;   // [W_CONSUMERS][WQ] byte g: 32-row group g of the tile may enter q's list
+  float* top_d;      // [WQ][W_LIST]
+  int* top_s;        // [WQ][W_LIST]
+  float* dist;       // [W_CONSUMERS][WQ][WDQ]
+  unsigned char* ring;     // [W_CONSUMERS][W_STAGES][WR][WK] int8 rows, as TMA writes them
+  unsigned char* queries;  // resident bf16 queries, qd / 16 k-steps of W_KSTEP bytes
+  __device__ explicit WSmem(unsigned char* base) {
+    full = reinterpret_cast<uint64_t*>(base);
+    empty = full + W_CONSUMERS * W_STAGES;
+    q_row = reinterpret_cast<int*>(empty + W_CONSUMERS * W_STAGES);
+    q_grp = reinterpret_cast<unsigned*>(q_row + WQ);
+    top_d = reinterpret_cast<float*>(q_grp + W_CONSUMERS * WQ);
+    top_s = reinterpret_cast<int*>(top_d + W_LIST * WQ);
+    dist = reinterpret_cast<float*>(top_s + W_LIST * WQ);
+    ring = base + kWRingOffset;
+    queries = ring + kWRingBytes;
+  }
+  __device__ unsigned char* stage(int wg, int slot) const {
+    return ring + (wg * W_STAGES + slot) * W_STAGE;
+  }
+};
+
+struct WItem {
+  int pair, q0, c_lo, c_hi;
+  int nl;  // m-tiles (16 query slots) the block computes: up to its last live one
+};
+
+// A walk over an item's 64-row tiles, chunk by chunk (no division)
+struct TileWalk {
+  int c, t;  // the chunk's place in the CSR, the tile within the chunk
+  __device__ void advance(int n, int per_chunk) {
+    for (t += n; t >= per_chunk; t -= per_chunk) ++c;
+  }
+};
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count) : "memory");
+}
+// wait for the phase of `parity` to complete; a phase that never does (a
+// lost copy) traps, so the launch fails instead of holding the card
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  for (uint32_t tries = 0;; ++tries) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (tries == (1u << 26)) __trap();
+  }
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+// a 64-depth × 64-row box of the store (x: depth, y: slot) into `dst`
+__device__ __forceinline__ void tma_load_rows(void* dst, const CUtensorMap* map, int x, int y,
+                                              uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(x), "r"(y), "r"(smem_u32(bar))
+      : "memory");
+}
+__device__ __forceinline__ void bar_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+__device__ __forceinline__ void bar_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+__device__ __forceinline__ uint4 lds128u(const void* p) {
+  uint4 v;
+  asm volatile("ld.shared.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+               : "r"(smem_u32(p)));
+  return v;
+}
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>  // until at most N committed groups are in flight
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// keep registers that an in-flight wgmma reads or writes where they are
+template <int N>
+__device__ __forceinline__ void hold(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+__device__ __forceinline__ void hold(uint32_t (&r)[W_KSTEPS][4]) {
+#pragma unroll
+  for (int j = 0; j < W_KSTEPS; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) asm volatile("" : "+r"(r[j][i])::"memory");
+}
+
+// The B operand's descriptor: the resident queries of one k-step, K-major
+// without swizzle, core matrices of 8 queries × 8 depths (128 contiguous
+// bytes); the two 8-deep halves of the k-step 128 bytes apart (leading
+// byte offset), the eight 8-query groups 256 bytes apart (stride byte offset)
+__device__ __forceinline__ uint64_t query_desc(uint32_t addr) {
+  return uint64_t((addr & 0x3ffff) >> 4) | (uint64_t(128 >> 4) << 16) | (uint64_t(256 >> 4) << 32);
+}
+// byte offset of query slot n's 8 depths (k' 8h .. 8h+7) of k-step j
+__device__ __forceinline__ int query_at(int j, int h, int n) {
+  return j * W_KSTEP + (n >> 3) * 256 + h * 128 + (n & 7) * 16;
+}
+
+// D (64 rows × N query slots, f32) += A (64 rows × 16 depths, bf16, in
+// registers) · B (16 depths × N slots, bf16, at desc)
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t desc) {
+  if constexpr (N == 16) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+  }
+  if constexpr (N == 32) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, {%16, %17, %18, %19}, %20, p, 1, 1, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+  }
+  if constexpr (N == 48) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %29, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23}, {%24, %25, %26, %27}, %28, p, 1, 1, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+  }
+  if constexpr (N == 64) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+  }
+}
+
+// The block's item, its query slots, empty lists, the ring's
+// barriers and the resident query tile.  Slot q holds query q0 + q; slots
+// past qtile hold none.  nl = 0: no slot is live, the block writes the fill.
+__device__ WItem wgmma_begin(const Params& p, const WSmem& s) {
+  const int tid = threadIdx.x;
+  const int splits = (p.qtile + WQ - 1) / WQ;
+  WItem b;
+  b.pair = p.pair_order[blockIdx.x / splits];
+  b.q0 = (blockIdx.x % splits) * WQ;
+  const int bucket = p.pair_bucket[b.pair];
+  b.c_lo = p.ptr[bucket];
+  b.c_hi = p.ptr[bucket + 1];
+  bool live = false;
+  if (tid < WQ) {
+    const bool own = b.q0 + tid < p.qtile;
+    const size_t e = (size_t)b.pair * p.qtile + b.q0 + tid;
+    const int qi = own ? p.qidx[e] : -1;
+    live = qi >= 0;
+    s.q_row[tid] = qi;
+  }
+  if (tid < W_CONSUMERS * WQ) s.q_grp[tid] = 0;
+  for (int e = tid; e < W_LIST * WQ; e += W_THREADS) {
+    s.top_d[e] = CUDART_INF_F;
+    s.top_s[e] = -1;
+  }
+  if (tid == 0) {
+    for (int i = 0; i < W_CONSUMERS * W_STAGES; ++i) {
+      mbar_init(&s.full[i], 1);
+      mbar_init(&s.empty[i], 4);  // a consumer warpgroup's four warps
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  b.nl = 0;
+#pragma unroll
+  for (int m = 0; m < WQ / 16; ++m)
+    if (__syncthreads_or(live && tid / 16 == m)) b.nl = m + 1;
+  if (b.nl == 0) return b;
+  // the live m-tiles' query rows, 16 bytes a piece, into the canonical
+  // layout (a padding query's rows zero); 8 neighbouring threads write
+  // one core matrix
+  const int pieces = b.nl * 16 * (p.qd / 8);
+  const unsigned char* qbytes = static_cast<const unsigned char*>(p.queries);
+  for (int i = tid; i < pieces; i += W_THREADS) {
+    const int n = i % (b.nl * 16), piece = i / (b.nl * 16);
+    const int qi = s.q_row[n];
+    const size_t off = size_t(qi >= 0 ? qi : 0) * p.qd * 2 + piece * 16;
+    cp_async16(s.queries + query_at(piece >> 1, piece & 1, n), qbytes + off, qi >= 0);
+  }
+  cp_async_commit();
+  cp_async_wait<0>();
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // wgmma reads them
+  __syncthreads();
+  return b;
+}
+
+// The producer (one thread): every 64-row tile of the item that consumer
+// warpgroup `wg` takes (tiles wg, wg + 2, ...), each as qd / 64 stages
+// through the warpgroup's ring, running ahead across tiles and chunks.
+// A box may reach past the chunk's last row (the consumers mask those
+// rows) or past the store (TMA writes zeros).
+__device__ void wgmma_produce(const CUtensorMap* map, const Params& p, const WSmem& s,
+                              const WItem& b, int wg) {
+  const int per_chunk = (p.chunk + WR - 1) / WR, nst = p.qd / (WK * W_BOXES);
+  TileWalk w{b.c_lo, 0};
+  w.advance(wg, per_chunk);
+  int phys = w.c < b.c_hi ? p.chunk_of[w.c] : 0;
+  int cnt = 0;
+  while (w.c < b.c_hi) {
+    const int row = phys * p.chunk + w.t * WR;
+    TileWalk next = w;  // the chunk of this ring's next tile, read while this one's stages go out
+    next.advance(W_CONSUMERS, per_chunk);
+    const int next_phys = next.c < b.c_hi ? p.chunk_of[next.c] : 0;
+    for (int st = 0; st < nst; ++st, ++cnt) {
+      const int slot = cnt % W_STAGES;
+      uint64_t* full = &s.full[wg * W_STAGES + slot];
+      mbar_wait(&s.empty[wg * W_STAGES + slot], ((cnt / W_STAGES) & 1) ^ 1);
+      mbar_expect_tx(full, W_STAGE);
+#pragma unroll
+      for (int box = 0; box < W_BOXES; ++box)
+        tma_load_rows(s.stage(wg, slot) + box * WR * WK, map, (st * W_BOXES + box) * WK, row, full);
+    }
+    w = next;
+    phys = next_phys;
+  }
+}
+
+// Width-32 selection of a consumer warpgroup's tile: select_tile_warp's
+// rule over the tile's [query][row] distances, four warps, the slots the
+// block computes (nq): the list in a warp's lanes, a marked 32-row group's
+// candidates by ballot, each entering in scan order after every entry <= it.
+// Its own copy of that rule (other tile and list layouts), so that the
+// mma.sync instances keep their code.
+__device__ void wgmma_select(const Params& p, const WSmem& s, int wg, int nq, int nrows, int slot0) {
+  const int lane = threadIdx.x & 31, k = p.k;
+  const float* dist = s.dist + wg * WQ * WDQ;
+  unsigned* grp = s.q_grp + wg * WQ;
+  for (int q = (threadIdx.x >> 5) & 3; q < nq; q += 4) {
+    const unsigned groups = grp[q];
+    if (groups == 0) continue;
+    __syncwarp();
+    if (lane == 0) grp[q] = 0;
+    if (s.q_row[q] < 0) continue;
+    float dl = s.top_d[q * W_LIST + lane];
+    int sl = s.top_s[q * W_LIST + lane];
+    float worst = __shfl_sync(FULL, dl, k - 1);
+    bool changed = false;
+    for (int group = 0; group < WR / 32; ++group) {
+      if (((groups >> (8 * group)) & 0xffu) == 0) continue;
+      const int r = group * 32 + lane;
+      const float v = r < nrows ? dist[q * WDQ + r] : CUDART_INF_F;
+      unsigned cand = __ballot_sync(FULL, v < worst);
+      while (cand != 0) {
+        const int j = __ffs(cand) - 1;
+        cand &= cand - 1;
+        const float vj = __shfl_sync(FULL, v, j);
+        if (!(vj < worst)) continue;
+        // the shuffles do not wait for the ballot: the new k-th is the old
+        // (k-1)-th unless the row lands last (k == 1: it always does)
+        const float up_d = __shfl_up_sync(FULL, dl, 1);
+        const int up_s = __shfl_up_sync(FULL, sl, 1);
+        const float below = __shfl_sync(FULL, dl, k - 2);
+        const int pos = __popc(__ballot_sync(FULL, lane < k && dl <= vj));
+        if (lane > pos) {
+          dl = up_d;
+          sl = up_s;
+        } else if (lane == pos) {
+          dl = vj;
+          sl = slot0 + group * 32 + j;
+        }
+        worst = pos < k - 1 ? below : vj;
+        changed = true;
+      }
+    }
+    if (changed && lane < k) {
+      s.top_d[q * W_LIST + lane] = dl;
+      s.top_s[q * W_LIST + lane] = sl;
+    }
+  }
+}
+
+// A consumer warpgroup: its tiles (wg, wg + 2, ...) of the item.  Per tile,
+// the wgmma over qd / 16 k-steps (A: the tile's rows widened from the ring
+// into registers, one stage ahead of the tensor cores; B: the resident
+// queries), then the epilogue (distances, marks) and, once the other
+// warpgroup has selected the tile before, the selection, while the other
+// warpgroup's wgmma runs.  N = 16·NL query slots.
+template <int NL>
+__device__ void wgmma_consume(const Params& p, const WSmem& s, const WItem& b, int wg) {
+  constexpr int N = 16 * NL;
+  const int tid = threadIdx.x & 127, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int per_chunk = (p.chunk + WR - 1) / WR, nst = p.qd / (WK * W_BOXES);
+  const int ntiles = (b.c_hi - b.c_lo) * per_chunk;
+  const uint32_t q_base = smem_u32(s.queries);
+  TileWalk w{b.c_lo, 0};
+  w.advance(wg, per_chunk);
+  int phys = w.c < b.c_hi ? p.chunk_of[w.c] : 0;
+  float* dist = s.dist + wg * WQ * WDQ;
+  int cnt = 0;  // stages this warpgroup has taken from its ring
+  unsigned live = 0;  // bit 2n + e: the lane's query slot 8n + 2t + e holds a query
+#pragma unroll
+  for (int n = 0; n < N / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) live |= unsigned(s.q_row[8 * n + 2 * t + e] >= 0) << (2 * n + e);
+
+  // the A fragments of a stage's k-steps, four a box: lane (g, t) reads
+  // bytes 16t .. 16t+15 of rows g and g+8 of its warp's 16 in each box;
+  // word j widens to the depths the registers of the box's k-step j hold
+  // (WGMMA_ORDER in ops/scan_kernel.py)
+  auto take_stage = [&](uint32_t(&a)[W_KSTEPS][4]) {
+    const int slot = cnt % W_STAGES;
+    mbar_wait(&s.full[wg * W_STAGES + slot], (cnt / W_STAGES) & 1);
+#pragma unroll
+    for (int box = 0; box < W_BOXES; ++box) {
+      const unsigned char* x = s.stage(wg, slot) + box * WR * WK + (warp * 16 + g) * WK + t * 16;
+      const uint4 lo = lds128u(x), hi = lds128u(x + 8 * WK);
+      const uint32_t wl[4] = {lo.x, lo.y, lo.z, lo.w}, wh[4] = {hi.x, hi.y, hi.z, hi.w};
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        uint32_t bl[2], bh[2];
+        widen_s8x4(wl[j], bl);
+        widen_s8x4(wh[j], bh);
+        a[4 * box + j][0] = bl[0];
+        a[4 * box + j][1] = bh[0];
+        a[4 * box + j][2] = bl[1];
+        a[4 * box + j][3] = bh[1];
+      }
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&s.empty[wg * W_STAGES + slot]);
+    ++cnt;
+  };
+
+  for (int i = wg; i < ntiles; i += W_CONSUMERS) {
+    const int r0 = w.t * WR;
+    const int slot0 = phys * p.chunk + r0, nrows = min(WR, p.chunk - r0);
+    w.advance(W_CONSUMERS, per_chunk);  // the next tile's chunk, read while this one runs
+    phys = w.c < b.c_hi ? p.chunk_of[w.c] : 0;
+    float r_scale[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = warp * 16 + g + 8 * h;
+      r_scale[h] = r < nrows ? p.scales[slot0 + r] : 0.0f;  // → +inf distance
+    }
+    float acc[N / 2];
+#pragma unroll
+    for (int e = 0; e < N / 2; ++e) acc[e] = 0.0f;
+    // stage st's wgmma reads a[st % 2]; stage st + 1's is queued behind it
+    // before the warpgroup waits for stage st - 1 and widens stage st + 1
+    // into the registers stage st - 1 read
+    uint32_t a[2][W_KSTEPS][4];
+    auto issue = [&](auto buf, int st) {
+      constexpr int B = decltype(buf)::value;
+      wgmma_fence();
+#pragma unroll
+      for (int j = 0; j < W_KSTEPS; ++j)
+        wgmma_rs<N>(acc, a[B][j], query_desc(q_base + (W_KSTEPS * st + j) * W_KSTEP));
+      wgmma_commit();
+    };
+    auto step = [&](auto buf, int st) {  // st >= 1
+      constexpr int B = decltype(buf)::value;
+      issue(buf, st);
+      wgmma_wait<1>();  // stage st - 1 is done with a[B ^ 1]
+      hold(a[B ^ 1]);
+      if (st + 1 < nst) take_stage(a[B ^ 1]);
+    };
+    take_stage(a[0]);
+    issue(std::integral_constant<int, 0>{}, 0);
+    if (nst > 1) take_stage(a[1]);
+    for (int st = 1; st < nst; st += 2) {
+      step(std::integral_constant<int, 1>{}, st);
+      if (st + 1 < nst) step(std::integral_constant<int, 0>{}, st + 1);
+    }
+    wgmma_wait<0>();
+    hold(a[0]);
+    hold(a[1]);
+    hold(acc);
+
+    // epilogue: acc[4n + 2h + e] is row 16·warp + g + 8h, query slot 8n + 2t + e.
+    // The other warpgroup may still be selecting the tile before: a k-th
+    // read now is no smaller than the one that selection leaves, so the
+    // marks cover every row that can enter (wgmma_select tests each
+    // against the list again)
+#pragma unroll
+    for (int n = 0; n < N / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int q = 8 * n + 2 * t + e;
+        float v[2];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          v[h] = distance<false>(acc[4 * n + 2 * h + e], r_scale[h], 1.0f);
+          dist[q * WDQ + warp * 16 + g + 8 * h] = v[h];
+        }
+        if (((live >> (2 * n + e)) & 1u) &&
+            fminf(v[0], v[1]) < *static_cast<volatile const float*>(&s.top_d[q * W_LIST + p.k - 1]))
+          reinterpret_cast<unsigned char*>(s.q_grp + wg * WQ)[q * 4 + (warp >> 1)] = 1;
+      }
+    bar_sync(BAR_WG + wg, 128);
+    if (i > 0) bar_sync(BAR_HANDOVER + wg, 256);  // the tile before is selected (by the warpgroup before)
+    wgmma_select(p, s, wg, N, nrows, slot0);
+    bar_sync(BAR_WG + wg, 128);  // the distance tile is free again
+    if (i + 1 < ntiles) bar_arrive(BAR_HANDOVER + (wg + 1) % W_CONSUMERS, 256);
+  }
+}
+
+__device__ void wgmma_write(const Params& p, const WSmem& s, const WItem& b, bool fill) {
+  const int n_own = min(WQ, p.qtile - b.q0);
+  const size_t out0 = ((size_t)b.pair * p.qtile + b.q0) * p.k;
+  const int threads = fill ? W_THREADS : W_CONSUMERS * 128;
+  for (int e = threadIdx.x; e < n_own * p.k; e += threads) {
+    const int q = e / p.k, j = e % p.k;
+    p.out_d[out0 + e] = fill ? CUDART_INF_F : s.top_d[q * W_LIST + j];
+    p.out_s[out0 + e] = fill ? -1 : s.top_s[q * W_LIST + j];
+  }
+}
+
+__global__ void __launch_bounds__(W_THREADS, 1)
+    scan_wgmma_kernel(const __grid_constant__ CUtensorMap rows, Params p) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const WSmem s(smem);
+  const WItem b = wgmma_begin(p, s);
+  if (b.nl == 0) return wgmma_write(p, s, b, true);
+  const int wg = threadIdx.x / 128;
+  if (wg == W_CONSUMERS) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(W_PRODUCER_REGS) : "memory");
+    if (threadIdx.x % 128 < 32 * W_CONSUMERS && threadIdx.x % 32 == 0)
+      wgmma_produce(&rows, p, s, b, threadIdx.x % 128 / 32);
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(W_CONSUMER_REGS) : "memory");
+    switch (b.nl) {
+      case 1: wgmma_consume<1>(p, s, b, wg); break;
+      case 2: wgmma_consume<2>(p, s, b, wg); break;
+      case 3: wgmma_consume<3>(p, s, b, wg); break;
+      default: wgmma_consume<4>(p, s, b, wg); break;
+    }
+    bar_sync(BAR_CONSUMERS, W_CONSUMERS * 128);
+    wgmma_write(p, s, b, false);
+  }
+}
+
+// The store as a 2-D tensor of n_rows × d bytes for TMA (boxes of WR rows
+// × WK depths, zeros past its edges), by cuTensorMapEncodeTiled looked up
+// at run time, so the library needs no link to libcuda.
+cudaError_t row_tensor_map(CUtensorMap* map, const void* store, int n_rows, int d) {
+  using Encode = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+                              const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
+                              CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
+                              CUtensorMapFloatOOBfill);
+  static Encode encode = nullptr;
+  if (encode == nullptr) {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &fn, 12000,
+                                                       cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &found);
+#endif
+    if (err != cudaSuccess) return err;
+    if (found != cudaDriverEntryPointSuccess || fn == nullptr) return cudaErrorNotSupported;
+    encode = reinterpret_cast<Encode>(fn);
+  }
+  const cuuint64_t dims[2] = {cuuint64_t(d), cuuint64_t(n_rows)};
+  const cuuint64_t strides[1] = {cuuint64_t(d)};
+  const cuuint32_t box[2] = {WK, WR}, elem[2] = {1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(store), dims,
+                            strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// The body's scope: bf16 queries over an int8 packed store (no row map),
+// lists of width 32 and no floor, rows of whole 16 bytes at a 16-byte
+// aligned store, and a resident query tile that fits (d rounded up to
+// W_QD_STEP <= W_MAX_QD).  A round under a floor (k past 1024) keeps the
+// mma.sync body of the rounds before it: every round sums a row the same
+// way, or a row at the boundary could be listed twice or not at all.
+bool wgmma_scope(int mode, int store_type, int k, int d, const void* store, const void* row_ids,
+                 bool floored) {
+  return mode == MODE_BF16 && store_type == STORE_INT8 && row_ids == nullptr && !floored &&
+         k <= W_LIST &&
+         d % 16 == 0 && reinterpret_cast<uintptr_t>(store) % 16 == 0 &&
+         (d + W_QD_STEP - 1) / W_QD_STEP * W_QD_STEP <= W_MAX_QD;
+}
+
+// Launches the body over n_pairs pairs (two blocks of 64 query slots a
+// pair of more than 64), or reports its blocks an SM
+cudaError_t launch_wgmma(const Params& p, int n_pairs, int n_rows, cudaStream_t stream,
+                         int* blocks_per_sm) {
+  void (*kernel)(const CUtensorMap, Params) = scan_wgmma_kernel;
+  if (p.qd % W_QD_STEP != 0 || p.qd > W_MAX_QD) return cudaErrorInvalidValue;
+  const size_t smem = wgmma_smem_bytes(p.qd);
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  if (blocks_per_sm != nullptr)
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, kernel, W_THREADS, smem);
+  CUtensorMap map;
+  err = row_tensor_map(&map, p.store, n_rows, p.d);
+  if (err != cudaSuccess) return err;
+  const int splits = (p.qtile + WQ - 1) / WQ;
+  kernel<<<n_pairs * splits, W_THREADS, smem, stream>>>(map, p);
+  return cudaGetLastError();
+}
+
 // Launches the instance over n_pairs pairs, or where blocks_per_sm is
 // set, reports how many of its blocks one SM holds at once instead
 template <int MODE, typename TS, int KMAX>
@@ -1203,9 +1809,11 @@ cudaError_t launch(const Params& p, int n_pairs, cudaStream_t stream, int* block
   return launch_width<MODE, TS, MAX_K>(p, n_pairs, stream, blocks_per_sm);
 }
 
-// the instance of a mode over a store type
-cudaError_t dispatch(const Params& p, int mode, int store_type, int n_pairs, cudaStream_t s,
-                     int* blocks_per_sm) {
+// the body and instance of a mode over a store type: the wgmma body where
+// the call is in its scope (wgmma_scope), else the mma.sync body's instance
+cudaError_t dispatch(const Params& p, int mode, int store_type, bool wgmma, int n_pairs, int n_rows,
+                     cudaStream_t s, int* blocks_per_sm) {
+  if (wgmma) return launch_wgmma(p, n_pairs, n_rows, s, blocks_per_sm);
   if (mode == MODE_INT8 && store_type == STORE_INT8)
     return launch<MODE_INT8, int8_t>(p, n_pairs, s, blocks_per_sm);
   if (mode == MODE_F32) {
@@ -1233,18 +1841,29 @@ extern "C" {
 //  * f32 mode over any store: bf16, nt 3, qd a multiple of 32 >= d: per
 //    32-value depth slice the terms hi, mid, lo side by side
 //    (ops/scan_kernel.py::operand_queries);
-//  * bf16 mode: bf16, int8 mode: int8, nt 1, qd a multiple of 16 >= d.
-// All pointers are device pointers; nothing is allocated and nothing
-// synchronizes.
+//  * bf16 mode: bf16, int8 mode: int8, nt 1, qd a multiple of 16 >= d;
+//    where the call takes the wgmma body (wgmma_scope: bf16 over an int8
+//    packed store, k <= 32, ...), qd is d rounded up to W_QD_STEP (128)
+//    and each group of 64 values is in WGMMA_ORDER (ops/scan_kernel.py).
+// n_rows: the store's rows (the edge of its TMA tensor map).  *body: in,
+// the body the queries are laid out for (1 the wgmma body, 0 the mma.sync
+// body, as lmi_scan_body named it); out, the body the call's scope picks.
+// Where the two differ nothing launches and the call returns
+// cudaErrorInvalidValue.  All other pointers are device pointers; nothing
+// is allocated and nothing synchronizes.
 int lmi_scan_pairs(const void* queries, const void* qscales, const void* qidx,
                    const void* pair_bucket, const void* pair_order, const void* ptr,
                    const void* chunk_of,
                    const void* store, const void* scales, const void* row_ids,
                    const void* floor_d, const void* floor_p, void* out_d, void* out_s,
                    int n_pairs, int qtile, int k, int d, int qd, int chunk, int mode,
-                   int store_type, void* stream) {
+                   int store_type, int n_rows, int* body, void* stream) {
+  if (body == nullptr) return cudaErrorInvalidValue;
+  const int laid_out = *body;
+  *body = wgmma_scope(mode, store_type, k, d, store, row_ids, floor_d != nullptr) ? 1 : 0;
+  if (*body != laid_out) return cudaErrorInvalidValue;
   if (n_pairs <= 0) return cudaSuccess;
-  if (qtile < 1 || qtile > QT || k < 1 || k > MAX_K || d < 1 || chunk < 1)
+  if (qtile < 1 || qtile > QT || k < 1 || k > MAX_K || d < 1 || chunk < 1 || n_rows < 1)
     return cudaErrorInvalidValue;
   if (mode == MODE_INT8 && store_type != STORE_INT8) return cudaErrorInvalidValue;
   if ((floor_d == nullptr) != (floor_p == nullptr) || (row_ids == nullptr && scales == nullptr))
@@ -1278,19 +1897,38 @@ int lmi_scan_pairs(const void* queries, const void* qscales, const void* qidx,
            qd,
            chunk,
            granule >= 4 ? granule : 0};
-  return dispatch(p, mode, store_type, n_pairs, static_cast<cudaStream_t>(stream), nullptr);
+  return dispatch(p, mode, store_type, *body == 1, n_pairs, n_rows,
+                  static_cast<cudaStream_t>(stream), nullptr);
 }
 
-// How many blocks of the instance that k, mode and store_type launch one
-// SM holds at once (cudaOccupancyMaxActiveBlocksPerMultiprocessor, with
-// the instance's shared memory): the wrapper's slots on the card, for
-// the split of the pairs into items.  Returns a cudaError_t.
-int lmi_scan_blocks_per_sm(int k, int mode, int store_type, int* blocks) {
-  if (k < 1 || k > MAX_K || blocks == nullptr) return cudaErrorInvalidValue;
+// What the wrapper needs to know of a launch at k, mode, store_type and d
+// over `store` (and `row_ids`, null for a packed store; `floored`, under
+// floors), the one place that decides it: *body the body the launch takes
+// (wgmma_scope: 1 the wgmma body, 0 the mma.sync body), *qd the width of
+// the query rows that body reads (d rounded up to W_QD_STEP for the wgmma
+// body, else to 16, or 32 in f32 mode), *block_queries the query slots one
+// of its blocks keeps, and *blocks how many of its blocks one SM holds at
+// once (cudaOccupancyMaxActiveBlocksPerMultiprocessor, with its shared
+// memory): the card's slots for the split of the pairs into items.
+// Returns a cudaError_t.
+int lmi_scan_body(int k, int mode, int store_type, int d, const void* store, const void* row_ids,
+                  int floored, int* body, int* qd, int* block_queries, int* blocks) {
+  if (k < 1 || k > MAX_K || d < 1 || body == nullptr || qd == nullptr ||
+      block_queries == nullptr || blocks == nullptr)
+    return cudaErrorInvalidValue;
+  const bool wgmma = wgmma_scope(mode, store_type, k, d, store, row_ids, floored != 0);
+  const int q_group = wgmma ? W_QD_STEP : mode == MODE_F32 ? 32 : 16;
+  *body = wgmma ? 1 : 0;
+  *qd = (d + q_group - 1) / q_group * q_group;
+  int width = 32;
+  while (width < k) width *= 2;
+  *block_queries = wgmma ? WQ : queries_per_block(width);
   Params p{};
   p.k = k;
   p.qtile = QT;
-  return dispatch(p, mode, store_type, 0, nullptr, blocks);
+  p.d = d;
+  p.qd = *qd;
+  return dispatch(p, mode, store_type, wgmma, 0, 1, nullptr, blocks);
 }
 
 }  // extern "C"

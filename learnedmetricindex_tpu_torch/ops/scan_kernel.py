@@ -22,11 +22,18 @@ of a pair whose bucket has no chunks.
   lists back into one (:func:`merge_split_lists`: ``csrc/scan_merge.cu``
   on CUDA, :func:`merge_split_lists_reference` on the CPU).  The lists
   are those of one scan of the whole bucket, bit for bit.
+* Two bodies: the bf16 queries over an int8 packed store at list width
+  32 (the default search) run the Hopper body (wgmma, TMA, a resident
+  query tile of 64 slots a block); every other call the mma.sync body.
+  The library decides (``wgmma_scope``); :func:`scan_body` asks it which
+  body a launch takes, and each launch checks that the queries were laid
+  out for the body that runs.
 * :func:`operand_queries` — the query rows the kernel reads;
   :func:`split_f32` — the exact three-term bf16 split of f32 queries
   behind them in mode ``"f32"``; :func:`split_f32_truncated` — the
   kernel's split of f32 store values (its plain model, for the tests).
-* ``LAUNCHES`` — how many times the wrapper launched the kernel;
+* ``LAUNCHES`` — how many times the wrapper launched the kernel
+  (``WGMMA_LAUNCHES``: of those, the launches that ran the Hopper body);
   ``MERGE_LAUNCHES`` — the merge kernel.
 
 Stores: a packed store is ``(n_slots, d)`` rows with ``(n_slots,)``
@@ -62,10 +69,13 @@ from learnedmetricindex_tpu_torch.ops.select import smallest_k
 MODES = {"f32": 0, "bf16": 1, "int8": 2}
 MAX_K = 1024  # the widest top-k list of csrc/scan_pairs.cu: wider k runs in rounds
 MAX_QTILE = 128  # QT in csrc/scan_pairs.cu
+_BODY_NAMES = ("mma.sync", "wgmma")
 _STORE_TYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
 #: kernel launches made by :func:`scan_pairs` (never by the plain version)
 LAUNCHES = 0
+#: of LAUNCHES, those that ran the wgmma body (as the library reports each launch)
+WGMMA_LAUNCHES = 0
 #: merge kernel launches made by :func:`merge_split_lists` (never by its plain version)
 MERGE_LAUNCHES = 0
 
@@ -80,6 +90,15 @@ SEGMENT_SHARE = 0.5
 #: must sit at those depths too.
 WIDEN_ORDER = (0, 1, 4, 5, 8, 9, 12, 13, 2, 3, 6, 7, 10, 11, 14, 15)
 
+#: Depth order, within each group of 64, of the bf16 queries that the
+#: wgmma body reads: a TMA box holds 64 depths of each store row, and
+#: lane t of a quad reads its bytes 16t .. 16t+15 as four words, word j
+#: widening into the A registers of k-step j of the box at depths
+#: (2t, 2t+1) and (2t+8, 2t+9) of that k-step.  So position 16j + k' of
+#: the group holds depth 16·((k' % 8) // 2) + 4j + k' % 2 + 2·(k' // 8).
+WGMMA_ORDER = tuple(16 * ((kk % 8) // 2) + 4 * j + kk % 2 + 2 * (kk // 8)
+                    for j in range(4) for kk in range(16))
+
 SOURCE = cuda_build.CSRC / "scan_pairs.cu"
 MERGE_SOURCE = cuda_build.CSRC / "scan_merge.cu"
 
@@ -92,10 +111,10 @@ def build() -> Tuple[Path, float]:
 
 def _bind(lib: ctypes.CDLL) -> None:
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.lmi_scan_pairs.argtypes = [vp] * 14 + [ci] * 8 + [vp]
+    lib.lmi_scan_pairs.argtypes = [vp] * 14 + [ci] * 9 + [ctypes.POINTER(ci), vp]
     lib.lmi_scan_pairs.restype = ci
-    lib.lmi_scan_blocks_per_sm.argtypes = [ci, ci, ci, ctypes.POINTER(ci)]
-    lib.lmi_scan_blocks_per_sm.restype = ci
+    lib.lmi_scan_body.argtypes = [ci, ci, ci, ci, vp, vp, ci] + [ctypes.POINTER(ci)] * 4
+    lib.lmi_scan_body.restype = ci
 
 
 def _bind_merge(lib: ctypes.CDLL) -> None:
@@ -256,7 +275,8 @@ def split_f32_truncated(values: torch.Tensor) -> Tuple[torch.Tensor, torch.Tenso
     return hi.bfloat16(), mid.bfloat16(), lo.bfloat16()
 
 
-def operand_queries(queries: torch.Tensor, mode: str, store_dtype: torch.dtype) -> torch.Tensor:
+def operand_queries(queries: torch.Tensor, mode: str, store_dtype: torch.dtype,
+                    wgmma_qd: int = 0) -> torch.Tensor:
     """The query rows the kernel reads, 16-byte aligned: in mode
     ``"bf16"`` the queries rounded to bf16 (nearest even, once per call)
     and in mode ``"int8"`` the int8 rows, each zero-padded to a multiple
@@ -264,18 +284,28 @@ def operand_queries(queries: torch.Tensor, mode: str, store_dtype: torch.dtype) 
     :func:`split_f32`, each zero-padded to a multiple of 32 values and
     laid out per 32-value depth slice as ``hi, mid, lo`` side by side,
     ``(n, 3·qd)``.  Where bf16 terms meet an int8 store, each group of 16
-    values is in :data:`WIDEN_ORDER`."""
+    values is in :data:`WIDEN_ORDER`; for the wgmma body the bf16 rows are
+    zero-padded to ``wgmma_qd`` values instead (the width it reads,
+    :attr:`Body.qd`: a multiple of 64 >= d), each group of 64 in
+    :data:`WGMMA_ORDER`."""
     if mode == "f32":
         terms, group = split_f32(queries), 32
     else:
         terms, group = (queries.to(torch.bfloat16) if mode == "bf16" else queries,), 16
     n, d = queries.shape
     qd = d + -d % group
+    if wgmma_qd:
+        if wgmma_qd < d or wgmma_qd % 64:
+            raise ValueError(f"operand_queries: wgmma rows of {wgmma_qd} values for d {d}")
+        qd = wgmma_qd
     out = []
     for q in terms:
         if qd > d:
             q = torch.cat([q, q.new_zeros((n, qd - d))], dim=1)
-        if mode != "int8" and store_dtype == torch.int8:
+        if wgmma_qd:
+            order = torch.tensor(WGMMA_ORDER, device=q.device)
+            q = q.reshape(n, qd // 64, 64)[:, :, order].reshape(n, qd)
+        elif mode != "int8" and store_dtype == torch.int8:
             order = torch.tensor(WIDEN_ORDER, device=q.device)
             q = q.reshape(n, qd // 16, 16)[:, :, order].reshape(n, qd)
         out.append(q)
@@ -357,8 +387,8 @@ def list_width(k: int) -> int:
 
 
 def queries_per_block(width: int) -> int:
-    """Query slots whose lists one block keeps at a list width (QB in
-    csrc/scan_pairs.cu): above 128 a pair's queries split over blocks."""
+    """Query slots whose lists one mma.sync block keeps at a list width (QB
+    in csrc/scan_pairs.cu): above 128 a pair's queries split over blocks."""
     return MAX_QTILE if width <= 128 else MAX_QTILE * 128 // width
 
 
@@ -405,21 +435,30 @@ def split_pairs(ptr: np.ndarray, pair_bucket: np.ndarray, segment: int) -> WorkL
 
 
 def segment_length(ptr: np.ndarray, pair_bucket: np.ndarray, live: np.ndarray, *,
-                   width: int, slots: int, share: float = SEGMENT_SHARE) -> int:
+                   width: int, slots: int, share: float = SEGMENT_SHARE,
+                   wgmma_block: int = 0) -> int:
     """The segment length (in chunks) of a launch: the longest that keeps
     every block's work within ``share`` of one slot's fair share, the
     launch's work over ``slots`` (SMs × blocks an SM).  A block's work is
-    its item's chunks × the 16-query m-tiles it computes: all 8 at list
-    width 32, else those of its own query slots (``live``: bit m set
-    where m-tile m of the pair holds a query).  Where no block has work,
-    no bucket is cut."""
+    its item's chunks × the 16-query m-tiles it computes (``live``: bit m
+    set where m-tile m of the pair holds a query): the mma.sync body's
+    all 8 at list width 32, else those of its own query slots; the wgmma
+    body's (``wgmma_block``: its blocks' query slots, :attr:`Body.block_queries`)
+    its m-tiles up to its last live one, the width of its wgmma.  Where no
+    block has work, no bucket is cut."""
     ptr = np.asarray(ptr, dtype=np.int64)
     chunks = (ptr[1:] - ptr[:-1])[np.asarray(pair_bucket, dtype=np.int64)]
     tiles = MAX_QTILE // 16
     bits = (np.asarray(live, dtype=np.int64)[:, None] >> np.arange(tiles)) & 1
-    if width == 32:  # a width-32 block computes every m-tile
-        bits = np.ones_like(bits)
-    block_tiles = bits.reshape(len(chunks), -1, queries_per_block(width) // 16).sum(axis=2)
+    per_block = (wgmma_block or queries_per_block(width)) // 16
+    if wgmma_block:
+        bits = bits.reshape(len(chunks), -1, per_block)
+        last = per_block - np.argmax(bits[:, :, ::-1], axis=2)  # past the last live m-tile
+        block_tiles = np.where(bits.any(axis=2), last, 0)
+    else:
+        if width == 32:  # a width-32 block computes every m-tile
+            bits = np.ones_like(bits)
+        block_tiles = bits.reshape(len(chunks), -1, per_block).sum(axis=2)
     total = int((chunks[:, None] * block_tiles).sum())
     if total == 0:
         return max(1, int(chunks.max(initial=1)))
@@ -546,25 +585,44 @@ def merge_split_lists(item_d: torch.Tensor, item_s: torch.Tensor,
     return out_d, out_s
 
 
-_slots: Dict[tuple, int] = {}  # (device, mode, store type, list width) → slots on the card
+class Body(NamedTuple):
+    """What the library says of a launch (``lmi_scan_body``, the one place
+    that picks the body)."""
+
+    wgmma: bool  # the wgmma body takes it; else the mma.sync body
+    qd: int  # the width of the query rows that body reads
+    block_queries: int  # query slots one of its blocks keeps
+    slots: int  # its blocks that the card holds at once: SMs × blocks an SM
 
 
-def scan_slots(lib, device: torch.device, mode: str, store_dtype: torch.dtype, k: int) -> int:
-    """Blocks of the kernel instance that ``k`` launches that the card
-    holds at once: SMs × ``cudaOccupancyMaxActiveBlocksPerMultiprocessor``,
-    queried once per instance and cached."""
-    key = (device.index, mode, store_dtype, list_width(k))
-    if key not in _slots:
-        blocks = ctypes.c_int(0)
-        with torch.cuda.device(device):
-            err = lib.lmi_scan_blocks_per_sm(k, MODES[mode], _STORE_TYPES[store_dtype],
-                                             ctypes.byref(blocks))
-        if err != 0 or blocks.value < 1:
+# (library, device, mode, store type, list width, d, virtual, aligned, floored) → Body
+_bodies: Dict[tuple, Body] = {}
+
+
+def scan_body(lib, store: torch.Tensor, mode: str, k: int,
+              row_ids: Optional[torch.Tensor] = None, floored: bool = False) -> Body:
+    """The body that a launch at ``k`` over ``store`` (a virtual store's
+    corpus with ``row_ids``; ``floored``: under floors) takes, as the
+    library decides it, with its query row width, its blocks' query slots
+    and the card's slots (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``):
+    asked once for each case and cached."""
+    d = store.shape[1]
+    key = (lib._name, store.device.index, mode, store.dtype, list_width(k), d,
+           row_ids is not None, store.data_ptr() % 16 == 0, floored)
+    if key not in _bodies:
+        out = [ctypes.c_int(0) for _ in range(4)]
+        with torch.cuda.device(store.device):
+            err = lib.lmi_scan_body(
+                k, MODES[mode], _STORE_TYPES[store.dtype], d, store.data_ptr(),
+                row_ids.data_ptr() if row_ids is not None else None, int(floored),
+                *(ctypes.byref(o) for o in out))
+        body, qd, block_queries, blocks = (o.value for o in out)
+        if err != 0 or blocks < 1:
             raise RuntimeError(f"scan_pairs occupancy query failed: cudaError {err}, "
-                               f"{blocks.value} blocks an SM")
-        sms = torch.cuda.get_device_properties(device).multi_processor_count
-        _slots[key] = sms * blocks.value
-    return _slots[key]
+                               f"{blocks} blocks an SM")
+        sms = torch.cuda.get_device_properties(store.device).multi_processor_count
+        _bodies[key] = Body(bool(body), qd, block_queries, sms * blocks)
+    return _bodies[key]
 
 
 def host_plan(ptr: torch.Tensor, pair_bucket: torch.Tensor, qidx: torch.Tensor,
@@ -584,9 +642,12 @@ def host_plan(ptr: torch.Tensor, pair_bucket: torch.Tensor, qidx: torch.Tensor,
 
 
 def _launch_items(lib, queries, qscales, qidx, pair_bucket, ptr, chunk_of, store, scales,
-                  row_ids, floor, *, k: int, qtile: int, chunk: int, mode: str, terms: int):
+                  row_ids, floor, *, k: int, qtile: int, chunk: int, mode: str, terms: int,
+                  wgmma: bool):
     """One kernel launch over the given pairs (here: items over the
-    segments ``ptr``), ``k <= MAX_K``."""
+    segments ``ptr``), ``k <= MAX_K``; ``queries`` laid out by
+    :func:`operand_queries` for the body ``wgmma`` names, which the
+    library holds to the body it takes (raises where they differ)."""
     n_pairs = pair_bucket.shape[0]
     out_d = torch.empty((n_pairs, qtile, k), dtype=torch.float32, device=store.device)
     out_s = torch.empty((n_pairs, qtile, k), dtype=torch.int32, device=store.device)
@@ -599,6 +660,7 @@ def _launch_items(lib, queries, qscales, qidx, pair_bucket, ptr, chunk_of, store
     def ptr_of(t):
         return t.data_ptr() if t is not None else None
 
+    body = ctypes.c_int(int(wgmma))
     with torch.cuda.device(store.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.lmi_scan_pairs(
@@ -607,12 +669,16 @@ def _launch_items(lib, queries, qscales, qidx, pair_bucket, ptr, chunk_of, store
             chunk_of.data_ptr(), store.data_ptr(), ptr_of(scales), ptr_of(row_ids),
             ptr_of(floor_d), ptr_of(floor_p), out_d.data_ptr(), out_s.data_ptr(),
             n_pairs, qtile, k, store.shape[1], queries.shape[1] // terms, chunk, MODES[mode],
-            _STORE_TYPES[store.dtype], stream,
+            _STORE_TYPES[store.dtype], store.shape[0], ctypes.byref(body), stream,
         )
+    if body.value != int(wgmma):
+        raise RuntimeError(f"scan_pairs: the kernel takes the {_BODY_NAMES[body.value]} body, "
+                           f"the queries are laid out for the {_BODY_NAMES[int(wgmma)]} body")
     if err != 0:
         raise RuntimeError(f"scan_pairs kernel launch failed: cudaError {err}")
-    global LAUNCHES
+    global LAUNCHES, WGMMA_LAUNCHES
     LAUNCHES += 1
+    WGMMA_LAUNCHES += body.value
     return out_d, out_s
 
 
@@ -621,12 +687,19 @@ def _kernel_round(queries, ptr, chunk_of, store, scales, qscales, row_ids, *, qt
     """``scan_round(qidx, pair_bucket, k, floor)`` of :func:`scan_in_rounds`:
     the pairs split into items (one host read of the plan, one upload),
     one scan kernel launch over the items and one merge kernel launch,
-    ``k <= MAX_K``, the queries laid out once for the body that reads
-    them.  ``segment`` forces the segment length (tests and
-    ``chip_smoke.py``); by default :func:`segment_length` picks it."""
+    ``k <= MAX_K``, the queries laid out once for each body that reads
+    them (:func:`scan_body`: a round's width may change the body).
+    ``segment`` forces the segment length (tests and ``chip_smoke.py``);
+    by default :func:`segment_length` picks it."""
     lib = cuda_build.load(SOURCE, _bind)
-    queries = operand_queries(queries, mode, store.dtype)
     terms = 3 if mode == "f32" else 1
+    laid_out = {}
+
+    def body_queries(body):
+        qd = body.qd if body.wgmma else 0
+        if qd not in laid_out:
+            laid_out[qd] = operand_queries(queries, mode, store.dtype, qd)
+        return laid_out[qd]
 
     def scan_round(q_idx, p_bucket, w, floor):
         n_pairs = p_bucket.shape[0]
@@ -634,15 +707,16 @@ def _kernel_round(queries, ptr, chunk_of, store, scales, qscales, row_ids, *, qt
             empty = torch.empty((0, qtile, w), device=store.device)
             return empty, empty.int()
         ptr_h, pb_h, live_h = host_plan(ptr, p_bucket, q_idx, qtile)
+        body = scan_body(lib, store, mode, w, row_ids, floor is not None)
         seg = segment
         if seg is None:
-            seg = segment_length(ptr_h, pb_h, live_h, width=list_width(w),
-                                 slots=scan_slots(lib, store.device, mode, store.dtype, w))
+            seg = segment_length(ptr_h, pb_h, live_h, width=list_width(w), slots=body.slots,
+                                 wgmma_block=body.block_queries if body.wgmma else 0)
 
         def scan_items(i_qidx, i_bucket, i_ptr, i_floor):
-            return _launch_items(lib, queries, qscales, i_qidx, i_bucket, i_ptr, chunk_of, store,
-                                 scales, row_ids, i_floor, k=w, qtile=qtile, chunk=chunk,
-                                 mode=mode, terms=terms)
+            return _launch_items(lib, body_queries(body), qscales, i_qidx, i_bucket, i_ptr,
+                                 chunk_of, store, scales, row_ids, i_floor, k=w, qtile=qtile,
+                                 chunk=chunk, mode=mode, terms=terms, wgmma=body.wgmma)
 
         return scan_split(scan_items, merge_split_lists, q_idx, floor, ptr_h, pb_h, seg,
                           qtile=qtile, chunk=chunk)

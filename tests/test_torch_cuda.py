@@ -532,6 +532,155 @@ def test_kernel_matches_plain_version_on_mutated_stores(cuda, mode, store_dtype,
             assert (lists[r, :j] == earlier[r, j]).any(), (r, j)
 
 
+def _body_case(dev, chunk, seed):
+    """An int8 store of 3000×768 rows in 6 buckets (one empty) at
+    ``chunk``, 40 rows duplicated later in their own bucket, 150 queries
+    visiting 3 (the duplicated rows' first), as in
+    ``test_kernel_matches_plain_version``."""
+    data, rng = _corpus(3000, 768, seed=seed)
+    nb = 6
+    bucket_ids = rng.integers(0, nb, 3000)
+    bucket_ids[bucket_ids == 2] = 3
+    src, dst = np.arange(0, 40), np.arange(1500, 1540)
+    data[dst], bucket_ids[dst] = data[src], bucket_ids[src]
+    store = BucketStore.build_packed_int8(data, bucket_ids, nb, chunk=chunk, device=dev)
+    queries = torch.as_tensor(np.concatenate([data[src], data[40:150] + 0.05]), device=dev)
+    order = np.stack([rng.choice(nb, 3, replace=False) for _ in range(150)])
+    order[:40, 0] = bucket_ids[src]
+    order[:40, 1:] = [[b for b in rng.permutation(nb) if b != bucket_ids[i]][:2] for i in src]
+    order = torch.as_tensor(order, device=dev)
+    order[-10:, 2] = -1
+    return store, queries, order
+
+
+@pytest.mark.parametrize("store_kind", ["chunk96", "chunk320", "chunk130", "mutated"])
+@pytest.mark.parametrize("k", [16, 32])
+@pytest.mark.parametrize("qtile", [1, 8, 100, 128])
+def test_wgmma_body_matches_plain_version(cuda, store_kind, k, qtile):
+    """bf16 over the int8 packed store at list width 32, the launches the
+    wgmma body takes: chunks that are not whole 128-row (96, 320) or
+    64-row (130) tiles, and a mutated store with its chunk lists out of
+    physical order; the kernel within the bf16 bar of the plain version,
+    no slot twice, one launch, and that launch the wgmma body."""
+    if store_kind == "mutated":
+        store, queries, order, _, _ = _mutated_store(cuda, 768, "int8", seed=k + qtile)
+    else:
+        store, queries, order = _body_case(cuda, int(store_kind[5:]), seed=k + qtile)
+    _, args = scan_inputs(store, queries, order, qtile, "bf16")
+    before = scan_kernel.WGMMA_LAUNCHES
+    _kernel_vs_plain(args, k, qtile, store.chunk, "bf16", 1)
+    assert scan_kernel.WGMMA_LAUNCHES == before + 1
+
+
+@pytest.mark.parametrize(
+    "mode,store_dtype,k,d,virtual,aligned,expect",
+    [
+        ("bf16", torch.int8, 16, 768, False, True, True),  # the default search
+        ("bf16", torch.int8, 32, 768, False, True, True),
+        ("bf16", torch.int8, 1, 96, False, True, True),
+        ("bf16", torch.int8, 16, 784, False, True, True),
+        ("bf16", torch.int8, 16, 1024, False, True, True),
+        ("bf16", torch.int8, 16, 1040, False, True, True),  # rounded up to 1152 ...
+        ("bf16", torch.int8, 16, 1152, False, True, True),  # ... the widest resident tile
+        ("bf16", torch.int8, 16, 1168, False, True, False),  # rounded up to 1280: too wide
+        ("bf16", torch.int8, 33, 768, False, True, False),  # list width 64
+        ("bf16", torch.int8, 106, 768, False, True, False),
+        ("bf16", torch.int8, 16, 768, True, True, False),  # a virtual store
+        ("bf16", torch.int8, 16, 100, False, True, False),  # rows not of whole 16 bytes
+        ("bf16", torch.int8, 16, 30, False, True, False),
+        ("bf16", torch.int8, 16, 768, False, False, False),  # an unaligned store
+        ("bf16", torch.bfloat16, 16, 768, False, True, False),
+        ("bf16", torch.float32, 16, 768, False, True, False),  # the CLI's store
+        ("int8", torch.int8, 16, 768, False, True, False),
+        ("f32", torch.int8, 16, 768, False, True, False),
+    ],
+)
+def test_library_picks_the_body(cuda, mode, store_dtype, k, d, virtual, aligned, expect):
+    """Which launches take the wgmma body, as the library says
+    (``scan_body``, the one place that decides): bf16 over an int8 packed
+    store, k <= 32 and no floor, whole 16-byte rows at an aligned store,
+    d rounded up to 128 within the resident tile; everything else keeps
+    the mma.sync body, and so does every round under a floor.  With the
+    body come the width of the query rows it reads and its blocks' query
+    slots."""
+    lib = cuda_build.load(scan_kernel.SOURCE, scan_kernel._bind)
+    flat = torch.zeros(64 * d + 16, dtype=store_dtype, device=cuda)
+    store = flat[(0 if aligned else 1):][: 64 * d].view(64, d)
+    assert (store.data_ptr() % 16 == 0) is aligned
+    row_ids = torch.arange(1, 65, dtype=torch.int32, device=cuda) if virtual else None
+    body = scan_kernel.scan_body(lib, store, mode, k, row_ids)
+    assert body.wgmma is expect
+    assert body.slots >= torch.cuda.get_device_properties(cuda).multi_processor_count
+    if expect:
+        assert (body.qd, body.block_queries) == (-(-d // 128) * 128, 64)
+    else:
+        group = 32 if mode == "f32" else 16
+        width = scan_kernel.list_width(k)
+        assert (body.qd, body.block_queries) == (-(-d // group) * group,
+                                                 scan_kernel.queries_per_block(width))
+    assert not scan_kernel.scan_body(lib, store, mode, k, row_ids, floored=True).wgmma
+
+
+@pytest.mark.parametrize("case", ["virtual", "d100", "d96", "k33", "k1040", "d1040", "d1152"])
+def test_wgmma_scope_picks_the_body(cuda, case):
+    """The launches outside the wgmma body's scope keep the mma.sync body
+    (a virtual store, rows of 100 bytes, a list of width 64, and k 1040:
+    a 1024-wide round, then a 16-wide one under its floors, which keeps
+    the body of the round before it, so that both sum a row the same way);
+    d 96, 1040 and 1152 (the widest resident query tile) take the wgmma
+    body.  Each within the bar of the plain version, the body counted from
+    the library's report of each launch."""
+    k = {"k33": 33, "k1040": 1040}.get(case, 16)
+    if case == "k1040":  # buckets of ~3,000 rows, wider than one round
+        store, queries, order = _wide_case(cuda, "int8", seed=1040)
+        _, args = scan_inputs(store, queries, order, 8, "bf16")
+        before = scan_kernel.WGMMA_LAUNCHES
+        _kernel_vs_plain(args, k, 8, 256, "bf16", 2)
+        assert scan_kernel.WGMMA_LAUNCHES == before
+        return
+    if case == "virtual":
+        store, queries, order = _virtual_case(cuda, 768, "int8", seed=3, shuffle=False)
+        chunk = 96
+    else:
+        d = int(case[1:]) if case.startswith("d") else 768
+        data, rng = _corpus(2000, d, seed=4)
+        store = BucketStore.build_packed_int8(data, rng.integers(0, 5, 2000), 5, chunk=96,
+                                              device=cuda)
+        queries = torch.as_tensor(data[:90] + 0.05, device=cuda)
+        order = torch.as_tensor(np.stack([rng.choice(5, 2, replace=False) for _ in range(90)]),
+                                device=cuda)
+        chunk = 96
+    _, args = scan_inputs(store, queries, order, 128, "bf16")
+    before = scan_kernel.WGMMA_LAUNCHES
+    _kernel_vs_plain(args, k, 128, chunk, "bf16", 1)
+    assert scan_kernel.WGMMA_LAUNCHES - before == (1 if case in ("d96", "d1040", "d1152") else 0)
+
+
+@pytest.mark.parametrize("d,laid_out", [(768, False), (100, True)])
+def test_launch_rejects_queries_laid_out_for_the_other_body(cuda, d, laid_out):
+    """Every launch is held to the body the library picks: queries laid
+    out for the other body (the mma.sync layout where the wgmma body
+    runs, the wgmma layout where it does not) launch nothing, raise, and
+    count no launch."""
+    data, rng = _corpus(2000, d, seed=6)
+    store = BucketStore.build_packed_int8(data, rng.integers(0, 5, 2000), 5, chunk=96, device=cuda)
+    queries = torch.as_tensor(data[:90] + 0.05, device=cuda)
+    order = torch.as_tensor(np.stack([rng.choice(5, 2, replace=False) for _ in range(90)]),
+                            device=cuda)
+    _, (q, qidx, pb, ptr, chunk_of, st, sc, qs, row_ids) = scan_inputs(store, queries, order, 128,
+                                                                       "bf16")
+    lib = cuda_build.load(scan_kernel.SOURCE, scan_kernel._bind)
+    assert scan_kernel.scan_body(lib, st, "bf16", 16).wgmma is not laid_out
+    op = scan_kernel.operand_queries(q, "bf16", st.dtype, -(-d // 128) * 128 if laid_out else 0)
+    before = (scan_kernel.LAUNCHES, scan_kernel.WGMMA_LAUNCHES)
+    other = "wgmma" if laid_out else "mma.sync"
+    with pytest.raises(RuntimeError, match=f"laid out for the {other} body"):
+        scan_kernel._launch_items(lib, op, qs, qidx, pb, ptr, chunk_of, st, sc, row_ids, None,
+                                  k=16, qtile=128, chunk=store.chunk, mode="bf16", terms=1,
+                                  wgmma=laid_out)
+    assert (scan_kernel.LAUNCHES, scan_kernel.WGMMA_LAUNCHES) == before
+
+
 def test_dynamic_index_on_gpu(cuda, tmp_path):
     """A DynamicIndex on the card: inserts that grow the store, deletes,
     a checkpoint that loads on the card and on the CPU, and a compaction,

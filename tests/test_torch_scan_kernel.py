@@ -34,17 +34,22 @@ CASES = {
     "multichunk": (900, 16, 6, 64, 40, 3, 16, 10, 4),
     "k24_qtile16": (700, 32, 5, 64, 30, 5, 16, 24, None),
     "qtile8_empty": (400, 24, 6, 32, 20, 2, 8, 5, 2),
+    # whole and partly filled 128-slot tiles, rows of 64 bytes crossing
+    # 80-row chunk ends: on the card, the wgmma body's shapes in bf16
+    # over an int8 store
+    "qtile128_k16": (700, 64, 5, 80, 150, 3, 128, 16, None),
+    "qtile100_k32": (700, 64, 5, 80, 150, 3, 100, 32, None),
 }
 
 
-def _setup(case, mode, seed=3):
+def _setup(case, mode, seed=3, int8_store=False):
     n, d, nb, chunk, nq, v, qtile, k, empty = CASES[case]
     data, queries = synthetic_blobs(n, d, nq, seed=seed)
     rng = np.random.default_rng(seed)
     bucket_ids = rng.integers(0, nb, size=n)
     if empty is not None:
         bucket_ids[bucket_ids == empty] = (empty + 1) % nb
-    if mode == "int8":
+    if mode == "int8" or int8_store:
         store = JaxStore.build_packed_int8(data, bucket_ids, nb, chunk=chunk)
     else:
         store = JaxStore.build(data, bucket_ids, nb, chunk=chunk)
@@ -92,18 +97,23 @@ def _torch_inputs(store, scales_flat, queries, order, qtile, mode):
     return plan, args
 
 
-@pytest.mark.parametrize("mode", ["f32", "bf16", "int8"])
+@pytest.mark.parametrize("mode", ["f32", "bf16", "int8", "bf16 over int8"])
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_plain_scan_matches_pallas_kernel(case, mode):
-    """Per pair and real query, the plain version's candidates equal the
-    Pallas kernel's after sorting both by (distance, slot); slots may
-    differ only at exact distance ties.  Pairs of empty buckets are
-    never written by the Pallas kernel and are all fill here."""
-    store, queries, order, qtile, k, chunk = _setup(case, mode)
+    """Per pair and real query, the plain version's candidates (through
+    ``scan_pairs`` on CPU tensors) equal the Pallas kernel's after
+    sorting both by (distance, slot); slots may differ only at exact
+    distance ties.  Pairs of empty buckets are never written by the
+    Pallas kernel and are all fill here.  ``"bf16 over int8"``: bf16
+    queries over an int8 packed store, the default search's scan (the
+    wgmma body on the card)."""
+    mode, _, store_kind = mode.partition(" over ")
+    store, queries, order, qtile, k, chunk = _setup(case, mode, int8_store=store_kind == "int8")
     jplan, sf, written, jd, js = _jax_pairs(store, queries, order, qtile, k, chunk, mode)
     plan, args = _torch_inputs(store, sf, queries, order, qtile, mode)
     assert plan.n_pairs == len(jplan.qidx) // qtile
-    td, ts = scan_kernel.scan_pairs_reference(*args, k=k, qtile=qtile, chunk=chunk, mode=mode)
+    # the wrapper, which runs the plain version on CPU tensors
+    td, ts = scan_kernel.scan_pairs(*args, k=k, qtile=qtile, chunk=chunk, mode=mode)
     td, ts = td.numpy(), ts.numpy()
     real = (jplan.qidx >= 0).reshape(-1, qtile)
     checked = 0

@@ -13,10 +13,16 @@ register names left as they are, branch targets masked) and writes the
 diff of each that differs to ``build/scan_ab/``; then times both sides
 in one process on the same inputs, alternating which goes first, and
 checks that both give the same bits (distances and slots) at every
-``k``.  Each side runs as its checkout's wrapper does: a checkout with
+``k``, except where only one side takes the wgmma body (bf16 over an int8
+packed store at ``k_scan`` <= 32, as its library's ``lmi_scan_body`` says):
+wgmma sums a 16-deep step in another order than ``mma.sync``, so there
+both sides are held to each other at the bf16 bar
+(``chip_smoke.compare_candidates``) and the lists that are bit-equal are
+counted.  Each side runs as its checkout's wrapper does: a checkout with
 the merge kernel splits each launch's pairs into items of the segment
 length ``ops/scan_kernel.py::segment_length`` picks from its library's
-occupancy (``lmi_scan_blocks_per_sm``), scans them and merges them; one
+occupancy (``lmi_scan_body``, or ``lmi_scan_blocks_per_sm`` in a checkout
+without the wgmma body), scans them and merges them; one
 without it (the interface before the split) launches one block a pair.
 
 * the flagship (``chip_smoke.make_corpus``: 10M×768 int8, 120
@@ -41,8 +47,9 @@ k_scan 16, bf16 at 106) and at one serving dispatch (its first 1,024
 queries; bf16 and int8 at 16); bits equal at every share.
 
 Both sources must take ``lmi_scan_pairs``'s arguments with or without the
-row-map and floor pointers; without them (the earlier interface) only the
-packed cases up to 1024 run.
+row-map and floor pointers (without them, the earlier interface, only the
+packed cases up to 1024 run) and with or without the store's row count
+and the body (``n_rows``, ``body``: the wgmma body's interface).
 """
 
 from __future__ import annotations
@@ -143,6 +150,7 @@ class Side(NamedTuple):
     mapped: bool  # takes the row-map and floor pointers
     fma_body: bool  # f32 over an f32 store takes f32 query rows (the FMA body)
     merge: Optional[ctypes.CDLL]  # the merge kernel: this side splits its pairs
+    wgmma: bool  # has the wgmma body (and takes the store's row count and the body)
 
 
 def bind(library: Path, source: Path, merge: Optional[Path] = None) -> Side:
@@ -151,16 +159,50 @@ def bind(library: Path, source: Path, merge: Optional[Path] = None) -> Side:
     ``source`` declares."""
     text = source.read_text()
     mapped = "const void* row_ids" in text
+    wgmma = "scan_wgmma_kernel" in text
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib = ctypes.CDLL(str(library))
-    lib.lmi_scan_pairs.argtypes = [vp] * (14 if mapped else 11) + [ci] * 8 + [vp]
-    lib.lmi_scan_pairs.restype = ci
+    if wgmma:
+        scan_kernel._bind(lib)
+    else:
+        lib.lmi_scan_pairs.argtypes = [vp] * (14 if mapped else 11) + [ci] * 8 + [vp]
+        lib.lmi_scan_pairs.restype = ci
     merge_lib = None
     if merge is not None:
-        scan_kernel._bind(lib)
+        if not wgmma:
+            lib.lmi_scan_blocks_per_sm.argtypes = [ci, ci, ci, ctypes.POINTER(ci)]
+            lib.lmi_scan_blocks_per_sm.restype = ci
         merge_lib = ctypes.CDLL(str(merge))
         scan_kernel._bind_merge(merge_lib)
-    return Side(lib, mapped, "scan_f32_kernel" in text, merge_lib)
+    return Side(lib, mapped, "scan_f32_kernel" in text, merge_lib, wgmma)
+
+
+def side_body(side: Side, store, mode: str, k: int, row_ids,
+              floored: bool = False) -> Optional[scan_kernel.Body]:
+    """The body ``side``'s library picks for a launch at ``k`` (under
+    floors), or None where the side has no wgmma body."""
+    if not side.wgmma:
+        return None
+    return scan_kernel.scan_body(side.lib, store, mode, k, row_ids, floored)
+
+
+def takes_wgmma(side: Side, store, mode: str, k: int, row_ids, floored: bool = False) -> bool:
+    """Whether ``side``'s launch at ``k`` (under floors) takes the wgmma body."""
+    body = side_body(side, store, mode, k, row_ids, floored)
+    return body is not None and body.wgmma
+
+
+def side_slots(side: Side, store, mode: str, k: int, row_ids, floored: bool = False) -> int:
+    """``side``'s slots on the card for a launch at ``k``: its library's
+    occupancy, through its own interface."""
+    if side.wgmma:
+        return side_body(side, store, mode, k, row_ids, floored).slots
+    blocks = ctypes.c_int(0)
+    err = side.lib.lmi_scan_blocks_per_sm(k, scan_kernel.MODES[mode],
+                                          scan_kernel._STORE_TYPES[store.dtype],
+                                          ctypes.byref(blocks))
+    cs.check(err == 0 and blocks.value > 0, f"occupancy query failed: cudaError {err}")
+    return torch.cuda.get_device_properties(store.device).multi_processor_count * blocks.value
 
 
 def launcher(side: Side, store, queries, order, mode: str, k: int, segment=None,
@@ -174,7 +216,14 @@ def launcher(side: Side, store, queries, order, mode: str, k: int, segment=None,
     _, (q, qidx, pb, ptr, chunk_of, st, sc, qs, row_ids) = scan_inputs(store, queries, order, 128,
                                                                        mode)
     fma = side.fma_body and mode == "f32" and st.dtype == torch.float32
-    qo = q if fma else scan_kernel.operand_queries(q, mode, st.dtype)
+    laid_out = {}
+
+    def operand(body):  # the query rows of the body a launch takes
+        qd = body.qd if body is not None and body.wgmma else 0
+        if qd not in laid_out:
+            laid_out[qd] = q if fma else scan_kernel.operand_queries(q, mode, st.dtype, qd)
+        return laid_out[qd]
+
     terms = 3 if mode == "f32" and not fma else 1
     cs.check(side.mapped or (row_ids is None and k <= scan_kernel.MAX_K),
              "the other interface takes no row map and no floor")
@@ -188,13 +237,20 @@ def launcher(side: Side, store, queries, order, mode: str, k: int, segment=None,
         out_s = torch.empty((n_pairs, 128, w), dtype=torch.int32, device=st.device)
         fd, fp = floor if floor is not None else (None, None)
         extra = tuple(t.data_ptr() if t is not None else None for t in (row_ids, fd, fp))
+        body = side_body(side, st, mode, w, row_ids, floor is not None)
+        qo = operand(body)
+        ran = ctypes.c_int(int(body is not None and body.wgmma))
         err = side.lib.lmi_scan_pairs(
             qo.data_ptr(), qs.data_ptr() if qs is not None else None, q_idx.data_ptr(),
             p_bucket.data_ptr(), pair_order.data_ptr(), p_ptr.data_ptr(), chunk_of.data_ptr(),
             st.data_ptr(), sc.data_ptr() if sc is not None else None,
             *(extra if side.mapped else ()), out_d.data_ptr(), out_s.data_ptr(), n_pairs, 128, w,
             st.shape[1], qo.shape[1] // terms, 2048, scan_kernel.MODES[mode],
-            scan_kernel._STORE_TYPES[st.dtype], stream)
+            scan_kernel._STORE_TYPES[st.dtype],
+            *((st.shape[0], ctypes.byref(ran)) if side.wgmma else ()), stream)
+        if body is not None:
+            cs.check(ran.value == int(body.wgmma), f"the library takes body {ran.value}, the "
+                     f"queries are laid out for {int(body.wgmma)}")
         cs.check(err == 0, f"launch failed: cudaError {err}")
         return out_d, out_s
 
@@ -214,9 +270,12 @@ def launcher(side: Side, store, queries, order, mode: str, k: int, segment=None,
         ptr_h, pb_h, live = scan_kernel.host_plan(ptr, p_bucket, q_idx, 128)
         seg = segment
         if seg is None:
-            slots = scan_kernel.scan_slots(side.lib, st.device, mode, st.dtype, w)
-            seg = scan_kernel.segment_length(ptr_h, pb_h, live, width=scan_kernel.list_width(w),
-                                             slots=slots, share=share)
+            floored = floor is not None
+            body = side_body(side, st, mode, w, row_ids, floored)
+            seg = scan_kernel.segment_length(
+                ptr_h, pb_h, live, width=scan_kernel.list_width(w),
+                slots=side_slots(side, st, mode, w, row_ids, floored), share=share,
+                wgmma_block=body.block_queries if body is not None and body.wgmma else 0)
         return scan_kernel.scan_split(lambda qi, b, p, f: scan(qi, b, p, w, f), merge, q_idx,
                                       floor, ptr_h, pb_h, seg, qtile=128, chunk=2048)
 
@@ -239,10 +298,13 @@ def probe_shares(side: Side, store, queries, order, shares, rounds: int, smi: st
         _, sargs = scan_inputs(store, q, o, 128, mode)
         runs, segs = {}, {}
         ptr_h, pb_h, live = scan_kernel.host_plan(sargs[3], sargs[2], sargs[1], 128)
-        slots = scan_kernel.scan_slots(side.lib, store.device, mode, store.rows_ref.dtype, k)
+        slots = side_slots(side, sargs[5], mode, k, None)
+        body = side_body(side, sargs[5], mode, k, None)
+        block = body.block_queries if body is not None and body.wgmma else 0
         for share in (*shares, None):
             seg = WHOLE if share is None else scan_kernel.segment_length(
-                ptr_h, pb_h, live, width=scan_kernel.list_width(k), slots=slots, share=share)
+                ptr_h, pb_h, live, width=scan_kernel.list_width(k), slots=slots, share=share,
+                wgmma_block=block)
             name = "whole buckets" if share is None else f"share {share:g}"
             segs[name] = (seg, len(scan_kernel.split_pairs(ptr_h, pb_h, seg).item_pair))
             runs[name] = launcher(side, store, q, o, mode, k, segment=seg)
@@ -311,10 +373,17 @@ def main() -> None:
     for layout, st, q, o, mode, k in cases:
         runs = {n: launcher(sd, st, q, o, mode, k) for n, sd in sides.items()}
         outs = {n: tuple(t.clone() for t in run()) for n, run in runs.items()}
-        same = all(torch.equal(x, y) for x, y in zip(outs["other"], outs["this"]))
-        cs.check(same, f"{layout} {mode} k={k}: the two sides give different bits")
+        sargs = scan_inputs(st, q, o, 128, mode)[1]
+        bodies = {n: takes_wgmma(sd, sargs[5], mode, k, sargs[8]) for n, sd in sides.items()}
+        del sargs
+        if bodies["this"] != bodies["other"]:
+            agree = bodies_agree(outs, f"{layout} {mode} k={k}")
+        else:
+            same = all(torch.equal(x, y) for x, y in zip(outs["other"], outs["this"]))
+            cs.check(same, f"{layout} {mode} k={k}: the two sides give different bits")
+            agree = "same bits"
         del outs
-        in_turns(runs, f"{layout} {mode} k_scan {k} ({q.shape[0]} queries", "same bits",
+        in_turns(runs, f"{layout} {mode} k_scan {k} ({q.shape[0]} queries", agree,
                  3 if layout == "virtual" else 5, args.rounds, smi)
     del virtual
     f32 = cs.dequantized_store(store)
@@ -338,6 +407,17 @@ def main() -> None:
         del outs
         in_turns(runs, f"f32 store f32 k_scan {k} ({queries.shape[0]} queries", agree, 5,
                  args.rounds, smi)
+
+
+def bodies_agree(outs: dict, what: str) -> str:
+    """The two sides' lists where one ran the wgmma body and the other the
+    mma.sync body: held to each other at the bf16 bar; how many (pair,
+    query slot) lists are bit-equal, distances and slots."""
+    (td, ts), (od, os_) = outs["this"], outs["other"]
+    err, gap = cs.compare_candidates(td, ts, od, os_, "bf16", f"{what}: this against other")
+    equal = ((td.view(torch.int32) == od.view(torch.int32)) & (ts == os_)).all(dim=2)
+    return (f"other bodies, agree at the bf16 bar, max|Δd| {err:.3g} (at swapped slots "
+            f"{gap:.3g}); {int(equal.sum())} of {equal.numel()} lists bit-equal")
 
 
 def in_turns(runs: dict, what: str, agree: str, reps: int, rounds: int, smi: str) -> None:

@@ -1,0 +1,228 @@
+#!/usr/bin/env python3
+"""What bounds the scan's default body at the flagship, on one NVIDIA GPU.
+
+    python3 tools/torch_scan_probe.py [--body mma|wgmma] [--checkout DIR]
+                                      [--reference DIR ...] [--rounds 4]
+
+The card's machine has no ``ncu``, so this splits the time of the bf16
+scan over the int8 packed store at list width 32 (``k_scan`` 16) by
+removing work.  It writes patched copies of ``DIR``'s
+``learnedmetricindex_tpu_torch/csrc/scan_pairs.cu`` (default: this
+tree's) into ``build/scan_probe/``, builds each (and
+``csrc/scan_merge.cu``) with the port's nvcc flags, and times them in one
+process, in alternating rounds, split and merged as each source's
+wrapper does, on the flagship inputs of ``tools/torch_scan_ab.py``
+(10M×768 int8, 120 buckets, 10k queries visiting 4, qtile 128), beside
+each ``--reference`` checkout's source as it is.
+
+``--body mma``: the mma.sync body (a checkout without the wgmma body,
+for example the commit before it):
+
+* ``tree``: the source as it is;
+* ``(a) query tile once``: an item copies its query rows into the ring
+  only on its first row tile (later tiles read stale query data);
+* ``(b) no widening``: ``widen_s8x4`` reinterprets the int8 bits as bf16;
+* ``(c) no selection``: the row tiles are never selected into the lists;
+* ``(d) no mma``: the bf16 ``mma.sync`` issues nothing (its operands
+  stay live, so the loads and the widening still run);
+* ``(a)+(b)+(c)``: all three of those.
+
+``--body wgmma`` (the default): the wgmma body:
+
+* ``tree``;
+* ``no wgmma``: the wgmma instructions are comments (operands live);
+* ``no widening``: the A registers take the int8 words as they are;
+* ``no selection``: ``wgmma_select`` is not called (the hand-over
+  between the warpgroups stays);
+* ``no hand-over``: neither the hand-over nor the selection;
+* ``no TMA``: the producer arrives on the full barriers without copying
+  (the consumers read whatever the ring holds);
+* ``stages of 1 box, ring 4``: stages of one 64-depth box (four
+  k-steps), four a ring, in place of two boxes (eight k-steps, one
+  barrier) and two a ring;
+* ``bare``: no TMA, no widening, no hand-over: the wgmma and the ring's
+  barriers alone;
+* ``3 consumers, stages of 1 box, ring 4``: three consumer warpgroups
+  (and producer warps) taking the tiles in turn, d <= 768 only;
+* ``no wgmma, ...``: the same without the wgmma: what the rest costs.
+
+The copies' results are wrong and are not read.  Then the card's memory
+rates: a ~1 GB device-to-device copy (HBM: bytes read + written) and a
+sum over a 20 MB and a 40 MB buffer read again and again (L2).  Prints
+one ``[probe]`` line a variant and writes
+``chiprun_out/scan_probe_{body}.json``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT))
+sys.path.insert(0, str(ROOT / "tools"))
+
+import chip_smoke as cs  # noqa: E402
+import torch_scan_ab as ab  # noqa: E402
+from learnedmetricindex_tpu_torch.ops import cuda_build  # noqa: E402
+
+WORK = ROOT / "build" / "scan_probe"
+OUT = ROOT / "chiprun_out"
+
+# (pattern, replacement): each pattern must occur exactly once in the source
+QUERY_ONCE = [
+    ("  auto load_stage = [&](int step, int buf) {",
+     "  bool q_copy = true;\n  auto load_stage = [&](int step, int buf) {"),
+    ("      const int row = i / A_PIECES, c16 = i % A_PIECES;\n",
+     "      const int row = i / A_PIECES, c16 = i % A_PIECES;\n      if (!q_copy) continue;\n"),
+    ("      const int nrows = min(RT, chunk - r0);\n",
+     "      const int nrows = min(RT, chunk - r0);\n      q_copy = c == b.c_lo && r0 == 0;\n"),
+]
+NO_WIDEN = [
+    ("  const uint32_t x = v ^ 0x80808080u;\n",
+     "  b[0] = v;\n  b[1] = v ^ 0x80808080u;\n  return;\n  const uint32_t x = v ^ 0x80808080u;\n"),
+]
+NO_SELECTION = [
+    ("      select_tile(p, s, nrows, (c - b.c_lo) * chunk + r0);\n", ""),
+]
+NO_MMA = [
+    ('      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "\n'
+     '      "{%8, %9}, {%0, %1, %2, %3};\\n"\n',
+     '      ""\n'),
+]
+MMA_VARIANTS = {
+    "tree": [],
+    "(a) query tile once": QUERY_ONCE,
+    "(b) no widening": NO_WIDEN,
+    "(c) no selection": NO_SELECTION,
+    "(d) no mma": NO_MMA,
+    "(a)+(b)+(c)": QUERY_ONCE + NO_WIDEN + NO_SELECTION,
+}
+
+W_NO_WGMMA = [(f'"wgmma.mma_async.sync.aligned.m64n{n}k16.f32.bf16.bf16 "', '"// "')
+              for n in (16, 32, 48, 64)]
+W_NO_WIDEN = [("        widen_s8x4(wl[j], bl);\n        widen_s8x4(wh[j], bh);\n",
+               "        bl[0] = wl[j]; bl[1] = wl[j] ^ 1u; bh[0] = wh[j]; bh[1] = wh[j] ^ 1u;\n")]
+W_SELECT = "    wgmma_select(p, s, wg, N, nrows, slot0);\n"
+W_NO_SELECTION = [(W_SELECT, "")]
+W_NO_HANDOVER = W_NO_SELECTION + [
+    ("    if (i > 0) bar_sync(BAR_HANDOVER + wg, 256);  // the tile before is selected (by the warpgroup before)\n", ""),
+    ("    if (i + 1 < ntiles) bar_arrive(BAR_HANDOVER + (wg + 1) % W_CONSUMERS, 256);\n", "")]
+W_NO_TMA = [("      mbar_expect_tx(full, W_STAGE);\n#pragma unroll\n      for (int box = 0; box < W_BOXES; ++box)\n"
+             "        tma_load_rows(s.stage(wg, slot) + box * WR * WK, map, (st * W_BOXES + box) * WK, row, full);\n",
+             "      mbar_arrive(full);\n")]
+W_BOX1 = [("constexpr int W_STAGES = 2;", "constexpr int W_STAGES = 4;"),
+          ("constexpr int W_BOXES = 2;", "constexpr int W_BOXES = 1;")]
+W_THREE = [("constexpr int W_CONSUMERS = 2;", "constexpr int W_CONSUMERS = 3;"),
+           ("static_assert(W_MAX_QD >= 1024,", "static_assert(W_MAX_QD >= 768,")]
+WGMMA_VARIANTS = {
+    "tree": [],
+    "no wgmma": W_NO_WGMMA,
+    "no widening": W_NO_WIDEN,
+    "no selection": W_NO_SELECTION,
+    "no hand-over": W_NO_HANDOVER,
+    "no TMA": W_NO_TMA,
+    "stages of 1 box, ring 4": W_BOX1,
+    "bare": W_NO_TMA + W_NO_WIDEN + W_NO_HANDOVER,
+    "3 consumers, stages of 1 box, ring 4": W_THREE + W_BOX1,
+    "no wgmma, no widening": W_NO_WGMMA + W_NO_WIDEN,
+    "no wgmma, no hand-over": W_NO_WGMMA + W_NO_HANDOVER,
+    "no wgmma, bare": W_NO_WGMMA + W_NO_TMA + W_NO_WIDEN + W_NO_HANDOVER,
+}
+
+
+def patched(source: str, edits) -> str:
+    for old, new in edits:
+        cs.check(source.count(old) == 1, f"probe patch: {old!r} occurs {source.count(old)} times")
+        source = source.replace(old, new)
+    return source
+
+
+def memory_rates(smi: str) -> dict:
+    """HBM: a device-to-device copy of 2**30 bytes (read + written); L2: a
+    sum over a 20 MB and a 40 MB f32 buffer, read again and again."""
+    dev = torch.device("cuda", 0)
+    src = torch.empty(2**28, dtype=torch.float32, device=dev)
+    dst = torch.empty_like(src)
+    ms = cs.cuda_ms(lambda: dst.copy_(src), 20)
+    rates = {"hbm_copy_tb_s": 2 * src.numel() * 4 / ms / 1e9}
+    del src, dst
+    for mb in (20, 40):
+        buf = torch.ones(mb * 2**20 // 4, device=dev)
+        ms = cs.cuda_ms(lambda: buf.sum(), 200)
+        rates[f"l2_read_{mb}mb_tb_s"] = buf.numel() * 4 / ms / 1e9
+        del buf
+    cs.log("[probe] memory: " + ", ".join(f"{k} {v:.3f}" for k, v in rates.items()) + f"  [{smi}]")
+    return rates
+
+
+def main() -> None:
+    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("--body", choices=("mma", "wgmma"), default="wgmma",
+                   help="the body whose variants are timed")
+    p.add_argument("--checkout", type=Path, default=ROOT, help="the checkout whose source is patched")
+    p.add_argument("--reference", type=Path, nargs="*", default=[],
+                   help="checkouts whose sources are timed as they are")
+    p.add_argument("--only", nargs="*", help="the variants to time (default: all)")
+    p.add_argument("--rounds", type=int, default=4, help="timed rounds per variant")
+    args = p.parse_args()
+    smi = cs.phase_device()
+    WORK.mkdir(parents=True, exist_ok=True)
+    text = (args.checkout.resolve() / ab.SOURCE).read_text()
+    cs.check(("scan_wgmma_kernel" in text) == (args.body == "wgmma"),
+             f"{args.checkout}: the flagship's scan there does not run the {args.body} body")
+    sources = {}
+    for i, (name, edits) in enumerate((MMA_VARIANTS if args.body == "mma"
+                                       else WGMMA_VARIANTS).items()):
+        if args.only and name not in args.only and name != "tree":
+            continue
+        path = WORK / f"v{i}.cu"
+        path.write_text(patched(text, edits))
+        sources[name] = path
+    for ref in args.reference:
+        sources[f"reference {ref}"] = ref.resolve() / ab.SOURCE
+    builds = [(WORK / f"v{i}.so", src) for i, src in enumerate(sources.values())]
+    builds.append((WORK / "merge.so", ROOT / ab.MERGE_SOURCE))
+    procs = [subprocess.Popen([cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, "-o", str(out),
+                               str(src)], stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for out, src in builds]
+    for (out, _), proc in zip(builds, procs):
+        stdout, err = proc.communicate()
+        cs.check(proc.returncode == 0, f"nvcc failed: {err[-2000:]}")
+        keep = False  # ptxas's report of the flagship scan's instance
+        for line in (stdout + err).splitlines():
+            if "Compiling entry function" in line:
+                keep = ("scan_mma_kernelILi1EaLi32E" if args.body == "mma"
+                        else "scan_wgmma_kernel") in line
+            elif keep and ("registers" in line or "spill" in line):
+                cs.log(f"[probe] {out.name}: {line.strip()}")
+    sides = {name: ab.bind(WORK / f"v{i}.so", src, WORK / "merge.so")
+             for i, (name, src) in enumerate(sources.items())}
+    rates = memory_rates(smi)
+    store, virtual, queries, order = ab.flagship_stores(torch.device("cuda", 0))
+    del virtual
+    runs = {n: ab.launcher(side, store, queries, order, "bf16", 16) for n, side in sides.items()}
+    names = list(runs)
+    ms = {n: [] for n in names}
+    for r in range(args.rounds):
+        for n in (names if r % 2 == 0 else names[::-1]):
+            ms[n].append(cs.cuda_ms(runs[n], 3))
+    med = {n: float(np.median(v)) for n, v in ms.items()}
+    for n in names:
+        cs.log(f"[probe] bf16 over the int8 packed store, k_scan 16, {queries.shape[0]} queries "
+               f"(mean of 3 launches a round, {args.rounds} rounds in turns): {n}: "
+               f"{' '.join(f'{t:.3f}' for t in ms[n])} ms, median {med[n]:.3f} ms = "
+               f"{med[n] / med['tree']:.3f} of the tree's  [{smi}]")
+    OUT.mkdir(parents=True, exist_ok=True)
+    (OUT / f"scan_probe_{args.body}.json").write_text(json.dumps(
+        {"device": smi, "rounds_ms": ms, "median_ms": med, "memory_tb_s": rates}, indent=1))
+
+
+if __name__ == "__main__":
+    main()
