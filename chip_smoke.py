@@ -36,12 +36,14 @@ phases:
    in rounds under floors): the scan kernel over the items and the merge
    kernel bit-equal to the scan kernel over whole buckets, and within the
    bar of the plain version (every other case runs the wrapper's own
-   split); then bf16 over the int8 store at list width 32, the default
-   search's scan and its wgmma body, at k 16 and 32 and qtile 1/8/100/128
-   (chunks of 320 and 130 rows, the store mutated, forced segments), and
-   the launches there that keep the mma.sync body (a virtual store, rows
-   of 100 bytes, k 1040 in rounds under floors), each case naming the
-   body its launches took;
+   split); then bf16 over the int8 and the f32 store at list width 32, the
+   default search's scan and its two wgmma bodies, at k 16 and 32 and qtile
+   1/8/100/128 (chunks of 320 and 130 rows, the stores mutated, forced
+   segments; the widest resident query tiles, d 1152 over int8 rows and
+   896 over f32 rows), and the launches there that keep the mma.sync body
+   (virtual stores, int8 rows of 100 bytes, d 900 and 102 over f32 rows,
+   k 1040 in rounds under floors), each case naming the body its launches
+   took;
 4. corpus: a seeded 10M×768 int8 corpus (+ f32 row scales) on the
    device and the exact f32 top-10 of the queries;
 5. search path: an index whose MLP-4 encodes a nearest-centroid
@@ -64,8 +66,13 @@ phases:
    over it (the six-term body) at ``k_scan`` 16 and 106 against its plain
    version, cuBLAS SGEMM + ``torch.topk`` (TF32 off) and its bound (six
    bf16 passes, the CUDA cores' FMA route beside it), at 16 both against
-   float64, and a whole ``search(precision="highest")`` over that store,
-   equal to exact kNN over the visited buckets;
+   float64; the scan in bf16 over it at 16 (the wgmma body over f32 rows:
+   the default search over ``BuildConfiguration(dtype="float32")``) beside
+   its plain version, the library call and the bound, with the bytes read
+   if each pair or each block read its bucket once; whole
+   ``search(precision="highest")`` and default searches over that store,
+   the first equal to exact kNN over the visited buckets, each default
+   search one launch of the wgmma body over f32 rows;
    then the same index over a virtual store of the device corpus
    (``get_bucket_store``: the id grid, no copy): default and ``highest``
    searches equal to the packed store's, a ``k=1100`` search equal to
@@ -111,8 +118,9 @@ phases:
    (``cli.sweep``, and the result files where h5py imports) at
    ``--synthetic 1000000 --synthetic-dim 768``, 120 buckets, MLP-4, 4
    epochs, batch 1024, chunk 2048, ``-b 1 2 4 8 120``, at its default f32
-   store (the scan's bf16 body over f32 rows), then ``--index-type
-   baseline`` at the same flags as the ground truth: each visit count
+   store (every scan of the sweep on the wgmma body over f32 rows), then
+   ``--index-type baseline`` at the same flags as the ground truth: each
+   visit count
    exact over its visited buckets, recall not falling as visits rise and
    ≥ 0.999 at every bucket; one search under ``utils/profiling.
    device_trace``, its eight longest device operations and the device's
@@ -166,6 +174,7 @@ import torch
 
 import learnedmetricindex_tpu_torch as lmi
 from learnedmetricindex_tpu_torch.data import BlobGenerator
+from learnedmetricindex_tpu_torch.index import bucket_store as bucket_store_module
 from learnedmetricindex_tpu_torch.index import mutation
 from learnedmetricindex_tpu_torch.index.bucket_store import BucketStore, scan_inputs
 from learnedmetricindex_tpu_torch.index.serialization import index_from_arrays
@@ -187,6 +196,10 @@ TIE_RTOL, TIE_ATOL = 1e-6, 1e-7
 # ~2e-6 on unit vectors (H100 runs); int8 sums are exact in both, so int8
 # keeps the tight bar
 FLOAT_TIE_ATOL = 5e-6
+# two bf16 searches of one store through different scan bodies (their lists
+# sum in other orders): distances within this, and this share of the sorted
+# ids equal
+BF16_ATOL, BF16_SAME_IDS = 3e-3, 0.99
 # f32 queries against rows that each hold one power of two (split_terms_check):
 # every product is exact, so the plain version's f32 matmul is exact, and a
 # distance needs all three bf16 terms of its query value.  The kernel stays
@@ -194,6 +207,8 @@ FLOAT_TIE_ATOL = 5e-6
 # terms must miss the bar, or the check could not tell the bodies apart
 SPLIT_REL_ERR = 2.0**-20
 REPLACES = "learnedmetricindex_tpu/ops/scan_kernel.py:325"
+# read_counts' keys of the scan's launches on its two wgmma bodies
+WGMMA_INT8, WGMMA_F32 = "scan_pairs wgmma body", "scan_pairs wgmma f32 body"
 KERNEL_SOURCE = "learnedmetricindex_tpu_torch/csrc/scan_pairs.cu"
 # the merge of a split scan takes the place of the Pallas kernel's running
 # top-k across a pair's chunks (its `insert`, carried in VMEM chunk to chunk)
@@ -379,14 +394,19 @@ def phase_build() -> None:
 def reset_counts() -> None:
     scan_kernel.LAUNCHES = 0
     scan_kernel.WGMMA_LAUNCHES = 0
+    scan_kernel.WGMMA_F32_LAUNCHES = 0
     scan_kernel.MERGE_LAUNCHES = 0
     gather_kernel.LAUNCHES = 0
     gather_kernel.PAIR_LAUNCHES = 0
 
 
 def read_counts() -> dict:
+    """Launches a kernel; of the scan's, those of its two wgmma bodies (over
+    int8 rows, over f32 rows), the rest on the mma.sync body."""
     return {"scan_pairs": scan_kernel.LAUNCHES, "scan_merge": scan_kernel.MERGE_LAUNCHES,
-            "gather_pairs": gather_kernel.PAIR_LAUNCHES, "gather_rows": gather_kernel.LAUNCHES}
+            "gather_pairs": gather_kernel.PAIR_LAUNCHES, "gather_rows": gather_kernel.LAUNCHES,
+            WGMMA_INT8: scan_kernel.WGMMA_LAUNCHES - scan_kernel.WGMMA_F32_LAUNCHES,
+            WGMMA_F32: scan_kernel.WGMMA_F32_LAUNCHES}
 
 
 def kv_stores(dev, d: int, seed: int = 7, chunk: int = 320):
@@ -541,20 +561,25 @@ def held_to_plain(store, queries, order, k: int, qtile: int, mode: str, partner,
     the earlier copy; folds the error into ``worst``.  ``edit_qidx`` may
     change the plan's query slots first; ``partner`` None skips the
     duplicate-order check; ``wgmma`` (where given) how many of the
-    launches must take the wgmma body.  The line names the body each
-    launch took.  Returns the query slots, the pairs' buckets and the
+    launches must take a wgmma body (the one over int8 rows or the one
+    over f32 rows, as the store's type says).  The line names the body
+    each launch took.  Returns the query slots, the pairs' buckets and the
     kernel's slots."""
     plan, args = scan_inputs(store, queries, order, qtile, mode)
     if edit_qidx is not None:
         args = (args[0], edit_qidx(args[1].clone()), *args[2:])
     kw = dict(k=k, qtile=qtile, chunk=store.chunk, mode=mode)
     before, before_w = scan_kernel.LAUNCHES, scan_kernel.WGMMA_LAUNCHES
+    before_f = scan_kernel.WGMMA_F32_LAUNCHES
     kd, ks = scan_kernel.scan_pairs(*args, **kw)
     torch.cuda.synchronize()
     check(scan_kernel.LAUNCHES - before == launches,
           f"{what}: {scan_kernel.LAUNCHES - before} launches, not {launches}")
     n_w = scan_kernel.WGMMA_LAUNCHES - before_w
+    n_f = scan_kernel.WGMMA_F32_LAUNCHES - before_f
     check(wgmma is None or n_w == wgmma, f"{what}: {n_w} wgmma-body launches, not {wgmma}")
+    check(n_f == (n_w if store.rows_ref.dtype == torch.float32 else 0),
+          f"{what}: {n_f} launches on the wgmma body over f32 rows of {n_w} on a wgmma body")
     rd, rs = scan_kernel.scan_pairs_reference(*args, **kw)
     err, gap = compare_candidates(kd, ks, rd, rs, mode, what)
     distinct_slots(ks, what)
@@ -566,7 +591,8 @@ def held_to_plain(store, queries, order, k: int, qtile: int, mode: str, partner,
     log(f"[kernel-vs-plain] {what:52s} pairs={plan.n_pairs:4d}: agree, max|Δd|={err:.3g}, "
         f"{int((ks != rs).sum().item())} slots swapped at ties (max|Δd| there {gap:.3g}), "
         f"{n_dup} later duplicates after their earlier copy; body: "
-        f"{f'wgmma ×{n_w}' if n_w else ''}{' + ' if n_w and n_w < launches else ''}"
+        f"{f'{scan_kernel.BODY_NAMES[2 if n_f else 1]} ×{n_w}' if n_w else ''}"
+        f"{' + ' if n_w and n_w < launches else ''}"
         f"{f'mma.sync ×{launches - n_w}' if launches > n_w else ''}")
     return args[1], args[2], ks
 
@@ -729,80 +755,91 @@ def split_cases(dev, worst: dict) -> None:
 
 
 def width32_cases(dev, worst: dict) -> None:
-    """bf16 over the int8 store at list width 32, where the wgmma body
-    runs: k 16 and 32 at qtile 1/8/100/128 over the ``kv_stores`` int8
-    store at chunk 320 (not whole 128-row tiles) and 130 (not whole
-    64-row tiles) and over the same store mutated (chunk lists out of
-    physical order); forced segments of 1 and 2 chunks bit-equal to whole
-    buckets at k 16 and 32; d 1152 (the widest resident query tile) and
-    1040 (rounded up to it).  Then the launches that keep the mma.sync body
-    at width 32: a virtual int8 store, rows of 100 bytes, and k 1040 over
-    buckets of ~4,000 rows (a 1024-wide round, then a 16-wide one under
-    its floors, which keeps the body of the round before it, so that both
-    sum a row the same way).  Each case checks which body its launches
-    took, as the library reports each launch."""
+    """bf16 over the int8 and the f32 store at list width 32, where the
+    wgmma bodies run: k 16 and 32 at qtile 1/8/100/128 over the
+    ``kv_stores`` int8 and f32 stores at chunk 320 (not whole 128-row
+    tiles) and 130 (not whole 64-row tiles) and over the same stores
+    mutated (chunk lists out of physical order); forced segments of 1 and
+    2 chunks bit-equal to whole buckets at k 16 and 32; d 1152 (the widest
+    resident query tile over int8 rows) and 1040 (rounded up to it), d 896
+    (the widest over f32 rows), 840 (rounded up to it) and 100 (f32 rows
+    of 400 bytes).  Then the launches that keep the mma.sync body at width
+    32: virtual int8 and f32 stores, int8 rows of 100 bytes, d 900 (past
+    the widest f32 tile), f32 rows of 408 bytes (d 102), and k 1040 over
+    buckets of ~4,000 rows of either type (a 1024-wide round, then a
+    16-wide one under its floors, which keeps the body of the round before
+    it, so that both sum a row the same way).  Each case checks which body
+    its launches took, as the library reports each launch."""
     qtiles = (1, 8, 100, 128)
     n_cases = 0
     for chunk in (320, 130):
         stores, queries, order, _, copies, made = kv_stores(dev, 768, seed=19, chunk=chunk)
-        st = stores["int8"]
+        kv = {name: stores[name] for name in ("int8", "f32")}
         for tag in ("", " mutated") if chunk == 320 else ("",):
-            if tag:  # after the fresh store's cases: mutation writes the store in place
+            if tag:  # after the fresh stores' cases: mutation writes the stores in place
                 virt = virtual_stores(made, stores["f32"])
-                held_to_plain(virt["int8"], queries, order, 16, 128, "bf16",
-                              scan_partner(virt["int8"], copies),
-                              "width 32 bf16 virtual int8 corpus k=16 qtile=128", worst, wgmma=0)
-                del virt
-                mutated, copies = mutate_kv_stores({"int8": st}, copies, made, seed=19)
-                st = mutated["int8"]
-            partner = scan_partner(st, copies)
-            for k in (16, 32):
-                for qtile in qtiles:
-                    held_to_plain(st, queries, order, k, qtile, "bf16", partner,
-                                  f"width 32 bf16 store=int8{tag} chunk={chunk} k={k} qtile={qtile}",
-                                  worst, wgmma=1)
+                for name in kv:
+                    held_to_plain(virt[name], queries, order, 16, 128, "bf16",
+                                  scan_partner(virt[name], copies),
+                                  f"width 32 bf16 virtual {name} corpus k=16 qtile=128", worst,
+                                  wgmma=0)
                     n_cases += 1
-                if tag:
-                    continue
-                plan, args = scan_inputs(st, queries, order, 128, "bf16")
-                whole, _ = split_run(st, args, plan, k, 128, "bf16", 10**6)
-                for segment in (1, 2):
-                    got, _ = split_run(st, args, plan, k, 128, "bf16", segment)
-                    check(torch.equal(got[0].view(torch.int32), whole[0].view(torch.int32))
-                          and torch.equal(got[1], whole[1]),
-                          f"width 32 chunk={chunk} k={k} segment={segment}: the split's bits "
-                          f"differ from whole buckets")
-                log(f"[kernel-vs-plain] width 32 bf16 store=int8 chunk={chunk} k={k} qtile=128: "
-                    f"segments of 1 and 2 chunks bit-equal to whole buckets (wgmma body)")
-        del stores, st
-    stores, queries, order, _, copies, _ = kv_stores(dev, 100, seed=19)
-    held_to_plain(stores["int8"], queries, order, 16, 128, "bf16",
-                  scan_partner(stores["int8"], copies), "width 32 bf16 store=int8 d=100 k=16 "
-                  "qtile=128", worst, wgmma=0)
-    del stores
-    # the widest query tile the wgmma body keeps resident (1152), and a d
-    # that the library rounds up to it
-    for d in (1152, 1040):
+                del virt
+                kv, copies = mutate_kv_stores(kv, copies, made, seed=19)
+            for name, st in kv.items():
+                partner = scan_partner(st, copies)
+                for k in (16, 32):
+                    for qtile in qtiles:
+                        held_to_plain(st, queries, order, k, qtile, "bf16", partner,
+                                      f"width 32 bf16 store={name}{tag} chunk={chunk} k={k} "
+                                      f"qtile={qtile}", worst, wgmma=1)
+                        n_cases += 1
+                    if tag:
+                        continue
+                    plan, args = scan_inputs(st, queries, order, 128, "bf16")
+                    whole, _ = split_run(st, args, plan, k, 128, "bf16", 10**6)
+                    for segment in (1, 2):
+                        got, _ = split_run(st, args, plan, k, 128, "bf16", segment)
+                        check(torch.equal(got[0].view(torch.int32), whole[0].view(torch.int32))
+                              and torch.equal(got[1], whole[1]),
+                              f"width 32 {name} chunk={chunk} k={k} segment={segment}: the "
+                              f"split's bits differ from whole buckets")
+                    log(f"[kernel-vs-plain] width 32 bf16 store={name} chunk={chunk} k={k} "
+                        f"qtile=128: segments of 1 and 2 chunks bit-equal to whole buckets "
+                        f"(wgmma body)")
+        del stores, kv
+    # the widest query tiles the wgmma bodies keep resident (1152 over int8
+    # rows, 896 over f32 rows), d that the library rounds up to them, f32
+    # rows of 400 bytes; then the widths that keep the mma.sync body
+    for d, name, wgmma in ((1152, "int8", 1), (1040, "int8", 1), (896, "f32", 1),
+                           (840, "f32", 1), (100, "f32", 1), (100, "int8", 0), (900, "f32", 0),
+                           (102, "f32", 0)):
         stores, queries, order, _, copies, _ = kv_stores(dev, d, seed=19)
-        held_to_plain(stores["int8"], queries, order, 16, 128, "bf16",
-                      scan_partner(stores["int8"], copies), f"width 32 bf16 store=int8 d={d} "
-                      "k=16 qtile=128", worst, wgmma=1)
+        held_to_plain(stores[name], queries, order, 16, 128, "bf16",
+                      scan_partner(stores[name], copies), f"width 32 bf16 store={name} d={d} "
+                      "k=16 qtile=128", worst, wgmma=wgmma)
+        n_cases += 1
         del stores
     # floors at width 32: buckets of ~4,000 rows, so the 16-wide round runs
     g = BlobGenerator(16, 768, seed=23, noise=0.45, device=dev)
     data = g.rows(12_000)
     rng = np.random.default_rng(23)
     q_int, q_sc = quantize.quantize_rows(data)
-    st = BucketStore.build_packed_device(q_int, rng.integers(0, 3, 12_000), 3, chunk=320,
-                                         row_scales=q_sc)
+    buckets = rng.integers(0, 3, 12_000)
+    floored = {"int8": BucketStore.build_packed_device(q_int, buckets, 3, chunk=320,
+                                                       row_scales=q_sc),
+               "f32": BucketStore.build_packed_device(data, buckets, 3, chunk=320)}
     order = torch.as_tensor(np.stack([rng.permutation(3)[:2] for _ in range(200)]), device=dev)
-    for qtile in (8, 128):
-        held_to_plain(st, g.rows(200), order, 1040, qtile, "bf16", None,
-                      f"width 32 rounds bf16 store=int8 k=1040 qtile={qtile}", worst,
-                      launches=2, wgmma=0)
-    log(f"[kernel-vs-plain] width 32: {n_cases + 6} cases held to the plain version, "
+    queries = g.rows(200)
+    for name, st in floored.items():
+        for qtile in (8, 128):
+            held_to_plain(st, queries, order, 1040, qtile, "bf16", None,
+                          f"width 32 rounds bf16 store={name} k=1040 qtile={qtile}", worst,
+                          launches=2, wgmma=0)
+            n_cases += 1
+    log(f"[kernel-vs-plain] width 32: {n_cases} cases held to the plain version, "
         f"each naming its body")
-    del st, data
+    del floored, data
 
 
 def in_scan_order(qidx, pair_bucket, slots, in_order, what: str) -> None:
@@ -1173,13 +1210,14 @@ def flagship_scan(store, queries, order, k: int, mode: str, smi: str, tag: str) 
     if mode == "f32" and store.rows_ref.dtype == torch.float32:
         fma = (f"; the CUDA cores' FMA route {2 * mac / PEAK_OPS['f32'] * 1e3:.3f} ms "
                f"({2 * mac:.4g} operations at {PEAK_OPS['f32'] / 1e12:g} T/s)")
+    reads = reread_text(store, plan, split_plan(sargs, k, mode), d)
     log(f"{tag} scan_pairs {mode}{'' if k == 16 else f' k_scan {k}'}: kernel {k_ms:.3f} ms, "
         f"plain {p_ms:.2f} ms, library {lib_ms:.2f} ms = {lib_ms / k_ms:.3f}x the kernel; bound "
         f"{bound[bound_by]:.3f} ms by {bound_by} ({mac:.4g} MAC, {ops:.4g} operations at "
         f"{peak / 1e12:g} T/s = {bound['operations']:.3f} ms, {nbytes / 1e9:.3f} GB = "
         f"{bound['bytes']:.3f} ms) = {bound[bound_by] / k_ms:.1%} of it{fma}; {plan.n_pairs} "
-        f"pairs, {mac / k_ms / 1e9:.1f} TMAC/s; agree, max|Δd|={err:.3g} (at swapped slots "
-        f"{gap:.3g}); {split_text(split_plan(sargs, k, mode))}  [{smi}]")
+        f"pairs, {mac / k_ms / 1e9:.1f} TMAC/s; {reads}; agree, max|Δd|={err:.3g} (at swapped "
+        f"slots {gap:.3g}); {split_text(split_plan(sargs, k, mode))}  [{smi}]")
     del sargs, kd, ks, rd, rs
     torch.cuda.empty_cache()
     return {"ms": k_ms, "plain_ms": p_ms, "library_ms": lib_ms, "err": err,
@@ -1200,11 +1238,12 @@ def split_plan(sargs, k: int, mode: str) -> dict:
     chunks = np.diff(ptr_h)[pb_h]
     return {"slots": body.slots, "segment": seg, "pairs": len(pb_h),
             "items": len(work.item_pair), "largest": int(chunks.max(initial=0)), "work": work,
-            "wgmma": body.wgmma, "qd": body.qd if body.wgmma else 0}
+            "wgmma": body.wgmma, "body": body.kind, "qd": body.qd if body.wgmma else 0,
+            "block": body.block_queries}
 
 
 def split_text(split: dict) -> str:
-    return (f"{'wgmma' if split['wgmma'] else 'mma.sync'} body; split: {split['slots']} slots, "
+    return (f"{scan_kernel.BODY_NAMES[split['body']]} body; split: {split['slots']} slots, "
             f"segments of {split['segment']} chunks, {split['pairs']} pairs -> {split['items']} "
             f"items (largest bucket {split['largest']} chunks)")
 
@@ -1226,7 +1265,7 @@ def merge_vs_plain(store, queries, order, k: int, mode: str, scan_ms: float, smi
     item_d, item_s = scan_kernel._launch_items(
         lib, scan_kernel.operand_queries(q, mode, st.dtype, split["qd"]), qs, inputs.qidx,
         inputs.pair_bucket, inputs.ptr, chunk_of, st, sc, row_ids, None, k=k, qtile=128,
-        chunk=store.chunk, mode=mode, terms=3 if mode == "f32" else 1, wgmma=split["wgmma"])
+        chunk=store.chunk, mode=mode, terms=3 if mode == "f32" else 1, body=split["body"])
     args = (item_d, item_s, inputs.pair_items)
     k_ms = cuda_ms(lambda: scan_kernel.merge_split_lists(*args), 20)
     p_ms = cuda_ms(lambda: scan_kernel.merge_split_lists_reference(*args), 3)
@@ -1266,51 +1305,97 @@ def merge_vs_plain(store, queries, order, k: int, mode: str, scan_ms: float, smi
 
 
 def f32_store_scan(store, queries, order, smi: str, index, data_prediction):
-    """f32 over an f32 store at the flagship (``precision="highest"`` over
-    the store ``BuildConfiguration(dtype="float32")`` builds; the
-    six-term body): the int8 store's rows dequantized slab by slab into
-    f32 on its chunk layout, scales 1.0 on live slots and 0 on padding.
-    The scan at ``k_scan`` 16 and 106 (``flagship_scan``: the kernel, its
-    plain version, whose candidates it must agree with, cuBLAS SGEMM +
-    ``torch.topk`` with TF32 off, the bound; at 16 the float64 gate), then
-    a whole ``search(precision="highest")`` of the 10k queries over that
-    store at visit 4, k 10, its launches counted: seconds per 10k, equal
-    to exact kNN over the visited buckets (ids differing only at ties)
-    for 256 queries, recall@10 >= 0.999.  Returns the timings and the
-    search's launch counts."""
+    """The flagship over an f32 store (the store
+    ``BuildConfiguration(dtype="float32")`` builds, the CLI's default): the
+    int8 store's rows dequantized slab by slab into f32 on its chunk
+    layout, scales 1.0 on live slots and 0 on padding.  The scan in f32
+    (``precision="highest"``, the six-term body) at ``k_scan`` 16 and 106
+    and in bf16 (the default precision, the wgmma body over f32 rows) at
+    16 (``flagship_scan``: the kernel, its plain version, whose candidates
+    it must agree with, the library call, the bound; in f32 at 16 the
+    float64 gate), then whole searches of the 10k queries over that store
+    at visit 4, k 10, at ``highest`` and at the default precision, their
+    launches counted (each default search one launch of the wgmma body
+    over f32 rows): seconds per 10k; for 256 queries ``highest`` equal to
+    exact kNN over the visited buckets (ids differing only at ties, recall
+    >= 0.999), the default search within the bf16 bar of the same search
+    through the scan's plain version, both recalls against exact kNN over
+    the visited buckets printed.  Returns the timings and the searches'
+    launch counts."""
     f32 = dequantized_store(store)
     tag = f"[flagship f32 store, {f32.chunk_data.numel() * 4 / 1e9:.2f} GB]"
     timing = {"f32 store": flagship_scan(f32, queries, order, 16, "f32", smi, tag),
               "f32 store k106": flagship_scan(f32, queries, order, 106, "f32", smi, tag)}
+    torch.cuda.reset_peak_memory_stats()
+    before = scan_kernel.WGMMA_F32_LAUNCHES
+    timing["f32 store bf16"] = flagship_scan(f32, queries, order, 16, "bf16", smi, tag)
+    check(scan_kernel.WGMMA_F32_LAUNCHES > before,
+          "the bf16 scan over the f32 store ran the wgmma body over f32 rows")
+    log(f"{tag} peak device memory while the bf16 scan, its plain version and the library "
+        f"call (its bf16 copy of the visited slabs) ran beside the int8 and f32 stores: "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB  [{smi}]")
 
-    def search(q):
+    def search(q, precision):
         return index.search(None, q, None, q, data_prediction, n_buckets=4, k=10, store=f32,
-                            precision="highest")
+                            precision=precision)
 
-    nq = queries.shape[0]
-    reset_counts()
-    search(queries)  # warmup
-    times = []
-    for _ in range(3):
-        t0 = time.perf_counter()
-        dd, ii, _ = search(queries)
-        times.append(time.perf_counter() - t0)
-    launches = read_counts()
-    check(launches["scan_pairs"] == 4, f"f32-store search: {launches['scan_pairs']} scan launches, not 4")
-    check(dd.shape == (nq, 10) and bool(np.isfinite(dd).all()) and bool((ii > 0).all()),
-          "f32-store search: finite, filled (nq, 10)")
-    nc = 256
+    def plain_search(q):  # the default search with the scan's plain version in the kernel's place
+        kernel = bucket_store_module.scan_pairs
+        bucket_store_module.scan_pairs = scan_kernel.scan_pairs_reference
+        try:
+            return search(q, "default")[:2]
+        finally:
+            bucket_store_module.scan_pairs = kernel
+
+    nq, nc = queries.shape[0], 256
     ref_d, ref_i = restricted_knn(f32, queries[:nc], order[:nc], 10)
     ref_d, ref_i = ref_d.cpu().numpy(), ref_i.cpu().numpy()
-    n_tied = same_neighbors(dd[:nc], ii[:nc], ref_d, ref_i, "f32-store highest vs visited-bucket exact")
-    r = recall(ii[:nc], ref_i, 10)
-    check(r >= 0.999, f"f32-store highest: recall {r} vs visited-bucket exact")
-    mean_s = float(np.mean(times))
-    log(f"[flagship f32 store] search precision=highest, n_buckets=4, k=10: reps "
-        f"{[round(t, 4) for t in times]} s; mean {mean_s:.4f} s per {nq} queries "
-        f"= {nq / mean_s:.0f} QPS; scan kernel at k_scan 16 {timing['f32 store']['ms']:.3f} ms; "
-        f"recall@10 vs visited-bucket exact kNN {r:.4f} ({nc} queries, {n_tied} ids differ at ties); "
-        f"launches {launches}  [{smi}]")
+    reset_counts()
+    for precision in ("highest", "default"):
+        before = read_counts()
+        search(queries, precision)  # warmup
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            dd, ii, _ = search(queries, precision)
+            times.append(time.perf_counter() - t0)
+        ran = {k: v - before[k] for k, v in read_counts().items()}
+        on_body = ran[WGMMA_F32] if precision == "default" else 0
+        check(ran["scan_pairs"] == 4 and ran[WGMMA_F32] == on_body
+              and ran[WGMMA_INT8] == 0,
+              f"f32-store {precision} search: {ran} launches, not 4 scans (on the wgmma body over "
+              f"f32 rows at the default precision)")
+        check(precision == "highest" or on_body == 4,
+              f"f32-store default search: {on_body} launches of the wgmma body over f32 rows")
+        check(dd.shape == (nq, 10) and bool(np.isfinite(dd).all()) and bool((ii > 0).all()),
+              f"f32-store {precision} search: finite, filled (nq, 10)")
+        r = recall(ii[:nc], ref_i, 10)
+        if precision == "highest":
+            n_tied = same_neighbors(dd[:nc], ii[:nc], ref_d, ref_i,
+                                    "f32-store highest vs visited-bucket exact")
+            check(r >= 0.999, f"f32-store {precision}: recall {r} vs visited-bucket exact")
+            held = f"{n_tied} ids differ at ties"
+        else:
+            # bf16 rounds the f32 rows as well as the queries (int8 rows are
+            # exact in bf16), so at a near-tie a true neighbour can fall past
+            # the k + 6 shortlist: the search is held to the same search
+            # through the scan's plain version, at the bf16 bar
+            pd, pi = plain_search(queries[:nc])
+            err = float(np.abs(dd[:nc] - pd).max())
+            same = float((np.sort(ii[:nc], 1) == np.sort(pi, 1)).mean())
+            check(err <= BF16_ATOL and same >= BF16_SAME_IDS,
+                  f"f32-store default search against the plain version's: max|Δd| {err:.3g}, "
+                  f"{same:.4f} of the sorted ids equal")
+            held = (f"the same search through the scan's plain version: recall "
+                    f"{recall(pi, ref_i, 10):.4f}, {same:.4f} of the sorted ids equal, max|Δd| "
+                    f"{err:.3g}")
+        mean_s = float(np.mean(times))
+        scan = timing["f32 store" if precision == "highest" else "f32 store bf16"]["ms"]
+        log(f"[flagship f32 store] search precision={precision}, n_buckets=4, k=10: reps "
+            f"{[round(t, 4) for t in times]} s; mean {mean_s:.4f} s per {nq} queries "
+            f"= {nq / mean_s:.0f} QPS; scan kernel at k_scan 16 {scan:.3f} ms; recall@10 vs "
+            f"visited-bucket exact kNN {r:.4f} ({nc} queries; {held}); launches {ran}  [{smi}]")
+    launches = read_counts()
     del f32
     torch.cuda.empty_cache()
     return timing, launches
@@ -1327,6 +1412,24 @@ def dequantized_store(store):
         rows[s0 : s0 + step] = quantize.dequantize_rows(
             store.chunk_data[s0 : s0 + step], store.chunk_scales[s0 : s0 + step])
     return store._replace(chunk_data=rows, chunk_scales=None)
+
+
+def reread_text(store, plan, split: dict, d: int) -> str:
+    """What the launch reads if nothing it reads twice hits in L2: each
+    pair reading its bucket once (pairs × bucket bytes), and each block
+    reading it once (the wgmma bodies' blocks of 64 query slots that hold
+    a query; the mma.sync body at list width 32 one block a pair), beside
+    the bound's bytes (each visited bucket once)."""
+    sizes = torch.as_tensor(store.bucket_sizes, device=plan.pair_bucket.device).long()
+    row_bytes = d * store.rows_ref.element_size() + 4
+    per_pair = sizes[plan.pair_bucket.long()].double() * row_bytes
+    blocks = torch.ones_like(per_pair)
+    if split["wgmma"]:
+        live = plan.qidx.view(plan.n_pairs, -1, split["block"]) >= 0
+        blocks = live.any(dim=2).sum(dim=1).double()
+    pair_gb, block_gb = float(per_pair.sum()) / 1e9, float((per_pair * blocks).sum()) / 1e9
+    return (f"read once a pair {pair_gb:.3f} GB = {pair_gb * 1e12 / HBM_BYTES_PER_S:.3f} ms, "
+            f"once a block {block_gb:.3f} GB = {block_gb * 1e12 / HBM_BYTES_PER_S:.3f} ms")
 
 
 def scan_work(store, plan, order, d: int, k: int, mode: str) -> tuple:
@@ -1929,10 +2032,11 @@ def phase_build_path(dev, data: dict, smi: str):
     os.environ["LMI_GATHER_MODE"] = "auto"
     n_search = 1 + MODE_ROUNDS
     check(per_mode["auto"] == {"scan_pairs": n_search, "scan_merge": n_search, "gather_pairs": 0,
-                               "gather_rows": 0},
+                               "gather_rows": 0, WGMMA_INT8: n_search, WGMMA_F32: 0},
           f"auto mode launches one scan and no gather a search: {per_mode['auto']}")
     check(per_mode["kernel"] == {"scan_pairs": n_search, "scan_merge": n_search,
-                                 "gather_pairs": n_search, "gather_rows": 0},
+                                 "gather_pairs": n_search, "gather_rows": 0, WGMMA_INT8: n_search,
+                                 WGMMA_F32: 0},
           f"kernel mode launches one scan and one merge gather a search: {per_mode['kernel']}")
     for mode in ("auto", "kernel"):
         t = np.asarray(rounds[mode])
@@ -2579,6 +2683,8 @@ def phase_cli(dev, smi: str, argv=CLI_ARGV):
               f"the sweep launched the scan once a visit count and no gather: {counts}")
         check(store.chunk_data.dtype == torch.float32 and store.chunk_data.device == dev,
               f"the CLI's default store is f32 on the card: {store.chunk_data.dtype}")
+        check(counts[WGMMA_F32] == counts["scan_pairs"],
+              f"every scan of the sweep ran the wgmma body over f32 rows: {counts}")
         log(f"[cli] host data: {n_rows}x{store.chunk_data.shape[1]} + {nq} queries drawn "
             f"(synthetic_blobs, float64 draws) in {result.data_t:.1f} s; build "
             f"{result.build_t:.1f} s (cluster {result.cluster_t:.1f} s, train "
@@ -2645,15 +2751,15 @@ def phase_cli(dev, smi: str, argv=CLI_ARGV):
                 search(CLI_TRACE_VISIT)
         traced = {k: v - before[k] for k, v in read_counts().items()}
         window_ms, busy, top = trace_split(prof.trace_path, "lmi.search")
-        check(any("scan_mma_kernel" in name for name, _, _ in top),
-              f"the trace names the scan kernel: {[n for n, _, _ in top]}")
+        check(any("scan_wgmma_f32" in name for name, _, _ in top),
+              f"the trace names the scan kernel's body over f32 rows: {[n for n, _, _ in top]}")
         log(f"[cli-trace] one search at visit {CLI_TRACE_VISIT} under device_trace "
             f"({os.path.relpath(prof.trace_path, ROOT)}): window {window_ms:.2f} ms, device "
             f"busy {100 * busy:.1f}% of it; launches {traced}  [{smi}]")
         for name, ms, n in top:
             log(f"[cli-trace]   {ms:8.3f} ms  x{n:<3d} {name[:110]}")
-        scan_ms = sum(ms for name, ms, _ in top if "scan_mma_kernel" in name)
-        log(f"[cli-trace] the scan (bf16 body over the f32 store) {scan_ms:.3f} ms of the "
+        scan_ms = sum(ms for name, ms, _ in top if "scan_wgmma_f32" in name)
+        log(f"[cli-trace] the scan (the wgmma body over the f32 store) {scan_ms:.3f} ms of the "
             f"{window_ms:.2f} ms window; peak device memory in the phase "
             f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; phase total "
             f"{time.perf_counter() - t_all:.1f} s")
@@ -2663,12 +2769,16 @@ def phase_cli(dev, smi: str, argv=CLI_ARGV):
         sizes = np.asarray(store.bucket_sizes)
         order, _ = index.compute_bucket_order(q_dev, CLI_TRACE_VISIT, keep_on_device=True)
         plan, sargs = scan_inputs(store, q_dev, order, 128, "bf16")
+        split, d = split_plan(sargs, 16, "bf16"), store.chunk_data.shape[1]
         kw_scan = dict(k=16, qtile=128, chunk=store.chunk, mode="bf16")
         mac, ops, peak, nbytes = scan_work(store, plan, order, store.chunk_data.shape[1], 16,
                                            "bf16")
         bound = {"operations": ops / peak * 1e3, "bytes": nbytes / HBM_BYTES_PER_S * 1e3}
         bound_by = max(bound, key=bound.get)
+        before = scan_kernel.WGMMA_F32_LAUNCHES
         k_ms = cuda_ms(lambda: scan_kernel.scan_pairs(*sargs, **kw_scan), 3)
+        check(scan_kernel.WGMMA_F32_LAUNCHES > before, "the CLI's scan ran the wgmma body over "
+              "f32 rows")
         p_ms = cuda_ms(lambda: scan_kernel.scan_pairs_reference(*sargs, **kw_scan), 1)
         lib_ms = cuda_ms(library_scan(store, plan, sargs, 16, "bf16"), 1)
         kd, ks = scan_kernel.scan_pairs(*sargs, **kw_scan)
@@ -2678,9 +2788,9 @@ def phase_cli(dev, smi: str, argv=CLI_ARGV):
             f"{k_ms:.3f} ms, plain {p_ms:.2f} ms, library {lib_ms:.2f} ms; bound "
             f"{bound[bound_by]:.3f} ms by {bound_by} ({mac:.4g} MAC, {nbytes / 1e9:.3f} GB) = "
             f"{bound[bound_by] / k_ms:.1%} of it; {plan.n_pairs} pairs, "
-            f"{mac / k_ms / 1e9:.1f} TMAC/s; bucket sizes min {sizes.min()} median "
-            f"{int(np.median(sizes))} max {sizes.max()} rows; agree, max|Δd|={err:.3g} (at "
-            f"swapped slots {gap:.3g})  [{smi}]")
+            f"{mac / k_ms / 1e9:.1f} TMAC/s; {reread_text(store, plan, split, d)}; bucket "
+            f"sizes min {sizes.min()} median {int(np.median(sizes))} max {sizes.max()} rows; "
+            f"agree, max|Δd|={err:.3g} (at swapped slots {gap:.3g}); {split_text(split)}  [{smi}]")
         timing = {"ms": k_ms, "plain_ms": p_ms, "library_ms": lib_ms, "err": err,
                   "bound_ms": bound[bound_by], "bound_by": bound_by}
         single = {"drawn": drawn[0], "build_t": result.build_t, "cluster_t": result.cluster_t,
@@ -2760,9 +2870,10 @@ def phase_multi_build(dev, smi: str, single: dict, argv=CLI_ARGV):
             check(isinstance(store, lmi.ShardedStore) and len(store.shards) == 4
                   and all(sh.device == dev for sh in store.shards), f"{name}: 4 shards on {dev}")
             check(counts["scan_pairs"] == 4 * len(result.searches)
-                  and counts["scan_merge"] == counts["scan_pairs"],
-                  f"{name}: {counts['scan_pairs']} scan launches for {len(result.searches)} "
-                  f"searches of 4 shards")
+                  and counts["scan_merge"] == counts["scan_pairs"]
+                  and counts[WGMMA_F32] == counts["scan_pairs"],
+                  f"{name}: {counts} launches for {len(result.searches)} searches of 4 shards "
+                  f"(each scan on the wgmma body over f32 rows)")
             q_dev = torch.as_tensor(result.queries, device=dev)
             recalls = []
             for b, dists, nns, measured, _ in result.searches:
@@ -3025,8 +3136,9 @@ def rank_main(work: Path) -> None:
               f"{name}: the rank's one shard on {dev}")
         check(counts["scan_pairs"] == len(visits) and counts["scan_merge"] == len(visits)
               and counts["gather_pairs"] == 0
-              and counts["gather_rows"] == 0,
-              f"{name}: {counts} launches for {len(visits)} searches (one scan a search)")
+              and counts["gather_rows"] == 0 and counts[WGMMA_F32] == len(visits),
+              f"{name}: {counts} launches for {len(visits)} searches (one scan a search, on the "
+              f"wgmma body over f32 rows)")
         check(search_coll["all_gather"][0] == len(visits),
               f"{name}: one all_gather a search: {search_coll}")
         recalls = []
@@ -3124,15 +3236,21 @@ def main() -> None:
         ("gather_pairs", GATHER_SOURCE, GATHER_REPLACES, gather_timing["merge"],
          [t["err"] for t in gather_timing.values()]),
     ):
+        def total(key):  # over every path's run
+            return sum(run[key] for run in (main_launches, virt_launches, shard_launches,
+                                            build_launches, dyn_launches, mut_launches,
+                                            cli_launches, multi_launches, proc_launches))
+
         rows.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                     "launches": (main_launches[name] + virt_launches[name]
-                                  + shard_launches[name] + build_launches[name]
-                                  + dyn_launches[name] + mut_launches[name]
-                                  + cli_launches[name] + multi_launches[name]
-                                  + proc_launches[name]),
+                     "launches": total(name),
                      "max_abs_err": max(errs), "ms": t["ms"], "plain_ms": t["plain_ms"],
                      "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
                      "library_ms": t["library_ms"]})
+        if name == "scan_pairs":  # its launches a body
+            rows[-1]["bodies"] = {
+                "mma.sync": total(name) - total(WGMMA_INT8) - total(WGMMA_F32),
+                "wgmma (bf16 over int8 rows)": total(WGMMA_INT8),
+                "wgmma (bf16 over f32 rows)": total(WGMMA_F32)}
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

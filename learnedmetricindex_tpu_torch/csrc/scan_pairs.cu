@@ -218,11 +218,50 @@
 //    the tiles in scan order.
 // It sums each 16-deep step on the tensor cores in another order than
 // mma.sync, so its lists match the plain version to the bf16 bar, not
-// the mma.sync body's bits.  The other bodies keep the mma.sync design.
+// the mma.sync body's bits.
+//
+// The Hopper body over f32 rows (scan_wgmma_f32_kernel): bf16 queries over
+// an f32 packed store at list width 32, the default search over
+// BuildConfiguration(dtype="float32") (both packages' default store type)
+// and the SISAP CLI's scan.  The same block as above (64 resident query
+// slots, a producer warp a consumer warpgroup, two consumers taking
+// alternate 64-row tiles, the same epilogue and selection); what differs
+// is the ring and the A fragments.  What bounded the mma.sync body there:
+// it staged f32 rows through registers with scalar loads, each value
+// rounded by __float2bfloat16_rn, into a ring that drains every row tile
+// (8.5–9% of its bound by bytes at the CLI's shape on an H100).  Bytes
+// bound this body, not tensor work: an f32 row gives 32 operations a byte
+// against 64 query slots, far below the ~295 the card needs before its
+// tensor cores set the pace.  The design:
+//  * the ring holds the rows as f32, as TMA writes them: boxes of 64 rows
+//    × 32 f32 (128 bytes), two a stage (64 depths, four k-steps, 16 KB),
+//    two stages a consumer (64 KB), under TMA's 128-byte swizzle, so the
+//    resident query tile fits up to d 896 (W_MAX_QD_F) beside the 52 KB
+//    head;
+//  * in k-step j of a box lane (g, t) reads chunk 2t + j (16 bytes) of
+//    rows g and g+8, which the swizzle puts at chunk (2t + j) ^ g: a
+//    quarter-warp's eight loads hit eight distinct chunks, all 32 banks
+//    (without the swizzle a 128-byte row pitch puts them on half the
+//    banks); cvt.rn.bf16x2.f32 rounds each value pair into one A
+//    register, round to nearest even as the plain version's
+//    .to(torch.bfloat16); the wrapper permutes each 32-group of the
+//    queries to match (WGMMA_F32_ORDER in ops/scan_kernel.py);
+//  * a warp finds the queries its selection must visit with one load a
+//    lane and a ballot (6% at the flagship's f32 store on an H100).
+// What it measured (tools/torch_scan_probe.py --body wgmma-f32, PERF.md):
+// 0.50 of the mma.sync body's time at the flagship's 31 GB f32 store; no
+// one part bounds it (without the TMA copies 0.64 of its time, without the
+// selection 0.82, without the wgmma 0.83, without the rounding 0.99).  The
+// pair's two blocks as a cluster with each box multicast into both rings
+// was slower (each block then waits on the other's consumers), and so
+// were deeper rings of smaller stages and three consumer warpgroups.
+// Its lists match the plain version to the bf16 bar, as the int8 body's.
+// The other bodies keep the mma.sync design.
 //
 // What is left for later work:
 //  * the int8 mode on the Hopper body (s8 × s8 wgmma, both operands in
-//    shared memory, no widening), then the f32 bodies;
+//    shared memory, no widening), then the f32 bodies and bf16 over a
+//    bf16 store;
 //  * the split's cost: one host read of the plan and one upload of the
 //    work list a launch, and a merge pass; a persistent grid that takes
 //    items from a device-side queue would need neither the read nor the
@@ -1247,12 +1286,43 @@ constexpr size_t kWRingBytes = size_t(W_CONSUMERS) * W_STAGES * W_STAGE;
 constexpr int W_MAX_QD =
     int((232448 - kWRingOffset - kWRingBytes) / (size_t(WQ) * 2 * W_QD_STEP)) * W_QD_STEP;
 static_assert(W_MAX_QD >= 1024, "a 1024-wide query tile is resident");
+// bf16 over an f32 store: boxes of WR rows × 32 f32 (WKF bytes, TMA's
+// 128-byte swizzle), two a stage (64 depths, four k-steps), the same ring
+// shape a consumer; the widest resident query tile that fits beside it
+constexpr int WKF = 128;
+constexpr int W_STAGE_F = W_BOXES * WR * WKF;
+constexpr int W_KSTEPS_F = W_BOXES * WKF / 4 / 16;
+constexpr int W_QD_STEP_F = W_BOXES * WKF / 4;
+constexpr size_t kWRingBytesF = size_t(W_CONSUMERS) * W_STAGES * W_STAGE_F;
+constexpr int W_MAX_QD_F =
+    int((232448 - kWRingOffset - kWRingBytesF) / (size_t(WQ) * 2 * W_QD_STEP_F)) * W_QD_STEP_F;
+static_assert(W_MAX_QD_F >= 768 && kWRingOffset % 1024 == 0 && W_STAGE_F % 1024 == 0,
+              "a 768-wide query tile is resident; swizzled boxes start on 1024 bytes");
+
+// The ring of the store type TS: int8 rows (WK bytes a box row, 64 depths)
+// or f32 rows (WKF bytes, 32 depths), W_BOXES boxes a stage
+template <typename TS>
+struct WRing;
+template <>
+struct WRing<int8_t> {
+  static constexpr int ROW = WK, DEPTHS = WK, STAGE = W_STAGE, KSTEPS = W_KSTEPS,
+                       QD_STEP = W_QD_STEP, MAX_QD = W_MAX_QD;
+  static constexpr size_t BYTES = kWRingBytes;
+};
+template <>
+struct WRing<float> {
+  static constexpr int ROW = WKF, DEPTHS = WKF / 4, STAGE = W_STAGE_F, KSTEPS = W_KSTEPS_F,
+                       QD_STEP = W_QD_STEP_F, MAX_QD = W_MAX_QD_F;
+  static constexpr size_t BYTES = kWRingBytesF;
+};
 
 // dynamic shared memory at query width qd
+template <typename TS>
 __host__ __device__ inline size_t wgmma_smem_bytes(int qd) {
-  return kWRingOffset + kWRingBytes + size_t(WQ) * 2 * qd;
+  return kWRingOffset + WRing<TS>::BYTES + size_t(WQ) * 2 * qd;
 }
 
+template <typename TS>
 struct WSmem {
   uint64_t* full;    // [W_CONSUMERS][W_STAGES] the producer's TMA landed
   uint64_t* empty;   // [W_CONSUMERS][W_STAGES] the warpgroup's four warps read it
@@ -1261,7 +1331,7 @@ struct WSmem {
   float* top_d;      // [WQ][W_LIST]
   int* top_s;        // [WQ][W_LIST]
   float* dist;       // [W_CONSUMERS][WQ][WDQ]
-  unsigned char* ring;     // [W_CONSUMERS][W_STAGES][WR][WK] int8 rows, as TMA writes them
+  unsigned char* ring;     // [W_CONSUMERS][W_STAGES][W_BOXES][WR][ROW] rows, as TMA writes them
   unsigned char* queries;  // resident bf16 queries, qd / 16 k-steps of W_KSTEP bytes
   __device__ explicit WSmem(unsigned char* base) {
     full = reinterpret_cast<uint64_t*>(base);
@@ -1272,10 +1342,10 @@ struct WSmem {
     top_s = reinterpret_cast<int*>(top_d + W_LIST * WQ);
     dist = reinterpret_cast<float*>(top_s + W_LIST * WQ);
     ring = base + kWRingOffset;
-    queries = ring + kWRingBytes;
+    queries = ring + WRing<TS>::BYTES;
   }
   __device__ unsigned char* stage(int wg, int slot) const {
-    return ring + (wg * W_STAGES + slot) * W_STAGE;
+    return ring + (wg * W_STAGES + slot) * WRing<TS>::STAGE;
   }
 };
 
@@ -1333,6 +1403,13 @@ __device__ __forceinline__ void bar_sync(int id, int threads) {
 __device__ __forceinline__ void bar_arrive(int id, int threads) {
   asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
+// lo and hi rounded to the nearest even bf16 (as __float2bfloat16_rn), lo
+// in the low half
+__device__ __forceinline__ uint32_t bf16x2_rn(float lo, float hi) {
+  uint32_t r;
+  asm("cvt.rn.bf16x2.f32 %0, %1, %2;\n" : "=r"(r) : "f"(hi), "f"(lo));
+  return r;
+}
 __device__ __forceinline__ uint4 lds128u(const void* p) {
   uint4 v;
   asm volatile("ld.shared.v4.u32 {%0, %1, %2, %3}, [%4];\n"
@@ -1354,9 +1431,10 @@ __device__ __forceinline__ void hold(float (&r)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
 }
-__device__ __forceinline__ void hold(uint32_t (&r)[W_KSTEPS][4]) {
+template <int J>
+__device__ __forceinline__ void hold(uint32_t (&r)[J][4]) {
 #pragma unroll
-  for (int j = 0; j < W_KSTEPS; ++j)
+  for (int j = 0; j < J; ++j)
 #pragma unroll
     for (int i = 0; i < 4; ++i) asm volatile("" : "+r"(r[j][i])::"memory");
 }
@@ -1414,7 +1492,8 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[
 // The block's item, its query slots, empty lists, the ring's
 // barriers and the resident query tile.  Slot q holds query q0 + q; slots
 // past qtile hold none.  nl = 0: no slot is live, the block writes the fill.
-__device__ WItem wgmma_begin(const Params& p, const WSmem& s) {
+template <typename TS>
+__device__ WItem wgmma_begin(const Params& p, const WSmem<TS>& s) {
   const int tid = threadIdx.x;
   const int splits = (p.qtile + WQ - 1) / WQ;
   WItem b;
@@ -1471,9 +1550,11 @@ __device__ WItem wgmma_begin(const Params& p, const WSmem& s) {
 // through the warpgroup's ring, running ahead across tiles and chunks.
 // A box may reach past the chunk's last row (the consumers mask those
 // rows) or past the store (TMA writes zeros).
-__device__ void wgmma_produce(const CUtensorMap* map, const Params& p, const WSmem& s,
+template <typename TS>
+__device__ void wgmma_produce(const CUtensorMap* map, const Params& p, const WSmem<TS>& s,
                               const WItem& b, int wg) {
-  const int per_chunk = (p.chunk + WR - 1) / WR, nst = p.qd / (WK * W_BOXES);
+  using R = WRing<TS>;
+  const int per_chunk = (p.chunk + WR - 1) / WR, nst = p.qd / R::QD_STEP;
   TileWalk w{b.c_lo, 0};
   w.advance(wg, per_chunk);
   int phys = w.c < b.c_hi ? p.chunk_of[w.c] : 0;
@@ -1487,10 +1568,11 @@ __device__ void wgmma_produce(const CUtensorMap* map, const Params& p, const WSm
       const int slot = cnt % W_STAGES;
       uint64_t* full = &s.full[wg * W_STAGES + slot];
       mbar_wait(&s.empty[wg * W_STAGES + slot], ((cnt / W_STAGES) & 1) ^ 1);
-      mbar_expect_tx(full, W_STAGE);
+      mbar_expect_tx(full, R::STAGE);
 #pragma unroll
       for (int box = 0; box < W_BOXES; ++box)
-        tma_load_rows(s.stage(wg, slot) + box * WR * WK, map, (st * W_BOXES + box) * WK, row, full);
+        tma_load_rows(s.stage(wg, slot) + box * WR * R::ROW, map, (st * W_BOXES + box) * R::DEPTHS,
+                      row, full);
     }
     w = next;
     phys = next_phys;
@@ -1502,17 +1584,21 @@ __device__ void wgmma_produce(const CUtensorMap* map, const Params& p, const WSm
 // block computes (nq): the list in a warp's lanes, a marked 32-row group's
 // candidates by ballot, each entering in scan order after every entry <= it.
 // Its own copy of that rule (other tile and list layouts), so that the
-// mma.sync instances keep their code.
-__device__ void wgmma_select(const Params& p, const WSmem& s, int wg, int nq, int nrows, int slot0) {
+// mma.sync instances keep their code.  Over f32 rows a warp finds its
+// marked queries (most tiles after a bucket's first have few) with one
+// load a lane and a ballot, not one load a query in turn (measured on the
+// f32 body only; the int8 body keeps its loop and its code).
+template <typename TS>
+__device__ void wgmma_select(const Params& p, const WSmem<TS>& s, int wg, int nq, int nrows,
+                             int slot0) {
   const int lane = threadIdx.x & 31, k = p.k;
   const float* dist = s.dist + wg * WQ * WDQ;
   unsigned* grp = s.q_grp + wg * WQ;
-  for (int q = (threadIdx.x >> 5) & 3; q < nq; q += 4) {
-    const unsigned groups = grp[q];
-    if (groups == 0) continue;
+  // query q's marked 32-row groups (byte g of `groups` for group g)
+  auto select_query = [&](int q, unsigned groups) {
     __syncwarp();
     if (lane == 0) grp[q] = 0;
-    if (s.q_row[q] < 0) continue;
+    if (s.q_row[q] < 0) return;
     float dl = s.top_d[q * W_LIST + lane];
     int sl = s.top_s[q * W_LIST + lane];
     float worst = __shfl_sync(FULL, dl, k - 1);
@@ -1548,6 +1634,21 @@ __device__ void wgmma_select(const Params& p, const WSmem& s, int wg, int nq, in
       s.top_d[q * W_LIST + lane] = dl;
       s.top_s[q * W_LIST + lane] = sl;
     }
+  };
+  const int q0 = (threadIdx.x >> 5) & 3;
+  if constexpr (std::is_same<TS, float>::value) {
+    const int q = q0 + 4 * lane;  // lane i holds the warp's i-th query (nq <= 4 · 32)
+    const unsigned mine = q < nq ? grp[q] : 0u;
+    for (unsigned todo = __ballot_sync(FULL, mine != 0); todo != 0; todo &= todo - 1) {
+      const int i = __ffs(todo) - 1;
+      select_query(q0 + 4 * i, __shfl_sync(FULL, mine, i));
+    }
+  } else {
+    for (int q = q0; q < nq; q += 4) {
+      const unsigned groups = grp[q];
+      if (groups == 0) continue;
+      select_query(q, groups);
+    }
   }
 }
 
@@ -1557,12 +1658,12 @@ __device__ void wgmma_select(const Params& p, const WSmem& s, int wg, int nq, in
 // queries), then the epilogue (distances, marks) and, once the other
 // warpgroup has selected the tile before, the selection, while the other
 // warpgroup's wgmma runs.  N = 16·NL query slots.
-template <int NL>
-__device__ void wgmma_consume(const Params& p, const WSmem& s, const WItem& b, int wg) {
-  constexpr int N = 16 * NL;
+template <typename TS, int NL>
+__device__ void wgmma_consume(const Params& p, const WSmem<TS>& s, const WItem& b, int wg) {
+  constexpr int N = 16 * NL, KSTEPS = WRing<TS>::KSTEPS;
   const int tid = threadIdx.x & 127, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
-  const int per_chunk = (p.chunk + WR - 1) / WR, nst = p.qd / (WK * W_BOXES);
+  const int per_chunk = (p.chunk + WR - 1) / WR, nst = p.qd / WRing<TS>::QD_STEP;
   const int ntiles = (b.c_hi - b.c_lo) * per_chunk;
   const uint32_t q_base = smem_u32(s.queries);
   TileWalk w{b.c_lo, 0};
@@ -1576,27 +1677,52 @@ __device__ void wgmma_consume(const Params& p, const WSmem& s, const WItem& b, i
 #pragma unroll
     for (int e = 0; e < 2; ++e) live |= unsigned(s.q_row[8 * n + 2 * t + e] >= 0) << (2 * n + e);
 
-  // the A fragments of a stage's k-steps, four a box: lane (g, t) reads
-  // bytes 16t .. 16t+15 of rows g and g+8 of its warp's 16 in each box;
-  // word j widens to the depths the registers of the box's k-step j hold
-  // (WGMMA_ORDER in ops/scan_kernel.py)
-  auto take_stage = [&](uint32_t(&a)[W_KSTEPS][4]) {
+  // int8 rows: the A fragments of a stage's k-steps, four a box: lane
+  // (g, t) reads bytes 16t .. 16t+15 of rows g and g+8 of its warp's 16 in
+  // each box; word j widens to the depths the registers of the box's
+  // k-step j hold (WGMMA_ORDER in ops/scan_kernel.py).  f32 rows: two
+  // k-steps a box; in k-step j lane (g, t) reads the 16-byte chunk 2t + j
+  // (depths 8t + 4j .. 8t + 4j + 3) of rows g and g+8, at chunk (2t + j) ^
+  // g of the row as TMA's 128-byte swizzle places it (the rows of a box
+  // are 128 bytes, the box on 1024), so the eight lanes of a
+  // quarter-warp read eight distinct chunks: all 32 banks.  Each pair of
+  // values rounds to nearest even into one A register
+  // (WGMMA_F32_ORDER in ops/scan_kernel.py)
+  int f32_off[2];
+#pragma unroll
+  for (int j = 0; j < 2; ++j) f32_off[j] = (warp * 16 + g) * WKF + (((2 * t + j) ^ g) << 4);
+  auto take_stage = [&](uint32_t(&a)[KSTEPS][4]) {
     const int slot = cnt % W_STAGES;
     mbar_wait(&s.full[wg * W_STAGES + slot], (cnt / W_STAGES) & 1);
+    if constexpr (std::is_same<TS, float>::value) {
 #pragma unroll
-    for (int box = 0; box < W_BOXES; ++box) {
-      const unsigned char* x = s.stage(wg, slot) + box * WR * WK + (warp * 16 + g) * WK + t * 16;
-      const uint4 lo = lds128u(x), hi = lds128u(x + 8 * WK);
-      const uint32_t wl[4] = {lo.x, lo.y, lo.z, lo.w}, wh[4] = {hi.x, hi.y, hi.z, hi.w};
+      for (int box = 0; box < W_BOXES; ++box) {
+        const uint32_t x = smem_u32(s.stage(wg, slot) + box * WR * WKF);
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        uint32_t bl[2], bh[2];
-        widen_s8x4(wl[j], bl);
-        widen_s8x4(wh[j], bh);
-        a[4 * box + j][0] = bl[0];
-        a[4 * box + j][1] = bh[0];
-        a[4 * box + j][2] = bl[1];
-        a[4 * box + j][3] = bh[1];
+        for (int j = 0; j < 2; ++j) {
+          const float4 lo = lds128(x + f32_off[j]), hi = lds128(x + f32_off[j] + 8 * WKF);
+          a[2 * box + j][0] = bf16x2_rn(lo.x, lo.y);
+          a[2 * box + j][1] = bf16x2_rn(hi.x, hi.y);
+          a[2 * box + j][2] = bf16x2_rn(lo.z, lo.w);
+          a[2 * box + j][3] = bf16x2_rn(hi.z, hi.w);
+        }
+      }
+    } else {
+#pragma unroll
+      for (int box = 0; box < W_BOXES; ++box) {
+        const unsigned char* x = s.stage(wg, slot) + box * WR * WK + (warp * 16 + g) * WK + t * 16;
+        const uint4 lo = lds128u(x), hi = lds128u(x + 8 * WK);
+        const uint32_t wl[4] = {lo.x, lo.y, lo.z, lo.w}, wh[4] = {hi.x, hi.y, hi.z, hi.w};
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          uint32_t bl[2], bh[2];
+          widen_s8x4(wl[j], bl);
+          widen_s8x4(wh[j], bh);
+          a[4 * box + j][0] = bl[0];
+          a[4 * box + j][1] = bh[0];
+          a[4 * box + j][2] = bl[1];
+          a[4 * box + j][3] = bh[1];
+        }
       }
     }
     __syncwarp();
@@ -1621,13 +1747,13 @@ __device__ void wgmma_consume(const Params& p, const WSmem& s, const WItem& b, i
     // stage st's wgmma reads a[st % 2]; stage st + 1's is queued behind it
     // before the warpgroup waits for stage st - 1 and widens stage st + 1
     // into the registers stage st - 1 read
-    uint32_t a[2][W_KSTEPS][4];
+    uint32_t a[2][KSTEPS][4];
     auto issue = [&](auto buf, int st) {
       constexpr int B = decltype(buf)::value;
       wgmma_fence();
 #pragma unroll
-      for (int j = 0; j < W_KSTEPS; ++j)
-        wgmma_rs<N>(acc, a[B][j], query_desc(q_base + (W_KSTEPS * st + j) * W_KSTEP));
+      for (int j = 0; j < KSTEPS; ++j)
+        wgmma_rs<N>(acc, a[B][j], query_desc(q_base + (KSTEPS * st + j) * W_KSTEP));
       wgmma_commit();
     };
     auto step = [&](auto buf, int st) {  // st >= 1
@@ -1677,7 +1803,8 @@ __device__ void wgmma_consume(const Params& p, const WSmem& s, const WItem& b, i
   }
 }
 
-__device__ void wgmma_write(const Params& p, const WSmem& s, const WItem& b, bool fill) {
+template <typename TS>
+__device__ void wgmma_write(const Params& p, const WSmem<TS>& s, const WItem& b, bool fill) {
   const int n_own = min(WQ, p.qtile - b.q0);
   const size_t out0 = ((size_t)b.pair * p.qtile + b.q0) * p.k;
   const int threads = fill ? W_THREADS : W_CONSUMERS * 128;
@@ -1688,10 +1815,11 @@ __device__ void wgmma_write(const Params& p, const WSmem& s, const WItem& b, boo
   }
 }
 
+// bf16 queries over an int8 packed store
 __global__ void __launch_bounds__(W_THREADS, 1)
     scan_wgmma_kernel(const __grid_constant__ CUtensorMap rows, Params p) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const WSmem s(smem);
+  const WSmem<int8_t> s(smem);
   const WItem b = wgmma_begin(p, s);
   if (b.nl == 0) return wgmma_write(p, s, b, true);
   const int wg = threadIdx.x / 128;
@@ -1702,19 +1830,51 @@ __global__ void __launch_bounds__(W_THREADS, 1)
   } else {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(W_CONSUMER_REGS) : "memory");
     switch (b.nl) {
-      case 1: wgmma_consume<1>(p, s, b, wg); break;
-      case 2: wgmma_consume<2>(p, s, b, wg); break;
-      case 3: wgmma_consume<3>(p, s, b, wg); break;
-      default: wgmma_consume<4>(p, s, b, wg); break;
+      case 1: wgmma_consume<int8_t, 1>(p, s, b, wg); break;
+      case 2: wgmma_consume<int8_t, 2>(p, s, b, wg); break;
+      case 3: wgmma_consume<int8_t, 3>(p, s, b, wg); break;
+      default: wgmma_consume<int8_t, 4>(p, s, b, wg); break;
     }
     bar_sync(BAR_CONSUMERS, W_CONSUMERS * 128);
     wgmma_write(p, s, b, false);
   }
 }
 
-// The store as a 2-D tensor of n_rows × d bytes for TMA (boxes of WR rows
-// × WK depths, zeros past its edges), by cuTensorMapEncodeTiled looked up
-// at run time, so the library needs no link to libcuda.
+// bf16 queries over an f32 packed store: the same block over the f32 ring
+// (spelled out beside the kernel above: through a shared wrapper that took
+// the parameters by reference, the int8 kernel compiled to other SASS).
+// The swizzled boxes need the ring on 1024 bytes (kWRingOffset is), so the
+// shared memory must start there
+__global__ void __launch_bounds__(W_THREADS, 1)
+    scan_wgmma_f32_kernel(const __grid_constant__ CUtensorMap rows, Params p) {
+  extern __shared__ __align__(1024) unsigned char wsmem[];
+  if (smem_u32(wsmem) % 1024 != 0) __trap();
+  const WSmem<float> s(wsmem);
+  const WItem b = wgmma_begin(p, s);
+  if (b.nl == 0) return wgmma_write(p, s, b, true);
+  const int wg = threadIdx.x / 128;
+  if (wg == W_CONSUMERS) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(W_PRODUCER_REGS) : "memory");
+    if (threadIdx.x % 128 < 32 * W_CONSUMERS && threadIdx.x % 32 == 0)
+      wgmma_produce(&rows, p, s, b, threadIdx.x % 128 / 32);
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(W_CONSUMER_REGS) : "memory");
+    switch (b.nl) {
+      case 1: wgmma_consume<float, 1>(p, s, b, wg); break;
+      case 2: wgmma_consume<float, 2>(p, s, b, wg); break;
+      case 3: wgmma_consume<float, 3>(p, s, b, wg); break;
+      default: wgmma_consume<float, 4>(p, s, b, wg); break;
+    }
+    bar_sync(BAR_CONSUMERS, W_CONSUMERS * 128);
+    wgmma_write(p, s, b, false);
+  }
+}
+
+// The store as a 2-D tensor of n_rows × d values for TMA (boxes of WR rows
+// × WK int8 depths, or × 32 f32 depths under the 128-byte swizzle; zeros
+// past its edges), by cuTensorMapEncodeTiled looked up at run time, so the
+// library needs no link to libcuda.
+template <typename TS>
 cudaError_t row_tensor_map(CUtensorMap* map, const void* store, int n_rows, int d) {
   using Encode = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
                               const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
@@ -1734,43 +1894,57 @@ cudaError_t row_tensor_map(CUtensorMap* map, const void* store, int n_rows, int 
     if (found != cudaDriverEntryPointSuccess || fn == nullptr) return cudaErrorNotSupported;
     encode = reinterpret_cast<Encode>(fn);
   }
+  constexpr bool F32 = std::is_same<TS, float>::value;
   const cuuint64_t dims[2] = {cuuint64_t(d), cuuint64_t(n_rows)};
-  const cuuint64_t strides[1] = {cuuint64_t(d)};
-  const cuuint32_t box[2] = {WK, WR}, elem[2] = {1, 1};
-  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(store), dims,
-                            strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                            CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  const cuuint64_t strides[1] = {cuuint64_t(d) * sizeof(TS)};
+  const cuuint32_t box[2] = {cuuint32_t(WRing<TS>::DEPTHS), WR}, elem[2] = {1, 1};
+  const CUresult r = encode(map, F32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_UINT8,
+                            2, const_cast<void*>(store), dims, strides, box, elem,
+                            CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            F32 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE,
+                            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-// The body's scope: bf16 queries over an int8 packed store (no row map),
-// lists of width 32 and no floor, rows of whole 16 bytes at a 16-byte
-// aligned store, and a resident query tile that fits (d rounded up to
-// W_QD_STEP <= W_MAX_QD).  A round under a floor (k past 1024) keeps the
-// mma.sync body of the rounds before it: every round sums a row the same
-// way, or a row at the boundary could be listed twice or not at all.
-bool wgmma_scope(int mode, int store_type, int k, int d, const void* store, const void* row_ids,
-                 bool floored) {
-  return mode == MODE_BF16 && store_type == STORE_INT8 && row_ids == nullptr && !floored &&
-         k <= W_LIST &&
-         d % 16 == 0 && reinterpret_cast<uintptr_t>(store) % 16 == 0 &&
-         (d + W_QD_STEP - 1) / W_QD_STEP * W_QD_STEP <= W_MAX_QD;
+// The bodies: the mma.sync body, or one of the two wgmma bodies
+enum Body { BODY_MMA = 0, BODY_WGMMA_INT8 = 1, BODY_WGMMA_F32 = 2 };
+
+// The wgmma bodies' scope: bf16 queries over an int8 or f32 packed store
+// (no row map), lists of width 32 and no floor, rows of whole 16 bytes at
+// a 16-byte aligned store, and a resident query tile that fits (d rounded
+// up to the ring's stage depths, W_QD_STEP or W_QD_STEP_F, within W_MAX_QD
+// or W_MAX_QD_F).  A round under a floor (k past 1024) keeps the mma.sync
+// body of the rounds before it: every round sums a row the same way, or a
+// row at the boundary could be listed twice or not at all.
+int wgmma_scope(int mode, int store_type, int k, int d, const void* store, const void* row_ids,
+                bool floored) {
+  if (mode != MODE_BF16 || row_ids != nullptr || floored || k > W_LIST ||
+      reinterpret_cast<uintptr_t>(store) % 16 != 0)
+    return BODY_MMA;
+  if (store_type == STORE_INT8 && d % 16 == 0 &&
+      (d + W_QD_STEP - 1) / W_QD_STEP * W_QD_STEP <= W_MAX_QD)
+    return BODY_WGMMA_INT8;
+  if (store_type == STORE_F32 && d % 4 == 0 &&
+      (d + W_QD_STEP_F - 1) / W_QD_STEP_F * W_QD_STEP_F <= W_MAX_QD_F)
+    return BODY_WGMMA_F32;
+  return BODY_MMA;
 }
 
-// Launches the body over n_pairs pairs (two blocks of 64 query slots a
-// pair of more than 64), or reports its blocks an SM
+// Launches a wgmma body over n_pairs pairs (two blocks of 64 query slots
+// a pair of more than 64), or reports its blocks an SM
+template <typename TS>
 cudaError_t launch_wgmma(const Params& p, int n_pairs, int n_rows, cudaStream_t stream,
                          int* blocks_per_sm) {
-  void (*kernel)(const CUtensorMap, Params) = scan_wgmma_kernel;
-  if (p.qd % W_QD_STEP != 0 || p.qd > W_MAX_QD) return cudaErrorInvalidValue;
-  const size_t smem = wgmma_smem_bytes(p.qd);
+  void (*kernel)(const CUtensorMap, Params) =
+      std::is_same<TS, float>::value ? scan_wgmma_f32_kernel : scan_wgmma_kernel;
+  if (p.qd % WRing<TS>::QD_STEP != 0 || p.qd > WRing<TS>::MAX_QD) return cudaErrorInvalidValue;
+  const size_t smem = wgmma_smem_bytes<TS>(p.qd);
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   if (blocks_per_sm != nullptr)
     return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, kernel, W_THREADS, smem);
   CUtensorMap map;
-  err = row_tensor_map(&map, p.store, n_rows, p.d);
+  err = row_tensor_map<TS>(&map, p.store, n_rows, p.d);
   if (err != cudaSuccess) return err;
   const int splits = (p.qtile + WQ - 1) / WQ;
   kernel<<<n_pairs * splits, W_THREADS, smem, stream>>>(map, p);
@@ -1809,11 +1983,12 @@ cudaError_t launch(const Params& p, int n_pairs, cudaStream_t stream, int* block
   return launch_width<MODE, TS, MAX_K>(p, n_pairs, stream, blocks_per_sm);
 }
 
-// the body and instance of a mode over a store type: the wgmma body where
+// the body and instance of a mode over a store type: a wgmma body where
 // the call is in its scope (wgmma_scope), else the mma.sync body's instance
-cudaError_t dispatch(const Params& p, int mode, int store_type, bool wgmma, int n_pairs, int n_rows,
+cudaError_t dispatch(const Params& p, int mode, int store_type, int body, int n_pairs, int n_rows,
                      cudaStream_t s, int* blocks_per_sm) {
-  if (wgmma) return launch_wgmma(p, n_pairs, n_rows, s, blocks_per_sm);
+  if (body == BODY_WGMMA_INT8) return launch_wgmma<int8_t>(p, n_pairs, n_rows, s, blocks_per_sm);
+  if (body == BODY_WGMMA_F32) return launch_wgmma<float>(p, n_pairs, n_rows, s, blocks_per_sm);
   if (mode == MODE_INT8 && store_type == STORE_INT8)
     return launch<MODE_INT8, int8_t>(p, n_pairs, s, blocks_per_sm);
   if (mode == MODE_F32) {
@@ -1842,12 +2017,15 @@ extern "C" {
 //    32-value depth slice the terms hi, mid, lo side by side
 //    (ops/scan_kernel.py::operand_queries);
 //  * bf16 mode: bf16, int8 mode: int8, nt 1, qd a multiple of 16 >= d;
-//    where the call takes the wgmma body (wgmma_scope: bf16 over an int8
-//    packed store, k <= 32, ...), qd is d rounded up to W_QD_STEP (128)
-//    and each group of 64 values is in WGMMA_ORDER (ops/scan_kernel.py).
+//    where the call takes a wgmma body (wgmma_scope: bf16 over an int8 or
+//    f32 packed store, k <= 32, ...), qd is d rounded up to W_QD_STEP
+//    (128) over an int8 store, each group of 64 values in WGMMA_ORDER, or
+//    to W_QD_STEP_F (64) over an f32 store, each group of 32 values in
+//    WGMMA_F32_ORDER (ops/scan_kernel.py).
 // n_rows: the store's rows (the edge of its TMA tensor map).  *body: in,
-// the body the queries are laid out for (1 the wgmma body, 0 the mma.sync
-// body, as lmi_scan_body named it); out, the body the call's scope picks.
+// the body the queries are laid out for (enum Body: 0 the mma.sync body,
+// 1 the wgmma body over an int8 store, 2 over an f32 store, as
+// lmi_scan_body named it); out, the body the call's scope picks.
 // Where the two differ nothing launches and the call returns
 // cudaErrorInvalidValue.  All other pointers are device pointers; nothing
 // is allocated and nothing synchronizes.
@@ -1860,7 +2038,7 @@ int lmi_scan_pairs(const void* queries, const void* qscales, const void* qidx,
                    int store_type, int n_rows, int* body, void* stream) {
   if (body == nullptr) return cudaErrorInvalidValue;
   const int laid_out = *body;
-  *body = wgmma_scope(mode, store_type, k, d, store, row_ids, floor_d != nullptr) ? 1 : 0;
+  *body = wgmma_scope(mode, store_type, k, d, store, row_ids, floor_d != nullptr);
   if (*body != laid_out) return cudaErrorInvalidValue;
   if (n_pairs <= 0) return cudaSuccess;
   if (qtile < 1 || qtile > QT || k < 1 || k > MAX_K || d < 1 || chunk < 1 || n_rows < 1)
@@ -1897,16 +2075,16 @@ int lmi_scan_pairs(const void* queries, const void* qscales, const void* qidx,
            qd,
            chunk,
            granule >= 4 ? granule : 0};
-  return dispatch(p, mode, store_type, *body == 1, n_pairs, n_rows,
-                  static_cast<cudaStream_t>(stream), nullptr);
+  return dispatch(p, mode, store_type, *body, n_pairs, n_rows, static_cast<cudaStream_t>(stream),
+                  nullptr);
 }
 
 // What the wrapper needs to know of a launch at k, mode, store_type and d
 // over `store` (and `row_ids`, null for a packed store; `floored`, under
 // floors), the one place that decides it: *body the body the launch takes
-// (wgmma_scope: 1 the wgmma body, 0 the mma.sync body), *qd the width of
-// the query rows that body reads (d rounded up to W_QD_STEP for the wgmma
-// body, else to 16, or 32 in f32 mode), *block_queries the query slots one
+// (wgmma_scope, enum Body), *qd the width of the query rows that body
+// reads (d rounded up to W_QD_STEP or W_QD_STEP_F for a wgmma body, else
+// to 16, or 32 in f32 mode), *block_queries the query slots one
 // of its blocks keeps, and *blocks how many of its blocks one SM holds at
 // once (cudaOccupancyMaxActiveBlocksPerMultiprocessor, with its shared
 // memory): the card's slots for the split of the pairs into items.
@@ -1916,9 +2094,12 @@ int lmi_scan_body(int k, int mode, int store_type, int d, const void* store, con
   if (k < 1 || k > MAX_K || d < 1 || body == nullptr || qd == nullptr ||
       block_queries == nullptr || blocks == nullptr)
     return cudaErrorInvalidValue;
-  const bool wgmma = wgmma_scope(mode, store_type, k, d, store, row_ids, floored != 0);
-  const int q_group = wgmma ? W_QD_STEP : mode == MODE_F32 ? 32 : 16;
-  *body = wgmma ? 1 : 0;
+  *body = wgmma_scope(mode, store_type, k, d, store, row_ids, floored != 0);
+  const bool wgmma = *body != BODY_MMA;
+  const int q_group = *body == BODY_WGMMA_INT8 ? W_QD_STEP
+                      : *body == BODY_WGMMA_F32 ? W_QD_STEP_F
+                      : mode == MODE_F32        ? 32
+                                                : 16;
   *qd = (d + q_group - 1) / q_group * q_group;
   int width = 32;
   while (width < k) width *= 2;
@@ -1928,7 +2109,7 @@ int lmi_scan_body(int k, int mode, int store_type, int d, const void* store, con
   p.qtile = QT;
   p.d = d;
   p.qd = *qd;
-  return dispatch(p, mode, store_type, wgmma, 0, 1, nullptr, blocks);
+  return dispatch(p, mode, store_type, *body, 0, 1, nullptr, blocks);
 }
 
 }  // extern "C"

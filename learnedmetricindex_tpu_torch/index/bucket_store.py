@@ -530,3 +530,35 @@ def scan_buckets_device(
     ids_flat = store.chunk_ids.reshape(-1)
     ids = torch.where(slots >= 0, ids_flat[torch.clamp_min(slots, 0).long()], 0)
     return dists, ids
+
+
+def scan_buckets(
+    store: BucketStore,
+    queries: np.ndarray,
+    bucket_order: np.ndarray,
+    k: int = 10,
+    qtile: int = 128,
+    items_per_step: Optional[int] = None,
+    precision: str = "highest",
+    approx_recall=None,
+    rerank: bool = False,
+    rerank_margin: int = 6,
+    engine: str = "auto",
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Exact kNN over each query's visit set, host arrays in and out (the
+    JAX package's ``scan_buckets``): ``(dists (Q, k) f32, ids (Q, k)
+    uint32 1-based, 0 = none)``.  A thin wrapper of
+    :func:`scan_buckets_device` on the store's device; ``items_per_step``,
+    ``approx_recall`` and ``engine`` are taken for the JAX signature and
+    unused (every scan is the CUDA kernel on a GPU, its plain version on
+    the CPU, exact per visited bucket)."""
+    device = store.device
+    if isinstance(queries, torch.Tensor):
+        q = queries.to(device=device, dtype=torch.float32).contiguous()
+    else:
+        q = torch.as_tensor(np.ascontiguousarray(queries, dtype=np.float32)).to(device)
+    order = torch.as_tensor(np.asarray(bucket_order, dtype=np.int64)).to(device)
+    with torch.no_grad():
+        dists, ids = scan_buckets_device(store, q, order, k, qtile=qtile, precision=precision,
+                                         rerank=rerank, rerank_margin=rerank_margin)
+    return dists.cpu().numpy(), ids.cpu().numpy().astype(np.uint32)

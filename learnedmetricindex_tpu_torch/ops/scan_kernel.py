@@ -22,18 +22,21 @@ of a pair whose bucket has no chunks.
   lists back into one (:func:`merge_split_lists`: ``csrc/scan_merge.cu``
   on CUDA, :func:`merge_split_lists_reference` on the CPU).  The lists
   are those of one scan of the whole bucket, bit for bit.
-* Two bodies: the bf16 queries over an int8 packed store at list width
-  32 (the default search) run the Hopper body (wgmma, TMA, a resident
-  query tile of 64 slots a block); every other call the mma.sync body.
-  The library decides (``wgmma_scope``); :func:`scan_body` asks it which
-  body a launch takes, and each launch checks that the queries were laid
-  out for the body that runs.
+* Three bodies: the bf16 queries over an int8 packed store at list width
+  32 (the default search) and over an f32 packed store (the default
+  search over ``BuildConfiguration(dtype="float32")``, the CLI's store)
+  run the Hopper bodies (wgmma, TMA, a resident query tile of 64 slots a
+  block); every other call the mma.sync body.  The library decides
+  (``wgmma_scope``); :func:`scan_body` asks it which body a launch takes,
+  and each launch checks that the queries were laid out for the body that
+  runs.
 * :func:`operand_queries` — the query rows the kernel reads;
   :func:`split_f32` — the exact three-term bf16 split of f32 queries
   behind them in mode ``"f32"``; :func:`split_f32_truncated` — the
   kernel's split of f32 store values (its plain model, for the tests).
 * ``LAUNCHES`` — how many times the wrapper launched the kernel
-  (``WGMMA_LAUNCHES``: of those, the launches that ran the Hopper body);
+  (``WGMMA_LAUNCHES``: of those, the launches that ran a Hopper body;
+  ``WGMMA_F32_LAUNCHES``: of those, the body over an f32 store);
   ``MERGE_LAUNCHES`` — the merge kernel.
 
 Stores: a packed store is ``(n_slots, d)`` rows with ``(n_slots,)``
@@ -69,13 +72,16 @@ from learnedmetricindex_tpu_torch.ops.select import smallest_k
 MODES = {"f32": 0, "bf16": 1, "int8": 2}
 MAX_K = 1024  # the widest top-k list of csrc/scan_pairs.cu: wider k runs in rounds
 MAX_QTILE = 128  # QT in csrc/scan_pairs.cu
-_BODY_NAMES = ("mma.sync", "wgmma")
+#: the bodies as the library numbers them (enum Body in csrc/scan_pairs.cu)
+BODY_NAMES = ("mma.sync", "wgmma", "wgmma over f32")
 _STORE_TYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
 #: kernel launches made by :func:`scan_pairs` (never by the plain version)
 LAUNCHES = 0
-#: of LAUNCHES, those that ran the wgmma body (as the library reports each launch)
+#: of LAUNCHES, those that ran a wgmma body (as the library reports each launch)
 WGMMA_LAUNCHES = 0
+#: of WGMMA_LAUNCHES, those that ran the wgmma body over an f32 store
+WGMMA_F32_LAUNCHES = 0
 #: merge kernel launches made by :func:`merge_split_lists` (never by its plain version)
 MERGE_LAUNCHES = 0
 
@@ -98,6 +104,16 @@ WIDEN_ORDER = (0, 1, 4, 5, 8, 9, 12, 13, 2, 3, 6, 7, 10, 11, 14, 15)
 #: the group holds depth 16·((k' % 8) // 2) + 4j + k' % 2 + 2·(k' // 8).
 WGMMA_ORDER = tuple(16 * ((kk % 8) // 2) + 4 * j + kk % 2 + 2 * (kk // 8)
                     for j in range(4) for kk in range(16))
+
+#: Depth order, within each group of 32, of the bf16 queries that the
+#: wgmma body over an f32 store reads: a TMA box holds 32 f32 depths (128
+#: bytes) of each store row, and in k-step j of the box lane t of a quad
+#: reads its 16-byte chunk 2t + j (depths 8t + 4j .. 8t + 4j + 3), whose
+#: values round into the A registers of depths (2t, 2t+1) and (2t+8,
+#: 2t+9).  So position 16j + k' of the group holds depth
+#: 8·((k' % 8) // 2) + 4j + k' % 2 + 2·(k' // 8).
+WGMMA_F32_ORDER = tuple(8 * ((kk % 8) // 2) + 4 * j + kk % 2 + 2 * (kk // 8)
+                        for j in range(2) for kk in range(16))
 
 SOURCE = cuda_build.CSRC / "scan_pairs.cu"
 MERGE_SOURCE = cuda_build.CSRC / "scan_merge.cu"
@@ -284,10 +300,11 @@ def operand_queries(queries: torch.Tensor, mode: str, store_dtype: torch.dtype,
     :func:`split_f32`, each zero-padded to a multiple of 32 values and
     laid out per 32-value depth slice as ``hi, mid, lo`` side by side,
     ``(n, 3·qd)``.  Where bf16 terms meet an int8 store, each group of 16
-    values is in :data:`WIDEN_ORDER`; for the wgmma body the bf16 rows are
+    values is in :data:`WIDEN_ORDER`; for a wgmma body the bf16 rows are
     zero-padded to ``wgmma_qd`` values instead (the width it reads,
     :attr:`Body.qd`: a multiple of 64 >= d), each group of 64 in
-    :data:`WGMMA_ORDER`."""
+    :data:`WGMMA_ORDER` over an int8 store, each group of 32 in
+    :data:`WGMMA_F32_ORDER` over an f32 store."""
     if mode == "f32":
         terms, group = split_f32(queries), 32
     else:
@@ -303,8 +320,8 @@ def operand_queries(queries: torch.Tensor, mode: str, store_dtype: torch.dtype,
         if qd > d:
             q = torch.cat([q, q.new_zeros((n, qd - d))], dim=1)
         if wgmma_qd:
-            order = torch.tensor(WGMMA_ORDER, device=q.device)
-            q = q.reshape(n, qd // 64, 64)[:, :, order].reshape(n, qd)
+            order = WGMMA_F32_ORDER if store_dtype == torch.float32 else WGMMA_ORDER
+            q = q.reshape(n, qd // len(order), len(order))[:, :, list(order)].reshape(n, qd)
         elif mode != "int8" and store_dtype == torch.int8:
             order = torch.tensor(WIDEN_ORDER, device=q.device)
             q = q.reshape(n, qd // 16, 16)[:, :, order].reshape(n, qd)
@@ -589,10 +606,15 @@ class Body(NamedTuple):
     """What the library says of a launch (``lmi_scan_body``, the one place
     that picks the body)."""
 
-    wgmma: bool  # the wgmma body takes it; else the mma.sync body
+    kind: int  # the body that takes it: an index of BODY_NAMES
     qd: int  # the width of the query rows that body reads
     block_queries: int  # query slots one of its blocks keeps
     slots: int  # its blocks that the card holds at once: SMs × blocks an SM
+
+    @property
+    def wgmma(self) -> bool:
+        """A wgmma body takes it; else the mma.sync body."""
+        return self.kind > 0
 
 
 # (library, device, mode, store type, list width, d, virtual, aligned, floored) → Body
@@ -621,7 +643,7 @@ def scan_body(lib, store: torch.Tensor, mode: str, k: int,
             raise RuntimeError(f"scan_pairs occupancy query failed: cudaError {err}, "
                                f"{blocks} blocks an SM")
         sms = torch.cuda.get_device_properties(store.device).multi_processor_count
-        _bodies[key] = Body(bool(body), qd, block_queries, sms * blocks)
+        _bodies[key] = Body(body, qd, block_queries, sms * blocks)
     return _bodies[key]
 
 
@@ -643,11 +665,12 @@ def host_plan(ptr: torch.Tensor, pair_bucket: torch.Tensor, qidx: torch.Tensor,
 
 def _launch_items(lib, queries, qscales, qidx, pair_bucket, ptr, chunk_of, store, scales,
                   row_ids, floor, *, k: int, qtile: int, chunk: int, mode: str, terms: int,
-                  wgmma: bool):
+                  body: int):
     """One kernel launch over the given pairs (here: items over the
     segments ``ptr``), ``k <= MAX_K``; ``queries`` laid out by
-    :func:`operand_queries` for the body ``wgmma`` names, which the
-    library holds to the body it takes (raises where they differ)."""
+    :func:`operand_queries` for the body ``body`` (:attr:`Body.kind`)
+    names, which the library holds to the body it takes (raises where
+    they differ)."""
     n_pairs = pair_bucket.shape[0]
     out_d = torch.empty((n_pairs, qtile, k), dtype=torch.float32, device=store.device)
     out_s = torch.empty((n_pairs, qtile, k), dtype=torch.int32, device=store.device)
@@ -660,7 +683,7 @@ def _launch_items(lib, queries, qscales, qidx, pair_bucket, ptr, chunk_of, store
     def ptr_of(t):
         return t.data_ptr() if t is not None else None
 
-    body = ctypes.c_int(int(wgmma))
+    ran = ctypes.c_int(body)
     with torch.cuda.device(store.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.lmi_scan_pairs(
@@ -669,16 +692,17 @@ def _launch_items(lib, queries, qscales, qidx, pair_bucket, ptr, chunk_of, store
             chunk_of.data_ptr(), store.data_ptr(), ptr_of(scales), ptr_of(row_ids),
             ptr_of(floor_d), ptr_of(floor_p), out_d.data_ptr(), out_s.data_ptr(),
             n_pairs, qtile, k, store.shape[1], queries.shape[1] // terms, chunk, MODES[mode],
-            _STORE_TYPES[store.dtype], store.shape[0], ctypes.byref(body), stream,
+            _STORE_TYPES[store.dtype], store.shape[0], ctypes.byref(ran), stream,
         )
-    if body.value != int(wgmma):
-        raise RuntimeError(f"scan_pairs: the kernel takes the {_BODY_NAMES[body.value]} body, "
-                           f"the queries are laid out for the {_BODY_NAMES[int(wgmma)]} body")
+    if ran.value != body:
+        raise RuntimeError(f"scan_pairs: the kernel takes the {BODY_NAMES[ran.value]} body, "
+                           f"the queries are laid out for the {BODY_NAMES[body]} body")
     if err != 0:
         raise RuntimeError(f"scan_pairs kernel launch failed: cudaError {err}")
-    global LAUNCHES, WGMMA_LAUNCHES
+    global LAUNCHES, WGMMA_LAUNCHES, WGMMA_F32_LAUNCHES
     LAUNCHES += 1
-    WGMMA_LAUNCHES += body.value
+    WGMMA_LAUNCHES += ran.value > 0
+    WGMMA_F32_LAUNCHES += ran.value == 2
     return out_d, out_s
 
 
@@ -716,7 +740,7 @@ def _kernel_round(queries, ptr, chunk_of, store, scales, qscales, row_ids, *, qt
         def scan_items(i_qidx, i_bucket, i_ptr, i_floor):
             return _launch_items(lib, body_queries(body), qscales, i_qidx, i_bucket, i_ptr,
                                  chunk_of, store, scales, row_ids, i_floor, k=w, qtile=qtile,
-                                 chunk=chunk, mode=mode, terms=terms, wgmma=body.wgmma)
+                                 chunk=chunk, mode=mode, terms=terms, body=body.kind)
 
         return scan_split(scan_items, merge_split_lists, q_idx, floor, ptr_h, pb_h, seg,
                           qtile=qtile, chunk=chunk)

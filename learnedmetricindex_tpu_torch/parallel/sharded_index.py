@@ -280,6 +280,7 @@ def sharded_search(
     k: int = 10,
     qtile: int = 128,
     precision: str = "highest",
+    engine: str = "auto",
     rerank: bool = False,
     rerank_margin: int = 6,
 ) -> Tuple[np.ndarray, np.ndarray]:
@@ -297,6 +298,8 @@ def sharded_search(
     ``rerank=True`` keeps ``k + rerank_margin`` candidates a shard and
     ranks them in exact f32 before the merge, so the merged ranking is
     exact over the union of the shards' shortlists.
+    ``engine``: taken for the JAX package's signature and unused (every
+    scan is the CUDA kernel on a GPU, its plain version on the CPU).
 
     Across ranks every rank passes the same queries and bucket order,
     scans its own shard, and one ``all_gather`` brings every rank's

@@ -532,18 +532,21 @@ def test_kernel_matches_plain_version_on_mutated_stores(cuda, mode, store_dtype,
             assert (lists[r, :j] == earlier[r, j]).any(), (r, j)
 
 
-def _body_case(dev, chunk, seed):
-    """An int8 store of 3000×768 rows in 6 buckets (one empty) at
-    ``chunk``, 40 rows duplicated later in their own bucket, 150 queries
-    visiting 3 (the duplicated rows' first), as in
+def _body_case(dev, chunk, seed, d=768, store_dtype="int8"):
+    """An int8 (or ``store_dtype``) store of 3000×d rows in 6 buckets (one
+    empty) at ``chunk``, 40 rows duplicated later in their own bucket, 150
+    queries visiting 3 (the duplicated rows' first), as in
     ``test_kernel_matches_plain_version``."""
-    data, rng = _corpus(3000, 768, seed=seed)
+    data, rng = _corpus(3000, d, seed=seed)
     nb = 6
     bucket_ids = rng.integers(0, nb, 3000)
     bucket_ids[bucket_ids == 2] = 3
     src, dst = np.arange(0, 40), np.arange(1500, 1540)
     data[dst], bucket_ids[dst] = data[src], bucket_ids[src]
-    store = BucketStore.build_packed_int8(data, bucket_ids, nb, chunk=chunk, device=dev)
+    if store_dtype == "int8":
+        store = BucketStore.build_packed_int8(data, bucket_ids, nb, chunk=chunk, device=dev)
+    else:
+        store = BucketStore.build(data, bucket_ids, nb, chunk=chunk, dtype=store_dtype, device=dev)
     queries = torch.as_tensor(np.concatenate([data[src], data[40:150] + 0.05]), device=dev)
     order = np.stack([rng.choice(nb, 3, replace=False) for _ in range(150)])
     order[:40, 0] = bucket_ids[src]
@@ -572,47 +575,129 @@ def test_wgmma_body_matches_plain_version(cuda, store_kind, k, qtile):
     assert scan_kernel.WGMMA_LAUNCHES == before + 1
 
 
+@pytest.mark.parametrize("store_kind", ["chunk96", "chunk320", "chunk130", "mutated"])
+@pytest.mark.parametrize("k", [1, 16, 32])
+@pytest.mark.parametrize("qtile", [1, 8, 100, 128])
+def test_wgmma_f32_body_matches_plain_version(cuda, store_kind, k, qtile):
+    """bf16 over an f32 packed store at list width 32 (the default search
+    over ``BuildConfiguration(dtype="float32")``, the CLI's scan), the
+    launches the wgmma body over f32 rows takes: chunks that are not whole
+    64-row tiles (96, 320, 130), an empty bucket, padding rows, and a
+    mutated store with its chunk lists out of physical order; the kernel
+    within the bar of the plain version (which rounds both operands to
+    bf16 as the kernel does), no slot twice, exact ties to the earlier
+    row, one launch, and that launch the body over f32 rows."""
+    if store_kind == "mutated":
+        store, queries, order, _, _ = _mutated_store(cuda, 768, "float32", seed=k + qtile)
+    else:
+        store, queries, order = _body_case(cuda, int(store_kind[5:]), seed=k + qtile,
+                                           store_dtype="float32")
+    _, args = scan_inputs(store, queries, order, qtile, "bf16")
+    before = (scan_kernel.WGMMA_LAUNCHES, scan_kernel.WGMMA_F32_LAUNCHES)
+    ks = _kernel_vs_plain(args, k, qtile, store.chunk, "bf16", 1)
+    assert (scan_kernel.WGMMA_LAUNCHES, scan_kernel.WGMMA_F32_LAUNCHES) == (before[0] + 1,
+                                                                          before[1] + 1)
+    if store_kind != "mutated" and k > 1:  # the 40 duplicated rows: the earlier one first
+        row_slot = store.row_slot.cpu().numpy()
+        partner = np.full(store.chunk_data.shape[0], -1)
+        partner[row_slot[1500:1540]] = row_slot[:40]
+        lists = ks.reshape(-1, k)
+        earlier = np.where(lists >= 0, partner[np.maximum(lists, 0)], -1)
+        rows, cols = np.nonzero(earlier >= 0)
+        assert len(rows) > 0
+        for r, j in zip(rows, cols):
+            assert (lists[r, :j] == earlier[r, j]).any(), (r, j)
+
+
+@pytest.mark.parametrize("d,qtile,body", [(16, 128, 2), (768, 37, 2), (896, 100, 2), (900, 128, 0),
+                                          (100, 8, 2), (102, 128, 0), (8, 64, 2)])
+def test_wgmma_f32_body_widths(cuda, d, qtile, body):
+    """The body over f32 rows from the narrowest d (one partial box) to the
+    widest resident query tile (896) and one step past it (900: the
+    mma.sync body), rows of 400 bytes (d 100) and 408 (d 102: not whole 16
+    bytes, the mma.sync body): within the bar of the plain version, the
+    body counted from the library's report of the launch."""
+    store, queries, order = _body_case(cuda, 96, seed=d, d=d, store_dtype="float32")
+    _, args = scan_inputs(store, queries, order, qtile, "bf16")
+    before = scan_kernel.WGMMA_F32_LAUNCHES
+    _kernel_vs_plain(args, 16, qtile, store.chunk, "bf16", 1)
+    assert scan_kernel.WGMMA_F32_LAUNCHES - before == (body == 2)
+
+
+@pytest.mark.parametrize("case", ["k33", "k106", "virtual", "k1040"])
+def test_wgmma_f32_scope_keeps_the_mma_body(cuda, case):
+    """bf16 over f32 rows outside the wgmma body's scope keeps the mma.sync
+    body: list widths 64 and 128, a virtual store over an f32 corpus, and
+    k 1040 (a 1024-wide round, then one under floors): within the bar of
+    the plain version, no launch on a wgmma body."""
+    if case == "virtual":
+        store, queries, order = _virtual_case(cuda, 768, "float32", seed=5, shuffle=False)
+        k, qtile, launches = 16, 128, 1
+    elif case == "k1040":
+        store, queries, order = _wide_case(cuda, "float32", seed=1040)
+        k, qtile, launches = 1040, 8, 2
+    else:
+        store, queries, order = _body_case(cuda, 96, seed=33, store_dtype="float32")
+        k, qtile, launches = int(case[1:]), 128, 1
+    _, args = scan_inputs(store, queries, order, qtile, "bf16")
+    before = scan_kernel.WGMMA_LAUNCHES
+    _kernel_vs_plain(args, k, qtile, store.chunk, "bf16", launches)
+    assert scan_kernel.WGMMA_LAUNCHES == before
+
+
 @pytest.mark.parametrize(
     "mode,store_dtype,k,d,virtual,aligned,expect",
     [
-        ("bf16", torch.int8, 16, 768, False, True, True),  # the default search
-        ("bf16", torch.int8, 32, 768, False, True, True),
-        ("bf16", torch.int8, 1, 96, False, True, True),
-        ("bf16", torch.int8, 16, 784, False, True, True),
-        ("bf16", torch.int8, 16, 1024, False, True, True),
-        ("bf16", torch.int8, 16, 1040, False, True, True),  # rounded up to 1152 ...
-        ("bf16", torch.int8, 16, 1152, False, True, True),  # ... the widest resident tile
-        ("bf16", torch.int8, 16, 1168, False, True, False),  # rounded up to 1280: too wide
-        ("bf16", torch.int8, 33, 768, False, True, False),  # list width 64
-        ("bf16", torch.int8, 106, 768, False, True, False),
-        ("bf16", torch.int8, 16, 768, True, True, False),  # a virtual store
-        ("bf16", torch.int8, 16, 100, False, True, False),  # rows not of whole 16 bytes
-        ("bf16", torch.int8, 16, 30, False, True, False),
-        ("bf16", torch.int8, 16, 768, False, False, False),  # an unaligned store
-        ("bf16", torch.bfloat16, 16, 768, False, True, False),
-        ("bf16", torch.float32, 16, 768, False, True, False),  # the CLI's store
-        ("int8", torch.int8, 16, 768, False, True, False),
-        ("f32", torch.int8, 16, 768, False, True, False),
+        ("bf16", torch.int8, 16, 768, False, True, 1),  # the default search
+        ("bf16", torch.int8, 32, 768, False, True, 1),
+        ("bf16", torch.int8, 1, 96, False, True, 1),
+        ("bf16", torch.int8, 16, 784, False, True, 1),
+        ("bf16", torch.int8, 16, 1024, False, True, 1),
+        ("bf16", torch.int8, 16, 1040, False, True, 1),  # rounded up to 1152 ...
+        ("bf16", torch.int8, 16, 1152, False, True, 1),  # ... the widest resident tile
+        ("bf16", torch.int8, 16, 1168, False, True, 0),  # rounded up to 1280: too wide
+        ("bf16", torch.int8, 33, 768, False, True, 0),  # list width 64
+        ("bf16", torch.int8, 106, 768, False, True, 0),
+        ("bf16", torch.int8, 16, 768, True, True, 0),  # a virtual store
+        ("bf16", torch.int8, 16, 100, False, True, 0),  # rows not of whole 16 bytes
+        ("bf16", torch.int8, 16, 30, False, True, 0),
+        ("bf16", torch.int8, 16, 768, False, False, 0),  # an unaligned store
+        ("bf16", torch.bfloat16, 16, 768, False, True, 0),
+        ("bf16", torch.float32, 16, 768, False, True, 2),  # the CLI's store
+        ("bf16", torch.float32, 32, 768, False, True, 2),
+        ("bf16", torch.float32, 1, 16, False, True, 2),
+        ("bf16", torch.float32, 16, 100, False, True, 2),  # rows of 400 bytes
+        ("bf16", torch.float32, 16, 840, False, True, 2),  # rounded up to 896 ...
+        ("bf16", torch.float32, 16, 896, False, True, 2),  # ... the widest resident tile
+        ("bf16", torch.float32, 16, 900, False, True, 0),  # rounded up to 960: too wide
+        ("bf16", torch.float32, 16, 102, False, True, 0),  # rows not of whole 16 bytes
+        ("bf16", torch.float32, 33, 768, False, True, 0),  # list width 64
+        ("bf16", torch.float32, 16, 768, True, True, 0),  # a virtual store
+        ("bf16", torch.float32, 16, 768, False, False, 0),  # an unaligned store
+        ("int8", torch.int8, 16, 768, False, True, 0),
+        ("f32", torch.int8, 16, 768, False, True, 0),
+        ("f32", torch.float32, 16, 768, False, True, 0),
     ],
 )
 def test_library_picks_the_body(cuda, mode, store_dtype, k, d, virtual, aligned, expect):
-    """Which launches take the wgmma body, as the library says
-    (``scan_body``, the one place that decides): bf16 over an int8 packed
-    store, k <= 32 and no floor, whole 16-byte rows at an aligned store,
-    d rounded up to 128 within the resident tile; everything else keeps
-    the mma.sync body, and so does every round under a floor.  With the
-    body come the width of the query rows it reads and its blocks' query
-    slots."""
+    """Which launches take a wgmma body, as the library says (``scan_body``,
+    the one place that decides): bf16 over an int8 packed store (body 1) or
+    an f32 packed store (body 2), k <= 32 and no floor, whole 16-byte rows
+    at an aligned store, d rounded up to 128 (int8) or 64 (f32) within the
+    resident tile; everything else keeps the mma.sync body (0), and so does
+    every round under a floor.  With the body come the width of the query
+    rows it reads and its blocks' query slots."""
     lib = cuda_build.load(scan_kernel.SOURCE, scan_kernel._bind)
     flat = torch.zeros(64 * d + 16, dtype=store_dtype, device=cuda)
     store = flat[(0 if aligned else 1):][: 64 * d].view(64, d)
     assert (store.data_ptr() % 16 == 0) is aligned
     row_ids = torch.arange(1, 65, dtype=torch.int32, device=cuda) if virtual else None
     body = scan_kernel.scan_body(lib, store, mode, k, row_ids)
-    assert body.wgmma is expect
+    assert body.kind == expect and body.wgmma is (expect > 0)
     assert body.slots >= torch.cuda.get_device_properties(cuda).multi_processor_count
     if expect:
-        assert (body.qd, body.block_queries) == (-(-d // 128) * 128, 64)
+        step = 128 if expect == 1 else 64
+        assert (body.qd, body.block_queries) == (-(-d // step) * step, 64)
     else:
         group = 32 if mode == "f32" else 16
         width = scan_kernel.list_width(k)
@@ -656,29 +741,40 @@ def test_wgmma_scope_picks_the_body(cuda, case):
     assert scan_kernel.WGMMA_LAUNCHES - before == (1 if case in ("d96", "d1040", "d1152") else 0)
 
 
-@pytest.mark.parametrize("d,laid_out", [(768, False), (100, True)])
-def test_launch_rejects_queries_laid_out_for_the_other_body(cuda, d, laid_out):
+@pytest.mark.parametrize("d,laid_out,store_dtype", [
+    (768, 0, "int8"), (100, 1, "int8"), (768, 0, "float32"), (768, 1, "float32"),
+    (102, 2, "float32")])
+def test_launch_rejects_queries_laid_out_for_the_other_body(cuda, d, laid_out, store_dtype):
     """Every launch is held to the body the library picks: queries laid
-    out for the other body (the mma.sync layout where the wgmma body
-    runs, the wgmma layout where it does not) launch nothing, raise, and
-    count no launch."""
+    out for another body (the mma.sync layout where a wgmma body runs, a
+    wgmma layout where the mma.sync body or the other wgmma body runs)
+    launch nothing, raise, and count no launch."""
     data, rng = _corpus(2000, d, seed=6)
-    store = BucketStore.build_packed_int8(data, rng.integers(0, 5, 2000), 5, chunk=96, device=cuda)
+    if store_dtype == "int8":
+        store = BucketStore.build_packed_int8(data, rng.integers(0, 5, 2000), 5, chunk=96,
+                                              device=cuda)
+    else:
+        store = BucketStore.build(data, rng.integers(0, 5, 2000), 5, chunk=96, dtype=store_dtype,
+                                  device=cuda)
     queries = torch.as_tensor(data[:90] + 0.05, device=cuda)
     order = torch.as_tensor(np.stack([rng.choice(5, 2, replace=False) for _ in range(90)]),
                             device=cuda)
     _, (q, qidx, pb, ptr, chunk_of, st, sc, qs, row_ids) = scan_inputs(store, queries, order, 128,
                                                                        "bf16")
     lib = cuda_build.load(scan_kernel.SOURCE, scan_kernel._bind)
-    assert scan_kernel.scan_body(lib, st, "bf16", 16).wgmma is not laid_out
-    op = scan_kernel.operand_queries(q, "bf16", st.dtype, -(-d // 128) * 128 if laid_out else 0)
-    before = (scan_kernel.LAUNCHES, scan_kernel.WGMMA_LAUNCHES)
-    other = "wgmma" if laid_out else "mma.sync"
+    assert scan_kernel.scan_body(lib, st, "bf16", 16).kind != laid_out
+    # the layout of the body laid_out names (body 1: over an int8 store's order)
+    layout_dtype = torch.int8 if laid_out == 1 else st.dtype
+    op = scan_kernel.operand_queries(q, "bf16", layout_dtype,
+                                     -(-d // 128) * 128 if laid_out else 0)
+    before = (scan_kernel.LAUNCHES, scan_kernel.WGMMA_LAUNCHES, scan_kernel.WGMMA_F32_LAUNCHES)
+    other = scan_kernel.BODY_NAMES[laid_out]
     with pytest.raises(RuntimeError, match=f"laid out for the {other} body"):
         scan_kernel._launch_items(lib, op, qs, qidx, pb, ptr, chunk_of, st, sc, row_ids, None,
                                   k=16, qtile=128, chunk=store.chunk, mode="bf16", terms=1,
-                                  wgmma=laid_out)
-    assert (scan_kernel.LAUNCHES, scan_kernel.WGMMA_LAUNCHES) == before
+                                  body=laid_out)
+    assert (scan_kernel.LAUNCHES, scan_kernel.WGMMA_LAUNCHES,
+            scan_kernel.WGMMA_F32_LAUNCHES) == before
 
 
 def test_dynamic_index_on_gpu(cuda, tmp_path):
@@ -778,7 +874,8 @@ def test_device_trace_names_the_scan_kernel(cuda, tmp_path):
         with annotate("lmi.search"):
             index.search(None, q, None, q, pred, n_buckets=3, k=10, store=store)
     names = {e["name"] for e in device_events(prof.trace_path)}
-    assert any("scan_mma_kernel" in n for n in names), sorted(names)[:20]
+    # an f32 store at k_scan 16: the wgmma body over f32 rows
+    assert any("scan_wgmma_f32" in n for n in names), sorted(names)[:20]
 
 
 def _virtual_case(dev, d, corpus, seed, shuffle):

@@ -301,14 +301,19 @@ def test_exports():
                                      "shard_store", "sharded_kmeans", "sharded_search"}
     assert all(hasattr(parallel, name) for name in parallel.__all__)
     assert all(hasattr(lmi, name) for name in lmi.__all__)
-    # the JAX package's public names of ops/ and index/, and the attributes
+    # the JAX package's public names of ops/, index/ and models/, and the attributes
     # its examples read, with jax and the JAX package unimportable
     proc = _run_without("""
 import numpy as np, torch
 from learnedmetricindex_tpu_torch.ops import exact_knn, recall, kmeans, kmeans_nodes
 from learnedmetricindex_tpu_torch.index import (BucketStore, LearnedIndexBuilder, LearnedIndex,
                                                 DynamicIndex)
-from learnedmetricindex_tpu_torch import ops, index
+from learnedmetricindex_tpu_torch import ops, index, models
+from learnedmetricindex_tpu_torch.models import NeuralNetwork, train_until_covered
+from learnedmetricindex_tpu_torch.index.bucket_store import scan_buckets
+assert set(models.__all__) == {"MLP_REGISTRY", "StackedMLP", "NeuralNetwork",
+                               "train_until_covered"}
+assert all(hasattr(models, n) for n in models.__all__) and callable(train_until_covered)
 from learnedmetricindex_tpu_torch.parallel import multiprocess as mp
 assert set(ops.__all__) == {"exact_knn", "recall", "kmeans", "kmeans_nodes"}
 assert set(index.__all__) == {"BucketStore", "LearnedIndexBuilder", "LearnedIndex", "DynamicIndex"}

@@ -308,3 +308,17 @@ def test_create_mesh_and_axes():
     for n in range(1, 17):
         assert data_model_axes(n) == jmesh.data_model_axes(n)
     assert data_model_axes(8, 2) == jmesh.data_model_axes(8, 2) == (4, 2)
+
+
+def test_sharded_search_takes_the_engine_keyword(setup):
+    """``engine`` in the JAX signature's place (after ``precision``),
+    accepted and changing nothing."""
+    data, queries, bucket_ids = setup
+    order = _partial_order(6)
+    store = shard_store(data, bucket_ids, NB, _cpus(2), chunk=CHUNK)
+    d0, i0 = sharded_search(store, queries, order, 6)
+    d1, i1 = sharded_search(store, queries, order, 6, 128, "highest", "auto", False, 6)
+    d2, i2 = sharded_search(store, queries, order, k=6, engine="pallas")
+    for d, i in ((d1, i1), (d2, i2)):
+        np.testing.assert_array_equal(d0, d)
+        np.testing.assert_array_equal(i0, i)

@@ -2,7 +2,7 @@
 """The port's scan against another checkout's, on one NVIDIA GPU.
 
     python3 tools/torch_scan_ab.py OTHER_CHECKOUT [--k 16 106 1024 1106] [--rounds 6]
-                                   [--shares 1 0.5 0.25 0.125]
+                                   [--shares 1 0.5 0.25 0.125] [--sass-only]
 
 Builds ``learnedmetricindex_tpu_torch/csrc/scan_pairs.cu`` (and, where
 the checkout has it, ``csrc/scan_merge.cu``) of this tree and of
@@ -38,7 +38,13 @@ Then f32 over the flagship's rows as an f32 store
 same bits on both sides, unless a side still has the CUDA-core FMA body
 (``scan_f32_kernel``), which takes f32 query rows and rounds otherwise;
 then held to the f32 parity bar (``chip_smoke.compare_candidates``) and
-each side's distances to float64 (``chip_smoke.float64_error``).
+each side's distances to float64 (``chip_smoke.float64_error``).  Then
+bf16 over f32 rows at ``k_scan`` 16 (the default search over an f32
+store, the CLI's scan): over that 31 GB store, and over the flagship
+corpus's first 1M rows in their buckets as an f32 store (3.1 GB, the
+CLI's shape: ``--synthetic 1000000``, 120 buckets, chunk 2048, 10k
+queries visiting 4); the same bits where both sides take the same body,
+else held to each other at the bf16 bar (``bodies_agree``).
 
 ``--shares``: the segment-length probe.  This tree's scan at the
 segment length each share of a slot's fair share gives, and over whole
@@ -71,7 +77,7 @@ sys.path.insert(0, str(ROOT))
 
 import chip_smoke as cs  # noqa: E402
 from learnedmetricindex_tpu_torch.index.bucket_store import BucketStore, scan_inputs  # noqa: E402
-from learnedmetricindex_tpu_torch.ops import cuda_build, scan_kernel  # noqa: E402
+from learnedmetricindex_tpu_torch.ops import cuda_build, quantize, scan_kernel  # noqa: E402
 
 SOURCE = Path("learnedmetricindex_tpu_torch/csrc/scan_pairs.cu")
 MERGE_SOURCE = Path("learnedmetricindex_tpu_torch/csrc/scan_merge.cu")
@@ -102,7 +108,8 @@ def build(sources: dict) -> None:
 
 def sass(cubin: Path) -> dict:
     """Instruction lines per kernel, encodings and offsets dropped; a scan
-    kernel instance under its name from ``scan_mma_kernel`` on."""
+    kernel instance under its name from ``scan_mma_kernel`` (or
+    ``scan_wgmma_kernel``, ``scan_wgmma_f32_kernel``) on."""
     cuobjdump = Path(cuda_build._nvcc()).with_name("cuobjdump")
     txt = subprocess.run([str(cuobjdump), "-sass", str(cubin)], capture_output=True, text=True,
                          check=True).stdout
@@ -120,8 +127,25 @@ def sass(cubin: Path) -> dict:
         # from the kernel's own name on: nvcc names an anonymous namespace
         # after the source file, so the two builds' prefixes differ
         name = name.strip()
-        funcs[name[name.find("scan_mma_kernel"):] if "scan_mma_kernel" in name else name] = lines
+        for kernel in ("scan_mma_kernel", "scan_wgmma_kernel", "scan_wgmma_f32_kernel"):
+            if kernel in name:
+                name = name[name.find(kernel):]
+                break
+        funcs[name] = lines
     return funcs
+
+
+def cli_shape_store(store, n: int = 1_000_000):
+    """The rows of the int8 ``store`` whose object ids are the corpus's
+    first ``n``, dequantized into an f32 store in the same buckets (chunk
+    as the store's): the CLI's shape from the flagship's corpus."""
+    ids = store.chunk_ids.reshape(-1).long()
+    per_chunk = np.repeat(np.arange(store.n_buckets), np.diff(store.bucket_chunk_start))
+    slot_bucket = torch.as_tensor(per_chunk, device=ids.device).repeat_interleave(store.chunk)
+    keep = (ids > 0) & (ids <= n)
+    rows = quantize.dequantize_rows(store.chunk_data[keep], store.chunk_scales[keep])
+    return BucketStore.build_packed_device(rows, slot_bucket[keep].cpu().numpy(), store.n_buckets,
+                                           chunk=store.chunk)
 
 
 def flagship_stores(dev):
@@ -239,7 +263,7 @@ def launcher(side: Side, store, queries, order, mode: str, k: int, segment=None,
         extra = tuple(t.data_ptr() if t is not None else None for t in (row_ids, fd, fp))
         body = side_body(side, st, mode, w, row_ids, floor is not None)
         qo = operand(body)
-        ran = ctypes.c_int(int(body is not None and body.wgmma))
+        ran = ctypes.c_int(body.kind if body is not None else 0)
         err = side.lib.lmi_scan_pairs(
             qo.data_ptr(), qs.data_ptr() if qs is not None else None, q_idx.data_ptr(),
             p_bucket.data_ptr(), pair_order.data_ptr(), p_ptr.data_ptr(), chunk_of.data_ptr(),
@@ -249,8 +273,8 @@ def launcher(side: Side, store, queries, order, mode: str, k: int, segment=None,
             scan_kernel._STORE_TYPES[st.dtype],
             *((st.shape[0], ctypes.byref(ran)) if side.wgmma else ()), stream)
         if body is not None:
-            cs.check(ran.value == int(body.wgmma), f"the library takes body {ran.value}, the "
-                     f"queries are laid out for {int(body.wgmma)}")
+            cs.check(ran.value == body.kind, f"the library takes body {ran.value}, the "
+                     f"queries are laid out for {body.kind}")
         cs.check(err == 0, f"launch failed: cudaError {err}")
         return out_d, out_s
 
@@ -336,13 +360,16 @@ def main() -> None:
     p.add_argument("--rounds", type=int, default=6, help="timed rounds per library and case")
     p.add_argument("--shares", type=float, nargs="*", default=[],
                    help="the segment-length probe's shares of a slot's fair share")
+    p.add_argument("--sass-only", action="store_true",
+                   help="build both sides, compare their SASS, and stop")
     args = p.parse_args()
     smi = cs.phase_device()
     WORK.mkdir(parents=True, exist_ok=True)
     sources = {"other": args.other.resolve() / SOURCE, "this": ROOT / SOURCE}
     build(sources)
     other, this = sass(WORK / "other.cubin"), sass(WORK / "this.cubin")
-    common = sorted(n for n in set(other) & set(this) if n.startswith("scan_mma_kernel"))
+    common = sorted(n for n in set(other) & set(this) if n.startswith(("scan_mma_kernel",
+                                                                        "scan_wgmma_kernel")))
     differ = []
     for name in common:
         if other[name] != this[name]:
@@ -352,6 +379,8 @@ def main() -> None:
     cs.log(f"[sass] {len(common)} scan kernel instances in both builds ({len(other)} and "
            f"{len(this)} kernels in all): {len(common) - len(differ)} identical"
            + (f"; differ: {', '.join(differ)}" if differ else ""))
+    if args.sass_only:
+        return
 
     dev = torch.device("cuda", 0)
     store, virtual, queries, order = flagship_stores(dev)
@@ -406,6 +435,25 @@ def main() -> None:
             agree = "same bits"
         del outs
         in_turns(runs, f"f32 store f32 k_scan {k} ({queries.shape[0]} queries", agree, 5,
+                 args.rounds, smi)
+    cli = cli_shape_store(store)
+    for what, st in ((f"f32 store ({f32.chunk_data.numel() * 4 / 1e9:.1f} GB)", f32),
+                     (f"CLI shape f32 store ({cli.chunk_data.numel() * 4 / 1e9:.1f} GB)", cli)):
+        runs = {n: launcher(sd, st, queries, order, "bf16", 16) for n, sd in sides.items()}
+        outs = {n: tuple(t.clone() for t in run()) for n, run in runs.items()}
+        sargs = scan_inputs(st, queries, order, 128, "bf16")[1]
+        bodies = {n: side_body(sd, sargs[5], "bf16", 16, None) for n, sd in sides.items()}
+        kinds = {n: b.kind if b is not None else 0 for n, b in bodies.items()}
+        del sargs
+        if kinds["this"] != kinds["other"]:
+            agree = bodies_agree(outs, f"{what} bf16 k=16")
+        else:
+            cs.check(all(torch.equal(x, y) for x, y in zip(outs["other"], outs["this"])),
+                     f"{what} bf16 k=16: the two sides give different bits")
+            agree = "same bits"
+        agree += "; bodies " + ", ".join(f"{n} {scan_kernel.BODY_NAMES[b]}" for n, b in kinds.items())
+        del outs
+        in_turns(runs, f"{what} bf16 k_scan 16 ({queries.shape[0]} queries", agree, 5,
                  args.rounds, smi)
 
 

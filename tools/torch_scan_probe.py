@@ -1,12 +1,16 @@
 #!/usr/bin/env python3
-"""What bounds the scan's default body at the flagship, on one NVIDIA GPU.
+"""What bounds the scan's default bodies at the flagship, on one NVIDIA GPU.
 
-    python3 tools/torch_scan_probe.py [--body mma|wgmma] [--checkout DIR]
-                                      [--reference DIR ...] [--rounds 4]
+    python3 tools/torch_scan_probe.py [--body mma|wgmma|mma-f32|wgmma-f32]
+                                      [--checkout DIR] [--reference DIR ...]
+                                      [--rounds 4] [--only NAME ...]
 
 The card's machine has no ``ncu``, so this splits the time of the bf16
-scan over the int8 packed store at list width 32 (``k_scan`` 16) by
-removing work.  It writes patched copies of ``DIR``'s
+scan at list width 32 (``k_scan`` 16) by removing work: over the int8
+packed store (``--body mma``, ``wgmma``) or over the same rows as an f32
+store (``--body mma-f32``, ``wgmma-f32``: ``chip_smoke.dequantized_store``,
+31 GB, the default search over ``BuildConfiguration(dtype="float32")``).
+It writes patched copies of ``DIR``'s
 ``learnedmetricindex_tpu_torch/csrc/scan_pairs.cu`` (default: this
 tree's) into ``build/scan_probe/``, builds each (and
 ``csrc/scan_merge.cu``) with the port's nvcc flags, and times them in one
@@ -45,6 +49,33 @@ for example the commit before it):
 * ``3 consumers, stages of 1 box, ring 4``: three consumer warpgroups
   (and producer warps) taking the tiles in turn, d <= 768 only;
 * ``no wgmma, ...``: the same without the wgmma: what the rest costs.
+
+``--body mma-f32``: the mma.sync body's bf16 instance over an f32 store
+(``MmaBody<MODE_BF16, float, 32>``: a checkout where that scan takes it,
+for example the commit before the wgmma body over f32 rows):
+
+* ``tree``;
+* ``(a) no row stream``: the ring's store rows are written from the
+  thread's indices, with no load and no rounding;
+* ``(b) no rounding``: each f32 value's top 16 bits in place of
+  ``__float2bfloat16_rn`` (the loads kept);
+* ``(c) no selection``, ``(d) no mma`` as for ``--body mma``;
+* ``(a)+(c)``.
+
+``--body wgmma-f32``: the wgmma body over f32 rows:
+
+* ``tree``, ``no wgmma``, ``no selection``, ``no hand-over``, ``no TMA``,
+  ``stages of 1 box, ring 4`` as for ``--body wgmma``;
+* ``3 consumers, stages of 1 box, ring 2``: three consumer warpgroups,
+  each a ring of two one-box stages (48 KB of rings against the tree's
+  64 KB: what fits beside a third distance tile at d 768);
+* ``selection: one load a query``: each warp reads its queries' marks one
+  after another, as the int8 body does, in place of one load a lane and
+  a ballot;
+* ``no rounding``: each A register the XOR of the two f32 words it
+  would round (the ring's loads kept);
+* ``bare``: no TMA, no rounding, no hand-over;
+* ``no wgmma, bare``.
 
 The copies' results are wrong and are not read.  Then the card's memory
 rates: a ~1 GB device-to-device copy (HBM: bytes read + written) and a
@@ -107,20 +138,22 @@ MMA_VARIANTS = {
 
 W_NO_WGMMA = [(f'"wgmma.mma_async.sync.aligned.m64n{n}k16.f32.bf16.bf16 "', '"// "')
               for n in (16, 32, 48, 64)]
-W_NO_WIDEN = [("        widen_s8x4(wl[j], bl);\n        widen_s8x4(wh[j], bh);\n",
-               "        bl[0] = wl[j]; bl[1] = wl[j] ^ 1u; bh[0] = wh[j]; bh[1] = wh[j] ^ 1u;\n")]
+W_NO_WIDEN = [("          widen_s8x4(wl[j], bl);\n          widen_s8x4(wh[j], bh);\n",
+               "          bl[0] = wl[j]; bl[1] = wl[j] ^ 1u; bh[0] = wh[j]; bh[1] = wh[j] ^ 1u;\n")]
 W_SELECT = "    wgmma_select(p, s, wg, N, nrows, slot0);\n"
 W_NO_SELECTION = [(W_SELECT, "")]
 W_NO_HANDOVER = W_NO_SELECTION + [
     ("    if (i > 0) bar_sync(BAR_HANDOVER + wg, 256);  // the tile before is selected (by the warpgroup before)\n", ""),
     ("    if (i + 1 < ntiles) bar_arrive(BAR_HANDOVER + (wg + 1) % W_CONSUMERS, 256);\n", "")]
-W_NO_TMA = [("      mbar_expect_tx(full, W_STAGE);\n#pragma unroll\n      for (int box = 0; box < W_BOXES; ++box)\n"
-             "        tma_load_rows(s.stage(wg, slot) + box * WR * WK, map, (st * W_BOXES + box) * WK, row, full);\n",
+W_NO_TMA = [("      mbar_expect_tx(full, R::STAGE);\n#pragma unroll\n      for (int box = 0; box < W_BOXES; ++box)\n"
+             "        tma_load_rows(s.stage(wg, slot) + box * WR * R::ROW, map, (st * W_BOXES + box) * R::DEPTHS,\n"
+             "                      row, full);\n",
              "      mbar_arrive(full);\n")]
 W_BOX1 = [("constexpr int W_STAGES = 2;", "constexpr int W_STAGES = 4;"),
           ("constexpr int W_BOXES = 2;", "constexpr int W_BOXES = 1;")]
 W_THREE = [("constexpr int W_CONSUMERS = 2;", "constexpr int W_CONSUMERS = 3;"),
-           ("static_assert(W_MAX_QD >= 1024,", "static_assert(W_MAX_QD >= 768,")]
+           ("static_assert(W_MAX_QD >= 1024,", "static_assert(W_MAX_QD >= 768,"),
+           ("static_assert(W_MAX_QD_F >= 768 &&", "static_assert(W_MAX_QD_F >= 0 &&")]
 WGMMA_VARIANTS = {
     "tree": [],
     "no wgmma": W_NO_WGMMA,
@@ -135,6 +168,54 @@ WGMMA_VARIANTS = {
     "no wgmma, no hand-over": W_NO_WGMMA + W_NO_HANDOVER,
     "no wgmma, bare": W_NO_WGMMA + W_NO_TMA + W_NO_WIDEN + W_NO_HANDOVER,
 }
+
+
+F_NO_STREAM = [(
+    "        if (CONVERT || p.copy_bytes == 0) {\n"
+    "          stage_via_registers<TS, TD>(dst, static_cast<const TS*>(p.store) + slot * d, live, e, d);\n",
+    "        if (CONVERT) {\n"
+    "          *reinterpret_cast<uint4*>(dst) = make_uint4(e, unsigned(slot), e, unsigned(slot));\n"
+    "        } else if (p.copy_bytes == 0) {\n"
+    "          stage_via_registers<TS, TD>(dst, static_cast<const TS*>(p.store) + slot * d, live, e, d);\n")]
+F_NO_ROUND = [("  return __bfloat16_as_ushort(__float2bfloat16_rn(v));\n",
+               "  return uint16_t(__float_as_uint(v) >> 16);\n")]
+MMA_F32_VARIANTS = {
+    "tree": [],
+    "(a) no row stream": F_NO_STREAM,
+    "(b) no rounding": F_NO_ROUND,
+    "(c) no selection": NO_SELECTION,
+    "(d) no mma": NO_MMA,
+    "(a)+(c)": F_NO_STREAM + NO_SELECTION,
+}
+WF_NO_ROUND = [("          a[2 * box + j][0] = bf16x2_rn(lo.x, lo.y);\n"
+                "          a[2 * box + j][1] = bf16x2_rn(hi.x, hi.y);\n"
+                "          a[2 * box + j][2] = bf16x2_rn(lo.z, lo.w);\n"
+                "          a[2 * box + j][3] = bf16x2_rn(hi.z, hi.w);\n",
+                "          a[2 * box + j][0] = __float_as_uint(lo.x) ^ __float_as_uint(lo.y);\n"
+                "          a[2 * box + j][1] = __float_as_uint(hi.x) ^ __float_as_uint(hi.y);\n"
+                "          a[2 * box + j][2] = __float_as_uint(lo.z) ^ __float_as_uint(lo.w);\n"
+                "          a[2 * box + j][3] = __float_as_uint(hi.z) ^ __float_as_uint(hi.w);\n")]
+WF_SCAN_EACH = [("  if constexpr (std::is_same<TS, float>::value) {\n    const int q = q0 + 4 * lane;",
+                 "  if constexpr (false) {\n    const int q = q0 + 4 * lane;")]
+W_BOX1_RING2 = [("constexpr int W_BOXES = 2;", "constexpr int W_BOXES = 1;")]
+WGMMA_F32_VARIANTS = {
+    "tree": [],
+    "no wgmma": W_NO_WGMMA,
+    "no rounding": WF_NO_ROUND,
+    "no selection": W_NO_SELECTION,
+    "no hand-over": W_NO_HANDOVER,
+    "no TMA": W_NO_TMA,
+    "bare": W_NO_TMA + WF_NO_ROUND + W_NO_HANDOVER,
+    "no wgmma, bare": W_NO_WGMMA + W_NO_TMA + WF_NO_ROUND + W_NO_HANDOVER,
+    "stages of 1 box, ring 4": W_BOX1,
+    "3 consumers, stages of 1 box, ring 2": W_THREE + W_BOX1_RING2,
+    "selection: one load a query": WF_SCAN_EACH,
+}
+VARIANTS = {"mma": MMA_VARIANTS, "wgmma": WGMMA_VARIANTS, "mma-f32": MMA_F32_VARIANTS,
+            "wgmma-f32": WGMMA_F32_VARIANTS}
+# ptxas's report of the instance each body runs
+INSTANCE = {"mma": "scan_mma_kernelILi1EaLi32E", "wgmma": "scan_wgmma_kernel",
+            "mma-f32": "scan_mma_kernelILi1EfLi32E", "wgmma-f32": "scan_wgmma_f32_kernel"}
 
 
 def patched(source: str, edits) -> str:
@@ -164,7 +245,7 @@ def memory_rates(smi: str) -> dict:
 
 def main() -> None:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    p.add_argument("--body", choices=("mma", "wgmma"), default="wgmma",
+    p.add_argument("--body", choices=tuple(VARIANTS), default="wgmma",
                    help="the body whose variants are timed")
     p.add_argument("--checkout", type=Path, default=ROOT, help="the checkout whose source is patched")
     p.add_argument("--reference", type=Path, nargs="*", default=[],
@@ -175,11 +256,12 @@ def main() -> None:
     smi = cs.phase_device()
     WORK.mkdir(parents=True, exist_ok=True)
     text = (args.checkout.resolve() / ab.SOURCE).read_text()
-    cs.check(("scan_wgmma_kernel" in text) == (args.body == "wgmma"),
+    kernel = {"mma": "scan_wgmma_kernel", "wgmma": "scan_wgmma_kernel",
+              "mma-f32": "scan_wgmma_f32_kernel", "wgmma-f32": "scan_wgmma_f32_kernel"}[args.body]
+    cs.check((kernel in text) == args.body.startswith("wgmma"),
              f"{args.checkout}: the flagship's scan there does not run the {args.body} body")
     sources = {}
-    for i, (name, edits) in enumerate((MMA_VARIANTS if args.body == "mma"
-                                       else WGMMA_VARIANTS).items()):
+    for i, (name, edits) in enumerate(VARIANTS[args.body].items()):
         if args.only and name not in args.only and name != "tree":
             continue
         path = WORK / f"v{i}.cu"
@@ -198,8 +280,7 @@ def main() -> None:
         keep = False  # ptxas's report of the flagship scan's instance
         for line in (stdout + err).splitlines():
             if "Compiling entry function" in line:
-                keep = ("scan_mma_kernelILi1EaLi32E" if args.body == "mma"
-                        else "scan_wgmma_kernel") in line
+                keep = INSTANCE[args.body] in line
             elif keep and ("registers" in line or "spill" in line):
                 cs.log(f"[probe] {out.name}: {line.strip()}")
     sides = {name: ab.bind(WORK / f"v{i}.so", src, WORK / "merge.so")
@@ -207,6 +288,10 @@ def main() -> None:
     rates = memory_rates(smi)
     store, virtual, queries, order = ab.flagship_stores(torch.device("cuda", 0))
     del virtual
+    what = "the int8 packed store"
+    if args.body.endswith("f32"):
+        store = cs.dequantized_store(store)
+        what = f"an f32 store ({store.chunk_data.numel() * 4 / 1e9:.1f} GB)"
     runs = {n: ab.launcher(side, store, queries, order, "bf16", 16) for n, side in sides.items()}
     names = list(runs)
     ms = {n: [] for n in names}
@@ -215,7 +300,7 @@ def main() -> None:
             ms[n].append(cs.cuda_ms(runs[n], 3))
     med = {n: float(np.median(v)) for n, v in ms.items()}
     for n in names:
-        cs.log(f"[probe] bf16 over the int8 packed store, k_scan 16, {queries.shape[0]} queries "
+        cs.log(f"[probe] bf16 over {what}, k_scan 16, {queries.shape[0]} queries "
                f"(mean of 3 launches a round, {args.rounds} rounds in turns): {n}: "
                f"{' '.join(f'{t:.3f}' for t in ms[n])} ms, median {med[n]:.3f} ms = "
                f"{med[n] / med['tree']:.3f} of the tree's  [{smi}]")
