@@ -256,12 +256,39 @@
 // was slower (each block then waits on the other's consumers), and so
 // were deeper rings of smaller stages and three consumer warpgroups.
 // Its lists match the plain version to the bf16 bar, as the int8 body's.
+//
+// The Hopper body in f32 mode (scan_wgmma_f32mode_kernel): f32 queries over
+// an int8 packed store at list width 32, precision="highest" (the
+// reference's all-f32 scan; the default of sharded_search and
+// scan_buckets).  What bounded the mma.sync body there
+// (tools/torch_scan_probe.py --body mma-f32mode, 70.4 ms at the flagship on
+// an H100): without any mma.sync 39.3 ms, whatever else was removed: a ring
+// of two stages that reloads the three bf16 terms of the tile's 128
+// queries from L2 for every row tile, drained every tile, with spills.
+// The design: the int8 body's block, ring and producer; the rows widened
+// into A registers once (int8 values are exact in bf16, so one A fragment
+// serves all three terms); the three terms hi, mid, lo of the block's
+// query slots resident as planes side by side in one B tile, so each
+// k-step is one wgmma m64n(3N)k16 over the live m-tiles; and the
+// rounding of the mma.sync body kept: the tensor cores truncate the sum
+// they add into, so each term's products go into a fresh sum for one ring
+// stage (8 k-steps, 128 depths; the stage's first k-step does not add),
+// and the stage is then folded into the running f32 sum with
+// round-to-nearest adds, lo + mid first, then hi, then the running sum
+// (fold_terms), once the warpgroup has waited for that stage (the next
+// stage's rows are widened while it runs; the other warpgroup's wgmma
+// overlaps the fold).  Three planes of 64
+// slots would take 294,912 B at d 768, so a block keeps 32 slots (WQ3;
+// 147,456 B at d 768 beside a 26,624 B head and the 32 KB ring, d up to
+// 896), and a pair of more than 32 queries takes up to four blocks, each
+// reading the bucket's rows (L2 serves the blocks of a pair that start
+// together).  Its lists match the plain version to the f32 parity bar.
 // The other bodies keep the mma.sync design.
 //
 // What is left for later work:
 //  * the int8 mode on the Hopper body (s8 × s8 wgmma, both operands in
-//    shared memory, no widening), then the f32 bodies and bf16 over a
-//    bf16 store;
+//    shared memory, no widening), then f32 over f32 and bf16 stores, f32
+//    at list widths past 32, and bf16 over a bf16 store;
 //  * the split's cost: one host read of the plan and one upload of the
 //    work list a launch, and a merge pass; a persistent grid that takes
 //    items from a device-side queue would need neither the read nor the
@@ -1276,11 +1303,14 @@ constexpr int BAR_WG = 1, BAR_HANDOVER = BAR_WG + W_CONSUMERS,
 constexpr int W_PRODUCER_REGS = 40;
 constexpr int W_CONSUMER_REGS_FIT = (65536 / 128 - W_PRODUCER_REGS) / W_CONSUMERS / 8 * 8;
 constexpr int W_CONSUMER_REGS = W_CONSUMER_REGS_FIT < 232 ? W_CONSUMER_REGS_FIT : 232;
-// barriers, query metadata and marks, lists, the two distance tiles
-constexpr size_t kWHeadBytes =
-    size_t(2 * W_CONSUMERS * W_STAGES) * 8 + size_t(WQ + W_CONSUMERS * WQ) * 4 +
-    size_t(2 * W_LIST * WQ) * 4 + size_t(W_CONSUMERS * WQ * WDQ) * 4;
-constexpr size_t kWRingOffset = (kWHeadBytes + 1023) / 1024 * 1024;
+// barriers, query metadata and marks, lists, the two distance tiles of a
+// block of `slots` query slots, rounded up to 1024 bytes (where the ring starts)
+constexpr size_t w_head_bytes(int slots) {
+  return (size_t(2 * W_CONSUMERS * W_STAGES) * 8 + size_t(slots + W_CONSUMERS * slots) * 4 +
+          size_t(2 * W_LIST * slots) * 4 + size_t(W_CONSUMERS * slots * WDQ) * 4 + 1023) /
+         1024 * 1024;
+}
+constexpr size_t kWRingOffset = w_head_bytes(WQ);
 constexpr size_t kWRingBytes = size_t(W_CONSUMERS) * W_STAGES * W_STAGE;
 // the widest resident query tile (d rounded up to W_QD_STEP) that fits
 constexpr int W_MAX_QD =
@@ -1299,49 +1329,75 @@ constexpr int W_MAX_QD_F =
 static_assert(W_MAX_QD_F >= 768 && kWRingOffset % 1024 == 0 && W_STAGE_F % 1024 == 0,
               "a 768-wide query tile is resident; swizzled boxes start on 1024 bytes");
 
+// f32 queries over an int8 packed store (precision="highest"): the int8
+// ring, and the three bf16 terms of each query resident, so a block keeps
+// 32 query slots (WQ3) and a k-step of the resident planes is hi, mid and
+// lo of those slots side by side (W3_KSTEP bytes); the widest query tile
+// that fits beside that block's smaller head and the ring
+constexpr int WQ3 = 32;
+constexpr int W3_KSTEP = 3 * WQ3 * 16 * 2;
+constexpr size_t kW3RingOffset = w_head_bytes(WQ3);
+constexpr int W_MAX_QD3 =
+    int((232448 - kW3RingOffset - kWRingBytes) / (size_t(W3_KSTEP) / 16 * W_QD_STEP)) * W_QD_STEP;
+static_assert(W_MAX_QD3 >= 768, "a 768-wide three-term query tile is resident");
+// the tag of that body in the templates below (its rows are int8)
+struct F32Mode {};
+
 // The ring of the store type TS: int8 rows (WK bytes a box row, 64 depths)
-// or f32 rows (WKF bytes, 32 depths), W_BOXES boxes a stage
+// or f32 rows (WKF bytes, 32 depths), W_BOXES boxes a stage; and the block
+// around it: its query slots, where its ring starts (after the head), the
+// query terms it keeps resident and their bytes a k-step
 template <typename TS>
 struct WRing;
 template <>
 struct WRing<int8_t> {
+  using Row = int8_t;
   static constexpr int ROW = WK, DEPTHS = WK, STAGE = W_STAGE, KSTEPS = W_KSTEPS,
-                       QD_STEP = W_QD_STEP, MAX_QD = W_MAX_QD;
-  static constexpr size_t BYTES = kWRingBytes;
+                       QD_STEP = W_QD_STEP, MAX_QD = W_MAX_QD, SLOTS = WQ, TERMS = 1,
+                       Q_KSTEP = W_KSTEP;
+  static constexpr size_t BYTES = kWRingBytes, HEAD = kWRingOffset;
 };
 template <>
 struct WRing<float> {
+  using Row = float;
   static constexpr int ROW = WKF, DEPTHS = WKF / 4, STAGE = W_STAGE_F, KSTEPS = W_KSTEPS_F,
-                       QD_STEP = W_QD_STEP_F, MAX_QD = W_MAX_QD_F;
-  static constexpr size_t BYTES = kWRingBytesF;
+                       QD_STEP = W_QD_STEP_F, MAX_QD = W_MAX_QD_F, SLOTS = WQ, TERMS = 1,
+                       Q_KSTEP = W_KSTEP;
+  static constexpr size_t BYTES = kWRingBytesF, HEAD = kWRingOffset;
+};
+template <>
+struct WRing<F32Mode> : WRing<int8_t> {
+  static constexpr int MAX_QD = W_MAX_QD3, SLOTS = WQ3, TERMS = 3, Q_KSTEP = W3_KSTEP;
+  static constexpr size_t HEAD = kW3RingOffset;
 };
 
 // dynamic shared memory at query width qd
 template <typename TS>
 __host__ __device__ inline size_t wgmma_smem_bytes(int qd) {
-  return kWRingOffset + WRing<TS>::BYTES + size_t(WQ) * 2 * qd;
+  return WRing<TS>::HEAD + WRing<TS>::BYTES + size_t(WRing<TS>::Q_KSTEP) * (qd / 16);
 }
 
 template <typename TS>
 struct WSmem {
+  static constexpr int SLOTS = WRing<TS>::SLOTS;
   uint64_t* full;    // [W_CONSUMERS][W_STAGES] the producer's TMA landed
   uint64_t* empty;   // [W_CONSUMERS][W_STAGES] the warpgroup's four warps read it
-  int* q_row;        // [WQ] query row of slot q, -1 = none
-  unsigned* q_grp;   // [W_CONSUMERS][WQ] byte g: 32-row group g of the tile may enter q's list
-  float* top_d;      // [WQ][W_LIST]
-  int* top_s;        // [WQ][W_LIST]
-  float* dist;       // [W_CONSUMERS][WQ][WDQ]
+  int* q_row;        // [SLOTS] query row of slot q, -1 = none
+  unsigned* q_grp;   // [W_CONSUMERS][SLOTS] byte g: 32-row group g of the tile may enter q's list
+  float* top_d;      // [SLOTS][W_LIST]
+  int* top_s;        // [SLOTS][W_LIST]
+  float* dist;       // [W_CONSUMERS][SLOTS][WDQ]
   unsigned char* ring;     // [W_CONSUMERS][W_STAGES][W_BOXES][WR][ROW] rows, as TMA writes them
-  unsigned char* queries;  // resident bf16 queries, qd / 16 k-steps of W_KSTEP bytes
+  unsigned char* queries;  // resident bf16 queries, qd / 16 k-steps of Q_KSTEP bytes
   __device__ explicit WSmem(unsigned char* base) {
     full = reinterpret_cast<uint64_t*>(base);
     empty = full + W_CONSUMERS * W_STAGES;
     q_row = reinterpret_cast<int*>(empty + W_CONSUMERS * W_STAGES);
-    q_grp = reinterpret_cast<unsigned*>(q_row + WQ);
-    top_d = reinterpret_cast<float*>(q_grp + W_CONSUMERS * WQ);
-    top_s = reinterpret_cast<int*>(top_d + W_LIST * WQ);
-    dist = reinterpret_cast<float*>(top_s + W_LIST * WQ);
-    ring = base + kWRingOffset;
+    q_grp = reinterpret_cast<unsigned*>(q_row + SLOTS);
+    top_d = reinterpret_cast<float*>(q_grp + W_CONSUMERS * SLOTS);
+    top_s = reinterpret_cast<int*>(top_d + W_LIST * SLOTS);
+    dist = reinterpret_cast<float*>(top_s + W_LIST * SLOTS);
+    ring = base + WRing<TS>::HEAD;
     queries = ring + WRing<TS>::BYTES;
   }
   __device__ unsigned char* stage(int wg, int slot) const {
@@ -1489,29 +1545,67 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[
   }
 }
 
+// The three query terms' products at once (B: the planes hi, mid, lo side
+// by side, N = 3 × the block's slots up to its last live m-tile): D = A·B,
+// or D += A·B where `add` is set
+template <int N>
+__device__ __forceinline__ void wgmma_rs_terms(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t desc,
+                                               int add) {
+  if constexpr (N == 48) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %29, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23}, {%24, %25, %26, %27}, %28, p, 1, 1, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(add));
+  }
+  if constexpr (N == 96) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47}, {%48, %49, %50, %51}, %52, p, 1, 1, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(add));
+  }
+}
+
+// One stage's three-term sums into the running sum, rounded: for each value
+// lo + mid (the smallest first), + hi, then one round-to-nearest add into
+// acc (the tensor cores truncate the sum they add into, so the running sum
+// is never theirs).  fresh: the stage's sums, hi, mid, lo in thirds, each
+// in the accumulator order of acc
+template <int M>
+__device__ __forceinline__ void fold_terms(float (&acc)[M], float (&fresh)[3 * M]) {
+  hold(fresh);
+#pragma unroll
+  for (int i = 0; i < M; ++i)
+    acc[i] = __fadd_rn(acc[i], __fadd_rn(__fadd_rn(fresh[2 * M + i], fresh[M + i]), fresh[i]));
+}
+
 // The block's item, its query slots, empty lists, the ring's
 // barriers and the resident query tile.  Slot q holds query q0 + q; slots
 // past qtile hold none.  nl = 0: no slot is live, the block writes the fill.
 template <typename TS>
 __device__ WItem wgmma_begin(const Params& p, const WSmem<TS>& s) {
+  constexpr int SLOTS = WSmem<TS>::SLOTS;
   const int tid = threadIdx.x;
-  const int splits = (p.qtile + WQ - 1) / WQ;
+  const int splits = (p.qtile + SLOTS - 1) / SLOTS;
   WItem b;
   b.pair = p.pair_order[blockIdx.x / splits];
-  b.q0 = (blockIdx.x % splits) * WQ;
+  b.q0 = (blockIdx.x % splits) * SLOTS;
   const int bucket = p.pair_bucket[b.pair];
   b.c_lo = p.ptr[bucket];
   b.c_hi = p.ptr[bucket + 1];
   bool live = false;
-  if (tid < WQ) {
+  if (tid < SLOTS) {
     const bool own = b.q0 + tid < p.qtile;
     const size_t e = (size_t)b.pair * p.qtile + b.q0 + tid;
     const int qi = own ? p.qidx[e] : -1;
     live = qi >= 0;
     s.q_row[tid] = qi;
   }
-  if (tid < W_CONSUMERS * WQ) s.q_grp[tid] = 0;
-  for (int e = tid; e < W_LIST * WQ; e += W_THREADS) {
+  if (tid < W_CONSUMERS * SLOTS) s.q_grp[tid] = 0;
+  for (int e = tid; e < W_LIST * SLOTS; e += W_THREADS) {
     s.top_d[e] = CUDART_INF_F;
     s.top_s[e] = -1;
   }
@@ -1524,19 +1618,35 @@ __device__ WItem wgmma_begin(const Params& p, const WSmem<TS>& s) {
   }
   b.nl = 0;
 #pragma unroll
-  for (int m = 0; m < WQ / 16; ++m)
+  for (int m = 0; m < SLOTS / 16; ++m)
     if (__syncthreads_or(live && tid / 16 == m)) b.nl = m + 1;
   if (b.nl == 0) return b;
   // the live m-tiles' query rows, 16 bytes a piece, into the canonical
   // layout (a padding query's rows zero); 8 neighbouring threads write
   // one core matrix
-  const int pieces = b.nl * 16 * (p.qd / 8);
-  const unsigned char* qbytes = static_cast<const unsigned char*>(p.queries);
-  for (int i = tid; i < pieces; i += W_THREADS) {
-    const int n = i % (b.nl * 16), piece = i / (b.nl * 16);
-    const int qi = s.q_row[n];
-    const size_t off = size_t(qi >= 0 ? qi : 0) * p.qd * 2 + piece * 16;
-    cp_async16(s.queries + query_at(piece >> 1, piece & 1, n), qbytes + off, qi >= 0);
+  if constexpr (WRing<TS>::TERMS == 1) {
+    const int pieces = b.nl * 16 * (p.qd / 8);
+    const unsigned char* qbytes = static_cast<const unsigned char*>(p.queries);
+    for (int i = tid; i < pieces; i += W_THREADS) {
+      const int n = i % (b.nl * 16), piece = i / (b.nl * 16);
+      const int qi = s.q_row[n];
+      const size_t off = size_t(qi >= 0 ? qi : 0) * p.qd * 2 + piece * 16;
+      cp_async16(s.queries + query_at(piece >> 1, piece & 1, n), qbytes + off, qi >= 0);
+    }
+  } else {
+    // three terms: a query row is the planes hi, mid, lo (qd values each);
+    // plane `term` of slot n is column term·cols + n of every k-step, so
+    // the wgmma of the live m-tiles reads the three planes as one B tile
+    const int cols = b.nl * 16, per_term = cols * (p.qd / 8);
+    const unsigned char* qbytes = static_cast<const unsigned char*>(p.queries);
+    for (int i = tid; i < WRing<TS>::TERMS * per_term; i += W_THREADS) {
+      const int term = i / per_term, n = i % cols, piece = i % per_term / cols;
+      const int qi = s.q_row[n];
+      const size_t off = (size_t(qi >= 0 ? qi : 0) * WRing<TS>::TERMS + term) * p.qd * 2 + piece * 16;
+      const int c = term * cols + n;
+      cp_async16(s.queries + (piece >> 1) * W3_KSTEP + (c >> 3) * 256 + (piece & 1) * 128 + (c & 7) * 16,
+                 qbytes + off, qi >= 0);
+    }
   }
   cp_async_commit();
   cp_async_wait<0>();
@@ -1584,16 +1694,16 @@ __device__ void wgmma_produce(const CUtensorMap* map, const Params& p, const WSm
 // block computes (nq): the list in a warp's lanes, a marked 32-row group's
 // candidates by ballot, each entering in scan order after every entry <= it.
 // Its own copy of that rule (other tile and list layouts), so that the
-// mma.sync instances keep their code.  Over f32 rows a warp finds its
-// marked queries (most tiles after a bucket's first have few) with one
-// load a lane and a ballot, not one load a query in turn (measured on the
-// f32 body only; the int8 body keeps its loop and its code).
+// mma.sync instances keep their code.  Over f32 rows (and in f32 mode) a
+// warp finds its marked queries (most tiles after a bucket's first have
+// few) with one load a lane and a ballot, not one load a query in turn
+// (measured on the f32 body only; the int8 body keeps its loop and its code).
 template <typename TS>
 __device__ void wgmma_select(const Params& p, const WSmem<TS>& s, int wg, int nq, int nrows,
                              int slot0) {
   const int lane = threadIdx.x & 31, k = p.k;
-  const float* dist = s.dist + wg * WQ * WDQ;
-  unsigned* grp = s.q_grp + wg * WQ;
+  const float* dist = s.dist + wg * WSmem<TS>::SLOTS * WDQ;
+  unsigned* grp = s.q_grp + wg * WSmem<TS>::SLOTS;
   // query q's marked 32-row groups (byte g of `groups` for group g)
   auto select_query = [&](int q, unsigned groups) {
     __syncwarp();
@@ -1636,7 +1746,7 @@ __device__ void wgmma_select(const Params& p, const WSmem<TS>& s, int wg, int nq
     }
   };
   const int q0 = (threadIdx.x >> 5) & 3;
-  if constexpr (std::is_same<TS, float>::value) {
+  if constexpr (!std::is_same<TS, int8_t>::value) {
     const int q = q0 + 4 * lane;  // lane i holds the warp's i-th query (nq <= 4 · 32)
     const unsigned mine = q < nq ? grp[q] : 0u;
     for (unsigned todo = __ballot_sync(FULL, mine != 0); todo != 0; todo &= todo - 1) {
@@ -1803,9 +1913,134 @@ __device__ void wgmma_consume(const Params& p, const WSmem<TS>& s, const WItem& 
   }
 }
 
+// The f32-mode consumer warpgroup (F32Mode): wgmma_consume's walk over its
+// tiles, int8 ring, epilogue, hand-over and selection, spelled out so that
+// the two bodies above keep their code, with the three query terms'
+// planes as one B tile of 3N columns: one wgmma a k-step, into a fresh sum
+// for the stage (its first k-step does not add); once the warpgroup has
+// waited for the stage, its sums are folded into the running sum
+// (fold_terms).  The rows are widened a box (four k-steps) ahead of the
+// tensor cores, into two sets of A registers in turns, not a stage: with
+// two stages' A registers, or two fresh sums in turns, a thread needs more
+// than the 168 registers a 384-thread block allows, and spills (spilled
+// accumulators also serialize the wgmma).  N = 16·NL query slots.
+template <int NL>
+__device__ void wgmma_consume_terms(const Params& p, const WSmem<F32Mode>& s, const WItem& b,
+                                    int wg) {
+  constexpr int N = 16 * NL, KSTEPS = WK / 16;  // k-steps a box
+  static_assert(W_BOXES == 2, "a stage's two boxes take the two sets of A registers in turns");
+  const int tid = threadIdx.x & 127, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int per_chunk = (p.chunk + WR - 1) / WR, nst = p.qd / W_QD_STEP;
+  const int ntiles = (b.c_hi - b.c_lo) * per_chunk;
+  const uint32_t q_base = smem_u32(s.queries);
+  TileWalk w{b.c_lo, 0};
+  w.advance(wg, per_chunk);
+  int phys = w.c < b.c_hi ? p.chunk_of[w.c] : 0;
+  float* dist = s.dist + wg * WQ3 * WDQ;
+  int cnt = 0;  // stages this warpgroup has taken from its ring
+  unsigned live = 0;  // bit 2n + e: the lane's query slot 8n + 2t + e holds a query
+#pragma unroll
+  for (int n = 0; n < N / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) live |= unsigned(s.q_row[8 * n + 2 * t + e] >= 0) << (2 * n + e);
+
+  // the A fragments of box `box` of the ring's current stage from its int8
+  // rows, as in wgmma_consume; the first box waits for the stage, the last
+  // frees it
+  auto take_box = [&](uint32_t(&a)[KSTEPS][4], int box) {
+    const int slot = cnt % W_STAGES;
+    if (box == 0) mbar_wait(&s.full[wg * W_STAGES + slot], (cnt / W_STAGES) & 1);
+    const unsigned char* x = s.stage(wg, slot) + box * WR * WK + (warp * 16 + g) * WK + t * 16;
+    const uint4 lo = lds128u(x), hi = lds128u(x + 8 * WK);
+    const uint32_t wl[4] = {lo.x, lo.y, lo.z, lo.w}, wh[4] = {hi.x, hi.y, hi.z, hi.w};
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      uint32_t bl[2], bh[2];
+      widen_s8x4(wl[j], bl);
+      widen_s8x4(wh[j], bh);
+      a[j][0] = bl[0];
+      a[j][1] = bh[0];
+      a[j][2] = bl[1];
+      a[j][3] = bh[1];
+    }
+    if (box == W_BOXES - 1) {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&s.empty[wg * W_STAGES + slot]);
+      ++cnt;
+    }
+  };
+
+  for (int i = wg; i < ntiles; i += W_CONSUMERS) {
+    const int r0 = w.t * WR;
+    const int slot0 = phys * p.chunk + r0, nrows = min(WR, p.chunk - r0);
+    w.advance(W_CONSUMERS, per_chunk);  // the next tile's chunk, read while this one runs
+    phys = w.c < b.c_hi ? p.chunk_of[w.c] : 0;
+    float r_scale[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = warp * 16 + g + 8 * h;
+      r_scale[h] = r < nrows ? p.scales[slot0 + r] : 0.0f;  // → +inf distance
+    }
+    float acc[N / 2], fresh[3 * N / 2];  // the running sum; a stage's sums, hi, mid, lo
+#pragma unroll
+    for (int e = 0; e < N / 2; ++e) acc[e] = 0.0f;
+#pragma unroll
+    for (int e = 0; e < 3 * N / 2; ++e) fresh[e] = 0.0f;
+    // a stage's first box reads a[0] while its second box is widened into
+    // a[1]; the second box reads a[1] while the next stage's first box is
+    // widened into a[0], once the first box's wgmma is done with it
+    uint32_t a[2][KSTEPS][4];
+    auto issue = [&](auto buf, int st) {
+      constexpr int B = decltype(buf)::value;
+      wgmma_fence();
+#pragma unroll
+      for (int j = 0; j < KSTEPS; ++j)
+        wgmma_rs_terms<3 * N>(fresh, a[B][j],
+                              query_desc(q_base + (W_KSTEPS * st + KSTEPS * B + j) * W3_KSTEP),
+                              B > 0 || j > 0);
+      wgmma_commit();
+    };
+    take_box(a[0], 0);
+    for (int st = 0; st < nst; ++st) {
+      issue(std::integral_constant<int, 0>{}, st);
+      take_box(a[1], 1);
+      issue(std::integral_constant<int, 1>{}, st);
+      wgmma_wait<1>();  // the first box is done with a[0]
+      hold(a[0]);
+      if (st + 1 < nst) take_box(a[0], 0);
+      wgmma_wait<0>();
+      hold(a[1]);
+      fold_terms(acc, fresh);
+    }
+
+    // epilogue, hand-over and selection as in wgmma_consume
+#pragma unroll
+    for (int n = 0; n < N / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int q = 8 * n + 2 * t + e;
+        float v[2];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          v[h] = distance<false>(acc[4 * n + 2 * h + e], r_scale[h], 1.0f);
+          dist[q * WDQ + warp * 16 + g + 8 * h] = v[h];
+        }
+        if (((live >> (2 * n + e)) & 1u) &&
+            fminf(v[0], v[1]) < *static_cast<volatile const float*>(&s.top_d[q * W_LIST + p.k - 1]))
+          reinterpret_cast<unsigned char*>(s.q_grp + wg * WQ3)[q * 4 + (warp >> 1)] = 1;
+      }
+    bar_sync(BAR_WG + wg, 128);
+    if (i > 0) bar_sync(BAR_HANDOVER + wg, 256);  // the tile before is selected (by the warpgroup before)
+    wgmma_select(p, s, wg, N, nrows, slot0);
+    bar_sync(BAR_WG + wg, 128);  // the distance tile is free again
+    if (i + 1 < ntiles) bar_arrive(BAR_HANDOVER + (wg + 1) % W_CONSUMERS, 256);
+  }
+}
+
 template <typename TS>
 __device__ void wgmma_write(const Params& p, const WSmem<TS>& s, const WItem& b, bool fill) {
-  const int n_own = min(WQ, p.qtile - b.q0);
+  const int n_own = min(WSmem<TS>::SLOTS, p.qtile - b.q0);
   const size_t out0 = ((size_t)b.pair * p.qtile + b.q0) * p.k;
   const int threads = fill ? W_THREADS : W_CONSUMERS * 128;
   for (int e = threadIdx.x; e < n_own * p.k; e += threads) {
@@ -1870,6 +2105,32 @@ __global__ void __launch_bounds__(W_THREADS, 1)
   }
 }
 
+// f32 queries (three bf16 terms) over an int8 packed store: the int8
+// kernel's block and ring, 32 query slots a block (spelled out beside it,
+// as the kernel above is)
+__global__ void __launch_bounds__(W_THREADS, 1)
+    scan_wgmma_f32mode_kernel(const __grid_constant__ CUtensorMap rows, Params p) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const WSmem<F32Mode> s(smem);
+  const WItem b = wgmma_begin(p, s);
+  if (b.nl == 0) return wgmma_write(p, s, b, true);
+  const int wg = threadIdx.x / 128;
+  if (wg == W_CONSUMERS) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(W_PRODUCER_REGS) : "memory");
+    if (threadIdx.x % 128 < 32 * W_CONSUMERS && threadIdx.x % 32 == 0)
+      wgmma_produce(&rows, p, s, b, threadIdx.x % 128 / 32);
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(W_CONSUMER_REGS) : "memory");
+    if (b.nl == 1) {
+      wgmma_consume_terms<1>(p, s, b, wg);
+    } else {
+      wgmma_consume_terms<2>(p, s, b, wg);
+    }
+    bar_sync(BAR_CONSUMERS, W_CONSUMERS * 128);
+    wgmma_write(p, s, b, false);
+  }
+}
+
 // The store as a 2-D tensor of n_rows × d values for TMA (boxes of WR rows
 // × WK int8 depths, or × 32 f32 depths under the 128-byte swizzle; zeros
 // past its edges), by cuTensorMapEncodeTiled looked up at run time, so the
@@ -1906,37 +2167,42 @@ cudaError_t row_tensor_map(CUtensorMap* map, const void* store, int n_rows, int 
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-// The bodies: the mma.sync body, or one of the two wgmma bodies
-enum Body { BODY_MMA = 0, BODY_WGMMA_INT8 = 1, BODY_WGMMA_F32 = 2 };
+// The bodies: the mma.sync body, or one of the three wgmma bodies
+enum Body { BODY_MMA = 0, BODY_WGMMA_INT8 = 1, BODY_WGMMA_F32 = 2, BODY_WGMMA_F32MODE = 3 };
 
-// The wgmma bodies' scope: bf16 queries over an int8 or f32 packed store
-// (no row map), lists of width 32 and no floor, rows of whole 16 bytes at
-// a 16-byte aligned store, and a resident query tile that fits (d rounded
-// up to the ring's stage depths, W_QD_STEP or W_QD_STEP_F, within W_MAX_QD
-// or W_MAX_QD_F).  A round under a floor (k past 1024) keeps the mma.sync
-// body of the rounds before it: every round sums a row the same way, or a
-// row at the boundary could be listed twice or not at all.
+// The wgmma bodies' scope: bf16 queries over an int8 or f32 packed store,
+// or f32 queries over an int8 packed store (no row map), lists of width 32
+// and no floor, rows of whole 16 bytes at a 16-byte aligned store, and a
+// resident query tile that fits (d rounded up to the ring's stage depths,
+// W_QD_STEP or W_QD_STEP_F, within W_MAX_QD, W_MAX_QD3 or W_MAX_QD_F).  A
+// round under a floor (k past 1024) keeps the mma.sync body of the rounds
+// before it: every round sums a row the same way, or a row at the boundary
+// could be listed twice or not at all.
 int wgmma_scope(int mode, int store_type, int k, int d, const void* store, const void* row_ids,
                 bool floored) {
-  if (mode != MODE_BF16 || row_ids != nullptr || floored || k > W_LIST ||
+  if (mode == MODE_INT8 || row_ids != nullptr || floored || k > W_LIST ||
       reinterpret_cast<uintptr_t>(store) % 16 != 0)
     return BODY_MMA;
-  if (store_type == STORE_INT8 && d % 16 == 0 &&
-      (d + W_QD_STEP - 1) / W_QD_STEP * W_QD_STEP <= W_MAX_QD)
-    return BODY_WGMMA_INT8;
-  if (store_type == STORE_F32 && d % 4 == 0 &&
+  const int qd = (d + W_QD_STEP - 1) / W_QD_STEP * W_QD_STEP;
+  if (store_type == STORE_INT8 && d % 16 == 0) {
+    if (mode == MODE_BF16 && qd <= W_MAX_QD) return BODY_WGMMA_INT8;
+    if (mode == MODE_F32 && qd <= W_MAX_QD3) return BODY_WGMMA_F32MODE;
+  }
+  if (mode == MODE_BF16 && store_type == STORE_F32 && d % 4 == 0 &&
       (d + W_QD_STEP_F - 1) / W_QD_STEP_F * W_QD_STEP_F <= W_MAX_QD_F)
     return BODY_WGMMA_F32;
   return BODY_MMA;
 }
 
-// Launches a wgmma body over n_pairs pairs (two blocks of 64 query slots
-// a pair of more than 64), or reports its blocks an SM
+// Launches a wgmma body over n_pairs pairs (a block a pair's 64 query
+// slots, or 32 in f32 mode), or reports its blocks an SM
 template <typename TS>
 cudaError_t launch_wgmma(const Params& p, int n_pairs, int n_rows, cudaStream_t stream,
                          int* blocks_per_sm) {
   void (*kernel)(const CUtensorMap, Params) =
-      std::is_same<TS, float>::value ? scan_wgmma_f32_kernel : scan_wgmma_kernel;
+      std::is_same<TS, float>::value     ? scan_wgmma_f32_kernel
+      : std::is_same<TS, F32Mode>::value ? scan_wgmma_f32mode_kernel
+                                         : scan_wgmma_kernel;
   if (p.qd % WRing<TS>::QD_STEP != 0 || p.qd > WRing<TS>::MAX_QD) return cudaErrorInvalidValue;
   const size_t smem = wgmma_smem_bytes<TS>(p.qd);
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -1944,9 +2210,9 @@ cudaError_t launch_wgmma(const Params& p, int n_pairs, int n_rows, cudaStream_t 
   if (blocks_per_sm != nullptr)
     return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, kernel, W_THREADS, smem);
   CUtensorMap map;
-  err = row_tensor_map<TS>(&map, p.store, n_rows, p.d);
+  err = row_tensor_map<typename WRing<TS>::Row>(&map, p.store, n_rows, p.d);
   if (err != cudaSuccess) return err;
-  const int splits = (p.qtile + WQ - 1) / WQ;
+  const int splits = (p.qtile + WRing<TS>::SLOTS - 1) / WRing<TS>::SLOTS;
   kernel<<<n_pairs * splits, W_THREADS, smem, stream>>>(map, p);
   return cudaGetLastError();
 }
@@ -1989,6 +2255,7 @@ cudaError_t dispatch(const Params& p, int mode, int store_type, int body, int n_
                      cudaStream_t s, int* blocks_per_sm) {
   if (body == BODY_WGMMA_INT8) return launch_wgmma<int8_t>(p, n_pairs, n_rows, s, blocks_per_sm);
   if (body == BODY_WGMMA_F32) return launch_wgmma<float>(p, n_pairs, n_rows, s, blocks_per_sm);
+  if (body == BODY_WGMMA_F32MODE) return launch_wgmma<F32Mode>(p, n_pairs, n_rows, s, blocks_per_sm);
   if (mode == MODE_INT8 && store_type == STORE_INT8)
     return launch<MODE_INT8, int8_t>(p, n_pairs, s, blocks_per_sm);
   if (mode == MODE_F32) {
@@ -2015,7 +2282,10 @@ extern "C" {
 // (n, nt·qd), zero-padded past d and 16-byte aligned:
 //  * f32 mode over any store: bf16, nt 3, qd a multiple of 32 >= d: per
 //    32-value depth slice the terms hi, mid, lo side by side
-//    (ops/scan_kernel.py::operand_queries);
+//    (ops/scan_kernel.py::operand_queries); where the call takes the wgmma
+//    body in f32 mode (over an int8 packed store, k <= 32, ...), qd is d
+//    rounded up to W_QD_STEP (128) and a row is the three terms' planes hi,
+//    mid, lo, qd values each, each group of 64 in WGMMA_ORDER;
 //  * bf16 mode: bf16, int8 mode: int8, nt 1, qd a multiple of 16 >= d;
 //    where the call takes a wgmma body (wgmma_scope: bf16 over an int8 or
 //    f32 packed store, k <= 32, ...), qd is d rounded up to W_QD_STEP
@@ -2024,8 +2294,9 @@ extern "C" {
 //    WGMMA_F32_ORDER (ops/scan_kernel.py).
 // n_rows: the store's rows (the edge of its TMA tensor map).  *body: in,
 // the body the queries are laid out for (enum Body: 0 the mma.sync body,
-// 1 the wgmma body over an int8 store, 2 over an f32 store, as
-// lmi_scan_body named it); out, the body the call's scope picks.
+// 1 the wgmma body over an int8 store, 2 over an f32 store, 3 in f32 mode
+// over an int8 store, as lmi_scan_body named it); out, the body the call's
+// scope picks.
 // Where the two differ nothing launches and the call returns
 // cudaErrorInvalidValue.  All other pointers are device pointers; nothing
 // is allocated and nothing synchronizes.
@@ -2084,7 +2355,8 @@ int lmi_scan_pairs(const void* queries, const void* qscales, const void* qidx,
 // floors), the one place that decides it: *body the body the launch takes
 // (wgmma_scope, enum Body), *qd the width of the query rows that body
 // reads (d rounded up to W_QD_STEP or W_QD_STEP_F for a wgmma body, else
-// to 16, or 32 in f32 mode), *block_queries the query slots one
+// to 16, or 32 in f32 mode; a row of an f32-mode body holds three terms
+// of that width), *block_queries the query slots one
 // of its blocks keeps, and *blocks how many of its blocks one SM holds at
 // once (cudaOccupancyMaxActiveBlocksPerMultiprocessor, with its shared
 // memory): the card's slots for the split of the pairs into items.
@@ -2096,14 +2368,14 @@ int lmi_scan_body(int k, int mode, int store_type, int d, const void* store, con
     return cudaErrorInvalidValue;
   *body = wgmma_scope(mode, store_type, k, d, store, row_ids, floored != 0);
   const bool wgmma = *body != BODY_MMA;
-  const int q_group = *body == BODY_WGMMA_INT8 ? W_QD_STEP
-                      : *body == BODY_WGMMA_F32 ? W_QD_STEP_F
-                      : mode == MODE_F32        ? 32
-                                                : 16;
+  const int q_group = *body == BODY_WGMMA_INT8 || *body == BODY_WGMMA_F32MODE ? W_QD_STEP
+                      : *body == BODY_WGMMA_F32                                ? W_QD_STEP_F
+                      : mode == MODE_F32                                       ? 32
+                                                                               : 16;
   *qd = (d + q_group - 1) / q_group * q_group;
   int width = 32;
   while (width < k) width *= 2;
-  *block_queries = wgmma ? WQ : queries_per_block(width);
+  *block_queries = *body == BODY_WGMMA_F32MODE ? WQ3 : wgmma ? WQ : queries_per_block(width);
   Params p{};
   p.k = k;
   p.qtile = QT;

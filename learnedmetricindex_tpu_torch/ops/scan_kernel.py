@@ -22,11 +22,14 @@ of a pair whose bucket has no chunks.
   lists back into one (:func:`merge_split_lists`: ``csrc/scan_merge.cu``
   on CUDA, :func:`merge_split_lists_reference` on the CPU).  The lists
   are those of one scan of the whole bucket, bit for bit.
-* Three bodies: the bf16 queries over an int8 packed store at list width
+* Four bodies: the bf16 queries over an int8 packed store at list width
   32 (the default search) and over an f32 packed store (the default
   search over ``BuildConfiguration(dtype="float32")``, the CLI's store)
   run the Hopper bodies (wgmma, TMA, a resident query tile of 64 slots a
-  block); every other call the mma.sync body.  The library decides
+  block), and so do the f32 queries over an int8 packed store at list
+  width 32 (``precision="highest"``, the default of ``sharded_search``
+  and ``scan_buckets``: the three terms of 32 slots a block resident);
+  every other call the mma.sync body.  The library decides
   (``wgmma_scope``); :func:`scan_body` asks it which body a launch takes,
   and each launch checks that the queries were laid out for the body that
   runs.
@@ -36,7 +39,8 @@ of a pair whose bucket has no chunks.
   kernel's split of f32 store values (its plain model, for the tests).
 * ``LAUNCHES`` — how many times the wrapper launched the kernel
   (``WGMMA_LAUNCHES``: of those, the launches that ran a Hopper body;
-  ``WGMMA_F32_LAUNCHES``: of those, the body over an f32 store);
+  ``WGMMA_F32_LAUNCHES``: of those, the body over an f32 store;
+  ``WGMMA_F32MODE_LAUNCHES``: of those, the body in f32 mode);
   ``MERGE_LAUNCHES`` — the merge kernel.
 
 Stores: a packed store is ``(n_slots, d)`` rows with ``(n_slots,)``
@@ -73,7 +77,7 @@ MODES = {"f32": 0, "bf16": 1, "int8": 2}
 MAX_K = 1024  # the widest top-k list of csrc/scan_pairs.cu: wider k runs in rounds
 MAX_QTILE = 128  # QT in csrc/scan_pairs.cu
 #: the bodies as the library numbers them (enum Body in csrc/scan_pairs.cu)
-BODY_NAMES = ("mma.sync", "wgmma", "wgmma over f32")
+BODY_NAMES = ("mma.sync", "wgmma", "wgmma over f32", "wgmma in f32 mode")
 _STORE_TYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
 #: kernel launches made by :func:`scan_pairs` (never by the plain version)
@@ -82,6 +86,8 @@ LAUNCHES = 0
 WGMMA_LAUNCHES = 0
 #: of WGMMA_LAUNCHES, those that ran the wgmma body over an f32 store
 WGMMA_F32_LAUNCHES = 0
+#: of WGMMA_LAUNCHES, those that ran the wgmma body in f32 mode (over an int8 store)
+WGMMA_F32MODE_LAUNCHES = 0
 #: merge kernel launches made by :func:`merge_split_lists` (never by its plain version)
 MERGE_LAUNCHES = 0
 
@@ -304,7 +310,9 @@ def operand_queries(queries: torch.Tensor, mode: str, store_dtype: torch.dtype,
     zero-padded to ``wgmma_qd`` values instead (the width it reads,
     :attr:`Body.qd`: a multiple of 64 >= d), each group of 64 in
     :data:`WGMMA_ORDER` over an int8 store, each group of 32 in
-    :data:`WGMMA_F32_ORDER` over an f32 store."""
+    :data:`WGMMA_F32_ORDER` over an f32 store; in mode ``"f32"`` the three
+    terms so laid out are planes side by side, ``hi, mid, lo``, ``(n,
+    3·wgmma_qd)``."""
     if mode == "f32":
         terms, group = split_f32(queries), 32
     else:
@@ -328,6 +336,8 @@ def operand_queries(queries: torch.Tensor, mode: str, store_dtype: torch.dtype,
         out.append(q)
     if len(out) == 1:
         q = out[0]
+    elif wgmma_qd:
+        q = torch.cat(out, dim=1)
     else:
         q = torch.stack([t.reshape(n, qd // group, group) for t in out], dim=2).reshape(n, -1)
     if not q.is_contiguous() or q.data_ptr() % 16:
@@ -699,10 +709,11 @@ def _launch_items(lib, queries, qscales, qidx, pair_bucket, ptr, chunk_of, store
                            f"the queries are laid out for the {BODY_NAMES[body]} body")
     if err != 0:
         raise RuntimeError(f"scan_pairs kernel launch failed: cudaError {err}")
-    global LAUNCHES, WGMMA_LAUNCHES, WGMMA_F32_LAUNCHES
+    global LAUNCHES, WGMMA_LAUNCHES, WGMMA_F32_LAUNCHES, WGMMA_F32MODE_LAUNCHES
     LAUNCHES += 1
     WGMMA_LAUNCHES += ran.value > 0
     WGMMA_F32_LAUNCHES += ran.value == 2
+    WGMMA_F32MODE_LAUNCHES += ran.value == 3
     return out_d, out_s
 
 

@@ -624,6 +624,87 @@ def test_wgmma_f32_body_widths(cuda, d, qtile, body):
     assert scan_kernel.WGMMA_F32_LAUNCHES - before == (body == 2)
 
 
+@pytest.mark.parametrize("store_kind", ["chunk96", "chunk320", "chunk130", "mutated"])
+@pytest.mark.parametrize("k", [1, 16, 32])
+@pytest.mark.parametrize("qtile", [1, 8, 31, 32, 33, 100, 128])
+def test_wgmma_f32mode_body_matches_plain_version(cuda, store_kind, k, qtile):
+    """f32 queries over the int8 packed store at list width 32
+    (``precision="highest"``), the launches the wgmma body in f32 mode
+    takes: chunks that are not whole 64-row tiles (96, 320, 130), an empty
+    bucket, padding rows, a mutated store with its chunk lists out of
+    physical order, and query tiles around its 32-slot blocks (31, 32, 33:
+    one or two blocks of one or two m-tiles); the kernel within the f32
+    parity bar of the plain version, no slot twice, exact ties to the
+    earlier row, one launch, and that launch the f32-mode body."""
+    if store_kind == "mutated":
+        store, queries, order, _, _ = _mutated_store(cuda, 768, "int8", seed=k + qtile)
+    else:
+        store, queries, order = _body_case(cuda, int(store_kind[5:]), seed=k + qtile)
+    _, args = scan_inputs(store, queries, order, qtile, "f32")
+    before = (scan_kernel.WGMMA_LAUNCHES, scan_kernel.WGMMA_F32MODE_LAUNCHES)
+    ks = _kernel_vs_plain(args, k, qtile, store.chunk, "f32", 1)
+    assert (scan_kernel.WGMMA_LAUNCHES, scan_kernel.WGMMA_F32MODE_LAUNCHES) == (before[0] + 1,
+                                                                              before[1] + 1)
+    if store_kind != "mutated" and k > 1:  # the 40 duplicated rows: the earlier one first
+        row_slot = store.row_slot.cpu().numpy()
+        partner = np.full(store.chunk_data.shape[0], -1)
+        partner[row_slot[1500:1540]] = row_slot[:40]
+        lists = ks.reshape(-1, k)
+        earlier = np.where(lists >= 0, partner[np.maximum(lists, 0)], -1)
+        rows, cols = np.nonzero(earlier >= 0)
+        assert len(rows) > 0
+        for r, j in zip(rows, cols):
+            assert (lists[r, :j] == earlier[r, j]).any(), (r, j)
+
+
+@pytest.mark.parametrize("d,qtile,body", [(16, 128, 3), (96, 33, 3), (768, 31, 3), (832, 100, 3),
+                                          (896, 128, 3), (912, 128, 0), (100, 8, 0), (1040, 64, 0)])
+def test_wgmma_f32mode_body_widths(cuda, d, qtile, body):
+    """The f32-mode body from the narrowest d (one partial stage) to the
+    widest resident three-term tile (896; 832 rounded up to it) and past
+    it (912 and 1040, rounded up to 1024 and 1152: the mma.sync body),
+    and int8 rows of 100 bytes (not whole 16 bytes: the mma.sync body):
+    within the f32 parity bar of the plain version, the body counted from
+    the library's report of the launch."""
+    store, queries, order = _body_case(cuda, 96, seed=d, d=d)
+    _, args = scan_inputs(store, queries, order, qtile, "f32")
+    before = scan_kernel.WGMMA_F32MODE_LAUNCHES
+    _kernel_vs_plain(args, 16, qtile, store.chunk, "f32", 1)
+    assert scan_kernel.WGMMA_F32MODE_LAUNCHES - before == (body == 3)
+
+
+@pytest.mark.parametrize("k", [16, 32])
+def test_f32mode_kernel_is_no_less_exact_than_plain(cuda, k):
+    """f32 queries over an int8 packed store of unit rows at d 768 (the
+    f32-mode wgmma body): the kernel's distances of the candidates it
+    returns are no farther from float64 than the plain version's (cuBLAS
+    SGEMM in full f32) of its own candidates."""
+    data, rng = _corpus(6000, 768, seed=15)
+    store = BucketStore.build_packed_int8(data, rng.integers(0, 4, 6000), 4, chunk=256,
+                                          device=cuda)
+    queries = torch.as_tensor(data[:400] + 0.05 * rng.normal(size=(400, 768)).astype(np.float32),
+                              device=cuda)
+    order = torch.as_tensor(np.stack([rng.choice(4, 2, replace=False) for _ in range(400)]),
+                            device=cuda)
+    _, args = scan_inputs(store, queries, order, 128, "f32")
+    kw = dict(k=k, qtile=128, chunk=256, mode="f32")
+    rows = args[1].reshape(-1, 128).long()
+
+    def error(dists, slots):
+        ok = (slots >= 0) & (rows >= 0)[:, :, None]
+        q = args[0][rows.clamp_min(0)].double()
+        at = slots.long().clamp_min(0)
+        x = args[5][at].double()
+        exact = 1.0 - torch.einsum("pqd,pqkd->pqk", q, x) * args[6][at].double()
+        return float((dists.double() - exact).abs()[ok].max())
+
+    before = scan_kernel.WGMMA_F32MODE_LAUNCHES
+    k_err = error(*scan_kernel.scan_pairs(*args, **kw))
+    assert scan_kernel.WGMMA_F32MODE_LAUNCHES == before + 1
+    p_err = error(*scan_kernel.scan_pairs_reference(*args, **kw))
+    assert 0.0 < k_err <= p_err, (k_err, p_err)
+
+
 @pytest.mark.parametrize("case", ["k33", "k106", "virtual", "k1040"])
 def test_wgmma_f32_scope_keeps_the_mma_body(cuda, case):
     """bf16 over f32 rows outside the wgmma body's scope keeps the mma.sync
@@ -675,18 +756,33 @@ def test_wgmma_f32_scope_keeps_the_mma_body(cuda, case):
         ("bf16", torch.float32, 16, 768, True, True, 0),  # a virtual store
         ("bf16", torch.float32, 16, 768, False, False, 0),  # an unaligned store
         ("int8", torch.int8, 16, 768, False, True, 0),
-        ("f32", torch.int8, 16, 768, False, True, 0),
+        ("f32", torch.int8, 16, 768, False, True, 3),  # precision="highest"
+        ("f32", torch.int8, 32, 768, False, True, 3),
+        ("f32", torch.int8, 1, 96, False, True, 3),
+        ("f32", torch.int8, 16, 16, False, True, 3),
+        ("f32", torch.int8, 16, 832, False, True, 3),  # rounded up to 896 ...
+        ("f32", torch.int8, 16, 896, False, True, 3),  # ... the widest three-term tile
+        ("f32", torch.int8, 16, 912, False, True, 0),  # rounded up to 1024: too wide
+        ("f32", torch.int8, 16, 1152, False, True, 0),
+        ("f32", torch.int8, 16, 904, False, True, 0),  # rows not of whole 16 bytes
+        ("f32", torch.int8, 16, 100, False, True, 0),
+        ("f32", torch.int8, 33, 768, False, True, 0),  # list width 64
+        ("f32", torch.int8, 106, 768, False, True, 0),
+        ("f32", torch.int8, 16, 768, True, True, 0),  # a virtual store
+        ("f32", torch.int8, 16, 768, False, False, 0),  # an unaligned store
+        ("f32", torch.bfloat16, 16, 768, False, True, 0),
         ("f32", torch.float32, 16, 768, False, True, 0),
     ],
 )
 def test_library_picks_the_body(cuda, mode, store_dtype, k, d, virtual, aligned, expect):
     """Which launches take a wgmma body, as the library says (``scan_body``,
     the one place that decides): bf16 over an int8 packed store (body 1) or
-    an f32 packed store (body 2), k <= 32 and no floor, whole 16-byte rows
-    at an aligned store, d rounded up to 128 (int8) or 64 (f32) within the
-    resident tile; everything else keeps the mma.sync body (0), and so does
+    an f32 packed store (body 2), f32 over an int8 packed store (body 3),
+    k <= 32 and no floor, whole 16-byte rows at an aligned store, d rounded
+    up to 128 (int8) or 64 (f32) within the resident tile (896 for the
+    three terms); everything else keeps the mma.sync body (0), and so does
     every round under a floor.  With the body come the width of the query
-    rows it reads and its blocks' query slots."""
+    rows it reads and its blocks' query slots (32 for the three terms)."""
     lib = cuda_build.load(scan_kernel.SOURCE, scan_kernel._bind)
     flat = torch.zeros(64 * d + 16, dtype=store_dtype, device=cuda)
     store = flat[(0 if aligned else 1):][: 64 * d].view(64, d)
@@ -696,8 +792,8 @@ def test_library_picks_the_body(cuda, mode, store_dtype, k, d, virtual, aligned,
     assert body.kind == expect and body.wgmma is (expect > 0)
     assert body.slots >= torch.cuda.get_device_properties(cuda).multi_processor_count
     if expect:
-        step = 128 if expect == 1 else 64
-        assert (body.qd, body.block_queries) == (-(-d // step) * step, 64)
+        step = 64 if expect == 2 else 128
+        assert (body.qd, body.block_queries) == (-(-d // step) * step, 32 if expect == 3 else 64)
     else:
         group = 32 if mode == "f32" else 16
         width = scan_kernel.list_width(k)
@@ -706,22 +802,27 @@ def test_library_picks_the_body(cuda, mode, store_dtype, k, d, virtual, aligned,
     assert not scan_kernel.scan_body(lib, store, mode, k, row_ids, floored=True).wgmma
 
 
-@pytest.mark.parametrize("case", ["virtual", "d100", "d96", "k33", "k1040", "d1040", "d1152"])
+@pytest.mark.parametrize("case", ["virtual", "d100", "d96", "k33", "k1040", "d1040", "d1152",
+                                  "f32 virtual", "f32 d100", "f32 d96", "f32 k33", "f32 k1040",
+                                  "f32 d896", "f32 d912"])
 def test_wgmma_scope_picks_the_body(cuda, case):
-    """The launches outside the wgmma body's scope keep the mma.sync body
+    """The launches outside the wgmma bodies' scope keep the mma.sync body
     (a virtual store, rows of 100 bytes, a list of width 64, and k 1040:
     a 1024-wide round, then a 16-wide one under its floors, which keeps
     the body of the round before it, so that both sum a row the same way);
-    d 96, 1040 and 1152 (the widest resident query tile) take the wgmma
-    body.  Each within the bar of the plain version, the body counted from
-    the library's report of each launch."""
+    bf16 at d 96, 1040 and 1152 (the widest resident query tile) and f32
+    (the three-term body) at d 96 and 896 (its widest; 912 is past it) take
+    a wgmma body.  Each within the bar of the plain version, the body
+    counted from the library's report of each launch."""
+    mode, _, case = case.rpartition(" ")
+    mode = mode or "bf16"
     k = {"k33": 33, "k1040": 1040}.get(case, 16)
+    before = (scan_kernel.WGMMA_LAUNCHES, scan_kernel.WGMMA_F32MODE_LAUNCHES)
     if case == "k1040":  # buckets of ~3,000 rows, wider than one round
         store, queries, order = _wide_case(cuda, "int8", seed=1040)
-        _, args = scan_inputs(store, queries, order, 8, "bf16")
-        before = scan_kernel.WGMMA_LAUNCHES
-        _kernel_vs_plain(args, k, 8, 256, "bf16", 2)
-        assert scan_kernel.WGMMA_LAUNCHES == before
+        _, args = scan_inputs(store, queries, order, 8, mode)
+        _kernel_vs_plain(args, k, 8, 256, mode, 2)
+        assert (scan_kernel.WGMMA_LAUNCHES, scan_kernel.WGMMA_F32MODE_LAUNCHES) == before
         return
     if case == "virtual":
         store, queries, order = _virtual_case(cuda, 768, "int8", seed=3, shuffle=False)
@@ -735,20 +836,24 @@ def test_wgmma_scope_picks_the_body(cuda, case):
         order = torch.as_tensor(np.stack([rng.choice(5, 2, replace=False) for _ in range(90)]),
                                 device=cuda)
         chunk = 96
-    _, args = scan_inputs(store, queries, order, 128, "bf16")
-    before = scan_kernel.WGMMA_LAUNCHES
-    _kernel_vs_plain(args, k, 128, chunk, "bf16", 1)
-    assert scan_kernel.WGMMA_LAUNCHES - before == (1 if case in ("d96", "d1040", "d1152") else 0)
+    _, args = scan_inputs(store, queries, order, 128, mode)
+    _kernel_vs_plain(args, k, 128, chunk, mode, 1)
+    takes = {"bf16": ("d96", "d1040", "d1152"), "f32": ("d96", "d896")}[mode]
+    n_w = scan_kernel.WGMMA_LAUNCHES - before[0]
+    assert n_w == (1 if case in takes else 0)
+    assert scan_kernel.WGMMA_F32MODE_LAUNCHES - before[1] == (n_w if mode == "f32" else 0)
 
 
-@pytest.mark.parametrize("d,laid_out,store_dtype", [
-    (768, 0, "int8"), (100, 1, "int8"), (768, 0, "float32"), (768, 1, "float32"),
-    (102, 2, "float32")])
-def test_launch_rejects_queries_laid_out_for_the_other_body(cuda, d, laid_out, store_dtype):
+@pytest.mark.parametrize("d,laid_out,store_dtype,mode", [
+    (768, 0, "int8", "bf16"), (100, 1, "int8", "bf16"), (768, 0, "float32", "bf16"),
+    (768, 1, "float32", "bf16"), (102, 2, "float32", "bf16"), (768, 3, "int8", "bf16"),
+    (768, 0, "int8", "f32"), (768, 1, "int8", "f32"), (100, 3, "int8", "f32"),
+    (912, 3, "int8", "f32")])
+def test_launch_rejects_queries_laid_out_for_the_other_body(cuda, d, laid_out, store_dtype, mode):
     """Every launch is held to the body the library picks: queries laid
     out for another body (the mma.sync layout where a wgmma body runs, a
-    wgmma layout where the mma.sync body or the other wgmma body runs)
-    launch nothing, raise, and count no launch."""
+    wgmma layout where the mma.sync body or another wgmma body runs, in
+    bf16 and in f32 mode) launch nothing, raise, and count no launch."""
     data, rng = _corpus(2000, d, seed=6)
     if store_dtype == "int8":
         store = BucketStore.build_packed_int8(data, rng.integers(0, 5, 2000), 5, chunk=96,
@@ -760,21 +865,21 @@ def test_launch_rejects_queries_laid_out_for_the_other_body(cuda, d, laid_out, s
     order = torch.as_tensor(np.stack([rng.choice(5, 2, replace=False) for _ in range(90)]),
                             device=cuda)
     _, (q, qidx, pb, ptr, chunk_of, st, sc, qs, row_ids) = scan_inputs(store, queries, order, 128,
-                                                                       "bf16")
+                                                                       mode)
     lib = cuda_build.load(scan_kernel.SOURCE, scan_kernel._bind)
-    assert scan_kernel.scan_body(lib, st, "bf16", 16).kind != laid_out
-    # the layout of the body laid_out names (body 1: over an int8 store's order)
-    layout_dtype = torch.int8 if laid_out == 1 else st.dtype
-    op = scan_kernel.operand_queries(q, "bf16", layout_dtype,
+    assert scan_kernel.scan_body(lib, st, mode, 16).kind != laid_out
+    # the layout of the body laid_out names (bodies 1 and 3: over an int8 store's order)
+    layout_dtype = torch.int8 if laid_out in (1, 3) else st.dtype
+    op = scan_kernel.operand_queries(q, mode, layout_dtype,
                                      -(-d // 128) * 128 if laid_out else 0)
-    before = (scan_kernel.LAUNCHES, scan_kernel.WGMMA_LAUNCHES, scan_kernel.WGMMA_F32_LAUNCHES)
+    counts = ("LAUNCHES", "WGMMA_LAUNCHES", "WGMMA_F32_LAUNCHES", "WGMMA_F32MODE_LAUNCHES")
+    before = [getattr(scan_kernel, c) for c in counts]
     other = scan_kernel.BODY_NAMES[laid_out]
     with pytest.raises(RuntimeError, match=f"laid out for the {other} body"):
         scan_kernel._launch_items(lib, op, qs, qidx, pb, ptr, chunk_of, st, sc, row_ids, None,
-                                  k=16, qtile=128, chunk=store.chunk, mode="bf16", terms=1,
-                                  body=laid_out)
-    assert (scan_kernel.LAUNCHES, scan_kernel.WGMMA_LAUNCHES,
-            scan_kernel.WGMMA_F32_LAUNCHES) == before
+                                  k=16, qtile=128, chunk=store.chunk, mode=mode,
+                                  terms=3 if mode == "f32" else 1, body=laid_out)
+    assert [getattr(scan_kernel, c) for c in counts] == before
 
 
 def test_dynamic_index_on_gpu(cuda, tmp_path):

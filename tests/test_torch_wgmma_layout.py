@@ -1,9 +1,12 @@
 """The wgmma bodies of the scan kernel (bf16 queries over an int8 or an
-f32 packed store at list width 32) as far as the CPU can check them: the
-query layouts their B operand reads (WGMMA_ORDER, WGMMA_F32_ORDER)
-against a model of the registers their lanes widen or round, and the
-split's cost model for their 64-slot blocks.  Which body a launch takes
-is the library's to say (test_torch_cuda.py asks it), and the kernels
+f32 packed store, and f32 queries over an int8 packed store, at list
+width 32) as far as the CPU can check them: the query layouts their B
+operand reads (WGMMA_ORDER, WGMMA_F32_ORDER, the three planes of the f32
+mode) against a model of the registers their lanes widen or round and of
+the f32 mode's resident tile and rounded stage sums (held to the JAX
+package's f32 Pallas scan in interpret mode), and the split's cost model
+for their 64- and 32-slot blocks.  Which body a launch takes is the
+library's to say (test_torch_cuda.py asks it), and the kernels
 themselves are held to the plain version there too."""
 
 import numpy as np
@@ -240,3 +243,228 @@ def test_wgmma_f32_layout_pads_and_keeps_the_other_layouts():
     i8 = scan_kernel.operand_queries(q, "bf16", torch.int8, 128)
     assert torch.equal(i8, flat.reshape(4, 2, 64)[:, :, list(scan_kernel.WGMMA_ORDER)]
                        .reshape(4, 128))
+
+
+# f32 queries over an int8 store (the wgmma body in f32 mode): the bytes of
+# one k-step of a block's resident planes (W3_KSTEP in csrc/scan_pairs.cu:
+# the three terms of 32 query slots, 16 depths, bf16)
+W3_KSTEP = 3 * 32 * 16 * 2
+
+
+def test_wgmma_f32mode_layout_pads_and_keeps_the_other_layouts():
+    """In mode f32 the wgmma rows are the three terms of split_f32, each
+    zero-padded to the width asked for and permuted per 64-group in
+    WGMMA_ORDER, as planes side by side (hi, mid, lo); a width below d
+    or not a multiple of 64 is refused; without one the layout is the
+    mma.sync body's (the three terms of each 32-value slice side by side)."""
+    q = torch.as_tensor(np.random.default_rng(6).normal(size=(4, 100)).astype(np.float32))
+    for bad in (64, 96):
+        with pytest.raises(ValueError):
+            scan_kernel.operand_queries(q, "f32", torch.int8, bad)
+    op = scan_kernel.operand_queries(q, "f32", torch.int8, 128)
+    assert op.dtype == torch.bfloat16 and op.shape == (4, 3 * 128)
+    assert op.is_contiguous() and op.data_ptr() % 16 == 0
+    order = list(scan_kernel.WGMMA_ORDER)
+    planes = []
+    for term in scan_kernel.split_f32(q):
+        flat = torch.zeros((4, 128), dtype=torch.bfloat16)
+        flat[:, :100] = term
+        planes.append(flat.reshape(4, 2, 64)[:, :, order].reshape(4, 128))
+    assert torch.equal(op, torch.cat(planes, dim=1))
+    old = scan_kernel.operand_queries(q, "f32", torch.int8)
+    assert old.shape == (4, 3 * 128)
+    slices = [p.reshape(4, 2, 64)[:, :, list(np.argsort(order))].reshape(4, 4, 32)
+              for p in planes]
+    widened = torch.stack(slices, dim=2).reshape(4, 4, 3, 2, 16)
+    widened = widened[..., list(scan_kernel.WIDEN_ORDER)].reshape(4, 3 * 128)
+    assert torch.equal(old, widened)
+
+
+def _resident_planes(op: torch.Tensor, cols: int, qd: int) -> np.ndarray:
+    """A block's resident query tile as the kernel writes it (``wgmma_begin``),
+    in bf16 elements: slot n's plane ``term`` (values ``term·qd ..`` of its
+    operand row) is column ``c = term·cols + n``, whose 8-depth piece p sits
+    at byte (p >> 1)·W3_KSTEP + (c >> 3)·256 + (p & 1)·128 + (c & 7)·16."""
+    rows = op.double().numpy()
+    smem = np.zeros(qd // 16 * W3_KSTEP // 2)
+    for term in range(3):
+        for n in range(rows.shape[0]):
+            c = term * cols + n
+            for piece in range(qd // 8):
+                at = ((piece >> 1) * W3_KSTEP + (c >> 3) * 256 + (piece & 1) * 128
+                      + (c & 7) * 16) // 2
+                smem[at : at + 8] = rows[n, term * qd + 8 * piece : term * qd + 8 * piece + 8]
+    return smem
+
+
+def _b_tile(smem: np.ndarray, j: int, width: int) -> np.ndarray:
+    """The (16, width) B operand that wgmma reads for k-step ``j`` through
+    the body's descriptor (K-major, no swizzle: core matrices of 8 columns
+    × 8 depths, the two 8-deep halves 128 bytes apart, 8-column groups 256
+    bytes apart)."""
+    kk = np.arange(16)[:, None]
+    c = np.arange(width)[None, :]
+    at = (j * W3_KSTEP + (c >> 3) * 256 + (kk >> 3) * 128 + (c & 7) * 16) // 2 + (kk & 7)
+    return smem[at]
+
+
+def _f32mode_stage_sums(x: np.ndarray, op: torch.Tensor, cols: int, qd: int) -> np.ndarray:
+    """The body's wgmma, lane by lane: for each ring stage (two boxes of 64
+    int8 depths, 8 k-steps) the products of the rows' A fragments
+    (``_lane_depths``: word j of box b widens into k-step 4b + j) with the
+    B tile of the block's 3·cols columns, summed over the stage in float64
+    (exact here): ``(stages, rows, 3·cols)``, the fresh sums that the body
+    folds into its running sum."""
+    xp = np.zeros((x.shape[0], qd))
+    xp[:, : x.shape[1]] = x  # the TMA box writes zeros past d
+    depth = _lane_depths()
+    smem = _resident_planes(op, cols, qd)
+    out = np.zeros((qd // 128, x.shape[0], 3 * cols))
+    for st in range(qd // 128):
+        for ks in range(8):
+            box, j = 2 * st + ks // 4, ks % 4
+            out[st] += xp[:, 64 * box + depth[j]] @ _b_tile(smem, 8 * st + ks, 3 * cols)
+    return out
+
+
+@pytest.mark.parametrize("d,n", [(96, 32), (768, 32), (896, 32), (768, 9), (100, 16)])
+def test_wgmma_f32mode_model_contracts_to_the_three_term_product(d, n):
+    """The f32-mode body, modelled from the operand rows through the block's
+    resident planes to the A and B fragments of each k-step: summed over
+    the stages, each term's column of slot n is ``x · term`` and the three
+    together are ``x · (hi + mid + lo)``, which is ``x · q`` exactly (the
+    split is exact at these magnitudes), for random int8 rows; columns of
+    slots past the queries are zero.  ``n`` queries in a block of two
+    m-tiles (32 columns a plane) or one (16, wgmma n48)."""
+    rng = np.random.default_rng(d + n)
+    x = rng.integers(-128, 128, size=(9, d)).astype(np.int8)
+    q = torch.as_tensor((rng.normal(size=(n, d)) * 2.0 ** rng.integers(-8, 8, (n, 1)))
+                        .astype(np.float32))
+    qd = -(-d // QD_STEP) * QD_STEP
+    cols = 16 * -(-n // 16)
+    op = scan_kernel.operand_queries(q, "f32", torch.int8, qd)
+    sums = _f32mode_stage_sums(x, op, cols, qd)
+    total = sums.sum(axis=0)
+    hi, mid, lo = (t.double().numpy() for t in scan_kernel.split_f32(q))
+    xd = x.astype(np.float64)
+    for term, plane in enumerate((hi, mid, lo)):
+        np.testing.assert_array_equal(total[:, term * cols : term * cols + n], xd @ plane.T)
+        assert not total[:, term * cols + n : (term + 1) * cols].any()
+    three = sum(total[:, t * cols : t * cols + n] for t in range(3))
+    np.testing.assert_array_equal(three, xd @ q.double().numpy().T)
+
+
+def _f32mode_raw(x: np.ndarray, q: torch.Tensor) -> np.ndarray:
+    """raw = x · q as the body rounds it, ``(rows, queries)`` f32: each ring
+    stage's sum of each term (128 depths; exact in float64, then f32, where
+    the tensor cores truncate: the model rounds) folded into the running
+    sum as lo + mid, + hi, + the running sum, each add rounded to the
+    nearest f32 (``fold_terms``)."""
+    d = x.shape[1]
+    terms = [t.double().numpy() for t in scan_kernel.split_f32(q)]
+    xd = x.astype(np.float64)
+    acc = np.zeros((x.shape[0], q.shape[0]), np.float32)
+    for s0 in range(0, d, 128):
+        hi, mid, lo = ((xd[:, s0 : s0 + 128] @ t[:, s0 : s0 + 128].T).astype(np.float32)
+                       for t in terms)
+        acc = acc + ((lo + mid) + hi)
+    return acc
+
+
+@pytest.mark.parametrize("d,k,qtile", [(96, 16, 16), (768, 32, 8), (896, 10, 32)])
+def test_wgmma_f32mode_model_matches_pallas_f32_scan(d, k, qtile):
+    """The f32-mode body's rounded sums (``_f32mode_raw``), as distances
+    ``1 − raw·scale`` in f32 over an int8 packed store, give each real
+    query's top-k over its pair's bucket within the parity bar of the JAX
+    package's f32 (Precision.HIGHEST) Pallas scan of the same seeded
+    inputs in interpret mode: rtol 1e-4, atol 1e-5, slots differing only
+    at ties (rtol 1e-6, atol 1e-7), as tests/test_scan_kernel.py holds
+    the Pallas kernel to the XLA path."""
+    import jax.numpy as jnp
+
+    from learnedmetricindex_tpu.data import synthetic_blobs
+    from learnedmetricindex_tpu.index.bucket_store import BucketStore as JaxStore
+    from learnedmetricindex_tpu.index.bucket_store import build_scan_plan
+    from learnedmetricindex_tpu.ops.scan_kernel import pallas_host_args, pallas_scan_pairs
+    from learnedmetricindex_tpu_torch.index.bucket_store import build_plan
+    from learnedmetricindex_tpu_torch.ops.select import smallest_k
+
+    n, nb, chunk, nq = 500, 4, 64, 40
+    data, queries = synthetic_blobs(n, d, nq, seed=d)
+    rng = np.random.default_rng(d)
+    store = JaxStore.build_packed_int8(data, rng.integers(0, nb, size=n), nb, chunk=chunk)
+    order = np.stack([rng.choice(nb, size=2, replace=False) for _ in range(nq)]).astype(np.int64)
+    order[rng.random(nq) < 0.3, -1] = -1
+    plan = build_scan_plan(store, order, qtile=qtile)
+    n_pairs = len(plan.qidx) // qtile
+    im, ic, wr, sf, written = pallas_host_args(store, plan, qtile, n_pairs)
+    qidx = jnp.asarray(plan.qidx)
+    wq = jnp.where((qidx >= 0)[:, None], jnp.asarray(queries)[jnp.maximum(qidx, 0)], 0.0)
+    jd, js = pallas_scan_pairs(
+        wq, jnp.asarray(im), jnp.asarray(ic), jnp.asarray(wr), store.chunk_data,
+        jnp.asarray(sf), None, k=k, qtile=qtile, chunk=chunk, n_pairs=n_pairs,
+        compute="f32", interpret=True)
+    jd, js = np.asarray(jd)[:n_pairs], np.asarray(js)[:n_pairs]
+    sf = np.asarray(sf)
+    raw = _f32mode_raw(np.asarray(store.chunk_data), torch.as_tensor(queries))
+    dist = (raw * -sf[:, None]).astype(np.float32) + np.where(sf == 0.0, np.inf, 1.0)[:, None]
+    dist = torch.as_tensor(dist.astype(np.float32).T)  # (queries, slots)
+    pplan = build_plan(torch.as_tensor(order), nb, qtile)
+    assert pplan.n_pairs == n_pairs
+    ptr = store.bucket_chunk_start
+    pb = pplan.pair_bucket.numpy()
+    real = (plan.qidx >= 0).reshape(-1, qtile)
+    checked = 0
+    for p in range(n_pairs):
+        if not written[p]:
+            continue
+        b = int(pb[p])
+        slots = torch.arange(int(ptr[b]) * chunk, int(ptr[b + 1]) * chunk)
+        for j in np.nonzero(real[p])[0]:
+            qi = int(plan.qidx[p * qtile + j])
+            vals, pos = smallest_k(dist[qi, slots][None, :], min(k, len(slots)))
+            md = np.full(k, np.inf, np.float32)
+            ms = np.full(k, -1, np.int64)
+            md[: vals.shape[1]] = vals[0].numpy()
+            ms[: vals.shape[1]] = np.where(np.isinf(md[: vals.shape[1]]), -1, slots[pos[0]].numpy())
+            o = np.lexsort((js[p, j], jd[p, j]))
+            np.testing.assert_allclose(md, jd[p, j][o], rtol=1e-4, atol=1e-5)
+            mism = ms != js[p, j][o]
+            if mism.any():
+                np.testing.assert_allclose(md[mism], jd[p, j][o][mism], rtol=1e-6, atol=1e-7)
+            checked += 1
+    assert checked > 0
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_segment_length_counts_the_f32mode_blocks_m_tiles(seed):
+    """The split's cost model for the f32-mode body: a pair's 128 slots are
+    four blocks of 32, each computing its m-tiles up to its last live one
+    (its wgmma's width, three planes of them); the segment keeps the
+    heaviest block within the share of a slot's fair share, and a block
+    with no live slot costs nothing."""
+    rng = np.random.default_rng(seed + 10)
+    counts = rng.integers(0, 60, 25)
+    ptr = np.concatenate([[0], np.cumsum(counts)])
+    pair_bucket = rng.integers(0, 25, 40)
+    live = rng.integers(0, 256, 40)
+    live[:4] = [0b1, 0b10, 0b100, 0b10000010]
+    slots = 132
+    seg = scan_kernel.segment_length(ptr, pair_bucket, live, width=32, slots=slots,
+                                     wgmma_block=32)
+    blocks = np.zeros((40, 4), np.int64)
+    for p in range(40):
+        for blk in range(4):
+            bits = [(live[p] >> (2 * blk + m)) & 1 for m in range(2)]
+            blocks[p, blk] = max((m + 1 for m in range(2) if bits[m]), default=0)
+    np.testing.assert_array_equal(blocks[:4], [[1, 0, 0, 0], [2, 0, 0, 0], [0, 1, 0, 0],
+                                               [2, 0, 0, 2]])
+    chunks = counts[pair_bucket]
+    fair = (chunks[:, None] * blocks).sum() / slots
+    heaviest = blocks[chunks > 0].max()
+    assert seg >= 1
+    if seg > 1:
+        assert seg * heaviest <= scan_kernel.SEGMENT_SHARE * fair
+    assert (seg + 1) * heaviest > scan_kernel.SEGMENT_SHARE * fair
+    assert scan_kernel.segment_length(ptr, pair_bucket, np.zeros(40, np.int64), width=32,
+                                      slots=slots, wgmma_block=32) == chunks.max()

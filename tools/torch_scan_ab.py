@@ -13,12 +13,12 @@ register names left as they are, branch targets masked) and writes the
 diff of each that differs to ``build/scan_ab/``; then times both sides
 in one process on the same inputs, alternating which goes first, and
 checks that both give the same bits (distances and slots) at every
-``k``, except where only one side takes the wgmma body (bf16 over an int8
-packed store at ``k_scan`` <= 32, as its library's ``lmi_scan_body`` says):
-wgmma sums a 16-deep step in another order than ``mma.sync``, so there
-both sides are held to each other at the bf16 bar
-(``chip_smoke.compare_candidates``) and the lists that are bit-equal are
-counted.  Each side runs as its checkout's wrapper does: a checkout with
+``k``, except where only one side takes a wgmma body (bf16 or f32 over an
+int8 packed store at ``k_scan`` <= 32, as its library's ``lmi_scan_body``
+says): wgmma sums in another order than ``mma.sync``, so there both sides
+are held to each other at the bar of the mode
+(``chip_smoke.compare_candidates``; in f32 also each side's distances
+against float64) and the lists that are bit-equal are counted.  Each side runs as its checkout's wrapper does: a checkout with
 the merge kernel splits each launch's pairs into items of the segment
 length ``ops/scan_kernel.py::segment_length`` picks from its library's
 occupancy (``lmi_scan_body``, or ``lmi_scan_blocks_per_sm`` in a checkout
@@ -127,7 +127,8 @@ def sass(cubin: Path) -> dict:
         # from the kernel's own name on: nvcc names an anonymous namespace
         # after the source file, so the two builds' prefixes differ
         name = name.strip()
-        for kernel in ("scan_mma_kernel", "scan_wgmma_kernel", "scan_wgmma_f32_kernel"):
+        for kernel in ("scan_mma_kernel", "scan_wgmma_kernel", "scan_wgmma_f32_kernel",
+                       "scan_wgmma_f32mode_kernel"):
             if kernel in name:
                 name = name[name.find(kernel):]
                 break
@@ -369,7 +370,7 @@ def main() -> None:
     build(sources)
     other, this = sass(WORK / "other.cubin"), sass(WORK / "this.cubin")
     common = sorted(n for n in set(other) & set(this) if n.startswith(("scan_mma_kernel",
-                                                                        "scan_wgmma_kernel")))
+                                                                        "scan_wgmma_")))
     differ = []
     for name in common:
         if other[name] != this[name]:
@@ -406,7 +407,7 @@ def main() -> None:
         bodies = {n: takes_wgmma(sd, sargs[5], mode, k, sargs[8]) for n, sd in sides.items()}
         del sargs
         if bodies["this"] != bodies["other"]:
-            agree = bodies_agree(outs, f"{layout} {mode} k={k}")
+            agree = bodies_agree(outs, f"{layout} {mode} k={k}", mode, st, q, o)
         else:
             same = all(torch.equal(x, y) for x, y in zip(outs["other"], outs["this"]))
             cs.check(same, f"{layout} {mode} k={k}: the two sides give different bits")
@@ -457,15 +458,24 @@ def main() -> None:
                  args.rounds, smi)
 
 
-def bodies_agree(outs: dict, what: str) -> str:
-    """The two sides' lists where one ran the wgmma body and the other the
-    mma.sync body: held to each other at the bf16 bar; how many (pair,
-    query slot) lists are bit-equal, distances and slots."""
+def bodies_agree(outs: dict, what: str, mode: str = "bf16", store=None, queries=None,
+                 order=None) -> str:
+    """The two sides' lists where one ran a wgmma body and the other the
+    mma.sync body: held to each other at the bar of the mode (bf16, or the
+    f32 parity bar in f32, where each side's distances are also held to
+    float64: ``chip_smoke.float64_error`` over the first 16 pairs); how
+    many (pair, query slot) lists are bit-equal, distances and slots."""
     (td, ts), (od, os_) = outs["this"], outs["other"]
-    err, gap = cs.compare_candidates(td, ts, od, os_, "bf16", f"{what}: this against other")
+    err, gap = cs.compare_candidates(td, ts, od, os_, mode, f"{what}: this against other")
     equal = ((td.view(torch.int32) == od.view(torch.int32)) & (ts == os_)).all(dim=2)
-    return (f"other bodies, agree at the bf16 bar, max|Δd| {err:.3g} (at swapped slots "
-            f"{gap:.3g}); {int(equal.sum())} of {equal.numel()} lists bit-equal")
+    f64 = ""
+    if mode == "f32":
+        plan, sargs = scan_inputs(store, queries, order, 128, "f32")
+        errs = {n: cs.float64_error(store, sargs[0], plan, *outs[n]) for n in outs}
+        f64 = (f"; against float64, the first 16 pairs' candidates: this {errs['this']:.3g}, "
+               f"other {errs['other']:.3g}")
+    return (f"other bodies, agree at the {mode} bar, max|Δd| {err:.3g} (at swapped slots "
+            f"{gap:.3g}); {int(equal.sum())} of {equal.numel()} lists bit-equal{f64}")
 
 
 def in_turns(runs: dict, what: str, agree: str, reps: int, rounds: int, smi: str) -> None:

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """What bounds the scan's default bodies at the flagship, on one NVIDIA GPU.
 
-    python3 tools/torch_scan_probe.py [--body mma|wgmma|mma-f32|wgmma-f32]
+    python3 tools/torch_scan_probe.py [--body mma|wgmma|mma-f32|wgmma-f32|mma-f32mode|wgmma-f32mode]
                                       [--checkout DIR] [--reference DIR ...]
                                       [--rounds 4] [--only NAME ...]
 
@@ -77,6 +77,32 @@ for example the commit before the wgmma body over f32 rows):
 * ``bare``: no TMA, no rounding, no hand-over;
 * ``no wgmma, bare``.
 
+``--body mma-f32mode``: the mma.sync body's f32 instance over the int8
+packed store (``MmaBody<MODE_F32, int8_t, 32>``, ``precision="highest"``:
+the f32 queries as three bf16 terms; a checkout where that scan takes it,
+for example the commit before the wgmma body in f32 mode), timed in mode
+f32:
+
+* ``tree``;
+* ``no mma.sync``, ``no widening``, ``no selection`` as for ``--body mma``;
+* ``one query term``: each 16-deep step's mma of the hi term alone (the
+  three terms' rows still copied);
+* ``no mma.sync, no widening, no selection``.
+
+``--body wgmma-f32mode``: the wgmma body in f32 mode over the int8 packed
+store, timed in mode f32:
+
+* ``tree``, ``no wgmma``, ``no widening``, ``no selection``, ``no
+  hand-over``, ``no TMA``, ``bare``, ``no wgmma, bare`` as for ``--body
+  wgmma``;
+* ``one wait a stage``: the next stage's first box widened after the
+  stage's fold, not while its second box's wgmma runs;
+* ``fold: the hi term alone``: each stage folds only the hi term's sum
+  into the running sum (the mid and lo sums computed, not added);
+* ``three wgmma m64nNk16 a k-step``: the three planes as three wgmma of
+  N columns (each into its own third of the fresh sum) in place of one
+  of 3N columns.
+
 The copies' results are wrong and are not read.  Then the card's memory
 rates: a ~1 GB device-to-device copy (HBM: bytes read + written) and a
 sum over a 20 MB and a 40 MB buffer read again and again (L2).  Prints
@@ -136,15 +162,21 @@ MMA_VARIANTS = {
     "(a)+(b)+(c)": QUERY_ONCE + NO_WIDEN + NO_SELECTION,
 }
 
-W_NO_WGMMA = [(f'"wgmma.mma_async.sync.aligned.m64n{n}k16.f32.bf16.bf16 "', '"// "')
-              for n in (16, 32, 48, 64)]
-W_NO_WIDEN = [("          widen_s8x4(wl[j], bl);\n          widen_s8x4(wh[j], bh);\n",
-               "          bl[0] = wl[j]; bl[1] = wl[j] ^ 1u; bh[0] = wh[j]; bh[1] = wh[j] ^ 1u;\n")]
+# every wgmma shape that the source spells (m64n48k16 in wgmma_rs and in
+# wgmma_rs_terms; m64n96k16 only since the f32-mode body)
+W_NO_WGMMA = [(f'"wgmma.mma_async.sync.aligned.m64n{n}k16.f32.bf16.bf16 "', '"// "', "all")
+              for n in (16, 32, 48, 64)] + [
+    ('"wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 "', '"// "', "any")]
+# the widening, the selection and the hand-over are spelled in wgmma_consume
+# and (since the f32-mode body) in wgmma_consume_terms: each of these
+# patches takes every occurrence ("all": at least one; one kernel is timed)
+W_NO_WIDEN = [("widen_s8x4(wl[j], bl);", "bl[0] = wl[j]; bl[1] = wl[j] ^ 1u;", "all"),
+              ("widen_s8x4(wh[j], bh);", "bh[0] = wh[j]; bh[1] = wh[j] ^ 1u;", "all")]
 W_SELECT = "    wgmma_select(p, s, wg, N, nrows, slot0);\n"
-W_NO_SELECTION = [(W_SELECT, "")]
+W_NO_SELECTION = [(W_SELECT, "", "all")]
 W_NO_HANDOVER = W_NO_SELECTION + [
-    ("    if (i > 0) bar_sync(BAR_HANDOVER + wg, 256);  // the tile before is selected (by the warpgroup before)\n", ""),
-    ("    if (i + 1 < ntiles) bar_arrive(BAR_HANDOVER + (wg + 1) % W_CONSUMERS, 256);\n", "")]
+    ("    if (i > 0) bar_sync(BAR_HANDOVER + wg, 256);  // the tile before is selected (by the warpgroup before)\n", "", "all"),
+    ("    if (i + 1 < ntiles) bar_arrive(BAR_HANDOVER + (wg + 1) % W_CONSUMERS, 256);\n", "", "all")]
 W_NO_TMA = [("      mbar_expect_tx(full, R::STAGE);\n#pragma unroll\n      for (int box = 0; box < W_BOXES; ++box)\n"
              "        tma_load_rows(s.stage(wg, slot) + box * WR * R::ROW, map, (st * W_BOXES + box) * R::DEPTHS,\n"
              "                      row, full);\n",
@@ -195,7 +227,7 @@ WF_NO_ROUND = [("          a[2 * box + j][0] = bf16x2_rn(lo.x, lo.y);\n"
                 "          a[2 * box + j][1] = __float_as_uint(hi.x) ^ __float_as_uint(hi.y);\n"
                 "          a[2 * box + j][2] = __float_as_uint(lo.z) ^ __float_as_uint(lo.w);\n"
                 "          a[2 * box + j][3] = __float_as_uint(hi.z) ^ __float_as_uint(hi.w);\n")]
-WF_SCAN_EACH = [("  if constexpr (std::is_same<TS, float>::value) {\n    const int q = q0 + 4 * lane;",
+WF_SCAN_EACH = [("  if constexpr (!std::is_same<TS, int8_t>::value) {\n    const int q = q0 + 4 * lane;",
                  "  if constexpr (false) {\n    const int q = q0 + 4 * lane;")]
 W_BOX1_RING2 = [("constexpr int W_BOXES = 2;", "constexpr int W_BOXES = 1;")]
 WGMMA_F32_VARIANTS = {
@@ -211,16 +243,85 @@ WGMMA_F32_VARIANTS = {
     "3 consumers, stages of 1 box, ring 2": W_THREE + W_BOX1_RING2,
     "selection: one load a query": WF_SCAN_EACH,
 }
+# the three-term body's mma of one 16-deep step: lo, mid and hi into a fresh sum
+ONE_TERM = [("      for (int term = NT - 1; term >= 0; --term) {\n",
+             "      for (int term = 0; term >= 0; --term) {\n")]
+MMA_F32MODE_VARIANTS = {
+    "tree": [],
+    "no mma.sync": NO_MMA,
+    "no widening": NO_WIDEN,
+    "no selection": NO_SELECTION,
+    "one query term": ONE_TERM,
+    "no mma.sync, no widening, no selection": NO_MMA + NO_WIDEN + NO_SELECTION,
+}
+# the f32-mode body: each stage folded with the hi term's sum alone
+WM_HI_ONLY = [("    acc[i] = __fadd_rn(acc[i], __fadd_rn(__fadd_rn(fresh[2 * M + i], fresh[M + i]), "
+               "fresh[i]));\n",
+               "    acc[i] = __fadd_rn(acc[i], fresh[i]);\n")]
+# ... the three planes as three wgmma m64nNk16 a k-step (each term its own
+# accumulator columns, as the one m64n(3N)k16 has them) in place of one
+WM_THREE = [
+    ("__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4], "
+     "uint64_t desc) {",
+     "__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4], "
+     "uint64_t desc, int add = 1) {"),
+    ('"l"(desc), "r"(1));', '"l"(desc), "r"(add));', 4),
+    ("        wgmma_rs_terms<3 * N>(fresh, a[B][j],\n"
+     "                              query_desc(q_base + (W_KSTEPS * st + KSTEPS * B + j) * W3_KSTEP),\n"
+     "                              B > 0 || j > 0);\n",
+     "        for (int term = 0; term < 3; ++term)\n"
+     "          wgmma_rs<N>(*reinterpret_cast<float(*)[N / 2]>(&fresh[term * N / 2]), a[B][j],\n"
+     "                      query_desc(q_base + (W_KSTEPS * st + KSTEPS * B + j) * W3_KSTEP\n"
+     "                                 + term * N / 8 * 256),\n"
+     "                      B > 0 || j > 0);\n"),
+]
+# ... the next stage's first box widened after the fold, not while the
+# second box's wgmma runs (one wait a stage)
+WM_ONE_WAIT = [("      wgmma_wait<1>();  // the first box is done with a[0]\n      hold(a[0]);\n"
+                "      if (st + 1 < nst) take_box(a[0], 0);\n      wgmma_wait<0>();\n"
+                "      hold(a[1]);\n      fold_terms(acc, fresh);\n",
+                "      wgmma_wait<0>();\n      hold(a[0]);\n      hold(a[1]);\n"
+                "      fold_terms(acc, fresh);\n      if (st + 1 < nst) take_box(a[0], 0);\n")]
+WGMMA_F32MODE_VARIANTS = {
+    "tree": [],
+    "one wait a stage": WM_ONE_WAIT,
+    "no wgmma": W_NO_WGMMA,
+    "no widening": W_NO_WIDEN,
+    "no selection": W_NO_SELECTION,
+    "no hand-over": W_NO_HANDOVER,
+    "no TMA": W_NO_TMA,
+    "fold: the hi term alone": WM_HI_ONLY,
+    "three wgmma m64nNk16 a k-step": WM_THREE,
+    "bare": W_NO_TMA + W_NO_WIDEN + W_NO_HANDOVER,
+    "no wgmma, bare": W_NO_WGMMA + W_NO_TMA + W_NO_WIDEN + W_NO_HANDOVER,
+}
 VARIANTS = {"mma": MMA_VARIANTS, "wgmma": WGMMA_VARIANTS, "mma-f32": MMA_F32_VARIANTS,
-            "wgmma-f32": WGMMA_F32_VARIANTS}
+            "wgmma-f32": WGMMA_F32_VARIANTS, "mma-f32mode": MMA_F32MODE_VARIANTS,
+            "wgmma-f32mode": WGMMA_F32MODE_VARIANTS}
 # ptxas's report of the instance each body runs
 INSTANCE = {"mma": "scan_mma_kernelILi1EaLi32E", "wgmma": "scan_wgmma_kernel",
-            "mma-f32": "scan_mma_kernelILi1EfLi32E", "wgmma-f32": "scan_wgmma_f32_kernel"}
+            "mma-f32": "scan_mma_kernelILi1EfLi32E", "wgmma-f32": "scan_wgmma_f32_kernel",
+            "mma-f32mode": "scan_mma_kernelILi0EaLi32E",
+            "wgmma-f32mode": "scan_wgmma_f32mode_kernel"}
+# the scan mode each body runs in, and the kernel that the checkout must have
+# (wgmma bodies) or must not have (the mma.sync body those replace)
+BODY_MODE = {"mma": "bf16", "wgmma": "bf16", "mma-f32": "bf16", "wgmma-f32": "bf16",
+             "mma-f32mode": "f32", "wgmma-f32mode": "f32"}
+BODY_KERNEL = {"mma": "scan_wgmma_kernel", "wgmma": "scan_wgmma_kernel",
+               "mma-f32": "scan_wgmma_f32_kernel", "wgmma-f32": "scan_wgmma_f32_kernel",
+               "mma-f32mode": "scan_wgmma_f32mode_kernel",
+               "wgmma-f32mode": "scan_wgmma_f32mode_kernel"}
 
 
 def patched(source: str, edits) -> str:
-    for old, new in edits:
-        cs.check(source.count(old) == 1, f"probe patch: {old!r} occurs {source.count(old)} times")
+    """``source`` with each ``(old, new[, count])`` edit applied: ``old``
+    must occur ``count`` times (default 1), at least once for "all", any
+    number of times for "any"."""
+    for old, new, *count in edits:
+        want = count[0] if count else 1
+        found = source.count(old)
+        cs.check(want == "any" or (found >= 1 if want == "all" else found == want),
+                 f"probe patch: {old!r} occurs {found} times, not {want}")
         source = source.replace(old, new)
     return source
 
@@ -256,8 +357,7 @@ def main() -> None:
     smi = cs.phase_device()
     WORK.mkdir(parents=True, exist_ok=True)
     text = (args.checkout.resolve() / ab.SOURCE).read_text()
-    kernel = {"mma": "scan_wgmma_kernel", "wgmma": "scan_wgmma_kernel",
-              "mma-f32": "scan_wgmma_f32_kernel", "wgmma-f32": "scan_wgmma_f32_kernel"}[args.body]
+    kernel = BODY_KERNEL[args.body]
     cs.check((kernel in text) == args.body.startswith("wgmma"),
              f"{args.checkout}: the flagship's scan there does not run the {args.body} body")
     sources = {}
@@ -288,11 +388,12 @@ def main() -> None:
     rates = memory_rates(smi)
     store, virtual, queries, order = ab.flagship_stores(torch.device("cuda", 0))
     del virtual
-    what = "the int8 packed store"
+    mode = BODY_MODE[args.body]
+    what = f"{mode} over the int8 packed store"
     if args.body.endswith("f32"):
         store = cs.dequantized_store(store)
-        what = f"an f32 store ({store.chunk_data.numel() * 4 / 1e9:.1f} GB)"
-    runs = {n: ab.launcher(side, store, queries, order, "bf16", 16) for n, side in sides.items()}
+        what = f"{mode} over an f32 store ({store.chunk_data.numel() * 4 / 1e9:.1f} GB)"
+    runs = {n: ab.launcher(side, store, queries, order, mode, 16) for n, side in sides.items()}
     names = list(runs)
     ms = {n: [] for n in names}
     for r in range(args.rounds):
@@ -300,7 +401,7 @@ def main() -> None:
             ms[n].append(cs.cuda_ms(runs[n], 3))
     med = {n: float(np.median(v)) for n, v in ms.items()}
     for n in names:
-        cs.log(f"[probe] bf16 over {what}, k_scan 16, {queries.shape[0]} queries "
+        cs.log(f"[probe] {what}, k_scan 16, {queries.shape[0]} queries "
                f"(mean of 3 launches a round, {args.rounds} rounds in turns): {n}: "
                f"{' '.join(f'{t:.3f}' for t in ms[n])} ms, median {med[n]:.3f} ms = "
                f"{med[n] / med['tree']:.3f} of the tree's  [{smi}]")
