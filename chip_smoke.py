@@ -57,7 +57,11 @@ phases:
    length, items; each default search is one launch of the wgmma body,
    the ``highest`` search one of the f32-mode wgmma body, its recall
    against exact kNN over the visited buckets equal to the same search's
-   through the scan's plain version),
+   through the scan's plain version; each ``search(k=100)`` one launch of
+   the wide-list wgmma body at ``k_scan`` 106, timed, its recall@100
+   against exact kNN over the visited buckets at least 0.999 and within
+   0.001 of the same search's through the scan's plain version, timed
+   beside it),
    the merge kernel at the flagship against its plain version and
    ``smallest_k`` over the lists side by side, its bytes bound, its share
    of the scan and the split's host work a launch,
@@ -211,10 +215,12 @@ BF16_ATOL, BF16_SAME_IDS = 3e-3, 0.99
 # terms must miss the bar, or the check could not tell the bodies apart
 SPLIT_REL_ERR = 2.0**-20
 REPLACES = "learnedmetricindex_tpu/ops/scan_kernel.py:325"
-# read_counts' keys of the scan's launches on its three wgmma bodies (bf16
-# over int8 rows, bf16 over f32 rows, f32 over int8 rows)
+# read_counts' keys of the scan's launches on its four wgmma bodies (bf16
+# over int8 rows, bf16 over f32 rows, f32 over int8 rows, bf16 over int8
+# rows at list widths 64 and 128)
 WGMMA_INT8, WGMMA_F32 = "scan_pairs wgmma body", "scan_pairs wgmma f32 body"
 WGMMA_F32MODE = "scan_pairs wgmma f32-mode body"
+WGMMA_WIDE = "scan_pairs wgmma wide-list body"
 KERNEL_SOURCE = "learnedmetricindex_tpu_torch/csrc/scan_pairs.cu"
 # the merge of a split scan takes the place of the Pallas kernel's running
 # top-k across a pair's chunks (its `insert`, carried in VMEM chunk to chunk)
@@ -402,21 +408,23 @@ def reset_counts() -> None:
     scan_kernel.WGMMA_LAUNCHES = 0
     scan_kernel.WGMMA_F32_LAUNCHES = 0
     scan_kernel.WGMMA_F32MODE_LAUNCHES = 0
+    scan_kernel.WGMMA_WIDE_LAUNCHES = 0
     scan_kernel.MERGE_LAUNCHES = 0
     gather_kernel.LAUNCHES = 0
     gather_kernel.PAIR_LAUNCHES = 0
 
 
 def read_counts() -> dict:
-    """Launches a kernel; of the scan's, those of its three wgmma bodies
-    (bf16 over int8 rows, bf16 over f32 rows, f32 over int8 rows), the
-    rest on the mma.sync body."""
+    """Launches a kernel; of the scan's, those of its four wgmma bodies
+    (bf16 over int8 rows, bf16 over f32 rows, f32 over int8 rows, bf16 over
+    int8 rows at list widths 64 and 128), the rest on the mma.sync body."""
     return {"scan_pairs": scan_kernel.LAUNCHES, "scan_merge": scan_kernel.MERGE_LAUNCHES,
             "gather_pairs": gather_kernel.PAIR_LAUNCHES, "gather_rows": gather_kernel.LAUNCHES,
             WGMMA_INT8: scan_kernel.WGMMA_LAUNCHES - scan_kernel.WGMMA_F32_LAUNCHES
-            - scan_kernel.WGMMA_F32MODE_LAUNCHES,
+            - scan_kernel.WGMMA_F32MODE_LAUNCHES - scan_kernel.WGMMA_WIDE_LAUNCHES,
             WGMMA_F32: scan_kernel.WGMMA_F32_LAUNCHES,
-            WGMMA_F32MODE: scan_kernel.WGMMA_F32MODE_LAUNCHES}
+            WGMMA_F32MODE: scan_kernel.WGMMA_F32MODE_LAUNCHES,
+            WGMMA_WIDE: scan_kernel.WGMMA_WIDE_LAUNCHES}
 
 
 def kv_stores(dev, d: int, seed: int = 7, chunk: int = 320):
@@ -572,15 +580,17 @@ def held_to_plain(store, queries, order, k: int, qtile: int, mode: str, partner,
     change the plan's query slots first; ``partner`` None skips the
     duplicate-order check; ``wgmma`` (where given) how many of the
     launches must take a wgmma body (the one over int8 rows or the one
-    over f32 rows, as the store's type says, or in f32 mode the f32-mode
-    body).  The line names the body each launch took.  Returns the query
-    slots, the pairs' buckets and the kernel's slots."""
+    over f32 rows, as the store's type says, in f32 mode the f32-mode
+    body, above list width 32 the wide-list body).  The line names the body
+    each launch took.  Returns the query slots, the pairs' buckets and the
+    kernel's slots."""
     plan, args = scan_inputs(store, queries, order, qtile, mode)
     if edit_qidx is not None:
         args = (args[0], edit_qidx(args[1].clone()), *args[2:])
     kw = dict(k=k, qtile=qtile, chunk=store.chunk, mode=mode)
     before, before_w = scan_kernel.LAUNCHES, scan_kernel.WGMMA_LAUNCHES
     before_f, before_m = scan_kernel.WGMMA_F32_LAUNCHES, scan_kernel.WGMMA_F32MODE_LAUNCHES
+    before_x = scan_kernel.WGMMA_WIDE_LAUNCHES
     kd, ks = scan_kernel.scan_pairs(*args, **kw)
     torch.cuda.synchronize()
     check(scan_kernel.LAUNCHES - before == launches,
@@ -588,7 +598,10 @@ def held_to_plain(store, queries, order, k: int, qtile: int, mode: str, partner,
     n_w = scan_kernel.WGMMA_LAUNCHES - before_w
     n_f = scan_kernel.WGMMA_F32_LAUNCHES - before_f
     n_m = scan_kernel.WGMMA_F32MODE_LAUNCHES - before_m
+    n_x = scan_kernel.WGMMA_WIDE_LAUNCHES - before_x
     check(wgmma is None or n_w == wgmma, f"{what}: {n_w} wgmma-body launches, not {wgmma}")
+    check(n_x == (n_w if k > 32 else 0),
+          f"{what}: {n_x} launches on the wide-list wgmma body of {n_w} on a wgmma body")
     check(n_f == (n_w if store.rows_ref.dtype == torch.float32 else 0),
           f"{what}: {n_f} launches on the wgmma body over f32 rows of {n_w} on a wgmma body")
     check(n_m == (n_w if mode == "f32" else 0),
@@ -601,10 +614,11 @@ def held_to_plain(store, queries, order, k: int, qtile: int, mode: str, partner,
         n_dup = earlier_duplicate_first(ks, partner, what)
         earlier_duplicate_first(rs, partner, f"{what} (plain)")
     worst[mode] = (max(worst[mode][0], err), max(worst[mode][1], gap))
+    wgmma_body = scan_kernel.BODY_NAMES[2 if n_f else 3 if n_m else 4 if n_x else 1]
     log(f"[kernel-vs-plain] {what:52s} pairs={plan.n_pairs:4d}: agree, max|Δd|={err:.3g}, "
         f"{int((ks != rs).sum().item())} slots swapped at ties (max|Δd| there {gap:.3g}), "
         f"{n_dup} later duplicates after their earlier copy; body: "
-        f"{f'{scan_kernel.BODY_NAMES[2 if n_f else 3 if n_m else 1]} ×{n_w}' if n_w else ''}"
+        f"{f'{wgmma_body} ×{n_w}' if n_w else ''}"
         f"{' + ' if n_w and n_w < launches else ''}"
         f"{f'mma.sync ×{launches - n_w}' if launches > n_w else ''}")
     return args[1], args[2], ks
@@ -1105,9 +1119,9 @@ def phase_main(dev, data: dict, smi: str):
     del pred
     torch.cuda.empty_cache()
 
-    def search(q, n_buckets=4, precision="default"):
+    def search(q, n_buckets=4, precision="default", k=10):
         return index.search(None, q, None, q, data_prediction, n_buckets=n_buckets,
-                            k=10, store=store, precision=precision)
+                            k=k, store=store, precision=precision)
 
     # ---- the main path: every launch from here to the read counts ----
     torch.cuda.reset_peak_memory_stats()
@@ -1125,6 +1139,14 @@ def phase_main(dev, data: dict, smi: str):
         log(f"[search] precision={prec}: {time.perf_counter() - t0:.4f} s per {nq} queries")
     one = search(queries[:1])
     hundred = search(queries[:100])
+    # search(k=100), the ann-benchmarks k: k_scan 106 (the rerank margin 6),
+    # list width 128, the wide-list wgmma body
+    search(queries, k=100)  # warmup
+    times100 = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        d100, i100, measured100 = search(queries, k=100)
+        times100.append(time.perf_counter() - t0)
     launches = read_counts()
     wgmma_launches = scan_kernel.WGMMA_LAUNCHES
     peak = torch.cuda.max_memory_allocated()
@@ -1132,12 +1154,13 @@ def phase_main(dev, data: dict, smi: str):
     check(launches["scan_pairs"] > 0 and launches["scan_merge"] == launches["scan_pairs"],
           "the main path launched the scan kernel and one merge a scan")
     # six default searches (bf16 over the int8 store, k_scan 16: the wgmma
-    # body), one highest (f32 over the int8 store: the f32-mode wgmma body)
-    # and one int8 (the mma.sync body)
-    check(launches["scan_pairs"] == 8 and launches[WGMMA_INT8] == 6
-          and launches[WGMMA_F32MODE] == 1 and wgmma_launches == 7,
-          f"the main path: {launches}, not 8 scans, 6 on the wgmma body, 1 on the f32-mode "
-          f"wgmma body")
+    # body), one highest (f32 over the int8 store: the f32-mode wgmma body),
+    # one int8 (the mma.sync body) and four at k=100 (the wide-list body)
+    check(launches["scan_pairs"] == 12 and launches[WGMMA_INT8] == 6
+          and launches[WGMMA_F32MODE] == 1 and launches[WGMMA_WIDE] == 4
+          and wgmma_launches == 11,
+          f"the main path: {launches}, not 12 scans, 6 on the wgmma body, 1 on the f32-mode "
+          f"wgmma body, 4 on the wide-list wgmma body")
     check(set(measured) == {"inference", "search", "search_within_buckets", "seq_search", "sort"},
           "measured keys")
     check(one[0].shape == (1, 10) and hundred[0].shape == (100, 10), "small requests' shapes")
@@ -1153,7 +1176,14 @@ def phase_main(dev, data: dict, smi: str):
         f"inference {measured['inference']:.4f} s, scan {measured['seq_search']:.4f} s; "
         f"peak device memory {peak / 1e9:.2f} GB (corpus resident); kernel launches "
         f"{launches}, of the scan's {wgmma_launches} on a wgmma body (one a default "
-        f"search, one the highest search, each with one merge)  [{smi}]")
+        f"search, one the highest search, one a k=100 search, each with one merge)  [{smi}]")
+    check(d100.shape == (nq, 100) and bool(np.isfinite(d100).all()) and bool((i100 > 0).all()),
+          "k=100: finite, filled (nq, 100) results")
+    mean100 = float(np.mean(times100))
+    log(f"[search k=100] precision=default, n_buckets=4, k=100 (k_scan 106, the wide-list wgmma "
+        f"body): reps {[round(t, 4) for t in times100]} s; mean {mean100:.4f} s per {nq} queries "
+        f"= {nq / mean100:.0f} QPS; inference {measured100['inference']:.4f} s, scan "
+        f"{measured100['seq_search']:.4f} s  [{smi}]")
 
     # ---- checks against exact kNN over each query's visited buckets ----
     nc = 256
@@ -1180,6 +1210,7 @@ def phase_main(dev, data: dict, smi: str):
     log(f"[check] precision=highest: equals visited-bucket exact kNN ({nc} queries, "
         f"{n_tied} ids differ at ties); recall@10 {r_high:.4f}, the same search through the "
         f"scan's plain version {r_plain:.4f}")
+    phase_k100(queries, index, store, d100, i100, search, times100, smi)
     full_order = torch.arange(nb, device=dev).repeat(nc, 1)
     fd, fi = restricted_knn(store, qc, full_order, 10)
     fd, fi = fd.cpu().numpy(), fi.cpu().numpy()
@@ -1211,6 +1242,46 @@ def phase_main(dev, data: dict, smi: str):
     torch.cuda.empty_cache()
     return launches, timing, {"index": index, "data_prediction": data_prediction,
                               "store": store, "made": made, "merge": merge}
+
+
+def phase_k100(queries, index, store, d100, i100, search, times100, smi: str,
+               nc: int = 1024) -> None:
+    """The main path's ``search(k=100)`` (``d100``, ``i100``, host times
+    ``times100``) held to exact kNN over each query's visited buckets:
+    recall@100 of its first ``nc`` queries at least 0.999 and within 0.001
+    of the same search's with the scan's plain version in the kernel's
+    place, which is timed over all the queries beside it (host clock,
+    mean of 3)."""
+    t_phase = time.perf_counter()
+    nq = queries.shape[0]
+    qc = queries[:nc]
+    order, _ = index.compute_bucket_order(qc, 4, keep_on_device=True)
+    _, ref_i = restricted_knn(store, qc, order, 100)
+    ref_i = ref_i.cpu().numpy()
+    kernel = bucket_store_module.scan_pairs
+    bucket_store_module.scan_pairs = scan_kernel.scan_pairs_reference
+    try:
+        plain_times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            plain_d, plain_i, _ = search(queries, k=100)
+            plain_times.append(time.perf_counter() - t0)
+    finally:
+        bucket_store_module.scan_pairs = kernel
+    r_kernel, r_plain = recall(i100[:nc], ref_i, 100), recall(plain_i[:nc], ref_i, 100)
+    r_whole = recall(i100, plain_i, 100)
+    check(r_kernel >= 0.999 and abs(r_kernel - r_plain) <= 0.001,
+          f"k=100: recall@100 {r_kernel} vs visited-bucket exact, the same search through the "
+          f"plain version {r_plain}")
+    np.testing.assert_allclose(d100, plain_d, atol=BF16_ATOL, err_msg="k=100: distances "
+                               "against the search through the plain version")
+    log(f"[check k=100] precision=default: recall@100 vs visited-bucket exact kNN {r_kernel:.4f} "
+        f"({qc.shape[0]} queries), the same search through the scan's plain version "
+        f"{r_plain:.4f}; the two searches' ids agree at {r_whole:.4f} over all {nq} queries; the "
+        f"search through the plain version reps {[round(t, 4) for t in plain_times]} s, mean "
+        f"{float(np.mean(plain_times)):.4f} s per {nq} (the kernel's search "
+        f"{float(np.mean(times100)):.4f}); these checks took {time.perf_counter() - t_phase:.1f} "
+        f"s  [{smi}]")
 
 
 def flagship_scan(store, queries, order, k: int, mode: str, smi: str, tag: str) -> dict:
@@ -2068,11 +2139,11 @@ def phase_build_path(dev, data: dict, smi: str):
     n_search = 1 + MODE_ROUNDS
     check(per_mode["auto"] == {"scan_pairs": n_search, "scan_merge": n_search, "gather_pairs": 0,
                                "gather_rows": 0, WGMMA_INT8: n_search, WGMMA_F32: 0,
-                               WGMMA_F32MODE: 0},
+                               WGMMA_F32MODE: 0, WGMMA_WIDE: 0},
           f"auto mode launches one scan and no gather a search: {per_mode['auto']}")
     check(per_mode["kernel"] == {"scan_pairs": n_search, "scan_merge": n_search,
                                  "gather_pairs": n_search, "gather_rows": 0, WGMMA_INT8: n_search,
-                                 WGMMA_F32: 0, WGMMA_F32MODE: 0},
+                                 WGMMA_F32: 0, WGMMA_F32MODE: 0, WGMMA_WIDE: 0},
           f"kernel mode launches one scan and one merge gather a search: {per_mode['kernel']}")
     for mode in ("auto", "kernel"):
         t = np.asarray(rounds[mode])
@@ -3285,11 +3356,13 @@ def main() -> None:
         if name == "scan_pairs":  # its launches a body
             rows[-1]["bodies"] = {
                 "mma.sync": total(name) - total(WGMMA_INT8) - total(WGMMA_F32)
-                - total(WGMMA_F32MODE),
+                - total(WGMMA_F32MODE) - total(WGMMA_WIDE),
                 "wgmma (bf16 over int8 rows)": total(WGMMA_INT8),
                 "wgmma (bf16 over f32 rows)": total(WGMMA_F32),
-                "wgmma (f32 over int8 rows)": total(WGMMA_F32MODE)}
+                "wgmma (f32 over int8 rows)": total(WGMMA_F32MODE),
+                "wgmma (bf16 over int8 rows, lists of 64 and 128)": total(WGMMA_WIDE)}
             check(total(WGMMA_F32MODE) > 0, "no scan launch took the f32-mode wgmma body")
+            check(total(WGMMA_WIDE) > 0, "no scan launch took the wide-list wgmma body")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -283,6 +283,35 @@
 // 896), and a pair of more than 32 queries takes up to four blocks, each
 // reading the bucket's rows (L2 serves the blocks of a pair that start
 // together).  Its lists match the plain version to the f32 parity bar.
+//
+// The Hopper body with wide lists (scan_wgmma_wide_kernel<64 | 128>): bf16
+// queries over an int8 packed store at list widths 64 and 128 (k_scan 33
+// to 128: search(k=100) scans at 106), in place of MmaBody<MODE_BF16,
+// int8_t, 64 | 128>.  What bounds the work at the flagship (10k queries
+// visiting 4, k_scan 106): the same ~5.47 ms of bf16 tensor work as at
+// k_scan 16, and 24.9 GB of int8 rows read once a pair (7.4 ms from
+// device memory; L2 serves a pair's two blocks).  What bounded the
+// mma.sync body there (60.5 ms on an H100, the library call 54.4): its
+// 128-slot blocks, one an SM, reload the query tile from L2 for every
+// row tile through a ring that drains every tile, and selection (a warp
+// merging each tile's candidates into a query's list with binary
+// searches in shared memory, ~22-24 ms by tools/torch_scan_split.py)
+// runs while no mma does.  The design:
+//  * the width-32 body's block: 64 query slots resident, a producer warp a
+//    consumer warpgroup's TMA ring, two consumer warpgroups taking
+//    alternate 64-row tiles, the rows widened into A registers, one
+//    wgmma a k-step, the hand-over keeping the tiles in scan order; the
+//    lists (64 slots × KMAX × 8 B) take the head's room, so at width 128
+//    the block takes exactly the 232,448 B it may have at d 768 (d up to
+//    768; up to 1024 at width 64), and it keeps no candidate buffer;
+//  * selection (wgmma_select_wide) while the other warpgroup's wgmma
+//    runs: a warp finds its marked queries with one load a lane and a
+//    ballot, and merges a query's candidates with its list in registers,
+//    one pass over the candidates by shuffles and ballots, in place of
+//    select_tile_merge's packed buffer and binary searches (the first
+//    design, that port, took 55.2 ms at the flagship).
+// Its lists match the plain version to the bf16 bar, as the width-32
+// body's, not the mma.sync body's bits.
 // The other bodies keep the mma.sync design.
 //
 // What is left for later work:
@@ -293,12 +322,10 @@
 //    work list a launch, and a merge pass; a persistent grid that takes
 //    items from a device-side queue would need neither the read nor the
 //    cut by a fixed share;
-//  * the wide lists' selection: a merge costs a few dozen dependent
-//    shared-memory steps however few its candidates, ~22 ms of the
-//    flagship's k_scan 106 scan (10k queries) on an H100, and a block of
-//    211 KB has its SM alone, so nothing overlaps it (the list in
-//    registers at widths 64 and 128, fewer merges, or warp
-//    specialisation);
+//  * the wide lists of the other modes and stores, and widths 256 to
+//    1024, on the mma.sync body: a merge costs a few dozen dependent
+//    shared-memory steps however few its candidates, and a block of
+//    211 KB has its SM alone, so nothing overlaps it;
 //  * a block that owns a few queries is bound by its walk of the bucket,
 //    24 depth steps a row tile through a two-stage ring; above width 128
 //    the split blocks of a pair each read the bucket's rows, and k > 1024
@@ -1303,11 +1330,12 @@ constexpr int BAR_WG = 1, BAR_HANDOVER = BAR_WG + W_CONSUMERS,
 constexpr int W_PRODUCER_REGS = 40;
 constexpr int W_CONSUMER_REGS_FIT = (65536 / 128 - W_PRODUCER_REGS) / W_CONSUMERS / 8 * 8;
 constexpr int W_CONSUMER_REGS = W_CONSUMER_REGS_FIT < 232 ? W_CONSUMER_REGS_FIT : 232;
-// barriers, query metadata and marks, lists, the two distance tiles of a
-// block of `slots` query slots, rounded up to 1024 bytes (where the ring starts)
-constexpr size_t w_head_bytes(int slots) {
+// barriers, query metadata and marks, lists (of width `list`), the two
+// distance tiles of a block of `slots` query slots, rounded up to 1024 bytes
+// (where the ring starts)
+constexpr size_t w_head_bytes(int slots, int list = W_LIST) {
   return (size_t(2 * W_CONSUMERS * W_STAGES) * 8 + size_t(slots + W_CONSUMERS * slots) * 4 +
-          size_t(2 * W_LIST * slots) * 4 + size_t(W_CONSUMERS * slots * WDQ) * 4 + 1023) /
+          size_t(2 * list * slots) * 4 + size_t(W_CONSUMERS * slots * WDQ) * 4 + 1023) /
          1024 * 1024;
 }
 constexpr size_t kWRingOffset = w_head_bytes(WQ);
@@ -1343,6 +1371,28 @@ static_assert(W_MAX_QD3 >= 768, "a 768-wide three-term query tile is resident");
 // the tag of that body in the templates below (its rows are int8)
 struct F32Mode {};
 
+// bf16 queries over an int8 packed store at list widths 64 and 128 (k_scan
+// 33 to 128): the int8 body's ring and resident queries, lists of width
+// KMAX, W_WIDE_SLOTS query slots a block (at width 128 the block then
+// takes exactly the 232,448 B at d 768; 32 slots, d up to 2176, measured
+// 1.39x the time at the flagship: tools/torch_scan_probe.py); the tag of
+// that body and the widest resident query tile beside its head and the ring
+constexpr int W_WIDE_LIST = 128;  // the widest list of the wgmma bodies
+constexpr int W_WIDE_SLOTS = 64;
+template <int KMAX_>
+struct WideList {
+  static constexpr int KMAX = KMAX_, SLOTS = W_WIDE_SLOTS;
+  static constexpr size_t HEAD = w_head_bytes(SLOTS, KMAX);
+  static constexpr int MAX_QD =
+      int((232448 - HEAD - kWRingBytes) / (size_t(SLOTS) * 2 * W_QD_STEP)) * W_QD_STEP;
+};
+static_assert(WideList<64>::MAX_QD >= 1024 && WideList<128>::MAX_QD >= 768,
+              "a 1024-wide query tile is resident at width 64, a 768-wide one at width 128");
+template <typename TS>
+struct IsWide : std::false_type {};
+template <int KMAX>
+struct IsWide<WideList<KMAX>> : std::true_type {};
+
 // The ring of the store type TS: int8 rows (WK bytes a box row, 64 depths)
 // or f32 rows (WKF bytes, 32 depths), W_BOXES boxes a stage; and the block
 // around it: its query slots, where its ring starts (after the head), the
@@ -1354,7 +1404,7 @@ struct WRing<int8_t> {
   using Row = int8_t;
   static constexpr int ROW = WK, DEPTHS = WK, STAGE = W_STAGE, KSTEPS = W_KSTEPS,
                        QD_STEP = W_QD_STEP, MAX_QD = W_MAX_QD, SLOTS = WQ, TERMS = 1,
-                       Q_KSTEP = W_KSTEP;
+                       Q_KSTEP = W_KSTEP, LIST = W_LIST;
   static constexpr size_t BYTES = kWRingBytes, HEAD = kWRingOffset;
 };
 template <>
@@ -1362,13 +1412,19 @@ struct WRing<float> {
   using Row = float;
   static constexpr int ROW = WKF, DEPTHS = WKF / 4, STAGE = W_STAGE_F, KSTEPS = W_KSTEPS_F,
                        QD_STEP = W_QD_STEP_F, MAX_QD = W_MAX_QD_F, SLOTS = WQ, TERMS = 1,
-                       Q_KSTEP = W_KSTEP;
+                       Q_KSTEP = W_KSTEP, LIST = W_LIST;
   static constexpr size_t BYTES = kWRingBytesF, HEAD = kWRingOffset;
 };
 template <>
 struct WRing<F32Mode> : WRing<int8_t> {
   static constexpr int MAX_QD = W_MAX_QD3, SLOTS = WQ3, TERMS = 3, Q_KSTEP = W3_KSTEP;
   static constexpr size_t HEAD = kW3RingOffset;
+};
+template <int KMAX>
+struct WRing<WideList<KMAX>> : WRing<int8_t> {
+  static constexpr int MAX_QD = WideList<KMAX>::MAX_QD, SLOTS = W_WIDE_SLOTS, LIST = KMAX,
+                       Q_KSTEP = W_WIDE_SLOTS * 16 * 2;
+  static constexpr size_t HEAD = WideList<KMAX>::HEAD;
 };
 
 // dynamic shared memory at query width qd
@@ -1379,13 +1435,13 @@ __host__ __device__ inline size_t wgmma_smem_bytes(int qd) {
 
 template <typename TS>
 struct WSmem {
-  static constexpr int SLOTS = WRing<TS>::SLOTS;
+  static constexpr int SLOTS = WRing<TS>::SLOTS, LIST = WRing<TS>::LIST;
   uint64_t* full;    // [W_CONSUMERS][W_STAGES] the producer's TMA landed
   uint64_t* empty;   // [W_CONSUMERS][W_STAGES] the warpgroup's four warps read it
   int* q_row;        // [SLOTS] query row of slot q, -1 = none
   unsigned* q_grp;   // [W_CONSUMERS][SLOTS] byte g: 32-row group g of the tile may enter q's list
-  float* top_d;      // [SLOTS][W_LIST]
-  int* top_s;        // [SLOTS][W_LIST]
+  float* top_d;      // [SLOTS][LIST]
+  int* top_s;        // [SLOTS][LIST]
   float* dist;       // [W_CONSUMERS][SLOTS][WDQ]
   unsigned char* ring;     // [W_CONSUMERS][W_STAGES][W_BOXES][WR][ROW] rows, as TMA writes them
   unsigned char* queries;  // resident bf16 queries, qd / 16 k-steps of Q_KSTEP bytes
@@ -1395,8 +1451,8 @@ struct WSmem {
     q_row = reinterpret_cast<int*>(empty + W_CONSUMERS * W_STAGES);
     q_grp = reinterpret_cast<unsigned*>(q_row + SLOTS);
     top_d = reinterpret_cast<float*>(q_grp + W_CONSUMERS * SLOTS);
-    top_s = reinterpret_cast<int*>(top_d + W_LIST * SLOTS);
-    dist = reinterpret_cast<float*>(top_s + W_LIST * SLOTS);
+    top_s = reinterpret_cast<int*>(top_d + LIST * SLOTS);
+    dist = reinterpret_cast<float*>(top_s + LIST * SLOTS);
     ring = base + WRing<TS>::HEAD;
     queries = ring + WRing<TS>::BYTES;
   }
@@ -1502,9 +1558,11 @@ __device__ __forceinline__ void hold(uint32_t (&r)[J][4]) {
 __device__ __forceinline__ uint64_t query_desc(uint32_t addr) {
   return uint64_t((addr & 0x3ffff) >> 4) | (uint64_t(128 >> 4) << 16) | (uint64_t(256 >> 4) << 32);
 }
-// byte offset of query slot n's 8 depths (k' 8h .. 8h+7) of k-step j
+// byte offset of query slot n's 8 depths (k' 8h .. 8h+7) of k-step j, the
+// k-steps KSTEP bytes apart (a block's query slots × 32)
+template <int KSTEP = W_KSTEP>
 __device__ __forceinline__ int query_at(int j, int h, int n) {
-  return j * W_KSTEP + (n >> 3) * 256 + h * 128 + (n & 7) * 16;
+  return j * KSTEP + (n >> 3) * 256 + h * 128 + (n & 7) * 16;
 }
 
 // D (64 rows × N query slots, f32) += A (64 rows × 16 depths, bf16, in
@@ -1605,7 +1663,7 @@ __device__ WItem wgmma_begin(const Params& p, const WSmem<TS>& s) {
     s.q_row[tid] = qi;
   }
   if (tid < W_CONSUMERS * SLOTS) s.q_grp[tid] = 0;
-  for (int e = tid; e < W_LIST * SLOTS; e += W_THREADS) {
+  for (int e = tid; e < WSmem<TS>::LIST * SLOTS; e += W_THREADS) {
     s.top_d[e] = CUDART_INF_F;
     s.top_s[e] = -1;
   }
@@ -1631,7 +1689,8 @@ __device__ WItem wgmma_begin(const Params& p, const WSmem<TS>& s) {
       const int n = i % (b.nl * 16), piece = i / (b.nl * 16);
       const int qi = s.q_row[n];
       const size_t off = size_t(qi >= 0 ? qi : 0) * p.qd * 2 + piece * 16;
-      cp_async16(s.queries + query_at(piece >> 1, piece & 1, n), qbytes + off, qi >= 0);
+      cp_async16(s.queries + query_at<WRing<TS>::Q_KSTEP>(piece >> 1, piece & 1, n), qbytes + off,
+                 qi >= 0);
     }
   } else {
     // three terms: a query row is the planes hi, mid, lo (qd values each);
@@ -2038,6 +2097,215 @@ __device__ void wgmma_consume_terms(const Params& p, const WSmem<F32Mode>& s, co
   }
 }
 
+// Wide-list selection of a consumer warpgroup's tile (list widths 64 and
+// 128): select_tile_merge's rule over the tile's [query][row] distances, 64
+// rows, four warps, the slots the block computes (nq), each warp one query
+// at a time, with the list in the warp's registers for the merge (lane l
+// holds entries l, l + 32, ...).  A warp finds its marked queries with one
+// load a lane and a ballot.  For a marked query the lanes read its marked
+// 32-row groups (lane l rows l and 32 + l), and a ballot finds the rows below
+// the list's k-th; the warp walks those candidates in scan order, each
+// broadcast by a shuffle: every entry counts the candidates strictly below
+// it, every candidate the candidates before it in (distance, scan position)
+// and, by ballots over the entries, the entries at or below it.  An entry's
+// new place is its index plus the candidates below it, a candidate's its
+// rank plus the entries at or below it, so the entries, which are earlier
+// rows, win ties; what lands past k - 1 drops out.  One pass of the
+// candidates, no buffer and no search of the list; its own code (another
+// tile and list layout), so that the mma.sync instances keep theirs.
+template <int KMAX>
+__device__ void wgmma_select_wide(const Params& p, const WSmem<WideList<KMAX>>& s, int wg, int nq,
+                                  int nrows, int slot0) {
+  constexpr int PER = KMAX / 32, SLOTS = W_WIDE_SLOTS;  // PER: list entries a lane holds
+  const int lane = threadIdx.x & 31, k = p.k;
+  const float* dist = s.dist + wg * SLOTS * WDQ;
+  unsigned* grp = s.q_grp + wg * SLOTS;
+  const int q0 = (threadIdx.x >> 5) & 3;
+  // lane i: the marks of the warp's i-th query q0 + 4i (nq <= 4 · 32),
+  // cleared once read (the epilogue marks live query slots only)
+  const unsigned mine = q0 + 4 * lane < nq ? grp[q0 + 4 * lane] : 0u;
+  if (mine != 0) grp[q0 + 4 * lane] = 0;
+  for (unsigned todo = __ballot_sync(FULL, mine != 0); todo != 0; todo &= todo - 1) {
+    const int i = __ffs(todo) - 1, q = q0 + 4 * i;
+    const unsigned groups = __shfl_sync(FULL, mine, i);
+    float* ld = s.top_d + q * KMAX;
+    int* ls = s.top_s + q * KMAX;
+    const float* row = dist + q * WDQ;
+    const float worst = ld[k - 1];
+    float v[2];
+    unsigned below[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = 32 * h + lane;
+      v[h] = ((groups >> (8 * h)) & 0xffu) != 0 && r < nrows ? row[r] : CUDART_INF_F;
+      below[h] = __ballot_sync(FULL, v[h] < worst);
+    }
+    if ((below[0] | below[1]) == 0) continue;
+    float e[PER];
+    int es[PER], lt[PER];
+#pragma unroll
+    for (int j = 0; j < PER; ++j) {
+      e[j] = ld[lane + 32 * j];  // past k - 1 never written: +inf
+      es[j] = ls[lane + 32 * j];
+      lt[j] = 0;
+    }
+    int rank[2] = {0, 0}, le[2] = {0, 0};
+#pragma unroll
+    for (int h2 = 0; h2 < 2; ++h2)  // the candidates in scan order: row 32·h2 + b
+      for (unsigned m = below[h2]; m != 0; m &= m - 1) {
+        const int b = __ffs(m) - 1;
+        const float u = __shfl_sync(FULL, v[h2], b);
+        int at_or_below = 0;
+#pragma unroll
+        for (int j = 0; j < PER; ++j) {
+          lt[j] += u < e[j];
+          at_or_below += __popc(__ballot_sync(FULL, e[j] <= u));
+        }
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          rank[h] += u < v[h] || (u == v[h] && (h2 < h || (h2 == h && b < lane)));
+        if (lane == b) le[h2] = at_or_below;
+      }
+    __syncwarp();  // every lane holds its entries: the list is rewritten
+#pragma unroll
+    for (int j = 0; j < PER; ++j) {
+      const int to = lane + 32 * j + lt[j];
+      if (lt[j] != 0 && to < k) {
+        ld[to] = e[j];
+        ls[to] = es[j];
+      }
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int place = rank[h] + le[h];
+      if (((below[h] >> lane) & 1u) && place < k) {
+        ld[place] = v[h];
+        ls[place] = slot0 + 32 * h + lane;
+      }
+    }
+    __syncwarp();
+  }
+}
+
+// The wide-list consumer warpgroup: wgmma_consume's walk over its tiles,
+// int8 ring, widening, wgmma and epilogue, spelled out so that the width-32
+// bodies keep their code, with lists of width KMAX (the marks against their
+// k-th) and wgmma_select_wide.  N = 16·NL query slots.
+template <int KMAX, int NL>
+__device__ void wgmma_consume_wide(const Params& p, const WSmem<WideList<KMAX>>& s, const WItem& b,
+                                   int wg) {
+  constexpr int N = 16 * NL, KSTEPS = W_KSTEPS, SLOTS = W_WIDE_SLOTS;
+  constexpr int Q_KSTEP = WRing<WideList<KMAX>>::Q_KSTEP;
+  const int tid = threadIdx.x & 127, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int per_chunk = (p.chunk + WR - 1) / WR, nst = p.qd / W_QD_STEP;
+  const int ntiles = (b.c_hi - b.c_lo) * per_chunk;
+  const uint32_t q_base = smem_u32(s.queries);
+  TileWalk w{b.c_lo, 0};
+  w.advance(wg, per_chunk);
+  int phys = w.c < b.c_hi ? p.chunk_of[w.c] : 0;
+  float* dist = s.dist + wg * SLOTS * WDQ;
+  int cnt = 0;  // stages this warpgroup has taken from its ring
+  unsigned live = 0;  // bit 2n + e: the lane's query slot 8n + 2t + e holds a query
+#pragma unroll
+  for (int n = 0; n < N / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) live |= unsigned(s.q_row[8 * n + 2 * t + e] >= 0) << (2 * n + e);
+
+  // the A fragments of a stage's k-steps from its int8 rows, as in wgmma_consume
+  auto take_stage = [&](uint32_t(&a)[KSTEPS][4]) {
+    const int slot = cnt % W_STAGES;
+    mbar_wait(&s.full[wg * W_STAGES + slot], (cnt / W_STAGES) & 1);
+#pragma unroll
+    for (int box = 0; box < W_BOXES; ++box) {
+      const unsigned char* x = s.stage(wg, slot) + box * WR * WK + (warp * 16 + g) * WK + t * 16;
+      const uint4 lo = lds128u(x), hi = lds128u(x + 8 * WK);
+      const uint32_t wl[4] = {lo.x, lo.y, lo.z, lo.w}, wh[4] = {hi.x, hi.y, hi.z, hi.w};
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        uint32_t bl[2], bh[2];
+        widen_s8x4(wl[j], bl);
+        widen_s8x4(wh[j], bh);
+        a[4 * box + j][0] = bl[0];
+        a[4 * box + j][1] = bh[0];
+        a[4 * box + j][2] = bl[1];
+        a[4 * box + j][3] = bh[1];
+      }
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&s.empty[wg * W_STAGES + slot]);
+    ++cnt;
+  };
+
+  for (int i = wg; i < ntiles; i += W_CONSUMERS) {
+    const int r0 = w.t * WR;
+    const int slot0 = phys * p.chunk + r0, nrows = min(WR, p.chunk - r0);
+    w.advance(W_CONSUMERS, per_chunk);  // the next tile's chunk, read while this one runs
+    phys = w.c < b.c_hi ? p.chunk_of[w.c] : 0;
+    float r_scale[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = warp * 16 + g + 8 * h;
+      r_scale[h] = r < nrows ? p.scales[slot0 + r] : 0.0f;  // → +inf distance
+    }
+    float acc[N / 2];
+#pragma unroll
+    for (int e = 0; e < N / 2; ++e) acc[e] = 0.0f;
+    // stage st's wgmma reads a[st % 2]; stage st + 1's is queued behind it
+    // before the warpgroup waits for stage st - 1 and widens stage st + 1
+    // into the registers stage st - 1 read
+    uint32_t a[2][KSTEPS][4];
+    auto issue = [&](auto buf, int st) {
+      constexpr int B = decltype(buf)::value;
+      wgmma_fence();
+#pragma unroll
+      for (int j = 0; j < KSTEPS; ++j)
+        wgmma_rs<N>(acc, a[B][j], query_desc(q_base + (KSTEPS * st + j) * Q_KSTEP));
+      wgmma_commit();
+    };
+    auto step = [&](auto buf, int st) {  // st >= 1
+      constexpr int B = decltype(buf)::value;
+      issue(buf, st);
+      wgmma_wait<1>();  // stage st - 1 is done with a[B ^ 1]
+      hold(a[B ^ 1]);
+      if (st + 1 < nst) take_stage(a[B ^ 1]);
+    };
+    take_stage(a[0]);
+    issue(std::integral_constant<int, 0>{}, 0);
+    if (nst > 1) take_stage(a[1]);
+    for (int st = 1; st < nst; st += 2) {
+      step(std::integral_constant<int, 1>{}, st);
+      if (st + 1 < nst) step(std::integral_constant<int, 0>{}, st + 1);
+    }
+    wgmma_wait<0>();
+    hold(a[0]);
+    hold(a[1]);
+    hold(acc);
+
+    // epilogue as in wgmma_consume, the marks against the wide list's k-th
+#pragma unroll
+    for (int n = 0; n < N / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int q = 8 * n + 2 * t + e;
+        float v[2];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          v[h] = distance<false>(acc[4 * n + 2 * h + e], r_scale[h], 1.0f);
+          dist[q * WDQ + warp * 16 + g + 8 * h] = v[h];
+        }
+        if (((live >> (2 * n + e)) & 1u) &&
+            fminf(v[0], v[1]) < *static_cast<volatile const float*>(&s.top_d[q * KMAX + p.k - 1]))
+          reinterpret_cast<unsigned char*>(s.q_grp + wg * SLOTS)[q * 4 + (warp >> 1)] = 1;
+      }
+    bar_sync(BAR_WG + wg, 128);
+    if (i > 0) bar_sync(BAR_HANDOVER + wg, 256);  // the tile before is selected (by the warpgroup before)
+    wgmma_select_wide(p, s, wg, N, nrows, slot0);
+    bar_sync(BAR_WG + wg, 128);  // the distance tile is free again
+    if (i + 1 < ntiles) bar_arrive(BAR_HANDOVER + (wg + 1) % W_CONSUMERS, 256);
+  }
+}
+
 template <typename TS>
 __device__ void wgmma_write(const Params& p, const WSmem<TS>& s, const WItem& b, bool fill) {
   const int n_own = min(WSmem<TS>::SLOTS, p.qtile - b.q0);
@@ -2045,8 +2313,8 @@ __device__ void wgmma_write(const Params& p, const WSmem<TS>& s, const WItem& b,
   const int threads = fill ? W_THREADS : W_CONSUMERS * 128;
   for (int e = threadIdx.x; e < n_own * p.k; e += threads) {
     const int q = e / p.k, j = e % p.k;
-    p.out_d[out0 + e] = fill ? CUDART_INF_F : s.top_d[q * W_LIST + j];
-    p.out_s[out0 + e] = fill ? -1 : s.top_s[q * W_LIST + j];
+    p.out_d[out0 + e] = fill ? CUDART_INF_F : s.top_d[q * WSmem<TS>::LIST + j];
+    p.out_s[out0 + e] = fill ? -1 : s.top_s[q * WSmem<TS>::LIST + j];
   }
 }
 
@@ -2131,6 +2399,34 @@ __global__ void __launch_bounds__(W_THREADS, 1)
   }
 }
 
+// bf16 queries over an int8 packed store at list widths 64 and 128: the
+// int8 kernel's block, ring and resident queries, with wide lists and their
+// selection (spelled out beside it, as the kernels above are)
+template <int KMAX>
+__global__ void __launch_bounds__(W_THREADS, 1)
+    scan_wgmma_wide_kernel(const __grid_constant__ CUtensorMap rows, Params p) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const WSmem<WideList<KMAX>> s(smem);
+  const WItem b = wgmma_begin(p, s);
+  if (b.nl == 0) return wgmma_write(p, s, b, true);
+  const int wg = threadIdx.x / 128;
+  if (wg == W_CONSUMERS) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(W_PRODUCER_REGS) : "memory");
+    if (threadIdx.x % 128 < 32 * W_CONSUMERS && threadIdx.x % 32 == 0)
+      wgmma_produce(&rows, p, s, b, threadIdx.x % 128 / 32);
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(W_CONSUMER_REGS) : "memory");
+    switch (b.nl) {  // up to W_WIDE_SLOTS / 16
+      case 1: wgmma_consume_wide<KMAX, 1>(p, s, b, wg); break;
+      case 2: wgmma_consume_wide<KMAX, 2>(p, s, b, wg); break;
+      case 3: wgmma_consume_wide<KMAX, 3>(p, s, b, wg); break;
+      default: wgmma_consume_wide<KMAX, 4>(p, s, b, wg); break;
+    }
+    bar_sync(BAR_CONSUMERS, W_CONSUMERS * 128);
+    wgmma_write(p, s, b, false);
+  }
+}
+
 // The store as a 2-D tensor of n_rows × d values for TMA (boxes of WR rows
 // × WK int8 depths, or × 32 f32 depths under the 128-byte swizzle; zeros
 // past its edges), by cuTensorMapEncodeTiled looked up at run time, so the
@@ -2167,23 +2463,36 @@ cudaError_t row_tensor_map(CUtensorMap* map, const void* store, int n_rows, int 
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-// The bodies: the mma.sync body, or one of the three wgmma bodies
-enum Body { BODY_MMA = 0, BODY_WGMMA_INT8 = 1, BODY_WGMMA_F32 = 2, BODY_WGMMA_F32MODE = 3 };
+// The bodies: the mma.sync body, or one of the four wgmma bodies
+enum Body {
+  BODY_MMA = 0,
+  BODY_WGMMA_INT8 = 1,
+  BODY_WGMMA_F32 = 2,
+  BODY_WGMMA_F32MODE = 3,
+  BODY_WGMMA_WIDE = 4
+};
 
 // The wgmma bodies' scope: bf16 queries over an int8 or f32 packed store,
 // or f32 queries over an int8 packed store (no row map), lists of width 32
 // and no floor, rows of whole 16 bytes at a 16-byte aligned store, and a
 // resident query tile that fits (d rounded up to the ring's stage depths,
-// W_QD_STEP or W_QD_STEP_F, within W_MAX_QD, W_MAX_QD3 or W_MAX_QD_F).  A
+// W_QD_STEP or W_QD_STEP_F, within W_MAX_QD, W_MAX_QD3 or W_MAX_QD_F); and
+// bf16 queries over an int8 packed store at list widths 64 and 128 (k 33
+// to 128) on the same terms, the tile within WideList<64 or 128>::MAX_QD.  A
 // round under a floor (k past 1024) keeps the mma.sync body of the rounds
 // before it: every round sums a row the same way, or a row at the boundary
 // could be listed twice or not at all.
 int wgmma_scope(int mode, int store_type, int k, int d, const void* store, const void* row_ids,
                 bool floored) {
-  if (mode == MODE_INT8 || row_ids != nullptr || floored || k > W_LIST ||
+  if (mode == MODE_INT8 || row_ids != nullptr || floored || k > W_WIDE_LIST ||
       reinterpret_cast<uintptr_t>(store) % 16 != 0)
     return BODY_MMA;
   const int qd = (d + W_QD_STEP - 1) / W_QD_STEP * W_QD_STEP;
+  if (k > W_LIST)
+    return mode == MODE_BF16 && store_type == STORE_INT8 && d % 16 == 0 &&
+                   qd <= (k <= 64 ? WideList<64>::MAX_QD : WideList<128>::MAX_QD)
+               ? BODY_WGMMA_WIDE
+               : BODY_MMA;
   if (store_type == STORE_INT8 && d % 16 == 0) {
     if (mode == MODE_BF16 && qd <= W_MAX_QD) return BODY_WGMMA_INT8;
     if (mode == MODE_F32 && qd <= W_MAX_QD3) return BODY_WGMMA_F32MODE;
@@ -2199,10 +2508,14 @@ int wgmma_scope(int mode, int store_type, int k, int d, const void* store, const
 template <typename TS>
 cudaError_t launch_wgmma(const Params& p, int n_pairs, int n_rows, cudaStream_t stream,
                          int* blocks_per_sm) {
-  void (*kernel)(const CUtensorMap, Params) =
-      std::is_same<TS, float>::value     ? scan_wgmma_f32_kernel
-      : std::is_same<TS, F32Mode>::value ? scan_wgmma_f32mode_kernel
-                                         : scan_wgmma_kernel;
+  void (*kernel)(const CUtensorMap, Params) = nullptr;
+  if constexpr (IsWide<TS>::value) {
+    kernel = scan_wgmma_wide_kernel<TS::KMAX>;
+  } else {
+    kernel = std::is_same<TS, float>::value     ? scan_wgmma_f32_kernel
+             : std::is_same<TS, F32Mode>::value ? scan_wgmma_f32mode_kernel
+                                                : scan_wgmma_kernel;
+  }
   if (p.qd % WRing<TS>::QD_STEP != 0 || p.qd > WRing<TS>::MAX_QD) return cudaErrorInvalidValue;
   const size_t smem = wgmma_smem_bytes<TS>(p.qd);
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -2256,6 +2569,9 @@ cudaError_t dispatch(const Params& p, int mode, int store_type, int body, int n_
   if (body == BODY_WGMMA_INT8) return launch_wgmma<int8_t>(p, n_pairs, n_rows, s, blocks_per_sm);
   if (body == BODY_WGMMA_F32) return launch_wgmma<float>(p, n_pairs, n_rows, s, blocks_per_sm);
   if (body == BODY_WGMMA_F32MODE) return launch_wgmma<F32Mode>(p, n_pairs, n_rows, s, blocks_per_sm);
+  if (body == BODY_WGMMA_WIDE)
+    return p.k <= 64 ? launch_wgmma<WideList<64>>(p, n_pairs, n_rows, s, blocks_per_sm)
+                     : launch_wgmma<WideList<128>>(p, n_pairs, n_rows, s, blocks_per_sm);
   if (mode == MODE_INT8 && store_type == STORE_INT8)
     return launch<MODE_INT8, int8_t>(p, n_pairs, s, blocks_per_sm);
   if (mode == MODE_F32) {
@@ -2287,15 +2603,17 @@ extern "C" {
 //    rounded up to W_QD_STEP (128) and a row is the three terms' planes hi,
 //    mid, lo, qd values each, each group of 64 in WGMMA_ORDER;
 //  * bf16 mode: bf16, int8 mode: int8, nt 1, qd a multiple of 16 >= d;
-//    where the call takes a wgmma body (wgmma_scope: bf16 over an int8 or
-//    f32 packed store, k <= 32, ...), qd is d rounded up to W_QD_STEP
-//    (128) over an int8 store, each group of 64 values in WGMMA_ORDER, or
+//    where the call takes a wgmma body (wgmma_scope: bf16 over an int8
+//    packed store, k <= 128, or over an f32 packed store, k <= 32, ...), qd
+//    is d rounded up to W_QD_STEP (128) over an int8 store, each group of
+//    64 values in WGMMA_ORDER, or
 //    to W_QD_STEP_F (64) over an f32 store, each group of 32 values in
 //    WGMMA_F32_ORDER (ops/scan_kernel.py).
 // n_rows: the store's rows (the edge of its TMA tensor map).  *body: in,
 // the body the queries are laid out for (enum Body: 0 the mma.sync body,
 // 1 the wgmma body over an int8 store, 2 over an f32 store, 3 in f32 mode
-// over an int8 store, as lmi_scan_body named it); out, the body the call's
+// over an int8 store, 4 over an int8 store at list widths 64 and 128, as
+// lmi_scan_body named it); out, the body the call's
 // scope picks.
 // Where the two differ nothing launches and the call returns
 // cudaErrorInvalidValue.  All other pointers are device pointers; nothing
@@ -2368,14 +2686,17 @@ int lmi_scan_body(int k, int mode, int store_type, int d, const void* store, con
     return cudaErrorInvalidValue;
   *body = wgmma_scope(mode, store_type, k, d, store, row_ids, floored != 0);
   const bool wgmma = *body != BODY_MMA;
-  const int q_group = *body == BODY_WGMMA_INT8 || *body == BODY_WGMMA_F32MODE ? W_QD_STEP
-                      : *body == BODY_WGMMA_F32                                ? W_QD_STEP_F
-                      : mode == MODE_F32                                       ? 32
-                                                                               : 16;
+  const int q_group = *body == BODY_WGMMA_F32 ? W_QD_STEP_F
+                      : wgmma                   ? W_QD_STEP
+                      : mode == MODE_F32        ? 32
+                                                : 16;
   *qd = (d + q_group - 1) / q_group * q_group;
   int width = 32;
   while (width < k) width *= 2;
-  *block_queries = *body == BODY_WGMMA_F32MODE ? WQ3 : wgmma ? WQ : queries_per_block(width);
+  *block_queries = *body == BODY_WGMMA_F32MODE ? WQ3
+                   : *body == BODY_WGMMA_WIDE  ? W_WIDE_SLOTS
+                   : wgmma                     ? WQ
+                                               : queries_per_block(width);
   Params p{};
   p.k = k;
   p.qtile = QT;

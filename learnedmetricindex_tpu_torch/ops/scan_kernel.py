@@ -22,14 +22,16 @@ of a pair whose bucket has no chunks.
   lists back into one (:func:`merge_split_lists`: ``csrc/scan_merge.cu``
   on CUDA, :func:`merge_split_lists_reference` on the CPU).  The lists
   are those of one scan of the whole bucket, bit for bit.
-* Four bodies: the bf16 queries over an int8 packed store at list width
+* Five bodies: the bf16 queries over an int8 packed store at list width
   32 (the default search) and over an f32 packed store (the default
   search over ``BuildConfiguration(dtype="float32")``, the CLI's store)
   run the Hopper bodies (wgmma, TMA, a resident query tile of 64 slots a
-  block), and so do the f32 queries over an int8 packed store at list
-  width 32 (``precision="highest"``, the default of ``sharded_search``
-  and ``scan_buckets``: the three terms of 32 slots a block resident);
-  every other call the mma.sync body.  The library decides
+  block), and so do the bf16 queries over an int8 packed store at list
+  widths 64 and 128 (``k_scan`` 33 to 128: ``search(k=100)``), and the
+  f32 queries over an int8 packed store at list width 32
+  (``precision="highest"``, the default of ``sharded_search`` and
+  ``scan_buckets``: the three terms of 32 slots a block resident); every
+  other call the mma.sync body.  The library decides
   (``wgmma_scope``); :func:`scan_body` asks it which body a launch takes,
   and each launch checks that the queries were laid out for the body that
   runs.
@@ -40,7 +42,8 @@ of a pair whose bucket has no chunks.
 * ``LAUNCHES`` — how many times the wrapper launched the kernel
   (``WGMMA_LAUNCHES``: of those, the launches that ran a Hopper body;
   ``WGMMA_F32_LAUNCHES``: of those, the body over an f32 store;
-  ``WGMMA_F32MODE_LAUNCHES``: of those, the body in f32 mode);
+  ``WGMMA_F32MODE_LAUNCHES``: of those, the body in f32 mode;
+  ``WGMMA_WIDE_LAUNCHES``: of those, the body at list widths 64 and 128);
   ``MERGE_LAUNCHES`` — the merge kernel.
 
 Stores: a packed store is ``(n_slots, d)`` rows with ``(n_slots,)``
@@ -77,7 +80,7 @@ MODES = {"f32": 0, "bf16": 1, "int8": 2}
 MAX_K = 1024  # the widest top-k list of csrc/scan_pairs.cu: wider k runs in rounds
 MAX_QTILE = 128  # QT in csrc/scan_pairs.cu
 #: the bodies as the library numbers them (enum Body in csrc/scan_pairs.cu)
-BODY_NAMES = ("mma.sync", "wgmma", "wgmma over f32", "wgmma in f32 mode")
+BODY_NAMES = ("mma.sync", "wgmma", "wgmma over f32", "wgmma in f32 mode", "wgmma wide lists")
 _STORE_TYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
 #: kernel launches made by :func:`scan_pairs` (never by the plain version)
@@ -88,6 +91,8 @@ WGMMA_LAUNCHES = 0
 WGMMA_F32_LAUNCHES = 0
 #: of WGMMA_LAUNCHES, those that ran the wgmma body in f32 mode (over an int8 store)
 WGMMA_F32MODE_LAUNCHES = 0
+#: of WGMMA_LAUNCHES, those that ran the wgmma body at list widths 64 and 128
+WGMMA_WIDE_LAUNCHES = 0
 #: merge kernel launches made by :func:`merge_split_lists` (never by its plain version)
 MERGE_LAUNCHES = 0
 
@@ -710,10 +715,12 @@ def _launch_items(lib, queries, qscales, qidx, pair_bucket, ptr, chunk_of, store
     if err != 0:
         raise RuntimeError(f"scan_pairs kernel launch failed: cudaError {err}")
     global LAUNCHES, WGMMA_LAUNCHES, WGMMA_F32_LAUNCHES, WGMMA_F32MODE_LAUNCHES
+    global WGMMA_WIDE_LAUNCHES
     LAUNCHES += 1
     WGMMA_LAUNCHES += ran.value > 0
     WGMMA_F32_LAUNCHES += ran.value == 2
     WGMMA_F32MODE_LAUNCHES += ran.value == 3
+    WGMMA_WIDE_LAUNCHES += ran.value == 4
     return out_d, out_s
 
 

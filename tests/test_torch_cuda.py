@@ -673,6 +673,89 @@ def test_wgmma_f32mode_body_widths(cuda, d, qtile, body):
     assert scan_kernel.WGMMA_F32MODE_LAUNCHES - before == (body == 3)
 
 
+#: the widest resident query tile of the wgmma body at list widths 64 and
+#: 128 (WideList<64>::MAX_QD, WideList<128>::MAX_QD in csrc/scan_pairs.cu)
+WIDE_MAX_QD = {64: 1024, 128: 768}
+
+
+def _earlier_copy_first(store, ks, k):
+    """The 40 rows that ``_body_case`` duplicates later in their own
+    bucket: where a list holds the later copy, the earlier one comes
+    before it."""
+    row_slot = store.row_slot.cpu().numpy()
+    partner = np.full(store.chunk_data.shape[0], -1)
+    partner[row_slot[1500:1540]] = row_slot[:40]
+    lists = ks.reshape(-1, k)
+    earlier = np.where(lists >= 0, partner[np.maximum(lists, 0)], -1)
+    rows, cols = np.nonzero(earlier >= 0)
+    assert len(rows) > 0
+    for r, j in zip(rows, cols):
+        assert (lists[r, :j] == earlier[r, j]).any(), (r, j)
+
+
+@pytest.mark.parametrize("k", [33, 64, 65, 106, 128])
+@pytest.mark.parametrize("qtile", [1, 37, 64, 128])
+@pytest.mark.parametrize("d", [16, 768, "widest"])
+def test_wgmma_wide_body_matches_plain_version(cuda, k, qtile, d):
+    """bf16 over the int8 packed store at list widths 64 and 128 (k_scan
+    33 to 128: ``search(k=100)``), the launches the wide-list wgmma body
+    takes: k at both edges of both widths, query tiles of one and of two
+    64-slot blocks, d from one k-step to the widest resident query tile of
+    the width; chunks of 96 rows (1.5 of its 64-row tiles), an empty
+    bucket, padding rows.  The kernel within the bar of the plain version
+    (and so within the bf16 bar, ``atol`` 3e-3, of it), no slot twice,
+    exact ties to the earlier row, one launch, and that launch the wide
+    body."""
+    d = WIDE_MAX_QD[scan_kernel.list_width(k)] if d == "widest" else d
+    store, queries, order = _body_case(cuda, 96, seed=k + qtile + d, d=d)
+    _, args = scan_inputs(store, queries, order, qtile, "bf16")
+    before = (scan_kernel.WGMMA_LAUNCHES, scan_kernel.WGMMA_WIDE_LAUNCHES)
+    ks = _kernel_vs_plain(args, k, qtile, store.chunk, "bf16", 1)
+    assert (scan_kernel.WGMMA_LAUNCHES, scan_kernel.WGMMA_WIDE_LAUNCHES) == (before[0] + 1,
+                                                                           before[1] + 1)
+    _earlier_copy_first(store, ks, k)
+
+
+@pytest.mark.parametrize("store_kind", ["chunk320", "chunk130", "mutated"])
+@pytest.mark.parametrize("k,qtile", [(36, 100), (106, 128), (128, 8)])
+def test_wgmma_wide_body_on_other_stores(cuda, store_kind, k, qtile):
+    """The wide-list wgmma body over chunks that are not whole 64-row
+    tiles (320, 130) and over a mutated store with its chunk lists out of
+    physical order: within the bar of the plain version, one launch on the
+    wide body."""
+    if store_kind == "mutated":
+        store, queries, order, _, _ = _mutated_store(cuda, 768, "int8", seed=k + qtile)
+    else:
+        store, queries, order = _body_case(cuda, int(store_kind[5:]), seed=k + qtile)
+    _, args = scan_inputs(store, queries, order, qtile, "bf16")
+    before = scan_kernel.WGMMA_WIDE_LAUNCHES
+    ks = _kernel_vs_plain(args, k, qtile, store.chunk, "bf16", 1)
+    assert scan_kernel.WGMMA_WIDE_LAUNCHES == before + 1
+    if store_kind != "mutated":
+        _earlier_copy_first(store, ks, k)
+
+
+@pytest.mark.parametrize("k,qtile", [(106, 128), (128, 37), (64, 100)])
+def test_wgmma_wide_body_split_through_the_merge(cuda, k, qtile):
+    """Segments of one chunk (buckets of up to 7 chunks of 96 rows cut into
+    one item a chunk, merged by ``csrc/scan_merge.cu``) give the bits of
+    the wide body over whole buckets, and stay within the bar of the plain
+    version; each run one scan launch on the wide body and one merge."""
+    store, queries, order = _body_case(cuda, 96, seed=k + 1)
+    plan, args = scan_inputs(store, queries, order, qtile, "bf16")
+    before = scan_kernel.WGMMA_WIDE_LAUNCHES
+    whole = _split_kernel(args, plan, store, k, qtile, "bf16", 10**6)
+    split = _split_kernel(args, plan, store, k, qtile, "bf16", 1)
+    assert scan_kernel.WGMMA_WIDE_LAUNCHES == before + 2
+    assert torch.equal(split[0].view(torch.int32), whole[0].view(torch.int32))
+    assert torch.equal(split[1], whole[1])
+    rd, rs = scan_kernel.scan_pairs_reference(*args, k=k, qtile=qtile, chunk=96, mode="bf16")
+    kd, ks, rd, rs = (t.cpu().numpy() for t in (*split, rd, rs))
+    np.testing.assert_array_equal(np.isinf(kd), np.isinf(rd))
+    np.testing.assert_allclose(kd, rd, rtol=1e-4, atol=1e-5)
+    _earlier_copy_first(store, ks, k)
+
+
 @pytest.mark.parametrize("k", [16, 32])
 def test_f32mode_kernel_is_no_less_exact_than_plain(cuda, k):
     """f32 queries over an int8 packed store of unit rows at d 768 (the
@@ -737,8 +820,23 @@ def test_wgmma_f32_scope_keeps_the_mma_body(cuda, case):
         ("bf16", torch.int8, 16, 1040, False, True, 1),  # rounded up to 1152 ...
         ("bf16", torch.int8, 16, 1152, False, True, 1),  # ... the widest resident tile
         ("bf16", torch.int8, 16, 1168, False, True, 0),  # rounded up to 1280: too wide
-        ("bf16", torch.int8, 33, 768, False, True, 0),  # list width 64
-        ("bf16", torch.int8, 106, 768, False, True, 0),
+        ("bf16", torch.int8, 33, 768, False, True, 4),  # list width 64: the wide body
+        ("bf16", torch.int8, 64, 768, False, True, 4),
+        ("bf16", torch.int8, 65, 768, False, True, 4),  # list width 128
+        ("bf16", torch.int8, 106, 768, False, True, 4),  # search(k=100)
+        ("bf16", torch.int8, 128, 768, False, True, 4),
+        ("bf16", torch.int8, 129, 768, False, True, 0),  # list width 256
+        ("bf16", torch.int8, 64, 1024, False, True, 4),  # the widest tile at width 64
+        ("bf16", torch.int8, 64, 1040, False, True, 0),
+        ("bf16", torch.int8, 106, 16, False, True, 4),
+        ("bf16", torch.int8, 106, 752, False, True, 4),  # rounded up to 768 ...
+        ("bf16", torch.int8, 106, 784, False, True, 0),  # ... the widest at width 128
+        ("bf16", torch.int8, 106, 768, True, True, 0),  # a virtual store
+        ("bf16", torch.int8, 106, 100, False, True, 0),  # rows not of whole 16 bytes
+        ("bf16", torch.int8, 106, 768, False, False, 0),  # an unaligned store
+        ("bf16", torch.bfloat16, 106, 768, False, True, 0),
+        ("bf16", torch.float32, 106, 768, False, True, 0),
+        ("int8", torch.int8, 106, 768, False, True, 0),
         ("bf16", torch.int8, 16, 768, True, True, 0),  # a virtual store
         ("bf16", torch.int8, 16, 100, False, True, 0),  # rows not of whole 16 bytes
         ("bf16", torch.int8, 16, 30, False, True, 0),
@@ -780,9 +878,11 @@ def test_library_picks_the_body(cuda, mode, store_dtype, k, d, virtual, aligned,
     an f32 packed store (body 2), f32 over an int8 packed store (body 3),
     k <= 32 and no floor, whole 16-byte rows at an aligned store, d rounded
     up to 128 (int8) or 64 (f32) within the resident tile (896 for the
-    three terms); everything else keeps the mma.sync body (0), and so does
-    every round under a floor.  With the body come the width of the query
-    rows it reads and its blocks' query slots (32 for the three terms)."""
+    three terms), and bf16 over an int8 packed store at k 33 to 128 on the
+    same terms (body 4, the tile within 1024 at list width 64 and 768 at
+    128); everything else keeps the mma.sync body (0), and so does every
+    round under a floor.  With the body come the width of the query rows
+    it reads and its blocks' query slots (32 for the three terms)."""
     lib = cuda_build.load(scan_kernel.SOURCE, scan_kernel._bind)
     flat = torch.zeros(64 * d + 16, dtype=store_dtype, device=cuda)
     store = flat[(0 if aligned else 1):][: 64 * d].view(64, d)
@@ -802,27 +902,30 @@ def test_library_picks_the_body(cuda, mode, store_dtype, k, d, virtual, aligned,
     assert not scan_kernel.scan_body(lib, store, mode, k, row_ids, floored=True).wgmma
 
 
-@pytest.mark.parametrize("case", ["virtual", "d100", "d96", "k33", "k1040", "d1040", "d1152",
-                                  "f32 virtual", "f32 d100", "f32 d96", "f32 k33", "f32 k1040",
-                                  "f32 d896", "f32 d912"])
+@pytest.mark.parametrize("case", ["virtual", "d100", "d96", "k33", "k106", "k129", "k1040",
+                                  "d1040", "d1152", "f32 virtual", "f32 d100", "f32 d96",
+                                  "f32 k33", "f32 k106", "f32 k1040", "f32 d896", "f32 d912"])
 def test_wgmma_scope_picks_the_body(cuda, case):
     """The launches outside the wgmma bodies' scope keep the mma.sync body
-    (a virtual store, rows of 100 bytes, a list of width 64, and k 1040:
-    a 1024-wide round, then a 16-wide one under its floors, which keeps
-    the body of the round before it, so that both sum a row the same way);
-    bf16 at d 96, 1040 and 1152 (the widest resident query tile) and f32
+    (a virtual store, rows of 100 bytes, f32 at lists of width 64 and 128,
+    bf16 at width 256, and k 1040: a 1024-wide round, then a 16-wide one
+    under its floors, which keeps the body of the round before it, so that
+    both sum a row the same way); bf16 at d 96, 1040 and 1152 (the widest
+    resident query tile) and at k 33 and 106 (the wide-list body), and f32
     (the three-term body) at d 96 and 896 (its widest; 912 is past it) take
     a wgmma body.  Each within the bar of the plain version, the body
     counted from the library's report of each launch."""
     mode, _, case = case.rpartition(" ")
     mode = mode or "bf16"
-    k = {"k33": 33, "k1040": 1040}.get(case, 16)
-    before = (scan_kernel.WGMMA_LAUNCHES, scan_kernel.WGMMA_F32MODE_LAUNCHES)
+    k = {"k33": 33, "k106": 106, "k129": 129, "k1040": 1040}.get(case, 16)
+    before = (scan_kernel.WGMMA_LAUNCHES, scan_kernel.WGMMA_F32MODE_LAUNCHES,
+              scan_kernel.WGMMA_WIDE_LAUNCHES)
     if case == "k1040":  # buckets of ~3,000 rows, wider than one round
         store, queries, order = _wide_case(cuda, "int8", seed=1040)
         _, args = scan_inputs(store, queries, order, 8, mode)
         _kernel_vs_plain(args, k, 8, 256, mode, 2)
-        assert (scan_kernel.WGMMA_LAUNCHES, scan_kernel.WGMMA_F32MODE_LAUNCHES) == before
+        assert (scan_kernel.WGMMA_LAUNCHES, scan_kernel.WGMMA_F32MODE_LAUNCHES,
+                scan_kernel.WGMMA_WIDE_LAUNCHES) == before
         return
     if case == "virtual":
         store, queries, order = _virtual_case(cuda, 768, "int8", seed=3, shuffle=False)
@@ -838,22 +941,27 @@ def test_wgmma_scope_picks_the_body(cuda, case):
         chunk = 96
     _, args = scan_inputs(store, queries, order, 128, mode)
     _kernel_vs_plain(args, k, 128, chunk, mode, 1)
-    takes = {"bf16": ("d96", "d1040", "d1152"), "f32": ("d96", "d896")}[mode]
+    takes = {"bf16": ("d96", "d1040", "d1152", "k33", "k106"), "f32": ("d96", "d896")}[mode]
     n_w = scan_kernel.WGMMA_LAUNCHES - before[0]
     assert n_w == (1 if case in takes else 0)
     assert scan_kernel.WGMMA_F32MODE_LAUNCHES - before[1] == (n_w if mode == "f32" else 0)
+    assert scan_kernel.WGMMA_WIDE_LAUNCHES - before[2] == (n_w if k > 32 else 0)
 
 
-@pytest.mark.parametrize("d,laid_out,store_dtype,mode", [
-    (768, 0, "int8", "bf16"), (100, 1, "int8", "bf16"), (768, 0, "float32", "bf16"),
-    (768, 1, "float32", "bf16"), (102, 2, "float32", "bf16"), (768, 3, "int8", "bf16"),
-    (768, 0, "int8", "f32"), (768, 1, "int8", "f32"), (100, 3, "int8", "f32"),
-    (912, 3, "int8", "f32")])
-def test_launch_rejects_queries_laid_out_for_the_other_body(cuda, d, laid_out, store_dtype, mode):
+@pytest.mark.parametrize("d,laid_out,store_dtype,mode,k", [
+    (768, 0, "int8", "bf16", 16), (100, 1, "int8", "bf16", 16), (768, 0, "float32", "bf16", 16),
+    (768, 1, "float32", "bf16", 16), (102, 2, "float32", "bf16", 16), (768, 3, "int8", "bf16", 16),
+    (768, 0, "int8", "f32", 16), (768, 1, "int8", "f32", 16), (100, 3, "int8", "f32", 16),
+    (912, 3, "int8", "f32", 16), (768, 0, "int8", "bf16", 106), (768, 1, "int8", "bf16", 106),
+    (768, 4, "int8", "bf16", 16), (784, 4, "int8", "bf16", 106), (768, 4, "int8", "f32", 106)])
+def test_launch_rejects_queries_laid_out_for_the_other_body(cuda, d, laid_out, store_dtype, mode,
+                                                            k):
     """Every launch is held to the body the library picks: queries laid
     out for another body (the mma.sync layout where a wgmma body runs, a
     wgmma layout where the mma.sync body or another wgmma body runs, in
-    bf16 and in f32 mode) launch nothing, raise, and count no launch."""
+    bf16 and in f32 mode, at list width 32 and 128: the width-32 and the
+    wide-list bodies over int8 rows read one layout, and are still held
+    apart) launch nothing, raise, and count no launch."""
     data, rng = _corpus(2000, d, seed=6)
     if store_dtype == "int8":
         store = BucketStore.build_packed_int8(data, rng.integers(0, 5, 2000), 5, chunk=96,
@@ -867,17 +975,18 @@ def test_launch_rejects_queries_laid_out_for_the_other_body(cuda, d, laid_out, s
     _, (q, qidx, pb, ptr, chunk_of, st, sc, qs, row_ids) = scan_inputs(store, queries, order, 128,
                                                                        mode)
     lib = cuda_build.load(scan_kernel.SOURCE, scan_kernel._bind)
-    assert scan_kernel.scan_body(lib, st, mode, 16).kind != laid_out
-    # the layout of the body laid_out names (bodies 1 and 3: over an int8 store's order)
-    layout_dtype = torch.int8 if laid_out in (1, 3) else st.dtype
+    assert scan_kernel.scan_body(lib, st, mode, k).kind != laid_out
+    # the layout of the body laid_out names (bodies 1, 3 and 4: over an int8 store's order)
+    layout_dtype = torch.int8 if laid_out in (1, 3, 4) else st.dtype
     op = scan_kernel.operand_queries(q, mode, layout_dtype,
                                      -(-d // 128) * 128 if laid_out else 0)
-    counts = ("LAUNCHES", "WGMMA_LAUNCHES", "WGMMA_F32_LAUNCHES", "WGMMA_F32MODE_LAUNCHES")
+    counts = ("LAUNCHES", "WGMMA_LAUNCHES", "WGMMA_F32_LAUNCHES", "WGMMA_F32MODE_LAUNCHES",
+              "WGMMA_WIDE_LAUNCHES")
     before = [getattr(scan_kernel, c) for c in counts]
     other = scan_kernel.BODY_NAMES[laid_out]
     with pytest.raises(RuntimeError, match=f"laid out for the {other} body"):
         scan_kernel._launch_items(lib, op, qs, qidx, pb, ptr, chunk_of, st, sc, row_ids, None,
-                                  k=16, qtile=128, chunk=store.chunk, mode=mode,
+                                  k=k, qtile=128, chunk=store.chunk, mode=mode,
                                   terms=3 if mode == "f32" else 1, body=laid_out)
     assert [getattr(scan_kernel, c) for c in counts] == before
 
@@ -1274,7 +1383,9 @@ def test_wide_lists_keep_the_tie_rule(cuda, mode, store_dtype, width, qtile):
     every boundary) do too; (3) at qtile 128, a pair whose query slots
     are all padding but three in one later block (m-tile 7 where one
     block holds the pair), and a pair with no live slot at all, equal the
-    plain version."""
+    plain version; (4) bf16 over the int8 store at widths 64 and 128 (the
+    wide-list wgmma body) with integer queries, bit-equal to the plain
+    version."""
     store, queries, order, in_order = _tied_case(cuda, store_dtype, seed=width)
     plan, args = scan_inputs(store, queries, order, qtile, mode)
     ks = _kernel_vs_plain(args, width - 5, qtile, 96, mode, 1)
@@ -1316,6 +1427,23 @@ def test_wide_lists_keep_the_tie_rule(cuda, mode, store_dtype, width, qtile):
     ks = _kernel_vs_plain(args, width - 5, 128, 96, mode, 1)
     _in_scan_order(qidx, plan.pair_bucket, ks, in_order)
     assert (ks[1] == -1).all() and (ks[0, :at] == -1).all() and (ks[0, at + 3:] == -1).all()
+
+    if (mode, store_dtype) != ("bf16", "int8") or width > 128:
+        return
+    # (4) the wide-list wgmma body over exact integer ties: queries of small
+    # integers (exact in bf16) against the int8 rows sum exactly, so the
+    # kernel's distances are the plain version's bits, and its lists too
+    q_int = np.random.default_rng(width).integers(-3, 4, tuple(queries.shape))
+    plan, args = scan_inputs(store, torch.as_tensor(q_int, dtype=torch.float32, device=cuda),
+                             order, qtile, mode)
+    kw = dict(k=width - 5, qtile=qtile, chunk=96, mode=mode)
+    before = scan_kernel.WGMMA_WIDE_LAUNCHES
+    kd, ks = scan_kernel.scan_pairs(*args, **kw)
+    torch.cuda.synchronize()
+    assert scan_kernel.WGMMA_WIDE_LAUNCHES == before + 1
+    rd, rs = scan_kernel.scan_pairs_reference(*args, **kw)
+    assert torch.equal(kd.view(torch.int32), rd.view(torch.int32)) and torch.equal(ks, rs)
+    _in_scan_order(plan.qidx, plan.pair_bucket, ks.cpu().numpy(), in_order)
 
 
 def _split_kernel(args, plan, store, k, qtile, mode, segment):

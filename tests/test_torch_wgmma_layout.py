@@ -468,3 +468,220 @@ def test_segment_length_counts_the_f32mode_blocks_m_tiles(seed):
     assert (seg + 1) * heaviest > scan_kernel.SEGMENT_SHARE * fair
     assert scan_kernel.segment_length(ptr, pair_bucket, np.zeros(40, np.int64), width=32,
                                       slots=slots, wgmma_block=32) == chunks.max()
+
+
+@pytest.mark.parametrize("width", [64, 128])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_segment_length_counts_the_wide_blocks_m_tiles(width, seed):
+    """The split's cost model for the wide-list body (list widths 64 and
+    128, k_scan 33 to 128): a pair's 128 slots are two blocks of 64, as
+    the library reports them (``Body.block_queries``), each computing its
+    m-tiles up to its last live one, whatever the list width; the mma.sync
+    body those launches took before cost every live m-tile of a pair in
+    one block.  The segment keeps the heaviest block within the share of a
+    slot's fair share, and a block with no live slot costs nothing."""
+    rng = np.random.default_rng(seed + 20)
+    counts = rng.integers(0, 90, 30)
+    ptr = np.concatenate([[0], np.cumsum(counts)])
+    pair_bucket = rng.integers(0, 30, 50)
+    live = rng.integers(0, 256, 50)
+    live[:4] = [0b1, 0b10000, 0b10001001, 0]
+    slots = 132  # the wide bodies take one block an SM
+    seg = scan_kernel.segment_length(ptr, pair_bucket, live, width=width, slots=slots,
+                                     wgmma_block=64)
+    blocks = np.zeros((50, 2), np.int64)
+    for p in range(50):
+        for blk in range(2):
+            bits = [(live[p] >> (4 * blk + m)) & 1 for m in range(4)]
+            blocks[p, blk] = max((m + 1 for m in range(4) if bits[m]), default=0)
+    np.testing.assert_array_equal(blocks[:4], [[1, 0], [0, 1], [4, 4], [0, 0]])
+    chunks = counts[pair_bucket]
+    fair = (chunks[:, None] * blocks).sum() / slots
+    heaviest = blocks[chunks > 0].max()
+    assert seg >= 1
+    if seg > 1:
+        assert seg * heaviest <= scan_kernel.SEGMENT_SHARE * fair
+    assert (seg + 1) * heaviest > scan_kernel.SEGMENT_SHARE * fair
+    # the width does not enter the wide body's cost: both widths cut alike
+    other = 192 - width
+    assert seg == scan_kernel.segment_length(ptr, pair_bucket, live, width=other, slots=slots,
+                                             wgmma_block=64)
+    # the mma.sync body's one block a pair: its live m-tiles, all eight slots' worth
+    mma = scan_kernel.segment_length(ptr, pair_bucket, live, width=width, slots=slots)
+    tiles = ((live[:, None] >> np.arange(8)) & 1).sum(axis=1)
+    assert mma == max(1, int(scan_kernel.SEGMENT_SHARE * (chunks * tiles).sum()
+                             / (slots * tiles[chunks > 0].max())))
+
+
+# the wide-list body's tiles: 64 store rows, two 32-row groups of marks
+WIDE_ROWS, WIDE_GROUP = 64, 32
+
+
+def _wide_select(dist: np.ndarray, slot: np.ndarray, tiles, k: int, stale: bool):
+    """The wide-list body's selection of one query, modelled step by step:
+    ``dist``/``slot`` its distances and slots in the bucket's scan order,
+    ``tiles`` the (start, rows) of each 64-row tile in that order (chunk by
+    chunk; the two consumer warpgroups take them in turns and the
+    hand-over keeps them in that order).  A tile's epilogue marks each
+    32-row group holding a distance below the list's k-th as the
+    epilogue may read it: after the tile before last (``stale``: the other
+    warpgroup may not have selected the tile before yet) or after the tile
+    before.  The selection packs the marked groups' rows below the list's
+    current k-th in scan order, ranks them by (distance, place in the
+    buffer), places each after the entries at or below it and moves each
+    entry up by the candidates strictly below it; what lands past k - 1
+    drops out.  Returns the list (distances f32, slots)."""
+    ld = np.full(k, np.inf, np.float32)
+    ls = np.full(k, -1, np.int64)
+    kth_before = [ld[k - 1]]  # the k-th after each tile selected so far
+    for start, rows in tiles:
+        v = dist[start : start + rows]
+        mark_kth = kth_before[-2] if stale and len(kth_before) > 1 else kth_before[-1]
+        cand = []
+        for g0 in range(0, WIDE_ROWS, WIDE_GROUP):
+            group = v[g0 : g0 + WIDE_GROUP]
+            if group.size and (group < mark_kth).any():
+                cand += [r for r in range(g0, min(g0 + WIDE_GROUP, rows))
+                         if v[r] < ld[k - 1]]
+        if cand:
+            cv = v[cand]
+            rank = np.array([int(((cv < cv[i]) | ((cv == cv[i]) & (np.arange(len(cv)) < i)))
+                                 .sum()) for i in range(len(cv))])
+            sorted_c = np.empty_like(cv)
+            sorted_c[rank] = cv
+            new_d = np.full(k, np.inf, np.float32)
+            new_s = np.full(k, -1, np.int64)
+            for t in range(k):  # entries: up by the candidates strictly below
+                to = t + int(np.searchsorted(sorted_c, ld[t], side="left"))
+                if to < k:
+                    new_d[to], new_s[to] = ld[t], ls[t]
+            for i, r in enumerate(cand):  # candidates: after the entries at or below
+                place = rank[i] + int(np.searchsorted(ld, cv[i], side="right"))
+                if place < k:
+                    new_d[place], new_s[place] = cv[i], slot[start + r]
+            ld, ls = new_d, new_s
+        kth_before.append(ld[k - 1])
+    return ld, ls
+
+
+def _wide_model_lists(dist_rows: np.ndarray, ptr, chunk_of, chunk: int, pair_bucket,
+                      qidx, qtile: int, k: int, stale: bool):
+    """``(n_pairs, qtile, k)`` lists of the wide-list body's selection
+    (``_wide_select``) over the distances ``dist_rows`` ``(queries,
+    slots)`` of each pair's bucket, read chunk by chunk in 64-row tiles;
+    padding query slots and empty buckets get the fill."""
+    n_pairs = len(pair_bucket)
+    out_d = np.full((n_pairs, qtile, k), np.inf, np.float32)
+    out_s = np.full((n_pairs, qtile, k), -1, np.int64)
+    for p, b in enumerate(pair_bucket):
+        chunks = chunk_of[ptr[b] : ptr[b + 1]]
+        slots = (chunks[:, None].astype(np.int64) * chunk + np.arange(chunk)).reshape(-1)
+        tiles = [(c * chunk + r0, min(WIDE_ROWS, chunk - r0))
+                 for c in range(len(chunks)) for r0 in range(0, chunk, WIDE_ROWS)]
+        for j in range(qtile):
+            qi = qidx[p * qtile + j]
+            if qi < 0 or not len(slots):
+                continue
+            out_d[p, j], out_s[p, j] = _wide_select(dist_rows[qi, slots], slots, tiles, k,
+                                                    stale)
+    return out_d, out_s
+
+
+@pytest.mark.parametrize("k,qtile", [(64, 37), (106, 128), (33, 8)])
+@pytest.mark.parametrize("stale", [False, True])
+def test_wide_selection_model_gives_the_plain_lists(k, qtile, stale):
+    """The wide-list body's selection order (64-row tiles taken by two
+    warpgroups in turn, the marks against a k-th that may be one tile
+    stale, the merge rule, the hand-over keeping the tiles in scan order),
+    modelled in numpy over the plain version's distances, gives the plain
+    version's lists bit for bit: int8 rows and small integer queries make
+    every sum exact (so both see the same distances) and tie often, chunks
+    of 96 rows are 1.5 tiles, the last chunk of a bucket holds padding
+    slots and one bucket is empty."""
+    from learnedmetricindex_tpu_torch.index.bucket_store import BucketStore, scan_inputs
+
+    rng = np.random.default_rng(k + qtile)
+    n, d, nb, chunk, nq = 1500, 64, 5, 96, 70
+    rows = torch.as_tensor(rng.integers(-4, 5, (n, d)), dtype=torch.int8)
+    scales = torch.as_tensor(rng.choice([0.25, 0.5, 1.0], n).astype(np.float32))
+    bucket = rng.integers(0, nb, n)
+    bucket[bucket == 3] = 1  # bucket 3 empty
+    store = BucketStore.build_packed_device(rows, bucket, nb, chunk=chunk, row_scales=scales)
+    queries = torch.as_tensor(rng.integers(-3, 4, (nq, d)).astype(np.float32))
+    order = torch.as_tensor(np.stack([rng.choice(nb, 2, replace=False) for _ in range(nq)]))
+    order[-5:, 1] = -1
+    plan, args = scan_inputs(store, queries, order, qtile, "bf16")
+    q, qidx, pb, ptr, chunk_of, st, sc = args[:7]
+    kw = dict(k=k, qtile=qtile, chunk=chunk, mode="bf16")
+    rd, rs = scan_kernel.scan_pairs_reference(*args, **kw)
+    x = st.double().numpy()
+    raw = (q.bfloat16().double().numpy() @ x.T).astype(np.float32)  # exact integers
+    s = sc.numpy()
+    dist = raw * -s + np.where(s == 0.0, np.float32(np.inf), np.float32(1.0))
+    md, ms = _wide_model_lists(dist.astype(np.float32), ptr.numpy(), chunk_of.numpy(), chunk,
+                               pb.numpy(), qidx.numpy(), qtile, k, stale)
+    assert np.isfinite(md).sum() > 0 and (ms >= 0).any()
+    np.testing.assert_array_equal(md.view(np.uint32), rd.numpy().view(np.uint32))
+    np.testing.assert_array_equal(ms, rs.numpy())
+    # the ties are real: many lists hold equal finite distances side by side
+    fin = np.where(np.isfinite(md), md, np.float32(0.0))
+    assert ((np.diff(fin, axis=2) == 0.0) & np.isfinite(md[:, :, 1:])).sum() > 100
+
+
+@pytest.mark.parametrize("k,qtile", [(64, 16), (106, 8)])
+def test_wide_selection_model_matches_pallas_scan(k, qtile):
+    """The wide-list body's selection (``_wide_model_lists``, one tile
+    stale marks) over bf16 distances ``1 − raw·scale`` (raw: the bf16
+    queries against the int8 rows, exact in float64, rounded to f32) gives
+    each real query's top-k over its pair's bucket within the bar of the
+    JAX package's bf16 Pallas scan of the same seeded inputs in interpret
+    mode: rtol 1e-4, atol 1e-5, slots differing only at ties (rtol 1e-6,
+    atol 1e-7), as tests/test_scan_kernel.py holds the Pallas kernel to the
+    XLA path."""
+    import jax.numpy as jnp
+
+    from learnedmetricindex_tpu.data import synthetic_blobs
+    from learnedmetricindex_tpu.index.bucket_store import BucketStore as JaxStore
+    from learnedmetricindex_tpu.index.bucket_store import build_scan_plan
+    from learnedmetricindex_tpu.ops.scan_kernel import pallas_host_args, pallas_scan_pairs
+    from learnedmetricindex_tpu_torch.index.bucket_store import build_plan
+
+    n, nb, chunk, nq, d = 600, 4, 96, 40, 64
+    data, queries = synthetic_blobs(n, d, nq, seed=k)
+    rng = np.random.default_rng(k)
+    store = JaxStore.build_packed_int8(data, rng.integers(0, nb, size=n), nb, chunk=chunk)
+    order = np.stack([rng.choice(nb, size=2, replace=False) for _ in range(nq)]).astype(np.int64)
+    order[rng.random(nq) < 0.3, -1] = -1
+    plan = build_scan_plan(store, order, qtile=qtile)
+    n_pairs = len(plan.qidx) // qtile
+    im, ic, wr, sf, written = pallas_host_args(store, plan, qtile, n_pairs)
+    qidx = jnp.asarray(plan.qidx)
+    wq = jnp.where((qidx >= 0)[:, None], jnp.asarray(queries)[jnp.maximum(qidx, 0)], 0.0)
+    jd, js = pallas_scan_pairs(
+        wq, jnp.asarray(im), jnp.asarray(ic), jnp.asarray(wr), store.chunk_data,
+        jnp.asarray(sf), None, k=k, qtile=qtile, chunk=chunk, n_pairs=n_pairs,
+        compute="bf16", interpret=True)
+    jd, js = np.asarray(jd)[:n_pairs], np.asarray(js)[:n_pairs]
+    sf = np.asarray(sf)
+    qb = torch.as_tensor(queries).bfloat16().double().numpy()
+    raw = (qb @ np.asarray(store.chunk_data).astype(np.float64).T).astype(np.float32)
+    dist = raw * -sf[None, :] + np.where(sf == 0.0, np.float32(np.inf), np.float32(1.0))
+    pplan = build_plan(torch.as_tensor(order), nb, qtile)
+    assert pplan.n_pairs == n_pairs
+    ptr = np.asarray(store.bucket_chunk_start)
+    md, ms = _wide_model_lists(dist.astype(np.float32), ptr, np.arange(ptr[-1]), chunk,
+                               pplan.pair_bucket.numpy(), plan.qidx, qtile, k, stale=True)
+    real = (plan.qidx >= 0).reshape(-1, qtile)
+    checked = 0
+    for p in range(n_pairs):
+        if not written[p]:
+            continue
+        for j in np.nonzero(real[p])[0]:
+            o = np.lexsort((js[p, j], jd[p, j]))
+            np.testing.assert_allclose(md[p, j], jd[p, j][o], rtol=1e-4, atol=1e-5)
+            mism = ms[p, j] != js[p, j][o]
+            if mism.any():
+                np.testing.assert_allclose(md[p, j][mism], jd[p, j][o][mism], rtol=1e-6,
+                                           atol=1e-7)
+            checked += 1
+    assert checked > 0

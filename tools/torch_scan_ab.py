@@ -9,14 +9,15 @@ the checkout has it, ``csrc/scan_merge.cu``) of this tree and of
 ``OTHER_CHECKOUT`` (for example a ``git archive`` of the parent commit)
 with the port's nvcc flags into ``build/scan_ab/``; compares the SASS of
 every scan kernel instance the two have in common (addresses and
-register names left as they are, branch targets masked) and writes the
-diff of each that differs to ``build/scan_ab/``; then times both sides
+register names left as they are, branch targets masked), writes the
+diff of each that differs to ``build/scan_ab/`` and names the instances
+that only this tree's build has; then times both sides
 in one process on the same inputs, alternating which goes first, and
 checks that both give the same bits (distances and slots) at every
 ``k``, except where only one side takes a wgmma body (bf16 or f32 over an
-int8 packed store at ``k_scan`` <= 32, as its library's ``lmi_scan_body``
-says): wgmma sums in another order than ``mma.sync``, so there both sides
-are held to each other at the bar of the mode
+int8 packed store at ``k_scan`` <= 32, bf16 over it at 33 to 128, as its
+library's ``lmi_scan_body`` says): wgmma sums in another order than
+``mma.sync``, so there both sides are held to each other at the bar of the mode
 (``chip_smoke.compare_candidates``; in f32 also each side's distances
 against float64) and the lists that are bit-equal are counted.  Each side runs as its checkout's wrapper does: a checkout with
 the merge kernel splits each launch's pairs into items of the segment
@@ -109,7 +110,8 @@ def build(sources: dict) -> None:
 def sass(cubin: Path) -> dict:
     """Instruction lines per kernel, encodings and offsets dropped; a scan
     kernel instance under its name from ``scan_mma_kernel`` (or
-    ``scan_wgmma_kernel``, ``scan_wgmma_f32_kernel``) on."""
+    ``scan_wgmma_kernel``, ``scan_wgmma_f32_kernel``,
+    ``scan_wgmma_f32mode_kernel``, ``scan_wgmma_wide_kernel``) on."""
     cuobjdump = Path(cuda_build._nvcc()).with_name("cuobjdump")
     txt = subprocess.run([str(cuobjdump), "-sass", str(cubin)], capture_output=True, text=True,
                          check=True).stdout
@@ -128,7 +130,7 @@ def sass(cubin: Path) -> dict:
         # after the source file, so the two builds' prefixes differ
         name = name.strip()
         for kernel in ("scan_mma_kernel", "scan_wgmma_kernel", "scan_wgmma_f32_kernel",
-                       "scan_wgmma_f32mode_kernel"):
+                       "scan_wgmma_f32mode_kernel", "scan_wgmma_wide_kernel"):
             if kernel in name:
                 name = name[name.find(kernel):]
                 break
@@ -377,9 +379,12 @@ def main() -> None:
             diff = difflib.unified_diff(other[name], this[name], "other", "this", lineterm="")
             (WORK / f"{name}.diff").write_text("\n".join(diff) + "\n")
             differ.append(name)
+    only = sorted(n for n in set(this) - set(other) if n.startswith(("scan_mma_kernel",
+                                                                     "scan_wgmma_")))
     cs.log(f"[sass] {len(common)} scan kernel instances in both builds ({len(other)} and "
            f"{len(this)} kernels in all): {len(common) - len(differ)} identical"
-           + (f"; differ: {', '.join(differ)}" if differ else ""))
+           + (f"; differ: {', '.join(differ)}" if differ else "")
+           + (f"; only in this build: {', '.join(only)}" if only else ""))
     if args.sass_only:
         return
 

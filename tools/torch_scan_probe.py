@@ -1,12 +1,14 @@
 #!/usr/bin/env python3
 """What bounds the scan's default bodies at the flagship, on one NVIDIA GPU.
 
-    python3 tools/torch_scan_probe.py [--body mma|wgmma|mma-f32|wgmma-f32|mma-f32mode|wgmma-f32mode]
+    python3 tools/torch_scan_probe.py [--body mma|wgmma|mma-f32|wgmma-f32|mma-f32mode|wgmma-f32mode|
+                                             mma-wide|wgmma-wide]
                                       [--checkout DIR] [--reference DIR ...]
                                       [--rounds 4] [--only NAME ...]
 
 The card's machine has no ``ncu``, so this splits the time of the bf16
-scan at list width 32 (``k_scan`` 16) by removing work: over the int8
+scan at list width 32 (``k_scan`` 16; the wide-list bodies at 106) by
+removing work: over the int8
 packed store (``--body mma``, ``wgmma``) or over the same rows as an f32
 store (``--body mma-f32``, ``wgmma-f32``: ``chip_smoke.dequantized_store``,
 31 GB, the default search over ``BuildConfiguration(dtype="float32")``).
@@ -102,6 +104,28 @@ store, timed in mode f32:
 * ``three wgmma m64nNk16 a k-step``: the three planes as three wgmma of
   N columns (each into its own third of the fresh sum) in place of one
   of 3N columns.
+
+``--body mma-wide``: the mma.sync body's bf16 instance over the int8
+packed store at list width 128 (``MmaBody<MODE_BF16, int8_t, 128>``: a
+checkout where that scan takes it, for example the commit before the
+wide-list wgmma body), timed at ``k_scan`` 106 (``search(k=100)``):
+
+* ``tree``, ``(a) query tile once``, ``(b) no widening``, ``(c) no
+  selection``, ``(d) no mma``, ``(a)+(b)+(c)`` as for ``--body mma``.
+
+``--body wgmma-wide``: the wide-list wgmma body over the int8 packed
+store, timed at ``k_scan`` 106:
+
+* ``tree``, ``no wgmma``, ``no widening``, ``no TMA``, ``bare``, ``no
+  wgmma, bare`` as for ``--body wgmma``;
+* ``no selection``: ``wgmma_select_wide`` is not called (the hand-over
+  stays); ``no hand-over``: neither;
+* ``no merge``: the selection finds each marked query's candidates but
+  merges none into its list (which stays empty, so every query is marked
+  on every tile and every row of it is a candidate; the compiler drops
+  the counting that no write reads): the walk over the marks alone;
+* ``32 slots a block``: a block keeps 32 query slots (a pair takes four
+  blocks) in place of 64.
 
 The copies' results are wrong and are not read.  Then the card's memory
 rates: a ~1 GB device-to-device copy (HBM: bytes read + written) and a
@@ -295,22 +319,46 @@ WGMMA_F32MODE_VARIANTS = {
     "bare": W_NO_TMA + W_NO_WIDEN + W_NO_HANDOVER,
     "no wgmma, bare": W_NO_WGMMA + W_NO_TMA + W_NO_WIDEN + W_NO_HANDOVER,
 }
+# the wide-list body: its own selection call, merge and slot count
+WW_NO_SELECTION = [("    wgmma_select_wide(p, s, wg, N, nrows, slot0);\n", "")]
+WW_NO_HANDOVER = WW_NO_SELECTION + W_NO_HANDOVER[1:]
+WW_NO_MERGE = [("    __syncwarp();  // every lane holds its entries: the list is rewritten\n",
+                "    continue;\n    __syncwarp();  // every lane holds its entries: the list is rewritten\n")]
+WW_SLOTS32 = [("constexpr int W_WIDE_SLOTS = 64;", "constexpr int W_WIDE_SLOTS = 32;")]
+WGMMA_WIDE_VARIANTS = {
+    "tree": [],
+    "no wgmma": W_NO_WGMMA,
+    "no widening": W_NO_WIDEN,
+    "no selection": WW_NO_SELECTION,
+    "no hand-over": WW_NO_HANDOVER,
+    "no merge": WW_NO_MERGE,
+    "no TMA": W_NO_TMA,
+    "bare": W_NO_TMA + W_NO_WIDEN + WW_NO_HANDOVER,
+    "no wgmma, bare": W_NO_WGMMA + W_NO_TMA + W_NO_WIDEN + WW_NO_HANDOVER,
+    "32 slots a block": WW_SLOTS32,
+}
 VARIANTS = {"mma": MMA_VARIANTS, "wgmma": WGMMA_VARIANTS, "mma-f32": MMA_F32_VARIANTS,
             "wgmma-f32": WGMMA_F32_VARIANTS, "mma-f32mode": MMA_F32MODE_VARIANTS,
-            "wgmma-f32mode": WGMMA_F32MODE_VARIANTS}
+            "wgmma-f32mode": WGMMA_F32MODE_VARIANTS, "mma-wide": MMA_VARIANTS,
+            "wgmma-wide": WGMMA_WIDE_VARIANTS}
 # ptxas's report of the instance each body runs
 INSTANCE = {"mma": "scan_mma_kernelILi1EaLi32E", "wgmma": "scan_wgmma_kernel",
             "mma-f32": "scan_mma_kernelILi1EfLi32E", "wgmma-f32": "scan_wgmma_f32_kernel",
             "mma-f32mode": "scan_mma_kernelILi0EaLi32E",
-            "wgmma-f32mode": "scan_wgmma_f32mode_kernel"}
+            "wgmma-f32mode": "scan_wgmma_f32mode_kernel", "mma-wide": "scan_mma_kernelILi1EaLi128E",
+            "wgmma-wide": "scan_wgmma_wide_kernelILi128E"}
 # the scan mode each body runs in, and the kernel that the checkout must have
 # (wgmma bodies) or must not have (the mma.sync body those replace)
 BODY_MODE = {"mma": "bf16", "wgmma": "bf16", "mma-f32": "bf16", "wgmma-f32": "bf16",
-             "mma-f32mode": "f32", "wgmma-f32mode": "f32"}
+             "mma-f32mode": "f32", "wgmma-f32mode": "f32", "mma-wide": "bf16",
+             "wgmma-wide": "bf16"}
+# the k_scan each body is timed at: the default search's 16, search(k=100)'s 106
+BODY_K = {"mma-wide": 106, "wgmma-wide": 106}
 BODY_KERNEL = {"mma": "scan_wgmma_kernel", "wgmma": "scan_wgmma_kernel",
                "mma-f32": "scan_wgmma_f32_kernel", "wgmma-f32": "scan_wgmma_f32_kernel",
                "mma-f32mode": "scan_wgmma_f32mode_kernel",
-               "wgmma-f32mode": "scan_wgmma_f32mode_kernel"}
+               "wgmma-f32mode": "scan_wgmma_f32mode_kernel",
+               "mma-wide": "scan_wgmma_wide_kernel", "wgmma-wide": "scan_wgmma_wide_kernel"}
 
 
 def patched(source: str, edits) -> str:
@@ -393,7 +441,8 @@ def main() -> None:
     if args.body.endswith("f32"):
         store = cs.dequantized_store(store)
         what = f"{mode} over an f32 store ({store.chunk_data.numel() * 4 / 1e9:.1f} GB)"
-    runs = {n: ab.launcher(side, store, queries, order, mode, 16) for n, side in sides.items()}
+    k = BODY_K.get(args.body, 16)
+    runs = {n: ab.launcher(side, store, queries, order, mode, k) for n, side in sides.items()}
     names = list(runs)
     ms = {n: [] for n in names}
     for r in range(args.rounds):
@@ -401,7 +450,7 @@ def main() -> None:
             ms[n].append(cs.cuda_ms(runs[n], 3))
     med = {n: float(np.median(v)) for n, v in ms.items()}
     for n in names:
-        cs.log(f"[probe] {what}, k_scan 16, {queries.shape[0]} queries "
+        cs.log(f"[probe] {what}, k_scan {k}, {queries.shape[0]} queries "
                f"(mean of 3 launches a round, {args.rounds} rounds in turns): {n}: "
                f"{' '.join(f'{t:.3f}' for t in ms[n])} ms, median {med[n]:.3f} ms = "
                f"{med[n] / med['tree']:.3f} of the tree's  [{smi}]")
