@@ -36,15 +36,16 @@ phases:
    in rounds under floors): the scan kernel over the items and the merge
    kernel bit-equal to the scan kernel over whole buckets, and within the
    bar of the plain version (every other case runs the wrapper's own
-   split); then bf16 over the int8 and the f32 store and f32 over the int8
-   store at list width 32, the default and ``highest`` searches' scans
-   and their three wgmma bodies, at k 16 and 32 and qtile 1/8/100/128
-   (chunks of 320 and 130 rows, the stores mutated, forced segments; the
-   widest resident query tiles, d 1152 of bf16 over int8 rows, 896 over
-   f32 rows and of f32 over int8 rows), and the launches there that keep
-   the mma.sync body (virtual stores, int8 rows of 100 bytes, d 900 and
-   102 over f32 rows, f32 over int8 rows at d 1040, k 1040 in rounds
-   under floors), each case naming the body its launches took;
+   split); then bf16 and f32 over the int8 and the f32 store at list
+   width 32, the default and ``highest`` searches' scans and their four
+   wgmma bodies, at k 16 and 32 and qtile 1/8/100/128 (chunks of 320 and
+   130 rows, the stores mutated, forced segments; the widest resident
+   query tiles, d 1152 of bf16 over int8 rows, 896 over f32 rows and of
+   f32 over int8 and f32 rows), and the launches there that keep the
+   mma.sync body (virtual stores, int8 rows of 100 bytes, d 900 and 102
+   over f32 rows, f32 over int8 rows at d 1040, f32 over f32 rows at k
+   33, k 1040 in rounds under floors), each case naming the body its
+   launches took;
 4. corpus: a seeded 10M×768 int8 corpus (+ f32 row scales) on the
    device and the exact f32 top-10 of the queries;
 5. search path: an index whose MLP-4 encodes a nearest-centroid
@@ -71,7 +72,8 @@ phases:
    ``topk(106)``), and
    the search's split between navigation, the scan and the rest; then
    the same rows dequantized into an f32 store (31 GB): the scan in f32
-   over it (the six-term body) at ``k_scan`` 16 and 106 against its plain
+   over it (six products a k-step: the six-term wgmma body at ``k_scan``
+   16, the mma.sync body at 106) at ``k_scan`` 16 and 106 against its plain
    version, cuBLAS SGEMM + ``torch.topk`` (TF32 off) and its bound (six
    bf16 passes, the CUDA cores' FMA route beside it), at 16 both against
    float64; the scan in bf16 over it at 16 (the wgmma body over f32 rows:
@@ -79,8 +81,10 @@ phases:
    its plain version, the library call and the bound, with the bytes read
    if each pair or each block read its bucket once; whole
    ``search(precision="highest")`` and default searches over that store,
-   the first equal to exact kNN over the visited buckets, each default
-   search one launch of the wgmma body over f32 rows;
+   the first equal to exact kNN over the visited buckets and of the same
+   recall as the search through the scan's plain version, each one launch
+   of the six-term wgmma body, each default search one launch of the
+   wgmma body over f32 rows;
    then the same index over a virtual store of the device corpus
    (``get_bucket_store``: the id grid, no copy): default and ``highest``
    searches equal to the packed store's, a ``k=1100`` search equal to
@@ -215,12 +219,13 @@ BF16_ATOL, BF16_SAME_IDS = 3e-3, 0.99
 # terms must miss the bar, or the check could not tell the bodies apart
 SPLIT_REL_ERR = 2.0**-20
 REPLACES = "learnedmetricindex_tpu/ops/scan_kernel.py:325"
-# read_counts' keys of the scan's launches on its four wgmma bodies (bf16
+# read_counts' keys of the scan's launches on its five wgmma bodies (bf16
 # over int8 rows, bf16 over f32 rows, f32 over int8 rows, bf16 over int8
-# rows at list widths 64 and 128)
+# rows at list widths 64 and 128, f32 over f32 rows)
 WGMMA_INT8, WGMMA_F32 = "scan_pairs wgmma body", "scan_pairs wgmma f32 body"
 WGMMA_F32MODE = "scan_pairs wgmma f32-mode body"
 WGMMA_WIDE = "scan_pairs wgmma wide-list body"
+WGMMA_F32X = "scan_pairs wgmma six-term body"
 KERNEL_SOURCE = "learnedmetricindex_tpu_torch/csrc/scan_pairs.cu"
 # the merge of a split scan takes the place of the Pallas kernel's running
 # top-k across a pair's chunks (its `insert`, carried in VMEM chunk to chunk)
@@ -398,7 +403,8 @@ def phase_build() -> None:
             report = subprocess.run(["c++filt"], input=report, capture_output=True, text=True,
                                     timeout=60).stdout
         for line in report.splitlines():
-            if "entry function" in line or "registers" in line or "spill" in line:
+            # each instance's registers and spills, and any wgmma that ptxas serialized
+            if any(w in line for w in ("entry function", "registers", "spill", "serialized")):
                 log(f"[build]   {line.strip()}")
     log(f"[build] the three kernels, compiled in parallel: {time.perf_counter() - t0:.1f} s")
 
@@ -409,22 +415,30 @@ def reset_counts() -> None:
     scan_kernel.WGMMA_F32_LAUNCHES = 0
     scan_kernel.WGMMA_F32MODE_LAUNCHES = 0
     scan_kernel.WGMMA_WIDE_LAUNCHES = 0
+    scan_kernel.WGMMA_F32X_LAUNCHES = 0
     scan_kernel.MERGE_LAUNCHES = 0
     gather_kernel.LAUNCHES = 0
     gather_kernel.PAIR_LAUNCHES = 0
 
 
 def read_counts() -> dict:
-    """Launches a kernel; of the scan's, those of its four wgmma bodies
+    """Launches a kernel; of the scan's, those of its five wgmma bodies
     (bf16 over int8 rows, bf16 over f32 rows, f32 over int8 rows, bf16 over
-    int8 rows at list widths 64 and 128), the rest on the mma.sync body."""
+    int8 rows at list widths 64 and 128, f32 over f32 rows), the rest on the
+    mma.sync body."""
+    bodies = body_launches()
     return {"scan_pairs": scan_kernel.LAUNCHES, "scan_merge": scan_kernel.MERGE_LAUNCHES,
             "gather_pairs": gather_kernel.PAIR_LAUNCHES, "gather_rows": gather_kernel.LAUNCHES,
-            WGMMA_INT8: scan_kernel.WGMMA_LAUNCHES - scan_kernel.WGMMA_F32_LAUNCHES
-            - scan_kernel.WGMMA_F32MODE_LAUNCHES - scan_kernel.WGMMA_WIDE_LAUNCHES,
-            WGMMA_F32: scan_kernel.WGMMA_F32_LAUNCHES,
-            WGMMA_F32MODE: scan_kernel.WGMMA_F32MODE_LAUNCHES,
-            WGMMA_WIDE: scan_kernel.WGMMA_WIDE_LAUNCHES}
+            WGMMA_INT8: bodies[1], WGMMA_F32: bodies[2], WGMMA_F32MODE: bodies[3],
+            WGMMA_WIDE: bodies[4], WGMMA_F32X: bodies[5]}
+
+
+def body_launches() -> dict:
+    """The scan's launches so far on each wgmma body, by its number in
+    ``scan_kernel.BODY_NAMES``."""
+    others = {2: scan_kernel.WGMMA_F32_LAUNCHES, 3: scan_kernel.WGMMA_F32MODE_LAUNCHES,
+              4: scan_kernel.WGMMA_WIDE_LAUNCHES, 5: scan_kernel.WGMMA_F32X_LAUNCHES}
+    return {1: scan_kernel.WGMMA_LAUNCHES - sum(others.values()), **others}
 
 
 def kv_stores(dev, d: int, seed: int = 7, chunk: int = 320):
@@ -572,6 +586,18 @@ def phase_kernel_vs_plain(dev) -> dict:
     return worst
 
 
+def wgmma_kind(store, mode: str, k: int) -> int:
+    """The wgmma body that a launch at ``k`` in ``mode`` over ``store`` takes
+    where it takes one: above list width 32 the wide-list body; over f32
+    rows the six-term body in f32 mode, else the body over f32 rows; over
+    int8 rows the f32-mode body in f32 mode, else the int8 body."""
+    if k > 32:
+        return 4
+    if store.rows_ref.dtype == torch.float32:
+        return 5 if mode == "f32" else 2
+    return 3 if mode == "f32" else 1
+
+
 def held_to_plain(store, queries, order, k: int, qtile: int, mode: str, partner, what: str,
                   worst: dict, launches: int = 1, edit_qidx=None, wgmma=None):
     """One scan case: the kernel (``launches`` launches) against its plain
@@ -579,33 +605,25 @@ def held_to_plain(store, queries, order, k: int, qtile: int, mode: str, partner,
     the earlier copy; folds the error into ``worst``.  ``edit_qidx`` may
     change the plan's query slots first; ``partner`` None skips the
     duplicate-order check; ``wgmma`` (where given) how many of the
-    launches must take a wgmma body (the one over int8 rows or the one
-    over f32 rows, as the store's type says, in f32 mode the f32-mode
-    body, above list width 32 the wide-list body).  The line names the body
-    each launch took.  Returns the query slots, the pairs' buckets and the
-    kernel's slots."""
+    launches must take a wgmma body, and every launch on one must take the
+    body ``wgmma_kind`` names.  The line names the body each launch took.
+    Returns the query slots, the pairs' buckets and the kernel's slots."""
     plan, args = scan_inputs(store, queries, order, qtile, mode)
     if edit_qidx is not None:
         args = (args[0], edit_qidx(args[1].clone()), *args[2:])
     kw = dict(k=k, qtile=qtile, chunk=store.chunk, mode=mode)
-    before, before_w = scan_kernel.LAUNCHES, scan_kernel.WGMMA_LAUNCHES
-    before_f, before_m = scan_kernel.WGMMA_F32_LAUNCHES, scan_kernel.WGMMA_F32MODE_LAUNCHES
-    before_x = scan_kernel.WGMMA_WIDE_LAUNCHES
+    before, before_w, before_b = scan_kernel.LAUNCHES, scan_kernel.WGMMA_LAUNCHES, body_launches()
     kd, ks = scan_kernel.scan_pairs(*args, **kw)
     torch.cuda.synchronize()
     check(scan_kernel.LAUNCHES - before == launches,
           f"{what}: {scan_kernel.LAUNCHES - before} launches, not {launches}")
     n_w = scan_kernel.WGMMA_LAUNCHES - before_w
-    n_f = scan_kernel.WGMMA_F32_LAUNCHES - before_f
-    n_m = scan_kernel.WGMMA_F32MODE_LAUNCHES - before_m
-    n_x = scan_kernel.WGMMA_WIDE_LAUNCHES - before_x
+    ran = {body: n - before_b[body] for body, n in body_launches().items()}
+    kind = wgmma_kind(store, mode, k)
     check(wgmma is None or n_w == wgmma, f"{what}: {n_w} wgmma-body launches, not {wgmma}")
-    check(n_x == (n_w if k > 32 else 0),
-          f"{what}: {n_x} launches on the wide-list wgmma body of {n_w} on a wgmma body")
-    check(n_f == (n_w if store.rows_ref.dtype == torch.float32 else 0),
-          f"{what}: {n_f} launches on the wgmma body over f32 rows of {n_w} on a wgmma body")
-    check(n_m == (n_w if mode == "f32" else 0),
-          f"{what}: {n_m} launches on the f32-mode wgmma body of {n_w} on a wgmma body")
+    check(all(n == (n_w if body == kind else 0) for body, n in ran.items()),
+          f"{what}: wgmma launches by body {ran}, not {n_w} on the "
+          f"{scan_kernel.BODY_NAMES[kind]} body")
     rd, rs = scan_kernel.scan_pairs_reference(*args, **kw)
     err, gap = compare_candidates(kd, ks, rd, rs, mode, what)
     distinct_slots(ks, what)
@@ -614,7 +632,7 @@ def held_to_plain(store, queries, order, k: int, qtile: int, mode: str, partner,
         n_dup = earlier_duplicate_first(ks, partner, what)
         earlier_duplicate_first(rs, partner, f"{what} (plain)")
     worst[mode] = (max(worst[mode][0], err), max(worst[mode][1], gap))
-    wgmma_body = scan_kernel.BODY_NAMES[2 if n_f else 3 if n_m else 4 if n_x else 1]
+    wgmma_body = scan_kernel.BODY_NAMES[kind]
     log(f"[kernel-vs-plain] {what:52s} pairs={plan.n_pairs:4d}: agree, max|Δd|={err:.3g}, "
         f"{int((ks != rs).sum().item())} slots swapped at ties (max|Δd| there {gap:.3g}), "
         f"{n_dup} later duplicates after their earlier copy; body: "
@@ -782,23 +800,24 @@ def split_cases(dev, worst: dict) -> None:
 
 
 def width32_cases(dev, worst: dict) -> None:
-    """bf16 over the int8 and the f32 store, and f32 over the int8 store,
-    at list width 32, where the wgmma bodies run: k 16 and 32 at qtile
-    1/8/100/128 over the ``kv_stores`` int8 and f32 stores at chunk 320
-    (not whole 128-row tiles) and 130 (not whole 64-row tiles) and over the
-    same stores mutated (chunk lists out of physical order); forced
-    segments of 1 and 2 chunks bit-equal to whole buckets at k 16 and 32;
-    d 1152 (the widest resident query tile of bf16 over int8 rows) and
-    1040 (rounded up to it), d 896 (the widest over f32 rows, and of f32
-    over int8 rows), 840 and 832 (rounded up to it) and 100 (f32 rows of
-    400 bytes).  Then the launches that keep the mma.sync body at width 32:
-    virtual int8 and f32 stores, int8 rows of 100 bytes, d 900 (past the
-    widest f32 tile), f32 rows of 408 bytes (d 102), f32 over int8 rows at
-    d 1040 (past its widest tile), and k 1040 over buckets of ~4,000 rows
-    of either type (a 1024-wide round, then a 16-wide one under its
-    floors, which keeps the body of the round before it, so that both sum
-    a row the same way).  Each case checks which body its launches took,
-    as the library reports each launch."""
+    """bf16 and f32 over the int8 and the f32 store at list width 32, where
+    the wgmma bodies run: k 16 and 32 at qtile 1/8/100/128 over the
+    ``kv_stores`` int8 and f32 stores at chunk 320 (not whole 128-row
+    tiles) and 130 (not whole 64-row tiles) and over the same stores
+    mutated (chunk lists out of physical order); forced segments of 1 and
+    2 chunks bit-equal to whole buckets at k 16 and 32; d 1152 (the widest
+    resident query tile of bf16 over int8 rows) and 1040 (rounded up to
+    it), d 896 (the widest over f32 rows, of f32 over int8 rows and of f32
+    over f32 rows), 840 and 832 (rounded up to it), 100 (f32 rows of 400
+    bytes) and 16.  Then the launches that keep the mma.sync body at width
+    32 or just past it: virtual int8 and f32 stores, int8 rows of 100
+    bytes, d 900 (past the widest f32 tiles), f32 rows of 408 bytes (d
+    102), f32 over int8 rows at d 1040 (past its widest tile), f32 over f32
+    rows at k 33 (list width 64), and k 1040 over buckets of ~4,000 rows of
+    either type (a 1024-wide round, then a 16-wide one under its floors,
+    which keeps the body of the round before it, so that both sum a row
+    the same way).  Each case checks which body its launches took, as the
+    library reports each launch."""
     qtiles = (1, 8, 100, 128)
     n_cases = 0
     for chunk in (320, 130):
@@ -807,7 +826,8 @@ def width32_cases(dev, worst: dict) -> None:
         for tag in ("", " mutated") if chunk == 320 else ("",):
             if tag:  # after the fresh stores' cases: mutation writes the stores in place
                 virt = virtual_stores(made, stores["f32"])
-                for name, mode in (("int8", "bf16"), ("f32", "bf16"), ("int8", "f32")):
+                for name, mode in (("int8", "bf16"), ("f32", "bf16"), ("int8", "f32"),
+                                   ("f32", "f32")):
                     held_to_plain(virt[name], queries, order, 16, 128, mode,
                                   scan_partner(virt[name], copies),
                                   f"width 32 {mode} virtual {name} corpus k=16 qtile=128", worst,
@@ -817,7 +837,7 @@ def width32_cases(dev, worst: dict) -> None:
                 kv, copies = mutate_kv_stores(kv, copies, made, seed=19)
             for name, st in kv.items():
                 partner = scan_partner(st, copies)
-                for mode in ("bf16", "f32") if name == "int8" else ("bf16",):
+                for mode in ("bf16", "f32"):
                     for k in (16, 32):
                         for qtile in qtiles:
                             held_to_plain(st, queries, order, k, qtile, mode, partner,
@@ -840,19 +860,22 @@ def width32_cases(dev, worst: dict) -> None:
                             f"buckets (wgmma body)")
         del stores, kv
     # the widest query tiles the wgmma bodies keep resident (1152 of bf16
-    # over int8 rows, 896 over f32 rows and of f32 over int8 rows), d that
-    # the library rounds up to them (1040; 840 over f32 rows, 832 of f32
-    # over int8 rows), f32 rows of 400 bytes; then the widths that keep the
-    # mma.sync body
-    for d, name, mode, wgmma in (
-            (1152, "int8", "bf16", 1), (1040, "int8", "bf16", 1), (896, "f32", "bf16", 1),
-            (840, "f32", "bf16", 1), (100, "f32", "bf16", 1), (896, "int8", "f32", 1),
-            (832, "int8", "f32", 1), (100, "int8", "bf16", 0), (900, "f32", "bf16", 0),
-            (102, "f32", "bf16", 0), (1040, "int8", "f32", 0), (100, "int8", "f32", 0)):
+    # over int8 rows, 896 over f32 rows and of f32 over int8 or f32 rows), d
+    # that the library rounds up to them (1040; 840 over f32 rows, 832 of
+    # f32 over int8 rows), f32 rows of 400 and 64 bytes; then the widths
+    # and the list width that keep the mma.sync body
+    for d, name, mode, wgmma, k in (
+            (1152, "int8", "bf16", 1, 16), (1040, "int8", "bf16", 1, 16),
+            (896, "f32", "bf16", 1, 16), (840, "f32", "bf16", 1, 16), (100, "f32", "bf16", 1, 16),
+            (896, "int8", "f32", 1, 16), (832, "int8", "f32", 1, 16), (896, "f32", "f32", 1, 16),
+            (840, "f32", "f32", 1, 32), (100, "f32", "f32", 1, 16), (16, "f32", "f32", 1, 32),
+            (100, "int8", "bf16", 0, 16), (900, "f32", "bf16", 0, 16), (102, "f32", "bf16", 0, 16),
+            (1040, "int8", "f32", 0, 16), (100, "int8", "f32", 0, 16), (900, "f32", "f32", 0, 16),
+            (102, "f32", "f32", 0, 16), (768, "f32", "f32", 0, 33)):
         stores, queries, order, _, copies, _ = kv_stores(dev, d, seed=19)
-        held_to_plain(stores[name], queries, order, 16, 128, mode,
+        held_to_plain(stores[name], queries, order, k, 128, mode,
                       scan_partner(stores[name], copies), f"width 32 {mode} store={name} d={d} "
-                      "k=16 qtile=128", worst, wgmma=wgmma)
+                      f"k={k} qtile=128", worst, wgmma=wgmma)
         n_cases += 1
         del stores
     # floors at width 32: buckets of ~4,000 rows, so the 16-wide round runs
@@ -866,7 +889,7 @@ def width32_cases(dev, worst: dict) -> None:
                "f32": BucketStore.build_packed_device(data, buckets, 3, chunk=320)}
     order = torch.as_tensor(np.stack([rng.permutation(3)[:2] for _ in range(200)]), device=dev)
     queries = g.rows(200)
-    for name, mode in (("int8", "bf16"), ("f32", "bf16"), ("int8", "f32")):
+    for name, mode in (("int8", "bf16"), ("f32", "bf16"), ("int8", "f32"), ("f32", "f32")):
         for qtile in (8, 128):
             held_to_plain(floored[name], queries, order, 1040, qtile, mode, None,
                           f"width 32 rounds {mode} store={name} k=1040 qtile={qtile}", worst,
@@ -1315,18 +1338,19 @@ def flagship_scan(store, queries, order, k: int, mode: str, smi: str, tag: str) 
     if mode == "f32" and store.rows_ref.dtype == torch.float32:
         fma = (f"; the CUDA cores' FMA route {2 * mac / PEAK_OPS['f32'] * 1e3:.3f} ms "
                f"({2 * mac:.4g} operations at {PEAK_OPS['f32'] / 1e12:g} T/s)")
-    reads = reread_text(store, plan, split_plan(sargs, k, mode), d)
+    split = split_plan(sargs, k, mode)
+    reads = reread_text(store, plan, split, d)
     log(f"{tag} scan_pairs {mode}{'' if k == 16 else f' k_scan {k}'}: kernel {k_ms:.3f} ms, "
         f"plain {p_ms:.2f} ms, library {lib_ms:.2f} ms = {lib_ms / k_ms:.3f}x the kernel; bound "
         f"{bound[bound_by]:.3f} ms by {bound_by} ({mac:.4g} MAC, {ops:.4g} operations at "
         f"{peak / 1e12:g} T/s = {bound['operations']:.3f} ms, {nbytes / 1e9:.3f} GB = "
         f"{bound['bytes']:.3f} ms) = {bound[bound_by] / k_ms:.1%} of it{fma}; {plan.n_pairs} "
         f"pairs, {mac / k_ms / 1e9:.1f} TMAC/s; {reads}; agree, max|Δd|={err:.3g} (at swapped "
-        f"slots {gap:.3g}); {split_text(split_plan(sargs, k, mode))}  [{smi}]")
+        f"slots {gap:.3g}); {split_text(split)}  [{smi}]")
     del sargs, kd, ks, rd, rs
     torch.cuda.empty_cache()
     return {"ms": k_ms, "plain_ms": p_ms, "library_ms": lib_ms, "err": err,
-            "bound_ms": bound[bound_by], "bound_by": bound_by}
+            "bound_ms": bound[bound_by], "bound_by": bound_by, "body": split["body"]}
 
 
 def split_plan(sargs, k: int, mode: str) -> dict:
@@ -1414,14 +1438,16 @@ def f32_store_scan(store, queries, order, smi: str, index, data_prediction):
     ``BuildConfiguration(dtype="float32")`` builds, the CLI's default): the
     int8 store's rows dequantized slab by slab into f32 on its chunk
     layout, scales 1.0 on live slots and 0 on padding.  The scan in f32
-    (``precision="highest"``, the six-term body) at ``k_scan`` 16 and 106
-    and in bf16 (the default precision, the wgmma body over f32 rows) at
-    16 (``flagship_scan``: the kernel, its plain version, whose candidates
-    it must agree with, the library call, the bound; in f32 at 16 the
+    (``precision="highest"``) at ``k_scan`` 16 (the six-term wgmma body)
+    and 106 (the six-term mma.sync body) and in bf16 (the default
+    precision, the wgmma body over f32 rows) at 16 (``flagship_scan``: the
+    kernel, its plain version, whose candidates it must agree with, the
+    library call, the bound, the body the launch took; in f32 at 16 the
     float64 gate), then whole searches of the 10k queries over that store
     at visit 4, k 10, at ``highest`` and at the default precision, their
-    launches counted (each default search one launch of the wgmma body
-    over f32 rows): seconds per 10k; for 256 queries ``highest`` equal to
+    launches counted (each ``highest`` search one launch of the six-term
+    wgmma body, each default search one of the wgmma body over f32 rows):
+    seconds per 10k; for 256 queries ``highest`` equal to
     exact kNN over the visited buckets (ids differing only at ties, recall
     >= 0.999), the default search within the bf16 bar of the same search
     through the scan's plain version, both recalls against exact kNN over
@@ -1431,6 +1457,10 @@ def f32_store_scan(store, queries, order, smi: str, index, data_prediction):
     tag = f"[flagship f32 store, {f32.chunk_data.numel() * 4 / 1e9:.2f} GB]"
     timing = {"f32 store": flagship_scan(f32, queries, order, 16, "f32", smi, tag),
               "f32 store k106": flagship_scan(f32, queries, order, 106, "f32", smi, tag)}
+    check(timing["f32 store"]["body"] == 5 and timing["f32 store k106"]["body"] == 0,
+          f"f32 over the f32 store: the six-term wgmma body at k_scan 16 and the mma.sync body "
+          f"at 106, not bodies {timing['f32 store']['body']} and "
+          f"{timing['f32 store k106']['body']}")
     torch.cuda.reset_peak_memory_stats()
     before = scan_kernel.WGMMA_F32_LAUNCHES
     timing["f32 store bf16"] = flagship_scan(f32, queries, order, 16, "bf16", smi, tag)
@@ -1444,11 +1474,11 @@ def f32_store_scan(store, queries, order, smi: str, index, data_prediction):
         return index.search(None, q, None, q, data_prediction, n_buckets=4, k=10, store=f32,
                             precision=precision)
 
-    def plain_search(q):  # the default search with the scan's plain version in the kernel's place
+    def plain_search(q, precision):  # the search with the scan's plain version in the kernel's place
         kernel = bucket_store_module.scan_pairs
         bucket_store_module.scan_pairs = scan_kernel.scan_pairs_reference
         try:
-            return search(q, "default")[:2]
+            return search(q, precision)[:2]
         finally:
             bucket_store_module.scan_pairs = kernel
 
@@ -1465,27 +1495,29 @@ def f32_store_scan(store, queries, order, smi: str, index, data_prediction):
             dd, ii, _ = search(queries, precision)
             times.append(time.perf_counter() - t0)
         ran = {k: v - before[k] for k, v in read_counts().items()}
-        on_body = ran[WGMMA_F32] if precision == "default" else 0
-        check(ran["scan_pairs"] == 4 and ran[WGMMA_F32] == on_body
-              and ran[WGMMA_INT8] == 0,
-              f"f32-store {precision} search: {ran} launches, not 4 scans (on the wgmma body over "
-              f"f32 rows at the default precision)")
-        check(precision == "highest" or on_body == 4,
-              f"f32-store default search: {on_body} launches of the wgmma body over f32 rows")
+        body = WGMMA_F32X if precision == "highest" else WGMMA_F32
+        check(ran["scan_pairs"] == 4 and ran[body] == 4
+              and all(ran[b] == 0 for b in (WGMMA_INT8, WGMMA_F32, WGMMA_F32MODE, WGMMA_WIDE,
+                                            WGMMA_F32X) if b != body),
+              f"f32-store {precision} search: {ran} launches, not 4 scans, each one launch of "
+              f"the {body}")
         check(dd.shape == (nq, 10) and bool(np.isfinite(dd).all()) and bool((ii > 0).all()),
               f"f32-store {precision} search: finite, filled (nq, 10)")
         r = recall(ii[:nc], ref_i, 10)
         if precision == "highest":
             n_tied = same_neighbors(dd[:nc], ii[:nc], ref_d, ref_i,
                                     "f32-store highest vs visited-bucket exact")
-            check(r >= 0.999, f"f32-store {precision}: recall {r} vs visited-bucket exact")
-            held = f"{n_tied} ids differ at ties"
+            r_plain = recall(plain_search(queries[:nc], precision)[1], ref_i, 10)
+            check(r >= 0.999 and r == r_plain, f"f32-store {precision}: recall {r} vs "
+                  f"visited-bucket exact, the same search through the plain version {r_plain}")
+            held = (f"{n_tied} ids differ at ties; the same search through the scan's plain "
+                    f"version: recall {r_plain:.4f}")
         else:
             # bf16 rounds the f32 rows as well as the queries (int8 rows are
             # exact in bf16), so at a near-tie a true neighbour can fall past
             # the k + 6 shortlist: the search is held to the same search
             # through the scan's plain version, at the bf16 bar
-            pd, pi = plain_search(queries[:nc])
+            pd, pi = plain_search(queries[:nc], precision)
             err = float(np.abs(dd[:nc] - pd).max())
             same = float((np.sort(ii[:nc], 1) == np.sort(pi, 1)).mean())
             check(err <= BF16_ATOL and same >= BF16_SAME_IDS,
@@ -1498,7 +1530,8 @@ def f32_store_scan(store, queries, order, smi: str, index, data_prediction):
         scan = timing["f32 store" if precision == "highest" else "f32 store bf16"]["ms"]
         log(f"[flagship f32 store] search precision={precision}, n_buckets=4, k=10: reps "
             f"{[round(t, 4) for t in times]} s; mean {mean_s:.4f} s per {nq} queries "
-            f"= {nq / mean_s:.0f} QPS; scan kernel at k_scan 16 {scan:.3f} ms; recall@10 vs "
+            f"= {nq / mean_s:.0f} QPS; each search one launch of the {body}; scan kernel at "
+            f"k_scan 16 {scan:.3f} ms; recall@10 vs "
             f"visited-bucket exact kNN {r:.4f} ({nc} queries; {held}); launches {ran}  [{smi}]")
     launches = read_counts()
     del f32
@@ -2139,11 +2172,12 @@ def phase_build_path(dev, data: dict, smi: str):
     n_search = 1 + MODE_ROUNDS
     check(per_mode["auto"] == {"scan_pairs": n_search, "scan_merge": n_search, "gather_pairs": 0,
                                "gather_rows": 0, WGMMA_INT8: n_search, WGMMA_F32: 0,
-                               WGMMA_F32MODE: 0, WGMMA_WIDE: 0},
+                               WGMMA_F32MODE: 0, WGMMA_WIDE: 0, WGMMA_F32X: 0},
           f"auto mode launches one scan and no gather a search: {per_mode['auto']}")
     check(per_mode["kernel"] == {"scan_pairs": n_search, "scan_merge": n_search,
                                  "gather_pairs": n_search, "gather_rows": 0, WGMMA_INT8: n_search,
-                                 WGMMA_F32: 0, WGMMA_F32MODE: 0, WGMMA_WIDE: 0},
+                                 WGMMA_F32: 0, WGMMA_F32MODE: 0, WGMMA_WIDE: 0,
+                                 WGMMA_F32X: 0},
           f"kernel mode launches one scan and one merge gather a search: {per_mode['kernel']}")
     for mode in ("auto", "kernel"):
         t = np.asarray(rounds[mode])
@@ -3356,13 +3390,15 @@ def main() -> None:
         if name == "scan_pairs":  # its launches a body
             rows[-1]["bodies"] = {
                 "mma.sync": total(name) - total(WGMMA_INT8) - total(WGMMA_F32)
-                - total(WGMMA_F32MODE) - total(WGMMA_WIDE),
+                - total(WGMMA_F32MODE) - total(WGMMA_WIDE) - total(WGMMA_F32X),
                 "wgmma (bf16 over int8 rows)": total(WGMMA_INT8),
                 "wgmma (bf16 over f32 rows)": total(WGMMA_F32),
                 "wgmma (f32 over int8 rows)": total(WGMMA_F32MODE),
-                "wgmma (bf16 over int8 rows, lists of 64 and 128)": total(WGMMA_WIDE)}
+                "wgmma (bf16 over int8 rows, lists of 64 and 128)": total(WGMMA_WIDE),
+                "wgmma (f32 over f32 rows, six products)": total(WGMMA_F32X)}
             check(total(WGMMA_F32MODE) > 0, "no scan launch took the f32-mode wgmma body")
             check(total(WGMMA_WIDE) > 0, "no scan launch took the wide-list wgmma body")
+            check(total(WGMMA_F32X) > 0, "no scan launch took the six-term wgmma body")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

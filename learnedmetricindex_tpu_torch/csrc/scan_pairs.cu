@@ -109,9 +109,11 @@
 //    rounded.
 //  * f32 over an f32 store (precision="highest" over
 //    BuildConfiguration(dtype="float32"), the CLI's store, a virtual store
-//    over an f32 corpus): f32 rows are not exact in bf16, so the kernel
-//    splits each store value too, by truncation with bit masks: hi = the
-//    top 16 bits of x, mid = the top 16 bits of x − hi, lo = x − hi − mid.
+//    over an f32 corpus; at list width 32 over a packed store the Hopper
+//    body of six products below takes it): f32 rows are not exact in
+//    bf16, so the kernel splits each store value too, by truncation with
+//    bit masks: hi = the top 16 bits of x, mid = the top 16 bits of
+//    x − hi, lo = x − hi − mid.
 //    Both subtractions are exact, lo has at most 8 significant bits, and
 //    hi + mid + lo == x for 2^-110 <= |x| and for 0 (below 2^-110 less than
 //    2^-133 is lost); no conversion instruction, and no term rounds up to
@@ -312,12 +314,58 @@
 //    design, that port, took 55.2 ms at the flagship).
 // Its lists match the plain version to the bf16 bar, as the width-32
 // body's, not the mma.sync body's bits.
+//
+// The Hopper body of six products (scan_wgmma_f32x_kernel): f32 queries
+// over an f32 packed store at list width 32, precision="highest" over
+// BuildConfiguration(dtype="float32") (both packages' default store type,
+// the CLI's), in place of MmaBody<MODE_F32, float, 32>.  What bounds the
+// work at the flagship (its rows as a 31 GB f32 store, 10k queries
+// visiting 4, k_scan 16): six bf16 passes, 32.8 ms at the tensor peak, and
+// 99.6 GB of f32 rows read once a pair, ~29.7 ms from device memory.  What
+// held the mma.sync body (155 ms on an H100): one 256-thread block an SM
+// at ~250 registers, the three query terms reloaded from L2 through a
+// 3-stage cp.async ring of 16 depths for every row tile, and mma.sync
+// issued warp by warp.  The design combines the two bodies above it:
+//  * the f32 ring of the body over f32 rows (boxes of 64 rows × 32 f32
+//    under the 128-byte swizzle, fed by TMA from producer warps, a lane
+//    reading chunk 2t + j of its rows in k-step j, the queries in
+//    WGMMA_F32_ORDER), in stages of one box: the three planes of 32 slots take 147,456 B at d 768 beside
+//    the 26,624 B head, and the two-box stages' 64 KB would pass the
+//    232,448 B a block may have; d up to 896 (W_MAX_QDX);
+//  * the f32-mode body's block: 32 query slots (WQX; a pair of more than
+//    32 queries takes up to four blocks), the three terms hi, mid, lo
+//    resident as planes of one B tile (column term·16·nl + slot);
+//  * each store value split in registers by truncation into three bf16
+//    terms (split_pair, split3's rule), the A fragments of six wgmma
+//    m64nNk16 a k-step, each over one plane: exactly mma_six's six
+//    products, x_hi · q_hi into a large sum and the other five (each below
+//    ~2^-7 of it) into a small one;
+//  * the tensor cores truncate the sum they add into, so the running sum
+//    is never theirs: the two sums of two boxes (64 depths) are folded
+//    into it with round-to-nearest adds (fold_two), and the rows are split
+//    a box ahead of the tensor cores into two sets of A registers in turns
+//    (a box is two k-steps of three terms).  With the five small products
+//    in the large sum (three wgmma a k-step of 3N, 2N and N columns over
+//    the planes' prefixes, a wgmma.fence between the shapes, which add
+//    into the same registers) the body's float64 error was twice
+//    cuBLAS's: each truncating add into the large sum loses up to an ulp
+//    of it, and the small products tripled those adds;
+//  * the epilogue, the marks, the hand-over and wgmma_select are the other
+//    bodies'.
+// What it measured (tools/torch_scan_probe.py --body wgmma-f32x and
+// tools/torch_scan_ab.py on an H100, PERF.md): 0.62 of the mma.sync body's
+// time at the flagship's 31 GB f32 store; without the wgmma 0.60 of its
+// time, without the TMA copies 0.86, without selection 0.99; 16 slots a
+// block (two-box stages) 1.46×, three one-box stages a ring 1.03×.  Its
+// lists match the plain version to the f32 parity bar, and its float64
+// error stays below the plain version's (cuBLAS's SGEMM) and the mma.sync
+// body's.
 // The other bodies keep the mma.sync design.
 //
 // What is left for later work:
 //  * the int8 mode on the Hopper body (s8 × s8 wgmma, both operands in
-//    shared memory, no widening), then f32 over f32 and bf16 stores, f32
-//    at list widths past 32, and bf16 over a bf16 store;
+//    shared memory, no widening), then f32 over a bf16 store, f32 at list
+//    widths past 32, and bf16 over a bf16 store;
 //  * the split's cost: one host read of the plan and one upload of the
 //    work list a launch, and a merge pass; a persistent grid that takes
 //    items from a device-side queue would need neither the read nor the
@@ -1333,8 +1381,8 @@ constexpr int W_CONSUMER_REGS = W_CONSUMER_REGS_FIT < 232 ? W_CONSUMER_REGS_FIT 
 // barriers, query metadata and marks, lists (of width `list`), the two
 // distance tiles of a block of `slots` query slots, rounded up to 1024 bytes
 // (where the ring starts)
-constexpr size_t w_head_bytes(int slots, int list = W_LIST) {
-  return (size_t(2 * W_CONSUMERS * W_STAGES) * 8 + size_t(slots + W_CONSUMERS * slots) * 4 +
+constexpr size_t w_head_bytes(int slots, int list = W_LIST, int stages = W_STAGES) {
+  return (size_t(2 * W_CONSUMERS * stages) * 8 + size_t(slots + W_CONSUMERS * slots) * 4 +
           size_t(2 * list * slots) * 4 + size_t(W_CONSUMERS * slots * WDQ) * 4 + 1023) /
          1024 * 1024;
 }
@@ -1393,26 +1441,49 @@ struct IsWide : std::false_type {};
 template <int KMAX>
 struct IsWide<WideList<KMAX>> : std::true_type {};
 
+// f32 queries over an f32 packed store (precision="highest" over the default
+// store type): the three bf16 terms of WQX query slots resident as in the
+// f32 mode (WX_KSTEP bytes a k-step), and the f32 ring of boxes of WR rows ×
+// 32 f32, WX_BOXES a stage: three planes of 32 slots beside the f32 ring's
+// two-box stages would take 239,616 B at d 768, so 32 slots take one-box
+// stages (32 KB of ring, 206,848 B at d 768); 16 slots would keep the
+// two-box stages.  WX_STAGES stages a consumer.  The widest resident query
+// tile that fits
+constexpr int WQX = 32;
+constexpr int WX_BOXES = WQX == 32 ? 1 : W_BOXES;
+constexpr int WX_STAGES = 2;
+constexpr int WX_KSTEP = 3 * WQX * 16 * 2;
+constexpr int WX_STAGE = WX_BOXES * WR * WKF;
+constexpr size_t kWXRingOffset = w_head_bytes(WQX, W_LIST, WX_STAGES);
+constexpr size_t kWXRingBytes = size_t(W_CONSUMERS) * WX_STAGES * WX_STAGE;
+constexpr int W_MAX_QDX =
+    int((232448 - kWXRingOffset - kWXRingBytes) / (size_t(WX_KSTEP) / 16 * W_QD_STEP_F)) * W_QD_STEP_F;
+static_assert(W_MAX_QDX >= 768 && kWXRingOffset % 1024 == 0 && WX_STAGE % 1024 == 0,
+              "a 768-wide six-term query tile is resident; swizzled boxes start on 1024 bytes");
+// the tag of that body in the templates below (its rows are f32)
+struct F32X {};
+
 // The ring of the store type TS: int8 rows (WK bytes a box row, 64 depths)
-// or f32 rows (WKF bytes, 32 depths), W_BOXES boxes a stage; and the block
-// around it: its query slots, where its ring starts (after the head), the
-// query terms it keeps resident and their bytes a k-step
+// or f32 rows (WKF bytes, 32 depths), BOXES boxes a stage, STAGES stages a
+// consumer; and the block around it: its query slots, where its ring starts
+// (after the head), the query terms it keeps resident and their bytes a
+// k-step
 template <typename TS>
 struct WRing;
 template <>
 struct WRing<int8_t> {
   using Row = int8_t;
-  static constexpr int ROW = WK, DEPTHS = WK, STAGE = W_STAGE, KSTEPS = W_KSTEPS,
-                       QD_STEP = W_QD_STEP, MAX_QD = W_MAX_QD, SLOTS = WQ, TERMS = 1,
-                       Q_KSTEP = W_KSTEP, LIST = W_LIST;
+  static constexpr int ROW = WK, DEPTHS = WK, BOXES = W_BOXES, STAGES = W_STAGES, STAGE = W_STAGE,
+                       KSTEPS = W_KSTEPS, QD_STEP = W_QD_STEP, MAX_QD = W_MAX_QD, SLOTS = WQ,
+                       TERMS = 1, Q_KSTEP = W_KSTEP, LIST = W_LIST;
   static constexpr size_t BYTES = kWRingBytes, HEAD = kWRingOffset;
 };
 template <>
 struct WRing<float> {
   using Row = float;
-  static constexpr int ROW = WKF, DEPTHS = WKF / 4, STAGE = W_STAGE_F, KSTEPS = W_KSTEPS_F,
-                       QD_STEP = W_QD_STEP_F, MAX_QD = W_MAX_QD_F, SLOTS = WQ, TERMS = 1,
-                       Q_KSTEP = W_KSTEP, LIST = W_LIST;
+  static constexpr int ROW = WKF, DEPTHS = WKF / 4, BOXES = W_BOXES, STAGES = W_STAGES,
+                       STAGE = W_STAGE_F, KSTEPS = W_KSTEPS_F, QD_STEP = W_QD_STEP_F,
+                       MAX_QD = W_MAX_QD_F, SLOTS = WQ, TERMS = 1, Q_KSTEP = W_KSTEP, LIST = W_LIST;
   static constexpr size_t BYTES = kWRingBytesF, HEAD = kWRingOffset;
 };
 template <>
@@ -1426,6 +1497,13 @@ struct WRing<WideList<KMAX>> : WRing<int8_t> {
                        Q_KSTEP = W_WIDE_SLOTS * 16 * 2;
   static constexpr size_t HEAD = WideList<KMAX>::HEAD;
 };
+template <>
+struct WRing<F32X> : WRing<float> {
+  static constexpr int BOXES = WX_BOXES, STAGES = WX_STAGES, STAGE = WX_STAGE,
+                       KSTEPS = WX_BOXES * WKF / 4 / 16, MAX_QD = W_MAX_QDX, SLOTS = WQX, TERMS = 3,
+                       Q_KSTEP = WX_KSTEP;
+  static constexpr size_t BYTES = kWXRingBytes, HEAD = kWXRingOffset;
+};
 
 // dynamic shared memory at query width qd
 template <typename TS>
@@ -1435,20 +1513,20 @@ __host__ __device__ inline size_t wgmma_smem_bytes(int qd) {
 
 template <typename TS>
 struct WSmem {
-  static constexpr int SLOTS = WRing<TS>::SLOTS, LIST = WRing<TS>::LIST;
-  uint64_t* full;    // [W_CONSUMERS][W_STAGES] the producer's TMA landed
-  uint64_t* empty;   // [W_CONSUMERS][W_STAGES] the warpgroup's four warps read it
+  static constexpr int SLOTS = WRing<TS>::SLOTS, LIST = WRing<TS>::LIST, STAGES = WRing<TS>::STAGES;
+  uint64_t* full;    // [W_CONSUMERS][STAGES] the producer's TMA landed
+  uint64_t* empty;   // [W_CONSUMERS][STAGES] the warpgroup's four warps read it
   int* q_row;        // [SLOTS] query row of slot q, -1 = none
   unsigned* q_grp;   // [W_CONSUMERS][SLOTS] byte g: 32-row group g of the tile may enter q's list
   float* top_d;      // [SLOTS][LIST]
   int* top_s;        // [SLOTS][LIST]
   float* dist;       // [W_CONSUMERS][SLOTS][WDQ]
-  unsigned char* ring;     // [W_CONSUMERS][W_STAGES][W_BOXES][WR][ROW] rows, as TMA writes them
+  unsigned char* ring;     // [W_CONSUMERS][STAGES][BOXES][WR][ROW] rows, as TMA writes them
   unsigned char* queries;  // resident bf16 queries, qd / 16 k-steps of Q_KSTEP bytes
   __device__ explicit WSmem(unsigned char* base) {
     full = reinterpret_cast<uint64_t*>(base);
-    empty = full + W_CONSUMERS * W_STAGES;
-    q_row = reinterpret_cast<int*>(empty + W_CONSUMERS * W_STAGES);
+    empty = full + W_CONSUMERS * STAGES;
+    q_row = reinterpret_cast<int*>(empty + W_CONSUMERS * STAGES);
     q_grp = reinterpret_cast<unsigned*>(q_row + SLOTS);
     top_d = reinterpret_cast<float*>(q_grp + W_CONSUMERS * SLOTS);
     top_s = reinterpret_cast<int*>(top_d + LIST * SLOTS);
@@ -1457,7 +1535,7 @@ struct WSmem {
     queries = ring + WRing<TS>::BYTES;
   }
   __device__ unsigned char* stage(int wg, int slot) const {
-    return ring + (wg * W_STAGES + slot) * WRing<TS>::STAGE;
+    return ring + (wg * STAGES + slot) * WRing<TS>::STAGE;
   }
 };
 
@@ -1668,7 +1746,7 @@ __device__ WItem wgmma_begin(const Params& p, const WSmem<TS>& s) {
     s.top_s[e] = -1;
   }
   if (tid == 0) {
-    for (int i = 0; i < W_CONSUMERS * W_STAGES; ++i) {
+    for (int i = 0; i < W_CONSUMERS * WSmem<TS>::STAGES; ++i) {
       mbar_init(&s.full[i], 1);
       mbar_init(&s.empty[i], 4);  // a consumer warpgroup's four warps
     }
@@ -1703,7 +1781,8 @@ __device__ WItem wgmma_begin(const Params& p, const WSmem<TS>& s) {
       const int qi = s.q_row[n];
       const size_t off = (size_t(qi >= 0 ? qi : 0) * WRing<TS>::TERMS + term) * p.qd * 2 + piece * 16;
       const int c = term * cols + n;
-      cp_async16(s.queries + (piece >> 1) * W3_KSTEP + (c >> 3) * 256 + (piece & 1) * 128 + (c & 7) * 16,
+      cp_async16(s.queries + (piece >> 1) * WRing<TS>::Q_KSTEP + (c >> 3) * 256 + (piece & 1) * 128 +
+                     (c & 7) * 16,
                  qbytes + off, qi >= 0);
     }
   }
@@ -1715,15 +1794,16 @@ __device__ WItem wgmma_begin(const Params& p, const WSmem<TS>& s) {
 }
 
 // The producer (one thread): every 64-row tile of the item that consumer
-// warpgroup `wg` takes (tiles wg, wg + 2, ...), each as qd / 64 stages
-// through the warpgroup's ring, running ahead across tiles and chunks.
+// warpgroup `wg` takes (tiles wg, wg + 2, ...), each as qd / (the depths of
+// a stage) stages through the warpgroup's ring, running ahead across tiles
+// and chunks.
 // A box may reach past the chunk's last row (the consumers mask those
 // rows) or past the store (TMA writes zeros).
 template <typename TS>
 __device__ void wgmma_produce(const CUtensorMap* map, const Params& p, const WSmem<TS>& s,
                               const WItem& b, int wg) {
   using R = WRing<TS>;
-  const int per_chunk = (p.chunk + WR - 1) / WR, nst = p.qd / R::QD_STEP;
+  const int per_chunk = (p.chunk + WR - 1) / WR, nst = p.qd / (R::BOXES * R::DEPTHS);
   TileWalk w{b.c_lo, 0};
   w.advance(wg, per_chunk);
   int phys = w.c < b.c_hi ? p.chunk_of[w.c] : 0;
@@ -1734,13 +1814,13 @@ __device__ void wgmma_produce(const CUtensorMap* map, const Params& p, const WSm
     next.advance(W_CONSUMERS, per_chunk);
     const int next_phys = next.c < b.c_hi ? p.chunk_of[next.c] : 0;
     for (int st = 0; st < nst; ++st, ++cnt) {
-      const int slot = cnt % W_STAGES;
-      uint64_t* full = &s.full[wg * W_STAGES + slot];
-      mbar_wait(&s.empty[wg * W_STAGES + slot], ((cnt / W_STAGES) & 1) ^ 1);
+      const int slot = cnt % R::STAGES;
+      uint64_t* full = &s.full[wg * R::STAGES + slot];
+      mbar_wait(&s.empty[wg * R::STAGES + slot], ((cnt / R::STAGES) & 1) ^ 1);
       mbar_expect_tx(full, R::STAGE);
 #pragma unroll
-      for (int box = 0; box < W_BOXES; ++box)
-        tma_load_rows(s.stage(wg, slot) + box * WR * R::ROW, map, (st * W_BOXES + box) * R::DEPTHS,
+      for (int box = 0; box < R::BOXES; ++box)
+        tma_load_rows(s.stage(wg, slot) + box * WR * R::ROW, map, (st * R::BOXES + box) * R::DEPTHS,
                       row, full);
     }
     w = next;
@@ -2097,6 +2177,204 @@ __device__ void wgmma_consume_terms(const Params& p, const WSmem<F32Mode>& s, co
   }
 }
 
+// Register r of the three A fragments (a[term][r]: the store terms hi, mid,
+// lo) from the value pair (x0, x1), x0 the lower depth: each value split as
+// split3 does it, by truncation (both subtractions exact), each term's top
+// 16 bits packed in pairs, x0's in the low half
+__device__ __forceinline__ void split_pair(float x0, float x1, uint32_t (&a)[3][4], int r) {
+  const uint32_t b0 = __float_as_uint(x0), b1 = __float_as_uint(x1);
+  a[0][r] = __byte_perm(b0, b1, 0x7632);
+  const float r0 = __fsub_rn(x0, __uint_as_float(b0 & 0xffff0000u));
+  const float r1 = __fsub_rn(x1, __uint_as_float(b1 & 0xffff0000u));
+  const uint32_t m0 = __float_as_uint(r0), m1 = __float_as_uint(r1);
+  a[1][r] = __byte_perm(m0, m1, 0x7632);
+  a[2][r] = __byte_perm(__float_as_uint(__fsub_rn(r0, __uint_as_float(m0 & 0xffff0000u))),
+                        __float_as_uint(__fsub_rn(r1, __uint_as_float(m1 & 0xffff0000u))), 0x7632);
+}
+
+// D (64 rows × N query slots, f32) = A · B, or D += A · B where `add` is
+// set (A: 64 rows × 16 depths, bf16, in registers; B: 16 depths × N slots,
+// bf16, at desc), for the six-term body's two sums
+template <int N>
+__device__ __forceinline__ void wgmma_rs_sum(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t desc,
+                                             int add) {
+  if constexpr (N == 16) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(add));
+  }
+  if constexpr (N == 32) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, {%16, %17, %18, %19}, %20, p, 1, 1, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(add));
+  }
+  if constexpr (N == 64) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(add));
+  }
+}
+
+// A fold's two sums into the running sum, rounded: for each value the
+// small sum (five products) + the large one (x_hi · q_hi), then one
+// round-to-nearest add into acc.  fresh: the large sum, then the small one,
+// each in the accumulator order of acc
+template <int M>
+__device__ __forceinline__ void fold_two(float (&acc)[M], float (&fresh)[2 * M]) {
+  hold(fresh);
+#pragma unroll
+  for (int i = 0; i < M; ++i) acc[i] = __fadd_rn(acc[i], __fadd_rn(fresh[M + i], fresh[i]));
+}
+
+// The six-term consumer warpgroup (F32X: f32 queries over an f32 packed
+// store): wgmma_consume's walk over its tiles, f32 ring, epilogue,
+// hand-over and selection with wgmma_consume_terms' resident planes,
+// spelled out so that the other bodies keep their code.  In k-step j of a
+// box lane (g, t) reads chunk 2t + j of rows g and g + 8 as wgmma_consume
+// does over f32 rows (WGMMA_F32_ORDER), and splits each value into three
+// bf16 terms by truncation (split_pair), each term an A fragment.  Six
+// wgmma m64nNk16 a k-step, each over one plane of the B tile, give
+// mma_six's six products and no others: x_hi · q_hi into the large sum,
+// and x_hi · q_mid, x_hi · q_lo, x_mid · q_hi, x_mid · q_mid, x_lo · q_hi
+// into the small sum, each below ~2^-7 of the large sum's products, so
+// that their truncation in the tensor cores' adds is ~2^-8 of the large
+// sum's (with the five in the large sum its float64 error doubled, past
+// cuBLAS's).  One shape, so wgmma orders the accumulator accesses itself.
+// Two boxes (64 depths, four k-steps) make one fresh pair of sums, folded
+// into the running sum with rounded adds (fold_two); the rows are split a
+// box ahead of the tensor cores, into two sets of A registers in turns (a
+// box is two k-steps of three terms).  N = 16·NL query slots.
+template <int NL>
+__device__ void wgmma_consume_six(const Params& p, const WSmem<F32X>& s, const WItem& b, int wg) {
+  constexpr int N = 16 * NL;
+  const int tid = threadIdx.x & 127, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int per_chunk = (p.chunk + WR - 1) / WR, nf = p.qd / W_QD_STEP_F;  // folds a tile
+  const int ntiles = (b.c_hi - b.c_lo) * per_chunk;
+  const uint32_t q_base = smem_u32(s.queries);
+  TileWalk w{b.c_lo, 0};
+  w.advance(wg, per_chunk);
+  int phys = w.c < b.c_hi ? p.chunk_of[w.c] : 0;
+  float* dist = s.dist + wg * WQX * WDQ;
+  int cnt = 0;  // stages this warpgroup has taken from its ring
+  unsigned live = 0;  // bit 2n + e: the lane's query slot 8n + 2t + e holds a query
+#pragma unroll
+  for (int n = 0; n < N / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) live |= unsigned(s.q_row[8 * n + 2 * t + e] >= 0) << (2 * n + e);
+  int f32_off[2];  // chunk 2t + j of row g, where TMA's 128-byte swizzle puts it
+#pragma unroll
+  for (int j = 0; j < 2; ++j) f32_off[j] = (warp * 16 + g) * WKF + (((2 * t + j) ^ g) << 4);
+
+  // the three store terms' A fragments of box `box` of the ring's current
+  // stage, a[j][term] for its k-steps j; the stage's first box waits for
+  // it, its last frees it
+  auto take_box = [&](uint32_t(&a)[2][3][4], int box) {
+    const int slot = cnt % WX_STAGES;
+    if (box == 0) mbar_wait(&s.full[wg * WX_STAGES + slot], (cnt / WX_STAGES) & 1);
+    const uint32_t x = smem_u32(s.stage(wg, slot) + box * WR * WKF);
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const float4 lo = lds128(x + f32_off[j]), hi = lds128(x + f32_off[j] + 8 * WKF);
+      split_pair(lo.x, lo.y, a[j], 0);
+      split_pair(hi.x, hi.y, a[j], 1);
+      split_pair(lo.z, lo.w, a[j], 2);
+      split_pair(hi.z, hi.w, a[j], 3);
+    }
+    if (box == WX_BOXES - 1) {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&s.empty[wg * WX_STAGES + slot]);
+      ++cnt;
+    }
+  };
+
+  for (int i = wg; i < ntiles; i += W_CONSUMERS) {
+    const int r0 = w.t * WR;
+    const int slot0 = phys * p.chunk + r0, nrows = min(WR, p.chunk - r0);
+    w.advance(W_CONSUMERS, per_chunk);  // the next tile's chunk, read while this one runs
+    phys = w.c < b.c_hi ? p.chunk_of[w.c] : 0;
+    float r_scale[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = warp * 16 + g + 8 * h;
+      r_scale[h] = r < nrows ? p.scales[slot0 + r] : 0.0f;  // → +inf distance
+    }
+    float acc[N / 2], fresh[N];  // the running sum; a fold's large sum, then its small one
+#pragma unroll
+    for (int e = 0; e < N / 2; ++e) acc[e] = 0.0f;
+#pragma unroll
+    for (int e = 0; e < N; ++e) fresh[e] = 0.0f;
+    float(&large)[N / 2] = *reinterpret_cast<float(*)[N / 2]>(&fresh[0]);
+    float(&small)[N / 2] = *reinterpret_cast<float(*)[N / 2]>(&fresh[N / 2]);
+    // a fold's first box reads a[0] while its second box is split into
+    // a[1]; the second box reads a[1] while the next fold's first box is
+    // split into a[0], once the first box's wgmma is done with it
+    uint32_t a[2][2][3][4];
+    auto issue = [&](auto buf, int kk, int first) {  // k-steps kk, kk + 1
+      constexpr int B = decltype(buf)::value;
+      wgmma_fence();
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        // plane `term` of the B tile: N / 8 column groups of 256 bytes each
+        const uint32_t q = q_base + (kk + j) * WX_KSTEP;
+        const int add = !first || j > 0;
+        wgmma_rs_sum<N>(large, a[B][j][0], query_desc(q), add);  // x_hi · q_hi
+        wgmma_rs_sum<N>(small, a[B][j][2], query_desc(q), add);  // x_lo · q_hi
+        wgmma_rs_sum<N>(small, a[B][j][1], query_desc(q + N / 8 * 256), 1);  // x_mid · q_mid
+        wgmma_rs_sum<N>(small, a[B][j][1], query_desc(q), 1);  // x_mid · q_hi
+        wgmma_rs_sum<N>(small, a[B][j][0], query_desc(q + N / 4 * 256), 1);  // x_hi · q_lo
+        wgmma_rs_sum<N>(small, a[B][j][0], query_desc(q + N / 8 * 256), 1);  // x_hi · q_mid
+      }
+      wgmma_commit();
+    };
+    take_box(a[0], 0);
+    for (int f = 0; f < nf; ++f) {
+      issue(std::integral_constant<int, 0>{}, 4 * f, 1);
+      take_box(a[1], WX_BOXES - 1);
+      issue(std::integral_constant<int, 1>{}, 4 * f + 2, 0);
+      wgmma_wait<1>();  // the first box is done with a[0]
+#pragma unroll
+      for (int j = 0; j < 2; ++j) hold(a[0][j]);
+      if (f + 1 < nf) take_box(a[0], 0);
+      wgmma_wait<0>();
+#pragma unroll
+      for (int j = 0; j < 2; ++j) hold(a[1][j]);
+      fold_two(acc, fresh);
+    }
+
+    // epilogue, hand-over and selection as in wgmma_consume
+#pragma unroll
+    for (int n = 0; n < N / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int q = 8 * n + 2 * t + e;
+        float v[2];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          v[h] = distance<false>(acc[4 * n + 2 * h + e], r_scale[h], 1.0f);
+          dist[q * WDQ + warp * 16 + g + 8 * h] = v[h];
+        }
+        if (((live >> (2 * n + e)) & 1u) &&
+            fminf(v[0], v[1]) < *static_cast<volatile const float*>(&s.top_d[q * W_LIST + p.k - 1]))
+          reinterpret_cast<unsigned char*>(s.q_grp + wg * WQX)[q * 4 + (warp >> 1)] = 1;
+      }
+    bar_sync(BAR_WG + wg, 128);
+    if (i > 0) bar_sync(BAR_HANDOVER + wg, 256);  // the tile before is selected (by the warpgroup before)
+    wgmma_select(p, s, wg, N, nrows, slot0);
+    bar_sync(BAR_WG + wg, 128);  // the distance tile is free again
+    if (i + 1 < ntiles) bar_arrive(BAR_HANDOVER + (wg + 1) % W_CONSUMERS, 256);
+  }
+}
+
 // Wide-list selection of a consumer warpgroup's tile (list widths 64 and
 // 128): select_tile_merge's rule over the tile's [query][row] distances, 64
 // rows, four warps, the slots the block computes (nq), each warp one query
@@ -2427,6 +2705,36 @@ __global__ void __launch_bounds__(W_THREADS, 1)
   }
 }
 
+// f32 queries (three bf16 terms) over an f32 packed store: the f32 kernel's
+// ring of one-box stages, WQX query slots a block with the three terms
+// resident, six products a k-step (spelled out beside the kernels above).
+// The swizzled boxes need the ring on 1024 bytes (kWXRingOffset is)
+__global__ void __launch_bounds__(W_THREADS, 1)
+    scan_wgmma_f32x_kernel(const __grid_constant__ CUtensorMap rows, Params p) {
+  extern __shared__ __align__(1024) unsigned char wsmem[];
+  if (smem_u32(wsmem) % 1024 != 0) __trap();
+  const WSmem<F32X> s(wsmem);
+  const WItem b = wgmma_begin(p, s);
+  if (b.nl == 0) return wgmma_write(p, s, b, true);
+  const int wg = threadIdx.x / 128;
+  if (wg == W_CONSUMERS) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(W_PRODUCER_REGS) : "memory");
+    if (threadIdx.x % 128 < 32 * W_CONSUMERS && threadIdx.x % 32 == 0)
+      wgmma_produce(&rows, p, s, b, threadIdx.x % 128 / 32);
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(W_CONSUMER_REGS) : "memory");
+    if constexpr (WQX == 16) {
+      wgmma_consume_six<1>(p, s, b, wg);
+    } else if (b.nl == 1) {
+      wgmma_consume_six<1>(p, s, b, wg);
+    } else {
+      wgmma_consume_six<2>(p, s, b, wg);
+    }
+    bar_sync(BAR_CONSUMERS, W_CONSUMERS * 128);
+    wgmma_write(p, s, b, false);
+  }
+}
+
 // The store as a 2-D tensor of n_rows × d values for TMA (boxes of WR rows
 // × WK int8 depths, or × 32 f32 depths under the 128-byte swizzle; zeros
 // past its edges), by cuTensorMapEncodeTiled looked up at run time, so the
@@ -2463,25 +2771,26 @@ cudaError_t row_tensor_map(CUtensorMap* map, const void* store, int n_rows, int 
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-// The bodies: the mma.sync body, or one of the four wgmma bodies
+// The bodies: the mma.sync body, or one of the five wgmma bodies
 enum Body {
   BODY_MMA = 0,
   BODY_WGMMA_INT8 = 1,
   BODY_WGMMA_F32 = 2,
   BODY_WGMMA_F32MODE = 3,
-  BODY_WGMMA_WIDE = 4
+  BODY_WGMMA_WIDE = 4,
+  BODY_WGMMA_F32X = 5
 };
 
-// The wgmma bodies' scope: bf16 queries over an int8 or f32 packed store,
-// or f32 queries over an int8 packed store (no row map), lists of width 32
-// and no floor, rows of whole 16 bytes at a 16-byte aligned store, and a
-// resident query tile that fits (d rounded up to the ring's stage depths,
-// W_QD_STEP or W_QD_STEP_F, within W_MAX_QD, W_MAX_QD3 or W_MAX_QD_F); and
-// bf16 queries over an int8 packed store at list widths 64 and 128 (k 33
-// to 128) on the same terms, the tile within WideList<64 or 128>::MAX_QD.  A
-// round under a floor (k past 1024) keeps the mma.sync body of the rounds
-// before it: every round sums a row the same way, or a row at the boundary
-// could be listed twice or not at all.
+// The wgmma bodies' scope: bf16 or f32 queries over an int8 or f32 packed
+// store (no row map), lists of width 32 and no floor, rows of whole 16
+// bytes at a 16-byte aligned store, and a resident query tile that fits (d
+// rounded up to W_QD_STEP over an int8 store or W_QD_STEP_F over an f32
+// store, within W_MAX_QD, W_MAX_QD3, W_MAX_QD_F or W_MAX_QDX); and bf16
+// queries over an int8 packed store at list widths 64 and 128 (k 33 to 128)
+// on the same terms, the tile within WideList<64 or 128>::MAX_QD.  A round
+// under a floor (k past 1024) keeps the mma.sync body of the rounds before
+// it: every round sums a row the same way, or a row at the boundary could
+// be listed twice or not at all.
 int wgmma_scope(int mode, int store_type, int k, int d, const void* store, const void* row_ids,
                 bool floored) {
   if (mode == MODE_INT8 || row_ids != nullptr || floored || k > W_WIDE_LIST ||
@@ -2497,14 +2806,16 @@ int wgmma_scope(int mode, int store_type, int k, int d, const void* store, const
     if (mode == MODE_BF16 && qd <= W_MAX_QD) return BODY_WGMMA_INT8;
     if (mode == MODE_F32 && qd <= W_MAX_QD3) return BODY_WGMMA_F32MODE;
   }
-  if (mode == MODE_BF16 && store_type == STORE_F32 && d % 4 == 0 &&
-      (d + W_QD_STEP_F - 1) / W_QD_STEP_F * W_QD_STEP_F <= W_MAX_QD_F)
-    return BODY_WGMMA_F32;
+  if (store_type == STORE_F32 && d % 4 == 0) {
+    const int qd_f = (d + W_QD_STEP_F - 1) / W_QD_STEP_F * W_QD_STEP_F;
+    if (mode == MODE_BF16 && qd_f <= W_MAX_QD_F) return BODY_WGMMA_F32;
+    if (mode == MODE_F32 && qd_f <= W_MAX_QDX) return BODY_WGMMA_F32X;
+  }
   return BODY_MMA;
 }
 
 // Launches a wgmma body over n_pairs pairs (a block a pair's 64 query
-// slots, or 32 in f32 mode), or reports its blocks an SM
+// slots, or WQ3 / WQX in f32 mode), or reports its blocks an SM
 template <typename TS>
 cudaError_t launch_wgmma(const Params& p, int n_pairs, int n_rows, cudaStream_t stream,
                          int* blocks_per_sm) {
@@ -2514,6 +2825,7 @@ cudaError_t launch_wgmma(const Params& p, int n_pairs, int n_rows, cudaStream_t 
   } else {
     kernel = std::is_same<TS, float>::value     ? scan_wgmma_f32_kernel
              : std::is_same<TS, F32Mode>::value ? scan_wgmma_f32mode_kernel
+             : std::is_same<TS, F32X>::value    ? scan_wgmma_f32x_kernel
                                                 : scan_wgmma_kernel;
   }
   if (p.qd % WRing<TS>::QD_STEP != 0 || p.qd > WRing<TS>::MAX_QD) return cudaErrorInvalidValue;
@@ -2569,6 +2881,7 @@ cudaError_t dispatch(const Params& p, int mode, int store_type, int body, int n_
   if (body == BODY_WGMMA_INT8) return launch_wgmma<int8_t>(p, n_pairs, n_rows, s, blocks_per_sm);
   if (body == BODY_WGMMA_F32) return launch_wgmma<float>(p, n_pairs, n_rows, s, blocks_per_sm);
   if (body == BODY_WGMMA_F32MODE) return launch_wgmma<F32Mode>(p, n_pairs, n_rows, s, blocks_per_sm);
+  if (body == BODY_WGMMA_F32X) return launch_wgmma<F32X>(p, n_pairs, n_rows, s, blocks_per_sm);
   if (body == BODY_WGMMA_WIDE)
     return p.k <= 64 ? launch_wgmma<WideList<64>>(p, n_pairs, n_rows, s, blocks_per_sm)
                      : launch_wgmma<WideList<128>>(p, n_pairs, n_rows, s, blocks_per_sm);
@@ -2598,10 +2911,12 @@ extern "C" {
 // (n, nt·qd), zero-padded past d and 16-byte aligned:
 //  * f32 mode over any store: bf16, nt 3, qd a multiple of 32 >= d: per
 //    32-value depth slice the terms hi, mid, lo side by side
-//    (ops/scan_kernel.py::operand_queries); where the call takes the wgmma
-//    body in f32 mode (over an int8 packed store, k <= 32, ...), qd is d
-//    rounded up to W_QD_STEP (128) and a row is the three terms' planes hi,
-//    mid, lo, qd values each, each group of 64 in WGMMA_ORDER;
+//    (ops/scan_kernel.py::operand_queries); where the call takes a wgmma
+//    body in f32 mode (over an int8 or f32 packed store, k <= 32, ...), a
+//    row is the three terms' planes hi, mid, lo, qd values each: qd is d
+//    rounded up to W_QD_STEP (128) over an int8 store, each group of 64 in
+//    WGMMA_ORDER, or to W_QD_STEP_F (64) over an f32 store, each group of
+//    32 in WGMMA_F32_ORDER;
 //  * bf16 mode: bf16, int8 mode: int8, nt 1, qd a multiple of 16 >= d;
 //    where the call takes a wgmma body (wgmma_scope: bf16 over an int8
 //    packed store, k <= 128, or over an f32 packed store, k <= 32, ...), qd
@@ -2612,9 +2927,9 @@ extern "C" {
 // n_rows: the store's rows (the edge of its TMA tensor map).  *body: in,
 // the body the queries are laid out for (enum Body: 0 the mma.sync body,
 // 1 the wgmma body over an int8 store, 2 over an f32 store, 3 in f32 mode
-// over an int8 store, 4 over an int8 store at list widths 64 and 128, as
-// lmi_scan_body named it); out, the body the call's
-// scope picks.
+// over an int8 store, 4 over an int8 store at list widths 64 and 128, 5 in
+// f32 mode over an f32 store, as lmi_scan_body named it); out, the body the
+// call's scope picks.
 // Where the two differ nothing launches and the call returns
 // cudaErrorInvalidValue.  All other pointers are device pointers; nothing
 // is allocated and nothing synchronizes.
@@ -2686,14 +3001,15 @@ int lmi_scan_body(int k, int mode, int store_type, int d, const void* store, con
     return cudaErrorInvalidValue;
   *body = wgmma_scope(mode, store_type, k, d, store, row_ids, floored != 0);
   const bool wgmma = *body != BODY_MMA;
-  const int q_group = *body == BODY_WGMMA_F32 ? W_QD_STEP_F
-                      : wgmma                   ? W_QD_STEP
-                      : mode == MODE_F32        ? 32
-                                                : 16;
+  const int q_group = *body == BODY_WGMMA_F32 || *body == BODY_WGMMA_F32X ? W_QD_STEP_F
+                      : wgmma                                              ? W_QD_STEP
+                      : mode == MODE_F32                                   ? 32
+                                                                           : 16;
   *qd = (d + q_group - 1) / q_group * q_group;
   int width = 32;
   while (width < k) width *= 2;
   *block_queries = *body == BODY_WGMMA_F32MODE ? WQ3
+                   : *body == BODY_WGMMA_F32X  ? WQX
                    : *body == BODY_WGMMA_WIDE  ? W_WIDE_SLOTS
                    : wgmma                     ? WQ
                                                : queries_per_block(width);

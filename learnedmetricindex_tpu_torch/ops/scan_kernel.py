@@ -22,19 +22,19 @@ of a pair whose bucket has no chunks.
   lists back into one (:func:`merge_split_lists`: ``csrc/scan_merge.cu``
   on CUDA, :func:`merge_split_lists_reference` on the CPU).  The lists
   are those of one scan of the whole bucket, bit for bit.
-* Five bodies: the bf16 queries over an int8 packed store at list width
+* Six bodies: the bf16 queries over an int8 packed store at list width
   32 (the default search) and over an f32 packed store (the default
   search over ``BuildConfiguration(dtype="float32")``, the CLI's store)
   run the Hopper bodies (wgmma, TMA, a resident query tile of 64 slots a
   block), and so do the bf16 queries over an int8 packed store at list
   widths 64 and 128 (``k_scan`` 33 to 128: ``search(k=100)``), and the
-  f32 queries over an int8 packed store at list width 32
+  f32 queries over an int8 or an f32 packed store at list width 32
   (``precision="highest"``, the default of ``sharded_search`` and
-  ``scan_buckets``: the three terms of 32 slots a block resident); every
-  other call the mma.sync body.  The library decides
-  (``wgmma_scope``); :func:`scan_body` asks it which body a launch takes,
-  and each launch checks that the queries were laid out for the body that
-  runs.
+  ``scan_buckets``: the three terms of 32 slots a block resident; over an
+  f32 store six products a k-step); every other call the mma.sync body.
+  The library decides (``wgmma_scope``); :func:`scan_body` asks it which
+  body a launch takes, and each launch checks that the queries were laid
+  out for the body that runs.
 * :func:`operand_queries` — the query rows the kernel reads;
   :func:`split_f32` — the exact three-term bf16 split of f32 queries
   behind them in mode ``"f32"``; :func:`split_f32_truncated` — the
@@ -42,8 +42,10 @@ of a pair whose bucket has no chunks.
 * ``LAUNCHES`` — how many times the wrapper launched the kernel
   (``WGMMA_LAUNCHES``: of those, the launches that ran a Hopper body;
   ``WGMMA_F32_LAUNCHES``: of those, the body over an f32 store;
-  ``WGMMA_F32MODE_LAUNCHES``: of those, the body in f32 mode;
-  ``WGMMA_WIDE_LAUNCHES``: of those, the body at list widths 64 and 128);
+  ``WGMMA_F32MODE_LAUNCHES``: of those, the body in f32 mode over an int8
+  store; ``WGMMA_WIDE_LAUNCHES``: of those, the body at list widths 64 and
+  128; ``WGMMA_F32X_LAUNCHES``: of those, the six-term body in f32 mode
+  over an f32 store);
   ``MERGE_LAUNCHES`` — the merge kernel.
 
 Stores: a packed store is ``(n_slots, d)`` rows with ``(n_slots,)``
@@ -80,7 +82,8 @@ MODES = {"f32": 0, "bf16": 1, "int8": 2}
 MAX_K = 1024  # the widest top-k list of csrc/scan_pairs.cu: wider k runs in rounds
 MAX_QTILE = 128  # QT in csrc/scan_pairs.cu
 #: the bodies as the library numbers them (enum Body in csrc/scan_pairs.cu)
-BODY_NAMES = ("mma.sync", "wgmma", "wgmma over f32", "wgmma in f32 mode", "wgmma wide lists")
+BODY_NAMES = ("mma.sync", "wgmma", "wgmma over f32", "wgmma in f32 mode", "wgmma wide lists",
+              "wgmma six-term")
 _STORE_TYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
 #: kernel launches made by :func:`scan_pairs` (never by the plain version)
@@ -93,6 +96,8 @@ WGMMA_F32_LAUNCHES = 0
 WGMMA_F32MODE_LAUNCHES = 0
 #: of WGMMA_LAUNCHES, those that ran the wgmma body at list widths 64 and 128
 WGMMA_WIDE_LAUNCHES = 0
+#: of WGMMA_LAUNCHES, those that ran the six-term wgmma body (f32 mode over an f32 store)
+WGMMA_F32X_LAUNCHES = 0
 #: merge kernel launches made by :func:`merge_split_lists` (never by its plain version)
 MERGE_LAUNCHES = 0
 
@@ -317,7 +322,8 @@ def operand_queries(queries: torch.Tensor, mode: str, store_dtype: torch.dtype,
     :data:`WGMMA_ORDER` over an int8 store, each group of 32 in
     :data:`WGMMA_F32_ORDER` over an f32 store; in mode ``"f32"`` the three
     terms so laid out are planes side by side, ``hi, mid, lo``, ``(n,
-    3·wgmma_qd)``."""
+    3·wgmma_qd)``, over an int8 store (the f32-mode body) and over an f32
+    store (the six-term body) alike."""
     if mode == "f32":
         terms, group = split_f32(queries), 32
     else:
@@ -715,12 +721,13 @@ def _launch_items(lib, queries, qscales, qidx, pair_bucket, ptr, chunk_of, store
     if err != 0:
         raise RuntimeError(f"scan_pairs kernel launch failed: cudaError {err}")
     global LAUNCHES, WGMMA_LAUNCHES, WGMMA_F32_LAUNCHES, WGMMA_F32MODE_LAUNCHES
-    global WGMMA_WIDE_LAUNCHES
+    global WGMMA_WIDE_LAUNCHES, WGMMA_F32X_LAUNCHES
     LAUNCHES += 1
     WGMMA_LAUNCHES += ran.value > 0
     WGMMA_F32_LAUNCHES += ran.value == 2
     WGMMA_F32MODE_LAUNCHES += ran.value == 3
     WGMMA_WIDE_LAUNCHES += ran.value == 4
+    WGMMA_F32X_LAUNCHES += ran.value == 5
     return out_d, out_s
 
 

@@ -673,6 +673,112 @@ def test_wgmma_f32mode_body_widths(cuda, d, qtile, body):
     assert scan_kernel.WGMMA_F32MODE_LAUNCHES - before == (body == 3)
 
 
+@pytest.mark.parametrize("store_kind", ["chunk96", "chunk320", "chunk130", "mutated"])
+@pytest.mark.parametrize("k", [1, 16, 32])
+@pytest.mark.parametrize("qtile", [1, 8, 31, 32, 33, 100, 128])
+def test_wgmma_f32x_body_matches_plain_version(cuda, store_kind, k, qtile):
+    """f32 queries over an f32 packed store at list width 32
+    (``precision="highest"`` over ``BuildConfiguration(dtype="float32")``),
+    the launches the six-term wgmma body takes: chunks that are not whole
+    64-row tiles (96, 320, 130), an empty bucket, padding rows, a mutated
+    store with its chunk lists out of physical order, and query tiles
+    around its 32-slot blocks; the kernel within the f32 parity bar of the
+    plain version, no slot twice, exact ties to the earlier row, one
+    launch, and that launch the six-term body."""
+    if store_kind == "mutated":
+        store, queries, order, _, _ = _mutated_store(cuda, 768, "float32", seed=k + qtile)
+    else:
+        store, queries, order = _body_case(cuda, int(store_kind[5:]), seed=k + qtile,
+                                           store_dtype="float32")
+    _, args = scan_inputs(store, queries, order, qtile, "f32")
+    before = (scan_kernel.WGMMA_LAUNCHES, scan_kernel.WGMMA_F32X_LAUNCHES)
+    ks = _kernel_vs_plain(args, k, qtile, store.chunk, "f32", 1)
+    assert (scan_kernel.WGMMA_LAUNCHES, scan_kernel.WGMMA_F32X_LAUNCHES) == (before[0] + 1,
+                                                                           before[1] + 1)
+    if store_kind != "mutated" and k > 1:  # the 40 duplicated rows: the earlier one first
+        row_slot = store.row_slot.cpu().numpy()
+        partner = np.full(store.chunk_data.shape[0], -1)
+        partner[row_slot[1500:1540]] = row_slot[:40]
+        lists = ks.reshape(-1, k)
+        earlier = np.where(lists >= 0, partner[np.maximum(lists, 0)], -1)
+        rows, cols = np.nonzero(earlier >= 0)
+        assert len(rows) > 0
+        for r, j in zip(rows, cols):
+            assert (lists[r, :j] == earlier[r, j]).any(), (r, j)
+
+
+@pytest.mark.parametrize("d,qtile,body", [(16, 128, 5), (100, 8, 5), (768, 31, 5), (840, 100, 5),
+                                          (896, 128, 5), (900, 128, 0), (102, 33, 0), (7, 8, 0)])
+def test_wgmma_f32x_body_widths(cuda, d, qtile, body):
+    """The six-term body from the narrowest d (one partial box) to the
+    widest resident three-term tile over f32 rows (896; 840 rounded up to
+    it) and past it (900, rounded up to 960: the mma.sync body), and f32
+    rows that are not whole 16 bytes (d 102 and 7: the mma.sync body):
+    within the f32 parity bar of the plain version, the body counted from
+    the library's report of the launch."""
+    store, queries, order = _body_case(cuda, 96, seed=d, d=d, store_dtype="float32")
+    _, args = scan_inputs(store, queries, order, qtile, "f32")
+    before = scan_kernel.WGMMA_F32X_LAUNCHES
+    _kernel_vs_plain(args, 16, qtile, store.chunk, "f32", 1)
+    assert scan_kernel.WGMMA_F32X_LAUNCHES - before == (body == 5)
+
+
+@pytest.mark.parametrize("case", ["k33", "k106", "virtual", "k1040", "d102", "d900"])
+def test_wgmma_f32x_scope_keeps_the_mma_body(cuda, case):
+    """f32 over f32 rows outside the six-term body's scope keeps the
+    mma.sync body: list widths 64 and 128, a virtual store over an f32
+    corpus, k 1040 (a 1024-wide round, then one under floors), rows that
+    are not whole 16 bytes (d 102) and a resident tile past the widest (d
+    900): within the f32 parity bar of the plain version, no launch on a
+    wgmma body."""
+    if case == "virtual":
+        store, queries, order = _virtual_case(cuda, 768, "float32", seed=7, shuffle=False)
+        k, qtile, launches = 16, 128, 1
+    elif case == "k1040":
+        store, queries, order = _wide_case(cuda, "float32", seed=1041)
+        k, qtile, launches = 1040, 8, 2
+    else:
+        d = int(case[1:]) if case.startswith("d") else 768
+        store, queries, order = _body_case(cuda, 96, seed=35, d=d, store_dtype="float32")
+        k, qtile, launches = (16 if case.startswith("d") else int(case[1:])), 128, 1
+    _, args = scan_inputs(store, queries, order, qtile, "f32")
+    before = scan_kernel.WGMMA_LAUNCHES
+    _kernel_vs_plain(args, k, qtile, store.chunk, "f32", launches)
+    assert scan_kernel.WGMMA_LAUNCHES == before
+
+
+@pytest.mark.parametrize("k", [16, 32])
+def test_f32x_kernel_is_no_less_exact_than_plain(cuda, k):
+    """f32 queries over an f32 packed store of unit rows at d 768 (the
+    six-term wgmma body, whose x_mid·q_hi and x_lo·q_hi products share the
+    truncating fresh sum of x_hi·q_hi for 64 depths): the kernel's
+    distances of the candidates it returns are no farther from float64
+    than the plain version's (cuBLAS SGEMM in full f32) of its own
+    candidates."""
+    data, rng = _corpus(6000, 768, seed=25)
+    store = BucketStore.build(data, rng.integers(0, 4, 6000), 4, chunk=256, device=cuda)
+    queries = torch.as_tensor(data[:400] + 0.05 * rng.normal(size=(400, 768)).astype(np.float32),
+                              device=cuda)
+    order = torch.as_tensor(np.stack([rng.choice(4, 2, replace=False) for _ in range(400)]),
+                            device=cuda)
+    _, args = scan_inputs(store, queries, order, 128, "f32")
+    kw = dict(k=k, qtile=128, chunk=256, mode="f32")
+    rows = args[1].reshape(-1, 128).long()
+
+    def error(dists, slots):
+        ok = (slots >= 0) & (rows >= 0)[:, :, None]
+        q = args[0][rows.clamp_min(0)].double()
+        x = args[5][slots.long().clamp_min(0)].double()
+        exact = 1.0 - torch.einsum("pqd,pqkd->pqk", q, x)
+        return float((dists.double() - exact).abs()[ok].max())
+
+    before = scan_kernel.WGMMA_F32X_LAUNCHES
+    k_err = error(*scan_kernel.scan_pairs(*args, **kw))
+    assert scan_kernel.WGMMA_F32X_LAUNCHES == before + 1
+    p_err = error(*scan_kernel.scan_pairs_reference(*args, **kw))
+    assert 0.0 < k_err <= p_err, (k_err, p_err)
+
+
 #: the widest resident query tile of the wgmma body at list widths 64 and
 #: 128 (WideList<64>::MAX_QD, WideList<128>::MAX_QD in csrc/scan_pairs.cu)
 WIDE_MAX_QD = {64: 1024, 128: 768}
@@ -869,20 +975,32 @@ def test_wgmma_f32_scope_keeps_the_mma_body(cuda, case):
         ("f32", torch.int8, 16, 768, True, True, 0),  # a virtual store
         ("f32", torch.int8, 16, 768, False, False, 0),  # an unaligned store
         ("f32", torch.bfloat16, 16, 768, False, True, 0),
-        ("f32", torch.float32, 16, 768, False, True, 0),
+        ("f32", torch.float32, 16, 768, False, True, 5),  # highest over the default store
+        ("f32", torch.float32, 32, 768, False, True, 5),
+        ("f32", torch.float32, 1, 16, False, True, 5),
+        ("f32", torch.float32, 16, 100, False, True, 5),  # rows of 400 bytes
+        ("f32", torch.float32, 16, 840, False, True, 5),  # rounded up to 896 ...
+        ("f32", torch.float32, 16, 896, False, True, 5),  # ... the widest six-term tile
+        ("f32", torch.float32, 16, 900, False, True, 0),  # rounded up to 960: too wide
+        ("f32", torch.float32, 16, 102, False, True, 0),  # rows not of whole 16 bytes
+        ("f32", torch.float32, 33, 768, False, True, 0),  # list width 64
+        ("f32", torch.float32, 106, 768, False, True, 0),
+        ("f32", torch.float32, 16, 768, True, True, 0),  # a virtual store
+        ("f32", torch.float32, 16, 768, False, False, 0),  # an unaligned store
     ],
 )
 def test_library_picks_the_body(cuda, mode, store_dtype, k, d, virtual, aligned, expect):
     """Which launches take a wgmma body, as the library says (``scan_body``,
     the one place that decides): bf16 over an int8 packed store (body 1) or
-    an f32 packed store (body 2), f32 over an int8 packed store (body 3),
-    k <= 32 and no floor, whole 16-byte rows at an aligned store, d rounded
-    up to 128 (int8) or 64 (f32) within the resident tile (896 for the
-    three terms), and bf16 over an int8 packed store at k 33 to 128 on the
-    same terms (body 4, the tile within 1024 at list width 64 and 768 at
-    128); everything else keeps the mma.sync body (0), and so does every
-    round under a floor.  With the body come the width of the query rows
-    it reads and its blocks' query slots (32 for the three terms)."""
+    an f32 packed store (body 2), f32 over an int8 packed store (body 3) or
+    an f32 packed store (body 5), k <= 32 and no floor, whole 16-byte rows
+    at an aligned store, d rounded up to 128 (int8) or 64 (f32) within the
+    resident tile (896 for the three terms over either store), and bf16
+    over an int8 packed store at k 33 to 128 on the same terms (body 4, the
+    tile within 1024 at list width 64 and 768 at 128); everything else
+    keeps the mma.sync body (0), and so does every round under a floor.
+    With the body come the width of the query rows it reads and its
+    blocks' query slots (32 for the three terms)."""
     lib = cuda_build.load(scan_kernel.SOURCE, scan_kernel._bind)
     flat = torch.zeros(64 * d + 16, dtype=store_dtype, device=cuda)
     store = flat[(0 if aligned else 1):][: 64 * d].view(64, d)
@@ -892,8 +1010,9 @@ def test_library_picks_the_body(cuda, mode, store_dtype, k, d, virtual, aligned,
     assert body.kind == expect and body.wgmma is (expect > 0)
     assert body.slots >= torch.cuda.get_device_properties(cuda).multi_processor_count
     if expect:
-        step = 64 if expect == 2 else 128
-        assert (body.qd, body.block_queries) == (-(-d // step) * step, 32 if expect == 3 else 64)
+        step = 64 if expect in (2, 5) else 128
+        assert (body.qd, body.block_queries) == (-(-d // step) * step,
+                                                 32 if expect in (3, 5) else 64)
     else:
         group = 32 if mode == "f32" else 16
         width = scan_kernel.list_width(k)
@@ -953,15 +1072,19 @@ def test_wgmma_scope_picks_the_body(cuda, case):
     (768, 1, "float32", "bf16", 16), (102, 2, "float32", "bf16", 16), (768, 3, "int8", "bf16", 16),
     (768, 0, "int8", "f32", 16), (768, 1, "int8", "f32", 16), (100, 3, "int8", "f32", 16),
     (912, 3, "int8", "f32", 16), (768, 0, "int8", "bf16", 106), (768, 1, "int8", "bf16", 106),
-    (768, 4, "int8", "bf16", 16), (784, 4, "int8", "bf16", 106), (768, 4, "int8", "f32", 106)])
+    (768, 4, "int8", "bf16", 16), (784, 4, "int8", "bf16", 106), (768, 4, "int8", "f32", 106),
+    (768, 0, "float32", "f32", 16), (768, 3, "float32", "f32", 16), (768, 2, "float32", "f32", 16),
+    (768, 5, "float32", "f32", 33), (102, 5, "float32", "f32", 16), (768, 5, "float32", "bf16", 16),
+    (768, 5, "int8", "f32", 16)])
 def test_launch_rejects_queries_laid_out_for_the_other_body(cuda, d, laid_out, store_dtype, mode,
                                                             k):
     """Every launch is held to the body the library picks: queries laid
     out for another body (the mma.sync layout where a wgmma body runs, a
     wgmma layout where the mma.sync body or another wgmma body runs, in
-    bf16 and in f32 mode, at list width 32 and 128: the width-32 and the
-    wide-list bodies over int8 rows read one layout, and are still held
-    apart) launch nothing, raise, and count no launch."""
+    bf16 and in f32 mode, over int8 and f32 rows, at list width 32 and 128:
+    the width-32 and the wide-list bodies over int8 rows read one layout,
+    and are still held apart) launch nothing, raise, and count no
+    launch."""
     data, rng = _corpus(2000, d, seed=6)
     if store_dtype == "int8":
         store = BucketStore.build_packed_int8(data, rng.integers(0, 5, 2000), 5, chunk=96,
@@ -976,12 +1099,14 @@ def test_launch_rejects_queries_laid_out_for_the_other_body(cuda, d, laid_out, s
                                                                        mode)
     lib = cuda_build.load(scan_kernel.SOURCE, scan_kernel._bind)
     assert scan_kernel.scan_body(lib, st, mode, k).kind != laid_out
-    # the layout of the body laid_out names (bodies 1, 3 and 4: over an int8 store's order)
-    layout_dtype = torch.int8 if laid_out in (1, 3, 4) else st.dtype
-    op = scan_kernel.operand_queries(q, mode, layout_dtype,
-                                     -(-d // 128) * 128 if laid_out else 0)
+    # the layout of the body laid_out names (bodies 1, 3 and 4: over an int8
+    # store's order, d rounded up to 128; 2 and 5: over an f32 store's, to 64)
+    layout_dtype = (torch.int8 if laid_out in (1, 3, 4) else torch.float32 if laid_out in (2, 5)
+                    else st.dtype)
+    step = 64 if laid_out in (2, 5) else 128
+    op = scan_kernel.operand_queries(q, mode, layout_dtype, -(-d // step) * step if laid_out else 0)
     counts = ("LAUNCHES", "WGMMA_LAUNCHES", "WGMMA_F32_LAUNCHES", "WGMMA_F32MODE_LAUNCHES",
-              "WGMMA_WIDE_LAUNCHES")
+              "WGMMA_WIDE_LAUNCHES", "WGMMA_F32X_LAUNCHES")
     before = [getattr(scan_kernel, c) for c in counts]
     other = scan_kernel.BODY_NAMES[laid_out]
     with pytest.raises(RuntimeError, match=f"laid out for the {other} body"):

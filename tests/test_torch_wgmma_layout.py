@@ -280,31 +280,33 @@ def test_wgmma_f32mode_layout_pads_and_keeps_the_other_layouts():
     assert torch.equal(old, widened)
 
 
-def _resident_planes(op: torch.Tensor, cols: int, qd: int) -> np.ndarray:
+def _resident_planes(op: torch.Tensor, cols: int, qd: int, kstep: int = W3_KSTEP,
+                     dtype=np.float64) -> np.ndarray:
     """A block's resident query tile as the kernel writes it (``wgmma_begin``),
     in bf16 elements: slot n's plane ``term`` (values ``term·qd ..`` of its
     operand row) is column ``c = term·cols + n``, whose 8-depth piece p sits
-    at byte (p >> 1)·W3_KSTEP + (c >> 3)·256 + (p & 1)·128 + (c & 7)·16."""
-    rows = op.double().numpy()
-    smem = np.zeros(qd // 16 * W3_KSTEP // 2)
+    at byte (p >> 1)·kstep + (c >> 3)·256 + (p & 1)·128 + (c & 7)·16
+    (``kstep``: the bytes of a k-step of the block's three planes)."""
+    rows = op.double().numpy().astype(dtype)
+    smem = np.zeros(qd // 16 * kstep // 2, dtype)
     for term in range(3):
         for n in range(rows.shape[0]):
             c = term * cols + n
             for piece in range(qd // 8):
-                at = ((piece >> 1) * W3_KSTEP + (c >> 3) * 256 + (piece & 1) * 128
+                at = ((piece >> 1) * kstep + (c >> 3) * 256 + (piece & 1) * 128
                       + (c & 7) * 16) // 2
                 smem[at : at + 8] = rows[n, term * qd + 8 * piece : term * qd + 8 * piece + 8]
     return smem
 
 
-def _b_tile(smem: np.ndarray, j: int, width: int) -> np.ndarray:
+def _b_tile(smem: np.ndarray, j: int, width: int, kstep: int = W3_KSTEP) -> np.ndarray:
     """The (16, width) B operand that wgmma reads for k-step ``j`` through
     the body's descriptor (K-major, no swizzle: core matrices of 8 columns
     × 8 depths, the two 8-deep halves 128 bytes apart, 8-column groups 256
-    bytes apart)."""
+    bytes apart): the first ``width`` columns of the block's planes."""
     kk = np.arange(16)[:, None]
     c = np.arange(width)[None, :]
-    at = (j * W3_KSTEP + (c >> 3) * 256 + (kk >> 3) * 128 + (c & 7) * 16) // 2 + (kk & 7)
+    at = (j * kstep + (c >> 3) * 256 + (kk >> 3) * 128 + (c & 7) * 16) // 2 + (kk & 7)
     return smem[at]
 
 
@@ -468,6 +470,266 @@ def test_segment_length_counts_the_f32mode_blocks_m_tiles(seed):
     assert (seg + 1) * heaviest > scan_kernel.SEGMENT_SHARE * fair
     assert scan_kernel.segment_length(ptr, pair_bucket, np.zeros(40, np.int64), width=32,
                                       slots=slots, wgmma_block=32) == chunks.max()
+
+
+# f32 queries over an f32 store (the six-term wgmma body): its block's query
+# slots (WQX in csrc/scan_pairs.cu) and the bytes of one k-step of its
+# resident planes (WX_KSTEP); its folds span two 32-depth boxes, 64 depths
+X_SLOTS = 32
+X_KSTEP = 3 * X_SLOTS * 16 * 2
+X_FOLD = 64
+
+
+def test_wgmma_f32x_layout_pads_and_keeps_the_other_layouts():
+    """In mode f32 over an f32 store the wgmma rows are the three terms of
+    split_f32, each zero-padded to the width asked for and permuted per
+    32-group in WGMMA_F32_ORDER, as planes side by side (hi, mid, lo); a
+    width below d or not a multiple of 64 is refused; without one the
+    layout is the mma.sync body's over an f32 store (the three terms of each
+    32-value slice side by side, unpermuted), and the f32-mode layout over
+    an int8 store keeps its 64-groups in WGMMA_ORDER."""
+    q = torch.as_tensor(np.random.default_rng(8).normal(size=(4, 100)).astype(np.float32))
+    for bad in (64, 96, 160):
+        with pytest.raises(ValueError):
+            scan_kernel.operand_queries(q, "f32", torch.float32, bad)
+    for qd in (128, 192):
+        op = scan_kernel.operand_queries(q, "f32", torch.float32, qd)
+        assert op.dtype == torch.bfloat16 and op.shape == (4, 3 * qd)
+        assert op.is_contiguous() and op.data_ptr() % 16 == 0
+        order = list(scan_kernel.WGMMA_F32_ORDER)
+        planes = []
+        for term in scan_kernel.split_f32(q):
+            flat = torch.zeros((4, qd), dtype=torch.bfloat16)
+            flat[:, :100] = term
+            planes.append(flat.reshape(4, qd // 32, 32)[:, :, order].reshape(4, qd))
+        assert torch.equal(op, torch.cat(planes, dim=1))
+    old = scan_kernel.operand_queries(q, "f32", torch.float32)
+    assert old.shape == (4, 3 * 128)
+    terms = []
+    for term in scan_kernel.split_f32(q):
+        flat = torch.zeros((4, 128), dtype=torch.bfloat16)
+        flat[:, :100] = term
+        terms.append(flat.reshape(4, 4, 32))
+    assert torch.equal(old, torch.stack(terms, dim=2).reshape(4, 3 * 128))
+    i8 = scan_kernel.operand_queries(q, "f32", torch.int8, 128)
+    assert not torch.equal(i8, scan_kernel.operand_queries(q, "f32", torch.float32, 128))
+    assert torch.equal(i8[:, :128].reshape(4, 2, 64)[:, :, list(np.argsort(
+        scan_kernel.WGMMA_ORDER))].reshape(4, 128)[:, :100], scan_kernel.split_f32(q)[0])
+
+
+def _truncated_terms(x: np.ndarray):
+    """The kernel's split of f32 store values (split_pair, split3): hi the
+    top 16 bits of x, mid those of x − hi, lo those of what is left, each
+    subtraction exact in f32."""
+    def top16(v):
+        return (v.astype(np.float32).view(np.uint32) & np.uint32(0xFFFF0000)).view(np.float32)
+
+    x = x.astype(np.float32)
+    hi = top16(x)
+    rest = x - hi
+    mid = top16(rest)
+    return hi, mid, top16(rest - mid)
+
+
+def _f32x_fold_sums(x: np.ndarray, op: torch.Tensor, cols: int, qd: int, exact: bool):
+    """The six-term body, lane by lane, over f32 rows ``x``: for each box (32
+    depths; TMA writes zeros past d) and k-step j of it, the A fragments of
+    the three store terms at ``_f32_lane_depths``' places (truncation
+    split), and per k-step six wgmma m64nNk16 (N = cols), each over one
+    plane of the resident B tile (the descriptor ``term·cols / 8`` column
+    groups in): x_hi · q_hi into the large sum; x_lo · q_hi, x_mid · q_mid,
+    x_mid · q_hi, x_hi · q_lo and x_hi · q_mid into the small sum; a pair of
+    sums a fold of two boxes (64 depths).  ``exact``: in Python integers
+    (the terms scaled to integers, products and sums exact), else in
+    float64.  Returns ``(folds, 2, rows, cols)``: large, small."""
+    xp = np.zeros((x.shape[0], qd), np.float32)
+    xp[:, : x.shape[1]] = x
+    terms = _truncated_terms(xp)
+    smem = _resident_planes(op, cols, qd, X_KSTEP)
+    if exact:  # every term here is a multiple of 2**-30
+        terms = [(t.astype(np.float64) * 2.0**30).astype(np.int64).astype(object) for t in terms]
+        smem = (smem * 2.0**30).astype(np.int64).astype(object)
+    else:
+        terms = [t.astype(np.float64) for t in terms]
+    depth = _f32_lane_depths()
+    out = np.zeros((qd // X_FOLD, 2, x.shape[0], cols), object if exact else np.float64)
+    # (store term, query plane, sum) of each wgmma of a k-step, in issue order
+    six = ((0, 0, 0), (2, 0, 1), (1, 1, 1), (1, 0, 1), (0, 2, 1), (0, 1, 1))
+    for kk in range(qd // 16):
+        box, j = kk // 2, kk % 2
+        at = 32 * box + depth[j]
+        b = _b_tile(smem, kk, 3 * cols, X_KSTEP)
+        for term, plane, which in six:
+            out[kk // 4, which] += terms[term][:, at] @ b[:, plane * cols : (plane + 1) * cols]
+    return out
+
+
+def _dyadic(rng, shape):
+    """f32 values of random sign, mantissa and exponent (2**-3 .. 2**3), some
+    zero: every truncated and rounded bf16 term of them a multiple of 2**-30."""
+    v = (rng.integers(2**23, 2**24, shape) * 2.0 ** (rng.integers(-3, 3, shape) - 23.0)
+         * rng.choice([-1.0, 1.0], shape))
+    v[rng.random(shape) < 0.05] = 0.0
+    return v.astype(np.float32)
+
+
+@pytest.mark.parametrize("d,n", [(768, 32), (896, 32), (100, 16), (16, 9), (768, 20)])
+def test_wgmma_f32x_model_contracts_to_the_six_term_product(d, n):
+    """The six-term body, modelled from the operand rows through the block's
+    resident planes and the lanes' truncation split to the six wgmma of
+    each k-step (``_f32x_fold_sums``, exact in integers): summed over the
+    folds, the large sum's column of slot n is ``x_hi · q_hi`` and the
+    small sum's the other five products of ``mma_six``, ``x_lo · q_hi +
+    x_mid · (q_hi + q_mid) + x_hi · (q_mid + q_lo)``; together the six
+    products and no others, which are ``x · q`` but for the three dropped
+    ones; columns of slots past the queries are zero.  ``n`` queries in a
+    block of two m-tiles (32 columns a plane) or one."""
+    rng = np.random.default_rng(d + n)
+    x = _dyadic(rng, (9, d))
+    q = torch.as_tensor(_dyadic(rng, (n, d)))
+    qd = -(-d // QD_STEP_F32) * QD_STEP_F32
+    cols = 16 * -(-n // 16)
+    op = scan_kernel.operand_queries(q, "f32", torch.float32, qd)
+    large, small = _f32x_fold_sums(x, op, cols, qd, exact=True).sum(axis=0)
+
+    def ints(t):
+        return (np.asarray(t, np.float64) * 2.0**30).astype(np.int64).astype(object)
+
+    xh, xm, xl = (ints(t) for t in _truncated_terms(x))
+    qh, qm, ql = (ints(t.double().numpy()) for t in scan_kernel.split_f32(q))
+    want_small = xl @ qh.T + xm @ (qh + qm).T + xh @ (qm + ql).T
+    np.testing.assert_array_equal(large[:, :n], xh @ qh.T)
+    np.testing.assert_array_equal(small[:, :n], want_small)
+    assert not large[:, n:].any() and not small[:, n:].any()
+    # the six products are x · q but for the three that the body drops
+    dropped = xm @ ql.T + xl @ qm.T + xl @ ql.T
+    np.testing.assert_array_equal(large[:, :n] + small[:, :n] + dropped,
+                                  ints(x) @ ints(q.numpy()).T)
+    assert (np.abs(dropped.astype(float)) > 0).any()
+
+
+def _f32x_raw(x: np.ndarray, q: torch.Tensor) -> np.ndarray:
+    """raw = x · q as the six-term body rounds it, ``(rows, queries)`` f32:
+    each fold's (64 depths) large and small sums in float64, then f32 (where
+    the tensor cores truncate: the model rounds), folded into the running
+    sum as small + large, + the running sum, each add rounded to the
+    nearest f32 (``fold_two``); the queries in blocks of X_SLOTS."""
+    qd = -(-x.shape[1] // QD_STEP_F32) * QD_STEP_F32
+    out = []
+    for q0 in range(0, q.shape[0], X_SLOTS):
+        qb = q[q0 : q0 + X_SLOTS]
+        n, cols = qb.shape[0], 16 * -(-qb.shape[0] // 16)
+        op = scan_kernel.operand_queries(qb, "f32", torch.float32, qd)
+        acc = np.zeros((x.shape[0], n), np.float32)
+        for large, small in _f32x_fold_sums(x, op, cols, qd, exact=False):
+            acc = acc + (small[:, :n].astype(np.float32) + large[:, :n].astype(np.float32))
+        out.append(acc)
+    return np.concatenate(out, axis=1)
+
+
+@pytest.mark.parametrize("d,k,qtile", [(96, 16, 16), (768, 32, 8), (100, 10, 32)])
+def test_wgmma_f32x_model_matches_pallas_f32_scan(d, k, qtile):
+    """The six-term body's rounded sums (``_f32x_raw``), as distances ``1 −
+    raw·scale`` in f32 over an f32 packed store, give each real query's
+    top-k over its pair's bucket within the parity bar of the JAX package's
+    f32 (Precision.HIGHEST) Pallas scan of the same seeded inputs over an
+    f32 store in interpret mode: rtol 1e-4, atol 1e-5, slots differing only
+    at ties (rtol 1e-6, atol 1e-7), as tests/test_scan_kernel.py holds the
+    Pallas kernel to the XLA path."""
+    import jax.numpy as jnp
+
+    from learnedmetricindex_tpu.data import synthetic_blobs
+    from learnedmetricindex_tpu.index.bucket_store import BucketStore as JaxStore
+    from learnedmetricindex_tpu.index.bucket_store import build_scan_plan
+    from learnedmetricindex_tpu.ops.scan_kernel import pallas_host_args, pallas_scan_pairs
+    from learnedmetricindex_tpu_torch.index.bucket_store import build_plan
+    from learnedmetricindex_tpu_torch.ops.select import smallest_k
+
+    n, nb, chunk, nq = 400, 4, 64, 36
+    data, queries = synthetic_blobs(n, d, nq, seed=d + 1)
+    rng = np.random.default_rng(d + 1)
+    store = JaxStore.build(data, rng.integers(0, nb, size=n), nb, chunk=chunk)
+    order = np.stack([rng.choice(nb, size=2, replace=False) for _ in range(nq)]).astype(np.int64)
+    order[rng.random(nq) < 0.3, -1] = -1
+    plan = build_scan_plan(store, order, qtile=qtile)
+    n_pairs = len(plan.qidx) // qtile
+    im, ic, wr, sf, written = pallas_host_args(store, plan, qtile, n_pairs)
+    qidx = jnp.asarray(plan.qidx)
+    wq = jnp.where((qidx >= 0)[:, None], jnp.asarray(queries)[jnp.maximum(qidx, 0)], 0.0)
+    jd, js = pallas_scan_pairs(
+        wq, jnp.asarray(im), jnp.asarray(ic), jnp.asarray(wr), store.chunk_data,
+        jnp.asarray(sf), None, k=k, qtile=qtile, chunk=chunk, n_pairs=n_pairs,
+        compute="f32", interpret=True)
+    jd, js = np.asarray(jd)[:n_pairs], np.asarray(js)[:n_pairs]
+    sf = np.asarray(sf)
+    raw = _f32x_raw(np.asarray(store.chunk_data), torch.as_tensor(queries))
+    dist = (raw * -sf[:, None]).astype(np.float32) + np.where(sf == 0.0, np.inf, 1.0)[:, None]
+    dist = torch.as_tensor(dist.astype(np.float32).T)  # (queries, slots)
+    pplan = build_plan(torch.as_tensor(order), nb, qtile)
+    assert pplan.n_pairs == n_pairs
+    ptr = store.bucket_chunk_start
+    pb = pplan.pair_bucket.numpy()
+    real = (plan.qidx >= 0).reshape(-1, qtile)
+    checked = 0
+    for p in range(n_pairs):
+        if not written[p]:
+            continue
+        b = int(pb[p])
+        slots = torch.arange(int(ptr[b]) * chunk, int(ptr[b + 1]) * chunk)
+        for j in np.nonzero(real[p])[0]:
+            qi = int(plan.qidx[p * qtile + j])
+            vals, pos = smallest_k(dist[qi, slots][None, :], min(k, len(slots)))
+            md = np.full(k, np.inf, np.float32)
+            ms = np.full(k, -1, np.int64)
+            md[: vals.shape[1]] = vals[0].numpy()
+            ms[: vals.shape[1]] = np.where(np.isinf(md[: vals.shape[1]]), -1, slots[pos[0]].numpy())
+            o = np.lexsort((js[p, j], jd[p, j]))
+            np.testing.assert_allclose(md, jd[p, j][o], rtol=1e-4, atol=1e-5)
+            mism = ms != js[p, j][o]
+            if mism.any():
+                np.testing.assert_allclose(md[mism], jd[p, j][o][mism], rtol=1e-6, atol=1e-7)
+            checked += 1
+    assert checked > 0
+
+
+@pytest.mark.parametrize("block", [X_SLOTS, 16])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_segment_length_counts_the_f32x_blocks_m_tiles(block, seed):
+    """The split's cost model for the six-term body: a pair's 128 slots are
+    blocks of its ``block`` query slots (32, four blocks; or 16, eight
+    blocks of one m-tile, the other design), each computing its m-tiles up
+    to its last live one; the segment keeps the heaviest block within the
+    share of a slot's fair share, and a block with no live slot costs
+    nothing."""
+    rng = np.random.default_rng(seed + 30)
+    counts = rng.integers(0, 70, 28)
+    ptr = np.concatenate([[0], np.cumsum(counts)])
+    pair_bucket = rng.integers(0, 28, 45)
+    live = rng.integers(0, 256, 45)
+    live[:4] = [0b1, 0b100, 0b10000001, 0]
+    slots = 132
+    seg = scan_kernel.segment_length(ptr, pair_bucket, live, width=32, slots=slots,
+                                     wgmma_block=block)
+    tiles = block // 16
+    blocks = np.zeros((45, 8 // tiles), np.int64)
+    for p in range(45):
+        for blk in range(8 // tiles):
+            bits = [(live[p] >> (tiles * blk + m)) & 1 for m in range(tiles)]
+            blocks[p, blk] = max((m + 1 for m in range(tiles) if bits[m]), default=0)
+    if block == 32:
+        np.testing.assert_array_equal(blocks[:4], [[1, 0, 0, 0], [0, 1, 0, 0], [1, 0, 0, 2],
+                                                   [0, 0, 0, 0]])
+    else:
+        np.testing.assert_array_equal(blocks[2], [1, 0, 0, 0, 0, 0, 0, 1])
+    chunks = counts[pair_bucket]
+    fair = (chunks[:, None] * blocks).sum() / slots
+    heaviest = blocks[chunks > 0].max()
+    assert seg >= 1
+    if seg > 1:
+        assert seg * heaviest <= scan_kernel.SEGMENT_SHARE * fair
+    assert (seg + 1) * heaviest > scan_kernel.SEGMENT_SHARE * fair
+    assert scan_kernel.segment_length(ptr, pair_bucket, np.zeros(45, np.int64), width=32,
+                                      slots=slots, wgmma_block=block) == chunks.max()
 
 
 @pytest.mark.parametrize("width", [64, 128])

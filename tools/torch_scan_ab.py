@@ -37,9 +37,11 @@ without it (the interface before the split) launches one block a pair.
 Then f32 over the flagship's rows as an f32 store
 (``chip_smoke.dequantized_store``, 31 GB) at each ``k`` up to 128: the
 same bits on both sides, unless a side still has the CUDA-core FMA body
-(``scan_f32_kernel``), which takes f32 query rows and rounds otherwise;
-then held to the f32 parity bar (``chip_smoke.compare_candidates``) and
-each side's distances to float64 (``chip_smoke.float64_error``).  Then
+(``scan_f32_kernel``), which takes f32 query rows and rounds otherwise,
+or only one side takes the six-term wgmma body (``k_scan`` <= 32), which
+sums in another order than ``mma.sync``; then held to the f32 parity bar
+(``chip_smoke.compare_candidates``) and each side's distances to float64
+(``chip_smoke.float64_error``).  Then
 bf16 over f32 rows at ``k_scan`` 16 (the default search over an f32
 store, the CLI's scan): over that 31 GB store, and over the flagship
 corpus's first 1M rows in their buckets as an f32 store (3.1 GB, the
@@ -111,7 +113,8 @@ def sass(cubin: Path) -> dict:
     """Instruction lines per kernel, encodings and offsets dropped; a scan
     kernel instance under its name from ``scan_mma_kernel`` (or
     ``scan_wgmma_kernel``, ``scan_wgmma_f32_kernel``,
-    ``scan_wgmma_f32mode_kernel``, ``scan_wgmma_wide_kernel``) on."""
+    ``scan_wgmma_f32mode_kernel``, ``scan_wgmma_wide_kernel``,
+    ``scan_wgmma_f32x_kernel``) on."""
     cuobjdump = Path(cuda_build._nvcc()).with_name("cuobjdump")
     txt = subprocess.run([str(cuobjdump), "-sass", str(cubin)], capture_output=True, text=True,
                          check=True).stdout
@@ -130,7 +133,8 @@ def sass(cubin: Path) -> dict:
         # after the source file, so the two builds' prefixes differ
         name = name.strip()
         for kernel in ("scan_mma_kernel", "scan_wgmma_kernel", "scan_wgmma_f32_kernel",
-                       "scan_wgmma_f32mode_kernel", "scan_wgmma_wide_kernel"):
+                       "scan_wgmma_f32mode_kernel", "scan_wgmma_wide_kernel",
+                       "scan_wgmma_f32x_kernel"):
             if kernel in name:
                 name = name[name.find(kernel):]
                 break
@@ -426,7 +430,16 @@ def main() -> None:
     for k in (k for k in args.k if k <= 128):
         runs = {n: launcher(sd, f32, queries, order, "f32", k) for n, sd in sides.items()}
         outs = {n: tuple(t.clone() for t in run()) for n, run in runs.items()}
-        if fma:
+        sargs = scan_inputs(f32, queries, order, 128, "f32")[1]
+        kinds = {n: b.kind if b is not None else 0
+                 for n, b in ((n, side_body(sd, sargs[5], "f32", k, None))
+                              for n, sd in sides.items())}
+        del sargs
+        if kinds["this"] != kinds["other"] and not fma:
+            agree = bodies_agree(outs, f"f32 store k={k}", "f32", f32, queries, order)
+            agree += "; bodies " + ", ".join(f"{n} {scan_kernel.BODY_NAMES[b]}"
+                                             for n, b in kinds.items())
+        elif fma:
             err, gap = cs.compare_candidates(*outs["this"], *outs["other"], "f32",
                                              f"f32 store k={k}: this against other")
             plan, sargs = scan_inputs(f32, queries, order, 128, "f32")

@@ -2,7 +2,7 @@
 """What bounds the scan's default bodies at the flagship, on one NVIDIA GPU.
 
     python3 tools/torch_scan_probe.py [--body mma|wgmma|mma-f32|wgmma-f32|mma-f32mode|wgmma-f32mode|
-                                             mma-wide|wgmma-wide]
+                                             mma-wide|wgmma-wide|mma-f32x|wgmma-f32x]
                                       [--checkout DIR] [--reference DIR ...]
                                       [--rounds 4] [--only NAME ...]
 
@@ -11,7 +11,9 @@ scan at list width 32 (``k_scan`` 16; the wide-list bodies at 106) by
 removing work: over the int8
 packed store (``--body mma``, ``wgmma``) or over the same rows as an f32
 store (``--body mma-f32``, ``wgmma-f32``: ``chip_smoke.dequantized_store``,
-31 GB, the default search over ``BuildConfiguration(dtype="float32")``).
+31 GB, the default search over ``BuildConfiguration(dtype="float32")``);
+and the f32 scan over the int8 store (``mma-f32mode``, ``wgmma-f32mode``)
+or over that f32 store (``mma-f32x``, ``wgmma-f32x``).
 It writes patched copies of ``DIR``'s
 ``learnedmetricindex_tpu_torch/csrc/scan_pairs.cu`` (default: this
 tree's) into ``build/scan_probe/``, builds each (and
@@ -127,6 +129,33 @@ store, timed at ``k_scan`` 106:
 * ``32 slots a block``: a block keeps 32 query slots (a pair takes four
   blocks) in place of 64.
 
+``--body mma-f32x``: the mma.sync body's six-term instance over an f32
+store (``MmaBody<MODE_F32, float, 32>``, ``precision="highest"`` over
+``BuildConfiguration(dtype="float32")``: a checkout where that scan takes
+it, for example the commit before the six-term wgmma body), timed in mode
+f32 over the flagship's rows as an f32 store:
+
+* ``tree``, ``no mma.sync``, ``no selection`` as for ``--body mma``;
+* ``no split``: ``split3`` hands on the value's bits (the loads kept);
+* ``no mma.sync, no split, no selection``.
+
+``--body wgmma-f32x``: the six-term wgmma body, timed in mode f32 over
+that f32 store:
+
+* ``tree``, ``no wgmma``, ``no selection``, ``no hand-over``, ``no TMA``
+  as for ``--body wgmma``;
+* ``no split``: ``split_pair`` packs the hi term and hands on that word
+  with bits flipped as the other two;
+* ``16 slots a block``: 16 query slots (a pair in eight blocks) and the
+  two-box stages of the body over f32 rows in place of 32 slots and
+  one-box stages;
+* ``ring of 3 one-box stages (d <= 768)``: three stages a consumer;
+* ``x_hi · [q_hi, q_mid] in one m64n(2N)k16``: those two products as one
+  wgmma over adjacent planes, a ``wgmma.fence``, then the other four;
+* ``one sum for the six products``: the five small products into the
+  large sum too (the first design's rounding, for its time);
+* ``bare``: no TMA, no split, no hand-over; ``no wgmma, bare``.
+
 The copies' results are wrong and are not read.  Then the card's memory
 rates: a ~1 GB device-to-device copy (HBM: bytes read + written) and a
 sum over a 20 MB and a 40 MB buffer read again and again (L2).  Prints
@@ -201,8 +230,8 @@ W_NO_SELECTION = [(W_SELECT, "", "all")]
 W_NO_HANDOVER = W_NO_SELECTION + [
     ("    if (i > 0) bar_sync(BAR_HANDOVER + wg, 256);  // the tile before is selected (by the warpgroup before)\n", "", "all"),
     ("    if (i + 1 < ntiles) bar_arrive(BAR_HANDOVER + (wg + 1) % W_CONSUMERS, 256);\n", "", "all")]
-W_NO_TMA = [("      mbar_expect_tx(full, R::STAGE);\n#pragma unroll\n      for (int box = 0; box < W_BOXES; ++box)\n"
-             "        tma_load_rows(s.stage(wg, slot) + box * WR * R::ROW, map, (st * W_BOXES + box) * R::DEPTHS,\n"
+W_NO_TMA = [("      mbar_expect_tx(full, R::STAGE);\n#pragma unroll\n      for (int box = 0; box < R::BOXES; ++box)\n"
+             "        tma_load_rows(s.stage(wg, slot) + box * WR * R::ROW, map, (st * R::BOXES + box) * R::DEPTHS,\n"
              "                      row, full);\n",
              "      mbar_arrive(full);\n")]
 W_BOX1 = [("constexpr int W_STAGES = 2;", "constexpr int W_STAGES = 4;"),
@@ -337,28 +366,98 @@ WGMMA_WIDE_VARIANTS = {
     "no wgmma, bare": W_NO_WGMMA + W_NO_TMA + W_NO_WIDEN + WW_NO_HANDOVER,
     "32 slots a block": WW_SLOTS32,
 }
+# the six-term mma.sync body (f32 over an f32 store): its split of the store
+# values (split3) replaced by the value's bits, the loads kept
+X_NO_SPLIT = [("  term[0] = __float_as_uint(x) & 0xffff0000u;\n"
+               "  const float rest = __fsub_rn(x, __uint_as_float(term[0]));\n"
+               "  term[1] = __float_as_uint(rest) & 0xffff0000u;\n"
+               "  term[2] = __float_as_uint(__fsub_rn(rest, __uint_as_float(term[1])));\n",
+               "  term[0] = __float_as_uint(x);\n  term[1] = term[0] ^ 1u;\n"
+               "  term[2] = term[0] ^ 2u;\n")]
+MMA_F32X_VARIANTS = {
+    "tree": [],
+    "no mma.sync": NO_MMA,
+    "no split": X_NO_SPLIT,
+    "no selection": NO_SELECTION,
+    "no mma.sync, no split, no selection": NO_MMA + X_NO_SPLIT + NO_SELECTION,
+}
+# the six-term wgmma body: its split (split_pair) reduced to the hi term's
+# packing, the other two terms that word with bits flipped
+WX_SPLIT = ("  const float r0 = __fsub_rn(x0, __uint_as_float(b0 & 0xffff0000u));\n"
+            "  const float r1 = __fsub_rn(x1, __uint_as_float(b1 & 0xffff0000u));\n"
+            "  const uint32_t m0 = __float_as_uint(r0), m1 = __float_as_uint(r1);\n"
+            "  a[1][r] = __byte_perm(m0, m1, 0x7632);\n"
+            "  a[2][r] = __byte_perm(__float_as_uint(__fsub_rn(r0, __uint_as_float(m0 & 0xffff0000u))),\n"
+            "                        __float_as_uint(__fsub_rn(r1, __uint_as_float(m1 & 0xffff0000u))), 0x7632);\n")
+WX_NO_SPLIT = [(WX_SPLIT, "  a[1][r] = a[0][r] ^ 1u;\n  a[2][r] = a[0][r] ^ 2u;\n")]
+# ... 16 query slots a block (a pair in eight blocks) and the two-box stages of the body over
+# f32 rows
+WX_SLOTS16 = [("constexpr int WQX = 32;", "constexpr int WQX = 16;")]
+# ... a ring of three one-box stages a consumer (48 KB: the widest resident
+# tile then 768)
+WX_STAGES3 = [("constexpr int WX_STAGES = 2;", "constexpr int WX_STAGES = 3;")]
+# ... x_hi against the planes hi and mid in one m64n(2N)k16 (the large sum
+# and the x_hi · q_mid part of the small one are adjacent columns), then a
+# wgmma.fence (another shape over the small sum's registers) and the other
+# four m64nNk16
+WX_ISSUE = ("        wgmma_rs_sum<N>(large, a[B][j][0], query_desc(q), add);  // x_hi · q_hi\n"
+            "        wgmma_rs_sum<N>(small, a[B][j][2], query_desc(q), add);  // x_lo · q_hi\n"
+            "        wgmma_rs_sum<N>(small, a[B][j][1], query_desc(q + N / 8 * 256), 1);  // x_mid · q_mid\n"
+            "        wgmma_rs_sum<N>(small, a[B][j][1], query_desc(q), 1);  // x_mid · q_hi\n"
+            "        wgmma_rs_sum<N>(small, a[B][j][0], query_desc(q + N / 4 * 256), 1);  // x_hi · q_lo\n"
+            "        wgmma_rs_sum<N>(small, a[B][j][0], query_desc(q + N / 8 * 256), 1);  // x_hi · q_mid\n")
+WX_WIDE = [(WX_ISSUE,
+            "        wgmma_rs_sum<2 * N>(fresh, a[B][j][0], query_desc(q), add);  // x_hi · [q_hi, q_mid]\n"
+            "        wgmma_fence();\n"
+            "        wgmma_rs_sum<N>(small, a[B][j][2], query_desc(q), 1);  // x_lo · q_hi\n"
+            "        wgmma_rs_sum<N>(small, a[B][j][1], query_desc(q + N / 8 * 256), 1);  // x_mid · q_mid\n"
+            "        wgmma_rs_sum<N>(small, a[B][j][1], query_desc(q), 1);  // x_mid · q_hi\n"
+            "        wgmma_rs_sum<N>(small, a[B][j][0], query_desc(q + N / 4 * 256), 1);  // x_hi · q_lo\n")]
+# ... the five small products into the large sum too (one sum, the large
+# sum's truncation over all six products: the precision it costs)
+WX_ONE_SUM = [(WX_ISSUE, WX_ISSUE.replace("wgmma_rs_sum<N>(small, a[B][j][2], query_desc(q), add)",
+                                          "wgmma_rs_sum<N>(small, a[B][j][2], query_desc(q), 1)")
+               .replace("(small,", "(large,"))]
+WX_SELECT = [("    wgmma_select(p, s, wg, N, nrows, slot0);\n", "", "all")]
+WGMMA_F32X_VARIANTS = {
+    "tree": [],
+    "no wgmma": W_NO_WGMMA,
+    "no split": WX_NO_SPLIT,
+    "no selection": WX_SELECT,
+    "no hand-over": W_NO_HANDOVER,
+    "no TMA": W_NO_TMA,
+    "16 slots a block": WX_SLOTS16,
+    "ring of 3 one-box stages (d <= 768)": WX_STAGES3,
+    "x_hi · [q_hi, q_mid] in one m64n(2N)k16": WX_WIDE,
+    "one sum for the six products": WX_ONE_SUM,
+    "bare": W_NO_TMA + WX_NO_SPLIT + W_NO_HANDOVER,
+    "no wgmma, bare": W_NO_WGMMA + W_NO_TMA + WX_NO_SPLIT + W_NO_HANDOVER,
+}
 VARIANTS = {"mma": MMA_VARIANTS, "wgmma": WGMMA_VARIANTS, "mma-f32": MMA_F32_VARIANTS,
             "wgmma-f32": WGMMA_F32_VARIANTS, "mma-f32mode": MMA_F32MODE_VARIANTS,
             "wgmma-f32mode": WGMMA_F32MODE_VARIANTS, "mma-wide": MMA_VARIANTS,
-            "wgmma-wide": WGMMA_WIDE_VARIANTS}
+            "wgmma-wide": WGMMA_WIDE_VARIANTS, "mma-f32x": MMA_F32X_VARIANTS,
+            "wgmma-f32x": WGMMA_F32X_VARIANTS}
 # ptxas's report of the instance each body runs
 INSTANCE = {"mma": "scan_mma_kernelILi1EaLi32E", "wgmma": "scan_wgmma_kernel",
             "mma-f32": "scan_mma_kernelILi1EfLi32E", "wgmma-f32": "scan_wgmma_f32_kernel",
             "mma-f32mode": "scan_mma_kernelILi0EaLi32E",
             "wgmma-f32mode": "scan_wgmma_f32mode_kernel", "mma-wide": "scan_mma_kernelILi1EaLi128E",
-            "wgmma-wide": "scan_wgmma_wide_kernelILi128E"}
+            "wgmma-wide": "scan_wgmma_wide_kernelILi128E", "mma-f32x": "scan_mma_kernelILi0EfLi32E",
+            "wgmma-f32x": "scan_wgmma_f32x_kernel"}
 # the scan mode each body runs in, and the kernel that the checkout must have
 # (wgmma bodies) or must not have (the mma.sync body those replace)
 BODY_MODE = {"mma": "bf16", "wgmma": "bf16", "mma-f32": "bf16", "wgmma-f32": "bf16",
              "mma-f32mode": "f32", "wgmma-f32mode": "f32", "mma-wide": "bf16",
-             "wgmma-wide": "bf16"}
+             "wgmma-wide": "bf16", "mma-f32x": "f32", "wgmma-f32x": "f32"}
 # the k_scan each body is timed at: the default search's 16, search(k=100)'s 106
 BODY_K = {"mma-wide": 106, "wgmma-wide": 106}
 BODY_KERNEL = {"mma": "scan_wgmma_kernel", "wgmma": "scan_wgmma_kernel",
                "mma-f32": "scan_wgmma_f32_kernel", "wgmma-f32": "scan_wgmma_f32_kernel",
                "mma-f32mode": "scan_wgmma_f32mode_kernel",
                "wgmma-f32mode": "scan_wgmma_f32mode_kernel",
-               "mma-wide": "scan_wgmma_wide_kernel", "wgmma-wide": "scan_wgmma_wide_kernel"}
+               "mma-wide": "scan_wgmma_wide_kernel", "wgmma-wide": "scan_wgmma_wide_kernel",
+               "mma-f32x": "scan_wgmma_f32x_kernel", "wgmma-f32x": "scan_wgmma_f32x_kernel"}
 
 
 def patched(source: str, edits) -> str:
@@ -429,7 +528,8 @@ def main() -> None:
         for line in (stdout + err).splitlines():
             if "Compiling entry function" in line:
                 keep = INSTANCE[args.body] in line
-            elif keep and ("registers" in line or "spill" in line):
+            elif ((keep and ("registers" in line or "spill" in line))
+                  or ("serialized" in line and INSTANCE[args.body] in line)):
                 cs.log(f"[probe] {out.name}: {line.strip()}")
     sides = {name: ab.bind(WORK / f"v{i}.so", src, WORK / "merge.so")
              for i, (name, src) in enumerate(sources.items())}
@@ -438,7 +538,7 @@ def main() -> None:
     del virtual
     mode = BODY_MODE[args.body]
     what = f"{mode} over the int8 packed store"
-    if args.body.endswith("f32"):
+    if args.body.endswith(("f32", "f32x")):
         store = cs.dequantized_store(store)
         what = f"{mode} over an f32 store ({store.chunk_data.numel() * 4 / 1e9:.1f} GB)"
     k = BODY_K.get(args.body, 16)
