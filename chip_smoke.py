@@ -36,16 +36,17 @@ phases:
    in rounds under floors): the scan kernel over the items and the merge
    kernel bit-equal to the scan kernel over whole buckets, and within the
    bar of the plain version (every other case runs the wrapper's own
-   split); then bf16 and f32 over the int8 and the f32 store at list
-   width 32, the default and ``highest`` searches' scans and their four
-   wgmma bodies, at k 16 and 32 and qtile 1/8/100/128 (chunks of 320 and
-   130 rows, the stores mutated, forced segments; the widest resident
-   query tiles, d 1152 of bf16 over int8 rows, 896 over f32 rows and of
-   f32 over int8 and f32 rows), and the launches there that keep the
-   mma.sync body (virtual stores, int8 rows of 100 bytes, d 900 and 102
-   over f32 rows, f32 over int8 rows at d 1040, f32 over f32 rows at k
-   33, k 1040 in rounds under floors), each case naming the body its
-   launches took;
+   split); then bf16 and f32 over the int8 and the f32 store and int8
+   over the int8 store at list width 32, the default, ``highest`` and
+   ``int8`` searches' scans and their five wgmma bodies, at k 16 and 32
+   and qtile 1/8/100/128 (chunks of 320 and 130 rows, the stores mutated,
+   forced segments; the widest resident query tiles, d 1152 of bf16 over
+   int8 rows, 1664 of int8 queries, 896 over f32 rows and of f32 over int8
+   and f32 rows), and the launches there that keep the mma.sync body
+   (virtual stores, int8 rows of 100 bytes, d 900 and 102 over f32 rows,
+   f32 over int8 rows at d 1040, f32 over f32 rows and int8 at k 33, k
+   1040 in rounds under floors), each case naming the body its launches
+   took;
 4. corpus: a seeded 10M×768 int8 corpus (+ f32 row scales) on the
    device and the exact f32 top-10 of the queries;
 5. search path: an index whose MLP-4 encodes a nearest-centroid
@@ -58,7 +59,10 @@ phases:
    length, items; each default search is one launch of the wgmma body,
    the ``highest`` search one of the f32-mode wgmma body, its recall
    against exact kNN over the visited buckets equal to the same search's
-   through the scan's plain version; each ``search(k=100)`` one launch of
+   through the scan's plain version; the ``int8`` search one launch of the
+   int8 wgmma body, its recall equal to the same search's through the
+   scan's plain version and its results bit-equal to it, timed; each
+   ``search(k=100)`` one launch of
    the wide-list wgmma body at ``k_scan`` 106, timed, its recall@100
    against exact kNN over the visited buckets at least 0.999 and within
    0.001 of the same search's through the scan's plain version, timed
@@ -219,13 +223,14 @@ BF16_ATOL, BF16_SAME_IDS = 3e-3, 0.99
 # terms must miss the bar, or the check could not tell the bodies apart
 SPLIT_REL_ERR = 2.0**-20
 REPLACES = "learnedmetricindex_tpu/ops/scan_kernel.py:325"
-# read_counts' keys of the scan's launches on its five wgmma bodies (bf16
+# read_counts' keys of the scan's launches on its six wgmma bodies (bf16
 # over int8 rows, bf16 over f32 rows, f32 over int8 rows, bf16 over int8
-# rows at list widths 64 and 128, f32 over f32 rows)
+# rows at list widths 64 and 128, f32 over f32 rows, int8 over int8 rows)
 WGMMA_INT8, WGMMA_F32 = "scan_pairs wgmma body", "scan_pairs wgmma f32 body"
 WGMMA_F32MODE = "scan_pairs wgmma f32-mode body"
 WGMMA_WIDE = "scan_pairs wgmma wide-list body"
 WGMMA_F32X = "scan_pairs wgmma six-term body"
+WGMMA_S8 = "scan_pairs wgmma int8 body"
 KERNEL_SOURCE = "learnedmetricindex_tpu_torch/csrc/scan_pairs.cu"
 # the merge of a split scan takes the place of the Pallas kernel's running
 # top-k across a pair's chunks (its `insert`, carried in VMEM chunk to chunk)
@@ -416,28 +421,30 @@ def reset_counts() -> None:
     scan_kernel.WGMMA_F32MODE_LAUNCHES = 0
     scan_kernel.WGMMA_WIDE_LAUNCHES = 0
     scan_kernel.WGMMA_F32X_LAUNCHES = 0
+    scan_kernel.WGMMA_S8_LAUNCHES = 0
     scan_kernel.MERGE_LAUNCHES = 0
     gather_kernel.LAUNCHES = 0
     gather_kernel.PAIR_LAUNCHES = 0
 
 
 def read_counts() -> dict:
-    """Launches a kernel; of the scan's, those of its five wgmma bodies
+    """Launches a kernel; of the scan's, those of its six wgmma bodies
     (bf16 over int8 rows, bf16 over f32 rows, f32 over int8 rows, bf16 over
-    int8 rows at list widths 64 and 128, f32 over f32 rows), the rest on the
-    mma.sync body."""
+    int8 rows at list widths 64 and 128, f32 over f32 rows, int8 over int8
+    rows), the rest on the mma.sync body."""
     bodies = body_launches()
     return {"scan_pairs": scan_kernel.LAUNCHES, "scan_merge": scan_kernel.MERGE_LAUNCHES,
             "gather_pairs": gather_kernel.PAIR_LAUNCHES, "gather_rows": gather_kernel.LAUNCHES,
             WGMMA_INT8: bodies[1], WGMMA_F32: bodies[2], WGMMA_F32MODE: bodies[3],
-            WGMMA_WIDE: bodies[4], WGMMA_F32X: bodies[5]}
+            WGMMA_WIDE: bodies[4], WGMMA_F32X: bodies[5], WGMMA_S8: bodies[6]}
 
 
 def body_launches() -> dict:
     """The scan's launches so far on each wgmma body, by its number in
     ``scan_kernel.BODY_NAMES``."""
     others = {2: scan_kernel.WGMMA_F32_LAUNCHES, 3: scan_kernel.WGMMA_F32MODE_LAUNCHES,
-              4: scan_kernel.WGMMA_WIDE_LAUNCHES, 5: scan_kernel.WGMMA_F32X_LAUNCHES}
+              4: scan_kernel.WGMMA_WIDE_LAUNCHES, 5: scan_kernel.WGMMA_F32X_LAUNCHES,
+              6: scan_kernel.WGMMA_S8_LAUNCHES}
     return {1: scan_kernel.WGMMA_LAUNCHES - sum(others.values()), **others}
 
 
@@ -588,11 +595,14 @@ def phase_kernel_vs_plain(dev) -> dict:
 
 def wgmma_kind(store, mode: str, k: int) -> int:
     """The wgmma body that a launch at ``k`` in ``mode`` over ``store`` takes
-    where it takes one: above list width 32 the wide-list body; over f32
-    rows the six-term body in f32 mode, else the body over f32 rows; over
-    int8 rows the f32-mode body in f32 mode, else the int8 body."""
+    where it takes one: above list width 32 the wide-list body; in int8
+    mode the int8 body; over f32 rows the six-term body in f32 mode, else
+    the body over f32 rows; over int8 rows the f32-mode body in f32 mode,
+    else the bf16 body over int8 rows."""
     if k > 32:
         return 4
+    if mode == "int8":
+        return 6
     if store.rows_ref.dtype == torch.float32:
         return 5 if mode == "f32" else 2
     return 3 if mode == "f32" else 1
@@ -800,24 +810,26 @@ def split_cases(dev, worst: dict) -> None:
 
 
 def width32_cases(dev, worst: dict) -> None:
-    """bf16 and f32 over the int8 and the f32 store at list width 32, where
-    the wgmma bodies run: k 16 and 32 at qtile 1/8/100/128 over the
-    ``kv_stores`` int8 and f32 stores at chunk 320 (not whole 128-row
-    tiles) and 130 (not whole 64-row tiles) and over the same stores
-    mutated (chunk lists out of physical order); forced segments of 1 and
-    2 chunks bit-equal to whole buckets at k 16 and 32; d 1152 (the widest
-    resident query tile of bf16 over int8 rows) and 1040 (rounded up to
-    it), d 896 (the widest over f32 rows, of f32 over int8 rows and of f32
-    over f32 rows), 840 and 832 (rounded up to it), 100 (f32 rows of 400
-    bytes) and 16.  Then the launches that keep the mma.sync body at width
-    32 or just past it: virtual int8 and f32 stores, int8 rows of 100
-    bytes, d 900 (past the widest f32 tiles), f32 rows of 408 bytes (d
-    102), f32 over int8 rows at d 1040 (past its widest tile), f32 over f32
-    rows at k 33 (list width 64), and k 1040 over buckets of ~4,000 rows of
-    either type (a 1024-wide round, then a 16-wide one under its floors,
-    which keeps the body of the round before it, so that both sum a row
-    the same way).  Each case checks which body its launches took, as the
-    library reports each launch."""
+    """bf16 and f32 over the int8 and the f32 store, and int8 over the int8
+    store, at list width 32, where the wgmma bodies run: k 16 and 32 at
+    qtile 1/8/100/128 over the ``kv_stores`` int8 and f32 stores at chunk
+    320 (not whole 128-row tiles) and 130 (not whole 64-row tiles) and over
+    the same stores mutated (chunk lists out of physical order); forced
+    segments of 1 and 2 chunks bit-equal to whole buckets at k 16 and 32; d
+    1152 (the widest resident query tile of bf16 over int8 rows) and 1040
+    (rounded up to it), d 1664 (the widest of int8 queries) and 1600, d 896
+    (the widest over f32 rows, of f32 over int8 rows and of f32 over f32
+    rows), 840 and 832 (rounded up to it), 100 (f32 rows of 400 bytes) and
+    16.  Then the launches that keep the mma.sync body at width 32 or just
+    past it: virtual int8 and f32 stores, int8 rows of 100 bytes, d 900
+    (past the widest f32 tiles), f32 rows of 408 bytes (d 102), f32 over
+    int8 rows at d 1040 (past its widest tile), f32 over f32 rows and int8
+    over int8 rows at k 33 (list width 64), and k 1040 over buckets of
+    ~4,000 rows of either type (a 1024-wide round, then a 16-wide one under
+    its floors, which keeps the body of the round before it, so that both
+    sum a row the same way).  Each case checks which body its launches
+    took, as the library reports each launch; int8 is bit-equal to the
+    plain version throughout."""
     qtiles = (1, 8, 100, 128)
     n_cases = 0
     for chunk in (320, 130):
@@ -827,7 +839,7 @@ def width32_cases(dev, worst: dict) -> None:
             if tag:  # after the fresh stores' cases: mutation writes the stores in place
                 virt = virtual_stores(made, stores["f32"])
                 for name, mode in (("int8", "bf16"), ("f32", "bf16"), ("int8", "f32"),
-                                   ("f32", "f32")):
+                                   ("f32", "f32"), ("int8", "int8")):
                     held_to_plain(virt[name], queries, order, 16, 128, mode,
                                   scan_partner(virt[name], copies),
                                   f"width 32 {mode} virtual {name} corpus k=16 qtile=128", worst,
@@ -837,7 +849,7 @@ def width32_cases(dev, worst: dict) -> None:
                 kv, copies = mutate_kv_stores(kv, copies, made, seed=19)
             for name, st in kv.items():
                 partner = scan_partner(st, copies)
-                for mode in ("bf16", "f32"):
+                for mode in ("bf16", "f32", "int8") if name == "int8" else ("bf16", "f32"):
                     for k in (16, 32):
                         for qtile in qtiles:
                             held_to_plain(st, queries, order, k, qtile, mode, partner,
@@ -860,12 +872,15 @@ def width32_cases(dev, worst: dict) -> None:
                             f"buckets (wgmma body)")
         del stores, kv
     # the widest query tiles the wgmma bodies keep resident (1152 of bf16
-    # over int8 rows, 896 over f32 rows and of f32 over int8 or f32 rows), d
-    # that the library rounds up to them (1040; 840 over f32 rows, 832 of
-    # f32 over int8 rows), f32 rows of 400 and 64 bytes; then the widths
-    # and the list width that keep the mma.sync body
+    # over int8 rows, 1664 of int8 queries, 896 over f32 rows and of f32
+    # over int8 or f32 rows), d that the library rounds up to them (1040,
+    # 1600; 840 over f32 rows, 832 of f32 over int8 rows), f32 rows of 400
+    # and 64 bytes; then the widths and the list widths that keep the
+    # mma.sync body
     for d, name, mode, wgmma, k in (
             (1152, "int8", "bf16", 1, 16), (1040, "int8", "bf16", 1, 16),
+            (1664, "int8", "int8", 1, 32), (1600, "int8", "int8", 1, 16),
+            (100, "int8", "int8", 0, 16), (768, "int8", "int8", 0, 33),
             (896, "f32", "bf16", 1, 16), (840, "f32", "bf16", 1, 16), (100, "f32", "bf16", 1, 16),
             (896, "int8", "f32", 1, 16), (832, "int8", "f32", 1, 16), (896, "f32", "f32", 1, 16),
             (840, "f32", "f32", 1, 32), (100, "f32", "f32", 1, 16), (16, "f32", "f32", 1, 32),
@@ -889,7 +904,8 @@ def width32_cases(dev, worst: dict) -> None:
                "f32": BucketStore.build_packed_device(data, buckets, 3, chunk=320)}
     order = torch.as_tensor(np.stack([rng.permutation(3)[:2] for _ in range(200)]), device=dev)
     queries = g.rows(200)
-    for name, mode in (("int8", "bf16"), ("f32", "bf16"), ("int8", "f32"), ("f32", "f32")):
+    for name, mode in (("int8", "bf16"), ("f32", "bf16"), ("int8", "f32"), ("f32", "f32"),
+                       ("int8", "int8")):
         for qtile in (8, 128):
             held_to_plain(floored[name], queries, order, 1040, qtile, mode, None,
                           f"width 32 rounds {mode} store={name} k=1040 qtile={qtile}", worst,
@@ -1178,12 +1194,13 @@ def phase_main(dev, data: dict, smi: str):
           "the main path launched the scan kernel and one merge a scan")
     # six default searches (bf16 over the int8 store, k_scan 16: the wgmma
     # body), one highest (f32 over the int8 store: the f32-mode wgmma body),
-    # one int8 (the mma.sync body) and four at k=100 (the wide-list body)
+    # one int8 (the int8 wgmma body) and four at k=100 (the wide-list body):
+    # none on the mma.sync body
     check(launches["scan_pairs"] == 12 and launches[WGMMA_INT8] == 6
-          and launches[WGMMA_F32MODE] == 1 and launches[WGMMA_WIDE] == 4
-          and wgmma_launches == 11,
+          and launches[WGMMA_F32MODE] == 1 and launches[WGMMA_S8] == 1
+          and launches[WGMMA_WIDE] == 4 and wgmma_launches == 12,
           f"the main path: {launches}, not 12 scans, 6 on the wgmma body, 1 on the f32-mode "
-          f"wgmma body, 4 on the wide-list wgmma body")
+          f"wgmma body, 1 on the int8 wgmma body, 4 on the wide-list wgmma body")
     check(set(measured) == {"inference", "search", "search_within_buckets", "seq_search", "sort"},
           "measured keys")
     check(one[0].shape == (1, 10) and hundred[0].shape == (100, 10), "small requests' shapes")
@@ -1220,19 +1237,22 @@ def phase_main(dev, data: dict, smi: str):
         r = recall(res[prec][1][:nc], ref_i, 10)
         check(r >= 0.999, f"{prec}: recall {r} vs visited-bucket exact")
         log(f"[check] precision={prec}: recall@10 vs visited-bucket exact kNN = {r:.4f} ({nc} queries)")
-    # the highest search through the scan's plain version in the kernel's place
+    # the highest and int8 searches through the scan's plain version in the
+    # kernel's place
     kernel = bucket_store_module.scan_pairs
     bucket_store_module.scan_pairs = scan_kernel.scan_pairs_reference
     try:
-        _, plain_i, _ = search(qc, precision="highest")
+        plain = {prec: search(qc, precision=prec) for prec in ("highest", "int8")}
     finally:
         bucket_store_module.scan_pairs = kernel
+    plain_i = plain["highest"][1]
     r_high, r_plain = recall(res["highest"][1][:nc], ref_i, 10), recall(plain_i, ref_i, 10)
     check(r_high == r_plain, f"highest: recall {r_high} vs visited-bucket exact, the same "
           f"search through the plain version {r_plain}")
     log(f"[check] precision=highest: equals visited-bucket exact kNN ({nc} queries, "
         f"{n_tied} ids differ at ties); recall@10 {r_high:.4f}, the same search through the "
         f"scan's plain version {r_plain:.4f}")
+    phase_int8_search(queries, res["int8"], plain["int8"], ref_i, search, smi)
     phase_k100(queries, index, store, d100, i100, search, times100, smi)
     full_order = torch.arange(nb, device=dev).repeat(nc, 1)
     fd, fi = restricted_knn(store, qc, full_order, 10)
@@ -1248,6 +1268,8 @@ def phase_main(dev, data: dict, smi: str):
     order, _ = index.compute_bucket_order(queries, 4, keep_on_device=True)
     timing = {mode: flagship_scan(store, queries, order, 16, mode, smi, "[flagship]")
               for mode in ("bf16", "f32", "int8")}
+    check(timing["int8"]["body"] == 6, "the flagship's int8 scan at k_scan 16 did not take the "
+          "int8 wgmma body")
     # search(k=100), the ann-benchmarks k: k_scan 106 with the rerank margin, list width 128
     for mode in ("bf16", "f32", "int8"):
         timing[f"k106 {mode}"] = flagship_scan(store, queries, order, 106, mode, smi,
@@ -1265,6 +1287,36 @@ def phase_main(dev, data: dict, smi: str):
     torch.cuda.empty_cache()
     return launches, timing, {"index": index, "data_prediction": data_prediction,
                               "store": store, "made": made, "merge": merge}
+
+
+def phase_int8_search(queries, main_int8, plain, ref_i, search, smi: str) -> None:
+    """The main path's ``precision="int8"`` search (``main_int8``: its
+    distances and ids over all the queries; the int8 wgmma body's scan)
+    against exact kNN over the visited buckets (``ref_i``, of the first
+    ``nc`` queries): its recall@10 equal to the same search's with the
+    scan's plain version in the kernel's place (``plain``, over those
+    ``nc``), and a kernel search of them bit-equal to that one (the int8
+    scan's lists are exact); then three more int8 searches of all the
+    queries timed (host clock; outside the main path's launch counts)."""
+    nc, nq = ref_i.shape[0], queries.shape[0]
+    r_int8, r_plain = recall(main_int8[1][:nc], ref_i, 10), recall(plain[1], ref_i, 10)
+    check(r_int8 == r_plain, f"int8: recall {r_int8} vs visited-bucket exact, the same search "
+          f"through the plain version {r_plain}")
+    kd, ki, _ = search(queries[:nc], precision="int8")
+    same = (np.array_equal(kd.view(np.uint32), plain[0].view(np.uint32))
+            and np.array_equal(ki, plain[1]))
+    check(same, "int8: the search through the kernel differs from the one through the plain "
+          "version")
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        search(queries, precision="int8")
+        times.append(time.perf_counter() - t0)
+    log(f"[check] precision=int8: recall@10 vs visited-bucket exact kNN {r_int8:.4f} ({nc} "
+        f"queries), the same search through the scan's plain version {r_plain:.4f}, its results "
+        f"bit-equal to the kernel's; search precision=int8, n_buckets=4, k=10: reps "
+        f"{[round(t, 4) for t in times]} s, mean {float(np.mean(times)):.4f} s per {nq} "
+        f"queries  [{smi}]")
 
 
 def phase_k100(queries, index, store, d100, i100, search, times100, smi: str,
@@ -1498,7 +1550,7 @@ def f32_store_scan(store, queries, order, smi: str, index, data_prediction):
         body = WGMMA_F32X if precision == "highest" else WGMMA_F32
         check(ran["scan_pairs"] == 4 and ran[body] == 4
               and all(ran[b] == 0 for b in (WGMMA_INT8, WGMMA_F32, WGMMA_F32MODE, WGMMA_WIDE,
-                                            WGMMA_F32X) if b != body),
+                                            WGMMA_F32X, WGMMA_S8) if b != body),
               f"f32-store {precision} search: {ran} launches, not 4 scans, each one launch of "
               f"the {body}")
         check(dd.shape == (nq, 10) and bool(np.isfinite(dd).all()) and bool((ii > 0).all()),
@@ -2172,12 +2224,12 @@ def phase_build_path(dev, data: dict, smi: str):
     n_search = 1 + MODE_ROUNDS
     check(per_mode["auto"] == {"scan_pairs": n_search, "scan_merge": n_search, "gather_pairs": 0,
                                "gather_rows": 0, WGMMA_INT8: n_search, WGMMA_F32: 0,
-                               WGMMA_F32MODE: 0, WGMMA_WIDE: 0, WGMMA_F32X: 0},
+                               WGMMA_F32MODE: 0, WGMMA_WIDE: 0, WGMMA_F32X: 0, WGMMA_S8: 0},
           f"auto mode launches one scan and no gather a search: {per_mode['auto']}")
     check(per_mode["kernel"] == {"scan_pairs": n_search, "scan_merge": n_search,
                                  "gather_pairs": n_search, "gather_rows": 0, WGMMA_INT8: n_search,
                                  WGMMA_F32: 0, WGMMA_F32MODE: 0, WGMMA_WIDE: 0,
-                                 WGMMA_F32X: 0},
+                                 WGMMA_F32X: 0, WGMMA_S8: 0},
           f"kernel mode launches one scan and one merge gather a search: {per_mode['kernel']}")
     for mode in ("auto", "kernel"):
         t = np.asarray(rounds[mode])
@@ -3390,15 +3442,17 @@ def main() -> None:
         if name == "scan_pairs":  # its launches a body
             rows[-1]["bodies"] = {
                 "mma.sync": total(name) - total(WGMMA_INT8) - total(WGMMA_F32)
-                - total(WGMMA_F32MODE) - total(WGMMA_WIDE) - total(WGMMA_F32X),
+                - total(WGMMA_F32MODE) - total(WGMMA_WIDE) - total(WGMMA_F32X) - total(WGMMA_S8),
                 "wgmma (bf16 over int8 rows)": total(WGMMA_INT8),
                 "wgmma (bf16 over f32 rows)": total(WGMMA_F32),
                 "wgmma (f32 over int8 rows)": total(WGMMA_F32MODE),
                 "wgmma (bf16 over int8 rows, lists of 64 and 128)": total(WGMMA_WIDE),
-                "wgmma (f32 over f32 rows, six products)": total(WGMMA_F32X)}
+                "wgmma (f32 over f32 rows, six products)": total(WGMMA_F32X),
+                "wgmma (int8 over int8 rows)": total(WGMMA_S8)}
             check(total(WGMMA_F32MODE) > 0, "no scan launch took the f32-mode wgmma body")
             check(total(WGMMA_WIDE) > 0, "no scan launch took the wide-list wgmma body")
             check(total(WGMMA_F32X) > 0, "no scan launch took the six-term wgmma body")
+            check(total(WGMMA_S8) > 0, "no scan launch took the int8 wgmma body")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

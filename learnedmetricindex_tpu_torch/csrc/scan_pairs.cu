@@ -360,12 +360,36 @@
 // lists match the plain version to the f32 parity bar, and its float64
 // error stays below the plain version's (cuBLAS's SGEMM) and the mma.sync
 // body's.
+//
+// The Hopper body in int8 mode (scan_wgmma_s8_kernel): int8 queries with
+// per-query scales over an int8 packed store at list width 32,
+// precision="int8" (the reference bench's fast scan mode, a precision of
+// the server and of LearnedIndex.search), in place of MmaBody<MODE_INT8,
+// int8_t, 32>.  What bounds the work at the flagship (10k queries visiting
+// 4, k_scan 16): ~2.7e12 multiply-adds, 2.73 ms at the int8 tensor peak,
+// the 7.7 GB store at most ~2.3 ms from device memory.  The design is the
+// bf16 body's block with nothing to widen:
+//  * PR 15's int8 ring and producer warps, four stages a consumer (two
+//    stall the tensor cores on the copies: 1.11× the time at the flagship
+//    on an H100, three 1.05×, five 1.03×, six 1.02×), 64 query slots a
+//    block (128 would take 236,544 B at d 768);
+//  * s8 wgmma m64nNk32 into s32 sums (twice the bf16 rate), A the tile's
+//    rows from registers as they are (16 bytes a lane a box: words 2s and
+//    2s + 1 are k-step s's A fragment; the queries in WGMMA_S8_ORDER; A
+//    from shared memory through a descriptor over the box under the 64-byte
+//    swizzle measured 1.02× the time at four stages, 1.21× at two), B
+//    the block's int8 queries resident K-major (64 × qd bytes, half the
+//    bf16 tile's, so d up to 1664: W_MAX_QDS8), each slot's f32 query scale
+//    in the head beside them;
+//  * the epilogue, marks, hand-over and selection of the other bodies; the
+//    integer sums are exact in any order and the epilogue is the mma.sync
+//    body's distance<true>(float(sum), row scale, query scale), so its lists
+//    are the mma.sync body's and the plain version's, bit for bit.
 // The other bodies keep the mma.sync design.
 //
 // What is left for later work:
-//  * the int8 mode on the Hopper body (s8 × s8 wgmma, both operands in
-//    shared memory, no widening), then f32 over a bf16 store, f32 at list
-//    widths past 32, and bf16 over a bf16 store;
+//  * f32 over a bf16 store, f32 at list widths past 32, int8 at list
+//    widths past 32, and bf16 over a bf16 store on the Hopper bodies;
 //  * the split's cost: one host read of the plan and one upload of the
 //    work list a launch, and a merge pass; a persistent grid that takes
 //    items from a device-side queue would need neither the read nor the
@@ -1379,11 +1403,12 @@ constexpr int W_PRODUCER_REGS = 40;
 constexpr int W_CONSUMER_REGS_FIT = (65536 / 128 - W_PRODUCER_REGS) / W_CONSUMERS / 8 * 8;
 constexpr int W_CONSUMER_REGS = W_CONSUMER_REGS_FIT < 232 ? W_CONSUMER_REGS_FIT : 232;
 // barriers, query metadata and marks, lists (of width `list`), the two
-// distance tiles of a block of `slots` query slots, rounded up to 1024 bytes
-// (where the ring starts)
-constexpr size_t w_head_bytes(int slots, int list = W_LIST, int stages = W_STAGES) {
+// distance tiles of a block of `slots` query slots and `extra` bytes after
+// them, rounded up to 1024 bytes (where the ring starts)
+constexpr size_t w_head_bytes(int slots, int list = W_LIST, int stages = W_STAGES,
+                              size_t extra = 0) {
   return (size_t(2 * W_CONSUMERS * stages) * 8 + size_t(slots + W_CONSUMERS * slots) * 4 +
-          size_t(2 * list * slots) * 4 + size_t(W_CONSUMERS * slots * WDQ) * 4 + 1023) /
+          size_t(2 * list * slots) * 4 + size_t(W_CONSUMERS * slots * WDQ) * 4 + extra + 1023) /
          1024 * 1024;
 }
 constexpr size_t kWRingOffset = w_head_bytes(WQ);
@@ -1463,11 +1488,29 @@ static_assert(W_MAX_QDX >= 768 && kWXRingOffset % 1024 == 0 && WX_STAGE % 1024 =
 // the tag of that body in the templates below (its rows are f32)
 struct F32X {};
 
+// int8 queries over an int8 packed store (precision="int8"): the int8 ring
+// (WS8_STAGES stages a consumer), s8 wgmma of 32 depths a k-step (WS8_KSTEPS
+// a two-box stage), the block's 64 query slots resident as int8 (WS8_KSTEP
+// bytes a k-step: the bf16 body's bytes, twice its depths) and each slot's
+// f32 query scale in the head after the distance tiles; the widest resident
+// query tile that fits
+constexpr int WS8_DEPTHS = 32;
+constexpr int WS8_KSTEPS = W_BOXES * WK / WS8_DEPTHS;
+constexpr int WS8_KSTEP = WQ * WS8_DEPTHS;
+constexpr int WS8_STAGES = 4;
+constexpr size_t kWS8RingOffset = w_head_bytes(WQ, W_LIST, WS8_STAGES, size_t(WQ) * 4);
+constexpr size_t kWS8RingBytes = size_t(W_CONSUMERS) * WS8_STAGES * W_STAGE;
+constexpr int W_MAX_QDS8 =
+    int((232448 - kWS8RingOffset - kWS8RingBytes) / (size_t(WQ) * W_QD_STEP)) * W_QD_STEP;
+static_assert(W_MAX_QDS8 >= 1152, "an int8 query tile as wide as the bf16 body's is resident");
+// the tag of that body in the templates below (its rows are int8)
+struct S8Mode {};
+
 // The ring of the store type TS: int8 rows (WK bytes a box row, 64 depths)
 // or f32 rows (WKF bytes, 32 depths), BOXES boxes a stage, STAGES stages a
 // consumer; and the block around it: its query slots, where its ring starts
-// (after the head), the query terms it keeps resident and their bytes a
-// k-step
+// (after the head), the query terms it keeps resident, the depths of a
+// k-step and the resident queries' bytes a k-step
 template <typename TS>
 struct WRing;
 template <>
@@ -1475,7 +1518,7 @@ struct WRing<int8_t> {
   using Row = int8_t;
   static constexpr int ROW = WK, DEPTHS = WK, BOXES = W_BOXES, STAGES = W_STAGES, STAGE = W_STAGE,
                        KSTEPS = W_KSTEPS, QD_STEP = W_QD_STEP, MAX_QD = W_MAX_QD, SLOTS = WQ,
-                       TERMS = 1, Q_KSTEP = W_KSTEP, LIST = W_LIST;
+                       TERMS = 1, K_DEPTHS = 16, Q_KSTEP = W_KSTEP, LIST = W_LIST;
   static constexpr size_t BYTES = kWRingBytes, HEAD = kWRingOffset;
 };
 template <>
@@ -1483,7 +1526,8 @@ struct WRing<float> {
   using Row = float;
   static constexpr int ROW = WKF, DEPTHS = WKF / 4, BOXES = W_BOXES, STAGES = W_STAGES,
                        STAGE = W_STAGE_F, KSTEPS = W_KSTEPS_F, QD_STEP = W_QD_STEP_F,
-                       MAX_QD = W_MAX_QD_F, SLOTS = WQ, TERMS = 1, Q_KSTEP = W_KSTEP, LIST = W_LIST;
+                       MAX_QD = W_MAX_QD_F, SLOTS = WQ, TERMS = 1, K_DEPTHS = 16, Q_KSTEP = W_KSTEP,
+                       LIST = W_LIST;
   static constexpr size_t BYTES = kWRingBytesF, HEAD = kWRingOffset;
 };
 template <>
@@ -1504,11 +1548,18 @@ struct WRing<F32X> : WRing<float> {
                        Q_KSTEP = WX_KSTEP;
   static constexpr size_t BYTES = kWXRingBytes, HEAD = kWXRingOffset;
 };
+template <>
+struct WRing<S8Mode> : WRing<int8_t> {
+  static constexpr int STAGES = WS8_STAGES, KSTEPS = WS8_KSTEPS, MAX_QD = W_MAX_QDS8,
+                       K_DEPTHS = WS8_DEPTHS, Q_KSTEP = WS8_KSTEP;
+  static constexpr size_t BYTES = kWS8RingBytes, HEAD = kWS8RingOffset;
+};
 
 // dynamic shared memory at query width qd
 template <typename TS>
 __host__ __device__ inline size_t wgmma_smem_bytes(int qd) {
-  return WRing<TS>::HEAD + WRing<TS>::BYTES + size_t(WRing<TS>::Q_KSTEP) * (qd / 16);
+  return WRing<TS>::HEAD + WRing<TS>::BYTES +
+         size_t(WRing<TS>::Q_KSTEP) * (qd / WRing<TS>::K_DEPTHS);
 }
 
 template <typename TS>
@@ -1538,6 +1589,11 @@ struct WSmem {
     return ring + (wg * STAGES + slot) * WRing<TS>::STAGE;
   }
 };
+
+// the int8 body's query scales: [WQ] f32 in its head, after the distance tiles
+__device__ __forceinline__ float* s8_qscales(const WSmem<S8Mode>& s) {
+  return s.dist + W_CONSUMERS * WQ * WDQ;
+}
 
 struct WItem {
   int pair, q0, c_lo, c_hi;
@@ -1739,6 +1795,7 @@ __device__ WItem wgmma_begin(const Params& p, const WSmem<TS>& s) {
     const int qi = own ? p.qidx[e] : -1;
     live = qi >= 0;
     s.q_row[tid] = qi;
+    if constexpr (std::is_same<TS, S8Mode>::value) s8_qscales(s)[tid] = live ? p.qscales[qi] : 1.0f;
   }
   if (tid < W_CONSUMERS * SLOTS) s.q_grp[tid] = 0;
   for (int e = tid; e < WSmem<TS>::LIST * SLOTS; e += W_THREADS) {
@@ -1760,7 +1817,17 @@ __device__ WItem wgmma_begin(const Params& p, const WSmem<TS>& s) {
   // the live m-tiles' query rows, 16 bytes a piece, into the canonical
   // layout (a padding query's rows zero); 8 neighbouring threads write
   // one core matrix
-  if constexpr (WRing<TS>::TERMS == 1) {
+  if constexpr (std::is_same<TS, S8Mode>::value) {
+    // int8 rows of qd bytes: two pieces a 32-deep k-step
+    const int pieces = b.nl * 16 * (p.qd / 16);
+    const unsigned char* qbytes = static_cast<const unsigned char*>(p.queries);
+    for (int i = tid; i < pieces; i += W_THREADS) {
+      const int n = i % (b.nl * 16), piece = i / (b.nl * 16);
+      const int qi = s.q_row[n];
+      const size_t off = size_t(qi >= 0 ? qi : 0) * p.qd + piece * 16;
+      cp_async16(s.queries + query_at<WS8_KSTEP>(piece >> 1, piece & 1, n), qbytes + off, qi >= 0);
+    }
+  } else if constexpr (WRing<TS>::TERMS == 1) {
     const int pieces = b.nl * 16 * (p.qd / 8);
     const unsigned char* qbytes = static_cast<const unsigned char*>(p.queries);
     for (int i = tid; i < pieces; i += W_THREADS) {
@@ -2584,6 +2651,178 @@ __device__ void wgmma_consume_wide(const Params& p, const WSmem<WideList<KMAX>>&
   }
 }
 
+// D (64 rows × N query slots, s32) += A (64 rows × 32 depths, s8, in
+// registers) · B (32 depths × N slots, s8, at desc): exact integer sums
+template <int N>
+__device__ __forceinline__ void wgmma_rs_s8(int (&d)[N / 2], const uint32_t (&a)[4], uint64_t desc) {
+  if constexpr (N == 16) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k32.s32.s8.s8 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p;\n}\n"
+        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+  }
+  if constexpr (N == 32) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k32.s32.s8.s8 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, {%16, %17, %18, %19}, %20, p;\n}\n"
+        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+  }
+  if constexpr (N == 48) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %29, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n48k32.s32.s8.s8 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23}, {%24, %25, %26, %27}, %28, p;\n}\n"
+        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+  }
+  if constexpr (N == 64) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p;\n}\n"
+        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+  }
+}
+template <int N>
+__device__ __forceinline__ void hold(int (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+
+// The int8 consumer warpgroup (S8Mode: int8 queries over an int8 packed
+// store): wgmma_consume's walk over its tiles, int8 ring, epilogue,
+// hand-over and selection, spelled out so that the other bodies keep their
+// code, with s8 wgmma m64nNk32 into s32 sums.  A is the tile's rows as they
+// are, no widening: in k-step s of a box lane (g, t) holds words 2s and 2s +
+// 1 of its 16 bytes (16t .. 16t+15) of rows g and g + 8, the fragment's
+// depths 4t .. 4t+3 and 16 + 4t .. 16 + 4t + 3 (WGMMA_S8_ORDER in
+// ops/scan_kernel.py); B the resident int8 queries, K-major.  The integer
+// sums are exact in any order, so the epilogue's distance<true>(float(sum),
+// row scale, query scale), the mma.sync body's, gives its bits.  N = 16·NL
+// query slots.
+template <int NL>
+__device__ void wgmma_consume_s8(const Params& p, const WSmem<S8Mode>& s, const WItem& b, int wg) {
+  using R = WRing<S8Mode>;
+  constexpr int N = 16 * NL, KSTEPS = R::KSTEPS;
+  const int tid = threadIdx.x & 127, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int per_chunk = (p.chunk + WR - 1) / WR, nst = p.qd / W_QD_STEP;
+  const int ntiles = (b.c_hi - b.c_lo) * per_chunk;
+  const uint32_t q_base = smem_u32(s.queries);
+  TileWalk w{b.c_lo, 0};
+  w.advance(wg, per_chunk);
+  int phys = w.c < b.c_hi ? p.chunk_of[w.c] : 0;
+  float* dist = s.dist + wg * WQ * WDQ;
+  int cnt = 0;  // stages this warpgroup has taken from its ring
+  unsigned live = 0;  // bit 2n + e: the lane's query slot 8n + 2t + e holds a query
+  float q_scale[N / 4];  // [2n + e]: that slot's query scale
+#pragma unroll
+  for (int n = 0; n < N / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      live |= unsigned(s.q_row[8 * n + 2 * t + e] >= 0) << (2 * n + e);
+      q_scale[2 * n + e] = s8_qscales(s)[8 * n + 2 * t + e];
+    }
+
+  // the A fragments of a stage's k-steps, two a box: lane (g, t) reads
+  // bytes 16t .. 16t+15 of rows g and g+8 of its warp's 16 in each box
+  auto take_stage = [&](uint32_t(&a)[KSTEPS][4]) {
+    const int slot = cnt % R::STAGES;
+    mbar_wait(&s.full[wg * R::STAGES + slot], (cnt / R::STAGES) & 1);
+#pragma unroll
+    for (int box = 0; box < W_BOXES; ++box) {
+      const unsigned char* x = s.stage(wg, slot) + box * WR * WK + (warp * 16 + g) * WK + t * 16;
+      const uint4 lo = lds128u(x), hi = lds128u(x + 8 * WK);
+      a[2 * box][0] = lo.x;
+      a[2 * box][1] = hi.x;
+      a[2 * box][2] = lo.y;
+      a[2 * box][3] = hi.y;
+      a[2 * box + 1][0] = lo.z;
+      a[2 * box + 1][1] = hi.z;
+      a[2 * box + 1][2] = lo.w;
+      a[2 * box + 1][3] = hi.w;
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&s.empty[wg * R::STAGES + slot]);
+    ++cnt;
+  };
+
+  for (int i = wg; i < ntiles; i += W_CONSUMERS) {
+    const int r0 = w.t * WR;
+    const int slot0 = phys * p.chunk + r0, nrows = min(WR, p.chunk - r0);
+    w.advance(W_CONSUMERS, per_chunk);  // the next tile's chunk, read while this one runs
+    phys = w.c < b.c_hi ? p.chunk_of[w.c] : 0;
+    float r_scale[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = warp * 16 + g + 8 * h;
+      r_scale[h] = r < nrows ? p.scales[slot0 + r] : 0.0f;  // → +inf distance
+    }
+    int acc[N / 2];
+#pragma unroll
+    for (int e = 0; e < N / 2; ++e) acc[e] = 0;
+    // stage st's wgmma reads a[st % 2]; stage st + 1's is queued behind it
+    // before the warpgroup waits for stage st - 1 and loads stage st + 1
+    // into the registers stage st - 1 read
+    uint32_t a[2][KSTEPS][4];
+    auto issue = [&](auto buf, int st) {
+      constexpr int B = decltype(buf)::value;
+      wgmma_fence();
+#pragma unroll
+      for (int j = 0; j < KSTEPS; ++j)
+        wgmma_rs_s8<N>(acc, a[B][j], query_desc(q_base + (KSTEPS * st + j) * WS8_KSTEP));
+      wgmma_commit();
+    };
+    auto step = [&](auto buf, int st) {  // st >= 1
+      constexpr int B = decltype(buf)::value;
+      issue(buf, st);
+      wgmma_wait<1>();  // stage st - 1 is done with a[B ^ 1]
+      hold(a[B ^ 1]);
+      if (st + 1 < nst) take_stage(a[B ^ 1]);
+    };
+    take_stage(a[0]);
+    issue(std::integral_constant<int, 0>{}, 0);
+    if (nst > 1) take_stage(a[1]);
+    for (int st = 1; st < nst; st += 2) {
+      step(std::integral_constant<int, 1>{}, st);
+      if (st + 1 < nst) step(std::integral_constant<int, 0>{}, st + 1);
+    }
+    wgmma_wait<0>();
+    hold(a[0]);
+    hold(a[1]);
+    hold(acc);
+
+    // epilogue as in wgmma_consume, the sums and both scales as the
+    // mma.sync body takes them
+#pragma unroll
+    for (int n = 0; n < N / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int q = 8 * n + 2 * t + e;
+        float v[2];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          v[h] = distance<true>(static_cast<float>(acc[4 * n + 2 * h + e]), r_scale[h],
+                                q_scale[2 * n + e]);
+          dist[q * WDQ + warp * 16 + g + 8 * h] = v[h];
+        }
+        if (((live >> (2 * n + e)) & 1u) &&
+            fminf(v[0], v[1]) < *static_cast<volatile const float*>(&s.top_d[q * W_LIST + p.k - 1]))
+          reinterpret_cast<unsigned char*>(s.q_grp + wg * WQ)[q * 4 + (warp >> 1)] = 1;
+      }
+    bar_sync(BAR_WG + wg, 128);
+    if (i > 0) bar_sync(BAR_HANDOVER + wg, 256);  // the tile before is selected (by the warpgroup before)
+    wgmma_select(p, s, wg, N, nrows, slot0);
+    bar_sync(BAR_WG + wg, 128);  // the distance tile is free again
+    if (i + 1 < ntiles) bar_arrive(BAR_HANDOVER + (wg + 1) % W_CONSUMERS, 256);
+  }
+}
+
 template <typename TS>
 __device__ void wgmma_write(const Params& p, const WSmem<TS>& s, const WItem& b, bool fill) {
   const int n_own = min(WSmem<TS>::SLOTS, p.qtile - b.q0);
@@ -2735,6 +2974,33 @@ __global__ void __launch_bounds__(W_THREADS, 1)
   }
 }
 
+// int8 queries over an int8 packed store: the int8 kernel's block and ring,
+// s8 wgmma with the int8 queries and their scales resident (spelled out
+// beside the kernels above)
+__global__ void __launch_bounds__(W_THREADS, 1)
+    scan_wgmma_s8_kernel(const __grid_constant__ CUtensorMap rows, Params p) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const WSmem<S8Mode> s(smem);
+  const WItem b = wgmma_begin(p, s);
+  if (b.nl == 0) return wgmma_write(p, s, b, true);
+  const int wg = threadIdx.x / 128;
+  if (wg == W_CONSUMERS) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(W_PRODUCER_REGS) : "memory");
+    if (threadIdx.x % 128 < 32 * W_CONSUMERS && threadIdx.x % 32 == 0)
+      wgmma_produce(&rows, p, s, b, threadIdx.x % 128 / 32);
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(W_CONSUMER_REGS) : "memory");
+    switch (b.nl) {
+      case 1: wgmma_consume_s8<1>(p, s, b, wg); break;
+      case 2: wgmma_consume_s8<2>(p, s, b, wg); break;
+      case 3: wgmma_consume_s8<3>(p, s, b, wg); break;
+      default: wgmma_consume_s8<4>(p, s, b, wg); break;
+    }
+    bar_sync(BAR_CONSUMERS, W_CONSUMERS * 128);
+    wgmma_write(p, s, b, false);
+  }
+}
+
 // The store as a 2-D tensor of n_rows × d values for TMA (boxes of WR rows
 // × WK int8 depths, or × 32 f32 depths under the 128-byte swizzle; zeros
 // past its edges), by cuTensorMapEncodeTiled looked up at run time, so the
@@ -2771,32 +3037,38 @@ cudaError_t row_tensor_map(CUtensorMap* map, const void* store, int n_rows, int 
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-// The bodies: the mma.sync body, or one of the five wgmma bodies
+// The bodies: the mma.sync body, or one of the six wgmma bodies
 enum Body {
   BODY_MMA = 0,
   BODY_WGMMA_INT8 = 1,
   BODY_WGMMA_F32 = 2,
   BODY_WGMMA_F32MODE = 3,
   BODY_WGMMA_WIDE = 4,
-  BODY_WGMMA_F32X = 5
+  BODY_WGMMA_F32X = 5,
+  BODY_WGMMA_S8 = 6
 };
 
 // The wgmma bodies' scope: bf16 or f32 queries over an int8 or f32 packed
-// store (no row map), lists of width 32 and no floor, rows of whole 16
-// bytes at a 16-byte aligned store, and a resident query tile that fits (d
-// rounded up to W_QD_STEP over an int8 store or W_QD_STEP_F over an f32
-// store, within W_MAX_QD, W_MAX_QD3, W_MAX_QD_F or W_MAX_QDX); and bf16
-// queries over an int8 packed store at list widths 64 and 128 (k 33 to 128)
-// on the same terms, the tile within WideList<64 or 128>::MAX_QD.  A round
-// under a floor (k past 1024) keeps the mma.sync body of the rounds before
-// it: every round sums a row the same way, or a row at the boundary could
-// be listed twice or not at all.
+// store, or int8 queries over an int8 packed store (no row map), lists of
+// width 32 and no floor, rows of whole 16 bytes at a 16-byte aligned store,
+// and a resident query tile that fits (d rounded up to W_QD_STEP over an
+// int8 store or W_QD_STEP_F over an f32 store, within W_MAX_QD, W_MAX_QD3,
+// W_MAX_QDS8, W_MAX_QD_F or W_MAX_QDX); and bf16 queries over an int8
+// packed store at list widths 64 and 128 (k 33 to 128) on the same terms,
+// the tile within WideList<64 or 128>::MAX_QD.  A round under a floor (k
+// past 1024) keeps the mma.sync body of the rounds before it: every round
+// sums a row the same way, or a row at the boundary could be listed twice
+// or not at all.
 int wgmma_scope(int mode, int store_type, int k, int d, const void* store, const void* row_ids,
                 bool floored) {
-  if (mode == MODE_INT8 || row_ids != nullptr || floored || k > W_WIDE_LIST ||
+  if (row_ids != nullptr || floored || k > W_WIDE_LIST ||
       reinterpret_cast<uintptr_t>(store) % 16 != 0)
     return BODY_MMA;
   const int qd = (d + W_QD_STEP - 1) / W_QD_STEP * W_QD_STEP;
+  if (mode == MODE_INT8)
+    return store_type == STORE_INT8 && k <= W_LIST && d % 16 == 0 && qd <= W_MAX_QDS8
+               ? BODY_WGMMA_S8
+               : BODY_MMA;
   if (k > W_LIST)
     return mode == MODE_BF16 && store_type == STORE_INT8 && d % 16 == 0 &&
                    qd <= (k <= 64 ? WideList<64>::MAX_QD : WideList<128>::MAX_QD)
@@ -2826,6 +3098,7 @@ cudaError_t launch_wgmma(const Params& p, int n_pairs, int n_rows, cudaStream_t 
     kernel = std::is_same<TS, float>::value     ? scan_wgmma_f32_kernel
              : std::is_same<TS, F32Mode>::value ? scan_wgmma_f32mode_kernel
              : std::is_same<TS, F32X>::value    ? scan_wgmma_f32x_kernel
+             : std::is_same<TS, S8Mode>::value  ? scan_wgmma_s8_kernel
                                                 : scan_wgmma_kernel;
   }
   if (p.qd % WRing<TS>::QD_STEP != 0 || p.qd > WRing<TS>::MAX_QD) return cudaErrorInvalidValue;
@@ -2882,6 +3155,7 @@ cudaError_t dispatch(const Params& p, int mode, int store_type, int body, int n_
   if (body == BODY_WGMMA_F32) return launch_wgmma<float>(p, n_pairs, n_rows, s, blocks_per_sm);
   if (body == BODY_WGMMA_F32MODE) return launch_wgmma<F32Mode>(p, n_pairs, n_rows, s, blocks_per_sm);
   if (body == BODY_WGMMA_F32X) return launch_wgmma<F32X>(p, n_pairs, n_rows, s, blocks_per_sm);
+  if (body == BODY_WGMMA_S8) return launch_wgmma<S8Mode>(p, n_pairs, n_rows, s, blocks_per_sm);
   if (body == BODY_WGMMA_WIDE)
     return p.k <= 64 ? launch_wgmma<WideList<64>>(p, n_pairs, n_rows, s, blocks_per_sm)
                      : launch_wgmma<WideList<128>>(p, n_pairs, n_rows, s, blocks_per_sm);
@@ -2919,17 +3193,18 @@ extern "C" {
 //    32 in WGMMA_F32_ORDER;
 //  * bf16 mode: bf16, int8 mode: int8, nt 1, qd a multiple of 16 >= d;
 //    where the call takes a wgmma body (wgmma_scope: bf16 over an int8
-//    packed store, k <= 128, or over an f32 packed store, k <= 32, ...), qd
-//    is d rounded up to W_QD_STEP (128) over an int8 store, each group of
-//    64 values in WGMMA_ORDER, or
+//    packed store, k <= 128, or over an f32 packed store, k <= 32, int8
+//    over an int8 packed store, k <= 32, ...), qd is d rounded up to
+//    W_QD_STEP (128) over an int8 store, each group of 64 values in
+//    WGMMA_ORDER (bf16) or WGMMA_S8_ORDER (int8), or
 //    to W_QD_STEP_F (64) over an f32 store, each group of 32 values in
 //    WGMMA_F32_ORDER (ops/scan_kernel.py).
 // n_rows: the store's rows (the edge of its TMA tensor map).  *body: in,
 // the body the queries are laid out for (enum Body: 0 the mma.sync body,
 // 1 the wgmma body over an int8 store, 2 over an f32 store, 3 in f32 mode
 // over an int8 store, 4 over an int8 store at list widths 64 and 128, 5 in
-// f32 mode over an f32 store, as lmi_scan_body named it); out, the body the
-// call's scope picks.
+// f32 mode over an f32 store, 6 in int8 mode, as lmi_scan_body named it);
+// out, the body the call's scope picks.
 // Where the two differ nothing launches and the call returns
 // cudaErrorInvalidValue.  All other pointers are device pointers; nothing
 // is allocated and nothing synchronizes.

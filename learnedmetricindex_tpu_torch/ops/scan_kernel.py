@@ -22,16 +22,18 @@ of a pair whose bucket has no chunks.
   lists back into one (:func:`merge_split_lists`: ``csrc/scan_merge.cu``
   on CUDA, :func:`merge_split_lists_reference` on the CPU).  The lists
   are those of one scan of the whole bucket, bit for bit.
-* Six bodies: the bf16 queries over an int8 packed store at list width
+* Seven bodies: the bf16 queries over an int8 packed store at list width
   32 (the default search) and over an f32 packed store (the default
   search over ``BuildConfiguration(dtype="float32")``, the CLI's store)
   run the Hopper bodies (wgmma, TMA, a resident query tile of 64 slots a
   block), and so do the bf16 queries over an int8 packed store at list
-  widths 64 and 128 (``k_scan`` 33 to 128: ``search(k=100)``), and the
+  widths 64 and 128 (``k_scan`` 33 to 128: ``search(k=100)``), the
   f32 queries over an int8 or an f32 packed store at list width 32
   (``precision="highest"``, the default of ``sharded_search`` and
   ``scan_buckets``: the three terms of 32 slots a block resident; over an
-  f32 store six products a k-step); every other call the mma.sync body.
+  f32 store six products a k-step), and the int8 queries over an int8
+  packed store at list width 32 (``precision="int8"``: s8 wgmma, exact
+  integer sums); every other call the mma.sync body.
   The library decides (``wgmma_scope``); :func:`scan_body` asks it which
   body a launch takes, and each launch checks that the queries were laid
   out for the body that runs.
@@ -45,7 +47,8 @@ of a pair whose bucket has no chunks.
   ``WGMMA_F32MODE_LAUNCHES``: of those, the body in f32 mode over an int8
   store; ``WGMMA_WIDE_LAUNCHES``: of those, the body at list widths 64 and
   128; ``WGMMA_F32X_LAUNCHES``: of those, the six-term body in f32 mode
-  over an f32 store);
+  over an f32 store; ``WGMMA_S8_LAUNCHES``: of those, the body in int8
+  mode);
   ``MERGE_LAUNCHES`` — the merge kernel.
 
 Stores: a packed store is ``(n_slots, d)`` rows with ``(n_slots,)``
@@ -83,7 +86,7 @@ MAX_K = 1024  # the widest top-k list of csrc/scan_pairs.cu: wider k runs in rou
 MAX_QTILE = 128  # QT in csrc/scan_pairs.cu
 #: the bodies as the library numbers them (enum Body in csrc/scan_pairs.cu)
 BODY_NAMES = ("mma.sync", "wgmma", "wgmma over f32", "wgmma in f32 mode", "wgmma wide lists",
-              "wgmma six-term")
+              "wgmma six-term", "wgmma int8")
 _STORE_TYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
 #: kernel launches made by :func:`scan_pairs` (never by the plain version)
@@ -98,6 +101,8 @@ WGMMA_F32MODE_LAUNCHES = 0
 WGMMA_WIDE_LAUNCHES = 0
 #: of WGMMA_LAUNCHES, those that ran the six-term wgmma body (f32 mode over an f32 store)
 WGMMA_F32X_LAUNCHES = 0
+#: of WGMMA_LAUNCHES, those that ran the wgmma body in int8 mode (over an int8 store)
+WGMMA_S8_LAUNCHES = 0
 #: merge kernel launches made by :func:`merge_split_lists` (never by its plain version)
 MERGE_LAUNCHES = 0
 
@@ -130,6 +135,16 @@ WGMMA_ORDER = tuple(16 * ((kk % 8) // 2) + 4 * j + kk % 2 + 2 * (kk // 8)
 #: 8·((k' % 8) // 2) + 4j + k' % 2 + 2·(k' // 8).
 WGMMA_F32_ORDER = tuple(8 * ((kk % 8) // 2) + 4 * j + kk % 2 + 2 * (kk // 8)
                         for j in range(2) for kk in range(16))
+
+#: Depth order, within each group of 64, of the int8 queries that the
+#: wgmma body in int8 mode reads: a TMA box holds 64 depths of each store
+#: row, and lane t of a quad reads its bytes 16t .. 16t+15 as four words,
+#: words 2s and 2s + 1 the A registers of 32-deep k-step s of the box at
+#: depths 4t .. 4t+3 and 16 + 4t .. 16 + 4t + 3 of that k-step (no
+#: widening).  So position 32s + k' of the group holds depth
+#: 16·((k' % 16) // 4) + 8s + 4·(k' // 16) + k' % 4.
+WGMMA_S8_ORDER = tuple(16 * ((kk % 16) // 4) + 8 * s + 4 * (kk // 16) + kk % 4
+                       for s in range(2) for kk in range(32))
 
 SOURCE = cuda_build.CSRC / "scan_pairs.cu"
 MERGE_SOURCE = cuda_build.CSRC / "scan_merge.cu"
@@ -316,10 +331,11 @@ def operand_queries(queries: torch.Tensor, mode: str, store_dtype: torch.dtype,
     :func:`split_f32`, each zero-padded to a multiple of 32 values and
     laid out per 32-value depth slice as ``hi, mid, lo`` side by side,
     ``(n, 3·qd)``.  Where bf16 terms meet an int8 store, each group of 16
-    values is in :data:`WIDEN_ORDER`; for a wgmma body the bf16 rows are
+    values is in :data:`WIDEN_ORDER`; for a wgmma body the rows are
     zero-padded to ``wgmma_qd`` values instead (the width it reads,
     :attr:`Body.qd`: a multiple of 64 >= d), each group of 64 in
-    :data:`WGMMA_ORDER` over an int8 store, each group of 32 in
+    :data:`WGMMA_ORDER` over an int8 store (:data:`WGMMA_S8_ORDER` in mode
+    ``"int8"``), each group of 32 in
     :data:`WGMMA_F32_ORDER` over an f32 store; in mode ``"f32"`` the three
     terms so laid out are planes side by side, ``hi, mid, lo``, ``(n,
     3·wgmma_qd)``, over an int8 store (the f32-mode body) and over an f32
@@ -339,7 +355,8 @@ def operand_queries(queries: torch.Tensor, mode: str, store_dtype: torch.dtype,
         if qd > d:
             q = torch.cat([q, q.new_zeros((n, qd - d))], dim=1)
         if wgmma_qd:
-            order = WGMMA_F32_ORDER if store_dtype == torch.float32 else WGMMA_ORDER
+            order = (WGMMA_S8_ORDER if mode == "int8" else
+                     WGMMA_F32_ORDER if store_dtype == torch.float32 else WGMMA_ORDER)
             q = q.reshape(n, qd // len(order), len(order))[:, :, list(order)].reshape(n, qd)
         elif mode != "int8" and store_dtype == torch.int8:
             order = torch.tensor(WIDEN_ORDER, device=q.device)
@@ -721,13 +738,14 @@ def _launch_items(lib, queries, qscales, qidx, pair_bucket, ptr, chunk_of, store
     if err != 0:
         raise RuntimeError(f"scan_pairs kernel launch failed: cudaError {err}")
     global LAUNCHES, WGMMA_LAUNCHES, WGMMA_F32_LAUNCHES, WGMMA_F32MODE_LAUNCHES
-    global WGMMA_WIDE_LAUNCHES, WGMMA_F32X_LAUNCHES
+    global WGMMA_WIDE_LAUNCHES, WGMMA_F32X_LAUNCHES, WGMMA_S8_LAUNCHES
     LAUNCHES += 1
     WGMMA_LAUNCHES += ran.value > 0
     WGMMA_F32_LAUNCHES += ran.value == 2
     WGMMA_F32MODE_LAUNCHES += ran.value == 3
     WGMMA_WIDE_LAUNCHES += ran.value == 4
     WGMMA_F32X_LAUNCHES += ran.value == 5
+    WGMMA_S8_LAUNCHES += ran.value == 6
     return out_d, out_s
 
 

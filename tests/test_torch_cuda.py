@@ -779,6 +779,71 @@ def test_f32x_kernel_is_no_less_exact_than_plain(cuda, k):
     assert 0.0 < k_err <= p_err, (k_err, p_err)
 
 
+@pytest.mark.parametrize("store_kind", ["chunk96", "chunk320", "chunk130", "mutated"])
+@pytest.mark.parametrize("k", [1, 16, 32])
+@pytest.mark.parametrize("qtile", [1, 8, 37, 64, 65, 100, 128])
+def test_wgmma_s8_body_matches_plain_version(cuda, store_kind, k, qtile):
+    """int8 queries over the int8 packed store at list width 32
+    (``precision="int8"``), the launches the wgmma body in int8 mode takes:
+    chunks that are not whole 64-row tiles (96, 320, 130), an empty
+    bucket, padding rows, a mutated store with its chunk lists out of
+    physical order, and query tiles around its 64-slot blocks (one or two
+    blocks of one to four m-tiles); the kernel bit-equal to the plain
+    version (distances and slots: the integer sums are exact), no slot
+    twice, exact ties to the earlier row, one launch, and that launch the
+    int8 body."""
+    if store_kind == "mutated":
+        store, queries, order, _, _ = _mutated_store(cuda, 768, "int8", seed=k + qtile)
+    else:
+        store, queries, order = _body_case(cuda, int(store_kind[5:]), seed=k + qtile)
+    _, args = scan_inputs(store, queries, order, qtile, "int8")
+    before = (scan_kernel.WGMMA_LAUNCHES, scan_kernel.WGMMA_S8_LAUNCHES)
+    ks = _kernel_vs_plain(args, k, qtile, store.chunk, "int8", 1)
+    assert (scan_kernel.WGMMA_LAUNCHES, scan_kernel.WGMMA_S8_LAUNCHES) == (before[0] + 1,
+                                                                         before[1] + 1)
+    if store_kind != "mutated" and k > 1:  # the 40 duplicated rows: the earlier one first
+        _earlier_copy_first(store, ks, k)
+
+
+@pytest.mark.parametrize("d,qtile,body", [(16, 128, 6), (96, 37, 6), (768, 64, 6), (1600, 100, 6),
+                                          (1664, 128, 6), (1680, 128, 0), (100, 8, 0), (30, 65, 0)])
+def test_wgmma_s8_body_widths(cuda, d, qtile, body):
+    """The int8 body from the narrowest d (one k-step of real depths) to
+    the widest resident int8 query tile (1664; 1600 rounded up to it) and
+    past it (1680, rounded up to 1792: the mma.sync body), and int8 rows
+    that are not whole 16 bytes (d 100 and 30: the mma.sync body):
+    bit-equal to the plain version, the body counted from the library's
+    report of the launch."""
+    store, queries, order = _body_case(cuda, 96, seed=d, d=d)
+    _, args = scan_inputs(store, queries, order, qtile, "int8")
+    before = scan_kernel.WGMMA_S8_LAUNCHES
+    _kernel_vs_plain(args, 16, qtile, store.chunk, "int8", 1)
+    assert scan_kernel.WGMMA_S8_LAUNCHES - before == (body == 6)
+
+
+@pytest.mark.parametrize("case", ["k33", "k106", "virtual", "k1040"])
+def test_wgmma_s8_scope_keeps_the_mma_body(cuda, case):
+    """int8 launches outside the int8 body's scope keep the mma.sync body:
+    list widths 64 and 128, a virtual store over an int8 corpus, and k 1040
+    (a 1024-wide round, then one under floors, which keeps the body of the
+    round before it): bit-equal to the plain version, no launch on a wgmma
+    body.  (The int8 body's split is in
+    ``test_split_kernel_equals_unsplit_kernel``.)"""
+    if case == "virtual":
+        store, queries, order = _virtual_case(cuda, 768, "int8", seed=9, shuffle=False)
+        k, qtile, launches = 16, 128, 1
+    elif case == "k1040":
+        store, queries, order = _wide_case(cuda, "int8", seed=1043)
+        k, qtile, launches = 1040, 8, 2
+    else:
+        store, queries, order = _body_case(cuda, 96, seed=37)
+        k, qtile, launches = int(case[1:]), 128, 1
+    _, args = scan_inputs(store, queries, order, qtile, "int8")
+    before = scan_kernel.WGMMA_LAUNCHES
+    _kernel_vs_plain(args, k, qtile, store.chunk, "int8", launches)
+    assert scan_kernel.WGMMA_LAUNCHES == before
+
+
 #: the widest resident query tile of the wgmma body at list widths 64 and
 #: 128 (WideList<64>::MAX_QD, WideList<128>::MAX_QD in csrc/scan_pairs.cu)
 WIDE_MAX_QD = {64: 1024, 128: 768}
@@ -943,6 +1008,7 @@ def test_wgmma_f32_scope_keeps_the_mma_body(cuda, case):
         ("bf16", torch.bfloat16, 106, 768, False, True, 0),
         ("bf16", torch.float32, 106, 768, False, True, 0),
         ("int8", torch.int8, 106, 768, False, True, 0),
+        ("int8", torch.int8, 33, 768, False, True, 0),  # list width 64
         ("bf16", torch.int8, 16, 768, True, True, 0),  # a virtual store
         ("bf16", torch.int8, 16, 100, False, True, 0),  # rows not of whole 16 bytes
         ("bf16", torch.int8, 16, 30, False, True, 0),
@@ -959,7 +1025,16 @@ def test_wgmma_f32_scope_keeps_the_mma_body(cuda, case):
         ("bf16", torch.float32, 33, 768, False, True, 0),  # list width 64
         ("bf16", torch.float32, 16, 768, True, True, 0),  # a virtual store
         ("bf16", torch.float32, 16, 768, False, False, 0),  # an unaligned store
-        ("int8", torch.int8, 16, 768, False, True, 0),
+        ("int8", torch.int8, 16, 768, False, True, 6),  # precision="int8"
+        ("int8", torch.int8, 32, 768, False, True, 6),
+        ("int8", torch.int8, 1, 96, False, True, 6),
+        ("int8", torch.int8, 16, 16, False, True, 6),
+        ("int8", torch.int8, 16, 1600, False, True, 6),  # rounded up to 1664 ...
+        ("int8", torch.int8, 16, 1664, False, True, 6),  # ... the widest int8 tile
+        ("int8", torch.int8, 16, 1680, False, True, 0),  # rounded up to 1792: too wide
+        ("int8", torch.int8, 16, 100, False, True, 0),  # rows not of whole 16 bytes
+        ("int8", torch.int8, 16, 768, True, True, 0),  # a virtual store
+        ("int8", torch.int8, 16, 768, False, False, 0),  # an unaligned store
         ("f32", torch.int8, 16, 768, False, True, 3),  # precision="highest"
         ("f32", torch.int8, 32, 768, False, True, 3),
         ("f32", torch.int8, 1, 96, False, True, 3),
@@ -993,12 +1068,13 @@ def test_library_picks_the_body(cuda, mode, store_dtype, k, d, virtual, aligned,
     """Which launches take a wgmma body, as the library says (``scan_body``,
     the one place that decides): bf16 over an int8 packed store (body 1) or
     an f32 packed store (body 2), f32 over an int8 packed store (body 3) or
-    an f32 packed store (body 5), k <= 32 and no floor, whole 16-byte rows
-    at an aligned store, d rounded up to 128 (int8) or 64 (f32) within the
-    resident tile (896 for the three terms over either store), and bf16
-    over an int8 packed store at k 33 to 128 on the same terms (body 4, the
-    tile within 1024 at list width 64 and 768 at 128); everything else
-    keeps the mma.sync body (0), and so does every round under a floor.
+    an f32 packed store (body 5), int8 over an int8 packed store (body 6),
+    k <= 32 and no floor, whole 16-byte rows at an aligned store, d rounded
+    up to 128 (int8) or 64 (f32) within the resident tile (896 for the three
+    terms over either store, 1664 for int8 queries), and bf16 over an int8
+    packed store at k 33 to 128 on the same terms (body 4, the tile within
+    1024 at list width 64 and 768 at 128); everything else keeps the
+    mma.sync body (0), and so does every round under a floor.
     With the body come the width of the query rows it reads and its
     blocks' query slots (32 for the three terms)."""
     lib = cuda_build.load(scan_kernel.SOURCE, scan_kernel._bind)
@@ -1075,7 +1151,9 @@ def test_wgmma_scope_picks_the_body(cuda, case):
     (768, 4, "int8", "bf16", 16), (784, 4, "int8", "bf16", 106), (768, 4, "int8", "f32", 106),
     (768, 0, "float32", "f32", 16), (768, 3, "float32", "f32", 16), (768, 2, "float32", "f32", 16),
     (768, 5, "float32", "f32", 33), (102, 5, "float32", "f32", 16), (768, 5, "float32", "bf16", 16),
-    (768, 5, "int8", "f32", 16)])
+    (768, 5, "int8", "f32", 16), (768, 0, "int8", "int8", 16), (768, 6, "int8", "int8", 33),
+    (100, 6, "int8", "int8", 16), (768, 1, "int8", "int8", 16), (768, 6, "int8", "bf16", 16),
+    (768, 6, "int8", "f32", 16)])
 def test_launch_rejects_queries_laid_out_for_the_other_body(cuda, d, laid_out, store_dtype, mode,
                                                             k):
     """Every launch is held to the body the library picks: queries laid
@@ -1083,8 +1161,9 @@ def test_launch_rejects_queries_laid_out_for_the_other_body(cuda, d, laid_out, s
     wgmma layout where the mma.sync body or another wgmma body runs, in
     bf16 and in f32 mode, over int8 and f32 rows, at list width 32 and 128:
     the width-32 and the wide-list bodies over int8 rows read one layout,
-    and are still held apart) launch nothing, raise, and count no
-    launch."""
+    and are still held apart; int8 queries laid out for the int8 body where
+    the mma.sync body or a bf16 or f32 body runs, and the other way round)
+    launch nothing, raise, and count no launch."""
     data, rng = _corpus(2000, d, seed=6)
     if store_dtype == "int8":
         store = BucketStore.build_packed_int8(data, rng.integers(0, 5, 2000), 5, chunk=96,
@@ -1099,14 +1178,15 @@ def test_launch_rejects_queries_laid_out_for_the_other_body(cuda, d, laid_out, s
                                                                        mode)
     lib = cuda_build.load(scan_kernel.SOURCE, scan_kernel._bind)
     assert scan_kernel.scan_body(lib, st, mode, k).kind != laid_out
-    # the layout of the body laid_out names (bodies 1, 3 and 4: over an int8
-    # store's order, d rounded up to 128; 2 and 5: over an f32 store's, to 64)
-    layout_dtype = (torch.int8 if laid_out in (1, 3, 4) else torch.float32 if laid_out in (2, 5)
+    # the layout of the body laid_out names (bodies 1, 3, 4 and 6: over an
+    # int8 store's order, d rounded up to 128; 2 and 5: over an f32 store's,
+    # to 64)
+    layout_dtype = (torch.int8 if laid_out in (1, 3, 4, 6) else torch.float32 if laid_out in (2, 5)
                     else st.dtype)
     step = 64 if laid_out in (2, 5) else 128
     op = scan_kernel.operand_queries(q, mode, layout_dtype, -(-d // step) * step if laid_out else 0)
     counts = ("LAUNCHES", "WGMMA_LAUNCHES", "WGMMA_F32_LAUNCHES", "WGMMA_F32MODE_LAUNCHES",
-              "WGMMA_WIDE_LAUNCHES", "WGMMA_F32X_LAUNCHES")
+              "WGMMA_WIDE_LAUNCHES", "WGMMA_F32X_LAUNCHES", "WGMMA_S8_LAUNCHES")
     before = [getattr(scan_kernel, c) for c in counts]
     other = scan_kernel.BODY_NAMES[laid_out]
     with pytest.raises(RuntimeError, match=f"laid out for the {other} body"):

@@ -1,11 +1,12 @@
 """The wgmma bodies of the scan kernel (bf16 queries over an int8 or an
-f32 packed store, and f32 queries over an int8 packed store, at list
-width 32) as far as the CPU can check them: the query layouts their B
-operand reads (WGMMA_ORDER, WGMMA_F32_ORDER, the three planes of the f32
-mode) against a model of the registers their lanes widen or round and of
-the f32 mode's resident tile and rounded stage sums (held to the JAX
-package's f32 Pallas scan in interpret mode), and the split's cost model
-for their 64- and 32-slot blocks.  Which body a launch takes is the
+f32 packed store, f32 queries over an int8 or an f32 packed store, int8
+queries over an int8 packed store, at list width 32, and the wide lists)
+as far as the CPU can check them: the query layouts their B operand reads
+(WGMMA_ORDER, WGMMA_F32_ORDER, WGMMA_S8_ORDER, the three planes of the
+f32 mode) against a model of the registers their lanes load, widen or
+round and of the resident tiles and sums (held to the JAX package's
+Pallas scans in interpret mode), and the split's cost model for their
+64- and 32-slot blocks.  Which body a launch takes is the
 library's to say (test_torch_cuda.py asks it), and the kernels
 themselves are held to the plain version there too."""
 
@@ -939,6 +940,219 @@ def test_wide_selection_model_matches_pallas_scan(k, qtile):
         if not written[p]:
             continue
         for j in np.nonzero(real[p])[0]:
+            o = np.lexsort((js[p, j], jd[p, j]))
+            np.testing.assert_allclose(md[p, j], jd[p, j][o], rtol=1e-4, atol=1e-5)
+            mism = ms[p, j] != js[p, j][o]
+            if mism.any():
+                np.testing.assert_allclose(md[p, j][mism], jd[p, j][o][mism], rtol=1e-6,
+                                           atol=1e-7)
+            checked += 1
+    assert checked > 0
+
+
+# the int8 body's resident k-step: 64 query slots × 32 int8 depths
+S8_KSTEP = 64 * 32
+
+
+def _s8_lane_depths():
+    """For 32-deep k-step s of a 64-depth box and k' of the m64nNk32 s8 A
+    fragment, the store depth within the box that the kernel's lane puts
+    there: lane t reads bytes 16t .. 16t+15 of its rows as four words, word
+    2s + u into register 2u (+1 for row g + 8) of k-step s, whose byte i the
+    fragment holds at k' = 4t + 16u + i (no widening)."""
+    depth = np.full((2, 32), -1)
+    for s in range(2):
+        for t in range(4):
+            for u in range(2):
+                for i in range(4):
+                    depth[s, 4 * t + 16 * u + i] = 16 * t + 4 * (2 * s + u) + i
+    return depth
+
+
+def test_wgmma_s8_order_is_the_lanes_depth_map():
+    """Position 32s + k' of each 64-group of the laid-out int8 queries holds
+    the depth that the A register at (k-step s, k') holds, and every depth
+    of the group appears once."""
+    depth = _s8_lane_depths()
+    np.testing.assert_array_equal(np.asarray(scan_kernel.WGMMA_S8_ORDER), depth.reshape(-1))
+    assert sorted(scan_kernel.WGMMA_S8_ORDER) == list(range(64))
+
+
+def test_wgmma_s8_layout_pads_and_keeps_the_other_layouts():
+    """In mode int8 the wgmma rows are the int8 queries zero-padded to the
+    width asked for and permuted per 64-group in WGMMA_S8_ORDER; a width
+    below d or not a multiple of 64 is refused; without one the layout is
+    the mma.sync body's (the int8 rows zero-padded to 16, unpermuted), and
+    the bf16 body over the same int8 store keeps WGMMA_ORDER."""
+    rng = np.random.default_rng(9)
+    q = torch.as_tensor(rng.integers(-128, 128, size=(4, 100)).astype(np.int8))
+    for bad in (64, 96, 160):
+        with pytest.raises(ValueError):
+            scan_kernel.operand_queries(q, "int8", torch.int8, bad)
+    for qd in (128, 256):
+        op = scan_kernel.operand_queries(q, "int8", torch.int8, qd)
+        assert op.dtype == torch.int8 and op.shape == (4, qd)
+        assert op.is_contiguous() and op.data_ptr() % 16 == 0
+        flat = torch.zeros((4, qd), dtype=torch.int8)
+        flat[:, :100] = q
+        order = list(scan_kernel.WGMMA_S8_ORDER)
+        assert torch.equal(op, flat.reshape(4, qd // 64, 64)[:, :, order].reshape(4, qd))
+    old = scan_kernel.operand_queries(q, "int8", torch.int8)
+    flat = torch.zeros((4, 112), dtype=torch.int8)
+    flat[:, :100] = q
+    assert torch.equal(old, flat)
+    f = torch.as_tensor(rng.normal(size=(4, 100)).astype(np.float32))
+    bf = scan_kernel.operand_queries(f, "bf16", torch.int8, 128)
+    flat = torch.zeros((4, 128), dtype=torch.bfloat16)
+    flat[:, :100] = f.bfloat16()
+    assert torch.equal(bf, flat.reshape(4, 2, 64)[:, :, list(scan_kernel.WGMMA_ORDER)]
+                       .reshape(4, 128))
+
+
+def _s8_resident(op: torch.Tensor, cols: int, qd: int) -> np.ndarray:
+    """A block's resident int8 query tile as ``wgmma_begin`` writes it, in
+    bytes: slot n's 16-byte piece p (values 16p .. 16p+15 of its operand
+    row) at byte (p >> 1)·S8_KSTEP + (n >> 3)·256 + (p & 1)·128 + (n & 7)·16;
+    slots past the queries zero."""
+    rows = op.numpy().astype(np.int64)
+    smem = np.zeros(qd // 32 * S8_KSTEP, np.int64)
+    for n in range(rows.shape[0]):
+        for piece in range(qd // 16):
+            at = (piece >> 1) * S8_KSTEP + (n >> 3) * 256 + (piece & 1) * 128 + (n & 7) * 16
+            smem[at : at + 16] = rows[n, 16 * piece : 16 * piece + 16]
+    assert cols <= 64
+    return smem
+
+
+def _s8_b_tile(smem: np.ndarray, j: int, width: int) -> np.ndarray:
+    """The (32, width) B operand that wgmma m64nNk32 s8 reads for k-step
+    ``j`` through the body's descriptor (K-major, no swizzle: core matrices
+    of 8 slots × 16 depths, the two 16-deep halves 128 bytes apart (leading
+    byte offset), 8-slot groups 256 bytes apart (stride byte offset))."""
+    kk = np.arange(32)[:, None]
+    c = np.arange(width)[None, :]
+    return smem[j * S8_KSTEP + (c >> 3) * 256 + (kk >> 4) * 128 + (c & 7) * 16 + (kk & 15)]
+
+
+def _s8_sums(x: np.ndarray, op: torch.Tensor, cols: int, qd: int) -> np.ndarray:
+    """The body's wgmma, lane by lane, in Python integers (int64, exact):
+    for each ring stage (two boxes of 64 depths, four k-steps) the rows'
+    A fragments (``_s8_lane_depths``: k-step 2b + s reads box b) against
+    the B tile of the block's ``cols`` columns, summed over the stages:
+    ``(rows, cols)``, the s32 sums of the epilogue."""
+    xp = np.zeros((x.shape[0], qd), np.int64)
+    xp[:, : x.shape[1]] = x  # the TMA box writes zeros past d
+    depth = _s8_lane_depths()
+    smem = _s8_resident(op, cols, qd)
+    out = np.zeros((x.shape[0], cols), np.int64)
+    for st in range(qd // 128):
+        for ks in range(4):
+            box, s = 2 * st + ks // 2, ks % 2
+            out += xp[:, 64 * box + depth[s]] @ _s8_b_tile(smem, 4 * st + ks, cols)
+    return out
+
+
+@pytest.mark.parametrize("d,n", [(768, 64), (784, 37), (96, 16), (16, 9), (1664, 64)])
+def test_wgmma_s8_model_contracts_to_the_dot_product(d, n):
+    """The int8 body, modelled from the operand rows through the block's
+    resident tile and its descriptor to the A and B fragments of each
+    32-deep k-step: the sums are ``x · q`` exactly, in integers, for random
+    int8 rows and queries (extremes -128 and 127 among them), from one
+    k-step of real depths (d 16) to the widest resident tile (1664); the
+    columns of slots past the queries are zero.  ``n`` queries in a block
+    of up to four m-tiles (the wgmma's N rounded up to 16)."""
+    rng = np.random.default_rng(d + n)
+    x = rng.integers(-128, 128, size=(9, d)).astype(np.int8)
+    q = rng.integers(-128, 128, size=(n, d)).astype(np.int8)
+    x[0], q[0] = -128, -128  # the largest products
+    qd = -(-d // QD_STEP) * QD_STEP
+    cols = 16 * -(-n // 16)
+    op = scan_kernel.operand_queries(torch.as_tensor(q), "int8", torch.int8, qd)
+    sums = _s8_sums(x, op, cols, qd)
+    np.testing.assert_array_equal(sums[:, :n], x.astype(np.int64) @ q.astype(np.int64).T)
+    assert not sums[:, n:].any()
+    assert np.abs(sums).max() < 2**31  # an s32 sum holds it
+
+
+@pytest.mark.parametrize("d,k,qtile", [(96, 16, 16), (768, 32, 8), (256, 5, 32)])
+def test_wgmma_s8_model_matches_pallas_int8_scan(d, k, qtile):
+    """The int8 body's sums (``_s8_sums``: exact integers, rounded to f32)
+    and its epilogue (``distance<true>``: raw·(−scale), ·qscale, + 1 or +inf
+    on padding, each a rounded f32 operation), with each query's top-k in
+    scan order, ties to the earlier row: bit-equal, distances and slots, to
+    the plain version's lists (the mma.sync body's bits), and each real
+    query's list within the parity bar of the JAX package's Pallas int8
+    scan (int8×int8→int32 with the same scales) of the same seeded inputs
+    in interpret mode, as tests/test_torch_scan_kernel.py holds the plain
+    version to it (rtol 1e-4, atol 1e-5; slots differing only at ties):
+    XLA on the CPU may fuse the epilogue's multiply and add, an ulp off."""
+    import jax.numpy as jnp
+
+    from learnedmetricindex_tpu.data import synthetic_blobs
+    from learnedmetricindex_tpu.index.bucket_store import BucketStore as JaxStore
+    from learnedmetricindex_tpu.index.bucket_store import build_scan_plan
+    from learnedmetricindex_tpu.ops.quantize import quantize_rows
+    from learnedmetricindex_tpu.ops.scan_kernel import pallas_host_args, pallas_scan_pairs
+    from learnedmetricindex_tpu_torch.index.bucket_store import build_plan
+    from learnedmetricindex_tpu_torch.ops.select import smallest_k
+
+    n, nb, chunk, nq = 500, 4, 64, 40
+    data, queries = synthetic_blobs(n, d, nq, seed=d + k)
+    rng = np.random.default_rng(d + k)
+    store = JaxStore.build_packed_int8(data, rng.integers(0, nb, size=n), nb, chunk=chunk)
+    order = np.stack([rng.choice(nb, size=2, replace=False) for _ in range(nq)]).astype(np.int64)
+    order[rng.random(nq) < 0.3, -1] = -1
+    plan = build_scan_plan(store, order, qtile=qtile)
+    n_pairs = len(plan.qidx) // qtile
+    im, ic, wr, sf, written = pallas_host_args(store, plan, qtile, n_pairs)
+    q_int, q_sc = (np.array(a) for a in quantize_rows(jnp.asarray(queries)))
+    valid = plan.qidx >= 0
+    g = np.maximum(plan.qidx, 0)
+    wq = np.where(valid[:, None], q_int[g], 0).astype(np.int8)
+    qs2d = np.where(valid, q_sc[g], 0.0).astype(np.float32).reshape(n_pairs, qtile)
+    jd, js = pallas_scan_pairs(
+        jnp.asarray(wq), jnp.asarray(im), jnp.asarray(ic), jnp.asarray(wr), store.chunk_data,
+        jnp.asarray(sf), jnp.asarray(qs2d), k=k, qtile=qtile, chunk=chunk, n_pairs=n_pairs,
+        compute="int8", interpret=True)
+    jd, js = np.asarray(jd)[:n_pairs], np.asarray(js)[:n_pairs]
+    sf = np.array(sf)
+    rows = np.array(store.chunk_data)
+    qd = -(-d // QD_STEP) * QD_STEP
+    op = scan_kernel.operand_queries(torch.as_tensor(q_int), "int8", torch.int8, qd)
+    raw = np.concatenate([_s8_sums(rows, op[c0 : c0 + 64], 64, qd)[:, : op[c0 : c0 + 64].shape[0]]
+                          for c0 in range(0, nq, 64)], axis=1).astype(np.float32)
+    dist = (raw * -sf[:, None]).astype(np.float32) * q_sc[None, :].astype(np.float32)
+    dist = dist.astype(np.float32) + np.where(sf == 0.0, np.float32(np.inf), np.float32(1.0))[:, None]
+    dist = torch.as_tensor(dist.astype(np.float32).T)  # (queries, slots)
+    pplan = build_plan(torch.as_tensor(order), nb, qtile)
+    assert pplan.n_pairs == n_pairs
+    ptr = store.bucket_chunk_start
+    pb = pplan.pair_bucket.numpy()
+    md = np.full((n_pairs, qtile, k), np.inf, np.float32)
+    ms = np.full((n_pairs, qtile, k), -1, np.int32)
+    for p in range(n_pairs):
+        b = int(pb[p])
+        slots = torch.arange(int(ptr[b]) * chunk, int(ptr[b + 1]) * chunk)
+        if len(slots) == 0:
+            continue
+        for j in np.nonzero(valid.reshape(-1, qtile)[p])[0]:
+            vals, pos = smallest_k(dist[int(plan.qidx[p * qtile + j]), slots][None, :],
+                                   min(k, len(slots)))
+            kk = vals.shape[1]
+            md[p, j, :kk] = vals[0].numpy()
+            ms[p, j, :kk] = np.where(np.isinf(md[p, j, :kk]), -1, slots[pos[0]].numpy())
+    rd, rs = scan_kernel.scan_pairs_reference(
+        torch.as_tensor(q_int), pplan.qidx, pplan.pair_bucket,
+        torch.as_tensor(ptr, dtype=torch.int32), torch.arange(len(rows) // chunk, dtype=torch.int32),
+        torch.as_tensor(rows), torch.as_tensor(sf), torch.as_tensor(q_sc), k=k, qtile=qtile,
+        chunk=chunk, mode="int8")
+    np.testing.assert_array_equal(md.view(np.uint32), rd.numpy().view(np.uint32))
+    np.testing.assert_array_equal(ms, rs.numpy())
+    checked = 0
+    for p in range(n_pairs):
+        if not written[p]:
+            continue
+        for j in np.nonzero(valid.reshape(-1, qtile)[p])[0]:
             o = np.lexsort((js[p, j], jd[p, j]))
             np.testing.assert_allclose(md[p, j], jd[p, j][o], rtol=1e-4, atol=1e-5)
             mism = ms[p, j] != js[p, j][o]

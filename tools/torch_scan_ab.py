@@ -15,11 +15,12 @@ that only this tree's build has; then times both sides
 in one process on the same inputs, alternating which goes first, and
 checks that both give the same bits (distances and slots) at every
 ``k``, except where only one side takes a wgmma body (bf16 or f32 over an
-int8 packed store at ``k_scan`` <= 32, bf16 over it at 33 to 128, as its
-library's ``lmi_scan_body`` says): wgmma sums in another order than
-``mma.sync``, so there both sides are held to each other at the bar of the mode
-(``chip_smoke.compare_candidates``; in f32 also each side's distances
-against float64) and the lists that are bit-equal are counted.  Each side runs as its checkout's wrapper does: a checkout with
+int8 packed store at ``k_scan`` <= 32, bf16 over it at 33 to 128, int8 over
+it at <= 32, as its library's ``lmi_scan_body`` says): wgmma sums in
+another order than ``mma.sync``, so there both sides are held to each
+other at the bar of the mode (``chip_smoke.compare_candidates``: in int8
+bit-equal, the integer sums being exact; in f32 also each side's
+distances against float64) and the lists that are bit-equal are counted.  Each side runs as its checkout's wrapper does: a checkout with
 the merge kernel splits each launch's pairs into items of the segment
 length ``ops/scan_kernel.py::segment_length`` picks from its library's
 occupancy (``lmi_scan_body``, or ``lmi_scan_blocks_per_sm`` in a checkout
@@ -114,7 +115,7 @@ def sass(cubin: Path) -> dict:
     kernel instance under its name from ``scan_mma_kernel`` (or
     ``scan_wgmma_kernel``, ``scan_wgmma_f32_kernel``,
     ``scan_wgmma_f32mode_kernel``, ``scan_wgmma_wide_kernel``,
-    ``scan_wgmma_f32x_kernel``) on."""
+    ``scan_wgmma_f32x_kernel``, ``scan_wgmma_s8_kernel``) on."""
     cuobjdump = Path(cuda_build._nvcc()).with_name("cuobjdump")
     txt = subprocess.run([str(cuobjdump), "-sass", str(cubin)], capture_output=True, text=True,
                          check=True).stdout
@@ -134,7 +135,7 @@ def sass(cubin: Path) -> dict:
         name = name.strip()
         for kernel in ("scan_mma_kernel", "scan_wgmma_kernel", "scan_wgmma_f32_kernel",
                        "scan_wgmma_f32mode_kernel", "scan_wgmma_wide_kernel",
-                       "scan_wgmma_f32x_kernel"):
+                       "scan_wgmma_f32x_kernel", "scan_wgmma_s8_kernel"):
             if kernel in name:
                 name = name[name.find(kernel):]
                 break

@@ -2,7 +2,8 @@
 """What bounds the scan's default bodies at the flagship, on one NVIDIA GPU.
 
     python3 tools/torch_scan_probe.py [--body mma|wgmma|mma-f32|wgmma-f32|mma-f32mode|wgmma-f32mode|
-                                             mma-wide|wgmma-wide|mma-f32x|wgmma-f32x]
+                                             mma-wide|wgmma-wide|mma-f32x|wgmma-f32x|mma-s8|
+                                             wgmma-s8]
                                       [--checkout DIR] [--reference DIR ...]
                                       [--rounds 4] [--only NAME ...]
 
@@ -13,7 +14,8 @@ packed store (``--body mma``, ``wgmma``) or over the same rows as an f32
 store (``--body mma-f32``, ``wgmma-f32``: ``chip_smoke.dequantized_store``,
 31 GB, the default search over ``BuildConfiguration(dtype="float32")``);
 and the f32 scan over the int8 store (``mma-f32mode``, ``wgmma-f32mode``)
-or over that f32 store (``mma-f32x``, ``wgmma-f32x``).
+or over that f32 store (``mma-f32x``, ``wgmma-f32x``), and the int8 scan
+over the int8 store (``mma-s8``, ``wgmma-s8``).
 It writes patched copies of ``DIR``'s
 ``learnedmetricindex_tpu_torch/csrc/scan_pairs.cu`` (default: this
 tree's) into ``build/scan_probe/``, builds each (and
@@ -156,7 +158,35 @@ that f32 store:
   large sum too (the first design's rounding, for its time);
 * ``bare``: no TMA, no split, no hand-over; ``no wgmma, bare``.
 
-The copies' results are wrong and are not read.  Then the card's memory
+``--body mma-s8``: the mma.sync body's int8 instance over the int8 packed
+store (``MmaBody<MODE_INT8, int8_t, 32>``, ``precision="int8"``: a
+checkout where that scan takes it, for example the commit before the
+int8 wgmma body), timed in mode int8:
+
+* ``tree``, ``(a) query tile once``, ``(c) no selection`` as for ``--body
+  mma``;
+* ``(d) no mma``: the s8 ``mma.sync`` issues nothing;
+* ``(a)+(c)+(d)``.
+
+``--body wgmma-s8``: the int8 wgmma body, timed in mode int8:
+
+* ``tree``, ``no wgmma`` (the s8 wgmma instructions are comments), ``no
+  selection``, ``no hand-over``, ``no TMA`` as for ``--body wgmma``;
+* ``ring of 2 stages``, ``3``, ``5``, ``6``: ``WS8_STAGES`` stages a
+  consumer in place of 4;
+* ``selection: one load a query``: each warp reads its queries' marks one
+  after another, as the bf16 body over int8 rows does;
+* ``A from shared memory``: the store rows as wgmma's A operand through a
+  descriptor over the TMA box (its tensor map under the 64-byte swizzle
+  that the descriptor names, the block's shared memory on 1024 bytes), in
+  place of 16 bytes a lane in registers; a stage's ring slot is freed once
+  the wgmma that read it is done; its queries laid out in depth order
+  (A then holds each row's depths in order); also with a ring of 2;
+* ``bare``: no TMA, no hand-over; ``no wgmma, bare``.
+
+The variants of ``--body wgmma-s8`` that leave the arithmetic alone (the
+rings, A from shared memory) are held bit-equal to the tree's lists; the
+other copies' results are wrong and are not read.  Then the card's memory
 rates: a ~1 GB device-to-device copy (HBM: bytes read + written) and a
 sum over a 20 MB and a 40 MB buffer read again and again (L2).  Prints
 one ``[probe]`` line a variant and writes
@@ -180,7 +210,7 @@ sys.path.insert(0, str(ROOT / "tools"))
 
 import chip_smoke as cs  # noqa: E402
 import torch_scan_ab as ab  # noqa: E402
-from learnedmetricindex_tpu_torch.ops import cuda_build  # noqa: E402
+from learnedmetricindex_tpu_torch.ops import cuda_build, scan_kernel  # noqa: E402
 
 WORK = ROOT / "build" / "scan_probe"
 OUT = ROOT / "chiprun_out"
@@ -433,23 +463,162 @@ WGMMA_F32X_VARIANTS = {
     "bare": W_NO_TMA + WX_NO_SPLIT + W_NO_HANDOVER,
     "no wgmma, bare": W_NO_WGMMA + W_NO_TMA + WX_NO_SPLIT + W_NO_HANDOVER,
 }
+# the int8 mma.sync body: its s8 mma issues nothing
+NO_MMA_S8 = [
+    ('      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "\n'
+     '      "{%8, %9}, {%0, %1, %2, %3};\\n"\n',
+     '      ""\n'),
+]
+MMA_S8_VARIANTS = {
+    "tree": [],
+    "(a) query tile once": QUERY_ONCE,
+    "(c) no selection": NO_SELECTION,
+    "(d) no mma": NO_MMA_S8,
+    "(a)+(c)+(d)": QUERY_ONCE + NO_SELECTION + NO_MMA_S8,
+}
+# the int8 wgmma body: its s8 wgmma shapes, its ring's depth
+WS8_NO_WGMMA = [(f'"wgmma.mma_async.sync.aligned.m64n{n}k32.s32.s8.s8 "', '"// "')
+                for n in (16, 32, 48, 64)]
+WS8_STAGES = {n: [("constexpr int WS8_STAGES = 4;", f"constexpr int WS8_STAGES = {n};"),
+                  ("static_assert(W_MAX_QDS8 >= 1152,", "static_assert(W_MAX_QDS8 >= 768,")]
+              for n in (2, 3, 5, 6)}
+# ... and A through a descriptor over the TMA box: the int8 tensor map under
+# the 64-byte swizzle (canonical K-major SW64: 8-row atoms of 512 bytes,
+# the stride byte offset between them; a k-step 32 bytes further in the
+# row), the shared memory on 1024 bytes, each stage's ring slot freed once
+# the wgmma group that read it is done
+
+
+def _ss_asm(n: int) -> str:
+    m = n // 2
+    regs = ", ".join(f"%{i}" for i in range(m))
+    outs = ", ".join(f'"+r"(r[{i}])' for i in range(m))
+    return (f"  if constexpr (N == {n}) {{\n"
+            f'    asm volatile("{{\\n.reg .pred p;\\nsetp.ne.b32 p, %{m + 2}, 0;\\n"\n'
+            f'                 "wgmma.mma_async.sync.aligned.m64n{n}k32.s32.s8.s8 {{{regs}}}, '
+            f'%{m}, %{m + 1}, p;\\n}}\\n"\n'
+            f"                 : {outs}\n"
+            f'                 : "l"(adesc), "l"(desc), "r"(1));\n'
+            f"  }}\n")
+
+
+WS8_SS = ("// the int8 body's A from shared memory (probe variant): D += A (at adesc) · B (at desc)\n"
+          "template <int N>\n"
+          "__device__ __forceinline__ void wgmma_ss_s8(int (&r)[N / 2], uint64_t adesc, "
+          "uint64_t desc) {\n" + "".join(_ss_asm(n) for n in (16, 32, 48, 64)) + "}\n")
+WS8_A_START = "  // the A fragments of a stage's k-steps, two a box:"
+WS8_A_END = "    hold(acc);\n\n    // epilogue as in wgmma_consume, the sums"
+WS8_A_SMEM_BODY = """  // A through a descriptor: K-major under the 64-byte swizzle, 8-row atoms
+  // of 512 bytes; k-step j of a stage is box j / 2, bytes 32 (j % 2) on
+  auto a_desc = [&](int slot, int j) {
+    const uint32_t addr = smem_u32(s.stage(wg, slot)) + (j >> 1) * WR * WK + (j & 1) * 32;
+    return uint64_t((addr & 0x3ffff) >> 4) | (uint64_t(1) << 16) | (uint64_t(512 >> 4) << 32) |
+           (uint64_t(2) << 62);
+  };
+
+  for (int i = wg; i < ntiles; i += W_CONSUMERS) {
+    const int r0 = w.t * WR;
+    const int slot0 = phys * p.chunk + r0, nrows = min(WR, p.chunk - r0);
+    w.advance(W_CONSUMERS, per_chunk);  // the next tile's chunk, read while this one runs
+    phys = w.c < b.c_hi ? p.chunk_of[w.c] : 0;
+    float r_scale[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = warp * 16 + g + 8 * h;
+      r_scale[h] = r < nrows ? p.scales[slot0 + r] : 0.0f;  // → +inf distance
+    }
+    int acc[N / 2];
+#pragma unroll
+    for (int e = 0; e < N / 2; ++e) acc[e] = 0;
+    auto issue = [&](int st) {
+      const int slot = cnt % R::STAGES;
+      mbar_wait(&s.full[wg * R::STAGES + slot], (cnt / R::STAGES) & 1);
+      wgmma_fence();
+#pragma unroll
+      for (int j = 0; j < KSTEPS; ++j)
+        wgmma_ss_s8<N>(acc, a_desc(slot, j), query_desc(q_base + (KSTEPS * st + j) * WS8_KSTEP));
+      wgmma_commit();
+      ++cnt;
+    };
+    auto release = [&](int c) {  // the ring slot of the warpgroup's c-th stage
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&s.empty[wg * R::STAGES + c % R::STAGES]);
+    };
+    issue(0);
+    for (int st = 1; st < nst; ++st) {
+      issue(st);
+      wgmma_wait<1>();  // stage st - 1 is read
+      release(cnt - 2);
+    }
+    wgmma_wait<0>();
+    release(cnt - 1);
+    hold(acc);
+
+    // epilogue as in wgmma_consume, the sums"""
+
+
+def ws8_a_region(source: str):
+    """The int8 consumer's A loads through its wgmma loop's end, as an
+    edit: replaced by ``WS8_A_SMEM_BODY``."""
+    start, end = source.index(WS8_A_START), source.index(WS8_A_END) + len(WS8_A_END)
+    return source[start:end], WS8_A_SMEM_BODY
+
+
+WS8_A_SMEM = [
+    ws8_a_region,
+    ("template <int N>\n__device__ __forceinline__ void hold(int (&r)[N]) {",
+     WS8_SS + "template <int N>\n__device__ __forceinline__ void hold(int (&r)[N]) {"),
+    ("F32 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE",
+     "F32 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B"),
+    ("    scan_wgmma_s8_kernel(const __grid_constant__ CUtensorMap rows, Params p) {\n"
+     "  extern __shared__ __align__(16) unsigned char smem[];\n",
+     "    scan_wgmma_s8_kernel(const __grid_constant__ CUtensorMap rows, Params p) {\n"
+     "  extern __shared__ __align__(1024) unsigned char smem[];\n"
+     "  if (smem_u32(smem) % 1024 != 0) __trap();\n"),
+]
+WGMMA_S8_VARIANTS = {
+    "tree": [],
+    "no wgmma": WS8_NO_WGMMA,
+    "no selection": W_NO_SELECTION,
+    "no hand-over": W_NO_HANDOVER,
+    "no TMA": W_NO_TMA,
+    "selection: one load a query": WF_SCAN_EACH,
+    "ring of 2 stages": WS8_STAGES[2],
+    "ring of 3 stages": WS8_STAGES[3],
+    "ring of 5 stages": WS8_STAGES[5],
+    "ring of 6 stages": WS8_STAGES[6],
+    "A from shared memory": WS8_A_SMEM,
+    "A from shared memory, ring of 2 stages": WS8_A_SMEM + WS8_STAGES[2],
+    "bare": W_NO_TMA + W_NO_HANDOVER,
+    "no wgmma, bare": WS8_NO_WGMMA + W_NO_TMA + W_NO_HANDOVER,
+}
+# the variants whose lists must stay the tree's, bit for bit
+EXACT = {"selection: one load a query", "ring of 2 stages", "ring of 3 stages",
+         "ring of 5 stages", "ring of 6 stages", "A from shared memory",
+         "A from shared memory, ring of 2 stages"}
+# ... and those that read the queries in depth order (A from shared memory
+# reads each row's depths in order, not in WGMMA_S8_ORDER)
+IN_ORDER = {"A from shared memory", "A from shared memory, ring of 2 stages"}
 VARIANTS = {"mma": MMA_VARIANTS, "wgmma": WGMMA_VARIANTS, "mma-f32": MMA_F32_VARIANTS,
             "wgmma-f32": WGMMA_F32_VARIANTS, "mma-f32mode": MMA_F32MODE_VARIANTS,
             "wgmma-f32mode": WGMMA_F32MODE_VARIANTS, "mma-wide": MMA_VARIANTS,
             "wgmma-wide": WGMMA_WIDE_VARIANTS, "mma-f32x": MMA_F32X_VARIANTS,
-            "wgmma-f32x": WGMMA_F32X_VARIANTS}
+            "wgmma-f32x": WGMMA_F32X_VARIANTS, "mma-s8": MMA_S8_VARIANTS,
+            "wgmma-s8": WGMMA_S8_VARIANTS}
 # ptxas's report of the instance each body runs
 INSTANCE = {"mma": "scan_mma_kernelILi1EaLi32E", "wgmma": "scan_wgmma_kernel",
             "mma-f32": "scan_mma_kernelILi1EfLi32E", "wgmma-f32": "scan_wgmma_f32_kernel",
             "mma-f32mode": "scan_mma_kernelILi0EaLi32E",
             "wgmma-f32mode": "scan_wgmma_f32mode_kernel", "mma-wide": "scan_mma_kernelILi1EaLi128E",
             "wgmma-wide": "scan_wgmma_wide_kernelILi128E", "mma-f32x": "scan_mma_kernelILi0EfLi32E",
-            "wgmma-f32x": "scan_wgmma_f32x_kernel"}
+            "wgmma-f32x": "scan_wgmma_f32x_kernel", "mma-s8": "scan_mma_kernelILi2EaLi32E",
+            "wgmma-s8": "scan_wgmma_s8_kernel"}
 # the scan mode each body runs in, and the kernel that the checkout must have
 # (wgmma bodies) or must not have (the mma.sync body those replace)
 BODY_MODE = {"mma": "bf16", "wgmma": "bf16", "mma-f32": "bf16", "wgmma-f32": "bf16",
              "mma-f32mode": "f32", "wgmma-f32mode": "f32", "mma-wide": "bf16",
-             "wgmma-wide": "bf16", "mma-f32x": "f32", "wgmma-f32x": "f32"}
+             "wgmma-wide": "bf16", "mma-f32x": "f32", "wgmma-f32x": "f32", "mma-s8": "int8",
+             "wgmma-s8": "int8"}
 # the k_scan each body is timed at: the default search's 16, search(k=100)'s 106
 BODY_K = {"mma-wide": 106, "wgmma-wide": 106}
 BODY_KERNEL = {"mma": "scan_wgmma_kernel", "wgmma": "scan_wgmma_kernel",
@@ -457,14 +626,17 @@ BODY_KERNEL = {"mma": "scan_wgmma_kernel", "wgmma": "scan_wgmma_kernel",
                "mma-f32mode": "scan_wgmma_f32mode_kernel",
                "wgmma-f32mode": "scan_wgmma_f32mode_kernel",
                "mma-wide": "scan_wgmma_wide_kernel", "wgmma-wide": "scan_wgmma_wide_kernel",
-               "mma-f32x": "scan_wgmma_f32x_kernel", "wgmma-f32x": "scan_wgmma_f32x_kernel"}
+               "mma-f32x": "scan_wgmma_f32x_kernel", "wgmma-f32x": "scan_wgmma_f32x_kernel",
+               "mma-s8": "scan_wgmma_s8_kernel", "wgmma-s8": "scan_wgmma_s8_kernel"}
 
 
 def patched(source: str, edits) -> str:
-    """``source`` with each ``(old, new[, count])`` edit applied: ``old``
-    must occur ``count`` times (default 1), at least once for "all", any
-    number of times for "any"."""
-    for old, new, *count in edits:
+    """``source`` with each ``(old, new[, count])`` edit applied (or each
+    edit a function of the source gives): ``old`` must occur ``count``
+    times (default 1), at least once for "all", any number of times for
+    "any"."""
+    for edit in edits:
+        old, new, *count = edit(source) if callable(edit) else edit
         want = count[0] if count else 1
         found = source.count(old)
         cs.check(want == "any" or (found >= 1 if want == "all" else found == want),
@@ -544,6 +716,19 @@ def main() -> None:
     k = BODY_K.get(args.body, 16)
     runs = {n: ab.launcher(side, store, queries, order, mode, k) for n, side in sides.items()}
     names = list(runs)
+    laid_out = scan_kernel.WGMMA_S8_ORDER
+    for n in (n for n in names if n in IN_ORDER):  # its queries laid out at its first run
+        scan_kernel.WGMMA_S8_ORDER = tuple(range(64))
+        try:
+            runs[n]()
+        finally:
+            scan_kernel.WGMMA_S8_ORDER = laid_out
+    bits = {}  # the variants that must keep the tree's lists: whether they do
+    if any(n in EXACT for n in names):
+        want = tuple(t.clone() for t in runs["tree"]())
+        for n in (n for n in names if n in EXACT):
+            bits[n] = all(torch.equal(a, b) for a, b in zip(runs[n](), want))
+        del want
     ms = {n: [] for n in names}
     for r in range(args.rounds):
         for n in (names if r % 2 == 0 else names[::-1]):
@@ -553,10 +738,13 @@ def main() -> None:
         cs.log(f"[probe] {what}, k_scan {k}, {queries.shape[0]} queries "
                f"(mean of 3 launches a round, {args.rounds} rounds in turns): {n}: "
                f"{' '.join(f'{t:.3f}' for t in ms[n])} ms, median {med[n]:.3f} ms = "
-               f"{med[n] / med['tree']:.3f} of the tree's  [{smi}]")
+               f"{med[n] / med['tree']:.3f} of the tree's"
+               + ("" if n not in bits else "; the tree's lists" if bits[n] else "; OTHER LISTS")
+               + f"  [{smi}]")
     OUT.mkdir(parents=True, exist_ok=True)
     (OUT / f"scan_probe_{args.body}.json").write_text(json.dumps(
-        {"device": smi, "rounds_ms": ms, "median_ms": med, "memory_tb_s": rates}, indent=1))
+        {"device": smi, "rounds_ms": ms, "median_ms": med, "memory_tb_s": rates,
+         "same_bits": bits}, indent=1))
 
 
 if __name__ == "__main__":
