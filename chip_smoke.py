@@ -42,11 +42,13 @@ phases:
    and qtile 1/8/100/128 (chunks of 320 and 130 rows, the stores mutated,
    forced segments; the widest resident query tiles, d 1152 of bf16 over
    int8 rows, 1664 of int8 queries, 896 over f32 rows and of f32 over int8
-   and f32 rows), and the launches there that keep the mma.sync body
-   (virtual stores, int8 rows of 100 bytes, d 900 and 102 over f32 rows,
-   f32 over int8 rows at d 1040, f32 over f32 rows and int8 at k 33, k
-   1040 in rounds under floors), each case naming the body its launches
-   took;
+   and f32 rows), int8 over the int8 store at k 33 and at the widest
+   tiles of its wide-list body (d 1408 at list width 64, 896 at 128), and
+   the launches there that keep the mma.sync body (virtual stores, int8
+   at k 16 and 64 among them, int8 rows of 100 bytes, int8 at k 64 and
+   106 past that body's widest tiles, d 900 and 102 over f32 rows, f32
+   over int8 rows at d 1040, f32 over f32 rows at k 33, k 1040 in rounds
+   under floors), each case naming the body its launches took;
 4. corpus: a seeded 10M×768 int8 corpus (+ f32 row scales) on the
    device and the exact f32 top-10 of the queries;
 5. search path: an index whose MLP-4 encodes a nearest-centroid
@@ -61,8 +63,11 @@ phases:
    against exact kNN over the visited buckets equal to the same search's
    through the scan's plain version; the ``int8`` search one launch of the
    int8 wgmma body, its recall equal to the same search's through the
-   scan's plain version and its results bit-equal to it, timed; each
-   ``search(k=100)`` one launch of
+   scan's plain version and its results bit-equal to it, timed; the
+   ``int8`` ``search(k=100)`` one launch of the int8 wgmma body with wide
+   lists at ``k_scan`` 106, its results bit-equal to the same search's
+   through the scan's plain version and its recall@100 equal to that
+   search's, timed; each default ``search(k=100)`` one launch of
    the wide-list wgmma body at ``k_scan`` 106, timed, its recall@100
    against exact kNN over the visited buckets at least 0.999 and within
    0.001 of the same search's through the scan's plain version, timed
@@ -223,14 +228,16 @@ BF16_ATOL, BF16_SAME_IDS = 3e-3, 0.99
 # terms must miss the bar, or the check could not tell the bodies apart
 SPLIT_REL_ERR = 2.0**-20
 REPLACES = "learnedmetricindex_tpu/ops/scan_kernel.py:325"
-# read_counts' keys of the scan's launches on its six wgmma bodies (bf16
+# read_counts' keys of the scan's launches on its seven wgmma bodies (bf16
 # over int8 rows, bf16 over f32 rows, f32 over int8 rows, bf16 over int8
-# rows at list widths 64 and 128, f32 over f32 rows, int8 over int8 rows)
+# rows at list widths 64 and 128, f32 over f32 rows, int8 over int8 rows,
+# int8 over int8 rows at list widths 64 and 128)
 WGMMA_INT8, WGMMA_F32 = "scan_pairs wgmma body", "scan_pairs wgmma f32 body"
 WGMMA_F32MODE = "scan_pairs wgmma f32-mode body"
 WGMMA_WIDE = "scan_pairs wgmma wide-list body"
 WGMMA_F32X = "scan_pairs wgmma six-term body"
 WGMMA_S8 = "scan_pairs wgmma int8 body"
+WGMMA_S8_WIDE = "scan_pairs wgmma int8 wide-list body"
 KERNEL_SOURCE = "learnedmetricindex_tpu_torch/csrc/scan_pairs.cu"
 # the merge of a split scan takes the place of the Pallas kernel's running
 # top-k across a pair's chunks (its `insert`, carried in VMEM chunk to chunk)
@@ -422,21 +429,24 @@ def reset_counts() -> None:
     scan_kernel.WGMMA_WIDE_LAUNCHES = 0
     scan_kernel.WGMMA_F32X_LAUNCHES = 0
     scan_kernel.WGMMA_S8_LAUNCHES = 0
+    scan_kernel.WGMMA_S8_WIDE_LAUNCHES = 0
     scan_kernel.MERGE_LAUNCHES = 0
     gather_kernel.LAUNCHES = 0
     gather_kernel.PAIR_LAUNCHES = 0
 
 
 def read_counts() -> dict:
-    """Launches a kernel; of the scan's, those of its six wgmma bodies
+    """Launches a kernel; of the scan's, those of its seven wgmma bodies
     (bf16 over int8 rows, bf16 over f32 rows, f32 over int8 rows, bf16 over
     int8 rows at list widths 64 and 128, f32 over f32 rows, int8 over int8
-    rows), the rest on the mma.sync body."""
+    rows, int8 over int8 rows at list widths 64 and 128), the rest on the
+    mma.sync body."""
     bodies = body_launches()
     return {"scan_pairs": scan_kernel.LAUNCHES, "scan_merge": scan_kernel.MERGE_LAUNCHES,
             "gather_pairs": gather_kernel.PAIR_LAUNCHES, "gather_rows": gather_kernel.LAUNCHES,
             WGMMA_INT8: bodies[1], WGMMA_F32: bodies[2], WGMMA_F32MODE: bodies[3],
-            WGMMA_WIDE: bodies[4], WGMMA_F32X: bodies[5], WGMMA_S8: bodies[6]}
+            WGMMA_WIDE: bodies[4], WGMMA_F32X: bodies[5], WGMMA_S8: bodies[6],
+            WGMMA_S8_WIDE: bodies[7]}
 
 
 def body_launches() -> dict:
@@ -444,7 +454,7 @@ def body_launches() -> dict:
     ``scan_kernel.BODY_NAMES``."""
     others = {2: scan_kernel.WGMMA_F32_LAUNCHES, 3: scan_kernel.WGMMA_F32MODE_LAUNCHES,
               4: scan_kernel.WGMMA_WIDE_LAUNCHES, 5: scan_kernel.WGMMA_F32X_LAUNCHES,
-              6: scan_kernel.WGMMA_S8_LAUNCHES}
+              6: scan_kernel.WGMMA_S8_LAUNCHES, 7: scan_kernel.WGMMA_S8_WIDE_LAUNCHES}
     return {1: scan_kernel.WGMMA_LAUNCHES - sum(others.values()), **others}
 
 
@@ -595,14 +605,15 @@ def phase_kernel_vs_plain(dev) -> dict:
 
 def wgmma_kind(store, mode: str, k: int) -> int:
     """The wgmma body that a launch at ``k`` in ``mode`` over ``store`` takes
-    where it takes one: above list width 32 the wide-list body; in int8
-    mode the int8 body; over f32 rows the six-term body in f32 mode, else
-    the body over f32 rows; over int8 rows the f32-mode body in f32 mode,
-    else the bf16 body over int8 rows."""
+    where it takes one: in int8 mode the int8 body (above list width 32 the
+    int8 body with wide lists); else above list width 32 the wide-list
+    body; over f32 rows the six-term body in f32 mode, else the body over
+    f32 rows; over int8 rows the f32-mode body in f32 mode, else the bf16
+    body over int8 rows."""
+    if mode == "int8":
+        return 7 if k > 32 else 6
     if k > 32:
         return 4
-    if mode == "int8":
-        return 6
     if store.rows_ref.dtype == torch.float32:
         return 5 if mode == "f32" else 2
     return 3 if mode == "f32" else 1
@@ -820,16 +831,19 @@ def width32_cases(dev, worst: dict) -> None:
     (rounded up to it), d 1664 (the widest of int8 queries) and 1600, d 896
     (the widest over f32 rows, of f32 over int8 rows and of f32 over f32
     rows), 840 and 832 (rounded up to it), 100 (f32 rows of 400 bytes) and
-    16.  Then the launches that keep the mma.sync body at width 32 or just
-    past it: virtual int8 and f32 stores, int8 rows of 100 bytes, d 900
-    (past the widest f32 tiles), f32 rows of 408 bytes (d 102), f32 over
-    int8 rows at d 1040 (past its widest tile), f32 over f32 rows and int8
-    over int8 rows at k 33 (list width 64), and k 1040 over buckets of
-    ~4,000 rows of either type (a 1024-wide round, then a 16-wide one under
-    its floors, which keeps the body of the round before it, so that both
-    sum a row the same way).  Each case checks which body its launches
-    took, as the library reports each launch; int8 is bit-equal to the
-    plain version throughout."""
+    16; int8 over int8 rows at k 33 and at the widest tiles of the int8
+    body with wide lists (d 1408 at k 64, 896 at k 106).  Then the launches
+    that keep the mma.sync body at width 32 or just past it: virtual int8
+    and f32 stores (int8 queries at k 16 and 64 too), int8 rows of 100
+    bytes (at k 16 and 64), int8 queries past the wide-list int8 body's
+    widest tiles (d 1520 at k 64, 912 at k 106), d 900 (past the widest
+    f32 tiles), f32 rows of 408 bytes (d 102), f32 over int8 rows at d 1040
+    (past its widest tile), f32 over f32 rows at k 33 (list width 64), and
+    k 1040 over buckets of ~4,000 rows of either type (a 1024-wide round,
+    then a 16-wide one under its floors, which keeps the body of the round
+    before it, so that both sum a row the same way).  Each case checks
+    which body its launches took, as the library reports each launch; int8
+    is bit-equal to the plain version throughout."""
     qtiles = (1, 8, 100, 128)
     n_cases = 0
     for chunk in (320, 130):
@@ -838,11 +852,12 @@ def width32_cases(dev, worst: dict) -> None:
         for tag in ("", " mutated") if chunk == 320 else ("",):
             if tag:  # after the fresh stores' cases: mutation writes the stores in place
                 virt = virtual_stores(made, stores["f32"])
-                for name, mode in (("int8", "bf16"), ("f32", "bf16"), ("int8", "f32"),
-                                   ("f32", "f32"), ("int8", "int8")):
-                    held_to_plain(virt[name], queries, order, 16, 128, mode,
+                for name, mode, k in (("int8", "bf16", 16), ("f32", "bf16", 16),
+                                      ("int8", "f32", 16), ("f32", "f32", 16),
+                                      ("int8", "int8", 16), ("int8", "int8", 64)):
+                    held_to_plain(virt[name], queries, order, k, 128, mode,
                                   scan_partner(virt[name], copies),
-                                  f"width 32 {mode} virtual {name} corpus k=16 qtile=128", worst,
+                                  f"width 32 {mode} virtual {name} corpus k={k} qtile=128", worst,
                                   wgmma=0)
                     n_cases += 1
                 del virt
@@ -880,7 +895,10 @@ def width32_cases(dev, worst: dict) -> None:
     for d, name, mode, wgmma, k in (
             (1152, "int8", "bf16", 1, 16), (1040, "int8", "bf16", 1, 16),
             (1664, "int8", "int8", 1, 32), (1600, "int8", "int8", 1, 16),
-            (100, "int8", "int8", 0, 16), (768, "int8", "int8", 0, 33),
+            (100, "int8", "int8", 0, 16), (768, "int8", "int8", 1, 33),
+            (1408, "int8", "int8", 1, 64), (896, "int8", "int8", 1, 106),
+            (100, "int8", "int8", 0, 64), (1520, "int8", "int8", 0, 64),
+            (912, "int8", "int8", 0, 106),
             (896, "f32", "bf16", 1, 16), (840, "f32", "bf16", 1, 16), (100, "f32", "bf16", 1, 16),
             (896, "int8", "f32", 1, 16), (832, "int8", "f32", 1, 16), (896, "f32", "f32", 1, 16),
             (840, "f32", "f32", 1, 32), (100, "f32", "f32", 1, 16), (16, "f32", "f32", 1, 32),
@@ -1186,6 +1204,8 @@ def phase_main(dev, data: dict, smi: str):
         t0 = time.perf_counter()
         d100, i100, measured100 = search(queries, k=100)
         times100.append(time.perf_counter() - t0)
+    # the int8 search(k=100): k_scan 106, the int8 wgmma body with wide lists
+    int8_100 = search(queries, precision="int8", k=100)[:2]
     launches = read_counts()
     wgmma_launches = scan_kernel.WGMMA_LAUNCHES
     peak = torch.cuda.max_memory_allocated()
@@ -1194,13 +1214,16 @@ def phase_main(dev, data: dict, smi: str):
           "the main path launched the scan kernel and one merge a scan")
     # six default searches (bf16 over the int8 store, k_scan 16: the wgmma
     # body), one highest (f32 over the int8 store: the f32-mode wgmma body),
-    # one int8 (the int8 wgmma body) and four at k=100 (the wide-list body):
-    # none on the mma.sync body
-    check(launches["scan_pairs"] == 12 and launches[WGMMA_INT8] == 6
+    # one int8 (the int8 wgmma body), four at k=100 (the wide-list body) and
+    # one int8 at k=100 (the int8 body with wide lists): none on the
+    # mma.sync body
+    check(launches["scan_pairs"] == 13 and launches[WGMMA_INT8] == 6
           and launches[WGMMA_F32MODE] == 1 and launches[WGMMA_S8] == 1
-          and launches[WGMMA_WIDE] == 4 and wgmma_launches == 12,
-          f"the main path: {launches}, not 12 scans, 6 on the wgmma body, 1 on the f32-mode "
-          f"wgmma body, 1 on the int8 wgmma body, 4 on the wide-list wgmma body")
+          and launches[WGMMA_WIDE] == 4 and launches[WGMMA_S8_WIDE] == 1
+          and wgmma_launches == 13,
+          f"the main path: {launches}, not 13 scans, 6 on the wgmma body, 1 on the f32-mode "
+          f"wgmma body, 1 on the int8 wgmma body, 4 on the wide-list wgmma body, 1 on the int8 "
+          f"wgmma body with wide lists")
     check(set(measured) == {"inference", "search", "search_within_buckets", "seq_search", "sort"},
           "measured keys")
     check(one[0].shape == (1, 10) and hundred[0].shape == (100, 10), "small requests' shapes")
@@ -1216,9 +1239,11 @@ def phase_main(dev, data: dict, smi: str):
         f"inference {measured['inference']:.4f} s, scan {measured['seq_search']:.4f} s; "
         f"peak device memory {peak / 1e9:.2f} GB (corpus resident); kernel launches "
         f"{launches}, of the scan's {wgmma_launches} on a wgmma body (one a default "
-        f"search, one the highest search, one a k=100 search, each with one merge)  [{smi}]")
-    check(d100.shape == (nq, 100) and bool(np.isfinite(d100).all()) and bool((i100 > 0).all()),
-          "k=100: finite, filled (nq, 100) results")
+        f"search, one the highest search, one the int8 search, one a k=100 search, one the "
+        f"int8 k=100 search, each with one merge)  [{smi}]")
+    for what, (dd, ii) in (("k=100", (d100, i100)), ("int8 k=100", int8_100)):
+        check(dd.shape == (nq, 100) and bool(np.isfinite(dd).all()) and bool((ii > 0).all()),
+              f"{what}: finite, filled (nq, 100) results")
     mean100 = float(np.mean(times100))
     log(f"[search k=100] precision=default, n_buckets=4, k=100 (k_scan 106, the wide-list wgmma "
         f"body): reps {[round(t, 4) for t in times100]} s; mean {mean100:.4f} s per {nq} queries "
@@ -1253,7 +1278,7 @@ def phase_main(dev, data: dict, smi: str):
         f"{n_tied} ids differ at ties); recall@10 {r_high:.4f}, the same search through the "
         f"scan's plain version {r_plain:.4f}")
     phase_int8_search(queries, res["int8"], plain["int8"], ref_i, search, smi)
-    phase_k100(queries, index, store, d100, i100, search, times100, smi)
+    phase_k100(queries, index, store, d100, i100, int8_100, search, times100, smi)
     full_order = torch.arange(nb, device=dev).repeat(nc, 1)
     fd, fi = restricted_knn(store, qc, full_order, 10)
     fd, fi = fd.cpu().numpy(), fi.cpu().numpy()
@@ -1274,6 +1299,11 @@ def phase_main(dev, data: dict, smi: str):
     for mode in ("bf16", "f32", "int8"):
         timing[f"k106 {mode}"] = flagship_scan(store, queries, order, 106, mode, smi,
                                                "[flagship k=100]")
+    # ... and the int8 scan at list width 64 (k_scan 64)
+    timing["k64 int8"] = flagship_scan(store, queries, order, 64, "int8", smi, "[flagship k=64]")
+    check(timing["k106 int8"]["body"] == 7 and timing["k64 int8"]["body"] == 7,
+          "the flagship's int8 scan at k_scan 106 and 64 did not take the int8 wgmma body with "
+          "wide lists")
     merge = merge_vs_plain(store, queries, order, 16, "bf16", timing["bf16"]["ms"], smi)
     scan_s = timing["bf16"]["ms"] / 1e3
     log(f"[split] search at default precision {mean_s:.4f} s per {nq}: navigation "
@@ -1289,44 +1319,50 @@ def phase_main(dev, data: dict, smi: str):
                               "store": store, "made": made, "merge": merge}
 
 
-def phase_int8_search(queries, main_int8, plain, ref_i, search, smi: str) -> None:
-    """The main path's ``precision="int8"`` search (``main_int8``: its
-    distances and ids over all the queries; the int8 wgmma body's scan)
-    against exact kNN over the visited buckets (``ref_i``, of the first
-    ``nc`` queries): its recall@10 equal to the same search's with the
-    scan's plain version in the kernel's place (``plain``, over those
-    ``nc``), and a kernel search of them bit-equal to that one (the int8
-    scan's lists are exact); then three more int8 searches of all the
-    queries timed (host clock; outside the main path's launch counts)."""
+def phase_int8_search(queries, main_int8, plain, ref_i, search, smi: str, k: int = 10) -> None:
+    """The main path's ``precision="int8"`` search at ``k`` (``main_int8``:
+    its distances and ids over all the queries; at k=10 the int8 wgmma
+    body's scan, at k=100 the int8 body's with wide lists) against exact
+    kNN over the visited buckets (``ref_i``, of the first ``nc`` queries):
+    its recall@k equal to the same search's with the scan's plain version
+    in the kernel's place (``plain``, over those ``nc``), and a kernel
+    search of them bit-equal to that one (the int8 scan's lists are
+    exact); then three more int8 searches of all the queries timed (host
+    clock; outside the main path's launch counts)."""
+    t_phase = time.perf_counter()
     nc, nq = ref_i.shape[0], queries.shape[0]
-    r_int8, r_plain = recall(main_int8[1][:nc], ref_i, 10), recall(plain[1], ref_i, 10)
-    check(r_int8 == r_plain, f"int8: recall {r_int8} vs visited-bucket exact, the same search "
-          f"through the plain version {r_plain}")
-    kd, ki, _ = search(queries[:nc], precision="int8")
+    r_int8, r_plain = recall(main_int8[1][:nc], ref_i, k), recall(plain[1], ref_i, k)
+    check(r_int8 == r_plain, f"int8 k={k}: recall {r_int8} vs visited-bucket exact, the same "
+          f"search through the plain version {r_plain}")
+    kd, ki, _ = search(queries[:nc], precision="int8", k=k)
     same = (np.array_equal(kd.view(np.uint32), plain[0].view(np.uint32))
             and np.array_equal(ki, plain[1]))
-    check(same, "int8: the search through the kernel differs from the one through the plain "
-          "version")
+    check(same, f"int8 k={k}: the search through the kernel differs from the one through the "
+          f"plain version")
     times = []
     for _ in range(3):
         t0 = time.perf_counter()
-        search(queries, precision="int8")
+        search(queries, precision="int8", k=k)
         times.append(time.perf_counter() - t0)
-    log(f"[check] precision=int8: recall@10 vs visited-bucket exact kNN {r_int8:.4f} ({nc} "
-        f"queries), the same search through the scan's plain version {r_plain:.4f}, its results "
-        f"bit-equal to the kernel's; search precision=int8, n_buckets=4, k=10: reps "
-        f"{[round(t, 4) for t in times]} s, mean {float(np.mean(times)):.4f} s per {nq} "
-        f"queries  [{smi}]")
+    log(f"[check{'' if k == 10 else f' k={k}'}] precision=int8: recall@{k} vs visited-bucket "
+        f"exact kNN {r_int8:.4f} ({nc} queries), the same search through the scan's plain "
+        f"version {r_plain:.4f}, its results bit-equal to the kernel's; search precision=int8, "
+        f"n_buckets=4, k={k}: reps {[round(t, 4) for t in times]} s, mean "
+        f"{float(np.mean(times)):.4f} s per {nq} queries; these checks took "
+        f"{time.perf_counter() - t_phase:.1f} s  [{smi}]")
 
 
-def phase_k100(queries, index, store, d100, i100, search, times100, smi: str,
+def phase_k100(queries, index, store, d100, i100, int8_100, search, times100, smi: str,
                nc: int = 1024) -> None:
     """The main path's ``search(k=100)`` (``d100``, ``i100``, host times
     ``times100``) held to exact kNN over each query's visited buckets:
     recall@100 of its first ``nc`` queries at least 0.999 and within 0.001
     of the same search's with the scan's plain version in the kernel's
     place, which is timed over all the queries beside it (host clock,
-    mean of 3)."""
+    mean of 3); then its ``precision="int8"`` search (``int8_100``: its
+    distances and ids) through ``phase_int8_search`` against the same
+    exact kNN and the int8 search of the first ``nc`` queries through the
+    scan's plain version."""
     t_phase = time.perf_counter()
     nq = queries.shape[0]
     qc = queries[:nc]
@@ -1341,6 +1377,7 @@ def phase_k100(queries, index, store, d100, i100, search, times100, smi: str,
             t0 = time.perf_counter()
             plain_d, plain_i, _ = search(queries, k=100)
             plain_times.append(time.perf_counter() - t0)
+        plain_int8 = search(qc, precision="int8", k=100)
     finally:
         bucket_store_module.scan_pairs = kernel
     r_kernel, r_plain = recall(i100[:nc], ref_i, 100), recall(plain_i[:nc], ref_i, 100)
@@ -1357,6 +1394,7 @@ def phase_k100(queries, index, store, d100, i100, search, times100, smi: str,
         f"{float(np.mean(plain_times)):.4f} s per {nq} (the kernel's search "
         f"{float(np.mean(times100)):.4f}); these checks took {time.perf_counter() - t_phase:.1f} "
         f"s  [{smi}]")
+    phase_int8_search(queries, int8_100, plain_int8, ref_i, search, smi, k=100)
 
 
 def flagship_scan(store, queries, order, k: int, mode: str, smi: str, tag: str) -> dict:
@@ -1550,7 +1588,7 @@ def f32_store_scan(store, queries, order, smi: str, index, data_prediction):
         body = WGMMA_F32X if precision == "highest" else WGMMA_F32
         check(ran["scan_pairs"] == 4 and ran[body] == 4
               and all(ran[b] == 0 for b in (WGMMA_INT8, WGMMA_F32, WGMMA_F32MODE, WGMMA_WIDE,
-                                            WGMMA_F32X, WGMMA_S8) if b != body),
+                                            WGMMA_F32X, WGMMA_S8, WGMMA_S8_WIDE) if b != body),
               f"f32-store {precision} search: {ran} launches, not 4 scans, each one launch of "
               f"the {body}")
         check(dd.shape == (nq, 10) and bool(np.isfinite(dd).all()) and bool((ii > 0).all()),
@@ -2224,12 +2262,13 @@ def phase_build_path(dev, data: dict, smi: str):
     n_search = 1 + MODE_ROUNDS
     check(per_mode["auto"] == {"scan_pairs": n_search, "scan_merge": n_search, "gather_pairs": 0,
                                "gather_rows": 0, WGMMA_INT8: n_search, WGMMA_F32: 0,
-                               WGMMA_F32MODE: 0, WGMMA_WIDE: 0, WGMMA_F32X: 0, WGMMA_S8: 0},
+                               WGMMA_F32MODE: 0, WGMMA_WIDE: 0, WGMMA_F32X: 0, WGMMA_S8: 0,
+                               WGMMA_S8_WIDE: 0},
           f"auto mode launches one scan and no gather a search: {per_mode['auto']}")
     check(per_mode["kernel"] == {"scan_pairs": n_search, "scan_merge": n_search,
                                  "gather_pairs": n_search, "gather_rows": 0, WGMMA_INT8: n_search,
                                  WGMMA_F32: 0, WGMMA_F32MODE: 0, WGMMA_WIDE: 0,
-                                 WGMMA_F32X: 0, WGMMA_S8: 0},
+                                 WGMMA_F32X: 0, WGMMA_S8: 0, WGMMA_S8_WIDE: 0},
           f"kernel mode launches one scan and one merge gather a search: {per_mode['kernel']}")
     for mode in ("auto", "kernel"):
         t = np.asarray(rounds[mode])
@@ -3442,17 +3481,21 @@ def main() -> None:
         if name == "scan_pairs":  # its launches a body
             rows[-1]["bodies"] = {
                 "mma.sync": total(name) - total(WGMMA_INT8) - total(WGMMA_F32)
-                - total(WGMMA_F32MODE) - total(WGMMA_WIDE) - total(WGMMA_F32X) - total(WGMMA_S8),
+                - total(WGMMA_F32MODE) - total(WGMMA_WIDE) - total(WGMMA_F32X) - total(WGMMA_S8)
+                - total(WGMMA_S8_WIDE),
                 "wgmma (bf16 over int8 rows)": total(WGMMA_INT8),
                 "wgmma (bf16 over f32 rows)": total(WGMMA_F32),
                 "wgmma (f32 over int8 rows)": total(WGMMA_F32MODE),
                 "wgmma (bf16 over int8 rows, lists of 64 and 128)": total(WGMMA_WIDE),
                 "wgmma (f32 over f32 rows, six products)": total(WGMMA_F32X),
-                "wgmma (int8 over int8 rows)": total(WGMMA_S8)}
+                "wgmma (int8 over int8 rows)": total(WGMMA_S8),
+                "wgmma (int8 over int8 rows, lists of 64 and 128)": total(WGMMA_S8_WIDE)}
             check(total(WGMMA_F32MODE) > 0, "no scan launch took the f32-mode wgmma body")
             check(total(WGMMA_WIDE) > 0, "no scan launch took the wide-list wgmma body")
             check(total(WGMMA_F32X) > 0, "no scan launch took the six-term wgmma body")
             check(total(WGMMA_S8) > 0, "no scan launch took the int8 wgmma body")
+            check(total(WGMMA_S8_WIDE) > 0,
+                  "no scan launch took the int8 wgmma body with wide lists")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -385,11 +385,41 @@
 //    integer sums are exact in any order and the epilogue is the mma.sync
 //    body's distance<true>(float(sum), row scale, query scale), so its lists
 //    are the mma.sync body's and the plain version's, bit for bit.
+//
+// The Hopper body in int8 mode with wide lists
+// (scan_wgmma_s8_wide_kernel<64 | 128>): int8 queries over an int8 packed
+// store at list widths 64 and 128 (k_scan 33 to 128: precision="int8" at
+// search(k=100) scans at 106), in place of MmaBody<MODE_INT8, int8_t, 64 |
+// 128>.  What bounds the work at the flagship (k_scan 106): the int8 body's
+// ~2.7e12 multiply-adds, 2.73 ms at the int8 tensor peak, and the rows
+// read once a pair.  What held the mma.sync body there (~45 ms on an H100,
+// 6% of that bound): the wide lists' merge of each tile's candidates in shared
+// memory while no mma runs, and the query tile reloaded from L2 every row
+// tile.  The design is the two bodies above it put together, each part
+// unchanged: the int8 body's block (its ring of WS8W_STAGES stages a
+// consumer, 64 query slots with the int8 queries resident K-major and their
+// scales in the head, s8 wgmma with A the rows from registers, the epilogue
+// distance<true>(float(sum), row scale, query scale)) with the wide-list
+// body's lists of width KMAX in the head, marks against each list's k-th
+// and wgmma_select_wide.  The head takes 102,400 B at width 128 (69,632 B
+// at 64), so four stages keep an int8 query tile of up to 896 (1408)
+// resident: S8WideList<KMAX>::MAX_QD.  The sums are exact integers, and
+// the epilogue and the tie rule (entries, the earlier rows, win ties) are
+// the mma.sync body's, so its lists are that body's and the plain
+// version's, bit for bit.
+// What it measured (tools/torch_scan_ab.py and tools/torch_scan_probe.py
+// --body wgmma-s8-wide on an NVIDIA H100 80GB HBM3 at 700.00 W, PERF.md):
+// 0.48 of the mma.sync body's time at k_scan 106 (21.6 against 44.8 ms)
+// and 0.44 at 64.  Selection bounds it: without it 0.47 of its time at 106
+// (the int8 wgmma of a tile is half the bf16 body's, so less of the merge
+// hides behind the other warpgroup's wgmma); rings of 2 and 3 stages 1.00
+// and 0.97 of four at 106, 1.07 and 1.02 at 64; 32 slots a block 1.18 and
+// 1.29.
 // The other bodies keep the mma.sync design.
 //
 // What is left for later work:
-//  * f32 over a bf16 store, f32 at list widths past 32, int8 at list
-//    widths past 32, and bf16 over a bf16 store on the Hopper bodies;
+//  * f32 over a bf16 store, f32 at list widths past 32, and bf16 over a
+//    bf16 store on the Hopper bodies;
 //  * the split's cost: one host read of the plan and one upload of the
 //    work list a launch, and a merge pass; a persistent grid that takes
 //    items from a device-side queue would need neither the read nor the
@@ -1506,6 +1536,35 @@ static_assert(W_MAX_QDS8 >= 1152, "an int8 query tile as wide as the bf16 body's
 // the tag of that body in the templates below (its rows are int8)
 struct S8Mode {};
 
+// int8 queries over an int8 packed store at list widths 64 and 128 (k_scan
+// 33 to 128: the int8 search(k=100) scans at 106): the int8 body's ring
+// (WS8W_STAGES stages a consumer), s8 wgmma and resident int8 queries with
+// their scales, and the wide-list body's W_WIDE_SLOTS query slots, lists of
+// width KMAX and selection; the tag of that body, its head (the wide lists,
+// then the query scales after the distance tiles), its ring and the widest
+// resident query tile beside them.  At d 768 and width 128 a block takes
+// 217,088 B (head 102,400, ring 65,536, queries 49,152)
+constexpr int WS8W_STAGES = 4;
+template <int KMAX_>
+struct S8WideList {
+  static constexpr int KMAX = KMAX_, SLOTS = W_WIDE_SLOTS;
+  static constexpr size_t HEAD = w_head_bytes(SLOTS, KMAX, WS8W_STAGES, size_t(SLOTS) * 4);
+  static constexpr size_t RING = size_t(W_CONSUMERS) * WS8W_STAGES * W_STAGE;
+  static constexpr int MAX_QD =
+      int((232448 - HEAD - RING) / (size_t(SLOTS) * W_QD_STEP)) * W_QD_STEP;
+};
+static_assert(S8WideList<64>::MAX_QD >= 1408 && S8WideList<128>::MAX_QD >= 896,
+              "an int8 query tile of 1408 is resident at width 64, of 896 at width 128");
+template <typename TS>
+struct IsS8Wide : std::false_type {};
+template <int KMAX>
+struct IsS8Wide<S8WideList<KMAX>> : std::true_type {};
+// the int8 bodies: int8 query rows, each with its f32 scale in the head
+template <typename TS>
+struct IsS8 : IsS8Wide<TS> {};
+template <>
+struct IsS8<S8Mode> : std::true_type {};
+
 // The ring of the store type TS: int8 rows (WK bytes a box row, 64 depths)
 // or f32 rows (WKF bytes, 32 depths), BOXES boxes a stage, STAGES stages a
 // consumer; and the block around it: its query slots, where its ring starts
@@ -1554,6 +1613,13 @@ struct WRing<S8Mode> : WRing<int8_t> {
                        K_DEPTHS = WS8_DEPTHS, Q_KSTEP = WS8_KSTEP;
   static constexpr size_t BYTES = kWS8RingBytes, HEAD = kWS8RingOffset;
 };
+template <int KMAX>
+struct WRing<S8WideList<KMAX>> : WRing<int8_t> {
+  static constexpr int STAGES = WS8W_STAGES, KSTEPS = WS8_KSTEPS, MAX_QD = S8WideList<KMAX>::MAX_QD,
+                       SLOTS = W_WIDE_SLOTS, K_DEPTHS = WS8_DEPTHS,
+                       Q_KSTEP = W_WIDE_SLOTS * WS8_DEPTHS, LIST = KMAX;
+  static constexpr size_t BYTES = S8WideList<KMAX>::RING, HEAD = S8WideList<KMAX>::HEAD;
+};
 
 // dynamic shared memory at query width qd
 template <typename TS>
@@ -1590,9 +1656,10 @@ struct WSmem {
   }
 };
 
-// the int8 body's query scales: [WQ] f32 in its head, after the distance tiles
-__device__ __forceinline__ float* s8_qscales(const WSmem<S8Mode>& s) {
-  return s.dist + W_CONSUMERS * WQ * WDQ;
+// an int8 body's query scales: [SLOTS] f32 in its head, after the distance tiles
+template <typename TS>
+__device__ __forceinline__ float* s8_qscales(const WSmem<TS>& s) {
+  return s.dist + W_CONSUMERS * WSmem<TS>::SLOTS * WDQ;
 }
 
 struct WItem {
@@ -1795,7 +1862,7 @@ __device__ WItem wgmma_begin(const Params& p, const WSmem<TS>& s) {
     const int qi = own ? p.qidx[e] : -1;
     live = qi >= 0;
     s.q_row[tid] = qi;
-    if constexpr (std::is_same<TS, S8Mode>::value) s8_qscales(s)[tid] = live ? p.qscales[qi] : 1.0f;
+    if constexpr (IsS8<TS>::value) s8_qscales(s)[tid] = live ? p.qscales[qi] : 1.0f;
   }
   if (tid < W_CONSUMERS * SLOTS) s.q_grp[tid] = 0;
   for (int e = tid; e < WSmem<TS>::LIST * SLOTS; e += W_THREADS) {
@@ -1817,7 +1884,7 @@ __device__ WItem wgmma_begin(const Params& p, const WSmem<TS>& s) {
   // the live m-tiles' query rows, 16 bytes a piece, into the canonical
   // layout (a padding query's rows zero); 8 neighbouring threads write
   // one core matrix
-  if constexpr (std::is_same<TS, S8Mode>::value) {
+  if constexpr (IsS8<TS>::value) {
     // int8 rows of qd bytes: two pieces a 32-deep k-step
     const int pieces = b.nl * 16 * (p.qd / 16);
     const unsigned char* qbytes = static_cast<const unsigned char*>(p.queries);
@@ -1825,7 +1892,8 @@ __device__ WItem wgmma_begin(const Params& p, const WSmem<TS>& s) {
       const int n = i % (b.nl * 16), piece = i / (b.nl * 16);
       const int qi = s.q_row[n];
       const size_t off = size_t(qi >= 0 ? qi : 0) * p.qd + piece * 16;
-      cp_async16(s.queries + query_at<WS8_KSTEP>(piece >> 1, piece & 1, n), qbytes + off, qi >= 0);
+      cp_async16(s.queries + query_at<WRing<TS>::Q_KSTEP>(piece >> 1, piece & 1, n), qbytes + off,
+                 qi >= 0);
     }
   } else if constexpr (WRing<TS>::TERMS == 1) {
     const int pieces = b.nl * 16 * (p.qd / 8);
@@ -2457,11 +2525,13 @@ __device__ void wgmma_consume_six(const Params& p, const WSmem<F32X>& s, const W
 // rank plus the entries at or below it, so the entries, which are earlier
 // rows, win ties; what lands past k - 1 drops out.  One pass of the
 // candidates, no buffer and no search of the list; its own code (another
-// tile and list layout), so that the mma.sync instances keep theirs.
-template <int KMAX>
-__device__ void wgmma_select_wide(const Params& p, const WSmem<WideList<KMAX>>& s, int wg, int nq,
-                                  int nrows, int slot0) {
-  constexpr int PER = KMAX / 32, SLOTS = W_WIDE_SLOTS;  // PER: list entries a lane holds
+// tile and list layout), so that the mma.sync instances keep theirs.  TS:
+// either wide body (bf16 or int8 queries), lists of width KMAX.
+template <typename TS>
+__device__ void wgmma_select_wide(const Params& p, const WSmem<TS>& s, int wg, int nq, int nrows,
+                                  int slot0) {
+  // PER: list entries a lane holds
+  constexpr int KMAX = WSmem<TS>::LIST, PER = KMAX / 32, SLOTS = WSmem<TS>::SLOTS;
   const int lane = threadIdx.x & 31, k = p.k;
   const float* dist = s.dist + wg * SLOTS * WDQ;
   unsigned* grp = s.q_grp + wg * SLOTS;
@@ -2823,6 +2893,132 @@ __device__ void wgmma_consume_s8(const Params& p, const WSmem<S8Mode>& s, const 
   }
 }
 
+// The int8 wide-list consumer warpgroup (S8WideList: int8 queries over an
+// int8 packed store at list widths 64 and 128): wgmma_consume_s8's walk over
+// its tiles, ring of WS8W_STAGES stages, A registers taken from the ring as
+// the rows are, s8 wgmma and epilogue, with wgmma_consume_wide's lists of
+// width KMAX (the marks against their k-th) and wgmma_select_wide, spelled
+// out so that the other bodies keep their code.  The integer sums are exact
+// and the epilogue and tie rule are the mma.sync body's, so its lists are
+// that body's bits.  N = 16·NL query slots.
+template <int KMAX, int NL>
+__device__ void wgmma_consume_s8_wide(const Params& p, const WSmem<S8WideList<KMAX>>& s,
+                                      const WItem& b, int wg) {
+  using R = WRing<S8WideList<KMAX>>;
+  constexpr int N = 16 * NL, KSTEPS = R::KSTEPS, SLOTS = R::SLOTS;
+  const int tid = threadIdx.x & 127, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int per_chunk = (p.chunk + WR - 1) / WR, nst = p.qd / W_QD_STEP;
+  const int ntiles = (b.c_hi - b.c_lo) * per_chunk;
+  const uint32_t q_base = smem_u32(s.queries);
+  TileWalk w{b.c_lo, 0};
+  w.advance(wg, per_chunk);
+  int phys = w.c < b.c_hi ? p.chunk_of[w.c] : 0;
+  float* dist = s.dist + wg * SLOTS * WDQ;
+  int cnt = 0;  // stages this warpgroup has taken from its ring
+  unsigned live = 0;  // bit 2n + e: the lane's query slot 8n + 2t + e holds a query
+  float q_scale[N / 4];  // [2n + e]: that slot's query scale
+#pragma unroll
+  for (int n = 0; n < N / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      live |= unsigned(s.q_row[8 * n + 2 * t + e] >= 0) << (2 * n + e);
+      q_scale[2 * n + e] = s8_qscales(s)[8 * n + 2 * t + e];
+    }
+
+  // a stage's A fragments as in wgmma_consume_s8: lane (g, t) reads bytes
+  // 16t .. 16t+15 of rows g and g+8 of its warp's 16 in each box
+  auto take_stage = [&](uint32_t(&a)[KSTEPS][4]) {
+    const int slot = cnt % R::STAGES;
+    mbar_wait(&s.full[wg * R::STAGES + slot], (cnt / R::STAGES) & 1);
+#pragma unroll
+    for (int box = 0; box < W_BOXES; ++box) {
+      const unsigned char* x = s.stage(wg, slot) + box * WR * WK + (warp * 16 + g) * WK + t * 16;
+      const uint4 lo = lds128u(x), hi = lds128u(x + 8 * WK);
+      a[2 * box][0] = lo.x;
+      a[2 * box][1] = hi.x;
+      a[2 * box][2] = lo.y;
+      a[2 * box][3] = hi.y;
+      a[2 * box + 1][0] = lo.z;
+      a[2 * box + 1][1] = hi.z;
+      a[2 * box + 1][2] = lo.w;
+      a[2 * box + 1][3] = hi.w;
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&s.empty[wg * R::STAGES + slot]);
+    ++cnt;
+  };
+
+  for (int i = wg; i < ntiles; i += W_CONSUMERS) {
+    const int r0 = w.t * WR;
+    const int slot0 = phys * p.chunk + r0, nrows = min(WR, p.chunk - r0);
+    w.advance(W_CONSUMERS, per_chunk);  // the next tile's chunk, read while this one runs
+    phys = w.c < b.c_hi ? p.chunk_of[w.c] : 0;
+    float r_scale[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = warp * 16 + g + 8 * h;
+      r_scale[h] = r < nrows ? p.scales[slot0 + r] : 0.0f;  // → +inf distance
+    }
+    int acc[N / 2];
+#pragma unroll
+    for (int e = 0; e < N / 2; ++e) acc[e] = 0;
+    // stage st's wgmma reads a[st % 2]; stage st + 1's is queued behind it
+    // before the warpgroup waits for stage st - 1 and loads stage st + 1
+    // into the registers stage st - 1 read
+    uint32_t a[2][KSTEPS][4];
+    auto issue = [&](auto buf, int st) {
+      constexpr int B = decltype(buf)::value;
+      wgmma_fence();
+#pragma unroll
+      for (int j = 0; j < KSTEPS; ++j)
+        wgmma_rs_s8<N>(acc, a[B][j], query_desc(q_base + (KSTEPS * st + j) * R::Q_KSTEP));
+      wgmma_commit();
+    };
+    auto step = [&](auto buf, int st) {  // st >= 1
+      constexpr int B = decltype(buf)::value;
+      issue(buf, st);
+      wgmma_wait<1>();  // stage st - 1 is done with a[B ^ 1]
+      hold(a[B ^ 1]);
+      if (st + 1 < nst) take_stage(a[B ^ 1]);
+    };
+    take_stage(a[0]);
+    issue(std::integral_constant<int, 0>{}, 0);
+    if (nst > 1) take_stage(a[1]);
+    for (int st = 1; st < nst; st += 2) {
+      step(std::integral_constant<int, 1>{}, st);
+      if (st + 1 < nst) step(std::integral_constant<int, 0>{}, st + 1);
+    }
+    wgmma_wait<0>();
+    hold(a[0]);
+    hold(a[1]);
+    hold(acc);
+
+    // the int8 body's epilogue, the marks against the wide list's k-th
+#pragma unroll
+    for (int n = 0; n < N / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int q = 8 * n + 2 * t + e;
+        float v[2];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          v[h] = distance<true>(static_cast<float>(acc[4 * n + 2 * h + e]), r_scale[h],
+                                q_scale[2 * n + e]);
+          dist[q * WDQ + warp * 16 + g + 8 * h] = v[h];
+        }
+        if (((live >> (2 * n + e)) & 1u) &&
+            fminf(v[0], v[1]) < *static_cast<volatile const float*>(&s.top_d[q * KMAX + p.k - 1]))
+          reinterpret_cast<unsigned char*>(s.q_grp + wg * SLOTS)[q * 4 + (warp >> 1)] = 1;
+      }
+    bar_sync(BAR_WG + wg, 128);
+    if (i > 0) bar_sync(BAR_HANDOVER + wg, 256);  // the tile before is selected (by the warpgroup before)
+    wgmma_select_wide(p, s, wg, N, nrows, slot0);
+    bar_sync(BAR_WG + wg, 128);  // the distance tile is free again
+    if (i + 1 < ntiles) bar_arrive(BAR_HANDOVER + (wg + 1) % W_CONSUMERS, 256);
+  }
+}
+
 template <typename TS>
 __device__ void wgmma_write(const Params& p, const WSmem<TS>& s, const WItem& b, bool fill) {
   const int n_own = min(WSmem<TS>::SLOTS, p.qtile - b.q0);
@@ -3001,6 +3197,34 @@ __global__ void __launch_bounds__(W_THREADS, 1)
   }
 }
 
+// int8 queries over an int8 packed store at list widths 64 and 128: the
+// int8 kernel's ring, s8 wgmma and resident queries with the wide-list
+// kernel's slots, lists and selection (spelled out beside the kernels above)
+template <int KMAX>
+__global__ void __launch_bounds__(W_THREADS, 1)
+    scan_wgmma_s8_wide_kernel(const __grid_constant__ CUtensorMap rows, Params p) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const WSmem<S8WideList<KMAX>> s(smem);
+  const WItem b = wgmma_begin(p, s);
+  if (b.nl == 0) return wgmma_write(p, s, b, true);
+  const int wg = threadIdx.x / 128;
+  if (wg == W_CONSUMERS) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(W_PRODUCER_REGS) : "memory");
+    if (threadIdx.x % 128 < 32 * W_CONSUMERS && threadIdx.x % 32 == 0)
+      wgmma_produce(&rows, p, s, b, threadIdx.x % 128 / 32);
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(W_CONSUMER_REGS) : "memory");
+    switch (b.nl) {  // up to W_WIDE_SLOTS / 16
+      case 1: wgmma_consume_s8_wide<KMAX, 1>(p, s, b, wg); break;
+      case 2: wgmma_consume_s8_wide<KMAX, 2>(p, s, b, wg); break;
+      case 3: wgmma_consume_s8_wide<KMAX, 3>(p, s, b, wg); break;
+      default: wgmma_consume_s8_wide<KMAX, 4>(p, s, b, wg); break;
+    }
+    bar_sync(BAR_CONSUMERS, W_CONSUMERS * 128);
+    wgmma_write(p, s, b, false);
+  }
+}
+
 // The store as a 2-D tensor of n_rows × d values for TMA (boxes of WR rows
 // × WK int8 depths, or × 32 f32 depths under the 128-byte swizzle; zeros
 // past its edges), by cuTensorMapEncodeTiled looked up at run time, so the
@@ -3037,7 +3261,7 @@ cudaError_t row_tensor_map(CUtensorMap* map, const void* store, int n_rows, int 
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-// The bodies: the mma.sync body, or one of the six wgmma bodies
+// The bodies: the mma.sync body, or one of the seven wgmma bodies
 enum Body {
   BODY_MMA = 0,
   BODY_WGMMA_INT8 = 1,
@@ -3045,7 +3269,8 @@ enum Body {
   BODY_WGMMA_F32MODE = 3,
   BODY_WGMMA_WIDE = 4,
   BODY_WGMMA_F32X = 5,
-  BODY_WGMMA_S8 = 6
+  BODY_WGMMA_S8 = 6,
+  BODY_WGMMA_S8_WIDE = 7
 };
 
 // The wgmma bodies' scope: bf16 or f32 queries over an int8 or f32 packed
@@ -3053,9 +3278,10 @@ enum Body {
 // width 32 and no floor, rows of whole 16 bytes at a 16-byte aligned store,
 // and a resident query tile that fits (d rounded up to W_QD_STEP over an
 // int8 store or W_QD_STEP_F over an f32 store, within W_MAX_QD, W_MAX_QD3,
-// W_MAX_QDS8, W_MAX_QD_F or W_MAX_QDX); and bf16 queries over an int8
-// packed store at list widths 64 and 128 (k 33 to 128) on the same terms,
-// the tile within WideList<64 or 128>::MAX_QD.  A round under a floor (k
+// W_MAX_QDS8, W_MAX_QD_F or W_MAX_QDX); and bf16 or int8 queries over an
+// int8 packed store at list widths 64 and 128 (k 33 to 128) on the same
+// terms, the tile within WideList<64 or 128>::MAX_QD or S8WideList<64 or
+// 128>::MAX_QD.  A round under a floor (k
 // past 1024) keeps the mma.sync body of the rounds before it: every round
 // sums a row the same way, or a row at the boundary could be listed twice
 // or not at all.
@@ -3065,10 +3291,12 @@ int wgmma_scope(int mode, int store_type, int k, int d, const void* store, const
       reinterpret_cast<uintptr_t>(store) % 16 != 0)
     return BODY_MMA;
   const int qd = (d + W_QD_STEP - 1) / W_QD_STEP * W_QD_STEP;
-  if (mode == MODE_INT8)
-    return store_type == STORE_INT8 && k <= W_LIST && d % 16 == 0 && qd <= W_MAX_QDS8
-               ? BODY_WGMMA_S8
-               : BODY_MMA;
+  if (mode == MODE_INT8) {
+    if (store_type != STORE_INT8 || d % 16 != 0) return BODY_MMA;
+    if (k <= W_LIST) return qd <= W_MAX_QDS8 ? BODY_WGMMA_S8 : BODY_MMA;
+    return qd <= (k <= 64 ? S8WideList<64>::MAX_QD : S8WideList<128>::MAX_QD) ? BODY_WGMMA_S8_WIDE
+                                                                              : BODY_MMA;
+  }
   if (k > W_LIST)
     return mode == MODE_BF16 && store_type == STORE_INT8 && d % 16 == 0 &&
                    qd <= (k <= 64 ? WideList<64>::MAX_QD : WideList<128>::MAX_QD)
@@ -3094,6 +3322,8 @@ cudaError_t launch_wgmma(const Params& p, int n_pairs, int n_rows, cudaStream_t 
   void (*kernel)(const CUtensorMap, Params) = nullptr;
   if constexpr (IsWide<TS>::value) {
     kernel = scan_wgmma_wide_kernel<TS::KMAX>;
+  } else if constexpr (IsS8Wide<TS>::value) {
+    kernel = scan_wgmma_s8_wide_kernel<TS::KMAX>;
   } else {
     kernel = std::is_same<TS, float>::value     ? scan_wgmma_f32_kernel
              : std::is_same<TS, F32Mode>::value ? scan_wgmma_f32mode_kernel
@@ -3159,6 +3389,9 @@ cudaError_t dispatch(const Params& p, int mode, int store_type, int body, int n_
   if (body == BODY_WGMMA_WIDE)
     return p.k <= 64 ? launch_wgmma<WideList<64>>(p, n_pairs, n_rows, s, blocks_per_sm)
                      : launch_wgmma<WideList<128>>(p, n_pairs, n_rows, s, blocks_per_sm);
+  if (body == BODY_WGMMA_S8_WIDE)
+    return p.k <= 64 ? launch_wgmma<S8WideList<64>>(p, n_pairs, n_rows, s, blocks_per_sm)
+                     : launch_wgmma<S8WideList<128>>(p, n_pairs, n_rows, s, blocks_per_sm);
   if (mode == MODE_INT8 && store_type == STORE_INT8)
     return launch<MODE_INT8, int8_t>(p, n_pairs, s, blocks_per_sm);
   if (mode == MODE_F32) {
@@ -3194,7 +3427,7 @@ extern "C" {
 //  * bf16 mode: bf16, int8 mode: int8, nt 1, qd a multiple of 16 >= d;
 //    where the call takes a wgmma body (wgmma_scope: bf16 over an int8
 //    packed store, k <= 128, or over an f32 packed store, k <= 32, int8
-//    over an int8 packed store, k <= 32, ...), qd is d rounded up to
+//    over an int8 packed store, k <= 128, ...), qd is d rounded up to
 //    W_QD_STEP (128) over an int8 store, each group of 64 values in
 //    WGMMA_ORDER (bf16) or WGMMA_S8_ORDER (int8), or
 //    to W_QD_STEP_F (64) over an f32 store, each group of 32 values in
@@ -3203,7 +3436,8 @@ extern "C" {
 // the body the queries are laid out for (enum Body: 0 the mma.sync body,
 // 1 the wgmma body over an int8 store, 2 over an f32 store, 3 in f32 mode
 // over an int8 store, 4 over an int8 store at list widths 64 and 128, 5 in
-// f32 mode over an f32 store, 6 in int8 mode, as lmi_scan_body named it);
+// f32 mode over an f32 store, 6 in int8 mode, 7 in int8 mode at list
+// widths 64 and 128, as lmi_scan_body named it);
 // out, the body the call's scope picks.
 // Where the two differ nothing launches and the call returns
 // cudaErrorInvalidValue.  All other pointers are device pointers; nothing
@@ -3283,9 +3517,10 @@ int lmi_scan_body(int k, int mode, int store_type, int d, const void* store, con
   *qd = (d + q_group - 1) / q_group * q_group;
   int width = 32;
   while (width < k) width *= 2;
+  const bool wide = *body == BODY_WGMMA_WIDE || *body == BODY_WGMMA_S8_WIDE;
   *block_queries = *body == BODY_WGMMA_F32MODE ? WQ3
                    : *body == BODY_WGMMA_F32X  ? WQX
-                   : *body == BODY_WGMMA_WIDE  ? W_WIDE_SLOTS
+                   : wide                      ? W_WIDE_SLOTS
                    : wgmma                     ? WQ
                                                : queries_per_block(width);
   Params p{};

@@ -63,10 +63,17 @@ class ShardedDynamicIndex:
     ids, so the default (the largest live id + 1) could issue a deleted
     id again.
 
+    ``donate`` is accepted for signature parity with the JAX package and
+    kept as ``self.donate``; it changes nothing here, because every
+    mutation already writes the shards' tensors in place (the JAX package
+    donates to let XLA alias the old buffers).
+
     A store sharded over the ranks of a multi-process world is refused,
     as the JAX package refuses a multi-process mesh."""
 
-    def __init__(self, index, sharded: ShardedStore, next_id: Optional[int] = None):
+    def __init__(self, index, sharded: ShardedStore, next_id: Optional[int] = None,
+                 donate: bool = False):
+        self.donate = bool(donate)
         if mp.is_multiprocess(sharded.world):
             raise ValueError(
                 "ShardedDynamicIndex is single-controller: a multi-process world would need "

@@ -821,13 +821,15 @@ def test_wgmma_s8_body_widths(cuda, d, qtile, body):
     assert scan_kernel.WGMMA_S8_LAUNCHES - before == (body == 6)
 
 
-@pytest.mark.parametrize("case", ["k33", "k106", "virtual", "k1040"])
+@pytest.mark.parametrize("case", ["d100 k64", "d912 k106", "virtual", "k1040"])
 def test_wgmma_s8_scope_keeps_the_mma_body(cuda, case):
-    """int8 launches outside the int8 body's scope keep the mma.sync body:
-    list widths 64 and 128, a virtual store over an int8 corpus, and k 1040
-    (a 1024-wide round, then one under floors, which keeps the body of the
+    """int8 launches outside the int8 bodies' scope keep the mma.sync body:
+    int8 rows of 100 bytes at list width 64, d 912 at width 128 (rounded up
+    to 1024, past the widest resident tile of the int8 body with wide
+    lists, 896), a virtual store over an int8 corpus, and k 1040 (a
+    1024-wide round, then one under floors, which keeps the body of the
     round before it): bit-equal to the plain version, no launch on a wgmma
-    body.  (The int8 body's split is in
+    body.  (The int8 bodies' split is in
     ``test_split_kernel_equals_unsplit_kernel``.)"""
     if case == "virtual":
         store, queries, order = _virtual_case(cuda, 768, "int8", seed=9, shuffle=False)
@@ -836,8 +838,9 @@ def test_wgmma_s8_scope_keeps_the_mma_body(cuda, case):
         store, queries, order = _wide_case(cuda, "int8", seed=1043)
         k, qtile, launches = 1040, 8, 2
     else:
-        store, queries, order = _body_case(cuda, 96, seed=37)
-        k, qtile, launches = int(case[1:]), 128, 1
+        d, k = (int(w[1:]) for w in case.split())
+        store, queries, order = _body_case(cuda, 96, seed=37, d=d)
+        qtile, launches = 128, 1
     _, args = scan_inputs(store, queries, order, qtile, "int8")
     before = scan_kernel.WGMMA_LAUNCHES
     _kernel_vs_plain(args, k, qtile, store.chunk, "int8", launches)
@@ -847,6 +850,8 @@ def test_wgmma_s8_scope_keeps_the_mma_body(cuda, case):
 #: the widest resident query tile of the wgmma body at list widths 64 and
 #: 128 (WideList<64>::MAX_QD, WideList<128>::MAX_QD in csrc/scan_pairs.cu)
 WIDE_MAX_QD = {64: 1024, 128: 768}
+#: ... and of the int8 wgmma body at those widths (S8WideList<64 | 128>::MAX_QD)
+S8_WIDE_MAX_QD = {64: 1408, 128: 896}
 
 
 def _earlier_copy_first(store, ks, k):
@@ -925,6 +930,70 @@ def test_wgmma_wide_body_split_through_the_merge(cuda, k, qtile):
     np.testing.assert_array_equal(np.isinf(kd), np.isinf(rd))
     np.testing.assert_allclose(kd, rd, rtol=1e-4, atol=1e-5)
     _earlier_copy_first(store, ks, k)
+
+
+@pytest.mark.parametrize("k", [33, 64, 65, 106, 128])
+@pytest.mark.parametrize("qtile", [1, 37, 64, 128])
+@pytest.mark.parametrize("d", [16, 768, "widest"])
+def test_wgmma_s8_wide_body_matches_plain_version(cuda, k, qtile, d):
+    """int8 queries over the int8 packed store at list widths 64 and 128
+    (``precision="int8"`` at k_scan 33 to 128: its ``search(k=100)``), the
+    launches the int8 wgmma body with wide lists takes: k at both edges of
+    both widths, query tiles of one and of two 64-slot blocks, d from one
+    k-step to the widest resident int8 query tile of the width (1408, 896);
+    chunks of 96 rows (1.5 of its 64-row tiles), an empty bucket, padding
+    rows.  The kernel bit-equal to the plain version (distances and slots:
+    the integer sums are exact and the epilogue and tie rule are the
+    mma.sync body's), no slot twice, exact ties to the earlier row, one
+    launch, and that launch the int8 body with wide lists."""
+    d = S8_WIDE_MAX_QD[scan_kernel.list_width(k)] if d == "widest" else d
+    store, queries, order = _body_case(cuda, 96, seed=k + qtile + d, d=d)
+    _, args = scan_inputs(store, queries, order, qtile, "int8")
+    before = (scan_kernel.WGMMA_LAUNCHES, scan_kernel.WGMMA_S8_WIDE_LAUNCHES)
+    ks = _kernel_vs_plain(args, k, qtile, store.chunk, "int8", 1)
+    assert (scan_kernel.WGMMA_LAUNCHES, scan_kernel.WGMMA_S8_WIDE_LAUNCHES) == (before[0] + 1,
+                                                                              before[1] + 1)
+    _earlier_copy_first(store, ks, k)
+
+
+@pytest.mark.parametrize("store_kind", ["chunk320", "chunk130", "mutated"])
+@pytest.mark.parametrize("k,qtile", [(36, 100), (106, 128), (128, 8)])
+def test_wgmma_s8_wide_body_on_other_stores(cuda, store_kind, k, qtile):
+    """The int8 wgmma body with wide lists over chunks that are not whole
+    64-row tiles (320, 130) and over a mutated store with its chunk lists
+    out of physical order: bit-equal to the plain version, one launch on
+    that body."""
+    if store_kind == "mutated":
+        store, queries, order, _, _ = _mutated_store(cuda, 768, "int8", seed=k + qtile)
+    else:
+        store, queries, order = _body_case(cuda, int(store_kind[5:]), seed=k + qtile)
+    _, args = scan_inputs(store, queries, order, qtile, "int8")
+    before = scan_kernel.WGMMA_S8_WIDE_LAUNCHES
+    ks = _kernel_vs_plain(args, k, qtile, store.chunk, "int8", 1)
+    assert scan_kernel.WGMMA_S8_WIDE_LAUNCHES == before + 1
+    if store_kind != "mutated":
+        _earlier_copy_first(store, ks, k)
+
+
+@pytest.mark.parametrize("k,qtile", [(106, 128), (128, 37), (64, 100)])
+def test_wgmma_s8_wide_body_split_through_the_merge(cuda, k, qtile):
+    """Segments of one chunk (buckets of up to 7 chunks of 96 rows cut into
+    one item a chunk, merged by ``csrc/scan_merge.cu``) give the bits of
+    the int8 body with wide lists over whole buckets, and those are the
+    plain version's; each run one scan launch on that body and one
+    merge."""
+    store, queries, order = _body_case(cuda, 96, seed=k + 2)
+    plan, args = scan_inputs(store, queries, order, qtile, "int8")
+    before = scan_kernel.WGMMA_S8_WIDE_LAUNCHES
+    whole = _split_kernel(args, plan, store, k, qtile, "int8", 10**6)
+    split = _split_kernel(args, plan, store, k, qtile, "int8", 1)
+    assert scan_kernel.WGMMA_S8_WIDE_LAUNCHES == before + 2
+    assert torch.equal(split[0].view(torch.int32), whole[0].view(torch.int32))
+    assert torch.equal(split[1], whole[1])
+    rd, rs = scan_kernel.scan_pairs_reference(*args, k=k, qtile=qtile, chunk=96, mode="int8")
+    assert torch.equal(split[0].view(torch.int32), rd.view(torch.int32))
+    assert torch.equal(split[1], rs)
+    _earlier_copy_first(store, split[1].cpu().numpy(), k)
 
 
 @pytest.mark.parametrize("k", [16, 32])
@@ -1007,8 +1076,8 @@ def test_wgmma_f32_scope_keeps_the_mma_body(cuda, case):
         ("bf16", torch.int8, 106, 768, False, False, 0),  # an unaligned store
         ("bf16", torch.bfloat16, 106, 768, False, True, 0),
         ("bf16", torch.float32, 106, 768, False, True, 0),
-        ("int8", torch.int8, 106, 768, False, True, 0),
-        ("int8", torch.int8, 33, 768, False, True, 0),  # list width 64
+        ("int8", torch.int8, 106, 768, False, True, 7),  # the int8 search(k=100)
+        ("int8", torch.int8, 33, 768, False, True, 7),  # list width 64: the int8 wide body
         ("bf16", torch.int8, 16, 768, True, True, 0),  # a virtual store
         ("bf16", torch.int8, 16, 100, False, True, 0),  # rows not of whole 16 bytes
         ("bf16", torch.int8, 16, 30, False, True, 0),
@@ -1035,6 +1104,19 @@ def test_wgmma_f32_scope_keeps_the_mma_body(cuda, case):
         ("int8", torch.int8, 16, 100, False, True, 0),  # rows not of whole 16 bytes
         ("int8", torch.int8, 16, 768, True, True, 0),  # a virtual store
         ("int8", torch.int8, 16, 768, False, False, 0),  # an unaligned store
+        ("int8", torch.int8, 64, 768, False, True, 7),
+        ("int8", torch.int8, 65, 768, False, True, 7),  # list width 128
+        ("int8", torch.int8, 128, 768, False, True, 7),
+        ("int8", torch.int8, 129, 768, False, True, 0),  # list width 256
+        ("int8", torch.int8, 106, 16, False, True, 7),
+        ("int8", torch.int8, 64, 1408, False, True, 7),  # the widest int8 tile at width 64
+        ("int8", torch.int8, 64, 1424, False, True, 0),  # rounded up to 1536: too wide
+        ("int8", torch.int8, 106, 880, False, True, 7),  # rounded up to 896 ...
+        ("int8", torch.int8, 106, 896, False, True, 7),  # ... the widest at width 128
+        ("int8", torch.int8, 106, 912, False, True, 0),
+        ("int8", torch.int8, 106, 100, False, True, 0),  # rows not of whole 16 bytes
+        ("int8", torch.int8, 106, 768, True, True, 0),  # a virtual store
+        ("int8", torch.int8, 106, 768, False, False, 0),  # an unaligned store
         ("f32", torch.int8, 16, 768, False, True, 3),  # precision="highest"
         ("f32", torch.int8, 32, 768, False, True, 3),
         ("f32", torch.int8, 1, 96, False, True, 3),
@@ -1073,8 +1155,9 @@ def test_library_picks_the_body(cuda, mode, store_dtype, k, d, virtual, aligned,
     up to 128 (int8) or 64 (f32) within the resident tile (896 for the three
     terms over either store, 1664 for int8 queries), and bf16 over an int8
     packed store at k 33 to 128 on the same terms (body 4, the tile within
-    1024 at list width 64 and 768 at 128); everything else keeps the
-    mma.sync body (0), and so does every round under a floor.
+    1024 at list width 64 and 768 at 128), and so int8 queries (body 7, the
+    tile within 1408 at list width 64 and 896 at 128); everything else
+    keeps the mma.sync body (0), and so does every round under a floor.
     With the body come the width of the query rows it reads and its
     blocks' query slots (32 for the three terms)."""
     lib = cuda_build.load(scan_kernel.SOURCE, scan_kernel._bind)
@@ -1153,7 +1236,8 @@ def test_wgmma_scope_picks_the_body(cuda, case):
     (768, 5, "float32", "f32", 33), (102, 5, "float32", "f32", 16), (768, 5, "float32", "bf16", 16),
     (768, 5, "int8", "f32", 16), (768, 0, "int8", "int8", 16), (768, 6, "int8", "int8", 33),
     (100, 6, "int8", "int8", 16), (768, 1, "int8", "int8", 16), (768, 6, "int8", "bf16", 16),
-    (768, 6, "int8", "f32", 16)])
+    (768, 6, "int8", "f32", 16), (768, 7, "int8", "int8", 16), (768, 0, "int8", "int8", 106),
+    (768, 4, "int8", "int8", 106), (912, 7, "int8", "int8", 106), (768, 7, "int8", "bf16", 106)])
 def test_launch_rejects_queries_laid_out_for_the_other_body(cuda, d, laid_out, store_dtype, mode,
                                                             k):
     """Every launch is held to the body the library picks: queries laid
@@ -1161,9 +1245,10 @@ def test_launch_rejects_queries_laid_out_for_the_other_body(cuda, d, laid_out, s
     wgmma layout where the mma.sync body or another wgmma body runs, in
     bf16 and in f32 mode, over int8 and f32 rows, at list width 32 and 128:
     the width-32 and the wide-list bodies over int8 rows read one layout,
-    and are still held apart; int8 queries laid out for the int8 body where
-    the mma.sync body or a bf16 or f32 body runs, and the other way round)
-    launch nothing, raise, and count no launch."""
+    and are still held apart, as are the two int8 bodies; int8 queries laid
+    out for an int8 body where the mma.sync body or a bf16 or f32 body
+    runs, and the other way round) launch nothing, raise, and count no
+    launch."""
     data, rng = _corpus(2000, d, seed=6)
     if store_dtype == "int8":
         store = BucketStore.build_packed_int8(data, rng.integers(0, 5, 2000), 5, chunk=96,
@@ -1178,15 +1263,16 @@ def test_launch_rejects_queries_laid_out_for_the_other_body(cuda, d, laid_out, s
                                                                        mode)
     lib = cuda_build.load(scan_kernel.SOURCE, scan_kernel._bind)
     assert scan_kernel.scan_body(lib, st, mode, k).kind != laid_out
-    # the layout of the body laid_out names (bodies 1, 3, 4 and 6: over an
+    # the layout of the body laid_out names (bodies 1, 3, 4, 6 and 7: over an
     # int8 store's order, d rounded up to 128; 2 and 5: over an f32 store's,
     # to 64)
-    layout_dtype = (torch.int8 if laid_out in (1, 3, 4, 6) else torch.float32 if laid_out in (2, 5)
-                    else st.dtype)
+    layout_dtype = (torch.int8 if laid_out in (1, 3, 4, 6, 7) else torch.float32
+                    if laid_out in (2, 5) else st.dtype)
     step = 64 if laid_out in (2, 5) else 128
     op = scan_kernel.operand_queries(q, mode, layout_dtype, -(-d // step) * step if laid_out else 0)
     counts = ("LAUNCHES", "WGMMA_LAUNCHES", "WGMMA_F32_LAUNCHES", "WGMMA_F32MODE_LAUNCHES",
-              "WGMMA_WIDE_LAUNCHES", "WGMMA_F32X_LAUNCHES", "WGMMA_S8_LAUNCHES")
+              "WGMMA_WIDE_LAUNCHES", "WGMMA_F32X_LAUNCHES", "WGMMA_S8_LAUNCHES",
+              "WGMMA_S8_WIDE_LAUNCHES")
     before = [getattr(scan_kernel, c) for c in counts]
     other = scan_kernel.BODY_NAMES[laid_out]
     with pytest.raises(RuntimeError, match=f"laid out for the {other} body"):
@@ -1590,10 +1676,14 @@ def test_wide_lists_keep_the_tie_rule(cuda, mode, store_dtype, width, qtile):
     block holds the pair), and a pair with no live slot at all, equal the
     plain version; (4) bf16 over the int8 store at widths 64 and 128 (the
     wide-list wgmma body) with integer queries, bit-equal to the plain
-    version."""
+    version.  int8 at widths 64 and 128 runs (1) and (3) on the int8 wgmma
+    body with wide lists."""
     store, queries, order, in_order = _tied_case(cuda, store_dtype, seed=width)
     plan, args = scan_inputs(store, queries, order, qtile, mode)
+    s8_wide = mode == "int8" and width <= 128
+    before = scan_kernel.WGMMA_S8_WIDE_LAUNCHES
     ks = _kernel_vs_plain(args, width - 5, qtile, 96, mode, 1)
+    assert scan_kernel.WGMMA_S8_WIDE_LAUNCHES - before == s8_wide
     _in_scan_order(plan.qidx, plan.pair_bucket, ks, in_order)
 
     k = 2 * width + 5
@@ -1629,7 +1719,9 @@ def test_wide_lists_keep_the_tie_rule(cuda, mode, store_dtype, width, qtile):
     qidx[0, at:at + 3] = rows
     qidx[1] = -1
     args = (args[0], qidx.reshape(-1), *args[2:])
+    before = scan_kernel.WGMMA_S8_WIDE_LAUNCHES
     ks = _kernel_vs_plain(args, width - 5, 128, 96, mode, 1)
+    assert scan_kernel.WGMMA_S8_WIDE_LAUNCHES - before == s8_wide
     _in_scan_order(qidx, plan.pair_bucket, ks, in_order)
     assert (ks[1] == -1).all() and (ks[0, :at] == -1).all() and (ks[0, at + 3:] == -1).all()
 

@@ -292,6 +292,37 @@ def test_shard_packed_store_promotion(built):
     _same(jdyn2, dyn2, queries[:20], 4)
 
 
+def test_donate_is_kept_and_changes_no_result(built):
+    """``ShardedDynamicIndex(index, sharded, donate=...)`` takes the JAX
+    package's keyword and keeps it as ``self.donate``, as the JAX
+    package's does; the port's mutations write in place either way, so
+    the same inserts, deletes, compaction and searches give identical
+    results (ids, distance bits, store contents) under both values."""
+    data, queries, extra, jidx, pidx, pred, _ = built
+    dyns = {}
+    for donate in (False, True):
+        sharded = lmi.shard_store(data, pidx.bucket_ids_from_prediction(pred), pidx.n_buckets,
+                                  CPUS[:4], chunk=64)
+        dyns[donate] = ShardedDynamicIndex(pidx, sharded, donate=donate)
+        assert dyns[donate].donate is donate
+    jsharded = JaxShardedDynamicIndex.from_built(jidx, data, pred, mesh=jax_create_mesh(8),
+                                                 chunk=64).sharded
+    assert JaxShardedDynamicIndex(jidx, jsharded, donate=True).donate is True
+    outs = {}
+    for donate, dyn in dyns.items():
+        ids = dyn.insert(extra)
+        assert dyn.delete(np.concatenate([ids[::4], np.arange(1, 151)])) == len(ids[::4]) + 150
+        before = dyn.search(queries, n_buckets=4, k=10)[:2]
+        stats = dyn.compact()
+        after = dyn.search(queries, n_buckets=pidx.n_buckets, k=10, precision="highest")[:2]
+        outs[donate] = [ids, *before, np.array([stats["chunks_before"], stats["chunks_after"]]),
+                        *after, *(st.chunk_ids.numpy() for st in dyn.sharded.shards)]
+    assert len(outs[False]) == len(outs[True])
+    for a, b in zip(outs[False], outs[True]):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        assert np.array_equal(a.view(np.uint8), b.view(np.uint8))
+
+
 def test_search_server_over_a_sharded_dynamic_index(built):
     """``SearchServer(ShardedDynamicIndex)``: searches, inserts seen by
     the next search, deletes, compaction, the stats."""

@@ -1074,6 +1074,24 @@ def test_wgmma_s8_model_contracts_to_the_dot_product(d, n):
     assert np.abs(sums).max() < 2**31  # an s32 sum holds it
 
 
+def _s8_dists(rows: np.ndarray, q_int: np.ndarray, q_sc: np.ndarray,
+                   sc: np.ndarray) -> np.ndarray:
+    """The int8 body's distances as its epilogue computes them: the s8
+    wgmma's exact sums of each 64-slot block (``_s8_sums``), each rounded to
+    f32, then ``distance<true>``: ·(−row scale), ·query scale, + 1 (+inf on
+    a padding slot), each a rounded f32 operation.  ``(queries, slots)``."""
+    d = rows.shape[1]
+    qd = -(-d // QD_STEP) * QD_STEP
+    op = scan_kernel.operand_queries(torch.as_tensor(q_int), "int8", torch.int8, qd)
+    nq = op.shape[0]
+    raw = np.concatenate([_s8_sums(rows, op[c0 : c0 + 64], 64, qd)[:, : min(64, nq - c0)]
+                          for c0 in range(0, nq, 64)], axis=1).astype(np.float32)
+    dist = (raw * -sc[:, None].astype(np.float32)).astype(np.float32)
+    dist = (dist * q_sc[None, :].astype(np.float32)).astype(np.float32)
+    dist = dist + np.where(sc == 0.0, np.float32(np.inf), np.float32(1.0))[:, None]
+    return np.ascontiguousarray(dist.astype(np.float32).T)
+
+
 @pytest.mark.parametrize("d,k,qtile", [(96, 16, 16), (768, 32, 8), (256, 5, 32)])
 def test_wgmma_s8_model_matches_pallas_int8_scan(d, k, qtile):
     """The int8 body's sums (``_s8_sums``: exact integers, rounded to f32)
@@ -1117,13 +1135,7 @@ def test_wgmma_s8_model_matches_pallas_int8_scan(d, k, qtile):
     jd, js = np.asarray(jd)[:n_pairs], np.asarray(js)[:n_pairs]
     sf = np.array(sf)
     rows = np.array(store.chunk_data)
-    qd = -(-d // QD_STEP) * QD_STEP
-    op = scan_kernel.operand_queries(torch.as_tensor(q_int), "int8", torch.int8, qd)
-    raw = np.concatenate([_s8_sums(rows, op[c0 : c0 + 64], 64, qd)[:, : op[c0 : c0 + 64].shape[0]]
-                          for c0 in range(0, nq, 64)], axis=1).astype(np.float32)
-    dist = (raw * -sf[:, None]).astype(np.float32) * q_sc[None, :].astype(np.float32)
-    dist = dist.astype(np.float32) + np.where(sf == 0.0, np.float32(np.inf), np.float32(1.0))[:, None]
-    dist = torch.as_tensor(dist.astype(np.float32).T)  # (queries, slots)
+    dist = torch.as_tensor(_s8_dists(rows, q_int, q_sc, sf))
     pplan = build_plan(torch.as_tensor(order), nb, qtile)
     assert pplan.n_pairs == n_pairs
     ptr = store.bucket_chunk_start
@@ -1161,3 +1173,194 @@ def test_wgmma_s8_model_matches_pallas_int8_scan(d, k, qtile):
                                            atol=1e-7)
             checked += 1
     assert checked > 0
+
+
+# the int8 body with wide lists (list widths 64 and 128): its query slots, its
+# ring's stages and the widest resident int8 query tile at each width
+# (W_WIDE_SLOTS, WS8W_STAGES, S8WideList<64 | 128>::MAX_QD in csrc/scan_pairs.cu)
+S8_WIDE_SLOTS, S8_WIDE_STAGES = 64, 4
+S8_WIDE_MAX_QD = {64: 1408, 128: 896}
+
+
+def _w_head_bytes(slots: int, width: int, stages: int, extra: int) -> int:
+    """``w_head_bytes`` of csrc/scan_pairs.cu: the ring's barriers, the
+    query slots' rows and marks, the lists, two distance tiles of ``slots``
+    × 68 f32 and ``extra`` bytes, rounded up to 1024."""
+    raw = (2 * 2 * stages * 8 + (slots + 2 * slots) * 4 + 2 * width * slots * 4
+           + 2 * slots * 68 * 4 + extra)
+    return -(-raw // 1024) * 1024
+
+
+@pytest.mark.parametrize("width", [64, 128])
+def test_s8_wide_body_keeps_its_widest_tile_resident(width):
+    """The int8 body with wide lists in one block's 232,448 B: the head (its
+    64 slots' lists of the list width, the query scales after the distance
+    tiles), the ring (two consumers × four stages of two 64 × 64-byte
+    boxes) and the resident int8 queries (64 bytes a depth, d rounded up to
+    128).  The widest such tile is 1408 at list width 64 and 896 at 128,
+    as the library's scope takes it (the constants here mirror the source's,
+    which the test reads); at d 768 and width 128 the block takes 217,088
+    B."""
+    import re
+
+    from learnedmetricindex_tpu_torch.ops import cuda_build
+
+    src = (cuda_build.CSRC / "scan_pairs.cu").read_text()
+    assert re.search(r"constexpr int WS8W_STAGES = (\d+);", src).group(1) == str(S8_WIDE_STAGES)
+    assert re.search(r"constexpr int W_WIDE_SLOTS = (\d+);", src).group(1) == str(S8_WIDE_SLOTS)
+    head = _w_head_bytes(S8_WIDE_SLOTS, width, S8_WIDE_STAGES, S8_WIDE_SLOTS * 4)
+    ring = 2 * S8_WIDE_STAGES * 2 * 64 * 64
+
+    def block(qd):
+        return head + ring + S8_WIDE_SLOTS * qd
+
+    widest = S8_WIDE_MAX_QD[width]
+    assert widest % QD_STEP == 0 and block(widest) <= 232448 < block(widest + QD_STEP)
+    assert {64: 69632, 128: 102400}[width] == head
+    if width == 128:
+        assert block(768) == 217088
+
+
+@pytest.mark.parametrize("k,qtile", [(64, 37), (106, 128), (33, 8), (128, 64)])
+@pytest.mark.parametrize("stale", [False, True])
+def test_s8_wide_model_gives_the_plain_lists(k, qtile, stale):
+    """The int8 body with wide lists, modelled: its sums and epilogue
+    (``_s8_dists``, the width-32 int8 body's) and the wide-list selection order
+    over them (``_wide_model_lists``: 64-row tiles taken by two warpgroups
+    in turn, marks against a k-th that may be one tile stale, entries
+    winning ties) give the plain version's int8 lists bit for bit,
+    distances and slots: rows drawn from a pool of 40 (so equal rows of
+    equal scale tie exactly), chunks of 96 rows (1.5 tiles), padding
+    slots, an empty bucket, query tiles of one or two 64-slot blocks."""
+    from learnedmetricindex_tpu_torch.index.bucket_store import BucketStore, scan_inputs
+
+    rng = np.random.default_rng(k + qtile + 500)
+    n, d, nb, chunk, nq = 1500, 64, 5, 96, 70
+    pool = rng.integers(-128, 128, (40, d))
+    rows = torch.as_tensor(pool[rng.integers(0, 40, n)], dtype=torch.int8)
+    scales = torch.as_tensor(rng.choice([0.25, 0.5, 1.0], n).astype(np.float32))
+    bucket = rng.integers(0, nb, n)
+    bucket[bucket == 3] = 1  # bucket 3 empty
+    store = BucketStore.build_packed_device(rows, bucket, nb, chunk=chunk, row_scales=scales)
+    queries = torch.as_tensor(rng.normal(size=(nq, d)).astype(np.float32))
+    order = torch.as_tensor(np.stack([rng.choice(nb, 2, replace=False) for _ in range(nq)]))
+    order[-5:, 1] = -1
+    _, args = scan_inputs(store, queries, order, qtile, "int8")
+    q, qidx, pb, ptr, chunk_of, st, sc, qs = args[:8]
+    kw = dict(k=k, qtile=qtile, chunk=chunk, mode="int8")
+    rd, rs = scan_kernel.scan_pairs_reference(*args, **kw)
+    dist = _s8_dists(st.numpy(), q.numpy(), qs.numpy(), sc.numpy())
+    md, ms = _wide_model_lists(dist, ptr.numpy(), chunk_of.numpy(), chunk, pb.numpy(),
+                               qidx.numpy(), qtile, k, stale)
+    assert np.isfinite(md).sum() > 0 and (ms >= 0).any()
+    np.testing.assert_array_equal(md.view(np.uint32), rd.numpy().view(np.uint32))
+    np.testing.assert_array_equal(ms, rs.numpy())
+    # the ties are real: many lists hold equal finite distances side by side
+    fin = np.where(np.isfinite(md), md, np.float32(0.0))
+    assert ((np.diff(fin, axis=2) == 0.0) & np.isfinite(md[:, :, 1:])).sum() > 100
+
+
+@pytest.mark.parametrize("d,k,qtile", [(96, 64, 16), (256, 106, 8), (64, 128, 64)])
+def test_s8_wide_model_matches_pallas_int8_scan(d, k, qtile):
+    """The int8 body with wide lists (``_s8_dists`` and
+    ``_wide_model_lists``, one tile stale marks) over the JAX package's
+    int8 store and quantized queries: bit-equal to the plain version's
+    lists, and each real query's list within the parity bar of the JAX
+    package's Pallas int8 scan of the same seeded inputs in interpret mode
+    (rtol 1e-4, atol 1e-5; slots differing only at ties, rtol 1e-6, atol
+    1e-7), as ``test_wgmma_s8_model_matches_pallas_int8_scan`` holds the
+    width-32 body."""
+    import jax.numpy as jnp
+
+    from learnedmetricindex_tpu.data import synthetic_blobs
+    from learnedmetricindex_tpu.index.bucket_store import BucketStore as JaxStore
+    from learnedmetricindex_tpu.index.bucket_store import build_scan_plan
+    from learnedmetricindex_tpu.ops.quantize import quantize_rows
+    from learnedmetricindex_tpu.ops.scan_kernel import pallas_host_args, pallas_scan_pairs
+    from learnedmetricindex_tpu_torch.index.bucket_store import build_plan
+
+    n, nb, chunk, nq = 600, 4, 96, 40
+    data, queries = synthetic_blobs(n, d, nq, seed=d + k)
+    rng = np.random.default_rng(d + k)
+    store = JaxStore.build_packed_int8(data, rng.integers(0, nb, size=n), nb, chunk=chunk)
+    order = np.stack([rng.choice(nb, size=2, replace=False) for _ in range(nq)]).astype(np.int64)
+    order[rng.random(nq) < 0.3, -1] = -1
+    plan = build_scan_plan(store, order, qtile=qtile)
+    n_pairs = len(plan.qidx) // qtile
+    im, ic, wr, sf, written = pallas_host_args(store, plan, qtile, n_pairs)
+    q_int, q_sc = (np.array(a) for a in quantize_rows(jnp.asarray(queries)))
+    valid = plan.qidx >= 0
+    g = np.maximum(plan.qidx, 0)
+    wq = np.where(valid[:, None], q_int[g], 0).astype(np.int8)
+    qs2d = np.where(valid, q_sc[g], 0.0).astype(np.float32).reshape(n_pairs, qtile)
+    jd, js = pallas_scan_pairs(
+        jnp.asarray(wq), jnp.asarray(im), jnp.asarray(ic), jnp.asarray(wr), store.chunk_data,
+        jnp.asarray(sf), jnp.asarray(qs2d), k=k, qtile=qtile, chunk=chunk, n_pairs=n_pairs,
+        compute="int8", interpret=True)
+    jd, js = np.asarray(jd)[:n_pairs], np.asarray(js)[:n_pairs]
+    sf = np.array(sf)
+    rows = np.array(store.chunk_data)
+    dist = _s8_dists(rows, q_int, q_sc, sf)
+    pplan = build_plan(torch.as_tensor(order), nb, qtile)
+    assert pplan.n_pairs == n_pairs
+    ptr = np.asarray(store.bucket_chunk_start)
+    md, ms = _wide_model_lists(dist, ptr, np.arange(ptr[-1]), chunk, pplan.pair_bucket.numpy(),
+                               plan.qidx, qtile, k, stale=True)
+    rd, rs = scan_kernel.scan_pairs_reference(
+        torch.as_tensor(q_int), pplan.qidx, pplan.pair_bucket,
+        torch.as_tensor(ptr, dtype=torch.int32), torch.arange(len(rows) // chunk, dtype=torch.int32),
+        torch.as_tensor(rows), torch.as_tensor(sf), torch.as_tensor(q_sc), k=k, qtile=qtile,
+        chunk=chunk, mode="int8")
+    np.testing.assert_array_equal(md.view(np.uint32), rd.numpy().view(np.uint32))
+    np.testing.assert_array_equal(ms, rs.numpy())
+    checked = 0
+    for p in range(n_pairs):
+        if not written[p]:
+            continue
+        for j in np.nonzero(valid.reshape(-1, qtile)[p])[0]:
+            o = np.lexsort((js[p, j], jd[p, j]))
+            np.testing.assert_allclose(md[p, j], jd[p, j][o], rtol=1e-4, atol=1e-5)
+            mism = ms[p, j] != js[p, j][o]
+            if mism.any():
+                np.testing.assert_allclose(md[p, j][mism], jd[p, j][o][mism], rtol=1e-6,
+                                           atol=1e-7)
+            checked += 1
+    assert checked > 0
+
+
+@pytest.mark.parametrize("width", [64, 128])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_segment_length_counts_the_s8_wide_blocks_m_tiles(width, seed):
+    """The split's cost model for the int8 body with wide lists: a pair's
+    128 slots are two blocks of its 64 (``Body.block_queries``), each
+    computing its m-tiles up to its last live one, at either list width,
+    as for the int8 body at width 32, which has the same blocks; the
+    int8 mma.sync body those launches took before cost all of a pair's
+    live m-tiles in one block, and cuts the same plan otherwise."""
+    rng = np.random.default_rng(seed + 40)
+    counts = rng.integers(0, 90, 30)
+    ptr = np.concatenate([[0], np.cumsum(counts)])
+    pair_bucket = rng.integers(0, 30, 50)
+    live = rng.integers(0, 256, 50)
+    live[:4] = [0b1, 0b10000000, 0b00010001, 0]
+    slots = 132  # one block an SM
+    seg = scan_kernel.segment_length(ptr, pair_bucket, live, width=width, slots=slots,
+                                     wgmma_block=S8_WIDE_SLOTS)
+    chunks = counts[pair_bucket]
+    blocks = np.zeros((50, 2), np.int64)
+    for p in range(50):
+        for blk in range(2):
+            bits = [(live[p] >> (4 * blk + m)) & 1 for m in range(4)]
+            blocks[p, blk] = max((m + 1 for m in range(4) if bits[m]), default=0)
+    np.testing.assert_array_equal(blocks[:4], [[1, 0], [0, 4], [1, 1], [0, 0]])
+    fair = (chunks[:, None] * blocks).sum() / slots
+    heaviest = blocks[chunks > 0].max()
+    if seg > 1:
+        assert seg * heaviest <= scan_kernel.SEGMENT_SHARE * fair
+    assert (seg + 1) * heaviest > scan_kernel.SEGMENT_SHARE * fair
+    assert seg == scan_kernel.segment_length(ptr, pair_bucket, live, width=32, slots=slots,
+                                             wgmma_block=64)
+    tiles = ((live[:, None] >> np.arange(8)) & 1).sum(axis=1)
+    mma = scan_kernel.segment_length(ptr, pair_bucket, live, width=width, slots=slots)
+    assert mma == max(1, int(scan_kernel.SEGMENT_SHARE * (chunks * tiles).sum()
+                             / (slots * tiles[chunks > 0].max())))

@@ -15,8 +15,8 @@ that only this tree's build has; then times both sides
 in one process on the same inputs, alternating which goes first, and
 checks that both give the same bits (distances and slots) at every
 ``k``, except where only one side takes a wgmma body (bf16 or f32 over an
-int8 packed store at ``k_scan`` <= 32, bf16 over it at 33 to 128, int8 over
-it at <= 32, as its library's ``lmi_scan_body`` says): wgmma sums in
+int8 packed store at ``k_scan`` <= 32, bf16 and int8 over it at 33 to 128,
+int8 over it at <= 32, as its library's ``lmi_scan_body`` says): wgmma sums in
 another order than ``mma.sync``, so there both sides are held to each
 other at the bar of the mode (``chip_smoke.compare_candidates``: in int8
 bit-equal, the integer sums being exact; in f32 also each side's
@@ -29,7 +29,8 @@ without it (the interface before the split) launches one block a pair.
 
 * the flagship (``chip_smoke.make_corpus``: 10M×768 int8, 120
   nearest-centroid buckets, a packed store, 10k queries visiting 4, qtile
-  128) in modes bf16, int8 and f32, at each ``k`` up to 128;
+  128) in modes bf16, int8 and f32, at each ``k`` up to 128, each line
+  naming the body each side's launch took;
 * f32 over a virtual store of the same corpus (the id grid), the first
   256 queries (``search(k=1100)``'s scan in ``chip_smoke.phase_virtual``),
   at every ``k``; past 1024 in rounds of at most 1024
@@ -115,7 +116,8 @@ def sass(cubin: Path) -> dict:
     kernel instance under its name from ``scan_mma_kernel`` (or
     ``scan_wgmma_kernel``, ``scan_wgmma_f32_kernel``,
     ``scan_wgmma_f32mode_kernel``, ``scan_wgmma_wide_kernel``,
-    ``scan_wgmma_f32x_kernel``, ``scan_wgmma_s8_kernel``) on."""
+    ``scan_wgmma_f32x_kernel``, ``scan_wgmma_s8_kernel``,
+    ``scan_wgmma_s8_wide_kernel``) on."""
     cuobjdump = Path(cuda_build._nvcc()).with_name("cuobjdump")
     txt = subprocess.run([str(cuobjdump), "-sass", str(cubin)], capture_output=True, text=True,
                          check=True).stdout
@@ -135,7 +137,8 @@ def sass(cubin: Path) -> dict:
         name = name.strip()
         for kernel in ("scan_mma_kernel", "scan_wgmma_kernel", "scan_wgmma_f32_kernel",
                        "scan_wgmma_f32mode_kernel", "scan_wgmma_wide_kernel",
-                       "scan_wgmma_f32x_kernel", "scan_wgmma_s8_kernel"):
+                       "scan_wgmma_f32x_kernel", "scan_wgmma_s8_kernel",
+                       "scan_wgmma_s8_wide_kernel"):
             if kernel in name:
                 name = name[name.find(kernel):]
                 break
@@ -218,10 +221,17 @@ def side_body(side: Side, store, mode: str, k: int, row_ids,
     return scan_kernel.scan_body(side.lib, store, mode, k, row_ids, floored)
 
 
-def takes_wgmma(side: Side, store, mode: str, k: int, row_ids, floored: bool = False) -> bool:
-    """Whether ``side``'s launch at ``k`` (under floors) takes the wgmma body."""
-    body = side_body(side, store, mode, k, row_ids, floored)
-    return body is not None and body.wgmma
+def side_kind(side: Side, store, mode: str, k: int, row_ids) -> int:
+    """The body ``side``'s first launch at ``k`` takes, as an index of
+    ``scan_kernel.BODY_NAMES`` (0, the mma.sync body, where the side has
+    no wgmma body)."""
+    body = side_body(side, store, mode, k, row_ids)
+    return body.kind if body is not None else 0
+
+
+def bodies_text(kinds: dict) -> str:
+    """The bodies ``kinds`` names, side by side, for an ``[ab]`` line."""
+    return "; bodies " + ", ".join(f"{n} {scan_kernel.BODY_NAMES[b]}" for n, b in kinds.items())
 
 
 def side_slots(side: Side, store, mode: str, k: int, row_ids, floored: bool = False) -> int:
@@ -414,14 +424,15 @@ def main() -> None:
         runs = {n: launcher(sd, st, q, o, mode, k) for n, sd in sides.items()}
         outs = {n: tuple(t.clone() for t in run()) for n, run in runs.items()}
         sargs = scan_inputs(st, q, o, 128, mode)[1]
-        bodies = {n: takes_wgmma(sd, sargs[5], mode, k, sargs[8]) for n, sd in sides.items()}
+        kinds = {n: side_kind(sd, sargs[5], mode, k, sargs[8]) for n, sd in sides.items()}
         del sargs
-        if bodies["this"] != bodies["other"]:
+        if (kinds["this"] > 0) != (kinds["other"] > 0):
             agree = bodies_agree(outs, f"{layout} {mode} k={k}", mode, st, q, o)
         else:
             same = all(torch.equal(x, y) for x, y in zip(outs["other"], outs["this"]))
             cs.check(same, f"{layout} {mode} k={k}: the two sides give different bits")
             agree = "same bits"
+        agree += bodies_text(kinds)
         del outs
         in_turns(runs, f"{layout} {mode} k_scan {k} ({q.shape[0]} queries", agree,
                  3 if layout == "virtual" else 5, args.rounds, smi)
@@ -432,14 +443,11 @@ def main() -> None:
         runs = {n: launcher(sd, f32, queries, order, "f32", k) for n, sd in sides.items()}
         outs = {n: tuple(t.clone() for t in run()) for n, run in runs.items()}
         sargs = scan_inputs(f32, queries, order, 128, "f32")[1]
-        kinds = {n: b.kind if b is not None else 0
-                 for n, b in ((n, side_body(sd, sargs[5], "f32", k, None))
-                              for n, sd in sides.items())}
+        kinds = {n: side_kind(sd, sargs[5], "f32", k, None) for n, sd in sides.items()}
         del sargs
         if kinds["this"] != kinds["other"] and not fma:
             agree = bodies_agree(outs, f"f32 store k={k}", "f32", f32, queries, order)
-            agree += "; bodies " + ", ".join(f"{n} {scan_kernel.BODY_NAMES[b]}"
-                                             for n, b in kinds.items())
+            agree += bodies_text(kinds)
         elif fma:
             err, gap = cs.compare_candidates(*outs["this"], *outs["other"], "f32",
                                              f"f32 store k={k}: this against other")
@@ -462,8 +470,7 @@ def main() -> None:
         runs = {n: launcher(sd, st, queries, order, "bf16", 16) for n, sd in sides.items()}
         outs = {n: tuple(t.clone() for t in run()) for n, run in runs.items()}
         sargs = scan_inputs(st, queries, order, 128, "bf16")[1]
-        bodies = {n: side_body(sd, sargs[5], "bf16", 16, None) for n, sd in sides.items()}
-        kinds = {n: b.kind if b is not None else 0 for n, b in bodies.items()}
+        kinds = {n: side_kind(sd, sargs[5], "bf16", 16, None) for n, sd in sides.items()}
         del sargs
         if kinds["this"] != kinds["other"]:
             agree = bodies_agree(outs, f"{what} bf16 k=16")
@@ -471,7 +478,7 @@ def main() -> None:
             cs.check(all(torch.equal(x, y) for x, y in zip(outs["other"], outs["this"])),
                      f"{what} bf16 k=16: the two sides give different bits")
             agree = "same bits"
-        agree += "; bodies " + ", ".join(f"{n} {scan_kernel.BODY_NAMES[b]}" for n, b in kinds.items())
+        agree += bodies_text(kinds)
         del outs
         in_turns(runs, f"{what} bf16 k_scan 16 ({queries.shape[0]} queries", agree, 5,
                  args.rounds, smi)

@@ -3,7 +3,7 @@
 
     python3 tools/torch_scan_probe.py [--body mma|wgmma|mma-f32|wgmma-f32|mma-f32mode|wgmma-f32mode|
                                              mma-wide|wgmma-wide|mma-f32x|wgmma-f32x|mma-s8|
-                                             wgmma-s8]
+                                             wgmma-s8|mma-s8-wide|wgmma-s8-wide]
                                       [--checkout DIR] [--reference DIR ...]
                                       [--rounds 4] [--only NAME ...]
 
@@ -15,7 +15,8 @@ store (``--body mma-f32``, ``wgmma-f32``: ``chip_smoke.dequantized_store``,
 31 GB, the default search over ``BuildConfiguration(dtype="float32")``);
 and the f32 scan over the int8 store (``mma-f32mode``, ``wgmma-f32mode``)
 or over that f32 store (``mma-f32x``, ``wgmma-f32x``), and the int8 scan
-over the int8 store (``mma-s8``, ``wgmma-s8``).
+over the int8 store (``mma-s8``, ``wgmma-s8``; at ``k_scan`` 106 and 64,
+list widths 128 and 64, ``mma-s8-wide``, ``wgmma-s8-wide``).
 It writes patched copies of ``DIR``'s
 ``learnedmetricindex_tpu_torch/csrc/scan_pairs.cu`` (default: this
 tree's) into ``build/scan_probe/``, builds each (and
@@ -184,12 +185,31 @@ int8 wgmma body), timed in mode int8:
   (A then holds each row's depths in order); also with a ring of 2;
 * ``bare``: no TMA, no hand-over; ``no wgmma, bare``.
 
-The variants of ``--body wgmma-s8`` that leave the arithmetic alone (the
-rings, A from shared memory) are held bit-equal to the tree's lists; the
-other copies' results are wrong and are not read.  Then the card's memory
+``--body mma-s8-wide``: the mma.sync body's int8 instances over the int8
+packed store at list widths 128 and 64 (``MmaBody<MODE_INT8, int8_t, 128 |
+64>``: a checkout where those scans take them, for example the commit
+before the int8 wgmma body with wide lists), timed in mode int8 at
+``k_scan`` 106 and 64: the variants of ``--body mma-s8``.
+
+``--body wgmma-s8-wide``: the int8 wgmma body with wide lists, timed in
+mode int8 at ``k_scan`` 106 and 64:
+
+* ``tree``, ``no wgmma``, ``no TMA``, ``bare``, ``no wgmma, bare`` as for
+  ``--body wgmma-s8``;
+* ``no selection``, ``no hand-over``, ``no merge`` as for ``--body
+  wgmma-wide``;
+* ``ring of 2 stages``, ``3``: ``WS8W_STAGES`` stages a consumer in place
+  of 4;
+* ``32 slots a block``: a block keeps 32 query slots (a pair takes four
+  blocks) in place of 64.
+
+The variants of ``--body wgmma-s8`` and ``--body wgmma-s8-wide`` that
+leave the arithmetic alone (the rings, A from shared memory, the slots a
+block) are held bit-equal to the tree's lists; the other copies' results
+are wrong and are not read.  Then the card's memory
 rates: a ~1 GB device-to-device copy (HBM: bytes read + written) and a
 sum over a 20 MB and a 40 MB buffer read again and again (L2).  Prints
-one ``[probe]`` line a variant and writes
+one ``[probe]`` line a variant and ``k_scan`` and writes
 ``chiprun_out/scan_probe_{body}.json``.
 """
 
@@ -341,6 +361,17 @@ MMA_F32MODE_VARIANTS = {
 WM_HI_ONLY = [("    acc[i] = __fadd_rn(acc[i], __fadd_rn(__fadd_rn(fresh[2 * M + i], fresh[M + i]), "
                "fresh[i]));\n",
                "    acc[i] = __fadd_rn(acc[i], fresh[i]);\n")]
+
+
+def _in_wgmma_rs(source: str, old: str, new: str):
+    """An edit of every ``old`` in the bf16 ``wgmma_rs`` alone (the s8
+    wgmma spells the same operands): the function as it is, and as
+    edited."""
+    start = source.index("__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2]")
+    body = source[start : source.index("\n}\n", start) + 3]
+    return body, body.replace(old, new)
+
+
 # ... the three planes as three wgmma m64nNk16 a k-step (each term its own
 # accumulator columns, as the one m64n(3N)k16 has them) in place of one
 WM_THREE = [
@@ -348,7 +379,7 @@ WM_THREE = [
      "uint64_t desc) {",
      "__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4], "
      "uint64_t desc, int add = 1) {"),
-    ('"l"(desc), "r"(1));', '"l"(desc), "r"(add));', 4),
+    lambda source: _in_wgmma_rs(source, '"l"(desc), "r"(1));', '"l"(desc), "r"(add));'),
     ("        wgmma_rs_terms<3 * N>(fresh, a[B][j],\n"
      "                              query_desc(q_base + (W_KSTEPS * st + KSTEPS * B + j) * W3_KSTEP),\n"
      "                              B > 0 || j > 0);\n",
@@ -379,7 +410,7 @@ WGMMA_F32MODE_VARIANTS = {
     "no wgmma, bare": W_NO_WGMMA + W_NO_TMA + W_NO_WIDEN + W_NO_HANDOVER,
 }
 # the wide-list body: its own selection call, merge and slot count
-WW_NO_SELECTION = [("    wgmma_select_wide(p, s, wg, N, nrows, slot0);\n", "")]
+WW_NO_SELECTION = [("    wgmma_select_wide(p, s, wg, N, nrows, slot0);\n", "", "all")]
 WW_NO_HANDOVER = WW_NO_SELECTION + W_NO_HANDOVER[1:]
 WW_NO_MERGE = [("    __syncwarp();  // every lane holds its entries: the list is rewritten\n",
                 "    continue;\n    __syncwarp();  // every lane holds its entries: the list is rewritten\n")]
@@ -592,10 +623,27 @@ WGMMA_S8_VARIANTS = {
     "bare": W_NO_TMA + W_NO_HANDOVER,
     "no wgmma, bare": WS8_NO_WGMMA + W_NO_TMA + W_NO_HANDOVER,
 }
+# the int8 wgmma body with wide lists: its ring's depth
+WS8W_STAGES = {n: [("constexpr int WS8W_STAGES = 4;", f"constexpr int WS8W_STAGES = {n};")]
+               for n in (2, 3)}
+WGMMA_S8_WIDE_VARIANTS = {
+    "tree": [],
+    "no wgmma": WS8_NO_WGMMA,
+    "no selection": WW_NO_SELECTION,
+    "no hand-over": WW_NO_HANDOVER,
+    "no merge": WW_NO_MERGE,
+    "no TMA": W_NO_TMA,
+    "ring of 2 stages": WS8W_STAGES[2],
+    "ring of 3 stages": WS8W_STAGES[3],
+    "32 slots a block": WW_SLOTS32,
+    "bare": W_NO_TMA + WW_NO_HANDOVER,
+    "no wgmma, bare": WS8_NO_WGMMA + W_NO_TMA + WW_NO_HANDOVER,
+}
 # the variants whose lists must stay the tree's, bit for bit
 EXACT = {"selection: one load a query", "ring of 2 stages", "ring of 3 stages",
          "ring of 5 stages", "ring of 6 stages", "A from shared memory",
          "A from shared memory, ring of 2 stages"}
+EXACT_S8_WIDE = {"ring of 2 stages", "ring of 3 stages", "32 slots a block"}
 # ... and those that read the queries in depth order (A from shared memory
 # reads each row's depths in order, not in WGMMA_S8_ORDER)
 IN_ORDER = {"A from shared memory", "A from shared memory, ring of 2 stages"}
@@ -604,7 +652,8 @@ VARIANTS = {"mma": MMA_VARIANTS, "wgmma": WGMMA_VARIANTS, "mma-f32": MMA_F32_VAR
             "wgmma-f32mode": WGMMA_F32MODE_VARIANTS, "mma-wide": MMA_VARIANTS,
             "wgmma-wide": WGMMA_WIDE_VARIANTS, "mma-f32x": MMA_F32X_VARIANTS,
             "wgmma-f32x": WGMMA_F32X_VARIANTS, "mma-s8": MMA_S8_VARIANTS,
-            "wgmma-s8": WGMMA_S8_VARIANTS}
+            "wgmma-s8": WGMMA_S8_VARIANTS, "mma-s8-wide": MMA_S8_VARIANTS,
+            "wgmma-s8-wide": WGMMA_S8_WIDE_VARIANTS}
 # ptxas's report of the instance each body runs
 INSTANCE = {"mma": "scan_mma_kernelILi1EaLi32E", "wgmma": "scan_wgmma_kernel",
             "mma-f32": "scan_mma_kernelILi1EfLi32E", "wgmma-f32": "scan_wgmma_f32_kernel",
@@ -612,22 +661,27 @@ INSTANCE = {"mma": "scan_mma_kernelILi1EaLi32E", "wgmma": "scan_wgmma_kernel",
             "wgmma-f32mode": "scan_wgmma_f32mode_kernel", "mma-wide": "scan_mma_kernelILi1EaLi128E",
             "wgmma-wide": "scan_wgmma_wide_kernelILi128E", "mma-f32x": "scan_mma_kernelILi0EfLi32E",
             "wgmma-f32x": "scan_wgmma_f32x_kernel", "mma-s8": "scan_mma_kernelILi2EaLi32E",
-            "wgmma-s8": "scan_wgmma_s8_kernel"}
+            "wgmma-s8": "scan_wgmma_s8_kernel", "mma-s8-wide": "scan_mma_kernelILi2EaLi128E",
+            "wgmma-s8-wide": "scan_wgmma_s8_wide_kernel"}
 # the scan mode each body runs in, and the kernel that the checkout must have
 # (wgmma bodies) or must not have (the mma.sync body those replace)
 BODY_MODE = {"mma": "bf16", "wgmma": "bf16", "mma-f32": "bf16", "wgmma-f32": "bf16",
              "mma-f32mode": "f32", "wgmma-f32mode": "f32", "mma-wide": "bf16",
              "wgmma-wide": "bf16", "mma-f32x": "f32", "wgmma-f32x": "f32", "mma-s8": "int8",
-             "wgmma-s8": "int8"}
-# the k_scan each body is timed at: the default search's 16, search(k=100)'s 106
-BODY_K = {"mma-wide": 106, "wgmma-wide": 106}
+             "wgmma-s8": "int8", "mma-s8-wide": "int8", "wgmma-s8-wide": "int8"}
+# the k_scan each body is timed at: the default search's 16, search(k=100)'s
+# 106 (the int8 wide lists also at 64, list width 64)
+BODY_K = {"mma-wide": (106,), "wgmma-wide": (106,), "mma-s8-wide": (106, 64),
+          "wgmma-s8-wide": (106, 64)}
 BODY_KERNEL = {"mma": "scan_wgmma_kernel", "wgmma": "scan_wgmma_kernel",
                "mma-f32": "scan_wgmma_f32_kernel", "wgmma-f32": "scan_wgmma_f32_kernel",
                "mma-f32mode": "scan_wgmma_f32mode_kernel",
                "wgmma-f32mode": "scan_wgmma_f32mode_kernel",
                "mma-wide": "scan_wgmma_wide_kernel", "wgmma-wide": "scan_wgmma_wide_kernel",
                "mma-f32x": "scan_wgmma_f32x_kernel", "wgmma-f32x": "scan_wgmma_f32x_kernel",
-               "mma-s8": "scan_wgmma_s8_kernel", "wgmma-s8": "scan_wgmma_s8_kernel"}
+               "mma-s8": "scan_wgmma_s8_kernel", "wgmma-s8": "scan_wgmma_s8_kernel",
+               "mma-s8-wide": "scan_wgmma_s8_wide_kernel",
+               "wgmma-s8-wide": "scan_wgmma_s8_wide_kernel"}
 
 
 def patched(source: str, edits) -> str:
@@ -713,38 +767,42 @@ def main() -> None:
     if args.body.endswith(("f32", "f32x")):
         store = cs.dequantized_store(store)
         what = f"{mode} over an f32 store ({store.chunk_data.numel() * 4 / 1e9:.1f} GB)"
-    k = BODY_K.get(args.body, 16)
-    runs = {n: ab.launcher(side, store, queries, order, mode, k) for n, side in sides.items()}
-    names = list(runs)
-    laid_out = scan_kernel.WGMMA_S8_ORDER
-    for n in (n for n in names if n in IN_ORDER):  # its queries laid out at its first run
-        scan_kernel.WGMMA_S8_ORDER = tuple(range(64))
-        try:
-            runs[n]()
-        finally:
-            scan_kernel.WGMMA_S8_ORDER = laid_out
-    bits = {}  # the variants that must keep the tree's lists: whether they do
-    if any(n in EXACT for n in names):
-        want = tuple(t.clone() for t in runs["tree"]())
-        for n in (n for n in names if n in EXACT):
-            bits[n] = all(torch.equal(a, b) for a, b in zip(runs[n](), want))
-        del want
-    ms = {n: [] for n in names}
-    for r in range(args.rounds):
-        for n in (names if r % 2 == 0 else names[::-1]):
-            ms[n].append(cs.cuda_ms(runs[n], 3))
-    med = {n: float(np.median(v)) for n, v in ms.items()}
-    for n in names:
-        cs.log(f"[probe] {what}, k_scan {k}, {queries.shape[0]} queries "
-               f"(mean of 3 launches a round, {args.rounds} rounds in turns): {n}: "
-               f"{' '.join(f'{t:.3f}' for t in ms[n])} ms, median {med[n]:.3f} ms = "
-               f"{med[n] / med['tree']:.3f} of the tree's"
-               + ("" if n not in bits else "; the tree's lists" if bits[n] else "; OTHER LISTS")
-               + f"  [{smi}]")
+    exact = EXACT_S8_WIDE if args.body == "wgmma-s8-wide" else EXACT
+    by_k = {}
+    for k in BODY_K.get(args.body, (16,)):
+        runs = {n: ab.launcher(side, store, queries, order, mode, k) for n, side in sides.items()}
+        names = list(runs)
+        laid_out = scan_kernel.WGMMA_S8_ORDER
+        for n in (n for n in names if n in IN_ORDER):  # its queries laid out at its first run
+            scan_kernel.WGMMA_S8_ORDER = tuple(range(64))
+            try:
+                runs[n]()
+            finally:
+                scan_kernel.WGMMA_S8_ORDER = laid_out
+        bits = {}  # the variants that must keep the tree's lists: whether they do
+        if any(n in exact for n in names):
+            want = tuple(t.clone() for t in runs["tree"]())
+            for n in (n for n in names if n in exact):
+                bits[n] = all(torch.equal(a, b) for a, b in zip(runs[n](), want))
+            del want
+        ms = {n: [] for n in names}
+        for r in range(args.rounds):
+            for n in (names if r % 2 == 0 else names[::-1]):
+                ms[n].append(cs.cuda_ms(runs[n], 3))
+        med = {n: float(np.median(v)) for n, v in ms.items()}
+        for n in names:
+            cs.log(f"[probe] {what}, k_scan {k}, {queries.shape[0]} queries "
+                   f"(mean of 3 launches a round, {args.rounds} rounds in turns): {n}: "
+                   f"{' '.join(f'{t:.3f}' for t in ms[n])} ms, median {med[n]:.3f} ms = "
+                   f"{med[n] / med['tree']:.3f} of the tree's"
+                   + ("" if n not in bits else "; the tree's lists" if bits[n] else "; OTHER LISTS")
+                   + f"  [{smi}]")
+        by_k[k] = {"rounds_ms": ms, "median_ms": med, "same_bits": bits}
+        del runs
+        torch.cuda.empty_cache()
     OUT.mkdir(parents=True, exist_ok=True)
     (OUT / f"scan_probe_{args.body}.json").write_text(json.dumps(
-        {"device": smi, "rounds_ms": ms, "median_ms": med, "memory_tb_s": rates,
-         "same_bits": bits}, indent=1))
+        {"device": smi, "memory_tb_s": rates, "by_k_scan": by_k}, indent=1))
 
 
 if __name__ == "__main__":
