@@ -43,12 +43,15 @@ phases:
    forced segments; the widest resident query tiles, d 1152 of bf16 over
    int8 rows, 1664 of int8 queries, 896 over f32 rows and of f32 over int8
    and f32 rows), int8 over the int8 store at k 33 and at the widest
-   tiles of its wide-list body (d 1408 at list width 64, 896 at 128), and
-   the launches there that keep the mma.sync body (virtual stores, int8
-   at k 16 and 64 among them, int8 rows of 100 bytes, int8 at k 64 and
-   106 past that body's widest tiles, d 900 and 102 over f32 rows, f32
-   over int8 rows at d 1040, f32 over f32 rows at k 33, k 1040 in rounds
-   under floors), each case naming the body its launches took;
+   tiles of its wide-list body (d 1408 at list width 64, 896 at 128), f32
+   over the int8 store at k 33, 64 and 106 (its wide-list body, d 752
+   rounded up to its widest tile, 768), and the launches there that keep
+   the mma.sync body (virtual stores, int8 and f32 at k 64 among them,
+   int8 rows of 100 bytes, int8 at k 64 and 106 past that body's widest
+   tiles, f32 over int8 rows of 100 bytes at k 64 and past its wide-list
+   body's widest tile (d 784 at k 64, 896 at 106), d 900 and 102 over f32
+   rows, f32 over int8 rows at d 1040, f32 over f32 rows at k 33, k 1040
+   in rounds under floors), each case naming the body its launches took;
 4. corpus: a seeded 10M×768 int8 corpus (+ f32 row scales) on the
    device and the exact f32 top-10 of the queries;
 5. search path: an index whose MLP-4 encodes a nearest-centroid
@@ -71,14 +74,19 @@ phases:
    the wide-list wgmma body at ``k_scan`` 106, timed, its recall@100
    against exact kNN over the visited buckets at least 0.999 and within
    0.001 of the same search's through the scan's plain version, timed
-   beside it),
+   beside it; the ``highest`` ``search(k=100)`` one launch of the f32-mode
+   wgmma body with wide lists at ``k_scan`` 106, timed, equal to exact kNN
+   over the visited buckets (ids differing only at ties) and its
+   recall@100 equal to the same search's through the scan's plain
+   version),
    the merge kernel at the flagship against its plain version and
    ``smallest_k`` over the lists side by side, its bytes bound, its share
    of the scan and the split's host work a launch,
    the f32 kernel's and plain version's distances against float64 (the
    kernel's error may not exceed the plain version's), the same at
    ``k_scan`` 106 (``search(k=100)``, list width 128; the library call's
-   ``topk(106)``), and
+   ``topk(106)``) and, in int8 and f32, at 64 (list width 64; in f32 both
+   wide scans against float64 too), and
    the search's split between navigation, the scan and the rest; then
    the same rows dequantized into an f32 store (31 GB): the scan in f32
    over it (six products a k-step: the six-term wgmma body at ``k_scan``
@@ -228,16 +236,18 @@ BF16_ATOL, BF16_SAME_IDS = 3e-3, 0.99
 # terms must miss the bar, or the check could not tell the bodies apart
 SPLIT_REL_ERR = 2.0**-20
 REPLACES = "learnedmetricindex_tpu/ops/scan_kernel.py:325"
-# read_counts' keys of the scan's launches on its seven wgmma bodies (bf16
+# read_counts' keys of the scan's launches on its eight wgmma bodies (bf16
 # over int8 rows, bf16 over f32 rows, f32 over int8 rows, bf16 over int8
 # rows at list widths 64 and 128, f32 over f32 rows, int8 over int8 rows,
-# int8 over int8 rows at list widths 64 and 128)
+# int8 over int8 rows at list widths 64 and 128, f32 over int8 rows at
+# list widths 64 and 128)
 WGMMA_INT8, WGMMA_F32 = "scan_pairs wgmma body", "scan_pairs wgmma f32 body"
 WGMMA_F32MODE = "scan_pairs wgmma f32-mode body"
 WGMMA_WIDE = "scan_pairs wgmma wide-list body"
 WGMMA_F32X = "scan_pairs wgmma six-term body"
 WGMMA_S8 = "scan_pairs wgmma int8 body"
 WGMMA_S8_WIDE = "scan_pairs wgmma int8 wide-list body"
+WGMMA_F32MODE_WIDE = "scan_pairs wgmma f32-mode wide-list body"
 KERNEL_SOURCE = "learnedmetricindex_tpu_torch/csrc/scan_pairs.cu"
 # the merge of a split scan takes the place of the Pallas kernel's running
 # top-k across a pair's chunks (its `insert`, carried in VMEM chunk to chunk)
@@ -262,8 +272,9 @@ MODE_ROUNDS = 6
 HOST_CALLS = 200
 HOST_ROUNDS = 6
 # GPU clock cycles the stream spins (torch.cuda._sleep) before a queued timing:
-# ~10 ms at the H100's 1.98 GHz, longer than the host takes to enqueue the calls
-SPIN_CYCLES = 20_000_000
+# ~50 ms at the H100's 1.98 GHz, longer than the host takes to enqueue the calls
+# (enqueueing 50 calls of four launches can take more than 10 ms)
+SPIN_CYCLES = 100_000_000
 
 
 def check(cond: bool, msg: str) -> None:
@@ -430,23 +441,24 @@ def reset_counts() -> None:
     scan_kernel.WGMMA_F32X_LAUNCHES = 0
     scan_kernel.WGMMA_S8_LAUNCHES = 0
     scan_kernel.WGMMA_S8_WIDE_LAUNCHES = 0
+    scan_kernel.WGMMA_F32MODE_WIDE_LAUNCHES = 0
     scan_kernel.MERGE_LAUNCHES = 0
     gather_kernel.LAUNCHES = 0
     gather_kernel.PAIR_LAUNCHES = 0
 
 
 def read_counts() -> dict:
-    """Launches a kernel; of the scan's, those of its seven wgmma bodies
+    """Launches a kernel; of the scan's, those of its eight wgmma bodies
     (bf16 over int8 rows, bf16 over f32 rows, f32 over int8 rows, bf16 over
     int8 rows at list widths 64 and 128, f32 over f32 rows, int8 over int8
-    rows, int8 over int8 rows at list widths 64 and 128), the rest on the
-    mma.sync body."""
+    rows, int8 over int8 rows at list widths 64 and 128, f32 over int8 rows
+    at list widths 64 and 128), the rest on the mma.sync body."""
     bodies = body_launches()
     return {"scan_pairs": scan_kernel.LAUNCHES, "scan_merge": scan_kernel.MERGE_LAUNCHES,
             "gather_pairs": gather_kernel.PAIR_LAUNCHES, "gather_rows": gather_kernel.LAUNCHES,
             WGMMA_INT8: bodies[1], WGMMA_F32: bodies[2], WGMMA_F32MODE: bodies[3],
             WGMMA_WIDE: bodies[4], WGMMA_F32X: bodies[5], WGMMA_S8: bodies[6],
-            WGMMA_S8_WIDE: bodies[7]}
+            WGMMA_S8_WIDE: bodies[7], WGMMA_F32MODE_WIDE: bodies[8]}
 
 
 def body_launches() -> dict:
@@ -454,7 +466,8 @@ def body_launches() -> dict:
     ``scan_kernel.BODY_NAMES``."""
     others = {2: scan_kernel.WGMMA_F32_LAUNCHES, 3: scan_kernel.WGMMA_F32MODE_LAUNCHES,
               4: scan_kernel.WGMMA_WIDE_LAUNCHES, 5: scan_kernel.WGMMA_F32X_LAUNCHES,
-              6: scan_kernel.WGMMA_S8_LAUNCHES, 7: scan_kernel.WGMMA_S8_WIDE_LAUNCHES}
+              6: scan_kernel.WGMMA_S8_LAUNCHES, 7: scan_kernel.WGMMA_S8_WIDE_LAUNCHES,
+              8: scan_kernel.WGMMA_F32MODE_WIDE_LAUNCHES}
     return {1: scan_kernel.WGMMA_LAUNCHES - sum(others.values()), **others}
 
 
@@ -606,14 +619,14 @@ def phase_kernel_vs_plain(dev) -> dict:
 def wgmma_kind(store, mode: str, k: int) -> int:
     """The wgmma body that a launch at ``k`` in ``mode`` over ``store`` takes
     where it takes one: in int8 mode the int8 body (above list width 32 the
-    int8 body with wide lists); else above list width 32 the wide-list
-    body; over f32 rows the six-term body in f32 mode, else the body over
-    f32 rows; over int8 rows the f32-mode body in f32 mode, else the bf16
-    body over int8 rows."""
+    int8 body with wide lists); else above list width 32 the f32-mode body
+    with wide lists in f32 mode, else the wide-list body; over f32 rows the
+    six-term body in f32 mode, else the body over f32 rows; over int8 rows
+    the f32-mode body in f32 mode, else the bf16 body over int8 rows."""
     if mode == "int8":
         return 7 if k > 32 else 6
     if k > 32:
-        return 4
+        return 8 if mode == "f32" else 4
     if store.rows_ref.dtype == torch.float32:
         return 5 if mode == "f32" else 2
     return 3 if mode == "f32" else 1
@@ -832,13 +845,17 @@ def width32_cases(dev, worst: dict) -> None:
     (the widest over f32 rows, of f32 over int8 rows and of f32 over f32
     rows), 840 and 832 (rounded up to it), 100 (f32 rows of 400 bytes) and
     16; int8 over int8 rows at k 33 and at the widest tiles of the int8
-    body with wide lists (d 1408 at k 64, 896 at k 106).  Then the launches
-    that keep the mma.sync body at width 32 or just past it: virtual int8
-    and f32 stores (int8 queries at k 16 and 64 too), int8 rows of 100
-    bytes (at k 16 and 64), int8 queries past the wide-list int8 body's
-    widest tiles (d 1520 at k 64, 912 at k 106), d 900 (past the widest
-    f32 tiles), f32 rows of 408 bytes (d 102), f32 over int8 rows at d 1040
-    (past its widest tile), f32 over f32 rows at k 33 (list width 64), and
+    body with wide lists (d 1408 at k 64, 896 at k 106); f32 over int8
+    rows at k 33 and 64 and at d 752 (rounded up to 768, the widest tile of
+    the f32-mode body with wide lists) at k 106.  Then the launches that
+    keep the mma.sync body at width 32 or just past it: virtual int8 and
+    f32 stores (int8 and f32 queries over the int8 corpus at k 64 too),
+    int8 rows of 100 bytes (at k 16 and 64; f32 queries over them at 64),
+    int8 queries past the wide-list int8 body's widest tiles (d 1520 at k
+    64, 912 at k 106), f32 queries past the f32-mode wide body's (d 784 at
+    k 64, 896 at k 106), d 900 (past the widest f32 tiles), f32 rows of
+    408 bytes (d 102), f32 over int8 rows at d 1040 (past its widest tile),
+    f32 over f32 rows at k 33 (list width 64), and
     k 1040 over buckets of ~4,000 rows of either type (a 1024-wide round,
     then a 16-wide one under its floors, which keeps the body of the round
     before it, so that both sum a row the same way).  Each case checks
@@ -854,7 +871,8 @@ def width32_cases(dev, worst: dict) -> None:
                 virt = virtual_stores(made, stores["f32"])
                 for name, mode, k in (("int8", "bf16", 16), ("f32", "bf16", 16),
                                       ("int8", "f32", 16), ("f32", "f32", 16),
-                                      ("int8", "int8", 16), ("int8", "int8", 64)):
+                                      ("int8", "int8", 16), ("int8", "int8", 64),
+                                      ("int8", "f32", 64)):
                     held_to_plain(virt[name], queries, order, k, 128, mode,
                                   scan_partner(virt[name], copies),
                                   f"width 32 {mode} virtual {name} corpus k={k} qtile=128", worst,
@@ -899,6 +917,8 @@ def width32_cases(dev, worst: dict) -> None:
             (1408, "int8", "int8", 1, 64), (896, "int8", "int8", 1, 106),
             (100, "int8", "int8", 0, 64), (1520, "int8", "int8", 0, 64),
             (912, "int8", "int8", 0, 106),
+            (768, "int8", "f32", 1, 33), (768, "int8", "f32", 1, 64), (752, "int8", "f32", 1, 106),
+            (100, "int8", "f32", 0, 64), (784, "int8", "f32", 0, 64), (896, "int8", "f32", 0, 106),
             (896, "f32", "bf16", 1, 16), (840, "f32", "bf16", 1, 16), (100, "f32", "bf16", 1, 16),
             (896, "int8", "f32", 1, 16), (832, "int8", "f32", 1, 16), (896, "f32", "f32", 1, 16),
             (840, "f32", "f32", 1, 32), (100, "f32", "f32", 1, 16), (16, "f32", "f32", 1, 32),
@@ -1118,12 +1138,16 @@ def make_corpus(dev, n: int, nq: int, nb: int, d: int = 768, seed: int = 2023) -
             "gt_ids": (gt_i + 1).cpu().numpy(), "centroids": centroids}
 
 
-def phase_main(dev, data: dict, smi: str):
-    corpus, row_scales, queries = data["corpus"], data["row_scales"], data["queries"]
-    gt_ids, centroids = data["gt_ids"], data["centroids"]
-    (n, d), nb, chunk, nq = corpus.shape, centroids.shape[0], 2048, queries.shape[0]
+def flagship_index(dev, data: dict, smi: str):
+    """The flagship's hand-set index over ``data`` (``make_corpus``): an
+    MLP-4 that encodes the nearest-centroid partition exactly, saved and
+    reloaded through .npz, the corpus's buckets by the loaded index's
+    navigation, and the packed int8 store.  Returns (index,
+    data_prediction, store, made: the store's seconds, bytes and peak
+    device memory while it was made)."""
+    corpus, row_scales, centroids = data["corpus"], data["row_scales"], data["centroids"]
+    (n, d), nb, chunk = corpus.shape, centroids.shape[0], 2048
     block = 500_000
-    t_all = time.perf_counter()
 
     # MLP-4 (768 → 512 → 120) that encodes nearest-centroid exactly:
     # hidden j and 120+j are relu(±c_j·x), W2 takes their difference to
@@ -1175,6 +1199,14 @@ def phase_main(dev, data: dict, smi: str):
         f"peak {made['peak_gb']:.2f} GB, {made['peak_added_gb']:.2f} GB above the corpus  [{smi}]")
     del pred
     torch.cuda.empty_cache()
+    return index, data_prediction, store, made
+
+
+def phase_main(dev, data: dict, smi: str):
+    queries, gt_ids = data["queries"], data["gt_ids"]
+    nb, nq = data["centroids"].shape[0], queries.shape[0]
+    t_all = time.perf_counter()
+    index, data_prediction, store, made = flagship_index(dev, data, smi)
 
     def search(q, n_buckets=4, precision="default", k=10):
         return index.search(None, q, None, q, data_prediction, n_buckets=n_buckets,
@@ -1206,6 +1238,10 @@ def phase_main(dev, data: dict, smi: str):
         times100.append(time.perf_counter() - t0)
     # the int8 search(k=100): k_scan 106, the int8 wgmma body with wide lists
     int8_100 = search(queries, precision="int8", k=100)[:2]
+    # the highest search(k=100): k_scan 106, the f32-mode wgmma body with wide lists
+    t0 = time.perf_counter()
+    high_100 = search(queries, precision="highest", k=100)[:2]
+    high_100_s = time.perf_counter() - t0
     launches = read_counts()
     wgmma_launches = scan_kernel.WGMMA_LAUNCHES
     peak = torch.cuda.max_memory_allocated()
@@ -1214,16 +1250,16 @@ def phase_main(dev, data: dict, smi: str):
           "the main path launched the scan kernel and one merge a scan")
     # six default searches (bf16 over the int8 store, k_scan 16: the wgmma
     # body), one highest (f32 over the int8 store: the f32-mode wgmma body),
-    # one int8 (the int8 wgmma body), four at k=100 (the wide-list body) and
-    # one int8 at k=100 (the int8 body with wide lists): none on the
-    # mma.sync body
-    check(launches["scan_pairs"] == 13 and launches[WGMMA_INT8] == 6
+    # one int8 (the int8 wgmma body), four at k=100 (the wide-list body), one
+    # int8 at k=100 (the int8 body with wide lists) and one highest at k=100
+    # (the f32-mode body with wide lists): none on the mma.sync body
+    check(launches["scan_pairs"] == 14 and launches[WGMMA_INT8] == 6
           and launches[WGMMA_F32MODE] == 1 and launches[WGMMA_S8] == 1
           and launches[WGMMA_WIDE] == 4 and launches[WGMMA_S8_WIDE] == 1
-          and wgmma_launches == 13,
-          f"the main path: {launches}, not 13 scans, 6 on the wgmma body, 1 on the f32-mode "
+          and launches[WGMMA_F32MODE_WIDE] == 1 and wgmma_launches == 14,
+          f"the main path: {launches}, not 14 scans, 6 on the wgmma body, 1 on the f32-mode "
           f"wgmma body, 1 on the int8 wgmma body, 4 on the wide-list wgmma body, 1 on the int8 "
-          f"wgmma body with wide lists")
+          f"wgmma body with wide lists, 1 on the f32-mode wgmma body with wide lists")
     check(set(measured) == {"inference", "search", "search_within_buckets", "seq_search", "sort"},
           "measured keys")
     check(one[0].shape == (1, 10) and hundred[0].shape == (100, 10), "small requests' shapes")
@@ -1240,8 +1276,9 @@ def phase_main(dev, data: dict, smi: str):
         f"peak device memory {peak / 1e9:.2f} GB (corpus resident); kernel launches "
         f"{launches}, of the scan's {wgmma_launches} on a wgmma body (one a default "
         f"search, one the highest search, one the int8 search, one a k=100 search, one the "
-        f"int8 k=100 search, each with one merge)  [{smi}]")
-    for what, (dd, ii) in (("k=100", (d100, i100)), ("int8 k=100", int8_100)):
+        f"int8 k=100 search, one the highest k=100 search, each with one merge)  [{smi}]")
+    for what, (dd, ii) in (("k=100", (d100, i100)), ("int8 k=100", int8_100),
+                           ("highest k=100", high_100)):
         check(dd.shape == (nq, 100) and bool(np.isfinite(dd).all()) and bool((ii > 0).all()),
               f"{what}: finite, filled (nq, 100) results")
     mean100 = float(np.mean(times100))
@@ -1278,7 +1315,8 @@ def phase_main(dev, data: dict, smi: str):
         f"{n_tied} ids differ at ties); recall@10 {r_high:.4f}, the same search through the "
         f"scan's plain version {r_plain:.4f}")
     phase_int8_search(queries, res["int8"], plain["int8"], ref_i, search, smi)
-    phase_k100(queries, index, store, d100, i100, int8_100, search, times100, smi)
+    phase_k100(queries, index, store, d100, i100, int8_100, search, times100, smi,
+               high_100=(*high_100, high_100_s))
     full_order = torch.arange(nb, device=dev).repeat(nc, 1)
     fd, fi = restricted_knn(store, qc, full_order, 10)
     fd, fi = fd.cpu().numpy(), fi.cpu().numpy()
@@ -1299,11 +1337,16 @@ def phase_main(dev, data: dict, smi: str):
     for mode in ("bf16", "f32", "int8"):
         timing[f"k106 {mode}"] = flagship_scan(store, queries, order, 106, mode, smi,
                                                "[flagship k=100]")
-    # ... and the int8 scan at list width 64 (k_scan 64)
-    timing["k64 int8"] = flagship_scan(store, queries, order, 64, "int8", smi, "[flagship k=64]")
+    # ... and the int8 and f32 scans at list width 64 (k_scan 64)
+    for mode in ("int8", "f32"):
+        timing[f"k64 {mode}"] = flagship_scan(store, queries, order, 64, mode, smi,
+                                              "[flagship k=64]")
     check(timing["k106 int8"]["body"] == 7 and timing["k64 int8"]["body"] == 7,
           "the flagship's int8 scan at k_scan 106 and 64 did not take the int8 wgmma body with "
           "wide lists")
+    check(timing["k106 f32"]["body"] == 8 and timing["k64 f32"]["body"] == 8,
+          "the flagship's f32 scan at k_scan 106 and 64 did not take the f32-mode wgmma body "
+          "with wide lists")
     merge = merge_vs_plain(store, queries, order, 16, "bf16", timing["bf16"]["ms"], smi)
     scan_s = timing["bf16"]["ms"] / 1e3
     log(f"[split] search at default precision {mean_s:.4f} s per {nq}: navigation "
@@ -1353,7 +1396,7 @@ def phase_int8_search(queries, main_int8, plain, ref_i, search, smi: str, k: int
 
 
 def phase_k100(queries, index, store, d100, i100, int8_100, search, times100, smi: str,
-               nc: int = 1024) -> None:
+               nc: int = 1024, high_100=None) -> None:
     """The main path's ``search(k=100)`` (``d100``, ``i100``, host times
     ``times100``) held to exact kNN over each query's visited buckets:
     recall@100 of its first ``nc`` queries at least 0.999 and within 0.001
@@ -1362,13 +1405,15 @@ def phase_k100(queries, index, store, d100, i100, int8_100, search, times100, sm
     mean of 3); then its ``precision="int8"`` search (``int8_100``: its
     distances and ids) through ``phase_int8_search`` against the same
     exact kNN and the int8 search of the first ``nc`` queries through the
-    scan's plain version."""
+    scan's plain version; then its ``precision="highest"`` search
+    (``high_100``: its distances, ids and host seconds) through
+    ``phase_highest_k100``."""
     t_phase = time.perf_counter()
     nq = queries.shape[0]
     qc = queries[:nc]
     order, _ = index.compute_bucket_order(qc, 4, keep_on_device=True)
-    _, ref_i = restricted_knn(store, qc, order, 100)
-    ref_i = ref_i.cpu().numpy()
+    ref_d, ref_i = restricted_knn(store, qc, order, 100)
+    ref_d, ref_i = ref_d.cpu().numpy(), ref_i.cpu().numpy()
     kernel = bucket_store_module.scan_pairs
     bucket_store_module.scan_pairs = scan_kernel.scan_pairs_reference
     try:
@@ -1378,6 +1423,7 @@ def phase_k100(queries, index, store, d100, i100, int8_100, search, times100, sm
             plain_d, plain_i, _ = search(queries, k=100)
             plain_times.append(time.perf_counter() - t0)
         plain_int8 = search(qc, precision="int8", k=100)
+        plain_high = search(qc, precision="highest", k=100)
     finally:
         bucket_store_module.scan_pairs = kernel
     r_kernel, r_plain = recall(i100[:nc], ref_i, 100), recall(plain_i[:nc], ref_i, 100)
@@ -1395,6 +1441,40 @@ def phase_k100(queries, index, store, d100, i100, int8_100, search, times100, sm
         f"{float(np.mean(times100)):.4f}); these checks took {time.perf_counter() - t_phase:.1f} "
         f"s  [{smi}]")
     phase_int8_search(queries, int8_100, plain_int8, ref_i, search, smi, k=100)
+    if high_100 is not None:
+        phase_highest_k100(queries, high_100, plain_high, ref_d, ref_i, search, smi)
+
+
+def phase_highest_k100(queries, high_100, plain, ref_d, ref_i, search, smi: str) -> None:
+    """The main path's ``precision="highest"`` ``search(k=100)``
+    (``high_100``: its distances, ids and host seconds over all the
+    queries; the f32-mode wgmma body with wide lists at ``k_scan`` 106)
+    against exact kNN over the visited buckets (``ref_d``, ``ref_i``, of the
+    first ``nc`` queries): equal to it (ids differing only at f32 ties),
+    and its recall@100 equal to the same search's with the scan's plain
+    version in the kernel's place (``plain``, over those ``nc``); then
+    three more such searches of all the queries timed (host clock; outside
+    the main path's launch counts)."""
+    t_phase = time.perf_counter()
+    nc, nq = ref_i.shape[0], queries.shape[0]
+    dd, ii, main_s = high_100
+    n_tied = same_neighbors(dd[:nc], ii[:nc], ref_d, ref_i,
+                            "highest k=100 vs visited-bucket exact kNN")
+    r_high, r_plain = recall(ii[:nc], ref_i, 100), recall(plain[1], ref_i, 100)
+    check(r_high == r_plain, f"highest k=100: recall {r_high} vs visited-bucket exact, the "
+          f"same search through the plain version {r_plain}")
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        search(queries, precision="highest", k=100)
+        times.append(time.perf_counter() - t0)
+    log(f"[check k=100] precision=highest: equals visited-bucket exact kNN ({nc} queries, "
+        f"{n_tied} ids differ at ties); recall@100 {r_high:.4f}, the same search through the "
+        f"scan's plain version {r_plain:.4f}; search precision=highest, n_buckets=4, k=100 "
+        f"(k_scan 106, the f32-mode wgmma body with wide lists): the main path's "
+        f"{main_s:.4f} s, reps {[round(t, 4) for t in times]} s, mean "
+        f"{float(np.mean(times)):.4f} s per {nq} queries; these checks took "
+        f"{time.perf_counter() - t_phase:.1f} s  [{smi}]")
 
 
 def flagship_scan(store, queries, order, k: int, mode: str, smi: str, tag: str) -> dict:
@@ -1402,8 +1482,8 @@ def flagship_scan(store, queries, order, k: int, mode: str, smi: str, tag: str) 
     its plain version's and the library call's (``library_scan``: a matmul
     and ``torch.topk(k)`` a bucket) by CUDA events, the bound
     (``scan_work``), and its candidates held to the plain version's; in
-    f32 at ``k_scan`` 16 also both against float64 (the kernel may not be
-    less exact)."""
+    f32 at ``k_scan`` 16, and at every ``k_scan`` over an int8 store, also
+    both against float64 (the kernel may not be less exact)."""
     chunk, d = store.chunk, queries.shape[1]
     plan, sargs = scan_inputs(store, queries, order, 128, mode)
     kw = dict(k=k, qtile=128, chunk=chunk, mode=mode)
@@ -1417,13 +1497,15 @@ def flagship_scan(store, queries, order, k: int, mode: str, smi: str, tag: str) 
     kd, ks = scan_kernel.scan_pairs(*sargs, **kw)
     rd, rs = scan_kernel.scan_pairs_reference(*sargs, **kw)
     err, gap = compare_candidates(kd, ks, rd, rs, mode, f"{tag} {mode} k={k}")
-    if mode == "f32" and k == 16:  # no less exact than cuBLAS's f32: both against float64
+    if mode == "f32" and (k == 16 or store.rows_ref.dtype == torch.int8):
+        # no less exact than cuBLAS's f32: both against float64
         k_err = float64_error(store, sargs[0], plan, kd, ks)
         p_err = float64_error(store, sargs[0], plan, rd, rs)
-        log(f"{tag} scan_pairs f32 against float64 distances, the candidates of the first "
-            f"16 pairs: kernel max|err| {k_err:.3g}, plain {p_err:.3g}")
-        check(k_err <= p_err, f"flagship f32: the kernel's error against float64 {k_err:.3g} "
-              f"exceeds the plain version's {p_err:.3g}")
+        log(f"{tag} scan_pairs f32{'' if k == 16 else f' k_scan {k}'} against float64 "
+            f"distances, the candidates of the first 16 pairs: kernel max|err| {k_err:.3g}, "
+            f"plain {p_err:.3g}")
+        check(k_err <= p_err, f"flagship f32 k={k}: the kernel's error against float64 "
+              f"{k_err:.3g} exceeds the plain version's {p_err:.3g}")
     fma = ""
     if mode == "f32" and store.rows_ref.dtype == torch.float32:
         fma = (f"; the CUDA cores' FMA route {2 * mac / PEAK_OPS['f32'] * 1e3:.3f} ms "
@@ -1588,7 +1670,8 @@ def f32_store_scan(store, queries, order, smi: str, index, data_prediction):
         body = WGMMA_F32X if precision == "highest" else WGMMA_F32
         check(ran["scan_pairs"] == 4 and ran[body] == 4
               and all(ran[b] == 0 for b in (WGMMA_INT8, WGMMA_F32, WGMMA_F32MODE, WGMMA_WIDE,
-                                            WGMMA_F32X, WGMMA_S8, WGMMA_S8_WIDE) if b != body),
+                                            WGMMA_F32X, WGMMA_S8, WGMMA_S8_WIDE,
+                                            WGMMA_F32MODE_WIDE) if b != body),
               f"f32-store {precision} search: {ran} launches, not 4 scans, each one launch of "
               f"the {body}")
         check(dd.shape == (nq, 10) and bool(np.isfinite(dd).all()) and bool((ii > 0).all()),
@@ -2263,12 +2346,13 @@ def phase_build_path(dev, data: dict, smi: str):
     check(per_mode["auto"] == {"scan_pairs": n_search, "scan_merge": n_search, "gather_pairs": 0,
                                "gather_rows": 0, WGMMA_INT8: n_search, WGMMA_F32: 0,
                                WGMMA_F32MODE: 0, WGMMA_WIDE: 0, WGMMA_F32X: 0, WGMMA_S8: 0,
-                               WGMMA_S8_WIDE: 0},
+                               WGMMA_S8_WIDE: 0, WGMMA_F32MODE_WIDE: 0},
           f"auto mode launches one scan and no gather a search: {per_mode['auto']}")
     check(per_mode["kernel"] == {"scan_pairs": n_search, "scan_merge": n_search,
                                  "gather_pairs": n_search, "gather_rows": 0, WGMMA_INT8: n_search,
                                  WGMMA_F32: 0, WGMMA_F32MODE: 0, WGMMA_WIDE: 0,
-                                 WGMMA_F32X: 0, WGMMA_S8: 0, WGMMA_S8_WIDE: 0},
+                                 WGMMA_F32X: 0, WGMMA_S8: 0, WGMMA_S8_WIDE: 0,
+                                 WGMMA_F32MODE_WIDE: 0},
           f"kernel mode launches one scan and one merge gather a search: {per_mode['kernel']}")
     for mode in ("auto", "kernel"):
         t = np.asarray(rounds[mode])
@@ -3482,20 +3566,23 @@ def main() -> None:
             rows[-1]["bodies"] = {
                 "mma.sync": total(name) - total(WGMMA_INT8) - total(WGMMA_F32)
                 - total(WGMMA_F32MODE) - total(WGMMA_WIDE) - total(WGMMA_F32X) - total(WGMMA_S8)
-                - total(WGMMA_S8_WIDE),
+                - total(WGMMA_S8_WIDE) - total(WGMMA_F32MODE_WIDE),
                 "wgmma (bf16 over int8 rows)": total(WGMMA_INT8),
                 "wgmma (bf16 over f32 rows)": total(WGMMA_F32),
                 "wgmma (f32 over int8 rows)": total(WGMMA_F32MODE),
                 "wgmma (bf16 over int8 rows, lists of 64 and 128)": total(WGMMA_WIDE),
                 "wgmma (f32 over f32 rows, six products)": total(WGMMA_F32X),
                 "wgmma (int8 over int8 rows)": total(WGMMA_S8),
-                "wgmma (int8 over int8 rows, lists of 64 and 128)": total(WGMMA_S8_WIDE)}
+                "wgmma (int8 over int8 rows, lists of 64 and 128)": total(WGMMA_S8_WIDE),
+                "wgmma (f32 over int8 rows, lists of 64 and 128)": total(WGMMA_F32MODE_WIDE)}
             check(total(WGMMA_F32MODE) > 0, "no scan launch took the f32-mode wgmma body")
             check(total(WGMMA_WIDE) > 0, "no scan launch took the wide-list wgmma body")
             check(total(WGMMA_F32X) > 0, "no scan launch took the six-term wgmma body")
             check(total(WGMMA_S8) > 0, "no scan launch took the int8 wgmma body")
             check(total(WGMMA_S8_WIDE) > 0,
                   "no scan launch took the int8 wgmma body with wide lists")
+            check(total(WGMMA_F32MODE_WIDE) > 0,
+                  "no scan launch took the f32-mode wgmma body with wide lists")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -415,11 +415,41 @@
 // hides behind the other warpgroup's wgmma); rings of 2 and 3 stages 1.00
 // and 0.97 of four at 106, 1.07 and 1.02 at 64; 32 slots a block 1.18 and
 // 1.29.
+//
+// The Hopper body in f32 mode with wide lists
+// (scan_wgmma_f32mode_wide_kernel<64 | 128>): f32 queries over an int8
+// packed store at list widths 64 and 128 (k_scan 33 to 128:
+// precision="highest" at search(k=100) scans at 106), in place of
+// MmaBody<MODE_F32, int8_t, 64 | 128>.  What bounds the work at the
+// flagship (k_scan 106): the three bf16 passes of the f32-mode body, 16.4
+// ms at the tensor peak.  The design is the two bodies above it put
+// together, each part unchanged: the f32-mode body's block (the int8 ring
+// and producer warps, 32 query slots with the three terms resident as
+// planes of one B tile, the rows widened a box ahead into two sets of A
+// registers in turns, one wgmma m64n(3N)k16 a k-step into a fresh sum a
+// stage, folded with rounded adds) with the wide-list body's lists of
+// width KMAX in the head, marks against each list's k-th and
+// wgmma_select_wide (lanes 0 to 7 of a warp hold its marked queries of
+// the 32 slots).  Three planes of 64 slots would take 294,912 B at d 768,
+// so the block keeps 32; its head takes 51,200 B at width 128 (34,816 B
+// at 64), so with the planes (147,456 B at d 768) and a two-stage ring the
+// widest resident tile is 768 at both widths: F32ModeWideList<KMAX>.  Each
+// (query, row) sum is the width-32 f32-mode body's, bit for bit, so its
+// lists hold the same distances; they match the plain version to the f32
+// parity bar.
+// What it measured (tools/torch_scan_ab.py and tools/torch_scan_probe.py
+// --body wgmma-f32mode-wide on an NVIDIA H100 80GB HBM3 at 700.00 W,
+// PERF.md): 0.49 of the mma.sync body's time at k_scan 106 (46.0 against
+// 94.3 ms) and at 64 (42.9 against 87.0).  The three-plane wgmma bounds
+// it (without it 0.40 of its time); selection and hand-over hide behind
+// the other warpgroup's wgmma but for ~0.14 of it at 106 (~0.07 at 64);
+// no TMA copies 1.00; a ring of three stages at width 64 1.03.
 // The other bodies keep the mma.sync design.
 //
 // What is left for later work:
-//  * f32 over a bf16 store, f32 at list widths past 32, and bf16 over a
-//    bf16 store on the Hopper bodies;
+//  * f32 over a bf16 store, f32 over an f32 store at list widths past 32,
+//    bf16 over an f32 store past 32, and bf16 over a bf16 store on the
+//    Hopper bodies;
 //  * the split's cost: one host read of the plan and one upload of the
 //    work list a launch, and a merge pass; a persistent grid that takes
 //    items from a device-side queue would need neither the read nor the
@@ -1565,6 +1595,31 @@ struct IsS8 : IsS8Wide<TS> {};
 template <>
 struct IsS8<S8Mode> : std::true_type {};
 
+// f32 queries over an int8 packed store at list widths 64 and 128 (k_scan
+// 33 to 128: precision="highest" at search(k=100) scans at 106): the
+// f32-mode body's block (the int8 ring, WQ3 query slots with the three
+// terms resident as planes of one B tile) with lists of width KMAX in its
+// head.  Three planes of 64 slots would take 294,912 B at d 768, so the
+// block keeps 32.  At width 128 and d 768 it takes 231,424 of its 232,448
+// B (head 51,200, ring 32,768, planes 147,456): the widest resident tile is
+// 768, and the ring keeps its two stages (at width 64, head 34,816, a
+// third stage would fit at d 768; it measured 1.03x the time with
+// tools/torch_scan_probe.py).  The tag of that body and the widest
+// resident query tile beside its head and the ring
+template <int KMAX_>
+struct F32ModeWideList {
+  static constexpr int KMAX = KMAX_;
+  static constexpr size_t HEAD = w_head_bytes(WQ3, KMAX);
+  static constexpr int MAX_QD =
+      int((232448 - HEAD - kWRingBytes) / (size_t(W3_KSTEP) / 16 * W_QD_STEP)) * W_QD_STEP;
+};
+static_assert(F32ModeWideList<64>::MAX_QD >= 768 && F32ModeWideList<128>::MAX_QD >= 768,
+              "a 768-wide three-term query tile is resident at list widths 64 and 128");
+template <typename TS>
+struct IsF32ModeWide : std::false_type {};
+template <int KMAX>
+struct IsF32ModeWide<F32ModeWideList<KMAX>> : std::true_type {};
+
 // The ring of the store type TS: int8 rows (WK bytes a box row, 64 depths)
 // or f32 rows (WKF bytes, 32 depths), BOXES boxes a stage, STAGES stages a
 // consumer; and the block around it: its query slots, where its ring starts
@@ -1619,6 +1674,12 @@ struct WRing<S8WideList<KMAX>> : WRing<int8_t> {
                        SLOTS = W_WIDE_SLOTS, K_DEPTHS = WS8_DEPTHS,
                        Q_KSTEP = W_WIDE_SLOTS * WS8_DEPTHS, LIST = KMAX;
   static constexpr size_t BYTES = S8WideList<KMAX>::RING, HEAD = S8WideList<KMAX>::HEAD;
+};
+template <int KMAX>
+struct WRing<F32ModeWideList<KMAX>> : WRing<int8_t> {
+  static constexpr int MAX_QD = F32ModeWideList<KMAX>::MAX_QD, SLOTS = WQ3, TERMS = 3,
+                       Q_KSTEP = W3_KSTEP, LIST = KMAX;
+  static constexpr size_t HEAD = F32ModeWideList<KMAX>::HEAD;
 };
 
 // dynamic shared memory at query width qd
@@ -2526,7 +2587,8 @@ __device__ void wgmma_consume_six(const Params& p, const WSmem<F32X>& s, const W
 // rows, win ties; what lands past k - 1 drops out.  One pass of the
 // candidates, no buffer and no search of the list; its own code (another
 // tile and list layout), so that the mma.sync instances keep theirs.  TS:
-// either wide body (bf16 or int8 queries), lists of width KMAX.
+// any wide body (bf16, int8 or f32 queries; 64 or 32 slots), lists of
+// width KMAX.
 template <typename TS>
 __device__ void wgmma_select_wide(const Params& p, const WSmem<TS>& s, int wg, int nq, int nrows,
                                   int slot0) {
@@ -3019,6 +3081,127 @@ __device__ void wgmma_consume_s8_wide(const Params& p, const WSmem<S8WideList<KM
   }
 }
 
+// The f32-mode consumer warpgroup with wide lists (F32ModeWideList: f32
+// queries over an int8 packed store at list widths 64 and 128):
+// wgmma_consume_terms's walk over its tiles, ring, rows widened a box
+// ahead into two sets of A registers in turns, one wgmma m64n(3N)k16 a
+// k-step into a fresh sum a stage and the fold, with wgmma_consume_wide's
+// lists of width KMAX (the marks against their k-th) and
+// wgmma_select_wide, spelled out so that the other bodies keep their code.  Each (query, row) sum is wgmma_consume_terms's, bit for
+// bit.  N = 16·NL query slots.
+template <int KMAX, int NL>
+__device__ void wgmma_consume_terms_wide(const Params& p, const WSmem<F32ModeWideList<KMAX>>& s,
+                                         const WItem& b, int wg) {
+  using R = WRing<F32ModeWideList<KMAX>>;
+  constexpr int N = 16 * NL, KSTEPS = WK / 16, SLOTS = R::SLOTS;  // KSTEPS: k-steps a box
+  static_assert(W_BOXES == 2, "a stage's two boxes take the two sets of A registers in turns");
+  const int tid = threadIdx.x & 127, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int per_chunk = (p.chunk + WR - 1) / WR, nst = p.qd / W_QD_STEP;
+  const int ntiles = (b.c_hi - b.c_lo) * per_chunk;
+  const uint32_t q_base = smem_u32(s.queries);
+  TileWalk w{b.c_lo, 0};
+  w.advance(wg, per_chunk);
+  int phys = w.c < b.c_hi ? p.chunk_of[w.c] : 0;
+  float* dist = s.dist + wg * SLOTS * WDQ;
+  int cnt = 0;  // stages this warpgroup has taken from its ring
+  unsigned live = 0;  // bit 2n + e: the lane's query slot 8n + 2t + e holds a query
+#pragma unroll
+  for (int n = 0; n < N / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) live |= unsigned(s.q_row[8 * n + 2 * t + e] >= 0) << (2 * n + e);
+
+  // box `box` of the ring's current stage widened into A fragments, as in
+  // wgmma_consume_terms: the first box waits for the stage, the last frees it
+  auto take_box = [&](uint32_t(&a)[KSTEPS][4], int box) {
+    const int slot = cnt % R::STAGES;
+    if (box == 0) mbar_wait(&s.full[wg * R::STAGES + slot], (cnt / R::STAGES) & 1);
+    const unsigned char* x = s.stage(wg, slot) + box * WR * WK + (warp * 16 + g) * WK + t * 16;
+    const uint4 lo = lds128u(x), hi = lds128u(x + 8 * WK);
+    const uint32_t wl[4] = {lo.x, lo.y, lo.z, lo.w}, wh[4] = {hi.x, hi.y, hi.z, hi.w};
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      uint32_t bl[2], bh[2];
+      widen_s8x4(wl[j], bl);
+      widen_s8x4(wh[j], bh);
+      a[j][0] = bl[0];
+      a[j][1] = bh[0];
+      a[j][2] = bl[1];
+      a[j][3] = bh[1];
+    }
+    if (box == W_BOXES - 1) {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&s.empty[wg * R::STAGES + slot]);
+      ++cnt;
+    }
+  };
+
+  for (int i = wg; i < ntiles; i += W_CONSUMERS) {
+    const int r0 = w.t * WR;
+    const int slot0 = phys * p.chunk + r0, nrows = min(WR, p.chunk - r0);
+    w.advance(W_CONSUMERS, per_chunk);  // the next tile's chunk, read while this one runs
+    phys = w.c < b.c_hi ? p.chunk_of[w.c] : 0;
+    float r_scale[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = warp * 16 + g + 8 * h;
+      r_scale[h] = r < nrows ? p.scales[slot0 + r] : 0.0f;  // → +inf distance
+    }
+    float acc[N / 2], fresh[3 * N / 2];  // the running sum; a stage's sums, hi, mid, lo
+#pragma unroll
+    for (int e = 0; e < N / 2; ++e) acc[e] = 0.0f;
+#pragma unroll
+    for (int e = 0; e < 3 * N / 2; ++e) fresh[e] = 0.0f;
+    // the first box of a stage reads a[0], the second a[1]; the next
+    // stage's first box is widened into a[0] while the second box's wgmma runs
+    uint32_t a[2][KSTEPS][4];
+    auto issue = [&](auto buf, int st) {
+      constexpr int B = decltype(buf)::value;
+      wgmma_fence();
+#pragma unroll
+      for (int j = 0; j < KSTEPS; ++j)
+        wgmma_rs_terms<3 * N>(fresh, a[B][j],
+                              query_desc(q_base + (W_KSTEPS * st + KSTEPS * B + j) * R::Q_KSTEP),
+                              B > 0 || j > 0);
+      wgmma_commit();
+    };
+    take_box(a[0], 0);
+    for (int st = 0; st < nst; ++st) {
+      issue(std::integral_constant<int, 0>{}, st);
+      take_box(a[1], 1);
+      issue(std::integral_constant<int, 1>{}, st);
+      wgmma_wait<1>();  // a[0] is free: the first box's wgmma is done
+      hold(a[0]);
+      if (st + 1 < nst) take_box(a[0], 0);
+      wgmma_wait<0>();
+      hold(a[1]);
+      fold_terms(acc, fresh);
+    }
+
+    // the f32-mode epilogue, the marks against the wide list's k-th
+#pragma unroll
+    for (int n = 0; n < N / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int q = 8 * n + 2 * t + e;
+        float v[2];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          v[h] = distance<false>(acc[4 * n + 2 * h + e], r_scale[h], 1.0f);
+          dist[q * WDQ + warp * 16 + g + 8 * h] = v[h];
+        }
+        if (((live >> (2 * n + e)) & 1u) &&
+            fminf(v[0], v[1]) < *static_cast<volatile const float*>(&s.top_d[q * KMAX + p.k - 1]))
+          reinterpret_cast<unsigned char*>(s.q_grp + wg * SLOTS)[q * 4 + (warp >> 1)] = 1;
+      }
+    bar_sync(BAR_WG + wg, 128);
+    if (i > 0) bar_sync(BAR_HANDOVER + wg, 256);  // the tile before is selected (by the warpgroup before)
+    wgmma_select_wide(p, s, wg, N, nrows, slot0);
+    bar_sync(BAR_WG + wg, 128);  // the distance tile is free again
+    if (i + 1 < ntiles) bar_arrive(BAR_HANDOVER + (wg + 1) % W_CONSUMERS, 256);
+  }
+}
+
 template <typename TS>
 __device__ void wgmma_write(const Params& p, const WSmem<TS>& s, const WItem& b, bool fill) {
   const int n_own = min(WSmem<TS>::SLOTS, p.qtile - b.q0);
@@ -3225,6 +3408,34 @@ __global__ void __launch_bounds__(W_THREADS, 1)
   }
 }
 
+// f32 queries (three bf16 terms) over an int8 packed store at list widths
+// 64 and 128: the f32-mode kernel's block, ring and resident planes with
+// the wide-list kernels' lists and selection (spelled out beside the
+// kernels above)
+template <int KMAX>
+__global__ void __launch_bounds__(W_THREADS, 1)
+    scan_wgmma_f32mode_wide_kernel(const __grid_constant__ CUtensorMap rows, Params p) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const WSmem<F32ModeWideList<KMAX>> s(smem);
+  const WItem b = wgmma_begin(p, s);
+  if (b.nl == 0) return wgmma_write(p, s, b, true);
+  const int wg = threadIdx.x / 128;
+  if (wg == W_CONSUMERS) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(W_PRODUCER_REGS) : "memory");
+    if (threadIdx.x % 128 < 32 * W_CONSUMERS && threadIdx.x % 32 == 0)
+      wgmma_produce(&rows, p, s, b, threadIdx.x % 128 / 32);
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(W_CONSUMER_REGS) : "memory");
+    if (b.nl == 1) {  // up to WQ3 / 16
+      wgmma_consume_terms_wide<KMAX, 1>(p, s, b, wg);
+    } else {
+      wgmma_consume_terms_wide<KMAX, 2>(p, s, b, wg);
+    }
+    bar_sync(BAR_CONSUMERS, W_CONSUMERS * 128);
+    wgmma_write(p, s, b, false);
+  }
+}
+
 // The store as a 2-D tensor of n_rows × d values for TMA (boxes of WR rows
 // × WK int8 depths, or × 32 f32 depths under the 128-byte swizzle; zeros
 // past its edges), by cuTensorMapEncodeTiled looked up at run time, so the
@@ -3261,7 +3472,7 @@ cudaError_t row_tensor_map(CUtensorMap* map, const void* store, int n_rows, int 
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-// The bodies: the mma.sync body, or one of the seven wgmma bodies
+// The bodies: the mma.sync body, or one of the eight wgmma bodies
 enum Body {
   BODY_MMA = 0,
   BODY_WGMMA_INT8 = 1,
@@ -3270,7 +3481,8 @@ enum Body {
   BODY_WGMMA_WIDE = 4,
   BODY_WGMMA_F32X = 5,
   BODY_WGMMA_S8 = 6,
-  BODY_WGMMA_S8_WIDE = 7
+  BODY_WGMMA_S8_WIDE = 7,
+  BODY_WGMMA_F32MODE_WIDE = 8
 };
 
 // The wgmma bodies' scope: bf16 or f32 queries over an int8 or f32 packed
@@ -3278,10 +3490,11 @@ enum Body {
 // width 32 and no floor, rows of whole 16 bytes at a 16-byte aligned store,
 // and a resident query tile that fits (d rounded up to W_QD_STEP over an
 // int8 store or W_QD_STEP_F over an f32 store, within W_MAX_QD, W_MAX_QD3,
-// W_MAX_QDS8, W_MAX_QD_F or W_MAX_QDX); and bf16 or int8 queries over an
-// int8 packed store at list widths 64 and 128 (k 33 to 128) on the same
-// terms, the tile within WideList<64 or 128>::MAX_QD or S8WideList<64 or
-// 128>::MAX_QD.  A round under a floor (k
+// W_MAX_QDS8, W_MAX_QD_F or W_MAX_QDX); and bf16, int8 or f32 queries
+// over an int8 packed store at list widths 64 and 128 (k 33 to 128) on the
+// same terms, the tile within WideList<64 or 128>::MAX_QD, S8WideList<64
+// or 128>::MAX_QD or F32ModeWideList<64 or 128>::MAX_QD.  A round under a
+// floor (k
 // past 1024) keeps the mma.sync body of the rounds before it: every round
 // sums a row the same way, or a row at the boundary could be listed twice
 // or not at all.
@@ -3297,11 +3510,15 @@ int wgmma_scope(int mode, int store_type, int k, int d, const void* store, const
     return qd <= (k <= 64 ? S8WideList<64>::MAX_QD : S8WideList<128>::MAX_QD) ? BODY_WGMMA_S8_WIDE
                                                                               : BODY_MMA;
   }
-  if (k > W_LIST)
-    return mode == MODE_BF16 && store_type == STORE_INT8 && d % 16 == 0 &&
-                   qd <= (k <= 64 ? WideList<64>::MAX_QD : WideList<128>::MAX_QD)
-               ? BODY_WGMMA_WIDE
+  if (k > W_LIST) {
+    if (store_type != STORE_INT8 || d % 16 != 0) return BODY_MMA;
+    if (mode == MODE_BF16)
+      return qd <= (k <= 64 ? WideList<64>::MAX_QD : WideList<128>::MAX_QD) ? BODY_WGMMA_WIDE
+                                                                          : BODY_MMA;
+    return qd <= (k <= 64 ? F32ModeWideList<64>::MAX_QD : F32ModeWideList<128>::MAX_QD)
+               ? BODY_WGMMA_F32MODE_WIDE
                : BODY_MMA;
+  }
   if (store_type == STORE_INT8 && d % 16 == 0) {
     if (mode == MODE_BF16 && qd <= W_MAX_QD) return BODY_WGMMA_INT8;
     if (mode == MODE_F32 && qd <= W_MAX_QD3) return BODY_WGMMA_F32MODE;
@@ -3315,7 +3532,8 @@ int wgmma_scope(int mode, int store_type, int k, int d, const void* store, const
 }
 
 // Launches a wgmma body over n_pairs pairs (a block a pair's 64 query
-// slots, or WQ3 / WQX in f32 mode), or reports its blocks an SM
+// slots, or WQ3 / WQX in f32 mode, at every list width), or reports its
+// blocks an SM
 template <typename TS>
 cudaError_t launch_wgmma(const Params& p, int n_pairs, int n_rows, cudaStream_t stream,
                          int* blocks_per_sm) {
@@ -3324,6 +3542,8 @@ cudaError_t launch_wgmma(const Params& p, int n_pairs, int n_rows, cudaStream_t 
     kernel = scan_wgmma_wide_kernel<TS::KMAX>;
   } else if constexpr (IsS8Wide<TS>::value) {
     kernel = scan_wgmma_s8_wide_kernel<TS::KMAX>;
+  } else if constexpr (IsF32ModeWide<TS>::value) {
+    kernel = scan_wgmma_f32mode_wide_kernel<TS::KMAX>;
   } else {
     kernel = std::is_same<TS, float>::value     ? scan_wgmma_f32_kernel
              : std::is_same<TS, F32Mode>::value ? scan_wgmma_f32mode_kernel
@@ -3392,6 +3612,9 @@ cudaError_t dispatch(const Params& p, int mode, int store_type, int body, int n_
   if (body == BODY_WGMMA_S8_WIDE)
     return p.k <= 64 ? launch_wgmma<S8WideList<64>>(p, n_pairs, n_rows, s, blocks_per_sm)
                      : launch_wgmma<S8WideList<128>>(p, n_pairs, n_rows, s, blocks_per_sm);
+  if (body == BODY_WGMMA_F32MODE_WIDE)
+    return p.k <= 64 ? launch_wgmma<F32ModeWideList<64>>(p, n_pairs, n_rows, s, blocks_per_sm)
+                     : launch_wgmma<F32ModeWideList<128>>(p, n_pairs, n_rows, s, blocks_per_sm);
   if (mode == MODE_INT8 && store_type == STORE_INT8)
     return launch<MODE_INT8, int8_t>(p, n_pairs, s, blocks_per_sm);
   if (mode == MODE_F32) {
@@ -3419,7 +3642,8 @@ extern "C" {
 //  * f32 mode over any store: bf16, nt 3, qd a multiple of 32 >= d: per
 //    32-value depth slice the terms hi, mid, lo side by side
 //    (ops/scan_kernel.py::operand_queries); where the call takes a wgmma
-//    body in f32 mode (over an int8 or f32 packed store, k <= 32, ...), a
+//    body in f32 mode (over an int8 packed store, k <= 128, or an f32
+//    packed store, k <= 32, ...), a
 //    row is the three terms' planes hi, mid, lo, qd values each: qd is d
 //    rounded up to W_QD_STEP (128) over an int8 store, each group of 64 in
 //    WGMMA_ORDER, or to W_QD_STEP_F (64) over an f32 store, each group of
@@ -3437,7 +3661,8 @@ extern "C" {
 // 1 the wgmma body over an int8 store, 2 over an f32 store, 3 in f32 mode
 // over an int8 store, 4 over an int8 store at list widths 64 and 128, 5 in
 // f32 mode over an f32 store, 6 in int8 mode, 7 in int8 mode at list
-// widths 64 and 128, as lmi_scan_body named it);
+// widths 64 and 128, 8 in f32 mode over an int8 store at list widths 64
+// and 128, as lmi_scan_body named it);
 // out, the body the call's scope picks.
 // Where the two differ nothing launches and the call returns
 // cudaErrorInvalidValue.  All other pointers are device pointers; nothing
@@ -3518,7 +3743,7 @@ int lmi_scan_body(int k, int mode, int store_type, int d, const void* store, con
   int width = 32;
   while (width < k) width *= 2;
   const bool wide = *body == BODY_WGMMA_WIDE || *body == BODY_WGMMA_S8_WIDE;
-  *block_queries = *body == BODY_WGMMA_F32MODE ? WQ3
+  *block_queries = *body == BODY_WGMMA_F32MODE || *body == BODY_WGMMA_F32MODE_WIDE ? WQ3
                    : *body == BODY_WGMMA_F32X  ? WQX
                    : wide                      ? W_WIDE_SLOTS
                    : wgmma                     ? WQ

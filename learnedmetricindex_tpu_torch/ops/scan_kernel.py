@@ -22,7 +22,7 @@ of a pair whose bucket has no chunks.
   lists back into one (:func:`merge_split_lists`: ``csrc/scan_merge.cu``
   on CUDA, :func:`merge_split_lists_reference` on the CPU).  The lists
   are those of one scan of the whole bucket, bit for bit.
-* Eight bodies: the bf16 queries over an int8 packed store at list width
+* Nine bodies: the bf16 queries over an int8 packed store at list width
   32 (the default search) and over an f32 packed store (the default
   search over ``BuildConfiguration(dtype="float32")``, the CLI's store)
   run the Hopper bodies (wgmma, TMA, a resident query tile of 64 slots a
@@ -31,7 +31,8 @@ of a pair whose bucket has no chunks.
   f32 queries over an int8 or an f32 packed store at list width 32
   (``precision="highest"``, the default of ``sharded_search`` and
   ``scan_buckets``: the three terms of 32 slots a block resident; over an
-  f32 store six products a k-step), and the int8 queries over an int8
+  f32 store six products a k-step) and over an int8 packed store at list
+  widths 64 and 128 (its ``search(k=100)``), and the int8 queries over an int8
   packed store at list width 32 and at list widths 64 and 128
   (``precision="int8"``, and its ``search(k=100)``: s8 wgmma, exact
   integer sums); every other call the mma.sync body.
@@ -50,7 +51,8 @@ of a pair whose bucket has no chunks.
   128; ``WGMMA_F32X_LAUNCHES``: of those, the six-term body in f32 mode
   over an f32 store; ``WGMMA_S8_LAUNCHES``: of those, the body in int8
   mode; ``WGMMA_S8_WIDE_LAUNCHES``: of those, the body in int8 mode at list
-  widths 64 and 128);
+  widths 64 and 128; ``WGMMA_F32MODE_WIDE_LAUNCHES``: of those, the body in
+  f32 mode over an int8 store at list widths 64 and 128);
   ``MERGE_LAUNCHES`` — the merge kernel.
 
 Stores: a packed store is ``(n_slots, d)`` rows with ``(n_slots,)``
@@ -88,7 +90,8 @@ MAX_K = 1024  # the widest top-k list of csrc/scan_pairs.cu: wider k runs in rou
 MAX_QTILE = 128  # QT in csrc/scan_pairs.cu
 #: the bodies as the library numbers them (enum Body in csrc/scan_pairs.cu)
 BODY_NAMES = ("mma.sync", "wgmma", "wgmma over f32", "wgmma in f32 mode", "wgmma wide lists",
-              "wgmma six-term", "wgmma int8", "wgmma int8 wide lists")
+              "wgmma six-term", "wgmma int8", "wgmma int8 wide lists",
+              "wgmma f32-mode wide lists")
 _STORE_TYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
 #: kernel launches made by :func:`scan_pairs` (never by the plain version)
@@ -107,6 +110,9 @@ WGMMA_F32X_LAUNCHES = 0
 WGMMA_S8_LAUNCHES = 0
 #: of WGMMA_LAUNCHES, those that ran the wgmma body in int8 mode at list widths 64 and 128
 WGMMA_S8_WIDE_LAUNCHES = 0
+#: of WGMMA_LAUNCHES, those that ran the wgmma body in f32 mode over an int8
+#: store at list widths 64 and 128
+WGMMA_F32MODE_WIDE_LAUNCHES = 0
 #: merge kernel launches made by :func:`merge_split_lists` (never by its plain version)
 MERGE_LAUNCHES = 0
 
@@ -342,8 +348,8 @@ def operand_queries(queries: torch.Tensor, mode: str, store_dtype: torch.dtype,
     ``"int8"``, for the int8 bodies at every list width), each group of 32 in
     :data:`WGMMA_F32_ORDER` over an f32 store; in mode ``"f32"`` the three
     terms so laid out are planes side by side, ``hi, mid, lo``, ``(n,
-    3·wgmma_qd)``, over an int8 store (the f32-mode body) and over an f32
-    store (the six-term body) alike."""
+    3·wgmma_qd)``, over an int8 store (the f32-mode bodies at every list
+    width) and over an f32 store (the six-term body) alike."""
     if mode == "f32":
         terms, group = split_f32(queries), 32
     else:
@@ -743,6 +749,7 @@ def _launch_items(lib, queries, qscales, qidx, pair_bucket, ptr, chunk_of, store
         raise RuntimeError(f"scan_pairs kernel launch failed: cudaError {err}")
     global LAUNCHES, WGMMA_LAUNCHES, WGMMA_F32_LAUNCHES, WGMMA_F32MODE_LAUNCHES
     global WGMMA_WIDE_LAUNCHES, WGMMA_F32X_LAUNCHES, WGMMA_S8_LAUNCHES, WGMMA_S8_WIDE_LAUNCHES
+    global WGMMA_F32MODE_WIDE_LAUNCHES
     LAUNCHES += 1
     WGMMA_LAUNCHES += ran.value > 0
     WGMMA_F32_LAUNCHES += ran.value == 2
@@ -751,6 +758,7 @@ def _launch_items(lib, queries, qscales, qidx, pair_bucket, ptr, chunk_of, store
     WGMMA_F32X_LAUNCHES += ran.value == 5
     WGMMA_S8_LAUNCHES += ran.value == 6
     WGMMA_S8_WIDE_LAUNCHES += ran.value == 7
+    WGMMA_F32MODE_WIDE_LAUNCHES += ran.value == 8
     return out_d, out_s
 
 

@@ -1028,6 +1028,167 @@ def test_f32mode_kernel_is_no_less_exact_than_plain(cuda, k):
     assert 0.0 < k_err <= p_err, (k_err, p_err)
 
 
+#: the widest resident three-term query tile of the f32-mode wgmma body at
+#: list widths 64 and 128 (F32ModeWideList<64 | 128>::MAX_QD)
+F32MODE_WIDE_MAX_QD = {64: 768, 128: 768}
+
+
+@pytest.mark.parametrize("k", [33, 64, 106, 128])
+@pytest.mark.parametrize("qtile", [1, 37, 128])
+@pytest.mark.parametrize("d", [16, 752, "widest"])
+def test_wgmma_f32mode_wide_body_matches_plain_version(cuda, k, qtile, d):
+    """f32 queries over the int8 packed store at list widths 64 and 128
+    (``precision="highest"`` at k_scan 33 to 128: its ``search(k=100)``),
+    the launches the f32-mode wgmma body with wide lists takes: k at both
+    edges of the widths, query tiles of one and of four 32-slot blocks, d
+    from one k-step to the widest resident three-term tile (768 at both
+    widths; 752 rounded up to it); chunks of 96 rows (1.5 of its 64-row
+    tiles), an empty bucket, padding rows.  The kernel within the f32
+    parity bar of the plain version, no slot twice, exact ties to the
+    earlier row, one launch, and that launch the f32-mode body with wide
+    lists."""
+    d = F32MODE_WIDE_MAX_QD[scan_kernel.list_width(k)] if d == "widest" else d
+    store, queries, order = _body_case(cuda, 96, seed=k + qtile + d, d=d)
+    _, args = scan_inputs(store, queries, order, qtile, "f32")
+    before = (scan_kernel.WGMMA_LAUNCHES, scan_kernel.WGMMA_F32MODE_WIDE_LAUNCHES)
+    ks = _kernel_vs_plain(args, k, qtile, store.chunk, "f32", 1)
+    assert (scan_kernel.WGMMA_LAUNCHES, scan_kernel.WGMMA_F32MODE_WIDE_LAUNCHES) == (
+        before[0] + 1, before[1] + 1)
+    _earlier_copy_first(store, ks, k)
+
+
+@pytest.mark.parametrize("store_kind", ["chunk320", "chunk130", "mutated"])
+@pytest.mark.parametrize("k,qtile", [(36, 100), (106, 128), (128, 8)])
+def test_wgmma_f32mode_wide_body_on_other_stores(cuda, store_kind, k, qtile):
+    """The f32-mode wgmma body with wide lists over chunks that are not
+    whole 64-row tiles (320, 130) and over a mutated store with its chunk
+    lists out of physical order: within the f32 parity bar of the plain
+    version, one launch on that body."""
+    if store_kind == "mutated":
+        store, queries, order, _, _ = _mutated_store(cuda, 768, "int8", seed=k + qtile)
+    else:
+        store, queries, order = _body_case(cuda, int(store_kind[5:]), seed=k + qtile)
+    _, args = scan_inputs(store, queries, order, qtile, "f32")
+    before = scan_kernel.WGMMA_F32MODE_WIDE_LAUNCHES
+    ks = _kernel_vs_plain(args, k, qtile, store.chunk, "f32", 1)
+    assert scan_kernel.WGMMA_F32MODE_WIDE_LAUNCHES == before + 1
+    if store_kind != "mutated":
+        _earlier_copy_first(store, ks, k)
+
+
+@pytest.mark.parametrize("k,qtile", [(106, 128), (128, 37), (64, 100)])
+def test_wgmma_f32mode_wide_body_split_through_the_merge(cuda, k, qtile):
+    """Segments of one chunk (buckets of up to 7 chunks of 96 rows cut into
+    one item a chunk, merged by ``csrc/scan_merge.cu``) give the bits of
+    the f32-mode body with wide lists over whole buckets (a row's sum does
+    not depend on its segment), within the f32 parity bar of the plain
+    version; each run one scan launch on that body and one merge."""
+    store, queries, order = _body_case(cuda, 96, seed=k + 3)
+    plan, args = scan_inputs(store, queries, order, qtile, "f32")
+    before = scan_kernel.WGMMA_F32MODE_WIDE_LAUNCHES
+    whole = _split_kernel(args, plan, store, k, qtile, "f32", 10**6)
+    split = _split_kernel(args, plan, store, k, qtile, "f32", 1)
+    assert scan_kernel.WGMMA_F32MODE_WIDE_LAUNCHES == before + 2
+    assert torch.equal(split[0].view(torch.int32), whole[0].view(torch.int32))
+    assert torch.equal(split[1], whole[1])
+    rd, rs = scan_kernel.scan_pairs_reference(*args, k=k, qtile=qtile, chunk=96, mode="f32")
+    kd, ks, rd, rs = (t.cpu().numpy() for t in (*split, rd, rs))
+    np.testing.assert_array_equal(np.isinf(kd), np.isinf(rd))
+    np.testing.assert_allclose(kd, rd, rtol=1e-4, atol=1e-5)
+    mism = ks != rs
+    np.testing.assert_allclose(kd[mism], rd[mism], rtol=1e-6, atol=5e-6)
+    _earlier_copy_first(store, ks, k)
+
+
+@pytest.mark.parametrize("case", ["virtual k64", "d100 k64", "d784 k64", "d896 k106", "k129"])
+def test_wgmma_f32mode_wide_scope_keeps_the_mma_body(cuda, case):
+    """f32 over int8 rows outside the scope of the f32-mode body with wide
+    lists keeps the mma.sync body: a virtual store over an int8 corpus,
+    int8 rows of 100 bytes (not whole 16 bytes), d 784 at list width 64 and
+    896 at 128 (rounded up to 896, past the widest resident three-term
+    tile, 768), and list width 256 (k 129): within the f32 parity bar of
+    the plain version, no launch on a wgmma body."""
+    words = case.split()
+    k = int(words[-1][1:])
+    if words[0] == "virtual":
+        store, queries, order = _virtual_case(cuda, 768, "int8", seed=11, shuffle=False)
+    else:
+        d = int(words[0][1:]) if len(words) > 1 else 768
+        store, queries, order = _body_case(cuda, 96, seed=39, d=d)
+    _, args = scan_inputs(store, queries, order, 128, "f32")
+    before = scan_kernel.WGMMA_LAUNCHES
+    _kernel_vs_plain(args, k, 128, store.chunk, "f32", 1)
+    assert scan_kernel.WGMMA_LAUNCHES == before
+
+
+@pytest.mark.parametrize("k", [64, 106])
+def test_f32mode_wide_kernel_is_no_less_exact_than_plain(cuda, k):
+    """f32 queries over an int8 packed store of unit rows at d 768 and list
+    widths 64 and 128 (the f32-mode wgmma body with wide lists; 106 is the
+    ``highest`` ``search(k=100)``'s k_scan): the kernel's distances of the
+    candidates it returns are no farther from float64 than the plain
+    version's (cuBLAS SGEMM in full f32) of its own candidates."""
+    data, rng = _corpus(6000, 768, seed=17)
+    store = BucketStore.build_packed_int8(data, rng.integers(0, 4, 6000), 4, chunk=256,
+                                          device=cuda)
+    queries = torch.as_tensor(data[:400] + 0.05 * rng.normal(size=(400, 768)).astype(np.float32),
+                              device=cuda)
+    order = torch.as_tensor(np.stack([rng.choice(4, 2, replace=False) for _ in range(400)]),
+                            device=cuda)
+    _, args = scan_inputs(store, queries, order, 128, "f32")
+    kw = dict(k=k, qtile=128, chunk=256, mode="f32")
+    rows = args[1].reshape(-1, 128).long()
+
+    def error(dists, slots):
+        ok = (slots >= 0) & (rows >= 0)[:, :, None]
+        q = args[0][rows.clamp_min(0)].double()
+        at = slots.long().clamp_min(0)
+        x = args[5][at].double()
+        exact = 1.0 - torch.einsum("pqd,pqkd->pqk", q, x) * args[6][at].double()
+        return float((dists.double() - exact).abs()[ok].max())
+
+    before = scan_kernel.WGMMA_F32MODE_WIDE_LAUNCHES
+    k_err = error(*scan_kernel.scan_pairs(*args, **kw))
+    assert scan_kernel.WGMMA_F32MODE_WIDE_LAUNCHES == before + 1
+    p_err = error(*scan_kernel.scan_pairs_reference(*args, **kw))
+    assert 0.0 < k_err <= p_err, (k_err, p_err)
+
+
+@pytest.mark.parametrize("qtile", [37, 128])
+@pytest.mark.parametrize("chunk", [96, 320])
+def test_f32mode_wide_lists_begin_with_the_width32_lists(cuda, qtile, chunk):
+    """The selection alone: the f32-mode body with wide lists sums each
+    (query, row) as the width-32 f32-mode body does, so the first 32
+    entries of every list at k_scan 106 (sorted by distance) are the
+    width-32 body's list at k_scan 32: the distances bit for bit, the slots
+    too except at exact ties (the 40 duplicated rows tie their copies
+    exactly)."""
+    store, queries, order = _body_case(cuda, chunk, seed=chunk + qtile)
+    _, args = scan_inputs(store, queries, order, qtile, "f32")
+    kw = dict(qtile=qtile, chunk=chunk, mode="f32")
+    before = (scan_kernel.WGMMA_F32MODE_LAUNCHES, scan_kernel.WGMMA_F32MODE_WIDE_LAUNCHES)
+    wd, ws = scan_kernel.scan_pairs(*args, k=106, **kw)
+    nd, ns = scan_kernel.scan_pairs(*args, k=32, **kw)
+    torch.cuda.synchronize()
+    assert (scan_kernel.WGMMA_F32MODE_LAUNCHES, scan_kernel.WGMMA_F32MODE_WIDE_LAUNCHES) == (
+        before[0] + 1, before[1] + 1)
+    wd, ws, nd, ns = (t.cpu().numpy().reshape(-1, t.shape[-1]) for t in (wd, ws, nd, ns))
+    o = np.argsort(wd, axis=1, kind="stable")
+    wd, ws = np.take_along_axis(wd, o, 1), np.take_along_axis(ws, o, 1)
+    o = np.argsort(nd, axis=1, kind="stable")
+    nd, ns = np.take_along_axis(nd, o, 1), np.take_along_axis(ns, o, 1)
+    assert np.isfinite(nd).sum() > 0
+    np.testing.assert_array_equal(wd[:, :32].view(np.uint32), nd.view(np.uint32))
+    # a slot may differ only where its distance ties another entry of the list
+    tied = np.zeros(nd.shape, bool)
+    tied[:, 1:] |= nd[:, 1:] == nd[:, :-1]
+    tied[:, :-1] |= nd[:, :-1] == nd[:, 1:]
+    tied[:, -1] |= wd[:, 32] == wd[:, 31]
+    mism = ws[:, :32] != ns
+    assert not (mism & ~tied).any()
+    assert tied[np.isfinite(nd)].any()
+
+
 @pytest.mark.parametrize("case", ["k33", "k106", "virtual", "k1040"])
 def test_wgmma_f32_scope_keeps_the_mma_body(cuda, case):
     """bf16 over f32 rows outside the wgmma body's scope keeps the mma.sync
@@ -1127,8 +1288,20 @@ def test_wgmma_f32_scope_keeps_the_mma_body(cuda, case):
         ("f32", torch.int8, 16, 1152, False, True, 0),
         ("f32", torch.int8, 16, 904, False, True, 0),  # rows not of whole 16 bytes
         ("f32", torch.int8, 16, 100, False, True, 0),
-        ("f32", torch.int8, 33, 768, False, True, 0),  # list width 64
-        ("f32", torch.int8, 106, 768, False, True, 0),
+        ("f32", torch.int8, 33, 768, False, True, 8),  # list width 64: the f32-mode wide body
+        ("f32", torch.int8, 106, 768, False, True, 8),  # the highest search(k=100)
+        ("f32", torch.int8, 64, 768, False, True, 8),
+        ("f32", torch.int8, 65, 768, False, True, 8),  # list width 128
+        ("f32", torch.int8, 128, 768, False, True, 8),
+        ("f32", torch.int8, 129, 768, False, True, 0),  # list width 256
+        ("f32", torch.int8, 106, 16, False, True, 8),
+        ("f32", torch.int8, 64, 752, False, True, 8),  # rounded up to 768, the widest ...
+        ("f32", torch.int8, 64, 784, False, True, 0),  # ... at width 64; 896 is too wide
+        ("f32", torch.int8, 106, 752, False, True, 8),
+        ("f32", torch.int8, 106, 784, False, True, 0),  # and at width 128
+        ("f32", torch.int8, 106, 100, False, True, 0),  # rows not of whole 16 bytes
+        ("f32", torch.int8, 106, 768, True, True, 0),  # a virtual store
+        ("f32", torch.int8, 106, 768, False, False, 0),  # an unaligned store
         ("f32", torch.int8, 16, 768, True, True, 0),  # a virtual store
         ("f32", torch.int8, 16, 768, False, False, 0),  # an unaligned store
         ("f32", torch.bfloat16, 16, 768, False, True, 0),
@@ -1156,10 +1329,11 @@ def test_library_picks_the_body(cuda, mode, store_dtype, k, d, virtual, aligned,
     terms over either store, 1664 for int8 queries), and bf16 over an int8
     packed store at k 33 to 128 on the same terms (body 4, the tile within
     1024 at list width 64 and 768 at 128), and so int8 queries (body 7, the
-    tile within 1408 at list width 64 and 896 at 128); everything else
-    keeps the mma.sync body (0), and so does every round under a floor.
-    With the body come the width of the query rows it reads and its
-    blocks' query slots (32 for the three terms)."""
+    tile within 1408 at list width 64 and 896 at 128) and f32 queries (body
+    8, the tile within 768 at both widths); everything else keeps the
+    mma.sync body (0), and so does every round under a floor.  With the
+    body come the width of the query rows it reads and its blocks' query
+    slots (32 for the three terms)."""
     lib = cuda_build.load(scan_kernel.SOURCE, scan_kernel._bind)
     flat = torch.zeros(64 * d + 16, dtype=store_dtype, device=cuda)
     store = flat[(0 if aligned else 1):][: 64 * d].view(64, d)
@@ -1171,7 +1345,7 @@ def test_library_picks_the_body(cuda, mode, store_dtype, k, d, virtual, aligned,
     if expect:
         step = 64 if expect in (2, 5) else 128
         assert (body.qd, body.block_queries) == (-(-d // step) * step,
-                                                 32 if expect in (3, 5) else 64)
+                                                 32 if expect in (3, 5, 8) else 64)
     else:
         group = 32 if mode == "f32" else 16
         width = scan_kernel.list_width(k)
@@ -1190,20 +1364,21 @@ def test_wgmma_scope_picks_the_body(cuda, case):
     under its floors, which keeps the body of the round before it, so that
     both sum a row the same way); bf16 at d 96, 1040 and 1152 (the widest
     resident query tile) and at k 33 and 106 (the wide-list body), and f32
-    (the three-term body) at d 96 and 896 (its widest; 912 is past it) take
-    a wgmma body.  Each within the bar of the plain version, the body
-    counted from the library's report of each launch."""
+    (the three-term body) at d 96 and 896 (its widest; 912 is past it) and
+    at k 33 and 106 (the f32-mode body with wide lists) take a wgmma body.
+    Each within the bar of the plain version, the body counted from the
+    library's report of each launch."""
     mode, _, case = case.rpartition(" ")
     mode = mode or "bf16"
     k = {"k33": 33, "k106": 106, "k129": 129, "k1040": 1040}.get(case, 16)
     before = (scan_kernel.WGMMA_LAUNCHES, scan_kernel.WGMMA_F32MODE_LAUNCHES,
-              scan_kernel.WGMMA_WIDE_LAUNCHES)
+              scan_kernel.WGMMA_WIDE_LAUNCHES, scan_kernel.WGMMA_F32MODE_WIDE_LAUNCHES)
     if case == "k1040":  # buckets of ~3,000 rows, wider than one round
         store, queries, order = _wide_case(cuda, "int8", seed=1040)
         _, args = scan_inputs(store, queries, order, 8, mode)
         _kernel_vs_plain(args, k, 8, 256, mode, 2)
         assert (scan_kernel.WGMMA_LAUNCHES, scan_kernel.WGMMA_F32MODE_LAUNCHES,
-                scan_kernel.WGMMA_WIDE_LAUNCHES) == before
+                scan_kernel.WGMMA_WIDE_LAUNCHES, scan_kernel.WGMMA_F32MODE_WIDE_LAUNCHES) == before
         return
     if case == "virtual":
         store, queries, order = _virtual_case(cuda, 768, "int8", seed=3, shuffle=False)
@@ -1219,11 +1394,16 @@ def test_wgmma_scope_picks_the_body(cuda, case):
         chunk = 96
     _, args = scan_inputs(store, queries, order, 128, mode)
     _kernel_vs_plain(args, k, 128, chunk, mode, 1)
-    takes = {"bf16": ("d96", "d1040", "d1152", "k33", "k106"), "f32": ("d96", "d896")}[mode]
+    takes = {"bf16": ("d96", "d1040", "d1152", "k33", "k106"),
+             "f32": ("d96", "d896", "k33", "k106")}[mode]
     n_w = scan_kernel.WGMMA_LAUNCHES - before[0]
     assert n_w == (1 if case in takes else 0)
-    assert scan_kernel.WGMMA_F32MODE_LAUNCHES - before[1] == (n_w if mode == "f32" else 0)
-    assert scan_kernel.WGMMA_WIDE_LAUNCHES - before[2] == (n_w if k > 32 else 0)
+    assert scan_kernel.WGMMA_F32MODE_LAUNCHES - before[1] == (n_w if mode == "f32" and k <= 32
+                                                              else 0)
+    assert scan_kernel.WGMMA_WIDE_LAUNCHES - before[2] == (n_w if mode == "bf16" and k > 32
+                                                           else 0)
+    assert scan_kernel.WGMMA_F32MODE_WIDE_LAUNCHES - before[3] == (n_w if mode == "f32" and k > 32
+                                                                   else 0)
 
 
 @pytest.mark.parametrize("d,laid_out,store_dtype,mode,k", [
@@ -1237,7 +1417,9 @@ def test_wgmma_scope_picks_the_body(cuda, case):
     (768, 5, "int8", "f32", 16), (768, 0, "int8", "int8", 16), (768, 6, "int8", "int8", 33),
     (100, 6, "int8", "int8", 16), (768, 1, "int8", "int8", 16), (768, 6, "int8", "bf16", 16),
     (768, 6, "int8", "f32", 16), (768, 7, "int8", "int8", 16), (768, 0, "int8", "int8", 106),
-    (768, 4, "int8", "int8", 106), (912, 7, "int8", "int8", 106), (768, 7, "int8", "bf16", 106)])
+    (768, 4, "int8", "int8", 106), (912, 7, "int8", "int8", 106), (768, 7, "int8", "bf16", 106),
+    (768, 8, "int8", "f32", 16), (768, 3, "int8", "f32", 106), (768, 0, "int8", "f32", 106),
+    (784, 8, "int8", "f32", 106), (768, 8, "int8", "bf16", 106), (768, 8, "int8", "int8", 64)])
 def test_launch_rejects_queries_laid_out_for_the_other_body(cuda, d, laid_out, store_dtype, mode,
                                                             k):
     """Every launch is held to the body the library picks: queries laid
@@ -1245,10 +1427,11 @@ def test_launch_rejects_queries_laid_out_for_the_other_body(cuda, d, laid_out, s
     wgmma layout where the mma.sync body or another wgmma body runs, in
     bf16 and in f32 mode, over int8 and f32 rows, at list width 32 and 128:
     the width-32 and the wide-list bodies over int8 rows read one layout,
-    and are still held apart, as are the two int8 bodies; int8 queries laid
-    out for an int8 body where the mma.sync body or a bf16 or f32 body
-    runs, and the other way round) launch nothing, raise, and count no
-    launch."""
+    and are still held apart, as are the two int8 bodies and the two
+    f32-mode bodies over int8 rows, which read one layout too; int8
+    queries laid out for an int8 body where the mma.sync body or a bf16 or
+    f32 body runs, and the other way round) launch nothing, raise, and
+    count no launch."""
     data, rng = _corpus(2000, d, seed=6)
     if store_dtype == "int8":
         store = BucketStore.build_packed_int8(data, rng.integers(0, 5, 2000), 5, chunk=96,
@@ -1263,16 +1446,16 @@ def test_launch_rejects_queries_laid_out_for_the_other_body(cuda, d, laid_out, s
                                                                        mode)
     lib = cuda_build.load(scan_kernel.SOURCE, scan_kernel._bind)
     assert scan_kernel.scan_body(lib, st, mode, k).kind != laid_out
-    # the layout of the body laid_out names (bodies 1, 3, 4, 6 and 7: over an
-    # int8 store's order, d rounded up to 128; 2 and 5: over an f32 store's,
-    # to 64)
-    layout_dtype = (torch.int8 if laid_out in (1, 3, 4, 6, 7) else torch.float32
+    # the layout of the body laid_out names (bodies 1, 3, 4, 6, 7 and 8: over
+    # an int8 store's order, d rounded up to 128; 2 and 5: over an f32
+    # store's, to 64)
+    layout_dtype = (torch.int8 if laid_out in (1, 3, 4, 6, 7, 8) else torch.float32
                     if laid_out in (2, 5) else st.dtype)
     step = 64 if laid_out in (2, 5) else 128
     op = scan_kernel.operand_queries(q, mode, layout_dtype, -(-d // step) * step if laid_out else 0)
     counts = ("LAUNCHES", "WGMMA_LAUNCHES", "WGMMA_F32_LAUNCHES", "WGMMA_F32MODE_LAUNCHES",
               "WGMMA_WIDE_LAUNCHES", "WGMMA_F32X_LAUNCHES", "WGMMA_S8_LAUNCHES",
-              "WGMMA_S8_WIDE_LAUNCHES")
+              "WGMMA_S8_WIDE_LAUNCHES", "WGMMA_F32MODE_WIDE_LAUNCHES")
     before = [getattr(scan_kernel, c) for c in counts]
     other = scan_kernel.BODY_NAMES[laid_out]
     with pytest.raises(RuntimeError, match=f"laid out for the {other} body"):
@@ -1677,13 +1860,22 @@ def test_wide_lists_keep_the_tie_rule(cuda, mode, store_dtype, width, qtile):
     plain version; (4) bf16 over the int8 store at widths 64 and 128 (the
     wide-list wgmma body) with integer queries, bit-equal to the plain
     version.  int8 at widths 64 and 128 runs (1) and (3) on the int8 wgmma
-    body with wide lists."""
+    body with wide lists, and f32 over the int8 store on the f32-mode wgmma
+    body with wide lists.  A round under a floor takes the mma.sync body
+    (``wgmma_scope``); the library's rounds are 1024 wide, past every
+    wgmma body, so all of them sum a row alike.  Rounds of 64 or 128 in f32
+    over the int8 store would start on the f32-mode wgmma body, whose sums
+    are not the mma.sync body's bits (it folds every 128 depths, that body
+    every 16), so in (2) their first round runs under a floor that admits
+    every row, and takes the body of the rounds after it."""
     store, queries, order, in_order = _tied_case(cuda, store_dtype, seed=width)
     plan, args = scan_inputs(store, queries, order, qtile, mode)
     s8_wide = mode == "int8" and width <= 128
-    before = scan_kernel.WGMMA_S8_WIDE_LAUNCHES
+    f32_wide = mode == "f32" and store_dtype == "int8" and width <= 128
+    counts = ("WGMMA_S8_WIDE_LAUNCHES", "WGMMA_F32MODE_WIDE_LAUNCHES")
+    before = [getattr(scan_kernel, c) for c in counts]
     ks = _kernel_vs_plain(args, width - 5, qtile, 96, mode, 1)
-    assert scan_kernel.WGMMA_S8_WIDE_LAUNCHES - before == s8_wide
+    assert [getattr(scan_kernel, c) - b for c, b in zip(counts, before)] == [s8_wide, f32_wide]
     _in_scan_order(plan.qidx, plan.pair_bucket, ks, in_order)
 
     k = 2 * width + 5
@@ -1692,6 +1884,9 @@ def test_wide_lists_keep_the_tie_rule(cuda, mode, store_dtype, width, qtile):
     floors = []
 
     def scan_round(q_idx, p_bucket, w, floor):
+        if floor is None and f32_wide:  # (distance −inf, position −1): every row is above it
+            floor = (torch.full(q_idx.shape, -torch.inf, device=cuda),
+                     torch.full(q_idx.shape, -1, dtype=torch.int32, device=cuda))
         floors.append(floor is not None)
         return launch(q_idx, p_bucket, w, floor)
 
@@ -1700,7 +1895,7 @@ def test_wide_lists_keep_the_tie_rule(cuda, mode, store_dtype, width, qtile):
     kd, ks = scan_kernel.scan_in_rounds(scan_round, plan.qidx, plan.pair_bucket, positions,
                                         k=k, qtile=qtile, chunk=96, width=width)
     torch.cuda.synchronize()
-    assert scan_kernel.LAUNCHES - before == len(floors) and floors[:2] == [False, True]
+    assert scan_kernel.LAUNCHES - before == len(floors) and floors[:2] == [f32_wide, True]
     rd, rs = scan_kernel.scan_pairs_reference(*args, k=k, qtile=qtile, chunk=96, mode=mode)
     kd, ks, rd, rs = (t.cpu().numpy() for t in (kd, ks, rd, rs))
     np.testing.assert_array_equal(np.isinf(kd), np.isinf(rd))
@@ -1719,9 +1914,9 @@ def test_wide_lists_keep_the_tie_rule(cuda, mode, store_dtype, width, qtile):
     qidx[0, at:at + 3] = rows
     qidx[1] = -1
     args = (args[0], qidx.reshape(-1), *args[2:])
-    before = scan_kernel.WGMMA_S8_WIDE_LAUNCHES
+    before = [getattr(scan_kernel, c) for c in counts]
     ks = _kernel_vs_plain(args, width - 5, 128, 96, mode, 1)
-    assert scan_kernel.WGMMA_S8_WIDE_LAUNCHES - before == s8_wide
+    assert [getattr(scan_kernel, c) - b for c, b in zip(counts, before)] == [s8_wide, f32_wide]
     _in_scan_order(qidx, plan.pair_bucket, ks, in_order)
     assert (ks[1] == -1).all() and (ks[0, :at] == -1).all() and (ks[0, at + 3:] == -1).all()
 

@@ -267,6 +267,22 @@ def test_no_import_of_the_jax_package(where):
     assert files and offenders == []
 
 
+def test_no_jax_import_in_the_chip_tools():
+    """No line of the card's tools (``tools/torch_*.py``, the A/B, probe,
+    split and search tools) or of chip_smoke.py imports ``jax`` or the JAX
+    package: they run on the GPU machine, which has neither."""
+    files = sorted((ROOT / "tools").glob("torch_*.py")) + [ROOT / "chip_smoke.py"]
+    assert {"torch_scan_ab.py", "torch_scan_probe.py", "torch_search_ab.py"} <= {
+        p.name for p in files}
+    offenders = [
+        f"{path.relative_to(ROOT)}: {name}"
+        for path in files
+        for name in _imported_modules(path)
+        if name.split(".")[0] in ("jax", "jaxlib", "learnedmetricindex_tpu")
+    ]
+    assert offenders == []
+
+
 def test_native_helpers_build_outside_the_packages():
     """The port's native library is built under the checkout's build/, not
     into either package."""

@@ -1364,3 +1364,202 @@ def test_segment_length_counts_the_s8_wide_blocks_m_tiles(width, seed):
     mma = scan_kernel.segment_length(ptr, pair_bucket, live, width=width, slots=slots)
     assert mma == max(1, int(scan_kernel.SEGMENT_SHARE * (chunks * tiles).sum()
                              / (slots * tiles[chunks > 0].max())))
+
+
+# f32 queries over an int8 store at list widths 64 and 128 (the f32-mode
+# wgmma body with wide lists): its block's query slots (WQ3), the bytes of
+# its three resident planes a depth, and its widest resident query tile at
+# each width (F32ModeWideList<64 | 128>::MAX_QD in csrc/scan_pairs.cu)
+F32W_SLOTS = 32
+F32W_MAX_QD = {64: 768, 128: 768}
+
+
+def _source_int(src: str, name: str) -> int:
+    import re
+
+    return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
+
+
+@pytest.mark.parametrize("width", [64, 128])
+def test_f32mode_wide_body_keeps_its_widest_tile_resident(width):
+    """The f32-mode body with wide lists in one block's 232,448 B: the head
+    (its 32 slots' lists of the list width), the ring (two consumers ×
+    W_STAGES stages of two 64 × 64-byte boxes, the f32-mode body's) and
+    the three resident bf16 planes (192 bytes a depth, d rounded up to
+    128).  The widest such tile is 768 at both widths, as the library's
+    scope takes it (the constants here mirror the source's, which the test
+    reads); at d 768 and width 128 the block takes 231,424 B (head 51,200,
+    ring 32,768, planes 147,456), at width 64 a third ring stage would
+    still fit at d 768, and three planes of 64 slots would not fit beside
+    any head."""
+    from learnedmetricindex_tpu_torch.ops import cuda_build
+
+    src = (cuda_build.CSRC / "scan_pairs.cu").read_text()
+    assert _source_int(src, "WQ3") == F32W_SLOTS
+    stages = _source_int(src, "W_STAGES")
+    head = _w_head_bytes(F32W_SLOTS, width, stages, 0)
+    ring = 2 * stages * 2 * 64 * 64
+
+    def block(qd, slots=F32W_SLOTS):
+        return head + ring + 3 * slots * 2 * qd
+
+    widest = F32W_MAX_QD[width]
+    assert widest % QD_STEP == 0 and block(widest) <= 232448 < block(widest + QD_STEP)
+    assert {64: 34816, 128: 51200}[width] == head
+    if width == 128:
+        assert (stages, block(768)) == (2, 231424)
+    else:  # three stages: their barriers fit in the head's rounding
+        assert _w_head_bytes(F32W_SLOTS, width, 3, 0) + 3 * ring // 2 + 3 * 32 * 2 * 768 <= 232448
+    assert 3 * 64 * 2 * 768 == 294912 > 232448 - head
+
+
+def _f32mode_wide_dists(rows: np.ndarray, queries: torch.Tensor, sc: np.ndarray) -> np.ndarray:
+    """The f32-mode bodies' distances as their epilogue computes them:
+    ``_f32mode_raw``'s rounded sums (the width-32 body's arithmetic,
+    which the wide body keeps), then ``distance<false>``: raw·(−row scale)
+    + 1 (+inf on a padding slot), each a rounded f32 operation.
+    ``(queries, slots)``."""
+    raw = _f32mode_raw(rows, queries)
+    dist = (raw * -sc[:, None].astype(np.float32)).astype(np.float32)
+    dist = dist + np.where(sc == 0.0, np.float32(np.inf), np.float32(1.0))[:, None]
+    return np.ascontiguousarray(dist.astype(np.float32).T)
+
+
+def _held_to_f32_bar(md, ms, rd, rs):
+    """Lists ``md``/``ms`` against ``rd``/``rs``, each ascending: the f32
+    parity bar (rtol 1e-4, atol 1e-5), slots differing only at ties (rtol
+    1e-6, atol 1e-7)."""
+    np.testing.assert_array_equal(np.isinf(md), np.isinf(rd))
+    np.testing.assert_allclose(md, rd, rtol=1e-4, atol=1e-5)
+    mism = ms != rs
+    if mism.any():
+        np.testing.assert_allclose(md[mism], rd[mism], rtol=1e-6, atol=1e-7)
+
+
+@pytest.mark.parametrize("k", [33, 64, 106, 128])
+@pytest.mark.parametrize("qtile", [8, 37, 128])
+def test_f32mode_wide_model_gives_the_plain_lists(k, qtile):
+    """The f32-mode body with wide lists, modelled: the width-32 f32-mode
+    body's rounded sums and epilogue (``_f32mode_wide_dists``) and the
+    wide-list selection order over them (``_wide_model_lists``: 64-row
+    tiles taken by two warpgroups in turn, marks against a k-th one tile
+    stale, entries winning ties; the selection is each query's own, so
+    the block's 32 slots change no list) give the plain version's f32
+    lists within the f32 parity bar, slots differing only at ties: int8
+    rows of mixed scales, chunks of 96 rows (1.5 tiles), padding slots, an
+    empty bucket, query tiles of one to four 32-slot blocks."""
+    from learnedmetricindex_tpu_torch.index.bucket_store import BucketStore, scan_inputs
+
+    rng = np.random.default_rng(k + qtile + 900)
+    n, d, nb, chunk, nq = 1500, 96, 5, 96, 70
+    rows = torch.as_tensor(rng.integers(-128, 128, (n, d)), dtype=torch.int8)
+    scales = torch.as_tensor(rng.uniform(0.002, 0.01, n).astype(np.float32))
+    bucket = rng.integers(0, nb, n)
+    bucket[bucket == 3] = 1  # bucket 3 empty
+    store = BucketStore.build_packed_device(rows, bucket, nb, chunk=chunk, row_scales=scales)
+    queries = torch.as_tensor(rng.normal(size=(nq, d)).astype(np.float32) * 0.1)
+    order = torch.as_tensor(np.stack([rng.choice(nb, 2, replace=False) for _ in range(nq)]))
+    order[-5:, 1] = -1
+    _, args = scan_inputs(store, queries, order, qtile, "f32")
+    q, qidx, pb, ptr, chunk_of, st, sc = args[:7]
+    rd, rs = scan_kernel.scan_pairs_reference(*args, k=k, qtile=qtile, chunk=chunk, mode="f32")
+    dist = _f32mode_wide_dists(st.numpy(), q, sc.numpy())
+    md, ms = _wide_model_lists(dist, ptr.numpy(), chunk_of.numpy(), chunk, pb.numpy(),
+                               qidx.numpy(), qtile, k, stale=True)
+    assert np.isfinite(md).sum() > 0 and (ms >= 0).any()
+    _held_to_f32_bar(md, ms, rd.numpy(), rs.numpy())
+
+
+@pytest.mark.parametrize("d,k,qtile", [(96, 64, 16), (256, 106, 8), (128, 128, 37)])
+def test_f32mode_wide_model_matches_pallas_f32_scan(d, k, qtile):
+    """The f32-mode body with wide lists (``_f32mode_wide_dists`` and
+    ``_wide_model_lists``, one tile stale marks) over the JAX package's
+    int8 store and f32 queries gives each real query's top-k over its
+    pair's bucket within the parity bar of the JAX package's f32
+    (Precision.HIGHEST) Pallas scan of the same seeded inputs in interpret
+    mode (rtol 1e-4, atol 1e-5; slots differing only at ties, rtol 1e-6,
+    atol 1e-7), as ``test_wgmma_f32mode_model_matches_pallas_f32_scan``
+    holds the width-32 body."""
+    import jax.numpy as jnp
+
+    from learnedmetricindex_tpu.data import synthetic_blobs
+    from learnedmetricindex_tpu.index.bucket_store import BucketStore as JaxStore
+    from learnedmetricindex_tpu.index.bucket_store import build_scan_plan
+    from learnedmetricindex_tpu.ops.scan_kernel import pallas_host_args, pallas_scan_pairs
+    from learnedmetricindex_tpu_torch.index.bucket_store import build_plan
+
+    n, nb, chunk, nq = 600, 4, 96, 40
+    data, queries = synthetic_blobs(n, d, nq, seed=d + k + 1)
+    rng = np.random.default_rng(d + k + 1)
+    store = JaxStore.build_packed_int8(data, rng.integers(0, nb, size=n), nb, chunk=chunk)
+    order = np.stack([rng.choice(nb, size=2, replace=False) for _ in range(nq)]).astype(np.int64)
+    order[rng.random(nq) < 0.3, -1] = -1
+    plan = build_scan_plan(store, order, qtile=qtile)
+    n_pairs = len(plan.qidx) // qtile
+    im, ic, wr, sf, written = pallas_host_args(store, plan, qtile, n_pairs)
+    qidx = jnp.asarray(plan.qidx)
+    wq = jnp.where((qidx >= 0)[:, None], jnp.asarray(queries)[jnp.maximum(qidx, 0)], 0.0)
+    jd, js = pallas_scan_pairs(
+        wq, jnp.asarray(im), jnp.asarray(ic), jnp.asarray(wr), store.chunk_data,
+        jnp.asarray(sf), None, k=k, qtile=qtile, chunk=chunk, n_pairs=n_pairs,
+        compute="f32", interpret=True)
+    jd, js = np.asarray(jd)[:n_pairs], np.asarray(js)[:n_pairs]
+    dist = _f32mode_wide_dists(np.asarray(store.chunk_data), torch.as_tensor(queries),
+                               np.asarray(sf))
+    pplan = build_plan(torch.as_tensor(order), nb, qtile)
+    assert pplan.n_pairs == n_pairs
+    ptr = np.asarray(store.bucket_chunk_start)
+    md, ms = _wide_model_lists(dist, ptr, np.arange(ptr[-1]), chunk, pplan.pair_bucket.numpy(),
+                               plan.qidx, qtile, k, stale=True)
+    real = (plan.qidx >= 0).reshape(-1, qtile)
+    checked = 0
+    for p in range(n_pairs):
+        if not written[p]:
+            continue
+        for j in np.nonzero(real[p])[0]:
+            o = np.lexsort((js[p, j], jd[p, j]))
+            _held_to_f32_bar(md[p, j], ms[p, j], jd[p, j][o], js[p, j][o])
+            checked += 1
+    assert checked > 0
+
+
+@pytest.mark.parametrize("width", [64, 128])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_segment_length_counts_the_f32mode_wide_blocks_m_tiles(width, seed):
+    """The split's cost model for the f32-mode body with wide lists: a
+    pair's 128 slots are four blocks of its 32 (``Body.block_queries``),
+    each computing its m-tiles up to its last live one (its wgmma's width,
+    three planes of them), at either list width, as for the width-32
+    f32-mode body, which has the same blocks; the f32 mma.sync body those
+    launches took before cost all of a pair's live m-tiles in one block.
+    The segment keeps the heaviest block within the share of a slot's fair
+    share, and a block with no live slot costs nothing."""
+    rng = np.random.default_rng(seed + 60)
+    counts = rng.integers(0, 90, 30)
+    ptr = np.concatenate([[0], np.cumsum(counts)])
+    pair_bucket = rng.integers(0, 30, 50)
+    live = rng.integers(0, 256, 50)
+    live[:4] = [0b1, 0b10000000, 0b00100110, 0]
+    slots = 132  # one block an SM
+    seg = scan_kernel.segment_length(ptr, pair_bucket, live, width=width, slots=slots,
+                                     wgmma_block=F32W_SLOTS)
+    chunks = counts[pair_bucket]
+    blocks = np.zeros((50, 4), np.int64)
+    for p in range(50):
+        for blk in range(4):
+            bits = [(live[p] >> (2 * blk + m)) & 1 for m in range(2)]
+            blocks[p, blk] = max((m + 1 for m in range(2) if bits[m]), default=0)
+    np.testing.assert_array_equal(blocks[:4], [[1, 0, 0, 0], [0, 0, 0, 2], [2, 1, 2, 0],
+                                               [0, 0, 0, 0]])
+    fair = (chunks[:, None] * blocks).sum() / slots
+    heaviest = blocks[chunks > 0].max()
+    assert seg >= 1
+    if seg > 1:
+        assert seg * heaviest <= scan_kernel.SEGMENT_SHARE * fair
+    assert (seg + 1) * heaviest > scan_kernel.SEGMENT_SHARE * fair
+    assert seg == scan_kernel.segment_length(ptr, pair_bucket, live, width=32, slots=slots,
+                                             wgmma_block=F32W_SLOTS)
+    tiles = ((live[:, None] >> np.arange(8)) & 1).sum(axis=1)
+    mma = scan_kernel.segment_length(ptr, pair_bucket, live, width=width, slots=slots)
+    assert mma == max(1, int(scan_kernel.SEGMENT_SHARE * (chunks * tiles).sum()
+                             / (slots * tiles[chunks > 0].max())))

@@ -15,8 +15,8 @@ that only this tree's build has; then times both sides
 in one process on the same inputs, alternating which goes first, and
 checks that both give the same bits (distances and slots) at every
 ``k``, except where only one side takes a wgmma body (bf16 or f32 over an
-int8 packed store at ``k_scan`` <= 32, bf16 and int8 over it at 33 to 128,
-int8 over it at <= 32, as its library's ``lmi_scan_body`` says): wgmma sums in
+int8 packed store at ``k_scan`` <= 32, bf16, int8 and f32 over it at 33 to
+128, int8 over it at <= 32, as its library's ``lmi_scan_body`` says): wgmma sums in
 another order than ``mma.sync``, so there both sides are held to each
 other at the bar of the mode (``chip_smoke.compare_candidates``: in int8
 bit-equal, the integer sums being exact; in f32 also each side's
@@ -117,7 +117,7 @@ def sass(cubin: Path) -> dict:
     ``scan_wgmma_kernel``, ``scan_wgmma_f32_kernel``,
     ``scan_wgmma_f32mode_kernel``, ``scan_wgmma_wide_kernel``,
     ``scan_wgmma_f32x_kernel``, ``scan_wgmma_s8_kernel``,
-    ``scan_wgmma_s8_wide_kernel``) on."""
+    ``scan_wgmma_s8_wide_kernel``, ``scan_wgmma_f32mode_wide_kernel``) on."""
     cuobjdump = Path(cuda_build._nvcc()).with_name("cuobjdump")
     txt = subprocess.run([str(cuobjdump), "-sass", str(cubin)], capture_output=True, text=True,
                          check=True).stdout
@@ -138,7 +138,7 @@ def sass(cubin: Path) -> dict:
         for kernel in ("scan_mma_kernel", "scan_wgmma_kernel", "scan_wgmma_f32_kernel",
                        "scan_wgmma_f32mode_kernel", "scan_wgmma_wide_kernel",
                        "scan_wgmma_f32x_kernel", "scan_wgmma_s8_kernel",
-                       "scan_wgmma_s8_wide_kernel"):
+                       "scan_wgmma_s8_wide_kernel", "scan_wgmma_f32mode_wide_kernel"):
             if kernel in name:
                 name = name[name.find(kernel):]
                 break

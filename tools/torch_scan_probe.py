@@ -3,7 +3,8 @@
 
     python3 tools/torch_scan_probe.py [--body mma|wgmma|mma-f32|wgmma-f32|mma-f32mode|wgmma-f32mode|
                                              mma-wide|wgmma-wide|mma-f32x|wgmma-f32x|mma-s8|
-                                             wgmma-s8|mma-s8-wide|wgmma-s8-wide]
+                                             wgmma-s8|mma-s8-wide|wgmma-s8-wide|
+                                             mma-f32mode-wide|wgmma-f32mode-wide]
                                       [--checkout DIR] [--reference DIR ...]
                                       [--rounds 4] [--only NAME ...]
 
@@ -16,7 +17,9 @@ store (``--body mma-f32``, ``wgmma-f32``: ``chip_smoke.dequantized_store``,
 and the f32 scan over the int8 store (``mma-f32mode``, ``wgmma-f32mode``)
 or over that f32 store (``mma-f32x``, ``wgmma-f32x``), and the int8 scan
 over the int8 store (``mma-s8``, ``wgmma-s8``; at ``k_scan`` 106 and 64,
-list widths 128 and 64, ``mma-s8-wide``, ``wgmma-s8-wide``).
+list widths 128 and 64, ``mma-s8-wide``, ``wgmma-s8-wide``), and the f32
+scan over the int8 store at those widths (``mma-f32mode-wide``,
+``wgmma-f32mode-wide``).
 It writes patched copies of ``DIR``'s
 ``learnedmetricindex_tpu_torch/csrc/scan_pairs.cu`` (default: this
 tree's) into ``build/scan_probe/``, builds each (and
@@ -203,10 +206,28 @@ mode int8 at ``k_scan`` 106 and 64:
 * ``32 slots a block``: a block keeps 32 query slots (a pair takes four
   blocks) in place of 64.
 
-The variants of ``--body wgmma-s8`` and ``--body wgmma-s8-wide`` that
-leave the arithmetic alone (the rings, A from shared memory, the slots a
-block) are held bit-equal to the tree's lists; the other copies' results
-are wrong and are not read.  Then the card's memory
+``--body mma-f32mode-wide``: the mma.sync body's three-term instances
+over the int8 packed store at list widths 128 and 64
+(``MmaBody<MODE_F32, int8_t, 128 | 64>``: a checkout where those scans
+take them, for example the commit before the f32-mode wgmma body with
+wide lists), timed in mode f32 at ``k_scan`` 106 and 64: the variants of
+``--body mma-f32mode``.
+
+``--body wgmma-f32mode-wide``: the f32-mode wgmma body with wide lists,
+timed in mode f32 at ``k_scan`` 106 and 64:
+
+* ``tree``, ``no wgmma``, ``no widening``, ``no TMA``, ``bare``, ``no
+  wgmma, bare`` as for ``--body wgmma-f32mode``;
+* ``no selection``, ``no hand-over``, ``no merge`` as for ``--body
+  wgmma-wide``;
+* ``ring of 3 stages at width 64``: three stages a consumer in place of
+  2 at list width 64 (the width-128 instance is the tree's: at 106 it
+  reads the spread between two builds of one source).
+
+The variants of ``--body wgmma-s8``, ``--body wgmma-s8-wide`` and
+``--body wgmma-f32mode-wide`` that leave the arithmetic alone (the rings,
+A from shared memory, the slots a block) are held bit-equal to the tree's
+lists; the other copies' results are wrong and are not read.  Then the card's memory
 rates: a ~1 GB device-to-device copy (HBM: bytes read + written) and a
 sum over a 20 MB and a 40 MB buffer read again and again (L2).  Prints
 one ``[probe]`` line a variant and ``k_scan`` and writes
@@ -639,11 +660,30 @@ WGMMA_S8_WIDE_VARIANTS = {
     "bare": W_NO_TMA + WW_NO_HANDOVER,
     "no wgmma, bare": WS8_NO_WGMMA + W_NO_TMA + WW_NO_HANDOVER,
 }
+# the f32-mode wgmma body with wide lists: its ring's depth at width 64
+W3W_STAGES3 = [("  static constexpr size_t HEAD = F32ModeWideList<KMAX>::HEAD;\n",
+                "  static constexpr int STAGES = KMAX == 64 ? 3 : W_STAGES;\n"
+                "  static constexpr size_t HEAD = w_head_bytes(WQ3, KMAX, STAGES),\n"
+                "                          BYTES = size_t(W_CONSUMERS) * STAGES * W_STAGE;\n")]
+WGMMA_F32MODE_WIDE_VARIANTS = {
+    "tree": [],
+    "no wgmma": W_NO_WGMMA,
+    "no widening": W_NO_WIDEN,
+    "no selection": WW_NO_SELECTION,
+    "no hand-over": WW_NO_HANDOVER,
+    "no merge": WW_NO_MERGE,
+    "no TMA": W_NO_TMA,
+    "ring of 3 stages at width 64": W3W_STAGES3,
+    "bare": W_NO_TMA + W_NO_WIDEN + WW_NO_HANDOVER,
+    "no wgmma, bare": W_NO_WGMMA + W_NO_TMA + W_NO_WIDEN + WW_NO_HANDOVER,
+}
 # the variants whose lists must stay the tree's, bit for bit
 EXACT = {"selection: one load a query", "ring of 2 stages", "ring of 3 stages",
          "ring of 5 stages", "ring of 6 stages", "A from shared memory",
          "A from shared memory, ring of 2 stages"}
 EXACT_S8_WIDE = {"ring of 2 stages", "ring of 3 stages", "32 slots a block"}
+EXACT_BY_BODY = {"wgmma-s8-wide": EXACT_S8_WIDE,
+                 "wgmma-f32mode-wide": {"ring of 3 stages at width 64"}}
 # ... and those that read the queries in depth order (A from shared memory
 # reads each row's depths in order, not in WGMMA_S8_ORDER)
 IN_ORDER = {"A from shared memory", "A from shared memory, ring of 2 stages"}
@@ -653,7 +693,8 @@ VARIANTS = {"mma": MMA_VARIANTS, "wgmma": WGMMA_VARIANTS, "mma-f32": MMA_F32_VAR
             "wgmma-wide": WGMMA_WIDE_VARIANTS, "mma-f32x": MMA_F32X_VARIANTS,
             "wgmma-f32x": WGMMA_F32X_VARIANTS, "mma-s8": MMA_S8_VARIANTS,
             "wgmma-s8": WGMMA_S8_VARIANTS, "mma-s8-wide": MMA_S8_VARIANTS,
-            "wgmma-s8-wide": WGMMA_S8_WIDE_VARIANTS}
+            "wgmma-s8-wide": WGMMA_S8_WIDE_VARIANTS, "mma-f32mode-wide": MMA_F32MODE_VARIANTS,
+            "wgmma-f32mode-wide": WGMMA_F32MODE_WIDE_VARIANTS}
 # ptxas's report of the instance each body runs
 INSTANCE = {"mma": "scan_mma_kernelILi1EaLi32E", "wgmma": "scan_wgmma_kernel",
             "mma-f32": "scan_mma_kernelILi1EfLi32E", "wgmma-f32": "scan_wgmma_f32_kernel",
@@ -662,17 +703,21 @@ INSTANCE = {"mma": "scan_mma_kernelILi1EaLi32E", "wgmma": "scan_wgmma_kernel",
             "wgmma-wide": "scan_wgmma_wide_kernelILi128E", "mma-f32x": "scan_mma_kernelILi0EfLi32E",
             "wgmma-f32x": "scan_wgmma_f32x_kernel", "mma-s8": "scan_mma_kernelILi2EaLi32E",
             "wgmma-s8": "scan_wgmma_s8_kernel", "mma-s8-wide": "scan_mma_kernelILi2EaLi128E",
-            "wgmma-s8-wide": "scan_wgmma_s8_wide_kernel"}
+            "wgmma-s8-wide": "scan_wgmma_s8_wide_kernel",
+            "mma-f32mode-wide": "scan_mma_kernelILi0EaLi128E",
+            "wgmma-f32mode-wide": "scan_wgmma_f32mode_wide_kernel"}
 # the scan mode each body runs in, and the kernel that the checkout must have
 # (wgmma bodies) or must not have (the mma.sync body those replace)
 BODY_MODE = {"mma": "bf16", "wgmma": "bf16", "mma-f32": "bf16", "wgmma-f32": "bf16",
              "mma-f32mode": "f32", "wgmma-f32mode": "f32", "mma-wide": "bf16",
              "wgmma-wide": "bf16", "mma-f32x": "f32", "wgmma-f32x": "f32", "mma-s8": "int8",
-             "wgmma-s8": "int8", "mma-s8-wide": "int8", "wgmma-s8-wide": "int8"}
+             "wgmma-s8": "int8", "mma-s8-wide": "int8", "wgmma-s8-wide": "int8",
+             "mma-f32mode-wide": "f32", "wgmma-f32mode-wide": "f32"}
 # the k_scan each body is timed at: the default search's 16, search(k=100)'s
-# 106 (the int8 wide lists also at 64, list width 64)
+# 106 (the int8 and f32 wide lists also at 64, list width 64)
 BODY_K = {"mma-wide": (106,), "wgmma-wide": (106,), "mma-s8-wide": (106, 64),
-          "wgmma-s8-wide": (106, 64)}
+          "wgmma-s8-wide": (106, 64), "mma-f32mode-wide": (106, 64),
+          "wgmma-f32mode-wide": (106, 64)}
 BODY_KERNEL = {"mma": "scan_wgmma_kernel", "wgmma": "scan_wgmma_kernel",
                "mma-f32": "scan_wgmma_f32_kernel", "wgmma-f32": "scan_wgmma_f32_kernel",
                "mma-f32mode": "scan_wgmma_f32mode_kernel",
@@ -681,7 +726,9 @@ BODY_KERNEL = {"mma": "scan_wgmma_kernel", "wgmma": "scan_wgmma_kernel",
                "mma-f32x": "scan_wgmma_f32x_kernel", "wgmma-f32x": "scan_wgmma_f32x_kernel",
                "mma-s8": "scan_wgmma_s8_kernel", "wgmma-s8": "scan_wgmma_s8_kernel",
                "mma-s8-wide": "scan_wgmma_s8_wide_kernel",
-               "wgmma-s8-wide": "scan_wgmma_s8_wide_kernel"}
+               "wgmma-s8-wide": "scan_wgmma_s8_wide_kernel",
+               "mma-f32mode-wide": "scan_wgmma_f32mode_wide_kernel",
+               "wgmma-f32mode-wide": "scan_wgmma_f32mode_wide_kernel"}
 
 
 def patched(source: str, edits) -> str:
@@ -767,7 +814,7 @@ def main() -> None:
     if args.body.endswith(("f32", "f32x")):
         store = cs.dequantized_store(store)
         what = f"{mode} over an f32 store ({store.chunk_data.numel() * 4 / 1e9:.1f} GB)"
-    exact = EXACT_S8_WIDE if args.body == "wgmma-s8-wide" else EXACT
+    exact = EXACT_BY_BODY.get(args.body, EXACT)
     by_k = {}
     for k in BODY_K.get(args.body, (16,)):
         runs = {n: ab.launcher(side, store, queries, order, mode, k) for n, side in sides.items()}
