@@ -45,11 +45,15 @@ phases:
    and f32 rows), int8 over the int8 store at k 33 and at the widest
    tiles of its wide-list body (d 1408 at list width 64, 896 at 128), f32
    over the int8 store at k 33, 64 and 106 (its wide-list body, d 752
-   rounded up to its widest tile, 768), and the launches there that keep
+   rounded up to its widest tile, 768), bf16 over the f32 store at k 33,
+   64 and 106 (its wide-list body, d 752 and 100), and the launches there
+   that keep
    the mma.sync body (virtual stores, int8 and f32 at k 64 among them,
    int8 rows of 100 bytes, int8 at k 64 and 106 past that body's widest
    tiles, f32 over int8 rows of 100 bytes at k 64 and past its wide-list
-   body's widest tile (d 784 at k 64, 896 at 106), d 900 and 102 over f32
+   body's widest tile (d 784 at k 64, 896 at 106), bf16 over f32 rows past
+   the wide body's widest tile (d 800 at k 64, 772 at 106) and of 408
+   bytes at k 64, d 900 and 102 over f32
    rows, f32 over int8 rows at d 1040, f32 over f32 rows at k 33, k 1040
    in rounds under floors), each case naming the body its launches took;
 4. corpus: a seeded 10M×768 int8 corpus (+ f32 row scales) on the
@@ -93,15 +97,19 @@ phases:
    16, the mma.sync body at 106) at ``k_scan`` 16 and 106 against its plain
    version, cuBLAS SGEMM + ``torch.topk`` (TF32 off) and its bound (six
    bf16 passes, the CUDA cores' FMA route beside it), at 16 both against
-   float64; the scan in bf16 over it at 16 (the wgmma body over f32 rows:
-   the default search over ``BuildConfiguration(dtype="float32")``) beside
-   its plain version, the library call and the bound, with the bytes read
-   if each pair or each block read its bucket once; whole
-   ``search(precision="highest")`` and default searches over that store,
-   the first equal to exact kNN over the visited buckets and of the same
-   recall as the search through the scan's plain version, each one launch
-   of the six-term wgmma body, each default search one launch of the
-   wgmma body over f32 rows;
+   float64; the scan in bf16 over it at 106 and 64 (the wgmma body over
+   f32 rows with wide lists: the default ``search(k=100)`` over
+   ``BuildConfiguration(dtype="float32")``) and at 16 (the wgmma body over
+   f32 rows: its default search) beside its plain version, the library
+   call and the bound, with the bytes read if each pair or each block read
+   its bucket once, and the peak device memory of those scans; whole
+   ``search(precision="highest")`` and default searches over that store at
+   k 10 and a default ``search(k=100)``, the first equal to exact kNN over
+   the visited buckets and of the same recall as the search through the
+   scan's plain version, each one launch of the six-term wgmma body, each
+   default search one launch of the wgmma body over f32 rows (at k 100
+   with wide lists), held to the same search through the scan's plain
+   version at the bf16 bar, both recalls printed;
    then the same index over a virtual store of the device corpus
    (``get_bucket_store``: the id grid, no copy): default and ``highest``
    searches equal to the packed store's, a ``k=1100`` search equal to
@@ -236,11 +244,11 @@ BF16_ATOL, BF16_SAME_IDS = 3e-3, 0.99
 # terms must miss the bar, or the check could not tell the bodies apart
 SPLIT_REL_ERR = 2.0**-20
 REPLACES = "learnedmetricindex_tpu/ops/scan_kernel.py:325"
-# read_counts' keys of the scan's launches on its eight wgmma bodies (bf16
+# read_counts' keys of the scan's launches on its nine wgmma bodies (bf16
 # over int8 rows, bf16 over f32 rows, f32 over int8 rows, bf16 over int8
 # rows at list widths 64 and 128, f32 over f32 rows, int8 over int8 rows,
 # int8 over int8 rows at list widths 64 and 128, f32 over int8 rows at
-# list widths 64 and 128)
+# list widths 64 and 128, bf16 over f32 rows at list widths 64 and 128)
 WGMMA_INT8, WGMMA_F32 = "scan_pairs wgmma body", "scan_pairs wgmma f32 body"
 WGMMA_F32MODE = "scan_pairs wgmma f32-mode body"
 WGMMA_WIDE = "scan_pairs wgmma wide-list body"
@@ -248,6 +256,7 @@ WGMMA_F32X = "scan_pairs wgmma six-term body"
 WGMMA_S8 = "scan_pairs wgmma int8 body"
 WGMMA_S8_WIDE = "scan_pairs wgmma int8 wide-list body"
 WGMMA_F32MODE_WIDE = "scan_pairs wgmma f32-mode wide-list body"
+WGMMA_F32_WIDE = "scan_pairs wgmma f32 wide-list body"
 KERNEL_SOURCE = "learnedmetricindex_tpu_torch/csrc/scan_pairs.cu"
 # the merge of a split scan takes the place of the Pallas kernel's running
 # top-k across a pair's chunks (its `insert`, carried in VMEM chunk to chunk)
@@ -442,23 +451,26 @@ def reset_counts() -> None:
     scan_kernel.WGMMA_S8_LAUNCHES = 0
     scan_kernel.WGMMA_S8_WIDE_LAUNCHES = 0
     scan_kernel.WGMMA_F32MODE_WIDE_LAUNCHES = 0
+    scan_kernel.WGMMA_F32_WIDE_LAUNCHES = 0
     scan_kernel.MERGE_LAUNCHES = 0
     gather_kernel.LAUNCHES = 0
     gather_kernel.PAIR_LAUNCHES = 0
 
 
 def read_counts() -> dict:
-    """Launches a kernel; of the scan's, those of its eight wgmma bodies
+    """Launches a kernel; of the scan's, those of its nine wgmma bodies
     (bf16 over int8 rows, bf16 over f32 rows, f32 over int8 rows, bf16 over
     int8 rows at list widths 64 and 128, f32 over f32 rows, int8 over int8
     rows, int8 over int8 rows at list widths 64 and 128, f32 over int8 rows
-    at list widths 64 and 128), the rest on the mma.sync body."""
+    at list widths 64 and 128, bf16 over f32 rows at list widths 64 and
+    128), the rest on the mma.sync body."""
     bodies = body_launches()
     return {"scan_pairs": scan_kernel.LAUNCHES, "scan_merge": scan_kernel.MERGE_LAUNCHES,
             "gather_pairs": gather_kernel.PAIR_LAUNCHES, "gather_rows": gather_kernel.LAUNCHES,
             WGMMA_INT8: bodies[1], WGMMA_F32: bodies[2], WGMMA_F32MODE: bodies[3],
             WGMMA_WIDE: bodies[4], WGMMA_F32X: bodies[5], WGMMA_S8: bodies[6],
-            WGMMA_S8_WIDE: bodies[7], WGMMA_F32MODE_WIDE: bodies[8]}
+            WGMMA_S8_WIDE: bodies[7], WGMMA_F32MODE_WIDE: bodies[8],
+            WGMMA_F32_WIDE: bodies[9]}
 
 
 def body_launches() -> dict:
@@ -467,7 +479,7 @@ def body_launches() -> dict:
     others = {2: scan_kernel.WGMMA_F32_LAUNCHES, 3: scan_kernel.WGMMA_F32MODE_LAUNCHES,
               4: scan_kernel.WGMMA_WIDE_LAUNCHES, 5: scan_kernel.WGMMA_F32X_LAUNCHES,
               6: scan_kernel.WGMMA_S8_LAUNCHES, 7: scan_kernel.WGMMA_S8_WIDE_LAUNCHES,
-              8: scan_kernel.WGMMA_F32MODE_WIDE_LAUNCHES}
+              8: scan_kernel.WGMMA_F32MODE_WIDE_LAUNCHES, 9: scan_kernel.WGMMA_F32_WIDE_LAUNCHES}
     return {1: scan_kernel.WGMMA_LAUNCHES - sum(others.values()), **others}
 
 
@@ -620,14 +632,16 @@ def wgmma_kind(store, mode: str, k: int) -> int:
     """The wgmma body that a launch at ``k`` in ``mode`` over ``store`` takes
     where it takes one: in int8 mode the int8 body (above list width 32 the
     int8 body with wide lists); else above list width 32 the f32-mode body
-    with wide lists in f32 mode, else the wide-list body; over f32 rows the
-    six-term body in f32 mode, else the body over f32 rows; over int8 rows
-    the f32-mode body in f32 mode, else the bf16 body over int8 rows."""
+    with wide lists in f32 mode, else (bf16) the wide-list body over f32
+    rows or over int8 rows; over f32 rows the six-term body in f32 mode,
+    else the body over f32 rows; over int8 rows the f32-mode body in f32
+    mode, else the bf16 body over int8 rows."""
+    f32_rows = store.rows_ref.dtype == torch.float32
     if mode == "int8":
         return 7 if k > 32 else 6
     if k > 32:
-        return 8 if mode == "f32" else 4
-    if store.rows_ref.dtype == torch.float32:
+        return 8 if mode == "f32" else 9 if f32_rows else 4
+    if f32_rows:
         return 5 if mode == "f32" else 2
     return 3 if mode == "f32" else 1
 
@@ -847,13 +861,17 @@ def width32_cases(dev, worst: dict) -> None:
     16; int8 over int8 rows at k 33 and at the widest tiles of the int8
     body with wide lists (d 1408 at k 64, 896 at k 106); f32 over int8
     rows at k 33 and 64 and at d 752 (rounded up to 768, the widest tile of
-    the f32-mode body with wide lists) at k 106.  Then the launches that
+    the f32-mode body with wide lists) at k 106; bf16 over f32 rows at k 33
+    and 64, at d 752 (rounded up to 768, the widest tile of the body over
+    f32 rows with wide lists) and d 100 at k 106.  Then the launches that
     keep the mma.sync body at width 32 or just past it: virtual int8 and
     f32 stores (int8 and f32 queries over the int8 corpus at k 64 too),
     int8 rows of 100 bytes (at k 16 and 64; f32 queries over them at 64),
     int8 queries past the wide-list int8 body's widest tiles (d 1520 at k
     64, 912 at k 106), f32 queries past the f32-mode wide body's (d 784 at
-    k 64, 896 at k 106), d 900 (past the widest f32 tiles), f32 rows of
+    k 64, 896 at k 106), bf16 queries past the wide body's over f32 rows
+    (d 800 at k 64, 772 at k 106) and over f32 rows of 408 bytes at k 64,
+    d 900 (past the widest f32 tiles), f32 rows of
     408 bytes (d 102), f32 over int8 rows at d 1040 (past its widest tile),
     f32 over f32 rows at k 33 (list width 64), and
     k 1040 over buckets of ~4,000 rows of either type (a 1024-wide round,
@@ -919,6 +937,9 @@ def width32_cases(dev, worst: dict) -> None:
             (912, "int8", "int8", 0, 106),
             (768, "int8", "f32", 1, 33), (768, "int8", "f32", 1, 64), (752, "int8", "f32", 1, 106),
             (100, "int8", "f32", 0, 64), (784, "int8", "f32", 0, 64), (896, "int8", "f32", 0, 106),
+            (768, "f32", "bf16", 1, 33), (768, "f32", "bf16", 1, 64), (752, "f32", "bf16", 1, 106),
+            (100, "f32", "bf16", 1, 106), (800, "f32", "bf16", 0, 64), (772, "f32", "bf16", 0, 106),
+            (102, "f32", "bf16", 0, 64),
             (896, "f32", "bf16", 1, 16), (840, "f32", "bf16", 1, 16), (100, "f32", "bf16", 1, 16),
             (896, "int8", "f32", 1, 16), (832, "int8", "f32", 1, 16), (896, "f32", "f32", 1, 16),
             (840, "f32", "f32", 1, 32), (100, "f32", "f32", 1, 16), (16, "f32", "f32", 1, 32),
@@ -1612,19 +1633,22 @@ def f32_store_scan(store, queries, order, smi: str, index, data_prediction):
     layout, scales 1.0 on live slots and 0 on padding.  The scan in f32
     (``precision="highest"``) at ``k_scan`` 16 (the six-term wgmma body)
     and 106 (the six-term mma.sync body) and in bf16 (the default
-    precision, the wgmma body over f32 rows) at 16 (``flagship_scan``: the
-    kernel, its plain version, whose candidates it must agree with, the
-    library call, the bound, the body the launch took; in f32 at 16 the
-    float64 gate), then whole searches of the 10k queries over that store
-    at visit 4, k 10, at ``highest`` and at the default precision, their
-    launches counted (each ``highest`` search one launch of the six-term
-    wgmma body, each default search one of the wgmma body over f32 rows):
-    seconds per 10k; for 256 queries ``highest`` equal to
-    exact kNN over the visited buckets (ids differing only at ties, recall
-    >= 0.999), the default search within the bf16 bar of the same search
-    through the scan's plain version, both recalls against exact kNN over
-    the visited buckets printed.  Returns the timings and the searches'
-    launch counts."""
+    precision) at 106 and 64 (the wgmma body over f32 rows with wide
+    lists, each scan one launch on it) and at 16 (the wgmma body over f32
+    rows) (``flagship_scan``: the kernel, its plain version, whose
+    candidates it must agree with, the library call, the bound, the body
+    the launch took; in f32 at 16 the float64 gate), then whole searches
+    of the 10k queries over that store at visit 4: k 10 at ``highest``
+    and at the default precision, and k 100 at the default precision (the
+    default ``search(k=100)``, k_scan 106), their launches counted (each
+    ``highest`` search one launch of the six-term wgmma body, each default
+    search one of the wgmma body over f32 rows, at k 100 with wide
+    lists): seconds per 10k; ``highest`` equal to exact kNN over the
+    visited buckets for 256 queries (ids differing only at ties, recall
+    >= 0.999), each default search within the bf16 bar of the same search
+    through the scan's plain version (256 queries at k 10, 1,024 at k
+    100), both recalls against exact kNN over the visited buckets printed.
+    Returns the timings and the searches' launch counts."""
     f32 = dequantized_store(store)
     tag = f"[flagship f32 store, {f32.chunk_data.numel() * 4 / 1e9:.2f} GB]"
     timing = {"f32 store": flagship_scan(f32, queries, order, 16, "f32", smi, tag),
@@ -1634,53 +1658,68 @@ def f32_store_scan(store, queries, order, smi: str, index, data_prediction):
           f"at 106, not bodies {timing['f32 store']['body']} and "
           f"{timing['f32 store k106']['body']}")
     torch.cuda.reset_peak_memory_stats()
+    # the default search(k=100)'s scan (k_scan 106, list width 128) and list
+    # width 64: every launch one of the wgmma body over f32 rows with wide lists
+    for k in (106, 64):
+        before = scan_kernel.LAUNCHES, scan_kernel.WGMMA_F32_WIDE_LAUNCHES
+        timing[f"f32 store bf16 k{k}"] = t = flagship_scan(f32, queries, order, k, "bf16", smi, tag)
+        ran = scan_kernel.LAUNCHES - before[0], scan_kernel.WGMMA_F32_WIDE_LAUNCHES - before[1]
+        check(t["body"] == 9 and ran[0] > 0 and ran[0] == ran[1],
+              f"the bf16 scan over the f32 store at k_scan {k}: body {t['body']}, {ran[0]} "
+              f"launches, {ran[1]} of them on the wgmma body over f32 rows with wide lists")
     before = scan_kernel.WGMMA_F32_LAUNCHES
     timing["f32 store bf16"] = flagship_scan(f32, queries, order, 16, "bf16", smi, tag)
     check(scan_kernel.WGMMA_F32_LAUNCHES > before,
           "the bf16 scan over the f32 store ran the wgmma body over f32 rows")
-    log(f"{tag} peak device memory while the bf16 scan, its plain version and the library "
-        f"call (its bf16 copy of the visited slabs) ran beside the int8 and f32 stores: "
-        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB  [{smi}]")
+    log(f"{tag} peak device memory while the bf16 scans at k_scan 106, 64 and 16, their plain "
+        f"version and the library call (its bf16 copy of the visited slabs) ran beside the int8 "
+        f"and f32 stores: {torch.cuda.max_memory_allocated() / 1e9:.2f} GB  [{smi}]")
 
-    def search(q, precision):
-        return index.search(None, q, None, q, data_prediction, n_buckets=4, k=10, store=f32,
+    def search(q, precision, k):
+        return index.search(None, q, None, q, data_prediction, n_buckets=4, k=k, store=f32,
                             precision=precision)
 
-    def plain_search(q, precision):  # the search with the scan's plain version in the kernel's place
+    def plain_search(q, precision, k):  # the search with the scan's plain version in the kernel's place
         kernel = bucket_store_module.scan_pairs
         bucket_store_module.scan_pairs = scan_kernel.scan_pairs_reference
         try:
-            return search(q, precision)[:2]
+            return search(q, precision, k)[:2]
         finally:
             bucket_store_module.scan_pairs = kernel
 
-    nq, nc = queries.shape[0], 256
-    ref_d, ref_i = restricted_knn(f32, queries[:nc], order[:nc], 10)
-    ref_d, ref_i = ref_d.cpu().numpy(), ref_i.cpu().numpy()
+    nq = queries.shape[0]
+    refs = {}
+    for k, nc in ((10, 256), (100, 1024)):
+        # slabs of 2**28 / nc rows: the distances and sort keys of a slab stay
+        # within a few GB beside the int8 and f32 stores
+        ref_d, ref_i = restricted_knn(f32, queries[:nc], order[:nc], k, slab_rows=2**28 // nc)
+        refs[k] = nc, ref_d.cpu().numpy(), ref_i.cpu().numpy()
     reset_counts()
-    for precision in ("highest", "default"):
+    for precision, k in (("highest", 10), ("default", 10), ("default", 100)):
+        nc, ref_d, ref_i = refs[k]
         before = read_counts()
-        search(queries, precision)  # warmup
+        search(queries, precision, k)  # warmup
         times = []
         for _ in range(3):
             t0 = time.perf_counter()
-            dd, ii, _ = search(queries, precision)
+            dd, ii, _ = search(queries, precision, k)
             times.append(time.perf_counter() - t0)
-        ran = {k: v - before[k] for k, v in read_counts().items()}
-        body = WGMMA_F32X if precision == "highest" else WGMMA_F32
+        ran = {name: v - before[name] for name, v in read_counts().items()}
+        body = (WGMMA_F32X if precision == "highest" else WGMMA_F32 if k == 10
+                else WGMMA_F32_WIDE)
         check(ran["scan_pairs"] == 4 and ran[body] == 4
               and all(ran[b] == 0 for b in (WGMMA_INT8, WGMMA_F32, WGMMA_F32MODE, WGMMA_WIDE,
                                             WGMMA_F32X, WGMMA_S8, WGMMA_S8_WIDE,
-                                            WGMMA_F32MODE_WIDE) if b != body),
-              f"f32-store {precision} search: {ran} launches, not 4 scans, each one launch of "
-              f"the {body}")
-        check(dd.shape == (nq, 10) and bool(np.isfinite(dd).all()) and bool((ii > 0).all()),
-              f"f32-store {precision} search: finite, filled (nq, 10)")
-        r = recall(ii[:nc], ref_i, 10)
+                                            WGMMA_F32MODE_WIDE, WGMMA_F32_WIDE) if b != body),
+              f"f32-store {precision} search k={k}: {ran} launches, not 4 scans, each one "
+              f"launch of the {body}")
+        check(dd.shape == (nq, k) and bool(np.isfinite(dd).all()) and bool((ii > 0).all()),
+              f"f32-store {precision} search k={k}: finite, filled (nq, {k})")
+        r = recall(ii[:nc], ref_i, k)
         if precision == "highest":
             n_tied = same_neighbors(dd[:nc], ii[:nc], ref_d, ref_i,
                                     "f32-store highest vs visited-bucket exact")
-            r_plain = recall(plain_search(queries[:nc], precision)[1], ref_i, 10)
+            r_plain = recall(plain_search(queries[:nc], precision, k)[1], ref_i, k)
             check(r >= 0.999 and r == r_plain, f"f32-store {precision}: recall {r} vs "
                   f"visited-bucket exact, the same search through the plain version {r_plain}")
             held = (f"{n_tied} ids differ at ties; the same search through the scan's plain "
@@ -1690,22 +1729,24 @@ def f32_store_scan(store, queries, order, smi: str, index, data_prediction):
             # exact in bf16), so at a near-tie a true neighbour can fall past
             # the k + 6 shortlist: the search is held to the same search
             # through the scan's plain version, at the bf16 bar
-            pd, pi = plain_search(queries[:nc], precision)
+            pd, pi = plain_search(queries[:nc], precision, k)
             err = float(np.abs(dd[:nc] - pd).max())
             same = float((np.sort(ii[:nc], 1) == np.sort(pi, 1)).mean())
             check(err <= BF16_ATOL and same >= BF16_SAME_IDS,
-                  f"f32-store default search against the plain version's: max|Δd| {err:.3g}, "
-                  f"{same:.4f} of the sorted ids equal")
+                  f"f32-store default search k={k} against the plain version's: max|Δd| "
+                  f"{err:.3g}, {same:.4f} of the sorted ids equal")
             held = (f"the same search through the scan's plain version: recall "
-                    f"{recall(pi, ref_i, 10):.4f}, {same:.4f} of the sorted ids equal, max|Δd| "
+                    f"{recall(pi, ref_i, k):.4f}, {same:.4f} of the sorted ids equal, max|Δd| "
                     f"{err:.3g}")
         mean_s = float(np.mean(times))
-        scan = timing["f32 store" if precision == "highest" else "f32 store bf16"]["ms"]
-        log(f"[flagship f32 store] search precision={precision}, n_buckets=4, k=10: reps "
+        k_scan = 16 if k == 10 else 106
+        scan = timing["f32 store" if precision == "highest" else
+                      "f32 store bf16" if k == 10 else "f32 store bf16 k106"]["ms"]
+        log(f"[flagship f32 store] search precision={precision}, n_buckets=4, k={k}: reps "
             f"{[round(t, 4) for t in times]} s; mean {mean_s:.4f} s per {nq} queries "
             f"= {nq / mean_s:.0f} QPS; each search one launch of the {body}; scan kernel at "
-            f"k_scan 16 {scan:.3f} ms; recall@10 vs "
-            f"visited-bucket exact kNN {r:.4f} ({nc} queries; {held}); launches {ran}  [{smi}]")
+            f"k_scan {k_scan} {scan:.3f} ms; recall@{k} vs visited-bucket exact kNN {r:.4f} "
+            f"({nc} queries; {held}); launches {ran}  [{smi}]")
     launches = read_counts()
     del f32
     torch.cuda.empty_cache()
@@ -2346,13 +2387,13 @@ def phase_build_path(dev, data: dict, smi: str):
     check(per_mode["auto"] == {"scan_pairs": n_search, "scan_merge": n_search, "gather_pairs": 0,
                                "gather_rows": 0, WGMMA_INT8: n_search, WGMMA_F32: 0,
                                WGMMA_F32MODE: 0, WGMMA_WIDE: 0, WGMMA_F32X: 0, WGMMA_S8: 0,
-                               WGMMA_S8_WIDE: 0, WGMMA_F32MODE_WIDE: 0},
+                               WGMMA_S8_WIDE: 0, WGMMA_F32MODE_WIDE: 0, WGMMA_F32_WIDE: 0},
           f"auto mode launches one scan and no gather a search: {per_mode['auto']}")
     check(per_mode["kernel"] == {"scan_pairs": n_search, "scan_merge": n_search,
                                  "gather_pairs": n_search, "gather_rows": 0, WGMMA_INT8: n_search,
                                  WGMMA_F32: 0, WGMMA_F32MODE: 0, WGMMA_WIDE: 0,
                                  WGMMA_F32X: 0, WGMMA_S8: 0, WGMMA_S8_WIDE: 0,
-                                 WGMMA_F32MODE_WIDE: 0},
+                                 WGMMA_F32MODE_WIDE: 0, WGMMA_F32_WIDE: 0},
           f"kernel mode launches one scan and one merge gather a search: {per_mode['kernel']}")
     for mode in ("auto", "kernel"):
         t = np.asarray(rounds[mode])
@@ -3520,6 +3561,7 @@ def main() -> None:
         rank_main(args.rank_dir)
         return
 
+    t_script = time.perf_counter()
     smi = phase_device()
     dev = torch.device("cuda", 0)
     phase_build()
@@ -3566,7 +3608,7 @@ def main() -> None:
             rows[-1]["bodies"] = {
                 "mma.sync": total(name) - total(WGMMA_INT8) - total(WGMMA_F32)
                 - total(WGMMA_F32MODE) - total(WGMMA_WIDE) - total(WGMMA_F32X) - total(WGMMA_S8)
-                - total(WGMMA_S8_WIDE) - total(WGMMA_F32MODE_WIDE),
+                - total(WGMMA_S8_WIDE) - total(WGMMA_F32MODE_WIDE) - total(WGMMA_F32_WIDE),
                 "wgmma (bf16 over int8 rows)": total(WGMMA_INT8),
                 "wgmma (bf16 over f32 rows)": total(WGMMA_F32),
                 "wgmma (f32 over int8 rows)": total(WGMMA_F32MODE),
@@ -3574,7 +3616,8 @@ def main() -> None:
                 "wgmma (f32 over f32 rows, six products)": total(WGMMA_F32X),
                 "wgmma (int8 over int8 rows)": total(WGMMA_S8),
                 "wgmma (int8 over int8 rows, lists of 64 and 128)": total(WGMMA_S8_WIDE),
-                "wgmma (f32 over int8 rows, lists of 64 and 128)": total(WGMMA_F32MODE_WIDE)}
+                "wgmma (f32 over int8 rows, lists of 64 and 128)": total(WGMMA_F32MODE_WIDE),
+                "wgmma (bf16 over f32 rows, lists of 64 and 128)": total(WGMMA_F32_WIDE)}
             check(total(WGMMA_F32MODE) > 0, "no scan launch took the f32-mode wgmma body")
             check(total(WGMMA_WIDE) > 0, "no scan launch took the wide-list wgmma body")
             check(total(WGMMA_F32X) > 0, "no scan launch took the six-term wgmma body")
@@ -3583,6 +3626,10 @@ def main() -> None:
                   "no scan launch took the int8 wgmma body with wide lists")
             check(total(WGMMA_F32MODE_WIDE) > 0,
                   "no scan launch took the f32-mode wgmma body with wide lists")
+            check(total(WGMMA_F32_WIDE) > 0,
+                  "no scan launch took the wgmma body over f32 rows with wide lists")
+    log(f"[total] chip_smoke.py {time.perf_counter() - t_script:.1f} s, the kernels' build "
+        f"included  [{smi}]")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

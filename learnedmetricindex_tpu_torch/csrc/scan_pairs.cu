@@ -444,12 +444,48 @@
 // it (without it 0.40 of its time); selection and hand-over hide behind
 // the other warpgroup's wgmma but for ~0.14 of it at 106 (~0.07 at 64);
 // no TMA copies 1.00; a ring of three stages at width 64 1.03.
+//
+// The Hopper body over f32 rows with wide lists
+// (scan_wgmma_f32_wide_kernel<64 | 128>): bf16 queries over an f32 packed
+// store at list widths 64 and 128 (k_scan 33 to 128: the default
+// search(k=100) over BuildConfiguration(dtype="float32"), both packages'
+// default store type, scans at 106), in place of MmaBody<MODE_BF16, float,
+// 64 | 128>.  What bounds the work at the flagship (its rows as a 31 GB
+// f32 store, k_scan 106): 30.8 GB read once, 9.2 ms from device memory (an
+// f32 row gives too few operations a byte for the tensor cores to set the
+// pace).  What held the mma.sync body there (115.4 ms on an H100, 2.1x the
+// library call's 54.0): f32 rows staged through registers into a ring that
+// drains every row tile, the query tile reloaded from L2 for every one,
+// and the wide lists' merge in shared memory while no mma runs.  The design
+// is the two bodies above it put together, each part unchanged: the body
+// over f32 rows (the f32 TMA ring under the 128-byte swizzle fed by
+// producer warps, a lane reading chunk 2t + j of its rows in k-step j and
+// rounding each pair to nearest even into an A register, the queries in
+// WGMMA_F32_ORDER) with the wide-list body's 64 query slots, lists of width
+// KMAX in the head, marks against each list's k-th, wgmma_select_wide and
+// the hand-over that keeps the tiles in scan order.  The head takes 68,608
+// B at width 64 and 101,376 B at 128: beside the 98,304 B of 64 resident
+// query rows at d 768, the stages keep two boxes at width 64 and one at 128
+// (two would make 265,216 B), so the block takes exactly its 232,448 B at
+// both widths and the widest resident tile is 768: F32WideList<KMAX>.  Its
+// k-steps go into one sum in the width-32 body's order, so each (query, row)
+// sum is that body's bits; its lists match the plain version to the bf16
+// bar, not the mma.sync body's bits.
+// What it measured (tools/torch_scan_ab.py and tools/torch_scan_probe.py
+// --body wgmma-f32-wide on an NVIDIA H100 80GB HBM3 at 700.00 W, PERF.md):
+// 0.406 of the mma.sync body's time at k_scan 106 (47.3 against 116.5 ms)
+// and 0.296 at 64 (32.3 against 109.0).  The one-box stages bound the
+// width-128 instance: at width 64 they take 1.36x the time of two-box ones
+// (a 32 KB ring keeps too few bytes in flight), and without TMA copies the
+// width-128 instance takes 0.60 of its time; the other ways to fit two-box
+// stages at width 128 were slower: 48 slots a block 1.05x, 32 slots 1.02x
+// (a pair's rows read by three or four blocks); an L2 prefetch of each
+// ring's next tile 1.27x.
 // The other bodies keep the mma.sync design.
 //
 // What is left for later work:
 //  * f32 over a bf16 store, f32 over an f32 store at list widths past 32,
-//    bf16 over an f32 store past 32, and bf16 over a bf16 store on the
-//    Hopper bodies;
+//    and bf16 over a bf16 store on the Hopper bodies;
 //  * the split's cost: one host read of the plan and one upload of the
 //    work list a launch, and a merge pass; a persistent grid that takes
 //    items from a device-side queue would need neither the read nor the
@@ -1620,6 +1656,39 @@ struct IsF32ModeWide : std::false_type {};
 template <int KMAX>
 struct IsF32ModeWide<F32ModeWideList<KMAX>> : std::true_type {};
 
+// bf16 queries over an f32 packed store at list widths 64 and 128 (k_scan
+// 33 to 128: the default search(k=100) over BuildConfiguration(dtype=
+// "float32") scans at 106): the f32 body's ring (boxes of WR rows × 32 f32
+// under the 128-byte swizzle) and the wide-list body's W_WIDE_SLOTS query
+// slots, lists of width KMAX in the head.  Its stages hold two boxes where
+// those fit beside a 768-wide resident tile, else one (BOXES): at d 768
+// and width 64 the block takes exactly its 232,448 B with two-box stages
+// (head 68,608, ring 65,536, queries 98,304); at width 128 the head takes
+// 101,376 B, two-box stages would make 265,216 B, and one-box stages
+// (ring 32,768) again make exactly 232,448 (fewer slots a block would leave
+// room for two-box stages at width 128, but 48 and 32 measured 1.05x and
+// 1.02x the time: tools/torch_scan_probe.py).  The tag of that body, its
+// ring and the widest resident query tile beside them
+template <int KMAX_>
+struct F32WideList {
+  static constexpr int KMAX = KMAX_, SLOTS = W_WIDE_SLOTS;
+  static constexpr size_t HEAD = w_head_bytes(SLOTS, KMAX);
+  static constexpr int BOXES =
+      HEAD + kWRingBytesF + size_t(SLOTS) * 2 * 768 <= 232448 ? W_BOXES : 1;
+  static constexpr int STAGE = BOXES * WR * WKF;
+  static constexpr size_t RING = size_t(W_CONSUMERS) * W_STAGES * STAGE;
+  static constexpr int MAX_QD =
+      int((232448 - HEAD - RING) / (size_t(SLOTS) * 2 * W_QD_STEP_F)) * W_QD_STEP_F;
+};
+static_assert(F32WideList<64>::MAX_QD >= 768 && F32WideList<128>::MAX_QD >= 768 &&
+                  F32WideList<64>::HEAD % 1024 == 0 && F32WideList<128>::HEAD % 1024 == 0,
+              "a 768-wide query tile is resident at list widths 64 and 128 over f32 rows; "
+              "swizzled boxes start on 1024 bytes");
+template <typename TS>
+struct IsF32Wide : std::false_type {};
+template <int KMAX>
+struct IsF32Wide<F32WideList<KMAX>> : std::true_type {};
+
 // The ring of the store type TS: int8 rows (WK bytes a box row, 64 depths)
 // or f32 rows (WKF bytes, 32 depths), BOXES boxes a stage, STAGES stages a
 // consumer; and the block around it: its query slots, where its ring starts
@@ -1680,6 +1749,14 @@ struct WRing<F32ModeWideList<KMAX>> : WRing<int8_t> {
   static constexpr int MAX_QD = F32ModeWideList<KMAX>::MAX_QD, SLOTS = WQ3, TERMS = 3,
                        Q_KSTEP = W3_KSTEP, LIST = KMAX;
   static constexpr size_t HEAD = F32ModeWideList<KMAX>::HEAD;
+};
+template <int KMAX>
+struct WRing<F32WideList<KMAX>> : WRing<float> {
+  using L = F32WideList<KMAX>;
+  static constexpr int BOXES = L::BOXES, STAGE = L::STAGE, KSTEPS = L::BOXES * WKF / 4 / 16,
+                       MAX_QD = L::MAX_QD, SLOTS = L::SLOTS, Q_KSTEP = L::SLOTS * 16 * 2,
+                       LIST = KMAX;
+  static constexpr size_t BYTES = L::RING, HEAD = L::HEAD;
 };
 
 // dynamic shared memory at query width qd
@@ -3202,6 +3279,131 @@ __device__ void wgmma_consume_terms_wide(const Params& p, const WSmem<F32ModeWid
   }
 }
 
+// The wide-list consumer warpgroup over f32 rows (F32WideList: bf16 queries
+// over an f32 packed store at list widths 64 and 128): wgmma_consume_wide's
+// walk over its tiles, wgmma, epilogue, lists of width KMAX (the marks
+// against their k-th) and wgmma_select_wide, with wgmma_consume's f32
+// branch of the ring: in k-step j of a box lane (g, t) reads chunk 2t + j
+// of rows g and g + 8 where the 128-byte swizzle puts it and rounds each
+// value pair to nearest even into one A register (WGMMA_F32_ORDER), R::BOXES
+// boxes a stage.  Spelled out so that the other bodies keep their code.
+// Its k-steps go into one sum in the width-32 body's order, whatever the
+// stage, so each (query, row) sum is that body's, bit for bit.  N = 16·NL
+// query slots.
+template <int KMAX, int NL>
+__device__ void wgmma_consume_f32_wide(const Params& p, const WSmem<F32WideList<KMAX>>& s,
+                                       const WItem& b, int wg) {
+  using R = WRing<F32WideList<KMAX>>;
+  constexpr int N = 16 * NL, KSTEPS = R::KSTEPS, SLOTS = R::SLOTS;
+  const int tid = threadIdx.x & 127, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int per_chunk = (p.chunk + WR - 1) / WR, nst = p.qd / (R::BOXES * R::DEPTHS);
+  const int ntiles = (b.c_hi - b.c_lo) * per_chunk;
+  const uint32_t q_base = smem_u32(s.queries);
+  TileWalk w{b.c_lo, 0};
+  w.advance(wg, per_chunk);
+  int phys = w.c < b.c_hi ? p.chunk_of[w.c] : 0;
+  float* dist = s.dist + wg * SLOTS * WDQ;
+  int cnt = 0;  // stages this warpgroup has taken from its ring
+  unsigned live = 0;  // bit 2n + e: the lane's query slot 8n + 2t + e holds a query
+#pragma unroll
+  for (int n = 0; n < N / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) live |= unsigned(s.q_row[8 * n + 2 * t + e] >= 0) << (2 * n + e);
+  int f32_off[2];  // chunk 2t + j of row g, where TMA's 128-byte swizzle puts it
+#pragma unroll
+  for (int j = 0; j < 2; ++j) f32_off[j] = (warp * 16 + g) * WKF + (((2 * t + j) ^ g) << 4);
+
+  // the A fragments of a stage's k-steps from its f32 rows, two a box
+  auto take_stage = [&](uint32_t(&a)[KSTEPS][4]) {
+    const int slot = cnt % R::STAGES;
+    mbar_wait(&s.full[wg * R::STAGES + slot], (cnt / R::STAGES) & 1);
+#pragma unroll
+    for (int box = 0; box < R::BOXES; ++box) {
+      const uint32_t x = smem_u32(s.stage(wg, slot) + box * WR * WKF);
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const float4 lo = lds128(x + f32_off[j]), hi = lds128(x + f32_off[j] + 8 * WKF);
+        a[2 * box + j][0] = bf16x2_rn(lo.x, lo.y);
+        a[2 * box + j][1] = bf16x2_rn(hi.x, hi.y);
+        a[2 * box + j][2] = bf16x2_rn(lo.z, lo.w);
+        a[2 * box + j][3] = bf16x2_rn(hi.z, hi.w);
+      }
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&s.empty[wg * R::STAGES + slot]);
+    ++cnt;
+  };
+
+  for (int i = wg; i < ntiles; i += W_CONSUMERS) {
+    const int r0 = w.t * WR;
+    const int slot0 = phys * p.chunk + r0, nrows = min(WR, p.chunk - r0);
+    w.advance(W_CONSUMERS, per_chunk);  // the next tile's chunk, read while this one runs
+    phys = w.c < b.c_hi ? p.chunk_of[w.c] : 0;
+    float r_scale[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = warp * 16 + g + 8 * h;
+      r_scale[h] = r < nrows ? p.scales[slot0 + r] : 0.0f;  // → +inf distance
+    }
+    float acc[N / 2];
+#pragma unroll
+    for (int e = 0; e < N / 2; ++e) acc[e] = 0.0f;
+    // stage st's wgmma reads a[st % 2]; stage st + 1's is queued behind it
+    // before the warpgroup waits for stage st - 1 and rounds stage st + 1
+    // into the registers stage st - 1 read
+    uint32_t a[2][KSTEPS][4];
+    auto issue = [&](auto buf, int st) {
+      constexpr int B = decltype(buf)::value;
+      wgmma_fence();
+#pragma unroll
+      for (int j = 0; j < KSTEPS; ++j)
+        wgmma_rs<N>(acc, a[B][j], query_desc(q_base + (KSTEPS * st + j) * R::Q_KSTEP));
+      wgmma_commit();
+    };
+    auto step = [&](auto buf, int st) {  // st >= 1
+      constexpr int B = decltype(buf)::value;
+      issue(buf, st);
+      wgmma_wait<1>();  // stage st - 1 is done with a[B ^ 1]
+      hold(a[B ^ 1]);
+      if (st + 1 < nst) take_stage(a[B ^ 1]);
+    };
+    take_stage(a[0]);
+    issue(std::integral_constant<int, 0>{}, 0);
+    if (nst > 1) take_stage(a[1]);
+    for (int st = 1; st < nst; st += 2) {
+      step(std::integral_constant<int, 1>{}, st);
+      if (st + 1 < nst) step(std::integral_constant<int, 0>{}, st + 1);
+    }
+    wgmma_wait<0>();
+    hold(a[0]);
+    hold(a[1]);
+    hold(acc);
+
+    // epilogue as in wgmma_consume, the marks against the wide list's k-th
+#pragma unroll
+    for (int n = 0; n < N / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int q = 8 * n + 2 * t + e;
+        float v[2];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          v[h] = distance<false>(acc[4 * n + 2 * h + e], r_scale[h], 1.0f);
+          dist[q * WDQ + warp * 16 + g + 8 * h] = v[h];
+        }
+        if (((live >> (2 * n + e)) & 1u) &&
+            fminf(v[0], v[1]) < *static_cast<volatile const float*>(&s.top_d[q * KMAX + p.k - 1]))
+          reinterpret_cast<unsigned char*>(s.q_grp + wg * SLOTS)[q * 4 + (warp >> 1)] = 1;
+      }
+    bar_sync(BAR_WG + wg, 128);
+    if (i > 0) bar_sync(BAR_HANDOVER + wg, 256);  // the tile before is selected (by the warpgroup before)
+    wgmma_select_wide(p, s, wg, N, nrows, slot0);
+    bar_sync(BAR_WG + wg, 128);  // the distance tile is free again
+    if (i + 1 < ntiles) bar_arrive(BAR_HANDOVER + (wg + 1) % W_CONSUMERS, 256);
+  }
+}
+
 template <typename TS>
 __device__ void wgmma_write(const Params& p, const WSmem<TS>& s, const WItem& b, bool fill) {
   const int n_own = min(WSmem<TS>::SLOTS, p.qtile - b.q0);
@@ -3436,6 +3638,36 @@ __global__ void __launch_bounds__(W_THREADS, 1)
   }
 }
 
+// bf16 queries over an f32 packed store at list widths 64 and 128: the f32
+// kernel's ring and rounding with the wide-list kernel's slots, lists and
+// selection (spelled out beside the kernels above).  The swizzled boxes
+// need the ring on 1024 bytes (F32WideList<KMAX>::HEAD is)
+template <int KMAX>
+__global__ void __launch_bounds__(W_THREADS, 1)
+    scan_wgmma_f32_wide_kernel(const __grid_constant__ CUtensorMap rows, Params p) {
+  extern __shared__ __align__(1024) unsigned char wsmem[];
+  if (smem_u32(wsmem) % 1024 != 0) __trap();
+  const WSmem<F32WideList<KMAX>> s(wsmem);
+  const WItem b = wgmma_begin(p, s);
+  if (b.nl == 0) return wgmma_write(p, s, b, true);
+  const int wg = threadIdx.x / 128;
+  if (wg == W_CONSUMERS) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(W_PRODUCER_REGS) : "memory");
+    if (threadIdx.x % 128 < 32 * W_CONSUMERS && threadIdx.x % 32 == 0)
+      wgmma_produce(&rows, p, s, b, threadIdx.x % 128 / 32);
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(W_CONSUMER_REGS) : "memory");
+    switch (b.nl) {  // up to W_WIDE_SLOTS / 16
+      case 1: wgmma_consume_f32_wide<KMAX, 1>(p, s, b, wg); break;
+      case 2: wgmma_consume_f32_wide<KMAX, 2>(p, s, b, wg); break;
+      case 3: wgmma_consume_f32_wide<KMAX, 3>(p, s, b, wg); break;
+      default: wgmma_consume_f32_wide<KMAX, 4>(p, s, b, wg); break;
+    }
+    bar_sync(BAR_CONSUMERS, W_CONSUMERS * 128);
+    wgmma_write(p, s, b, false);
+  }
+}
+
 // The store as a 2-D tensor of n_rows × d values for TMA (boxes of WR rows
 // × WK int8 depths, or × 32 f32 depths under the 128-byte swizzle; zeros
 // past its edges), by cuTensorMapEncodeTiled looked up at run time, so the
@@ -3472,7 +3704,7 @@ cudaError_t row_tensor_map(CUtensorMap* map, const void* store, int n_rows, int 
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-// The bodies: the mma.sync body, or one of the eight wgmma bodies
+// The bodies: the mma.sync body, or one of the nine wgmma bodies
 enum Body {
   BODY_MMA = 0,
   BODY_WGMMA_INT8 = 1,
@@ -3482,7 +3714,8 @@ enum Body {
   BODY_WGMMA_F32X = 5,
   BODY_WGMMA_S8 = 6,
   BODY_WGMMA_S8_WIDE = 7,
-  BODY_WGMMA_F32MODE_WIDE = 8
+  BODY_WGMMA_F32MODE_WIDE = 8,
+  BODY_WGMMA_F32_WIDE = 9
 };
 
 // The wgmma bodies' scope: bf16 or f32 queries over an int8 or f32 packed
@@ -3491,11 +3724,11 @@ enum Body {
 // and a resident query tile that fits (d rounded up to W_QD_STEP over an
 // int8 store or W_QD_STEP_F over an f32 store, within W_MAX_QD, W_MAX_QD3,
 // W_MAX_QDS8, W_MAX_QD_F or W_MAX_QDX); and bf16, int8 or f32 queries
-// over an int8 packed store at list widths 64 and 128 (k 33 to 128) on the
-// same terms, the tile within WideList<64 or 128>::MAX_QD, S8WideList<64
-// or 128>::MAX_QD or F32ModeWideList<64 or 128>::MAX_QD.  A round under a
-// floor (k
-// past 1024) keeps the mma.sync body of the rounds before it: every round
+// over an int8 packed store and bf16 queries over an f32 packed store at
+// list widths 64 and 128 (k 33 to 128) on the same terms, the tile within
+// WideList<64 or 128>::MAX_QD, S8WideList<64 or 128>::MAX_QD,
+// F32ModeWideList<64 or 128>::MAX_QD or F32WideList<64 or 128>::MAX_QD.  A
+// round under a floor (k past 1024) keeps the mma.sync body of the rounds before it: every round
 // sums a row the same way, or a row at the boundary could be listed twice
 // or not at all.
 int wgmma_scope(int mode, int store_type, int k, int d, const void* store, const void* row_ids,
@@ -3511,6 +3744,12 @@ int wgmma_scope(int mode, int store_type, int k, int d, const void* store, const
                                                                               : BODY_MMA;
   }
   if (k > W_LIST) {
+    if (mode == MODE_BF16 && store_type == STORE_F32 && d % 4 == 0) {
+      const int qd_f = (d + W_QD_STEP_F - 1) / W_QD_STEP_F * W_QD_STEP_F;
+      return qd_f <= (k <= 64 ? F32WideList<64>::MAX_QD : F32WideList<128>::MAX_QD)
+                 ? BODY_WGMMA_F32_WIDE
+                 : BODY_MMA;
+    }
     if (store_type != STORE_INT8 || d % 16 != 0) return BODY_MMA;
     if (mode == MODE_BF16)
       return qd <= (k <= 64 ? WideList<64>::MAX_QD : WideList<128>::MAX_QD) ? BODY_WGMMA_WIDE
@@ -3544,6 +3783,8 @@ cudaError_t launch_wgmma(const Params& p, int n_pairs, int n_rows, cudaStream_t 
     kernel = scan_wgmma_s8_wide_kernel<TS::KMAX>;
   } else if constexpr (IsF32ModeWide<TS>::value) {
     kernel = scan_wgmma_f32mode_wide_kernel<TS::KMAX>;
+  } else if constexpr (IsF32Wide<TS>::value) {
+    kernel = scan_wgmma_f32_wide_kernel<TS::KMAX>;
   } else {
     kernel = std::is_same<TS, float>::value     ? scan_wgmma_f32_kernel
              : std::is_same<TS, F32Mode>::value ? scan_wgmma_f32mode_kernel
@@ -3615,6 +3856,9 @@ cudaError_t dispatch(const Params& p, int mode, int store_type, int body, int n_
   if (body == BODY_WGMMA_F32MODE_WIDE)
     return p.k <= 64 ? launch_wgmma<F32ModeWideList<64>>(p, n_pairs, n_rows, s, blocks_per_sm)
                      : launch_wgmma<F32ModeWideList<128>>(p, n_pairs, n_rows, s, blocks_per_sm);
+  if (body == BODY_WGMMA_F32_WIDE)
+    return p.k <= 64 ? launch_wgmma<F32WideList<64>>(p, n_pairs, n_rows, s, blocks_per_sm)
+                     : launch_wgmma<F32WideList<128>>(p, n_pairs, n_rows, s, blocks_per_sm);
   if (mode == MODE_INT8 && store_type == STORE_INT8)
     return launch<MODE_INT8, int8_t>(p, n_pairs, s, blocks_per_sm);
   if (mode == MODE_F32) {
@@ -3650,7 +3894,7 @@ extern "C" {
 //    32 in WGMMA_F32_ORDER;
 //  * bf16 mode: bf16, int8 mode: int8, nt 1, qd a multiple of 16 >= d;
 //    where the call takes a wgmma body (wgmma_scope: bf16 over an int8
-//    packed store, k <= 128, or over an f32 packed store, k <= 32, int8
+//    or an f32 packed store, k <= 128, int8
 //    over an int8 packed store, k <= 128, ...), qd is d rounded up to
 //    W_QD_STEP (128) over an int8 store, each group of 64 values in
 //    WGMMA_ORDER (bf16) or WGMMA_S8_ORDER (int8), or
@@ -3662,7 +3906,8 @@ extern "C" {
 // over an int8 store, 4 over an int8 store at list widths 64 and 128, 5 in
 // f32 mode over an f32 store, 6 in int8 mode, 7 in int8 mode at list
 // widths 64 and 128, 8 in f32 mode over an int8 store at list widths 64
-// and 128, as lmi_scan_body named it);
+// and 128, 9 over an f32 store at list widths 64 and 128, as lmi_scan_body
+// named it);
 // out, the body the call's scope picks.
 // Where the two differ nothing launches and the call returns
 // cudaErrorInvalidValue.  All other pointers are device pointers; nothing
@@ -3735,14 +3980,17 @@ int lmi_scan_body(int k, int mode, int store_type, int d, const void* store, con
     return cudaErrorInvalidValue;
   *body = wgmma_scope(mode, store_type, k, d, store, row_ids, floored != 0);
   const bool wgmma = *body != BODY_MMA;
-  const int q_group = *body == BODY_WGMMA_F32 || *body == BODY_WGMMA_F32X ? W_QD_STEP_F
-                      : wgmma                                              ? W_QD_STEP
-                      : mode == MODE_F32                                   ? 32
-                                                                           : 16;
+  const int q_group =
+      *body == BODY_WGMMA_F32 || *body == BODY_WGMMA_F32X || *body == BODY_WGMMA_F32_WIDE
+          ? W_QD_STEP_F
+      : wgmma            ? W_QD_STEP
+      : mode == MODE_F32 ? 32
+                         : 16;
   *qd = (d + q_group - 1) / q_group * q_group;
   int width = 32;
   while (width < k) width *= 2;
-  const bool wide = *body == BODY_WGMMA_WIDE || *body == BODY_WGMMA_S8_WIDE;
+  const bool wide =
+      *body == BODY_WGMMA_WIDE || *body == BODY_WGMMA_S8_WIDE || *body == BODY_WGMMA_F32_WIDE;
   *block_queries = *body == BODY_WGMMA_F32MODE || *body == BODY_WGMMA_F32MODE_WIDE ? WQ3
                    : *body == BODY_WGMMA_F32X  ? WQX
                    : wide                      ? W_WIDE_SLOTS

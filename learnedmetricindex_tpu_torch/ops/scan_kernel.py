@@ -22,12 +22,12 @@ of a pair whose bucket has no chunks.
   lists back into one (:func:`merge_split_lists`: ``csrc/scan_merge.cu``
   on CUDA, :func:`merge_split_lists_reference` on the CPU).  The lists
   are those of one scan of the whole bucket, bit for bit.
-* Nine bodies: the bf16 queries over an int8 packed store at list width
+* Ten bodies: the bf16 queries over an int8 packed store at list width
   32 (the default search) and over an f32 packed store (the default
   search over ``BuildConfiguration(dtype="float32")``, the CLI's store)
   run the Hopper bodies (wgmma, TMA, a resident query tile of 64 slots a
-  block), and so do the bf16 queries over an int8 packed store at list
-  widths 64 and 128 (``k_scan`` 33 to 128: ``search(k=100)``), the
+  block), and so do the bf16 queries over an int8 or an f32 packed store
+  at list widths 64 and 128 (``k_scan`` 33 to 128: ``search(k=100)``), the
   f32 queries over an int8 or an f32 packed store at list width 32
   (``precision="highest"``, the default of ``sharded_search`` and
   ``scan_buckets``: the three terms of 32 slots a block resident; over an
@@ -52,7 +52,9 @@ of a pair whose bucket has no chunks.
   over an f32 store; ``WGMMA_S8_LAUNCHES``: of those, the body in int8
   mode; ``WGMMA_S8_WIDE_LAUNCHES``: of those, the body in int8 mode at list
   widths 64 and 128; ``WGMMA_F32MODE_WIDE_LAUNCHES``: of those, the body in
-  f32 mode over an int8 store at list widths 64 and 128);
+  f32 mode over an int8 store at list widths 64 and 128;
+  ``WGMMA_F32_WIDE_LAUNCHES``: of those, the body over an f32 store at list
+  widths 64 and 128);
   ``MERGE_LAUNCHES`` — the merge kernel.
 
 Stores: a packed store is ``(n_slots, d)`` rows with ``(n_slots,)``
@@ -91,7 +93,7 @@ MAX_QTILE = 128  # QT in csrc/scan_pairs.cu
 #: the bodies as the library numbers them (enum Body in csrc/scan_pairs.cu)
 BODY_NAMES = ("mma.sync", "wgmma", "wgmma over f32", "wgmma in f32 mode", "wgmma wide lists",
               "wgmma six-term", "wgmma int8", "wgmma int8 wide lists",
-              "wgmma f32-mode wide lists")
+              "wgmma f32-mode wide lists", "wgmma over f32 wide lists")
 _STORE_TYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
 #: kernel launches made by :func:`scan_pairs` (never by the plain version)
@@ -113,6 +115,9 @@ WGMMA_S8_WIDE_LAUNCHES = 0
 #: of WGMMA_LAUNCHES, those that ran the wgmma body in f32 mode over an int8
 #: store at list widths 64 and 128
 WGMMA_F32MODE_WIDE_LAUNCHES = 0
+#: of WGMMA_LAUNCHES, those that ran the wgmma body over an f32 store at
+#: list widths 64 and 128
+WGMMA_F32_WIDE_LAUNCHES = 0
 #: merge kernel launches made by :func:`merge_split_lists` (never by its plain version)
 MERGE_LAUNCHES = 0
 
@@ -346,7 +351,7 @@ def operand_queries(queries: torch.Tensor, mode: str, store_dtype: torch.dtype,
     :attr:`Body.qd`: a multiple of 64 >= d), each group of 64 in
     :data:`WGMMA_ORDER` over an int8 store (:data:`WGMMA_S8_ORDER` in mode
     ``"int8"``, for the int8 bodies at every list width), each group of 32 in
-    :data:`WGMMA_F32_ORDER` over an f32 store; in mode ``"f32"`` the three
+    :data:`WGMMA_F32_ORDER` over an f32 store (at every list width); in mode ``"f32"`` the three
     terms so laid out are planes side by side, ``hi, mid, lo``, ``(n,
     3·wgmma_qd)``, over an int8 store (the f32-mode bodies at every list
     width) and over an f32 store (the six-term body) alike."""
@@ -749,7 +754,7 @@ def _launch_items(lib, queries, qscales, qidx, pair_bucket, ptr, chunk_of, store
         raise RuntimeError(f"scan_pairs kernel launch failed: cudaError {err}")
     global LAUNCHES, WGMMA_LAUNCHES, WGMMA_F32_LAUNCHES, WGMMA_F32MODE_LAUNCHES
     global WGMMA_WIDE_LAUNCHES, WGMMA_F32X_LAUNCHES, WGMMA_S8_LAUNCHES, WGMMA_S8_WIDE_LAUNCHES
-    global WGMMA_F32MODE_WIDE_LAUNCHES
+    global WGMMA_F32MODE_WIDE_LAUNCHES, WGMMA_F32_WIDE_LAUNCHES
     LAUNCHES += 1
     WGMMA_LAUNCHES += ran.value > 0
     WGMMA_F32_LAUNCHES += ran.value == 2
@@ -759,6 +764,7 @@ def _launch_items(lib, queries, qscales, qidx, pair_bucket, ptr, chunk_of, store
     WGMMA_S8_LAUNCHES += ran.value == 6
     WGMMA_S8_WIDE_LAUNCHES += ran.value == 7
     WGMMA_F32MODE_WIDE_LAUNCHES += ran.value == 8
+    WGMMA_F32_WIDE_LAUNCHES += ran.value == 9
     return out_d, out_s
 
 

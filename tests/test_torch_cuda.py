@@ -1189,12 +1189,167 @@ def test_f32mode_wide_lists_begin_with_the_width32_lists(cuda, qtile, chunk):
     assert tied[np.isfinite(nd)].any()
 
 
+#: the widest resident query tile of the wgmma body over f32 rows at list
+#: widths 64 and 128 (F32WideList<64 | 128>::MAX_QD)
+F32_WIDE_MAX_QD = {64: 768, 128: 768}
+
+
+@pytest.mark.parametrize("k", [33, 64, 106, 128])
+@pytest.mark.parametrize("qtile", [1, 8, 37, 128])
+@pytest.mark.parametrize("d", [16, 100, "widest"])
+def test_wgmma_f32_wide_body_matches_plain_version(cuda, k, qtile, d):
+    """bf16 over an f32 packed store at list widths 64 and 128 (the default
+    ``search(k=100)`` over ``BuildConfiguration(dtype="float32")`` scans at
+    106), the launches the wgmma body over f32 rows with wide lists takes:
+    k at both edges of the widths, query tiles of one to two 64-slot
+    blocks, d from one partial box to the widest resident tile (768 at
+    both widths; rows of 400 bytes at d 100); chunks of 96 rows (1.5 of
+    its 64-row tiles), an empty bucket, padding rows.  The kernel within
+    the bar of the plain version (which rounds both operands to bf16 as
+    the kernel does; so within the bf16 bar, ``atol`` 3e-3), no slot
+    twice, exact ties to the earlier row, one launch, and that launch the
+    body over f32 rows with wide lists."""
+    d = F32_WIDE_MAX_QD[scan_kernel.list_width(k)] if d == "widest" else d
+    store, queries, order = _body_case(cuda, 96, seed=k + qtile + d, d=d, store_dtype="float32")
+    _, args = scan_inputs(store, queries, order, qtile, "bf16")
+    before = (scan_kernel.WGMMA_LAUNCHES, scan_kernel.WGMMA_F32_WIDE_LAUNCHES)
+    ks = _kernel_vs_plain(args, k, qtile, store.chunk, "bf16", 1)
+    assert (scan_kernel.WGMMA_LAUNCHES, scan_kernel.WGMMA_F32_WIDE_LAUNCHES) == (
+        before[0] + 1, before[1] + 1)
+    _earlier_copy_first(store, ks, k)
+
+
+@pytest.mark.parametrize("store_kind", ["chunk320", "chunk130", "mutated"])
+@pytest.mark.parametrize("k,qtile", [(36, 100), (106, 128), (128, 8)])
+def test_wgmma_f32_wide_body_on_other_stores(cuda, store_kind, k, qtile):
+    """The wgmma body over f32 rows with wide lists over chunks that are
+    not whole 64-row tiles (320, 130) and over a mutated f32 store with
+    its chunk lists out of physical order: within the bar of the plain
+    version, one launch on that body."""
+    if store_kind == "mutated":
+        store, queries, order, _, _ = _mutated_store(cuda, 768, "float32", seed=k + qtile)
+    else:
+        store, queries, order = _body_case(cuda, int(store_kind[5:]), seed=k + qtile,
+                                           store_dtype="float32")
+    _, args = scan_inputs(store, queries, order, qtile, "bf16")
+    before = scan_kernel.WGMMA_F32_WIDE_LAUNCHES
+    ks = _kernel_vs_plain(args, k, qtile, store.chunk, "bf16", 1)
+    assert scan_kernel.WGMMA_F32_WIDE_LAUNCHES == before + 1
+    if store_kind != "mutated":
+        _earlier_copy_first(store, ks, k)
+
+
+@pytest.mark.parametrize("k,qtile", [(106, 128), (128, 37), (64, 100)])
+def test_wgmma_f32_wide_body_split_through_the_merge(cuda, k, qtile):
+    """Segments of one chunk (buckets of up to 7 chunks of 96 rows cut into
+    one item a chunk, merged by ``csrc/scan_merge.cu``) give the bits of
+    the body over f32 rows with wide lists over whole buckets (a row's sum
+    does not depend on its segment), within the bar of the plain version;
+    each run one scan launch on that body and one merge."""
+    store, queries, order = _body_case(cuda, 96, seed=k + 5, store_dtype="float32")
+    plan, args = scan_inputs(store, queries, order, qtile, "bf16")
+    before = scan_kernel.WGMMA_F32_WIDE_LAUNCHES
+    whole = _split_kernel(args, plan, store, k, qtile, "bf16", 10**6)
+    split = _split_kernel(args, plan, store, k, qtile, "bf16", 1)
+    assert scan_kernel.WGMMA_F32_WIDE_LAUNCHES == before + 2
+    assert torch.equal(split[0].view(torch.int32), whole[0].view(torch.int32))
+    assert torch.equal(split[1], whole[1])
+    rd, rs = scan_kernel.scan_pairs_reference(*args, k=k, qtile=qtile, chunk=96, mode="bf16")
+    kd, ks, rd, rs = (t.cpu().numpy() for t in (*split, rd, rs))
+    np.testing.assert_array_equal(np.isinf(kd), np.isinf(rd))
+    np.testing.assert_allclose(kd, rd, rtol=1e-4, atol=1e-5)
+    mism = ks != rs
+    np.testing.assert_allclose(kd[mism], rd[mism], rtol=1e-6, atol=5e-6)
+    _earlier_copy_first(store, ks, k)
+
+
+@pytest.mark.parametrize("case", ["f32 k64", "f32 k106", "virtual k106", "floored k106",
+                                  "d772 k106", "d800 k106", "d800 k64", "d102 k64"])
+def test_wgmma_f32_wide_scope_keeps_the_mma_body(cuda, case):
+    """Launches over f32 rows at list widths 64 and 128 outside the scope
+    of the wgmma body over f32 rows with wide lists keep the mma.sync
+    body: f32 queries (the six-term mma.sync body), a virtual store over an
+    f32 corpus, a round under a floor (one that admits every row), d 772
+    and 800 (rounded up to 832, past the widest resident tile, 768) and
+    rows of 408 bytes (d 102, not whole 16 bytes): within the bar of the
+    plain version, no launch on a wgmma body."""
+    words = case.split()
+    k = int(words[-1][1:])
+    mode = "f32" if words[0] == "f32" else "bf16"
+    if words[0] == "virtual":
+        store, queries, order = _virtual_case(cuda, 768, "float32", seed=13, shuffle=False)
+    else:
+        d = int(words[0][1:]) if words[0].startswith("d") else 768
+        store, queries, order = _body_case(cuda, 96, seed=41, d=d, store_dtype="float32")
+    plan, args = scan_inputs(store, queries, order, 128, mode)
+    before = scan_kernel.WGMMA_LAUNCHES
+    if words[0] != "floored":
+        _kernel_vs_plain(args, k, 128, store.chunk, mode, 1)
+        assert scan_kernel.WGMMA_LAUNCHES == before
+        return
+    # (distance −inf, position −1): every row is above the floor
+    floor = (torch.full(plan.qidx.shape, -torch.inf, device=cuda),
+             torch.full(plan.qidx.shape, -1, dtype=torch.int32, device=cuda))
+    launch = scan_kernel._kernel_round(args[0], *args[3:7], args[7], args[8], qtile=128,
+                                       chunk=store.chunk, mode=mode)
+    runs = scan_kernel.LAUNCHES
+    kd, ks = launch(plan.qidx, plan.pair_bucket, k, floor)
+    torch.cuda.synchronize()
+    assert (scan_kernel.LAUNCHES - runs, scan_kernel.WGMMA_LAUNCHES) == (1, before)
+    rd, rs = scan_kernel.scan_pairs_reference(*args, k=k, qtile=128, chunk=store.chunk,
+                                              mode=mode)
+    kd, ks, rd, rs = (t.cpu().numpy() for t in (kd, ks, rd, rs))
+    np.testing.assert_array_equal(np.isinf(kd), np.isinf(rd))
+    np.testing.assert_allclose(kd, rd, rtol=1e-4, atol=1e-5)
+    mism = ks != rs
+    np.testing.assert_allclose(kd[mism], rd[mism], rtol=1e-6, atol=5e-6)
+
+
+@pytest.mark.parametrize("qtile", [37, 128])
+@pytest.mark.parametrize("chunk", [96, 320])
+def test_f32_wide_lists_begin_with_the_width32_lists(cuda, qtile, chunk):
+    """The selection alone: the wgmma body over f32 rows with wide lists
+    sums each (query, row) as the width-32 body over f32 rows does (the
+    same k-steps into one sum in the same order, in one-box stages at list
+    width 128), so the first 32 entries of every list at k_scan 106
+    (sorted by distance) are the width-32 body's list at k_scan 32: the
+    distances bit for bit, the slots too except at exact ties (the 40
+    duplicated rows tie their copies exactly)."""
+    store, queries, order = _body_case(cuda, chunk, seed=chunk + qtile + 1,
+                                       store_dtype="float32")
+    _, args = scan_inputs(store, queries, order, qtile, "bf16")
+    kw = dict(qtile=qtile, chunk=chunk, mode="bf16")
+    before = (scan_kernel.WGMMA_F32_LAUNCHES, scan_kernel.WGMMA_F32_WIDE_LAUNCHES)
+    wd, ws = scan_kernel.scan_pairs(*args, k=106, **kw)
+    nd, ns = scan_kernel.scan_pairs(*args, k=32, **kw)
+    torch.cuda.synchronize()
+    assert (scan_kernel.WGMMA_F32_LAUNCHES, scan_kernel.WGMMA_F32_WIDE_LAUNCHES) == (
+        before[0] + 1, before[1] + 1)
+    wd, ws, nd, ns = (t.cpu().numpy().reshape(-1, t.shape[-1]) for t in (wd, ws, nd, ns))
+    o = np.argsort(wd, axis=1, kind="stable")
+    wd, ws = np.take_along_axis(wd, o, 1), np.take_along_axis(ws, o, 1)
+    o = np.argsort(nd, axis=1, kind="stable")
+    nd, ns = np.take_along_axis(nd, o, 1), np.take_along_axis(ns, o, 1)
+    assert np.isfinite(nd).sum() > 0
+    np.testing.assert_array_equal(wd[:, :32].view(np.uint32), nd.view(np.uint32))
+    # a slot may differ only where its distance ties another entry of the list
+    tied = np.zeros(nd.shape, bool)
+    tied[:, 1:] |= nd[:, 1:] == nd[:, :-1]
+    tied[:, :-1] |= nd[:, :-1] == nd[:, 1:]
+    tied[:, -1] |= wd[:, 32] == wd[:, 31]
+    mism = ws[:, :32] != ns
+    assert not (mism & ~tied).any()
+    assert tied[np.isfinite(nd)].any()
+
+
 @pytest.mark.parametrize("case", ["k33", "k106", "virtual", "k1040"])
 def test_wgmma_f32_scope_keeps_the_mma_body(cuda, case):
-    """bf16 over f32 rows outside the wgmma body's scope keeps the mma.sync
-    body: list widths 64 and 128, a virtual store over an f32 corpus, and
-    k 1040 (a 1024-wide round, then one under floors): within the bar of
-    the plain version, no launch on a wgmma body."""
+    """bf16 over f32 rows outside the wgmma bodies' scope keeps the mma.sync
+    body: list widths 64 and 128 past the widest resident tile of the body
+    over f32 rows with wide lists (d 800 at k 33, 772 at k 106: rounded up
+    to 832, past 768), a virtual store over an f32 corpus, and k 1040 (a
+    1024-wide round, then one under floors): within the bar of the plain
+    version, no launch on a wgmma body."""
     if case == "virtual":
         store, queries, order = _virtual_case(cuda, 768, "float32", seed=5, shuffle=False)
         k, qtile, launches = 16, 128, 1
@@ -1202,8 +1357,9 @@ def test_wgmma_f32_scope_keeps_the_mma_body(cuda, case):
         store, queries, order = _wide_case(cuda, "float32", seed=1040)
         k, qtile, launches = 1040, 8, 2
     else:
-        store, queries, order = _body_case(cuda, 96, seed=33, store_dtype="float32")
         k, qtile, launches = int(case[1:]), 128, 1
+        store, queries, order = _body_case(cuda, 96, seed=33, d={33: 800, 106: 772}[k],
+                                           store_dtype="float32")
     _, args = scan_inputs(store, queries, order, qtile, "bf16")
     before = scan_kernel.WGMMA_LAUNCHES
     _kernel_vs_plain(args, k, qtile, store.chunk, "bf16", launches)
@@ -1236,7 +1392,7 @@ def test_wgmma_f32_scope_keeps_the_mma_body(cuda, case):
         ("bf16", torch.int8, 106, 100, False, True, 0),  # rows not of whole 16 bytes
         ("bf16", torch.int8, 106, 768, False, False, 0),  # an unaligned store
         ("bf16", torch.bfloat16, 106, 768, False, True, 0),
-        ("bf16", torch.float32, 106, 768, False, True, 0),
+        ("bf16", torch.float32, 106, 768, False, True, 9),  # the f32 store's search(k=100)
         ("int8", torch.int8, 106, 768, False, True, 7),  # the int8 search(k=100)
         ("int8", torch.int8, 33, 768, False, True, 7),  # list width 64: the int8 wide body
         ("bf16", torch.int8, 16, 768, True, True, 0),  # a virtual store
@@ -1252,7 +1408,20 @@ def test_wgmma_f32_scope_keeps_the_mma_body(cuda, case):
         ("bf16", torch.float32, 16, 896, False, True, 2),  # ... the widest resident tile
         ("bf16", torch.float32, 16, 900, False, True, 0),  # rounded up to 960: too wide
         ("bf16", torch.float32, 16, 102, False, True, 0),  # rows not of whole 16 bytes
-        ("bf16", torch.float32, 33, 768, False, True, 0),  # list width 64
+        ("bf16", torch.float32, 33, 768, False, True, 9),  # list width 64: the wide body
+        ("bf16", torch.float32, 64, 768, False, True, 9),  # over f32 rows
+        ("bf16", torch.float32, 65, 768, False, True, 9),  # list width 128
+        ("bf16", torch.float32, 128, 768, False, True, 9),
+        ("bf16", torch.float32, 129, 768, False, True, 0),  # list width 256
+        ("bf16", torch.float32, 106, 16, False, True, 9),
+        ("bf16", torch.float32, 106, 100, False, True, 9),  # rows of 400 bytes
+        ("bf16", torch.float32, 64, 740, False, True, 9),  # rounded up to 768, the widest ...
+        ("bf16", torch.float32, 64, 800, False, True, 0),  # ... at width 64
+        ("bf16", torch.float32, 106, 752, False, True, 9),  # and at width 128
+        ("bf16", torch.float32, 106, 772, False, True, 0),
+        ("bf16", torch.float32, 106, 102, False, True, 0),  # rows not of whole 16 bytes
+        ("bf16", torch.float32, 106, 768, True, True, 0),  # a virtual store
+        ("bf16", torch.float32, 106, 768, False, False, 0),  # an unaligned store
         ("bf16", torch.float32, 16, 768, True, True, 0),  # a virtual store
         ("bf16", torch.float32, 16, 768, False, False, 0),  # an unaligned store
         ("int8", torch.int8, 16, 768, False, True, 6),  # precision="int8"
@@ -1330,7 +1499,9 @@ def test_library_picks_the_body(cuda, mode, store_dtype, k, d, virtual, aligned,
     packed store at k 33 to 128 on the same terms (body 4, the tile within
     1024 at list width 64 and 768 at 128), and so int8 queries (body 7, the
     tile within 1408 at list width 64 and 896 at 128) and f32 queries (body
-    8, the tile within 768 at both widths); everything else keeps the
+    8, the tile within 768 at both widths), and bf16 over an f32 packed
+    store at k 33 to 128 (body 9, the tile within 768 at both widths, d % 4
+    == 0); everything else keeps the
     mma.sync body (0), and so does every round under a floor.  With the
     body come the width of the query rows it reads and its blocks' query
     slots (32 for the three terms)."""
@@ -1343,7 +1514,7 @@ def test_library_picks_the_body(cuda, mode, store_dtype, k, d, virtual, aligned,
     assert body.kind == expect and body.wgmma is (expect > 0)
     assert body.slots >= torch.cuda.get_device_properties(cuda).multi_processor_count
     if expect:
-        step = 64 if expect in (2, 5) else 128
+        step = 64 if expect in (2, 5, 9) else 128
         assert (body.qd, body.block_queries) == (-(-d // step) * step,
                                                  32 if expect in (3, 5, 8) else 64)
     else:
@@ -1419,7 +1590,10 @@ def test_wgmma_scope_picks_the_body(cuda, case):
     (768, 6, "int8", "f32", 16), (768, 7, "int8", "int8", 16), (768, 0, "int8", "int8", 106),
     (768, 4, "int8", "int8", 106), (912, 7, "int8", "int8", 106), (768, 7, "int8", "bf16", 106),
     (768, 8, "int8", "f32", 16), (768, 3, "int8", "f32", 106), (768, 0, "int8", "f32", 106),
-    (784, 8, "int8", "f32", 106), (768, 8, "int8", "bf16", 106), (768, 8, "int8", "int8", 64)])
+    (784, 8, "int8", "f32", 106), (768, 8, "int8", "bf16", 106), (768, 8, "int8", "int8", 64),
+    (768, 2, "float32", "bf16", 106), (768, 0, "float32", "bf16", 106),
+    (768, 9, "float32", "bf16", 16), (800, 9, "float32", "bf16", 106),
+    (768, 9, "float32", "f32", 106), (768, 4, "float32", "bf16", 106)])
 def test_launch_rejects_queries_laid_out_for_the_other_body(cuda, d, laid_out, store_dtype, mode,
                                                             k):
     """Every launch is held to the body the library picks: queries laid
@@ -1427,8 +1601,9 @@ def test_launch_rejects_queries_laid_out_for_the_other_body(cuda, d, laid_out, s
     wgmma layout where the mma.sync body or another wgmma body runs, in
     bf16 and in f32 mode, over int8 and f32 rows, at list width 32 and 128:
     the width-32 and the wide-list bodies over int8 rows read one layout,
-    and are still held apart, as are the two int8 bodies and the two
-    f32-mode bodies over int8 rows, which read one layout too; int8
+    and are still held apart, as are the two int8 bodies, the two
+    f32-mode bodies over int8 rows and the two bf16 bodies over f32 rows,
+    which read one layout too; int8
     queries laid out for an int8 body where the mma.sync body or a bf16 or
     f32 body runs, and the other way round) launch nothing, raise, and
     count no launch."""
@@ -1447,15 +1622,15 @@ def test_launch_rejects_queries_laid_out_for_the_other_body(cuda, d, laid_out, s
     lib = cuda_build.load(scan_kernel.SOURCE, scan_kernel._bind)
     assert scan_kernel.scan_body(lib, st, mode, k).kind != laid_out
     # the layout of the body laid_out names (bodies 1, 3, 4, 6, 7 and 8: over
-    # an int8 store's order, d rounded up to 128; 2 and 5: over an f32
+    # an int8 store's order, d rounded up to 128; 2, 5 and 9: over an f32
     # store's, to 64)
     layout_dtype = (torch.int8 if laid_out in (1, 3, 4, 6, 7, 8) else torch.float32
-                    if laid_out in (2, 5) else st.dtype)
-    step = 64 if laid_out in (2, 5) else 128
+                    if laid_out in (2, 5, 9) else st.dtype)
+    step = 64 if laid_out in (2, 5, 9) else 128
     op = scan_kernel.operand_queries(q, mode, layout_dtype, -(-d // step) * step if laid_out else 0)
     counts = ("LAUNCHES", "WGMMA_LAUNCHES", "WGMMA_F32_LAUNCHES", "WGMMA_F32MODE_LAUNCHES",
               "WGMMA_WIDE_LAUNCHES", "WGMMA_F32X_LAUNCHES", "WGMMA_S8_LAUNCHES",
-              "WGMMA_S8_WIDE_LAUNCHES", "WGMMA_F32MODE_WIDE_LAUNCHES")
+              "WGMMA_S8_WIDE_LAUNCHES", "WGMMA_F32MODE_WIDE_LAUNCHES", "WGMMA_F32_WIDE_LAUNCHES")
     before = [getattr(scan_kernel, c) for c in counts]
     other = scan_kernel.BODY_NAMES[laid_out]
     with pytest.raises(RuntimeError, match=f"laid out for the {other} body"):
@@ -1860,22 +2035,27 @@ def test_wide_lists_keep_the_tie_rule(cuda, mode, store_dtype, width, qtile):
     plain version; (4) bf16 over the int8 store at widths 64 and 128 (the
     wide-list wgmma body) with integer queries, bit-equal to the plain
     version.  int8 at widths 64 and 128 runs (1) and (3) on the int8 wgmma
-    body with wide lists, and f32 over the int8 store on the f32-mode wgmma
-    body with wide lists.  A round under a floor takes the mma.sync body
-    (``wgmma_scope``); the library's rounds are 1024 wide, past every
+    body with wide lists, f32 over the int8 store on the f32-mode wgmma
+    body with wide lists and bf16 over the f32 store on the wgmma body over
+    f32 rows with wide lists.  A round under a floor takes the mma.sync
+    body (``wgmma_scope``); the library's rounds are 1024 wide, past every
     wgmma body, so all of them sum a row alike.  Rounds of 64 or 128 in f32
-    over the int8 store would start on the f32-mode wgmma body, whose sums
-    are not the mma.sync body's bits (it folds every 128 depths, that body
-    every 16), so in (2) their first round runs under a floor that admits
-    every row, and takes the body of the rounds after it."""
+    over the int8 store or in bf16 over the f32 store would start on a
+    wgmma body whose sums are not the mma.sync body's bits (the f32-mode
+    body folds every 128 depths, that body every 16; the body over f32
+    rows sums its k-steps in another order), so in (2) their first round
+    runs under a floor that admits every row, and takes the body of the
+    rounds after it."""
     store, queries, order, in_order = _tied_case(cuda, store_dtype, seed=width)
     plan, args = scan_inputs(store, queries, order, qtile, mode)
     s8_wide = mode == "int8" and width <= 128
     f32_wide = mode == "f32" and store_dtype == "int8" and width <= 128
-    counts = ("WGMMA_S8_WIDE_LAUNCHES", "WGMMA_F32MODE_WIDE_LAUNCHES")
+    f32_rows_wide = mode == "bf16" and store_dtype == "float32" and width <= 128
+    counts = ("WGMMA_S8_WIDE_LAUNCHES", "WGMMA_F32MODE_WIDE_LAUNCHES", "WGMMA_F32_WIDE_LAUNCHES")
     before = [getattr(scan_kernel, c) for c in counts]
     ks = _kernel_vs_plain(args, width - 5, qtile, 96, mode, 1)
-    assert [getattr(scan_kernel, c) - b for c, b in zip(counts, before)] == [s8_wide, f32_wide]
+    assert [getattr(scan_kernel, c) - b for c, b in zip(counts, before)] == [
+        s8_wide, f32_wide, f32_rows_wide]
     _in_scan_order(plan.qidx, plan.pair_bucket, ks, in_order)
 
     k = 2 * width + 5
@@ -1884,7 +2064,7 @@ def test_wide_lists_keep_the_tie_rule(cuda, mode, store_dtype, width, qtile):
     floors = []
 
     def scan_round(q_idx, p_bucket, w, floor):
-        if floor is None and f32_wide:  # (distance −inf, position −1): every row is above it
+        if floor is None and (f32_wide or f32_rows_wide):  # (−inf, −1): every row is above it
             floor = (torch.full(q_idx.shape, -torch.inf, device=cuda),
                      torch.full(q_idx.shape, -1, dtype=torch.int32, device=cuda))
         floors.append(floor is not None)
@@ -1895,7 +2075,8 @@ def test_wide_lists_keep_the_tie_rule(cuda, mode, store_dtype, width, qtile):
     kd, ks = scan_kernel.scan_in_rounds(scan_round, plan.qidx, plan.pair_bucket, positions,
                                         k=k, qtile=qtile, chunk=96, width=width)
     torch.cuda.synchronize()
-    assert scan_kernel.LAUNCHES - before == len(floors) and floors[:2] == [f32_wide, True]
+    assert scan_kernel.LAUNCHES - before == len(floors) and floors[:2] == [
+        f32_wide or f32_rows_wide, True]
     rd, rs = scan_kernel.scan_pairs_reference(*args, k=k, qtile=qtile, chunk=96, mode=mode)
     kd, ks, rd, rs = (t.cpu().numpy() for t in (kd, ks, rd, rs))
     np.testing.assert_array_equal(np.isinf(kd), np.isinf(rd))
@@ -1916,7 +2097,8 @@ def test_wide_lists_keep_the_tie_rule(cuda, mode, store_dtype, width, qtile):
     args = (args[0], qidx.reshape(-1), *args[2:])
     before = [getattr(scan_kernel, c) for c in counts]
     ks = _kernel_vs_plain(args, width - 5, 128, 96, mode, 1)
-    assert [getattr(scan_kernel, c) - b for c, b in zip(counts, before)] == [s8_wide, f32_wide]
+    assert [getattr(scan_kernel, c) - b for c, b in zip(counts, before)] == [
+        s8_wide, f32_wide, f32_rows_wide]
     _in_scan_order(qidx, plan.pair_bucket, ks, in_order)
     assert (ks[1] == -1).all() and (ks[0, :at] == -1).all() and (ks[0, at + 3:] == -1).all()
 

@@ -1563,3 +1563,241 @@ def test_segment_length_counts_the_f32mode_wide_blocks_m_tiles(width, seed):
     mma = scan_kernel.segment_length(ptr, pair_bucket, live, width=width, slots=slots)
     assert mma == max(1, int(scan_kernel.SEGMENT_SHARE * (chunks * tiles).sum()
                              / (slots * tiles[chunks > 0].max())))
+
+
+# bf16 queries over an f32 store at list widths 64 and 128 (the wgmma body
+# over f32 rows with wide lists): its block's query slots (W_WIDE_SLOTS),
+# the f32 boxes of a ring stage at each width (F32WideList<KMAX>::BOXES:
+# two where they fit beside a 768-wide tile) and its widest resident query
+# tile (F32WideList<64 | 128>::MAX_QD in csrc/scan_pairs.cu)
+F32_WIDE_SLOTS = 64
+F32_WIDE_BOXES = {64: 2, 128: 1}
+F32_WIDE_MAX_QD = {64: 768, 128: 768}
+
+
+@pytest.mark.parametrize("width", [64, 128])
+def test_f32_wide_body_keeps_its_widest_tile_resident(width):
+    """The body over f32 rows with wide lists in one block's 232,448 B: the
+    head (its 64 slots' lists of the list width), the ring (two consumers
+    × W_STAGES stages of one or two boxes of 64 rows × 128 bytes) and the
+    resident bf16 queries (128 bytes a depth, d rounded up to 64).  Two-box
+    stages fit beside a 768-wide tile at list width 64 and not at 128
+    (265,216 B), so width 128 takes one-box stages; either way the block
+    takes exactly 232,448 B at d 768, the widest tile is 768, as the
+    library's scope takes it, and the head, a multiple of 1024, puts the
+    ring where TMA's 128-byte swizzle needs it (the constants here mirror
+    the source's, which the test reads)."""
+    from learnedmetricindex_tpu_torch.ops import cuda_build
+
+    src = (cuda_build.CSRC / "scan_pairs.cu").read_text()
+    assert _source_int(src, "W_WIDE_SLOTS") == F32_WIDE_SLOTS
+    assert "HEAD + kWRingBytesF + size_t(SLOTS) * 2 * 768 <= 232448 ? W_BOXES : 1;" in src
+    stages = _source_int(src, "W_STAGES")
+    head = _w_head_bytes(F32_WIDE_SLOTS, width, stages, 0)
+
+    def block(qd, boxes):
+        return head + 2 * stages * boxes * 64 * 128 + F32_WIDE_SLOTS * 2 * qd
+
+    boxes = 2 if block(768, 2) <= 232448 else 1
+    assert boxes == F32_WIDE_BOXES[width]
+    widest = F32_WIDE_MAX_QD[width]
+    assert widest % QD_STEP_F32 == 0
+    assert block(widest, boxes) <= 232448 < block(widest + QD_STEP_F32, boxes)
+    assert block(768, boxes) == 232448
+    assert {64: 68608, 128: 101376}[width] == head and head % 1024 == 0
+    if width == 128:
+        assert block(768, 2) == 265216
+
+
+@pytest.mark.parametrize("width", [64, 128])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_segment_length_counts_the_f32_wide_blocks_m_tiles(width, seed):
+    """The split's cost model for the body over f32 rows with wide lists: a
+    pair's 128 slots are two blocks of 64 (``Body.block_queries``), each
+    computing its m-tiles up to its last live one, at either list width,
+    as for the wide-list body over int8 rows; the mma.sync body those
+    launches took before cost every live m-tile of a pair in one block.
+    The segment keeps the heaviest block within the share of a slot's fair
+    share, and a block with no live slot costs nothing."""
+    rng = np.random.default_rng(seed + 80)
+    counts = rng.integers(0, 90, 30)
+    ptr = np.concatenate([[0], np.cumsum(counts)])
+    pair_bucket = rng.integers(0, 30, 50)
+    live = rng.integers(0, 256, 50)
+    live[:4] = [0b10, 0b100000, 0b11000001, 0]
+    slots = 132  # one block an SM
+    seg = scan_kernel.segment_length(ptr, pair_bucket, live, width=width, slots=slots,
+                                     wgmma_block=F32_WIDE_SLOTS)
+    blocks = np.zeros((50, 2), np.int64)
+    for p in range(50):
+        for blk in range(2):
+            bits = [(live[p] >> (4 * blk + m)) & 1 for m in range(4)]
+            blocks[p, blk] = max((m + 1 for m in range(4) if bits[m]), default=0)
+    np.testing.assert_array_equal(blocks[:4], [[2, 0], [0, 2], [1, 4], [0, 0]])
+    chunks = counts[pair_bucket]
+    fair = (chunks[:, None] * blocks).sum() / slots
+    heaviest = blocks[chunks > 0].max()
+    assert seg >= 1
+    if seg > 1:
+        assert seg * heaviest <= scan_kernel.SEGMENT_SHARE * fair
+    assert (seg + 1) * heaviest > scan_kernel.SEGMENT_SHARE * fair
+    assert seg == scan_kernel.segment_length(ptr, pair_bucket, live, width=192 - width,
+                                             slots=slots, wgmma_block=F32_WIDE_SLOTS)
+    mma = scan_kernel.segment_length(ptr, pair_bucket, live, width=width, slots=slots)
+    tiles = ((live[:, None] >> np.arange(8)) & 1).sum(axis=1)
+    assert mma == max(1, int(scan_kernel.SEGMENT_SHARE * (chunks * tiles).sum()
+                             / (slots * tiles[chunks > 0].max())))
+
+
+def _f32_wide_raw(x: np.ndarray, q: torch.Tensor, width: int) -> np.ndarray:
+    """The body over f32 rows with wide lists, modelled lane by lane in its
+    ring's stages: stage st of ``F32_WIDE_BOXES[width]`` boxes of 32 f32
+    depths, k-step j of box b of it (two a box) the A fragment that the
+    lanes round to nearest even bf16 from ``_f32_lane_depths``' places of
+    the box, against the B k-step 2·boxes·st + 2·b + j of
+    ``operand_queries(q, "bf16", float32, qd)``; every product and sum in
+    float64 (exact here).  ``(rows, queries)``."""
+    n, d = x.shape
+    qd = -(-d // QD_STEP_F32) * QD_STEP_F32
+    b = scan_kernel.operand_queries(q, "bf16", torch.float32, qd).double().numpy()
+    xp = np.zeros((n, qd), np.float32)
+    xp[:, :d] = x  # the TMA box writes zeros past d
+    xr = _bf16_rne(xp).astype(np.float64)
+    depth = _f32_lane_depths()
+    boxes = F32_WIDE_BOXES[width]
+    got = np.zeros((n, q.shape[0]))
+    for st in range(qd // (32 * boxes)):
+        for box in range(boxes):
+            at = 32 * (boxes * st + box)
+            for j in range(2):
+                kstep = 2 * boxes * st + 2 * box + j
+                got += xr[:, at + depth[j]] @ b[:, 16 * kstep : 16 * kstep + 16].T
+    return got
+
+
+@pytest.mark.parametrize("width", [64, 128])
+@pytest.mark.parametrize("d", [768, 800, 96, 100])
+def test_f32_wide_model_contracts_to_the_dot_product(d, width):
+    """The body over f32 rows with wide lists reads its A fragments from
+    stages of two boxes (list width 64) or one (128): summed over every
+    stage, box, k-step and k', the rounded store values at
+    ``_f32_lane_depths``' places times the B values of the k-step the
+    stage's box names give ``bf16(x) · bf16(q)`` (float64, exact), for f32
+    rows of several magnitudes and bf16 queries, d a whole number of
+    stages or not."""
+    rng = np.random.default_rng(d + width)
+    x = (rng.normal(size=(9, d)) * 2.0 ** rng.integers(-6, 6, size=(9, 1))).astype(np.float32)
+    q = torch.as_tensor(rng.normal(size=(5, d)).astype(np.float32))
+    got = _f32_wide_raw(x, q, width)
+    want = torch.as_tensor(x).bfloat16().double().numpy() @ q.bfloat16().double().numpy().T
+    np.testing.assert_array_equal(got, want)
+
+
+def _f32_wide_dists(rows: np.ndarray, queries: torch.Tensor, sc: np.ndarray,
+                    width: int) -> np.ndarray:
+    """The body's distances as its epilogue computes them: ``_f32_wide_raw``
+    rounded to f32, then ``distance<false>``: raw·(−row scale) + 1 (+inf on
+    a padding slot), each a rounded f32 operation.  ``(queries, slots)``."""
+    raw = _f32_wide_raw(rows, queries, width).astype(np.float32)
+    dist = (raw * -sc[:, None].astype(np.float32)).astype(np.float32)
+    dist = dist + np.where(sc == 0.0, np.float32(np.inf), np.float32(1.0))[:, None]
+    return np.ascontiguousarray(dist.astype(np.float32).T)
+
+
+@pytest.mark.parametrize("k,qtile", [(64, 37), (106, 128), (33, 8), (128, 64)])
+@pytest.mark.parametrize("stale", [False, True])
+def test_f32_wide_model_gives_the_plain_lists(k, qtile, stale):
+    """The body over f32 rows with wide lists, modelled: its stages' sums
+    and epilogue (``_f32_wide_dists``) and the wide-list selection order
+    over them (``_wide_model_lists``: 64-row tiles taken by two
+    warpgroups in turn, marks against a k-th that may be one tile stale,
+    entries winning ties) give the plain version's bf16 lists bit for bit:
+    f32 rows of multiples of 2^-7 up to 4 in magnitude (those in [2, 4)
+    halfway between two bf16 values, so the rounding to nearest even
+    decides them) and small integer queries make every sum exact; the
+    second half of the rows copies the first into the same buckets, so
+    lists hold exact ties, which the earlier row wins; chunks of 96 rows
+    (1.5 tiles), padding slots, an empty bucket."""
+    from learnedmetricindex_tpu_torch.index.bucket_store import BucketStore, scan_inputs
+
+    rng = np.random.default_rng(k + qtile + 300)
+    n, d, nb, chunk, nq = 1500, 96, 5, 96, 70
+    rows = rng.integers(-511, 512, (n, d)).astype(np.float32) / 128
+    bucket = rng.integers(0, nb, n)
+    bucket[bucket == 3] = 1  # bucket 3 empty
+    rows[n // 2 :], bucket[n // 2 :] = rows[: n // 2], bucket[: n // 2]
+    rows = torch.as_tensor(rows)
+    store = BucketStore.build_packed_device(rows, bucket, nb, chunk=chunk)
+    queries = torch.as_tensor(rng.integers(-3, 4, (nq, d)).astype(np.float32))
+    order = torch.as_tensor(np.stack([rng.choice(nb, 2, replace=False) for _ in range(nq)]))
+    order[-5:, 1] = -1
+    _, args = scan_inputs(store, queries, order, qtile, "bf16")
+    q, qidx, pb, ptr, chunk_of, st, sc = args[:7]
+    assert st.dtype == torch.float32
+    rd, rs = scan_kernel.scan_pairs_reference(*args, k=k, qtile=qtile, chunk=chunk, mode="bf16")
+    dist = _f32_wide_dists(st.numpy(), q, sc.numpy(), scan_kernel.list_width(k))
+    md, ms = _wide_model_lists(dist, ptr.numpy(), chunk_of.numpy(), chunk, pb.numpy(),
+                               qidx.numpy(), qtile, k, stale)
+    assert np.isfinite(md).sum() > 0 and (ms >= 0).any()
+    np.testing.assert_array_equal(md.view(np.uint32), rd.numpy().view(np.uint32))
+    np.testing.assert_array_equal(ms, rs.numpy())
+    fin = np.where(np.isfinite(md), md, np.float32(0.0))
+    assert ((np.diff(fin, axis=2) == 0.0) & np.isfinite(md[:, :, 1:])).sum() > 100
+
+
+@pytest.mark.parametrize("d,k,qtile", [(96, 64, 16), (128, 106, 8)])
+def test_f32_wide_model_matches_pallas_bf16_scan(d, k, qtile):
+    """The body over f32 rows with wide lists (``_f32_wide_dists`` and
+    ``_wide_model_lists``, one tile stale marks) over the JAX package's f32
+    store and queries gives each real query's top-k over its pair's
+    bucket within the bar of the JAX package's bf16 Pallas scan of the same
+    seeded inputs in interpret mode (rtol 1e-4, atol 1e-5; slots differing
+    only at ties, rtol 1e-6, atol 1e-7), as
+    ``test_wide_selection_model_matches_pallas_scan`` holds the body over
+    int8 rows."""
+    import jax.numpy as jnp
+
+    from learnedmetricindex_tpu.data import synthetic_blobs
+    from learnedmetricindex_tpu.index.bucket_store import BucketStore as JaxStore
+    from learnedmetricindex_tpu.index.bucket_store import build_scan_plan
+    from learnedmetricindex_tpu.ops.scan_kernel import pallas_host_args, pallas_scan_pairs
+    from learnedmetricindex_tpu_torch.index.bucket_store import build_plan
+
+    n, nb, chunk, nq = 600, 4, 96, 40
+    data, queries = synthetic_blobs(n, d, nq, seed=d + k + 2)
+    rng = np.random.default_rng(d + k + 2)
+    store = JaxStore.build(data, rng.integers(0, nb, size=n), nb, chunk=chunk)
+    assert np.asarray(store.chunk_data).dtype == np.float32
+    order = np.stack([rng.choice(nb, size=2, replace=False) for _ in range(nq)]).astype(np.int64)
+    order[rng.random(nq) < 0.3, -1] = -1
+    plan = build_scan_plan(store, order, qtile=qtile)
+    n_pairs = len(plan.qidx) // qtile
+    im, ic, wr, sf, written = pallas_host_args(store, plan, qtile, n_pairs)
+    qidx = jnp.asarray(plan.qidx)
+    wq = jnp.where((qidx >= 0)[:, None], jnp.asarray(queries)[jnp.maximum(qidx, 0)], 0.0)
+    jd, js = pallas_scan_pairs(
+        wq, jnp.asarray(im), jnp.asarray(ic), jnp.asarray(wr), store.chunk_data,
+        jnp.asarray(sf), None, k=k, qtile=qtile, chunk=chunk, n_pairs=n_pairs,
+        compute="bf16", interpret=True)
+    jd, js = np.asarray(jd)[:n_pairs], np.asarray(js)[:n_pairs]
+    dist = _f32_wide_dists(np.asarray(store.chunk_data), torch.as_tensor(queries),
+                           np.asarray(sf), scan_kernel.list_width(k))
+    pplan = build_plan(torch.as_tensor(order), nb, qtile)
+    assert pplan.n_pairs == n_pairs
+    ptr = np.asarray(store.bucket_chunk_start)
+    md, ms = _wide_model_lists(dist, ptr, np.arange(ptr[-1]), chunk, pplan.pair_bucket.numpy(),
+                               plan.qidx, qtile, k, stale=True)
+    real = (plan.qidx >= 0).reshape(-1, qtile)
+    checked = 0
+    for p in range(n_pairs):
+        if not written[p]:
+            continue
+        for j in np.nonzero(real[p])[0]:
+            o = np.lexsort((js[p, j], jd[p, j]))
+            np.testing.assert_allclose(md[p, j], jd[p, j][o], rtol=1e-4, atol=1e-5)
+            mism = ms[p, j] != js[p, j][o]
+            if mism.any():
+                np.testing.assert_allclose(md[p, j][mism], jd[p, j][o][mism], rtol=1e-6,
+                                           atol=1e-7)
+            checked += 1
+    assert checked > 0

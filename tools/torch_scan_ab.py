@@ -16,7 +16,8 @@ in one process on the same inputs, alternating which goes first, and
 checks that both give the same bits (distances and slots) at every
 ``k``, except where only one side takes a wgmma body (bf16 or f32 over an
 int8 packed store at ``k_scan`` <= 32, bf16, int8 and f32 over it at 33 to
-128, int8 over it at <= 32, as its library's ``lmi_scan_body`` says): wgmma sums in
+128, int8 over it at <= 32, bf16 over an f32 packed store at 33 to 128, as
+its library's ``lmi_scan_body`` says): wgmma sums in
 another order than ``mma.sync``, so there both sides are held to each
 other at the bar of the mode (``chip_smoke.compare_candidates``: in int8
 bit-equal, the integer sums being exact; in f32 also each side's
@@ -44,12 +45,13 @@ or only one side takes the six-term wgmma body (``k_scan`` <= 32), which
 sums in another order than ``mma.sync``; then held to the f32 parity bar
 (``chip_smoke.compare_candidates``) and each side's distances to float64
 (``chip_smoke.float64_error``).  Then
-bf16 over f32 rows at ``k_scan`` 16 (the default search over an f32
-store, the CLI's scan): over that 31 GB store, and over the flagship
-corpus's first 1M rows in their buckets as an f32 store (3.1 GB, the
-CLI's shape: ``--synthetic 1000000``, 120 buckets, chunk 2048, 10k
-queries visiting 4); the same bits where both sides take the same body,
-else held to each other at the bf16 bar (``bodies_agree``).
+bf16 over f32 rows (the default search over an f32 store, the CLI's
+scan): over that 31 GB store at each ``k`` up to 128 (``k_scan`` 106 is
+its ``search(k=100)``), and at ``k_scan`` 16 over the flagship corpus's
+first 1M rows in their buckets as an f32 store (3.1 GB, the CLI's shape:
+``--synthetic 1000000``, 120 buckets, chunk 2048, 10k queries visiting
+4); the same bits where both sides take the same body, else held to
+each other at the bf16 bar (``bodies_agree``).
 
 ``--shares``: the segment-length probe.  This tree's scan at the
 segment length each share of a slot's fair share gives, and over whole
@@ -117,7 +119,8 @@ def sass(cubin: Path) -> dict:
     ``scan_wgmma_kernel``, ``scan_wgmma_f32_kernel``,
     ``scan_wgmma_f32mode_kernel``, ``scan_wgmma_wide_kernel``,
     ``scan_wgmma_f32x_kernel``, ``scan_wgmma_s8_kernel``,
-    ``scan_wgmma_s8_wide_kernel``, ``scan_wgmma_f32mode_wide_kernel``) on."""
+    ``scan_wgmma_s8_wide_kernel``, ``scan_wgmma_f32mode_wide_kernel``,
+    ``scan_wgmma_f32_wide_kernel``) on."""
     cuobjdump = Path(cuda_build._nvcc()).with_name("cuobjdump")
     txt = subprocess.run([str(cuobjdump), "-sass", str(cubin)], capture_output=True, text=True,
                          check=True).stdout
@@ -138,7 +141,8 @@ def sass(cubin: Path) -> dict:
         for kernel in ("scan_mma_kernel", "scan_wgmma_kernel", "scan_wgmma_f32_kernel",
                        "scan_wgmma_f32mode_kernel", "scan_wgmma_wide_kernel",
                        "scan_wgmma_f32x_kernel", "scan_wgmma_s8_kernel",
-                       "scan_wgmma_s8_wide_kernel", "scan_wgmma_f32mode_wide_kernel"):
+                       "scan_wgmma_s8_wide_kernel", "scan_wgmma_f32mode_wide_kernel",
+                       "scan_wgmma_f32_wide_kernel"):
             if kernel in name:
                 name = name[name.find(kernel):]
                 break
@@ -465,22 +469,24 @@ def main() -> None:
         in_turns(runs, f"f32 store f32 k_scan {k} ({queries.shape[0]} queries", agree, 5,
                  args.rounds, smi)
     cli = cli_shape_store(store)
-    for what, st in ((f"f32 store ({f32.chunk_data.numel() * 4 / 1e9:.1f} GB)", f32),
-                     (f"CLI shape f32 store ({cli.chunk_data.numel() * 4 / 1e9:.1f} GB)", cli)):
-        runs = {n: launcher(sd, st, queries, order, "bf16", 16) for n, sd in sides.items()}
+    f32_what = f"f32 store ({f32.chunk_data.numel() * 4 / 1e9:.1f} GB)"
+    for what, st, k in ([(f32_what, f32, k) for k in args.k if k <= 128]
+                        + [(f"CLI shape f32 store ({cli.chunk_data.numel() * 4 / 1e9:.1f} GB)",
+                            cli, 16)]):
+        runs = {n: launcher(sd, st, queries, order, "bf16", k) for n, sd in sides.items()}
         outs = {n: tuple(t.clone() for t in run()) for n, run in runs.items()}
         sargs = scan_inputs(st, queries, order, 128, "bf16")[1]
-        kinds = {n: side_kind(sd, sargs[5], "bf16", 16, None) for n, sd in sides.items()}
+        kinds = {n: side_kind(sd, sargs[5], "bf16", k, None) for n, sd in sides.items()}
         del sargs
         if kinds["this"] != kinds["other"]:
-            agree = bodies_agree(outs, f"{what} bf16 k=16")
+            agree = bodies_agree(outs, f"{what} bf16 k={k}")
         else:
             cs.check(all(torch.equal(x, y) for x, y in zip(outs["other"], outs["this"])),
-                     f"{what} bf16 k=16: the two sides give different bits")
+                     f"{what} bf16 k={k}: the two sides give different bits")
             agree = "same bits"
         agree += bodies_text(kinds)
         del outs
-        in_turns(runs, f"{what} bf16 k_scan 16 ({queries.shape[0]} queries", agree, 5,
+        in_turns(runs, f"{what} bf16 k_scan {k} ({queries.shape[0]} queries", agree, 5,
                  args.rounds, smi)
 
 

@@ -4,7 +4,8 @@
     python3 tools/torch_scan_probe.py [--body mma|wgmma|mma-f32|wgmma-f32|mma-f32mode|wgmma-f32mode|
                                              mma-wide|wgmma-wide|mma-f32x|wgmma-f32x|mma-s8|
                                              wgmma-s8|mma-s8-wide|wgmma-s8-wide|
-                                             mma-f32mode-wide|wgmma-f32mode-wide]
+                                             mma-f32mode-wide|wgmma-f32mode-wide|
+                                             mma-f32-wide|wgmma-f32-wide]
                                       [--checkout DIR] [--reference DIR ...]
                                       [--rounds 4] [--only NAME ...]
 
@@ -19,7 +20,8 @@ or over that f32 store (``mma-f32x``, ``wgmma-f32x``), and the int8 scan
 over the int8 store (``mma-s8``, ``wgmma-s8``; at ``k_scan`` 106 and 64,
 list widths 128 and 64, ``mma-s8-wide``, ``wgmma-s8-wide``), and the f32
 scan over the int8 store at those widths (``mma-f32mode-wide``,
-``wgmma-f32mode-wide``).
+``wgmma-f32mode-wide``), and the bf16 scan over the f32 store at those
+widths (``mma-f32-wide``, ``wgmma-f32-wide``).
 It writes patched copies of ``DIR``'s
 ``learnedmetricindex_tpu_torch/csrc/scan_pairs.cu`` (default: this
 tree's) into ``build/scan_probe/``, builds each (and
@@ -224,10 +226,39 @@ timed in mode f32 at ``k_scan`` 106 and 64:
   2 at list width 64 (the width-128 instance is the tree's: at 106 it
   reads the spread between two builds of one source).
 
-The variants of ``--body wgmma-s8``, ``--body wgmma-s8-wide`` and
-``--body wgmma-f32mode-wide`` that leave the arithmetic alone (the rings,
-A from shared memory, the slots a block) are held bit-equal to the tree's
-lists; the other copies' results are wrong and are not read.  Then the card's memory
+``--body mma-f32-wide``: the mma.sync body's bf16 instances over an f32
+store at list widths 128 and 64 (``MmaBody<MODE_BF16, float, 128 | 64>``:
+a checkout where those scans take them, for example the commit before
+the wgmma body over f32 rows with wide lists), timed in mode bf16 over
+the flagship's rows as an f32 store at ``k_scan`` 106 and 64: the
+variants of ``--body mma-f32``.
+
+``--body wgmma-f32-wide``: the wgmma body over f32 rows with wide lists,
+timed in mode bf16 over that f32 store at ``k_scan`` 106 and 64:
+
+* ``tree``, ``no wgmma``, ``no rounding``, ``no TMA``, ``bare``, ``no
+  wgmma, bare`` as for ``--body wgmma-f32``;
+* ``no selection``, ``no hand-over``, ``no merge`` as for ``--body
+  wgmma-wide``;
+* ``one-box stages at width 64``: stages of one box (two k-steps) at
+  list width 64 too, as at 128, in place of two-box ones (the width-128
+  instance is the tree's);
+* ``32 slots a block``: a block keeps 32 query slots (a pair takes four
+  blocks), whose smaller head leaves room for two-box stages at list
+  width 128 too;
+* ``48 slots a block at width 128``: at list width 128 a block keeps 48
+  query slots (a pair takes three blocks), which leaves room for two-box
+  stages (the width-64 instance is the tree's; the split still costs the
+  blocks as the library reports them, 64 slots);
+* ``L2 prefetch of the next tile``: as a producer warp starts a tile's
+  stages, it asks TMA to prefetch every box of its ring's next tile into
+  L2 (``cp.async.bulk.prefetch.tensor``), so more bytes are in flight
+  than the ring holds.
+
+The variants of ``--body wgmma-s8``, ``--body wgmma-s8-wide``, ``--body
+wgmma-f32mode-wide`` and ``--body wgmma-f32-wide`` that leave the
+arithmetic alone (the rings, A from shared memory, the slots a block)
+are held bit-equal to the tree's lists; the other copies' results are wrong and are not read.  Then the card's memory
 rates: a ~1 GB device-to-device copy (HBM: bytes read + written) and a
 sum over a 20 MB and a 40 MB buffer read again and again (L2).  Prints
 one ``[probe]`` line a variant and ``k_scan`` and writes
@@ -343,6 +374,8 @@ MMA_F32_VARIANTS = {
     "(d) no mma": NO_MMA,
     "(a)+(c)": F_NO_STREAM + NO_SELECTION,
 }
+# (in wgmma_consume and, since the body over f32 rows with wide lists, in
+# wgmma_consume_f32_wide: every occurrence; one kernel is timed)
 WF_NO_ROUND = [("          a[2 * box + j][0] = bf16x2_rn(lo.x, lo.y);\n"
                 "          a[2 * box + j][1] = bf16x2_rn(hi.x, hi.y);\n"
                 "          a[2 * box + j][2] = bf16x2_rn(lo.z, lo.w);\n"
@@ -350,7 +383,8 @@ WF_NO_ROUND = [("          a[2 * box + j][0] = bf16x2_rn(lo.x, lo.y);\n"
                 "          a[2 * box + j][0] = __float_as_uint(lo.x) ^ __float_as_uint(lo.y);\n"
                 "          a[2 * box + j][1] = __float_as_uint(hi.x) ^ __float_as_uint(hi.y);\n"
                 "          a[2 * box + j][2] = __float_as_uint(lo.z) ^ __float_as_uint(lo.w);\n"
-                "          a[2 * box + j][3] = __float_as_uint(hi.z) ^ __float_as_uint(hi.w);\n")]
+                "          a[2 * box + j][3] = __float_as_uint(hi.z) ^ __float_as_uint(hi.w);\n",
+                "all")]
 WF_SCAN_EACH = [("  if constexpr (!std::is_same<TS, int8_t>::value) {\n    const int q = q0 + 4 * lane;",
                  "  if constexpr (false) {\n    const int q = q0 + 4 * lane;")]
 W_BOX1_RING2 = [("constexpr int W_BOXES = 2;", "constexpr int W_BOXES = 1;")]
@@ -677,13 +711,48 @@ WGMMA_F32MODE_WIDE_VARIANTS = {
     "bare": W_NO_TMA + W_NO_WIDEN + WW_NO_HANDOVER,
     "no wgmma, bare": W_NO_WGMMA + W_NO_TMA + W_NO_WIDEN + WW_NO_HANDOVER,
 }
+# the wgmma body over f32 rows with wide lists: one-box stages at width 64 too
+WF32W_BOX1 = [("HEAD + kWRingBytesF + size_t(SLOTS) * 2 * 768 <= 232448 ? W_BOXES : 1;",
+               "false ? W_BOXES : 1;")]
+# ... and 48 query slots a block at width 128 (two-box stages then fit)
+WF32W_SLOTS48 = [("struct F32WideList {\n  static constexpr int KMAX = KMAX_, SLOTS = W_WIDE_SLOTS;",
+                  "struct F32WideList {\n  static constexpr int KMAX = KMAX_,\n"
+                  "                       SLOTS = KMAX <= 64 ? W_WIDE_SLOTS : 48;")]
+# ... and the producer's L2 prefetch of its ring's next tile (this body alone)
+WF32W_PREFETCH = [("    const int next_phys = next.c < b.c_hi ? p.chunk_of[next.c] : 0;\n",
+                   "    const int next_phys = next.c < b.c_hi ? p.chunk_of[next.c] : 0;\n"
+                   "    if constexpr (IsF32Wide<TS>::value) {\n"
+                   "      if (next.c < b.c_hi)\n"
+                   "        for (int x = 0; x < p.qd; x += R::DEPTHS)\n"
+                   "          asm volatile(\"cp.async.bulk.prefetch.tensor.2d.L2.global.tile [%0, {%1, %2}];\\n\"\n"
+                   "                       ::\"l\"(reinterpret_cast<uint64_t>(map)), \"r\"(x),\n"
+                   "                       \"r\"(next_phys * p.chunk + next.t * WR) : \"memory\");\n"
+                   "    }\n")]
+WGMMA_F32_WIDE_VARIANTS = {
+    "tree": [],
+    "no wgmma": W_NO_WGMMA,
+    "no rounding": WF_NO_ROUND,
+    "no selection": WW_NO_SELECTION,
+    "no hand-over": WW_NO_HANDOVER,
+    "no merge": WW_NO_MERGE,
+    "no TMA": W_NO_TMA,
+    "one-box stages at width 64": WF32W_BOX1,
+    "32 slots a block": WW_SLOTS32,
+    "48 slots a block at width 128": WF32W_SLOTS48,
+    "L2 prefetch of the next tile": WF32W_PREFETCH,
+    "bare": W_NO_TMA + WF_NO_ROUND + WW_NO_HANDOVER,
+    "no wgmma, bare": W_NO_WGMMA + W_NO_TMA + WF_NO_ROUND + WW_NO_HANDOVER,
+}
 # the variants whose lists must stay the tree's, bit for bit
 EXACT = {"selection: one load a query", "ring of 2 stages", "ring of 3 stages",
          "ring of 5 stages", "ring of 6 stages", "A from shared memory",
          "A from shared memory, ring of 2 stages"}
 EXACT_S8_WIDE = {"ring of 2 stages", "ring of 3 stages", "32 slots a block"}
 EXACT_BY_BODY = {"wgmma-s8-wide": EXACT_S8_WIDE,
-                 "wgmma-f32mode-wide": {"ring of 3 stages at width 64"}}
+                 "wgmma-f32mode-wide": {"ring of 3 stages at width 64"},
+                 "wgmma-f32-wide": {"one-box stages at width 64", "32 slots a block",
+                                    "48 slots a block at width 128",
+                                    "L2 prefetch of the next tile"}}
 # ... and those that read the queries in depth order (A from shared memory
 # reads each row's depths in order, not in WGMMA_S8_ORDER)
 IN_ORDER = {"A from shared memory", "A from shared memory, ring of 2 stages"}
@@ -694,7 +763,8 @@ VARIANTS = {"mma": MMA_VARIANTS, "wgmma": WGMMA_VARIANTS, "mma-f32": MMA_F32_VAR
             "wgmma-f32x": WGMMA_F32X_VARIANTS, "mma-s8": MMA_S8_VARIANTS,
             "wgmma-s8": WGMMA_S8_VARIANTS, "mma-s8-wide": MMA_S8_VARIANTS,
             "wgmma-s8-wide": WGMMA_S8_WIDE_VARIANTS, "mma-f32mode-wide": MMA_F32MODE_VARIANTS,
-            "wgmma-f32mode-wide": WGMMA_F32MODE_WIDE_VARIANTS}
+            "wgmma-f32mode-wide": WGMMA_F32MODE_WIDE_VARIANTS, "mma-f32-wide": MMA_F32_VARIANTS,
+            "wgmma-f32-wide": WGMMA_F32_WIDE_VARIANTS}
 # ptxas's report of the instance each body runs
 INSTANCE = {"mma": "scan_mma_kernelILi1EaLi32E", "wgmma": "scan_wgmma_kernel",
             "mma-f32": "scan_mma_kernelILi1EfLi32E", "wgmma-f32": "scan_wgmma_f32_kernel",
@@ -705,19 +775,23 @@ INSTANCE = {"mma": "scan_mma_kernelILi1EaLi32E", "wgmma": "scan_wgmma_kernel",
             "wgmma-s8": "scan_wgmma_s8_kernel", "mma-s8-wide": "scan_mma_kernelILi2EaLi128E",
             "wgmma-s8-wide": "scan_wgmma_s8_wide_kernel",
             "mma-f32mode-wide": "scan_mma_kernelILi0EaLi128E",
-            "wgmma-f32mode-wide": "scan_wgmma_f32mode_wide_kernel"}
+            "wgmma-f32mode-wide": "scan_wgmma_f32mode_wide_kernel",
+            "mma-f32-wide": "scan_mma_kernelILi1EfLi128E",
+            "wgmma-f32-wide": "scan_wgmma_f32_wide_kernel"}
 # the scan mode each body runs in, and the kernel that the checkout must have
 # (wgmma bodies) or must not have (the mma.sync body those replace)
 BODY_MODE = {"mma": "bf16", "wgmma": "bf16", "mma-f32": "bf16", "wgmma-f32": "bf16",
              "mma-f32mode": "f32", "wgmma-f32mode": "f32", "mma-wide": "bf16",
              "wgmma-wide": "bf16", "mma-f32x": "f32", "wgmma-f32x": "f32", "mma-s8": "int8",
              "wgmma-s8": "int8", "mma-s8-wide": "int8", "wgmma-s8-wide": "int8",
-             "mma-f32mode-wide": "f32", "wgmma-f32mode-wide": "f32"}
+             "mma-f32mode-wide": "f32", "wgmma-f32mode-wide": "f32", "mma-f32-wide": "bf16",
+             "wgmma-f32-wide": "bf16"}
 # the k_scan each body is timed at: the default search's 16, search(k=100)'s
 # 106 (the int8 and f32 wide lists also at 64, list width 64)
 BODY_K = {"mma-wide": (106,), "wgmma-wide": (106,), "mma-s8-wide": (106, 64),
           "wgmma-s8-wide": (106, 64), "mma-f32mode-wide": (106, 64),
-          "wgmma-f32mode-wide": (106, 64)}
+          "wgmma-f32mode-wide": (106, 64), "mma-f32-wide": (106, 64),
+          "wgmma-f32-wide": (106, 64)}
 BODY_KERNEL = {"mma": "scan_wgmma_kernel", "wgmma": "scan_wgmma_kernel",
                "mma-f32": "scan_wgmma_f32_kernel", "wgmma-f32": "scan_wgmma_f32_kernel",
                "mma-f32mode": "scan_wgmma_f32mode_kernel",
@@ -728,7 +802,9 @@ BODY_KERNEL = {"mma": "scan_wgmma_kernel", "wgmma": "scan_wgmma_kernel",
                "mma-s8-wide": "scan_wgmma_s8_wide_kernel",
                "wgmma-s8-wide": "scan_wgmma_s8_wide_kernel",
                "mma-f32mode-wide": "scan_wgmma_f32mode_wide_kernel",
-               "wgmma-f32mode-wide": "scan_wgmma_f32mode_wide_kernel"}
+               "wgmma-f32mode-wide": "scan_wgmma_f32mode_wide_kernel",
+               "mma-f32-wide": "scan_wgmma_f32_wide_kernel",
+               "wgmma-f32-wide": "scan_wgmma_f32_wide_kernel"}
 
 
 def patched(source: str, edits) -> str:
@@ -811,7 +887,7 @@ def main() -> None:
     del virtual
     mode = BODY_MODE[args.body]
     what = f"{mode} over the int8 packed store"
-    if args.body.endswith(("f32", "f32x")):
+    if args.body.endswith(("f32", "f32x", "f32-wide")):
         store = cs.dequantized_store(store)
         what = f"{mode} over an f32 store ({store.chunk_data.numel() * 4 / 1e9:.1f} GB)"
     exact = EXACT_BY_BODY.get(args.body, EXACT)
