@@ -48,7 +48,8 @@ phases:
    rounded up to its widest tile, 768), bf16 over the f32 store at k 33,
    64 and 106 (its wide-list body, d 752 and 100), and the launches there
    that keep
-   the mma.sync body (virtual stores, int8 and f32 at k 64 among them,
+   the mma.sync body (virtual stores of an f32 corpus, int8 queries and f32
+   at k 64 over a virtual store of an int8 corpus,
    int8 rows of 100 bytes, int8 at k 64 and 106 past that body's widest
    tiles, f32 over int8 rows of 100 bytes at k 64 and past its wide-list
    body's widest tile (d 784 at k 64, 896 at 106), bf16 over f32 rows past
@@ -112,12 +113,15 @@ phases:
    version at the bf16 bar, both recalls printed;
    then the same index over a virtual store of the device corpus
    (``get_bucket_store``: the id grid, no copy): default and ``highest``
-   searches equal to the packed store's, a ``k=1100`` search equal to
-   exact kNN over the visited buckets, the store's bytes and the peak
-   device memory while each store is made, and the row-map scan beside
-   the packed scan, its plain version, the library call and the bound,
-   and that search's scan alone (k_scan 16, the 1024-wide round, k_scan
-   1106) beside its plain version, the library call and the bound;
+   searches equal to the packed store's, each one launch of the row-map
+   wgmma bodies (bf16, f32), a ``k=1100`` search equal to exact kNN over
+   the visited buckets (its rounds on the mma.sync body), the store's
+   bytes and the peak device memory while each store is made and over
+   the phase, and the row-map scans at k_scan 16 in bf16 and f32 beside
+   the packed scans (their lists bit-equal), their plain versions, the
+   library calls and the bounds, and the ``k=1100`` search's scan alone
+   (k_scan 16, the 1024-wide round, k_scan 1106) beside its plain version,
+   the library call and the bound;
    then the store sharded by bucket over ``[cuda:0] * 4`` (from the
    device corpus, and from the packed store): a visit-4 default search
    equal to the single store's, one scan launch a shard, each shard's
@@ -244,11 +248,12 @@ BF16_ATOL, BF16_SAME_IDS = 3e-3, 0.99
 # terms must miss the bar, or the check could not tell the bodies apart
 SPLIT_REL_ERR = 2.0**-20
 REPLACES = "learnedmetricindex_tpu/ops/scan_kernel.py:325"
-# read_counts' keys of the scan's launches on its nine wgmma bodies (bf16
+# read_counts' keys of the scan's launches on its eleven wgmma bodies (bf16
 # over int8 rows, bf16 over f32 rows, f32 over int8 rows, bf16 over int8
 # rows at list widths 64 and 128, f32 over f32 rows, int8 over int8 rows,
 # int8 over int8 rows at list widths 64 and 128, f32 over int8 rows at
-# list widths 64 and 128, bf16 over f32 rows at list widths 64 and 128)
+# list widths 64 and 128, bf16 over f32 rows at list widths 64 and 128,
+# bf16 and f32 over a row map of an int8 corpus)
 WGMMA_INT8, WGMMA_F32 = "scan_pairs wgmma body", "scan_pairs wgmma f32 body"
 WGMMA_F32MODE = "scan_pairs wgmma f32-mode body"
 WGMMA_WIDE = "scan_pairs wgmma wide-list body"
@@ -257,6 +262,11 @@ WGMMA_S8 = "scan_pairs wgmma int8 body"
 WGMMA_S8_WIDE = "scan_pairs wgmma int8 wide-list body"
 WGMMA_F32MODE_WIDE = "scan_pairs wgmma f32-mode wide-list body"
 WGMMA_F32_WIDE = "scan_pairs wgmma f32 wide-list body"
+WGMMA_INT8_ROWMAP = "scan_pairs wgmma row-map body"
+WGMMA_F32MODE_ROWMAP = "scan_pairs wgmma f32-mode row-map body"
+# the widest resident query tiles of the row-map bodies (bf16: body 10, f32:
+# body 11): WRing<RowMap<int8_t> | RowMap<F32Mode>>::MAX_QD in csrc/scan_pairs.cu
+ROWMAP_MAX_QD = {"bf16": 896, "f32": 768}
 KERNEL_SOURCE = "learnedmetricindex_tpu_torch/csrc/scan_pairs.cu"
 # the merge of a split scan takes the place of the Pallas kernel's running
 # top-k across a pair's chunks (its `insert`, carried in VMEM chunk to chunk)
@@ -452,25 +462,29 @@ def reset_counts() -> None:
     scan_kernel.WGMMA_S8_WIDE_LAUNCHES = 0
     scan_kernel.WGMMA_F32MODE_WIDE_LAUNCHES = 0
     scan_kernel.WGMMA_F32_WIDE_LAUNCHES = 0
+    scan_kernel.WGMMA_INT8_ROWMAP_LAUNCHES = 0
+    scan_kernel.WGMMA_F32MODE_ROWMAP_LAUNCHES = 0
     scan_kernel.MERGE_LAUNCHES = 0
     gather_kernel.LAUNCHES = 0
     gather_kernel.PAIR_LAUNCHES = 0
 
 
 def read_counts() -> dict:
-    """Launches a kernel; of the scan's, those of its nine wgmma bodies
+    """Launches a kernel; of the scan's, those of its eleven wgmma bodies
     (bf16 over int8 rows, bf16 over f32 rows, f32 over int8 rows, bf16 over
     int8 rows at list widths 64 and 128, f32 over f32 rows, int8 over int8
     rows, int8 over int8 rows at list widths 64 and 128, f32 over int8 rows
     at list widths 64 and 128, bf16 over f32 rows at list widths 64 and
-    128), the rest on the mma.sync body."""
+    128, bf16 and f32 over a row map of an int8 corpus), the rest on the
+    mma.sync body."""
     bodies = body_launches()
     return {"scan_pairs": scan_kernel.LAUNCHES, "scan_merge": scan_kernel.MERGE_LAUNCHES,
             "gather_pairs": gather_kernel.PAIR_LAUNCHES, "gather_rows": gather_kernel.LAUNCHES,
             WGMMA_INT8: bodies[1], WGMMA_F32: bodies[2], WGMMA_F32MODE: bodies[3],
             WGMMA_WIDE: bodies[4], WGMMA_F32X: bodies[5], WGMMA_S8: bodies[6],
             WGMMA_S8_WIDE: bodies[7], WGMMA_F32MODE_WIDE: bodies[8],
-            WGMMA_F32_WIDE: bodies[9]}
+            WGMMA_F32_WIDE: bodies[9], WGMMA_INT8_ROWMAP: bodies[10],
+            WGMMA_F32MODE_ROWMAP: bodies[11]}
 
 
 def body_launches() -> dict:
@@ -479,7 +493,9 @@ def body_launches() -> dict:
     others = {2: scan_kernel.WGMMA_F32_LAUNCHES, 3: scan_kernel.WGMMA_F32MODE_LAUNCHES,
               4: scan_kernel.WGMMA_WIDE_LAUNCHES, 5: scan_kernel.WGMMA_F32X_LAUNCHES,
               6: scan_kernel.WGMMA_S8_LAUNCHES, 7: scan_kernel.WGMMA_S8_WIDE_LAUNCHES,
-              8: scan_kernel.WGMMA_F32MODE_WIDE_LAUNCHES, 9: scan_kernel.WGMMA_F32_WIDE_LAUNCHES}
+              8: scan_kernel.WGMMA_F32MODE_WIDE_LAUNCHES, 9: scan_kernel.WGMMA_F32_WIDE_LAUNCHES,
+              10: scan_kernel.WGMMA_INT8_ROWMAP_LAUNCHES,
+              11: scan_kernel.WGMMA_F32MODE_ROWMAP_LAUNCHES}
     return {1: scan_kernel.WGMMA_LAUNCHES - sum(others.values()), **others}
 
 
@@ -635,8 +651,11 @@ def wgmma_kind(store, mode: str, k: int) -> int:
     with wide lists in f32 mode, else (bf16) the wide-list body over f32
     rows or over int8 rows; over f32 rows the six-term body in f32 mode,
     else the body over f32 rows; over int8 rows the f32-mode body in f32
-    mode, else the bf16 body over int8 rows."""
+    mode, else the bf16 body over int8 rows; over a row map (a virtual
+    store of an int8 corpus, list width 32) the row-map bodies."""
     f32_rows = store.rows_ref.dtype == torch.float32
+    if store.virtual and mode != "int8" and k <= 32:
+        return 11 if mode == "f32" else 10
     if mode == "int8":
         return 7 if k > 32 else 6
     if k > 32:
@@ -864,8 +883,9 @@ def width32_cases(dev, worst: dict) -> None:
     the f32-mode body with wide lists) at k 106; bf16 over f32 rows at k 33
     and 64, at d 752 (rounded up to 768, the widest tile of the body over
     f32 rows with wide lists) and d 100 at k 106.  Then the launches that
-    keep the mma.sync body at width 32 or just past it: virtual int8 and
-    f32 stores (int8 and f32 queries over the int8 corpus at k 64 too),
+    keep the mma.sync body at width 32 or just past it: virtual stores of
+    an f32 corpus, and of the int8 corpus int8 queries and f32 queries at
+    k 64,
     int8 rows of 100 bytes (at k 16 and 64; f32 queries over them at 64),
     int8 queries past the wide-list int8 body's widest tiles (d 1520 at k
     64, 912 at k 106), f32 queries past the f32-mode wide body's (d 784 at
@@ -876,9 +896,12 @@ def width32_cases(dev, worst: dict) -> None:
     f32 over f32 rows at k 33 (list width 64), and
     k 1040 over buckets of ~4,000 rows of either type (a 1024-wide round,
     then a 16-wide one under its floors, which keeps the body of the round
-    before it, so that both sum a row the same way).  Each case checks
-    which body its launches took, as the library reports each launch; int8
-    is bit-equal to the plain version throughout."""
+    before it, so that both sum a row the same way).  Over the int8 corpus's
+    virtual store (the mutated stores' corpus) bf16 and f32 at k 16 take the
+    row-map bodies, and so do d 96 and their widest resident tiles
+    (``ROWMAP_MAX_QD``), one step past those and rows of 100 bytes not.
+    Each case checks which body its launches took, as the library reports
+    each launch; int8 is bit-equal to the plain version throughout."""
     qtiles = (1, 8, 100, 128)
     n_cases = 0
     for chunk in (320, 130):
@@ -894,7 +917,7 @@ def width32_cases(dev, worst: dict) -> None:
                     held_to_plain(virt[name], queries, order, k, 128, mode,
                                   scan_partner(virt[name], copies),
                                   f"width 32 {mode} virtual {name} corpus k={k} qtile=128", worst,
-                                  wgmma=0)
+                                  wgmma=int(name == "int8" and mode != "int8" and k <= 32))
                     n_cases += 1
                 del virt
                 kv, copies = mutate_kv_stores(kv, copies, made, seed=19)
@@ -952,6 +975,20 @@ def width32_cases(dev, worst: dict) -> None:
                       f"k={k} qtile=128", worst, wgmma=wgmma)
         n_cases += 1
         del stores
+    # the row-map bodies' widest resident tiles over an int8 corpus's virtual
+    # store and one 16-value step past each (rounded up past it: the
+    # mma.sync body), d 96, and rows of 100 bytes (the mma.sync body)
+    for d, mode, wgmma in ((ROWMAP_MAX_QD["bf16"], "bf16", 1),
+                           (ROWMAP_MAX_QD["bf16"] + 16, "bf16", 0),
+                           (ROWMAP_MAX_QD["f32"], "f32", 1), (ROWMAP_MAX_QD["f32"] + 16, "f32", 0),
+                           (96, "bf16", 1), (96, "f32", 1), (100, "bf16", 0), (100, "f32", 0)):
+        stores, queries, order, _, copies, made = kv_stores(dev, d, seed=19)
+        virt = virtual_stores(made, stores["f32"])["int8"]
+        held_to_plain(virt, queries, order, 16, 128, mode, scan_partner(virt, copies),
+                      f"width 32 {mode} row map int8 corpus d={d} k=16 qtile=128", worst,
+                      wgmma=wgmma)
+        n_cases += 1
+        del stores, virt
     # floors at width 32: buckets of ~4,000 rows, so the 16-wide round runs
     g = BlobGenerator(16, 768, seed=23, noise=0.45, device=dev)
     data = g.rows(12_000)
@@ -1710,7 +1747,9 @@ def f32_store_scan(store, queries, order, smi: str, index, data_prediction):
         check(ran["scan_pairs"] == 4 and ran[body] == 4
               and all(ran[b] == 0 for b in (WGMMA_INT8, WGMMA_F32, WGMMA_F32MODE, WGMMA_WIDE,
                                             WGMMA_F32X, WGMMA_S8, WGMMA_S8_WIDE,
-                                            WGMMA_F32MODE_WIDE, WGMMA_F32_WIDE) if b != body),
+                                            WGMMA_F32MODE_WIDE, WGMMA_F32_WIDE,
+                                            WGMMA_INT8_ROWMAP, WGMMA_F32MODE_ROWMAP)
+                             if b != body),
               f"f32-store {precision} search k={k}: {ran} launches, not 4 scans, each one "
               f"launch of the {body}")
         check(dd.shape == (nq, k) and bool(np.isfinite(dd).all()) and bool((ii > 0).all()),
@@ -1866,19 +1905,87 @@ def library_scan(store, plan, sargs, k: int, mode: str):
     return run
 
 
+def row_map_scan(store, packed, queries, order, mode: str, smi: str) -> dict:
+    """The row-map scan at ``k_scan`` 16 in ``mode`` (bf16: body 10, f32:
+    body 11) beside the packed store's (body 1, body 3) on the same
+    queries and visits: CUDA events in turns, its plain version, the
+    library call (the slabs gathered through the grid inside the timing)
+    and the bound; one launch on each body; the row map's lists bit-equal
+    to the packed store's (the packed store holds the corpus's own bytes
+    and scales, ``BucketStore.build_packed_device``) and within the bar of
+    the plain version; in f32 both kernels' and the plain version's
+    distances against float64 (the kernel may not be less exact)."""
+    d = queries.shape[1]
+    plan, vargs = scan_inputs(store, queries, order, 128, mode)
+    _, pargs = scan_inputs(packed, queries, order, 128, mode)
+    kw = dict(k=16, qtile=128, chunk=store.chunk, mode=mode)
+    body, packed_body = (WGMMA_F32MODE_ROWMAP, WGMMA_F32MODE) if mode == "f32" else (
+        WGMMA_INT8_ROWMAP, WGMMA_INT8)
+    runs = {"packed": [], "virtual": []}
+    for _ in range(2):  # in turns
+        for name, a in (("packed", pargs), ("virtual", vargs)):
+            runs[name].append(cuda_ms(lambda: scan_kernel.scan_pairs(*a, **kw), 3))
+    v_ms, p_ms = float(np.mean(runs["virtual"])), float(np.mean(runs["packed"]))
+    plain_ms = cuda_ms(lambda: scan_kernel.scan_pairs_reference(*vargs, **kw), 1)
+    lib_ms = cuda_ms(library_scan(store, plan, vargs, 16, mode), 1)
+    torch.cuda.empty_cache()
+    mac, ops, peak_ops, nbytes = scan_work(store, plan, order, d, 16, mode)
+    bound = {"operations": ops / peak_ops * 1e3, "bytes": nbytes / HBM_BYTES_PER_S * 1e3}
+    bound_by = max(bound, key=bound.get)
+    before = read_counts()
+    kd, ks = scan_kernel.scan_pairs(*vargs, **kw)
+    mid = read_counts()
+    pd_, ps_ = scan_kernel.scan_pairs(*pargs, **kw)
+    after = read_counts()
+    ran_v = {n: mid[n] - before[n] for n in before}
+    ran_p = {n: after[n] - mid[n] for n in before}
+    check(ran_v["scan_pairs"] == 1 and ran_v[body] == 1 and ran_p["scan_pairs"] == 1
+          and ran_p[packed_body] == 1,
+          f"{mode} at k_scan 16: the row map takes one launch of the {body}, the packed store "
+          f"one of the {packed_body}: {ran_v}, {ran_p}")
+    rd, rs = scan_kernel.scan_pairs_reference(*vargs, **kw)
+    err, gap = compare_candidates(kd, ks, rd, rs, mode, f"flagship row map {mode}")
+    same = ((kd.view(torch.int32) == pd_.view(torch.int32)) & (ks == ps_)).all(2)
+    n_lists, n_same = same.numel(), int(same.sum())
+    check(n_same == n_lists, f"{mode} at k_scan 16: {n_same} of {n_lists} row-map lists "
+          f"bit-equal to the packed store's")
+    f64 = ""
+    if mode == "f32":  # the slots are the packed store's, so its rows give the float64 sums
+        k_err = float64_error(packed, vargs[0], plan, kd, ks)
+        p_err = float64_error(packed, vargs[0], plan, rd, rs)
+        check(k_err <= p_err, f"row map f32: the kernel's error against float64 {k_err:.3g} "
+              f"exceeds the plain version's {p_err:.3g}")
+        f64 = (f"; against float64 (the first 16 pairs' candidates) kernel {k_err:.3g}, plain "
+               f"{p_err:.3g}")
+    log(f"[virtual] scan_pairs {mode} k_scan 16, row map (virtual store, {body}): kernel "
+        f"{v_ms:.3f} ms ({', '.join(f'{t:.3f}' for t in runs['virtual'])}) against the packed "
+        f"store's {packed_body} {p_ms:.3f} ms ({', '.join(f'{t:.3f}' for t in runs['packed'])}) "
+        f"= {v_ms / p_ms:.3f}x; plain {plain_ms:.2f} ms; library (gather through the grid + "
+        f"matmul + topk) {lib_ms:.2f} ms = {lib_ms / v_ms:.2f}x the kernel; bound "
+        f"{bound[bound_by]:.3f} ms by {bound_by} ({ops:.4g} operations at {peak_ops / 1e12:g} "
+        f"T/s = {bound['operations']:.3f} ms, {nbytes / 1e9:.3f} GB = {bound['bytes']:.3f} ms) = "
+        f"{bound[bound_by] / v_ms:.1%} of it; {plan.n_pairs} pairs; agree, max|Δd|={err:.3g} "
+        f"(at swapped slots {gap:.3g}); {n_same} of {n_lists} lists bit-equal to the packed "
+        f"store's{f64}  [{smi}]")
+    del vargs, pargs, kd, ks, rd, rs, pd_, ps_
+    torch.cuda.empty_cache()
+    return {"ms": v_ms, "packed_ms": p_ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+            "bound_ms": bound[bound_by], "bound_by": bound_by, "err": err,
+            "same_lists": n_same, "lists": n_lists}
+
+
 def phase_virtual(dev, data: dict, ctx: dict, smi: str):
     """The main path over a virtual store: ``get_bucket_store`` of the
     device corpus (int8 + row scales) under the main path's index must be
     the id grid over the corpus itself.  Searches at visit 4, k 10, 10k
-    queries, default and ``highest``, equal the packed store's; a
-    ``k=1100`` search of 256 queries (``highest``; k_scan 1106: two
-    rounds) equals exact kNN over the visited buckets.  Then the row-map
-    scan alone beside the packed scan (CUDA events, in turns), its plain
-    version, the library call and the bound; the row-map kernel's
-    candidates within the bf16 bar of the packed kernel's (the packed
-    store's scan takes the wgmma body, the row map the mma.sync body) and,
-    in f32 (the packed store's scan on the f32-mode wgmma body, the row
-    map's on the mma.sync body), within the f32 bar of them."""
+    queries, default and ``highest``, equal the packed store's, each one
+    scan launch on the row-map wgmma body (bf16: body 10, f32: body 11);
+    a ``k=1100`` search of 256 queries (``highest``; k_scan 1106: two
+    rounds) equals exact kNN over the visited buckets, its rounds on the
+    mma.sync body.  Then the row-map scan alone at ``k_scan`` 16 over the
+    10k queries in bf16 and in f32 beside the packed scan
+    (``row_map_scan``: bit-equal lists), and the ``k=1100`` search's scan
+    alone; the phase's peak device memory."""
     corpus, row_scales, queries = data["corpus"], data["row_scales"], data["queries"]
     index, pred, packed = ctx["index"], ctx["data_prediction"], ctx["store"]
     nq, d = queries.shape[0], corpus.shape[1]
@@ -1906,11 +2013,15 @@ def phase_virtual(dev, data: dict, ctx: dict, smi: str):
         f"made in {made_s:.2f} s (packed {pm['s']:.2f} s); device memory while it was made: peak "
         f"{peak / 1e9:.2f} GB, {(peak - before) / 1e9:.3f} GB above what was resident (packed: "
         f"peak {pm['peak_gb']:.2f} GB, {pm['peak_added_gb']:.2f} GB above the corpus)  [{smi}]")
-    for prec in ("default", "highest"):
+    for prec, body in (("default", WGMMA_INT8_ROWMAP), ("highest", WGMMA_F32MODE_ROWMAP)):
         search(store, queries, k=10, precision=prec)  # warm
+        c0 = read_counts()
         t0 = time.perf_counter()
         vd, vi, _ = search(store, queries, k=10, precision=prec)
         tv = time.perf_counter() - t0
+        ran = {n: v - c0[n] for n, v in read_counts().items()}
+        check(ran["scan_pairs"] == 1 and ran[body] == 1,
+              f"virtual {prec} search: one scan launch, on the {body}: {ran}")
         t0 = time.perf_counter()
         pd, pi, _ = search(packed, queries, k=10, precision=prec)
         tp = time.perf_counter() - t0
@@ -1918,15 +2029,20 @@ def phase_virtual(dev, data: dict, ctx: dict, smi: str):
               f"virtual {prec}: finite, filled")
         n_tied = same_neighbors(vd, vi, pd, pi, f"virtual vs packed, precision={prec}")
         log(f"[virtual] search precision={prec}, n_buckets=4, k=10: {tv:.4f} s per {nq} queries "
-            f"(packed {tp:.4f} s); equals the packed store's search ({n_tied} ids differ at ties)")
+            f"(packed {tp:.4f} s), its scan one launch of the {body}; equals the packed "
+            f"store's search ({n_tied} ids differ at ties)")
     nc = 256
     qc = queries[:nc]
-    b0 = scan_kernel.LAUNCHES
+    c0 = read_counts()
     t0 = time.perf_counter()
     wd, wi, _ = search(store, qc, k=1100, precision="highest")
     tw = time.perf_counter() - t0
-    rounds = scan_kernel.LAUNCHES - b0
+    ran = {n: v - c0[n] for n, v in read_counts().items()}
+    rounds = ran["scan_pairs"]
+    check(all(v == 0 for n, v in ran.items() if n.startswith("scan_pairs wgmma")),
+          f"k=1100 over the virtual store: its rounds on the mma.sync body: {ran}")
     launches = read_counts()
+    path_peak = torch.cuda.max_memory_allocated()
     # ------------------------------------------------------------------
     order_c, _ = index.compute_bucket_order(qc, 4, keep_on_device=True)
     # a second round runs where a visited bucket fills a 1024-wide list
@@ -1938,53 +2054,14 @@ def phase_virtual(dev, data: dict, ctx: dict, smi: str):
     n_tied = same_neighbors(wd, wi, ref_d.cpu().numpy(), ref_i.cpu().numpy(),
                             "k=1100 over the virtual store vs visited-bucket exact kNN")
     log(f"[virtual] k=1100, precision=highest, {nc} queries at n_buckets=4: {tw:.4f} s, {rounds} scan "
-        f"launch(es) (rounds); equals exact kNN over the visited buckets ({n_tied} ids differ at ties)")
+        f"launch(es) (rounds, mma.sync body); equals exact kNN over the visited buckets ({n_tied} "
+        f"ids differ at ties); the path's peak device memory {path_peak / 1e9:.2f} GB  [{smi}]")
     del ref_d, ref_i, wd, wi
 
-    # ---- the row-map scan alone, beside the packed scan ----
+    # ---- the row-map scans alone, beside the packed scans ----
     order, _ = index.compute_bucket_order(queries, 4, keep_on_device=True)
-    plan, vargs = scan_inputs(store, queries, order, 128, "bf16")
-    _, pargs = scan_inputs(packed, queries, order, 128, "bf16")
-    kw = dict(k=16, qtile=128, chunk=store.chunk, mode="bf16")
-    runs = {"packed": [], "virtual": []}
-    for _ in range(2):  # in turns
-        for name, a in (("packed", pargs), ("virtual", vargs)):
-            runs[name].append(cuda_ms(lambda: scan_kernel.scan_pairs(*a, **kw), 3))
-    v_ms, p_ms = float(np.mean(runs["virtual"])), float(np.mean(runs["packed"]))
-    plain_ms = cuda_ms(lambda: scan_kernel.scan_pairs_reference(*vargs, **kw), 1)
-    lib_ms = cuda_ms(library_scan(store, plan, vargs, 16, "bf16"), 1)
-    torch.cuda.empty_cache()
-    mac, ops, peak_ops, nbytes = scan_work(store, plan, order, d, 16, "bf16")
-    bound = {"operations": ops / peak_ops * 1e3, "bytes": nbytes / HBM_BYTES_PER_S * 1e3}
-    bound_by = max(bound, key=bound.get)
-    before = scan_kernel.WGMMA_LAUNCHES
-    kd, ks = scan_kernel.scan_pairs(*vargs, **kw)
-    n_virtual = scan_kernel.WGMMA_LAUNCHES - before
-    pd_, ps_ = scan_kernel.scan_pairs(*pargs, **kw)
-    n_packed = scan_kernel.WGMMA_LAUNCHES - before - n_virtual
-    rd, rs = scan_kernel.scan_pairs_reference(*vargs, **kw)
-    err, gap = compare_candidates(kd, ks, rd, rs, "bf16", "flagship row map bf16")
-    check(n_packed == 1 and n_virtual == 0,
-          f"the packed scan takes the wgmma body, the row map the mma.sync body: {n_packed} "
-          f"and {n_virtual} wgmma-body launches")
-    pair_err, _ = compare_candidates(kd, ks, pd_, ps_, "bf16",
-                                     "row map (mma.sync body) against packed (wgmma body)")
-    same_lists = int(((kd.view(torch.int32) == pd_.view(torch.int32)) & (ks == ps_)).all(2).sum())
-    fk = dict(k=16, qtile=128, chunk=store.chunk, mode="f32")
-    fvd, fvs = scan_kernel.scan_pairs(*scan_inputs(store, qc, order_c, 128, "f32")[1], **fk)
-    fpd, fps = scan_kernel.scan_pairs(*scan_inputs(packed, qc, order_c, 128, "f32")[1], **fk)
-    f_err, _ = compare_candidates(fvd, fvs, fpd, fps, "f32",
-                                  "row map (mma.sync body) against packed (f32-mode wgmma body)")
-    log(f"[virtual] scan_pairs bf16, row map (virtual store): kernel {v_ms:.3f} ms "
-        f"({', '.join(f'{t:.3f}' for t in runs['virtual'])}) against the packed store's "
-        f"{p_ms:.3f} ms ({', '.join(f'{t:.3f}' for t in runs['packed'])}) = {v_ms / p_ms:.3f}x; "
-        f"plain {plain_ms:.2f} ms; library (gather through the grid + matmul + topk) "
-        f"{lib_ms:.2f} ms; bound {bound[bound_by]:.3f} ms by {bound_by} ({nbytes / 1e9:.3f} GB) = "
-        f"{bound[bound_by] / v_ms:.1%} of it; {plan.n_pairs} pairs; agree, max|Δd|={err:.3g}; "
-        f"against the packed store's wgmma body max|Δd|={pair_err:.3g}, {same_lists} of "
-        f"{ks.shape[0] * ks.shape[1]} lists bit-equal; in f32 ({nc} queries, the mma.sync body "
-        f"against the packed store's f32-mode wgmma body) within the f32 bar of the packed "
-        f"kernel's candidates, max|Δd|={f_err:.3g}  [{smi}]")
+    scans = {mode: row_map_scan(store, packed, queries, order, mode, smi)
+             for mode in ("bf16", "f32")}
     # the k=1100 search's scan alone (k_scan 1106 in f32 over its 256
     # queries): the first round (1024 wide) and both rounds, beside k 16
     wplan, wargs = scan_inputs(store, qc, order_c, 128, "f32")
@@ -2007,13 +2084,15 @@ def phase_virtual(dev, data: dict, ctx: dict, smi: str):
         f"({w_ops:.4g} operations at {w_peak / 1e12:g} T/s = {w_bound['operations']:.3f} ms, "
         f"{w_bytes / 1e9:.3f} GB = {w_bound['bytes']:.3f} ms) = {w_bound[w_by] / wide[1106]:.1%} "
         f"of it; {wplan.n_pairs} pairs  [{smi}]")
-    log(f"[virtual] total {time.perf_counter() - t_all:.1f} s")
-    del store, vargs, pargs, wargs, wplan, kd, ks, rd, rs, pd_, ps_
+    log(f"[virtual] total {time.perf_counter() - t_all:.1f} s; peak device memory of the phase "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB  [{smi}]")
+    del store, wargs, wplan
     torch.cuda.empty_cache()
-    return launches, {"ms": v_ms, "packed_ms": p_ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-                      "bound_ms": bound[bound_by], "bound_by": bound_by, "err": err,
-                      "wide_ms": wide, "wide_plain_ms": wide_plain, "wide_library_ms": wide_lib,
-                      "wide_bound_ms": w_bound[w_by], "wide_bound_by": w_by}
+    out = dict(scans["bf16"])
+    out.update({"err": max(t["err"] for t in scans.values()), "f32": scans["f32"],
+                "wide_ms": wide, "wide_plain_ms": wide_plain, "wide_library_ms": wide_lib,
+                "wide_bound_ms": w_bound[w_by], "wide_bound_by": w_by})
+    return launches, out
 
 
 def phase_sharded(dev, data: dict, ctx: dict, packed_scan_ms: float, smi: str):
@@ -2387,13 +2466,15 @@ def phase_build_path(dev, data: dict, smi: str):
     check(per_mode["auto"] == {"scan_pairs": n_search, "scan_merge": n_search, "gather_pairs": 0,
                                "gather_rows": 0, WGMMA_INT8: n_search, WGMMA_F32: 0,
                                WGMMA_F32MODE: 0, WGMMA_WIDE: 0, WGMMA_F32X: 0, WGMMA_S8: 0,
-                               WGMMA_S8_WIDE: 0, WGMMA_F32MODE_WIDE: 0, WGMMA_F32_WIDE: 0},
+                               WGMMA_S8_WIDE: 0, WGMMA_F32MODE_WIDE: 0, WGMMA_F32_WIDE: 0,
+                               WGMMA_INT8_ROWMAP: 0, WGMMA_F32MODE_ROWMAP: 0},
           f"auto mode launches one scan and no gather a search: {per_mode['auto']}")
     check(per_mode["kernel"] == {"scan_pairs": n_search, "scan_merge": n_search,
                                  "gather_pairs": n_search, "gather_rows": 0, WGMMA_INT8: n_search,
                                  WGMMA_F32: 0, WGMMA_F32MODE: 0, WGMMA_WIDE: 0,
                                  WGMMA_F32X: 0, WGMMA_S8: 0, WGMMA_S8_WIDE: 0,
-                                 WGMMA_F32MODE_WIDE: 0, WGMMA_F32_WIDE: 0},
+                                 WGMMA_F32MODE_WIDE: 0, WGMMA_F32_WIDE: 0,
+                                 WGMMA_INT8_ROWMAP: 0, WGMMA_F32MODE_ROWMAP: 0},
           f"kernel mode launches one scan and one merge gather a search: {per_mode['kernel']}")
     for mode in ("auto", "kernel"):
         t = np.asarray(rounds[mode])
@@ -3608,7 +3689,8 @@ def main() -> None:
             rows[-1]["bodies"] = {
                 "mma.sync": total(name) - total(WGMMA_INT8) - total(WGMMA_F32)
                 - total(WGMMA_F32MODE) - total(WGMMA_WIDE) - total(WGMMA_F32X) - total(WGMMA_S8)
-                - total(WGMMA_S8_WIDE) - total(WGMMA_F32MODE_WIDE) - total(WGMMA_F32_WIDE),
+                - total(WGMMA_S8_WIDE) - total(WGMMA_F32MODE_WIDE) - total(WGMMA_F32_WIDE)
+                - total(WGMMA_INT8_ROWMAP) - total(WGMMA_F32MODE_ROWMAP),
                 "wgmma (bf16 over int8 rows)": total(WGMMA_INT8),
                 "wgmma (bf16 over f32 rows)": total(WGMMA_F32),
                 "wgmma (f32 over int8 rows)": total(WGMMA_F32MODE),
@@ -3617,7 +3699,9 @@ def main() -> None:
                 "wgmma (int8 over int8 rows)": total(WGMMA_S8),
                 "wgmma (int8 over int8 rows, lists of 64 and 128)": total(WGMMA_S8_WIDE),
                 "wgmma (f32 over int8 rows, lists of 64 and 128)": total(WGMMA_F32MODE_WIDE),
-                "wgmma (bf16 over f32 rows, lists of 64 and 128)": total(WGMMA_F32_WIDE)}
+                "wgmma (bf16 over f32 rows, lists of 64 and 128)": total(WGMMA_F32_WIDE),
+                "wgmma (bf16 over a row map of int8 rows)": total(WGMMA_INT8_ROWMAP),
+                "wgmma (f32 over a row map of int8 rows)": total(WGMMA_F32MODE_ROWMAP)}
             check(total(WGMMA_F32MODE) > 0, "no scan launch took the f32-mode wgmma body")
             check(total(WGMMA_WIDE) > 0, "no scan launch took the wide-list wgmma body")
             check(total(WGMMA_F32X) > 0, "no scan launch took the six-term wgmma body")
@@ -3628,6 +3712,9 @@ def main() -> None:
                   "no scan launch took the f32-mode wgmma body with wide lists")
             check(total(WGMMA_F32_WIDE) > 0,
                   "no scan launch took the wgmma body over f32 rows with wide lists")
+            check(total(WGMMA_INT8_ROWMAP) > 0, "no scan launch took the row-map wgmma body")
+            check(total(WGMMA_F32MODE_ROWMAP) > 0,
+                  "no scan launch took the f32-mode row-map wgmma body")
     log(f"[total] chip_smoke.py {time.perf_counter() - t_script:.1f} s, the kernels' build "
         f"included  [{smi}]")
     print(json.dumps({"kernels": rows}))

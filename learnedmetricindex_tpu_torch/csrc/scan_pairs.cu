@@ -481,6 +481,48 @@
 // stages at width 128 were slower: 48 slots a block 1.05x, 32 slots 1.02x
 // (a pair's rows read by three or four blocks); an L2 prefetch of each
 // ring's next tile 1.27x.
+//
+// The Hopper bodies over a row map (scan_wgmma_rowmap_kernel,
+// scan_wgmma_f32mode_rowmap_kernel): bf16 and f32 queries over a virtual
+// store of an int8 + row-scale corpus at list width 32 (the default and
+// precision="highest" searches over LearnedIndex.get_bucket_store of a
+// corpus tensor: the id grid, 40.5 MB at the flagship, against the packed
+// store's 7.7 GB), in place of MmaBody<MODE_BF16 | MODE_F32, int8_t, 32>
+// in row-map mode.  What bounds the work: the packed bodies' (5.5 ms bf16,
+// 16.4 ms f32 at the flagship), the rows now scattered over the corpus.
+// A slot's int8 bytes, its scale and its place in the scan order are a
+// packed store's of the same corpus, so the design is the blocks of
+// scan_wgmma_kernel and scan_wgmma_f32mode_kernel with two parts new:
+//  * a gathering producer: TMA boxes span contiguous store rows, so each
+//    consumer's ring is filled by a whole producer warp (wgmma_gather)
+//    that reads the tile's 64 ids once and issues 16-byte cp.async copies
+//    of each stage's 128 depths of each row from corpus + (id − 1)·d
+//    (64-bit) to the places TMA fills in the packed bodies, zeros for a
+//    padding slot, a row past the chunk and depths past d; each lane has
+//    the stage's full barrier wait for its copies
+//    (cp.async.mbarrier.arrive), lane 0 makes its one expected arrival;
+//    the empty side, the walk and running ahead are wgmma_produce's;
+//  * the scale through the grid: each consumer reads its rows' ids as a
+//    tile starts and their scales (load_row_meta's rule) once the tile's
+//    first wgmma is queued (wgmma_consume_rowmap,
+//    wgmma_consume_terms_rowmap: the packed consumers spelled out, so the
+//    other instances keep their code);
+//  * rings of their own depth, RM_STAGES for bf16 and RM3_STAGES for f32
+//    (the three planes leave room for three stages at d 768).
+// The sums, the epilogue and the tie rule are the packed bodies', so the
+// lists are body 1's and body 3's over a packed store of the same corpus,
+// bit for bit.  A row map over an f32 or bf16 corpus, lists past 32,
+// rounds under floors and rows not of whole 16 bytes keep the mma.sync
+// body.
+// What they measured (tools/torch_scan_ab.py and tools/torch_scan_probe.py
+// --body wgmma-rowmap | wgmma-f32mode-rowmap on an NVIDIA H100 80GB HBM3 at
+// 700.00 W, PERF.md): 0.78 of the mma.sync body's time in bf16 (23.3
+// against 29.8 ms at the flagship's virtual store) and 0.61 in f32 (46.8
+// against 76.2), ~1.09x the packed bodies.  The gather costs ~11% (no
+// copies: 0.885 / 0.895 of the time); rings of 2 stages 1.01 / 1.02, of 3
+// (bf16) 1.00; the ids read a tile ahead spilled the producer past its 40
+// registers (1.09x); the idle producer warps helping 1.16 / 1.20x; one
+// 64-byte cp.async.bulk a row and box 4.5 / 4.2x.
 // The other bodies keep the mma.sync design.
 //
 // What is left for later work:
@@ -1758,6 +1800,37 @@ struct WRing<F32WideList<KMAX>> : WRing<float> {
                        LIST = KMAX;
   static constexpr size_t BYTES = L::RING, HEAD = L::HEAD;
 };
+
+// A virtual store over an int8 + row-scale corpus (the row map) at list
+// width 32: the int8 ring of the packed bodies (boxes of WR rows × WK
+// bytes, no swizzle), filled by producer warps that gather each slot's row
+// through the id grid (wgmma_gather), RM_STAGES stages a consumer for bf16
+// queries (RowMap<int8_t>: scan_wgmma_kernel's block) and RM3_STAGES for f32
+// queries (RowMap<F32Mode>: scan_wgmma_f32mode_kernel's block, whose three
+// resident planes leave room for three stages at d 768, not four).  The
+// tags of those bodies, their heads and rings and the widest resident query
+// tile beside them
+constexpr int RM_STAGES = 4, RM3_STAGES = 3;
+template <typename TS>
+struct RowMap {};
+template <>
+struct WRing<RowMap<int8_t>> : WRing<int8_t> {
+  static constexpr int STAGES = RM_STAGES;
+  static constexpr size_t HEAD = w_head_bytes(WQ, W_LIST, RM_STAGES),
+                          BYTES = size_t(W_CONSUMERS) * RM_STAGES * W_STAGE;
+  static constexpr int MAX_QD =
+      int((232448 - HEAD - BYTES) / (size_t(WQ) * 2 * W_QD_STEP)) * W_QD_STEP;
+};
+template <>
+struct WRing<RowMap<F32Mode>> : WRing<F32Mode> {
+  static constexpr int STAGES = RM3_STAGES;
+  static constexpr size_t HEAD = w_head_bytes(WQ3, W_LIST, RM3_STAGES),
+                          BYTES = size_t(W_CONSUMERS) * RM3_STAGES * W_STAGE;
+  static constexpr int MAX_QD =
+      int((232448 - HEAD - BYTES) / (size_t(W3_KSTEP) / 16 * W_QD_STEP)) * W_QD_STEP;
+};
+static_assert(WRing<RowMap<int8_t>>::MAX_QD >= 768 && WRing<RowMap<F32Mode>>::MAX_QD >= 768,
+              "a 768-wide query tile (three planes of one in f32 mode) is resident over a row map");
 
 // dynamic shared memory at query width qd
 template <typename TS>
@@ -3668,6 +3741,367 @@ __global__ void __launch_bounds__(W_THREADS, 1)
   }
 }
 
+// ---------------------------------------------------------------------
+// the row-map bodies: a virtual store's rows gathered through the id grid
+// into the int8 ring (see the note at the top)
+// ---------------------------------------------------------------------
+// an arrive-on `bar` once this thread's cp.async copies so far have
+// landed: the barrier's pending count rises by one now and falls at that
+// arrival, so the phase waits for the copies without counting them
+__device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.shared::cta.b64 [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_all;\n" ::: "memory"); }
+
+// The gathering producer (a whole warp) of consumer warpgroup `wg`:
+// wgmma_produce's walk over the item's tiles (wg, wg + 2, ...) and its
+// ring, each stage's bytes where TMA puts a packed store's, but each
+// slot's row read through the id grid.  The lanes hold a tile's 64 ids
+// (lane i: rows i and 32 + i, read as the tile starts: read during the
+// tile before, they took registers past the producer's 40 and spilled, and
+// the scans took 1.09x the time); in a
+// stage, lane 8j + c copies piece c (16 bytes) of the stage's 128 depths
+// of rows 4i + j, i = 0 .. 15 (four rows' 128 contiguous bytes a copy
+// instruction), from corpus + (id − 1)·d (64-bit: the flagship corpus is
+// 7.7 GB) to box c / 4, bytes 16·(c % 4) of the row.  A padding slot (id
+// 0), a row past the chunk and depths past d are written as zeros
+// (src-size 0), never skipped.  Each lane then has the stage's full
+// barrier wait for its copies, and once the warp has, lane 0 makes the
+// barrier's one expected arrival.
+template <typename TS>
+__device__ void wgmma_gather(const Params& p, const WSmem<TS>& s, const WItem& b, int wg) {
+  using R = WRing<TS>;
+  static_assert(R::BOXES * R::DEPTHS == 128 && R::ROW == WK, "a stage: 128 int8 depths, two boxes");
+  const int lane = threadIdx.x & 31, c = lane & 7, j = lane >> 3;
+  const int per_chunk = (p.chunk + WR - 1) / WR, nst = p.qd / (R::BOXES * R::DEPTHS);
+  const int8_t* corpus = static_cast<const int8_t*>(p.store);
+  TileWalk w{b.c_lo, 0};
+  w.advance(wg, per_chunk);
+  int cnt = 0;
+  while (w.c < b.c_hi) {
+    const int r0 = w.t * WR, slot0 = p.chunk_of[w.c] * p.chunk + r0, nrows = min(WR, p.chunk - r0);
+    const int id_lo = lane < nrows ? p.row_ids[slot0 + lane] : 0;
+    const int id_hi = lane + 32 < nrows ? p.row_ids[slot0 + lane + 32] : 0;
+    for (int st = 0; st < nst; ++st, ++cnt) {
+      const int slot = cnt % R::STAGES;
+      uint64_t* full = &s.full[wg * R::STAGES + slot];
+      mbar_wait(&s.empty[wg * R::STAGES + slot], ((cnt / R::STAGES) & 1) ^ 1);
+      const int depth = st * 128 + 16 * c;
+      unsigned char* dst = s.stage(wg, slot) + (c >> 2) * WR * WK + (c & 3) * 16;
+#pragma unroll
+      for (int i = 0; i < WR / 4; ++i) {
+        const int id = __shfl_sync(FULL, i < 8 ? id_lo : id_hi, (4 * i + j) & 31);
+        const bool ok = id > 0 && depth < p.d;
+        cp_async16(dst + (4 * i + j) * WK, corpus + (ok ? size_t(id - 1) * p.d + depth : 0), ok);
+      }
+      cp_async_arrive(full);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(full);
+    }
+    w.advance(W_CONSUMERS, per_chunk);
+  }
+  cp_async_wait_all();
+}
+
+// The row-map consumer warpgroup for bf16 queries (RowMap<int8_t>):
+// wgmma_consume's int8 path spelled out (so that the packed bodies keep
+// their code) over its own ring of RM_STAGES stages, each row's scale read
+// through the id grid by load_row_meta's rule (row_scales[id − 1], 1 with
+// none, 0 for a padding slot or a row past the chunk): the id as the tile
+// starts, its scale once the tile's first wgmma is queued.  The stage bytes
+// and scales are a packed store's of the same corpus, so the sums, the
+// epilogue and the lists are body 1's, bit for bit.  N = 16·NL query slots.
+template <int NL>
+__device__ void wgmma_consume_rowmap(const Params& p, const WSmem<RowMap<int8_t>>& s,
+                                     const WItem& b, int wg) {
+  using R = WRing<RowMap<int8_t>>;
+  constexpr int N = 16 * NL, KSTEPS = R::KSTEPS;
+  const int tid = threadIdx.x & 127, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int per_chunk = (p.chunk + WR - 1) / WR, nst = p.qd / R::QD_STEP;
+  const int ntiles = (b.c_hi - b.c_lo) * per_chunk;
+  const uint32_t q_base = smem_u32(s.queries);
+  TileWalk w{b.c_lo, 0};
+  w.advance(wg, per_chunk);
+  int phys = w.c < b.c_hi ? p.chunk_of[w.c] : 0;
+  float* dist = s.dist + wg * WQ * WDQ;
+  int cnt = 0;  // stages this warpgroup has taken from its ring
+  unsigned live = 0;  // bit 2n + e: the lane's query slot 8n + 2t + e holds a query
+#pragma unroll
+  for (int n = 0; n < N / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) live |= unsigned(s.q_row[8 * n + 2 * t + e] >= 0) << (2 * n + e);
+
+  // the A fragments of a stage's k-steps, four a box, widened as in wgmma_consume
+  auto take_stage = [&](uint32_t(&a)[KSTEPS][4]) {
+    const int slot = cnt % R::STAGES;
+    mbar_wait(&s.full[wg * R::STAGES + slot], (cnt / R::STAGES) & 1);
+#pragma unroll
+    for (int box = 0; box < R::BOXES; ++box) {
+      const unsigned char* x = s.stage(wg, slot) + box * WR * WK + (warp * 16 + g) * WK + t * 16;
+      const uint4 lo = lds128u(x), hi = lds128u(x + 8 * WK);
+      const uint32_t wl[4] = {lo.x, lo.y, lo.z, lo.w}, wh[4] = {hi.x, hi.y, hi.z, hi.w};
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        uint32_t bl[2], bh[2];
+        widen_s8x4(wl[j], bl);
+        widen_s8x4(wh[j], bh);
+        a[4 * box + j][0] = bl[0];
+        a[4 * box + j][1] = bh[0];
+        a[4 * box + j][2] = bl[1];
+        a[4 * box + j][3] = bh[1];
+      }
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&s.empty[wg * R::STAGES + slot]);
+    ++cnt;
+  };
+
+  for (int i = wg; i < ntiles; i += W_CONSUMERS) {
+    const int r0 = w.t * WR;
+    const int slot0 = phys * p.chunk + r0, nrows = min(WR, p.chunk - r0);
+    w.advance(W_CONSUMERS, per_chunk);  // the next tile's chunk, read while this one runs
+    phys = w.c < b.c_hi ? p.chunk_of[w.c] : 0;
+    int id[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = warp * 16 + g + 8 * h;
+      id[h] = r < nrows ? p.row_ids[slot0 + r] : 0;  // 0 → scale 0 → +inf distance
+    }
+    float acc[N / 2];
+#pragma unroll
+    for (int e = 0; e < N / 2; ++e) acc[e] = 0.0f;
+    uint32_t a[2][KSTEPS][4];
+    auto issue = [&](auto buf, int st) {
+      constexpr int B = decltype(buf)::value;
+      wgmma_fence();
+#pragma unroll
+      for (int j = 0; j < KSTEPS; ++j)
+        wgmma_rs<N>(acc, a[B][j], query_desc(q_base + (KSTEPS * st + j) * W_KSTEP));
+      wgmma_commit();
+    };
+    auto step = [&](auto buf, int st) {  // st >= 1
+      constexpr int B = decltype(buf)::value;
+      issue(buf, st);
+      wgmma_wait<1>();  // stage st - 1 is done with a[B ^ 1]
+      hold(a[B ^ 1]);
+      if (st + 1 < nst) take_stage(a[B ^ 1]);
+    };
+    take_stage(a[0]);
+    issue(std::integral_constant<int, 0>{}, 0);
+    float r_scale[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      r_scale[h] = id[h] == 0 ? 0.0f : p.scales != nullptr ? p.scales[id[h] - 1] : 1.0f;
+    if (nst > 1) take_stage(a[1]);
+    for (int st = 1; st < nst; st += 2) {
+      step(std::integral_constant<int, 1>{}, st);
+      if (st + 1 < nst) step(std::integral_constant<int, 0>{}, st + 1);
+    }
+    wgmma_wait<0>();
+    hold(a[0]);
+    hold(a[1]);
+    hold(acc);
+
+    // epilogue, hand-over and selection as in wgmma_consume
+#pragma unroll
+    for (int n = 0; n < N / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int q = 8 * n + 2 * t + e;
+        float v[2];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          v[h] = distance<false>(acc[4 * n + 2 * h + e], r_scale[h], 1.0f);
+          dist[q * WDQ + warp * 16 + g + 8 * h] = v[h];
+        }
+        if (((live >> (2 * n + e)) & 1u) &&
+            fminf(v[0], v[1]) < *static_cast<volatile const float*>(&s.top_d[q * W_LIST + p.k - 1]))
+          reinterpret_cast<unsigned char*>(s.q_grp + wg * WQ)[q * 4 + (warp >> 1)] = 1;
+      }
+    bar_sync(BAR_WG + wg, 128);
+    if (i > 0) bar_sync(BAR_HANDOVER + wg, 256);  // the tile before is selected (by the warpgroup before)
+    wgmma_select(p, s, wg, N, nrows, slot0);
+    bar_sync(BAR_WG + wg, 128);  // the distance tile is free again
+    if (i + 1 < ntiles) bar_arrive(BAR_HANDOVER + (wg + 1) % W_CONSUMERS, 256);
+  }
+}
+
+// The row-map consumer warpgroup for f32 queries (RowMap<F32Mode>):
+// wgmma_consume_terms spelled out over its own ring of RM3_STAGES stages,
+// each row's scale read through the id grid as in wgmma_consume_rowmap.
+// Its sums and lists are body 3's over a packed store of the same corpus,
+// bit for bit.  N = 16·NL query slots.
+template <int NL>
+__device__ void wgmma_consume_terms_rowmap(const Params& p, const WSmem<RowMap<F32Mode>>& s,
+                                           const WItem& b, int wg) {
+  using R = WRing<RowMap<F32Mode>>;
+  constexpr int N = 16 * NL, KSTEPS = WK / 16;  // k-steps a box
+  static_assert(R::BOXES == 2, "a stage's two boxes take the two sets of A registers in turns");
+  const int tid = threadIdx.x & 127, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int per_chunk = (p.chunk + WR - 1) / WR, nst = p.qd / R::QD_STEP;
+  const int ntiles = (b.c_hi - b.c_lo) * per_chunk;
+  const uint32_t q_base = smem_u32(s.queries);
+  TileWalk w{b.c_lo, 0};
+  w.advance(wg, per_chunk);
+  int phys = w.c < b.c_hi ? p.chunk_of[w.c] : 0;
+  float* dist = s.dist + wg * WQ3 * WDQ;
+  int cnt = 0;  // stages this warpgroup has taken from its ring
+  unsigned live = 0;  // bit 2n + e: the lane's query slot 8n + 2t + e holds a query
+#pragma unroll
+  for (int n = 0; n < N / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) live |= unsigned(s.q_row[8 * n + 2 * t + e] >= 0) << (2 * n + e);
+
+  // the A fragments of box `box` of the ring's current stage, as in
+  // wgmma_consume_terms; the first box waits for the stage, the last frees it
+  auto take_box = [&](uint32_t(&a)[KSTEPS][4], int box) {
+    const int slot = cnt % R::STAGES;
+    if (box == 0) mbar_wait(&s.full[wg * R::STAGES + slot], (cnt / R::STAGES) & 1);
+    const unsigned char* x = s.stage(wg, slot) + box * WR * WK + (warp * 16 + g) * WK + t * 16;
+    const uint4 lo = lds128u(x), hi = lds128u(x + 8 * WK);
+    const uint32_t wl[4] = {lo.x, lo.y, lo.z, lo.w}, wh[4] = {hi.x, hi.y, hi.z, hi.w};
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      uint32_t bl[2], bh[2];
+      widen_s8x4(wl[j], bl);
+      widen_s8x4(wh[j], bh);
+      a[j][0] = bl[0];
+      a[j][1] = bh[0];
+      a[j][2] = bl[1];
+      a[j][3] = bh[1];
+    }
+    if (box == R::BOXES - 1) {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&s.empty[wg * R::STAGES + slot]);
+      ++cnt;
+    }
+  };
+
+  for (int i = wg; i < ntiles; i += W_CONSUMERS) {
+    const int r0 = w.t * WR;
+    const int slot0 = phys * p.chunk + r0, nrows = min(WR, p.chunk - r0);
+    w.advance(W_CONSUMERS, per_chunk);  // the next tile's chunk, read while this one runs
+    phys = w.c < b.c_hi ? p.chunk_of[w.c] : 0;
+    int id[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = warp * 16 + g + 8 * h;
+      id[h] = r < nrows ? p.row_ids[slot0 + r] : 0;  // 0 → scale 0 → +inf distance
+    }
+    float acc[N / 2], fresh[3 * N / 2];  // the running sum; a stage's sums, hi, mid, lo
+#pragma unroll
+    for (int e = 0; e < N / 2; ++e) acc[e] = 0.0f;
+#pragma unroll
+    for (int e = 0; e < 3 * N / 2; ++e) fresh[e] = 0.0f;
+    uint32_t a[2][KSTEPS][4];
+    auto issue = [&](auto buf, int st) {
+      constexpr int B = decltype(buf)::value;
+      wgmma_fence();
+#pragma unroll
+      for (int j = 0; j < KSTEPS; ++j)
+        wgmma_rs_terms<3 * N>(fresh, a[B][j],
+                              query_desc(q_base + (W_KSTEPS * st + KSTEPS * B + j) * W3_KSTEP),
+                              B > 0 || j > 0);
+      wgmma_commit();
+    };
+    // stage st once its first box's wgmma is queued
+    auto finish = [&](int st) {
+      take_box(a[1], 1);
+      issue(std::integral_constant<int, 1>{}, st);
+      wgmma_wait<1>();  // the first box is done with a[0]
+      hold(a[0]);
+      if (st + 1 < nst) take_box(a[0], 0);
+      wgmma_wait<0>();
+      hold(a[1]);
+      fold_terms(acc, fresh);
+    };
+    take_box(a[0], 0);
+    issue(std::integral_constant<int, 0>{}, 0);
+    float r_scale[2];  // the ids' scales, read while the first box's wgmma runs
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      r_scale[h] = id[h] == 0 ? 0.0f : p.scales != nullptr ? p.scales[id[h] - 1] : 1.0f;
+    finish(0);
+    for (int st = 1; st < nst; ++st) {
+      issue(std::integral_constant<int, 0>{}, st);
+      finish(st);
+    }
+
+    // epilogue, hand-over and selection as in wgmma_consume
+#pragma unroll
+    for (int n = 0; n < N / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int q = 8 * n + 2 * t + e;
+        float v[2];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          v[h] = distance<false>(acc[4 * n + 2 * h + e], r_scale[h], 1.0f);
+          dist[q * WDQ + warp * 16 + g + 8 * h] = v[h];
+        }
+        if (((live >> (2 * n + e)) & 1u) &&
+            fminf(v[0], v[1]) < *static_cast<volatile const float*>(&s.top_d[q * W_LIST + p.k - 1]))
+          reinterpret_cast<unsigned char*>(s.q_grp + wg * WQ3)[q * 4 + (warp >> 1)] = 1;
+      }
+    bar_sync(BAR_WG + wg, 128);
+    if (i > 0) bar_sync(BAR_HANDOVER + wg, 256);  // the tile before is selected (by the warpgroup before)
+    wgmma_select(p, s, wg, N, nrows, slot0);
+    bar_sync(BAR_WG + wg, 128);  // the distance tile is free again
+    if (i + 1 < ntiles) bar_arrive(BAR_HANDOVER + (wg + 1) % W_CONSUMERS, 256);
+  }
+}
+
+// bf16 queries over a virtual store of an int8 + row-scale corpus: the int8
+// kernel's block, its gathering producer warps and row-map consumers
+// (spelled out beside the kernels above); no tensor map: no box spans rows
+__global__ void __launch_bounds__(W_THREADS, 1) scan_wgmma_rowmap_kernel(Params p) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const WSmem<RowMap<int8_t>> s(smem);
+  const WItem b = wgmma_begin(p, s);
+  if (b.nl == 0) return wgmma_write(p, s, b, true);
+  const int wg = threadIdx.x / 128;
+  if (wg == W_CONSUMERS) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(W_PRODUCER_REGS) : "memory");
+    if (threadIdx.x % 128 < 32 * W_CONSUMERS) wgmma_gather(p, s, b, threadIdx.x % 128 / 32);
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(W_CONSUMER_REGS) : "memory");
+    switch (b.nl) {
+      case 1: wgmma_consume_rowmap<1>(p, s, b, wg); break;
+      case 2: wgmma_consume_rowmap<2>(p, s, b, wg); break;
+      case 3: wgmma_consume_rowmap<3>(p, s, b, wg); break;
+      default: wgmma_consume_rowmap<4>(p, s, b, wg); break;
+    }
+    bar_sync(BAR_CONSUMERS, W_CONSUMERS * 128);
+    wgmma_write(p, s, b, false);
+  }
+}
+
+// f32 queries (three bf16 terms) over a virtual store of an int8 +
+// row-scale corpus: the f32-mode kernel's block, the gathering producer
+// warps and its row-map consumers (spelled out beside the kernels above)
+__global__ void __launch_bounds__(W_THREADS, 1) scan_wgmma_f32mode_rowmap_kernel(Params p) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const WSmem<RowMap<F32Mode>> s(smem);
+  const WItem b = wgmma_begin(p, s);
+  if (b.nl == 0) return wgmma_write(p, s, b, true);
+  const int wg = threadIdx.x / 128;
+  if (wg == W_CONSUMERS) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(W_PRODUCER_REGS) : "memory");
+    if (threadIdx.x % 128 < 32 * W_CONSUMERS) wgmma_gather(p, s, b, threadIdx.x % 128 / 32);
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(W_CONSUMER_REGS) : "memory");
+    if (b.nl == 1) {  // up to WQ3 / 16
+      wgmma_consume_terms_rowmap<1>(p, s, b, wg);
+    } else {
+      wgmma_consume_terms_rowmap<2>(p, s, b, wg);
+    }
+    bar_sync(BAR_CONSUMERS, W_CONSUMERS * 128);
+    wgmma_write(p, s, b, false);
+  }
+}
+
 // The store as a 2-D tensor of n_rows × d values for TMA (boxes of WR rows
 // × WK int8 depths, or × 32 f32 depths under the 128-byte swizzle; zeros
 // past its edges), by cuTensorMapEncodeTiled looked up at run time, so the
@@ -3704,7 +4138,7 @@ cudaError_t row_tensor_map(CUtensorMap* map, const void* store, int n_rows, int 
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-// The bodies: the mma.sync body, or one of the nine wgmma bodies
+// The bodies: the mma.sync body, or one of the eleven wgmma bodies
 enum Body {
   BODY_MMA = 0,
   BODY_WGMMA_INT8 = 1,
@@ -3715,7 +4149,9 @@ enum Body {
   BODY_WGMMA_S8 = 6,
   BODY_WGMMA_S8_WIDE = 7,
   BODY_WGMMA_F32MODE_WIDE = 8,
-  BODY_WGMMA_F32_WIDE = 9
+  BODY_WGMMA_F32_WIDE = 9,
+  BODY_WGMMA_INT8_ROWMAP = 10,
+  BODY_WGMMA_F32MODE_ROWMAP = 11
 };
 
 // The wgmma bodies' scope: bf16 or f32 queries over an int8 or f32 packed
@@ -3727,16 +4163,23 @@ enum Body {
 // over an int8 packed store and bf16 queries over an f32 packed store at
 // list widths 64 and 128 (k 33 to 128) on the same terms, the tile within
 // WideList<64 or 128>::MAX_QD, S8WideList<64 or 128>::MAX_QD,
-// F32ModeWideList<64 or 128>::MAX_QD or F32WideList<64 or 128>::MAX_QD.  A
+// F32ModeWideList<64 or 128>::MAX_QD or F32WideList<64 or 128>::MAX_QD; and
+// over a row map (a virtual store) bf16 or f32 queries over an int8 corpus
+// at list width 32 on the same terms (a 16-byte aligned corpus), the tile
+// within WRing<RowMap<int8_t>>::MAX_QD or WRing<RowMap<F32Mode>>::MAX_QD.  A
 // round under a floor (k past 1024) keeps the mma.sync body of the rounds before it: every round
 // sums a row the same way, or a row at the boundary could be listed twice
 // or not at all.
 int wgmma_scope(int mode, int store_type, int k, int d, const void* store, const void* row_ids,
                 bool floored) {
-  if (row_ids != nullptr || floored || k > W_WIDE_LIST ||
-      reinterpret_cast<uintptr_t>(store) % 16 != 0)
-    return BODY_MMA;
+  if (floored || k > W_WIDE_LIST || reinterpret_cast<uintptr_t>(store) % 16 != 0) return BODY_MMA;
   const int qd = (d + W_QD_STEP - 1) / W_QD_STEP * W_QD_STEP;
+  if (row_ids != nullptr) {
+    if (k > W_LIST || store_type != STORE_INT8 || d % 16 != 0) return BODY_MMA;
+    if (mode == MODE_BF16 && qd <= WRing<RowMap<int8_t>>::MAX_QD) return BODY_WGMMA_INT8_ROWMAP;
+    if (mode == MODE_F32 && qd <= WRing<RowMap<F32Mode>>::MAX_QD) return BODY_WGMMA_F32MODE_ROWMAP;
+    return BODY_MMA;
+  }
   if (mode == MODE_INT8) {
     if (store_type != STORE_INT8 || d % 16 != 0) return BODY_MMA;
     if (k <= W_LIST) return qd <= W_MAX_QDS8 ? BODY_WGMMA_S8 : BODY_MMA;
@@ -3827,6 +4270,26 @@ cudaError_t launch_width(const Params& p, int n_pairs, cudaStream_t stream, int*
   return cudaGetLastError();
 }
 
+// Launches a row-map body (RowMap<int8_t> or RowMap<F32Mode>) over n_pairs
+// pairs, or reports its blocks an SM; no tensor map: its producer gathers
+template <typename TS>
+cudaError_t launch_wgmma_rowmap(const Params& p, int n_pairs, cudaStream_t stream,
+                                int* blocks_per_sm) {
+  void (*kernel)(Params) = WRing<TS>::TERMS == 3 ? scan_wgmma_f32mode_rowmap_kernel
+                                                 : scan_wgmma_rowmap_kernel;
+  if (p.qd % WRing<TS>::QD_STEP != 0 || p.qd > WRing<TS>::MAX_QD) return cudaErrorInvalidValue;
+  const size_t smem = wgmma_smem_bytes<TS>(p.qd);
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  if (blocks_per_sm != nullptr)
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, kernel, W_THREADS, smem);
+  if (p.row_ids == nullptr || reinterpret_cast<uintptr_t>(p.store) % 16 != 0 || p.d % 16 != 0)
+    return cudaErrorInvalidValue;
+  const int splits = (p.qtile + WRing<TS>::SLOTS - 1) / WRing<TS>::SLOTS;
+  kernel<<<n_pairs * splits, W_THREADS, smem, stream>>>(p);
+  return cudaGetLastError();
+}
+
 // the narrowest list that holds k
 template <int MODE, typename TS>
 cudaError_t launch(const Params& p, int n_pairs, cudaStream_t stream, int* blocks_per_sm) {
@@ -3859,6 +4322,10 @@ cudaError_t dispatch(const Params& p, int mode, int store_type, int body, int n_
   if (body == BODY_WGMMA_F32_WIDE)
     return p.k <= 64 ? launch_wgmma<F32WideList<64>>(p, n_pairs, n_rows, s, blocks_per_sm)
                      : launch_wgmma<F32WideList<128>>(p, n_pairs, n_rows, s, blocks_per_sm);
+  if (body == BODY_WGMMA_INT8_ROWMAP)
+    return launch_wgmma_rowmap<RowMap<int8_t>>(p, n_pairs, s, blocks_per_sm);
+  if (body == BODY_WGMMA_F32MODE_ROWMAP)
+    return launch_wgmma_rowmap<RowMap<F32Mode>>(p, n_pairs, s, blocks_per_sm);
   if (mode == MODE_INT8 && store_type == STORE_INT8)
     return launch<MODE_INT8, int8_t>(p, n_pairs, s, blocks_per_sm);
   if (mode == MODE_F32) {
@@ -3886,28 +4353,31 @@ extern "C" {
 //  * f32 mode over any store: bf16, nt 3, qd a multiple of 32 >= d: per
 //    32-value depth slice the terms hi, mid, lo side by side
 //    (ops/scan_kernel.py::operand_queries); where the call takes a wgmma
-//    body in f32 mode (over an int8 packed store, k <= 128, or an f32
-//    packed store, k <= 32, ...), a
+//    body in f32 mode (over an int8 packed store, k <= 128, an f32
+//    packed store or a row map of an int8 corpus, k <= 32, ...), a
 //    row is the three terms' planes hi, mid, lo, qd values each: qd is d
 //    rounded up to W_QD_STEP (128) over an int8 store, each group of 64 in
 //    WGMMA_ORDER, or to W_QD_STEP_F (64) over an f32 store, each group of
 //    32 in WGMMA_F32_ORDER;
 //  * bf16 mode: bf16, int8 mode: int8, nt 1, qd a multiple of 16 >= d;
 //    where the call takes a wgmma body (wgmma_scope: bf16 over an int8
-//    or an f32 packed store, k <= 128, int8
+//    or an f32 packed store, k <= 128, or a row map of an int8 corpus,
+//    k <= 32, int8
 //    over an int8 packed store, k <= 128, ...), qd is d rounded up to
 //    W_QD_STEP (128) over an int8 store, each group of 64 values in
 //    WGMMA_ORDER (bf16) or WGMMA_S8_ORDER (int8), or
 //    to W_QD_STEP_F (64) over an f32 store, each group of 32 values in
 //    WGMMA_F32_ORDER (ops/scan_kernel.py).
-// n_rows: the store's rows (the edge of its TMA tensor map).  *body: in,
+// n_rows: the store's rows (the edge of its TMA tensor map; a row map's
+// bodies read none).  *body: in,
 // the body the queries are laid out for (enum Body: 0 the mma.sync body,
 // 1 the wgmma body over an int8 store, 2 over an f32 store, 3 in f32 mode
 // over an int8 store, 4 over an int8 store at list widths 64 and 128, 5 in
 // f32 mode over an f32 store, 6 in int8 mode, 7 in int8 mode at list
 // widths 64 and 128, 8 in f32 mode over an int8 store at list widths 64
-// and 128, 9 over an f32 store at list widths 64 and 128, as lmi_scan_body
-// named it);
+// and 128, 9 over an f32 store at list widths 64 and 128, 10 over a row
+// map of an int8 corpus, 11 in f32 mode over a row map of an int8 corpus,
+// as lmi_scan_body named it);
 // out, the body the call's scope picks.
 // Where the two differ nothing launches and the call returns
 // cudaErrorInvalidValue.  All other pointers are device pointers; nothing
@@ -3991,7 +4461,9 @@ int lmi_scan_body(int k, int mode, int store_type, int d, const void* store, con
   while (width < k) width *= 2;
   const bool wide =
       *body == BODY_WGMMA_WIDE || *body == BODY_WGMMA_S8_WIDE || *body == BODY_WGMMA_F32_WIDE;
-  *block_queries = *body == BODY_WGMMA_F32MODE || *body == BODY_WGMMA_F32MODE_WIDE ? WQ3
+  *block_queries = *body == BODY_WGMMA_F32MODE || *body == BODY_WGMMA_F32MODE_WIDE ||
+                           *body == BODY_WGMMA_F32MODE_ROWMAP
+                       ? WQ3
                    : *body == BODY_WGMMA_F32X  ? WQX
                    : wide                      ? W_WIDE_SLOTS
                    : wgmma                     ? WQ

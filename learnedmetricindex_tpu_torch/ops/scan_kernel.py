@@ -22,7 +22,7 @@ of a pair whose bucket has no chunks.
   lists back into one (:func:`merge_split_lists`: ``csrc/scan_merge.cu``
   on CUDA, :func:`merge_split_lists_reference` on the CPU).  The lists
   are those of one scan of the whole bucket, bit for bit.
-* Ten bodies: the bf16 queries over an int8 packed store at list width
+* Twelve bodies: the bf16 queries over an int8 packed store at list width
   32 (the default search) and over an f32 packed store (the default
   search over ``BuildConfiguration(dtype="float32")``, the CLI's store)
   run the Hopper bodies (wgmma, TMA, a resident query tile of 64 slots a
@@ -35,7 +35,10 @@ of a pair whose bucket has no chunks.
   widths 64 and 128 (its ``search(k=100)``), and the int8 queries over an int8
   packed store at list width 32 and at list widths 64 and 128
   (``precision="int8"``, and its ``search(k=100)``: s8 wgmma, exact
-  integer sums); every other call the mma.sync body.
+  integer sums), and the bf16 and f32 queries over a virtual store of an
+  int8 corpus at list width 32 (the row map: the same blocks, their rings
+  filled by producer warps that gather each slot's row through the id
+  grid); every other call the mma.sync body.
   The library decides (``wgmma_scope``); :func:`scan_body` asks it which
   body a launch takes, and each launch checks that the queries were laid
   out for the body that runs.
@@ -54,7 +57,9 @@ of a pair whose bucket has no chunks.
   widths 64 and 128; ``WGMMA_F32MODE_WIDE_LAUNCHES``: of those, the body in
   f32 mode over an int8 store at list widths 64 and 128;
   ``WGMMA_F32_WIDE_LAUNCHES``: of those, the body over an f32 store at list
-  widths 64 and 128);
+  widths 64 and 128; ``WGMMA_INT8_ROWMAP_LAUNCHES``: of those, the body over
+  a row map of an int8 corpus; ``WGMMA_F32MODE_ROWMAP_LAUNCHES``: of those,
+  the body in f32 mode over a row map of an int8 corpus);
   ``MERGE_LAUNCHES`` — the merge kernel.
 
 Stores: a packed store is ``(n_slots, d)`` rows with ``(n_slots,)``
@@ -93,7 +98,8 @@ MAX_QTILE = 128  # QT in csrc/scan_pairs.cu
 #: the bodies as the library numbers them (enum Body in csrc/scan_pairs.cu)
 BODY_NAMES = ("mma.sync", "wgmma", "wgmma over f32", "wgmma in f32 mode", "wgmma wide lists",
               "wgmma six-term", "wgmma int8", "wgmma int8 wide lists",
-              "wgmma f32-mode wide lists", "wgmma over f32 wide lists")
+              "wgmma f32-mode wide lists", "wgmma over f32 wide lists", "wgmma row map",
+              "wgmma f32-mode row map")
 _STORE_TYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
 #: kernel launches made by :func:`scan_pairs` (never by the plain version)
@@ -118,6 +124,12 @@ WGMMA_F32MODE_WIDE_LAUNCHES = 0
 #: of WGMMA_LAUNCHES, those that ran the wgmma body over an f32 store at
 #: list widths 64 and 128
 WGMMA_F32_WIDE_LAUNCHES = 0
+#: of WGMMA_LAUNCHES, those that ran the wgmma body over a row map (a virtual
+#: store) of an int8 corpus
+WGMMA_INT8_ROWMAP_LAUNCHES = 0
+#: of WGMMA_LAUNCHES, those that ran the wgmma body in f32 mode over a row map
+#: of an int8 corpus
+WGMMA_F32MODE_ROWMAP_LAUNCHES = 0
 #: merge kernel launches made by :func:`merge_split_lists` (never by its plain version)
 MERGE_LAUNCHES = 0
 
@@ -350,7 +362,8 @@ def operand_queries(queries: torch.Tensor, mode: str, store_dtype: torch.dtype,
     zero-padded to ``wgmma_qd`` values instead (the width it reads,
     :attr:`Body.qd`: a multiple of 64 >= d), each group of 64 in
     :data:`WGMMA_ORDER` over an int8 store (:data:`WGMMA_S8_ORDER` in mode
-    ``"int8"``, for the int8 bodies at every list width), each group of 32 in
+    ``"int8"``, for the int8 bodies at every list width; over a row map of an
+    int8 corpus as over the int8 packed store), each group of 32 in
     :data:`WGMMA_F32_ORDER` over an f32 store (at every list width); in mode ``"f32"`` the three
     terms so laid out are planes side by side, ``hi, mid, lo``, ``(n,
     3·wgmma_qd)``, over an int8 store (the f32-mode bodies at every list
@@ -755,6 +768,7 @@ def _launch_items(lib, queries, qscales, qidx, pair_bucket, ptr, chunk_of, store
     global LAUNCHES, WGMMA_LAUNCHES, WGMMA_F32_LAUNCHES, WGMMA_F32MODE_LAUNCHES
     global WGMMA_WIDE_LAUNCHES, WGMMA_F32X_LAUNCHES, WGMMA_S8_LAUNCHES, WGMMA_S8_WIDE_LAUNCHES
     global WGMMA_F32MODE_WIDE_LAUNCHES, WGMMA_F32_WIDE_LAUNCHES
+    global WGMMA_INT8_ROWMAP_LAUNCHES, WGMMA_F32MODE_ROWMAP_LAUNCHES
     LAUNCHES += 1
     WGMMA_LAUNCHES += ran.value > 0
     WGMMA_F32_LAUNCHES += ran.value == 2
@@ -765,6 +779,8 @@ def _launch_items(lib, queries, qscales, qidx, pair_bucket, ptr, chunk_of, store
     WGMMA_S8_WIDE_LAUNCHES += ran.value == 7
     WGMMA_F32MODE_WIDE_LAUNCHES += ran.value == 8
     WGMMA_F32_WIDE_LAUNCHES += ran.value == 9
+    WGMMA_INT8_ROWMAP_LAUNCHES += ran.value == 10
+    WGMMA_F32MODE_ROWMAP_LAUNCHES += ran.value == 11
     return out_d, out_s
 
 

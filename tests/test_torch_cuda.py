@@ -1395,7 +1395,15 @@ def test_wgmma_f32_scope_keeps_the_mma_body(cuda, case):
         ("bf16", torch.float32, 106, 768, False, True, 9),  # the f32 store's search(k=100)
         ("int8", torch.int8, 106, 768, False, True, 7),  # the int8 search(k=100)
         ("int8", torch.int8, 33, 768, False, True, 7),  # list width 64: the int8 wide body
-        ("bf16", torch.int8, 16, 768, True, True, 0),  # a virtual store
+        ("bf16", torch.int8, 16, 768, True, True, 10),  # a virtual store: its row map
+        ("bf16", torch.int8, 32, 96, True, True, 10),
+        ("bf16", torch.int8, 16, 896, True, True, 10),  # the row map's widest tile ...
+        ("bf16", torch.int8, 16, 912, True, True, 0),  # ... and one step past it
+        ("bf16", torch.int8, 16, 100, True, True, 0),  # rows not of whole 16 bytes
+        ("bf16", torch.int8, 33, 768, True, True, 0),  # a row map at list width 64
+        ("bf16", torch.int8, 16, 768, True, False, 0),  # an unaligned corpus
+        ("bf16", torch.bfloat16, 16, 768, True, True, 0),  # a row map over a bf16 corpus
+        ("int8", torch.int8, 16, 768, True, True, 0),  # int8 queries over a row map
         ("bf16", torch.int8, 16, 100, False, True, 0),  # rows not of whole 16 bytes
         ("bf16", torch.int8, 16, 30, False, True, 0),
         ("bf16", torch.int8, 16, 768, False, False, 0),  # an unaligned store
@@ -1471,7 +1479,13 @@ def test_wgmma_f32_scope_keeps_the_mma_body(cuda, case):
         ("f32", torch.int8, 106, 100, False, True, 0),  # rows not of whole 16 bytes
         ("f32", torch.int8, 106, 768, True, True, 0),  # a virtual store
         ("f32", torch.int8, 106, 768, False, False, 0),  # an unaligned store
-        ("f32", torch.int8, 16, 768, True, True, 0),  # a virtual store
+        ("f32", torch.int8, 16, 768, True, True, 11),  # a virtual store: its row map
+        ("f32", torch.int8, 32, 96, True, True, 11),
+        ("f32", torch.int8, 16, 752, True, True, 11),  # rounded up to the widest tile ...
+        ("f32", torch.int8, 16, 784, True, True, 0),  # ... and one step past it
+        ("f32", torch.int8, 16, 100, True, True, 0),  # rows not of whole 16 bytes
+        ("f32", torch.int8, 33, 768, True, True, 0),  # a row map at list width 64
+        ("f32", torch.bfloat16, 16, 768, True, True, 0),  # a row map over a bf16 corpus
         ("f32", torch.int8, 16, 768, False, False, 0),  # an unaligned store
         ("f32", torch.bfloat16, 16, 768, False, True, 0),
         ("f32", torch.float32, 16, 768, False, True, 5),  # highest over the default store
@@ -1501,7 +1515,9 @@ def test_library_picks_the_body(cuda, mode, store_dtype, k, d, virtual, aligned,
     tile within 1408 at list width 64 and 896 at 128) and f32 queries (body
     8, the tile within 768 at both widths), and bf16 over an f32 packed
     store at k 33 to 128 (body 9, the tile within 768 at both widths, d % 4
-    == 0); everything else keeps the
+    == 0), and bf16 and f32 over a virtual store (the row map) of an int8
+    corpus at k <= 32 (bodies 10 and 11, the tile within 896 and 768; d %
+    16 == 0, an aligned corpus); everything else keeps the
     mma.sync body (0), and so does every round under a floor.  With the
     body come the width of the query rows it reads and its blocks' query
     slots (32 for the three terms)."""
@@ -1516,7 +1532,7 @@ def test_library_picks_the_body(cuda, mode, store_dtype, k, d, virtual, aligned,
     if expect:
         step = 64 if expect in (2, 5, 9) else 128
         assert (body.qd, body.block_queries) == (-(-d // step) * step,
-                                                 32 if expect in (3, 5, 8) else 64)
+                                                 32 if expect in (3, 5, 8, 11) else 64)
     else:
         group = 32 if mode == "f32" else 16
         width = scan_kernel.list_width(k)
@@ -1530,26 +1546,31 @@ def test_library_picks_the_body(cuda, mode, store_dtype, k, d, virtual, aligned,
                                   "f32 k33", "f32 k106", "f32 k1040", "f32 d896", "f32 d912"])
 def test_wgmma_scope_picks_the_body(cuda, case):
     """The launches outside the wgmma bodies' scope keep the mma.sync body
-    (a virtual store, rows of 100 bytes, f32 at lists of width 64 and 128,
+    (rows of 100 bytes, f32 at lists of width 64 and 128,
     bf16 at width 256, and k 1040: a 1024-wide round, then a 16-wide one
     under its floors, which keeps the body of the round before it, so that
     both sum a row the same way); bf16 at d 96, 1040 and 1152 (the widest
     resident query tile) and at k 33 and 106 (the wide-list body), and f32
     (the three-term body) at d 96 and 896 (its widest; 912 is past it) and
-    at k 33 and 106 (the f32-mode body with wide lists) take a wgmma body.
+    at k 33 and 106 (the f32-mode body with wide lists) take a wgmma body,
+    and so do both over a virtual store of an int8 corpus (the row-map
+    bodies).
     Each within the bar of the plain version, the body counted from the
     library's report of each launch."""
     mode, _, case = case.rpartition(" ")
     mode = mode or "bf16"
     k = {"k33": 33, "k106": 106, "k129": 129, "k1040": 1040}.get(case, 16)
     before = (scan_kernel.WGMMA_LAUNCHES, scan_kernel.WGMMA_F32MODE_LAUNCHES,
-              scan_kernel.WGMMA_WIDE_LAUNCHES, scan_kernel.WGMMA_F32MODE_WIDE_LAUNCHES)
+              scan_kernel.WGMMA_WIDE_LAUNCHES, scan_kernel.WGMMA_F32MODE_WIDE_LAUNCHES,
+              scan_kernel.WGMMA_INT8_ROWMAP_LAUNCHES, scan_kernel.WGMMA_F32MODE_ROWMAP_LAUNCHES)
     if case == "k1040":  # buckets of ~3,000 rows, wider than one round
         store, queries, order = _wide_case(cuda, "int8", seed=1040)
         _, args = scan_inputs(store, queries, order, 8, mode)
         _kernel_vs_plain(args, k, 8, 256, mode, 2)
         assert (scan_kernel.WGMMA_LAUNCHES, scan_kernel.WGMMA_F32MODE_LAUNCHES,
-                scan_kernel.WGMMA_WIDE_LAUNCHES, scan_kernel.WGMMA_F32MODE_WIDE_LAUNCHES) == before
+                scan_kernel.WGMMA_WIDE_LAUNCHES, scan_kernel.WGMMA_F32MODE_WIDE_LAUNCHES,
+                scan_kernel.WGMMA_INT8_ROWMAP_LAUNCHES,
+                scan_kernel.WGMMA_F32MODE_ROWMAP_LAUNCHES) == before
         return
     if case == "virtual":
         store, queries, order = _virtual_case(cuda, 768, "int8", seed=3, shuffle=False)
@@ -1565,12 +1586,16 @@ def test_wgmma_scope_picks_the_body(cuda, case):
         chunk = 96
     _, args = scan_inputs(store, queries, order, 128, mode)
     _kernel_vs_plain(args, k, 128, chunk, mode, 1)
-    takes = {"bf16": ("d96", "d1040", "d1152", "k33", "k106"),
-             "f32": ("d96", "d896", "k33", "k106")}[mode]
+    takes = {"bf16": ("virtual", "d96", "d1040", "d1152", "k33", "k106"),
+             "f32": ("virtual", "d96", "d896", "k33", "k106")}[mode]
     n_w = scan_kernel.WGMMA_LAUNCHES - before[0]
     assert n_w == (1 if case in takes else 0)
-    assert scan_kernel.WGMMA_F32MODE_LAUNCHES - before[1] == (n_w if mode == "f32" and k <= 32
-                                                              else 0)
+    row_map = n_w if case == "virtual" else 0
+    assert (scan_kernel.WGMMA_INT8_ROWMAP_LAUNCHES - before[4],
+            scan_kernel.WGMMA_F32MODE_ROWMAP_LAUNCHES - before[5]) == (
+        (0, row_map) if mode == "f32" else (row_map, 0))
+    assert scan_kernel.WGMMA_F32MODE_LAUNCHES - before[1] == (
+        n_w - row_map if mode == "f32" and k <= 32 else 0)
     assert scan_kernel.WGMMA_WIDE_LAUNCHES - before[2] == (n_w if mode == "bf16" and k > 32
                                                            else 0)
     assert scan_kernel.WGMMA_F32MODE_WIDE_LAUNCHES - before[3] == (n_w if mode == "f32" and k > 32
@@ -1825,6 +1850,112 @@ def test_row_map_kernel_matches_plain_version(cuda, corpus, mode, k, qtile, shuf
         rows, cols = np.nonzero(lists == later)
         for r, j in zip(rows, cols):
             assert (lists[r, :j] == first).any()
+
+
+#: the row-map bodies' launch counters by mode (bf16: body 10, f32: body 11)
+ROWMAP_COUNTER = {"bf16": "WGMMA_INT8_ROWMAP_LAUNCHES", "f32": "WGMMA_F32MODE_ROWMAP_LAUNCHES"}
+
+
+@pytest.mark.parametrize("mode", ["bf16", "f32"])
+@pytest.mark.parametrize("qtile,shuffle", [(1, False), (8, True), (100, False), (128, True)])
+def test_row_map_bodies_match_plain_version(cuda, mode, qtile, shuffle):
+    """The row-map wgmma bodies (bf16: body 10, f32: body 11) over a virtual
+    store of an int8 + row-scale corpus (padding slots, an empty bucket,
+    chunks of 96 rows, so a chunk's second tile ends past it; chunk lists
+    in and out of physical order) at qtile 1/8/100/128: one launch on the
+    body, within the bar of the plain version, exact ties to the earlier
+    row; forced segments of 1 and 2 chunks give the bits of whole buckets,
+    each launch on the body."""
+    store, queries, order = _virtual_case(cuda, 768, "int8", seed=50 + qtile, shuffle=shuffle)
+    plan, args = scan_inputs(store, queries, order, qtile, mode)
+    before = getattr(scan_kernel, ROWMAP_COUNTER[mode])
+    ks = _kernel_vs_plain(args, 16, qtile, 96, mode, 1)
+    assert getattr(scan_kernel, ROWMAP_COUNTER[mode]) == before + 1
+    flat = store.chunk_ids.reshape(-1).cpu().numpy()
+    _, position = store.chunk_owner()
+    pos = {s: position[s // 96] * 96 + s % 96 for s in np.nonzero(flat > 0)[0]}
+    slot_of = {flat[s]: s for s in pos}
+    for row in ks.reshape(-1, 16):  # an exact copy (rows 1501..1540) after its original
+        for j, s in enumerate(row):
+            if s >= 0 and 1501 <= flat[s] <= 1540:
+                first = slot_of[flat[s] - 1500]
+                if pos[first] < pos[s]:
+                    assert (row[:j] == first).any()
+    whole = _split_kernel(args, plan, store, 16, qtile, mode, 10**6)
+    for segment in (1, 2):
+        got = _split_kernel(args, plan, store, 16, qtile, mode, segment)
+        assert torch.equal(got[0].view(torch.int32), whole[0].view(torch.int32))
+        assert torch.equal(got[1], whole[1])
+    assert getattr(scan_kernel, ROWMAP_COUNTER[mode]) == before + 4
+
+
+@pytest.mark.parametrize("mode", ["bf16", "f32"])
+@pytest.mark.parametrize("d", [768, 96, 256])
+def test_row_map_lists_are_the_packed_stores_bits(cuda, mode, d):
+    """A virtual store of an int8 + row-scale corpus and the packed store
+    ``build_packed_device`` makes of the same corpus (each slot's bytes and
+    scale copied unchanged, the same slots) give the same lists bit for
+    bit: the row-map bodies (10, 11) gather the bytes the packed bodies (1,
+    3) read by TMA, and the same scales, at k 16 and 32 and qtile 8 and
+    128."""
+    data, rng = _corpus(4000, d, seed=d)
+    bucket_ids = rng.integers(0, 5, 4000)
+    x8, sc = quantize.quantize_rows(torch.as_tensor(data, device=cuda))
+    virtual = BucketStore.build_virtual(x8, bucket_ids, 5, chunk=160, row_scales=sc)
+    packed = BucketStore.build_packed_device(x8, bucket_ids, 5, chunk=160, row_scales=sc)
+    queries = torch.as_tensor(data[:200] + 0.05 * rng.normal(size=(200, d)).astype(np.float32),
+                              device=cuda)
+    order = torch.as_tensor(np.stack([rng.choice(5, 2, replace=False) for _ in range(200)]),
+                            device=cuda)
+    packed_counter = "WGMMA_F32MODE_LAUNCHES" if mode == "f32" else None
+    for k in (16, 32):
+        for qtile in (8, 128):
+            _, va = scan_inputs(virtual, queries, order, qtile, mode)
+            _, pa = scan_inputs(packed, queries, order, qtile, mode)
+            kw = dict(k=k, qtile=qtile, chunk=160, mode=mode)
+            before = (getattr(scan_kernel, ROWMAP_COUNTER[mode]), scan_kernel.WGMMA_LAUNCHES,
+                      getattr(scan_kernel, packed_counter) if packed_counter else 0)
+            vd, vs = scan_kernel.scan_pairs(*va, **kw)
+            pd, ps = scan_kernel.scan_pairs(*pa, **kw)
+            torch.cuda.synchronize()
+            assert getattr(scan_kernel, ROWMAP_COUNTER[mode]) == before[0] + 1
+            assert scan_kernel.WGMMA_LAUNCHES == before[1] + 2
+            if packed_counter:
+                assert getattr(scan_kernel, packed_counter) == before[2] + 1
+            assert torch.equal(vd.view(torch.int32), pd.view(torch.int32))
+            assert torch.equal(vs, ps)
+            assert bool(torch.isfinite(vd).any())
+
+
+def test_row_map_f32_body_is_no_less_exact_than_plain(cuda):
+    """f32 queries over a virtual store of an int8 + row-scale corpus at d
+    768 (the f32-mode row-map body): the kernel's distances of the
+    candidates it returns are no farther from float64 than the plain
+    version's (cuBLAS SGEMM in full f32) of its own candidates."""
+    data, rng = _corpus(6000, 768, seed=17)
+    x8, sc = quantize.quantize_rows(torch.as_tensor(data, device=cuda))
+    store = BucketStore.build_virtual(x8, rng.integers(0, 4, 6000), 4, chunk=256, row_scales=sc)
+    queries = torch.as_tensor(data[:400] + 0.05 * rng.normal(size=(400, 768)).astype(np.float32),
+                              device=cuda)
+    order = torch.as_tensor(np.stack([rng.choice(4, 2, replace=False) for _ in range(400)]),
+                            device=cuda)
+    _, args = scan_inputs(store, queries, order, 128, "f32")
+    kw = dict(k=16, qtile=128, chunk=256, mode="f32")
+    rows = args[1].reshape(-1, 128).long()
+    ids = store.chunk_ids.reshape(-1).long()
+
+    def error(dists, slots):
+        ok = (slots >= 0) & (rows >= 0)[:, :, None]
+        q = args[0][rows.clamp_min(0)].double()
+        src = (ids[slots.long().clamp_min(0)] - 1).clamp_min(0)
+        exact = 1.0 - torch.einsum("pqd,pqkd->pqk", q, x8[src].double()) * sc[src].double()
+        return float((dists.double() - exact).abs()[ok].max())
+
+    before = scan_kernel.WGMMA_F32MODE_ROWMAP_LAUNCHES
+    k_err = error(*scan_kernel.scan_pairs(*args, **kw))
+    assert scan_kernel.WGMMA_F32MODE_ROWMAP_LAUNCHES == before + 1
+    p_err = error(*scan_kernel.scan_pairs_reference(*args, **kw))
+    assert 0.0 < k_err <= p_err, (k_err, p_err)
 
 
 def _wide_case(dev, store_kind, seed):

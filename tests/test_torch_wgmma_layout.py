@@ -1801,3 +1801,371 @@ def test_f32_wide_model_matches_pallas_bf16_scan(d, k, qtile):
                                            atol=1e-7)
             checked += 1
     assert checked > 0
+
+
+# ---------------------------------------------------------------------
+# the row-map bodies (csrc/scan_pairs.cu: body 10, bf16 queries, and body
+# 11, f32 queries, over a virtual store of an int8 + row-scale corpus at
+# list width 32): the packed bf16 and f32-mode bodies' blocks, their int8 rings filled by a
+# producer warp a consumer that gathers each slot's row through the id
+# grid (wgmma_gather), each row's scale read through the grid by the
+# consumers (load_row_meta's rule)
+RM_SLOTS = {"bf16": 64, "f32": 32}  # WQ, WQ3
+RM_MAX_QD = {"bf16": 896, "f32": 768}  # WRing<RowMap<int8_t> | RowMap<F32Mode>>::MAX_QD
+RM_NB, RM_CHUNK, RM_D = 6, 96, 144  # chunks of 96 rows: a chunk's second tile ends past it
+
+
+@pytest.fixture(scope="module")
+def rowmap_built(tmp_path_factory):
+    """A 1-level [6] index built by the JAX package over 1500×144 blobs
+    (rows of 144 int8 depths: two ring stages, the second past d from
+    depth 144), saved and loaded by the port; the corpus as int8 rows with
+    f32 row scales (the JAX package's ``quantize_rows``); the buckets of
+    the index's prediction with rows 0..9 moved into the empty bucket 5 (a
+    bucket smaller than one 64-row tile) and bucket 4 emptied."""
+    import jax.numpy as jnp
+
+    import learnedmetricindex_tpu as jlmi
+    from learnedmetricindex_tpu.data import synthetic_blobs
+    from learnedmetricindex_tpu.index.serialization import save_index as jax_save_index
+    from learnedmetricindex_tpu.ops.quantize import quantize_rows as jax_quantize_rows
+    import learnedmetricindex_tpu_torch as lmi
+
+    data, queries = synthetic_blobs(1500, RM_D, 50, n_clusters=10, seed=24)
+    cfg = jlmi.BuildConfiguration("kmeans", 10, "MLP-2", 0.01, [RM_NB], seed=24,
+                                  chunk_size=RM_CHUNK)
+    jidx, pred, _, _, _ = jlmi.LearnedIndexBuilder(data, cfg).build()
+    path = str(tmp_path_factory.mktemp("rowmap") / "index.npz")
+    jax_save_index(jidx, path, pred)
+    pidx, ppred = lmi.load_index(path, "cpu")
+    q8, sc = jax_quantize_rows(jnp.asarray(data))
+    bucket_ids = pidx.bucket_ids_from_prediction(np.asarray(ppred))
+    return {"data": data, "queries": queries, "jidx": jidx, "pidx": pidx,
+            "pred": np.asarray(ppred), "bucket_ids": bucket_ids, "jax": (q8, sc),
+            "torch": (torch.as_tensor(np.array(q8)), torch.as_tensor(np.array(sc)))}
+
+
+def _rowmap_stores(built, case: str):
+    """The port's virtual store of the int8 corpus, the packed store
+    ``build_packed_device`` makes of it (the same slots) and the data
+    prediction they were made from, for ``case``:
+    ``"in order"``; ``"shuffled"``, both stores' chunks moved out of
+    physical order alike (each bucket's list keeps its scan order);
+    ``"small bucket"``, rows 0..9 alone in one bucket, another empty."""
+    from learnedmetricindex_tpu_torch.index.bucket_store import BucketStore
+
+    x8, sc = built["torch"]
+    bucket_ids = np.array(built["bucket_ids"])
+    if case == "small bucket":
+        bucket_ids[bucket_ids == RM_NB - 1] = 0
+        bucket_ids[:10] = RM_NB - 1
+        bucket_ids[bucket_ids == RM_NB - 2] = 1
+    virtual = BucketStore.build_virtual(x8, bucket_ids, RM_NB, chunk=RM_CHUNK, row_scales=sc)
+    packed = BucketStore.build_packed_device(x8, bucket_ids, RM_NB, chunk=RM_CHUNK,
+                                             row_scales=sc)
+    if case == "shuffled":
+        perm = np.random.default_rng(7).permutation(virtual.n_chunks)
+        inv = torch.as_tensor(np.argsort(perm))
+        ptr, clist = virtual.chunk_list()
+        moved = dict(bucket_chunk_ptr=ptr, bucket_chunk_list=perm[clist].astype(np.int32))
+        virtual = virtual._replace(chunk_ids=virtual.chunk_ids[inv], **moved)
+        n, c = packed.n_chunks, RM_CHUNK
+        packed = packed._replace(
+            chunk_ids=packed.chunk_ids[inv],
+            chunk_data=packed.chunk_data.reshape(n, c, -1)[inv].reshape(n * c, -1),
+            chunk_scales=packed.chunk_scales.reshape(n, c)[inv].reshape(-1), **moved)
+    return virtual, packed, bucket_ids[:, None]
+
+
+def _ring_tiles(c_lo: int, c_hi: int, chunk_of: np.ndarray, chunk: int, wg: int):
+    """The 64-row tiles that consumer warpgroup ``wg`` of a block takes (and
+    its producer fills), as ``TileWalk`` walks them: tiles wg, wg + 2, ...
+    of the item's chunks in list order; ``(first slot, rows in the
+    chunk)`` each."""
+    per_chunk = -(-chunk // 64)
+    tiles, c, t = [], c_lo, wg
+    while True:
+        c, t = c + t // per_chunk, t % per_chunk
+        if c >= c_hi:
+            return tiles
+        tiles.append((int(chunk_of[c]) * chunk + 64 * t, min(64, chunk - 64 * t)))
+        t += 2
+
+
+def _gathered_stage(corpus: np.ndarray, row_ids: np.ndarray, slot0: int, nrows: int,
+                    st: int) -> np.ndarray:
+    """Stage ``st`` of a tile as the gathering producer writes it, (box,
+    row, byte) = (2, 64, 64) int8: lane i holds the ids of rows i and
+    32 + i (0 past the chunk); lane 8j + c copies piece c (16 bytes) of
+    the stage's 128 depths of row 4i + j (i = 0 .. 15, the id shuffled
+    from lane (4i + j) % 32) to box c // 4, bytes 16·(c % 4) of the row,
+    zeros for id 0 and for depths past d."""
+    d = corpus.shape[1]
+    ids = [[int(row_ids[slot0 + h * 32 + lane]) if h * 32 + lane < nrows else 0
+            for lane in range(32)] for h in range(2)]
+    stage = np.full((2, 64, 64), 99, np.int8)  # nothing may stay unwritten
+    for lane in range(32):
+        c, j = lane & 7, lane >> 3
+        depth = st * 128 + 16 * c
+        for i in range(16):
+            r = 4 * i + j
+            rid = ids[i // 8][r & 31]
+            ok = rid > 0 and depth < d
+            stage[c >> 2, r, 16 * (c & 3) : 16 * (c & 3) + 16] = (
+                corpus[rid - 1, depth : depth + 16] if ok else 0)
+    return stage
+
+
+def _tma_stage(chunk_data: np.ndarray, slot0: int, st: int) -> np.ndarray:
+    """Stage ``st`` of a tile of the packed store as TMA writes it: two
+    boxes of 64 rows (from ``slot0``, on past the chunk) × 64 depths (at
+    128·st and 128·st + 64), zeros past the store's rows and past d."""
+    n, d = chunk_data.shape
+    stage = np.zeros((2, 64, 64), np.int8)
+    for box in range(2):
+        x0 = st * 128 + box * 64
+        rows = chunk_data[slot0 : min(slot0 + 64, n), x0 : min(x0 + 64, d)]
+        stage[box, : rows.shape[0], : rows.shape[1]] = rows
+    return stage
+
+
+def _grid_scales(row_ids: np.ndarray, row_scales, slot0: int, nrows: int) -> np.ndarray:
+    """A row-map consumer's scale of each tile row (load_row_meta's rule):
+    ``row_scales[id − 1]``, 1 without row scales, 0 for id 0 and for a row
+    past the chunk."""
+    out = np.zeros(64, np.float32)
+    for r in range(nrows):
+        rid = int(row_ids[slot0 + r])
+        if rid:
+            out[r] = 1.0 if row_scales is None else row_scales[rid - 1]
+    return out
+
+
+@pytest.mark.parametrize("case", ["in order", "shuffled", "small bucket"])
+def test_rowmap_grid_and_ring_stages_are_the_packed_stores(rowmap_built, case):
+    """The port's virtual store of a seeded int8 + row-scale corpus has the
+    JAX package's ``build_virtual`` grid; each (tile, stage) of each
+    consumer's ring that the gathering producer fills through the grid
+    holds the packed store's TMA boxes of the same slots (the rows in the
+    chunk; the rows past it zeros, which the consumers' scale 0 masks) and
+    each row's scale through the grid is the packed store's slot scale,
+    for chunk lists in and out of physical order, padding slots and a
+    bucket smaller than one tile; without row scales a live row's scale
+    is 1."""
+    import jax.numpy as jnp
+
+    from learnedmetricindex_tpu.index.bucket_store import BucketStore as JaxStore
+
+    virtual, packed, _ = _rowmap_stores(rowmap_built, case)
+    if case == "in order":
+        q8 = rowmap_built["jax"][0]
+        jstore = JaxStore.build_virtual(jnp.asarray(q8), rowmap_built["bucket_ids"], RM_NB,
+                                        chunk=RM_CHUNK)
+        np.testing.assert_array_equal(virtual.chunk_ids.numpy(), np.asarray(jstore.chunk_ids))
+        np.testing.assert_array_equal(virtual.bucket_chunk_start, jstore.bucket_chunk_start)
+    ptr, chunk_of = (np.asarray(a) for a in virtual.chunk_list())
+    assert np.array_equal(ptr, packed.chunk_list()[0])
+    assert np.array_equal(chunk_of, packed.chunk_list()[1])
+    corpus, row_scales = (t.numpy() for t in rowmap_built["torch"])
+    row_ids = virtual.chunk_ids.reshape(-1).numpy()
+    data, scales = packed.chunk_data.numpy(), packed.scales_flat().numpy()
+    nst = -(-RM_D // 128)
+    sizes = np.diff(ptr)
+    tiles_seen = short = padded = 0
+    for b in range(RM_NB):
+        for wg in range(2):
+            for slot0, nrows in _ring_tiles(ptr[b], ptr[b + 1], chunk_of, RM_CHUNK, wg):
+                for st in range(nst):
+                    got = _gathered_stage(corpus, row_ids, slot0, nrows, st)
+                    want = _tma_stage(data, slot0, st)
+                    np.testing.assert_array_equal(got[:, :nrows], want[:, :nrows])
+                    assert not got[:, nrows:].any()
+                    if st == nst - 1:  # depths 144 .. 255 past d: zeros
+                        assert not got[1].any() and not got[0, :, 16:].any()
+                sc = _grid_scales(row_ids, row_scales, slot0, nrows)
+                np.testing.assert_array_equal(sc[:nrows], scales[slot0 : slot0 + nrows])
+                assert not sc[nrows:].any()
+                ones = _grid_scales(row_ids, None, slot0, nrows)
+                np.testing.assert_array_equal(ones, (sc > 0).astype(np.float32))
+                tiles_seen += 1
+                short += nrows < 64
+                padded += int((row_ids[slot0 : slot0 + nrows] == 0).sum())
+    assert tiles_seen and short and padded
+    if case == "small bucket":
+        assert virtual.bucket_sizes[RM_NB - 1] == 10 and sizes[RM_NB - 2] == 0
+
+
+def _rowmap_model_scan(queries, qidx, pair_bucket, ptr, chunk_of, store, scales, qscales=None,
+                       row_ids=None, *, k, qtile, chunk, mode):
+    """``scan_pairs`` over a virtual store of an int8 corpus as the row-map
+    bodies compute it, modelled: each block's tiles in scan order, each
+    stage gathered through the grid (``_gathered_stage``), the A fragments
+    of its k-steps by the lanes' depth map (``_lane_depths``) against the B
+    values of ``operand_queries(..., wgmma_qd)``; bf16: one sum over the
+    stages (exact here, then f32); f32: each stage's hi, mid and lo sums
+    (f32) folded into the running sum with rounded adds, lo + mid, + hi
+    (``fold_terms``); the epilogue ``distance<false>`` with the scale
+    through the grid; each query's first ``k`` by (distance, scan
+    position)."""
+    assert row_ids is not None and store.dtype == torch.int8 and qscales is None
+    from learnedmetricindex_tpu_torch.ops.select import smallest_k
+
+    d = store.shape[1]
+    qd = -(-d // QD_STEP) * QD_STEP
+    corpus, ids = store.numpy(), row_ids.numpy()
+    rs = None if scales is None else scales.numpy()
+    op = scan_kernel.operand_queries(queries, mode, torch.int8, qd).double().numpy()
+    depth = _lane_depths()
+    ptr_h, cl = ptr.numpy(), chunk_of.numpy()
+    n_pairs = pair_bucket.shape[0]
+    out_d = torch.full((n_pairs, qtile, k), torch.inf)
+    out_s = torch.full((n_pairs, qtile, k), -1, dtype=torch.int32)
+    qi = qidx.reshape(n_pairs, qtile).numpy()
+    per_chunk = -(-chunk // 64)
+    for p, b in enumerate(pair_bucket.numpy()):
+        rows_q = np.maximum(qi[p], 0)
+        dist, slots = [], []
+        n_tiles = (ptr_h[b + 1] - ptr_h[b]) * per_chunk
+        tiles = {}
+        for wg in range(2):  # tile i is consumer i % 2's: their union in scan order
+            for i, tile in enumerate(_ring_tiles(ptr_h[b], ptr_h[b + 1], cl, chunk, wg)):
+                tiles[wg + 2 * i] = tile
+        assert sorted(tiles) == list(range(n_tiles))
+        for i in range(n_tiles):
+            slot0, nrows = tiles[i]
+            acc = np.zeros((64, qtile), np.float32)
+            total = np.zeros((64, qtile))
+            for st in range(qd // 128):
+                stage = _gathered_stage(corpus, ids, slot0, nrows, st).astype(np.float64)
+                fresh = np.zeros((3, 64, qtile))
+                for ks in range(8):
+                    a = stage[ks // 4][:, depth[ks % 4]]  # (rows, k')
+                    for term in range(3 if mode == "f32" else 1):
+                        col = term * qd + 128 * st + 16 * ks
+                        fresh[term] += a @ op[rows_q, col : col + 16].T
+                if mode == "f32":
+                    hi, mid, lo = fresh.astype(np.float32)
+                    acc = acc + ((lo + mid) + hi)
+                else:
+                    total += fresh[0]
+            raw = acc if mode == "f32" else total.astype(np.float32)
+            sc = _grid_scales(ids, rs, slot0, nrows)[:, None]
+            v = (raw * -sc).astype(np.float32) + np.where(sc == 0.0, np.inf, 1.0).astype(np.float32)
+            dist.append(v[:nrows])
+            slots.append(slot0 + np.arange(nrows))
+        if not dist:
+            continue
+        dist_t = torch.as_tensor(np.concatenate(dist).T.copy())  # (qtile, bucket rows)
+        slot_t = torch.as_tensor(np.concatenate(slots))
+        kk = min(k, dist_t.shape[1])
+        vals, pos = smallest_k(dist_t, kk)
+        live = torch.as_tensor(qi[p] >= 0)[:, None]
+        vals = torch.where(live, vals, torch.inf)
+        out_d[p, :, :kk] = vals
+        out_s[p, :, :kk] = torch.where(torch.isinf(vals), -1, slot_t[pos]).int()
+    return out_d, out_s
+
+
+@pytest.mark.parametrize("case", ["in order", "shuffled", "small bucket"])
+@pytest.mark.parametrize("precision", ["default", "highest"])
+def test_rowmap_models_match_jax_virtual_search(rowmap_built, monkeypatch, case, precision):
+    """The row-map bodies, modelled over the gathered ring stages
+    (``_rowmap_model_scan``, bf16 for the default search, f32 for
+    ``highest``) in the scan's place, give the port's search over the
+    virtual store the JAX package's search over its virtual store of the
+    same int8 + row-scale corpus and buckets: ``highest`` at the parity bar
+    (rtol 1e-4, atol 1e-5, ids differing only at ties), the default at the
+    bf16 bar (atol 3e-3, 99% of the ids); visits 1 and 3, the chunk lists
+    in and out of physical order, a bucket smaller than one tile."""
+    from learnedmetricindex_tpu_torch.index import bucket_store
+
+    pidx, jidx, queries = (rowmap_built[n] for n in ("pidx", "jidx", "queries"))
+    virtual, _, pred = _rowmap_stores(rowmap_built, case)
+    calls = []
+
+    def model(*args, **kw):
+        calls.append(kw["mode"])
+        return _rowmap_model_scan(*args, **kw)
+
+    monkeypatch.setattr(bucket_store, "scan_pairs", model)
+    for n_buckets in (1, 3):
+        kw = dict(n_buckets=n_buckets, k=10, precision=precision)
+        pd, pi, _ = pidx.search(None, queries, None, queries, pred, store=virtual, **kw)
+        jd, ji, _ = jidx.search(None, queries, rowmap_built["jax"], queries, pred, **kw)
+        jd, ji = np.asarray(jd), np.asarray(ji)
+        assert jidx.get_bucket_store(rowmap_built["jax"], pred).chunk_data is None
+        if precision == "highest":
+            np.testing.assert_allclose(pd, jd, rtol=1e-4, atol=1e-5)
+            mism = pi != ji
+            if mism.any():
+                np.testing.assert_allclose(pd[mism], jd[mism], rtol=1e-6, atol=1e-7)
+        else:
+            np.testing.assert_allclose(pd, jd, atol=3e-3)
+            assert (np.sort(pi, axis=1) == np.sort(ji, axis=1)).mean() >= 0.99
+    assert calls == ["f32" if precision == "highest" else "bf16"] * 2
+
+
+@pytest.mark.parametrize("mode", ["bf16", "f32"])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_segment_length_counts_the_rowmap_blocks_m_tiles(mode, seed):
+    """The split's cost model for the row-map bodies (their blocks are the
+    packed bodies', 64 query slots for bf16 and 32 for f32, as
+    ``lmi_scan_body`` reports them): a pair's 128 slots are two blocks of
+    64 or four of 32, each computing its m-tiles up to its last live one;
+    the segment keeps the heaviest block within the share of a slot's fair
+    share, and a block with no live slot costs nothing."""
+    block = RM_SLOTS[mode]
+    rng = np.random.default_rng(seed + 40)
+    counts = rng.integers(0, 60, 25)
+    ptr = np.concatenate([[0], np.cumsum(counts)])
+    pair_bucket = rng.integers(0, 25, 40)
+    live = rng.integers(0, 256, 40)
+    live[:3] = [0b1, 0b10000000, 0b10001001]
+    slots = 132
+    seg = scan_kernel.segment_length(ptr, pair_bucket, live, width=32, slots=slots,
+                                     wgmma_block=block)
+    m = block // 16
+    blocks = np.zeros((40, 128 // block), np.int64)
+    for p in range(40):
+        for blk in range(128 // block):
+            bits = [(live[p] >> (m * blk + i)) & 1 for i in range(m)]
+            blocks[p, blk] = max((i + 1 for i in range(m) if bits[i]), default=0)
+    expect = {64: [[1, 0], [0, 4], [4, 4]], 32: [[1, 0, 0, 0], [0, 0, 0, 2], [1, 2, 0, 2]]}
+    np.testing.assert_array_equal(blocks[:3], expect[block])
+    chunks = counts[pair_bucket]
+    fair = (chunks[:, None] * blocks).sum() / slots
+    heaviest = blocks[chunks > 0].max()
+    assert seg >= 1
+    if seg > 1:
+        assert seg * heaviest <= scan_kernel.SEGMENT_SHARE * fair
+    assert (seg + 1) * heaviest > scan_kernel.SEGMENT_SHARE * fair
+
+
+@pytest.mark.parametrize("mode", ["bf16", "f32"])
+def test_rowmap_bodies_keep_their_widest_tile_resident(mode):
+    """The row-map bodies' blocks in 232,448 B: the packed bodies' heads
+    with the barriers of their own ring depths (RM_STAGES, RM3_STAGES read
+    from the source), rings of two consumers × those stages of two 64 ×
+    64-byte boxes, and the resident queries (64 slots × 2 bytes a depth,
+    or three planes of 32 slots).  The widest tiles are 896 and 768 (d
+    rounded up to 128), as the library's scope and ``chip_smoke.py`` take
+    them; at d 768 the f32 body could not hold a fourth stage."""
+    from learnedmetricindex_tpu_torch.ops import cuda_build
+
+    src = (cuda_build.CSRC / "scan_pairs.cu").read_text()
+    import re
+
+    stages = dict(zip(("bf16", "f32"), map(int, re.search(
+        r"constexpr int RM_STAGES = (\d+), RM3_STAGES = (\d+);", src).groups())))[mode]
+    slots = RM_SLOTS[mode]
+    per_depth = slots * 2 if mode == "bf16" else 3 * slots * 2
+    head = _w_head_bytes(slots, 32, stages, 0)
+
+    def block(qd, n=stages):
+        return _w_head_bytes(slots, 32, n, 0) + 2 * n * 2 * 64 * 64 + per_depth * qd
+
+    widest = RM_MAX_QD[mode]
+    assert widest % QD_STEP == 0 and block(widest) <= 232448 < block(widest + QD_STEP)
+    assert head % 1024 == 0 and block(768) <= 232448
+    if mode == "f32":
+        assert block(768, stages + 1) > 232448

@@ -16,7 +16,8 @@ in one process on the same inputs, alternating which goes first, and
 checks that both give the same bits (distances and slots) at every
 ``k``, except where only one side takes a wgmma body (bf16 or f32 over an
 int8 packed store at ``k_scan`` <= 32, bf16, int8 and f32 over it at 33 to
-128, int8 over it at <= 32, bf16 over an f32 packed store at 33 to 128, as
+128, int8 over it at <= 32, bf16 over an f32 packed store at 33 to 128,
+bf16 and f32 over a row map of an int8 corpus at <= 32, as
 its library's ``lmi_scan_body`` says): wgmma sums in
 another order than ``mma.sync``, so there both sides are held to each
 other at the bar of the mode (``chip_smoke.compare_candidates``: in int8
@@ -32,7 +33,12 @@ without it (the interface before the split) launches one block a pair.
   nearest-centroid buckets, a packed store, 10k queries visiting 4, qtile
   128) in modes bf16, int8 and f32, at each ``k`` up to 128, each line
   naming the body each side's launch took;
-* f32 over a virtual store of the same corpus (the id grid), the first
+* bf16 and f32 over a virtual store of the same corpus (the id grid,
+  ``LearnedIndex.get_bucket_store`` of the corpus tensor) with all 10k
+  queries at each ``k`` up to 32 (the default and ``highest`` searches'
+  scans: the row-map bodies), where this side's lists are also held to
+  its own packed store's, bit for bit (the packed store holds the
+  corpus's bytes and scales); f32 over that virtual store with the first
   256 queries (``search(k=1100)``'s scan in ``chip_smoke.phase_virtual``),
   at every ``k``; past 1024 in rounds of at most 1024
   (``scan_kernel.scan_in_rounds``), one launch a round.
@@ -423,6 +429,8 @@ def main() -> None:
     cases = [("packed", store, queries, order, mode, k) for k in args.k if k <= 128
              for mode in ("bf16", "int8", "f32")]
     if mapped:
+        cases += [("virtual", virtual, queries, order, mode, k) for k in args.k if k <= 32
+                  for mode in ("bf16", "f32")]
         cases += [("virtual", virtual, queries[:256], order[:256], "f32", k) for k in args.k]
     for layout, st, q, o, mode, k in cases:
         runs = {n: launcher(sd, st, q, o, mode, k) for n, sd in sides.items()}
@@ -430,13 +438,26 @@ def main() -> None:
         sargs = scan_inputs(st, q, o, 128, mode)[1]
         kinds = {n: side_kind(sd, sargs[5], mode, k, sargs[8]) for n, sd in sides.items()}
         del sargs
+        packed_bits = ""
+        if layout == "virtual" and k <= 32:  # this side's row map against its packed store
+            pd, ps = launcher(sides["this"], store, q, o, mode, k)()
+            td, ts = outs["this"]
+            same = ((td.view(torch.int32) == pd.view(torch.int32)) & (ts == ps)).all(dim=2)
+            cs.check(kinds["this"] == 0 or bool(same.all()),
+                     f"virtual {mode} k={k}: this side's row-map lists differ from its packed "
+                     f"store's")
+            packed_bits = f"; this side's lists against its packed store: {int(same.sum())} of " \
+                          f"{same.numel()} bit-equal"
+            del pd, ps
         if (kinds["this"] > 0) != (kinds["other"] > 0):
-            agree = bodies_agree(outs, f"{layout} {mode} k={k}", mode, st, q, o)
+            # over a row map, float64 reads the packed store's rows of the same slots
+            agree = bodies_agree(outs, f"{layout} {mode} k={k}", mode,
+                                 store if layout == "virtual" else st, q, o)
         else:
             same = all(torch.equal(x, y) for x, y in zip(outs["other"], outs["this"]))
             cs.check(same, f"{layout} {mode} k={k}: the two sides give different bits")
             agree = "same bits"
-        agree += bodies_text(kinds)
+        agree += packed_bits + bodies_text(kinds)
         del outs
         in_turns(runs, f"{layout} {mode} k_scan {k} ({q.shape[0]} queries", agree,
                  3 if layout == "virtual" else 5, args.rounds, smi)

@@ -5,7 +5,8 @@
                                              mma-wide|wgmma-wide|mma-f32x|wgmma-f32x|mma-s8|
                                              wgmma-s8|mma-s8-wide|wgmma-s8-wide|
                                              mma-f32mode-wide|wgmma-f32mode-wide|
-                                             mma-f32-wide|wgmma-f32-wide]
+                                             mma-f32-wide|wgmma-f32-wide|wgmma-rowmap|
+                                             wgmma-f32mode-rowmap]
                                       [--checkout DIR] [--reference DIR ...]
                                       [--rounds 4] [--only NAME ...]
 
@@ -21,7 +22,9 @@ over the int8 store (``mma-s8``, ``wgmma-s8``; at ``k_scan`` 106 and 64,
 list widths 128 and 64, ``mma-s8-wide``, ``wgmma-s8-wide``), and the f32
 scan over the int8 store at those widths (``mma-f32mode-wide``,
 ``wgmma-f32mode-wide``), and the bf16 scan over the f32 store at those
-widths (``mma-f32-wide``, ``wgmma-f32-wide``).
+widths (``mma-f32-wide``, ``wgmma-f32-wide``), and the bf16 and f32 scans
+over a virtual store of the int8 corpus (the row map: ``wgmma-rowmap``,
+``wgmma-f32mode-rowmap``).
 It writes patched copies of ``DIR``'s
 ``learnedmetricindex_tpu_torch/csrc/scan_pairs.cu`` (default: this
 tree's) into ``build/scan_probe/``, builds each (and
@@ -255,8 +258,27 @@ timed in mode bf16 over that f32 store at ``k_scan`` 106 and 64:
   L2 (``cp.async.bulk.prefetch.tensor``), so more bytes are in flight
   than the ring holds.
 
+``--body wgmma-rowmap`` / ``wgmma-f32mode-rowmap``: the row-map bodies
+over a virtual store of the flagship's int8 corpus (its id grid), timed
+in mode bf16 / f32 at ``k_scan`` 16:
+
+* ``tree``, ``no wgmma``, ``no selection`` as for ``--body wgmma``;
+* ``no gather``: the producer warps arrive on the full barriers without
+  copying (the consumers read whatever the ring holds);
+* ``ring of 2 stages``, ``3`` (bf16; the tree's ring has ``RM_STAGES``,
+  4) and ``ring of 2 stages`` (f32; the tree's ``RM3_STAGES``, 3, the most
+  that fits beside three planes at d 768);
+* ``two producer warps a ring``: the producer warpgroup's two idle warps
+  take half of each stage's rows of a ring each (a named barrier of the
+  two before the one expected arrival);
+* ``row bulk copies``: each row's 64 bytes of each box of a stage by one
+  ``cp.async.bulk`` (a one-row TMA copy, ``complete_tx`` on the full
+  barrier, lane 0 arriving with the bytes the warp's copies bring), rows
+  past the chunk or without an id and depths past d not copied (their
+  stale bytes meet a zero scale or zero queries).
+
 The variants of ``--body wgmma-s8``, ``--body wgmma-s8-wide``, ``--body
-wgmma-f32mode-wide`` and ``--body wgmma-f32-wide`` that leave the
+wgmma-f32mode-wide``, ``--body wgmma-f32-wide`` and the row-map bodies that leave the
 arithmetic alone (the rings, A from shared memory, the slots a block)
 are held bit-equal to the tree's lists; the other copies' results are wrong and are not read.  Then the card's memory
 rates: a ~1 GB device-to-device copy (HBM: bytes read + written) and a
@@ -743,6 +765,64 @@ WGMMA_F32_WIDE_VARIANTS = {
     "bare": W_NO_TMA + WF_NO_ROUND + WW_NO_HANDOVER,
     "no wgmma, bare": W_NO_WGMMA + W_NO_TMA + WF_NO_ROUND + WW_NO_HANDOVER,
 }
+# the row-map bodies: the gathering producer's copies left out, rings of
+# other depths, two producer warps a ring, and one-row bulk copies
+RM_COPY = ("        cp_async16(dst + (4 * i + j) * WK, corpus + (ok ? size_t(id - 1) * p.d + depth : 0), "
+           "ok);\n")
+RM_NO_GATHER = [(RM_COPY, "        (void)ok;\n")]
+RM_RING = "constexpr int RM_STAGES = 4, RM3_STAGES = 3;"
+RM_TWO_WARPS = [
+    ("    if (threadIdx.x % 128 < 32 * W_CONSUMERS) wgmma_gather(p, s, b, threadIdx.x % 128 / 32);\n",
+     "    wgmma_gather(p, s, b, threadIdx.x % 128 / 32 % W_CONSUMERS);\n", 2),
+    ("        const int id = __shfl_sync(FULL, i < 8 ? id_lo : id_hi, (4 * i + j) & 31);\n",
+     "        if (i % 2 != int(threadIdx.x % 128 / 64)) continue;\n"
+     "        const int id = __shfl_sync(FULL, i < 8 ? id_lo : id_hi, (4 * i + j) & 31);\n"),
+    ("      __syncwarp();\n      if (lane == 0) mbar_arrive(full);\n",
+     "      bar_sync(6 + wg, 64);\n      if (lane == 0 && threadIdx.x % 128 < 64) mbar_arrive(full);\n")]
+RM_BULK = [(
+    "#pragma unroll\n"
+    "      for (int i = 0; i < WR / 4; ++i) {\n"
+    "        const int id = __shfl_sync(FULL, i < 8 ? id_lo : id_hi, (4 * i + j) & 31);\n"
+    "        const bool ok = id > 0 && depth < p.d;\n" + RM_COPY + "      }\n"
+    "      cp_async_arrive(full);\n      __syncwarp();\n      if (lane == 0) mbar_arrive(full);\n",
+    "      (void)dst;\n      int bytes = 0;\n"
+    "#pragma unroll\n"
+    "      for (int q0 = 0; q0 < 2 * WR; q0 += 32) {  // (row, box) pieces of 64 bytes\n"
+    "        const int q = q0 + lane, r = q >> 1, box = q & 1;\n"
+    "        const int lo = __shfl_sync(FULL, id_lo, r & 31), hi = __shfl_sync(FULL, id_hi, r & 31);\n"
+    "        const int id = r < 32 ? lo : hi, dep = st * 128 + box * 64;\n"
+    "        if (id > 0 && dep < p.d) {\n"
+    "          const int n = min(64, p.d - dep);\n"
+    "          asm volatile(\"cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes \"\n"
+    "                       \"[%0], [%1], %2, [%3];\\n\" ::\"r\"(smem_u32(s.stage(wg, slot) + box * WR * WK + r * WK)),\n"
+    "                       \"l\"(corpus + size_t(id - 1) * p.d + dep), \"r\"(n), \"r\"(smem_u32(full))\n"
+    "                       : \"memory\");\n"
+    "          bytes += n;\n"
+    "        }\n"
+    "      }\n"
+    "      for (int o = 16; o > 0; o >>= 1) bytes += __shfl_xor_sync(FULL, bytes, o);\n"
+    "      if (lane == 0) mbar_expect_tx(full, bytes);\n")]
+WGMMA_ROWMAP_VARIANTS = {
+    "tree": [],
+    "no wgmma": W_NO_WGMMA,
+    "no selection": W_NO_SELECTION,
+    "no gather": RM_NO_GATHER,
+    "ring of 2 stages": [(RM_RING, "constexpr int RM_STAGES = 2, RM3_STAGES = 3;")],
+    "ring of 3 stages": [(RM_RING, "constexpr int RM_STAGES = 3, RM3_STAGES = 3;")],
+    "two producer warps a ring": RM_TWO_WARPS,
+    "row bulk copies": RM_BULK,
+}
+WGMMA_F32MODE_ROWMAP_VARIANTS = {
+    "tree": [],
+    "no wgmma": W_NO_WGMMA,
+    "no selection": W_NO_SELECTION,
+    "no gather": RM_NO_GATHER,
+    "ring of 2 stages": [(RM_RING, "constexpr int RM_STAGES = 4, RM3_STAGES = 2;")],
+    "two producer warps a ring": RM_TWO_WARPS,
+    "row bulk copies": RM_BULK,
+}
+RM_EXACT = {"ring of 2 stages", "ring of 3 stages", "two producer warps a ring",
+            "row bulk copies"}
 # the variants whose lists must stay the tree's, bit for bit
 EXACT = {"selection: one load a query", "ring of 2 stages", "ring of 3 stages",
          "ring of 5 stages", "ring of 6 stages", "A from shared memory",
@@ -752,7 +832,8 @@ EXACT_BY_BODY = {"wgmma-s8-wide": EXACT_S8_WIDE,
                  "wgmma-f32mode-wide": {"ring of 3 stages at width 64"},
                  "wgmma-f32-wide": {"one-box stages at width 64", "32 slots a block",
                                     "48 slots a block at width 128",
-                                    "L2 prefetch of the next tile"}}
+                                    "L2 prefetch of the next tile"},
+                 "wgmma-rowmap": RM_EXACT, "wgmma-f32mode-rowmap": RM_EXACT}
 # ... and those that read the queries in depth order (A from shared memory
 # reads each row's depths in order, not in WGMMA_S8_ORDER)
 IN_ORDER = {"A from shared memory", "A from shared memory, ring of 2 stages"}
@@ -764,7 +845,8 @@ VARIANTS = {"mma": MMA_VARIANTS, "wgmma": WGMMA_VARIANTS, "mma-f32": MMA_F32_VAR
             "wgmma-s8": WGMMA_S8_VARIANTS, "mma-s8-wide": MMA_S8_VARIANTS,
             "wgmma-s8-wide": WGMMA_S8_WIDE_VARIANTS, "mma-f32mode-wide": MMA_F32MODE_VARIANTS,
             "wgmma-f32mode-wide": WGMMA_F32MODE_WIDE_VARIANTS, "mma-f32-wide": MMA_F32_VARIANTS,
-            "wgmma-f32-wide": WGMMA_F32_WIDE_VARIANTS}
+            "wgmma-f32-wide": WGMMA_F32_WIDE_VARIANTS, "wgmma-rowmap": WGMMA_ROWMAP_VARIANTS,
+            "wgmma-f32mode-rowmap": WGMMA_F32MODE_ROWMAP_VARIANTS}
 # ptxas's report of the instance each body runs
 INSTANCE = {"mma": "scan_mma_kernelILi1EaLi32E", "wgmma": "scan_wgmma_kernel",
             "mma-f32": "scan_mma_kernelILi1EfLi32E", "wgmma-f32": "scan_wgmma_f32_kernel",
@@ -777,7 +859,9 @@ INSTANCE = {"mma": "scan_mma_kernelILi1EaLi32E", "wgmma": "scan_wgmma_kernel",
             "mma-f32mode-wide": "scan_mma_kernelILi0EaLi128E",
             "wgmma-f32mode-wide": "scan_wgmma_f32mode_wide_kernel",
             "mma-f32-wide": "scan_mma_kernelILi1EfLi128E",
-            "wgmma-f32-wide": "scan_wgmma_f32_wide_kernel"}
+            "wgmma-f32-wide": "scan_wgmma_f32_wide_kernel",
+            "wgmma-rowmap": "scan_wgmma_rowmap_kernel",
+            "wgmma-f32mode-rowmap": "scan_wgmma_f32mode_rowmap_kernel"}
 # the scan mode each body runs in, and the kernel that the checkout must have
 # (wgmma bodies) or must not have (the mma.sync body those replace)
 BODY_MODE = {"mma": "bf16", "wgmma": "bf16", "mma-f32": "bf16", "wgmma-f32": "bf16",
@@ -785,7 +869,7 @@ BODY_MODE = {"mma": "bf16", "wgmma": "bf16", "mma-f32": "bf16", "wgmma-f32": "bf
              "wgmma-wide": "bf16", "mma-f32x": "f32", "wgmma-f32x": "f32", "mma-s8": "int8",
              "wgmma-s8": "int8", "mma-s8-wide": "int8", "wgmma-s8-wide": "int8",
              "mma-f32mode-wide": "f32", "wgmma-f32mode-wide": "f32", "mma-f32-wide": "bf16",
-             "wgmma-f32-wide": "bf16"}
+             "wgmma-f32-wide": "bf16", "wgmma-rowmap": "bf16", "wgmma-f32mode-rowmap": "f32"}
 # the k_scan each body is timed at: the default search's 16, search(k=100)'s
 # 106 (the int8 and f32 wide lists also at 64, list width 64)
 BODY_K = {"mma-wide": (106,), "wgmma-wide": (106,), "mma-s8-wide": (106, 64),
@@ -804,7 +888,9 @@ BODY_KERNEL = {"mma": "scan_wgmma_kernel", "wgmma": "scan_wgmma_kernel",
                "mma-f32mode-wide": "scan_wgmma_f32mode_wide_kernel",
                "wgmma-f32mode-wide": "scan_wgmma_f32mode_wide_kernel",
                "mma-f32-wide": "scan_wgmma_f32_wide_kernel",
-               "wgmma-f32-wide": "scan_wgmma_f32_wide_kernel"}
+               "wgmma-f32-wide": "scan_wgmma_f32_wide_kernel",
+               "wgmma-rowmap": "scan_wgmma_rowmap_kernel",
+               "wgmma-f32mode-rowmap": "scan_wgmma_f32mode_rowmap_kernel"}
 
 
 def patched(source: str, edits) -> str:
@@ -884,9 +970,11 @@ def main() -> None:
              for i, (name, src) in enumerate(sources.items())}
     rates = memory_rates(smi)
     store, virtual, queries, order = ab.flagship_stores(torch.device("cuda", 0))
-    del virtual
     mode = BODY_MODE[args.body]
     what = f"{mode} over the int8 packed store"
+    if args.body.endswith("rowmap"):
+        store, what = virtual, f"{mode} over a virtual store of the int8 corpus"
+    del virtual
     if args.body.endswith(("f32", "f32x", "f32-wide")):
         store = cs.dequantized_store(store)
         what = f"{mode} over an f32 store ({store.chunk_data.numel() * 4 / 1e9:.1f} GB)"

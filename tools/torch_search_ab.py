@@ -10,7 +10,9 @@ queries; ``chip_smoke.flagship_index``: the hand-set MLP-4 index over 120
 buckets and its packed store), then times ``LearnedIndex.search`` of the
 10k queries at visit 4 for each ``precision:k`` case (``precision:k:f32``:
 over the flagship's rows as an f32 store, ``chip_smoke.dequantized_store``,
-31 GB: the store ``BuildConfiguration(dtype="float32")`` builds), host clock around
+31 GB: the store ``BuildConfiguration(dtype="float32")`` builds;
+``precision:k:virtual``: over a virtual store of the int8 corpus,
+``LearnedIndex.get_bucket_store`` of the corpus tensor), host clock around
 the call (it ends in a device→host copy), with the scan kernel's library
 built from this tree's ``learnedmetricindex_tpu_torch/csrc/scan_pairs.cu``
 and from ``OTHER_CHECKOUT``'s (for example a ``git archive`` of the parent
@@ -54,7 +56,8 @@ def main() -> None:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("other", type=Path, help="the checkout whose scan kernel is the other side")
     p.add_argument("--cases", nargs="+", default=["default:100:f32", "default:100", "highest:100"],
-                   help="precision:k of each timed search (precision:k:f32 over the f32 store)")
+                   help="precision:k of each timed search (precision:k:f32 over the f32 store, "
+                        "precision:k:virtual over a virtual store of the int8 corpus)")
     p.add_argument("--rounds", type=int, default=4, help="timed rounds a side and case")
     args = p.parse_args()
     smi = cs.phase_device()
@@ -73,6 +76,10 @@ def main() -> None:
     stores = {"int8": store}
     if any(case.endswith(":f32") for case in args.cases):
         stores["f32"] = cs.dequantized_store(store)
+    if any(case.endswith(":virtual") for case in args.cases):
+        stores["virtual"] = index.get_bucket_store((data["corpus"], data["row_scales"]),
+                                                   data_prediction)
+        cs.check(stores["virtual"].virtual, "get_bucket_store of the corpus tensor is virtual")
 
     def search(side, precision, k, st="int8"):
         scan_kernel.SOURCE = sources[side]  # the library _kernel_round loads
