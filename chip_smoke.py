@@ -84,9 +84,15 @@ phases:
    over the visited buckets (ids differing only at ties) and its
    recall@100 equal to the same search's through the scan's plain
    version),
-   the merge kernel at the flagship against its plain version and
-   ``smallest_k`` over the lists side by side, its bytes bound, its share
-   of the scan and the split's host work a launch,
+   the merge kernel (``merge_case``) where pairs split: at the hand-set
+   index's first 1,024 queries (k_scan 16, and 106: its lists staged in
+   shared memory) and at the flagship plan
+   with segments forced to 20 chunks (and, over the f32 store below, at
+   ``k_scan`` 106 in f32), each against its plain version and
+   ``smallest_k`` over the lists side by side, its bytes bound and its
+   share of the scan at that shape, and at the flagship's own plan, where
+   no pair splits, the scan launch checked to merge nothing; the split's
+   host work a launch,
    the f32 kernel's and plain version's distances against float64 (the
    kernel's error may not exceed the plain version's), the same at
    ``k_scan`` 106 (``search(k=100)``, list width 128; the library call's
@@ -144,7 +150,9 @@ phases:
    exact kNN over the visited buckets, no deleted id returned, inserted
    rows finding themselves; the scan kernel against its plain version
    on the mutated plan; compaction with bit-identical search output and
-   no kernel built anew; ``SearchServer`` with 16 clients of 64 queries
+   no kernel built anew; one serving dispatch's plan (1,024 queries) with
+   the merge kernel at it (``merge_case``, the kernels line's
+   ``scan_merge`` row); ``SearchServer`` with 16 clients of 64 queries
    for ~10 s while a thread inserts and deletes (latency p50/p95, QPS,
    batches against requests); one call to each HTTP endpoint;
    then the multi-device phase, part (b): that mutated store promoted to
@@ -191,8 +199,10 @@ phases:
    peak and the peak device memory (``[multi-process]`` lines).
 
 Each path runs with the launch counts set to 0 just before it and read
-just after.  Any failure raises (exit code 1).  Without CUDA it exits
-non-zero and prints no result.  The last two lines are the kernels JSON
+just after; on every path the merges equal the scan launches that split
+a pair (``scan_split``), and no other scan launch merges.  Any failure
+raises (exit code 1).  Without CUDA it exits non-zero and prints no
+result.  The last two lines are the kernels JSON
 and the result JSON.
 """
 
@@ -465,6 +475,7 @@ def reset_counts() -> None:
     scan_kernel.WGMMA_INT8_ROWMAP_LAUNCHES = 0
     scan_kernel.WGMMA_F32MODE_ROWMAP_LAUNCHES = 0
     scan_kernel.MERGE_LAUNCHES = 0
+    scan_kernel.SPLIT_LAUNCHES = 0
     gather_kernel.LAUNCHES = 0
     gather_kernel.PAIR_LAUNCHES = 0
 
@@ -476,9 +487,11 @@ def read_counts() -> dict:
     rows, int8 over int8 rows at list widths 64 and 128, f32 over int8 rows
     at list widths 64 and 128, bf16 over f32 rows at list widths 64 and
     128, bf16 and f32 over a row map of an int8 corpus), the rest on the
-    mma.sync body."""
+    mma.sync body; ``scan_split``: the scan launches that split a pair, each
+    with one merge."""
     bodies = body_launches()
     return {"scan_pairs": scan_kernel.LAUNCHES, "scan_merge": scan_kernel.MERGE_LAUNCHES,
+            "scan_split": scan_kernel.SPLIT_LAUNCHES,
             "gather_pairs": gather_kernel.PAIR_LAUNCHES, "gather_rows": gather_kernel.LAUNCHES,
             WGMMA_INT8: bodies[1], WGMMA_F32: bodies[2], WGMMA_F32MODE: bodies[3],
             WGMMA_WIDE: bodies[4], WGMMA_F32X: bodies[5], WGMMA_S8: bodies[6],
@@ -783,8 +796,9 @@ def tied_cases(dev, worst: dict) -> None:
 def split_run(store, args, plan, k: int, qtile: int, mode: str, segment):
     """The scan and merge kernels over ``args``'s plan, ``segment`` chunks a
     segment (``None``: the wrapper's choice), in rounds past 1024; checks
-    one scan and one merge launch a round.  Returns the lists and the
-    rounds."""
+    one scan launch a round and one merge a round that split a pair (none
+    over whole buckets, ``segment`` 10**6).  Returns the lists, the rounds
+    and the merges."""
     launch = scan_kernel._kernel_round(args[0], *args[3:7], args[7], args[8], qtile=qtile,
                                        chunk=store.chunk, mode=mode, segment=segment)
     rounds = []
@@ -793,7 +807,7 @@ def split_run(store, args, plan, k: int, qtile: int, mode: str, segment):
         rounds.append(w)
         return launch(q_idx, p_bucket, w, floor)
 
-    before = (scan_kernel.LAUNCHES, scan_kernel.MERGE_LAUNCHES)
+    before = (scan_kernel.LAUNCHES, scan_kernel.MERGE_LAUNCHES, scan_kernel.SPLIT_LAUNCHES)
     if k <= scan_kernel.MAX_K:
         out = scan_round(plan.qidx, plan.pair_bucket, k, None)
     else:
@@ -802,10 +816,12 @@ def split_run(store, args, plan, k: int, qtile: int, mode: str, segment):
         out = scan_kernel.scan_in_rounds(scan_round, plan.qidx, plan.pair_bucket, positions,
                                          k=k, qtile=qtile, chunk=store.chunk)
     torch.cuda.synchronize()
-    launched = (scan_kernel.LAUNCHES - before[0], scan_kernel.MERGE_LAUNCHES - before[1])
-    check(launched == (len(rounds), len(rounds)),
-          f"split run: {launched} scan and merge launches for {len(rounds)} rounds")
-    return out, len(rounds)
+    scans, merges, splits = (now - b for now, b in zip(
+        (scan_kernel.LAUNCHES, scan_kernel.MERGE_LAUNCHES, scan_kernel.SPLIT_LAUNCHES), before))
+    check(scans == len(rounds) and merges == splits and (segment != 10**6 or merges == 0),
+          f"split run at segment {segment}: {scans} scan launches for {len(rounds)} rounds, "
+          f"{merges} merges for {splits} launches that split")
+    return out, len(rounds), merges
 
 
 def split_cases(dev, worst: dict) -> None:
@@ -844,11 +860,13 @@ def split_cases(dev, worst: dict) -> None:
             st = kv[store_name]
             what = f"split {mode} store={store_name}{tag} k={k} qtile={qtile}"
             plan, args = scan_inputs(st, queries, order, qtile, mode)
-            (wd, ws), n_rounds = split_run(st, args, plan, k, qtile, mode, 10**6)
+            (wd, ws), n_rounds, _ = split_run(st, args, plan, k, qtile, mode, 10**6)
             rd, rs = scan_kernel.scan_pairs_reference(*args, k=k, qtile=qtile, chunk=st.chunk,
                                                       mode=mode)
+            merges = []
             for segment in (1, 2):
-                (kd, ks), _ = split_run(st, args, plan, k, qtile, mode, segment)
+                (kd, ks), _, n_merges = split_run(st, args, plan, k, qtile, mode, segment)
+                merges.append(n_merges)
                 check(torch.equal(kd.view(torch.int32), wd.view(torch.int32))
                       and torch.equal(ks, ws),
                       f"{what} segment={segment}: the split kernel's bits differ from the "
@@ -859,7 +877,8 @@ def split_cases(dev, worst: dict) -> None:
             worst[mode] = (max(worst[mode][0], err), max(worst[mode][1], gap))
             n_cases += 1
             log(f"[kernel-vs-plain] {what:52s} pairs={plan.n_pairs:4d}: segments of 1 and 2 "
-                f"chunks bit-equal to whole buckets ({n_rounds} round(s)); against the plain "
+                f"chunks bit-equal to whole buckets ({n_rounds} round(s); merges {merges[0]}, "
+                f"{merges[1]}, none over whole buckets); against the plain "
                 f"version max|Δd|={err:.3g}, at swapped slots {gap:.3g}; {n_dup} later "
                 f"duplicates after their earlier copy")
     log(f"[kernel-vs-plain] split: {n_cases} cases, each at segments of 1, 2 and whole buckets")
@@ -933,9 +952,9 @@ def width32_cases(dev, worst: dict) -> None:
                         if tag:
                             continue
                         plan, args = scan_inputs(st, queries, order, 128, mode)
-                        whole, _ = split_run(st, args, plan, k, 128, mode, 10**6)
+                        whole, _, _ = split_run(st, args, plan, k, 128, mode, 10**6)
                         for segment in (1, 2):
-                            got, _ = split_run(st, args, plan, k, 128, mode, segment)
+                            got, _, _ = split_run(st, args, plan, k, 128, mode, segment)
                             check(torch.equal(got[0].view(torch.int32),
                                               whole[0].view(torch.int32))
                                   and torch.equal(got[1], whole[1]),
@@ -1304,8 +1323,9 @@ def phase_main(dev, data: dict, smi: str):
     wgmma_launches = scan_kernel.WGMMA_LAUNCHES
     peak = torch.cuda.max_memory_allocated()
     # ------------------------------------------------------------------
-    check(launches["scan_pairs"] > 0 and launches["scan_merge"] == launches["scan_pairs"],
-          "the main path launched the scan kernel and one merge a scan")
+    check(launches["scan_pairs"] > 0 and launches["scan_merge"] == launches["scan_split"],
+          f"the main path: {launches['scan_merge']} merges for {launches['scan_split']} scan "
+          f"launches that split a pair (one merge each, none where no pair splits)")
     # six default searches (bf16 over the int8 store, k_scan 16: the wgmma
     # body), one highest (f32 over the int8 store: the f32-mode wgmma body),
     # one int8 (the int8 wgmma body), four at k=100 (the wide-list body), one
@@ -1334,7 +1354,7 @@ def phase_main(dev, data: dict, smi: str):
         f"peak device memory {peak / 1e9:.2f} GB (corpus resident); kernel launches "
         f"{launches}, of the scan's {wgmma_launches} on a wgmma body (one a default "
         f"search, one the highest search, one the int8 search, one a k=100 search, one the "
-        f"int8 k=100 search, one the highest k=100 search, each with one merge)  [{smi}]")
+        f"int8 k=100 search, one the highest k=100 search; a merge where a pair split)  [{smi}]")
     for what, (dd, ii) in (("k=100", (d100, i100)), ("int8 k=100", int8_100),
                            ("highest k=100", high_100)):
         check(dd.shape == (nq, 100) and bool(np.isfinite(dd).all()) and bool((ii > 0).all()),
@@ -1405,13 +1425,14 @@ def phase_main(dev, data: dict, smi: str):
     check(timing["k106 f32"]["body"] == 8 and timing["k64 f32"]["body"] == 8,
           "the flagship's f32 scan at k_scan 106 and 64 did not take the f32-mode wgmma body "
           "with wide lists")
-    merge = merge_vs_plain(store, queries, order, 16, "bf16", timing["bf16"]["ms"], smi)
+    merge = merge_vs_plain(store, queries, order, smi)
     scan_s = timing["bf16"]["ms"] / 1e3
     log(f"[split] search at default precision {mean_s:.4f} s per {nq}: navigation "
         f"{measured['inference']:.4f} s, scan kernel {scan_s:.4f} s (CUDA events, same plan), "
         f"plan + merge + rerank + copy {measured['seq_search'] - scan_s:.4f} s (seq_search "
         f"{measured['seq_search']:.4f} s of the last rep)")
-    f32_timing, f32_launches = f32_store_scan(store, queries, order, smi, index, data_prediction)
+    f32_timing, f32_launches, merge["B"] = f32_store_scan(store, queries, order, smi, index,
+                                                          data_prediction)
     timing.update(f32_timing)
     launches = {name: n + f32_launches[name] for name, n in launches.items()}
     log(f"[main] total {time.perf_counter() - t_all:.1f} s")
@@ -1583,20 +1604,22 @@ def flagship_scan(store, queries, order, k: int, mode: str, smi: str, tag: str) 
             "bound_ms": bound[bound_by], "bound_by": bound_by, "body": split["body"]}
 
 
-def split_plan(sargs, k: int, mode: str) -> dict:
+def split_plan(sargs, k: int, mode: str, segment=None) -> dict:
     """How the scan wrapper splits the plan of ``sargs`` at ``k``: the
-    slots on the card, the segment length, the pairs and the items."""
+    slots on the card, the segment length (``segment``: forced to this
+    many chunks), the pairs, the items and the most items of a pair."""
     _, qidx, pb, ptr, _, st, _, _, row_ids = sargs
     lib = cuda_build.load(scan_kernel.SOURCE, scan_kernel._bind)
     ptr_h, pb_h, live = scan_kernel.host_plan(ptr, pb, qidx, 128)
     body = scan_kernel.scan_body(lib, st, mode, k, row_ids)  # one round, no floor
-    seg = scan_kernel.segment_length(ptr_h, pb_h, live, width=scan_kernel.list_width(k),
-                                     slots=body.slots,
-                                     wgmma_block=body.block_queries if body.wgmma else 0)
+    seg = segment or scan_kernel.segment_length(
+        ptr_h, pb_h, live, width=scan_kernel.list_width(k), slots=body.slots,
+        wgmma_block=body.block_queries if body.wgmma else 0)
     work = scan_kernel.split_pairs(ptr_h, pb_h, seg)
     chunks = np.diff(ptr_h)[pb_h]
     return {"slots": body.slots, "segment": seg, "pairs": len(pb_h),
             "items": len(work.item_pair), "largest": int(chunks.max(initial=0)), "work": work,
+            "max_items": int(np.diff(work.pair_items).max(initial=0)),
             "wgmma": body.wgmma, "body": body.kind, "qd": body.qd if body.wgmma else 0,
             "block": body.block_queries}
 
@@ -1604,42 +1627,132 @@ def split_plan(sargs, k: int, mode: str) -> dict:
 def split_text(split: dict) -> str:
     return (f"{scan_kernel.BODY_NAMES[split['body']]} body; split: {split['slots']} slots, "
             f"segments of {split['segment']} chunks, {split['pairs']} pairs -> {split['items']} "
-            f"items (largest bucket {split['largest']} chunks)")
+            f"items (largest bucket {split['largest']} chunks, at most {split['max_items']} "
+            f"items a pair)")
 
 
-def merge_vs_plain(store, queries, order, k: int, mode: str, scan_ms: float, smi: str) -> dict:
-    """The merge kernel at the flagship plan: the item lists that the
-    split path's scan leaves at ``k`` (the wrapper's own segments),
-    merged by the kernel, by its plain version and by ``smallest_k`` over
-    the lists side by side (the library yardstick; the lists laid side by
-    side outside what is timed), each by CUDA events; the kernel's lists
-    bit-equal to the plain version's.  Bound by bytes: the item lists
-    read once, the pairs' lists written once.  ``scan_ms``: the whole
-    scan's time, for the merge's share."""
-    plan, sargs = scan_inputs(store, queries, order, 128, mode)
+MERGE_SHAPES = {  # the shapes the merge is timed at ((A) in phase_dynamic, (B) in f32_store_scan)
+    "A": "(A) the serving dispatch's plan: 1,024 queries over the built index after the dynamic "
+         "path's mutations, bf16, k_scan 16",
+    "a": "(a) the hand-set index's first 1,024 queries, bf16, k_scan 16 (the merge A/B tool's "
+         "stand-in for (A))",
+    "B": "(B) the f32 store's f32 plan, k_scan 106",
+    "C": "(C) the flagship plan, bf16, k_scan 16, segments forced to 20 chunks",
+    "D": "(D) the flagship plan, bf16, k_scan 16",
+    "E": "(E) the hand-set index's first 1,024 queries, bf16, k_scan 106 (a 1,024-query "
+         "search(k=100))",
+}
+
+
+def merge_items(store, sargs, split: dict, k: int, mode: str) -> tuple:
+    """The item lists that one scan launch of the split path leaves over
+    the plan of ``sargs`` cut as ``split`` (``split_plan``): ``(dists,
+    slots, pair_items)``."""
     q, qidx, _, _, chunk_of, st, sc, qs, row_ids = sargs
-    split = split_plan(sargs, k, mode)
     inputs = scan_kernel.split_inputs(split["work"], qidx, None, qtile=128, chunk=store.chunk)
     lib = cuda_build.load(scan_kernel.SOURCE, scan_kernel._bind)
     item_d, item_s = scan_kernel._launch_items(
         lib, scan_kernel.operand_queries(q, mode, st.dtype, split["qd"]), qs, inputs.qidx,
         inputs.pair_bucket, inputs.ptr, chunk_of, st, sc, row_ids, None, k=k, qtile=128,
         chunk=store.chunk, mode=mode, terms=3 if mode == "f32" else 1, body=split["body"])
-    args = (item_d, item_s, inputs.pair_items)
-    k_ms = cuda_ms(lambda: scan_kernel.merge_split_lists(*args), 20)
+    return item_d, item_s, inputs.pair_items
+
+
+def merge_plan_text(k: int, max_items: int) -> str:
+    """The merge kernel's plan at ``k`` (query tile 128) for pairs of at
+    most ``max_items`` items, in words."""
+    plan = scan_kernel.merge_plan(k, 128, max_items)
+    if k <= scan_kernel.MERGE_WARP_MAX_K:
+        how = "merged in a warp's lanes"
+    elif plan.cap:
+        how = f"pairs of up to {plan.cap} items staged in {plan.smem} B"
+    else:
+        how = "pairs streamed from device memory, a warp a slot"
+    return f"plan: {plan.group} query slots a block, {how}"
+
+
+def merge_bytes(item_d, pair_items) -> int:
+    """What a merge must move: each item list read once (distances and
+    slots), ``pair_items``, each pair's list written once."""
+    n_pairs = pair_items.numel() - 1
+    return item_d.numel() * 8 + pair_items.numel() * 4 + n_pairs * item_d[0].numel() * 8
+
+
+def merge_case(store, queries, order, k: int, mode: str, shape: str, smi: str,
+               segment=None) -> dict:
+    """The merge kernel at one shape of ``MERGE_SHAPES``: the item lists that
+    the split path's scan leaves at ``k`` over the plan of ``queries``
+    visiting ``order`` (qtile 128; the wrapper's own segments, or
+    ``segment`` chunks), merged by the kernel (its device time with the
+    launches queued behind a spin, and back to back through the wrapper,
+    both by CUDA events), by its plain version and by ``smallest_k`` over
+    the lists side by side (the library yardstick; the lists laid side by
+    side outside what is timed), beside the scan at that shape; the
+    kernel's lists bit-equal to the plain version's.  Bound by bytes: the
+    item lists read once, the pairs' lists written once.  Where no pair
+    splits, the scan at that shape must launch no merge, and nothing is
+    timed."""
+    what, t0 = MERGE_SHAPES[shape], time.perf_counter()
+    _, sargs = scan_inputs(store, queries, order, 128, mode)
+    split = split_plan(sargs, k, mode, segment)
+    kw = dict(k=k, qtile=128, chunk=store.chunk, mode=mode)
+    if split["items"] == split["pairs"]:
+        before = scan_kernel.LAUNCHES, scan_kernel.MERGE_LAUNCHES, scan_kernel.SPLIT_LAUNCHES
+        scan_kernel.scan_pairs(*sargs, **kw)
+        torch.cuda.synchronize()
+        ran = tuple(now - b for now, b in zip(
+            (scan_kernel.LAUNCHES, scan_kernel.MERGE_LAUNCHES, scan_kernel.SPLIT_LAUNCHES), before))
+        check(ran == (1, 0, 0), f"merge {what}: no pair splits, yet the scan launch made "
+              f"{ran[1]} merges ({ran[2]} launches that split)")
+        log(f"[merge] {what}: no pair splits, the scan launch merges nothing: 0 merge launches "
+            f"(one scan launch); {split_text(split)}; {time.perf_counter() - t0:.1f} s  [{smi}]")
+        return {"launches": 0, "pairs": split["pairs"], "items": split["items"]}
+    item_d, item_s, pair_items = merge_items(store, sargs, split, k, mode)
+    args = (item_d, item_s, pair_items, split["max_items"])
+    scan_ms = cuda_ms(lambda: scan_kernel.scan_pairs(*sargs, **kw), 3)
+    q_ms = queued_ms(lambda: scan_kernel.merge_split_lists(*args), 50)
+    k_ms = cuda_ms(lambda: scan_kernel.merge_split_lists(*args), 50)
     p_ms = cuda_ms(lambda: scan_kernel.merge_split_lists_reference(*args), 3)
-    flat_d, _ = scan_kernel.lists_side_by_side(*args)
+    flat_d, _ = scan_kernel.lists_side_by_side(*args[:3])
     lib_ms = cuda_ms(lambda: smallest_k(flat_d, k), 5)
     kd, ks = scan_kernel.merge_split_lists(*args)
     rd, rs = scan_kernel.merge_split_lists_reference(*args)
     check(torch.equal(kd.view(torch.int32), rd.view(torch.int32)) and torch.equal(ks, rs),
-          "the merge kernel's lists differ from its plain version's")
-    nbytes = item_d.numel() * 8 + inputs.pair_items.numel() * 4 + kd.numel() * 8
+          f"merge {what}: the kernel's lists differ from its plain version's")
+    nbytes = merge_bytes(item_d, pair_items)
     bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    log(f"[merge] {what}: kernel {q_ms:.4f} ms (launches queued; back to back through the "
+        f"wrapper {k_ms:.4f} ms), plain {p_ms:.3f} ms, smallest_k over the lists side by side "
+        f"{lib_ms:.3f} ms; bound {bound_ms:.4f} ms by bytes ({nbytes / 1e6:.1f} MB) = "
+        f"{bound_ms / q_ms:.1%} of it; {q_ms / scan_ms:.2%} of the scan's {scan_ms:.3f} ms at "
+        f"this shape; bit-equal to the plain version; {merge_plan_text(k, split['max_items'])}; "
+        f"{split_text(split)}; {time.perf_counter() - t0:.1f} s with the scan  [{smi}]")
+    del args, item_d, item_s, flat_d, kd, ks, rd, rs
+    torch.cuda.empty_cache()
+    return {"ms": q_ms, "back_to_back_ms": k_ms, "plain_ms": p_ms, "library_ms": lib_ms, "err": 0.0,
+            "bound_ms": bound_ms, "bound_by": "bytes", "scan_ms": scan_ms, "launches": 1,
+            "pairs": split["pairs"], "items": split["items"]}
 
-    def host_split():  # what each launch adds before its scan: the read, the cut, the upload
+
+def merge_vs_plain(store, queries, order, smi: str) -> dict:
+    """The merge kernel (``merge_case``) at shapes (a), (C), (D) and (E)
+    of ``MERGE_SHAPES`` over the flagship's index; (a), (C) and (E) must
+    split a pair ((E) in shared memory), (D) is the flagship's own plan, where
+    no pair split in any run so far.  Then the split's host work a launch
+    at the flagship plan: the plan read back, the cut, the work list
+    uploaded, the items' query slots gathered."""
+    shapes = {"a": merge_case(store, queries[:1024], order[:1024], 16, "bf16", "a", smi),
+              "C": merge_case(store, queries, order, 16, "bf16", "C", smi, segment=20),
+              "D": merge_case(store, queries, order, 16, "bf16", "D", smi),
+              "E": merge_case(store, queries[:1024], order[:1024], 106, "bf16", "E", smi)}
+    check(all(shapes[s]["launches"] == 1 for s in "aCE"),
+          "one of the merge's shapes (a), (C) and (E) split no pair")
+    _, sargs = scan_inputs(store, queries, order, 128, "bf16")
+    qidx, segment = sargs[1], split_plan(sargs, 16, "bf16")["segment"]
+
+    def host_split():
         ptr_h, pb_h, _ = scan_kernel.host_plan(sargs[3], sargs[2], qidx, 128)
-        work = scan_kernel.split_pairs(ptr_h, pb_h, split["segment"])
+        work = scan_kernel.split_pairs(ptr_h, pb_h, segment)
         return scan_kernel.split_inputs(work, qidx, None, qtile=128, chunk=store.chunk)
 
     host_split()
@@ -1649,18 +1762,11 @@ def merge_vs_plain(store, queries, order, k: int, mode: str, scan_ms: float, smi
         host_split()
     torch.cuda.synchronize()
     host_ms = (time.perf_counter() - t0) / HOST_CALLS * 1e3
-    log(f"[flagship] scan_merge {mode} k_scan {k}: kernel {k_ms:.4f} ms, plain {p_ms:.3f} ms, "
-        f"smallest_k over the lists side by side {lib_ms:.3f} ms; bound {bound_ms:.4f} ms by "
-        f"bytes "
-        f"({nbytes / 1e6:.1f} MB) = {bound_ms / k_ms:.1%} of it; {k_ms / scan_ms:.2%} of the "
-        f"scan's {scan_ms:.3f} ms; bit-equal to the plain version; {split_text(split)}; the "
-        f"split's host work a launch (the plan read back, the cut, the work list uploaded, the "
-        f"items' query slots gathered; host clock, device idle, mean of {HOST_CALLS}) "
-        f"{host_ms:.4f} ms  [{smi}]")
-    del args, item_d, item_s, flat_d
-    torch.cuda.empty_cache()
-    return {"ms": k_ms, "plain_ms": p_ms, "library_ms": lib_ms, "err": 0.0, "bound_ms": bound_ms,
-            "bound_by": "bytes", "host_ms": host_ms}
+    log(f"[flagship] the split's host work a launch (the plan read back, the cut, the work list "
+        f"uploaded, the items' query slots gathered; host clock, device idle, mean of "
+        f"{HOST_CALLS}) {host_ms:.4f} ms  [{smi}]")
+    shapes["D"]["host_ms"] = host_ms
+    return shapes
 
 
 def f32_store_scan(store, queries, order, smi: str, index, data_prediction):
@@ -1685,11 +1791,13 @@ def f32_store_scan(store, queries, order, smi: str, index, data_prediction):
     >= 0.999), each default search within the bf16 bar of the same search
     through the scan's plain version (256 queries at k 10, 1,024 at k
     100), both recalls against exact kNN over the visited buckets printed.
-    Returns the timings and the searches' launch counts."""
+    Between them the merge at shape (B) (``merge_case``).  Returns the
+    timings, the searches' launch counts and the merge's (B)."""
     f32 = dequantized_store(store)
     tag = f"[flagship f32 store, {f32.chunk_data.numel() * 4 / 1e9:.2f} GB]"
     timing = {"f32 store": flagship_scan(f32, queries, order, 16, "f32", smi, tag),
               "f32 store k106": flagship_scan(f32, queries, order, 106, "f32", smi, tag)}
+    merge_b = merge_case(f32, queries, order, 106, "f32", "B", smi)
     check(timing["f32 store"]["body"] == 5 and timing["f32 store k106"]["body"] == 0,
           f"f32 over the f32 store: the six-term wgmma body at k_scan 16 and the mma.sync body "
           f"at 106, not bodies {timing['f32 store']['body']} and "
@@ -1744,14 +1852,15 @@ def f32_store_scan(store, queries, order, smi: str, index, data_prediction):
         ran = {name: v - before[name] for name, v in read_counts().items()}
         body = (WGMMA_F32X if precision == "highest" else WGMMA_F32 if k == 10
                 else WGMMA_F32_WIDE)
-        check(ran["scan_pairs"] == 4 and ran[body] == 4
+        check(ran["scan_pairs"] == 4 and ran[body] == 4 and ran["scan_merge"] == 0
+              and ran["scan_split"] == 0
               and all(ran[b] == 0 for b in (WGMMA_INT8, WGMMA_F32, WGMMA_F32MODE, WGMMA_WIDE,
                                             WGMMA_F32X, WGMMA_S8, WGMMA_S8_WIDE,
                                             WGMMA_F32MODE_WIDE, WGMMA_F32_WIDE,
                                             WGMMA_INT8_ROWMAP, WGMMA_F32MODE_ROWMAP)
                              if b != body),
               f"f32-store {precision} search k={k}: {ran} launches, not 4 scans, each one "
-              f"launch of the {body}")
+              f"launch of the {body}, and no merge (10k queries at visit 4 split no pair)")
         check(dd.shape == (nq, k) and bool(np.isfinite(dd).all()) and bool((ii > 0).all()),
               f"f32-store {precision} search k={k}: finite, filled (nq, {k})")
         r = recall(ii[:nc], ref_i, k)
@@ -1789,7 +1898,7 @@ def f32_store_scan(store, queries, order, smi: str, index, data_prediction):
     launches = read_counts()
     del f32
     torch.cuda.empty_cache()
-    return timing, launches
+    return timing, launches, merge_b
 
 
 def dequantized_store(store):
@@ -2463,13 +2572,14 @@ def phase_build_path(dev, data: dict, smi: str):
     counts = read_counts()
     os.environ["LMI_GATHER_MODE"] = "auto"
     n_search = 1 + MODE_ROUNDS
-    check(per_mode["auto"] == {"scan_pairs": n_search, "scan_merge": n_search, "gather_pairs": 0,
-                               "gather_rows": 0, WGMMA_INT8: n_search, WGMMA_F32: 0,
-                               WGMMA_F32MODE: 0, WGMMA_WIDE: 0, WGMMA_F32X: 0, WGMMA_S8: 0,
-                               WGMMA_S8_WIDE: 0, WGMMA_F32MODE_WIDE: 0, WGMMA_F32_WIDE: 0,
-                               WGMMA_INT8_ROWMAP: 0, WGMMA_F32MODE_ROWMAP: 0},
-          f"auto mode launches one scan and no gather a search: {per_mode['auto']}")
-    check(per_mode["kernel"] == {"scan_pairs": n_search, "scan_merge": n_search,
+    # 10k queries at visit 4 over the built index: no pair splits, so no merge
+    check(per_mode["auto"] == {"scan_pairs": n_search, "scan_merge": 0, "scan_split": 0,
+                               "gather_pairs": 0, "gather_rows": 0, WGMMA_INT8: n_search,
+                               WGMMA_F32: 0, WGMMA_F32MODE: 0, WGMMA_WIDE: 0, WGMMA_F32X: 0,
+                               WGMMA_S8: 0, WGMMA_S8_WIDE: 0, WGMMA_F32MODE_WIDE: 0,
+                               WGMMA_F32_WIDE: 0, WGMMA_INT8_ROWMAP: 0, WGMMA_F32MODE_ROWMAP: 0},
+          f"auto mode launches one scan, no merge and no gather a search: {per_mode['auto']}")
+    check(per_mode["kernel"] == {"scan_pairs": n_search, "scan_merge": 0, "scan_split": 0,
                                  "gather_pairs": n_search, "gather_rows": 0, WGMMA_INT8: n_search,
                                  WGMMA_F32: 0, WGMMA_F32MODE: 0, WGMMA_WIDE: 0,
                                  WGMMA_F32X: 0, WGMMA_S8: 0, WGMMA_S8_WIDE: 0,
@@ -2759,6 +2869,8 @@ def phase_dynamic(dev, index, store, data: dict, smi: str, n_insert: int = 500_0
     scan1k = cuda_ms(lambda: scan_kernel.scan_pairs(*sargs, k=16, qtile=128,
                                                     chunk=dyn.store.chunk, mode="bf16"), 3)
     split = split_plan(sargs, 16, "bf16")
+    out["merge"] = merge_case(dyn.store, q1k, order, 16, "bf16", "A", smi)
+    check(out["merge"]["launches"] == 1, "the serving dispatch's plan split no pair")
     excluded = {k: excluded[k] + v - before[k] for k, v in read_counts().items()}
     log(f"[serve] one dispatch's worth alone: a {q1k.shape[0]}-query search {t1k * 1e3:.2f} ms (median of "
         f"3, synced), its scan {scan1k:.3f} ms (CUDA events: the split, the scan kernel over the "
@@ -3308,7 +3420,7 @@ def phase_multi_build(dev, smi: str, single: dict, argv=CLI_ARGV):
             check(isinstance(store, lmi.ShardedStore) and len(store.shards) == 4
                   and all(sh.device == dev for sh in store.shards), f"{name}: 4 shards on {dev}")
             check(counts["scan_pairs"] == 4 * len(result.searches)
-                  and counts["scan_merge"] == counts["scan_pairs"]
+                  and counts["scan_merge"] == counts["scan_split"]
                   and counts[WGMMA_F32] == counts["scan_pairs"],
                   f"{name}: {counts} launches for {len(result.searches)} searches of 4 shards "
                   f"(each scan on the wgmma body over f32 rows)")
@@ -3572,7 +3684,7 @@ def rank_main(work: Path) -> None:
         check(isinstance(store, lmi.ShardedStore) and store.world is world
               and len(store.shards) == 1 and store.shards[0].device == dev,
               f"{name}: the rank's one shard on {dev}")
-        check(counts["scan_pairs"] == len(visits) and counts["scan_merge"] == len(visits)
+        check(counts["scan_pairs"] == len(visits) and counts["scan_merge"] == counts["scan_split"]
               and counts["gather_pairs"] == 0
               and counts["gather_rows"] == 0 and counts[WGMMA_F32] == len(visits),
               f"{name}: {counts} launches for {len(visits)} searches (one scan a search, on the "
@@ -3651,12 +3763,14 @@ def main() -> None:
     main_launches, timing, ctx = phase_main(dev, data, smi)
     virt_launches, virt_timing = phase_virtual(dev, data, ctx, smi)
     shard_launches, _ = phase_sharded(dev, data, ctx, timing["bf16"]["ms"], smi)
-    merge_timing = ctx["merge"]
+    merge_errs = [t["err"] for t in ctx["merge"].values() if "err" in t]
     del ctx
     torch.cuda.empty_cache()
     build_launches, gather_timing, (index, store) = phase_build_path(dev, data, smi)
     dyn_launches, dyn_out, dyn = phase_dynamic(dev, index, store, data, smi)
     del store
+    merge_timing = dyn_out["merge"]  # the kernels line's merge: shape (A), the serving plan
+    merge_errs.append(merge_timing["err"])
     mut_launches, mut_out = phase_multi_mutation(dev, index, dyn, data, smi, dyn_out)
     del index, dyn, data
     torch.cuda.empty_cache()
@@ -3670,7 +3784,7 @@ def main() -> None:
          [e for pair in small.values() for e in pair[:1]] + [t["err"] for t in timing.values()]
          + [virt_timing["err"], cli_timing["err"], mut_out["err"], multi_out["err"],
             proc_out["err"]]),
-        ("scan_merge", MERGE_SOURCE, MERGE_REPLACES, merge_timing, [merge_timing["err"]]),
+        ("scan_merge", MERGE_SOURCE, MERGE_REPLACES, merge_timing, merge_errs),
         # the row gather's kernels: the merge gather is the one the search launches
         ("gather_pairs", GATHER_SOURCE, GATHER_REPLACES, gather_timing["merge"],
          [t["err"] for t in gather_timing.values()]),
@@ -3715,6 +3829,13 @@ def main() -> None:
             check(total(WGMMA_INT8_ROWMAP) > 0, "no scan launch took the row-map wgmma body")
             check(total(WGMMA_F32MODE_ROWMAP) > 0,
                   "no scan launch took the f32-mode row-map wgmma body")
+        if name == "scan_merge":  # one merge a scan launch that split a pair, and some did
+            rows[-1]["back_to_back_ms"] = t["back_to_back_ms"]
+            rows[-1]["timed"] = ("ms: 50 launches queued behind a spin (device time); "
+                                 "back_to_back_ms: 50 launched back to back through the wrapper")
+            check(0 < total("scan_merge") == total("scan_split"),
+                  f"{total('scan_merge')} merges for {total('scan_split')} scan launches that "
+                  f"split a pair")
     log(f"[total] chip_smoke.py {time.perf_counter() - t_script:.1f} s, the kernels' build "
         f"included  [{smi}]")
     print(json.dumps({"kernels": rows}))

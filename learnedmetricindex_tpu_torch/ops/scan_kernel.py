@@ -21,7 +21,8 @@ of a pair whose bucket has no chunks.
   unchanged kernel (:func:`split_inputs`) and merges each pair's item
   lists back into one (:func:`merge_split_lists`: ``csrc/scan_merge.cu``
   on CUDA, :func:`merge_split_lists_reference` on the CPU).  The lists
-  are those of one scan of the whole bucket, bit for bit.
+  are those of one scan of the whole bucket, bit for bit.  A launch whose
+  pairs are all one item merges nothing: the scan's lists are the pairs'.
 * Twelve bodies: the bf16 queries over an int8 packed store at list width
   32 (the default search) and over an f32 packed store (the default
   search over ``BuildConfiguration(dtype="float32")``, the CLI's store)
@@ -60,7 +61,8 @@ of a pair whose bucket has no chunks.
   widths 64 and 128; ``WGMMA_INT8_ROWMAP_LAUNCHES``: of those, the body over
   a row map of an int8 corpus; ``WGMMA_F32MODE_ROWMAP_LAUNCHES``: of those,
   the body in f32 mode over a row map of an int8 corpus);
-  ``MERGE_LAUNCHES`` — the merge kernel.
+  ``MERGE_LAUNCHES`` — the merge kernel; ``SPLIT_LAUNCHES`` — the scan
+  launches that split at least one pair (one merge each).
 
 Stores: a packed store is ``(n_slots, d)`` rows with ``(n_slots,)``
 scales (0 = padding slot).  A *virtual* store keeps no copy of the rows:
@@ -132,6 +134,27 @@ WGMMA_INT8_ROWMAP_LAUNCHES = 0
 WGMMA_F32MODE_ROWMAP_LAUNCHES = 0
 #: merge kernel launches made by :func:`merge_split_lists` (never by its plain version)
 MERGE_LAUNCHES = 0
+#: scan kernel launches whose work list cut at least one pair into several items
+SPLIT_LAUNCHES = 0
+
+#: The merge kernel's plan (:func:`merge_plan`): lists of at most this many
+#: entries are merged in the lanes of a warp (csrc/scan_merge.cu's
+#: WARP_MAX_K), a block a group of this many query slots (on an H100 the
+#: fastest of 4 to 128 at a 1,024-query dispatch's k 16 merge)
+MERGE_WARP_MAX_K = 32
+MERGE_WARP_GROUP = 16
+#: wider lists: a block stages the lists of every item of at most
+#: MERGE_WARPS query slots in at most this much shared memory (on an H100
+#: at k 106 the fastest: 8 slots of two items, 4 of seven, of 1 to 64);
+#: pairs whose lists of one slot pass MERGE_SMEM_MAX are streamed from
+#: device memory instead
+MERGE_SMEM_TARGET = 28 * 1024
+MERGE_SMEM_MAX = 200 * 1024
+#: the items a pair may have to be staged when the caller does not say
+MERGE_DEFAULT_CAP = 8
+#: a block's warps (csrc/scan_merge.cu's WARPS): the most query slots a
+#: block stages, and the slots a block where pairs are streamed (a warp a slot)
+MERGE_WARPS = 8
 
 #: An item (one segment of a pair's chunk list) holds at most this share
 #: of one slot's fair share of a launch's work (:func:`segment_length`)
@@ -193,7 +216,7 @@ def _bind(lib: ctypes.CDLL) -> None:
 
 def _bind_merge(lib: ctypes.CDLL) -> None:
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.lmi_scan_merge.argtypes = [vp] * 5 + [ci] * 3 + [vp]
+    lib.lmi_scan_merge.argtypes = [vp] * 5 + [ci] * 6 + [vp]
     lib.lmi_scan_merge.restype = ci
 
 
@@ -588,21 +611,29 @@ def scan_split(scan_items, merge, qidx: torch.Tensor,
     """One scan of the pairs ``pair_bucket`` (host) over the buckets
     ``ptr`` (host) as items of at most ``segment`` chunks:
     ``scan_items(qidx, pair_bucket, ptr, floor)`` scans the items as
-    pseudo-buckets and ``merge(dists, slots, pair_items)`` merges each
-    pair's item lists.  Returns ``merge``'s ``(n_pairs, qtile, k)``."""
-    inputs = split_inputs(split_pairs(ptr, pair_bucket, segment), qidx, floor, qtile=qtile,
-                          chunk=chunk)
+    pseudo-buckets and ``merge(dists, slots, pair_items, max_items)``
+    merges each pair's item lists (``max_items``: the most items a pair
+    has, from the host's work list).  Returns ``(n_pairs, qtile, k)``
+    lists.  Where every pair is one item, the items' lists are the pairs'
+    lists bit for bit: they are returned as they are and ``merge`` is not
+    called (decided on the host, with no read from the device)."""
+    work = split_pairs(ptr, pair_bucket, segment)
+    inputs = split_inputs(work, qidx, floor, qtile=qtile, chunk=chunk)
     d, s = scan_items(inputs.qidx, inputs.pair_bucket, inputs.ptr, inputs.floor)
-    return merge(d, s, inputs.pair_items)
+    if work.pair_items[-1] == len(work.pair_items) - 1:
+        return d, s
+    return merge(d, s, inputs.pair_items, int(np.diff(work.pair_items).max()))
 
 
 def merge_split_lists_reference(item_d: torch.Tensor, item_s: torch.Tensor,
-                                pair_items: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+                                pair_items: torch.Tensor, max_items: Optional[int] = None
+                                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain version of the merge kernel: for each pair ``p`` and query
     slot, the first ``k`` of its items' lists ``pair_items[p] :
     pair_items[p + 1]`` (each ``(qtile, k)``, ascending, fill ``+inf`` /
     -1) by (distance, item order, place in list): a stable
-    :func:`smallest_k` over the lists side by side in item order."""
+    :func:`smallest_k` over the lists side by side in item order.
+    ``max_items`` (the kernel's plan) is not needed here."""
     _, qtile, k = item_d.shape
     n_pairs = pair_items.shape[0] - 1
     if n_pairs == 0:
@@ -634,12 +665,57 @@ def lists_side_by_side(item_d: torch.Tensor, item_s: torch.Tensor,
             cat_s.permute(0, 2, 1, 3).reshape(n_pairs * qtile, width * k))
 
 
-def merge_split_lists(item_d: torch.Tensor, item_s: torch.Tensor,
-                      pair_items: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+class MergePlan(NamedTuple):
+    """How ``csrc/scan_merge.cu`` cuts a launch (:func:`merge_plan`)."""
+
+    group: int  # query slots a block: a block a (pair, group of slots)
+    cap: int  # pairs of 2 .. cap items are merged in shared memory, more are streamed
+    smem: int  # the block's dynamic shared memory, bytes
+
+
+def merge_smem_bytes(group: int, cap: int, k: int) -> int:
+    """Shared memory of a block that stages ``cap`` items' lists of
+    ``group`` query slots: the distances and slots of each item and of the
+    merged lists, each run ``group·k`` values with up to 3 ahead of it (so
+    that its 16-byte chunks fall where they fall in device memory), in
+    whole 16 bytes; 0 where nothing is staged (``cap`` < 2)."""
+    if cap < 2:
+        return 0
+    return (2 * cap + 2) * ((group * k + 6) // 4 * 4) * 4
+
+
+def merge_plan(k: int, qtile: int, max_items: Optional[int] = None) -> MergePlan:
+    """The merge kernel's plan for lists of ``k`` in query tiles of
+    ``qtile`` whose pairs have at most ``max_items`` items (unknown:
+    :data:`MERGE_DEFAULT_CAP`; pairs with more are streamed, right but
+    slower).  Lists of at most :data:`MERGE_WARP_MAX_K`: merged in a warp's
+    lanes whatever the count, :data:`MERGE_WARP_GROUP` query slots a block,
+    nothing staged (``cap`` 0).  Wider: the most query slots a block, at
+    most :data:`MERGE_WARPS`, whose staged lists fit in
+    :data:`MERGE_SMEM_TARGET` bytes, at least one
+    (nothing staged where no pair has two items: the blocks copy); where
+    one slot's lists pass :data:`MERGE_SMEM_MAX`, a warp a slot streamed
+    from device memory (``cap`` 0)."""
+    if k <= MERGE_WARP_MAX_K:
+        return MergePlan(min(qtile, MERGE_WARP_GROUP), 0, 0)
+    cap = MERGE_DEFAULT_CAP if max_items is None else max_items
+    run = MERGE_SMEM_TARGET // ((2 * cap + 2) * 4) // 4 * 4  # the values of one run that fit
+    group = max(1, min(qtile, MERGE_WARPS, (run - 3) // k))
+    smem = merge_smem_bytes(group, cap, k)
+    if smem > MERGE_SMEM_MAX:
+        return MergePlan(min(qtile, MERGE_WARPS), 0, 0)
+    return MergePlan(group, cap, smem)
+
+
+def merge_split_lists(item_d: torch.Tensor, item_s: torch.Tensor, pair_items: torch.Tensor,
+                      max_items: Optional[int] = None, *, plan: Optional[MergePlan] = None
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The merge (see :func:`merge_split_lists_reference`): the CUDA
     kernel for CUDA tensors, the plain version for CPU tensors.
     ``item_d`` (n_items, qtile, k) f32, ``item_s`` int32, ``pair_items``
-    (n_pairs + 1,) int32."""
+    (n_pairs + 1,) int32; ``max_items``: the most items a pair has, a host
+    integer (:func:`merge_plan`; without it any count is still merged
+    right); ``plan`` overrides :func:`merge_plan`'s (tests, probes)."""
     if item_d.device.type == "cpu":
         return merge_split_lists_reference(item_d, item_s, pair_items)
     if item_d.device.type != "cuda":
@@ -654,12 +730,14 @@ def merge_split_lists(item_d: torch.Tensor, item_s: torch.Tensor,
         raise ValueError("merge_split_lists: contiguous tensors on one device")
     _, qtile, k = item_d.shape
     n_pairs = pair_items.shape[0] - 1
+    plan = plan or merge_plan(k, qtile, max_items)
     lib = cuda_build.load(MERGE_SOURCE, _bind_merge)
     out_d = torch.empty((n_pairs, qtile, k), dtype=torch.float32, device=item_d.device)
     out_s = torch.empty((n_pairs, qtile, k), dtype=torch.int32, device=item_d.device)
     with torch.cuda.device(item_d.device):
         err = lib.lmi_scan_merge(item_d.data_ptr(), item_s.data_ptr(), pair_items.data_ptr(),
                                  out_d.data_ptr(), out_s.data_ptr(), n_pairs, qtile, k,
+                                 plan.group, plan.cap, plan.smem,
                                  torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"scan_merge kernel launch failed: cudaError {err}")
@@ -788,9 +866,10 @@ def _kernel_round(queries, ptr, chunk_of, store, scales, qscales, row_ids, *, qt
                   chunk: int, mode: str, segment: Optional[int] = None):
     """``scan_round(qidx, pair_bucket, k, floor)`` of :func:`scan_in_rounds`:
     the pairs split into items (one host read of the plan, one upload),
-    one scan kernel launch over the items and one merge kernel launch,
-    ``k <= MAX_K``, the queries laid out once for each body that reads
-    them (:func:`scan_body`: a round's width may change the body).
+    one scan kernel launch over the items and, where a pair split, one
+    merge kernel launch (counted in ``SPLIT_LAUNCHES``), ``k <= MAX_K``,
+    the queries laid out once for each body that reads them
+    (:func:`scan_body`: a round's width may change the body).
     ``segment`` forces the segment length (tests and ``chip_smoke.py``);
     by default :func:`segment_length` picks it."""
     lib = cuda_build.load(SOURCE, _bind)
@@ -820,6 +899,8 @@ def _kernel_round(queries, ptr, chunk_of, store, scales, qscales, row_ids, *, qt
                                  chunk_of, store, scales, row_ids, i_floor, k=w, qtile=qtile,
                                  chunk=chunk, mode=mode, terms=terms, body=body.kind)
 
+        global SPLIT_LAUNCHES
+        SPLIT_LAUNCHES += bool((np.diff(ptr_h)[pb_h] > seg).any())  # a bucket of several segments
         return scan_split(scan_items, merge_split_lists, q_idx, floor, ptr_h, pb_h, seg,
                           qtile=qtile, chunk=chunk)
 
@@ -845,7 +926,8 @@ def scan_pairs(
     """The scan (see module docstring): the CUDA kernels for CUDA tensors,
     the plain version for CPU tensors.  Same arguments and results as
     :func:`scan_pairs_reference`.  On CUDA each launch splits the pairs
-    into items and merges them back (one scan and one merge launch), and
+    into items and merges them back (one scan launch, and one merge
+    launch where a pair split), and
     a ``k`` above :data:`MAX_K` takes one such launch a round of at most
     ``MAX_K`` (:func:`scan_in_rounds`)."""
     if store.device.type == "cpu":

@@ -2254,7 +2254,8 @@ def test_wide_lists_keep_the_tie_rule(cuda, mode, store_dtype, width, qtile):
 def _split_kernel(args, plan, store, k, qtile, mode, segment):
     """The scan and merge kernels over ``args``'s plan with ``segment``
     chunks a segment (None: the wrapper's choice), in rounds past 1024;
-    checks one scan and one merge launch a round."""
+    checks one scan launch a round and one merge a round that split a pair
+    (none over whole buckets, segment 10**6)."""
     launch = scan_kernel._kernel_round(args[0], *args[3:7], args[7], args[8], qtile=qtile,
                                        chunk=store.chunk, mode=mode, segment=segment)
     rounds = []
@@ -2263,7 +2264,8 @@ def _split_kernel(args, plan, store, k, qtile, mode, segment):
         rounds.append(w)
         return launch(q_idx, p_bucket, w, floor)
 
-    before = (scan_kernel.LAUNCHES, scan_kernel.MERGE_LAUNCHES)
+    counts = ("LAUNCHES", "MERGE_LAUNCHES", "SPLIT_LAUNCHES")
+    before = [getattr(scan_kernel, c) for c in counts]
     if k <= scan_kernel.MAX_K:
         out = scan_round(plan.qidx, plan.pair_bucket, k, None)
     else:
@@ -2271,8 +2273,10 @@ def _split_kernel(args, plan, store, k, qtile, mode, segment):
         out = scan_kernel.scan_in_rounds(scan_round, plan.qidx, plan.pair_bucket, positions,
                                          k=k, qtile=qtile, chunk=store.chunk)
     torch.cuda.synchronize()
-    assert (scan_kernel.LAUNCHES - before[0], scan_kernel.MERGE_LAUNCHES - before[1]) == (
-        len(rounds), len(rounds))
+    scans, merges, splits = (getattr(scan_kernel, c) - b for c, b in zip(counts, before))
+    assert scans == len(rounds) and merges == splits
+    if segment == 10**6:
+        assert merges == 0
     return out
 
 
@@ -2301,24 +2305,68 @@ def test_split_kernel_equals_unsplit_kernel(cuda, mode, store_dtype, k, qtile):
                 _in_scan_order(plan.qidx, plan.pair_bucket, got[1].cpu().numpy(), in_order)
 
 
-@pytest.mark.parametrize("k,qtile", [(16, 128), (106, 8), (1024, 3)])
-def test_merge_kernel_matches_plain_version(cuda, k, qtile):
-    """Sorted lists with many exact ties, 1 to 40 items a pair: the merge
-    kernel equals its plain version bit for bit (distance, item order,
-    place in list), one launch."""
-    rng = np.random.default_rng(k)
-    per_pair = rng.integers(1, 41, 30)
-    per_pair[:3] = 1
+def _merge_lists(rng, per_pair, qtile, k):
+    """Sorted item lists with many exact ties (values in sevenths), ~20%
+    +inf, one item of the second pair all +inf; ``per_pair`` items a pair."""
     pair_items = np.concatenate([[0], np.cumsum(per_pair)]).astype(np.int32)
     n_items = int(pair_items[-1])
     vals = rng.integers(0, 50, (n_items, qtile, k)).astype(np.float32) / 7
     vals[rng.random((n_items, qtile, k)) < 0.2] = np.inf
+    vals[pair_items[1]] = np.inf  # an empty item inside a split pair
     vals.sort(axis=2)
     slots = np.where(np.isinf(vals), -1, rng.integers(0, 2**30, vals.shape)).astype(np.int32)
+    return vals, slots, pair_items
+
+
+@pytest.mark.parametrize("qtile", [1, 3, 8, 100, 128])
+@pytest.mark.parametrize("k", [16, 32, 106, 128, 1024])
+def test_merge_kernel_matches_plain_version(cuda, k, qtile):
+    """Sorted lists with many exact ties, 1 to 80 items a pair (one-item
+    pairs among split ones, an all-+inf item): the merge kernel equals its
+    plain version bit for bit (distance, item order, place in list), one
+    launch a call.  Lists of at most 32 merge in a warp's lanes: under the
+    wrapper's plan and groups of 3 and of the whole query tile.  Wider:
+    under the plan for the most items a pair has (staged in shared memory,
+    or past its budget streamed: k 1024 at 24 items and more), for an
+    unknown count (pairs past the default cap streamed) and for a count
+    that every split pair passes (all streamed)."""
+    rng = np.random.default_rng(k * 1000 + qtile)
+    budget = max(6, 2**24 // (qtile * k))  # items, so that the lists stay ~128 MB
+    per_pair = [1, min(80, budget - 5), 1, 2, 3]
+    while sum(per_pair) < budget and len(per_pair) < 40:
+        per_pair.append(int(rng.integers(1, min(81, budget - sum(per_pair) + 1))))
+    vals, slots, pair_items = _merge_lists(rng, np.asarray(per_pair), qtile, k)
     args = tuple(torch.as_tensor(a, device=cuda) for a in (vals, slots, pair_items))
-    before = scan_kernel.MERGE_LAUNCHES
-    kd, ks = scan_kernel.merge_split_lists(*args)
-    torch.cuda.synchronize()
-    assert scan_kernel.MERGE_LAUNCHES == before + 1
     rd, rs = scan_kernel.merge_split_lists_reference(*args)
-    assert torch.equal(kd.view(torch.int32), rd.view(torch.int32)) and torch.equal(ks, rs)
+    most = max(per_pair)
+    plans = {m: scan_kernel.merge_plan(k, qtile, m) for m in (most, None, 2)}
+    if k <= scan_kernel.MERGE_WARP_MAX_K:
+        plans = {most: plans[most], "group 3": scan_kernel.MergePlan(min(3, qtile), 0, 0),
+                 "whole tile": scan_kernel.MergePlan(qtile, 0, 0)}
+    else:
+        assert plans[2].cap == 2 and (plans[most].cap == 0) == (
+            scan_kernel.merge_smem_bytes(1, most, k) > scan_kernel.MERGE_SMEM_MAX)
+    for name, plan in plans.items():
+        before = scan_kernel.MERGE_LAUNCHES
+        kd, ks = scan_kernel.merge_split_lists(*args, most, plan=plan)
+        torch.cuda.synchronize()
+        assert scan_kernel.MERGE_LAUNCHES == before + 1
+        assert torch.equal(kd.view(torch.int32), rd.view(torch.int32)) and torch.equal(ks, rs), (
+            f"{name}: plan {plan}")
+
+
+def test_scan_merges_only_where_a_pair_splits(cuda):
+    """A scan over whole buckets (segment 10**6: one item a pair) launches
+    no merge, and its lists are the scan's; at segment 1 every bucket of
+    several chunks splits, one merge; the same bits."""
+    store, queries, order, _ = _tied_case(cuda, "int8", seed=3)
+    plan, args = scan_inputs(store, queries, order, 128, "bf16")
+    assert int((args[3][1:] - args[3][:-1]).max()) > 1
+    out = {}
+    for segment, merges in ((10**6, 0), (1, 1)):
+        before = scan_kernel.LAUNCHES, scan_kernel.MERGE_LAUNCHES, scan_kernel.SPLIT_LAUNCHES
+        out[segment] = _split_kernel(args, plan, store, 16, 128, "bf16", segment)
+        assert (scan_kernel.LAUNCHES - before[0], scan_kernel.MERGE_LAUNCHES - before[1],
+                scan_kernel.SPLIT_LAUNCHES - before[2]) == (1, merges, merges)
+    assert torch.equal(out[1][0].view(torch.int32), out[10**6][0].view(torch.int32))
+    assert torch.equal(out[1][1], out[10**6][1])

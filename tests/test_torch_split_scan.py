@@ -190,6 +190,233 @@ def test_merge_keeps_the_tie_rule_across_items():
             assert md[p, q].tolist() == want_d and ms[p, q].tolist() == want_s
 
 
+def test_scan_split_merges_only_where_a_pair_splits():
+    """Where every pair is one item, ``scan_split`` returns the scan's own
+    tensors and never calls ``merge``; a work list that cuts a pair calls
+    it once, with the most items a pair has (a host integer)."""
+    ptr = np.array([0, 3, 4, 10, 10])  # buckets of 3, 1, 6 and 0 chunks
+    qtile, k = 2, 4
+    made, calls = [], []
+
+    def scan_items(i_qidx, i_bucket, i_ptr, i_floor):
+        assert i_qidx.shape == (i_bucket.shape[0] * qtile,)
+        made.append((torch.rand(i_bucket.shape[0], qtile, k),
+                     torch.zeros(i_bucket.shape[0], qtile, k, dtype=torch.int32)))
+        return made[-1]
+
+    def merge(d, s, pair_items, max_items):
+        assert d is made[-1][0] and s is made[-1][1]
+        calls.append((pair_items.tolist(), max_items))
+        return "merged"
+
+    for pairs, segment in (([0, 2, 3], BIG), ([0, 1, 3], 6), ([0, 1, 1], 3)):
+        qidx = torch.arange(len(pairs) * qtile, dtype=torch.int32)
+        out = scan_kernel.scan_split(scan_items, merge, qidx, None, ptr, np.array(pairs), segment,
+                                     qtile=qtile, chunk=8)
+        assert out[0] is made[-1][0] and out[1] is made[-1][1] and not calls
+    out = scan_kernel.scan_split(scan_items, merge, torch.arange(6, dtype=torch.int32), None, ptr,
+                                 np.array([0, 2, 3]), 2, qtile=qtile, chunk=8)
+    assert out == "merged" and calls == [([0, 2, 5, 6], 3)]
+
+
+@pytest.mark.parametrize("k", [1, 2, 5, 16, 32, 64, 100, 106, 128, 256, 512, 1000, 1024])
+def test_merge_plan_fits_every_shape(k):
+    """The merge kernel's plan over query tiles 1-128 and 1-80 items a pair
+    (and an unknown count): lists of at most 32 merged in a warp's lanes (a
+    group of 16 slots, nothing staged); wider, a group of 1 to qtile query
+    slots, the widest of at most 8 whose staged lists fit in the target, or
+    of one slot past it; the shared memory the source's formula gives, within the
+    budget; streamed (cap 0, no shared memory, a warp a slot) only where
+    one slot's lists of every item pass the budget: at k 1024 from 24 items
+    on."""
+    for qtile in (1, 2, 3, 8, 100, 127, 128):
+        for items in (None, 1, 2, 3, 7, 16, 23, 24, 25, 40, 80):
+            plan = scan_kernel.merge_plan(k, qtile, items)
+            assert 1 <= plan.group <= qtile
+            cap = scan_kernel.MERGE_DEFAULT_CAP if items is None else items
+            if k <= scan_kernel.MERGE_WARP_MAX_K:
+                assert plan == (min(qtile, scan_kernel.MERGE_WARP_GROUP), 0, 0)
+            elif cap < 2:  # no pair to merge: the blocks copy
+                assert plan.cap == cap and plan.smem == 0
+            elif plan.cap == 0:
+                assert scan_kernel.merge_smem_bytes(1, cap, k) > scan_kernel.MERGE_SMEM_MAX
+                assert plan.smem == 0 and plan.group == min(qtile, scan_kernel.MERGE_WARPS)
+            else:
+                assert plan.cap == cap
+                assert plan.smem == scan_kernel.merge_smem_bytes(plan.group, cap, k)
+                assert plan.smem <= scan_kernel.MERGE_SMEM_MAX
+                assert plan.smem <= scan_kernel.MERGE_SMEM_TARGET or plan.group == 1
+                if plan.group < min(qtile, scan_kernel.MERGE_WARPS):
+                    assert (scan_kernel.merge_smem_bytes(plan.group + 1, cap, k)
+                            > scan_kernel.MERGE_SMEM_TARGET)
+    # each run: the group's values, up to 3 ahead of them, whole 16 bytes
+    assert scan_kernel.merge_smem_bytes(3, 2, 5) == 6 * 20 * 4  # 15 + 3 values -> 20
+    assert scan_kernel.merge_smem_bytes(1, 1, k) == 0
+    if k == 1024:
+        assert scan_kernel.merge_plan(k, 128, 23).cap == 23
+        assert scan_kernel.merge_plan(k, 128, 24).cap == 0
+
+
+def _merge_model(item_d, item_s, pair_items, plan, offsets=(0, 0, 0, 0)):
+    """A numpy model of ``csrc/scan_merge.cu`` under ``plan``: a block a
+    (pair, group of query slots); a pair without items written as fill,
+    one item copied; lists of k <= 32 merged in a warp's 16 or 32 lanes a
+    slot (the running list and each next item padded with +inf to the
+    lanes, each entry ranked in their union by the other list's entries
+    below it: < for the running list's, <= for the item's; the places
+    below k taken back; slot -1 where +inf); wider lists, 2 .. cap items
+    staged (each run of the group's lists placed in shared memory at its
+    first value's place within 16 bytes, the output run filled with +inf /
+    -1 first, each finite entry placed by binary searches over the first
+    k - place entries of the other lists: <= in earlier items, < in later
+    ones; past k - 1 it drops out; the output run written back); more
+    streamed, a warp a slot (the finite count, the same placement, the
+    fill past the count).  ``offsets``: where item distances, item slots,
+    output distances and output slots start within their 16 bytes.
+    Unwritten output stays NaN / -7."""
+    n_items, qtile, k = item_d.shape
+    n_pairs = len(pair_items) - 1
+    o_id, o_is, o_od, o_os = offsets
+    gd = np.concatenate([np.zeros(o_id, np.float32), item_d.ravel()])
+    gs = np.concatenate([np.zeros(o_is, np.int32), item_s.ravel()])
+    out_d = np.full(o_od + n_pairs * qtile * k, np.nan, np.float32)
+    out_s = np.full(o_os + n_pairs * qtile * k, -7, np.int32)
+    groups = -(-qtile // plan.group)
+    run = (plan.group * k + 6) // 4 * 4
+    assert plan.smem == (scan_kernel.merge_smem_bytes(plan.group, plan.cap, k))
+
+    def place_of(v, i, j, lists):
+        place = i
+        for o, other in enumerate(lists):
+            if place >= k:
+                break
+            if o != j:
+                place += int(np.searchsorted(other[:k - place], v,
+                                             side="right" if o < j else "left"))
+        return place
+
+    for block in range(n_pairs * groups):
+        pair, s0 = divmod(block, groups)
+        s0 *= plan.group
+        ns = min(plan.group, qtile - s0)
+        size = ns * k
+        i0, n = pair_items[pair], pair_items[pair + 1] - pair_items[pair]
+        out = (pair * qtile + s0) * k
+        at = [((i0 + j) * qtile + s0) * k for j in range(n)]
+        if n <= 0:
+            out_d[o_od + out:o_od + out + size] = np.inf
+            out_s[o_os + out:o_os + out + size] = -1
+        elif n == 1:
+            out_d[o_od + out:o_od + out + size] = gd[o_id + at[0]:o_id + at[0] + size]
+            out_s[o_os + out:o_os + out + size] = gs[o_is + at[0]:o_is + at[0] + size]
+        elif k <= scan_kernel.MERGE_WARP_MAX_K:
+            lanes = 16 if k <= 16 else 32
+
+            def padded(a, slot, g):
+                row = np.full(lanes, np.inf if g is gd else -1, g.dtype)
+                start = (o_id if g is gd else o_is) + a + slot * k
+                row[:k] = g[start:start + k]
+                return row
+
+            for slot in range(ns):
+                run_d, run_s = padded(at[0], slot, gd), padded(at[0], slot, gs)
+                for a in at[1:]:
+                    it_d, it_s = padded(a, slot, gd), padded(a, slot, gs)
+                    r_run = np.arange(lanes) + np.searchsorted(it_d, run_d, side="left")
+                    r_item = np.arange(lanes) + np.searchsorted(run_d, it_d, side="right")
+                    md = np.full(lanes, np.nan, np.float32)
+                    ms = np.full(lanes, -9, np.int32)
+                    for r, v, sl in zip(np.concatenate([r_run, r_item]),
+                                        np.concatenate([run_d, it_d]),
+                                        np.concatenate([run_s, it_s])):
+                        if r < k:
+                            assert np.isnan(md[r])  # no place taken twice
+                            md[r], ms[r] = v, sl
+                    run_d = np.where(np.arange(lanes) < k, md, np.inf).astype(np.float32)
+                    run_s = np.where(np.arange(lanes) < k, ms, -1).astype(np.int32)
+                w = out + slot * k
+                out_d[o_od + w:o_od + w + k] = run_d[:k]
+                out_s[o_os + w:o_os + w + k] = np.where(run_d[:k] < np.inf, run_s[:k], -1)
+        elif n <= plan.cap:
+            sd = np.full((plan.cap, run), np.nan, np.float32)
+            ss = np.full((plan.cap, run), -9, np.int32)
+            rd = [(o_id + a) % 4 for a in at]
+            rs = [(o_is + a) % 4 for a in at]
+            for j, a in enumerate(at):
+                sd[j, rd[j]:rd[j] + size] = gd[o_id + a:o_id + a + size]
+                ss[j, rs[j]:rs[j] + size] = gs[o_is + a:o_is + a + size]
+            r_od, r_os = (o_od + out) % 4, (o_os + out) % 4
+            md = np.full(run, np.nan, np.float32)
+            ms = np.full(run, -9, np.int32)
+            md[r_od:r_od + size], ms[r_os:r_os + size] = np.inf, -1
+            for j in range(n):
+                for rem in range(size):
+                    v = sd[j, rd[j] + rem]
+                    if not v < np.inf:
+                        continue
+                    slot, i = divmod(rem, k)
+                    lists = [sd[o, rd[o] + slot * k:rd[o] + slot * k + k] for o in range(n)]
+                    place = place_of(v, i, j, lists)
+                    if place < k:
+                        md[r_od + slot * k + place] = v
+                        ms[r_os + slot * k + place] = ss[j, rs[j] + rem]
+            out_d[o_od + out:o_od + out + size] = md[r_od:r_od + size]
+            out_s[o_os + out:o_os + out + size] = ms[r_os:r_os + size]
+        else:
+            for slot in range(ns):
+                lists = [gd[o_id + a + slot * k:o_id + a + slot * k + k] for a in at]
+                slots = [gs[o_is + a + slot * k:o_is + a + slot * k + k] for a in at]
+                w = out + slot * k
+                n_finite = sum(int(np.searchsorted(lst, np.inf)) for lst in lists)
+                for j in range(n):
+                    for i in range(k):
+                        if not lists[j][i] < np.inf:
+                            break
+                        place = place_of(lists[j][i], i, j, lists)
+                        if place < k:
+                            out_d[o_od + w + place] = lists[j][i]
+                            out_s[o_os + w + place] = slots[j][i]
+                out_d[o_od + w + n_finite:o_od + w + k] = np.inf
+                out_s[o_os + w + n_finite:o_os + w + k] = -1
+    return (out_d[o_od:].reshape(n_pairs, qtile, k), out_s[o_os:].reshape(n_pairs, qtile, k))
+
+
+@pytest.mark.parametrize("offsets", [(0, 0, 0, 0), (1, 3, 2, 1)])
+@pytest.mark.parametrize("plan_kind", ["staged", "narrow", "default cap", "streamed"])
+@pytest.mark.parametrize("k,qtile", [(1, 3), (7, 5), (16, 3), (20, 2), (33, 3), (40, 5)])
+def test_merge_model_matches_plain_version(k, qtile, plan_kind, offsets):
+    """The kernel's placement, modelled in numpy (``_merge_model``), equals
+    ``merge_split_lists_reference`` bit for bit: exact ties across items
+    (the earlier item first), all-+inf items, a pair without items,
+    one-item pairs among split ones, groups that do not divide the query
+    tile, runs that start anywhere within 16 bytes; lists of at most 32 in
+    the lanes of a warp (16 or 32 a slot), wider ones under the plan for
+    the most items a pair has, a plan of two-slot groups, the default cap
+    (pairs past it streamed) and a streamed plan."""
+    rng = np.random.default_rng(k * 100 + qtile)
+    per_pair = np.array([1, 4, 0, 1, 2, 11, 3, 1, 5])
+    pair_items = np.concatenate([[0], np.cumsum(per_pair)])
+    n_items = int(pair_items[-1])
+    vals = rng.integers(0, 6, (n_items, qtile, k)).astype(np.float32)  # many exact ties
+    vals[rng.random(vals.shape) < 0.25] = np.inf
+    vals[pair_items[1] + 1] = np.inf  # an empty item inside a split pair
+    vals.sort(axis=2)
+    slots = np.where(np.isinf(vals), -1, rng.permutation(vals.size).reshape(vals.shape))
+    slots = slots.astype(np.int32)
+    most = int(per_pair.max())
+    plan = {"staged": scan_kernel.merge_plan(k, qtile, most),
+            "narrow": scan_kernel.MergePlan(min(2, qtile), most,
+                                            scan_kernel.merge_smem_bytes(min(2, qtile), most, k)),
+            "default cap": scan_kernel.merge_plan(k, qtile),
+            "streamed": scan_kernel.MergePlan(min(qtile, scan_kernel.MERGE_WARPS), 0, 0)}[plan_kind]
+    md, ms = _merge_model(vals, slots, pair_items, plan, offsets)
+    rd, rs = scan_kernel.merge_split_lists_reference(
+        torch.as_tensor(vals), torch.as_tensor(slots),
+        torch.as_tensor(pair_items, dtype=torch.int32))
+    np.testing.assert_array_equal(md.view(np.int32), rd.numpy().view(np.int32))
+    np.testing.assert_array_equal(ms, rs.numpy())
+
+
 # ----------------------------------------------------------------------
 # the split path against one scan of each whole bucket
 # ----------------------------------------------------------------------

@@ -196,12 +196,41 @@ class Side(NamedTuple):
     fma_body: bool  # f32 over an f32 store takes f32 query rows (the FMA body)
     merge: Optional[ctypes.CDLL]  # the merge kernel: this side splits its pairs
     wgmma: bool  # has the wgmma body (and takes the store's row count and the body)
+    merge_plan: bool  # its merge takes a plan (scan_kernel.merge_plan: group, cap, smem)
 
 
-def bind(library: Path, source: Path, merge: Optional[Path] = None) -> Side:
+def bind_merge(library: Path, source: Path) -> tuple:
+    """Load the merge ``library`` built from ``source`` with the argument
+    types its interface declares: ``(library, takes a plan)``."""
+    lib = ctypes.CDLL(str(library))
+    planned = "int group" in source.read_text()
+    if planned:
+        scan_kernel._bind_merge(lib)
+    else:  # the interface before the plan
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        lib.lmi_scan_merge.argtypes = [vp] * 5 + [ci] * 3 + [vp]
+        lib.lmi_scan_merge.restype = ci
+    return lib, planned
+
+
+def merge_call(lib, planned: bool, item_d, item_s, pair_items, out_d, out_s, max_items=None,
+               plan: Optional[scan_kernel.MergePlan] = None) -> int:
+    """One launch of a merge library (``bind_merge``) on the current
+    stream, through its own interface; ``plan`` overrides the plan
+    ``scan_kernel.merge_plan`` gives for ``max_items``."""
+    _, qtile, k = item_d.shape
+    args = (item_d.data_ptr(), item_s.data_ptr(), pair_items.data_ptr(), out_d.data_ptr(),
+            out_s.data_ptr(), pair_items.shape[0] - 1, qtile, k)
+    if planned:
+        args += tuple(plan or scan_kernel.merge_plan(k, qtile, max_items))
+    return lib.lmi_scan_merge(*args, torch.cuda.current_stream().cuda_stream)
+
+
+def bind(library: Path, source: Path, merge: Optional[Path] = None,
+         merge_source: Path = ROOT / MERGE_SOURCE) -> Side:
     """Load the scan ``library`` built from ``source`` (and the merge
-    kernel's, where given) and set their argument types for the interface
-    ``source`` declares."""
+    kernel's, built from ``merge_source``, where given) and set their
+    argument types for the interfaces the sources declare."""
     text = source.read_text()
     mapped = "const void* row_ids" in text
     wgmma = "scan_wgmma_kernel" in text
@@ -212,14 +241,13 @@ def bind(library: Path, source: Path, merge: Optional[Path] = None) -> Side:
     else:
         lib.lmi_scan_pairs.argtypes = [vp] * (14 if mapped else 11) + [ci] * 8 + [vp]
         lib.lmi_scan_pairs.restype = ci
-    merge_lib = None
+    merge_lib, planned = None, False
     if merge is not None:
         if not wgmma:
             lib.lmi_scan_blocks_per_sm.argtypes = [ci, ci, ci, ctypes.POINTER(ci)]
             lib.lmi_scan_blocks_per_sm.restype = ci
-        merge_lib = ctypes.CDLL(str(merge))
-        scan_kernel._bind_merge(merge_lib)
-    return Side(lib, mapped, "scan_f32_kernel" in text, merge_lib, wgmma)
+        merge_lib, planned = bind_merge(merge, merge_source)
+    return Side(lib, mapped, "scan_f32_kernel" in text, merge_lib, wgmma, planned)
 
 
 def side_body(side: Side, store, mode: str, k: int, row_ids,
@@ -306,13 +334,12 @@ def launcher(side: Side, store, queries, order, mode: str, k: int, segment=None,
         cs.check(err == 0, f"launch failed: cudaError {err}")
         return out_d, out_s
 
-    def merge(item_d, item_s, pair_items):
+    def merge(item_d, item_s, pair_items, max_items=None):
         n_pairs = pair_items.shape[0] - 1
         out_d = torch.empty((n_pairs, 128, item_d.shape[2]), device=st.device)
         out_s = torch.empty(out_d.shape, dtype=torch.int32, device=st.device)
-        err = side.merge.lmi_scan_merge(item_d.data_ptr(), item_s.data_ptr(),
-                                        pair_items.data_ptr(), out_d.data_ptr(), out_s.data_ptr(),
-                                        n_pairs, 128, item_d.shape[2], stream)
+        err = merge_call(side.merge, side.merge_plan, item_d, item_s, pair_items, out_d, out_s,
+                         max_items)
         cs.check(err == 0, f"merge launch failed: cudaError {err}")
         return out_d, out_s
 
@@ -418,7 +445,8 @@ def main() -> None:
     sides = {}
     for name, src in sources.items():
         merge = WORK / f"{name}_merge.so"
-        sides[name] = bind(WORK / f"{name}.so", src, merge if merge.exists() else None)
+        sides[name] = bind(WORK / f"{name}.so", src, merge if merge.exists() else None,
+                           src.parents[2] / MERGE_SOURCE)
     cs.log("[ab] " + "; ".join(
         f"{n}: {'splits its pairs and merges' if sd.merge else 'one block a pair'}"
         for n, sd in sides.items()))
