@@ -3200,7 +3200,7 @@ def phase_cli(dev, smi: str, argv=CLI_ARGV):
 
     from learnedmetricindex_tpu_torch import cli
     from learnedmetricindex_tpu_torch import eval as lmi_eval
-    from learnedmetricindex_tpu_torch.utils.profiling import annotate, device_trace
+    from learnedmetricindex_tpu_torch.utils.profiling import device_trace, span
 
     work = WORK_DIR / "cli"
     work.mkdir(parents=True, exist_ok=True)
@@ -3297,7 +3297,7 @@ def phase_cli(dev, smi: str, argv=CLI_ARGV):
             f"{CLI_TRACE_VISIT} {warm[CLI_TRACE_VISIT]:.4f} s per {nq} queries  [{smi}]")
         before = read_counts()
         with device_trace(str(work / "trace"), device=dev) as prof:
-            with annotate("lmi.search"):
+            with span("lmi.search"):
                 search(CLI_TRACE_VISIT)
         traced = {k: v - before[k] for k, v in read_counts().items()}
         window_ms, busy, top = trace_split(prof.trace_path, "lmi.search")

@@ -19,7 +19,7 @@ learnedmetricindex_tpu_torch.serve``).  The experiment driver, ``python
 (``data.py``) or seeded blobs, sweeps visit counts and writes SISAP
 result files (``eval.py``, which also scores them); ``Baseline`` is
 exact kNN for the ground truth, ``NeuralNetwork`` the reference's
-one-model API and ``utils/`` the timing, logging and trace helpers.
+one-model API and ``utils/`` the logging and trace helpers.
 
 A tensor corpus is searched through a *virtual* store, the id grid over
 the unmoved tensor (``LearnedIndex.get_bucket_store``), and

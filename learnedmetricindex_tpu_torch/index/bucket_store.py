@@ -33,6 +33,10 @@ their (Q, V) bucket visit order:
 4. :func:`rerank_exact_slots` recomputes exact f32 distances for the
    shortlist; slots resolve to object ids last.
 
+Each step runs under a span (``utils/profiling.py::span``): ``lmi.plan``
+(:func:`scan_inputs`), ``lmi.scan``, ``lmi.merge``, ``lmi.rerank`` and
+``lmi.resolve``.
+
 Distances are ``1 - <q, x>``; a query with no candidate gets
 ``dist = inf, id = 0``.
 
@@ -57,6 +61,7 @@ from learnedmetricindex_tpu_torch.ops.gather_kernel import gather_pairs, gather_
 from learnedmetricindex_tpu_torch.ops.precision import full_f32
 from learnedmetricindex_tpu_torch.ops.scan_kernel import MAX_QTILE, scan_pairs
 from learnedmetricindex_tpu_torch.ops.select import smallest_k
+from learnedmetricindex_tpu_torch.utils.profiling import span
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "int8": torch.int8}
 
@@ -442,10 +447,11 @@ def merge_pairs(
     gathers the candidate rows with one ``gather_pairs`` launch; else
     torch indexing (its plain version) does."""
     gather = gather_pairs if gather_kernel else gather_pairs_reference
-    d, s = gather(cand_d, cand_s, pair_rows, V)
-    vals, pos = smallest_k(d, k)
-    out_s = torch.gather(s, 1, pos)
-    return vals, torch.where(torch.isinf(vals), -1, out_s)
+    with span("lmi.merge"):
+        d, s = gather(cand_d, cand_s, pair_rows, V)
+        vals, pos = smallest_k(d, k)
+        out_s = torch.gather(s, 1, pos)
+        return vals, torch.where(torch.isinf(vals), -1, out_s)
 
 
 @full_f32()
@@ -506,29 +512,33 @@ def scan_buckets_device(
     # a query's results do not depend on its tile (ties go to the earlier
     # row, then the earlier visit), so larger tiles plan as the kernel's
     qtile = min(qtile, MAX_QTILE)
-    plan, args = scan_inputs(store, queries, bucket_order, qtile, mode)
+    with span("lmi.plan"):
+        plan, args = scan_inputs(store, queries, bucket_order, qtile, mode)
     if plan.n_pairs == 0:  # no query visits a bucket with rows: nothing to scan
         Q = queries.shape[0]
         return (torch.full((Q, k), torch.inf, device=store.device),
                 torch.zeros((Q, k), dtype=torch.int32, device=store.device))
-    cand_d, cand_s = scan_pairs(*args, k=k_scan, qtile=qtile, chunk=store.chunk, mode=mode)
+    with span("lmi.scan"):
+        cand_d, cand_s = scan_pairs(*args, k=k_scan, qtile=qtile, chunk=store.chunk, mode=mode)
     V = bucket_order.shape[1]
     dists, slots = merge_pairs(
         cand_d.reshape(-1, k_scan), cand_s.reshape(-1, k_scan), plan.pair_rows,
         k=k_scan, V=V, gather_kernel=gather_mode_is_kernel(),
     )
     if rerank:
-        if store.virtual:
-            dists, slots = rerank_exact_slots(
-                slots, queries, store.data_ref, store.row_scales, k=k,
-                row_ids=store.chunk_ids.reshape(-1),
-            )
-        else:
-            dists, slots = rerank_exact_slots(
-                slots, queries, store.chunk_data, store.scales_flat(), k=k
-            )
-    ids_flat = store.chunk_ids.reshape(-1)
-    ids = torch.where(slots >= 0, ids_flat[torch.clamp_min(slots, 0).long()], 0)
+        with span("lmi.rerank"):
+            if store.virtual:
+                dists, slots = rerank_exact_slots(
+                    slots, queries, store.data_ref, store.row_scales, k=k,
+                    row_ids=store.chunk_ids.reshape(-1),
+                )
+            else:
+                dists, slots = rerank_exact_slots(
+                    slots, queries, store.chunk_data, store.scales_flat(), k=k
+                )
+    with span("lmi.resolve"):
+        ids_flat = store.chunk_ids.reshape(-1)
+        ids = torch.where(slots >= 0, ids_flat[torch.clamp_min(slots, 0).long()], 0)
     return dists, ids
 
 

@@ -7,7 +7,9 @@ with the reference's timing keys.  Everything runs on the index's
 ``device``: the stacked MLP forward per level, masked softmax with the
 navigation temperature, bucket ordering, then
 ``bucket_store.scan_buckets_device`` (or, for a store sharded over
-devices, ``parallel.sharded_index.sharded_search``).
+devices, ``parallel.sharded_index.sharded_search``).  A search opens the
+spans ``lmi.upload`` (the queries to the device), ``lmi.navigate``, the
+scan's (``bucket_store``) and ``lmi.copy_back`` (``utils/profiling.py``).
 """
 
 from __future__ import annotations
@@ -42,6 +44,7 @@ from learnedmetricindex_tpu_torch.parallel.sharded_index import (
     shard_store,
     sharded_search,
 )
+from learnedmetricindex_tpu_torch.utils.profiling import span
 
 NEG_INF = -1e9
 CLASSIFY_ROWS = 1 << 16  # rows a slice of LearnedIndex.classify
@@ -309,38 +312,39 @@ class LearnedIndex:
 
         ``nav_temp``: softmax temperature, a scalar or one per level;
         ``None`` = 1.0 (untempered).  Ranking-neutral for one level."""
-        s = time.perf_counter()
-        if policy not in ("best_first", "joint"):
-            raise ValueError(f"Unknown navigation policy: {policy}")
-        if nav_temp is None:
-            nav_temp = 1.0
-        temps = (
-            [float(nav_temp)] * self.n_levels
-            if np.isscalar(nav_temp)
-            else [float(t) for t in nav_temp]
-        )
-        if len(temps) != self.n_levels:
-            raise ValueError(f"nav_temp has {len(temps)} entries for {self.n_levels} levels")
-        inv_temps = np.asarray([1.0 / t for t in temps], dtype=np.float32)
-        q = _as_tensor(queries_navigation, self.device)
-        n_leaves = self.layout.n_leaves
-        n_buckets = min(n_buckets, n_leaves)
-        cap = _quantize_visits(n_buckets, n_leaves)
-        # best-first state is (Q, E): wide trees navigate in query slices
-        # that fit the state budget (exact: queries are independent)
-        step = max(q.shape[0], 1)
-        if policy == "best_first" and self.n_levels > 1:
-            step = max_best_first_queries(self.layout.n_entries)
-        with torch.no_grad():
-            order = torch.cat([
-                _navigate_device(q[s0 : s0 + step], self.levels, self.layout, inv_temps,
-                                 cap=cap, policy=policy)[:, :n_buckets]
-                for s0 in range(0, max(q.shape[0], 1), step)
-            ])
-        if not keep_on_device:
-            order = order.cpu().numpy()
-        synchronize(self.device)
-        return order, time.perf_counter() - s
+        with span("lmi.navigate"):
+            s = time.perf_counter()
+            if policy not in ("best_first", "joint"):
+                raise ValueError(f"Unknown navigation policy: {policy}")
+            if nav_temp is None:
+                nav_temp = 1.0
+            temps = (
+                [float(nav_temp)] * self.n_levels
+                if np.isscalar(nav_temp)
+                else [float(t) for t in nav_temp]
+            )
+            if len(temps) != self.n_levels:
+                raise ValueError(f"nav_temp has {len(temps)} entries for {self.n_levels} levels")
+            inv_temps = np.asarray([1.0 / t for t in temps], dtype=np.float32)
+            q = _as_tensor(queries_navigation, self.device)
+            n_leaves = self.layout.n_leaves
+            n_buckets = min(n_buckets, n_leaves)
+            cap = _quantize_visits(n_buckets, n_leaves)
+            # best-first state is (Q, E): wide trees navigate in query slices
+            # that fit the state budget (exact: queries are independent)
+            step = max(q.shape[0], 1)
+            if policy == "best_first" and self.n_levels > 1:
+                step = max_best_first_queries(self.layout.n_entries)
+            with torch.no_grad():
+                order = torch.cat([
+                    _navigate_device(q[s0 : s0 + step], self.levels, self.layout, inv_temps,
+                                     cap=cap, policy=policy)[:, :n_buckets]
+                    for s0 in range(0, max(q.shape[0], 1), step)
+                ])
+            if not keep_on_device:
+                order = order.cpu().numpy()
+            synchronize(self.device)
+            return order, time.perf_counter() - s
 
     def search(
         self,
@@ -387,10 +391,11 @@ class LearnedIndex:
         s = time.perf_counter()
         if store is None:
             store = self.get_bucket_store(data_search, data_prediction)
-        q_nav = _as_tensor(queries_navigation, self.device)
-        q_search = q_nav if queries_search is queries_navigation else _as_tensor(
-            queries_search, self.device
-        )
+        with span("lmi.upload"):
+            q_nav = _as_tensor(queries_navigation, self.device)
+            q_search = q_nav if queries_search is queries_navigation else _as_tensor(
+                queries_search, self.device
+            )
         order, measured["inference"] = self.compute_bucket_order(
             q_nav, n_buckets, policy=policy, keep_on_device=True, nav_temp=nav_temp
         )
@@ -406,8 +411,9 @@ class LearnedIndex:
                     store, q_search, order, k=k, qtile=qtile, precision=precision,
                     rerank=rerank, rerank_margin=rerank_margin,
                 )
-            dists = dists.cpu().numpy()
-            anns = ids.cpu().numpy().astype(np.uint32)
+            with span("lmi.copy_back"):
+                dists = dists.cpu().numpy()
+                anns = ids.cpu().numpy().astype(np.uint32)
         t_scan = time.perf_counter() - s_scan
         measured["search_within_buckets"] = t_scan
         measured["seq_search"] = t_scan

@@ -28,6 +28,10 @@ afterwards only the returned store is consistent (the input's host
 arrays describe the old layout, its tensors may hold the new rows).  A
 caller that searches while another thread mutates serializes the two,
 as ``serve.SearchServer`` does with one lock.
+
+:class:`DynamicIndex` names its steps on the profiler's clock
+(``utils/profiling.py::span``): ``lmi.mutation.classify``,
+``lmi.mutation.insert_rows`` and ``lmi.mutation.delete_ids``.
 """
 
 from __future__ import annotations
@@ -40,6 +44,7 @@ import torch
 
 from learnedmetricindex_tpu_torch.index.bucket_store import BucketStore
 from learnedmetricindex_tpu_torch.ops import quantize
+from learnedmetricindex_tpu_torch.utils.profiling import span
 
 _INT32_MAX = 2**31 - 1
 _STORE_TYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "int8": torch.int8}
@@ -464,13 +469,16 @@ class DynamicIndex:
         d = self.store.chunk_data.shape[1]
         if vectors.ndim != 2 or vectors.shape[1] != d:
             raise ValueError(f"vectors must be (m, {d}), got {tuple(vectors.shape)}")
-        bucket_ids = self.index.bucket_ids_from_prediction(self.index.classify(vectors))
-        self.store = insert_rows(self.store, vectors, bucket_ids, object_ids)
+        with span("lmi.mutation.classify"):
+            bucket_ids = self.index.bucket_ids_from_prediction(self.index.classify(vectors))
+        with span("lmi.mutation.insert_rows"):
+            self.store = insert_rows(self.store, vectors, bucket_ids, object_ids)
         self.next_id = max(self.next_id, int(object_ids.max()) + 1)
         return object_ids
 
     def delete(self, object_ids) -> int:
-        self.store, n = delete_ids(self.store, object_ids)
+        with span("lmi.mutation.delete_ids"):
+            self.store, n = delete_ids(self.store, object_ids)
         return n
 
     def search(self, queries, n_buckets: int = 1, k: int = 10, **knobs):

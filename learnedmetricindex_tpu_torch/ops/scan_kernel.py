@@ -63,6 +63,10 @@ of a pair whose bucket has no chunks.
   the body in f32 mode over a row map of an int8 corpus);
   ``MERGE_LAUNCHES`` — the merge kernel; ``SPLIT_LAUNCHES`` — the scan
   launches that split at least one pair (one merge each).
+* Spans (``utils/profiling.py::span``, recorded while a profiler runs):
+  ``lmi.split`` over a CUDA round (the plan's host read, the body, the
+  segment length, the split), ``lmi.launch`` inside it over each scan
+  and merge launch.
 
 Stores: a packed store is ``(n_slots, d)`` rows with ``(n_slots,)``
 scales (0 = padding slot).  A *virtual* store keeps no copy of the rows:
@@ -93,6 +97,7 @@ import torch
 from learnedmetricindex_tpu_torch.ops import cuda_build
 from learnedmetricindex_tpu_torch.ops.precision import full_f32
 from learnedmetricindex_tpu_torch.ops.select import smallest_k
+from learnedmetricindex_tpu_torch.utils.profiling import span
 
 MODES = {"f32": 0, "bf16": 1, "int8": 2}
 MAX_K = 1024  # the widest top-k list of csrc/scan_pairs.cu: wider k runs in rounds
@@ -734,7 +739,7 @@ def merge_split_lists(item_d: torch.Tensor, item_s: torch.Tensor, pair_items: to
     lib = cuda_build.load(MERGE_SOURCE, _bind_merge)
     out_d = torch.empty((n_pairs, qtile, k), dtype=torch.float32, device=item_d.device)
     out_s = torch.empty((n_pairs, qtile, k), dtype=torch.int32, device=item_d.device)
-    with torch.cuda.device(item_d.device):
+    with torch.cuda.device(item_d.device), span("lmi.launch"):
         err = lib.lmi_scan_merge(item_d.data_ptr(), item_s.data_ptr(), pair_items.data_ptr(),
                                  out_d.data_ptr(), out_s.data_ptr(), n_pairs, qtile, k,
                                  plan.group, plan.cap, plan.smem,
@@ -828,7 +833,7 @@ def _launch_items(lib, queries, qscales, qidx, pair_bucket, ptr, chunk_of, store
         return t.data_ptr() if t is not None else None
 
     ran = ctypes.c_int(body)
-    with torch.cuda.device(store.device):
+    with torch.cuda.device(store.device), span("lmi.launch"):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.lmi_scan_pairs(
             queries.data_ptr(), ptr_of(qscales),
@@ -887,22 +892,26 @@ def _kernel_round(queries, ptr, chunk_of, store, scales, qscales, row_ids, *, qt
         if n_pairs == 0:
             empty = torch.empty((0, qtile, w), device=store.device)
             return empty, empty.int()
-        ptr_h, pb_h, live_h = host_plan(ptr, p_bucket, q_idx, qtile)
-        body = scan_body(lib, store, mode, w, row_ids, floor is not None)
-        seg = segment
-        if seg is None:
-            seg = segment_length(ptr_h, pb_h, live_h, width=list_width(w), slots=body.slots,
-                                 wgmma_block=body.block_queries if body.wgmma else 0)
+        with span("lmi.split"):  # the round's host work; its launches in lmi.launch
+            ptr_h, pb_h, live_h = host_plan(ptr, p_bucket, q_idx, qtile)
+            body = scan_body(lib, store, mode, w, row_ids, floor is not None)
+            seg = segment
+            if seg is None:
+                seg = segment_length(ptr_h, pb_h, live_h, width=list_width(w),
+                                     slots=body.slots,
+                                     wgmma_block=body.block_queries if body.wgmma else 0)
 
-        def scan_items(i_qidx, i_bucket, i_ptr, i_floor):
-            return _launch_items(lib, body_queries(body), qscales, i_qidx, i_bucket, i_ptr,
-                                 chunk_of, store, scales, row_ids, i_floor, k=w, qtile=qtile,
-                                 chunk=chunk, mode=mode, terms=terms, body=body.kind)
+            def scan_items(i_qidx, i_bucket, i_ptr, i_floor):
+                return _launch_items(lib, body_queries(body), qscales, i_qidx, i_bucket, i_ptr,
+                                     chunk_of, store, scales, row_ids, i_floor, k=w,
+                                     qtile=qtile, chunk=chunk, mode=mode, terms=terms,
+                                     body=body.kind)
 
-        global SPLIT_LAUNCHES
-        SPLIT_LAUNCHES += bool((np.diff(ptr_h)[pb_h] > seg).any())  # a bucket of several segments
-        return scan_split(scan_items, merge_split_lists, q_idx, floor, ptr_h, pb_h, seg,
-                          qtile=qtile, chunk=chunk)
+            global SPLIT_LAUNCHES
+            # a bucket of several segments
+            SPLIT_LAUNCHES += bool((np.diff(ptr_h)[pb_h] > seg).any())
+            return scan_split(scan_items, merge_split_lists, q_idx, floor, ptr_h, pb_h, seg,
+                              qtile=qtile, chunk=chunk)
 
     return scan_round
 

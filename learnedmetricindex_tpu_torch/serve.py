@@ -16,6 +16,12 @@ coalesces concurrent requests into one ``LearnedIndex.search`` call.
   and every mutation: a search never sees half of a mutation, and a
   request submitted after a mutation returns sees all of it.  A plain
   index serves any store: packed, virtual or sharded over devices.
+  ``stats()["busy_s"]`` holds cumulative seconds: ``queue_wait`` (summed
+  over requests, submit to the start of their dispatch), ``lock_wait``
+  (the dispatcher waiting for the lock), ``dispatch`` and ``mutation``
+  (the lock held by each).  The dispatcher names its steps on the
+  profiler's clock: ``lmi.serve.batch_window``, ``lmi.serve.lock_wait``,
+  ``lmi.serve.dispatch``.
 * :func:`make_http_server` / :func:`main` — ``POST /search``, ``GET
   /healthz``, ``GET /stats``, and ``POST /insert``, ``/delete`` and
   ``/compact`` over a ``DynamicIndex``, on the standard library's
@@ -34,6 +40,7 @@ import logging
 import threading
 import time
 from collections import deque
+from contextlib import contextmanager
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -41,6 +48,7 @@ import numpy as np
 from learnedmetricindex_tpu_torch.index.mutation import DynamicIndex
 from learnedmetricindex_tpu_torch.ops import scan_kernel
 from learnedmetricindex_tpu_torch.parallel.sharded_mutation import ShardedDynamicIndex
+from learnedmetricindex_tpu_torch.utils.profiling import span
 
 __all__ = ["SearchServer", "make_http_server", "main"]
 
@@ -140,6 +148,10 @@ class SearchServer:
         self._batch_sizes: deque = deque(maxlen=4096)
         self._engine: Optional[str] = None  # what the last dispatch ran
         self._scan_launches = 0  # scan kernel launches of this server's dispatches
+        # cumulative seconds (stats()["busy_s"]): requests from submit to the
+        # start of their dispatch, the dispatcher waiting for the device lock,
+        # and the lock held by dispatches and by mutations
+        self._busy = {"queue_wait": 0.0, "lock_wait": 0.0, "dispatch": 0.0, "mutation": 0.0}
 
         if warmup:
             q = np.zeros((self.max_batch, self.d), np.float32)
@@ -189,6 +201,17 @@ class SearchServer:
                 "inserts and deletes"
             )
 
+    @contextmanager
+    def _mutating(self):
+        """The device lock around a mutation, its hold added to ``busy_s``."""
+        with self._device_lock:
+            t0 = time.perf_counter()
+            try:
+                yield
+            finally:
+                with self._lock:
+                    self._busy["mutation"] += time.perf_counter() - t0
+
     def insert(self, vectors: np.ndarray, object_ids=None) -> np.ndarray:
         """Insert rows into the live corpus; returns their 1-based ids.
         Searches submitted after this returns see the new rows."""
@@ -196,7 +219,7 @@ class SearchServer:
         vectors = np.ascontiguousarray(vectors, dtype=np.float32)
         if vectors.ndim != 2 or vectors.shape[1] != self.d:
             raise ValueError(f"vectors must be (N, {self.d}) float32, got {vectors.shape}")
-        with self._device_lock:
+        with self._mutating():
             ids = self.dynamic.insert(vectors, object_ids)
             self.store = self.dynamic.store
         with self._lock:
@@ -206,7 +229,7 @@ class SearchServer:
     def delete(self, object_ids) -> int:
         """Delete rows by 1-based id; returns how many were live."""
         self._require_dynamic()
-        with self._device_lock:
+        with self._mutating():
             n = self.dynamic.delete(np.asarray(object_ids, np.int64))
             self.store = self.dynamic.store
         with self._lock:
@@ -218,7 +241,7 @@ class SearchServer:
         results are bit-identical before and after.  Returns
         ``{"chunks_before": ..., "chunks_after": ...}``."""
         self._require_dynamic()
-        with self._device_lock:
+        with self._mutating():
             before = self.dynamic.store.n_chunks
             self.dynamic.compact()
             self.store = self.dynamic.store
@@ -252,6 +275,7 @@ class SearchServer:
                 # launches); "plain": its PyTorch version on the CPU
                 "engine": self._engine,
                 "scan_launches": self._scan_launches,
+                "busy_s": {kind: round(t, 6) for kind, t in self._busy.items()},
                 "mutable": self.dynamic is not None,
                 "inserts": self._n_inserts,
                 "deletes": self._n_deletes,
@@ -290,16 +314,27 @@ class SearchServer:
     # ---- dispatcher ----
 
     def _dispatch(self, queries: np.ndarray):
-        with self._device_lock:
-            before = scan_kernel.LAUNCHES
-            out = self.index.search(
-                None, queries, None, queries, None,
-                n_buckets=self.n_buckets, k=self.k, policy=self.policy, nav_temp=self.nav_temp,
-                precision=self.precision, rerank=self.rerank, rerank_margin=self.rerank_margin,
-                store=self.store,
-            )
-            launched = scan_kernel.LAUNCHES - before
-            engine = "plain" if self.store.device.type == "cpu" else "cuda"
+        t0 = time.perf_counter()
+        with span("lmi.serve.lock_wait"):
+            self._device_lock.acquire()
+        t1 = time.perf_counter()
+        try:
+            with span("lmi.serve.dispatch"):
+                before = scan_kernel.LAUNCHES
+                out = self.index.search(
+                    None, queries, None, queries, None,
+                    n_buckets=self.n_buckets, k=self.k, policy=self.policy,
+                    nav_temp=self.nav_temp, precision=self.precision, rerank=self.rerank,
+                    rerank_margin=self.rerank_margin, store=self.store,
+                )
+                launched = scan_kernel.LAUNCHES - before
+                engine = "plain" if self.store.device.type == "cpu" else "cuda"
+        finally:
+            t2 = time.perf_counter()
+            self._device_lock.release()
+            with self._lock:
+                self._busy["lock_wait"] += t1 - t0
+                self._busy["dispatch"] += t2 - t1
         with self._lock:
             self._engine = engine
             self._scan_launches += launched
@@ -314,11 +349,12 @@ class SearchServer:
             if self._closed:
                 return []
             if self.max_wait_ms > 0:
-                deadline = time.perf_counter() + self.max_wait_ms / 1e3
-                while time.perf_counter() < deadline:
-                    if sum(len(r.queries) for r in self._pending) >= self.max_batch:
-                        break
-                    self._lock.wait(max(deadline - time.perf_counter(), 0))
+                with span("lmi.serve.batch_window"):
+                    deadline = time.perf_counter() + self.max_wait_ms / 1e3
+                    while time.perf_counter() < deadline:
+                        if sum(len(r.queries) for r in self._pending) >= self.max_batch:
+                            break
+                        self._lock.wait(max(deadline - time.perf_counter(), 0))
             batch: List[_Request] = []
             n_q = 0
             while self._pending and n_q + len(self._pending[0].queries) <= self.max_batch:
@@ -335,6 +371,7 @@ class SearchServer:
                     if self._closed:
                         return
                 continue
+            t_start = time.perf_counter()
             queries = (batch[0].queries if len(batch) == 1
                        else np.concatenate([r.queries for r in batch]))
             try:
@@ -350,6 +387,7 @@ class SearchServer:
                 self._batch_sizes.append(len(queries))
                 self._n_requests += len(batch)
                 self._n_queries += len(queries)
+                self._busy["queue_wait"] += sum(t_start - req.t_submit for req in batch)
                 if err is not None:
                     self._n_errors += len(batch)
                 for req in batch:

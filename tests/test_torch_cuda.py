@@ -1750,7 +1750,7 @@ def test_baseline_on_gpu_matches_cpu(cuda):
 
 
 def test_device_trace_names_the_scan_kernel(cuda, tmp_path):
-    from learnedmetricindex_tpu_torch.utils.profiling import annotate, device_events, device_trace
+    from learnedmetricindex_tpu_torch.utils.profiling import device_events, device_trace, span
 
     data, _ = _corpus(4000, 64, seed=8)
     cfg = lmi.BuildConfiguration("kmeans", 2, "MLP", 0.01, [8], seed=8, chunk_size=128)
@@ -1759,11 +1759,47 @@ def test_device_trace_names_the_scan_kernel(cuda, tmp_path):
     q = torch.as_tensor(data[:500], device=cuda)
     index.search(None, q, None, q, pred, n_buckets=3, k=10, store=store)  # warm
     with device_trace(str(tmp_path), device=cuda) as prof:
-        with annotate("lmi.search"):
+        with span("lmi.search"):
             index.search(None, q, None, q, pred, n_buckets=3, k=10, store=store)
     names = {e["name"] for e in device_events(prof.trace_path)}
     # an f32 store at k_scan 16: the wgmma body over f32 rows
     assert any("scan_wgmma_f32" in n for n in names), sorted(names)[:20]
+
+
+def test_split_and_launch_spans_hold_the_scan_launch(cuda, tmp_path):
+    """The host call that launched the scan kernel (matched to the kernel
+    by its correlation id) lies in ``lmi.launch``, inside ``lmi.split``,
+    inside ``lmi.scan``, on one thread."""
+    import json
+
+    from learnedmetricindex_tpu_torch.utils.profiling import device_trace
+
+    data, _ = _corpus(4000, 64, seed=8)
+    cfg = lmi.BuildConfiguration("kmeans", 2, "MLP", 0.01, [8], seed=8, chunk_size=128)
+    index, pred, *_ = lmi.LearnedIndexBuilder(data, cfg, device=cuda).build()
+    store = index.get_bucket_store(data, pred)
+    q = torch.as_tensor(data[:500], device=cuda)
+    index.search(None, q, None, q, pred, n_buckets=3, k=10, store=store)  # warm
+    with device_trace(str(tmp_path), device=cuda) as prof:
+        index.search(None, q, None, q, pred, n_buckets=3, k=10, store=store)
+    with open(prof.trace_path) as f:
+        events = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
+    kernel = [e for e in events if e.get("cat") == "kernel" and "scan_wgmma" in e["name"]]
+    assert len(kernel) == 1, [e["name"] for e in events if e.get("cat") == "kernel"]
+    corr = kernel[0]["args"]["correlation"]
+    calls = [e for e in events if e.get("cat") in ("cuda_runtime", "cuda_driver")
+             and e.get("args", {}).get("correlation") == corr]
+    assert calls, f"no host call with the scan kernel's correlation {corr}"
+    call = calls[0]
+
+    def holding(name):
+        return [e for e in events if e.get("cat") == "user_annotation" and e["name"] == name
+                and e["tid"] == call["tid"]
+                and e["ts"] <= call["ts"] <= call["ts"] + call["dur"] <= e["ts"] + e["dur"]]
+
+    (launch,), (split,), (scan,) = holding("lmi.launch"), holding("lmi.split"), holding("lmi.scan")
+    assert scan["ts"] <= split["ts"] <= launch["ts"]
+    assert launch["ts"] + launch["dur"] <= split["ts"] + split["dur"] <= scan["ts"] + scan["dur"]
 
 
 def _virtual_case(dev, d, corpus, seed, shuffle):

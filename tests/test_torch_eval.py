@@ -7,7 +7,6 @@ import logging
 import os
 
 import h5py
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -17,11 +16,10 @@ from learnedmetricindex_tpu import data as jdata
 from learnedmetricindex_tpu import eval as jeval
 from learnedmetricindex_tpu.utils import compat as jcompat
 from learnedmetricindex_tpu.utils import logging as jlogging
-from learnedmetricindex_tpu.utils import timing as jtiming
 import learnedmetricindex_tpu_torch as lmi
 from learnedmetricindex_tpu_torch import data as pdata
 from learnedmetricindex_tpu_torch import eval as peval
-from learnedmetricindex_tpu_torch.utils import compat, profiling, timing
+from learnedmetricindex_tpu_torch.utils import compat, profiling
 from learnedmetricindex_tpu_torch.utils.logging import Logger, log_runtime
 
 torch.set_num_threads(2)
@@ -219,25 +217,6 @@ def test_serialize_and_filter_path_idxs_equal(tmp_path):
     assert (tmp_path / "p.pkl").read_bytes() == (tmp_path / "j.pkl").read_bytes()
 
 
-def test_timer_accumulates_as_the_jax_timer():
-    ours, theirs = timing.Timer(), jtiming.Timer()
-    for _ in range(2):
-        with ours.span("search", block_on=[torch.ones(3), {"x": torch.zeros(2)}]):
-            pass
-        with theirs.span("search", block_on=jnp.ones(3)):
-            pass
-        with ours.span("sort"):
-            pass
-        with theirs.span("sort"):
-            pass
-    ours.add("inference", 1.5)
-    theirs.add("inference", 1.5)
-    assert set(ours.as_dict()) == set(theirs.as_dict()) == {"search", "sort", "inference"}
-    assert ours.as_dict()["inference"] == 1.5 and ours.as_dict()["search"] > 0.0
-    tree = (torch.ones(2), [torch.zeros(1)])
-    assert timing.block(tree) is tree
-
-
 def test_log_runtime_logs_as_the_jax_decorator(caplog):
     class Ours(Logger):
         @log_runtime(logging.INFO, "ran in {:.3f}s")
@@ -259,7 +238,7 @@ def test_log_runtime_logs_as_the_jax_decorator(caplog):
 
 def test_device_trace_writes_a_trace_on_the_cpu(tmp_path):
     with profiling.device_trace(str(tmp_path), device="cpu") as prof:
-        with profiling.annotate("lmi.probe"):
+        with profiling.span("lmi.probe"):
             torch.ones(64, 64) @ torch.ones(64, 64)
     assert prof.trace_path and os.path.dirname(prof.trace_path) == str(tmp_path)
     with open(prof.trace_path) as f:

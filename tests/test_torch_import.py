@@ -52,7 +52,6 @@ MODULES = [
     "learnedmetricindex_tpu_torch.utils.compat",
     "learnedmetricindex_tpu_torch.utils.logging",
     "learnedmetricindex_tpu_torch.utils.profiling",
-    "learnedmetricindex_tpu_torch.utils.timing",
 ]
 
 
